@@ -1,0 +1,115 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in `unpaired_image_captioning_tpu_torch/_build/`, named by a
+hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the cached file. Pointers and the stream are passed as
+`c_void_p`, sizes as `c_int`; each C function returns `cudaGetLastError()`
+after its launch and `check` raises on a non-zero code.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes of the C entry points in csrc/
+SIGNATURES = {
+    # x, h, c, w, b, h_out, c_out, B, D, H, G, stream
+    "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, vals, idx, R, V, k, stream
+    "row_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None   # wall time of the build or cache load
+build_log: str = ""                  # nvcc's output (ptxas register counts)
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load() -> ctypes.CDLL:
+    """Return the kernel library, building it first if it is not cached."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        srcs = _sources()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"kernels-{_digest(srcs)}.so"
+        if not so.exists():
+            # build under a temporary name, then rename: a concurrent
+            # process never loads a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{build_log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        build_seconds = time.perf_counter() - t0
+        _lib = lib
+        return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")

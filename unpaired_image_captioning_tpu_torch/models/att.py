@@ -1,0 +1,241 @@
+"""Attention-LSTM caption decoders: the `AttModel` base with the StackAtt
+and DenseAtt cores (counterpart of
+`unpaired_image_captioning_tpu/models/att.py`).
+
+- word embedding with ReLU+dropout, `fc_embed` / `att_embed` MLPs, the
+  attention memory pre-projected once per sequence (`ctx2att`);
+- additive attention with softmax -> mask -> renormalize;
+- StackAtt: three maxout LSTMs and two attentions per step; DenseAtt adds
+  the two fusion layers.
+
+States are batch-major `(h[B,L,H], c[B,L,H])` so beam search reorders them
+along dim 0. The attentions are plain torch; every LSTM step goes through
+`ops.rnn.lstm_step` (the fused kernel on CUDA). The other caption families
+and `use_bn` BatchNorm are ROADMAP A10.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops import rnn
+from ..ops.masking import masked_softmax
+from .base import (CaptionDecoder, Features, dropout, embedding_init,
+                   init_embedding, init_module, linear, linear_init)
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+def attention_init(rnn_size: int, att_hid_size: int, *,
+                   device=None) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "h2att": linear_init(rnn_size, att_hid_size, device=device),
+        "alpha_net": linear_init(att_hid_size, 1, device=device),
+    })
+
+
+def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks):
+    """Additive attention.
+
+    h: [B*K, H] queries; att_emb: [B, N, D]; p_att: [B, N, A]; att_masks:
+    [B, N] or None. When K > 1 (beam search with unexpanded memory) the
+    memory is read once per image and broadcast over the K beams. Softmax
+    over N, then multiplicative mask + renormalize (NOT -inf mask).
+    """
+    att_h = linear(p["h2att"], h)                                   # [BK,A]
+    bq = h.shape[0]
+    bm = p_att.shape[0]
+    if bq != bm:
+        k = bq // bm
+        att_hk = att_h.reshape(bm, k, -1)
+        dot = torch.tanh(p_att[:, None, :, :] + att_hk[:, :, None, :])  # [B,K,N,A]
+        scores = linear(p["alpha_net"], dot)[..., 0]                  # [B,K,N]
+        mask = att_masks[:, None, :] if att_masks is not None else None
+        weight = masked_softmax(scores, mask)
+        out = torch.einsum("bkn,bnd->bkd", weight, att_emb)
+        return out.reshape(bq, -1)
+    dot = torch.tanh(p_att + att_h[:, None, :])                     # [B,N,A]
+    scores = linear(p["alpha_net"], dot)[..., 0]                    # [B,N]
+    weight = masked_softmax(scores, att_masks)
+    return torch.einsum("bn,bnd->bd", weight, att_emb)
+
+
+def _mlp_embed(p, x, rate, training, generator):
+    return dropout(torch.relu(linear(p, x)), rate, training, generator)
+
+
+# ---------------------------------------------------------------------------
+# base
+# ---------------------------------------------------------------------------
+
+class AttModel(CaptionDecoder):
+    def __init__(self, *, vocab_size: int, input_encoding_size: int,
+                 rnn_size: int, num_layers: int, drop_prob_lm: float,
+                 seq_length: int, fc_feat_size: int,
+                 att_feat_size: int = 2048, att_hid_size: int = 512,
+                 use_bn: int = 0, logit_layers: int = 1, device=None):
+        super().__init__(vocab_size=vocab_size,
+                         input_encoding_size=input_encoding_size,
+                         rnn_size=rnn_size, num_layers=num_layers,
+                         drop_prob_lm=drop_prob_lm, seq_length=seq_length,
+                         fc_feat_size=fc_feat_size)
+        if use_bn:
+            raise NotImplementedError(
+                "use_bn BatchNorm is not ported yet (ROADMAP A10)")
+        self.att_feat_size = att_feat_size
+        self.att_hid_size = att_hid_size
+        self.logit_layers = logit_layers
+        self.embed = embedding_init(vocab_size + 1, input_encoding_size,
+                                    device=device)
+        self.logit = self._logit_init(device)
+        self.core = self.core_init(device)
+        self.fc_embed = linear_init(fc_feat_size, rnn_size, device=device)
+        self.att_embed = linear_init(att_feat_size, rnn_size, device=device)
+        self.ctx2att = linear_init(rnn_size, att_hid_size, device=device)
+
+    @property
+    def eff_num_layers(self) -> int:
+        return self.num_layers
+
+    # ---- params ----
+    def init_params(self, generator: torch.Generator) -> "AttModel":
+        init_embedding(self.embed, generator)
+        init_module(self, generator)
+        return self
+
+    def _logit_init(self, device) -> nn.ModuleList:
+        v1 = self.vocab_size + 1
+        layers = [linear_init(self.rnn_size, self.rnn_size, device=device)
+                  for _ in range(self.logit_layers - 1)]
+        layers.append(linear_init(self.rnn_size, v1, device=device))
+        return nn.ModuleList(layers)
+
+    def _logit(self, x, training, generator):
+        for p in self.logit[:-1]:
+            x = dropout(torch.relu(linear(p, x)), 0.5, training, generator)
+        return linear(self.logit[-1], x)
+
+    @property
+    def beam_ctx_no_expand(self) -> tuple:
+        # beams of one image share the attention memory: read once per
+        # image per step instead of once per beam
+        return ("att", "p_att", "masks")
+
+    # ---- decode interface ----
+    def make_decoder(self, feats: Features, *, training: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        batch = feats.fc_feats.shape[0]
+        fc_emb = _mlp_embed(self.fc_embed, feats.fc_feats, self.drop_prob_lm,
+                            training, generator)
+        att_emb = _mlp_embed(self.att_embed, feats.att_feats,
+                             self.drop_prob_lm, training, generator)
+        p_att = linear(self.ctx2att, att_emb)
+        ctx = {"fc": fc_emb, "att": att_emb, "p_att": p_att,
+               "masks": feats.att_masks}
+        h0 = torch.zeros((batch, self.eff_num_layers, self.rnn_size),
+                         dtype=feats.fc_feats.dtype,
+                         device=feats.fc_feats.device)
+        return ctx, (h0, h0)
+
+    def step(self, ctx, state, it, *, training: bool = False,
+             generator: Optional[torch.Generator] = None):
+        h, state = self.step_core(ctx, state, it, training=training,
+                                  generator=generator)
+        return self.head(h, training=training, generator=generator), state
+
+    def step_core(self, ctx, state, it, *, training: bool = False,
+                  generator: Optional[torch.Generator] = None):
+        xt = dropout(torch.relu(self.embed[it]), self.drop_prob_lm, training,
+                     generator)
+        return self.core_step(xt, ctx, state, training=training,
+                              generator=generator)
+
+    def head(self, h, *, training: bool = False,
+             generator: Optional[torch.Generator] = None):
+        logits = self._logit(h, training, generator)
+        return torch.log_softmax(logits, dim=-1)
+
+    # ---- to implement per family ----
+    def core_init(self, device) -> nn.ModuleDict:
+        raise NotImplementedError
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# StackAtt / DenseAtt (3-LSTM stacks)
+# ---------------------------------------------------------------------------
+
+class StackAttModel(AttModel):
+    @property
+    def eff_num_layers(self) -> int:
+        return 3
+
+    def core_init(self, device) -> nn.ModuleDict:
+        h = self.rnn_size
+        e = self.input_encoding_size
+        return nn.ModuleDict({
+            "lstm0": rnn.init_lstm_params(e + h, h, maxout=True, device=device),
+            "lstm1": rnn.init_lstm_params(2 * h, h, maxout=True, device=device),
+            "lstm2": rnn.init_lstm_params(2 * h, h, maxout=True, device=device),
+            "att1": attention_init(h, self.att_hid_size, device=device),
+            "att2": attention_init(h, self.att_hid_size, device=device),
+            "emb2": linear_init(h, h, device=device),
+        })
+
+    def _stack(self, p, xt, ctx, state, *, training, generator):
+        h, c = state
+        h0, c0 = rnn.lstm_step(p["lstm0"], torch.cat([xt, ctx["fc"]], -1),
+                               h[:, 0], c[:, 0], maxout=True)
+        h0d = dropout(h0, self.drop_prob_lm, training, generator)
+        att1 = attention_apply(p["att1"], h0d, ctx["att"], ctx["p_att"],
+                               ctx["masks"])
+        h1, c1 = rnn.lstm_step(p["lstm1"], torch.cat([h0d, att1], -1),
+                               h[:, 1], c[:, 1], maxout=True)
+        h1d = dropout(h1, self.drop_prob_lm, training, generator)
+        att2 = attention_apply(p["att2"], h1d + linear(p["emb2"], att1),
+                               ctx["att"], ctx["p_att"], ctx["masks"])
+        return h0d, h1d, att2, (h0, h1), (c0, c1)
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        h0d, h1d, att2, hs, cs = self._stack(p, xt, ctx, state,
+                                             training=training,
+                                             generator=generator)
+        h, c = state
+        h2, c2 = rnn.lstm_step(p["lstm2"], torch.cat([h1d, att2], -1),
+                               h[:, 2], c[:, 2], maxout=True)
+        out = dropout(h2, self.drop_prob_lm, training, generator)
+        return out, (torch.stack([*hs, h2], 1), torch.stack([*cs, c2], 1))
+
+
+class DenseAttModel(StackAttModel):
+    def core_init(self, device) -> nn.ModuleDict:
+        p = super().core_init(device)
+        h = self.rnn_size
+        p["fusion1"] = linear_init(2 * h, h, device=device)
+        p["fusion2"] = linear_init(3 * h, h, device=device)
+        return p
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        h0d, h1d, att2, hs, cs = self._stack(p, xt, ctx, state,
+                                             training=training,
+                                             generator=generator)
+        h, c = state
+        fused01 = dropout(torch.relu(
+            linear(p["fusion1"], torch.cat([h0d, h1d], -1))),
+            self.drop_prob_lm, training, generator)
+        h2, c2 = rnn.lstm_step(p["lstm2"], torch.cat([fused01, att2], -1),
+                               h[:, 2], c[:, 2], maxout=True)
+        h2d = dropout(h2, self.drop_prob_lm, training, generator)
+        out = dropout(torch.relu(
+            linear(p["fusion2"], torch.cat([h0d, h1d, h2d], -1))),
+            self.drop_prob_lm, training, generator)
+        return out, (torch.stack([*hs, h2], 1), torch.stack([*cs, c2], 1))
