@@ -5,11 +5,15 @@
 
 Builds the port's CUDA kernels from `unpaired_image_captioning_tpu_torch/
 csrc/`, holds each kernel against its plain PyTorch version at the serving
-path's shapes, then serves the pivot task (image features -> zh caption by
-denseatt beam 5 -> en by BiLSTM NMT beam 15) at full width with random
-weights made from seed 0: 40 concurrent requests to `PivotService` and one
-`POST /pivot` through the HTTP front end. It checks that the path launched
-both kernels, compares four images against the same models on the CPU, and
+paths' shapes, then serves the pivot task at full width with random weights
+made from seed 0, on two paths: the LSTM pivot (denseatt beam 5 -> BiLSTM
+NMT beam 15) and the transformer pivot (6-layer transformer captioner beam
+5 -> 6-layer transformer NMT beam 15). Each path answers 40 concurrent
+requests to `PivotService` and one `POST /pivot` through the HTTP front
+end; the script checks that each path launched its kernels (the launch
+counts are set to 0 just before a path runs and read just after it),
+times a batch-50 `pivot_translate`, runs the captioner's per-layer decode
+route, compares four images against the same models on the CPU, and
 prints, as its last line, `{"ok": true, "device": {...}}`.
 
 Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
@@ -41,12 +45,25 @@ CAP = dict(vocab_size=9487, input_encoding_size=512, rnn_size=512,
 NMT = dict(src_vocab_size=11986, tgt_vocab_size=8571, word_vec_size=512,
            rnn_size=512, layers=1, brnn=True, dropout=0.3, beam_size=15,
            max_decode_len=20)
+# the transformer pivot at full width (bench.py's transformer captioner and
+# transformer NMT): d 512, 8 heads, 6 layers each
+TCAP = dict(vocab_size=9487, input_encoding_size=512, rnn_size=512,
+            num_layers=6, drop_prob_lm=0.5, seq_length=16, fc_feat_size=2048,
+            att_feat_size=2048, att_hid_size=512, num_heads=8)
+TNMT = dict(src_vocab_size=11986, tgt_vocab_size=8571, d_model=512,
+            d_ff=2048, num_layers=6, num_heads=8, max_decode_len=20,
+            beam_size=15)
 N_SLOTS = 196               # 14 x 14 attention grid per image
 CAP_BEAM, NMT_BEAM, NMT_MAX_LEN = 5, 15, 20
 N_REQUESTS, MAX_BATCH, BENCH_BATCH = 40, 32, 50
 
 LSTM_TOL = 1e-4   # f32 sums in another order than cuBLAS; TF32 off
+# decoder step: max|diff| <= TFD_TOL * max(1, max|plain|) over x', caches and
+# attention; f32 sums over d_ff = 2048 products in another order
+TFD_TOL = 1e-4
 AGREE_TOL = 1e-3  # card vs CPU over whole f32 models: sums in other orders
+NMT_BOS = 2       # the NMT's BOS id (OpenNMT's Constants)
+TOP_OPS = 12      # device operations listed for each path's batch-50 call
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
@@ -56,6 +73,17 @@ LSTM_SHAPES = [
     ("ragged", 3, 100, 60, False),
     ("ragged maxout", 3, 100, 60, True),
 ]
+# (label, B, kb, L, T, S, d, d_ff, lazy anc + want_attn): the decoder step at
+# the transformer pivot's two beams
+TFD_SHAPES = [
+    ("caption beam 5 x 50", 50, 5, 6, 16, 196, 512, 512, False),
+    ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, True),
+]
+# the CUDA kernels the decoder-step wrappers launch, by name
+TFD_KERNELS = ("gemm_kernel", "self_attn_kernel", "cross_attn_kernel",
+               "head_mean_kernel")
+# every CUDA kernel of csrc/, by name
+HAND_KERNELS = ("lstm_cell_kernel", "row_topk_kernel") + TFD_KERNELS
 # (label, R, V, k): beam selection rows of the path, then the k domain edges
 TOPK_SHAPES = [
     ("caption beam 5 x 50", 250, 9488, 5),
@@ -91,10 +119,10 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 
 
 def _profile_device_us(run, attempts: int = 2):
-    """Run `run()` under torch.profiler and return the device time of each
-    CUDA kernel name, in microseconds. A session that records no device
-    event is repeated once; after that the result is None and the caller
-    times with CUDA events instead."""
+    """Run `run()` under torch.profiler and return, for each CUDA kernel
+    name, its device time in microseconds and its launch count. A session
+    that records no device event is repeated once; after that the result is
+    None and the caller times with CUDA events instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -108,31 +136,44 @@ def _profile_device_us(run, attempts: int = 2):
         per_name: dict = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                per_name[e.name] = (per_name.get(e.name, 0.0)
-                                    + e.time_range.elapsed_us())
+                us, n = per_name.get(e.name, (0.0, 0))
+                per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
         if per_name:
             return per_name
     return None
 
 
 def device_ms(fn):
-    """Device time of one call of `fn` (after one warm-up call): the summed
+    """Device time of one call of `fn` (after one warm-up call): (the summed
     durations of the CUDA kernels it launches, as torch.profiler records
-    them, or None if the profiler recorded none. Unlike `time_ms` it leaves
-    out the host's launch overhead."""
+    them, in ms; the per-kernel-name (us, launches)), or (None, None) if the
+    profiler recorded none. Unlike `time_ms` it leaves out the host's launch
+    overhead."""
     fn()
     per_name = _profile_device_us(fn)
-    return None if per_name is None else sum(per_name.values()) / 1e3
+    if per_name is None:
+        return None, None
+    return sum(us for us, _ in per_name.values()) / 1e3, per_name
 
 
-def time_pair(kernel_fn, plain_fn, kernel_name: str, iters: int = 20):
+def short_name(name: str) -> str:
+    """A CUDA kernel's name without its namespace and parameter list."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("(")[0]
+
+
+def time_pair(kernel_fn, plain_fn, kernel_name, iters: int = 20,
+              parts: dict = None):
     """Kernel and plain times, taken in turns: (kernel ms, plain ms, kernel
     wall ms per call, plain wall ms per call, how the first two were read).
     The first two are device times from one profiler session in which the
-    two alternate, the kernel's events told apart by `kernel_name`; if the
-    profiler records no device time they are the CUDA-event times. Wall
-    times come from CUDA events around back-to-back calls (plain, kernel,
-    kernel, plain)."""
+    two alternate, the kernel's events told apart by `kernel_name` (a name
+    or a tuple of names); if the profiler records no device time they are
+    the CUDA-event times. Wall times come from CUDA events around
+    back-to-back calls (plain, kernel, kernel, plain). A `parts` dict
+    receives the kernel's device time per call by CUDA kernel name:
+    {short name: (ms, launches)}."""
+    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
     kernel_fn()
     plain_fn()
 
@@ -142,8 +183,15 @@ def time_pair(kernel_fn, plain_fn, kernel_name: str, iters: int = 20):
             kernel_fn()
 
     per_name = _profile_device_us(run) or {}
-    k_us = sum(v for n, v in per_name.items() if kernel_name in n)
-    p_us = sum(v for n, v in per_name.items() if kernel_name not in n)
+    mine = {n for n in per_name if any(k in n for k in names)}
+    k_us = sum(us for n, (us, _) in per_name.items() if n in mine)
+    p_us = sum(us for n, (us, _) in per_name.items() if n not in mine)
+    if parts is not None:
+        for n in mine:
+            us, count = per_name[n]
+            ms0, c0 = parts.get(short_name(n), (0.0, 0.0))
+            parts[short_name(n)] = (ms0 + us / iters / 1e3,
+                                    c0 + count / iters)
     p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn,
                                             plain_fn))
     k_wall, p_wall = (k1 + k2) / 2, (p1 + p2) / 2
@@ -288,13 +336,14 @@ def make_features(rs, n: int):
     return fc, att
 
 
-def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt) -> dict:
+def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt, counters: dict,
+                label: str) -> dict:
     """Serve the pivot task at full width through PivotService and HTTP;
-    returns the kernels' launch counts during the run."""
+    returns the kernels' launch counts during the run. `counters` maps a
+    kernel's name to (module, attribute) of its launch count; each is set
+    to 0 just before the requests and read just after them."""
     import torch
 
-    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
-    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
     from unpaired_image_captioning_tpu_torch.models.base import Features
     from unpaired_image_captioning_tpu_torch.pivot import pivot_translate
     from unpaired_image_captioning_tpu_torch.serve import (CaptionService,
@@ -326,8 +375,8 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt) -> dict:
     server_thread = threading.Thread(target=server.serve_forever, daemon=True)
     server_thread.start()
     try:
-        lk.launches = 0
-        tk.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
         answers = [None] * N_REQUESTS
         latency = [None] * N_REQUESTS
 
@@ -360,7 +409,8 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt) -> dict:
             http_answer = json.loads(r.read())
         direct = svc.pivot(fc[0], att[0], timeout=600)   # same batch shape
         torch.cuda.synchronize()
-        counts = {"lstm_cell": lk.launches, "row_topk": tk.launches}
+        counts = {name: getattr(mod, attr)
+                  for name, (mod, attr) in counters.items()}
     finally:
         server.shutdown()
         server.server_close()
@@ -375,13 +425,16 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt) -> dict:
         raise AssertionError(f"HTTP answer {http_answer} != direct {direct}")
     for name, n in counts.items():
         if n <= 0:
-            raise AssertionError(f"the slice never launched kernel {name}")
+            raise AssertionError(f"the {label} path never launched kernel "
+                                 f"{name}")
     lat_ms = sorted(x * 1e3 for x in latency)
-    log(f"slice: {N_REQUESTS} concurrent requests in {batches} micro-batches "
-        f"({wall:.2f} s wall), latency p50 {statistics.median(lat_ms):.1f} ms,"
-        f" max {lat_ms[-1]:.1f} ms; HTTP /pivot == direct; launches "
-        f"lstm_cell {counts['lstm_cell']}, row_topk {counts['row_topk']}")
-    log(f"slice: sample answer {json.dumps(answers[0], ensure_ascii=False)}")
+    log(f"{label}: {N_REQUESTS} concurrent requests in {batches} "
+        f"micro-batches ({wall:.2f} s wall), latency p50 "
+        f"{statistics.median(lat_ms):.1f} ms, max {lat_ms[-1]:.1f} ms; HTTP "
+        "/pivot == direct; launches " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()))
+    log(f"{label}: sample answer "
+        f"{json.dumps(answers[0], ensure_ascii=False)}")
 
     # throughput of one batch-50 pivot_translate (after one warm-up call)
     bfc, batt = make_features(rs, BENCH_BATCH)
@@ -403,15 +456,24 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt) -> dict:
             and int(en.min()) >= 0 and int(en.max()) < NMT["tgt_vocab_size"]
             and int(aux.min()) >= 0 and int(aux.max()) < CAP["seq_length"]):
         raise AssertionError("pivot ids out of range")
-    busy = device_ms(lambda: pivot_translate(
+    busy, per_name = device_ms(lambda: pivot_translate(
         cap, nmt, bf, cap2nmt_t, cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
         nmt_max_len=NMT_MAX_LEN))
     busy_msg = ("device busy not measured (the profiler recorded no device "
                 "time)" if busy is None else
                 f"device busy {busy:.1f} ms (kernel time), idle share "
                 f"{1 - busy / (secs * 1e3):.2f}")
-    log(f"slice: batch-{BENCH_BATCH} pivot_translate {secs * 1e3:.1f} ms, "
+    log(f"{label}: batch-{BENCH_BATCH} pivot_translate {secs * 1e3:.1f} ms, "
         f"{BENCH_BATCH / secs:.1f} images/s; {busy_msg}")
+    per_name = per_name or {}
+    hand_us = sum(us for n, (us, _) in per_name.items()
+                  if any(k in n for k in HAND_KERNELS))
+    if busy is not None:
+        log(f"{label}: of the device busy time, {hand_us / 1e3:.1f} ms in the "
+            f"kernels of csrc/ ({hand_us / 1e3 / busy:.2f})")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in top[:TOP_OPS]:
+        log(f"{label}: device op {us / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
     return counts
 
 
@@ -474,7 +536,8 @@ def phase_agreement(dev, cap, nmt, cap2nmt) -> None:
         lp_g = cap.forward(res["gpu"]["feats"], seq.to(dev)).cpu()
         lp_c = cap_c.forward(res["cpu"]["feats"], seq)
         en = res["cpu"]["nmt"].seq[:, 0]
-        tgt = torch.cat([torch.full((n, 1), 2, dtype=torch.long), en[:, :-1]], 1)
+        tgt = torch.cat([torch.full((n, 1), NMT_BOS, dtype=torch.long),
+                         en[:, :-1]], 1)
         ctx_g, nlp_g = _nmt_teacher_forced(nmt, *res["gpu"]["src"], tgt.to(dev))
         ctx_c, nlp_c = _nmt_teacher_forced(nmt_c, *res["cpu"]["src"], tgt)
     errs = {"captioner logprobs": (lp_g - lp_c).abs().max().item(),
@@ -485,12 +548,18 @@ def phase_agreement(dev, cap, nmt, cap2nmt) -> None:
     bad = {k: v for k, v in errs.items() if not v <= AGREE_TOL}
     if bad:
         raise AssertionError(f"card and cpu disagree: {bad}")
+    _token_agreement(res, "agreement")
 
+
+def _token_agreement(res: dict, label: str) -> None:
+    """Informational: zh/en top-beam token agreement of card and CPU, and
+    at the first differing step the per-token logprob gap (a near-tie shows
+    as a small gap)."""
     for part in ("cap", "nmt"):
         g, c = res["gpu"][part], res["cpu"][part]
         gs, cs = g.seq[:, 0].cpu(), c.seq[:, 0]
         same = (gs == cs).float().mean().item()
-        msg = (f"agreement: {'zh' if part == 'cap' else 'en'} top-beam tokens "
+        msg = (f"{label}: {'zh' if part == 'cap' else 'en'} top-beam tokens "
                f"{same * 100:.1f}% equal")
         diff = (gs != cs).nonzero()
         if len(diff):
@@ -501,6 +570,295 @@ def phase_agreement(dev, cap, nmt, cap2nmt) -> None:
                     f"gap {gap:.3g}, score gap "
                     f"{g.scores[b, 0].item() - c.scores[b, 0].item():.3g}")
         log(msg)
+
+
+# ---------------------------------------------------------------------------
+# the transformer pivot
+# ---------------------------------------------------------------------------
+
+def _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy: bool):
+    """Decoder-step inputs at one path shape: weights at the models' init
+    scales, caches holding earlier positions, a ragged src_mask; per-row t
+    with staggered rows, or (lazy) one t for all rows with `anc` drawn as
+    the ancestry of a random beam history."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.ops.transformer_decode import (
+        WKEYS)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = b * kb
+    mats = {"wqkv": (d, 3 * d), "wo_s": (d, d), "wq_c": (d, d),
+            "wo_c": (d, d), "w1": (d, dff), "w2": (dff, d)}
+    vecs = {"bqkv": 3 * d, "b1": dff}
+    w = {}
+    for k in WKEYS:
+        if k in mats:
+            fan_in = mats[k][0]
+            w[k] = ((torch.rand((n_l,) + mats[k], generator=gen, device=dev)
+                     * 2 - 1) / fan_in ** 0.5)
+        elif k.startswith("ln") and k.endswith("_s"):
+            w[k] = 1 + 0.1 * rnd(n_l, d)
+        else:
+            w[k] = 0.1 * rnd(n_l, vecs.get(k, d))
+    lengths = torch.randint(1, slots + 1, (b,), generator=gen, device=dev)
+    lengths[0] = slots
+    mask = (torch.arange(slots, device=dev)[None, :]
+            < lengths[:, None]).float()
+    local = torch.arange(rows, device=dev) % kb
+    if lazy:
+        t_now = n_t - 3
+        t = torch.full((rows,), t_now, dtype=torch.int32, device=dev)
+        anc = local[:, None].expand(rows, n_t).clone()
+        base = (torch.arange(b, device=dev) * kb)[:, None]
+        pos = torch.arange(n_t, device=dev)[None, :]
+        for step in range(t_now):
+            parent = torch.randint(0, kb, (b, kb), generator=gen, device=dev)
+            re = anc[(base + parent).reshape(-1)]
+            anc = torch.where(pos <= step, re, local[:, None])
+        anc = anc.to(torch.int32).contiguous()
+    else:
+        t = torch.randint(0, n_t, (rows,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        t[:3] = torch.tensor([0, n_t - 1, n_t // 2], dtype=torch.int32)
+        anc = None
+    return dict(w=w, x=rnd(rows, d), t=t, ck=rnd(n_l, b, slots, d),
+                cv=rnd(n_l, b, slots, d), mask=mask,
+                kc=0.5 * rnd(rows, n_l, n_t, d),
+                vc=0.5 * rnd(rows, n_l, n_t, d), anc=anc)
+
+
+def _rel_err(outs_k, outs_p) -> float:
+    """max|diff| over the outputs, over max(1, max|plain|)."""
+    diff = max((a - b).abs().max().item() for a, b in zip(outs_k, outs_p))
+    scale = max([1.0] + [b.abs().max().item() for b in outs_p])
+    return diff / scale
+
+
+def phase_tfd_kernels(dev) -> dict:
+    """The decoder-step kernel against its plain version at both path
+    shapes, as the 6-layer stack and as one layer; returns the kernels'
+    records for the JSON line."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops import (
+        transformer_decode as td)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    heads = TCAP["num_heads"]
+    src = "unpaired_image_captioning_tpu_torch/csrc/transformer_decode.cu"
+    recs = {"transformer_decode_stack": [], "transformer_decode_layer": []}
+    for label, b, kb, n_l, n_t, slots, d, dff, lazy in TFD_SHAPES:
+        a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
+        rows = b * kb
+        shape = f"R={rows} kb={kb} L={n_l} T={n_t} S={slots} d={d} ff={dff}"
+        kk, vk, kp, vp = (c.clone() for c in (a["kc"], a["vc"], a["kc"],
+                                              a["vc"]))
+
+        def stack_k():
+            return tdk.decoder_stack_step(
+                a["x"], a["t"], a["ck"], a["cv"], a["mask"], kk, vk, a["w"],
+                a["anc"], n_heads=heads, want_attn=lazy)
+
+        def stack_p():
+            return td.decoder_stack_step_plain(
+                a["x"], a["t"], a["ck"], a["cv"], a["mask"], kp, vp, a["w"],
+                a["anc"], n_heads=heads, want_attn=lazy)
+
+        err = _rel_err(stack_k(), stack_p())
+        torch.cuda.synchronize()
+        w0 = {k: v[0].contiguous() for k, v in a["w"].items()}
+        ck0, cv0 = a["ck"][0].contiguous(), a["cv"][0].contiguous()
+        lk_, lv_, lkp, lvp = (c[:, 0].contiguous() for c in (
+            a["kc"], a["vc"], a["kc"], a["vc"]))
+
+        def layer_k():
+            return tdk.decoder_layer_step(a["x"], a["t"], ck0, cv0, a["mask"],
+                                          lk_, lv_, w0, n_heads=heads)
+
+        def layer_p():
+            return td.decoder_layer_step_plain(a["x"], a["t"], ck0, cv0,
+                                               a["mask"], lkp, lvp, w0,
+                                               n_heads=heads)
+
+        err_l = _rel_err(layer_k(), layer_p())
+        torch.cuda.synchronize()
+        for name, e, kfn, pfn, what in (
+                ("transformer_decode_stack", err, stack_k, stack_p,
+                 f"{n_l}-layer stack" + (", lazy anc, want_attn" if lazy
+                                         else ", per-row t")),
+                ("transformer_decode_layer", err_l, layer_k, layer_p,
+                 "one layer, per-row t")):
+            if not e <= TFD_TOL:
+                raise AssertionError(f"{name} {label}: max|diff| / max(1, "
+                                     f"max|plain|) = {e} > {TFD_TOL}")
+            parts = {}
+            k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, TFD_KERNELS,
+                                                        parts=parts)
+            recs[name].append(dict(shape=f"{label}: {shape}", err=e, ms=k_ms,
+                                   plain_ms=p_ms, wall_ms=k_wall,
+                                   plain_wall_ms=p_wall, timing=how))
+            log(f"kernel {name} [{shape}] ({label}, {what}): max|diff| / "
+                f"max(1, max|plain|) {e:.3g} (tol {TFD_TOL}); {how}: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
+                f"{k_wall:.4f} ms, plain {p_wall:.4f} ms")
+            if parts:
+                log(f"  {name} ({label}) by CUDA kernel, per call: "
+                    + ", ".join(f"{n} {ms:.4f} ms x{c:g}" for n, (ms, c) in
+                                sorted(parts.items(),
+                                       key=lambda kv: -kv[1][0])))
+    replaces = {"transformer_decode_stack":
+                "unpaired_image_captioning_tpu/ops/transformer_decode.py:275",
+                "transformer_decode_layer":
+                "unpaired_image_captioning_tpu/ops/transformer_decode.py:229"}
+    out = {}
+    for name, rs in recs.items():
+        main = rs[-1] if name.endswith("stack") else rs[0]
+        out[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces[name],
+            "max_abs_err": max(r["err"] for r in rs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "shape": main["shape"],
+            "timing": main["timing"],
+            "err_is": "max|diff| / max(1, max|plain|)", "shapes": rs}
+    return out
+
+
+def build_transformer_models(dev):
+    """Full-width transformer captioner and transformer NMT with random
+    weights from seed 0, plus the vocabularies and the id map of
+    `build_models`."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
+        TransformerNMTModel)
+    from unpaired_image_captioning_tpu_torch.models.transformer import (
+        TransformerModel)
+
+    cap = TransformerModel(**TCAP, device=dev).init_params(
+        torch.Generator().manual_seed(0))
+    nmt = TransformerNMTModel(**TNMT, device=dev).init_params(
+        torch.Generator().manual_seed(0))
+    cap.eval()
+    nmt.eval()
+    return cap, nmt
+
+
+def phase_layer_route(dev, cap) -> int:
+    """Decode four images with the captioner's per-layer route
+    (`STACK_KERNEL = False`, one decoder_layer_step call per layer) and
+    require the stack route's tokens; returns the per-layer launches."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+
+    n = 4
+    fc, att = make_features(np.random.RandomState(2), n)
+    f = Features(fc_feats=torch.as_tensor(fc, device=dev),
+                 att_feats=torch.as_tensor(att, device=dev),
+                 att_masks=torch.ones((n, N_SLOTS), device=dev))
+    with torch.inference_mode():
+        stack = cap.sample_beam(f, beam_size=CAP_BEAM)
+        tm.STACK_KERNEL = False
+        try:
+            tdk.layer_launches = 0
+            layer = cap.sample_beam(f, beam_size=CAP_BEAM)
+            torch.cuda.synchronize()
+            launches = tdk.layer_launches
+        finally:
+            tm.STACK_KERNEL = True
+    if launches <= 0:
+        raise AssertionError("the per-layer route never launched "
+                             "transformer_decode_layer")
+    if not torch.equal(layer.seq, stack.seq):
+        raise AssertionError("per-layer route tokens differ from the stack "
+                             "route's")
+    gap = (layer.scores - stack.scores).abs().max().item()
+    log(f"transformer per-layer route: {n} images at beam {CAP_BEAM}, "
+        f"tokens equal to the stack route's, max score gap {gap:.3g}; "
+        f"launches transformer_decode_layer {launches}")
+    return launches
+
+
+def _incremental_logprobs(step, ctx, state, first, tokens):
+    """Teacher-forced logprobs [B, T, V] through the model's incremental
+    `step`: feed `first`, then tokens[:, :-1]."""
+    import torch
+
+    out = []
+    it = first
+    for i in range(tokens.shape[1]):
+        lp, state = step(ctx, state, it)
+        out.append(lp)
+        it = tokens[:, i]
+    return torch.stack(out, 1)
+
+
+def phase_agreement_transformer(dev, cap, nmt, cap2nmt) -> None:
+    """The same four images through the transformer models on the card
+    (decoder-step kernel) and on the CPU (plain version). Hard check: the
+    teacher-forced logprobs of both models through their incremental
+    `step` agree within AGREE_TOL (the parallel `forward` would bypass the
+    kernel). Informational: top-beam token agreement."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.pivot import (
+        captions_to_nmt_batch)
+
+    n = 4
+    fc, att = make_features(np.random.RandomState(1), n)
+    cpu = torch.device("cpu")
+    cap_c = copy.deepcopy(cap).to(cpu)
+    nmt_c = copy.deepcopy(nmt).to(cpu)
+    res = {}
+    with torch.inference_mode():
+        for name, d, cm in (("gpu", dev, cap), ("cpu", cpu, cap_c)):
+            masks = torch.ones((n, N_SLOTS), device=d)
+            masks[1, 150:] = 0.0                         # padded slots
+            f = Features(fc_feats=torch.as_tensor(fc, device=d),
+                         att_feats=torch.as_tensor(att, device=d),
+                         att_masks=masks)
+            res[name] = dict(feats=f, cap=cm.sample_beam(f,
+                                                         beam_size=CAP_BEAM))
+        zh = res["cpu"]["cap"].seq[:, 0]
+        for name, d, nm in (("gpu", dev, nmt), ("cpu", cpu, nmt_c)):
+            src, lengths = captions_to_nmt_batch(
+                zh.to(d), torch.as_tensor(cap2nmt, device=d))
+            res[name]["nmt"] = nm.translate_batch(
+                src, lengths, beam_size=NMT_BEAM, max_len=NMT_MAX_LEN)
+            res[name]["src"] = (src, lengths)
+        en = res["cpu"]["nmt"].seq[:, 0]
+        lps = {}
+        for name, d, cm, nm in (("gpu", dev, cap, nmt),
+                                ("cpu", cpu, cap_c, nmt_c)):
+            ctx, st = cm.make_decoder(res[name]["feats"])
+            bos = torch.zeros((n,), dtype=torch.long, device=d)
+            lp_cap = _incremental_logprobs(cm.step, ctx, st, bos, zh.to(d))
+            ctx, st = nm.make_decoder(*res[name]["src"], NMT_MAX_LEN)
+            lp_nmt = _incremental_logprobs(nm.step, ctx, st, bos + NMT_BOS,
+                                           en.to(d))
+            lps[name] = (lp_cap.cpu(), lp_nmt.cpu())
+    errs = {"captioner incremental logprobs":
+            (lps["gpu"][0] - lps["cpu"][0]).abs().max().item(),
+            "nmt incremental logprobs":
+            (lps["gpu"][1] - lps["cpu"][1]).abs().max().item()}
+    log("transformer agreement: card vs cpu, teacher-forced max|diff| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {AGREE_TOL})")
+    bad = {k: v for k, v in errs.items() if not v <= AGREE_TOL}
+    if bad:
+        raise AssertionError(f"card and cpu disagree: {bad}")
+    _token_agreement(res, "transformer agreement")
 
 
 def main() -> int:
@@ -516,14 +874,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
     phase_device()
     phase_build()
     kernels = phase_kernels(dev)
-    models = build_models(dev)
-    counts = phase_slice(dev, *models)
-    phase_agreement(dev, models[0], models[1], models[4])
+    kernels.update(phase_tfd_kernels(dev))
+    cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
+    counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
+                         {"lstm_cell": (lk, "launches"),
+                          "row_topk": (tk, "launches")}, "lstm pivot")
+    phase_agreement(dev, cap, nmt, cap2nmt)
+    del cap, nmt
+    tcap, tnmt = build_transformer_models(dev)
+    tcounts = phase_slice(dev, tcap, tnmt, zh_vocab, tgt_itos, cap2nmt,
+                          {"transformer_decode_stack": (tdk, "stack_launches"),
+                           "row_topk": (tk, "launches")},
+                          "transformer pivot")
+    layer_launches = phase_layer_route(dev, tcap)
+    phase_agreement_transformer(dev, tcap, tnmt, cap2nmt)
     for name, n in counts.items():
         kernels[name]["launches"] = n
+    kernels["transformer_decode_stack"]["launches"] = (
+        tcounts["transformer_decode_stack"])
+    kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

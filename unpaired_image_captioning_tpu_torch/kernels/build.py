@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library lands in `unpaired_image_captioning_tpu_torch/_build/`, named by a
-hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the cached file. Pointers and the stream are passed as
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library
+lands in `unpaired_image_captioning_tpu_torch/_build/`, named by a hash of
+the sources and the flags, so an edited source rebuilds and an unchanged
+one loads the cached file. Pointers and the stream are passed as
 `c_void_p`, sizes as `c_int`; each C function returns `cudaGetLastError()`
 after its launch and `check` raises on a non-zero code.
 
@@ -28,7 +29,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +40,12 @@ SIGNATURES = {
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, vals, idx, R, V, k, stream
     "row_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, anc, w[18] (host
+    # array), q, att, h1, attn_h, attn, R, B, S, d, T, d_ff, H, L, stream
+    "tfd_stack_step_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
+    # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
+    # q, att, h1, R, B, S, d, T, d_ff, H, stream
+    "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -68,11 +76,44 @@ def _sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]], out_dir: str) -> str:
+    """Run the commands at once; raise if any fails. Returns their output."""
+    outs = [Path(out_dir) / f"nvcc-{i}.log" for i in range(len(cmds))]
+    procs = []
+    for cmd, out in zip(cmds, outs):
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    codes = [p.wait() for p in procs]
+    logs = [out.read_text() for out in outs]
+    for cmd, code, text in zip(cmds, codes, logs):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n"
+                               f"{text}")
+    return "".join(logs)
+
+
+def _build(srcs: list[Path], so: Path) -> str:
+    """Compile every source to an object, one nvcc each, all at once; link
+    the objects into `so`. The library is linked under a temporary name and
+    renamed, so a concurrent process never loads a half-written one.
+    Returns nvcc's output."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(srcs, objs)], tmp)
+        lib = str(Path(tmp) / "kernels.so")
+        log += _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]], tmp)
+        os.replace(lib, so)
+    return log
 
 
 def load() -> ctypes.CDLL:
@@ -86,19 +127,7 @@ def load() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"kernels-{_digest(srcs)}.so"
         if not so.exists():
-            # build under a temporary name, then rename: a concurrent
-            # process never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{build_log}")
-            os.replace(tmp, so)
+            build_log = _build(srcs, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

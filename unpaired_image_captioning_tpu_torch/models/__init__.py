@@ -2,22 +2,25 @@
 `unpaired_image_captioning_tpu/models/__init__.py`).
 
 `setup(cfg, device=...)` is the caption-model factory. The port has the
-denseatt and stackatt families so far; the others are ROADMAP A10.
+denseatt, stackatt and transformer families so far; the others are ROADMAP
+A10.
 """
 
 from __future__ import annotations
 
 from .att import AttModel, DenseAttModel, StackAttModel
 from .base import CaptionDecoder, Features
+from .transformer import TransformerModel
 
 _REGISTRY = {
     "stackatt": StackAttModel,
     "denseatt": DenseAttModel,
+    "transformer": TransformerModel,
 }
 
 # families of the JAX factory that the port does not have yet
 _NOT_PORTED = ("fc", "att2in", "att2in2", "att2all2", "adaatt", "adaattmo",
-               "topdown", "transformer", "stackcap", "show_tell",
+               "topdown", "stackcap", "show_tell",
                "show_attend_tell", "all_img")
 
 
@@ -33,4 +36,4 @@ def setup(cfg, *, device=None) -> CaptionDecoder:
 
 
 __all__ = ["AttModel", "CaptionDecoder", "DenseAttModel", "Features",
-           "StackAttModel", "setup"]
+           "StackAttModel", "TransformerModel", "setup"]

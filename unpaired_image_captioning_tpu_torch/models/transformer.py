@@ -1,0 +1,302 @@
+"""Transformer caption decoder over attention features (counterpart of
+`unpaired_image_captioning_tpu/models/transformer.py`).
+
+A pre-norm "Attention is All You Need" stack: N = `num_layers` layers,
+d_model = `input_encoding_size`, d_ff = `rnn_size`, `num_heads` heads; the
+att features are embedded by `att_embed` + ReLU and pass through the
+encoder; the word embedding is scaled by sqrt(d_model) and a sinusoid
+positional encoding is added. Inference only: the training kernels are
+ROADMAP B5-B8, `use_bn` is ROADMAP A10.
+
+Incremental decode keeps a fixed-size K/V cache written at slot t. Every
+step goes through the decoder-step kernel (`kernels/transformer_decode.py`,
+the plain version on the CPU): by default `decoder_stack_step`, all L layers
+in one call with caches `k_all`/`v_all` [b, L, T, d]; with the module flag
+`STACK_KERNEL` False, `decoder_layer_step` once per layer with caches
+`k{l}`/`v{l}` [b, T, d]. The cross-attention K/V are projected once per
+sequence and stay at [B, ...], shared by the beams (`beam_ctx_no_expand`).
+The kernels write the caches in place; the caption beam's `index_select`
+reorder copies, so no step result is ever read back stale.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..kernels.transformer_decode import (decoder_layer_step,
+                                          decoder_stack_step)
+from ..ops.transformer_decode import (NEG, cross_attend, layer_norm_plain,
+                                      pack_layer_weights, pack_stack_weights,
+                                      src_mask_2d)
+from .base import CaptionDecoder, Features, init_module, linear, linear_init
+
+# all L layers of a step in one kernel call; False: one call per layer
+STACK_KERNEL = True
+
+
+def positional_encoding(max_len: int, d_model: int, *,
+                        device=None) -> torch.Tensor:
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * -(math.log(10000.0) / d_model))
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+class LayerNorm(nn.Module):
+    """`scale` [d] and `offset` [d], as layer_norm_init."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty((dim,), device=device))
+        self.offset = nn.Parameter(torch.empty((dim,), device=device))
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+        self.offset.zero_()
+
+
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6):
+    """The reference formula: scale * (x - mean) / (std + eps) + offset with
+    the UNBIASED std (n-1 divisor) and eps outside the sqrt."""
+    return layer_norm_plain(x, p.scale, p.offset, eps)
+
+
+def mha_init(d_model: int, *, device=None) -> nn.ModuleDict:
+    return nn.ModuleDict({k: linear_init(d_model, d_model, device=device)
+                          for k in ("q", "k", "v", "o")})
+
+
+def ffn_init(d_model: int, d_ff: int, *, device=None) -> nn.ModuleDict:
+    return nn.ModuleDict({"w1": linear_init(d_model, d_ff, device=device),
+                          "w2": linear_init(d_ff, d_model, device=device)})
+
+
+def enc_layer_init(d_model: int, d_ff: int, *, device=None) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "self": mha_init(d_model, device=device),
+        "ffn": ffn_init(d_model, d_ff, device=device),
+        "n1": LayerNorm(d_model, device=device),
+        "n2": LayerNorm(d_model, device=device)})
+
+
+def dec_layer_init(d_model: int, d_ff: int, *, device=None) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "self": mha_init(d_model, device=device),
+        "src": mha_init(d_model, device=device),
+        "ffn": ffn_init(d_model, d_ff, device=device),
+        "n1": LayerNorm(d_model, device=device),
+        "n2": LayerNorm(d_model, device=device),
+        "n3": LayerNorm(d_model, device=device)})
+
+
+def _split_heads(x, n_heads: int):
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def mha_apply(p, q_in, k, v, mask, n_heads: int):
+    """k, v: already-projected [B, S, d]; mask [B, 1|T, S] bool or None."""
+    d = q_in.shape[-1]
+    q = _split_heads(linear(p["q"], q_in), n_heads)
+    scores = torch.einsum("bthd,bshd->bhts", q, _split_heads(k, n_heads))
+    scores = scores / math.sqrt(d // n_heads)
+    if mask is not None:
+        scores = torch.where(mask[:, None, :, :], scores,
+                             torch.full_like(scores, NEG))
+    attn = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhts,bshd->bthd", attn, _split_heads(v, n_heads))
+    return linear(p["o"], out.reshape(q_in.shape[0], q_in.shape[1], d))
+
+
+def ffn_apply(p, x):
+    return linear(p["w2"], torch.relu(linear(p["w1"], x)))
+
+
+def enc_layer_apply(lp, x, src_mask, n_heads: int):
+    """One pre-norm encoder layer (inference)."""
+    y = layer_norm(lp["n1"], x)
+    k = linear(lp["self"]["k"], y)
+    v = linear(lp["self"]["v"], y)
+    x = x + mha_apply(lp["self"], y, k, v, src_mask, n_heads)
+    return x + ffn_apply(lp["ffn"], layer_norm(lp["n2"], x))
+
+
+def dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask, n_heads: int):
+    """One pre-norm decoder layer (inference); mk/mv are the memory's K/V
+    projections."""
+    y = layer_norm(lp["n1"], x)
+    k = linear(lp["self"]["k"], y)
+    v = linear(lp["self"]["v"], y)
+    x = x + mha_apply(lp["self"], y, k, v, tgt_mask, n_heads)
+    y = layer_norm(lp["n2"], x)
+    x = x + mha_apply(lp["src"], y, mk, mv, src_mask, n_heads)
+    return x + ffn_apply(lp["ffn"], layer_norm(lp["n3"], x))
+
+
+def cross_attend_shared(p, y, ck, cv, src_mask, n_heads: int):
+    """Cross-attention where the [B*K, 1, d] beam queries read UNEXPANDED
+    [B, S, d] K/V: the beams of one image share the memory."""
+    bsz, _, d = y.shape
+    mask = src_mask_2d(src_mask, ck.shape[0], ck.shape[1], y.device)
+    out, _ = cross_attend(linear(p["q"], y).reshape(bsz, d), ck, cv, mask,
+                          n_heads)
+    return linear(p["o"], out.reshape(bsz, 1, d))
+
+
+def _inference_only(training: bool) -> None:
+    if training:
+        raise NotImplementedError(
+            "transformer training is not ported yet (ROADMAP B5-B8)")
+
+
+class TransformerModel(CaptionDecoder):
+    def __init__(self, *, vocab_size: int, input_encoding_size: int,
+                 rnn_size: int, num_layers: int, drop_prob_lm: float,
+                 seq_length: int, fc_feat_size: int,
+                 att_feat_size: int = 2048, att_hid_size: int = 512,
+                 use_bn: int = 0, logit_layers: int = 1, num_heads: int = 8,
+                 device=None):
+        super().__init__(vocab_size=vocab_size,
+                         input_encoding_size=input_encoding_size,
+                         rnn_size=rnn_size, num_layers=num_layers,
+                         drop_prob_lm=drop_prob_lm, seq_length=seq_length,
+                         fc_feat_size=fc_feat_size)
+        if use_bn:
+            raise NotImplementedError(
+                "use_bn BatchNorm is not ported yet (ROADMAP A10)")
+        d = input_encoding_size
+        if d % num_heads:
+            raise ValueError(f"d_model {d} is not divisible by {num_heads} "
+                             "heads")
+        self.att_feat_size = att_feat_size
+        self.att_hid_size = att_hid_size
+        self.logit_layers = logit_layers
+        self.num_heads = num_heads
+        self.att_embed = linear_init(att_feat_size, d, device=device)
+        self.tgt_embed = nn.Parameter(torch.empty((vocab_size + 1, d),
+                                                  device=device))
+        self.generator = linear_init(d, vocab_size + 1, device=device)
+        self.enc_norm = LayerNorm(d, device=device)
+        self.dec_norm = LayerNorm(d, device=device)
+        self.enc = nn.ModuleList([enc_layer_init(d, rnn_size, device=device)
+                                  for _ in range(num_layers)])
+        self.dec = nn.ModuleList([dec_layer_init(d, rnn_size, device=device)
+                                  for _ in range(num_layers)])
+
+    @property
+    def d_model(self) -> int:
+        return self.input_encoding_size
+
+    @property
+    def beam_ctx_no_expand(self) -> tuple:
+        # the cross K/V, the mask, the packed weights and the positional
+        # table are beam-invariant: [B, ...], shared by the K beams
+        return ("cross", "src_mask", "wpack", "wstack", "cross_k", "cross_v",
+                "pe")
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "TransformerModel":
+        """Linear layers uniform(+-1/sqrt(in)) with zero bias, LayerNorms
+        1 / 0, tgt_embed normal * d^-0.5, as the JAX init_params."""
+        init_module(self, generator)
+        emb = torch.randn(self.tgt_embed.shape, generator=generator,
+                          device=generator.device)
+        self.tgt_embed.copy_(emb * self.d_model ** -0.5)
+        return self
+
+    # ---- encoder ----
+    def encode(self, feats: Features):
+        x = torch.relu(linear(self.att_embed, feats.att_feats))
+        src_mask = (feats.att_masks[:, None, :] > 0
+                    if feats.att_masks is not None else None)   # [B, 1, N]
+        for lp in self.enc:
+            x = enc_layer_apply(lp, x, src_mask, self.num_heads)
+        return layer_norm(self.enc_norm, x), src_mask
+
+    # ---- parallel teacher forcing ----
+    def forward(self, feats: Features, seq: torch.Tensor, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full parallel decode with causal + pad mask. seq [B, L] with the
+        leading BOS column; returns logprobs [B, L-1, V+1]."""
+        _inference_only(training)
+        memory, src_mask = self.encode(feats)
+        seq_in = seq[:, :-1]
+        t = seq_in.shape[1]
+        d = self.d_model
+        x = self.tgt_embed[seq_in] * math.sqrt(d)
+        x = x + positional_encoding(t, d, device=x.device)[None]
+        # pad mask: position 0 (the BOS slot, id 0) is always allowed
+        pos = torch.arange(t, device=seq.device)
+        pad_ok = (seq_in > 0) | (pos[None, :] == 0)                 # [B, T]
+        causal = pos[None, :] <= pos[:, None]                        # [T, T]
+        tgt_mask = pad_ok[:, None, :] & causal[None]                 # [B, T, T]
+        for lp in self.dec:
+            mk = linear(lp["src"]["k"], memory)
+            mv = linear(lp["src"]["v"], memory)
+            x = dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask,
+                                self.num_heads)
+        logits = linear(self.generator, layer_norm(self.dec_norm, x))
+        return torch.log_softmax(logits, dim=-1)
+
+    # ---- incremental decode with a fixed K/V cache ----
+    def make_decoder(self, feats: Features, *, training: bool = False,
+                     generator: Optional[torch.Generator] = None):
+        _inference_only(training)
+        memory, src_mask = self.encode(feats)
+        b, slots, d = memory.shape
+        n_t, n_l = self.seq_length, self.num_layers
+        dev = memory.device
+        ctx = {"src_mask": src_mask_2d(src_mask, b, slots, dev),
+               "pe": positional_encoding(n_t, d, device=dev)}
+        cross_k = [linear(lp["src"]["k"], memory) for lp in self.dec]
+        cross_v = [linear(lp["src"]["v"], memory) for lp in self.dec]
+        t0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+        if STACK_KERNEL:
+            ctx["wstack"] = pack_stack_weights(self.dec)
+            ctx["cross_k"] = torch.stack(cross_k)               # [L, B, S, d]
+            ctx["cross_v"] = torch.stack(cross_v)
+            zeros = torch.zeros((b, n_l, n_t, d), dtype=memory.dtype,
+                                device=dev)
+            return ctx, {"t": t0, "k_all": zeros, "v_all": zeros.clone()}
+        ctx["wpack"] = [pack_layer_weights(lp) for lp in self.dec]
+        ctx["cross"] = [{"k": k, "v": v} for k, v in zip(cross_k, cross_v)]
+        state = {"t": t0}
+        for li in range(n_l):
+            state[f"k{li}"] = torch.zeros((b, n_t, d), dtype=memory.dtype,
+                                          device=dev)
+            state[f"v{li}"] = torch.zeros_like(state[f"k{li}"])
+        return ctx, state
+
+    def step(self, ctx, state, it, *, training: bool = False,
+             generator: Optional[torch.Generator] = None):
+        """One decode step; rows may sit at different positions (per-row
+        t). The caches in `state` are written in place and returned."""
+        _inference_only(training)
+        t = state["t"]
+        x = self.tgt_embed[it] * math.sqrt(self.d_model) + ctx["pe"][t.long()]
+        if "wstack" in ctx:
+            x, k_all, v_all = decoder_stack_step(
+                x, t, ctx["cross_k"], ctx["cross_v"], ctx["src_mask"],
+                state["k_all"], state["v_all"], ctx["wstack"],
+                n_heads=self.num_heads)
+            new_state = {"t": t + 1, "k_all": k_all, "v_all": v_all}
+        else:
+            new_state = {"t": t + 1}
+            for li in range(self.num_layers):
+                x, new_state[f"k{li}"], new_state[f"v{li}"] = (
+                    decoder_layer_step(
+                        x, t, ctx["cross"][li]["k"], ctx["cross"][li]["v"],
+                        ctx["src_mask"], state[f"k{li}"], state[f"v{li}"],
+                        ctx["wpack"][li], n_heads=self.num_heads))
+        logits = linear(self.generator, layer_norm(self.dec_norm, x))
+        return torch.log_softmax(logits, dim=-1), new_state

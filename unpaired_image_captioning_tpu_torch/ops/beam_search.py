@@ -13,7 +13,8 @@ Two beams with different semantics, both selecting on the step's natural
   groups are ROADMAP A4.
 - `onmt_beam_search`, the NMT beam: rows that emit EOS keep extending, a
   sentence finishes when EOS is at the top of its beam and then freezes,
-  and the result rows are the final beam rows by score.
+  and the result rows are the final beam rows by score, optionally
+  with lazy (append-only) caches read through a per-row ancestry table.
 
 The JAX package runs each as one `lax.while_loop`. Here the loop is Python
 and its exit test (`any_alive` / `all(done)`) reads one scalar from the
@@ -233,6 +234,8 @@ def onmt_beam_search(
     eos_token: int,
     ctx_no_expand: tuple = (),
     record_aux_from_state: Optional[Callable[[Any], torch.Tensor]] = None,
+    lazy_state: tuple = (),
+    ancestry_key: Optional[str] = None,
 ) -> BeamResult:
     """Beam search with the vendored OpenNMT's semantics:
 
@@ -242,6 +245,19 @@ def onmt_beam_search(
       sentences freeze;
     - at t=0 only row 0's scores participate;
     - the result rows are the final beam rows sorted by current score.
+
+    lazy_state / ancestry_key: lazy beam caches (state must be a dict).
+    The leaves under `lazy_state` keys are append-only: they are never
+    reordered by parent or frozen, so a step may write them in place. The
+    `ancestry_key` leaf, an int32 [batch, T'] placeholder in state0, is set
+    here to each row's local beam index and updated every step as
+    anc'[k, tau <= t] = anc[parent(k), tau], anc'[k, tau > t] = k: beam k's
+    position-tau entry names the row that wrote it, and the step reads the
+    lazy caches through it. Rows of frozen sentences keep their old anc.
+
+    Every other state leaf is reordered with a copy (`index_select`) and a
+    frozen sentence's rows keep the pre-step leaf, so a step must not write
+    a non-lazy leaf in place.
     """
     K = beam_size
     T = seq_length
@@ -250,6 +266,11 @@ def onmt_beam_search(
     ctx = (_expand_to_beams(ctx, K, no_expand=ctx_no_expand)
            if ctx is not None else None)
     state = _expand_to_beams(state0, K)
+    local_row = (torch.arange(batch * K, device=dev) % K).to(torch.int32)
+    if ancestry_key is not None:
+        # each row starts as its own ancestor at every position
+        state[ancestry_key] = local_row[:, None].expand(
+            batch * K, state[ancestry_key].shape[-1]).contiguous()
 
     cum = torch.zeros((batch, K), dtype=torch.float32, device=dev)
     it = torch.full((batch, K), bos_token, dtype=torch.int64, device=dev)
@@ -305,7 +326,26 @@ def onmt_beam_search(
             mask = frz_rows.reshape((batch * K,) + (1,) * (re.dim() - 1))
             return torch.where(mask, old_leaf, re)
 
-        state = tree_map(reorder_leaf, new_state, state)
+        if lazy_state or ancestry_key is not None:
+            state_next = {}
+            for key, new_leaf in new_state.items():
+                if key in lazy_state:
+                    # append-only: frozen sentences' writes land in rows
+                    # that nothing reads through anc again
+                    state_next[key] = new_leaf
+                elif key == ancestry_key:
+                    re = new_leaf.index_select(0, gather_idx)
+                    pos = torch.arange(new_leaf.shape[-1], device=dev)
+                    upd = torch.where(pos[None, :] <= t, re,
+                                      local_row[:, None])
+                    state_next[key] = torch.where(frz_rows[:, None],
+                                                  state[key], upd)
+                else:
+                    state_next[key] = tree_map(reorder_leaf, new_leaf,
+                                               state[key])
+            state = state_next
+        else:
+            state = tree_map(reorder_leaf, new_state, state)
         # EOS at top-of-beam finishes the sentence
         done = done | (tok[:, 0] == eos_token)
 
