@@ -13,8 +13,22 @@ requests to `PivotService` and one `POST /pivot` through the HTTP front
 end; the script checks that each path launched its kernels (the launch
 counts are set to 0 just before a path runs and read just after it),
 times a batch-50 `pivot_translate`, runs the captioner's per-layer decode
-route, compares four images against the same models on the CPU, and
-prints, as its last line, `{"ok": true, "device": {...}}`.
+route and compares four images against the same models on the CPU.
+
+Then it trains: the training attention and training LayerNorm kernels are
+held against their plain versions (forward and backward, dropout on) at the
+transformer captioner's training shapes, and `Trainer.train` takes 2 + 10
+XE steps of the full-width transformer captioner (bench.py's transformer XE
+configuration: 6 + 6 layers, d 512, batch 50, Adam) on random data from
+seed 0. Each step must launch the attention kernels 18 + 18 times and the
+LayerNorm kernels 32 + 32 times. One step on two images, all dropout off,
+is compared with the same step on the CPU.
+
+Every kernel's line in the `kernels` JSON carries its device time, its
+plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
+operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
+call computes the same function, that call's time. The last line is
+`{"ok": true, "device": {...}}`.
 
 Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
@@ -64,6 +78,32 @@ TFD_TOL = 1e-4
 AGREE_TOL = 1e-3  # card vs CPU over whole f32 models: sums in other orders
 NMT_BOS = 2       # the NMT's BOS id (OpenNMT's Constants)
 TOP_OPS = 12      # device operations listed for each path's batch-50 call
+
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): f32 outside
+# the tensor cores, and device memory
+F32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
+
+# transformer captioner XE training at full width (bench.py:268-274)
+TRAIN = dict(TCAP, caption_model="transformer", batch_size=50, seq_per_img=1,
+             i2t_train_flag=True, nmt_train_flag=False, i2t_optim="adam",
+             i2t_max_grad_norm=5.0, seed=0)
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# launches per training step: 18 attentions (6 encoder self, 6 decoder
+# self, 6 decoder cross) and 32 LayerNorms (6 x 2 + 1 encoder, 6 x 3 + 1
+# decoder), each forward and backward
+MHA_PER_STEP, LN_PER_STEP = 18, 32
+TRAIN_RATE = 0.1  # the attention dropout of the kernel checks
+TRAIN_TOL = 1e-4  # max|diff| <= TRAIN_TOL * max(1, max|plain|)
+# (label, B, T, S, mask kind): the training attentions of one step
+MHA_SHAPES = [
+    ("encoder self, T = S = 196, padded [B,1,S]", 50, 196, 196, "pad"),
+    ("decoder cross, T = 17, S = 196", 50, 17, 196, "pad"),
+    ("decoder self, T = S = 17, causal + pad [B,T,T]", 50, 17, 17, "causal"),
+]
+LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
+TRAIN_KERNELS = ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkdv_kernel",
+                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel")
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
@@ -156,6 +196,29 @@ def device_ms(fn):
     return sum(us for us, _ in per_name.values()) / 1e3, per_name
 
 
+def library_ms(fn, iters: int = 20):
+    """Device time per call of a PyTorch yardstick call (summed CUDA kernel
+    time under torch.profiler over `iters` calls, after one warm-up), and
+    how it was read; CUDA-event time if the profiler records none."""
+    fn()
+    per_name = _profile_device_us(lambda: [fn() for _ in range(iters)])
+    if per_name is None:
+        return time_ms(fn, iters), "CUDA events, no profiler data"
+    return sum(us for us, _ in per_name.values()) / iters / 1e3, "device"
+
+
+def bound(nbytes: float, flops: float):
+    """(least time in ms, what bounds it): the larger of the bytes over the
+    card's memory rate and the f32 operations over its f32 peak."""
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    o_ms = flops / F32_FLOPS * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def short_name(name: str) -> str:
     """A CUDA kernel's name without its namespace and parameter list."""
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
@@ -239,7 +302,7 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
 
-    lstm_err, lstm_ms, lstm_plain_ms = 0.0, None, None
+    lstm_err, lstm_rows = 0.0, []
     for label, b, d, h, maxout in LSTM_SHAPES:
         g = 5 if maxout else 4
         scale = 1.0 / h ** 0.5
@@ -258,21 +321,53 @@ def phase_kernels(dev) -> dict:
             lambda: lk.lstm_cell(w, bias, x, h0, c0, maxout=maxout),
             lambda: lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=maxout),
             "lstm_cell_kernel")
+        # each input read once, each output written once; 2 FLOP a MAC
+        b_ms, b_by = bound(nbytes(w, bias, x, h0, c0, hk, ck),
+                           2.0 * b * (d + h) * g * h)
+        lib_ms, lib_msg = None, "no single PyTorch call (maxout cell)"
+        if g == 4:
+            # torch.lstm_cell takes (i, f, g, o) gate blocks in [4H, in]
+            # weights; the port's are (i, f, o, g) in [in, 4H]. Permuted
+            # once here, outside the timing.
+            blk = [torch.arange(j * h, (j + 1) * h, device=dev)
+                   for j in (0, 1, 3, 2)]
+            cols = torch.cat(blk)
+            w_ih = w[:d, cols].t().contiguous()
+            w_hh = w[d:, cols].t().contiguous()
+            b_ih, b_hh = bias[cols].contiguous(), torch.zeros_like(bias)
+
+            def lib():
+                return torch.lstm_cell(x, (h0, c0), w_ih, w_hh, b_ih, b_hh)
+
+            hl, cl = lib()
+            lib_err = max((hl - hp).abs().max().item(),
+                          (cl - cp).abs().max().item())
+            lib_ms, lib_how = library_ms(lib)
+            lib_msg = (f"torch.lstm_cell on permuted weights {lib_ms:.4f} ms "
+                       f"({lib_how}; max|diff| vs plain {lib_err:.3g})")
         lstm_err = max(lstm_err, err)
-        if lstm_ms is None:
-            lstm_ms, lstm_plain_ms, lstm_how = k_ms, p_ms, how
+        lstm_rows.append(dict(label=label, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                              timing=how, shape=f"G={g} [{b}, {d}->{h}]"))
         log(f"kernel lstm_cell G={g} [{b}, {d}->{h}] ({label}): "
             f"max|diff| {err:.3g} (tol {LSTM_TOL}); {how}: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
-            f"{k_wall:.4f} ms, plain {p_wall:.4f} ms")
+            f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}); library: {lib_msg}")
+    # the record's numbers: the NMT decoder's G=4 cell (it has a library
+    # yardstick); every shape is in "shapes"
+    main = next(r for r in lstm_rows if r["label"].startswith("nmt decoder"))
     rec["lstm_cell"] = {
         "name": "lstm_cell", "route": "cuda",
         "source": "unpaired_image_captioning_tpu_torch/csrc/lstm_cell.cu",
         "replaces": "unpaired_image_captioning_tpu/ops/rnn.py:72",
-        "max_abs_err": lstm_err, "ms": lstm_ms, "plain_ms": lstm_plain_ms,
-        "shape": "G=5 [250, 1024->512]", "timing": lstm_how}
+        "max_abs_err": lstm_err, "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "shape": f"{main['label']}: {main['shape']}",
+        "timing": main["timing"], "shapes": lstm_rows}
 
-    topk_ms, topk_plain_ms = None, None
+    topk_rows = []
     for label, r, v, k in TOPK_SHAPES:
         x = torch.randn((r, v), generator=gen, device=dev)
         x[:20] = torch.round(x[:20] * 2) / 2              # many exact ties
@@ -291,18 +386,30 @@ def phase_kernels(dev) -> dict:
         k_ms, p_ms, k_wall, p_wall, how = time_pair(
             lambda: tk.row_topk(x, k), lambda: tk.row_topk_plain(x, k),
             "row_topk_kernel")
-        if topk_ms is None:
-            topk_ms, topk_plain_ms, topk_how = k_ms, p_ms, how
+        # one f32 comparison an element; the row is read once
+        b_ms, b_by = bound(nbytes(x, vk, ik), float(r * v))
+        # torch.topk: the same values, with no promise on the order of ties
+        lib_ms, lib_how = library_ms(lambda: torch.topk(x, k, dim=1))
+        lib_same = torch.equal(torch.topk(x, k, dim=1).values, vp)
+        topk_rows.append(dict(label=label, ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                              timing=how, shape=f"[{r}, {v}] k={k}"))
         log(f"kernel row_topk [{r}, {v}] k={k} ({label}): exact "
             f"(values and indices equal); {how}: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, "
-            f"plain {p_wall:.4f} ms")
+            f"plain {p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library "
+            f"torch.topk {lib_ms:.4f} ms ({lib_how}; values equal: "
+            f"{lib_same})")
+    main = topk_rows[0]
     rec["row_topk"] = {
         "name": "row_topk", "route": "cuda",
         "source": "unpaired_image_captioning_tpu_torch/csrc/row_topk.cu",
         "replaces": "unpaired_image_captioning_tpu/ops/topk.py:145",
-        "max_abs_err": 0.0, "ms": topk_ms, "plain_ms": topk_plain_ms,
-        "shape": "[250, 9488] k=5", "timing": topk_how}
+        "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"{main['label']}: {main['shape']}",
+        "timing": main["timing"], "shapes": topk_rows}
     return rec
 
 
@@ -630,6 +737,25 @@ def _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy: bool):
                 vc=0.5 * rnd(rows, n_l, n_t, d), anc=anc)
 
 
+def _tfd_bound(a, kb: int, layers: int, d: int, dff: int, weights,
+               lazy: bool):
+    """Bound of `layers` decoder-step layers on the inputs `a`: the weights,
+    x in and out, each row's cache positions up to its t (read) and slot t
+    (written), the cross K/V; five d-wide GEMMs and the FFN per row, and
+    the attentions over the positions and unmasked slots this data needs."""
+    rows = a["x"].shape[0]
+    b, slots = a["mask"].shape
+    pos = int((a["t"].long() + 1).sum())
+    cross = int(a["mask"].sum(1).repeat_interleave(kb).sum())
+    by = nbytes(*weights) + 2 * nbytes(a["x"]) + nbytes(a["t"], a["mask"])
+    by += layers * 4 * (2 * pos * d + 2 * rows * d + 2 * b * slots * d)
+    if lazy:
+        by += nbytes(a["anc"]) + rows * slots * 4   # anc in, attention out
+    flops = layers * (2.0 * rows * (6 * d * d + 2 * d * dff)
+                      + 4.0 * d * pos + 4.0 * d * cross)
+    return bound(by, flops)
+
+
 def _rel_err(outs_k, outs_p) -> float:
     """max|diff| over the outputs, over max(1, max|plain|)."""
     diff = max((a - b).abs().max().item() for a, b in zip(outs_k, outs_p))
@@ -687,12 +813,15 @@ def phase_tfd_kernels(dev) -> dict:
 
         err_l = _rel_err(layer_k(), layer_p())
         torch.cuda.synchronize()
-        for name, e, kfn, pfn, what in (
+        for name, e, kfn, pfn, what, (b_ms, b_by) in (
                 ("transformer_decode_stack", err, stack_k, stack_p,
                  f"{n_l}-layer stack" + (", lazy anc, want_attn" if lazy
-                                         else ", per-row t")),
+                                         else ", per-row t"),
+                 _tfd_bound(a, kb, n_l, d, dff, list(a["w"].values()),
+                            lazy)),
                 ("transformer_decode_layer", err_l, layer_k, layer_p,
-                 "one layer, per-row t")):
+                 "one layer, per-row t",
+                 _tfd_bound(a, kb, 1, d, dff, list(w0.values()), False))):
             if not e <= TFD_TOL:
                 raise AssertionError(f"{name} {label}: max|diff| / max(1, "
                                      f"max|plain|) = {e} > {TFD_TOL}")
@@ -701,11 +830,13 @@ def phase_tfd_kernels(dev) -> dict:
                                                         parts=parts)
             recs[name].append(dict(shape=f"{label}: {shape}", err=e, ms=k_ms,
                                    plain_ms=p_ms, wall_ms=k_wall,
-                                   plain_wall_ms=p_wall, timing=how))
+                                   plain_wall_ms=p_wall, bound_ms=b_ms,
+                                   bound_by=b_by, timing=how))
             log(f"kernel {name} [{shape}] ({label}, {what}): max|diff| / "
                 f"max(1, max|plain|) {e:.3g} (tol {TFD_TOL}); {how}: kernel "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
-                f"{k_wall:.4f} ms, plain {p_wall:.4f} ms")
+                f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by}); library: no single PyTorch call")
             if parts:
                 log(f"  {name} ({label}) by CUDA kernel, per call: "
                     + ", ".join(f"{n} {ms:.4f} ms x{c:g}" for n, (ms, c) in
@@ -722,8 +853,9 @@ def phase_tfd_kernels(dev) -> dict:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name],
             "max_abs_err": max(r["err"] for r in rs), "ms": main["ms"],
-            "plain_ms": main["plain_ms"], "shape": main["shape"],
-            "timing": main["timing"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": main["shape"], "timing": main["timing"],
             "err_is": "max|diff| / max(1, max|plain|)", "shapes": rs}
     return out
 
@@ -861,6 +993,330 @@ def phase_agreement_transformer(dev, cap, nmt, cap2nmt) -> None:
     _token_agreement(res, "transformer agreement")
 
 
+# ---------------------------------------------------------------------------
+# transformer captioner XE training
+# ---------------------------------------------------------------------------
+
+def _check_close(name: str, got, want) -> float:
+    """max|diff| / max(1, max|plain|) over the pairs; raises above
+    TRAIN_TOL."""
+    err = _rel_err(got, want)
+    if not err <= TRAIN_TOL:
+        raise AssertionError(f"{name}: max|diff| / max(1, max|plain|) = "
+                             f"{err} > {TRAIN_TOL}")
+    return err
+
+
+def _mha_inputs(dev, gen, b, t, s, kind):
+    """q, g [B,T,d], k, v [B,S,d] at unit scale; the additive mask of the
+    path: [B,1,S] with some images' slots padded, or the decoder's causal
+    + pad [B,T,T] (position 0 always kept)."""
+    import torch
+
+    d = TCAP["input_encoding_size"]
+    q, g = (torch.randn((b, t, d), generator=gen, device=dev) for _ in "qg")
+    k, v = (torch.randn((b, s, d), generator=gen, device=dev) for _ in "kv")
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+    lengths[0] = s
+    pos = torch.arange(s, device=dev)
+    keep = (pos[None, :] < lengths[:, None])[:, None, :]            # [B,1,S]
+    if kind == "causal":
+        keep = (keep | (pos == 0)) & (pos[None, :] <= pos[:, None])[None]
+    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+    return q, k, v, g, maskadd
+
+
+def phase_train_kernels(dev) -> dict:
+    """The training attention and LayerNorm kernels against their plain
+    versions at the training step's shapes, forward and backward, dropout
+    on; each backward twice, bit for bit. Returns the JSON records."""
+    import torch
+    import torch.nn.functional as F
+
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.ops import ln_train as lno
+    from unpaired_image_captioning_tpu_torch.ops import mha_train as mho
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    heads = TCAP["num_heads"]
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    rows = {n: [] for n in ("mha_train_fwd", "mha_train_bwd", "ln_train_fwd",
+                            "ln_train_bwd")}
+    errs = {n: 0.0 for n in rows}
+
+    def timed(name, label, shape, kfn, pfn, kernel_names, by, flops,
+              lib_fn, lib_what):
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, kernel_names)
+        b_ms, b_by = bound(by, flops)
+        lib_ms, lib_how = library_ms(lib_fn) if lib_fn else (None, "")
+        rows[name].append(dict(label=label, shape=shape, ms=k_ms,
+                               plain_ms=p_ms, wall_ms=k_wall,
+                               plain_wall_ms=p_wall, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms, timing=how))
+        lib_msg = (f"{lib_what} {lib_ms:.4f} ms ({lib_how})" if lib_fn
+                   else lib_what)
+        log(f"kernel {name} [{shape}] ({label}): {how}: kernel {k_ms:.4f} ms,"
+            f" plain {p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, plain "
+            f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: "
+            f"{lib_msg}")
+
+    for label, b, t, s, kind in MHA_SHAPES:
+        q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind)
+        d = q.shape[-1]
+        dh = d // heads
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        out = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+        grads = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw)
+        again = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw)
+        ref = mho.mha_train_plain(q, k, v, maskadd, seed, **kw)
+        refs = mho.mha_train_plain_bwd(q, k, v, maskadd, seed, g, **kw)
+        torch.cuda.synchronize()
+        e_f = _check_close(f"mha_train_fwd {label}", [out], [ref])
+        e_b = _check_close(f"mha_train_bwd {label}", grads, refs)
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"mha_train_bwd {label}: two runs differ")
+        errs["mha_train_fwd"] = max(errs["mha_train_fwd"], e_f)
+        errs["mha_train_bwd"] = max(errs["mha_train_bwd"], e_b)
+        shape = f"B={b} T={t} S={s} d={d} H={heads} rate={TRAIN_RATE}"
+        log(f"kernel mha_train [{shape}] ({label}): max|diff| / max(1, "
+            f"max|plain|) out {e_f:.3g}, dq/dk/dv {e_b:.3g} (tol "
+            f"{TRAIN_TOL}); backward twice: identical bits")
+        # the unmasked scores this data needs: 2 FLOP a MAC over dh for
+        # each of QK^T and AV (forward) and of the five backward products
+        pairs = float((maskadd >= 0).expand(b, t, s).sum()) * heads
+        # the yardstick: scaled_dot_product_attention at rate 0 on
+        # [B,H,T,dh] views with the additive mask
+        q4, k4, v4, g4 = (x.view(b, x.shape[1], heads, dh).transpose(1, 2)
+                          for x in (q, k, v, g))
+        m4 = maskadd[:, None]
+        timed("mha_train_fwd", label, shape,
+              lambda: mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw),
+              lambda: mho.mha_train_plain(q, k, v, maskadd, seed, **kw),
+              "mha_fwd_kernel", nbytes(q, k, v, maskadd, seed, out),
+              4.0 * pairs * dh,
+              lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                     attn_mask=m4),
+              "scaled_dot_product_attention, rate 0")
+        lq, lk_, lv = (x.detach().requires_grad_() for x in (q4, k4, v4))
+        lout = F.scaled_dot_product_attention(lq, lk_, lv, attn_mask=m4)
+        timed("mha_train_bwd", label, shape,
+              lambda: mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw),
+              lambda: mho.mha_train_plain_bwd(q, k, v, maskadd, seed, g,
+                                              **kw),
+              ("mha_bwd_dq_kernel", "mha_bwd_dkdv_kernel"),
+              nbytes(q, k, v, maskadd, seed, g, out, *grads),
+              10.0 * pairs * dh,
+              lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
+                                          retain_graph=True),
+              "scaled_dot_product_attention backward, rate 0")
+
+    for label, b, t, d in LN_SHAPES:
+        x = torch.randn((b, t, d), generator=gen, device=dev) * 3 + 1
+        scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+        offset = 0.1 * torch.randn((d,), generator=gen, device=dev)
+        g = torch.randn((b, t, d), generator=gen, device=dev)
+        y = lnk.ln_train_fwd(x, scale, offset)
+        grads = lnk.ln_train_bwd(x, scale, g)
+        again = lnk.ln_train_bwd(x, scale, g)
+        torch.cuda.synchronize()
+        e_f = _check_close(f"ln_train_fwd {label}", [y],
+                           [lno.ln_train_plain(x, scale, offset)])
+        e_b = _check_close(f"ln_train_bwd {label}", grads,
+                           lno.ln_train_plain_bwd(x, scale, g))
+        if not all(torch.equal(p, r) for p, r in zip(grads, again)):
+            raise AssertionError(f"ln_train_bwd {label}: two runs differ")
+        errs["ln_train_fwd"] = max(errs["ln_train_fwd"], e_f)
+        errs["ln_train_bwd"] = max(errs["ln_train_bwd"], e_b)
+        shape = f"[{b}, {t}, {d}]"
+        log(f"kernel ln_train {shape} ({label}): max|diff| / max(1, "
+            f"max|plain|) y {e_f:.3g}, dx/d_scale/d_offset {e_b:.3g} (tol "
+            f"{TRAIN_TOL}); backward twice: identical bits")
+        # No PyTorch call computes this LayerNorm (unbiased variance, eps
+        # outside the sqrt): F.layer_norm moves the same bytes and is
+        # printed as that only.
+        lx, ls, lo_ = (z.detach().requires_grad_() for z in (x, scale, offset))
+        ly = F.layer_norm(lx, (d,), ls, lo_, 1e-6)
+        same_fwd = library_ms(lambda: F.layer_norm(x, (d,), scale, offset,
+                                                   1e-6))[0]
+        same_bwd = library_ms(lambda: torch.autograd.grad(
+            ly, (lx, ls, lo_), g, retain_graph=True))[0]
+        n = float(b * t * d)
+        timed("ln_train_fwd", label, shape,
+              lambda: lnk.ln_train_fwd(x, scale, offset),
+              lambda: lno.ln_train_plain(x, scale, offset), "ln_fwd_kernel",
+              nbytes(x, scale, offset, y), 8.0 * n, None,
+              "none computes this formula (F.layer_norm, same bytes, other "
+              f"formula: {same_fwd:.4f} ms)")
+        timed("ln_train_bwd", label, shape,
+              lambda: lnk.ln_train_bwd(x, scale, g),
+              lambda: lno.ln_train_plain_bwd(x, scale, g),
+              ("ln_bwd_kernel", "ln_bwd_reduce_kernel"),
+              nbytes(x, scale, g, *grads), 14.0 * n, None,
+              "none computes this formula (F.layer_norm backward, same "
+              f"bytes, other formula: {same_bwd:.4f} ms)")
+
+    src = "unpaired_image_captioning_tpu_torch/csrc/"
+    where = {"mha_train_fwd": ("mha_train.cu", "mha_train.py:111"),
+             "mha_train_bwd": ("mha_train.cu", "mha_train.py:125"),
+             "ln_train_fwd": ("ln_train.cu", "ln_train.py:52"),
+             "ln_train_bwd": ("ln_train.cu", "ln_train.py:60")}
+    out = {}
+    for name, rs in rows.items():
+        main = rs[0]                                # the encoder's shape
+        out[name] = {
+            "name": name, "route": "cuda", "source": src + where[name][0],
+            "replaces": "unpaired_image_captioning_tpu/ops/" + where[name][1],
+            "max_abs_err": errs[name], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": f"{main['label']}: {main['shape']}",
+            "timing": main["timing"],
+            "err_is": "max|diff| / max(1, max|plain|)", "shapes": rs}
+    return out
+
+
+def make_train_batch(rs, n: int) -> dict:
+    """A host batch as the data loader gives it: features, att_masks (image
+    1's slots padded past 150), labels [n, seq_length + 2] with the BOS
+    column and random lengths, and their masks."""
+    fc, att = make_features(rs, n)
+    att_masks = np.ones((n, N_SLOTS), np.float32)
+    att_masks[1:2, 150:] = 0.0
+    t, v = TRAIN["seq_length"], TRAIN["vocab_size"]
+    labels = np.zeros((n, t + 2), np.int64)
+    masks = np.zeros((n, t + 2), np.float32)
+    lengths = rs.randint(5, t + 1, n)
+    lengths[0] = t
+    for i, length in enumerate(lengths):
+        labels[i, 1:1 + length] = rs.randint(1, v + 1, length)
+        masks[i, :length + 2] = 1.0
+    return {"fc_feats": fc, "att_feats": att, "att_masks": att_masks,
+            "labels": labels, "masks": masks}
+
+
+def phase_train(counters: dict) -> dict:
+    """XE training of the full-width transformer captioner through
+    `Trainer.train` (built on the card, its default): 2 warm-up and 10 timed
+    steps on one random batch of 50. Every loss must be finite and the last
+    below the first, and each step must launch the attention kernels
+    MHA_PER_STEP times and the LayerNorm kernels LN_PER_STEP times, forward
+    and backward. Returns the launches of the 10 steps."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    per_step = {"mha_train_fwd": MHA_PER_STEP, "mha_train_bwd": MHA_PER_STEP,
+                "ln_train_fwd": LN_PER_STEP, "ln_train_bwd": LN_PER_STEP}
+    cfg = Config(**TRAIN).finalize()
+    trainer = Trainer(cfg)
+    n_params = sum(p.numel() for p in trainer.i2t_model.parameters())
+    batch = make_train_batch(np.random.RandomState(0), cfg.batch_size)
+    losses = [trainer.train(batch)["total_loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+
+    def counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    walls = []
+    for step in range(TRAIN_STEPS):
+        before = counts()
+        t0 = time.perf_counter()
+        losses.append(trainer.train(batch)["total_loss"])  # a host float
+        walls.append(time.perf_counter() - t0)
+        grew = {k: n - before[k] for k, n in counts().items()}
+        if grew != per_step:
+            raise AssertionError(f"training step {step} launched {grew}, "
+                                 f"expected {per_step}")
+    launches = counts()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall on one batch: {losses}")
+    wall = statistics.mean(walls)
+    tokens = cfg.batch_size * (cfg.seq_length + 1)
+    log(f"training: transformer XE, {n_params / 1e6:.2f} M parameters, "
+        f"batch {cfg.batch_size}, {TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
+        f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
+        f"{tokens / wall:.0f} tokens/s ({tokens} a step); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    log("training: losses " + ", ".join(f"{x:.4f}" for x in losses))
+    # the share of a step the host spends uploading the batch (pageable
+    # numpy arrays, as train() receives them)
+    host = [torch.as_tensor(v) for v in batch.values()]
+    t0 = time.perf_counter()
+    for v in host:
+        v.to(trainer.device)
+    torch.cuda.synchronize()
+    log(f"training: uploading one batch ({nbytes(*host) / 1e6:.1f} MB) "
+        f"takes {(time.perf_counter() - t0) * 1e3:.1f} ms of host wall")
+    busy, per_name = device_ms(lambda: trainer.train(batch))
+    if busy is None:
+        log("training: device busy not measured (the profiler recorded no "
+            "device time)")
+        return launches
+    mine = sum(us for n, (us, _) in per_name.items()
+               if any(k in n for k in TRAIN_KERNELS)) / 1e3
+    log(f"training: one step device busy {busy:.1f} ms (kernel time), idle "
+        f"share {1 - busy / (wall * 1e3):.2f} of the mean step wall; "
+        f"{mine:.1f} ms ({mine / busy:.2f}) in the mha_train / ln_train "
+        "kernels")
+    for name, (us, n) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][0])[:TOP_OPS]:
+        log(f"training: device op {us / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
+    return launches
+
+
+def phase_train_agreement(dev) -> None:
+    """One training step on two images at full width, every dropout off,
+    through `Trainer.train` on the card (kernels) and on the CPU (plain
+    versions), from the same initial weights. The loss must agree within
+    TRAIN_TOL relative and every updated parameter within TRAIN_TOL *
+    max(1, max|p|). The step uses SGD at learning rate 1 after the
+    global-norm clip, so the parameters move by the clipped gradient
+    itself: Adam's first step would move each weight by about lr * sign(g)
+    and turn the rounding noise of gradients that are zero in exact
+    arithmetic (the attention key biases) into differences of 2 * lr."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    cfg = dict(TRAIN, batch_size=2, drop_prob_lm=0.0, i2t_optim="sgd",
+               i2t_learning_rate=1.0)
+    batch = make_train_batch(np.random.RandomState(4), 2)
+    rate = tm.DROPOUT
+    tm.DROPOUT = 0.0
+    try:
+        got = {}
+        for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            trainer = Trainer(Config(**cfg), device=device)
+            loss = trainer.train(batch)["total_loss"]
+            got[name] = (loss, {k: v.detach().cpu() for k, v in
+                                trainer.i2t_model.state_dict().items()})
+    finally:
+        tm.DROPOUT = rate
+    (lg, pg), (lc, pc) = got["gpu"], got["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    worst, worst_key = 0.0, None
+    for k, want in pc.items():
+        e = (pg[k] - want).abs().max().item() / max(1.0,
+                                                    want.abs().max().item())
+        if e > worst:
+            worst, worst_key = e, k
+    log(f"training agreement: card vs cpu, one step on 2 images, dropout 0: "
+        f"loss {lg:.6f} vs {lc:.6f} (relative {loss_err:.3g}); updated "
+        f"parameters max|diff| / max(1, max|p|) {worst:.3g} at {worst_key} "
+        f"(tol {TRAIN_TOL})")
+    if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError("card and cpu training steps disagree")
+
+
 def main() -> int:
     import torch
 
@@ -874,15 +1330,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
     from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
     from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
     from unpaired_image_captioning_tpu_torch.kernels import (
         transformer_decode as tdk)
 
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     kernels = phase_kernels(dev)
     kernels.update(phase_tfd_kernels(dev))
+    kernels.update(phase_train_kernels(dev))
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                          {"lstm_cell": (lk, "launches"),
@@ -896,11 +1356,18 @@ def main() -> int:
                           "transformer pivot")
     layer_launches = phase_layer_route(dev, tcap)
     phase_agreement_transformer(dev, tcap, tnmt, cap2nmt)
-    for name, n in counts.items():
+    del tcap, tnmt
+    train_counts = phase_train({"mha_train_fwd": (mhk, "fwd_launches"),
+                                "mha_train_bwd": (mhk, "bwd_launches"),
+                                "ln_train_fwd": (lnk, "fwd_launches"),
+                                "ln_train_bwd": (lnk, "bwd_launches")})
+    phase_train_agreement(dev)
+    for name, n in list(counts.items()) + list(train_counts.items()):
         kernels[name]["launches"] = n
     kernels["transformer_decode_stack"]["launches"] = (
         tcounts["transformer_decode_stack"])
     kernels["transformer_decode_layer"]["launches"] = layer_launches
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ def _caption():
                  num_layers=2, input_encoding_size=16, fc_feat_size=8,
                  att_feat_size=12, seq_length=5, num_heads=4)
     return (jmodels.setup(cfg).init_params(jax.random.PRNGKey(0)),
-            tmodels.setup(cfg))
+            tmodels.setup(cfg, device="cpu"))
 
 
 def _nmt(share):

@@ -31,7 +31,7 @@ CFG = Config(caption_model="denseatt", vocab_size=31, rnn_size=32,
 def pair():
     jm = jmodels.setup(CFG)
     jp = jm.init_params(jax.random.PRNGKey(0))
-    tm = tmodels.setup(CFG)
+    tm = tmodels.setup(CFG, device="cpu")
     tm.load_state_dict(bridge.params_from_jax(jp))
     tm.eval()
     rs = np.random.RandomState(0)
@@ -60,7 +60,7 @@ def test_param_tree_round_trip(pair):
 
 def test_init_params_shapes_match_jax(pair):
     jm, jp, _, _, _ = pair
-    fresh = tmodels.setup(CFG).init_params(torch.Generator().manual_seed(0))
+    fresh = tmodels.setup(CFG, device="cpu").init_params(torch.Generator().manual_seed(0))
     shapes_t = jax.tree_util.tree_map(np.shape, bridge.params_to_numpy(fresh))
     shapes_j = jax.tree_util.tree_map(np.shape, jp)
     assert shapes_t == shapes_j
@@ -95,7 +95,7 @@ def test_sample_beam_matches_jax(pair, beam, opts):
         logit = [dict(jp["logit"][0])]
         logit[0]["b"] = logit[0]["b"].at[0].add(eos_bias)
         jp = {**jp, "logit": logit}
-        tm = tmodels.setup(CFG)
+        tm = tmodels.setup(CFG, device="cpu")
         tm.load_state_dict(bridge.params_from_jax(jp))
     jr = jax.jit(lambda p, f: jm.sample_beam(p, f, beam_size=beam,
                                              **opts))(jp, jf)
@@ -114,12 +114,14 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         tmodels.setup(Config(caption_model="topdown", vocab_size=5,
                              rnn_size=8, input_encoding_size=8,
-                             fc_feat_size=8, att_feat_size=8))
+                             fc_feat_size=8, att_feat_size=8),
+                      device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         tmodels.setup(Config(caption_model="denseatt", vocab_size=5,
                              rnn_size=8, input_encoding_size=8,
-                             fc_feat_size=8, att_feat_size=8, use_bn=1))
-    m = tmodels.setup(CFG)
+                             fc_feat_size=8, att_feat_size=8, use_bn=1),
+                      device="cpu")
+    m = tmodels.setup(CFG, device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
         m.sample_beam(Features(fc_feats=torch.zeros(1, 32),
                                att_feats=torch.zeros(1, 2, 24)),
@@ -132,7 +134,7 @@ def test_stackatt_forward_matches_jax(pair):
     cfg = Config(**{**vars(CFG), "caption_model": "stackatt"})
     jm = jmodels.setup(cfg)
     jp = jm.init_params(jax.random.PRNGKey(3))
-    tm = tmodels.setup(cfg)
+    tm = tmodels.setup(cfg, device="cpu")
     assert type(tm).__name__ == "StackAttModel"
     tm.load_state_dict(bridge.params_from_jax(jp))
     seq = np.random.RandomState(4).randint(

@@ -1,0 +1,61 @@
+"""Import hygiene and default device of the port.
+
+No module of `unpaired_image_captioning_tpu_torch/`, and not
+`chip_smoke.py`, may import jax or the JAX package
+`unpaired_image_captioning_tpu` (the port keeps its own copies of the
+host code it needs). Its entry points build on the card unless the caller
+names another device, and raise rather than build on the CPU without one.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from unpaired_image_captioning_tpu_torch import models as tmodels
+from unpaired_image_captioning_tpu_torch.config import Config
+from unpaired_image_captioning_tpu_torch.models import base
+from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
+from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
+    TransformerNMTModel, make_nmt_model)
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "unpaired_image_captioning_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+CFG = dict(caption_model="transformer", vocab_size=5, input_encoding_size=8,
+           rnn_size=8, num_layers=1, num_heads=2, fc_feat_size=4,
+           att_feat_size=4, seq_length=3, nmt_src_vocab_size=6,
+           nmt_tgt_vocab_size=7, word_vec_size=8, layers=1)
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_jax_imports(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top != "jax", f"{path} imports {name}"
+        assert top != "unpaired_image_captioning_tpu", f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("build", [
+    lambda cfg: tmodels.setup(cfg),
+    lambda cfg: make_nmt_model(cfg),
+    lambda cfg: TransformerNMTModel.from_config(cfg),
+    lambda cfg: NMTModel.from_config(cfg),
+], ids=["setup", "make_nmt_model", "transformer_nmt", "nmt"])
+def test_entry_points_default_to_the_card(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(Config(**CFG))
+    model = tmodels.setup(Config(**CFG), device="cpu")
+    assert model.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert base.resolve_device() == torch.device("cuda")

@@ -137,9 +137,9 @@ def test_make_nmt_model():
 
     cfg = Config(nmt_src_vocab_size=SRC_V, nmt_tgt_vocab_size=TGT_V,
                  word_vec_size=16, rnn_size=32, layers=2, num_heads=4)
-    assert isinstance(tnt.make_nmt_model(cfg), NMTModel)
+    assert isinstance(tnt.make_nmt_model(cfg, device="cpu"), NMTModel)
     cfg.nmt_model_type = "transformer"
-    tm = tnt.make_nmt_model(cfg)
+    tm = tnt.make_nmt_model(cfg, device="cpu")
     assert isinstance(tm, tnt.TransformerNMTModel)
     assert (tm.d_model, tm.d_ff, tm.num_layers) == (16, 32, 2)
     jp = jnt.make_nmt_model(cfg).init_params(jax.random.PRNGKey(0))

@@ -64,9 +64,9 @@ def setup():
     gen = dict(jnp_["generator"])
     gen["b"] = gen["b"].at[C.UNK].set(0.02)
     jnp_ = {**jnp_, "generator": gen}
-    tcap = tmodels.setup(CFG)
+    tcap = tmodels.setup(CFG, device="cpu")
     tcap.load_state_dict(bridge.params_from_jax(jcp))
-    tnmt = NMTModel.from_config(CFG)
+    tnmt = NMTModel.from_config(CFG, device="cpu")
     tnmt.load_state_dict(bridge.params_from_jax(jnp_))
     rs = np.random.RandomState(5)
     fc = rs.randn(B, CFG.fc_feat_size).astype(np.float32)

@@ -64,7 +64,7 @@ def setup():
     gen = dict(jnp_["generator"])
     gen["b"] = gen["b"].at[C.UNK].set(1.0).at[C.EOS].set(-0.1)
     jnp_ = {**jnp_, "generator": gen}
-    tcap = tmodels.setup(CFG)
+    tcap = tmodels.setup(CFG, device="cpu")
     tcap.load_state_dict(bridge.params_from_jax(jcp))
     tnmt = TransformerNMTModel(**NMT_KW)
     tnmt.load_state_dict(bridge.params_from_jax(jnp_))

@@ -36,7 +36,7 @@ CFG = Config(caption_model="transformer", vocab_size=V, rnn_size=48,
 def pair():
     jm = jmodels.setup(CFG)
     jp = jm.init_params(jax.random.PRNGKey(0))
-    tm = tmodels.setup(CFG)
+    tm = tmodels.setup(CFG, device="cpu")
     assert isinstance(tm, ttr.TransformerModel)
     tm.load_state_dict(bridge.params_from_jax(jp))
     tm.eval()
@@ -185,17 +185,19 @@ def test_beam_keeps_cross_memory_unexpanded(pair):
     assert seen["k_all"] == (B * 3, n_l, T, d)
 
 
-def test_unported_options_raise(pair):
+def test_unported_options_raise(pair, monkeypatch):
     _, _, tm, _, tf = pair
     with pytest.raises(NotImplementedError, match="A10"):
-        tmodels.setup(Config(**{**vars(CFG), "use_bn": 1}))
-    with pytest.raises(NotImplementedError, match="B5"):
+        tmodels.setup(Config(**{**vars(CFG), "use_bn": 1}),
+                      device="cpu")
+    monkeypatch.setattr(ttr, "TRAIN_LAYER_KERNEL", True)
+    with pytest.raises(NotImplementedError, match="B6"):
         tm.forward(tf, torch.zeros((B, 3), dtype=torch.long), training=True)
 
 
 def test_init_params_shapes_match_jax(pair):
     _, jp, _, _, _ = pair
-    fresh = tmodels.setup(CFG).init_params(torch.Generator().manual_seed(0))
+    fresh = tmodels.setup(CFG, device="cpu").init_params(torch.Generator().manual_seed(0))
     shapes_t = jax.tree_util.tree_map(np.shape, bridge.params_to_numpy(fresh))
     assert shapes_t == jax.tree_util.tree_map(np.shape, jp)
     emb = fresh.tgt_embed.detach()

@@ -42,7 +42,7 @@ def _models(n_layers):
                  fc_feat_size=10, att_feat_size=12, seq_length=T,
                  drop_prob_lm=0.0, num_heads=H)
     jp = jmodels.setup(cfg).init_params(jax.random.PRNGKey(n_layers))
-    tm = tmodels.setup(cfg)
+    tm = tmodels.setup(cfg, device="cpu")
     tm.load_state_dict(bridge.params_from_jax(jp))
     # non-trivial LayerNorm parameters and biases (the init is 1 / 0)
     rs = np.random.RandomState(n_layers)

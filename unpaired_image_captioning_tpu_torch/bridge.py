@@ -10,6 +10,19 @@ is needed.
 
     model.load_state_dict(params_from_jax(jax_params))
     jax_like_tree = params_to_numpy(model)
+
+The optimizer state maps the same way: each part of an optax chain state
+(`ScaleByAdamState(count, mu, nu)`, `TraceState(trace)`, ...) becomes a
+dict of the same field names in the port's `train/optimizer.py`, with the
+moment trees as name -> tensor dicts and `count` as an int, so that a run
+can resume across the two frameworks:
+
+    trainer.optim.i2t_state = opt_state_from_optax(jax_opt_state, device=dev)
+    jax_opt_state = opt_state_to_optax(trainer.optim.i2t_state, template)
+
+`template` is an optax state of the same chain (for example
+`tx.init(params)` on the JAX side): only its structure is used, and its
+named tuples are rebuilt with `_replace`, so no optax import is needed.
 """
 
 from __future__ import annotations
@@ -51,14 +64,50 @@ def _listify(node: Any) -> Any:
     return node
 
 
-def params_to_numpy(module: nn.Module) -> dict:
-    """The inverse of `params_from_jax`: the module's state as a nested tree
-    of numpy arrays in the JAX package's layout."""
+def tree_from_flat(flat: dict) -> Any:
+    """Dot-joined name -> tensor dict -> nested tree of numpy arrays in the
+    JAX package's layout (the inverse of `params_from_jax`)."""
     root: dict = {}
-    for key, t in module.state_dict().items():
+    for key, t in flat.items():
         node = root
         *path, leaf = key.split(".")
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = t.detach().cpu().numpy().copy()
     return _listify(root)
+
+
+def params_to_numpy(module: nn.Module) -> dict:
+    """The inverse of `params_from_jax`: the module's state as a nested tree
+    of numpy arrays in the JAX package's layout."""
+    return tree_from_flat(module.state_dict())
+
+
+def opt_state_from_optax(state: Any, *, device="cpu") -> list:
+    """An optax chain state (a tuple of named tuples) -> the port's state:
+    one dict per part, `count` as an int, every other field as a name ->
+    tensor dict on `device`."""
+    out = []
+    for part in state:
+        d = {}
+        for name in getattr(part, "_fields", ()):
+            value = getattr(part, name)
+            if name == "count":
+                d[name] = int(np.asarray(value))
+            else:
+                d[name] = {k: t.to(device)
+                           for k, t in params_from_jax(value).items()}
+        out.append(d)
+    return out
+
+
+def opt_state_to_optax(state: list, template: Any) -> tuple:
+    """The port's optimizer state -> `template`'s optax structure, with
+    numpy leaves."""
+    parts = []
+    for d, tmpl in zip(state, template):
+        fields = {name: (np.asarray(value, np.int32) if name == "count"
+                         else tree_from_flat(value))
+                  for name, value in d.items()}
+        parts.append(tmpl._replace(**fields) if fields else tmpl)
+    return tuple(parts)

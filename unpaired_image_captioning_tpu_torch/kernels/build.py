@@ -34,6 +34,8 @@ LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
     # x, h, c, w, b, h_out, c_out, B, D, H, G, stream
@@ -46,6 +48,16 @@ SIGNATURES = {
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
     # q, att, h1, R, B, S, d, T, d_ff, H, stream
     "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
+    # q, k, v, mask, seed, out, B, T, S, H, dh, mask_rows, thresh, keep_div,
+    # dropout, stream
+    "mha_train_fwd_f32": (_P,) * 6 + (_I,) * 6 + (_U, _F, _I, _P),
+    # q, k, v, mask, seed, g, o, dq, dk, dv, stats, B, T, S, H, dh,
+    # mask_rows, thresh, keep_div, dropout, stream
+    "mha_train_bwd_f32": (_P,) * 11 + (_I,) * 6 + (_U, _F, _I, _P),
+    # x, scale, offset, y, rows, d, eps, stream
+    "ln_train_fwd_f32": (_P,) * 4 + (_I, _I, _F, _P),
+    # x, scale, g, dx, dscale, doffset, partial, rows, d, nblk, eps, stream
+    "ln_train_bwd_f32": (_P,) * 7 + (_I,) * 3 + (_F, _P),
 }
 
 _lock = threading.Lock()

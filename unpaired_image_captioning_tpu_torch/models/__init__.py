@@ -1,7 +1,8 @@
 """Caption model families + NMT seq2seq (counterpart of
 `unpaired_image_captioning_tpu/models/__init__.py`).
 
-`setup(cfg, device=...)` is the caption-model factory. The port has the
+`setup(cfg)` is the caption-model factory; it builds on the card unless
+`device=` names another. The port has the
 denseatt, stackatt and transformer families so far; the others are ROADMAP
 A10.
 """
@@ -24,8 +25,9 @@ _NOT_PORTED = ("fc", "att2in", "att2in2", "att2all2", "adaatt", "adaattmo",
                "show_attend_tell", "all_img")
 
 
-def setup(cfg, *, device=None) -> CaptionDecoder:
-    """Build a caption model from config."""
+def setup(cfg, *, device="cuda") -> CaptionDecoder:
+    """Build a caption model from config, on the card unless `device` names
+    another (with no card, the default raises)."""
     name = cfg.caption_model
     if name in _REGISTRY:
         return _REGISTRY[name].from_config(cfg, device=device)

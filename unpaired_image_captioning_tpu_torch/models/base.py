@@ -30,6 +30,17 @@ from torch import nn
 from ..ops.rnn import uniform
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point builds on: the card unless the caller names
+    another. Raises when the card is asked for and there is none, so that
+    nothing is quietly built on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the "
+                           "CPU")
+    return dev
+
+
 class Features(NamedTuple):
     """One batch of precomputed image features.
 
@@ -126,9 +137,10 @@ class CaptionDecoder(nn.Module):
         self.fc_feat_size = fc_feat_size
 
     @classmethod
-    def from_config(cls, cfg, *, device=None) -> "CaptionDecoder":
+    def from_config(cls, cfg, *, device="cuda") -> "CaptionDecoder":
         """Build from a config object, reading the constructor's keyword
-        arguments from the attributes of the same names."""
+        arguments from the attributes of the same names, on the card unless
+        `device` names another."""
         kwargs = {}
         for name, prm in inspect.signature(cls.__init__).parameters.items():
             if name in ("self", "device") or prm.kind != prm.KEYWORD_ONLY:
@@ -137,7 +149,7 @@ class CaptionDecoder(nn.Module):
                 kwargs[name] = getattr(cfg, name)
             elif prm.default is inspect.Parameter.empty:
                 raise ValueError(f"config missing required field {name!r}")
-        return cls(**kwargs, device=device)
+        return cls(**kwargs, device=resolve_device(device))
 
     @property
     def device(self) -> torch.device:

@@ -24,12 +24,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from unpaired_image_captioning_tpu import constants as C
+from .. import constants as C
 
 from ..ops import rnn
 from ..ops.attention_transforms import TRANSFORMS
 from ..ops.masking import length_mask
-from .base import dropout as _dropout, init_module, linear, linear_init
+from .base import (dropout as _dropout, init_module, linear, linear_init,
+                   resolve_device)
 
 
 def _not_ported(what: str):
@@ -284,7 +285,9 @@ class NMTModel(nn.Module):
         self.generator = linear_init(rnn_size, tgt_vocab_size, device=device)
 
     @classmethod
-    def from_config(cls, cfg, *, device=None) -> "NMTModel":
+    def from_config(cls, cfg, *, device="cuda") -> "NMTModel":
+        """Build from a config object, on the card unless `device` names
+        another."""
         extras = {"nmt_src_feature_sizes": "source word features",
                   "predict_fertility": "predicted fertility",
                   "coverage_feed": "coverage feedback"}
@@ -302,7 +305,7 @@ class NMTModel(nn.Module):
             context_gate=cfg.context_gate,
             position_encoding=cfg.position_encoding,
             share_decoder_embeddings=cfg.share_decoder_embeddings,
-            copy_attn=cfg.copy_attn, device=device)
+            copy_attn=cfg.copy_attn, device=resolve_device(device))
 
     @property
     def device(self) -> torch.device:

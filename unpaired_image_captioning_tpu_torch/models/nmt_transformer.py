@@ -13,7 +13,7 @@ the plain version on the CPU), with the last layer's mean-head cross-
 attention weights as the UNK-replacement signal. The K/V caches are lazy:
 rows are append-only, written in place by the kernel, and read through the
 beam's ancestry table (`anc`) instead of being reordered each step.
-Inference only: training is ROADMAP B5-B8.
+Inference only: NMT training is ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -24,15 +24,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from unpaired_image_captioning_tpu import constants as C
-
+from .. import constants as C
 from ..kernels.transformer_decode import decoder_stack_step
 from ..ops.transformer_decode import pack_stack_weights, src_mask_2d
-from .base import init_module, linear, linear_init
+from .base import init_module, linear, linear_init, resolve_device
 from .nmt import NMTModel
-from .transformer import (LayerNorm, _inference_only, dec_layer_apply,
-                          dec_layer_init, enc_layer_apply, enc_layer_init,
-                          layer_norm, positional_encoding)
+from .transformer import (LayerNorm, dec_layer_apply, dec_layer_init,
+                          enc_layer_apply, enc_layer_init, layer_norm,
+                          positional_encoding)
 
 
 class _GeneratorBias(nn.Module):
@@ -80,14 +79,16 @@ class TransformerNMTModel(nn.Module):
                           linear_init(d_model, tgt_vocab_size, device=device))
 
     @classmethod
-    def from_config(cls, cfg, *, device=None) -> "TransformerNMTModel":
+    def from_config(cls, cfg, *, device="cuda") -> "TransformerNMTModel":
+        """Build from a config object, on the card unless `device` names
+        another."""
         return cls(src_vocab_size=cfg.nmt_src_vocab_size,
                    tgt_vocab_size=cfg.nmt_tgt_vocab_size,
                    d_model=cfg.word_vec_size, d_ff=cfg.rnn_size,
                    num_layers=cfg.layers, num_heads=cfg.num_heads,
                    dropout=cfg.dropout,
                    share_decoder_embeddings=cfg.share_decoder_embeddings,
-                   device=device)
+                   device=resolve_device(device))
 
     @property
     def device(self) -> torch.device:
@@ -132,7 +133,9 @@ class TransformerNMTModel(nn.Module):
                 training: bool = False):
         """Parallel teacher forcing. Returns (decoder outputs [B, T-1, d],
         None), as NMTModel.forward."""
-        _inference_only(training)
+        if training:
+            raise NotImplementedError(
+                "NMT transformer training is not ported yet (ROADMAP A7)")
         memory, src_mask = self.encode(src_ids, src_lengths)
         tgt_in = tgt_ids[:, :-1]
         x = self._embed(self.tgt_embed, tgt_in)
@@ -205,8 +208,9 @@ class TransformerNMTModel(nn.Module):
             lazy_state=("k", "v"), ancestry_key="anc")
 
 
-def make_nmt_model(cfg, *, device=None):
-    """Factory: `cfg.nmt_model_type` "transformer" or "rnn" (the default)."""
+def make_nmt_model(cfg, *, device="cuda"):
+    """Factory: `cfg.nmt_model_type` "transformer" or "rnn" (the default),
+    built on the card unless `device` names another."""
     if getattr(cfg, "nmt_model_type", "rnn") == "transformer":
         return TransformerNMTModel.from_config(cfg, device=device)
     return NMTModel.from_config(cfg, device=device)

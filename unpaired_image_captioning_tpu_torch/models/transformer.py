@@ -5,8 +5,17 @@ A pre-norm "Attention is All You Need" stack: N = `num_layers` layers,
 d_model = `input_encoding_size`, d_ff = `rnn_size`, `num_heads` heads; the
 att features are embedded by `att_embed` + ReLU and pass through the
 encoder; the word embedding is scaled by sqrt(d_model) and a sinusoid
-positional encoding is added. Inference only: the training kernels are
-ROADMAP B5-B8, `use_bn` is ROADMAP A10.
+positional encoding is added. `use_bn` is not ported (ROADMAP A10).
+
+Training (`forward(..., training=True, generator=...)`) runs the encoder and
+decoder per sublayer, as the JAX module does with `TRAIN_LAYER_KERNEL`
+False: every LayerNorm goes through the training LayerNorm kernel
+(`kernels/ln_train.py`) and every attention through the training attention
+kernel (`kernels/mha_train.py`), with its dropout drawn inside the kernel
+from a seed taken from the caller's `torch.Generator`. The other dropouts
+(after `att_embed`, on the embedding, on each residual branch and inside
+the FFN) are drawn from the same generator by `base.dropout`. The
+whole-layer training kernel (`TRAIN_LAYER_KERNEL` True) is ROADMAP B6.
 
 Incremental decode keeps a fixed-size K/V cache written at slot t. Every
 step goes through the decoder-step kernel (`kernels/transformer_decode.py`,
@@ -27,15 +36,24 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..kernels.ln_train import layer_norm_train
+from ..kernels.mha_train import mha_train
 from ..kernels.transformer_decode import (decoder_layer_step,
                                           decoder_stack_step)
 from ..ops.transformer_decode import (NEG, cross_attend, layer_norm_plain,
                                       pack_layer_weights, pack_stack_weights,
                                       src_mask_2d)
-from .base import CaptionDecoder, Features, init_module, linear, linear_init
+from .base import (CaptionDecoder, Features, dropout, init_module, linear,
+                   linear_init)
+
+DROPOUT = 0.1  # reference make_model default: attention, residual, FFN
 
 # all L layers of a step in one kernel call; False: one call per layer
 STACK_KERNEL = True
+
+# the whole pre-norm encoder layer as one training kernel (ROADMAP B6); the
+# port runs the per-sublayer route
+TRAIN_LAYER_KERNEL = False
 
 
 def positional_encoding(max_len: int, d_model: int, *,
@@ -64,9 +82,13 @@ class LayerNorm(nn.Module):
         self.offset.zero_()
 
 
-def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6):
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6, *,
+               training: bool = False):
     """The reference formula: scale * (x - mean) / (std + eps) + offset with
-    the UNBIASED std (n-1 divisor) and eps outside the sqrt."""
+    the UNBIASED std (n-1 divisor) and eps outside the sqrt. In training it
+    runs the training LayerNorm kernel (forward and backward)."""
+    if training:
+        return layer_norm_train(x, p.scale, p.offset, eps)
     return layer_norm_plain(x, p.scale, p.offset, eps)
 
 
@@ -103,9 +125,32 @@ def _split_heads(x, n_heads: int):
     return x.reshape(b, t, n_heads, d // n_heads)
 
 
-def mha_apply(p, q_in, k, v, mask, n_heads: int):
-    """k, v: already-projected [B, S, d]; mask [B, 1|T, S] bool or None."""
+def _seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """One int32 in [0, 2^31 - 1) from the generator, on its device."""
+    if generator is None:
+        return torch.zeros((1,), dtype=torch.int32, device=device)
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+
+
+def mha_apply(p, q_in, k, v, mask, n_heads: int, *, training: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """k, v: already-projected [B, S, d]; mask [B, 1|T, S] bool or None.
+    In training the q projection runs here, the attention (with its dropout
+    at rate DROPOUT when a generator is given) in the training kernel, and
+    the o projection after it."""
     d = q_in.shape[-1]
+    if training:
+        b, s = q_in.shape[0], k.shape[1]
+        if mask is None:
+            maskadd = torch.zeros((b, 1, s), device=q_in.device)
+        else:
+            maskadd = torch.where(mask, 0.0, NEG).to(torch.float32)
+        rate = DROPOUT if generator is not None else 0.0
+        out = mha_train(linear(p["q"], q_in), k.contiguous(), v.contiguous(),
+                        maskadd.contiguous(), _seed(generator, q_in.device),
+                        n_heads=n_heads, rate=rate)
+        return linear(p["o"], out)
     q = _split_heads(linear(p["q"], q_in), n_heads)
     scores = torch.einsum("bthd,bshd->bhts", q, _split_heads(k, n_heads))
     scores = scores / math.sqrt(d // n_heads)
@@ -117,29 +162,48 @@ def mha_apply(p, q_in, k, v, mask, n_heads: int):
     return linear(p["o"], out.reshape(q_in.shape[0], q_in.shape[1], d))
 
 
-def ffn_apply(p, x):
-    return linear(p["w2"], torch.relu(linear(p["w1"], x)))
+def ffn_apply(p, x, *, training: bool = False,
+              generator: Optional[torch.Generator] = None):
+    h = dropout(torch.relu(linear(p["w1"], x)), DROPOUT, training, generator)
+    return linear(p["w2"], h)
 
 
-def enc_layer_apply(lp, x, src_mask, n_heads: int):
-    """One pre-norm encoder layer (inference)."""
-    y = layer_norm(lp["n1"], x)
+def enc_layer_apply(lp, x, src_mask, n_heads: int, *, training: bool = False,
+                    generator: Optional[torch.Generator] = None):
+    """One pre-norm encoder layer (self-attention and FFN sublayers, each
+    with its residual dropout in training)."""
+    if training and TRAIN_LAYER_KERNEL:
+        raise NotImplementedError("the whole-layer training kernel is not "
+                                  "ported yet (ROADMAP B6)")
+    kw = dict(training=training, generator=generator)
+    y = layer_norm(lp["n1"], x, training=training)
     k = linear(lp["self"]["k"], y)
     v = linear(lp["self"]["v"], y)
-    x = x + mha_apply(lp["self"], y, k, v, src_mask, n_heads)
-    return x + ffn_apply(lp["ffn"], layer_norm(lp["n2"], x))
+    x = x + dropout(mha_apply(lp["self"], y, k, v, src_mask, n_heads, **kw),
+                    DROPOUT, training, generator)
+    y = layer_norm(lp["n2"], x, training=training)
+    return x + dropout(ffn_apply(lp["ffn"], y, **kw), DROPOUT, training,
+                       generator)
 
 
-def dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask, n_heads: int):
-    """One pre-norm decoder layer (inference); mk/mv are the memory's K/V
-    projections."""
-    y = layer_norm(lp["n1"], x)
+def dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask, n_heads: int, *,
+                    training: bool = False,
+                    generator: Optional[torch.Generator] = None):
+    """One pre-norm decoder layer (self-attention, cross-attention and FFN
+    sublayers, each with its residual dropout in training); mk/mv are the
+    memory's K/V projections."""
+    kw = dict(training=training, generator=generator)
+    y = layer_norm(lp["n1"], x, training=training)
     k = linear(lp["self"]["k"], y)
     v = linear(lp["self"]["v"], y)
-    x = x + mha_apply(lp["self"], y, k, v, tgt_mask, n_heads)
-    y = layer_norm(lp["n2"], x)
-    x = x + mha_apply(lp["src"], y, mk, mv, src_mask, n_heads)
-    return x + ffn_apply(lp["ffn"], layer_norm(lp["n3"], x))
+    x = x + dropout(mha_apply(lp["self"], y, k, v, tgt_mask, n_heads, **kw),
+                    DROPOUT, training, generator)
+    y = layer_norm(lp["n2"], x, training=training)
+    x = x + dropout(mha_apply(lp["src"], y, mk, mv, src_mask, n_heads, **kw),
+                    DROPOUT, training, generator)
+    y = layer_norm(lp["n3"], x, training=training)
+    return x + dropout(ffn_apply(lp["ffn"], y, **kw), DROPOUT, training,
+                       generator)
 
 
 def cross_attend_shared(p, y, ck, cv, src_mask, n_heads: int):
@@ -150,12 +214,6 @@ def cross_attend_shared(p, y, ck, cv, src_mask, n_heads: int):
     out, _ = cross_attend(linear(p["q"], y).reshape(bsz, d), ck, cv, mask,
                           n_heads)
     return linear(p["o"], out.reshape(bsz, 1, d))
-
-
-def _inference_only(training: bool) -> None:
-    if training:
-        raise NotImplementedError(
-            "transformer training is not ported yet (ROADMAP B5-B8)")
 
 
 class TransformerModel(CaptionDecoder):
@@ -214,27 +272,32 @@ class TransformerModel(CaptionDecoder):
         return self
 
     # ---- encoder ----
-    def encode(self, feats: Features):
-        x = torch.relu(linear(self.att_embed, feats.att_feats))
+    def encode(self, feats: Features, *, training: bool = False,
+               generator: Optional[torch.Generator] = None):
+        x = dropout(torch.relu(linear(self.att_embed, feats.att_feats)),
+                    self.drop_prob_lm, training, generator)
         src_mask = (feats.att_masks[:, None, :] > 0
                     if feats.att_masks is not None else None)   # [B, 1, N]
         for lp in self.enc:
-            x = enc_layer_apply(lp, x, src_mask, self.num_heads)
-        return layer_norm(self.enc_norm, x), src_mask
+            x = enc_layer_apply(lp, x, src_mask, self.num_heads,
+                                training=training, generator=generator)
+        return layer_norm(self.enc_norm, x, training=training), src_mask
 
     # ---- parallel teacher forcing ----
     def forward(self, feats: Features, seq: torch.Tensor, *,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Full parallel decode with causal + pad mask. seq [B, L] with the
-        leading BOS column; returns logprobs [B, L-1, V+1]."""
-        _inference_only(training)
-        memory, src_mask = self.encode(feats)
+        leading BOS column; returns logprobs [B, L-1, V+1]. In training,
+        dropout draws from `generator` (none without one)."""
+        memory, src_mask = self.encode(feats, training=training,
+                                       generator=generator)
         seq_in = seq[:, :-1]
         t = seq_in.shape[1]
         d = self.d_model
         x = self.tgt_embed[seq_in] * math.sqrt(d)
         x = x + positional_encoding(t, d, device=x.device)[None]
+        x = dropout(x, DROPOUT, training, generator)
         # pad mask: position 0 (the BOS slot, id 0) is always allowed
         pos = torch.arange(t, device=seq.device)
         pad_ok = (seq_in > 0) | (pos[None, :] == 0)                 # [B, T]
@@ -244,15 +307,17 @@ class TransformerModel(CaptionDecoder):
             mk = linear(lp["src"]["k"], memory)
             mv = linear(lp["src"]["v"], memory)
             x = dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask,
-                                self.num_heads)
-        logits = linear(self.generator, layer_norm(self.dec_norm, x))
+                                self.num_heads, training=training,
+                                generator=generator)
+        logits = linear(self.generator,
+                        layer_norm(self.dec_norm, x, training=training))
         return torch.log_softmax(logits, dim=-1)
 
     # ---- incremental decode with a fixed K/V cache ----
     def make_decoder(self, feats: Features, *, training: bool = False,
                      generator: Optional[torch.Generator] = None):
-        _inference_only(training)
-        memory, src_mask = self.encode(feats)
+        memory, src_mask = self.encode(feats, training=training,
+                                       generator=generator)
         b, slots, d = memory.shape
         n_t, n_l = self.seq_length, self.num_layers
         dev = memory.device
@@ -280,8 +345,9 @@ class TransformerModel(CaptionDecoder):
     def step(self, ctx, state, it, *, training: bool = False,
              generator: Optional[torch.Generator] = None):
         """One decode step; rows may sit at different positions (per-row
-        t). The caches in `state` are written in place and returned."""
-        _inference_only(training)
+        t). The caches in `state` are written in place and returned. As in
+        the JAX module, a decode step has no dropout (`training` is
+        accepted and ignored)."""
         t = state["t"]
         x = self.tgt_embed[it] * math.sqrt(self.d_model) + ctx["pe"][t.long()]
         if "wstack" in ctx:

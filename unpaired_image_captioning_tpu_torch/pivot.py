@@ -3,8 +3,7 @@
 
 The captioner's decoded zh ids map to NMT source ids with one gather
 through a dense id table and flow straight into the NMT encoder, with no
-host hop. The numpy table builders are restated here because the JAX
-module imports jax at its top.
+host hop.
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from unpaired_image_captioning_tpu import constants as C
-from unpaired_image_captioning_tpu.vocab import CaptionVocab, Dict
+from . import constants as C
+from .vocab import CaptionVocab, Dict
 
 
 def build_joint_vocab(cap_vocab: CaptionVocab, nmt_dict: Dict

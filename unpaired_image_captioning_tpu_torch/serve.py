@@ -1,31 +1,100 @@
 """Serving runtime: micro-batched caption and pivot services on the port's
 models (counterpart of `unpaired_image_captioning_tpu/serve.py`).
 
-The request queue (`MicroBatcher`) and the stdlib HTTP front end
-(`make_http_server`: `POST /caption`, `POST /pivot`, `GET /stats`) are the
-JAX package's own, imported: that module's top level needs only the
-standard library and numpy. Each micro-batch is uploaded to the models'
-device as f32 and decoded under `torch.inference_mode()` on the batcher's
-thread.
+`MicroBatcher` gathers single-image requests into micro-batches padded to
+a power-of-two bucket (copies of the first row) and decodes them on one
+thread; `make_http_server` is the stdlib HTTP front end (`POST /caption`,
+`POST /pivot`, `GET /stats`, `GET /healthz`). Both are copies of the JAX
+module's. Each micro-batch is uploaded to the models' device as f32 and
+decoded under `torch.inference_mode()` on the batcher's thread.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import json
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from unpaired_image_captioning_tpu import constants as C
-from unpaired_image_captioning_tpu.serve import MicroBatcher, make_http_server
-from unpaired_image_captioning_tpu.utils.text import (decode_sequence,
-                                                      expand_contractions)
-
+from . import constants as C
 from .models.base import Features
 from .pivot import pivot_translate
+from .utils.text import decode_sequence, expand_contractions
 
 __all__ = ["CaptionService", "MicroBatcher", "PivotService",
            "make_http_server"]
+
+
+class MicroBatcher:
+    def __init__(self, decode_batch: Callable[[dict], List[str]],
+                 *, max_batch: int = 32, max_wait_ms: float = 5.0):
+        self.decode_batch = decode_batch
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1000.0
+        self.q: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+        self.stats = {"requests": 0, "batches": 0, "batch_fill": 0.0}
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    def submit(self, example: dict) -> Future:
+        fut: Future = Future()
+        self.q.put((example, fut))
+        return fut
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                first = self.q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self.max_wait
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self.q.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            examples = [b[0] for b in batch]
+            futs = [b[1] for b in batch]
+            n = len(examples)
+            # pad to the next power-of-two BUCKET with copies of row 0:
+            # static shapes per bucket keep a bounded set of warm
+            # executables (log2(max_batch) of them) while a lone request
+            # uploads 1 row of features, not max_batch rows — feature
+            # upload is the dominant cost of a serving dispatch
+            bucket = 1
+            while bucket < n:
+                bucket *= 2
+            bucket = min(bucket, self.max_batch)
+            while len(examples) < bucket:
+                examples.append(examples[0])
+            stacked = {k: np.stack([e[k] for e in examples])
+                       for k in examples[0]}
+            try:
+                outs = self.decode_batch(stacked)
+                for f, o in zip(futs, outs[:n]):
+                    f.set_result(o)
+            except Exception as e:  # propagate to all waiters
+                for f in futs:
+                    f.set_exception(e)
+            self.stats["requests"] += n
+            self.stats["batches"] += 1
+            self.stats["batch_fill"] = (
+                self.stats["requests"] / (self.stats["batches"] * self.max_batch))
+
+    def close(self):
+        self._stop.set()
+        self.thread.join(timeout=2)
 
 
 def _features(stacked: dict, device: torch.device) -> Features:
@@ -134,3 +203,56 @@ class PivotService:
 
     def close(self):
         self.batcher.close()
+
+
+def make_http_server(service: "CaptionService", port: int = 8000,
+                     pivot_service: Optional["PivotService"] = None
+                     ) -> ThreadingHTTPServer:
+    """POST /caption {"fc": [...], "att": [[...]]} -> {"caption": str};
+    POST /pivot (same body) -> {"zh": str, "en": str} (when a
+    PivotService is attached); GET /stats -> batcher stats."""
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/stats":
+                self._send(200, service.batcher.stats)
+            elif self.path == "/healthz":
+                self._send(200, {"ok": True})
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path == "/caption":
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n))
+                    cap = service.caption(np.asarray(req["fc"], np.float32),
+                                          np.asarray(req["att"], np.float32))
+                    self._send(200, {"caption": cap})
+                except Exception as e:
+                    self._send(400, {"error": str(e)})
+            elif self.path == "/pivot" and pivot_service is not None:
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n))
+                    out = pivot_service.pivot(
+                        np.asarray(req["fc"], np.float32),
+                        np.asarray(req["att"], np.float32))
+                    self._send(200, out)
+                except Exception as e:
+                    self._send(400, {"error": str(e)})
+            else:
+                self._send(404, {"error": "not found"})
+
+    return ThreadingHTTPServer(("127.0.0.1", port), Handler)
