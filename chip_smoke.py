@@ -15,14 +15,19 @@ counts are set to 0 just before a path runs and read just after it),
 times a batch-50 `pivot_translate`, runs the captioner's per-layer decode
 route and compares four images against the same models on the CPU.
 
-Then it trains: the training attention and training LayerNorm kernels are
-held against their plain versions (forward and backward, dropout on) at the
-transformer captioner's training shapes, and `Trainer.train` takes 2 + 10
-XE steps of the full-width transformer captioner (bench.py's transformer XE
-configuration: 6 + 6 layers, d 512, batch 50, Adam) on random data from
-seed 0. Each step must launch the attention kernels 18 + 18 times and the
-LayerNorm kernels 32 + 32 times. One step on two images, all dropout off,
-is compared with the same step on the CPU.
+Then it trains: the training attention, training LayerNorm and
+whole-layer kernels (encoder and decoder layer) are held against their
+plain versions (forward and backward, dropout on, each backward twice bit
+for bit) at the transformer captioner's training shapes, and
+`Trainer.train` trains the full-width transformer captioner (bench.py's
+transformer XE configuration: 6 + 6 layers, d 512, batch 50, Adam) on
+random data from seed 0 on each of its three routes: 2 + 10 steps on the
+default route (every encoder layer one whole-layer kernel call: 6 + 6 layer
+launches, 12 + 12 attention and 20 + 20 LayerNorm launches a step), 2 + 5
+per sublayer (18 + 18 and 32 + 32) and 2 + 5 with whole decoder layers too
+(6 + 6 of each layer kernel, 2 + 2 LayerNorms). One step on two images,
+all dropout off, is compared with the same step on the CPU on the default
+route and on the whole-decoder-layer route.
 
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
@@ -88,11 +93,31 @@ HBM_BYTES_S = 3.35e12
 TRAIN = dict(TCAP, caption_model="transformer", batch_size=50, seq_per_img=1,
              i2t_train_flag=True, nmt_train_flag=False, i2t_optim="adam",
              i2t_max_grad_norm=5.0, seed=0)
-TRAIN_WARMUP, TRAIN_STEPS = 2, 10
-# launches per training step: 18 attentions (6 encoder self, 6 decoder
-# self, 6 decoder cross) and 32 LayerNorms (6 x 2 + 1 encoder, 6 x 3 + 1
-# decoder), each forward and backward
-MHA_PER_STEP, LN_PER_STEP = 18, 32
+TRAIN_WARMUP, TRAIN_STEPS, ROUTE_STEPS = 2, 10, 5
+
+
+def _per_step(enc=0, dec=0, mha=0, ln=0) -> dict:
+    """Launches of each kernel per training step, forward and backward."""
+    n = {"enc_layer_train": enc, "dec_layer_train": dec, "mha_train": mha,
+         "ln_train": ln}
+    return {f"{k}_{x}": v for k, v in n.items() for x in ("fwd", "bwd")}
+
+
+_L = TCAP["num_layers"]
+# the training routes (label, TRAIN_LAYER_KERNEL, TRAIN_DEC_LAYER_KERNEL,
+# timed steps, launches a step): the default runs each encoder layer as one
+# whole-layer call and the decoder's 6 self and 6 cross attentions and its
+# 18 + 2 LayerNorms per sublayer; per sublayer every layer runs 2 or 3
+# attentions and 2 or 3 LayerNorms; with whole decoder layers only the two
+# final LayerNorms stay outside the layer kernels
+TRAIN_ROUTES = [
+    ("default (whole encoder layers)", True, False, TRAIN_STEPS,
+     _per_step(enc=_L, mha=2 * _L, ln=3 * _L + 2)),
+    ("per sublayer", False, False, ROUTE_STEPS,
+     _per_step(mha=3 * _L, ln=5 * _L + 2)),
+    ("whole encoder and decoder layers", True, True, ROUTE_STEPS,
+     _per_step(enc=_L, dec=_L, ln=2)),
+]
 TRAIN_RATE = 0.1  # the attention dropout of the kernel checks
 TRAIN_TOL = 1e-4  # max|diff| <= TRAIN_TOL * max(1, max|plain|)
 # (label, B, T, S, mask kind): the training attentions of one step
@@ -102,8 +127,12 @@ MHA_SHAPES = [
     ("decoder self, T = S = 17, causal + pad [B,T,T]", 50, 17, 17, "causal"),
 ]
 LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
-TRAIN_KERNELS = ("mha_fwd_kernel", "mha_bwd_dq_kernel", "mha_bwd_dkdv_kernel",
-                 "ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_reduce_kernel")
+# every CUDA kernel of csrc/ a training step launches, by name (the
+# whole-layer wrappers launch all of them)
+TRAIN_KERNELS = ("uic::gemm_kernel", "mha_fwd_kernel", "mha_bwd_dq_kernel",
+                 "mha_bwd_dkdv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+                 "ln_bwd_reduce_kernel", "drop_kernel", "colsum_kernel",
+                 "sum_splits_kernel")
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
@@ -1176,6 +1205,322 @@ def phase_train_kernels(dev) -> dict:
     return out
 
 
+def _layer_weights(gen, dev, keys, d: int, f: int) -> dict:
+    """Random layer weights at the init's scale: matrices uniform-like
+    N(0, 1/d), biases and LayerNorm offsets N(0, 0.01), scales 1 +- 0.1."""
+    import torch
+
+    shapes = {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wo": (d, d),
+              "wq": (d, d), "wo2": (d, d), "w1": (d, f), "b1": (f,),
+              "w2": (f, d)}
+    w = {}
+    for k in keys:
+        r = torch.randn(shapes.get(k, (d,)), generator=gen, device=dev)
+        if k.startswith("l") and k.endswith("s"):
+            w[k] = 1 + 0.1 * r
+        else:
+            w[k] = r * (0.1 if k.startswith(("l", "b")) else d ** -0.5)
+    return w
+
+
+def _check_each(name: str, names, got, want) -> float:
+    """Per tensor: max|diff| / max(1, max|plain|) <= TRAIN_TOL; returns the
+    largest."""
+    worst = 0.0
+    for key, a, b in zip(names, got, want):
+        e = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        if not e <= TRAIN_TOL:
+            raise AssertionError(f"{name}: {key} max|diff| / max(1, "
+                                 f"max|plain|) = {e} > {TRAIN_TOL}")
+        worst = max(worst, e)
+    return worst
+
+
+def _relu_flips(name: str, xa, w: dict, hd, seed, heads: int,
+                ln: str = "l2") -> None:
+    """Where the kernel's FFN relu pattern (hd > 0) and the plain
+    version's (pre-activation > 0, where the dropout keeps) differ, the
+    plain pre-activation must lie within 1e-5 * max(1, max|h|) of 0:
+    rounding on either side of the kink. Logs how many differ."""
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+    from unpaired_image_captioning_tpu_torch.ops.ln_train import (
+        ln_train_plain)
+    from unpaired_image_captioning_tpu_torch.ops.mha_train import keep_mask
+
+    b, t, f = hd.shape
+    hlin = ln_train_plain(xa, w[ln + "s"], w[ln + "b"]) @ w["w1"] + w["b1"]
+    keep = keep_mask(seed, b, heads, t, f, TRAIN_RATE, n_sites=lto.N_SITES,
+                     site=2, heads=1)[:, 0]
+    differ = ((hd > 0) != (hlin > 0)) & keep
+    near = hlin.abs() <= 1e-5 * max(1.0, hlin.abs().max().item())
+    if (differ & ~near).any():
+        raise AssertionError(f"{name}: {int((differ & ~near).sum())} FFN "
+                             "relu decisions differ away from the kink")
+    log(f"kernel {name}: {int(differ.sum())} of {hd.numel()} FFN "
+        "pre-activations fall on the other side of 0 than in the plain "
+        "version, all within 1e-5 of it; the backward is compared on the "
+        "kernel's relu pattern")
+
+
+def _layer_module(dev, w: dict, d: int, f: int, decoder: bool):
+    """The captioner's layer parameters (`enc_layer_init` /
+    `dec_layer_init`) holding the weights w, for the per-sublayer route."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+
+    lp = (tm.dec_layer_init if decoder else tm.enc_layer_init)(d, f,
+                                                               device=dev)
+    with torch.no_grad():
+        for i, k in enumerate("qkv"):
+            lp["self"][k].w.copy_(w["wqkv"][:, i * d:(i + 1) * d])
+            lp["self"][k].b.copy_(w["bqkv"][i * d:(i + 1) * d])
+        lp["self"]["o"].w.copy_(w["wo"])
+        lp["self"]["o"].b.copy_(w["bo"])
+        if decoder:
+            for k, wk, bk in (("q", "wq", "bq"), ("o", "wo2", "bo2")):
+                lp["src"][k].w.copy_(w[wk])
+                lp["src"][k].b.copy_(w[bk])
+        for k in ("w1", "w2"):
+            lp["ffn"][k].w.copy_(w[k])
+            lp["ffn"][k].b.copy_(w["b" + k[1]])
+        for n in ("n1", "n2", "n3") if decoder else ("n1", "n2"):
+            lp[n].scale.copy_(w[f"l{n[1]}s"])
+            lp[n].offset.copy_(w[f"l{n[1]}b"])
+    return lp
+
+
+def _yardsticks(label, fwd, params, g):
+    """(forward ms, backward ms) of a differentiable callable as device
+    time per call: the forward alone, then the backward of one recorded
+    forward over `params` with cotangent g (parameters the callable does
+    not use, such as the decoder's memory K/V projections, get none)."""
+    import torch
+
+    f_ms, _ = library_ms(fwd)
+    out = fwd()
+    b_ms, _ = library_ms(lambda: torch.autograd.grad(
+        out, params, g, retain_graph=True, allow_unused=True))
+    log(f"kernel {label}: forward {f_ms:.4f} ms, backward {b_ms:.4f} ms "
+        "(device time)")
+    return f_ms, b_ms
+
+
+def _split_parts(parts: dict) -> str:
+    """A wrapper's device time per call by kind of CUDA kernel."""
+    kinds = {"gemm": ("gemm_kernel",), "attention": ("mha_",),
+             "layernorm": ("ln_",),
+             "dropout and sums": ("drop_kernel", "colsum", "sum_splits")}
+    out = []
+    for kind, keys in kinds.items():
+        ms = sum(v for n, (v, _) in parts.items()
+                 if any(k in n for k in keys))
+        out.append(f"{kind} {ms:.4f}")
+    return ", ".join(out) + " ms"
+
+
+def phase_layer_kernels(dev) -> dict:
+    """The whole-layer kernels against their plain versions at the
+    captioner's training shapes (encoder layer: B 50, T 196, one image's
+    slots padded past 150; decoder layer: T 17 causal + pad over S 196),
+    dropout 0.1, forward and backward, each backward twice bit for bit.
+    Yardsticks beside each: the port's per-sublayer route over the same
+    layer (the mha_train / ln_train kernels and cuBLAS, dropout from a
+    generator) and PyTorch's own pre-norm layer at the same widths (the
+    same work in another formula: biased variance, eps inside the sqrt; the
+    decoder layer also projects the memory's K/V). Returns the JSON
+    records."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d, f = TCAP["input_encoding_size"], TCAP["rnn_size"]
+    heads = TCAP["num_heads"]
+    dh = d // heads
+    b, s = TRAIN["batch_size"], N_SLOTS
+    t_dec = TRAIN["seq_length"] + 1
+    kw = dict(n_heads=heads, rate=TRAIN_RATE)
+    src = "unpaired_image_captioning_tpu_torch/csrc/layer_train.cu"
+    tpu = "unpaired_image_captioning_tpu/ops/layer_train.py:"
+    rec = {}
+
+    def record(name, replaces, err, shape, timing, by, flops, sub_ms,
+               torch_ms, torch_what):
+        k_ms, p_ms, k_wall, p_wall, how, parts = timing
+        b_ms, b_by = bound(by, flops)
+        rec[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": tpu + replaces[0],
+            "replaces_all": [tpu + r for r in replaces],
+            "max_abs_err": err, "err_is": "max|diff| / max(1, max|plain|)",
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": shape, "timing": how,
+            "wall_ms": k_wall, "plain_wall_ms": p_wall,
+            "yardsticks": {"sublayer_route_ms": sub_ms,
+                           "torch_layer_ms": torch_ms,
+                           "torch_layer_is": torch_what},
+            "shapes": [dict(label=shape, ms=k_ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by, library_ms=None)]}
+        log(f"kernel {name} [{shape}]: {how}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, plain "
+            f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
+            f"{flops / 1e9:.1f} GFLOP); kernel by kind: {_split_parts(parts)}"
+            f"; yardsticks: per-sublayer route {sub_ms:.4f} ms, {torch_what} "
+            f"{torch_ms:.4f} ms; library: none computes this function")
+
+    def timed(kfn, pfn):
+        parts = {}
+        return time_pair(kfn, pfn, TRAIN_KERNELS, iters=5,
+                         parts=parts) + (parts,)
+
+    def sublayer(fn, args):
+        """fn(*args) on the per-sublayer route (dropout from a generator)."""
+        old = _route_flags(False, False)
+        try:
+            return fn(*args, training=True,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        finally:
+            _route_flags(*old)
+
+    # ---- encoder layer
+    x, g = (torch.randn((b, s, d), generator=gen, device=dev)
+            for _ in range(2))
+    keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+    keep[1, :, 150:] = False
+    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    w = _layer_weights(gen, dev, lto.ENC_WEIGHTS, d, f)
+    ws = [w[k] for k in lto.ENC_WEIGHTS]
+    out, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
+    grads = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
+    again = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
+    ref, x2 = lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)
+    # the backward against the plain one on the kernel's relu pattern: a
+    # pre-activation within rounding of 0 may fall either side of the kink
+    refs = lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws, **kw,
+                             relu_active=saved[-1] > 0)
+    torch.cuda.synchronize()
+    _relu_flips("enc_layer_train", x2, w, saved[-1], seed, heads)
+    e_f = _check_each("enc_layer_train_fwd", ("out", "x2"), (out, saved[0]),
+                      (ref, x2))
+    e_b = _check_each("enc_layer_train_bwd", ("dx",) + lto.ENC_WEIGHTS,
+                      grads, refs)
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        raise AssertionError("enc_layer_train_bwd: two runs differ")
+    shape = (f"B={b} T={s} d={d} d_ff={f} H={heads} rate={TRAIN_RATE}, "
+             "image 1 padded past 150")
+    log(f"kernel enc_layer_train [{shape}]: max|diff| / max(1, max|plain|) "
+        f"out/x2 {e_f:.3g}, dx and 12 weight gradients {e_b:.3g} (tol "
+        f"{TRAIN_TOL}, each tensor); backward twice: identical bits")
+    m = b * s
+    pairs = float((maskadd >= 0).expand(b, s, s).sum()) * heads
+    proj = float(m) * (4 * d * d + 2 * d * f)
+    lp = _layer_module(dev, w, d, f, decoder=False)
+    xr = x.detach().requires_grad_()
+    params = [xr] + list(lp.parameters())
+    sub_f, sub_b = _yardsticks(
+        "enc layer, per-sublayer route (mha_train, ln_train, cuBLAS)",
+        lambda: sublayer(tm.enc_layer_apply, (lp, xr, keep, heads)),
+        params, g)
+    ref_layer = torch.nn.TransformerEncoderLayer(
+        d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
+        device=dev)
+    tparams = [xr] + list(ref_layer.parameters())
+    tor_f, tor_b = _yardsticks(
+        "enc layer, torch.nn.TransformerEncoderLayer(norm_first, dropout 0)",
+        lambda: ref_layer(xr, src_key_padding_mask=~keep[:, 0]), tparams, g)
+    what = "torch.nn.TransformerEncoderLayer (same work, other formula)"
+    record("enc_layer_train_fwd", ["131"], e_f, shape,
+           timed(lambda: ltk.enc_layer_fwd(x, maskadd, seed, w, **kw),
+                 lambda: lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)),
+           nbytes(x, maskadd, seed, *ws, out, x2),
+           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what)
+    record("enc_layer_train_bwd", ["163", "202"], e_b, shape,
+           timed(lambda: ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g,
+                                           **kw),
+                 lambda: lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws,
+                                           **kw)),
+           nbytes(x, maskadd, seed, *ws, *saved, g, *grads),
+           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what)
+    del out, saved, grads, again, ref, x2, refs, lp, ref_layer, xr, params
+    del tparams
+
+    # ---- decoder layer
+    x, g = (torch.randn((b, t_dec, d), generator=gen, device=dev)
+            for _ in range(2))
+    mk, mv = (torch.randn((b, s, d), generator=gen, device=dev)
+              for _ in range(2))
+    pos = torch.arange(t_dec, device=dev)
+    lengths = torch.randint(5, t_dec + 1, (b,), generator=gen, device=dev)
+    pad_ok = (pos[None, :] < lengths[:, None]) | (pos[None, :] == 0)
+    tkeep = pad_ok[:, None, :] & (pos[None, :] <= pos[:, None])[None]
+    tmask = torch.where(tkeep, 0.0, -1e9).contiguous()
+    smask = maskadd                                     # [B, 1, S]
+    seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                         device=dev)
+    w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
+    ws = [w[k] for k in lto.DEC_WEIGHTS]
+    args = (x, mk, mv, tmask, smask, seeds)
+    out, saved = ltk.dec_layer_fwd(*args, w, **kw)
+    grads = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
+    again = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
+    ref, x2, x3 = lto.dec_fwd_plain(*args, *ws, **kw)
+    refs = lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw,
+                             relu_active=saved[-1] > 0)
+    torch.cuda.synchronize()
+    _relu_flips("dec_layer_train", x3, w, saved[-1], seeds[0:1], heads,
+                "l3")
+    e_f = _check_each("dec_layer_train_fwd", ("out", "x2", "x3"),
+                      (out, saved[0], saved[1]), (ref, x2, x3))
+    e_b = _check_each("dec_layer_train_bwd",
+                      ("dx", "dmk", "dmv") + lto.DEC_WEIGHTS, grads, refs)
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        raise AssertionError("dec_layer_train_bwd: two runs differ")
+    shape = (f"B={b} T={t_dec} S={s} d={d} d_ff={f} H={heads} "
+             f"rate={TRAIN_RATE}, causal + pad, image 1 padded past 150")
+    log(f"kernel dec_layer_train [{shape}]: max|diff| / max(1, max|plain|) "
+        f"out/x2/x3 {e_f:.3g}, dx/dmk/dmv and 18 weight gradients {e_b:.3g} "
+        f"(tol {TRAIN_TOL}, each tensor); backward twice: identical bits")
+    m = b * t_dec
+    pairs = (float(tkeep.sum()) + float((smask >= 0).expand(b, t_dec, s).sum())
+             ) * heads
+    proj = float(m) * (6 * d * d + 2 * d * f)
+    lp = _layer_module(dev, w, d, f, decoder=True)
+    xr, mkr, mvr = (a.detach().requires_grad_() for a in (x, mk, mv))
+    params = [xr, mkr, mvr] + list(lp.parameters())
+    sub_f, sub_b = _yardsticks(
+        "dec layer, per-sublayer route (mha_train, ln_train, cuBLAS)",
+        lambda: sublayer(tm.dec_layer_apply,
+                         (lp, xr, mkr, mvr, tkeep, keep, heads)),
+        params, g)
+    ref_layer = torch.nn.TransformerDecoderLayer(
+        d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
+        device=dev)
+    tparams = [xr, mkr] + list(ref_layer.parameters())
+    causal = ~(pos[None, :] <= pos[:, None])
+    tor_f, tor_b = _yardsticks(
+        "dec layer, torch.nn.TransformerDecoderLayer(norm_first, dropout 0; "
+        "memory [B, S, d], its K/V projected inside)",
+        lambda: ref_layer(xr, mkr, tgt_mask=causal,
+                          memory_key_padding_mask=~keep[:, 0]), tparams, g)
+    what = ("torch.nn.TransformerDecoderLayer (same work plus the memory's "
+            "K/V projections, other formula)")
+    record("dec_layer_train_fwd", ["444"], e_f, shape,
+           timed(lambda: ltk.dec_layer_fwd(*args, w, **kw),
+                 lambda: lto.dec_fwd_plain(*args, *ws, **kw)),
+           nbytes(*args, *ws, out, x2, x3),
+           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what)
+    record("dec_layer_train_bwd", ["476", "163", "202"], e_b, shape,
+           timed(lambda: ltk.dec_layer_bwd(*args, w, saved, g, **kw),
+                 lambda: lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw)),
+           nbytes(*args, *ws, *saved, g, *grads),
+           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what)
+    return rec
+
+
 def make_train_batch(rs, n: int) -> dict:
     """A host batch as the data loader gives it: features, att_masks (image
     1's slots padded past 150), labels [n, seq_length + 2] with the BOS
@@ -1195,92 +1540,115 @@ def make_train_batch(rs, n: int) -> dict:
             "labels": labels, "masks": masks}
 
 
-def phase_train(counters: dict) -> dict:
+def _route_flags(enc_layer: bool, dec_layer: bool):
+    """Set the captioner's training-route flags; returns their old values."""
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+
+    old = (tm.TRAIN_LAYER_KERNEL, tm.TRAIN_DEC_LAYER_KERNEL)
+    tm.TRAIN_LAYER_KERNEL, tm.TRAIN_DEC_LAYER_KERNEL = enc_layer, dec_layer
+    return old
+
+
+def phase_train(route, counters: dict, detail: bool) -> tuple:
     """XE training of the full-width transformer captioner through
-    `Trainer.train` (built on the card, its default): 2 warm-up and 10 timed
-    steps on one random batch of 50. Every loss must be finite and the last
-    below the first, and each step must launch the attention kernels
-    MHA_PER_STEP times and the LayerNorm kernels LN_PER_STEP times, forward
-    and backward. Returns the launches of the 10 steps."""
+    `Trainer.train` (built on the card, its default) on one route of
+    TRAIN_ROUTES: 2 warm-up and the route's timed steps on one random batch
+    of 50. Every loss must be finite and the last below the first, and each
+    step must launch each kernel the route's number of times, forward and
+    backward. Returns (the launches of the timed steps, mean step wall in
+    s, one step's device busy in ms or None); with `detail`, logs the
+    step's largest device operations too."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
     from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
-    per_step = {"mha_train_fwd": MHA_PER_STEP, "mha_train_bwd": MHA_PER_STEP,
-                "ln_train_fwd": LN_PER_STEP, "ln_train_bwd": LN_PER_STEP}
-    cfg = Config(**TRAIN).finalize()
-    trainer = Trainer(cfg)
-    n_params = sum(p.numel() for p in trainer.i2t_model.parameters())
-    batch = make_train_batch(np.random.RandomState(0), cfg.batch_size)
-    losses = [trainer.train(batch)["total_loss"] for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
+    label, enc_layer, dec_layer, steps, per_step = route
+    old = _route_flags(enc_layer, dec_layer)
+    try:
+        cfg = Config(**TRAIN).finalize()
+        trainer = Trainer(cfg)
+        n_params = sum(p.numel() for p in trainer.i2t_model.parameters())
+        batch = make_train_batch(np.random.RandomState(0), cfg.batch_size)
+        losses = [trainer.train(batch)["total_loss"]
+                  for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
 
-    def counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        def counts():
+            return {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()}
 
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
-    walls = []
-    for step in range(TRAIN_STEPS):
-        before = counts()
-        t0 = time.perf_counter()
-        losses.append(trainer.train(batch)["total_loss"])  # a host float
-        walls.append(time.perf_counter() - t0)
-        grew = {k: n - before[k] for k, n in counts().items()}
-        if grew != per_step:
-            raise AssertionError(f"training step {step} launched {grew}, "
-                                 f"expected {per_step}")
-    launches = counts()
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall on one batch: {losses}")
-    wall = statistics.mean(walls)
-    tokens = cfg.batch_size * (cfg.seq_length + 1)
-    log(f"training: transformer XE, {n_params / 1e6:.2f} M parameters, "
-        f"batch {cfg.batch_size}, {TRAIN_STEPS} steps after "
-        f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
-        f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
-        f"{tokens / wall:.0f} tokens/s ({tokens} a step); launches "
-        + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    log("training: losses " + ", ".join(f"{x:.4f}" for x in losses))
-    # the share of a step the host spends uploading the batch (pageable
-    # numpy arrays, as train() receives them)
-    host = [torch.as_tensor(v) for v in batch.values()]
-    t0 = time.perf_counter()
-    for v in host:
-        v.to(trainer.device)
-    torch.cuda.synchronize()
-    log(f"training: uploading one batch ({nbytes(*host) / 1e6:.1f} MB) "
-        f"takes {(time.perf_counter() - t0) * 1e3:.1f} ms of host wall")
-    busy, per_name = device_ms(lambda: trainer.train(batch))
-    if busy is None:
-        log("training: device busy not measured (the profiler recorded no "
-            "device time)")
-        return launches
-    mine = sum(us for n, (us, _) in per_name.items()
-               if any(k in n for k in TRAIN_KERNELS)) / 1e3
-    log(f"training: one step device busy {busy:.1f} ms (kernel time), idle "
-        f"share {1 - busy / (wall * 1e3):.2f} of the mean step wall; "
-        f"{mine:.1f} ms ({mine / busy:.2f}) in the mha_train / ln_train "
-        "kernels")
-    for name, (us, n) in sorted(per_name.items(),
-                                key=lambda kv: -kv[1][0])[:TOP_OPS]:
-        log(f"training: device op {us / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
-    return launches
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        walls = []
+        for step in range(steps):
+            before = counts()
+            t0 = time.perf_counter()
+            losses.append(trainer.train(batch)["total_loss"])  # a host float
+            walls.append(time.perf_counter() - t0)
+            grew = {k: n - before[k] for k, n in counts().items()}
+            if grew != per_step:
+                raise AssertionError(f"training ({label}) step {step} "
+                                     f"launched {grew}, expected {per_step}")
+        launches = counts()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall on one batch: "
+                                 f"{losses}")
+        wall = statistics.mean(walls)
+        tokens = cfg.batch_size * (cfg.seq_length + 1)
+        log(f"training [{label}]: transformer XE, {n_params / 1e6:.2f} M "
+            f"parameters, batch {cfg.batch_size}, {steps} steps after "
+            f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
+            f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
+            f"{tokens / wall:.0f} tokens/s ({tokens} a step); launches "
+            + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+        log(f"training [{label}]: losses "
+            + ", ".join(f"{x:.4f}" for x in losses))
+        if detail:
+            # the share of a step the host spends uploading the batch
+            # (pageable numpy arrays, as train() receives them)
+            host = [torch.as_tensor(v) for v in batch.values()]
+            t0 = time.perf_counter()
+            for v in host:
+                v.to(trainer.device)
+            torch.cuda.synchronize()
+            log(f"training: uploading one batch ({nbytes(*host) / 1e6:.1f} "
+                f"MB) takes {(time.perf_counter() - t0) * 1e3:.1f} ms of "
+                "host wall")
+        busy, per_name = device_ms(lambda: trainer.train(batch))
+        if busy is None:
+            log(f"training [{label}]: device busy not measured (the profiler "
+                "recorded no device time)")
+            return launches, wall, None
+        mine = sum(us for n, (us, _) in per_name.items()
+                   if any(k in n for k in TRAIN_KERNELS)) / 1e3
+        log(f"training [{label}]: one step device busy {busy:.1f} ms (kernel "
+            f"time), idle share {1 - busy / (wall * 1e3):.2f} of the mean "
+            f"step wall; {mine:.1f} ms ({mine / busy:.2f}) in the kernels of "
+            "csrc/")
+        if detail:
+            for name, (us, n) in sorted(per_name.items(),
+                                        key=lambda kv: -kv[1][0])[:TOP_OPS]:
+                log(f"training: device op {us / 1e3:8.3f} ms {n:6d}x  "
+                    f"{name[:90]}")
+        return launches, wall, busy
+    finally:
+        _route_flags(*old)
 
 
-def phase_train_agreement(dev) -> None:
+def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
     """One training step on two images at full width, every dropout off,
     through `Trainer.train` on the card (kernels) and on the CPU (plain
-    versions), from the same initial weights. The loss must agree within
-    TRAIN_TOL relative and every updated parameter within TRAIN_TOL *
-    max(1, max|p|). The step uses SGD at learning rate 1 after the
-    global-norm clip, so the parameters move by the clipped gradient
-    itself: Adam's first step would move each weight by about lr * sign(g)
-    and turn the rounding noise of gradients that are zero in exact
-    arithmetic (the attention key biases) into differences of 2 * lr."""
+    versions), from the same initial weights, on the route the flags name.
+    The loss must agree within TRAIN_TOL relative and every updated
+    parameter within TRAIN_TOL * max(1, max|p|). The step uses SGD at
+    learning rate 1 after the global-norm clip, so the parameters move by
+    the clipped gradient itself: Adam's first step would move each weight
+    by about lr * sign(g) and turn the rounding noise of gradients that are
+    zero in exact arithmetic (the attention key biases) into differences of
+    2 * lr."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
@@ -1292,6 +1660,7 @@ def phase_train_agreement(dev) -> None:
     batch = make_train_batch(np.random.RandomState(4), 2)
     rate = tm.DROPOUT
     tm.DROPOUT = 0.0
+    old = _route_flags(enc_layer, dec_layer)
     try:
         got = {}
         for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
@@ -1301,6 +1670,7 @@ def phase_train_agreement(dev) -> None:
                                 trainer.i2t_model.state_dict().items()})
     finally:
         tm.DROPOUT = rate
+        _route_flags(*old)
     (lg, pg), (lc, pc) = got["gpu"], got["cpu"]
     loss_err = abs(lg - lc) / abs(lc)
     worst, worst_key = 0.0, None
@@ -1309,10 +1679,12 @@ def phase_train_agreement(dev) -> None:
                                                     want.abs().max().item())
         if e > worst:
             worst, worst_key = e, k
-    log(f"training agreement: card vs cpu, one step on 2 images, dropout 0: "
-        f"loss {lg:.6f} vs {lc:.6f} (relative {loss_err:.3g}); updated "
-        f"parameters max|diff| / max(1, max|p|) {worst:.3g} at {worst_key} "
-        f"(tol {TRAIN_TOL})")
+    route = ("whole encoder and decoder layers" if dec_layer and enc_layer
+             else "whole encoder layers" if enc_layer else "per sublayer")
+    log(f"training agreement [{route}]: card vs cpu, one step on 2 images, "
+        f"dropout 0: loss {lg:.6f} vs {lc:.6f} (relative {loss_err:.3g}); "
+        f"updated parameters max|diff| / max(1, max|p|) {worst:.3g} at "
+        f"{worst_key} (tol {TRAIN_TOL})")
     if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
         raise AssertionError("card and cpu training steps disagree")
 
@@ -1330,6 +1702,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
     from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
     from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
     from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
@@ -1343,6 +1716,7 @@ def main() -> int:
     kernels = phase_kernels(dev)
     kernels.update(phase_tfd_kernels(dev))
     kernels.update(phase_train_kernels(dev))
+    kernels.update(phase_layer_kernels(dev))
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                          {"lstm_cell": (lk, "launches"),
@@ -1357,11 +1731,26 @@ def main() -> int:
     layer_launches = phase_layer_route(dev, tcap)
     phase_agreement_transformer(dev, tcap, tnmt, cap2nmt)
     del tcap, tnmt
-    train_counts = phase_train({"mha_train_fwd": (mhk, "fwd_launches"),
-                                "mha_train_bwd": (mhk, "bwd_launches"),
-                                "ln_train_fwd": (lnk, "fwd_launches"),
-                                "ln_train_bwd": (lnk, "bwd_launches")})
-    phase_train_agreement(dev)
+    counters = {"mha_train_fwd": (mhk, "fwd_launches"),
+                "mha_train_bwd": (mhk, "bwd_launches"),
+                "ln_train_fwd": (lnk, "fwd_launches"),
+                "ln_train_bwd": (lnk, "bwd_launches")}
+    for kind in ("enc", "dec"):
+        for x in ("fwd", "bwd"):
+            counters[f"{kind}_layer_train_{x}"] = (ltk, f"{kind}_{x}_launches")
+    runs = [phase_train(route, counters, detail=i == 0)
+            for i, route in enumerate(TRAIN_ROUTES)]
+    log("training routes, step wall mean / device busy: " + "; ".join(
+        f"{route[0]} {wall * 1e3:.1f} ms / "
+        + (f"{busy:.1f} ms" if busy is not None else "not measured")
+        for route, (_, wall, busy) in zip(TRAIN_ROUTES, runs)))
+    phase_train_agreement(dev, True, False)
+    phase_train_agreement(dev, True, True)
+    # each training kernel's launches on the route that runs it: the default
+    # route, and for the decoder-layer kernel the whole-layer route
+    train_counts = {k: n for k, n in runs[0][0].items() if n}
+    train_counts.update({k: n for k, n in runs[2][0].items()
+                         if k.startswith("dec_layer")})
     for name, n in list(counts.items()) + list(train_counts.items()):
         kernels[name]["launches"] = n
     kernels["transformer_decode_stack"]["launches"] = (

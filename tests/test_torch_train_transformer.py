@@ -1,8 +1,10 @@
 """The port's XE training step of the transformer captioner
 (`train/trainer.py`) against the JAX `Trainer` at tiny widths (2 layers,
 d 32, 4 heads, V 20, 6 att slots, seq_length 5, batch 3), Adam with the
-global-norm clip: with every dropout at 0, the losses of steps 1 and 2 and
-the parameters and Adam moments after step 2 agree within 1e-5. With
+global-norm clip: with every dropout at 0, on each of the port's three
+training routes (per sublayer, whole encoder layers, whole encoder and
+decoder layers), the losses of steps 1 and 2 and the parameters and Adam
+moments after step 2 agree within 1e-5. With
 dropout on, the port's loss is finite, repeats exactly from the same seed
 and falls over 5 steps on one batch.
 
@@ -18,6 +20,7 @@ import torch
 
 from unpaired_image_captioning_tpu_torch import bridge
 from unpaired_image_captioning_tpu_torch.config import Config as TConfig
+from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
 from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
 from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
 from unpaired_image_captioning_tpu_torch.models import transformer as ttr
@@ -46,13 +49,29 @@ def _batch(seed=0):
             "att_masks": att_masks, "labels": labels, "masks": masks}
 
 
-def test_xe_steps_match_jax_trainer(tmp_path, monkeypatch):
+# the port's three training routes: (TRAIN_LAYER_KERNEL,
+# TRAIN_DEC_LAYER_KERNEL); the JAX Trainer runs its sublayer route on the CPU
+ROUTES = {"sublayer": (False, False), "enc_layer": (True, False),
+          "enc_dec_layer": (True, True)}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_xe_steps_match_jax_trainer(tmp_path, monkeypatch, route):
     from unpaired_image_captioning_tpu.config import Config
     from unpaired_image_captioning_tpu.models import transformer as jtr
     from unpaired_image_captioning_tpu.train.trainer import Trainer as JT
 
     monkeypatch.setattr(jtr, "DROPOUT", 0.0)
     monkeypatch.setattr(ttr, "DROPOUT", 0.0)
+    enc_layer, dec_layer = ROUTES[route]
+    monkeypatch.setattr(ttr, "TRAIN_LAYER_KERNEL", enc_layer)
+    monkeypatch.setattr(ttr, "TRAIN_DEC_LAYER_KERNEL", dec_layer)
+    calls = {"enc": 0, "dec": 0}
+    for key, name in (("enc", "enc_layer_fwd"), ("dec", "dec_layer_fwd")):
+        def spy(*a, _fn=getattr(ltk, name), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ltk, name, spy)
     kw = dict(CFG, drop_prob_lm=0.0, i2t_optim_epsilon=1e-6)
     # dtype f32: the JAX trainer otherwise rounds the features to bf16
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
@@ -68,6 +87,7 @@ def test_xe_steps_match_jax_trainer(tmp_path, monkeypatch):
         np.testing.assert_allclose(tm["i2t_loss"], jm["i2t_loss"], rtol=TOL,
                                    atol=TOL)
     assert (mhk.bwd_launches, lnk.bwd_launches) == (mha0, ln0)  # CPU: plain
+    assert calls == {"enc": 2 * L * enc_layer, "dec": 2 * L * dec_layer}
     got = bridge.params_to_numpy(pt.i2t_model)
     import jax
 

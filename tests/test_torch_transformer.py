@@ -20,6 +20,7 @@ from unpaired_image_captioning_tpu.models import transformer as jtr
 from unpaired_image_captioning_tpu.models.base import Features as JFeatures
 from unpaired_image_captioning_tpu_torch import bridge
 from unpaired_image_captioning_tpu_torch import models as tmodels
+from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
 from unpaired_image_captioning_tpu_torch.models import transformer as ttr
 from unpaired_image_captioning_tpu_torch.models.base import Features
 
@@ -190,9 +191,15 @@ def test_unported_options_raise(pair, monkeypatch):
     with pytest.raises(NotImplementedError, match="A10"):
         tmodels.setup(Config(**{**vars(CFG), "use_bn": 1}),
                       device="cpu")
+    # the whole-layer training route: one encoder-layer call per layer
     monkeypatch.setattr(ttr, "TRAIN_LAYER_KERNEL", True)
-    with pytest.raises(NotImplementedError, match="B6"):
-        tm.forward(tf, torch.zeros((B, 3), dtype=torch.long), training=True)
+    calls = []
+    fwd = ltk.enc_layer_fwd
+    monkeypatch.setattr(ltk, "enc_layer_fwd",
+                        lambda *a, **kw: calls.append(1) or fwd(*a, **kw))
+    out = tm.forward(tf, torch.zeros((B, 3), dtype=torch.long), training=True)
+    assert len(calls) == CFG.num_layers
+    assert torch.isfinite(out).all()
 
 
 def test_init_params_shapes_match_jax(pair):

@@ -21,10 +21,14 @@
 // run in parallel, so each block of the backward sums its rows' terms in
 // shared memory (warp by warp, in order) and writes one partial row, and a
 // second kernel adds the partials in block order: no float atomics, the
-// same bits every run.
+// same bits every run. The whole-layer kernels (layer_train.cu) call the
+// forward and the backward through ln_train.cuh; their backward adds the
+// residual gradient into dx (`res`).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "ln_train.cuh"
 
 namespace {
 
@@ -70,12 +74,13 @@ __global__ void __launch_bounds__(WARPS * 32)
     yr[j] = (xr[j] - mean) / sd * scale[j] + offset[j];
 }
 
-// dx for the block's rows, and the block's partial d_scale / d_offset into
-// partial [gridDim.x][2][d]
+// dx (plus res where given) for the block's rows, and the block's partial
+// d_scale / d_offset into partial [gridDim.x][2][d]
 __global__ void __launch_bounds__(WARPS * 32)
     ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-                  const float* __restrict__ g, float* __restrict__ dx,
-                  float* __restrict__ partial, int rows, int d, float eps) {
+                  const float* __restrict__ g, const float* __restrict__ res,
+                  float* __restrict__ dx, float* __restrict__ partial,
+                  int rows, int d, float eps) {
   extern __shared__ float acc[];  // [WARPS][2][d]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* ads = acc + (size_t)warp * 2 * d;
@@ -99,9 +104,11 @@ __global__ void __launch_bounds__(WARPS * 32)
     const float dvar = s1 * (-1.0f / (sd * sd)) * (0.5f / root);
     const float dmean = -s2 / sd;
     float* dxr = dx + (size_t)row * d;
+    const float* rr = res ? res + (size_t)row * d : nullptr;
     for (int j = lane; j < d; j += 32) {
       const float xm = xr[j] - mean, gj = gr[j];
-      dxr[j] = gj * scale[j] / sd + dvar * two_n1 * xm + dmean / (float)d;
+      const float v = gj * scale[j] / sd + dvar * two_n1 * xm + dmean / (float)d;
+      dxr[j] = rr ? rr[j] + v : v;
       ads[j] += gj * (xm / sd);
       adb[j] += gj;
     }
@@ -152,15 +159,41 @@ __global__ void __launch_bounds__(RED_GROUPS * 32)
 
 }  // namespace
 
+namespace uic {
+
+int ln_fwd(const float* x, const float* scale, const float* offset, float* y,
+           int rows, int d, float eps, cudaStream_t st) {
+  const int blocks = (rows + WARPS - 1) / WARPS;
+  ln_fwd_kernel<<<blocks, WARPS * 32, 0, st>>>(x, scale, offset, y, rows, d,
+                                               eps);
+  return (int)cudaGetLastError();
+}
+
+int ln_bwd(const float* x, const float* scale, const float* dy,
+           const float* res, float* dx, float* dscale, float* doffset,
+           float* partial, int rows, int d, int nblk, float eps,
+           cudaStream_t st) {
+  const size_t smem = sizeof(float) * (size_t)WARPS * 2 * d;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ln_bwd_kernel<<<nblk, WARPS * 32, smem, st>>>(x, scale, dy, res, dx,
+                                                partial, rows, d, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ln_bwd_reduce_kernel<<<(d + 31) / 32, RED_GROUPS * 32, 0, st>>>(
+      partial, nblk, d, dscale, doffset);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace uic
+
 extern "C" {
 
 // x, y [rows, d] f32, scale / offset [d]
 int ln_train_fwd_f32(const float* x, const float* scale, const float* offset,
                      float* y, int rows, int d, float eps, void* stream) {
-  const int blocks = (rows + WARPS - 1) / WARPS;
-  ln_fwd_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      x, scale, offset, y, rows, d, eps);
-  return (int)cudaGetLastError();
+  return uic::ln_fwd(x, scale, offset, y, rows, d, eps, (cudaStream_t)stream);
 }
 
 // g, dx [rows, d]; partial scratch [nblk, 2, d] with nblk blocks of the
@@ -168,18 +201,8 @@ int ln_train_fwd_f32(const float* x, const float* scale, const float* offset,
 int ln_train_bwd_f32(const float* x, const float* scale, const float* g,
                      float* dx, float* dscale, float* doffset, float* partial,
                      int rows, int d, int nblk, float eps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = sizeof(float) * (size_t)WARPS * 2 * d;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ln_bwd_kernel<<<nblk, WARPS * 32, smem, st>>>(x, scale, g, dx, partial,
-                                                rows, d, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ln_bwd_reduce_kernel<<<(d + 31) / 32, RED_GROUPS * 32, 0, st>>>(
-      partial, nblk, d, dscale, doffset);
-  return (int)cudaGetLastError();
+  return uic::ln_bwd(x, scale, g, nullptr, dx, dscale, doffset, partial, rows,
+                     d, nblk, eps, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -24,29 +24,28 @@
 // float atomics: one kernel per (b, h, 32 query rows) recomputes p, writes
 // the row stats (max, sum, D) and dq; a second per (b, h, 64 keys) walks
 // every query row in order and owns its keys' dk and dv.
+//
+// The kernels read q / k / v and write their gradients with row strides of
+// their own and draw the dropout of block b * pid_b + h (mha_train.cuh), so
+// the whole-layer kernels (layer_train.cu) attend over the column blocks of
+// a packed [rows, 3d] projection with their own dropout site ids.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mha_train.cuh"
+
 namespace {
+
+using uic::Attn;
+using uic::hash_base;
+using uic::keep_hash;
 
 constexpr int NT = 256;  // threads per block: tx = tid % 16, ty = tid / 16
 constexpr int QT = 32;   // query rows per block (2 per ty)
 constexpr int KC = 64;   // keys per chunk (4 per tx)
 constexpr float NEG = -1e9f;
-
-__device__ __forceinline__ uint32_t hash_base(int seed, int pid) {
-  return ((uint32_t)seed * 0x9E3779B9u) ^ ((uint32_t)pid * 0x85EBCA6Bu);
-}
-
-// `_keep_mask` of the Pallas kernel: splitmix32 of (seed, b*H + h, row*S+col)
-__device__ __forceinline__ uint32_t keep_hash(uint32_t base, uint32_t idx) {
-  uint32_t x = base ^ (idx * 0x2545F491u);
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -61,14 +60,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// rows [r0, r0 + ROWS) of head h of one batch element's [L, d] matrix into
-// dst [ROWS][DH + 1]; rows past L are zero
+// rows [r0, r0 + ROWS) of head h of one batch element's [L, ld] matrix
+// into dst [ROWS][DH + 1]; rows past L are zero
 template <int DH, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int L, int d, int h) {
+                                          int r0, int L, int ld, int h) {
   for (int i = threadIdx.x; i < ROWS * DH; i += NT) {
     const int r = i / DH, c = i % DH, row = r0 + r;
-    dst[r * (DH + 1) + c] = row < L ? src[(size_t)row * d + h * DH + c] : 0.f;
+    dst[r * (DH + 1) + c] = row < L ? src[(size_t)row * ld + h * DH + c] : 0.f;
   }
 }
 
@@ -105,12 +104,12 @@ __device__ __forceinline__ const float* mask_row(const float* mask, int b,
 template <int DH>
 __device__ void scores_pass(const float* qs, float* kv, float* sc,
                             const float* kb, const float* mask, int b, int q0,
-                            int T, int S, int d, int h, int mask_rows,
+                            int T, int S, int lk, int h, int mask_rows,
                             float sqrt_dh) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   for (int k0 = 0; k0 < S; k0 += KC) {
     __syncthreads();
-    load_tile<DH, KC>(kv, kb, k0, S, d, h);
+    load_tile<DH, KC>(kv, kb, k0, S, lk, h);
     __syncthreads();
     float acc[2][4];
     tile_dot<DH>(qs, kv, acc, ty, tx);
@@ -162,32 +161,29 @@ __device__ void softmax_rows(float* sc, int q0, int T, int S, float* stats,
 
 template <int DH>
 __global__ void __launch_bounds__(NT)
-    mha_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ mask,
-                   const int* __restrict__ seed, float* __restrict__ out,
-                   int T, int S, int H, int mask_rows, float sqrt_dh,
-                   uint32_t thresh, float keep_div, int dropout) {
+    mha_fwd_kernel(const Attn a, float* __restrict__ out, float sqrt_dh) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [QT][DH+1]
   float* kv = qs + QT * (DH + 1);    // [KC][DH+1]
   float* sc = kv + KC * (DH + 1);    // [QT][S]
-  const int d = H * DH, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
+  const int T = a.T, S = a.S;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + (size_t)b * T * d;
-  const float* kb = k + (size_t)b * S * d;
-  const float* vb = v + (size_t)b * S * d;
+  const float* qb = a.q + (size_t)b * T * a.lq;
+  const float* kb = a.k + (size_t)b * S * a.lk;
+  const float* vb = a.v + (size_t)b * S * a.lv;
 
-  load_tile<DH, QT>(qs, qb, q0, T, d, h);
-  scores_pass<DH>(qs, kv, sc, kb, mask, b, q0, T, S, d, h, mask_rows,
+  load_tile<DH, QT>(qs, qb, q0, T, a.lq, h);
+  scores_pass<DH>(qs, kv, sc, kb, a.mask, b, q0, T, S, a.lk, h, a.mask_rows,
                   sqrt_dh);
   softmax_rows(sc, q0, T, S, nullptr, 0);
-  if (dropout) {
-    const uint32_t base = hash_base(*seed, b * H + h);
+  if (a.dropout) {
+    const uint32_t base = hash_base(*a.seed, b * a.pid_b + h);
     for (int i = threadIdx.x; i < QT * S; i += NT) {
       const int r = i / S, j = i % S, row = q0 + r;
       if (row >= T) continue;
       const uint32_t x = keep_hash(base, (uint32_t)(row * S + j));
-      sc[i] = x >= thresh ? sc[i] / keep_div : 0.f;
+      sc[i] = x >= a.thresh ? sc[i] / a.keep_div : 0.f;
     }
   }
 
@@ -199,7 +195,7 @@ __global__ void __launch_bounds__(NT)
     for (int c = 0; c < CPT; ++c) o[r][c] = 0.f;
   for (int k0 = 0; k0 < S; k0 += KC) {
     __syncthreads();
-    load_tile<DH, KC>(kv, vb, k0, S, d, h);
+    load_tile<DH, KC>(kv, vb, k0, S, a.lv, h);
     __syncthreads();
     const int kn = min(KC, S - k0);
     const float* a0 = sc + (ty * 2) * S + k0;
@@ -218,7 +214,7 @@ __global__ void __launch_bounds__(NT)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + ty * 2 + r;
     if (row >= T) continue;
-    float* orow = out + ((size_t)b * T + row) * d + h * DH;
+    float* orow = out + ((size_t)b * T + row) * a.lo + h * DH;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = o[r][c];
   }
@@ -228,37 +224,34 @@ __global__ void __launch_bounds__(NT)
 // (max, sum, D) into stats [B*H*T][3], and dq
 template <int DH>
 __global__ void __launch_bounds__(NT)
-    mha_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ mask,
-                      const int* __restrict__ seed,
-                      const float* __restrict__ g, const float* __restrict__ o,
-                      float* __restrict__ dq, float* __restrict__ stats, int T,
-                      int S, int H, int mask_rows, float sqrt_dh,
-                      uint32_t thresh, float keep_div, int dropout) {
+    mha_bwd_dq_kernel(const Attn a, const float* __restrict__ g,
+                      const float* __restrict__ o, float* __restrict__ dq,
+                      float* __restrict__ stats, float sqrt_dh) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [QT][DH+1]
   float* gs = qs + QT * (DH + 1);    // [QT][DH+1]
   float* kv = gs + QT * (DH + 1);    // [KC][DH+1]
   float* sc = kv + KC * (DH + 1);    // [QT][S]
   __shared__ float dsum[QT];
-  const int d = H * DH, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
+  const int T = a.T, S = a.S, mask_rows = a.mask_rows;
+  const float* mask = a.mask;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* qb = q + (size_t)b * T * d;
-  const float* kb = k + (size_t)b * S * d;
-  const float* vb = v + (size_t)b * S * d;
-  const size_t stat_base = (size_t)(b * H + h) * T;
+  const float* qb = a.q + (size_t)b * T * a.lq;
+  const float* kb = a.k + (size_t)b * S * a.lk;
+  const float* vb = a.v + (size_t)b * S * a.lv;
+  const size_t stat_base = (size_t)(b * a.H + h) * T;
 
-  load_tile<DH, QT>(qs, qb, q0, T, d, h);
-  load_tile<DH, QT>(gs, g + (size_t)b * T * d, q0, T, d, h);
+  load_tile<DH, QT>(qs, qb, q0, T, a.lq, h);
+  load_tile<DH, QT>(gs, g + (size_t)b * T * a.lo, q0, T, a.lo, h);
   __syncthreads();
   // D_i = g_i . o_i over the head's columns
   for (int r = warp; r < QT; r += NT / 32) {
     const int row = q0 + r;
     float acc = 0.f;
     if (row < T) {
-      const float* orow = o + ((size_t)b * T + row) * d + h * DH;
+      const float* orow = o + ((size_t)b * T + row) * a.lo + h * DH;
       for (int c = lane; c < DH; c += 32) acc += gs[r * (DH + 1) + c] * orow[c];
     }
     acc = warp_sum(acc);
@@ -267,15 +260,18 @@ __global__ void __launch_bounds__(NT)
       if (row < T) stats[3 * (stat_base + row) + 2] = acc;
     }
   }
-  scores_pass<DH>(qs, kv, sc, kb, mask, b, q0, T, S, d, h, mask_rows,
+  scores_pass<DH>(qs, kv, sc, kb, mask, b, q0, T, S, a.lk, h, mask_rows,
                   sqrt_dh);
   softmax_rows(sc, q0, T, S, stats, stat_base);
 
   // ds / sqrt(dh) into sc, chunk by chunk of V
-  const uint32_t base = dropout ? hash_base(*seed, b * H + h) : 0u;
+  const int dropout = a.dropout;
+  const uint32_t thresh = a.thresh;
+  const float keep_div = a.keep_div;
+  const uint32_t base = dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
   for (int k0 = 0; k0 < S; k0 += KC) {
     __syncthreads();
-    load_tile<DH, KC>(kv, vb, k0, S, d, h);
+    load_tile<DH, KC>(kv, vb, k0, S, a.lv, h);
     __syncthreads();
     float acc[2][4];
     tile_dot<DH>(gs, kv, acc, ty, tx);
@@ -310,7 +306,7 @@ __global__ void __launch_bounds__(NT)
     for (int c = 0; c < CPT; ++c) accq[r][c] = 0.f;
   for (int k0 = 0; k0 < S; k0 += KC) {
     __syncthreads();
-    load_tile<DH, KC>(kv, kb, k0, S, d, h);
+    load_tile<DH, KC>(kv, kb, k0, S, a.lk, h);
     __syncthreads();
     const int kn = min(KC, S - k0);
     const float* a0 = sc + (ty * 2) * S + k0;
@@ -329,7 +325,7 @@ __global__ void __launch_bounds__(NT)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + ty * 2 + r;
     if (row >= T) continue;
-    float* drow = dq + ((size_t)b * T + row) * d + h * DH;
+    float* drow = dq + ((size_t)b * T + row) * a.lq + h * DH;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) drow[tx + 16 * c] = accq[r][c];
   }
@@ -340,16 +336,10 @@ __global__ void __launch_bounds__(NT)
 // element
 template <int DH>
 __global__ void __launch_bounds__(NT)
-    mha_bwd_dkdv_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ mask,
-                        const int* __restrict__ seed,
-                        const float* __restrict__ g,
+    mha_bwd_dkdv_kernel(const Attn a, const float* __restrict__ g,
                         const float* __restrict__ stats,
-                        float* __restrict__ dk, float* __restrict__ dv, int T,
-                        int S, int H, int mask_rows, float sqrt_dh,
-                        uint32_t thresh, float keep_div, int dropout) {
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        float sqrt_dh) {
   extern __shared__ float smem[];
   float* ks = smem;                   // [KC][DH+1]
   float* vs = ks + KC * (DH + 1);     // [KC][DH+1]
@@ -358,15 +348,19 @@ __global__ void __launch_bounds__(NT)
   float* pt = gs + QT * (DH + 1);     // [QT][KC+1] attn
   float* dt = pt + QT * (KC + 1);     // [QT][KC+1] ds / sqrt(dh)
   __shared__ float rs[QT][3];
-  const int d = H * DH, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KC;
+  const int T = a.T, S = a.S, mask_rows = a.mask_rows, dropout = a.dropout;
+  const float* mask = a.mask;
+  const uint32_t thresh = a.thresh;
+  const float keep_div = a.keep_div;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KC;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = q + (size_t)b * T * d;
-  const float* gb = g + (size_t)b * T * d;
-  const size_t stat_base = (size_t)(b * H + h) * T;
-  const uint32_t base = dropout ? hash_base(*seed, b * H + h) : 0u;
+  const float* qb = a.q + (size_t)b * T * a.lq;
+  const float* gb = g + (size_t)b * T * a.lo;
+  const size_t stat_base = (size_t)(b * a.H + h) * T;
+  const uint32_t base = dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
 
-  load_tile<DH, KC>(ks, k + (size_t)b * S * d, k0, S, d, h);
-  load_tile<DH, KC>(vs, v + (size_t)b * S * d, k0, S, d, h);
+  load_tile<DH, KC>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, h);
+  load_tile<DH, KC>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, h);
   constexpr int CPT = DH / 16;
   float adk[4][CPT], adv[4][CPT];  // keys ty*4 + m, columns tx + 16*c
 #pragma unroll
@@ -376,8 +370,8 @@ __global__ void __launch_bounds__(NT)
 
   for (int q0 = 0; q0 < T; q0 += QT) {
     __syncthreads();
-    load_tile<DH, QT>(qs, qb, q0, T, d, h);
-    load_tile<DH, QT>(gs, gb, q0, T, d, h);
+    load_tile<DH, QT>(qs, qb, q0, T, a.lq, h);
+    load_tile<DH, QT>(gs, gb, q0, T, a.lo, h);
     for (int i = threadIdx.x; i < QT * 3; i += NT) {
       const int r = i / 3, row = q0 + r;
       rs[r][i % 3] = row < T ? stats[3 * (stat_base + row) + i % 3] : 0.f;
@@ -424,11 +418,11 @@ __global__ void __launch_bounds__(NT)
       }
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const float a = pt[i * (KC + 1) + ty * 4 + m];
+        const float at = pt[i * (KC + 1) + ty * 4 + m];
         const float s = dt[i * (KC + 1) + ty * 4 + m];
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
-          adv[m][c] += a * gv[c];
+          adv[m][c] += at * gv[c];
           adk[m][c] += s * qv[c];
         }
       }
@@ -438,8 +432,8 @@ __global__ void __launch_bounds__(NT)
   for (int m = 0; m < 4; ++m) {
     const int key = k0 + ty * 4 + m;
     if (key >= S) continue;
-    float* krow = dk + ((size_t)b * S + key) * d + h * DH;
-    float* vrow = dv + ((size_t)b * S + key) * d + h * DH;
+    float* krow = dk + ((size_t)b * S + key) * a.lk + h * DH;
+    float* vrow = dv + ((size_t)b * S + key) * a.lv + h * DH;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       krow[tx + 16 * c] = adk[m][c];
@@ -467,44 +461,68 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 template <int DH>
-int fwd(const float* q, const float* k, const float* v, const float* mask,
-        const int* seed, float* out, int B, int T, int S, int H,
-        int mask_rows, uint32_t thresh, float keep_div, int dropout,
-        cudaStream_t stream) {
-  const size_t smem = fwd_smem(DH, S);
-  dim3 grid((T + QT - 1) / QT, H, B);
+int fwd(const Attn& a, float* out, cudaStream_t stream) {
+  const size_t smem = fwd_smem(DH, a.S);
+  dim3 grid((a.T + QT - 1) / QT, a.H, a.B);
   cudaError_t err = allow_smem(mha_fwd_kernel<DH>, smem);
   if (err != cudaSuccess) return (int)err;
-  mha_fwd_kernel<DH><<<grid, NT, smem, stream>>>(
-      q, k, v, mask, seed, out, T, S, H, mask_rows, sqrtf((float)DH), thresh,
-      keep_div, dropout);
+  mha_fwd_kernel<DH><<<grid, NT, smem, stream>>>(a, out, sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int bwd(const float* q, const float* k, const float* v, const float* mask,
-        const int* seed, const float* g, const float* o, float* dq, float* dk,
-        float* dv, float* stats, int B, int T, int S, int H, int mask_rows,
-        uint32_t thresh, float keep_div, int dropout, cudaStream_t stream) {
+int bwd(const Attn& a, const float* g, const float* o, float* dq, float* dk,
+        float* dv, float* stats, cudaStream_t stream) {
   const float sqrt_dh = sqrtf((float)DH);
-  const size_t s1 = dq_smem(DH, S), s2 = dkdv_smem(DH);
-  dim3 g1((T + QT - 1) / QT, H, B), g2((S + KC - 1) / KC, H, B);
+  const size_t s1 = dq_smem(DH, a.S), s2 = dkdv_smem(DH);
+  dim3 g1((a.T + QT - 1) / QT, a.H, a.B), g2((a.S + KC - 1) / KC, a.H, a.B);
   cudaError_t err = allow_smem(mha_bwd_dq_kernel<DH>, s1);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(mha_bwd_dkdv_kernel<DH>, s2);
   if (err != cudaSuccess) return (int)err;
-  mha_bwd_dq_kernel<DH><<<g1, NT, s1, stream>>>(
-      q, k, v, mask, seed, g, o, dq, stats, T, S, H, mask_rows, sqrt_dh,
-      thresh, keep_div, dropout);
+  mha_bwd_dq_kernel<DH><<<g1, NT, s1, stream>>>(a, g, o, dq, stats, sqrt_dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mha_bwd_dkdv_kernel<DH><<<g2, NT, s2, stream>>>(
-      q, k, v, mask, seed, g, stats, dk, dv, T, S, H, mask_rows, sqrt_dh,
-      thresh, keep_div, dropout);
+  mha_bwd_dkdv_kernel<DH><<<g2, NT, s2, stream>>>(a, g, stats, dk, dv,
+                                                 sqrt_dh);
   return (int)cudaGetLastError();
 }
 
+// the attention kernel's own calls: q, k, v, out and g contiguous
+// [B, T|S, H*dh], dropout block ids b*H + h
+Attn plain_attn(const float* q, const float* k, const float* v,
+                const float* mask, const int* seed, int B, int T, int S,
+                int H, int dh, int mask_rows, unsigned int thresh,
+                float keep_div, int dropout) {
+  const int d = H * dh;
+  return Attn{q, k, v, mask, seed, d, d, d, d, B, T, S, H, dh, mask_rows, H,
+              thresh, keep_div, dropout};
+}
+
 }  // namespace
+
+namespace uic {
+
+int attn_fwd(const Attn& a, float* out, cudaStream_t st) {
+  switch (a.dh) {
+    case 32: return fwd<32>(a, out, st);
+    case 64: return fwd<64>(a, out, st);
+    case 128: return fwd<128>(a, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int attn_bwd(const Attn& a, const float* g, const float* o, float* dq,
+             float* dk, float* dv, float* stats, cudaStream_t st) {
+  switch (a.dh) {
+    case 32: return bwd<32>(a, g, o, dq, dk, dv, stats, st);
+    case 64: return bwd<64>(a, g, o, dq, dk, dv, stats, st);
+    case 128: return bwd<128>(a, g, o, dq, dk, dv, stats, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace uic
 
 extern "C" {
 
@@ -515,20 +533,9 @@ int mha_train_fwd_f32(const float* q, const float* k, const float* v,
                       int T, int S, int H, int dh, int mask_rows,
                       unsigned int thresh, float keep_div, int dropout,
                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 32:
-      return fwd<32>(q, k, v, mask, seed, out, B, T, S, H, mask_rows, thresh,
-                     keep_div, dropout, st);
-    case 64:
-      return fwd<64>(q, k, v, mask, seed, out, B, T, S, H, mask_rows, thresh,
-                     keep_div, dropout, st);
-    case 128:
-      return fwd<128>(q, k, v, mask, seed, out, B, T, S, H, mask_rows, thresh,
-                      keep_div, dropout, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return uic::attn_fwd(plain_attn(q, k, v, mask, seed, B, T, S, H, dh,
+                                  mask_rows, thresh, keep_div, dropout),
+                       out, (cudaStream_t)stream);
 }
 
 // g, o [B,T,H*dh] (the upstream gradient and the forward output);
@@ -539,20 +546,9 @@ int mha_train_bwd_f32(const float* q, const float* k, const float* v,
                       float* stats, int B, int T, int S, int H, int dh,
                       int mask_rows, unsigned int thresh, float keep_div,
                       int dropout, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 32:
-      return bwd<32>(q, k, v, mask, seed, g, o, dq, dk, dv, stats, B, T, S, H,
-                     mask_rows, thresh, keep_div, dropout, st);
-    case 64:
-      return bwd<64>(q, k, v, mask, seed, g, o, dq, dk, dv, stats, B, T, S, H,
-                     mask_rows, thresh, keep_div, dropout, st);
-    case 128:
-      return bwd<128>(q, k, v, mask, seed, g, o, dq, dk, dv, stats, B, T, S,
-                      H, mask_rows, thresh, keep_div, dropout, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return uic::attn_bwd(plain_attn(q, k, v, mask, seed, B, T, S, H, dh,
+                                  mask_rows, thresh, keep_div, dropout),
+                       g, o, dq, dk, dv, stats, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -42,11 +42,10 @@
 //   7. gemm<LN, RELU>: h1 = relu(LN3(x) @ W1 + b1);
 //   8. gemm<-, RES>: x += h1 @ W2 + b2.
 //
-// The GEMM follows the LSTM cell's tiling (lstm_cell.cu): BK = 32 deep K
-// tiles, double buffered in shared memory with one barrier per tile, A
-// stored k-major so a thread's 4 rows are one float4, a 4 x 4 register tile
-// per thread. The host picks a 64 x 64, 32 x 64 or 32 x 32 block tile so
-// that the grid covers the SMs.
+// The GEMM is gemm.cuh's (the LSTM cell's tiling: BK = 32 deep K tiles,
+// double buffered in shared memory, a 4 x 4 register tile per thread, a
+// 64 x 64, 32 x 64 or 32 x 32 block tile so that the grid covers the SMs),
+// with the epilogues below.
 //
 // What bounds it. Per layer and row the step does 4 d^2 + 2 d d_ff
 // multiply-adds of projections against T d + S d of attention; at the NMT's
@@ -60,15 +59,17 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "gemm.cuh"
+
 namespace {
 
-constexpr int BK = 32;           // GEMM reduction depth per tile
-constexpr int TM = 4, TN = 4;    // GEMM register tile per thread
-constexpr float MASKED = -1e9f;  // the reference's masked score
-constexpr float LN_EPS = 1e-6f;
-constexpr int ATTN_WARPS = 8;    // warps per self-attention block
+using uic::EpiBias;
+using uic::EpiRelu;
+using uic::EpiRes;
+using uic::GemmArgs;
 
-enum Epi { EPI_BIAS = 0, EPI_RES = 1, EPI_RELU = 2, EPI_QKV = 3 };
+constexpr float MASKED = -1e9f;  // the reference's masked score
+constexpr int ATTN_WARPS = 8;    // warps per self-attention block
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -83,182 +84,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-struct GemmArgs {
-  const float* a;      // [M, K] row-major (x for the LN prologue)
-  const float* w;      // [K, N] row-major
-  const float* bias;   // [N]
-  const float* ln_s;   // [K] LN scale (LN prologue only)
-  const float* ln_b;   // [K] LN offset
-  float* out;          // EPI_BIAS/RELU: [M, N]; EPI_RES: [M, N] += ; QKV: q [M, d]
-  float* cache_k;      // QKV: row r, slot t at cache_k + r * cache_row + t * d
+// The packed LN1 -> QKV projection's epilogue: q (columns [0, d)) to
+// q [M, d]; k_t / v_t into slot t[r] of row r's cache, in place. A float4
+// of columns never straddles q | k | v (d % 4 == 0).
+struct EpiQkv {
+  const float* bias;   // [3d]
+  float* q;            // [M, d]
+  float* cache_k;      // row r, slot t at cache_k + r * cache_row + t * d
   float* cache_v;
-  const int* t;        // QKV: [M] slot per row
-  size_t cache_row;    // QKV: floats between two rows of the cache
-  int M, N, K;
-  int d;               // QKV: model width (N = 3d)
-  int T;               // QKV: cache slots
+  const int* t;        // [M] slot per row
+  size_t cache_row;    // floats between two rows of the cache
+  int d;
+  int T;               // cache slots
+  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
+                                             int) const {
+    const float4 b4 = *reinterpret_cast<const float4*>(bias + c);
+    const float4 v =
+        make_float4(acc.x + b4.x, acc.y + b4.y, acc.z + b4.z, acc.w + b4.w);
+    const int part = c / d, cc = c - part * d;
+    if (part == 0) {
+      *reinterpret_cast<float4*>(q + (size_t)r * d + cc) = v;
+      return;
+    }
+    const int slot = t[r];
+    if (slot >= 0 && slot < T) {
+      float* cache = part == 1 ? cache_k : cache_v;
+      *reinterpret_cast<float4*>(cache + (size_t)r * cache_row +
+                                 (size_t)slot * d + cc) = v;
+    }
+  }
 };
 
-// C = epilogue(prologue(A) @ W + bias). Requires K % 4 == 0, N % 4 == 0 and
-// 16-byte aligned A, W, out (the wrapper checks the shapes; torch
-// allocations and the packed layer offsets are 16-byte aligned).
-template <int BM, int BN, bool LN, int EPI>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-gemm_kernel(GemmArgs p) {
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  constexpr int AS_LD = BM + 4;                     // padded k-major A row
-  constexpr int A_LOADS = BM * BK / 4 / THREADS;    // float4 per thread
-  constexpr int W_LOADS = BK * BN / 4 / THREADS;
-  static_assert(BM * BK / 4 % THREADS == 0, "A tile must split evenly");
-  static_assert(BK * BN / 4 % THREADS == 0, "W tile must split evenly");
-  __shared__ __align__(16) float As[2][BK][AS_LD];
-  __shared__ __align__(16) float Ws[2][BK][BN];
-  __shared__ float s_mean[BM], s_den[BM];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int M = p.M, N = p.N, K = p.K;
-
-  if (LN) {
-    // the LN statistics of this block's rows, one warp per row, two passes
-    // over the row as the reference computes them
-    const int lane = tid & 31;
-    for (int i = tid >> 5; i < BM; i += THREADS / 32) {
-      const int r = m0 + i;
-      float mean = 0.0f, den = 1.0f;
-      if (r < M) {
-        const float* xr = p.a + (size_t)r * K;
-        float s = 0.0f;
-        for (int k = lane; k < K; k += 32) s += xr[k];
-        mean = warp_sum(s) / (float)K;
-        float q = 0.0f;
-        for (int k = lane; k < K; k += 32) {
-          const float dv = xr[k] - mean;
-          q = fmaf(dv, dv, q);
-        }
-        den = sqrtf(warp_sum(q) / (float)(K - 1)) + LN_EPS;
-      }
-      if (lane == 0) {
-        s_mean[i] = mean;
-        s_den[i] = den;
-      }
-    }
-    __syncthreads();
-  }
-
-  float4 a_reg[A_LOADS], w_reg[W_LOADS];
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int n = 0; n < A_LOADS; ++n) {
-      const int e = tid + n * THREADS;
-      const int row = e / (BK / 4), k = k0 + (e % (BK / 4)) * 4;
-      const int r = m0 + row;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (r < M && k < K) {
-        v = *reinterpret_cast<const float4*>(p.a + (size_t)r * K + k);
-        if (LN) {
-          const float mu = s_mean[row], dn = s_den[row];
-          v.x = (v.x - mu) / dn * p.ln_s[k] + p.ln_b[k];
-          v.y = (v.y - mu) / dn * p.ln_s[k + 1] + p.ln_b[k + 1];
-          v.z = (v.z - mu) / dn * p.ln_s[k + 2] + p.ln_b[k + 2];
-          v.w = (v.w - mu) / dn * p.ln_s[k + 3] + p.ln_b[k + 3];
-        }
-      }
-      a_reg[n] = v;
-    }
-#pragma unroll
-    for (int n = 0; n < W_LOADS; ++n) {
-      const int e = tid + n * THREADS;
-      const int kr = k0 + e / (BN / 4), c = n0 + (e % (BN / 4)) * 4;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (kr < K && c < N)
-        v = *reinterpret_cast<const float4*>(p.w + (size_t)kr * N + c);
-      w_reg[n] = v;
-    }
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int n = 0; n < A_LOADS; ++n) {
-      const int e = tid + n * THREADS;
-      const int row = e / (BK / 4), kq = (e % (BK / 4)) * 4;
-      As[buf][kq][row] = a_reg[n].x;
-      As[buf][kq + 1][row] = a_reg[n].y;
-      As[buf][kq + 2][row] = a_reg[n].z;
-      As[buf][kq + 3][row] = a_reg[n].w;
-    }
-#pragma unroll
-    for (int n = 0; n < W_LOADS; ++n) {
-      const int e = tid + n * THREADS;
-      *reinterpret_cast<float4*>(&Ws[buf][e / (BN / 4)][(e % (BN / 4)) * 4]) =
-          w_reg[n];
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  const int n_tiles = (K + BK - 1) / BK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1;
-    if (tile + 1 < n_tiles) load_tile((tile + 1) * BK);  // in flight during FMAs
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * TM]);
-      const float4 w4 = *reinterpret_cast<const float4*>(&Ws[buf][kk][tx * TN]);
-      const float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      const float w[TN] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    if (tile + 1 < n_tiles) store_tile(buf ^ 1);
-    // one barrier per tile: the next buffer is complete, and nobody reads
-    // this one again before it is overwritten two tiles on
-    __syncthreads();
-  }
-
-  const int c = n0 + tx * TN;
-  if (c >= N) return;
-  const float4 b4 = *reinterpret_cast<const float4*>(p.bias + c);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty * TM + i;
-    if (r >= M) continue;
-    float4 v = make_float4(acc[i][0] + b4.x, acc[i][1] + b4.y,
-                           acc[i][2] + b4.z, acc[i][3] + b4.w);
-    if (EPI == EPI_QKV) {
-      // a float4 of columns never straddles q | k | v (d % 4 == 0)
-      const int part = c / p.d, cc = c - part * p.d;
-      if (part == 0) {
-        *reinterpret_cast<float4*>(p.out + (size_t)r * p.d + cc) = v;
-      } else {
-        const int slot = p.t[r];
-        if (slot >= 0 && slot < p.T) {
-          float* cache = part == 1 ? p.cache_k : p.cache_v;
-          *reinterpret_cast<float4*>(cache + (size_t)r * p.cache_row +
-                                     (size_t)slot * p.d + cc) = v;
-        }
-      }
-      continue;
-    }
-    float* o = p.out + (size_t)r * N + c;
-    if (EPI == EPI_RES) {
-      const float4 x4 = *reinterpret_cast<const float4*>(o);
-      v = make_float4(x4.x + v.x, x4.y + v.y, x4.z + v.z, x4.w + v.w);
-    } else if (EPI == EPI_RELU) {
-      v = make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f),
-                      fmaxf(v.w, 0.0f));
-    }
-    *reinterpret_cast<float4*>(o) = v;
-  }
+// a GEMM over all M rows of [M, K] x [K, N] row-major
+GemmArgs gemm_args(const float* a, const float* w, int M, int N, int K,
+                   const float* ln_s = nullptr, const float* ln_b = nullptr) {
+  return GemmArgs{a, w, ln_s, ln_b, K, N, M, N, K, K};
 }
 
 // Self-attention of one decode step: warp (r, h) attends with row r's query
@@ -415,29 +275,7 @@ __global__ void head_mean_kernel(const float* __restrict__ attn_h,
   attn[e] = acc / (float)H;
 }
 
-int g_sms = 0;                 // SM count of the current device
 int g_cross_smem_set = 0;      // dynamic shared memory opted in for cross_attn
-
-template <int BM, int BN, bool LN, int EPI>
-void launch_tile(const GemmArgs& p, cudaStream_t st) {
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<BM, BN, LN, EPI><<<grid, (BM / TM) * (BN / TN), 0, st>>>(p);
-}
-
-// the largest tile whose grid still covers the SMs (twice for 64 x 64)
-template <bool LN, int EPI>
-int gemm(const GemmArgs& p, cudaStream_t st) {
-  auto blocks = [&](int bm, int bn) {
-    return ((p.M + bm - 1) / bm) * ((p.N + bn - 1) / bn);
-  };
-  if (blocks(64, 64) >= 2 * g_sms)
-    launch_tile<64, 64, LN, EPI>(p, st);
-  else if (blocks(32, 64) >= g_sms)
-    launch_tile<32, 64, LN, EPI>(p, st);
-  else
-    launch_tile<32, 32, LN, EPI>(p, st);
-  return (int)cudaGetLastError();
-}
 
 // the 18 packed weights of one layer, in WKEYS order
 struct Layer {
@@ -488,13 +326,13 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
   const float scale_div = (float)sqrt((double)dh);
   int err;
 
-  GemmArgs g = {};
-  g.M = s.R;
+  const int R = s.R, d = s.d;
   // 1. LN1 -> packed QKV; q out, k_t / v_t into cache slot t
-  g.a = s.x; g.w = w.wqkv; g.bias = w.bqkv; g.ln_s = w.ln1_s; g.ln_b = w.ln1_b;
-  g.out = s.q; g.cache_k = cache_k; g.cache_v = cache_v; g.t = s.t;
-  g.cache_row = cache_row; g.N = 3 * s.d; g.K = s.d; g.d = s.d; g.T = s.T;
-  if ((err = gemm<true, EPI_QKV>(g, st))) return err;
+  if ((err = uic::gemm<true, false, false>(
+           gemm_args(s.x, w.wqkv, R, 3 * d, d, w.ln1_s, w.ln1_b),
+           EpiQkv{w.bqkv, s.q, cache_k, cache_v, s.t, cache_row, d, s.T},
+           st)))
+    return err;
 
   // 2. self-attention
   {
@@ -519,15 +357,15 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
   }
 
   // 3. x += att @ Wo_s + bo_s
-  g = GemmArgs{};
-  g.M = s.R; g.N = s.d; g.K = s.d;
-  g.a = s.att; g.w = w.wo_s; g.bias = w.bo_s; g.out = s.x;
-  if ((err = gemm<false, EPI_RES>(g, st))) return err;
+  if ((err = uic::gemm<false, false, false>(gemm_args(s.att, w.wo_s, R, d, d),
+                                            EpiRes{w.bo_s, s.x, d}, st)))
+    return err;
 
   // 4. q2 = LN2(x) @ Wq_c + bq_c
-  g.a = s.x; g.w = w.wq_c; g.bias = w.bq_c; g.ln_s = w.ln2_s; g.ln_b = w.ln2_b;
-  g.out = s.q;
-  if ((err = gemm<true, EPI_BIAS>(g, st))) return err;
+  if ((err = uic::gemm<true, false, false>(
+           gemm_args(s.x, w.wq_c, R, d, d, w.ln2_s, w.ln2_b),
+           EpiBias{w.bq_c, s.q, d}, st)))
+    return err;
 
   // 5. cross-attention over the image's unexpanded K/V
   {
@@ -553,31 +391,22 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
   }
 
   // 6. x += att @ Wo_c + bo_c
-  g = GemmArgs{};
-  g.M = s.R; g.N = s.d; g.K = s.d;
-  g.a = s.att; g.w = w.wo_c; g.bias = w.bo_c; g.out = s.x;
-  if ((err = gemm<false, EPI_RES>(g, st))) return err;
+  if ((err = uic::gemm<false, false, false>(gemm_args(s.att, w.wo_c, R, d, d),
+                                            EpiRes{w.bo_c, s.x, d}, st)))
+    return err;
 
   // 7. h1 = relu(LN3(x) @ W1 + b1)
-  g.a = s.x; g.w = w.w1; g.bias = w.b1; g.ln_s = w.ln3_s; g.ln_b = w.ln3_b;
-  g.out = s.h1; g.N = s.dff;
-  if ((err = gemm<true, EPI_RELU>(g, st))) return err;
+  if ((err = uic::gemm<true, false, false>(
+           gemm_args(s.x, w.w1, R, s.dff, d, w.ln3_s, w.ln3_b),
+           EpiRelu{w.b1, s.h1, s.dff}, st)))
+    return err;
 
   // 8. x += h1 @ W2 + b2
-  g = GemmArgs{};
-  g.M = s.R; g.N = s.d; g.K = s.dff;
-  g.a = s.h1; g.w = w.w2; g.bias = w.b2; g.out = s.x;
-  return gemm<false, EPI_RES>(g, st);
+  return uic::gemm<false, false, false>(gemm_args(s.h1, w.w2, R, d, s.dff),
+                                        EpiRes{w.b2, s.x, d}, st);
 }
 
 int prepare(const float* x_in, float* x_out, int R, int d, cudaStream_t st) {
-  if (!g_sms) {
-    int dev = 0, err;
-    if ((err = (int)cudaGetDevice(&dev))) return err;
-    if ((err = (int)cudaDeviceGetAttribute(&g_sms,
-                                           cudaDevAttrMultiProcessorCount, dev)))
-      return err;
-  }
   return (int)cudaMemcpyAsync(x_out, x_in, (size_t)R * d * sizeof(float),
                               cudaMemcpyDeviceToDevice, st);
 }

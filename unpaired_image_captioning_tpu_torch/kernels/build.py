@@ -2,12 +2,14 @@
 
 Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
 together, and the objects are linked into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library
-lands in `unpaired_image_captioning_tpu_torch/_build/`, named by a hash of
-the sources and the flags, so an edited source rebuilds and an unchanged
-one loads the cached file. Pointers and the stream are passed as
-`c_void_p`, sizes as `c_int`; each C function returns `cudaGetLastError()`
-after its launch and `check` raises on a non-zero code.
+interface (no PyTorch headers, so a build takes seconds). Code shared
+between sources lives in `csrc/*.cuh` headers. The library lands in
+`unpaired_image_captioning_tpu_torch/_build/`, named by a hash of the
+sources, the headers and the flags, so an edited source or header rebuilds
+and an unchanged tree loads the cached file. Pointers and the stream are
+passed as `c_void_p`, sizes as `c_int`; each C function returns
+`cudaGetLastError()` after its launch and `check` raises on a non-zero
+code.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without `nvcc`.
@@ -58,6 +60,16 @@ SIGNATURES = {
     "ln_train_fwd_f32": (_P,) * 4 + (_I, _I, _F, _P),
     # x, scale, g, dx, dscale, doffset, partial, rows, d, nblk, eps, stream
     "ln_train_bwd_f32": (_P,) * 7 + (_I,) * 3 + (_F, _P),
+    # kind, B, T, S, d, f, H -> floats of a layer backward's scratch
+    "layer_train_ws_f32": (_I,) * 7,
+    # p (host array of the layer's tensors), B, T, d, f, H, mask_rows,
+    # thresh, keep_div, dropout[, ws], stream
+    "enc_layer_fwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P),
+    "enc_layer_bwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P, _P),
+    # p, B, T, S, d, f, H, tgt mask_rows, thresh, keep_div, dropout[, ws],
+    # stream
+    "dec_layer_fwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P),
+    "dec_layer_bwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -88,8 +100,10 @@ def _sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
+    """A hash of the flags, the sources and the headers they include, so an
+    edited header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

@@ -7,15 +7,26 @@ att features are embedded by `att_embed` + ReLU and pass through the
 encoder; the word embedding is scaled by sqrt(d_model) and a sinusoid
 positional encoding is added. `use_bn` is not ported (ROADMAP A10).
 
-Training (`forward(..., training=True, generator=...)`) runs the encoder and
-decoder per sublayer, as the JAX module does with `TRAIN_LAYER_KERNEL`
-False: every LayerNorm goes through the training LayerNorm kernel
-(`kernels/ln_train.py`) and every attention through the training attention
-kernel (`kernels/mha_train.py`), with its dropout drawn inside the kernel
-from a seed taken from the caller's `torch.Generator`. The other dropouts
-(after `att_embed`, on the embedding, on each residual branch and inside
-the FFN) are drawn from the same generator by `base.dropout`. The
-whole-layer training kernel (`TRAIN_LAYER_KERNEL` True) is ROADMAP B6.
+Training (`forward(..., training=True, generator=...)`) has three routes,
+chosen by two module flags read at call time, as in the JAX module:
+
+- `TRAIN_LAYER_KERNEL` True (the default): every encoder layer is one call
+  of the whole-layer training kernel (`kernels/layer_train.py`,
+  `enc_layer_train`), forward and backward; the decoder runs per sublayer.
+- `TRAIN_DEC_LAYER_KERNEL` True as well: every decoder layer is one call
+  of `dec_layer_train` too (the memory's K/V projections stay outside).
+- `TRAIN_LAYER_KERNEL` False: every layer runs per sublayer. Each
+  LayerNorm goes through the training LayerNorm kernel
+  (`kernels/ln_train.py`) and each attention through the training
+  attention kernel (`kernels/mha_train.py`).
+
+The kernels draw their dropout inside from a seed taken from the caller's
+`torch.Generator` (rate 0 without one); the other dropouts (after
+`att_embed`, on the embedding and, per sublayer, on each residual branch
+and inside the FFN) are drawn from the same generator by `base.dropout`.
+Unlike the JAX module, which routes a layer to its kernel only where the
+layer fits the TPU's VMEM (`enc_layer_kernel_ok`), the port routes every
+training layer there and the kernel raises for a width it cannot take.
 
 Incremental decode keeps a fixed-size K/V cache written at slot t. Every
 step goes through the decoder-step kernel (`kernels/transformer_decode.py`,
@@ -36,6 +47,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..kernels.layer_train import dec_layer_train, enc_layer_train
 from ..kernels.ln_train import layer_norm_train
 from ..kernels.mha_train import mha_train
 from ..kernels.transformer_decode import (decoder_layer_step,
@@ -51,9 +63,12 @@ DROPOUT = 0.1  # reference make_model default: attention, residual, FFN
 # all L layers of a step in one kernel call; False: one call per layer
 STACK_KERNEL = True
 
-# the whole pre-norm encoder layer as one training kernel (ROADMAP B6); the
-# port runs the per-sublayer route
-TRAIN_LAYER_KERNEL = False
+# each training encoder layer as one whole-layer kernel call; False: the
+# per-sublayer route
+TRAIN_LAYER_KERNEL = True
+# each training decoder layer as one whole-layer kernel call too (live only
+# with TRAIN_LAYER_KERNEL; off by default, as in the JAX module)
+TRAIN_DEC_LAYER_KERNEL = False
 
 
 def positional_encoding(max_len: int, d_model: int, *,
@@ -133,6 +148,20 @@ def _seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
                          device=generator.device, dtype=torch.int32)
 
 
+def _maskadd(mask, b: int, s: int, device) -> torch.Tensor:
+    """The kernels' additive f32 mask from a bool [B, 1|T, S] mask (0 keep,
+    -1e9 drop); [B, 1, S] zeros for None."""
+    if mask is None:
+        return torch.zeros((b, 1, s), device=device)
+    return torch.where(mask, 0.0, NEG).to(torch.float32).contiguous()
+
+
+def _rate(generator: Optional[torch.Generator]) -> float:
+    """The kernels' dropout rate: DROPOUT, read at call time, with a
+    generator; 0 without one."""
+    return DROPOUT if generator is not None else 0.0
+
+
 def mha_apply(p, q_in, k, v, mask, n_heads: int, *, training: bool = False,
               generator: Optional[torch.Generator] = None):
     """k, v: already-projected [B, S, d]; mask [B, 1|T, S] bool or None.
@@ -141,15 +170,10 @@ def mha_apply(p, q_in, k, v, mask, n_heads: int, *, training: bool = False,
     the o projection after it."""
     d = q_in.shape[-1]
     if training:
-        b, s = q_in.shape[0], k.shape[1]
-        if mask is None:
-            maskadd = torch.zeros((b, 1, s), device=q_in.device)
-        else:
-            maskadd = torch.where(mask, 0.0, NEG).to(torch.float32)
-        rate = DROPOUT if generator is not None else 0.0
+        maskadd = _maskadd(mask, q_in.shape[0], k.shape[1], q_in.device)
         out = mha_train(linear(p["q"], q_in), k.contiguous(), v.contiguous(),
-                        maskadd.contiguous(), _seed(generator, q_in.device),
-                        n_heads=n_heads, rate=rate)
+                        maskadd, _seed(generator, q_in.device),
+                        n_heads=n_heads, rate=_rate(generator))
         return linear(p["o"], out)
     q = _split_heads(linear(p["q"], q_in), n_heads)
     scores = torch.einsum("bthd,bshd->bhts", q, _split_heads(k, n_heads))
@@ -168,13 +192,29 @@ def ffn_apply(p, x, *, training: bool = False,
     return linear(p["w2"], h)
 
 
+def _packed_qkv(sp):
+    """(wqkv [d, 3d], bqkv [3d]): the q, k and v projections packed on the
+    output axis, as the JAX module packs them; autograd through the cat
+    carries the gradients back to the separate parameters."""
+    return (torch.cat([sp["q"].w, sp["k"].w, sp["v"].w], dim=1),
+            torch.cat([sp["q"].b, sp["k"].b, sp["v"].b]))
+
+
 def enc_layer_apply(lp, x, src_mask, n_heads: int, *, training: bool = False,
                     generator: Optional[torch.Generator] = None):
     """One pre-norm encoder layer (self-attention and FFN sublayers, each
-    with its residual dropout in training)."""
+    with its residual dropout in training); in training with
+    TRAIN_LAYER_KERNEL, one call of the whole-layer kernel."""
     if training and TRAIN_LAYER_KERNEL:
-        raise NotImplementedError("the whole-layer training kernel is not "
-                                  "ported yet (ROADMAP B6)")
+        sp, ffn = lp["self"], lp["ffn"]
+        wqkv, bqkv = _packed_qkv(sp)
+        return enc_layer_train(
+            x.contiguous(), _maskadd(src_mask, x.shape[0], x.shape[1],
+                                     x.device),
+            _seed(generator, x.device), wqkv, bqkv, sp["o"].w, sp["o"].b,
+            ffn["w1"].w, ffn["w1"].b, ffn["w2"].w, ffn["w2"].b,
+            lp["n1"].scale, lp["n1"].offset, lp["n2"].scale, lp["n2"].offset,
+            n_heads=n_heads, rate=_rate(generator))
     kw = dict(training=training, generator=generator)
     y = layer_norm(lp["n1"], x, training=training)
     k = linear(lp["self"]["k"], y)
@@ -191,7 +231,23 @@ def dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask, n_heads: int, *,
                     generator: Optional[torch.Generator] = None):
     """One pre-norm decoder layer (self-attention, cross-attention and FFN
     sublayers, each with its residual dropout in training); mk/mv are the
-    memory's K/V projections."""
+    memory's K/V projections. In training with TRAIN_LAYER_KERNEL and
+    TRAIN_DEC_LAYER_KERNEL, one call of the whole-layer kernel."""
+    if training and TRAIN_LAYER_KERNEL and TRAIN_DEC_LAYER_KERNEL:
+        sp, cp, ffn = lp["self"], lp["src"], lp["ffn"]
+        wqkv, bqkv = _packed_qkv(sp)
+        b, t = x.shape[0], x.shape[1]
+        seed = _seed(generator, x.device)
+        seeds = torch.cat([seed, seed ^ 0x55555555])
+        return dec_layer_train(
+            x.contiguous(), mk.contiguous(), mv.contiguous(),
+            _maskadd(tgt_mask, b, t, x.device),
+            _maskadd(src_mask, b, mk.shape[1], x.device), seeds, wqkv, bqkv,
+            sp["o"].w, sp["o"].b, cp["q"].w, cp["q"].b, cp["o"].w, cp["o"].b,
+            ffn["w1"].w, ffn["w1"].b, ffn["w2"].w, ffn["w2"].b,
+            lp["n1"].scale, lp["n1"].offset, lp["n2"].scale, lp["n2"].offset,
+            lp["n3"].scale, lp["n3"].offset, n_heads=n_heads,
+            rate=_rate(generator))
     kw = dict(training=training, generator=generator)
     y = layer_norm(lp["n1"], x, training=training)
     k = linear(lp["self"]["k"], y)
