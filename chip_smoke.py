@@ -29,6 +29,21 @@ per sublayer (18 + 18 and 32 + 32) and 2 + 5 with whole decoder layers too
 all dropout off, is compared with the same step on the CPU on the default
 route and on the whole-decoder-layer route.
 
+The denseatt captioner (the LSTM pivot's) is driven on the card too: the
+three additive-attention kernels (single query, K beams, the fused att1 ->
+lstm1 -> att2 decode step) against their plain versions at B 50, N 196,
+A = D = H = 512, and the LSTM cell's backward against plain autograd; greedy
+`sample` at batch 50 on the default route, with SINGLE_KERNEL and with
+STEP_FUSION, and beam 5 with BEAMS_KERNEL through a batch-50
+`pivot_translate` (launches checked against the steps each decode ran);
+four images per route against the CPU; `CaptionService(greedy=True)`
+through the micro-batcher and HTTP. `Trainer.train` trains it at full
+width (bench.py's denseatt XE configuration: batch 50, Adam, clip 5) on
+its default route and with TRAIN_KERNEL, 2 + 10 steps each (51 lstm_cell
+launches a step; 34 additive_attention launches more with TRAIN_KERNEL),
+and one step on two images is compared with the CPU on both routes,
+including that every parameter that moves on the CPU moves on the card.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
 operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
@@ -111,11 +126,11 @@ _L = TCAP["num_layers"]
 # attentions and 2 or 3 LayerNorms; with whole decoder layers only the two
 # final LayerNorms stay outside the layer kernels
 TRAIN_ROUTES = [
-    ("default (whole encoder layers)", True, False, TRAIN_STEPS,
+    ("default (whole encoder layers)", (True, False), TRAIN_STEPS,
      _per_step(enc=_L, mha=2 * _L, ln=3 * _L + 2)),
-    ("per sublayer", False, False, ROUTE_STEPS,
+    ("per sublayer", (False, False), ROUTE_STEPS,
      _per_step(mha=3 * _L, ln=5 * _L + 2)),
-    ("whole encoder and decoder layers", True, True, ROUTE_STEPS,
+    ("whole encoder and decoder layers", (True, True), ROUTE_STEPS,
      _per_step(enc=_L, dec=_L, ln=2)),
 ]
 TRAIN_RATE = 0.1  # the attention dropout of the kernel checks
@@ -133,6 +148,28 @@ TRAIN_KERNELS = ("uic::gemm_kernel", "mha_fwd_kernel", "mha_bwd_dq_kernel",
                  "mha_bwd_dkdv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
                  "ln_bwd_reduce_kernel", "drop_kernel", "colsum_kernel",
                  "sum_splits_kernel")
+
+# denseatt captioner XE training at full width (bench.py:140-158): the
+# serving captioner's widths, batch 50, labels [50, 18], drop_prob_lm 0.5,
+# Adam, the global-norm clip 5
+DTRAIN = dict(CAP, caption_model="denseatt", batch_size=50, seq_per_img=1,
+              i2t_train_flag=True, nmt_train_flag=False, i2t_optim="adam",
+              i2t_max_grad_norm=5.0, seed=0)
+_T1 = CAP["seq_length"] + 1      # teacher-forced inputs a sequence
+# (label, (TRAIN_KERNEL,), timed steps, launches a step): 3 maxout cells a
+# step of the sequence on both; the kernel route adds att1 and att2
+DENSE_ROUTES = [
+    ("default (plain attention)", (False,), TRAIN_STEPS,
+     {"lstm_cell": 3 * _T1, "additive_attention": 0}),
+    ("TRAIN_KERNEL", (True,), TRAIN_STEPS,
+     {"lstm_cell": 3 * _T1, "additive_attention": 2 * _T1}),
+]
+DENSE_KERNELS = ("lstm_cell_kernel", "additive_attention_kernel")
+ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
+ATT_BEAMS = (3, 5)  # the K-beam kernel's checks
+# the CUDA kernels of att_lstm_att_f32, and its copy of h0d
+STEP_KERNELS = ("additive_attention_kernel", "lstm_cell_kernel",
+                "uic::gemm_kernel", "Memcpy DtoD")
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
@@ -1332,6 +1369,8 @@ def phase_layer_kernels(dev) -> dict:
     records."""
     import torch
 
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
     from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
     from unpaired_image_captioning_tpu_torch.models import transformer as tm
     from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
@@ -1549,24 +1588,42 @@ def _route_flags(enc_layer: bool, dec_layer: bool):
     return old
 
 
-def phase_train(route, counters: dict, detail: bool) -> tuple:
-    """XE training of the full-width transformer captioner through
-    `Trainer.train` (built on the card, its default) on one route of
-    TRAIN_ROUTES: 2 warm-up and the route's timed steps on one random batch
-    of 50. Every loss must be finite and the last below the first, and each
-    step must launch each kernel the route's number of times, forward and
-    backward. Returns (the launches of the timed steps, mean step wall in
-    s, one step's device busy in ms or None); with `detail`, logs the
-    step's largest device operations too."""
+def _att_flags(**flags) -> dict:
+    """Set the denseatt attention-route flags of `models/att.py`; returns
+    their old values."""
+    from unpaired_image_captioning_tpu_torch.models import att as am
+
+    old = {k: getattr(am, k) for k in flags}
+    for k, v in flags.items():
+        setattr(am, k, v)
+    return old
+
+
+def _train_kernel_flag(train_kernel: bool):
+    """Set `models.att.TRAIN_KERNEL`; returns its old value as a tuple."""
+    return (_att_flags(TRAIN_KERNEL=train_kernel)["TRAIN_KERNEL"],)
+
+
+def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
+                set_flags=_route_flags, kernel_names=TRAIN_KERNELS,
+                model: str = "transformer") -> tuple:
+    """XE training of a full-width captioner (the transformer by default)
+    through `Trainer.train` (built on the card, its default) on one route
+    (label, flags for `set_flags`, timed steps, launches a step): 2 warm-up
+    and the route's timed steps on one random batch of 50. Every loss must
+    be finite and the last below the first, and each step must launch each
+    kernel the route's number of times. Returns (the launches of the timed
+    steps, mean step wall in s, one step's device busy in ms or None); with
+    `detail`, logs the step's largest device operations too."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
     from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
-    label, enc_layer, dec_layer, steps, per_step = route
-    old = _route_flags(enc_layer, dec_layer)
+    label, flags, steps, per_step = route
+    old = set_flags(*flags)
     try:
-        cfg = Config(**TRAIN).finalize()
+        cfg = Config(**cfg_dict).finalize()
         trainer = Trainer(cfg)
         n_params = sum(p.numel() for p in trainer.i2t_model.parameters())
         batch = make_train_batch(np.random.RandomState(0), cfg.batch_size)
@@ -1598,7 +1655,7 @@ def phase_train(route, counters: dict, detail: bool) -> tuple:
                                  f"{losses}")
         wall = statistics.mean(walls)
         tokens = cfg.batch_size * (cfg.seq_length + 1)
-        log(f"training [{label}]: transformer XE, {n_params / 1e6:.2f} M "
+        log(f"training [{label}]: {model} XE, {n_params / 1e6:.2f} M "
             f"parameters, batch {cfg.batch_size}, {steps} steps after "
             f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
             f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
@@ -1614,7 +1671,8 @@ def phase_train(route, counters: dict, detail: bool) -> tuple:
             for v in host:
                 v.to(trainer.device)
             torch.cuda.synchronize()
-            log(f"training: uploading one batch ({nbytes(*host) / 1e6:.1f} "
+            log(f"training [{model}]: uploading one batch "
+                f"({nbytes(*host) / 1e6:.1f} "
                 f"MB) takes {(time.perf_counter() - t0) * 1e3:.1f} ms of "
                 "host wall")
         busy, per_name = device_ms(lambda: trainer.train(batch))
@@ -1623,19 +1681,21 @@ def phase_train(route, counters: dict, detail: bool) -> tuple:
                 "recorded no device time)")
             return launches, wall, None
         mine = sum(us for n, (us, _) in per_name.items()
-                   if any(k in n for k in TRAIN_KERNELS)) / 1e3
+                   if any(k in n for k in kernel_names)) / 1e3
+        n_ops = sum(n for _, n in per_name.values())
         log(f"training [{label}]: one step device busy {busy:.1f} ms (kernel "
             f"time), idle share {1 - busy / (wall * 1e3):.2f} of the mean "
             f"step wall; {mine:.1f} ms ({mine / busy:.2f}) in the kernels of "
-            "csrc/")
+            f"csrc/; {n_ops} device operations in the step")
         if detail:
             for name, (us, n) in sorted(per_name.items(),
                                         key=lambda kv: -kv[1][0])[:TOP_OPS]:
-                log(f"training: device op {us / 1e3:8.3f} ms {n:6d}x  "
+                log(f"training [{model}]: device op {us / 1e3:8.3f} ms "
+                    f"{n:6d}x  "
                     f"{name[:90]}")
         return launches, wall, busy
     finally:
-        _route_flags(*old)
+        set_flags(*old)
 
 
 def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
@@ -1689,6 +1749,449 @@ def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
         raise AssertionError("card and cpu training steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# denseatt: the additive-attention kernels, XE training and decoding
+# ---------------------------------------------------------------------------
+
+def _att_inputs(dev, gen, k=None):
+    """Attention inputs at the serving and training widths (B 50, N 196,
+    A = D = 512): image 1's slots padded past 150, image 2 fully masked."""
+    import torch
+
+    b, n = BENCH_BATCH, N_SLOTS
+    a, d = CAP["att_hid_size"], CAP["rnn_size"]
+    p_att = torch.randn((b, n, a), generator=gen, device=dev)
+    q = torch.randn((b, a) if k is None else (b, k, a), generator=gen,
+                    device=dev)
+    alpha = torch.randn((a, 1), generator=gen, device=dev) / a ** 0.5
+    mask = torch.ones((b, n), device=dev)
+    mask[1, 150:] = 0.0
+    mask[2] = 0.0
+    emb = torch.randn((b, n, d), generator=gen, device=dev)
+    return p_att, q, alpha, mask, emb
+
+
+def _att_check(name: str, got, want) -> float:
+    """Each output: max|diff| / max(1, max|plain|) <= ATT_TOL; returns the
+    largest."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        e = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        if not e <= ATT_TOL:
+            raise AssertionError(f"{name}: max|diff| / max(1, max|plain|) = "
+                                 f"{e} > {ATT_TOL}")
+        worst = max(worst, e)
+    return worst
+
+
+def phase_att_kernels(dev, lstm_rec: dict) -> dict:
+    """The three additive-attention kernels against their plain versions at
+    the denseatt path's shapes, and the LSTM cell's backward against plain
+    autograd at the training shape; returns the JSON records and adds the
+    backward's numbers to `lstm_rec`."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.ops import attention as ao
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    src = "unpaired_image_captioning_tpu_torch/csrc/additive_attention.cu"
+    tpu = "unpaired_image_captioning_tpu/ops/attention.py:"
+    b, n, a = BENCH_BATCH, N_SLOTS, CAP["att_hid_size"]
+    d = h = CAP["rnn_size"]
+    rec = {}
+
+    def record(name, line, err, shape, kfn, pfn, names, by, flops,
+               rows=None):
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names)
+        b_ms, b_by = bound(by, flops)
+        row = dict(label=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, wall_ms=k_wall,
+                   plain_wall_ms=p_wall, timing=how, err=err)
+        log(f"kernel {name} [{shape}]: max|diff| / max(1, max|plain|) "
+            f"{err:.3g} (tol {ATT_TOL}); {how}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, plain "
+            f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: no "
+            "PyTorch call computes this function")
+        if rows is not None:
+            rows.append(row)
+            return
+        rec[name] = {"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu + line, "max_abs_err": err,
+                     "err_is": "max|diff| / max(1, max|plain|)", "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None, "shape": shape, "timing": how,
+                     "shapes": [row]}
+
+    # B9a: one query per image
+    args = _att_inputs(dev, gen)
+    out = aak.additive_attention(*args)
+    want = ao.reference_attention(*args)
+    torch.cuda.synchronize()
+    err = _att_check("additive_attention", [out], [want])
+    if out[2].any():
+        raise AssertionError("additive_attention: the fully masked image "
+                             "is not all zeros")
+    record("additive_attention", "46", err,
+           f"B={b} N={n} A={a} D={d}, image 1 padded past 150, image 2 "
+           "fully masked", lambda: aak.additive_attention(*args),
+           lambda: ao.reference_attention(*args), "additive_attention_kernel",
+           nbytes(*args, out), 2.0 * b * n * (a + d))
+
+    # B9b: K beam queries over unexpanded memory
+    rows = []
+    for k in ATT_BEAMS:
+        args = _att_inputs(dev, gen, k)
+        out = aak.additive_attention_beams(*args)
+        want = ao.reference_attention_beams(*args)
+        torch.cuda.synchronize()
+        err = _att_check(f"additive_attention_beams K={k}", [out], [want])
+        record("additive_attention_beams", "66", err,
+               f"B={b} K={k} N={n} A={a} D={d}, padded and masked as B9a",
+               lambda: aak.additive_attention_beams(*args),
+               lambda: ao.reference_attention_beams(*args),
+               "additive_attention_kernel", nbytes(*args, out),
+               2.0 * b * k * n * (a + d), rows)
+    main = rows[-1]                                     # K = 5: the beam
+    rec["additive_attention_beams"] = {
+        "name": "additive_attention_beams", "route": "cuda", "source": src,
+        "replaces": tpu + "66", "max_abs_err": max(r["err"] for r in rows),
+        "err_is": "max|diff| / max(1, max|plain|)", "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "shape": main["label"], "timing": main["timing"], "shapes": rows}
+
+    # B9c: att1 -> maxout lstm1 -> att2 of one decode step
+    p_att, _, alpha1, mask, emb = _att_inputs(dev, gen)
+
+    def uni(*shape, fan):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                / fan ** 0.5)
+
+    step = [p_att, emb, mask,
+            torch.randn((b, a), generator=gen, device=dev),      # q1
+            *(torch.randn((b, h), generator=gen, device=dev)     # h0d, h1, c1
+              for _ in range(3)),
+            uni(2 * h + d, 5 * h, fan=h), uni(5 * h, fan=h),     # lstm1
+            uni(d, h, fan=d), uni(h, fan=d),                     # emb2
+            uni(h, a, fan=h), uni(a, fan=h),                     # h2att2
+            alpha1, uni(a, 1, fan=a)]
+    with torch.no_grad():
+        outs = aak.fused_att_lstm_att(*step)
+        want = ao.att_lstm_att_plain(*step)
+        torch.cuda.synchronize()
+        err = _att_check("att_lstm_att", outs, want)
+        record("att_lstm_att", "227", err,
+               f"B={b} N={n} A={a} D={d} H={h}, padded and masked as B9a",
+               lambda: aak.fused_att_lstm_att(*step),
+               lambda: ao.att_lstm_att_plain(*step), STEP_KERNELS,
+               nbytes(*step, *outs),
+               2.0 * b * (2 * n * (a + d) + 3 * h * 5 * h + d * h + h * a))
+
+    # the LSTM cell's backward (recompute + autodiff of the plain version)
+    # at the denseatt training shape
+    x_w = 2 * h
+    w = uni(x_w + h, 5 * h, fan=h)
+    bias = uni(5 * h, fan=h)
+    x, h0, c0, gh, gc = (torch.randn((b, m), generator=gen, device=dev)
+                         for m in (x_w, h, h, h, h))
+    ins = [t.clone().requires_grad_() for t in (w, bias, x, h0, c0)]
+    ref = [t.clone().requires_grad_() for t in (w, bias, x, h0, c0)]
+    hk, ck = lk.lstm_cell(*ins, maxout=True)
+    hp, cp = lk.lstm_cell_plain(*ref, maxout=True)
+    if hk.grad_fn is None or ck.grad_fn is None:
+        raise AssertionError("lstm_cell: a CUDA output carries no grad_fn")
+    got = torch.autograd.grad((hk, ck), ins, (gh, gc), retain_graph=True)
+    want = torch.autograd.grad((hp, cp), ref, (gh, gc), retain_graph=True)
+    torch.cuda.synchronize()
+    err = _att_check("lstm_cell backward", got, want)
+
+    def bwd_k():
+        return torch.autograd.grad((hk, ck), ins, (gh, gc), retain_graph=True)
+
+    def bwd_p():
+        return torch.autograd.grad((hp, cp), ref, (gh, gc), retain_graph=True)
+
+    k_ms, _ = device_ms(bwd_k)
+    p_ms, _ = device_ms(bwd_p)
+    k_wall, p_wall = time_ms(bwd_k), time_ms(bwd_p)
+    b_ms, b_by = bound(nbytes(w, bias, x, h0, c0, gh, gc, *got),
+                       3 * 2.0 * b * (x_w + h) * 5 * h)
+    shape = f"G=5 [{b}, {x_w}->{h}]"
+    lstm_rec["backward"] = dict(
+        shape=f"denseatt training: {shape}", err=err,
+        err_is="max|diff| / max(1, max|plain|)", ms=k_ms, plain_ms=p_ms,
+        wall_ms=k_wall, plain_wall_ms=p_wall, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    fmt = (lambda v: "not measured" if v is None else f"{v:.4f} ms")
+    log(f"kernel lstm_cell backward {shape} (denseatt training): grad_fn "
+        f"set; dw/db/dx/dh/dc max|diff| / max(1, max|plain|) {err:.3g} (tol "
+        f"{ATT_TOL}); device: the Function's backward (gates recomputed by "
+        f"the plain version, then autodiff) {fmt(k_ms)}, plain autograd "
+        f"backward {fmt(p_ms)}; per call {k_wall:.4f} ms, plain "
+        f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: none "
+        "(maxout cell)")
+    return rec
+
+
+def phase_dense_train_agreement(dev, train_kernel: bool) -> None:
+    """One denseatt training step on two images at full width, dropout
+    off, SGD at learning rate 1 after the clip, through `Trainer.train` on
+    the card and on the CPU from the same initial weights, on the route
+    TRAIN_KERNEL names. The loss must agree within TRAIN_TOL relative and
+    each parameter within TRAIN_TOL * max(1, max|p|), and every parameter
+    that the step changes on the CPU must change on the card: a kernel
+    whose output carries no gradient leaves everything upstream of it
+    exactly where it was, on the card alone."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    cfg = dict(DTRAIN, batch_size=2, drop_prob_lm=0.0, i2t_optim="sgd",
+               i2t_learning_rate=1.0)
+    batch = make_train_batch(np.random.RandomState(4), 2)
+    old = _train_kernel_flag(train_kernel)
+    try:
+        got = {}
+        for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            trainer = Trainer(Config(**cfg), device=device)
+            model = trainer.i2t_model
+            p0 = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+            loss = trainer.train(batch)["total_loss"]
+            p1 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            got[name] = (loss, p0, p1)
+    finally:
+        _train_kernel_flag(*old)
+    (lg, p0g, pg), (lc, p0c, pc) = got["gpu"], got["cpu"]
+    if not all(torch.equal(p0g[k], p0c[k]) for k in p0c):
+        raise AssertionError("card and cpu trainers start from other weights")
+    loss_err = abs(lg - lc) / abs(lc)
+    worst, worst_key = 0.0, None
+    for k, want in pc.items():
+        e = (pg[k] - want).abs().max().item() / max(1.0,
+                                                    want.abs().max().item())
+        if e > worst:
+            worst, worst_key = e, k
+
+    def moved(p1, p0, k):
+        return not torch.equal(p1[k], p0[k])
+
+    cpu_moved = [k for k in pc if moved(pc, p0c, k)]
+    frozen = [k for k in cpu_moved if not moved(pg, p0g, k)]
+    still = sorted(set(pc) - set(cpu_moved))
+    route = "TRAIN_KERNEL" if train_kernel else "default"
+    log(f"denseatt training agreement [{route}]: card vs cpu, one step on 2 "
+        f"images, dropout 0: loss {lg:.6f} vs {lc:.6f} (relative "
+        f"{loss_err:.3g}); updated parameters max|diff| / max(1, max|p|) "
+        f"{worst:.3g} at {worst_key} (tol {TRAIN_TOL}); the step changes "
+        f"{len(cpu_moved)} of {len(pc)} parameters on the cpu, "
+        f"{len(cpu_moved) - len(frozen)} of them on the card too; unchanged "
+        f"on the cpu: {', '.join(still) or 'none'}")
+    if frozen:
+        raise AssertionError(f"parameters that move on the cpu stay put on "
+                             f"the card: {frozen}")
+    if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError("card and cpu denseatt training steps disagree")
+
+
+def _greedy_steps(seq) -> int:
+    """Decode steps a greedy batch ran: the loop stops after the step in
+    which the last row emitted EOS (0)."""
+    return min(seq.shape[1], int((seq > 0).sum(1).max()) + 1)
+
+
+GREEDY_ROUTES = [("default", {}), ("SINGLE_KERNEL", {"SINGLE_KERNEL": True}),
+                 ("STEP_FUSION", {"STEP_FUSION": True})]
+
+
+def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
+    """Greedy `sample` of the full-width denseatt captioner at batch 50 on
+    the default route, with SINGLE_KERNEL and with STEP_FUSION; beam 5 with
+    BEAMS_KERNEL through a batch-50 `pivot_translate`, beside the default
+    route; exact launch counts against the steps each decode ran; four
+    images against the CPU on each route (identical tokens, logprobs within
+    AGREE_TOL); `CaptionService(greedy=True)` answering requests through
+    the micro-batcher and HTTP. Returns each kernel's launches."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.pivot import pivot_translate
+    from unpaired_image_captioning_tpu_torch.serve import (CaptionService,
+                                                           make_http_server)
+
+    def feats(fc, att, d):
+        masks = torch.ones(att.shape[:2], device=d)
+        masks[1, 150:] = 0.0
+        return Features(fc_feats=torch.as_tensor(fc, device=d),
+                        att_feats=torch.as_tensor(att, device=d),
+                        att_masks=masks)
+
+    f = feats(*make_features(np.random.RandomState(6), BENCH_BATCH), dev)
+    launches = {}
+    walls = {}
+    for label, flags in GREEDY_ROUTES:
+        old = _att_flags(**flags)
+        try:
+            with torch.inference_mode():
+                cap.sample(f)                                   # warm-up
+                torch.cuda.synchronize()
+                aak.launches = aak.step_launches = 0
+                t0 = time.perf_counter()
+                seq, lp = cap.sample(f)
+                torch.cuda.synchronize()
+                walls[label] = time.perf_counter() - t0
+                got = {"additive_attention": aak.launches,
+                       "att_lstm_att": aak.step_launches}
+        finally:
+            _att_flags(**old)
+        steps = _greedy_steps(seq)
+        want = {"additive_attention": 2 * steps if flags.get("SINGLE_KERNEL")
+                else 0, "att_lstm_att": steps if flags.get("STEP_FUSION")
+                else 0}
+        if got != want:
+            raise AssertionError(f"greedy [{label}]: launches {got}, "
+                                 f"expected {want} for {steps} steps")
+        if not (bool(torch.isfinite(lp).all()) and seq.shape == (
+                BENCH_BATCH, CAP["seq_length"])):
+            raise AssertionError(f"greedy [{label}]: bad output")
+        launches.update({k: v for k, v in got.items() if v})
+        log(f"denseatt greedy [{label}]: batch {BENCH_BATCH}, {steps} steps, "
+            f"host wall {walls[label] * 1e3:.1f} ms (default route "
+            f"{walls['default'] * 1e3:.1f} ms); launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items()))
+
+    # beam 5 through the LSTM pivot, BEAMS_KERNEL against the default route
+    c2n = torch.as_tensor(cap2nmt, device=dev)
+    calls = [0]
+    step = cap.step
+
+    def counting_step(*a, **kw):
+        calls[0] += 1
+        return step(*a, **kw)
+
+    def pivot():
+        return pivot_translate(cap, nmt, f, c2n, cap_beam=CAP_BEAM,
+                               nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN)
+
+    beam_wall = {}
+    for label, flags in (("default", {}), ("BEAMS_KERNEL",
+                                           {"BEAMS_KERNEL": True})):
+        old = _att_flags(**flags)
+        try:
+            with torch.inference_mode():
+                pivot()
+                torch.cuda.synchronize()
+                aak.beams_launches = 0
+                calls[0] = 0
+                cap.step = counting_step
+                try:
+                    t0 = time.perf_counter()
+                    zh, _, _ = pivot()
+                    torch.cuda.synchronize()
+                    beam_wall[label] = time.perf_counter() - t0
+                finally:
+                    del cap.step
+                n_beams = aak.beams_launches
+        finally:
+            _att_flags(**old)
+        want = 2 * calls[0] if flags else 0
+        if n_beams != want:
+            raise AssertionError(f"beam 5 [{label}]: additive_attention_beams "
+                                 f"launched {n_beams} times in {calls[0]} "
+                                 f"caption steps; expected {want}")
+        if flags:
+            launches["additive_attention_beams"] = n_beams
+        log(f"denseatt beam {CAP_BEAM} [{label}]: batch-{BENCH_BATCH} "
+            f"pivot_translate host wall {beam_wall[label] * 1e3:.1f} ms "
+            f"(default route {beam_wall['default'] * 1e3:.1f} ms), "
+            f"{calls[0]} caption steps; additive_attention_beams launches "
+            f"{n_beams}")
+
+    # four images against the CPU on each route
+    n = 4
+    fc4, att4 = make_features(np.random.RandomState(7), n)
+    cpu = torch.device("cpu")
+    cap_c = copy.deepcopy(cap).to(cpu)
+    fg, fcpu = feats(fc4, att4, dev), feats(fc4, att4, cpu)
+    for label, flags in GREEDY_ROUTES + [(f"BEAMS_KERNEL beam {CAP_BEAM}",
+                                          {"BEAMS_KERNEL": True})]:
+        old = _att_flags(**flags)
+        try:
+            with torch.inference_mode():
+                if flags.get("BEAMS_KERNEL"):
+                    rg = cap.sample_beam(fg, beam_size=CAP_BEAM)
+                    rc = cap_c.sample_beam(fcpu, beam_size=CAP_BEAM)
+                    (sg, lg), (sc, lc) = (rg.seq, rg.logps), (rc.seq, rc.logps)
+                else:
+                    (sg, lg), (sc, lc) = cap.sample(fg), cap_c.sample(fcpu)
+        finally:
+            _att_flags(**old)
+        gap = (lg.cpu() - lc).abs().max().item()
+        same = torch.equal(sg.cpu(), sc)
+        log(f"denseatt agreement [{label}]: {n} images card vs cpu, tokens "
+            f"{'identical' if same else 'DIFFER'}, logprobs max|diff| "
+            f"{gap:.3g} (tol {AGREE_TOL})")
+        if not (same and gap <= AGREE_TOL):
+            raise AssertionError(f"denseatt [{label}]: card and cpu disagree")
+    del cap_c
+
+    # the greedy caption service: concurrent requests and one POST /caption
+    fc, att = make_features(np.random.RandomState(8), 8)
+    svc = CaptionService(cap, zh_vocab, greedy=True, max_batch=MAX_BATCH)
+    server = make_http_server(svc, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        lk.launches = 0
+        answers = [None] * len(fc)
+
+        def one(i):
+            answers[i] = svc.caption(fc[i], att[i], timeout=600)
+
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(fc))]
+        for w_ in workers:
+            w_.start()
+        for w_ in workers:
+            w_.join(600)
+        batches = svc.batcher.stats["batches"]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/caption",
+            data=json.dumps({"fc": fc[0].tolist(),
+                             "att": att[0].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            http_answer = json.loads(r.read())["caption"]
+        direct = svc.caption(fc[0], att[0], timeout=600)
+        torch.cuda.synchronize()
+        cells = lk.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10)
+        svc.close()
+    if not all(isinstance(x, str) for x in answers) or cells <= 0:
+        raise AssertionError("the greedy caption service did not answer "
+                             "every request on the card")
+    if http_answer != direct:
+        raise AssertionError(f"HTTP answer {http_answer!r} != direct "
+                             f"{direct!r}")
+    log(f"denseatt CaptionService(greedy=True): {len(fc)} concurrent "
+        f"requests in {batches} micro-batches, then POST /caption == "
+        f"direct; lstm_cell launches {cells}; sample answer "
+        f"{json.dumps(answers[0], ensure_ascii=False)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1702,6 +2205,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
     from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
     from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
     from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
@@ -1714,6 +2219,7 @@ def main() -> int:
     phase_device()
     phase_build()
     kernels = phase_kernels(dev)
+    kernels.update(phase_att_kernels(dev, kernels["lstm_cell"]))
     kernels.update(phase_tfd_kernels(dev))
     kernels.update(phase_train_kernels(dev))
     kernels.update(phase_layer_kernels(dev))
@@ -1722,6 +2228,7 @@ def main() -> int:
                          {"lstm_cell": (lk, "launches"),
                           "row_topk": (tk, "launches")}, "lstm pivot")
     phase_agreement(dev, cap, nmt, cap2nmt)
+    dense_counts = phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt)
     del cap, nmt
     tcap, tnmt = build_transformer_models(dev)
     tcounts = phase_slice(dev, tcap, tnmt, zh_vocab, tgt_itos, cap2nmt,
@@ -1746,12 +2253,28 @@ def main() -> int:
         for route, (_, wall, busy) in zip(TRAIN_ROUTES, runs)))
     phase_train_agreement(dev, True, False)
     phase_train_agreement(dev, True, True)
+    dense_counters = {"lstm_cell": (lk, "launches"),
+                      "additive_attention": (aak, "launches")}
+    dense_runs = [phase_train(route, dense_counters, detail=i == 0,
+                              cfg_dict=DTRAIN, set_flags=_train_kernel_flag,
+                              kernel_names=DENSE_KERNELS, model="denseatt")
+                  for i, route in enumerate(DENSE_ROUTES)]
+    log("denseatt training routes, step wall mean / device busy: "
+        + "; ".join(f"{route[0]} {wall * 1e3:.1f} ms / "
+                    + (f"{busy:.1f} ms" if busy is not None
+                       else "not measured")
+                    for route, (_, wall, busy) in zip(DENSE_ROUTES,
+                                                      dense_runs)))
+    phase_dense_train_agreement(dev, False)
+    phase_dense_train_agreement(dev, True)
+    dense_counts["additive_attention"] = dense_runs[1][0]["additive_attention"]
     # each training kernel's launches on the route that runs it: the default
     # route, and for the decoder-layer kernel the whole-layer route
     train_counts = {k: n for k, n in runs[0][0].items() if n}
     train_counts.update({k: n for k, n in runs[2][0].items()
                          if k.startswith("dec_layer")})
-    for name, n in list(counts.items()) + list(train_counts.items()):
+    for name, n in (list(counts.items()) + list(train_counts.items())
+                    + list(dense_counts.items())):
         kernels[name]["launches"] = n
     kernels["transformer_decode_stack"]["launches"] = (
         tcounts["transformer_decode_stack"])

@@ -70,6 +70,10 @@ SIGNATURES = {
     # stream
     "dec_layer_fwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P),
     "dec_layer_bwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P, _P),
+    # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, stream
+    "additive_attention_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # in (host array of 15 inputs), h1, c1, att2, ws, B, N, A, D, H, stream
+    "att_lstm_att_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -1,16 +1,20 @@
 """Fused LSTM cell: the wrapper of `csrc/lstm_cell.cu` and its plain version.
 
 Replaces the TPU kernel `unpaired_image_captioning_tpu/ops/rnn.py
-::_fused_cell_kernel` (forward only; the TPU backward is autodiff of the
-reference formula and comes with training). One step:
+::_fused_cell_kernel`. One step:
 
     gates = [x | h] @ w + b                 w [D+H, G*H], b [G*H]
     i, f, o = sigmoid(gates[:3H]);  g = tanh (G=4) or max(m1, m2) (G=5)
     c' = f * c + i * g;  h' = o * tanh(c')
 
-`lstm_cell` runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; it never routes a CUDA tensor to the plain version.
-`launches` counts kernel launches.
+`lstm_cell` is differentiable as the JAX package's custom VJP
+(`_make_fused_cell_vjp`) is: the forward is the kernel for CUDA tensors and
+the plain version for CPU tensors, and the backward re-runs the plain
+version on the saved (w, b, x, h, c) and differentiates it, recomputing the
+gates. There is no backward kernel, on the TPU or here. Without a gradient
+to take (inference mode, or no input that requires one) the forward runs
+alone, with no autograd node. It never routes a CUDA tensor to the plain
+version. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ def lstm_cell_plain(w, b, x, h, c, *, maxout: bool):
     return lstm_elementwise(gates, c, h.shape[-1], maxout)
 
 
-def lstm_cell(w, b, x, h, c, *, maxout: bool):
-    """One fused LSTM step; returns (h', c'), each [B, H] f32."""
+def _forward(w, b, x, h, c, maxout: bool):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     global launches
     if x.device.type == "cpu":
         return lstm_cell_plain(w, b, x, h, c, maxout=maxout)
@@ -78,3 +82,42 @@ def lstm_cell(w, b, x, h, c, *, maxout: bool):
     build.check(err, "lstm_cell_f32")
     launches += 1
     return h_out, c_out
+
+
+def plain_vjp(plain, saved, needs, grads_out):
+    """Gradients of `plain(*saved)` for the inputs flagged in `needs`,
+    recomputed from the saved inputs (None for the others): the backward of
+    a kernel whose JAX custom VJP differentiates its reference formula."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        outs = plain(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(ins, needs) if n]
+        got = iter(torch.autograd.grad(outs, wrt, grads_out,
+                                       allow_unused=True))
+    return tuple(next(got) if n else None for n in needs)
+
+
+class _LSTMCell(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, b, x, h, c, maxout):
+        ctx.save_for_backward(w, b, x, h, c)
+        ctx.maxout = maxout
+        return _forward(w, b, x, h, c, maxout)
+
+    @staticmethod
+    def backward(ctx, gh, gc):
+        def plain(*args):
+            return lstm_cell_plain(*args, maxout=ctx.maxout)
+
+        return plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:5],
+                         (gh, gc)) + (None,)
+
+
+def lstm_cell(w, b, x, h, c, *, maxout: bool):
+    """One fused LSTM step; returns (h', c'), each [B, H] f32,
+    differentiable in w, b, x, h and c."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w, b, x, h, c)):
+        return _LSTMCell.apply(w, b, x, h, c, maxout)
+    return _forward(w, b, x, h, c, maxout)

@@ -9,9 +9,14 @@ and DenseAtt cores (counterpart of
   the two fusion layers.
 
 States are batch-major `(h[B,L,H], c[B,L,H])` so beam search reorders them
-along dim 0. The attentions are plain torch; every LSTM step goes through
-`ops.rnn.lstm_step` (the fused kernel on CUDA). The other caption families
-and `use_bn` BatchNorm are ROADMAP A10.
+along dim 0. Every LSTM step goes through `ops.rnn.lstm_step` (the fused
+kernel on CUDA). The attentions are plain torch unless one of the four
+module flags below, read at call time with the JAX package's defaults
+(all off), routes them to the additive-attention kernels
+(`kernels/additive_attention.py`): the device of the tensors then picks
+the kernel (CUDA) or its plain version (CPU). The JAX package's TPU gates
+(`jax.default_backend() == "tpu"`, widths % 128) have no counterpart. The
+other caption families and `use_bn` BatchNorm are ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..kernels import additive_attention as aak
 from ..ops import rnn
 from ..ops.masking import masked_softmax
 from .base import (CaptionDecoder, Features, dropout, embedding_init,
@@ -39,13 +45,33 @@ def attention_init(rnn_size: int, att_hid_size: int, *,
     })
 
 
-def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks):
+# The kernel routes (`models/att.py:226-246` of the JAX package), off by
+# default as there. STEP_FUSION: att1 -> lstm1 -> att2 of a Stack / Dense
+# decode step as one `fused_att_lstm_att` call (decode only, expanded
+# memory). BEAMS_KERNEL: the K-beam attention over unexpanded memory.
+# SINGLE_KERNEL / TRAIN_KERNEL: the single-query attention outside / inside
+# training.
+STEP_FUSION = False
+BEAMS_KERNEL = False
+SINGLE_KERNEL = False
+TRAIN_KERNEL = False
+
+
+def _mask_or_ones(att_masks, p_att):
+    if att_masks is not None:
+        return att_masks.contiguous()
+    return torch.ones(p_att.shape[:2], dtype=p_att.dtype, device=p_att.device)
+
+
+def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks,
+                    training: bool = False):
     """Additive attention.
 
     h: [B*K, H] queries; att_emb: [B, N, D]; p_att: [B, N, A]; att_masks:
     [B, N] or None. When K > 1 (beam search with unexpanded memory) the
     memory is read once per image and broadcast over the K beams. Softmax
-    over N, then multiplicative mask + renormalize (NOT -inf mask).
+    over N, then multiplicative mask + renormalize (NOT -inf mask). The
+    kernel routes drop the alpha_net bias (softmax shift invariance).
     """
     att_h = linear(p["h2att"], h)                                   # [BK,A]
     bq = h.shape[0]
@@ -53,12 +79,21 @@ def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks):
     if bq != bm:
         k = bq // bm
         att_hk = att_h.reshape(bm, k, -1)
+        if BEAMS_KERNEL:
+            out = aak.additive_attention_beams(
+                p_att.contiguous(), att_hk.contiguous(), p["alpha_net"].w,
+                _mask_or_ones(att_masks, p_att), att_emb.contiguous())
+            return out.reshape(bq, -1)
         dot = torch.tanh(p_att[:, None, :, :] + att_hk[:, :, None, :])  # [B,K,N,A]
         scores = linear(p["alpha_net"], dot)[..., 0]                  # [B,K,N]
         mask = att_masks[:, None, :] if att_masks is not None else None
         weight = masked_softmax(scores, mask)
         out = torch.einsum("bkn,bnd->bkd", weight, att_emb)
         return out.reshape(bq, -1)
+    if TRAIN_KERNEL if training else SINGLE_KERNEL:
+        return aak.additive_attention(
+            p_att.contiguous(), att_h.contiguous(), p["alpha_net"].w,
+            _mask_or_ones(att_masks, p_att), att_emb.contiguous())
     dot = torch.tanh(p_att + att_h[:, None, :])                     # [B,N,A]
     scores = linear(p["alpha_net"], dot)[..., 0]                    # [B,N]
     weight = masked_softmax(scores, att_masks)
@@ -194,14 +229,31 @@ class StackAttModel(AttModel):
         h0, c0 = rnn.lstm_step(p["lstm0"], torch.cat([xt, ctx["fc"]], -1),
                                h[:, 0], c[:, 0], maxout=True)
         h0d = dropout(h0, self.drop_prob_lm, training, generator)
+        if self._can_fuse_stack(ctx, h0, training):
+            # decode-path step fusion: att1 -> lstm1 -> att2 in one call
+            q1 = linear(p["att1"]["h2att"], h0d)
+            h1, c1, att2 = aak.fused_att_lstm_att(
+                ctx["p_att"].contiguous(), ctx["att"].contiguous(),
+                _mask_or_ones(ctx["masks"], ctx["p_att"]), q1,
+                h0d.contiguous(), h[:, 1].contiguous(), c[:, 1].contiguous(),
+                p["lstm1"].w, p["lstm1"].b, p["emb2"].w, p["emb2"].b,
+                p["att2"]["h2att"].w, p["att2"]["h2att"].b,
+                p["att1"]["alpha_net"].w, p["att2"]["alpha_net"].w)
+            return h0d, h1, att2, (h0, h1), (c0, c1)
         att1 = attention_apply(p["att1"], h0d, ctx["att"], ctx["p_att"],
-                               ctx["masks"])
+                               ctx["masks"], training=training)
         h1, c1 = rnn.lstm_step(p["lstm1"], torch.cat([h0d, att1], -1),
                                h[:, 1], c[:, 1], maxout=True)
         h1d = dropout(h1, self.drop_prob_lm, training, generator)
         att2 = attention_apply(p["att2"], h1d + linear(p["emb2"], att1),
-                               ctx["att"], ctx["p_att"], ctx["masks"])
+                               ctx["att"], ctx["p_att"], ctx["masks"],
+                               training=training)
         return h0d, h1d, att2, (h0, h1), (c0, c1)
+
+    def _can_fuse_stack(self, ctx, h0, training: bool) -> bool:
+        # decode only (dropout-free), expanded memory layout (K = 1)
+        return (STEP_FUSION and not training
+                and ctx["att"].shape[0] == h0.shape[0])
 
     def core_step(self, xt, ctx, state, *, training, generator):
         p = self.core

@@ -11,6 +11,7 @@ read like the JAX tree's paths) and the same decode interface minus the
     make_decoder(feats)                 -> (ctx, state0)
     step(ctx, state, it)                -> (logprobs [B, V+1], state)
     forward(feats, seq)                 -> logprobs [B, T-1, V+1]
+    sample(feats)                       -> (seq [B, T], logprobs [B, T])
     sample_beam(feats, beam_size=...)   -> BeamResult
 
 `ctx` holds per-sequence tensors that are constant across decode steps and
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.rnn import uniform
+from ..ops.sampling import gumbel_argmax, sample as sample_tokens
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -192,23 +194,75 @@ class CaptionDecoder(nn.Module):
     # ---- shared ------------------------------------------------------------
     def forward(self, feats: Features, seq: torch.Tensor, *,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Teacher-forcing forward with the head hoisted out of the time
-        loop (the JAX split-head path; scheduled sampling is not ported).
+                generator: Optional[torch.Generator] = None,
+                ss_prob: float = 0.0,
+                ss_enabled: Optional[bool] = None) -> torch.Tensor:
+        """Teacher-forcing forward.
 
         seq: [B, L] caption labels incl. the leading BOS(0) column. Returns
         logprobs [B, L-1, V+1] where slot j predicts seq[:, j+1].
+
+        Scheduled sampling (training with `ss_enabled`, which defaults to
+        ss_prob > 0): at each step t > 0, per element, with probability
+        ss_prob the input token is replaced by a draw from the previous
+        step's output distribution; the coin and the draw come from
+        `generator`, and no coin is thrown at t = 0 (the BOS input stays).
+        This is the JAX package's non-hoisted body; without it the head is
+        hoisted out of the time loop (the split-head path).
         """
+        if ss_enabled is None:
+            ss_enabled = ss_prob > 0
+        use_ss = training and ss_enabled
+        if use_ss and generator is None:
+            raise ValueError("scheduled sampling draws from a generator")
         ctx, state = self.make_decoder(feats, training=training,
                                        generator=generator)
-        hs = []
+        if not use_ss:
+            hs = []
+            for t in range(seq.shape[1] - 1):
+                h, state = self.step_core(ctx, state, seq[:, t],
+                                          training=training,
+                                          generator=generator)
+                hs.append(h)
+            out = self.head(torch.stack(hs), training=training,
+                            generator=generator)              # [T, B, V+1]
+            return out.transpose(0, 1)
+
+        batch = seq.shape[0]
+        outs = []
+        prev = None
         for t in range(seq.shape[1] - 1):
-            h, state = self.step_core(ctx, state, seq[:, t],
-                                      training=training, generator=generator)
-            hs.append(h)
-        out = self.head(torch.stack(hs), training=training,
-                        generator=generator)                  # [T, B, V+1]
-        return out.transpose(0, 1)
+            it = seq[:, t]
+            if t > 0:
+                coin = torch.rand((batch,), generator=generator,
+                                  device=seq.device) < ss_prob
+                sampled = gumbel_argmax(prev, generator).to(it.dtype)
+                it = torch.where(coin, sampled, it)
+            logprobs, state = self.step(ctx, state, it, training=training,
+                                        generator=generator)
+            prev = logprobs.detach()
+            outs.append(logprobs)
+        return torch.stack(outs, 1)
+
+    @torch.no_grad()
+    def sample(self, feats: Features, *, greedy: bool = True,
+               temperature: float = 1.0, seq_length: Optional[int] = None,
+               generator: Optional[torch.Generator] = None):
+        """Batched greedy or multinomial decode (reference
+        AttModel._sample); multinomial draws from `generator`. Runs without
+        gradients: the tokens are discrete, and the decode-only kernels
+        (STEP_FUSION) have no backward. Returns (seq [B, T] int64,
+        logprobs [B, T] f32)."""
+        ctx, state0 = self.make_decoder(feats, training=False)
+        ctx = self.decode_ctx(ctx)
+
+        def step_fn(state, it):
+            return self.step(ctx, state, it, training=False)
+
+        return sample_tokens(step_fn, state0, feats.fc_feats.shape[0],
+                       seq_length or self.seq_length,
+                       device=feats.fc_feats.device, greedy=greedy,
+                       temperature=temperature, generator=generator)
 
     def sample_beam(self, feats: Features, *, beam_size: int, **beam_opts):
         """Batched beam search over [batch, beam] (caption beam semantics:

@@ -9,6 +9,8 @@ m1, m2).
 `lstm_step` sends every CUDA step to the fused kernel
 (`kernels/lstm_cell.py`) whatever its shape, and every CPU step to the plain
 version; the JAX package's alignment gate (TPU tiles) has no counterpart.
+Both are differentiable: the backward recomputes the gates with the plain
+version, as the JAX custom VJP does.
 """
 
 from __future__ import annotations

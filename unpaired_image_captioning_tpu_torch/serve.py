@@ -115,22 +115,25 @@ def _submit(batcher: MicroBatcher, fc, att, masks, timeout: float):
 
 
 class CaptionService:
-    """Feature-in, caption-out service around the beam decode."""
+    """Feature-in, caption-out service around the beam decode, or the
+    greedy decode (`model.sample`) with `greedy=True` or `beam_size=1`."""
 
     def __init__(self, model, vocab_ix_to_word: dict, *, beam_size: int = 3,
                  max_batch: int = 32, max_wait_ms: float = 5.0,
                  greedy: bool = False):
-        if greedy or beam_size == 1:
-            raise NotImplementedError(
-                "greedy sampling is not ported yet (ROADMAP A4)")
         self.model = model
         self.vocab = vocab_ix_to_word
         device = model.device
+        greedy = greedy or beam_size == 1
 
         def decode_batch(stacked: dict) -> List[str]:
             with torch.inference_mode():
                 feats = _features(stacked, device)
-                seq = model.sample_beam(feats, beam_size=beam_size).seq[:, 0]
+                if greedy:
+                    seq = model.sample(feats)[0]
+                else:
+                    seq = model.sample_beam(feats,
+                                            beam_size=beam_size).seq[:, 0]
             return decode_sequence(self.vocab, seq.cpu().numpy())
 
         self._decode_batch = decode_batch

@@ -2,7 +2,8 @@
 `unpaired_image_captioning_tpu/train/trainer.py`).
 
 One `train(batch)` step, as the JAX `Trainer.train` runs its XE branch:
-the captioner's teacher-forcing forward in training mode (dropout from the
+the captioner's teacher-forcing forward in training mode (dropout, and the
+scheduled-sampling coins and draws once the schedule leaves 0, from the
 trainer's `torch.Generator` on the device), `language_model_loss` over
 labels[:, 1:], one backward over the summed loss, then the i2t transform
 (`train/optimizer.py`: clip, method, weight decay) and `p -= lr * u`. The
@@ -12,8 +13,8 @@ raises.
 
 Not ported yet, each raising `NotImplementedError`: SCST (`sc_flag`,
 ROADMAP A8), the NMT branch and the joint losses (`nmt_train_flag`, A7),
-checkpoints and eval (`save` / `load` / `eval`, A9), `use_bn` (A10, raised
-by the model), and scheduled sampling for the families that use it (A3).
+checkpoints and eval (`save` / `load` / `eval`, A9) and `use_bn` (A10,
+raised by the model).
 """
 
 from __future__ import annotations
@@ -92,10 +93,6 @@ class Trainer:
         metrics: Dict[str, torch.Tensor] = {}
         total = None
         if self.i2t_model is not None and cfg.i2t_train_flag:
-            if ss_prob > 0 and not isinstance(self.i2t_model,
-                                              TransformerModel):
-                raise NotImplementedError("scheduled sampling is not ported "
-                                          "yet (ROADMAP A3)")
             batch = self._batch(data)
             feats = Features(fc_feats=batch["fc_feats"],
                              att_feats=batch.get("att_feats"),
@@ -104,9 +101,12 @@ class Trainer:
             params = self._params(self.i2t_model)
             for p in params.values():
                 p.grad = None
+            # the transformer takes no scheduled sampling, as in JAX
+            ss = ({} if isinstance(self.i2t_model, TransformerModel)
+                  else {"ss_prob": ss_prob})
             out = self.i2t_model.forward(feats, batch["labels"],
                                          training=True,
-                                         generator=self.generator)
+                                         generator=self.generator, **ss)
             i2t_l = language_model_loss(out, batch["labels"][:, 1:],
                                         batch["masks"][:, 1:])
             metrics["i2t_loss"] = i2t_l
