@@ -44,6 +44,23 @@ launches a step; 34 additive_attention launches more with TRAIN_KERNEL),
 and one step on two images is compared with the CPU on both routes,
 including that every parameter that moves on the CPU moves on the card.
 
+Beams wider than 16: the chunked top-k kernel (16 < k <= 64) is held
+against its plain version at [1600, 8571] k=32, [1000, 9488] k=20,
+[1600, 9488] k=32 and [256, 16384] k=64, on rows built to break a naive
+version; the LSTM pivot runs at caption beam 20 -> NMT beam 32, batch 50
+(one chunked launch a decode step, four images token-identical to the
+CPU), the NMT at beam 40 through the counted sort (`ops/topk.py
+::sort_calls`), and the transformer NMT at beam 32. The NMT trains at
+bench width: the BiLSTM NMT alone (49 lstm_cell launches a step), jointly
+with denseatt under Weight_Trans, Weight_Trans_y and a KLD teacher (149),
+and the transformer NMT on its default route, 2 + 10 / 2 + 10 / 2 + 5
+steps; the memory and wall of a denseatt step are read with the plain
+attention recomputed in its backward and called directly; the K-beam
+attention kernel (BEAMS_KERNEL) decodes four images at caption beam 20
+against the CPU; one step of the BiLSTM NMT and one of the joint step are
+compared with the CPU, every parameter that moves on
+the CPU moving on the card too.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
 operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
@@ -67,6 +84,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -166,7 +184,7 @@ DENSE_ROUTES = [
 ]
 DENSE_KERNELS = ("lstm_cell_kernel", "additive_attention_kernel")
 ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
-ATT_BEAMS = (3, 5)  # the K-beam kernel's checks
+ATT_BEAMS = (3, 5, 20)  # the K-beam kernel's checks (20: two beam groups)
 # the CUDA kernels of att_lstm_att_f32, and its copy of h0d
 STEP_KERNELS = ("additive_attention_kernel", "lstm_cell_kernel",
                 "uic::gemm_kernel", "Memcpy DtoD")
@@ -189,7 +207,52 @@ TFD_SHAPES = [
 TFD_KERNELS = ("gemm_kernel", "self_attn_kernel", "cross_attn_kernel",
                "head_mean_kernel")
 # every CUDA kernel of csrc/, by name
-HAND_KERNELS = ("lstm_cell_kernel", "row_topk_kernel") + TFD_KERNELS
+HAND_KERNELS = ("lstm_cell_kernel", "row_topk_kernel",
+                "chunked_topk_kernel") + TFD_KERNELS
+# beams wider than 16 (PERF.md §4 row 1 at wider beams): caption beam 20 ->
+# NMT beam 32 through the chunked top-k; NMT beam 40 through the sort route
+WIDE_CAP_BEAM, WIDE_NMT_BEAM, SORT_NMT_BEAM = 20, 32, 40
+# (label, R, V, k): the chunked top-k at the wide beams' rows, and k = 64
+CHUNKED_SHAPES = [
+    ("nmt beam 32 x 50", 1600, 8571, 32),
+    ("caption beam 20 x 50", 1000, 9488, 20),
+    ("caption beam 32 x 50", 1600, 9488, 32),
+    ("k=64", 256, 16384, 64),
+]
+
+# BiLSTM NMT XE training at bench width (bench.py:205-208): batch 50,
+# sources of up to 16 tokens, targets of 18 (BOS ... EOS, PAD-padded),
+# dropout 0.3, the config's SGD at learning rate 1 with the clip at 5
+NMT_TRAIN = dict(vocab_size=0, nmt_src_vocab_size=11986,
+                 nmt_tgt_vocab_size=8571, word_vec_size=512, rnn_size=512,
+                 layers=1, brnn=True, dropout=0.3, batch_size=50,
+                 i2t_train_flag=False, nmt_train_flag=True, seed=0)
+NMT_SRC_LEN, NMT_TGT_LEN = 16, 18
+NMT_EOS = 3
+# lstm_cell launches a step: each encoder direction over 16 positions, the
+# decoder over 17 inputs (the cell's backward launches nothing)
+NMT_CELLS = 2 * NMT_SRC_LEN + NMT_TGT_LEN - 1
+# the joint step: denseatt XE training (DTRAIN) and the NMT above in one
+# backward, with Weight_Trans over JOINT_ROWS shared rows, Weight_Trans_y
+# against a frozen random table and KLD against a frozen random teacher
+JOINT_TRAIN = dict(DTRAIN, **{k: NMT_TRAIN[k] for k in (
+    "nmt_src_vocab_size", "nmt_tgt_vocab_size", "word_vec_size", "layers",
+    "brnn", "dropout", "nmt_train_flag")}, nmt_kld_train_flag=True)
+JOINT_ROWS = 3000
+# transformer NMT XE training at bench width (bench.py:317-320): d 512,
+# d_ff 2048, 6 + 6 layers, 8 heads, batch 50, Adam
+TNMT_TRAIN = dict(NMT_TRAIN, nmt_model_type="transformer", rnn_size=2048,
+                  layers=6, num_heads=8, dropout=0.1, nmt_optim="adam",
+                  nmt_learning_rate=5e-4)
+NMT_ROUTES = [("BiLSTM NMT", (False,), TRAIN_STEPS,
+               {"lstm_cell": NMT_CELLS})]
+# denseatt 3 * 17 cells, the NMT's and the teacher's forward
+JOINT_ROUTES = [("joint denseatt + BiLSTM NMT", (False,), TRAIN_STEPS,
+                 {"lstm_cell": 3 * _T1 + 2 * NMT_CELLS})]
+TNMT_ROUTES = [("transformer NMT, default (whole encoder layers)",
+                (True, False), ROUTE_STEPS,
+                _per_step(enc=_L, mha=2 * _L, ln=3 * _L + 2))]
+
 # (label, R, V, k): beam selection rows of the path, then the k domain edges
 TOPK_SHAPES = [
     ("caption beam 5 x 50", 250, 9488, 5),
@@ -479,6 +542,76 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
+def _breaking_rows(x, k: int) -> None:
+    """Overwrite the first rows of x [R, V] with rows built to break a
+    naive chunked top-k: ties, one chunk holding most of the top k, equal
+    values straddling chunk boundaries, -inf / +inf entries, an all -inf
+    row."""
+    import torch
+
+    v = x.shape[1]
+    x[0:4] = torch.round(x[0:4] * 2) / 2
+    x[4] = -10.0
+    x[4, 256:256 + k - 2] = 100.0 - 0.5 * torch.arange(k - 2, device=x.device)
+    x[4, 5], x[4, v - 3] = 95.0, 94.5
+    x[5] = -1.0
+    for c in range(1, k + 4):
+        x[5, c * 128 - 1:c * 128 + 1] = 7.0
+    x[5, 40] = 9.0
+    x[6] = float("-inf")
+    x[6, 7:7 + k // 2] = 1.0
+    x[6, 3] = float("inf")
+    x[7] = float("-inf")
+
+
+def phase_chunked_topk(dev) -> dict:
+    """The chunked top-k kernel against its plain version at the wide
+    beams' shapes: values and indices exactly equal; device times beside
+    the plain version's, the bound and torch.topk's. Returns the kernel's
+    record for the JSON line."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for label, r, v, k in CHUNKED_SHAPES:
+        x = torch.randn((r, v), generator=gen, device=dev)
+        _breaking_rows(x, k)
+        vk, ik = ck.chunked_topk(x, k)
+        vp, ip = ck.chunked_topk_plain(x, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
+            bad = ((ik != ip) | (vk != vp)).any(dim=1).nonzero()[:5, 0].tolist()
+            raise AssertionError(f"chunked_topk {label}: differs from the "
+                                 f"clamped stable sort in rows {bad}")
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(
+            lambda: ck.chunked_topk(x, k), lambda: ck.chunked_topk_plain(x, k),
+            "chunked_topk_kernel")
+        # the row is read once and the outputs written once; one f32
+        # comparison an element
+        b_ms, b_by = bound(nbytes(x, vk, ik), float(r * v))
+        lib_ms, lib_how = library_ms(lambda: torch.topk(x, k, dim=1))
+        rows.append(dict(label=label, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, timing=how,
+                         shape=f"[{r}, {v}] k={k}"))
+        log(f"kernel chunked_topk [{r}, {v}] k={k} ({label}): exact (values "
+            f"and indices equal, -inf / +inf clamped); {how}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
+            f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}); library torch.topk {lib_ms:.4f} ms ({lib_how})")
+    main = rows[0]
+    return {"chunked_topk": {
+        "name": "chunked_topk", "route": "cuda",
+        "source": "unpaired_image_captioning_tpu_torch/csrc/chunked_topk.cu",
+        "replaces": "unpaired_image_captioning_tpu/ops/topk.py:278",
+        "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "shape": f"{main['label']}: {main['shape']}",
+        "timing": main["timing"], "shapes": rows}}
+
+
 def build_models(dev):
     """Full-width denseatt captioner and BiLSTM NMT with random weights from
     seed 0, plus synthetic vocabularies and the caption->NMT id map."""
@@ -651,20 +784,13 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt, counters: dict,
 
 
 def _nmt_teacher_forced(nmt, src, lengths, tgt):
-    """NMT step logprobs [B, T, V] along the given target tokens."""
+    """NMT logprobs [B, T-1, V] along the target tokens tgt [B, T] (BOS
+    first), through `NMTModel.forward`; and the encoder context."""
     import torch
 
-    from unpaired_image_captioning_tpu_torch.ops.masking import length_mask
-
-    dec = nmt.decoder
-    ctx, hid = nmt.encoder.apply(src, lengths)
-    state = dec.init_state(hid, ctx)
-    mask = length_mask(lengths, src.shape[1])
-    out = []
-    for t in range(tgt.shape[1]):
-        o, _, state = dec.step(ctx, state, tgt[:, t], src_mask=mask)
-        out.append(torch.log_softmax(nmt.generator_logits(o), -1))
-    return ctx, torch.stack(out, 1)
+    outs, _ = nmt.forward(src, lengths, tgt)
+    return (nmt.encoder.apply(src, lengths)[0],
+            torch.log_softmax(nmt.generator_logits(outs), -1))
 
 
 def phase_agreement(dev, cap, nmt, cap2nmt) -> None:
@@ -710,7 +836,7 @@ def phase_agreement(dev, cap, nmt, cap2nmt) -> None:
         lp_c = cap_c.forward(res["cpu"]["feats"], seq)
         en = res["cpu"]["nmt"].seq[:, 0]
         tgt = torch.cat([torch.full((n, 1), NMT_BOS, dtype=torch.long),
-                         en[:, :-1]], 1)
+                         en], 1)
         ctx_g, nlp_g = _nmt_teacher_forced(nmt, *res["gpu"]["src"], tgt.to(dev))
         ctx_c, nlp_c = _nmt_teacher_forced(nmt_c, *res["cpu"]["src"], tgt)
     errs = {"captioner logprobs": (lp_g - lp_c).abs().max().item(),
@@ -743,6 +869,229 @@ def _token_agreement(res: dict, label: str) -> None:
                     f"gap {gap:.3g}, score gap "
                     f"{g.scores[b, 0].item() - c.scores[b, 0].item():.3g}")
         log(msg)
+
+
+def _count_calls(obj, name: str, counter: dict, key: str):
+    """Shadow obj.name with a wrapper that counts its calls in
+    counter[key]; `del obj.<name>` restores the method."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **kw):
+        counter[key] += 1
+        return fn(*a, **kw)
+
+    setattr(obj, name, counted)
+
+
+def phase_wide_beams(dev, cap, nmt, cap2nmt) -> int:
+    """The LSTM pivot at caption beam 20 -> NMT beam 32, batch 50, full
+    width: every beam step's row top-k goes through the chunked kernel
+    (`ops/topk.py::topk_route`), so its launches must equal the decode
+    steps the two beams ran, with no row_topk launch and no sort; images/s
+    and device busy; four images token-identical to the CPU port; one NMT
+    translate at beam 40, past the chunked domain, through the counted
+    sort; the same four images at caption beam 20 with BEAMS_KERNEL (the
+    K-beam attention kernel at K = 20, two beams wider than a block's group
+    of 16). Returns the chunked kernel's launches in the batch-50 run."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.ops import topk as ot
+    from unpaired_image_captioning_tpu_torch.pivot import (
+        captions_to_nmt_batch, pivot_translate)
+
+    v_cap, v_nmt = CAP["vocab_size"] + 1, NMT["tgt_vocab_size"]
+    routes = (ot.topk_route(WIDE_CAP_BEAM, v_cap),
+              ot.topk_route(WIDE_NMT_BEAM, v_nmt),
+              ot.topk_route(SORT_NMT_BEAM, v_nmt))
+    if routes != ("chunked_topk", "chunked_topk", "sort"):
+        raise AssertionError(f"wide-beam routes {routes}")
+
+    def feats(fc, att, d):
+        return Features(fc_feats=torch.as_tensor(fc, device=d),
+                        att_feats=torch.as_tensor(att, device=d),
+                        att_masks=torch.ones(att.shape[:2], device=d))
+
+    f = feats(*make_features(np.random.RandomState(9), BENCH_BATCH), dev)
+    c2n = torch.as_tensor(cap2nmt, device=dev)
+
+    def pivot():
+        return pivot_translate(cap, nmt, f, c2n, cap_beam=WIDE_CAP_BEAM,
+                               nmt_beam=WIDE_NMT_BEAM,
+                               nmt_max_len=NMT_MAX_LEN)
+
+    steps = {"cap": 0, "nmt": 0}
+    with torch.inference_mode():
+        pivot()                                           # warm-up
+        torch.cuda.synchronize()
+        _count_calls(cap, "step", steps, "cap")
+        _count_calls(nmt.decoder, "step", steps, "nmt")
+        try:
+            ck.launches = tk.launches = ot.sort_calls = 0
+            t0 = time.perf_counter()
+            zh, en, aux = pivot()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = (ck.launches, tk.launches, ot.sort_calls)
+        finally:
+            del cap.step, nmt.decoder.step
+    # one row top-k a decode step of each beam (`_flat_topk`), all chunked
+    want = (steps["cap"] + steps["nmt"], 0, 0)
+    if got != want:
+        raise AssertionError(f"wide beams: (chunked_topk, row_topk, sort) "
+                             f"launches {got}, expected {want} for "
+                             f"{steps} decode steps")
+    if not (tuple(zh.shape) == (BENCH_BATCH, CAP["seq_length"])
+            and tuple(en.shape) == (BENCH_BATCH, NMT_MAX_LEN)
+            and int(zh.min()) >= 0 and int(zh.max()) <= CAP["vocab_size"]
+            and int(en.min()) >= 0 and int(en.max()) < v_nmt
+            and int(aux.min()) >= 0 and int(aux.max()) < CAP["seq_length"]):
+        raise AssertionError("wide-beam pivot output out of shape or range")
+    busy, _ = device_ms(pivot)
+    busy_msg = ("device busy not measured" if busy is None else
+                f"device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / (secs * 1e3):.2f}")
+    log(f"wide beams: batch-{BENCH_BATCH} pivot_translate at caption beam "
+        f"{WIDE_CAP_BEAM} -> NMT beam {WIDE_NMT_BEAM}: {secs * 1e3:.1f} ms, "
+        f"{BENCH_BATCH / secs:.1f} images/s; {busy_msg}; {steps['cap']} "
+        f"caption + {steps['nmt']} NMT decode steps, chunked_topk launches "
+        f"{got[0]} (row_topk {got[1]}, sort {got[2]})")
+
+    # four images against the CPU: the captions, then both NMTs on the
+    # CPU's captions
+    n = 4
+    fc4, att4 = make_features(np.random.RandomState(10), n)
+    cpu = torch.device("cpu")
+    cap_c, nmt_c = copy.deepcopy(cap).to(cpu), copy.deepcopy(nmt).to(cpu)
+    with torch.inference_mode():
+        rg = cap.sample_beam(feats(fc4, att4, dev), beam_size=WIDE_CAP_BEAM)
+        rc = cap_c.sample_beam(feats(fc4, att4, cpu), beam_size=WIDE_CAP_BEAM)
+        trans = {}
+        for name, d, nm in (("gpu", dev, nmt), ("cpu", cpu, nmt_c)):
+            src, lengths = captions_to_nmt_batch(
+                rc.seq[:, 0].to(d), torch.as_tensor(cap2nmt, device=d))
+            trans[name] = nm.translate_batch(src, lengths,
+                                             beam_size=WIDE_NMT_BEAM,
+                                             max_len=NMT_MAX_LEN)
+    same_zh = torch.equal(rg.seq[:, 0].cpu(), rc.seq[:, 0])
+    same_en = torch.equal(trans["gpu"].seq[:, 0].cpu(),
+                          trans["cpu"].seq[:, 0])
+    gap = max((rg.scores.cpu() - rc.scores).abs().max().item(),
+              (trans["gpu"].scores.cpu() - trans["cpu"].scores).abs().max()
+              .item())
+    log(f"wide beams: {n} images card vs cpu, zh top-beam tokens "
+        f"{'identical' if same_zh else 'DIFFER'}, en top-beam tokens "
+        f"{'identical' if same_en else 'DIFFER'}; beam scores max|diff| "
+        f"{gap:.3g} (tol {AGREE_TOL})")
+    if not (same_zh and same_en and gap <= AGREE_TOL):
+        raise AssertionError("wide beams: card and cpu disagree")
+    del cap_c, nmt_c
+
+    # the K-beam attention kernel at K = 20 against the CPU's default route
+    old = _att_flags(BEAMS_KERNEL=True)
+    calls = {"cap": 0}
+    try:
+        with torch.inference_mode():
+            aak.beams_launches = 0
+            _count_calls(cap, "step", calls, "cap")
+            try:
+                rk = cap.sample_beam(feats(fc4, att4, dev),
+                                     beam_size=WIDE_CAP_BEAM)
+                torch.cuda.synchronize()
+            finally:
+                del cap.step
+    finally:
+        _att_flags(**old)
+    same_k = torch.equal(rk.seq[:, 0].cpu(), rc.seq[:, 0])
+    gap_k = (rk.scores.cpu() - rc.scores).abs().max().item()
+    log(f"wide beams: BEAMS_KERNEL caption beam {WIDE_CAP_BEAM}, {n} images "
+        f"card vs cpu: zh top-beam tokens "
+        f"{'identical' if same_k else 'DIFFER'}, beam scores max|diff| "
+        f"{gap_k:.3g} (tol {AGREE_TOL}); additive_attention_beams launches "
+        f"{aak.beams_launches} in {calls['cap']} caption steps")
+    if aak.beams_launches != 2 * calls["cap"] or calls["cap"] == 0:
+        raise AssertionError(f"BEAMS_KERNEL beam {WIDE_CAP_BEAM}: "
+                             f"{aak.beams_launches} launches in "
+                             f"{calls['cap']} caption steps")
+    if not (same_k and gap_k <= AGREE_TOL):
+        raise AssertionError(f"BEAMS_KERNEL beam {WIDE_CAP_BEAM}: card and "
+                             "cpu disagree")
+
+    # NMT beam 40: rows of 8571 are narrower than 2 * 40 * 128, so the
+    # stable sort, as the JAX package's lax.top_k there
+    src, lengths = captions_to_nmt_batch(zh, c2n)
+    steps["nmt"] = 0
+    with torch.inference_mode():
+        _count_calls(nmt.decoder, "step", steps, "nmt")
+        try:
+            before = ck.launches
+            ot.sort_calls = 0
+            res = nmt.translate_batch(src, lengths, beam_size=SORT_NMT_BEAM,
+                                      max_len=NMT_MAX_LEN)
+            torch.cuda.synchronize()
+        finally:
+            del nmt.decoder.step
+    if not (ot.sort_calls == steps["nmt"] > 0 and ck.launches == before
+            and tuple(res.seq.shape) == (BENCH_BATCH, SORT_NMT_BEAM,
+                                         NMT_MAX_LEN)):
+        raise AssertionError(f"NMT beam {SORT_NMT_BEAM}: sort_calls "
+                             f"{ot.sort_calls} in {steps['nmt']} steps, "
+                             f"chunked_topk {ck.launches - before}")
+    log(f"wide beams: NMT translate at beam {SORT_NMT_BEAM}, batch "
+        f"{BENCH_BATCH}: {steps['nmt']} steps, sort_calls {ot.sort_calls}, "
+        "chunked_topk launches unchanged")
+    return got[0]
+
+
+def phase_wide_transformer_nmt(dev, nmt) -> None:
+    """The transformer NMT's translate_batch at beam 32, batch 50: 1,600
+    rows through the decoder-step kernel and the chunked top-k every
+    step."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    rs = np.random.RandomState(11)
+    lengths = rs.randint(6, NMT_SRC_LEN + 1, BENCH_BATCH)
+    src = rs.randint(4, TNMT["src_vocab_size"], (BENCH_BATCH, NMT_SRC_LEN))
+    src[np.arange(NMT_SRC_LEN)[None, :] >= lengths[:, None]] = 0
+    steps = {"nmt": 0}
+    with torch.inference_mode():
+        _count_calls(nmt, "step", steps, "nmt")
+        try:
+            ck.launches = tdk.stack_launches = 0
+            t0 = time.perf_counter()
+            res = nmt.translate_batch(
+                torch.as_tensor(src, device=dev),
+                torch.as_tensor(lengths, device=dev),
+                beam_size=WIDE_NMT_BEAM, max_len=NMT_MAX_LEN)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            del nmt.step
+    got = (ck.launches, tdk.stack_launches)
+    if got != (steps["nmt"], steps["nmt"]) or steps["nmt"] <= 0:
+        raise AssertionError(f"transformer NMT beam {WIDE_NMT_BEAM}: "
+                             f"(chunked_topk, stack) launches {got} in "
+                             f"{steps['nmt']} steps")
+    seq = res.seq
+    if not (tuple(seq.shape) == (BENCH_BATCH, WIDE_NMT_BEAM, NMT_MAX_LEN)
+            and int(seq.min()) >= 0
+            and int(seq.max()) < TNMT["tgt_vocab_size"]
+            and bool(torch.isfinite(res.scores).all())):
+        raise AssertionError("transformer NMT wide beam: bad output")
+    log(f"wide beams: transformer NMT translate_batch at beam "
+        f"{WIDE_NMT_BEAM}, batch {BENCH_BATCH} ({BENCH_BATCH * WIDE_NMT_BEAM} "
+        f"rows): {secs * 1e3:.1f} ms, {steps['nmt']} steps; chunked_topk and "
+        f"decoder_stack_step launches {got[0]} each")
 
 
 # ---------------------------------------------------------------------------
@@ -1606,15 +1955,19 @@ def _train_kernel_flag(train_kernel: bool):
 
 def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
                 set_flags=_route_flags, kernel_names=TRAIN_KERNELS,
-                model: str = "transformer") -> tuple:
-    """XE training of a full-width captioner (the transformer by default)
-    through `Trainer.train` (built on the card, its default) on one route
-    (label, flags for `set_flags`, timed steps, launches a step): 2 warm-up
-    and the route's timed steps on one random batch of 50. Every loss must
-    be finite and the last below the first, and each step must launch each
-    kernel the route's number of times. Returns (the launches of the timed
-    steps, mean step wall in s, one step's device busy in ms or None); with
-    `detail`, logs the step's largest device operations too."""
+                model: str = "transformer", make_batch=None,
+                trainer_kw=None) -> tuple:
+    """XE training of full-width models (the transformer captioner by
+    default) through `Trainer.train` (built on the card, its default, with
+    `trainer_kw`) on one route (label, flags for `set_flags`, timed steps,
+    launches a step): 2 warm-up and the route's timed steps on one random
+    batch of 50 from `make_batch` (`make_train_batch` by default). Every
+    loss must be finite and the last below the first, and each step must
+    launch each kernel the route's number of times. Tokens a step: the
+    captioner's 50 x 17 when it trains, plus the NMT's non-PAD target
+    words. Returns (the launches of the timed steps, mean step wall in s,
+    one step's device busy in ms or None); with `detail`, logs the step's
+    largest device operations too."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
@@ -1624,9 +1977,12 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
     old = set_flags(*flags)
     try:
         cfg = Config(**cfg_dict).finalize()
-        trainer = Trainer(cfg)
-        n_params = sum(p.numel() for p in trainer.i2t_model.parameters())
-        batch = make_train_batch(np.random.RandomState(0), cfg.batch_size)
+        trainer = Trainer(cfg, **(trainer_kw or {}))
+        n_params = sum(p.numel() for m in (trainer.i2t_model,
+                                           trainer.nmt_model)
+                       if m is not None for p in m.parameters())
+        batch = (make_batch or make_train_batch)(np.random.RandomState(0),
+                                                 cfg.batch_size)
         losses = [trainer.train(batch)["total_loss"]
                   for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
@@ -1637,12 +1993,14 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
 
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        walls = []
+        walls, words = [], []
         for step in range(steps):
             before = counts()
             t0 = time.perf_counter()
-            losses.append(trainer.train(batch)["total_loss"])  # a host float
+            out = trainer.train(batch)                      # host floats
             walls.append(time.perf_counter() - t0)
+            losses.append(out["total_loss"])
+            words.append(out.get("nmt_words", 0.0))
             grew = {k: n - before[k] for k, n in counts().items()}
             if grew != per_step:
                 raise AssertionError(f"training ({label}) step {step} "
@@ -1654,19 +2012,24 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
             raise AssertionError(f"the loss did not fall on one batch: "
                                  f"{losses}")
         wall = statistics.mean(walls)
-        tokens = cfg.batch_size * (cfg.seq_length + 1)
+        cap_tokens = (cfg.batch_size * (cfg.seq_length + 1)
+                      if cfg.i2t_train_flag else 0)
+        nmt_words = statistics.mean(words)
+        tokens = cap_tokens + nmt_words
         log(f"training [{label}]: {model} XE, {n_params / 1e6:.2f} M "
             f"parameters, batch {cfg.batch_size}, {steps} steps after "
             f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
             f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
-            f"{tokens / wall:.0f} tokens/s ({tokens} a step); launches "
+            f"{tokens / wall:.0f} tokens/s ({tokens:.0f} a step: "
+            f"{cap_tokens} caption, {nmt_words:.0f} NMT words); launches "
             + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
         log(f"training [{label}]: losses "
             + ", ".join(f"{x:.4f}" for x in losses))
         if detail:
             # the share of a step the host spends uploading the batch
             # (pageable numpy arrays, as train() receives them)
-            host = [torch.as_tensor(v) for v in batch.values()]
+            host = [torch.as_tensor(v) for v in batch.values()
+                    if not isinstance(v, dict)]
             t0 = time.perf_counter()
             for v in host:
                 v.to(trainer.device)
@@ -1854,7 +2217,7 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
                lambda: ao.reference_attention_beams(*args),
                "additive_attention_kernel", nbytes(*args, out),
                2.0 * b * k * n * (a + d), rows)
-    main = rows[-1]                                     # K = 5: the beam
+    main = rows[ATT_BEAMS.index(CAP_BEAM)]              # the pivot's beam
     rec["additive_attention_beams"] = {
         "name": "additive_attention_beams", "route": "cuda", "source": src,
         "replaces": tpu + "66", "max_abs_err": max(r["err"] for r in rows),
@@ -1998,6 +2361,200 @@ def phase_dense_train_agreement(dev, train_kernel: bool) -> None:
         raise AssertionError("card and cpu denseatt training steps disagree")
 
 
+# ---------------------------------------------------------------------------
+# NMT training: the BiLSTM NMT, the joint step, the transformer NMT
+# ---------------------------------------------------------------------------
+
+def make_nmt_batch(rs, n: int) -> dict:
+    """A host NMT batch as the NMT data set gives it: sources [n, 16] of
+    random lengths (the first full) padded with PAD, targets [n, 18] of
+    BOS, random words, EOS and PAD, and the source lengths."""
+    sv, tv = NMT_TRAIN["nmt_src_vocab_size"], NMT_TRAIN["nmt_tgt_vocab_size"]
+    lengths = rs.randint(6, NMT_SRC_LEN + 1, n)
+    lengths[0] = NMT_SRC_LEN
+    src = rs.randint(4, sv, (n, NMT_SRC_LEN))
+    src[np.arange(NMT_SRC_LEN)[None, :] >= lengths[:, None]] = 0
+    tgt = np.zeros((n, NMT_TGT_LEN), np.int64)
+    words = rs.randint(4, NMT_TGT_LEN - 1, n)
+    words[0] = NMT_TGT_LEN - 2
+    for i, m in enumerate(words):
+        tgt[i, 0] = NMT_BOS
+        tgt[i, 1:1 + m] = rs.randint(4, tv, m)
+        tgt[i, 1 + m] = NMT_EOS
+    return {"nmt": {"src": src, "tgt": tgt, "lengths": lengths}}
+
+
+def make_joint_batch(rs, n: int) -> dict:
+    """A captioner batch (`make_train_batch`) with an NMT batch beside it."""
+    return dict(make_train_batch(rs, n), **make_nmt_batch(rs, n))
+
+
+def joint_trainer_kw(cfg_dict: dict) -> dict:
+    """The joint step's couplings at full width: Weight_Trans over
+    JOINT_ROWS captioner / NMT source rows, Weight_Trans_y against a frozen
+    random [5000, 512] table on 2000 target rows, and a frozen teacher (a
+    second NMT from seed 1) for the KLD, all made on the CPU."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
+        make_nmt_model)
+
+    rs = np.random.RandomState(12)
+    cap_rows = 1 + rs.permutation(CAP["vocab_size"])[:JOINT_ROWS]
+    src_rows = 4 + rs.permutation(NMT["src_vocab_size"] - 4)[:JOINT_ROWS]
+    table = (rs.randn(5000, CAP["input_encoding_size"]) * 0.1).astype(
+        np.float32)
+    table_rows = rs.permutation(5000)[:2000]
+    tgt_rows = 4 + rs.permutation(NMT["tgt_vocab_size"] - 4)[:2000]
+    teacher = make_nmt_model(Config(**cfg_dict), device="cpu").init_params(
+        torch.Generator().manual_seed(1))
+    return dict(joint_vocab=(cap_rows, src_rows),
+                joint_vocab_y=(table, table_rows, tgt_rows),
+                nmt_teacher=teacher.state_dict())
+
+
+def phase_attention_memory(dev) -> None:
+    """One full-width denseatt training step on the default route with the
+    plain attention in two forms: recomputed in its autograd Function's
+    hand-written backward (the port) and called directly (the form before
+    the repair), in four turns of 3 steps in mirrored order (host walls
+    vary too much for one turn). For each: the bytes kept for the backward
+    (the distinct storages of the tensors autograd saves), the peak device
+    memory and the step wall; then one attention call at the training
+    shape, forward and backward, per call over 50 calls. The port's form
+    must keep fewer bytes and peak lower than the direct call."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.models import att as am
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(Config(**DTRAIN).finalize())
+    batch = make_train_batch(np.random.RandomState(0), DTRAIN["batch_size"])
+    trainer.train(batch)
+    forms = {"recomputed": am._RecomputedAttend,
+             "direct": types.SimpleNamespace(apply=am._attend)}
+    got = {name: [] for name in forms}
+    try:
+        for name in list(forms) + list(forms)[::-1]:
+            am._RecomputedAttend = forms[name]
+            kept = {}
+
+            def pack(t):
+                st = t.untyped_storage()
+                kept[st.data_ptr()] = st.nbytes()
+                return t
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                trainer.train(batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            for _ in range(3):
+                trainer.train(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3
+            got[name].append((sum(kept.values()) / 1e9, peak, wall))
+    finally:
+        am._RecomputedAttend = forms["recomputed"]
+    del trainer
+
+    # one call at the training shape: [B, N, A] = [50, 196, 512]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, n, a = DTRAIN["batch_size"], N_SLOTS, CAP["att_hid_size"]
+    ins = [torch.randn(shape, generator=gen, device=dev).requires_grad_()
+           for shape in ((a, 1), (1,), (b, n, a), (b, a),
+                         (b, n, CAP["rnn_size"]))]
+    mask = torch.ones((b, n), device=dev)
+    per_call = {name: time_ms(lambda f=form: f.apply(
+        *ins[:4], mask, ins[4]).sum().backward(), iters=50)
+        for name, form in forms.items()}
+
+    def mean(name, i):
+        return statistics.mean(r[i] for r in got[name])
+
+    log(f"denseatt attention ({2 * _T1} calls a training step), kept for the "
+        "backward / peak device memory / step wall, two turns of 3 steps "
+        "each in mirrored order / one call forward + backward at "
+        f"[{b}, {n}, {a}]: " + "; ".join(
+            f"{name} {mean(name, 0):.3f} GB / {mean(name, 1):.3f} GB / "
+            f"{mean(name, 2) * 1e3:.1f} ms ("
+            + ", ".join(f"{r[2] * 1e3:.1f}" for r in got[name])
+            + f") / {per_call[name]:.3f} ms" for name in forms))
+    if not (mean("recomputed", 0) < mean("direct", 0)
+            and mean("recomputed", 1) < mean("direct", 1)):
+        raise AssertionError("the recomputing attention step does not keep "
+                             "less memory")
+
+
+def phase_nmt_train_agreement(dev, joint: bool) -> None:
+    """One training step at full width on two sentences (and, joint, two
+    images), dropout off, SGD at learning rate 1 after the clips, through
+    `Trainer.train` on the card and on the CPU from the same initial
+    weights: the BiLSTM NMT alone, or the joint step with its couplings.
+    The loss must agree within TRAIN_TOL relative and each parameter
+    within TRAIN_TOL * max(1, max|p|), and every parameter that the step
+    changes on the CPU must change on the card (the first such check of the
+    G=4 LSTM cell's gradient)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    base = JOINT_TRAIN if joint else NMT_TRAIN
+    cfg = dict(base, batch_size=2, dropout=0.0, drop_prob_lm=0.0,
+               i2t_optim="sgd", i2t_learning_rate=1.0, nmt_optim="sgd",
+               nmt_learning_rate=1.0)
+    rs = np.random.RandomState(4)
+    batch = make_joint_batch(rs, 2) if joint else make_nmt_batch(rs, 2)
+    kw = joint_trainer_kw(cfg) if joint else {}
+
+    def state(trainer):
+        return {f"{name}.{k}": v.detach().cpu().clone()
+                for name, m in (("i2t", trainer.i2t_model),
+                                ("nmt", trainer.nmt_model)) if m is not None
+                for k, v in m.state_dict().items()}
+
+    got = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        trainer = Trainer(Config(**cfg), device=device, **kw)
+        p0 = state(trainer)
+        out = trainer.train(batch)
+        got[name] = (out, p0, state(trainer))
+    (og, p0g, pg), (oc, p0c, pc) = got["gpu"], got["cpu"]
+    if not all(torch.equal(p0g[k], p0c[k]) for k in p0c):
+        raise AssertionError("card and cpu trainers start from other weights")
+    loss_err = abs(og["total_loss"] - oc["total_loss"]) / abs(oc["total_loss"])
+    worst, worst_key = 0.0, None
+    for k, want in pc.items():
+        e = (pg[k] - want).abs().max().item() / max(1.0,
+                                                    want.abs().max().item())
+        if e > worst:
+            worst, worst_key = e, k
+    cpu_moved = [k for k in pc if not torch.equal(pc[k], p0c[k])]
+    frozen = [k for k in cpu_moved if torch.equal(pg[k], p0g[k])]
+    still = sorted(set(pc) - set(cpu_moved))
+    label = "joint denseatt + BiLSTM NMT" if joint else "BiLSTM NMT"
+    terms = ", ".join(f"{k} {og[k]:.6f} vs {oc[k]:.6f}" for k in (
+        "i2t_loss", "nmt_loss", "wemb_loss", "wemb_y_loss", "nmt_kld")
+        if k in oc)
+    log(f"training agreement [{label}]: card vs cpu, one step on 2, dropout "
+        f"0: loss {og['total_loss']:.6f} vs {oc['total_loss']:.6f} (relative "
+        f"{loss_err:.3g}; {terms}); updated parameters max|diff| / max(1, "
+        f"max|p|) {worst:.3g} at {worst_key} (tol {TRAIN_TOL}); the step "
+        f"changes {len(cpu_moved)} of {len(pc)} parameters on the cpu, "
+        f"{len(cpu_moved) - len(frozen)} of them on the card too; unchanged "
+        f"on the cpu: {', '.join(still) or 'none'}")
+    if frozen:
+        raise AssertionError(f"parameters that move on the cpu stay put on "
+                             f"the card: {frozen}")
+    if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
+        raise AssertionError(f"card and cpu {label} training steps disagree")
+
+
 def _greedy_steps(seq) -> int:
     """Decode steps a greedy batch ran: the loop stops after the step in
     which the last row emitted EOS (0)."""
@@ -2071,12 +2628,7 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
 
     # beam 5 through the LSTM pivot, BEAMS_KERNEL against the default route
     c2n = torch.as_tensor(cap2nmt, device=dev)
-    calls = [0]
-    step = cap.step
-
-    def counting_step(*a, **kw):
-        calls[0] += 1
-        return step(*a, **kw)
+    calls = {"cap": 0}
 
     def pivot():
         return pivot_translate(cap, nmt, f, c2n, cap_beam=CAP_BEAM,
@@ -2091,8 +2643,8 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
                 pivot()
                 torch.cuda.synchronize()
                 aak.beams_launches = 0
-                calls[0] = 0
-                cap.step = counting_step
+                calls["cap"] = 0
+                _count_calls(cap, "step", calls, "cap")
                 try:
                     t0 = time.perf_counter()
                     zh, _, _ = pivot()
@@ -2103,17 +2655,17 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
                 n_beams = aak.beams_launches
         finally:
             _att_flags(**old)
-        want = 2 * calls[0] if flags else 0
+        want = 2 * calls["cap"] if flags else 0
         if n_beams != want:
             raise AssertionError(f"beam 5 [{label}]: additive_attention_beams "
-                                 f"launched {n_beams} times in {calls[0]} "
+                                 f"launched {n_beams} times in {calls['cap']} "
                                  f"caption steps; expected {want}")
         if flags:
             launches["additive_attention_beams"] = n_beams
         log(f"denseatt beam {CAP_BEAM} [{label}]: batch-{BENCH_BATCH} "
             f"pivot_translate host wall {beam_wall[label] * 1e3:.1f} ms "
             f"(default route {beam_wall['default'] * 1e3:.1f} ms), "
-            f"{calls[0]} caption steps; additive_attention_beams launches "
+            f"{calls['cap']} caption steps; additive_attention_beams launches "
             f"{n_beams}")
 
     # four images against the CPU on each route
@@ -2216,19 +2768,31 @@ def main() -> int:
         transformer_decode as tdk)
 
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     phase_device()
     phase_build()
+    mark("build")
     kernels = phase_kernels(dev)
+    kernels.update(phase_chunked_topk(dev))
     kernels.update(phase_att_kernels(dev, kernels["lstm_cell"]))
     kernels.update(phase_tfd_kernels(dev))
     kernels.update(phase_train_kernels(dev))
     kernels.update(phase_layer_kernels(dev))
+    mark("kernels vs plain")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                          {"lstm_cell": (lk, "launches"),
                           "row_topk": (tk, "launches")}, "lstm pivot")
     phase_agreement(dev, cap, nmt, cap2nmt)
+    mark("lstm pivot")
+    counts["chunked_topk"] = phase_wide_beams(dev, cap, nmt, cap2nmt)
+    mark("wide beams")
     dense_counts = phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt)
+    mark("denseatt decode")
     del cap, nmt
     tcap, tnmt = build_transformer_models(dev)
     tcounts = phase_slice(dev, tcap, tnmt, zh_vocab, tgt_itos, cap2nmt,
@@ -2237,6 +2801,9 @@ def main() -> int:
                           "transformer pivot")
     layer_launches = phase_layer_route(dev, tcap)
     phase_agreement_transformer(dev, tcap, tnmt, cap2nmt)
+    mark("transformer pivot")
+    phase_wide_transformer_nmt(dev, tnmt)
+    mark("transformer NMT beam 32")
     del tcap, tnmt
     counters = {"mha_train_fwd": (mhk, "fwd_launches"),
                 "mha_train_bwd": (mhk, "bwd_launches"),
@@ -2253,6 +2820,7 @@ def main() -> int:
         for route, (_, wall, busy) in zip(TRAIN_ROUTES, runs)))
     phase_train_agreement(dev, True, False)
     phase_train_agreement(dev, True, True)
+    mark("transformer training")
     dense_counters = {"lstm_cell": (lk, "launches"),
                       "additive_attention": (aak, "launches")}
     dense_runs = [phase_train(route, dense_counters, detail=i == 0,
@@ -2267,6 +2835,36 @@ def main() -> int:
                                                       dense_runs)))
     phase_dense_train_agreement(dev, False)
     phase_dense_train_agreement(dev, True)
+    mark("denseatt training")
+    # NMT training: the BiLSTM NMT, the joint step, the transformer NMT
+    cells = {"lstm_cell": (lk, "launches")}
+    nmt_runs = [
+        phase_train(NMT_ROUTES[0], cells, detail=False, cfg_dict=NMT_TRAIN,
+                    set_flags=_train_kernel_flag, kernel_names=DENSE_KERNELS,
+                    model="BiLSTM NMT", make_batch=make_nmt_batch),
+        phase_train(JOINT_ROUTES[0], cells, detail=False,
+                    cfg_dict=JOINT_TRAIN, set_flags=_train_kernel_flag,
+                    kernel_names=DENSE_KERNELS,
+                    model="denseatt + BiLSTM NMT",
+                    make_batch=make_joint_batch,
+                    trainer_kw=joint_trainer_kw(JOINT_TRAIN)),
+        phase_train(TNMT_ROUTES[0], counters, detail=False,
+                    cfg_dict=TNMT_TRAIN, model="transformer NMT",
+                    make_batch=make_nmt_batch)]
+    log("NMT training, step wall mean / device busy: " + "; ".join(
+        f"{route[0]} {wall * 1e3:.1f} ms / "
+        + (f"{busy:.1f} ms" if busy is not None else "not measured")
+        for route, (_, wall, busy) in zip(
+            NMT_ROUTES + JOINT_ROUTES + TNMT_ROUTES, nmt_runs)))
+    mark("NMT and joint training")
+    phase_attention_memory(dev)
+    mark("attention memory")
+    phase_nmt_train_agreement(dev, joint=False)
+    phase_nmt_train_agreement(dev, joint=True)
+    mark("NMT and joint card vs cpu")
+    log("phase seconds: " + ", ".join(
+        f"{name} {t - t0:.1f}"
+        for (_, t0), (name, t) in zip(marks, marks[1:])))
     dense_counts["additive_attention"] = dense_runs[1][0]["additive_attention"]
     # each training kernel's launches on the route that runs it: the default
     # route, and for the decoder-layer kernel the whole-layer route

@@ -200,8 +200,8 @@ SHAPES = [(50, 196, 512, 512), (B, N, A, D)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,a,d", SHAPES, ids=["full", "ragged"])
-@pytest.mark.parametrize("k", [None, 3, 5, 16], ids=["single", "K3", "K5",
-                                                     "K16"])
+@pytest.mark.parametrize("k", [None, 3, 5, 16, 20, 40],
+                         ids=["single", "K3", "K5", "K16", "K20", "K40"])
 def test_cuda_attention_matches_plain(cuda_dev, b, n, a, d, k):
     torch.backends.cuda.matmul.allow_tf32 = False
     args = [x.to(cuda_dev) for x in _t(_attn_inputs(8, b, n, a, d, k))]

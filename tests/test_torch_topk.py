@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
 from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
 from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+from unpaired_image_captioning_tpu_torch.ops import topk as ot
 from unpaired_image_captioning_tpu_torch.ops.topk import row_topk
 
 torch.set_num_threads(1)
@@ -93,9 +95,26 @@ def test_cuda_row_topk_matches_plain(cuda_dev, r, v, k):
 
 
 @pytest.mark.cuda
-def test_cuda_row_topk_rejects_large_k(cuda_dev):
-    with pytest.raises(ValueError, match="ROADMAP B3"):
-        tk.row_topk(torch.zeros((2, 100), device=cuda_dev), 17)
+def test_cuda_row_topk_routes(cuda_dev):
+    """k <= 16 launches the row kernel, 16 < k <= 64 over wide enough rows
+    the chunked kernel, anything else the counted stable sort; each equals
+    the stable sort (over the clamped row on the chunked route)."""
+    x = torch.randn((40, 8571), device=cuda_dev)
+    x[:4, :300] = float("-inf")
+    for k, route in ((15, "row_topk"), (32, "chunked_topk"), (34, "sort"),
+                     (40, "sort"), (65, "sort")):
+        n = (tk.launches, ck.launches, ot.sort_calls)
+        v, i = ot.row_topk(x, k)
+        grew = tuple(b - a for a, b in zip(
+            n, (tk.launches, ck.launches, ot.sort_calls)))
+        assert grew == {"row_topk": (1, 0, 0), "chunked_topk": (0, 1, 0),
+                        "sort": (0, 0, 1)}[route], k
+        plain = (ck.chunked_topk_plain if route == "chunked_topk"
+                 else tk.row_topk_plain)
+        pv, pi = plain(x, k)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+    with pytest.raises(ValueError, match="domain"):
+        ck.chunked_topk(torch.zeros((2, 4000), device=cuda_dev), 17)
 
 
 @pytest.mark.cuda

@@ -132,3 +132,82 @@ def test_scheduled_sampling_trains():
     out = [tr.train(_batch(2)) for _ in range(3)]
     assert out[0]["ss_prob"] == pytest.approx(0.1)
     assert all(np.isfinite(o["total_loss"]) for o in out)
+
+
+def test_plain_attention_is_checkpointed():
+    """The plain single-query attention keeps no [B, N, A] tensor of its
+    own for the backward (its tanh is recomputed in the backward, as under
+    the JAX package's jax.checkpoint; the p_att input itself is kept), and
+    its gradients equal those of the same computation without the
+    recompute, which does keep one."""
+    from unpaired_image_captioning_tpu_torch.models.base import init_module
+
+    b, n, a, d, h = 3, 7, 10, 6, 5
+    p = tatt.attention_init(h, a)
+    init_module(p, torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(3)
+    hq, p_att, emb = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                      for s in ((b, h), (b, n, a), (b, n, d)))
+    masks = torch.ones((b, n))
+    masks[1, 5:] = 0.0
+    got = {}
+    for route in ("checkpointed", "plain"):
+        ins = [t.clone().requires_grad_() for t in (hq, p_att, emb)]
+        p_ptr = ins[1].data_ptr()
+        shapes = []
+
+        def pack(t):
+            if tuple(t.shape) == (b, n, a) and t.data_ptr() != p_ptr:
+                shapes.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            if route == "checkpointed":
+                out = tatt.attention_apply(p, ins[0], ins[2], ins[1], masks,
+                                           training=True)
+            else:
+                att_h = ins[0] @ p["h2att"].w + p["h2att"].b
+                out = tatt._attend(p["alpha_net"].w, p["alpha_net"].b,
+                                   ins[1], att_h, masks, ins[2])
+        weights = [p["h2att"].w, p["alpha_net"].w, p["alpha_net"].b]
+        grads = torch.autograd.grad((out * out).sum(), ins + weights)
+        got[route] = (out.detach(), grads, bool(shapes))
+    (out_c, g_c, kept_c), (out_p, g_p, kept_p) = (got["checkpointed"],
+                                                  got["plain"])
+    assert not kept_c and kept_p
+    torch.testing.assert_close(out_c, out_p, rtol=0, atol=0)
+    for gc, gp in zip(g_c, g_p):
+        torch.testing.assert_close(gc, gp, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("masks", ["none", "all_masked_row"])
+def test_recomputed_attention_backward_is_autograds(masks):
+    """The hand-written backward of the recomputing attention gives the
+    gradients autograd gives for the direct call, to the bit, with no mask
+    and with a row whose mask is all zeros (the clamped denominator)."""
+    from unpaired_image_captioning_tpu_torch.models.base import init_module
+
+    b, n, a, d, h = 4, 9, 12, 8, 6
+    p = tatt.attention_init(h, a)
+    init_module(p, torch.Generator().manual_seed(1))
+    rs = np.random.RandomState(5)
+    hq, p_att, emb = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                      for s in ((b, h), (b, n, a), (b, n, d)))
+    mask = None
+    if masks == "all_masked_row":
+        mask = torch.ones((b, n))
+        mask[0, 4:] = 0.0
+        mask[2] = 0.0
+    got = []
+    for fn in (tatt._RecomputedAttend.apply, tatt._attend):
+        ins = [t.clone().requires_grad_() for t in (hq, p_att, emb)]
+        att_h = ins[0] @ p["h2att"].w + p["h2att"].b
+        out = fn(p["alpha_net"].w, p["alpha_net"].b, ins[1], att_h, mask,
+                 ins[2])
+        weights = [p["h2att"].w, p["alpha_net"].w, p["alpha_net"].b]
+        got.append((out.detach(), torch.autograd.grad(
+            (out * out).sum(), ins + weights)))
+    (out_r, g_r), (out_d, g_d) = got
+    torch.testing.assert_close(out_r, out_d, rtol=0, atol=0)
+    for gr, gd in zip(g_r, g_d):
+        torch.testing.assert_close(gr, gd, rtol=0, atol=0)

@@ -132,9 +132,12 @@ def test_unported_branches_raise():
     for fn in (tr.save, tr.load, tr.eval):
         with pytest.raises(NotImplementedError, match="A9"):
             fn()
-    tr.cfg.nmt_train_flag = True
-    with pytest.raises(NotImplementedError, match="A7"):
-        tr.train(_batch())
+    # NMT training is ported; its pretrained word vectors (read from
+    # files) are not
+    with pytest.raises(NotImplementedError, match="A9"):
+        Trainer(TConfig(**CFG, nmt_src_vocab_size=9, nmt_tgt_vocab_size=9,
+                        nmt_train_flag=True, pre_word_vecs_enc="emb.npy"),
+                device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -2,7 +2,7 @@
 // of unpaired_image_captioning_tpu/ops/attention.py:
 //
 //   _fused_attention_kernel        one query per image   (additive_attention_f32, K = 1)
-//   _fused_attention_beams_kernel  K beam queries        (additive_attention_f32, K <= 16)
+//   _fused_attention_beams_kernel  K beam queries        (additive_attention_f32, any K)
 //   _att_lstm_att_kernel           att1 -> lstm1 -> att2 (att_lstm_att_f32)
 //
 // For image b and query k (q [B, K, A], alpha [A], mask [B, N]):
@@ -23,7 +23,9 @@
 //   1. the K queries and alpha go to shared memory; each warp takes slots n
 //      and reduces over a with float4 loads of the p_att row, accumulating
 //      all K scores from the one row it read (K is a template bucket 1, 2,
-//      4, 8 or 16, so the K accumulators stay in registers);
+//      4, 8 or 16, so the K accumulators stay in registers; a beam wider
+//      than 16 is split into groups of 16 queries, one block each along the
+//      grid's y, so each group reads the image's memory once);
 //   2. one warp per query: max, exp, mask and renormalisation over N, the
 //      weights left in shared memory (K * N floats);
 //   3. threads run over float4 columns of D (coalesced reads of each emb
@@ -57,7 +59,7 @@
 // the port's fused cell (its gates never reach device memory).
 //
 // Requirements (the wrappers check them): A, D and H multiples of 4, every
-// pointer 16-byte aligned, K <= 16.
+// pointer 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +77,7 @@ namespace {
 
 constexpr int ATT_THREADS = 512;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int MAX_BEAMS = 16;
+constexpr int BEAM_GROUP = 16;    // queries a block takes
 constexpr size_t SMEM_SOFT_CAP = 96 * 1024;    // partial sums give way above
 constexpr size_t SMEM_MAX = 227 * 1024;
 
@@ -120,14 +122,15 @@ additive_attention_kernel(AttArgs p) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
-  const int N = p.N, A = p.A, D = p.D, K = p.K;
+  const int k0 = blockIdx.y * BEAM_GROUP;  // this block's group of queries
+  const int N = p.N, A = p.A, D = p.D, K = min(p.K - k0, BEAM_GROUP);
   const int A4 = A / 4, D4 = D / 4;
   float* q_s = smem;
   float* alpha_s = q_s + (size_t)K * A;
   float* w_s = alpha_s + A;
   float* part_s = w_s + ((size_t)K * N + 3) / 4 * 4;
 
-  const float* qb = p.q + (size_t)b * K * A;
+  const float* qb = p.q + ((size_t)b * p.K + k0) * A;
   for (int i = tid; i < K * A; i += ATT_THREADS) q_s[i] = qb[i];
   for (int i = tid; i < A; i += ATT_THREADS) alpha_s[i] = p.alpha[i];
   __syncthreads();
@@ -181,7 +184,7 @@ additive_attention_kernel(AttArgs p) {
   // 3. the weighted sums: float4 columns over threads, slots over `parts`
   const float* eb = p.emb + (size_t)b * N * D;
   const int parts = p.parts;
-  float* ob = p.out + (size_t)b * p.ldo;
+  float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D;
   for (int slot = tid; slot < D4 * parts; slot += ATT_THREADS) {
     const int c4 = slot % D4, part = slot / D4;
     float4 acc[KB];
@@ -229,36 +232,38 @@ additive_attention_kernel(AttArgs p) {
 }
 
 template <int KB>
-int launch_bucket(const AttArgs& p, int B, size_t smem, cudaStream_t st) {
+int launch_bucket(const AttArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         additive_attention_kernel<KB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  additive_attention_kernel<KB><<<B, ATT_THREADS, smem, st>>>(p);
+  additive_attention_kernel<KB><<<grid, ATT_THREADS, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-// One launch over B images; picks the thread groups over N and the K bucket.
+// One launch over B images and the groups of at most BEAM_GROUP queries;
+// picks the thread groups over N and the K bucket of the widest group.
 int launch_attention(AttArgs p, int B, cudaStream_t st) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (p.K < 1 || p.K > MAX_BEAMS || p.N < 1 || p.A % 4 || p.D % 4 ||
-      p.ldo % 4)
+  if (p.K < 1 || p.N < 1 || p.A % 4 || p.D % 4 || p.ldo % 4)
     return (int)cudaErrorInvalidValue;
+  const int kg = p.K < BEAM_GROUP ? p.K : BEAM_GROUP;
+  const dim3 grid(B, (p.K + BEAM_GROUP - 1) / BEAM_GROUP);
   const int d4 = p.D / 4;
   int parts = d4 >= ATT_THREADS ? 1 : ATT_THREADS / d4;
   while (parts > 1 &&
-         att_smem_floats(p.N, p.A, p.D, p.K, parts) * 4 > SMEM_SOFT_CAP)
+         att_smem_floats(p.N, p.A, p.D, kg, parts) * 4 > SMEM_SOFT_CAP)
     --parts;
   p.parts = parts;
-  const size_t smem = att_smem_floats(p.N, p.A, p.D, p.K, parts) * 4;
+  const size_t smem = att_smem_floats(p.N, p.A, p.D, kg, parts) * 4;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (p.K == 1) return launch_bucket<1>(p, B, smem, st);
-  if (p.K <= 2) return launch_bucket<2>(p, B, smem, st);
-  if (p.K <= 4) return launch_bucket<4>(p, B, smem, st);
-  if (p.K <= 8) return launch_bucket<8>(p, B, smem, st);
-  return launch_bucket<16>(p, B, smem, st);
+  if (kg == 1) return launch_bucket<1>(p, grid, smem, st);
+  if (kg <= 2) return launch_bucket<2>(p, grid, smem, st);
+  if (kg <= 4) return launch_bucket<4>(p, grid, smem, st);
+  if (kg <= 8) return launch_bucket<8>(p, grid, smem, st);
+  return launch_bucket<16>(p, grid, smem, st);
 }
 
 // C = (add + acc) + bias: the att2 query's h1 + emb2(att1)

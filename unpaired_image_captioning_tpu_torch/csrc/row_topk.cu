@@ -4,10 +4,10 @@
 //
 //   x [R, V] f32  ->  vals [R, k] f32, idx [R, k] int64
 //
-// Order: element a beats element b iff a.v > b.v, or a.v == b.v and
-// a.i < b.i. So values come out descending and ties go to the lowest index;
-// rows holding -inf return ascending indices among the -inf entries, as
-// lax.top_k does. NaN never beats anything and is never selected.
+// Order (topk.cuh): element a beats element b iff a.v > b.v, or a.v == b.v
+// and a.i < b.i. So values come out descending and ties go to the lowest
+// index; rows holding -inf return ascending indices among the -inf entries,
+// as lax.top_k does. NaN never beats anything and is never selected.
 //
 // Design. One block per row. Each thread scans a strided slice of the row
 // (coalesced: thread t reads t, t + T, ...) and keeps the best KM >= k
@@ -28,17 +28,15 @@
 // k barrier rounds at small R.
 
 #include <cuda_runtime.h>
-#include <climits>
-#include <math_constants.h>
+
+#include "topk.cuh"
 
 namespace {
 
+using uic::beats;
+
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-
-__device__ __forceinline__ bool beats(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
 
 template <int KM>
 __global__ void __launch_bounds__(THREADS)
@@ -52,38 +50,16 @@ row_topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
 
   float lv[KM];
   int li[KM];
-#pragma unroll
-  for (int j = 0; j < KM; ++j) {
-    lv[j] = -CUDART_INF_F;
-    li[j] = INT_MAX;
-  }
-
-  for (int i = threadIdx.x; i < V; i += THREADS) {
-    const float v = xr[i];
-    if (beats(v, i, lv[KM - 1], li[KM - 1])) {
-      lv[KM - 1] = v;
-      li[KM - 1] = i;
-#pragma unroll
-      for (int j = KM - 1; j > 0; --j) {
-        if (beats(lv[j], li[j], lv[j - 1], li[j - 1])) {
-          const float tv = lv[j]; lv[j] = lv[j - 1]; lv[j - 1] = tv;
-          const int ti = li[j]; li[j] = li[j - 1]; li[j - 1] = ti;
-        }
-      }
-    }
-  }
+  uic::list_reset(lv, li);
+  for (int i = threadIdx.x; i < V; i += THREADS)
+    uic::list_insert(lv, li, xr[i], i);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int r = 0; r < k; ++r) {
     float bv = lv[0];
     int bi = li[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
+    uic::warp_best(bv, bi);
     if (lane == 0) { sv[warp] = bv; si[warp] = bi; }
     __syncthreads();
     bv = sv[0];
@@ -96,12 +72,7 @@ row_topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
       vals[(size_t)row * k + r] = bv;
       idx[(size_t)row * k + r] = bi;
     }
-    if (li[0] == bi) {  // indices are unique: exactly one thread pops
-#pragma unroll
-      for (int j = 0; j < KM - 1; ++j) { lv[j] = lv[j + 1]; li[j] = li[j + 1]; }
-      lv[KM - 1] = -CUDART_INF_F;
-      li[KM - 1] = INT_MAX;
-    }
+    if (li[0] == bi) uic::list_pop(lv, li);  // unique indices: one pops
   }
 }
 

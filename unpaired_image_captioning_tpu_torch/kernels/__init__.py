@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version: `lstm_cell` (fused LSTM step), `row_topk` (exact row
-top-k), `transformer_decode` (incremental transformer decoder step),
-`mha_train` (training attention, forward and backward), `ln_train`
-(training LayerNorm, forward and backward), `layer_train` (whole training
-layers) and `additive_attention` (additive attention, one query or K
-beams, and the fused att1 -> lstm1 -> att2 decode step). `build` compiles
-`csrc/*.cu` with nvcc at first use."""
+top-k, k <= 16), `chunked_topk` (exact row top-k, 16 < k <= 64),
+`transformer_decode` (incremental transformer decoder step), `mha_train`
+(training attention, forward and backward), `ln_train` (training
+LayerNorm, forward and backward), `layer_train` (whole training layers)
+and `additive_attention` (additive attention, one query or K beams, and
+the fused att1 -> lstm1 -> att2 decode step). `build` compiles `csrc/*.cu`
+with nvcc at first use."""

@@ -3,8 +3,9 @@
 Replace the TPU kernels of `unpaired_image_captioning_tpu/ops/attention.py`:
 
 - `additive_attention` (`_fused_attention_kernel`): one query per image;
-- `additive_attention_beams` (`_fused_attention_beams_kernel`): K <= 16
-  beam queries per image over its unexpanded memory, read once for all K;
+- `additive_attention_beams` (`_fused_attention_beams_kernel`): K beam
+  queries per image over its unexpanded memory, read once for every group
+  of up to 16 of them (one launch for any K);
 - `fused_att_lstm_att` (`_att_lstm_att_kernel`): att1, the maxout lstm1
   and att2 of a StackAtt / DenseAtt decode step.
 
@@ -27,14 +28,12 @@ import torch
 
 from ..ops.attention import (att_lstm_att_plain, reference_attention,
                              reference_attention_beams)
+from ..ops.autograd import plain_vjp
 from . import build
-from .lstm_cell import plain_vjp
 
 launches = 0          # additive_attention
 beams_launches = 0    # additive_attention_beams
 step_launches = 0     # fused_att_lstm_att
-
-MAX_BEAMS = 16
 
 
 def _check(name: str, dev, tensors: dict) -> None:
@@ -68,9 +67,6 @@ def _attention_fwd(p_att, att_h, alpha, mask, att_emb, beams: bool):
     b, n, a = p_att.shape
     d = att_emb.shape[-1]
     k = att_h.shape[1] if beams else 1
-    if beams and not 1 <= k <= MAX_BEAMS:
-        raise ValueError(f"{name}: {k} beams; the kernel takes 1 to "
-                         f"{MAX_BEAMS}")
     _check(name, p_att.device, {
         "p_att": (p_att, (b, n, a)),
         "att_h": (att_h, (b, k, a) if beams else (b, a)),

@@ -44,6 +44,8 @@ SIGNATURES = {
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, vals, idx, R, V, k, stream
     "row_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
+    # x, vals, idx, R, V, k, stream
+    "chunked_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, anc, w[18] (host
     # array), q, att, h1, attn_h, attn, R, B, S, d, T, d_ff, H, L, stream
     "tfd_stack_step_f32": (_P,) * 15 + (_I,) * 8 + (_P,),

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.autograd import plain_vjp
 from . import build
 
 launches = 0
@@ -82,20 +83,6 @@ def _forward(w, b, x, h, c, maxout: bool):
     build.check(err, "lstm_cell_f32")
     launches += 1
     return h_out, c_out
-
-
-def plain_vjp(plain, saved, needs, grads_out):
-    """Gradients of `plain(*saved)` for the inputs flagged in `needs`,
-    recomputed from the saved inputs (None for the others): the backward of
-    a kernel whose JAX custom VJP differentiates its reference formula."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-        outs = plain(*ins)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        wrt = [t for t, n in zip(ins, needs) if n]
-        got = iter(torch.autograd.grad(outs, wrt, grads_out,
-                                       allow_unused=True))
-    return tuple(next(got) if n else None for n in needs)
 
 
 class _LSTMCell(torch.autograd.Function):

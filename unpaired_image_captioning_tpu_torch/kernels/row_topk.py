@@ -16,7 +16,7 @@ import torch
 
 from . import build
 
-MAX_K = 16   # the kernel's domain; larger k is the chunked route (ROADMAP B3)
+MAX_K = 16   # the kernel's domain; larger k: `ops/topk.py::topk_route`
 
 launches = 0
 
@@ -41,8 +41,8 @@ def row_topk(x: torch.Tensor, k: int):
                          f"got {x.dtype} {tuple(x.shape)}")
     rows, v = x.shape
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"row_topk: k={k} is outside the kernel's 1..{MAX_K};"
-                         " larger k waits for the chunked top-k (ROADMAP B3)")
+        raise ValueError(f"row_topk: k={k} is outside the kernel's 1..{MAX_K}"
+                         "; ops/topk.py routes larger k")
     if k > v:
         raise ValueError(f"row_topk: k={k} exceeds the row length {v}")
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)

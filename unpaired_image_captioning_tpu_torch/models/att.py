@@ -15,8 +15,13 @@ module flags below, read at call time with the JAX package's defaults
 (all off), routes them to the additive-attention kernels
 (`kernels/additive_attention.py`): the device of the tensors then picks
 the kernel (CUDA) or its plain version (CPU). The JAX package's TPU gates
-(`jax.default_backend() == "tpu"`, widths % 128) have no counterpart. The
-other caption families and `use_bn` BatchNorm are ROADMAP A10.
+(`jax.default_backend() == "tpu"`, widths % 128) have no counterpart. When
+a gradient is taken, the plain single-query attention is an autograd
+Function that keeps its inputs and its [B, N] softmax terms, and whose
+backward, written out by hand, recomputes the [B, N, A] tanh once: as
+under the JAX package's `jax.checkpoint`, that tensor is not kept for the
+backward. The other caption families and `use_bn` BatchNorm are ROADMAP
+A10.
 """
 
 from __future__ import annotations
@@ -94,10 +99,70 @@ def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks,
         return aak.additive_attention(
             p_att.contiguous(), att_h.contiguous(), p["alpha_net"].w,
             _mask_or_ones(att_masks, p_att), att_emb.contiguous())
+    args = (p["alpha_net"].w, p["alpha_net"].b, p_att, att_h, att_masks,
+            att_emb)
+    if not torch.is_grad_enabled():
+        return _attend(*args)
+    return _RecomputedAttend.apply(*args)
+
+
+def _attend(alpha_w, alpha_b, p_att, att_h, att_masks, att_emb):
+    """The plain single-query attention: [B, N, A] tanh, scores, masked
+    softmax, weighted sum."""
     dot = torch.tanh(p_att + att_h[:, None, :])                     # [B,N,A]
-    scores = linear(p["alpha_net"], dot)[..., 0]                    # [B,N]
+    scores = (dot @ alpha_w + alpha_b)[..., 0]                      # [B,N]
     weight = masked_softmax(scores, att_masks)
     return torch.einsum("bn,bnd->bd", weight, att_emb)
+
+
+class _RecomputedAttend(torch.autograd.Function):
+    """`_attend` keeping its inputs and its [B, N] softmax terms; the
+    backward recomputes the tanh once and applies the chain rule directly,
+    with no autograd graph, in the order autograd differentiates `_attend`
+    (so the gradients round as the direct call's do). No dropout inside:
+    the recompute is exact."""
+
+    @staticmethod
+    def forward(ctx, alpha_w, alpha_b, p_att, att_h, att_masks, att_emb):
+        dot = torch.tanh(p_att + att_h[:, None, :])
+        scores = (dot @ alpha_w + alpha_b)[..., 0]
+        top = scores.amax(-1, keepdim=True)
+        e = torch.exp(scores - top)
+        e_m = e * att_masks if att_masks is not None else e
+        denom = e_m.sum(-1, keepdim=True)
+        weight = e_m / torch.clamp(denom, min=1e-9)
+        ctx.save_for_backward(alpha_w, p_att, att_h, att_emb, att_masks, e,
+                              denom, scores == top)
+        return torch.einsum("bn,bnd->bd", weight, att_emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        (alpha_w, p_att, att_h, att_emb, masks, e, denom,
+         at_max) = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        e_m = e * masks if masks is not None else e
+        dc = torch.clamp(denom, min=1e-9)
+        weight = e_m / dc
+        g_emb = weight[..., None] * g[:, None, :] if need[5] else None
+        g_weight = torch.bmm(g[:, None, :], att_emb.transpose(1, 2))[:, 0]
+        # weight = e_m / clamp(sum e_m); e_m = exp(scores - amax) * masks
+        g_dc = (-g_weight * (weight / dc)).sum(-1, keepdim=True)
+        g_e = g_weight / dc + g_dc * (denom >= 1e-9)
+        if masks is not None:
+            g_e = g_e * masks
+        g_s = g_e * e
+        g_s = g_s + (-g_s).sum(-1, keepdim=True) / at_max.sum(
+            -1, keepdim=True) * at_max
+        # scores = dot @ alpha_w + alpha_b, dot = tanh(p_att + att_h)
+        b, n, a = p_att.shape
+        g_col = g_s.reshape(b * n, 1)
+        dot = torch.tanh(p_att + att_h[:, None, :])
+        g_w = dot.reshape(b * n, a).t().mm(g_col) if need[0] else None
+        g_b = g_s.sum().reshape(1) if need[1] else None
+        g_pre = torch.ops.aten.tanh_backward(
+            g_col.mm(alpha_w.t()).reshape(b, n, a), dot)
+        g_h = g_pre.sum(1) if need[3] else None
+        return (g_w, g_b, g_pre if need[2] else None, g_h, None, g_emb)
 
 
 def _mlp_embed(p, x, rate, training, generator):

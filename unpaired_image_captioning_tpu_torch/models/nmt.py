@@ -8,13 +8,16 @@ dotprod global attention, the zh->en translator of the pivot pipeline
   the flipped padded sequence and holds its state through the padding;
 - `NMTDecoder`: stacked LSTM with input feed, dotprod attention with a
   softmax transform over unexpanded [B, S] context;
+- `NMTModel.forward`: teacher forcing for training (input feed, dropout
+  from the caller's generator, `truncated_decoder` segments) and
+  `gold_scores`;
 - `NMTModel.translate_batch`: the OpenNMT beam (`onmt_beam_search`) with the
   per-step source-attention argmax recorded for UNK replacement.
 
 Layout: batch-major everywhere ([B, T]). Copy attention, coverage, context
 gates, fertility / constrained transforms, mlp attention, positional
 encoding, source features and shared decoder embeddings are ROADMAP A11;
-the constructors raise for them.
+the constructors raise for them (and take no `remat`, also A11).
 """
 
 from __future__ import annotations
@@ -261,7 +264,8 @@ class NMTModel(nn.Module):
                  position_encoding: bool = False,
                  share_decoder_embeddings: bool = False,
                  copy_attn: bool = False, max_decode_len: int = 100,
-                 beam_size: int = 15, *, device=None):
+                 beam_size: int = 15, truncated_decoder: int = 0, *,
+                 device=None):
         super().__init__()
         for flag, what in ((copy_attn, "copy attention"),
                            (coverage_attn, "coverage attention"),
@@ -276,6 +280,8 @@ class NMTModel(nn.Module):
         self.src_vocab_size, self.tgt_vocab_size = src_vocab_size, tgt_vocab_size
         self.rnn_size = rnn_size
         self.max_decode_len, self.beam_size = max_decode_len, beam_size
+        # truncated-BPTT segment length: no gradient crosses a boundary
+        self.truncated_decoder = truncated_decoder
         self.encoder = NMTEncoder(src_vocab_size, word_vec_size, rnn_size,
                                   layers, brnn, dropout, device=device)
         self.decoder = NMTDecoder(tgt_vocab_size, word_vec_size, rnn_size,
@@ -305,7 +311,9 @@ class NMTModel(nn.Module):
             context_gate=cfg.context_gate,
             position_encoding=cfg.position_encoding,
             share_decoder_embeddings=cfg.share_decoder_embeddings,
-            copy_attn=cfg.copy_attn, device=resolve_device(device))
+            copy_attn=cfg.copy_attn,
+            truncated_decoder=getattr(cfg, "truncated_decoder", 0),
+            device=resolve_device(device))
 
     @property
     def device(self) -> torch.device:
@@ -317,6 +325,47 @@ class NMTModel(nn.Module):
 
     def generator_logits(self, output: torch.Tensor) -> torch.Tensor:
         return linear(self.generator, output)
+
+    def src_embedding(self) -> torch.Tensor:
+        """The source word table (the Weight_Trans coupling point)."""
+        return self.encoder.embeddings.word_lut
+
+    def tgt_embedding(self) -> torch.Tensor:
+        """The target word table (the Weight_Trans_y coupling point)."""
+        return self.decoder.embeddings.word_lut
+
+    def forward(self, src_ids, src_lengths, tgt_ids, *,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Teacher forcing: src_ids [B, S], tgt_ids [B, T] with BOS ...
+        EOS; the decoder reads tgt_ids[:, :-1]. Returns (decoder outputs
+        [B, T-1, rnn], attentions [B, T-1, S]). In training, dropout
+        (between stacked layers and on the attention output) draws from
+        `generator`. As in the JAX package, the decoder's attention takes
+        no source mask here: the encoder's padded positions are zero. With
+        `truncated_decoder` n, the decoder state is detached before every
+        step idx > 0 with idx % n == 0."""
+        context, enc_hidden = self.encoder.apply(
+            src_ids, src_lengths, training=training, generator=generator)
+        dec = self.decoder
+        state = dec.init_state(enc_hidden, context)
+        trunc = self.truncated_decoder
+        outs, attns = [], []
+        for idx in range(tgt_ids.shape[1] - 1):
+            if trunc and idx > 0 and idx % trunc == 0:
+                state = {k: v.detach() for k, v in state.items()}
+            out, attn, state = dec.step(context, state, tgt_ids[:, idx],
+                                        training=training,
+                                        generator=generator)
+            outs.append(out)
+            attns.append(attn)
+        return torch.stack(outs, 1), torch.stack(attns, 1)
+
+    def gold_scores(self, src_ids, src_lengths, tgt_ids) -> torch.Tensor:
+        """Per-sentence log-likelihood of the gold targets tgt_ids [B, T]
+        (BOS ... EOS, PAD-padded): the gathered log-probabilities of
+        tgt_ids[:, 1:], PAD positions zeroed, summed. Returns [B] f32."""
+        return _gold_scores(self, src_ids, src_lengths, tgt_ids)
 
     def translate_batch(self, src_ids, src_lengths, *,
                         beam_size: Optional[int] = None,
@@ -347,3 +396,15 @@ class NMTModel(nn.Module):
             ctx_no_expand=("context", "src_mask"),
             record_aux_from_state=lambda st: st["attn"].argmax(dim=-1))
 
+
+
+def _gold_scores(model, src_ids, src_lengths, tgt_ids) -> torch.Tensor:
+    """Gold scoring shared by both NMT families: teacher-forced outputs,
+    log-softmax of the generator, the gold tokens' log-probabilities with
+    PAD positions zeroed, summed over time."""
+    outs = model.forward(src_ids, src_lengths, tgt_ids)[0]
+    lp = torch.log_softmax(model.generator_logits(outs), dim=-1)
+    gold = tgt_ids[:, 1:].long()
+    tok = torch.gather(lp, -1, gold[..., None])[..., 0]
+    return torch.sum(torch.where(gold != C.PAD, tok, torch.zeros_like(tok)),
+                     dim=-1)

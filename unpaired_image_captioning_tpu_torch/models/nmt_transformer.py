@@ -13,7 +13,15 @@ the plain version on the CPU), with the last layer's mean-head cross-
 attention weights as the UNK-replacement signal. The K/V caches are lazy:
 rows are append-only, written in place by the kernel, and read through the
 beam's ancestry table (`anc`) instead of being reordered each step.
-Inference only: NMT training is ROADMAP A7.
+
+`forward(..., training=True, generator=...)` trains through the caption
+transformer's training routes (`models/transformer.py`: whole encoder
+layers by default, the flags `TRAIN_LAYER_KERNEL` and
+`TRAIN_DEC_LAYER_KERNEL` choosing as there), with the embedding dropout at
+`dropout` and the layers' at `transformer.DROPOUT`. The JAX package sends
+this encoder (d_ff 2048) to its sublayer route, where the TPU's VMEM
+cannot hold the whole layer; the port sends it to the whole-layer kernel.
+Only the dropout stream differs.
 """
 
 from __future__ import annotations
@@ -27,8 +35,8 @@ from torch import nn
 from .. import constants as C
 from ..kernels.transformer_decode import decoder_stack_step
 from ..ops.transformer_decode import pack_stack_weights, src_mask_2d
-from .base import init_module, linear, linear_init, resolve_device
-from .nmt import NMTModel
+from .base import dropout, init_module, linear, linear_init, resolve_device
+from .nmt import NMTModel, _gold_scores
 from .transformer import (LayerNorm, dec_layer_apply, dec_layer_init,
                           enc_layer_apply, enc_layer_init, layer_norm,
                           positional_encoding)
@@ -113,32 +121,44 @@ class TransformerNMTModel(nn.Module):
         x = x * (ids != C.PAD)[..., None].to(x.dtype)
         return x + positional_encoding(ids.shape[-1], d, device=x.device)[None]
 
-    def encode(self, src_ids, lengths):
+    def encode(self, src_ids, lengths, *, training: bool = False,
+               generator: Optional[torch.Generator] = None):
         """Pre-norm encoder stack. Returns (memory [B, S, d], src_mask
         [B, 1, S] bool)."""
-        x = self._embed(self.src_embed, src_ids)
+        x = dropout(self._embed(self.src_embed, src_ids), self.dropout,
+                    training, generator)
         s = src_ids.shape[-1]
         pos = torch.arange(s, device=src_ids.device)
         src_mask = (pos[None, :] < lengths[:, None])[:, None, :]
         for lp in self.enc:
-            x = enc_layer_apply(lp, x, src_mask, self.num_heads)
-        return layer_norm(self.enc_norm, x), src_mask
+            x = enc_layer_apply(lp, x, src_mask, self.num_heads,
+                                training=training, generator=generator)
+        return layer_norm(self.enc_norm, x, training=training), src_mask
 
     def generator_logits(self, output):
         if self.share_decoder_embeddings:
             return output @ self.tgt_embed.T + self.generator.b
         return linear(self.generator, output)
 
+    def src_embedding(self) -> torch.Tensor:
+        """The source word table (the Weight_Trans coupling point)."""
+        return self.src_embed
+
+    def tgt_embedding(self) -> torch.Tensor:
+        """The target word table (the Weight_Trans_y coupling point)."""
+        return self.tgt_embed
+
     def forward(self, src_ids, src_lengths, tgt_ids, *,
-                training: bool = False):
-        """Parallel teacher forcing. Returns (decoder outputs [B, T-1, d],
-        None), as NMTModel.forward."""
-        if training:
-            raise NotImplementedError(
-                "NMT transformer training is not ported yet (ROADMAP A7)")
-        memory, src_mask = self.encode(src_ids, src_lengths)
+                training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Parallel teacher forcing on tgt_ids[:, :-1]. Returns (decoder
+        outputs [B, T-1, d], None), as NMTModel.forward. In training,
+        dropout draws from `generator` (none without one)."""
+        memory, src_mask = self.encode(src_ids, src_lengths,
+                                       training=training, generator=generator)
         tgt_in = tgt_ids[:, :-1]
-        x = self._embed(self.tgt_embed, tgt_in)
+        x = dropout(self._embed(self.tgt_embed, tgt_in), self.dropout,
+                    training, generator)
         pos = torch.arange(tgt_in.shape[-1], device=tgt_ids.device)
         causal = pos[None, :] <= pos[:, None]
         tgt_mask = (tgt_in != C.PAD)[:, None, :] & causal[None]
@@ -146,8 +166,13 @@ class TransformerNMTModel(nn.Module):
             mk = linear(lp["src"]["k"], memory)
             mv = linear(lp["src"]["v"], memory)
             x = dec_layer_apply(lp, x, mk, mv, tgt_mask, src_mask,
-                                self.num_heads)
-        return layer_norm(self.dec_norm, x), None
+                                self.num_heads, training=training,
+                                generator=generator)
+        return layer_norm(self.dec_norm, x, training=training), None
+
+    def gold_scores(self, src_ids, src_lengths, tgt_ids) -> torch.Tensor:
+        """Per-sentence gold log-likelihood, as NMTModel.gold_scores."""
+        return _gold_scores(self, src_ids, src_lengths, tgt_ids)
 
     def make_decoder(self, src_ids, src_lengths, max_len: int):
         """(ctx, state0) of the incremental decode: the cross K/V [L, B, S,

@@ -1,32 +1,52 @@
-"""Trainer: the captioner's XE training step (counterpart of
-`unpaired_image_captioning_tpu/train/trainer.py`).
+"""Trainer: the joint training step of the captioner and the NMT
+(counterpart of `unpaired_image_captioning_tpu/train/trainer.py`).
 
-One `train(batch)` step, as the JAX `Trainer.train` runs its XE branch:
-the captioner's teacher-forcing forward in training mode (dropout, and the
-scheduled-sampling coins and draws once the schedule leaves 0, from the
-trainer's `torch.Generator` on the device), `language_model_loss` over
-labels[:, 1:], one backward over the summed loss, then the i2t transform
-(`train/optimizer.py`: clip, method, weight decay) and `p -= lr * u`. The
-learning rate, the scheduled-sampling probability and the epoch counters
-live on the host. A run of `max_nan_steps` non-finite losses in a row
-raises.
+One `train(batch)` step, as the JAX `Trainer.train` runs its XE branch,
+sums into one total and takes one backward over it:
+
+- the captioner's XE loss: its teacher-forcing forward in training mode
+  (dropout, and the scheduled-sampling coins and draws once the schedule
+  leaves 0), `language_model_loss` over labels[:, 1:];
+- with `nmt_train_flag`, the NMT loss on `batch["nmt"]` = {src, tgt,
+  lengths}: the NMT's teacher-forcing forward in training mode and
+  `nmt_loss` with `cfg.label_smoothing`, with ppl / accuracy / word
+  statistics;
+- Weight_Trans, when the trainer holds `joint_vocab` = (captioner rows, NMT
+  source rows) and a captioner: the MSE between the captioner's word
+  embedding and the NMT's source embedding on those rows;
+- KLD against the frozen teacher `nmt_teacher` (a state dict of the NMT's
+  parameters) when `nmt_kld_train_flag` is set;
+- Weight_Trans_y, when the trainer holds `joint_vocab_y` = (a frozen
+  English table [V, D], its rows, NMT target rows): the MSE between the
+  NMT's target embedding and that table, which gets no gradient.
+
+Then each model's transform (`train/optimizer.py`: clip, method, weight
+decay) and `p -= lr * u`: the captioner's at `i2t_lr(epoch)`, the NMT's
+(`DualOptim.nmt_tx`, clipped at `nmt_max_grad_norm`) at
+`nmt_lr(epoch_nmt)`. A parameter without a gradient takes zeros, as JAX's
+autodiff gives an unused parameter. Dropout and the sampling draws come
+from the trainer's `torch.Generator` on the device; learning rates, the
+scheduled-sampling probability and the epoch counters live on the host. A
+run of `max_nan_steps` non-finite losses in a row raises.
 
 Not ported yet, each raising `NotImplementedError`: SCST (`sc_flag`,
-ROADMAP A8), the NMT branch and the joint losses (`nmt_train_flag`, A7),
+ROADMAP A8), pretrained NMT word vectors (`pre_word_vecs_*`, A9),
 checkpoints and eval (`save` / `load` / `eval`, A9) and `use_bn` (A10,
 raised by the model).
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import models as model_zoo
-from ..losses.criterion import language_model_loss
+from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
+                                weight_trans_loss)
 from ..models.base import Features, resolve_device
 from ..models.nmt_transformer import make_nmt_model
 from ..models.transformer import TransformerModel
@@ -34,10 +54,13 @@ from .optimizer import DualOptim
 
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
                "masks")
+_NMT_KEYS = ("src", "tgt", "lengths")
 
 
 class Trainer:
-    def __init__(self, cfg, *, device="cuda"):
+    def __init__(self, cfg, *, device="cuda", joint_vocab=None,
+                 joint_vocab_y=None,
+                 nmt_teacher: Optional[Dict[str, Any]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         init = torch.Generator().manual_seed(cfg.seed)
@@ -46,6 +69,32 @@ class Trainer:
         self.nmt_model = (make_nmt_model(cfg, device=self.device)
                           .init_params(init)
                           if getattr(cfg, "nmt_src_vocab_size", 0) else None)
+        if self.nmt_model is not None and (cfg.pre_word_vecs_enc
+                                           or cfg.pre_word_vecs_dec):
+            raise NotImplementedError("pretrained NMT word vectors are not "
+                                      "ported yet (ROADMAP A9)")
+        # the frozen KLD teacher: the NMT with the teacher's parameters
+        self.nmt_teacher = None
+        if nmt_teacher is not None:
+            self.nmt_teacher = copy.deepcopy(self.nmt_model)
+            self.nmt_teacher.load_state_dict(nmt_teacher)
+            self.nmt_teacher.requires_grad_(False)
+
+        def rows(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.long,
+                                   device=self.device)
+
+        # joint-vocabulary rows of Weight_Trans: (captioner, NMT source)
+        self.joint_vocab = (tuple(rows(a) for a in joint_vocab)
+                            if joint_vocab is not None else None)
+        # Weight_Trans_y: (frozen table, its rows, NMT target rows)
+        self.joint_vocab_y = None
+        if joint_vocab_y is not None:
+            table, table_rows, tgt_rows = joint_vocab_y
+            self.joint_vocab_y = (
+                torch.as_tensor(np.asarray(table), dtype=torch.float32,
+                                device=self.device),
+                rows(table_rows), rows(tgt_rows))
         # the dropout stream of the training steps, on the device
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
@@ -64,9 +113,10 @@ class Trainer:
     def _params(model):
         return dict(model.named_parameters()) if model is not None else None
 
-    def _batch(self, data: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def _batch(self, data: Dict[str, Any], keys=_BATCH_KEYS
+               ) -> Dict[str, torch.Tensor]:
         out = {}
-        for k in _BATCH_KEYS:
+        for k in keys:
             if data.get(k) is None:
                 continue
             v = torch.as_tensor(np.asarray(data[k]))
@@ -75,32 +125,82 @@ class Trainer:
             out[k] = v.to(self.device, non_blocking=True)
         return out
 
+    def _update(self, params, tx, state, lr: float):
+        """One transform step of `params` from their .grad (zeros where
+        there is none); returns the new transform state."""
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in params.items()}
+        upd, state = tx.update(grads, state, params)
+        keys = list(params)
+        torch._foreach_add_([params[k] for k in keys],
+                            [upd[k] for k in keys], alpha=-lr)
+        return state
+
+    def _nmt_terms(self, data, metrics: Dict[str, torch.Tensor]):
+        """The NMT loss and the losses coupled to it; returns their sum."""
+        cfg = self.cfg
+        nb = self._batch(data["nmt"], _NMT_KEYS)
+        src, lengths, tgt = nb["src"].long(), nb["lengths"].long(), \
+            nb["tgt"].long()
+        nmt = self.nmt_model
+        outs, _ = nmt.forward(src, lengths, tgt, training=True,
+                              generator=self.generator)
+        logits = nmt.generator_logits(outs)
+        nmt_l, stats = nmt_loss(logits, tgt[:, 1:],
+                                label_smoothing=cfg.label_smoothing)
+        metrics.update(nmt_loss=nmt_l, nmt_ppl=stats.ppl(),
+                       nmt_acc=stats.accuracy(), nmt_words=stats.n_words)
+        total = nmt_l
+        if self.joint_vocab is not None and self.i2t_model is not None:
+            cap_rows, src_rows = self.joint_vocab
+            wemb = weight_trans_loss(self.i2t_model.embed,
+                                     nmt.src_embedding(), cap_rows, src_rows)
+            metrics["wemb_loss"] = wemb
+            total = total + wemb
+        if cfg.nmt_kld_train_flag and self.nmt_teacher is not None:
+            with torch.no_grad():
+                t_outs, _ = self.nmt_teacher.forward(src, lengths, tgt)
+                t_probs = torch.softmax(
+                    self.nmt_teacher.generator_logits(t_outs), dim=-1)
+            kld = kld_loss(torch.log_softmax(logits, dim=-1), t_probs)
+            metrics["nmt_kld"] = kld
+            total = total + kld
+        if self.joint_vocab_y is not None:
+            table, table_rows, tgt_rows = self.joint_vocab_y
+            wemb_y = weight_trans_loss(nmt.tgt_embedding(), table, tgt_rows,
+                                       table_rows)
+            metrics["wemb_y_loss"] = wemb_y
+            total = total + wemb_y
+        return total
+
     def train(self, data: Dict[str, Any], *, sc_flag: bool = False
               ) -> Dict[str, float]:
-        """One training step on a host batch dict (fc_feats, att_feats,
-        att_masks, labels [B, L] with the leading BOS column, masks [B, L]).
-        Returns host-side metric floats."""
+        """One training step on a host batch dict: fc_feats, att_feats,
+        att_masks, labels [B, L] with the leading BOS column and masks
+        [B, L] for the captioner; "nmt" = {src [B, S], tgt [B, T] (BOS ...
+        EOS, PAD-padded), lengths [B]} for the NMT. Returns host floats."""
         cfg = self.cfg
         if sc_flag:
             raise NotImplementedError("SCST training is not ported yet "
                                       "(ROADMAP A8)")
-        if cfg.nmt_train_flag:
-            raise NotImplementedError("NMT and joint training are not ported "
-                                      "yet (ROADMAP A7)")
         lr_i2t = float(self.optim.i2t_lr(self.epoch))
         lr_nmt = float(self.optim.nmt_lr(self.epoch_nmt))
         ss_prob = float(self.optim.ss_prob(self.epoch))
         metrics: Dict[str, torch.Tensor] = {}
-        total = None
-        if self.i2t_model is not None and cfg.i2t_train_flag:
+        train_i2t = self.i2t_model is not None and cfg.i2t_train_flag
+        train_nmt = self.nmt_model is not None and cfg.nmt_train_flag
+        i2t_params = self._params(self.i2t_model)
+        nmt_params = self._params(self.nmt_model)
+        for params in (i2t_params, nmt_params):
+            for p in (params or {}).values():
+                p.grad = None
+        terms = []
+        if train_i2t:
             batch = self._batch(data)
             feats = Features(fc_feats=batch["fc_feats"],
                              att_feats=batch.get("att_feats"),
                              attri_feats=batch.get("attri_feats"),
                              att_masks=batch.get("att_masks"))
-            params = self._params(self.i2t_model)
-            for p in params.values():
-                p.grad = None
             # the transformer takes no scheduled sampling, as in JAX
             ss = ({} if isinstance(self.i2t_model, TransformerModel)
                   else {"ss_prob": ss_prob})
@@ -110,19 +210,23 @@ class Trainer:
             i2t_l = language_model_loss(out, batch["labels"][:, 1:],
                                         batch["masks"][:, 1:])
             metrics["i2t_loss"] = i2t_l
-            total = i2t_l
-        if total is not None:
+            terms.append(i2t_l)
+        if train_nmt:
+            terms.append(self._nmt_terms(data, metrics))
+        if terms:
+            total = sum(terms[1:], terms[0])
             total.backward()
             with torch.no_grad():
-                grads = {k: (p.grad if p.grad is not None
-                             else torch.zeros_like(p))
-                         for k, p in params.items()}
-                upd, self.optim.i2t_state = self.optim.i2t_tx.update(
-                    grads, self.optim.i2t_state, params)
-                keys = list(params)
-                torch._foreach_add_([params[k] for k in keys],
-                                    [upd[k] for k in keys], alpha=-lr_i2t)
-                for p in params.values():
+                if train_i2t:
+                    self.optim.i2t_state = self._update(
+                        i2t_params, self.optim.i2t_tx, self.optim.i2t_state,
+                        lr_i2t)
+                if train_nmt:
+                    self.optim.nmt_state = self._update(
+                        nmt_params, self.optim.nmt_tx, self.optim.nmt_state,
+                        lr_nmt)
+            for params in (i2t_params, nmt_params):
+                for p in (params or {}).values():
                     p.grad = None
             metrics["total_loss"] = total
         self.optim.nmt_step += 1
