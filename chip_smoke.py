@@ -61,6 +61,20 @@ against the CPU; one step of the BiLSTM NMT and one of the joint step are
 compared with the CPU, every parameter that moves on
 the CPU moving on the card too.
 
+The raw-image path: the image front end (B11) is held against its plain
+version at [16, 480, 640, 3] -> 448 x 448 and at the loader's identity
+size (there bit-equal to the host's `preprocess_images`); 16 seeded uint8
+.npy images of 375 x 500 and 480 x 640 go through `RawImageLoader` (host
+read and nearest resize, uint8 upload, B11, ResNet-101 at 448 with
+converted weights from a generated torchvision state dict) into the LSTM
+pivot; `prepro_feats.main` writes four images' feature files; ResNet-101
+runs on two images on the card and on the CPU with the same weights. The
+blocked LSTM chain (B10) is held against its plain version, forward and
+backward, at the lstm0 fragment's shape (B 50, T 17, D 1024, H 512) for
+G = 5 and G = 4, and against 17 `lstm_cell` steps with autograd; the
+fragment then runs once through `blocked_lstm_chain` with its launch
+counts read.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
 operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
@@ -116,6 +130,8 @@ TFD_TOL = 1e-4
 AGREE_TOL = 1e-3  # card vs CPU over whole f32 models: sums in other orders
 NMT_BOS = 2       # the NMT's BOS id (OpenNMT's Constants)
 TOP_OPS = 12      # device operations listed for each path's batch-50 call
+LEAD_IN = 32      # spin kernels opening each profiler session (see
+LEAD_IN_SEEN = []  # `_profile_device_us`): (recorded, first event) a session
 
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): f32 outside
 # the tensor cores, and device memory
@@ -263,6 +279,22 @@ TOPK_SHAPES = [
     ("k=16", 250, 9488, 16),
 ]
 
+# the raw-image path: 16 images of two sizes -> 448 x 448 -> ResNet-101 ->
+# fc [2048] and att [14 x 14, 2048] (the JAX config's image_size and
+# resnet_depth), then the LSTM pivot
+IMG_SIZE, ATT_SIZE, RAW_BATCH, RAW_TIMED = 448, 14, 16, 3
+RAW_SHAPES = [(375, 500), (480, 640)]
+# B11's checks: a general downscale and the loader's identity size
+IMG_CASES = [("downscale", 16, 480, 640, 448),
+             ("loader identity", 16, 448, 448, 448)]
+IMG_TOL = 1e-4    # max|diff| <= IMG_TOL * max(1, max|plain|): two-tap sums
+# in another order than the dense products
+CONV_KERNEL_WORDS = ("conv", "fprop", "xmma", "implicit", "winograd", "gemm",
+                     "cudnn", "cutlass")
+# B10: the lstm0 fragment (tools/perf/ab_lstm_block.py): B, T, D, H
+CHAIN_SHAPE = (50, 17, 1024, 512)
+CHAIN_TOL = 1e-4  # each output: max|diff| <= CHAIN_TOL * max(1, max|plain|)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -291,7 +323,14 @@ def _profile_device_us(run, attempts: int = 2):
     """Run `run()` under torch.profiler and return, for each CUDA kernel
     name, its device time in microseconds and its launch count. A session
     that records no device event is repeated once; after that the result is
-    None and the caller times with CUDA events instead."""
+    None and the caller times with CUDA events instead.
+
+    Once a process has run many sessions, the profiler loses the first
+    device events of each new one (H100, torch 2.11: the raw-image batch
+    lost its upload and B11). So every session opens with LEAD_IN short
+    spin kernels, which take that loss and are left out of the result;
+    `LEAD_IN_SEEN` keeps how many of them each session recorded and the
+    name of the first other event it recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -300,16 +339,38 @@ def _profile_device_us(run, attempts: int = 2):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
         per_name: dict = {}
+        lead = 0
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                us, n = per_name.get(e.name, (0.0, 0))
-                per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.name:
+                lead += 1
+                continue
+            us, n = per_name.get(e.name, (0.0, 0))
+            per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        LEAD_IN_SEEN.append((lead, next(iter(per_name), "")))
         if per_name:
             return per_name
     return None
+
+
+def log_lead_in() -> None:
+    """How many of the sessions' lead-in events the profiler lost: a session
+    that lost all of them may have lost events of the run it measured."""
+    lost = [LEAD_IN - n for n, _ in LEAD_IN_SEEN]
+    all_lost = [short_name(first)[:40] for n, first in LEAD_IN_SEEN if n == 0]
+    log(f"profiler: {len(lost)} sessions, each opened by {LEAD_IN} spin "
+        f"kernels; lost {sum(lost)} of them, at most {max(lost, default=0)} "
+        f"in one session, none in {lost.count(0)} sessions; sessions that "
+        f"lost all {LEAD_IN}: {len(all_lost)}"
+        + (f" (first events recorded: {', '.join(all_lost)})"
+           if all_lost else ""))
 
 
 def device_ms(fn):
@@ -1609,15 +1670,16 @@ def _layer_weights(gen, dev, keys, d: int, f: int) -> dict:
     return w
 
 
-def _check_each(name: str, names, got, want) -> float:
-    """Per tensor: max|diff| / max(1, max|plain|) <= TRAIN_TOL; returns the
+def _check_each(name: str, names, got, want,
+                tol: float = TRAIN_TOL) -> float:
+    """Per tensor: max|diff| / max(1, max|plain|) <= tol; returns the
     largest."""
     worst = 0.0
     for key, a, b in zip(names, got, want):
         e = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
-        if not e <= TRAIN_TOL:
+        if not e <= tol:
             raise AssertionError(f"{name}: {key} max|diff| / max(1, "
-                                 f"max|plain|) = {e} > {TRAIN_TOL}")
+                                 f"max|plain|) = {e} > {tol}")
         worst = max(worst, e)
     return worst
 
@@ -2744,6 +2806,473 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the raw-image path (B11 -> ResNet-101 -> LSTM pivot) and the blocked LSTM
+# chain (B10)
+# ---------------------------------------------------------------------------
+
+def phase_image_kernel(dev) -> dict:
+    """B11 against its plain version at a general downscale and at the
+    loader's identity size (there bit-equal to the host's
+    `preprocess_images`); F.interpolate as the resize's yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from unpaired_image_captioning_tpu_torch.kernels import image as ik
+    from unpaired_image_captioning_tpu_torch.ops import image as io
+
+    rows, worst = [], 0.0
+    for label, b, h, w, out in IMG_CASES:
+        host = np.random.RandomState(h).randint(
+            0, 256, (b, h, w, 3)).astype(np.uint8)
+        x = torch.from_numpy(host).to(dev)
+
+        def kern():
+            return ik.resize_normalize(x, h_out=out, w_out=out)
+
+        def plain():
+            return io.resize_normalize_plain(x, h_out=out, w_out=out)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = _check_each(f"image_front_end {label}", ["out"], [got], [want],
+                          IMG_TOL)
+        worst = max(worst, err)
+        exact = ""
+        if (h, w) == (out, out):
+            if not np.array_equal(got.cpu().numpy(),
+                                  io.preprocess_images(host)):
+                raise AssertionError("image_front_end at the identity is not "
+                                     "bit-equal to preprocess_images")
+            exact = "; bit-equal to preprocess_images"
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kern, plain,
+                                                    "front_end_kernel")
+        # uint8 read once, f32 written once; 12 operations an output (two
+        # taps in each direction, the normalisation)
+        b_ms, b_by = bound(nbytes(x, got), 12.0 * got.numel())
+        xf = x.permute(0, 3, 1, 2).float().contiguous()
+        lib_ms, lib_how = library_ms(lambda: F.interpolate(
+            xf, size=(out, out), mode="bilinear", align_corners=False,
+            antialias=False))
+        shape = f"[{b}, {h}, {w}, 3] -> {out}x{out}"
+        rows.append(dict(label=label, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms, timing=how,
+                         shape=shape))
+        log(f"kernel image_front_end {shape} ({label}): max|diff| / max(1, "
+            f"max|plain|) {err:.3g} (tol {IMG_TOL}){exact}; {how}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
+            f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}); library: F.interpolate bilinear on f32 NCHW (the "
+            f"resize alone) {lib_ms:.4f} ms ({lib_how})")
+    main = rows[0]
+    return {"image_front_end": {
+        "name": "image_front_end", "route": "cuda",
+        "source": "unpaired_image_captioning_tpu_torch/csrc/image_front_end.cu",
+        "replaces": "unpaired_image_captioning_tpu/ops/image.py:46",
+        "max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library": "F.interpolate(bilinear, align_corners=False, "
+                   "antialias=False) on f32 NCHW: the resize alone",
+        "shape": f"{main['label']}: {main['shape']}",
+        "timing": main["timing"], "shapes": rows}}
+
+
+def _chain_inputs(dev, gen, g: int):
+    """The lstm0 fragment's inputs: the fused cell weight [D+H, G*H] and
+    bias, time-major inputs [T, B, D], h0, c0, and loss cotangents for hs
+    and cs."""
+    import torch
+
+    b, t, d, h = CHAIN_SHAPE
+    scale = 1.0 / h ** 0.5
+    w = (torch.rand((d + h, g * h), generator=gen, device=dev) * 2 - 1) * scale
+    bias = (torch.rand((g * h,), generator=gen, device=dev) * 2 - 1) * scale
+    x = torch.randn((t, b, d), generator=gen, device=dev)
+    h0 = torch.randn((b, h), generator=gen, device=dev) * 0.5
+    c0 = torch.randn((b, h), generator=gen, device=dev) * 0.5
+    ch = torch.randn((t, b, h), generator=gen, device=dev)
+    cc = torch.randn((t, b, h), generator=gen, device=dev) * 0.3
+    return w, bias, x, h0, c0, ch, cc
+
+
+def _fragment(w, bias, x, h0, c0, ch, cc, maxout: bool):
+    """The lstm0 fragment through the blocked chain: hoisted x_contrib, the
+    chain, the loss sum(hs * ch) + sum(cs * cc) and its backward. Returns
+    (hs, cs, grads of w, bias, x, h0, c0)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+
+    leaves = [t.detach().requires_grad_() for t in (w, bias, x, h0, c0)]
+    lw, lbias, lx, lh0, lc0 = leaves
+    t, b, d = lx.shape
+    xc = (lx.reshape(t * b, d) @ lw[:d] + lbias).reshape(t, b, -1)
+    hs, cs = lb.blocked_lstm_chain(xc, lh0, lc0, lw[d:], maxout=maxout)
+    ((hs * ch).sum() + (cs * cc).sum()).backward()
+    return hs.detach(), cs.detach(), [p.grad for p in leaves]
+
+
+def _cell_route(w, bias, x, h0, c0, ch, cc, maxout: bool):
+    """The same fragment as T `lstm_cell` launches with autograd."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels.lstm_cell import (
+        lstm_cell)
+
+    leaves = [t.detach().requires_grad_() for t in (w, bias, x, h0, c0)]
+    lw, lbias, lx, lh0, lc0 = leaves
+    h, c, hs, cs = lh0, lc0, [], []
+    for t in range(lx.shape[0]):
+        h, c = lstm_cell(lw, lbias, lx[t], h, c, maxout=maxout)
+        hs.append(h)
+        cs.append(c)
+    hs, cs = torch.stack(hs), torch.stack(cs)
+    ((hs * ch).sum() + (cs * cc).sum()).backward()
+    return hs.detach(), cs.detach(), [p.grad for p in leaves]
+
+
+def phase_chain_kernels(dev) -> dict:
+    """B10's forward and backward kernels against their plain versions at
+    the lstm0 fragment's shape (B 50, T 17, D 1024, H 512), G = 5 and G = 4,
+    and the whole fragment against T `lstm_cell` launches with autograd."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import build
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+    from unpaired_image_captioning_tpu_torch.ops import lstm_block as lo
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, t, d, h = CHAIN_SHAPE
+    blocks = build.load().lstm_chain_blocks(h)
+    rows = {"fwd": [], "bwd": []}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for maxout in (True, False):
+        g = 5 if maxout else 4
+        w, bias, x, h0, c0, ch, cc = _chain_inputs(dev, gen, g)
+        xc = (x.reshape(t * b, d) @ w[:d] + bias).reshape(t, b, g * h)
+        w_hh = w[d:].contiguous()
+        f0, b0 = lb.fwd_launches, lb.bwd_launches
+        hs, cs, gates = lb.chain_fwd(xc, h0, c0, w_hh, maxout=maxout)
+        dg, dh0, dc0 = lb.chain_bwd(gates, cs, c0, ch, cc, w_hh,
+                                    maxout=maxout)
+        torch.cuda.synchronize()
+        per_call = (lb.fwd_launches - f0, lb.bwd_launches - b0)
+        phs, pcs, pgates = lo.chain_fwd_plain(xc, h0, c0, w_hh, maxout=maxout)
+        pdg, pdh0, pdc0 = lo.chain_bwd_plain(pgates, pcs, c0, ch, cc, w_hh,
+                                             maxout=maxout)
+        hs_prev = torch.cat([h0[None], hs[:-1]]).reshape(-1, h)
+        phs_prev = torch.cat([h0[None], phs[:-1]]).reshape(-1, h)
+        dw = hs_prev.t() @ dg.reshape(-1, g * h)
+        pdw = phs_prev.t() @ pdg.reshape(-1, g * h)
+        tag = f"G={g}"
+        e_f = _check_each(f"lstm_chain {tag} forward", ["hs", "cs", "gates"],
+                          [hs, cs, gates], [phs, pcs, pgates], CHAIN_TOL)
+        e_b = _check_each(f"lstm_chain {tag} backward",
+                          ["dx_contrib", "dh0", "dc0", "dW_h2h"],
+                          [dg, dh0, dc0, dw], [pdg, pdh0, pdc0, pdw],
+                          CHAIN_TOL)
+        # the whole fragment (autograd Function, hoisted matmuls) against
+        # the per-step route: 17 lstm_cell launches with autograd
+        inputs = (w, bias, x, h0, c0, ch, cc)
+        fr = _fragment(*inputs, maxout=maxout)
+        cr = _cell_route(*inputs, maxout=maxout)
+        e_c = _check_each(f"lstm_chain {tag} vs lstm_cell steps",
+                          ["hs", "cs", "dw", "db", "dx", "dh0", "dc0"],
+                          fr[:2] + tuple(fr[2]), cr[:2] + tuple(cr[2]),
+                          CHAIN_TOL)
+        worst["fwd"] = max(worst["fwd"], e_f)
+        worst["bwd"] = max(worst["bwd"], e_b)
+        shape = f"G={g} [T {t}, B {b}, H {h}]"
+        kf, pf, kfw, pfw, how_f = time_pair(
+            lambda: lb.chain_fwd(xc, h0, c0, w_hh, maxout=maxout),
+            lambda: lo.chain_fwd_plain(xc, h0, c0, w_hh, maxout=maxout),
+            "chain_fwd_kernel")
+        kb, pb, kbw, pbw, how_b = time_pair(
+            lambda: lb.chain_bwd(gates, cs, c0, ch, cc, w_hh, maxout=maxout),
+            lambda: lo.chain_bwd_plain(gates, cs, c0, ch, cc, w_hh,
+                                       maxout=maxout),
+            "chain_bwd_kernel")
+        mm = 2.0 * t * b * h * g * h           # h @ W (or dgates @ W^T) per step
+        bf_ms, bf_by = bound(nbytes(xc, h0, c0, w_hh, hs, cs, gates), mm)
+        bb_ms, bb_by = bound(nbytes(gates, cs, c0, ch, cc, w_hh, dg, dh0,
+                                    dc0), mm)
+        lib_ms, lib_msg = None, "none (maxout)"
+        if g == 4:
+            # cuDNN's LSTM over the same T steps, gate blocks permuted from
+            # (i, f, o, g) to (i, f, g, o); it also computes x @ W_ih
+            cols = torch.cat([torch.arange(j * h, (j + 1) * h, device=dev)
+                              for j in (0, 1, 3, 2)])
+            lstm = torch.nn.LSTM(d, h).to(dev)
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(w[:d, cols].t())
+                lstm.weight_hh_l0.copy_(w[d:, cols].t())
+                lstm.bias_ih_l0.copy_(bias[cols])
+                lstm.bias_hh_l0.zero_()
+                lhs, _ = lstm(x, (h0[None], c0[None]))
+                lib_err = (lhs - phs).abs().max().item()
+                lib_ms, lib_how = library_ms(
+                    lambda: lstm(x, (h0[None], c0[None])))
+            lib_msg = (f"cuDNN torch.nn.LSTM over {t} steps, x @ W_ih "
+                       f"included, {lib_ms:.4f} ms ({lib_how}; max|diff| hs "
+                       f"vs plain {lib_err:.3g})")
+        rows["fwd"].append(dict(label="lstm0 fragment", ms=kf,
+                                plain_ms=pf, bound_ms=bf_ms, bound_by=bf_by,
+                                library_ms=lib_ms, timing=how_f, shape=shape))
+        rows["bwd"].append(dict(label="lstm0 fragment", ms=kb,
+                                plain_ms=pb, bound_ms=bb_ms, bound_by=bb_by,
+                                library_ms=None, timing=how_b, shape=shape))
+        log(f"kernel lstm_chain {shape}: {blocks} blocks, launches per chain "
+            f"call fwd {per_call[0]} + bwd {per_call[1]}; max|diff| / max(1, "
+            f"max|plain|) forward {e_f:.3g}, backward (dx_contrib, dh0, dc0, "
+            f"dW_h2h) {e_b:.3g}, fragment vs {t} lstm_cell steps {e_c:.3g} "
+            f"(tol {CHAIN_TOL}); {how_f}: forward kernel {kf:.4f} ms, plain "
+            f"{pf:.4f} ms (per call {kfw:.4f} / {pfw:.4f}), bound "
+            f"{bf_ms:.4f} ms ({bf_by}); backward kernel {kb:.4f} ms, plain "
+            f"{pb:.4f} ms (per call {kbw:.4f} / {pbw:.4f}), bound "
+            f"{bb_ms:.4f} ms ({bb_by}); library: {lib_msg}")
+    rec = {}
+    for key, line in (("fwd", "52"), ("bwd", "120")):
+        main = rows[key][0]
+        rec[f"lstm_chain_{key}"] = {
+            "name": f"lstm_chain_{key}", "route": "cuda",
+            "source": "unpaired_image_captioning_tpu_torch/csrc/lstm_block.cu",
+            "replaces": f"unpaired_image_captioning_tpu/ops/lstm_block.py:{line}",
+            "max_abs_err": worst[key], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": f"{main['label']}: {main['shape']}",
+            "timing": main["timing"], "shapes": rows[key]}
+    return rec
+
+
+def phase_chain_path(dev) -> dict:
+    """B10's path: the lstm0 fragment (maxout) through `blocked_lstm_chain`,
+    forward and backward once, with the launch counts set to 0 just before
+    and read just after."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    inputs = _chain_inputs(dev, gen, 5)
+    lb.fwd_launches = lb.bwd_launches = 0
+    t0 = time.perf_counter()
+    hs, cs, grads = _fragment(*inputs, maxout=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"lstm_chain_fwd": lb.fwd_launches,
+              "lstm_chain_bwd": lb.bwd_launches}
+    if not all(torch.isfinite(g).all() for g in grads + [hs, cs]):
+        raise AssertionError("lstm0 fragment: non-finite output or gradient")
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"the lstm0 fragment never launched {name}")
+    log(f"lstm0 fragment (B 50, T 17, D 1024, H 512, maxout): forward + "
+        f"backward {wall * 1e3:.1f} ms wall; launches " + ", ".join(
+            f"{k} {v}" for k, v in counts.items()))
+    return counts
+
+
+def make_torchvision_resnet(depth: str, seed: int) -> dict:
+    """A torchvision-layout ResNet state dict of random numbers from `seed`:
+    He-scaled convolutions, BatchNorm statistics near the identity."""
+    from unpaired_image_captioning_tpu_torch.models.resnet import BLOCKS
+
+    rng = np.random.default_rng(seed)
+    state = {}
+
+    def normal(shape, std):
+        return rng.standard_normal(shape, np.float32) * np.float32(std)
+
+    def conv(name, cout, cin, k):
+        state[name] = normal((cout, cin, k, k), np.sqrt(2.0 / (cin * k * k)))
+
+    def bn(name, c):
+        state[name + ".weight"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        state[name + ".bias"] = normal((c,), 0.05)
+        state[name + ".running_mean"] = normal((c,), 0.05)
+        state[name + ".running_var"] = rng.uniform(0.8, 1.2, c).astype(
+            np.float32)
+
+    conv("conv1.weight", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for li, n_blocks in enumerate(BLOCKS[depth]):
+        planes = 64 * 2 ** li
+        for b in range(n_blocks):
+            pre = f"layer{li + 1}.{b}"
+            conv(pre + ".conv1.weight", planes, cin, 1)
+            bn(pre + ".bn1", planes)
+            conv(pre + ".conv2.weight", planes, planes, 3)
+            bn(pre + ".bn2", planes)
+            conv(pre + ".conv3.weight", planes * 4, planes, 1)
+            bn(pre + ".bn3", planes * 4)
+            if b == 0:
+                conv(pre + ".downsample.0.weight", planes * 4, cin, 1)
+                bn(pre + ".downsample.1", planes * 4)
+            cin = planes * 4
+    return state
+
+
+def make_image_folder(root: str, n: int) -> list:
+    """n seeded uint8 .npy images, alternating RAW_SHAPES; their paths."""
+    import os
+
+    rs = np.random.RandomState(0)
+    paths = []
+    for i in range(n):
+        h, w = RAW_SHAPES[i % len(RAW_SHAPES)]
+        path = os.path.join(root, f"img{i:03d}.npy")
+        np.save(path, rs.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        paths.append(path)
+    return paths
+
+
+def _is_conv(name: str) -> bool:
+    return any(k in name.lower() for k in CONV_KERNEL_WORDS)
+
+
+def phase_raw_images(dev, cap, nmt, tgt_itos, cap2nmt, resnet_state) -> int:
+    """The raw-image path: RawImageLoader (host read and nearest resize,
+    uint8 upload, B11, ResNet-101) -> the LSTM pivot, then prepro_feats on
+    four images. Returns B11's launches in the loader's timed batches."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.data.raw_images import (
+        RawImageLoader)
+    from unpaired_image_captioning_tpu_torch.kernels import image as ik
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.pivot import pivot_translate
+    from unpaired_image_captioning_tpu_torch.scripts import prepro_feats
+
+    with tempfile.TemporaryDirectory() as root:
+        folder = os.path.join(root, "images")
+        os.makedirs(folder)
+        paths = make_image_folder(folder, RAW_BATCH)
+        loader = RawImageLoader(folder_path=folder, batch_size=RAW_BATCH,
+                                att_size=ATT_SIZE, depth="resnet101",
+                                image_size=IMG_SIZE,
+                                resnet_params=resnet_state, device=dev)
+        loader.get_batch()        # first use of every op (cuDNN plans)
+        torch.cuda.synchronize()
+        ik.launches = 0
+        walls = []
+        for _ in range(RAW_TIMED):
+            t0 = time.perf_counter()
+            batch = loader.get_batch()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = ik.launches
+        if launches <= 0:
+            raise AssertionError("the raw-image path never launched "
+                                 "image_front_end")
+        fc, att = batch["fc_feats"], batch["att_feats"]
+        if (tuple(fc.shape) != (RAW_BATCH, 2048)
+                or tuple(att.shape) != (RAW_BATCH, ATT_SIZE ** 2, 2048)
+                or not (torch.isfinite(fc).all() and torch.isfinite(att).all())):
+            raise AssertionError(f"raw-image features: fc {tuple(fc.shape)}, "
+                                 f"att {tuple(att.shape)} or not finite")
+        wall = statistics.mean(walls)
+        busy, per_name = device_ms(loader.get_batch)
+        msg = "device busy not measured (no profiler data)"
+        if busy is not None:
+            b11 = [(us, k) for n, (us, k) in per_name.items()
+                   if "front_end_kernel" in n]
+            b11_ms = sum(us for us, _ in b11) / 1e3
+            conv = sum(us for n, (us, _) in per_name.items()
+                       if _is_conv(n)) / 1e3
+            msg = (f"device busy {busy:.1f} ms, idle share "
+                   f"{1 - busy / (wall * 1e3):.2f}; of the busy time B11 "
+                   f"{b11_ms:.4f} ms in {sum(k for _, k in b11)} launches "
+                   f"({b11_ms / busy:.5f}), convolutions {conv:.1f} ms "
+                   f"({conv / busy:.2f})")
+        log(f"raw images: get_batch of {RAW_BATCH} images "
+            f"({' and '.join(f'{h}x{w}' for h, w in RAW_SHAPES)} -> "
+            f"{IMG_SIZE}, ResNet-101): {wall * 1e3:.1f} ms mean of "
+            f"{RAW_TIMED} ({', '.join(f'{x * 1e3:.1f}' for x in walls)}), "
+            f"{RAW_BATCH / wall:.1f} images/s; {msg}; image_front_end "
+            f"launches {launches}")
+        top = sorted((per_name or {}).items(), key=lambda kv: -kv[1][0])
+        for name, (us, n) in top[:TOP_OPS]:
+            log(f"raw images: device op {us / 1e3:8.3f} ms {n:6d}x  "
+                f"{name[:90]}")
+
+        feats = Features(fc_feats=fc, att_feats=att,
+                         att_masks=batch["att_masks"])
+        t0 = time.perf_counter()
+        zh, en, _ = pivot_translate(cap, nmt, feats,
+                                    torch.as_tensor(cap2nmt, device=dev),
+                                    cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
+                                    nmt_max_len=NMT_MAX_LEN)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if tuple(en.shape) != (RAW_BATCH, NMT_MAX_LEN) or not (
+                int(en.min()) >= 0 and int(en.max()) < NMT["tgt_vocab_size"]):
+            raise AssertionError(f"raw-image pivot: en {tuple(en.shape)} or "
+                                 "ids out of range")
+        words = [tgt_itos[i] for i in en[0].tolist()]
+        log(f"raw images: pivot_translate (caption beam {CAP_BEAM} -> NMT "
+            f"beam {NMT_BEAM}) of the {RAW_BATCH} images {secs * 1e3:.1f} "
+            f"ms; image 0 ({os.path.basename(batch['infos'][0]['file_path'])}"
+            f") en tokens: {' '.join(words)}")
+
+        listing = os.path.join(root, "images.json")
+        with open(listing, "w") as f:
+            _json.dump({"images": [{"id": 100 + i, "file_path": p}
+                                   for i, p in enumerate(paths[:4])]}, f)
+        out = os.path.join(root, "feats")
+        prepro_feats.main(["--input_json", listing, "--output_dir", out,
+                           "--batch_size", "4"])
+        for i in range(4):
+            fc_i = np.load(os.path.join(out + "_fc", f"{100 + i}.npy"))
+            att_i = np.load(os.path.join(out + "_att",
+                                         f"{100 + i}.npz"))["feat"]
+            if (fc_i.shape != (2048,) or att_i.shape != (ATT_SIZE, ATT_SIZE,
+                                                         2048)
+                    or not (np.isfinite(fc_i).all()
+                            and np.isfinite(att_i).all())):
+                raise AssertionError(f"prepro_feats image {100 + i}: fc "
+                                     f"{fc_i.shape}, att {att_i.shape}")
+        log("raw images: prepro_feats wrote 4 fc [2048] .npy and att "
+            f"[{ATT_SIZE}, {ATT_SIZE}, 2048] .npz files")
+    return launches
+
+
+def phase_resnet_agreement(dev, resnet_state) -> None:
+    """ResNet-101 on two images at 448, the same converted weights on the
+    card and on the CPU: fc and att within AGREE_TOL * max(1, max|cpu|)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import image as ik
+    from unpaired_image_captioning_tpu_torch.models.resnet import ResNet
+
+    imgs = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (2, IMG_SIZE, IMG_SIZE, 3)).astype(np.uint8))
+    x = ik.resize_normalize(imgs, h_out=IMG_SIZE, w_out=IMG_SIZE)
+    res = {}
+    for where in ("cpu", dev):
+        net = ResNet("resnet101", device=where)
+        net.load_state_dict(resnet_state)
+        with torch.no_grad():
+            fc, att = net.my_resnet(x.to(where), att_size=ATT_SIZE)
+        res[str(where)] = (fc.cpu(), att.cpu())
+    (cfc, catt), (gfc, gatt) = res["cpu"], res[str(dev)]
+    errs = []
+    for name, g, c in (("fc", gfc, cfc), ("att", gatt, catt)):
+        err = (g - c).abs().max().item() / max(1.0, c.abs().max().item())
+        if not err <= AGREE_TOL:
+            raise AssertionError(f"ResNet-101 card vs cpu: {name} max|diff| "
+                                 f"/ max(1, max|cpu|) {err} > {AGREE_TOL}")
+        errs.append(f"{name} {err:.3g} (max|cpu| {c.abs().max().item():.4g})")
+    log("resnet agreement: ResNet-101 at 448 on 2 images, card vs cpu, "
+        "max|diff| / max(1, max|cpu|): " + ", ".join(errs))
+
+
 def main() -> int:
     import torch
 
@@ -2766,6 +3295,8 @@ def main() -> int:
     from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
     from unpaired_image_captioning_tpu_torch.kernels import (
         transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models.resnet import (
+        convert_torchvision_state_dict)
 
     t_start = time.perf_counter()
     marks = [("start", t_start)]
@@ -2782,6 +3313,8 @@ def main() -> int:
     kernels.update(phase_tfd_kernels(dev))
     kernels.update(phase_train_kernels(dev))
     kernels.update(phase_layer_kernels(dev))
+    kernels.update(phase_image_kernel(dev))
+    kernels.update(phase_chain_kernels(dev))
     mark("kernels vs plain")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
@@ -2789,6 +3322,15 @@ def main() -> int:
                           "row_topk": (tk, "launches")}, "lstm pivot")
     phase_agreement(dev, cap, nmt, cap2nmt)
     mark("lstm pivot")
+    resnet_state = convert_torchvision_state_dict(
+        make_torchvision_resnet("resnet101", 0), "resnet101")
+    counts["image_front_end"] = phase_raw_images(dev, cap, nmt, tgt_itos,
+                                                 cap2nmt, resnet_state)
+    phase_resnet_agreement(dev, resnet_state)
+    del resnet_state
+    mark("raw-image path")
+    counts.update(phase_chain_path(dev))
+    mark("lstm0 fragment")
     counts["chunked_topk"] = phase_wide_beams(dev, cap, nmt, cap2nmt)
     mark("wide beams")
     dense_counts = phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt)
@@ -2862,6 +3404,7 @@ def main() -> int:
     phase_nmt_train_agreement(dev, joint=False)
     phase_nmt_train_agreement(dev, joint=True)
     mark("NMT and joint card vs cpu")
+    log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
         for (_, t0), (name, t) in zip(marks, marks[1:])))

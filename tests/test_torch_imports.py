@@ -15,10 +15,13 @@ import torch
 
 from unpaired_image_captioning_tpu_torch import models as tmodels
 from unpaired_image_captioning_tpu_torch.config import Config
+from unpaired_image_captioning_tpu_torch.data.raw_images import RawImageLoader
 from unpaired_image_captioning_tpu_torch.models import base
 from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
 from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
     TransformerNMTModel, make_nmt_model)
+from unpaired_image_captioning_tpu_torch.models.resnet import ResNet
+from unpaired_image_captioning_tpu_torch.scripts import prepro_feats
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "unpaired_image_captioning_tpu_torch").rglob("*.py")) \
@@ -59,3 +62,24 @@ def test_entry_points_default_to_the_card(build, monkeypatch):
     assert model.device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert base.resolve_device() == torch.device("cuda")
+
+
+@pytest.mark.parametrize("build", [
+    lambda dev: ResNet("resnet_tiny", **dev),
+    lambda dev: RawImageLoader(folder_path=".", depth="resnet_tiny", **dev),
+], ids=["resnet", "raw_image_loader"])
+def test_raw_image_path_defaults_to_the_card(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build({})
+    assert build({"device": "cpu"}).device.type == "cpu"
+
+
+def test_prepro_feats_defaults_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    listing = tmp_path / "images.json"
+    listing.write_text('{"images": []}')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepro_feats.main(["--input_json", str(listing), "--output_dir",
+                           str(tmp_path / "f"), "--model", "resnet_tiny"])
+

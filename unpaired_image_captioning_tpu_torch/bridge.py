@@ -11,6 +11,10 @@ is needed.
     model.load_state_dict(params_from_jax(jax_params))
     jax_like_tree = params_to_numpy(model)
 
+The ResNet's conv weights change layout on the way (HWIO -> OIHW):
+
+    resnet.load_state_dict(resnet_state_from_jax(jax_resnet_params))
+
 The optimizer state maps the same way: each part of an optax chain state
 (`ScaleByAdamState(count, mu, nu)`, `TraceState(trace)`, ...) becomes a
 dict of the same field names in the port's `train/optimizer.py`, with the
@@ -75,6 +79,14 @@ def tree_from_flat(flat: dict) -> Any:
             node = node.setdefault(part, {})
         node[leaf] = t.detach().cpu().numpy().copy()
     return _listify(root)
+
+
+def resnet_state_from_jax(tree: Any) -> dict:
+    """The JAX package's ResNet tree (`ResNet.init_params` or
+    `convert_torchvision_state_dict` output; conv weights HWIO) -> the
+    state dict of the port's `models.resnet.ResNet` (conv weights OIHW)."""
+    return {k: (t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t)
+            for k, t in params_from_jax(tree).items()}
 
 
 def params_to_numpy(module: nn.Module) -> dict:

@@ -97,6 +97,14 @@ class Config:
     nmt_src_vocab_size: int = 0           # filled from data
     nmt_tgt_vocab_size: int = 0
 
+    # --- raw-image front end ---
+    # decode captions for an arbitrary folder of images through the
+    # on-the-fly ResNet (ref dataloaderraw.py:25-141, reached from
+    # eval_pivot.py:204-210)
+    image_folder: str = ""
+    image_size: int = 448
+    resnet_depth: str = "resnet101"       # raw-image front end (ref --model)
+
     # --- optimization: general ---
     max_epochs: int = 40
     batch_size: int = 16

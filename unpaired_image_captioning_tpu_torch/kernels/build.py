@@ -76,6 +76,15 @@ SIGNATURES = {
     "additive_attention_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
     # in (host array of 15 inputs), h1, c1, att2, ws, B, N, A, D, H, stream
     "att_lstm_att_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # img, row_idx, row_w, col_idx, col_w, mean, std, out, B, H, W, C, Ho,
+    # Wo, stream
+    "image_front_end_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # x, h0, c0, w, hs, cs, gates, T, B, H, G, stream
+    "lstm_chain_fwd_f32": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, T, B, H, G, stream
+    "lstm_chain_bwd_f32": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # H -> blocks of a chain launch (0: too wide)
+    "lstm_chain_blocks": (_I,),
 }
 
 _lock = threading.Lock()
