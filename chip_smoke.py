@@ -15,10 +15,16 @@ counts are set to 0 just before a path runs and read just after it),
 times a batch-50 `pivot_translate`, runs the captioner's per-layer decode
 route and compares four images against the same models on the CPU.
 
+The LSTM cell is held against its plain version at each of the path's
+shapes (one launch a call); its line before each reading names the tile
+and the cluster size the kernel picked for the shape, and where it splits
+the reduction across a cluster, the same tile without one is timed too.
+
 Then it trains: the training attention, training LayerNorm and
 whole-layer kernels (encoder and decoder layer) are held against their
 plain versions (forward and backward, dropout on, each backward twice bit
-for bit) at the transformer captioner's training shapes, and
+for bit; the attention's forward twice too, with its rows' softmax
+statistics) at the transformer captioner's training shapes, and
 `Trainer.train` trains the full-width transformer captioner (bench.py's
 transformer XE configuration: 6 + 6 layers, d 512, batch 50, Adam) on
 random data from seed 0 on each of its three routes: 2 + 10 steps on the
@@ -178,8 +184,10 @@ MHA_SHAPES = [
 LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
 # every CUDA kernel of csrc/ a training step launches, by name (the
 # whole-layer wrappers launch all of them)
-TRAIN_KERNELS = ("uic::gemm_kernel", "mha_fwd_kernel", "mha_bwd_dq_kernel",
-                 "mha_bwd_dkdv_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+MHA_BWD_KERNELS = ("mha_dsum_kernel", "mha_bwd_dkdv_kernel",
+                   "mha_bwd_dq_kernel")
+TRAIN_KERNELS = ("uic::gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
+                 "ln_fwd_kernel", "ln_bwd_kernel",
                  "ln_bwd_reduce_kernel", "drop_kernel", "colsum_kernel",
                  "sum_splits_kernel")
 
@@ -198,20 +206,24 @@ DENSE_ROUTES = [
     ("TRAIN_KERNEL", (True,), TRAIN_STEPS,
      {"lstm_cell": 3 * _T1, "additive_attention": 2 * _T1}),
 ]
-DENSE_KERNELS = ("lstm_cell_kernel", "additive_attention_kernel")
+# the LSTM cell's kernel (both tile widths are instances of one template)
+LSTM_KERNELS = ("lstm_cell_kernel",)
+DENSE_KERNELS = LSTM_KERNELS + ("additive_attention_kernel",)
 ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
 ATT_BEAMS = (3, 5, 20)  # the K-beam kernel's checks (20: two beam groups)
 # the CUDA kernels of att_lstm_att_f32, and its copy of h0d
-STEP_KERNELS = ("additive_attention_kernel", "lstm_cell_kernel",
-                "uic::gemm_kernel", "Memcpy DtoD")
+STEP_KERNELS = ("additive_attention_kernel", "uic::gemm_kernel",
+                "Memcpy DtoD") + LSTM_KERNELS
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
     ("denseatt lstm0/1/2, beam 5 x 50", 250, 1024, 512, True),
     ("nmt encoder, per direction", 50, 512, 256, False),
     ("nmt decoder, beam 15 x 50", 750, 1024, 512, False),
+    ("denseatt lstm0/1/2 and B9c, batch 50", 50, 1024, 512, True),
     ("ragged", 3, 100, 60, False),
     ("ragged maxout", 3, 100, 60, True),
+    ("ragged, 4-byte copies", 5, 37, 50, True),
 ]
 # (label, B, kb, L, T, S, d, d_ff, lazy anc + want_attn): the decoder step at
 # the transformer pivot's two beams
@@ -223,8 +235,8 @@ TFD_SHAPES = [
 TFD_KERNELS = ("gemm_kernel", "self_attn_kernel", "cross_attn_kernel",
                "head_mean_kernel")
 # every CUDA kernel of csrc/, by name
-HAND_KERNELS = ("lstm_cell_kernel", "row_topk_kernel",
-                "chunked_topk_kernel") + TFD_KERNELS
+HAND_KERNELS = LSTM_KERNELS + ("row_topk_kernel",
+                                "chunked_topk_kernel") + TFD_KERNELS
 # beams wider than 16 (PERF.md §4 row 1 at wider beams): caption beam 20 ->
 # NMT beam 32 through the chunked top-k; NMT beam 40 through the sort route
 WIDE_CAP_BEAM, WIDE_NMT_BEAM, SORT_NMT_BEAM = 20, 32, 40
@@ -486,6 +498,7 @@ def phase_kernels(dev) -> dict:
     kernels' records for the JSON line."""
     import torch
 
+    from unpaired_image_captioning_tpu_torch.kernels import build
     from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
     from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
 
@@ -501,16 +514,53 @@ def phase_kernels(dev) -> dict:
         x = torch.randn((b, d), generator=gen, device=dev)
         h0 = torch.randn((b, h), generator=gen, device=dev)
         c0 = torch.randn((b, h), generator=gen, device=dev)
+        before = lk.launches
         hk, ck = lk.lstm_cell(w, bias, x, h0, c0, maxout=maxout)
+        if lk.launches != before + 1:
+            raise AssertionError(f"lstm_cell {label}: {lk.launches - before}"
+                                 " launches for one call")
         hp, cp = lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=maxout)
         torch.cuda.synchronize()
         err = max((hk - hp).abs().max().item(), (ck - cp).abs().max().item())
         if not err <= LSTM_TOL:
             raise AssertionError(f"lstm_cell {label}: max|diff| {err} > {LSTM_TOL}")
+        # both against the plain version in f64: the kernel's f32 sums
+        # against cuBLAS's
+        h64, c64 = lk.lstm_cell_plain(*(t.double() for t in (w, bias, x, h0,
+                                                             c0)),
+                                      maxout=maxout)
+        e64 = [max((hh.double() - h64).abs().max().item(),
+                   (cc.double() - c64).abs().max().item())
+               for hh, cc in ((hk, ck), (hp, cp))]
+        pl = lk.plan(b, d, h)
+        tile = ("wide, 4 x 4 x G" if pl["bn"] == 32
+                else "narrow, 4 x 2 x G") + " f32 FMA register tiles"
+        log(f"lstm_cell G={g} [{b}, {d}->{h}]: plan {pl['bn']} units a tile"
+            f" ({tile}), cluster {pl['cluster']} ({pl['k_rows']} rows"
+            f" of K a block), {pl['blocks']} blocks")
         k_ms, p_ms, k_wall, p_wall, how = time_pair(
             lambda: lk.lstm_cell(w, bias, x, h0, c0, maxout=maxout),
             lambda: lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=maxout),
-            "lstm_cell_kernel")
+            LSTM_KERNELS)
+        alone = None
+        if pl["cluster"] > 1:
+            # the same tile without the cluster: the choice's yardstick
+            ho, co = torch.empty_like(h0), torch.empty_like(c0)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+
+            def unclustered():
+                build.check(build.load().lstm_cell_f32_unclustered(
+                    x.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(),
+                    bias.data_ptr(), ho.data_ptr(), co.data_ptr(), b, d, h,
+                    g, stream), "lstm_cell_f32_unclustered")
+
+            unclustered()
+            e1 = max((ho - hp).abs().max().item(),
+                     (co - cp).abs().max().item())
+            if not e1 <= LSTM_TOL:
+                raise AssertionError(f"lstm_cell {label} without the "
+                                     f"cluster: max|diff| {e1} > {LSTM_TOL}")
+            alone = library_ms(unclustered)[0]
         # each input read once, each output written once; 2 FLOP a MAC
         b_ms, b_by = bound(nbytes(w, bias, x, h0, c0, hk, ck),
                            2.0 * b * (d + h) * g * h)
@@ -538,12 +588,16 @@ def phase_kernels(dev) -> dict:
         lstm_err = max(lstm_err, err)
         lstm_rows.append(dict(label=label, ms=k_ms, plain_ms=p_ms,
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                              timing=how, shape=f"G={g} [{b}, {d}->{h}]"))
+                              timing=how, shape=f"G={g} [{b}, {d}->{h}]",
+                              plan=pl, no_cluster_ms=alone,
+                              f64_err=e64[0], plain_f64_err=e64[1]))
         log(f"kernel lstm_cell G={g} [{b}, {d}->{h}] ({label}): "
-            f"max|diff| {err:.3g} (tol {LSTM_TOL}); {how}: kernel "
+            f"max|diff| {err:.3g} (tol {LSTM_TOL}; against f64: kernel "
+            f"{e64[0]:.3g}, plain f32 {e64[1]:.3g}); {how}: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
             f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
-            f"({b_by}); library: {lib_msg}")
+            f"({b_by}); library: {lib_msg}"
+            + (f"; without the cluster {alone:.4f} ms" if alone else ""))
     # the record's numbers: the NMT decoder's G=4 cell (it has a library
     # yardstick); every shape is in "shapes"
     main = next(r for r in lstm_rows if r["label"].startswith("nmt decoder"))
@@ -1542,22 +1596,30 @@ def phase_train_kernels(dev) -> dict:
         d = q.shape[-1]
         dh = d // heads
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
-        out = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
-        grads = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw)
-        again = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw)
+        out, stats = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+        out2, stats2 = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+        grads = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
+                                  **kw)
+        again = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
+                                  **kw)
         ref = mho.mha_train_plain(q, k, v, maskadd, seed, **kw)
+        ref_stats = mho.softmax_stats(q, k, maskadd, n_heads=heads)
         refs = mho.mha_train_plain_bwd(q, k, v, maskadd, seed, g, **kw)
         torch.cuda.synchronize()
-        e_f = _check_close(f"mha_train_fwd {label}", [out], [ref])
+        e_f = _check_close(f"mha_train_fwd {label}",
+                           [out, stats[0], stats[1]],
+                           [ref, ref_stats[0], ref_stats[1]])
         e_b = _check_close(f"mha_train_bwd {label}", grads, refs)
+        if not (torch.equal(out, out2) and torch.equal(stats, stats2)):
+            raise AssertionError(f"mha_train_fwd {label}: two runs differ")
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             raise AssertionError(f"mha_train_bwd {label}: two runs differ")
         errs["mha_train_fwd"] = max(errs["mha_train_fwd"], e_f)
         errs["mha_train_bwd"] = max(errs["mha_train_bwd"], e_b)
         shape = f"B={b} T={t} S={s} d={d} H={heads} rate={TRAIN_RATE}"
         log(f"kernel mha_train [{shape}] ({label}): max|diff| / max(1, "
-            f"max|plain|) out {e_f:.3g}, dq/dk/dv {e_b:.3g} (tol "
-            f"{TRAIN_TOL}); backward twice: identical bits")
+            f"max|plain|) out and row stats {e_f:.3g}, dq/dk/dv {e_b:.3g} "
+            f"(tol {TRAIN_TOL}); forward and backward twice: identical bits")
         # the unmasked scores this data needs: 2 FLOP a MAC over dh for
         # each of QK^T and AV (forward) and of the five backward products
         pairs = float((maskadd >= 0).expand(b, t, s).sum()) * heads
@@ -1569,7 +1631,7 @@ def phase_train_kernels(dev) -> dict:
         timed("mha_train_fwd", label, shape,
               lambda: mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw),
               lambda: mho.mha_train_plain(q, k, v, maskadd, seed, **kw),
-              "mha_fwd_kernel", nbytes(q, k, v, maskadd, seed, out),
+              "mha_fwd_kernel", nbytes(q, k, v, maskadd, seed, out, stats),
               4.0 * pairs * dh,
               lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                      attn_mask=m4),
@@ -1577,11 +1639,12 @@ def phase_train_kernels(dev) -> dict:
         lq, lk_, lv = (x.detach().requires_grad_() for x in (q4, k4, v4))
         lout = F.scaled_dot_product_attention(lq, lk_, lv, attn_mask=m4)
         timed("mha_train_bwd", label, shape,
-              lambda: mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, **kw),
+              lambda: mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out,
+                                        stats, **kw),
               lambda: mho.mha_train_plain_bwd(q, k, v, maskadd, seed, g,
                                               **kw),
-              ("mha_bwd_dq_kernel", "mha_bwd_dkdv_kernel"),
-              nbytes(q, k, v, maskadd, seed, g, out, *grads),
+              MHA_BWD_KERNELS,
+              nbytes(q, k, v, maskadd, seed, g, out, stats, *grads),
               10.0 * pairs * dh,
               lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
                                           retain_graph=True),
@@ -2998,6 +3061,7 @@ def phase_chain_kernels(dev) -> dict:
         bb_ms, bb_by = bound(nbytes(gates, cs, c0, ch, cc, w_hh, dg, dh0,
                                     dc0), mm)
         lib_ms, lib_msg = None, "none (maxout)"
+        lib_bwd, lib_bwd_msg = None, "none (maxout)"
         if g == 4:
             # cuDNN's LSTM over the same T steps, gate blocks permuted from
             # (i, f, o, g) to (i, f, g, o); it also computes x @ W_ih
@@ -3016,12 +3080,23 @@ def phase_chain_kernels(dev) -> dict:
             lib_msg = (f"cuDNN torch.nn.LSTM over {t} steps, x @ W_ih "
                        f"included, {lib_ms:.4f} ms ({lib_how}; max|diff| hs "
                        f"vs plain {lib_err:.3g})")
+            # its backward over the same steps, for the same upstream dhs
+            # (it also computes dx and dW_ih, which the chain leaves out)
+            lx = x.detach().requires_grad_()
+            lh0, lc0 = (z[None].detach().requires_grad_() for z in (h0, c0))
+            lout, _ = lstm(lx, (lh0, lc0))
+            lib_bwd, lib_how = library_ms(lambda: torch.autograd.grad(
+                lout, (lx, lh0, lc0, *lstm.parameters()), ch,
+                retain_graph=True))
+            lib_bwd_msg = (f"cuDNN torch.nn.LSTM backward over {t} steps "
+                           f"(dx and dW_ih too) {lib_bwd:.4f} ms ({lib_how})")
         rows["fwd"].append(dict(label="lstm0 fragment", ms=kf,
                                 plain_ms=pf, bound_ms=bf_ms, bound_by=bf_by,
                                 library_ms=lib_ms, timing=how_f, shape=shape))
         rows["bwd"].append(dict(label="lstm0 fragment", ms=kb,
                                 plain_ms=pb, bound_ms=bb_ms, bound_by=bb_by,
-                                library_ms=None, timing=how_b, shape=shape))
+                                library_ms=lib_bwd, timing=how_b,
+                                shape=shape))
         log(f"kernel lstm_chain {shape}: {blocks} blocks, launches per chain "
             f"call fwd {per_call[0]} + bwd {per_call[1]}; max|diff| / max(1, "
             f"max|plain|) forward {e_f:.3g}, backward (dx_contrib, dh0, dc0, "
@@ -3030,7 +3105,7 @@ def phase_chain_kernels(dev) -> dict:
             f"{pf:.4f} ms (per call {kfw:.4f} / {pfw:.4f}), bound "
             f"{bf_ms:.4f} ms ({bf_by}); backward kernel {kb:.4f} ms, plain "
             f"{pb:.4f} ms (per call {kbw:.4f} / {pbw:.4f}), bound "
-            f"{bb_ms:.4f} ms ({bb_by}); library: {lib_msg}")
+            f"{bb_ms:.4f} ms ({bb_by}); library: {lib_msg}; {lib_bwd_msg}")
     rec = {}
     for key, line in (("fwd", "52"), ("bwd", "120")):
         main = rows[key][0]

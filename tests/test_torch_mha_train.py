@@ -113,6 +113,31 @@ def test_plain_backward_matches_autograd():
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("t,s,mask_kind", CASES + [(70, 130, "dead")])
+def test_softmax_stats_are_the_logsumexp(t, s, mask_kind):
+    """The forward's row statistics (max m, sum l of exp(s - m)): m + log l
+    is the log-sum-exp of the plain scores, fully masked rows included,
+    also where T and S span several of the kernel's 64-row tiles; the CPU
+    wrapper returns them beside the plain output."""
+    q, k, v, _, maskadd = _inputs(t, s, mask_kind, seed=5)
+    tq, tk, tv, m = (torch.from_numpy(a).double()
+                     for a in (q, k, v, maskadd))
+    stats = mo.softmax_stats(tq, tk, m, n_heads=H)
+    assert stats.shape == (2, B, H, t)
+    scores = torch.einsum("bthd,bshd->bhts", tq.reshape(B, t, H, DH),
+                          tk.reshape(B, s, H, DH)) / DH ** 0.5
+    scores = torch.where(m[:, None] < 0, mo.NEG, scores)
+    torch.testing.assert_close(stats[0] + torch.log(stats[1]),
+                               torch.logsumexp(scores, dim=-1), rtol=1e-12,
+                               atol=1e-9)
+    seed = torch.tensor([7], dtype=torch.int32)
+    out, got = mk.mha_train_fwd(tq, tk, tv, m, seed, n_heads=H, rate=0.1)
+    torch.testing.assert_close(got, stats, rtol=0, atol=0)
+    torch.testing.assert_close(
+        out, mo.mha_train_plain(tq, tk, tv, m, seed, n_heads=H, rate=0.1),
+        rtol=0, atol=0)
+
+
 @pytest.fixture
 def cuda_dev():
     if not torch.cuda.is_available():
@@ -121,13 +146,19 @@ def cuda_dev():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,s,mask_rows", [(50, 196, 196, 1),
-                                             (50, 17, 196, 1),
-                                             (50, 17, 17, 17),
-                                             (3, 40, 70, 40)])
-def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows):
+@pytest.mark.parametrize("b,t,s,mask_rows,dh", [(50, 196, 196, 1, 64),
+                                                (50, 17, 196, 1, 64),
+                                                (50, 17, 17, 17, 64),
+                                                (3, 40, 70, 40, 64),
+                                                (4, 70, 131, 1, 32),
+                                                (3, 129, 67, 129, 128)])
+def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows, dh):
+    """Outputs, row statistics and gradients against the plain versions;
+    T and S off the 64-row tiles; forward and backward bit-identical on a
+    rerun."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    n_heads, d, rate = 8, 512, 0.1
+    n_heads, rate = 8, 0.1
+    d = n_heads * dh
     gen = torch.Generator(device=cuda_dev).manual_seed(t + s)
     q, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)
             for _ in range(2))
@@ -137,19 +168,24 @@ def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows):
     keep[0] = False                                   # fully masked rows
     maskadd = torch.where(keep, 0.0, -1e9).contiguous()
     seed = torch.tensor([4321], dtype=torch.int32, device=cuda_dev)
-    out = mk.mha_train_fwd(q, k, v, maskadd, seed, n_heads=n_heads,
-                           rate=rate)
+    out, stats = mk.mha_train_fwd(q, k, v, maskadd, seed, n_heads=n_heads,
+                                  rate=rate)
+    out2, stats2 = mk.mha_train_fwd(q, k, v, maskadd, seed, n_heads=n_heads,
+                                    rate=rate)
     ref = mo.mha_train_plain(q, k, v, maskadd, seed, n_heads=n_heads,
                              rate=rate)
-    grads = mk.mha_train_bwd(q, k, v, maskadd, seed, g, out,
+    ref_stats = mo.softmax_stats(q, k, maskadd, n_heads=n_heads)
+    grads = mk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
                              n_heads=n_heads, rate=rate)
-    again = mk.mha_train_bwd(q, k, v, maskadd, seed, g, out,
+    again = mk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
                              n_heads=n_heads, rate=rate)
     refs = mo.mha_train_plain_bwd(q, k, v, maskadd, seed, g,
                                   n_heads=n_heads, rate=rate)
     torch.cuda.synchronize()
-    for got, want in zip((out,) + grads, (ref,) + refs):
+    for got, want in zip((out, stats[0], stats[1]) + grads,
+                         (ref, ref_stats[0], ref_stats[1]) + refs):
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol
+    assert torch.equal(out, out2) and torch.equal(stats, stats2)
     for a, c in zip(grads, again):
         assert torch.equal(a, c)

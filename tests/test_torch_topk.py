@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from unpaired_image_captioning_tpu_torch.kernels import build
 from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
 from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
 from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
@@ -121,9 +122,14 @@ def test_cuda_row_topk_routes(cuda_dev):
 @pytest.mark.parametrize("b,d,h,maxout", [(250, 1024, 512, True),
                                           (50, 512, 256, False),
                                           (750, 1024, 512, False),
+                                          (50, 1024, 512, True),
                                           (3, 100, 60, False),
-                                          (3, 100, 60, True)])
+                                          (3, 100, 60, True),
+                                          (5, 37, 50, True)])
 def test_cuda_lstm_cell_matches_plain(cuda_dev, b, d, h, maxout):
+    """The ragged shapes: D+H (160, 87) does not divide into the cluster's
+    K slices and H (60, 50) not by the tile width; D = 37 takes the 4-byte
+    copies."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_dev).manual_seed(b + d)
     n = 5 if maxout else 4
@@ -138,3 +144,41 @@ def test_cuda_lstm_cell_matches_plain(cuda_dev, b, d, h, maxout):
     # f32 sums in another order than cuBLAS; TF32 off
     torch.testing.assert_close(hk, hp, atol=1e-4, rtol=0)
     torch.testing.assert_close(ck, cp, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,h,tile", [(50, 100, 76, dict(bn=16, cluster=4)),
+                                        (600, 100, 300,
+                                         dict(bn=32, cluster=2))])
+def test_cuda_lstm_cell_plans(cuda_dev, b, d, h, tile):
+    """The small batches split K across a cluster of up to 8, the large ones
+    take the wide tile and a smaller cluster; each tile width, with its
+    cluster and without, computes the same cell, with the same bits on a
+    rerun."""
+    assert lk.plan(50, 512, 256)["cluster"] == 8
+    assert lk.plan(50, 1024, 512)["cluster"] == 8
+    assert lk.plan(250, 1024, 512) == dict(bn=16, cluster=8, k_rows=192,
+                                           blocks=1024)
+    assert lk.plan(750, 1024, 512) == dict(bn=32, cluster=2, k_rows=768,
+                                           blocks=384)
+    pl = lk.plan(b, d, h)
+    assert {k: pl[k] for k in tile} == tile
+    g = torch.Generator(device=cuda_dev).manual_seed(7)
+    w = (torch.rand((d + h, 5 * h), generator=g, device=cuda_dev) - 0.5) / 8
+    bias = (torch.rand((5 * h,), generator=g, device=cuda_dev) - 0.5) / 8
+    x, h0, c0 = (torch.randn((b, m), generator=g, device=cuda_dev)
+                 for m in (d, h, h))
+    hp, cp = lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=True)
+    hk, ck = lk.lstm_cell(w, bias, x, h0, c0, maxout=True)
+    torch.testing.assert_close(hk, hp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ck, cp, atol=1e-4, rtol=0)
+    again = lk.lstm_cell(w, bias, x, h0, c0, maxout=True)
+    assert torch.equal(again[0], hk) and torch.equal(again[1], ck)
+    hu, cu = torch.empty_like(h0), torch.empty_like(c0)
+    err = build.load().lstm_cell_f32_unclustered(
+        x.data_ptr(), h0.data_ptr(), c0.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), hu.data_ptr(), cu.data_ptr(), b, d, h, 5,
+        torch.cuda.current_stream(cuda_dev).cuda_stream)
+    build.check(err, "lstm_cell_f32_unclustered")
+    torch.testing.assert_close(hu, hp, atol=1e-4, rtol=0)
+    torch.testing.assert_close(cu, cp, atol=1e-4, rtol=0)

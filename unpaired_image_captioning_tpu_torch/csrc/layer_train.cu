@@ -35,7 +35,8 @@
 //     atomics, the same bits every run;
 //   - attention: mha_train.cu's kernels (mha_train.cuh) over the q | k | v
 //     column blocks of the packed [M, 3d] projection, with the layer's
-//     site-0 block ids.
+//     site-0 block ids; the forward's row statistics of the softmax go to a
+//     saved array the wrapper allocates, and the backward reads them.
 //
 // Save, do not recompute: the Pallas backward keeps only x and x2 (x3)
 // because VMEM is small; here the forward also writes y1, qkv, ao, y2 and hd
@@ -252,15 +253,16 @@ GemmArgs dx_args(const float* dy, const float* w, int M, int N, int K) {
 }
 
 // The scratch of a backward call: gradients of the layer's activations,
-// the attention's row statistics and the partial sums of the weight
-// gradients. carve() lays it out from `base` (null: only to size it).
+// the attention backward's scratch (the rows' g . o and ds) and the partial
+// sums of the weight gradients. carve() lays it out from `base` (null: only to size it).
 struct Work {
-  float *df, *dlin, *dy, *dx2, *dx3, *dout, *dattn, *dqkv, *stats, *partial,
+  float *df, *dlin, *dy, *dx2, *dx3, *dout, *dattn, *dqkv, *attn, *partial,
       *ln_partial;
   size_t floats;
 };
 
-Work carve(float* base, int kind, int B, int T, int d, int f, int H) {
+Work carve(float* base, int kind, int B, int T, int S, int d, int f,
+           int H) {
   const size_t M = (size_t)B * T;
   size_t at = 0;
   auto take = [&](size_t n) {
@@ -278,7 +280,7 @@ Work carve(float* base, int kind, int B, int T, int d, int f, int H) {
   w.dout = take(M * d);
   w.dattn = take(M * d);
   w.dqkv = take(M * 3 * d);
-  w.stats = take((size_t)B * H * T * 3);
+  w.attn = take(uic::attn_bwd_scratch_floats(B, H, T, S > T ? S : T));
   w.partial = take((size_t)MAX_SPLITS * wmax);
   w.ln_partial = take((size_t)uic::LN_BWD_MAX_BLOCKS * 2 * d);
   w.floats = at;
@@ -325,12 +327,12 @@ Attn attn_args(const float* q, int lq, const float* k, int lk, const float* v,
 }
 
 // The self-attention sublayer: x2 = x + drop(attn(LN1(x) Wqkv + bqkv) Wo +
-// bo, site 1); keeps y1, qkv and ao
+// bo, site 1); keeps y1, qkv, ao and the attention's row statistics
 int self_fwd(const float* x, const float* mask, int mask_rows,
              const int* seed, const float* wqkv, const float* bqkv,
              const float* wo, const float* bo, const float* ls,
-             const float* lb, float* y1, float* qkv, float* ao, float* x2,
-             const Dims& m, cudaStream_t st) {
+             const float* lb, float* y1, float* qkv, float* ao, float* stats,
+             float* x2, const Dims& m, cudaStream_t st) {
   const int M = m.B * m.T, d = m.d;
   int err = uic::ln_fwd(x, ls, lb, y1, M, d, EPS, st);
   if (err) return err;
@@ -339,7 +341,7 @@ int self_fwd(const float* x, const float* mask, int mask_rows,
     return err;
   if ((err = uic::attn_fwd(attn_args(qkv, 3 * d, qkv + d, 3 * d, qkv + 2 * d,
                                      3 * d, mask, mask_rows, seed, m.T, m),
-                           ao, st)))
+                           ao, stats, st)))
     return err;
   return uic::gemm<false, false, false>(
       fwd_args(ao, wo, M, d, d),
@@ -347,12 +349,14 @@ int self_fwd(const float* x, const float* mask, int mask_rows,
 }
 
 // The cross-attention sublayer: x3 = x2 + drop(attn(LN2(x2) Wq + bq, mk, mv)
-// Wo2 + bo2, site 1) under seed2; keeps y2, qc and co
+// Wo2 + bo2, site 1) under seed2; keeps y2, qc, co and the attention's row
+// statistics
 int cross_fwd(const float* x2, const float* mk, const float* mv,
               const float* sm, const int* seed2, const float* wq,
               const float* bq, const float* wo2, const float* bo2,
               const float* ls, const float* lb, float* y2, float* qc,
-              float* co, float* x3, const Dims& m, cudaStream_t st) {
+              float* co, float* stats, float* x3, const Dims& m,
+              cudaStream_t st) {
   const int M = m.B * m.T, d = m.d;
   int err = uic::ln_fwd(x2, ls, lb, y2, M, d, EPS, st);
   if (err) return err;
@@ -361,7 +365,7 @@ int cross_fwd(const float* x2, const float* mk, const float* mv,
     return err;
   if ((err = uic::attn_fwd(attn_args(qc, d, mk, d, mv, d, sm, 1, seed2, m.S,
                                      m),
-                           co, st)))
+                           co, stats, st)))
     return err;
   return uic::gemm<false, false, false>(
       fwd_args(co, wo2, M, d, d),
@@ -416,8 +420,9 @@ int ffn_bwd(const float* xa, const float* y, const float* hd, const float* g,
 // to dx = g2 + d(LN1) and the QKV / O / LN1 weight gradients
 int self_bwd(const float* x, const float* mask, int mask_rows,
              const int* seed, const float* y1, const float* qkv,
-             const float* ao, const float* g2, const float* wqkv,
-             const float* wo, const float* ls, float* dx, float* dwqkv,
+             const float* ao, const float* stats, const float* g2,
+             const float* wqkv, const float* wo, const float* ls, float* dx,
+             float* dwqkv,
              float* dbqkv, float* dwo, float* dbo, float* dls, float* dlb,
              const Work& w, const Dims& m, cudaStream_t st) {
   const int M = m.B * m.T, d = m.d;
@@ -433,7 +438,8 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
   if ((err = uic::attn_bwd(
            attn_args(qkv, 3 * d, qkv + d, 3 * d, qkv + 2 * d, 3 * d, mask,
                      mask_rows, seed, m.T, m),
-           w.dattn, ao, w.dqkv, w.dqkv + d, w.dqkv + 2 * d, w.stats, st)))
+           w.dattn, ao, stats, w.dqkv, w.dqkv + d, w.dqkv + 2 * d, w.attn,
+           st)))
     return err;
   if ((err = wgrad(y1, d, d, w.dqkv, 3 * d, 3 * d, M, dwqkv, dbqkv, w.partial,
                    st)))
@@ -450,7 +456,8 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
 // gradients
 int cross_bwd(const float* x2, const float* mk, const float* mv,
               const float* sm, const int* seed2, const float* y2,
-              const float* qc, const float* co, const float* g3,
+              const float* qc, const float* co, const float* stats,
+              const float* g3,
               const float* wq, const float* wo2, const float* ls, float* dx2,
               float* dmk, float* dmv, float* dwq, float* dbq, float* dwo2,
               float* dbo2, float* dls, float* dlb, const Work& w,
@@ -468,7 +475,7 @@ int cross_bwd(const float* x2, const float* mk, const float* mv,
   float* dqc = w.dqkv;   // [M, d]
   if ((err = uic::attn_bwd(attn_args(qc, d, mk, d, mv, d, sm, 1, seed2, m.S,
                                      m),
-                           w.dattn, co, dqc, dmk, dmv, w.stats, st)))
+                           w.dattn, co, stats, dqc, dmk, dmv, w.attn, st)))
     return err;
   if ((err = wgrad(y2, d, d, dqc, d, d, M, dwq, dbq, w.partial, st)))
     return err;
@@ -492,51 +499,53 @@ Dims dims(int B, int T, int S, int d, int f, int H, unsigned int thresh,
 
 extern "C" {
 
-// Floats of scratch a backward call takes: kind 0 the encoder layer, 1 the
-// decoder layer; -1 past 2^31 - 1.
-int layer_train_ws_f32(int kind, int B, int T, int S, int d, int f, int H) {
-  (void)S;
-  const size_t n = carve(nullptr, kind, B, T, d, f, H).floats;
-  return n > 0x7FFFFFFF ? -1 : (int)n;
+// Floats of scratch a backward call takes into *n: kind 0 the encoder
+// layer, 1 the decoder layer. Returns 0.
+int layer_train_ws_f32(int kind, int B, int T, int S, int d, int f, int H,
+                      long long* n) {
+  *n = (long long)carve(nullptr, kind, B, T, S, d, f, H).floats;
+  return 0;
 }
 
 // p: x, mask [B, mask_rows, T], seed [1], wqkv, bqkv, wo, bo, w1, b1, w2,
-// b2, l1s, l1b, l2s, l2b; out; saved x2, y1, qkv [B*T, 3d], ao, y2,
-// hd [B*T, f]. Activations [B*T, d] unless stated.
+// b2, l1s, l1b, l2s, l2b; out; saved x2, y1, qkv [B*T, 3d], ao, the
+// attention's row statistics [2, B, H, T], y2, hd [B*T, f]. Activations
+// [B*T, d] unless stated.
 int enc_layer_fwd_f32(const void* const* p, int B, int T, int d, int f, int H,
                       int mask_rows, unsigned int thresh, float keep_div,
                       int dropout, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Dims m = dims(B, T, T, d, f, H, thresh, keep_div, dropout);
   int err = self_fwd(F(0), F(1), mask_rows, I(2), F(3), F(4), F(5), F(6),
-                     F(11), F(12), O(17), O(18), O(19), O(16), m, st);
+                     F(11), F(12), O(17), O(18), O(19), O(20), O(16), m, st);
   if (err) return err;
-  return ffn_fwd(O(16), I(2), F(7), F(8), F(9), F(10), F(13), F(14), O(20),
-                 O(21), O(15), m, st);
+  return ffn_fwd(O(16), I(2), F(7), F(8), F(9), F(10), F(13), F(14), O(21),
+                 O(22), O(15), m, st);
 }
 
 // p: x, mask, seed, the 12 weights as above (3-14), saved x2, y1, qkv, ao,
-// y2, hd (15-20), g (21); dx (22) and the 12 weight gradients (23-34) in
-// the weights' order. ws: layer_train_ws_f32(0, ...) floats.
+// stats, y2, hd (15-21), g (22); dx (23) and the 12 weight gradients
+// (24-35) in the weights' order. ws: layer_train_ws_f32(0, ...) floats.
 int enc_layer_bwd_f32(const void* const* p, int B, int T, int d, int f, int H,
                       int mask_rows, unsigned int thresh, float keep_div,
                       int dropout, float* ws, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Dims m = dims(B, T, T, d, f, H, thresh, keep_div, dropout);
-  const Work w = carve(ws, 0, B, T, d, f, H);
-  int err = ffn_bwd(F(15), F(19), F(20), F(21), I(2), F(7), F(9), F(13),
-                    w.dx2, O(27), O(28), O(29), O(30), O(33), O(34), w, m,
+  const Work w = carve(ws, 0, B, T, T, d, f, H);
+  int err = ffn_bwd(F(15), F(20), F(21), F(22), I(2), F(7), F(9), F(13),
+                    w.dx2, O(28), O(29), O(30), O(31), O(34), O(35), w, m,
                     st);
   if (err) return err;
-  return self_bwd(F(0), F(1), mask_rows, I(2), F(16), F(17), F(18), w.dx2,
-                  F(3), F(5), F(11), O(22), O(23), O(24), O(25), O(26),
-                  O(31), O(32), w, m, st);
+  return self_bwd(F(0), F(1), mask_rows, I(2), F(16), F(17), F(18), F(19),
+                  w.dx2, F(3), F(5), F(11), O(23), O(24), O(25), O(26),
+                  O(27), O(32), O(33), w, m, st);
 }
 
 // p: x, mk [B, S, d], mv, tgt mask [B, tmask_rows, T], src mask [B, 1, S],
 // seeds [2] (0-5); wqkv, bqkv, wo, bo, wq, bq, wo2, bo2, w1, b1, w2, b2,
 // l1s, l1b, l2s, l2b, l3s, l3b (6-23); out (24); saved x2, x3, y1, qkv, ao,
-// y2, qc, co, y3, hd (25-34).
+// y2, qc, co, y3, the self and cross attentions' row statistics
+// [2, B, H, T] each, hd (25-36).
 int dec_layer_fwd_f32(const void* const* p, int B, int T, int S, int d,
                       int f, int H, int tmask_rows, unsigned int thresh,
                       float keep_div, int dropout, void* stream) {
@@ -544,37 +553,38 @@ int dec_layer_fwd_f32(const void* const* p, int B, int T, int S, int d,
   const Dims m = dims(B, T, S, d, f, H, thresh, keep_div, dropout);
   const int* seed = I(5);
   int err = self_fwd(F(0), F(3), tmask_rows, seed, F(6), F(7), F(8), F(9),
-                     F(18), F(19), O(27), O(28), O(29), O(25), m, st);
+                     F(18), F(19), O(27), O(28), O(29), O(34), O(25), m, st);
   if (err) return err;
   if ((err = cross_fwd(O(25), F(1), F(2), F(4), seed + 1, F(10), F(11),
-                       F(12), F(13), F(20), F(21), O(30), O(31), O(32), O(26),
-                       m, st)))
+                       F(12), F(13), F(20), F(21), O(30), O(31), O(32), O(35),
+                       O(26), m, st)))
     return err;
   return ffn_fwd(O(26), seed, F(14), F(15), F(16), F(17), F(22), F(23),
-                 O(33), O(34), O(24), m, st);
+                 O(33), O(36), O(24), m, st);
 }
 
-// p: the 24 forward inputs (0-23), saved as above (24-33), g (34); dx (35),
-// dmk (36), dmv (37) and the 18 weight gradients (38-55) in the weights'
+// p: the 24 forward inputs (0-23), saved as above (24-35), g (36); dx (37),
+// dmk (38), dmv (39) and the 18 weight gradients (40-57) in the weights'
 // order. ws: layer_train_ws_f32(1, ...) floats.
 int dec_layer_bwd_f32(const void* const* p, int B, int T, int S, int d,
                       int f, int H, int tmask_rows, unsigned int thresh,
                       float keep_div, int dropout, float* ws, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Dims m = dims(B, T, S, d, f, H, thresh, keep_div, dropout);
-  const Work w = carve(ws, 1, B, T, d, f, H);
+  const Work w = carve(ws, 1, B, T, S, d, f, H);
   const int* seed = I(5);
-  int err = ffn_bwd(F(25), F(32), F(33), F(34), seed, F(14), F(16), F(22),
-                    w.dx3, O(46), O(47), O(48), O(49), O(54), O(55), w, m,
+  int err = ffn_bwd(F(25), F(32), F(35), F(36), seed, F(14), F(16), F(22),
+                    w.dx3, O(48), O(49), O(50), O(51), O(56), O(57), w, m,
                     st);
   if (err) return err;
   if ((err = cross_bwd(F(24), F(1), F(2), F(4), seed + 1, F(29), F(30),
-                       F(31), w.dx3, F(10), F(12), F(20), w.dx2, O(36), O(37),
-                       O(42), O(43), O(44), O(45), O(52), O(53), w, m, st)))
+                       F(31), F(34), w.dx3, F(10), F(12), F(20), w.dx2, O(38),
+                       O(39), O(44), O(45), O(46), O(47), O(54), O(55), w, m,
+                       st)))
     return err;
-  return self_bwd(F(0), F(3), tmask_rows, seed, F(26), F(27), F(28), w.dx2,
-                  F(6), F(8), F(18), O(35), O(38), O(39), O(40), O(41),
-                  O(50), O(51), w, m, st);
+  return self_bwd(F(0), F(3), tmask_rows, seed, F(26), F(27), F(28), F(33),
+                  w.dx2, F(6), F(8), F(18), O(37), O(40), O(41), O(42), O(43),
+                  O(52), O(53), w, m, st);
 }
 
 }  // extern "C"

@@ -28,7 +28,8 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t base, uint32_t idx) {
 // have row stride lo; dq / dk / dv the strides of q / k / v. mask is
 // [B, mask_rows, S] (< 0: masked). The dropout of head h of element b draws
 // block id b * pid_b + h (pid_b = H for the attention kernel alone, 4H at
-// site 0 of the whole-layer kernels).
+// site 0 of the whole-layer kernels). Every pointer and row stride is a
+// multiple of 16 bytes (the tiles are copied with 16-byte cp.async).
 struct Attn {
   const float* q;
   const float* k;
@@ -42,10 +43,22 @@ struct Attn {
   int dropout;
 };
 
-// out = attention(q, k, v); dh in {32, 64, 128}, S <= 1024
-int attn_fwd(const Attn& a, float* out, cudaStream_t st);
-// dq, dk, dv for the upstream gradient g; stats scratch [B*H*T*3]
-int attn_bwd(const Attn& a, const float* g, const float* o, float* dq,
-             float* dk, float* dv, float* stats, cudaStream_t st);
+// Floats of a backward's scratch: the rows' g . o [B*H*T] (rounded up to
+// 4), then ds / sqrt(dh) [B, H, T, S rounded up to 4].
+inline size_t attn_dsum_floats(int B, int H, int T) {
+  return ((size_t)B * H * T + 3) / 4 * 4;
+}
+inline size_t attn_bwd_scratch_floats(int B, int H, int T, int S) {
+  return attn_dsum_floats(B, H, T) + (size_t)B * H * T * ((S + 3) / 4 * 4);
+}
+
+// out = attention(q, k, v) and the rows' softmax statistics;
+// dh in {32, 64, 128}, S <= 1024
+int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st);
+// dq, dk, dv for the upstream gradient g, from the forward's output o and
+// statistics; scratch of attn_bwd_scratch_floats(B, H, T, S) floats
+int attn_bwd(const Attn& a, const float* g, const float* o,
+             const float* stats, float* dq, float* dk, float* dv,
+             float* scratch, cudaStream_t st);
 
 }  // namespace uic

@@ -1,0 +1,11 @@
+// The training attention's kernels at head width 128 (mha_train_impl.cuh;
+// the design and the entry points are in mha_train.cu).
+#include "mha_train_impl.cuh"
+
+namespace uic {
+namespace mha {
+template int fwd<128>(const Attn&, float*, float*, cudaStream_t);
+template int bwd<128>(const Attn&, const float*, const float*, const float*,
+                      float*, float*, float*, float*, cudaStream_t);
+}  // namespace mha
+}  // namespace uic

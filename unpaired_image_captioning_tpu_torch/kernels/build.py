@@ -42,6 +42,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, h, c, w, b, h_out, c_out, B, D, H, G, stream
     "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the same with plan()'s tile and no cluster (the cluster's yardstick)
+    "lstm_cell_f32_unclustered": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # B, D, H, out int[4] (BN, cluster size, K rows a block, blocks)
+    "lstm_cell_f32_plan": (_I, _I, _I, _P),
     # x, vals, idx, R, V, k, stream
     "row_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
     # x, vals, idx, R, V, k, stream
@@ -52,18 +56,21 @@ SIGNATURES = {
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
     # q, att, h1, R, B, S, d, T, d_ff, H, stream
     "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
-    # q, k, v, mask, seed, out, B, T, S, H, dh, mask_rows, thresh, keep_div,
-    # dropout, stream
-    "mha_train_fwd_f32": (_P,) * 6 + (_I,) * 6 + (_U, _F, _I, _P),
-    # q, k, v, mask, seed, g, o, dq, dk, dv, stats, B, T, S, H, dh,
-    # mask_rows, thresh, keep_div, dropout, stream
-    "mha_train_bwd_f32": (_P,) * 11 + (_I,) * 6 + (_U, _F, _I, _P),
+    # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
+    # keep_div, dropout, stream
+    "mha_train_fwd_f32": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _P),
+    # q, k, v, mask, seed, g, o, stats, dq, dk, dv, scratch, B, T, S, H,
+    # dh, mask_rows, thresh, keep_div, dropout, stream
+    "mha_train_bwd_f32": (_P,) * 12 + (_I,) * 6 + (_U, _F, _I, _P),
+    # B, T, S, H, out int64 [1] -> floats of the backward's scratch
+    "mha_train_bwd_ws_f32": (_I,) * 4 + (_P,),
     # x, scale, offset, y, rows, d, eps, stream
     "ln_train_fwd_f32": (_P,) * 4 + (_I, _I, _F, _P),
     # x, scale, g, dx, dscale, doffset, partial, rows, d, nblk, eps, stream
     "ln_train_bwd_f32": (_P,) * 7 + (_I,) * 3 + (_F, _P),
-    # kind, B, T, S, d, f, H -> floats of a layer backward's scratch
-    "layer_train_ws_f32": (_I,) * 7,
+    # kind, B, T, S, d, f, H, out int64 [1] -> floats of a layer
+    # backward's scratch
+    "layer_train_ws_f32": (_I,) * 7 + (_P,),
     # p (host array of the layer's tensors), B, T, d, f, H, mask_rows,
     # thresh, keep_div, dropout[, ws], stream
     "enc_layer_fwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P),

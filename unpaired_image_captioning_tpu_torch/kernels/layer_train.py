@@ -19,8 +19,9 @@ of short kernels. `enc_fwd_launches`, `enc_bwd_launches`,
 What the forward keeps for the backward: the plain version keeps x2 (and
 x3) and its backward recomputes the rest, as the Pallas kernel does; the
 kernel keeps the LayerNorm outputs, the packed qkv (the cross query), the
-attention outputs and the dropped FFN hidden as well, so its backward
-runs no product of the forward again.
+attention outputs, the attentions' row softmax statistics [2, B, H, T] and
+the dropped FFN hidden as well, so its backward runs no product of the
+forward again. The dropped FFN hidden is the last saved tensor.
 """
 
 from __future__ import annotations
@@ -106,11 +107,9 @@ def _launch(fn_name: str, x, ptrs, ints, rate: float, ws_kind=None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     extra = []
     if ws_kind is not None:
-        n = lib.layer_train_ws_f32(ws_kind, *ws_dims)
-        if n < 0:
-            raise ValueError(f"{fn_name}: workspace of {ws_dims} exceeds "
-                             "2^31 floats")
-        ws = torch.empty((n,), dtype=torch.float32, device=x.device)
+        n = ctypes.c_int64()
+        lib.layer_train_ws_f32(ws_kind, *ws_dims, ctypes.byref(n))
+        ws = torch.empty((n.value,), dtype=torch.float32, device=x.device)
         extra = [ws.data_ptr()]
     err = getattr(lib, fn_name)(_ptrs(ptrs), *ints, thresh, keep_div,
                                 dropout, *extra, stream)
@@ -135,8 +134,9 @@ def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     _check("enc_layer_fwd", x, w, ENC_WEIGHTS, n_heads, arrays)
     out, x2, y1, ao, y2 = (torch.empty_like(x) for _ in range(5))
     qkv = x.new_empty((b, t, 3 * d))
+    stats = x.new_empty((2, b, n_heads, t))
     hd = x.new_empty((b, t, f))
-    saved = (x2, y1, qkv, ao, y2, hd)
+    saved = (x2, y1, qkv, ao, stats, y2, hd)
     _launch("enc_layer_fwd_f32", x, [x, maskadd, seed, *ws, out, *saved],
             (b, t, d, f, n_heads, maskadd.shape[1]), rate)
     enc_fwd_launches += 1
@@ -190,8 +190,11 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
     out, x2, x3, y1, ao, y2, qc, co, y3 = (torch.empty_like(x)
                                            for _ in range(9))
     qkv = x.new_empty((b, t, 3 * d))
+    stats_self, stats_cross = (x.new_empty((2, b, n_heads, t))
+                               for _ in range(2))
     hd = x.new_empty((b, t, f))
-    saved = (x2, x3, y1, qkv, ao, y2, qc, co, y3, hd)
+    saved = (x2, x3, y1, qkv, ao, y2, qc, co, y3, stats_self, stats_cross,
+             hd)
     _launch("dec_layer_fwd_f32", x,
             [x, mk, mv, tgt_maskadd, src_maskadd, seeds, *ws, out, *saved],
             (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate)

@@ -15,9 +15,15 @@ gates. There is no backward kernel, on the TPU or here. Without a gradient
 to take (inference mode, or no input that requires one) the forward runs
 alone, with no autograd node. It never routes a CUDA tensor to the plain
 version. `launches` counts kernel launches.
+
+The kernel splits the reduction over D+H across a thread-block cluster at
+small batches; `plan` reports the tile width and cluster size it picks for
+a shape.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,6 +56,15 @@ def lstm_cell_plain(w, b, x, h, c, *, maxout: bool):
     """Plain PyTorch version of the kernel. x [B, D]; h, c [B, H]."""
     gates = torch.cat([x, h], dim=-1) @ w + b
     return lstm_elementwise(gates, c, h.shape[-1], maxout)
+
+
+def plan(batch: int, d: int, hidden: int) -> dict:
+    """The kernel's launch for a shape: the tile width `bn` (hidden units a
+    block), the cluster size, the rows of K a block of the cluster reduces
+    and the blocks of the grid."""
+    out = (ctypes.c_int * 4)()
+    build.load().lstm_cell_f32_plan(batch, d, hidden, out)
+    return dict(zip(("bn", "cluster", "k_rows", "blocks"), out))
 
 
 def _forward(w, b, x, h, c, maxout: bool):

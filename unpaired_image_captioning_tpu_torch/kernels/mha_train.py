@@ -7,23 +7,28 @@ and the semantics, the dropout hash included, are in `ops/mha_train.py`.
 `mha_train` is the differentiable entry point (a `torch.autograd.Function`
 whose backward is the backward kernel). `mha_train_fwd` and `mha_train_bwd`
 run the plain versions for CPU tensors and launch the kernels for CUDA
-tensors; they never route a CUDA tensor to the plain version.
-`fwd_launches` and `bwd_launches` count kernel launches.
+tensors; they never route a CUDA tensor to the plain version. The forward
+also returns the rows' softmax statistics [2, B, H, T] (`ops.mha_train.
+softmax_stats`), which the backward kernel reads instead of recomputing
+whole rows; the plain backward ignores them. `fwd_launches` and
+`bwd_launches` count kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops.mha_train import (keep_threshold, mha_train_plain,
-                             mha_train_plain_bwd)
+                             mha_train_plain_bwd, softmax_stats)
 from . import build
 
 fwd_launches = 0
 bwd_launches = 0
 
 HEAD_DIMS = (32, 64, 128)   # the head widths the CUDA kernels are built for
-MAX_KEYS = 1024             # whole score rows of 32 queries in shared memory
+MAX_KEYS = 1024             # the keys the kernels are held to
 
 
 def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
@@ -53,6 +58,9 @@ def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
                              f"expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        if key != "maskadd" and x.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             "boundary (the kernels copy 16-byte runs)")
     if seed.device != q.device or seed.dtype != torch.int32 \
             or seed.numel() != 1:
         raise ValueError(f"{name}: seed must be one int32 on {q.device}")
@@ -65,33 +73,37 @@ def _rate_args(rate: float):
 
 
 def mha_train_fwd(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
-    """Attention output [B, T, d] (see `ops.mha_train.mha_train_plain`)."""
+    """(attention output [B, T, d] (see `ops.mha_train.mha_train_plain`),
+    the rows' softmax statistics [2, B, H, T])."""
     global fwd_launches
     if q.device.type == "cpu":
-        return mha_train_plain(q, k, v, maskadd, seed, n_heads=n_heads,
-                               rate=rate)
+        return (mha_train_plain(q, k, v, maskadd, seed, n_heads=n_heads,
+                                rate=rate),
+                softmax_stats(q, k, maskadd, n_heads=n_heads))
     if q.device.type != "cuda":
         raise ValueError(f"mha_train_fwd: unsupported device {q.device}")
     _check("mha_train_fwd", q, k, v, maskadd, seed, n_heads)
     b, t, d = q.shape
     thresh, keep_div, dropout = _rate_args(rate)
     out = torch.empty_like(q)
+    stats = q.new_empty((2, b, n_heads, t))
     lib = build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mha_train_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), maskadd.data_ptr(),
-        seed.data_ptr(), out.data_ptr(), b, t, k.shape[1], n_heads,
-        d // n_heads, maskadd.shape[1], thresh, keep_div, dropout, stream)
+        seed.data_ptr(), out.data_ptr(), stats.data_ptr(), b, t, k.shape[1],
+        n_heads, d // n_heads, maskadd.shape[1], thresh, keep_div, dropout,
+        stream)
     build.check(err, "mha_train_fwd_f32")
     fwd_launches += 1
-    return out
+    return out, stats
 
 
-def mha_train_bwd(q, k, v, maskadd, seed, g, out, *, n_heads: int,
+def mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, *, n_heads: int,
                   rate: float):
-    """(dq, dk, dv) for the upstream gradient g [B, T, d]; `out` is the
-    forward's output, which the kernel reads for the softmax backward's row
-    term (the plain version recomputes it)."""
+    """(dq, dk, dv) for the upstream gradient g [B, T, d]; `out` and
+    `stats` are the forward's output and row statistics, which the kernel
+    reads for the softmax backward (the plain version recomputes both)."""
     global bwd_launches
     if q.device.type == "cpu":
         return mha_train_plain_bwd(q, k, v, maskadd, seed, g,
@@ -102,19 +114,26 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, *, n_heads: int,
            {"g": g, "out": out})
     b, t, d = q.shape
     s = k.shape[1]
+    if (stats.device != q.device or stats.dtype != torch.float32
+            or tuple(stats.shape) != (2, b, n_heads, t)
+            or not stats.is_contiguous()):
+        raise ValueError(f"mha_train_bwd: stats must be f32 [2, {b}, "
+                         f"{n_heads}, {t}] on {q.device}, contiguous")
     thresh, keep_div, dropout = _rate_args(rate)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    stats = torch.empty((b * n_heads * t * 3,), dtype=torch.float32,
-                        device=q.device)
     lib = build.load()
+    n = ctypes.c_int64()
+    lib.mha_train_bwd_ws_f32(b, t, s, n_heads, ctypes.byref(n))
+    scratch = q.new_empty((n.value,))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mha_train_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), maskadd.data_ptr(),
-        seed.data_ptr(), g.data_ptr(), out.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, t, s, n_heads,
-        d // n_heads, maskadd.shape[1], thresh, keep_div, dropout, stream)
+        seed.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, t,
+        s, n_heads, d // n_heads, maskadd.shape[1], thresh, keep_div,
+        dropout, stream)
     build.check(err, "mha_train_bwd_f32")
     bwd_launches += 1
     return dq, dk, dv
@@ -123,17 +142,18 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, *, n_heads: int,
 class _MhaTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, maskadd, seed, n_heads, rate):
-        out = mha_train_fwd(q, k, v, maskadd, seed, n_heads=n_heads,
-                            rate=rate)
-        ctx.save_for_backward(q, k, v, maskadd, seed, out)
+        out, stats = mha_train_fwd(q, k, v, maskadd, seed, n_heads=n_heads,
+                                   rate=rate)
+        ctx.save_for_backward(q, k, v, maskadd, seed, out, stats)
         ctx.n_heads, ctx.rate = n_heads, rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, maskadd, seed, out = ctx.saved_tensors
+        q, k, v, maskadd, seed, out, stats = ctx.saved_tensors
         dq, dk, dv = mha_train_bwd(q, k, v, maskadd, seed, g.contiguous(),
-                                   out, n_heads=ctx.n_heads, rate=ctx.rate)
+                                   out, stats, n_heads=ctx.n_heads,
+                                   rate=ctx.rate)
         return dq, dk, dv, None, None, None, None
 
 

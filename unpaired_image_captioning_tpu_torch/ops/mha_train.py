@@ -17,7 +17,8 @@ element, the attention probabilities at site 0. The plain version, the
 Pallas kernel in interpret mode and the CUDA kernel draw the same mask from
 the same seed. The backward (`mha_train_plain_bwd`) is the
 Pallas `_bwd_kernel` written out: it recomputes p and the mask, and masked
-scores get zero gradient.
+scores get zero gradient. `softmax_stats` gives the rows' softmax
+statistics that the CUDA forward writes for its backward.
 """
 
 from __future__ import annotations
@@ -68,14 +69,27 @@ def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, t, n_heads, d // n_heads)
 
 
-def _probs(q, k, maskadd, seed, n_heads: int, rate: float, n_sites: int):
-    """(p, attn, keep or None) [B, H, T, S]; attn includes the dropout."""
-    b, t, d = q.shape
-    dh = d // n_heads
+def _scores(q, k, maskadd, n_heads: int):
+    """The masked, scaled scores [B, H, T, S]."""
+    dh = q.shape[-1] // n_heads
     scores = torch.einsum("bthd,bshd->bhts", _heads(q, n_heads),
                           _heads(k, n_heads)) / math.sqrt(dh)
-    scores = torch.where(maskadd[:, None] < 0, NEG, scores)
-    p = torch.softmax(scores, dim=-1)
+    return torch.where(maskadd[:, None] < 0, NEG, scores)
+
+
+def softmax_stats(q, k, maskadd, *, n_heads: int):
+    """[2, B, H, T]: each row's score max m and its sum of exp(s - m), what
+    the forward kernel keeps for its backward (m + log of the sum is the
+    row's log-sum-exp)."""
+    scores = _scores(q, k, maskadd, n_heads)
+    m = scores.amax(dim=-1)
+    return torch.stack([m, torch.exp(scores - m[..., None]).sum(dim=-1)])
+
+
+def _probs(q, k, maskadd, seed, n_heads: int, rate: float, n_sites: int):
+    """(p, attn, keep or None) [B, H, T, S]; attn includes the dropout."""
+    b, t, _ = q.shape
+    p = torch.softmax(_scores(q, k, maskadd, n_heads), dim=-1)
     if rate <= 0.0:
         return p, p, None
     keep = keep_mask(seed, b, n_heads, t, k.shape[1], rate, n_sites=n_sites)
