@@ -232,8 +232,8 @@ TFD_SHAPES = [
     ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, True),
 ]
 # the CUDA kernels the decoder-step wrappers launch, by name
-TFD_KERNELS = ("gemm_kernel", "self_attn_kernel", "cross_attn_kernel",
-               "head_mean_kernel")
+TFD_KERNELS = ("decode_gemm_kernel", "ln_rows_kernel", "self_attn_kernel",
+               "cross_attn_kernel", "head_mean_kernel")
 # every CUDA kernel of csrc/, by name
 HAND_KERNELS = LSTM_KERNELS + ("row_topk_kernel",
                                 "chunked_topk_kernel") + TFD_KERNELS
@@ -863,11 +863,16 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt, counters: dict,
     zh, en, aux = pivot_translate(cap, nmt, bf, cap2nmt_t, cap_beam=CAP_BEAM,
                                   nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN)
     torch.cuda.synchronize()
+    before = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters.items()}
     t0 = time.perf_counter()
     zh, en, aux = pivot_translate(cap, nmt, bf, cap2nmt_t, cap_beam=CAP_BEAM,
                                   nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    log(f"{label}: launches in one batch-{BENCH_BATCH} pivot_translate: "
+        + ", ".join(f"{name} {getattr(mod, attr) - before[name]}"
+                    for name, (mod, attr) in counters.items()))
     want = {"zh": (BENCH_BATCH, CAP["seq_length"]),
             "en": (BENCH_BATCH, NMT_MAX_LEN), "aux": (BENCH_BATCH, NMT_MAX_LEN)}
     for name, t in (("zh", zh), ("en", en), ("aux", aux)):
@@ -1293,6 +1298,54 @@ def _rel_err(outs_k, outs_p) -> float:
     return diff / scale
 
 
+def _tfd_rerun_check(a, heads: int, label: str) -> None:
+    """The stack step with want_attn twice on copies of the same caches:
+    x', both caches and the mean-head weights must be the same bits."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    outs = []
+    for _ in range(2):
+        outs.append(tdk.decoder_stack_step(
+            a["x"], a["t"], a["ck"], a["cv"], a["mask"], a["kc"].clone(),
+            a["vc"].clone(), a["w"], a["anc"], n_heads=heads,
+            want_attn=True))
+    torch.cuda.synchronize()
+    same = [torch.equal(p, q) for p, q in zip(*outs)]
+    if not all(same):
+        raise AssertionError(f"transformer_decode_stack ({label}): a rerun "
+                             "with want_attn changed (x', cache_k, cache_v, "
+                             f"attn) equal = {same}")
+    log(f"kernel transformer_decode_stack ({label}): x', caches and the "
+        "want_attn weights bit-identical on a rerun")
+
+
+def _tfd_cublas_gemms(w, rows: int, d: int, dff: int, dev):
+    """Device time of the 6 products a layer at their shapes through
+    torch.matmul (cuBLAS, TF32 off), over the layers of `w` (each key
+    [L, ...]), on activations of the step's size: (ms, how it was read).
+    A yardstick of the GEMMs, not a library counterpart of the step."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    act = torch.randn((rows, max(d, dff)), generator=gen, device=dev)
+    y, h1 = act[:, :d].contiguous(), act[:, :dff].contiguous()
+    n_l = w["wqkv"].shape[0]
+
+    def run():
+        for l in range(n_l):
+            torch.matmul(y, w["wqkv"][l])
+            torch.matmul(y, w["wo_s"][l])
+            torch.matmul(y, w["wq_c"][l])
+            torch.matmul(y, w["wo_c"][l])
+            torch.matmul(y, w["w1"][l])
+            torch.matmul(h1, w["w2"][l])
+
+    return library_ms(run)
+
+
 def phase_tfd_kernels(dev) -> dict:
     """The decoder-step kernel against its plain version at both path
     shapes, as the 6-layer stack and as one layer; returns the kernels'
@@ -1327,7 +1380,15 @@ def phase_tfd_kernels(dev) -> dict:
 
         err = _rel_err(stack_k(), stack_p())
         torch.cuda.synchronize()
+        _tfd_rerun_check(a, heads, label)
         w0 = {k: v[0].contiguous() for k, v in a["w"].items()}
+        # the yardstick of each record over its own weights: one layer's
+        # stay in L2 across a timed loop, a 6-layer stack's do not
+        gemms = {"transformer_decode_stack":
+                 _tfd_cublas_gemms(a["w"], rows, d, dff, dev),
+                 "transformer_decode_layer":
+                 _tfd_cublas_gemms({k: v[None] for k, v in w0.items()},
+                                   rows, d, dff, dev)}
         ck0, cv0 = a["ck"][0].contiguous(), a["cv"][0].contiguous()
         lk_, lv_, lkp, lvp = (c[:, 0].contiguous() for c in (
             a["kc"], a["vc"], a["kc"], a["vc"]))
@@ -1358,10 +1419,16 @@ def phase_tfd_kernels(dev) -> dict:
             parts = {}
             k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, TFD_KERNELS,
                                                         parts=parts)
+            mine_gemm = sum(ms for n, (ms, _) in parts.items()
+                            if "decode_gemm_kernel" in n)
+            layers = n_l if name.endswith("stack") else 1
+            gemm_ms, gemm_how = gemms[name]
             recs[name].append(dict(shape=f"{label}: {shape}", err=e, ms=k_ms,
                                    plain_ms=p_ms, wall_ms=k_wall,
                                    plain_wall_ms=p_wall, bound_ms=b_ms,
-                                   bound_by=b_by, timing=how))
+                                   bound_by=b_by, timing=how,
+                                   gemms_ms=mine_gemm,
+                                   gemms_cublas_ms=gemm_ms))
             log(f"kernel {name} [{shape}] ({label}, {what}): max|diff| / "
                 f"max(1, max|plain|) {e:.3g} (tol {TFD_TOL}); {how}: kernel "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
@@ -1372,6 +1439,11 @@ def phase_tfd_kernels(dev) -> dict:
                     + ", ".join(f"{n} {ms:.4f} ms x{c:g}" for n, (ms, c) in
                                 sorted(parts.items(),
                                        key=lambda kv: -kv[1][0])))
+            log(f"  {name} ({label}): its {6 * layers} GEMMs "
+                f"{mine_gemm:.4f} ms in decode_gemm_kernel; the same "
+                f"products through torch.matmul (cuBLAS, TF32 off) "
+                f"{gemm_ms:.4f} ms ({gemm_how}), a yardstick "
+                "of the GEMMs alone, not of the step")
     replaces = {"transformer_decode_stack":
                 "unpaired_image_captioning_tpu/ops/transformer_decode.py:275",
                 "transformer_decode_layer":

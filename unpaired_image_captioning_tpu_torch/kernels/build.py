@@ -56,6 +56,9 @@ SIGNATURES = {
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
     # q, att, h1, R, B, S, d, T, d_ff, H, stream
     "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
+    # kb, d, d_ff, H, S, T, out int64 [2] (the attentions' shared memory)
+    # -> 0, or the limit the shape breaks
+    "tfd_refuses": (_I,) * 6 + (_P,),
     # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
     # keep_div, dropout, stream
     "mha_train_fwd_f32": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _P),

@@ -26,9 +26,6 @@ from . import build
 stack_launches = 0
 layer_launches = 0
 
-MAX_SMEM = 227 * 1024   # bytes of shared memory a Hopper block can opt into
-SELF_ATTN_WARPS = 8     # ATTN_WARPS of the CUDA source
-
 
 def _check(name: str, tensors: dict, device) -> None:
     for key, (t, shape, dtype) in tensors.items():
@@ -47,23 +44,32 @@ def _check(name: str, tensors: dict, device) -> None:
 
 def _check_dims(name: str, rows: int, bsz: int, d: int, dff: int,
                 n_heads: int, slots: int, n_t: int) -> None:
+    """Raise for a shape the kernels do not take; the limits are the CUDA
+    source's own (`tfd_refuses`)."""
     if bsz <= 0 or rows % bsz:
         raise ValueError(f"{name}: {rows} rows are not a whole number of "
                          f"beams over {bsz} images")
-    if d % n_heads or d // n_heads > 128:
-        raise ValueError(f"{name}: d={d} must split into {n_heads} heads "
-                         "of at most 128")
-    if d % 4 or dff % 4:
-        raise ValueError(f"{name}: d={d} and d_ff={dff} must be multiples "
-                         "of 4 (16-byte rows)")
-    dh, kb = d // n_heads, rows // bsz
-    if SELF_ATTN_WARPS * n_t * 4 > 48 * 1024:
-        raise ValueError(f"{name}: {n_t} cache slots exceed the "
-                         "self-attention's static shared memory")
-    smem = (slots * (2 * dh + 1) + kb * dh + kb * slots) * 4
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: cross-attention over {slots} slots needs "
-                         f"{smem} B of shared memory, more than {MAX_SMEM}")
+    if n_heads <= 0 or d % n_heads:
+        raise ValueError(f"{name}: d={d} does not split into {n_heads} "
+                         "heads")
+    kb, dh = rows // bsz, d // n_heads
+    smem = (ctypes.c_longlong * 2)()
+    why = build.load().tfd_refuses(kb, d, dff, n_heads, slots, n_t, smem)
+    if why == 1:
+        raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
+                         "heads) must be a multiple of 4 (16-byte rows) and "
+                         "at most 128")
+    if why == 2:
+        raise ValueError(f"{name}: d_ff={dff} must be a multiple of 4 "
+                         "(16-byte rows)")
+    if why == 3:
+        raise ValueError(f"{name}: {n_t} cache slots need {smem[0]} B of "
+                         "self-attention shared memory, more than a block "
+                         "can hold")
+    if why:
+        raise ValueError(f"{name}: cross-attention over {slots} slots at "
+                         f"{kb} beams needs {smem[1]} B of shared memory, "
+                         "more than a block can hold")
 
 
 def _weights(name: str, w: dict, lead: tuple, d: int, dff: int, device):
