@@ -24,7 +24,9 @@ Then it trains: the training attention, training LayerNorm and
 whole-layer kernels (encoder and decoder layer) are held against their
 plain versions (forward and backward, dropout on, each backward twice bit
 for bit; the attention's forward twice too, with its rows' softmax
-statistics) at the transformer captioner's training shapes, and
+statistics) at the transformer captioner's training shapes (the encoder
+layer also at the transformer NMT's: 16 positions, d_ff 2048), each
+whole layer beside cuBLAS (TF32 off) over its products alone, and
 `Trainer.train` trains the full-width transformer captioner (bench.py's
 transformer XE configuration: 6 + 6 layers, d 512, batch 50, Adam) on
 random data from seed 0 on each of its three routes: 2 + 10 steps on the
@@ -76,8 +78,9 @@ converted weights from a generated torchvision state dict) into the LSTM
 pivot; `prepro_feats.main` writes four images' feature files; ResNet-101
 runs on two images on the card and on the CPU with the same weights. The
 blocked LSTM chain (B10) is held against its plain version, forward and
-backward, at the lstm0 fragment's shape (B 50, T 17, D 1024, H 512) for
-G = 5 and G = 4, and against 17 `lstm_cell` steps with autograd; the
+backward (each twice bit for bit), at the lstm0 fragment's shape (B 50,
+T 17, D 1024, H 512) for G = 5 and G = 4, and against 17 `lstm_cell` steps
+with autograd; the
 fragment then runs once through `blocked_lstm_chain` with its launch
 counts read.
 
@@ -186,10 +189,10 @@ LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
 # whole-layer wrappers launch all of them)
 MHA_BWD_KERNELS = ("mha_dsum_kernel", "mha_bwd_dkdv_kernel",
                    "mha_bwd_dq_kernel")
-TRAIN_KERNELS = ("uic::gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
+TRAIN_KERNELS = ("train_gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
                  "ln_fwd_kernel", "ln_bwd_kernel",
-                 "ln_bwd_reduce_kernel", "drop_kernel", "colsum_kernel",
-                 "sum_splits_kernel")
+                 "ln_bwd_reduce_kernel", "drop_kernel",
+                 "weight_transpose_kernel")
 
 # denseatt captioner XE training at full width (bench.py:140-158): the
 # serving captioner's widths, batch 50, labels [50, 18], drop_prob_lm 0.5,
@@ -277,6 +280,13 @@ NMT_ROUTES = [("BiLSTM NMT", (False,), TRAIN_STEPS,
 # denseatt 3 * 17 cells, the NMT's and the teacher's forward
 JOINT_ROUTES = [("joint denseatt + BiLSTM NMT", (False,), TRAIN_STEPS,
                  {"lstm_cell": 3 * _T1 + 2 * NMT_CELLS})]
+# (label, B, T, d, d_ff, heads): the whole encoder layer (B6) at the
+# transformer captioner's training shape (196 slots, image 1 padded past
+# 150) and at the transformer NMT's (sources of 6-16 tokens padded to 16)
+ENC_LAYER_SHAPES = [
+    ("captioner encoder", 50, 196, 512, 512, 8),
+    ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8),
+]
 TNMT_ROUTES = [("transformer NMT, default (whole encoder layers)",
                 (True, False), ROUTE_STEPS,
                 _per_step(enc=_L, mha=2 * _L, ln=3 * _L + 2))]
@@ -1889,72 +1899,155 @@ def _yardsticks(label, fwd, params, g):
     return f_ms, b_ms
 
 
-def _split_parts(parts: dict) -> str:
+# a whole-layer wrapper's CUDA kernels by kind
+LAYER_KINDS = {"gemm": ("gemm_kernel",), "attention": ("mha_",),
+               "layernorm": ("ln_",), "dropout": ("drop_kernel",),
+               "weight transposes": ("weight_transpose",)}
+
+
+def _kind_ms(parts: dict) -> dict:
     """A wrapper's device time per call by kind of CUDA kernel."""
-    kinds = {"gemm": ("gemm_kernel",), "attention": ("mha_",),
-             "layernorm": ("ln_",),
-             "dropout and sums": ("drop_kernel", "colsum", "sum_splits")}
-    out = []
-    for kind, keys in kinds.items():
-        ms = sum(v for n, (v, _) in parts.items()
-                 if any(k in n for k in keys))
-        out.append(f"{kind} {ms:.4f}")
-    return ", ".join(out) + " ms"
+    return {kind: sum(v for n, (v, _) in parts.items()
+                      if any(k in n for k in keys))
+            for kind, keys in LAYER_KINDS.items()}
+
+
+def _split_parts(parts: dict) -> str:
+    return ", ".join(f"{k} {ms:.4f}" for k, ms in _kind_ms(parts).items()
+                     ) + " ms"
+
+
+def _layer_gemms(acts: dict, w: dict, decoder: bool):
+    """The products of one whole-layer forward and backward as
+    (forward, backward) lists of (A, B) pairs on the layer's own weights
+    and saved activations (acts: y1, ao, y2, hd, and the decoder's co and
+    y3, each [M, cols]); the backward's dY operands are random tensors of
+    their shapes. What `_cublas_gemms` times."""
+    import torch
+
+    m, d = acts["y1"].shape
+    gen = torch.Generator(device=acts["y1"].device).manual_seed(3)
+
+    def rnd(cols):
+        return torch.randn((m, cols), generator=gen, device=gen.device)
+
+    ffn_in = acts["y3"] if decoder else acts["y2"]
+    fwd = [(acts["y1"], w["wqkv"]), (acts["ao"], w["wo"]),
+           (ffn_in, w["w1"]), (acts["hd"], w["w2"])]
+    df, dlin, dout, dqkv = (rnd(d), rnd(acts["hd"].shape[1]), rnd(d),
+                            rnd(3 * d))
+    bwd = [(acts["hd"].t(), df), (df, w["w2"].t()), (ffn_in.t(), dlin),
+           (dlin, w["w1"].t()), (acts["ao"].t(), dout), (dout, w["wo"].t()),
+           (acts["y1"].t(), dqkv), (dqkv, w["wqkv"].t())]
+    if decoder:
+        dco, dqc = rnd(d), rnd(d)
+        fwd += [(acts["y2"], w["wq"]), (acts["co"], w["wo2"])]
+        bwd += [(acts["co"].t(), dco), (dco, w["wo2"].t()),
+                (acts["y2"].t(), dqc), (dqc, w["wq"].t())]
+    return fwd, bwd
+
+
+def _cublas_gemms(pairs):
+    """Device time of torch.matmul (cuBLAS, TF32 off) over the pairs, and
+    their operations: (ms, how read, flops). A yardstick of a layer's
+    GEMMs that the port never calls."""
+    import torch
+
+    flops = sum(2.0 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in pairs)
+    ms, how = library_ms(lambda: [torch.matmul(a, b) for a, b in pairs])
+    return ms, how, flops
+
+
+def _gemm_plans(pairs) -> str:
+    """train_gemm.cuh's plan of each distinct product shape M x N x K: the
+    128-row tiles run in whole rounds, K unsplit, and the rest with K split
+    across clusters."""
+    import ctypes
+
+    from unpaired_image_captioning_tpu_torch.kernels import build
+
+    out, seen = [], set()
+    plan = (ctypes.c_int * 4)()
+    for a, b in pairs:
+        key = (a.shape[0], b.shape[1], a.shape[1])
+        if key in seen:
+            continue
+        seen.add(key)
+        build.check(build.load().layer_train_gemm_plan(*key, plan),
+                    "layer_train_gemm_plan")
+        full, rows, cs, at_once = plan
+        out.append(f"{key[0]}x{key[1]}x{key[2]}: {full} of {rows} row tiles "
+                   f"unsplit, the rest in clusters of {cs} ({at_once} at "
+                   "once)")
+    return "; ".join(out)
 
 
 def phase_layer_kernels(dev) -> dict:
-    """The whole-layer kernels against their plain versions at the
-    captioner's training shapes (encoder layer: B 50, T 196, one image's
-    slots padded past 150; decoder layer: T 17 causal + pad over S 196),
-    dropout 0.1, forward and backward, each backward twice bit for bit.
-    Yardsticks beside each: the port's per-sublayer route over the same
-    layer (the mha_train / ln_train kernels and cuBLAS, dropout from a
-    generator) and PyTorch's own pre-norm layer at the same widths (the
-    same work in another formula: biased variance, eps inside the sqrt; the
-    decoder layer also projects the memory's K/V). Returns the JSON
-    records."""
+    """The whole-layer kernels against their plain versions, dropout 0.1,
+    forward and backward, each backward twice bit for bit: the encoder layer
+    (B6) at each of ENC_LAYER_SHAPES, the decoder layer (B7) at the
+    captioner's (T 17 causal + pad over S 196). Yardsticks beside each: the
+    port's per-sublayer route over the same layer (the mha_train / ln_train
+    kernels and cuBLAS, dropout from a generator), PyTorch's own pre-norm
+    layer at the same widths (the same work in another formula: biased
+    variance, eps inside the sqrt; the decoder layer also projects the
+    memory's K/V), and cuBLAS (TF32 off) over the layer's products alone on
+    the same weights and activations, beside the kernel's own GEMMs (its
+    `train_gemm_kernel` launches). Returns the JSON records."""
     import torch
 
-    from unpaired_image_captioning_tpu_torch.kernels import (
-        additive_attention as aak)
     from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
     from unpaired_image_captioning_tpu_torch.models import transformer as tm
     from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    d, f = TCAP["input_encoding_size"], TCAP["rnn_size"]
-    heads = TCAP["num_heads"]
-    dh = d // heads
-    b, s = TRAIN["batch_size"], N_SLOTS
-    t_dec = TRAIN["seq_length"] + 1
-    kw = dict(n_heads=heads, rate=TRAIN_RATE)
+    kw_rate = dict(rate=TRAIN_RATE)
     src = "unpaired_image_captioning_tpu_torch/csrc/layer_train.cu"
     tpu = "unpaired_image_captioning_tpu/ops/layer_train.py:"
     rec = {}
 
     def record(name, replaces, err, shape, timing, by, flops, sub_ms,
-               torch_ms, torch_what):
+               torch_ms, torch_what, cublas):
         k_ms, p_ms, k_wall, p_wall, how, parts = timing
         b_ms, b_by = bound(by, flops)
-        rec[name] = {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": tpu + replaces[0],
-            "replaces_all": [tpu + r for r in replaces],
-            "max_abs_err": err, "err_is": "max|diff| / max(1, max|plain|)",
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": shape, "timing": how,
-            "wall_ms": k_wall, "plain_wall_ms": p_wall,
-            "yardsticks": {"sublayer_route_ms": sub_ms,
-                           "torch_layer_ms": torch_ms,
-                           "torch_layer_is": torch_what},
-            "shapes": [dict(label=shape, ms=k_ms, plain_ms=p_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=None)]}
+        kinds = _kind_ms(parts)
+        c_ms, c_how, g_flops = cublas
+        g_ms = kinds["gemm"]
+        rate = g_flops / g_ms / 1e9 if g_ms > 0 else float("nan")
+        row = dict(label=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, err=err, timing=how,
+                   wall_ms=k_wall, plain_wall_ms=p_wall, by_kind_ms=kinds,
+                   gemms_ms=g_ms, gemms_cublas_ms=c_ms,
+                   gemms_tflops=rate, yardsticks={
+                       "sublayer_route_ms": sub_ms, "torch_layer_ms": torch_ms,
+                       "torch_layer_is": torch_what})
+        if name not in rec:
+            rec[name] = {
+                "name": name, "route": "cuda", "source": src,
+                "replaces": tpu + replaces[0],
+                "replaces_all": [tpu + r for r in replaces],
+                "max_abs_err": err,
+                "err_is": "max|diff| / max(1, max|plain|)",
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "shape": shape,
+                "timing": how, "wall_ms": k_wall, "plain_wall_ms": p_wall,
+                "yardsticks": row["yardsticks"], "shapes": [row]}
+        else:
+            rec[name]["shapes"].append(row)
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
         log(f"kernel {name} [{shape}]: {how}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, plain "
             f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}, "
             f"{flops / 1e9:.1f} GFLOP); kernel by kind: {_split_parts(parts)}"
-            f"; yardsticks: per-sublayer route {sub_ms:.4f} ms, {torch_what} "
+            f"; its GEMMs {g_ms:.4f} ms ({rate:.1f} TFLOP/s over "
+            f"{g_flops / 1e9:.1f} GFLOP, {rate / (F32_FLOPS / 1e12):.2f} of "
+            f"the f32 peak), cuBLAS over the same products {c_ms:.4f} ms "
+            f"({c_how}; ours / cuBLAS {g_ms / c_ms:.2f}); yardsticks: "
+            f"per-sublayer route {sub_ms:.4f} ms, {torch_what} "
             f"{torch_ms:.4f} ms; library: none computes this function")
+        log(f"kernel {name} [{shape}] by CUDA kernel (ms a call, launches): "
+            + "; ".join(f"{n[:90]} {v:.4f} ({c:g})" for n, (v, c) in
+                        sorted(parts.items(), key=lambda e: -e[1][0])))
 
     def timed(kfn, pfn):
         parts = {}
@@ -1970,80 +2063,112 @@ def phase_layer_kernels(dev) -> dict:
         finally:
             _route_flags(*old)
 
-    # ---- encoder layer
-    x, g = (torch.randn((b, s, d), generator=gen, device=dev)
-            for _ in range(2))
-    keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
-    keep[1, :, 150:] = False
-    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
-    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
-    w = _layer_weights(gen, dev, lto.ENC_WEIGHTS, d, f)
-    ws = [w[k] for k in lto.ENC_WEIGHTS]
-    out, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
-    grads = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
-    again = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
-    ref, x2 = lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)
-    # the backward against the plain one on the kernel's relu pattern: a
-    # pre-activation within rounding of 0 may fall either side of the kink
-    refs = lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws, **kw,
-                             relu_active=saved[-1] > 0)
-    torch.cuda.synchronize()
-    _relu_flips("enc_layer_train", x2, w, saved[-1], seed, heads)
-    e_f = _check_each("enc_layer_train_fwd", ("out", "x2"), (out, saved[0]),
-                      (ref, x2))
-    e_b = _check_each("enc_layer_train_bwd", ("dx",) + lto.ENC_WEIGHTS,
-                      grads, refs)
-    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
-        raise AssertionError("enc_layer_train_bwd: two runs differ")
-    shape = (f"B={b} T={s} d={d} d_ff={f} H={heads} rate={TRAIN_RATE}, "
-             "image 1 padded past 150")
-    log(f"kernel enc_layer_train [{shape}]: max|diff| / max(1, max|plain|) "
-        f"out/x2 {e_f:.3g}, dx and 12 weight gradients {e_b:.3g} (tol "
-        f"{TRAIN_TOL}, each tensor); backward twice: identical bits")
-    m = b * s
-    pairs = float((maskadd >= 0).expand(b, s, s).sum()) * heads
-    proj = float(m) * (4 * d * d + 2 * d * f)
-    lp = _layer_module(dev, w, d, f, decoder=False)
-    xr = x.detach().requires_grad_()
-    params = [xr] + list(lp.parameters())
-    sub_f, sub_b = _yardsticks(
-        "enc layer, per-sublayer route (mha_train, ln_train, cuBLAS)",
-        lambda: sublayer(tm.enc_layer_apply, (lp, xr, keep, heads)),
-        params, g)
-    ref_layer = torch.nn.TransformerEncoderLayer(
-        d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
-        device=dev)
-    tparams = [xr] + list(ref_layer.parameters())
-    tor_f, tor_b = _yardsticks(
-        "enc layer, torch.nn.TransformerEncoderLayer(norm_first, dropout 0)",
-        lambda: ref_layer(xr, src_key_padding_mask=~keep[:, 0]), tparams, g)
-    what = "torch.nn.TransformerEncoderLayer (same work, other formula)"
-    record("enc_layer_train_fwd", ["131"], e_f, shape,
-           timed(lambda: ltk.enc_layer_fwd(x, maskadd, seed, w, **kw),
-                 lambda: lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)),
-           nbytes(x, maskadd, seed, *ws, out, x2),
-           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what)
-    record("enc_layer_train_bwd", ["163", "202"], e_b, shape,
-           timed(lambda: ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g,
-                                           **kw),
-                 lambda: lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws,
-                                           **kw)),
-           nbytes(x, maskadd, seed, *ws, *saved, g, *grads),
-           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what)
-    del out, saved, grads, again, ref, x2, refs, lp, ref_layer, xr, params
-    del tparams
+    # ---- encoder layer, at each shape
+    for label, b, s, d, f, heads in ENC_LAYER_SHAPES:
+        kw = dict(n_heads=heads, **kw_rate)
+        dh = d // heads
+        x, g = (torch.randn((b, s, d), generator=gen, device=dev)
+                for _ in range(2))
+        keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+        if s == N_SLOTS:
+            keep[1, :, 150:] = False
+            pad = "image 1 padded past 150"
+        else:
+            lengths = torch.randint(6, s + 1, (b,), generator=gen,
+                                    device=dev)
+            keep = (torch.arange(s, device=dev)[None, None, :]
+                    < lengths[:, None, None])
+            pad = "sources of 6-16 tokens"
+        maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+        seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+        w = _layer_weights(gen, dev, lto.ENC_WEIGHTS, d, f)
+        ws = [w[k] for k in lto.ENC_WEIGHTS]
+        out, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
+        grads = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
+        again = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
+        ref, x2 = lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)
+        # the backward against the plain one on the kernel's relu pattern: a
+        # pre-activation within rounding of 0 may fall either side of the
+        # kink
+        refs = lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws, **kw,
+                                 relu_active=saved[-1] > 0)
+        torch.cuda.synchronize()
+        name = f"enc_layer_train ({label})"
+        _relu_flips(name, x2, w, saved[-1], seed, heads)
+        e_f = _check_each(f"{name} fwd", ("out", "x2"), (out, saved[0]),
+                          (ref, x2))
+        e_b = _check_each(f"{name} bwd", ("dx",) + lto.ENC_WEIGHTS, grads,
+                          refs)
+        if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+            raise AssertionError(f"{name} bwd: two runs differ")
+        shape = (f"{label}: B={b} T={s} d={d} d_ff={f} H={heads} "
+                 f"rate={TRAIN_RATE}, {pad}")
+        log(f"kernel enc_layer_train [{shape}]: max|diff| / max(1, "
+            f"max|plain|) out/x2 {e_f:.3g}, dx and 12 weight gradients "
+            f"{e_b:.3g} (tol {TRAIN_TOL}, each tensor); backward twice: "
+            "identical bits")
+        m = b * s
+        acts = {"y1": saved[1].reshape(m, d), "ao": saved[3].reshape(m, d),
+                "y2": saved[5].reshape(m, d), "hd": saved[6].reshape(m, f)}
+        g_fwd, g_bwd = _layer_gemms(acts, w, decoder=False)
+        log(f"kernel enc_layer_train [{label}] GEMM plans: "
+            + _gemm_plans(g_fwd + g_bwd))
+        cub_f, cub_b = _cublas_gemms(g_fwd), _cublas_gemms(g_bwd)
+        del acts, g_fwd, g_bwd
+        pairs = float((maskadd >= 0).expand(b, s, s).sum()) * heads
+        proj = float(m) * (4 * d * d + 2 * d * f)
+        lp = _layer_module(dev, w, d, f, decoder=False)
+        xr = x.detach().requires_grad_()
+        params = [xr] + list(lp.parameters())
+        sub_f, sub_b = _yardsticks(
+            f"enc layer [{label}], per-sublayer route (mha_train, ln_train, "
+            "cuBLAS)",
+            lambda: sublayer(tm.enc_layer_apply, (lp, xr, keep, heads)),
+            params, g)
+        ref_layer = torch.nn.TransformerEncoderLayer(
+            d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
+            device=dev)
+        tparams = [xr] + list(ref_layer.parameters())
+        tor_f, tor_b = _yardsticks(
+            f"enc layer [{label}], torch.nn.TransformerEncoderLayer("
+            "norm_first, dropout 0)",
+            lambda: ref_layer(xr, src_key_padding_mask=~keep[:, 0]), tparams,
+            g)
+        what = "torch.nn.TransformerEncoderLayer (same work, other formula)"
+        record("enc_layer_train_fwd", ["131"], e_f, shape,
+               timed(lambda: ltk.enc_layer_fwd(x, maskadd, seed, w, **kw),
+                     lambda: lto.enc_fwd_plain(x, maskadd, seed, *ws, **kw)),
+               nbytes(x, maskadd, seed, *ws, out, x2),
+               2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what, cub_f)
+        record("enc_layer_train_bwd", ["163", "202"], e_b, shape,
+               timed(lambda: ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g,
+                                               **kw),
+                     lambda: lto.enc_bwd_plain(x, maskadd, seed, x2, g, *ws,
+                                               **kw)),
+               nbytes(x, maskadd, seed, *ws, *saved, g, *grads),
+               4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what, cub_b)
+        del out, saved, grads, again, ref, x2, refs, lp, ref_layer, xr
+        del params, tparams
 
     # ---- decoder layer
+    d, f = TCAP["input_encoding_size"], TCAP["rnn_size"]
+    heads = TCAP["num_heads"]
+    dh = d // heads
+    kw = dict(n_heads=heads, **kw_rate)
+    b, s = TRAIN["batch_size"], N_SLOTS
+    t_dec = TRAIN["seq_length"] + 1
     x, g = (torch.randn((b, t_dec, d), generator=gen, device=dev)
             for _ in range(2))
     mk, mv = (torch.randn((b, s, d), generator=gen, device=dev)
               for _ in range(2))
+    keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+    keep[1, :, 150:] = False
     pos = torch.arange(t_dec, device=dev)
     lengths = torch.randint(5, t_dec + 1, (b,), generator=gen, device=dev)
     pad_ok = (pos[None, :] < lengths[:, None]) | (pos[None, :] == 0)
     tkeep = pad_ok[:, None, :] & (pos[None, :] <= pos[:, None])[None]
     tmask = torch.where(tkeep, 0.0, -1e9).contiguous()
-    smask = maskadd                                     # [B, 1, S]
+    smask = torch.where(keep, 0.0, -1e9).contiguous()     # [B, 1, S]
     seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
                          device=dev)
     w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
@@ -2070,6 +2195,14 @@ def phase_layer_kernels(dev) -> dict:
         f"out/x2/x3 {e_f:.3g}, dx/dmk/dmv and 18 weight gradients {e_b:.3g} "
         f"(tol {TRAIN_TOL}, each tensor); backward twice: identical bits")
     m = b * t_dec
+    # saved: x2, x3, y1, qkv, ao, y2, qc, co, y3, the two stats, hd
+    acts = {k: saved[i].reshape(m, -1) for k, i in
+            (("y1", 2), ("ao", 4), ("y2", 5), ("co", 7), ("y3", 8),
+             ("hd", 11))}
+    g_fwd, g_bwd = _layer_gemms(acts, w, decoder=True)
+    log("kernel dec_layer_train GEMM plans: " + _gemm_plans(g_fwd + g_bwd))
+    cub_f, cub_b = _cublas_gemms(g_fwd), _cublas_gemms(g_bwd)
+    del acts, g_fwd, g_bwd
     pairs = (float(tkeep.sum()) + float((smask >= 0).expand(b, t_dec, s).sum())
              ) * heads
     proj = float(m) * (6 * d * d + 2 * d * f)
@@ -2097,12 +2230,12 @@ def phase_layer_kernels(dev) -> dict:
            timed(lambda: ltk.dec_layer_fwd(*args, w, **kw),
                  lambda: lto.dec_fwd_plain(*args, *ws, **kw)),
            nbytes(*args, *ws, out, x2, x3),
-           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what)
+           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what, cub_f)
     record("dec_layer_train_bwd", ["476", "163", "202"], e_b, shape,
            timed(lambda: ltk.dec_layer_bwd(*args, w, saved, g, **kw),
                  lambda: lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw)),
            nbytes(*args, *ws, *saved, g, *grads),
-           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what)
+           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what, cub_b)
     return rec
 
 
@@ -3070,7 +3203,8 @@ def _cell_route(w, bias, x, h0, c0, ch, cc, maxout: bool):
 def phase_chain_kernels(dev) -> dict:
     """B10's forward and backward kernels against their plain versions at
     the lstm0 fragment's shape (B 50, T 17, D 1024, H 512), G = 5 and G = 4,
-    and the whole fragment against T `lstm_cell` launches with autograd."""
+    each direction twice bit for bit, and the whole fragment against T
+    `lstm_cell` launches with autograd."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.kernels import build
@@ -3107,6 +3241,12 @@ def phase_chain_kernels(dev) -> dict:
                           ["dx_contrib", "dh0", "dc0", "dW_h2h"],
                           [dg, dh0, dc0, dw], [pdg, pdh0, pdc0, pdw],
                           CHAIN_TOL)
+        # both directions sum in a fixed order: a rerun gives the same bits
+        again = (lb.chain_fwd(xc, h0, c0, w_hh, maxout=maxout)
+                 + lb.chain_bwd(gates, cs, c0, ch, cc, w_hh, maxout=maxout))
+        if not all(torch.equal(a, c) for a, c in
+                   zip(again, (hs, cs, gates, dg, dh0, dc0))):
+            raise AssertionError(f"lstm_chain {tag}: two runs differ")
         # the whole fragment (autograd Function, hoisted matmuls) against
         # the per-step route: 17 lstm_cell launches with autograd
         inputs = (w, bias, x, h0, c0, ch, cc)
@@ -3173,7 +3313,8 @@ def phase_chain_kernels(dev) -> dict:
             f"call fwd {per_call[0]} + bwd {per_call[1]}; max|diff| / max(1, "
             f"max|plain|) forward {e_f:.3g}, backward (dx_contrib, dh0, dc0, "
             f"dW_h2h) {e_b:.3g}, fragment vs {t} lstm_cell steps {e_c:.3g} "
-            f"(tol {CHAIN_TOL}); {how_f}: forward kernel {kf:.4f} ms, plain "
+            f"(tol {CHAIN_TOL}); forward and backward twice: identical bits; "
+            f"{how_f}: forward kernel {kf:.4f} ms, plain "
             f"{pf:.4f} ms (per call {kfw:.4f} / {pfw:.4f}), bound "
             f"{bf_ms:.4f} ms ({bf_by}); backward kernel {kb:.4f} ms, plain "
             f"{pb:.4f} ms (per call {kbw:.4f} / {pbw:.4f}), bound "

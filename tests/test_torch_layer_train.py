@@ -213,7 +213,9 @@ def _card_close(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,d,f,heads", [(50, 196, 512, 512, 8),
-                                           (3, 37, 256, 384, 4)])
+                                           (3, 37, 256, 384, 4),
+                                           (50, 16, 512, 2048, 8),
+                                           (5, 29, 96, 100, 3)])
 def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)

@@ -143,7 +143,9 @@ def _rel(got, want):
 @pytest.mark.parametrize("b,t,h,maxout", [(50, 17, 512, True),
                                           (50, 17, 512, False),
                                           (8, 6, 16, True), (3, 2, 100, False),
-                                          (7, 5, 1030, True)])
+                                          (7, 5, 1030, True),
+                                          (13, 4, 52, True),
+                                          (61, 3, 36, False)])
 def test_cuda_kernels_match_plain(cuda_dev, b, t, h, maxout):
     g = 5 if maxout else 4
     gen = torch.Generator(device=cuda_dev).manual_seed(h)
@@ -164,6 +166,11 @@ def test_cuda_kernels_match_plain(cuda_dev, b, t, h, maxout):
     for got, want in ((hs, phs), (cs, pcs), (gates, pgates), (dg, pdg),
                       (dh0, pdh0), (dc0, pdc0)):
         assert _rel(got, want) <= 1e-4
+    # both directions sum in a fixed order: a rerun gives the same bits
+    again = (lb.chain_fwd(xc, h0, c0, w, maxout=maxout)
+             + lb.chain_bwd(gates, cs, c0, dhs, dcs, w, maxout=maxout))
+    assert all(torch.equal(a, c)
+               for a, c in zip(again, (hs, cs, gates, dg, dh0, dc0)))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
-// The port's f32 GEMM on the CUDA cores (no TF32, no tensor cores, no
-// library call), shared by the decoder step (transformer_decode.cu) and the
-// whole-layer training kernels (layer_train.cu):
+// An f32 GEMM on the CUDA cores (no TF32, no tensor cores, no library
+// call), used by the fused att1 -> lstm1 -> att2 decode step
+// (additive_attention.cu, B9c) alone; the decoder step's GEMM is
+// decode_gemm.cuh and the training layers' train_gemm.cuh, which take only
+// its epilogues and gemm_sm_count() from here:
 //
 //   C = epilogue(prologue(A) . B)     over the K range of blockIdx.z
 //

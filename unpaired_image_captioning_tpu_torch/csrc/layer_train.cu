@@ -27,11 +27,15 @@
 //
 //   - LayerNorm: ln_train.cu's kernels (ln_train.cuh); the backward adds the
 //     residual gradient into dx and sums d_scale / d_offset in block order;
-//   - products: gemm.cuh's f32 GEMM (no TF32, no tensor cores, no library
-//     call) with the dropout, relu and residual work in its epilogues; the
-//     input gradients as dY W^T; the weight gradients as A^T dY split over
-//     at most 16 row ranges whose partial products are then added in range
-//     order, and the bias gradients as column sums the same way: no float
+//   - products: train_gemm.cuh's f32 GEMM (no TF32, no tensor cores, no
+//     library call; 128 x 128 tiles, 8 x 8 register tiles, a 3-stage
+//     cp.async ring) with the dropout, relu and residual work in its
+//     epilogues. The input gradients dY W^T read W^T, which one launch at
+//     the start of a backward writes for all the layer's weights, so every
+//     product reads B row-major. A weight gradient X^T dY over the M rows is
+//     one launch: K split across a thread-block cluster, the partial tiles
+//     summed in rank order through distributed shared memory, the bias
+//     gradient summed from the dY tiles in the same launch. No float
 //     atomics, the same bits every run;
 //   - attention: mha_train.cu's kernels (mha_train.cuh) over the q | k | v
 //     column blocks of the packed [M, 3d] projection, with the layer's
@@ -47,16 +51,18 @@
 // What bounds it on the card: operations. At the captioner's encoder layer
 // (M = 9,800, d = d_ff = 512, T = 196, 8 heads) the forward is 30.8 GFLOP
 // of products and 3.9 of attention (0.52 ms at 67 TFLOP/s f32) against
-// about 0.3 GB of traffic (0.09 ms); the backward about twice the
-// products. The f32 GEMM tiles reach a fraction of that peak (see PERF.md);
-// bf16 / wgmma and TMA are later work.
+// about 0.3 GB of traffic (0.09 ms); the backward 61.6 GFLOP of products
+// and about 10 of attention (1.07 ms). The products take most of the time
+// at the f32 FMA rate train_gemm.cuh reaches (PERF.md); the attention
+// (mha_train.cu) and the LayerNorm and dropout passes (bytes) the rest.
+// bf16 / wgmma and TMA wait on a numerics decision.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include "gemm.cuh"
+#include "train_gemm.cuh"
 #include "ln_train.cuh"
 #include "mha_train.cuh"
 
@@ -64,12 +70,12 @@ namespace {
 
 using uic::Attn;
 using uic::EpiBias;
-using uic::GemmArgs;
+using uic_train::TrainGemm;
+using uic_train::train_gemm;
 
 constexpr int N_SITES = 4;        // dropout sites per (layer, element)
 constexpr float EPS = 1e-6f;      // LayerNorm eps, outside the sqrt
-constexpr int SPLIT_ROWS = 256;   // rows per range of a weight gradient, at least
-constexpr int MAX_SPLITS = 16;    // ranges of a weight gradient, at most
+constexpr int MAX_WEIGHTS = 6;    // weights a backward transposes
 constexpr int ELT_THREADS = 256;
 
 struct Dims {
@@ -176,16 +182,6 @@ struct EpiStore {
   }
 };
 
-// one row range's partial product: out[split][r][c]
-struct EpiPartial {
-  float* out;
-  int M, N;
-  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
-                                             int split) const {
-    *reinterpret_cast<float4*>(out + ((size_t)split * M + r) * N + c) = acc;
-  }
-};
-
 // out = drop(g) over [M, cols]
 __global__ void __launch_bounds__(ELT_THREADS)
     drop_kernel(const float* __restrict__ g, float* __restrict__ out, int M,
@@ -200,27 +196,35 @@ __global__ void __launch_bounds__(ELT_THREADS)
   }
 }
 
-// partial[split][c] = sum of y[r][c] over the split's rows, in row order
-__global__ void __launch_bounds__(ELT_THREADS)
-    colsum_kernel(const float* __restrict__ y, int ld, int M, int N,
-                  int chunk, float* __restrict__ partial) {
-  const int c = blockIdx.x * ELT_THREADS + threadIdx.x;
-  if (c >= N) return;
-  const int r0 = blockIdx.y * chunk, r1 = min(M, r0 + chunk);
-  float s = 0.0f;
-  for (int r = r0; r < r1; ++r) s += y[(size_t)r * ld + c];
-  partial[(size_t)blockIdx.y * N + c] = s;
-}
+// The weights' transposes at the start of a backward: job j writes
+// dst[c * rows + r] = src[r * cols + c] for its [rows, cols] weight, one
+// 32 x 32 tile a block, blocks of all jobs in one grid
+struct Transposes {
+  const float* src[MAX_WEIGHTS];
+  float* dst[MAX_WEIGHTS];
+  int rows[MAX_WEIGHTS], cols[MAX_WEIGHTS];
+  int first[MAX_WEIGHTS + 1];   // the jobs' first blocks; first[n] in all
+  int n;
+};
 
-// out[i] = sum over the splits, in split order, of partial[split][i]
-__global__ void __launch_bounds__(ELT_THREADS)
-    sum_splits_kernel(const float* __restrict__ partial, int splits, int n,
-                      float* __restrict__ out) {
-  const int i = blockIdx.x * ELT_THREADS + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * n + i];
-  out[i] = s;
+__global__ void __launch_bounds__(256)
+    weight_transpose_kernel(Transposes t) {
+  __shared__ float tile[32][33];
+  int j = 0;
+  while (j + 1 < t.n && (int)blockIdx.x >= t.first[j + 1]) ++j;
+  const int blk = blockIdx.x - t.first[j];
+  const int R = t.rows[j], C = t.cols[j], col_tiles = (C + 31) / 32;
+  const int r0 = (blk / col_tiles) * 32, c0 = (blk % col_tiles) * 32;
+  const int x = threadIdx.x % 32, y = threadIdx.x / 32;
+  for (int i = y; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + x;
+    if (r < R && c < C) tile[i][x] = t.src[j][(size_t)r * C + c];
+  }
+  __syncthreads();
+  for (int i = y; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + x;
+    if (c < C && r < R) t.dst[j][(size_t)c * R + r] = tile[x][i];
+  }
 }
 
 int blocks_for(size_t n) {
@@ -228,36 +232,20 @@ int blocks_for(size_t n) {
   return (int)(b < 65535 * 16 ? b : 65535 * 16);
 }
 
-// the row ranges of a weight gradient over M rows: (count, rows a range,
-// a multiple of the GEMM's depth tile)
-struct Split {
-  int n, chunk;
-};
-
-Split split_rows(int M) {
-  int n = (M + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  n = n < 1 ? 1 : (n > MAX_SPLITS ? MAX_SPLITS : n);
-  const int bk = uic::GEMM_BK;
-  const int chunk = ((M + n - 1) / n + bk - 1) / bk * bk;
-  return Split{(M + chunk - 1) / chunk, chunk};
-}
-
-// C [M, N] = A [M, K] W [K, N]
-GemmArgs fwd_args(const float* a, const float* w, int M, int N, int K) {
-  return GemmArgs{a, w, nullptr, nullptr, K, N, M, N, K, K};
-}
-
-// C [M, N] = dY [M, K] W^T for W [N, K] row-major
-GemmArgs dx_args(const float* dy, const float* w, int M, int N, int K) {
-  return GemmArgs{dy, w, nullptr, nullptr, K, K, M, N, K, K};
+// C [M, N] = A [M, K] B [K, N], both row-major and packed (the input
+// gradients read a weight's transpose as B)
+TrainGemm nn(const float* a, const float* b, int M, int N, int K) {
+  return TrainGemm{a, b, nullptr, K, N, M, N, K, 0, 0};
 }
 
 // The scratch of a backward call: gradients of the layer's activations,
-// the attention backward's scratch (the rows' g . o and ds) and the partial
-// sums of the weight gradients. carve() lays it out from `base` (null: only to size it).
+// the attention backward's scratch (the rows' g . o and ds), the weights'
+// transposes and the LN backward's partial sums. carve() lays it out from
+// `base` (null: only to size it).
 struct Work {
-  float *df, *dlin, *dy, *dx2, *dx3, *dout, *dattn, *dqkv, *attn, *partial,
+  float *df, *dlin, *dy, *dx2, *dx3, *dout, *dattn, *dqkv, *attn,
       *ln_partial;
+  float *wqkv_t, *wo_t, *w1_t, *w2_t, *wq_t, *wo2_t;   // W^T [N, K]
   size_t floats;
 };
 
@@ -270,7 +258,6 @@ Work carve(float* base, int kind, int B, int T, int S, int d, int f,
     at += (n + 3) / 4 * 4;   // 16-byte aligned regions
     return p;
   };
-  const size_t wmax = (size_t)d * (3 * d > f ? 3 * d : f);
   Work w;
   w.df = take(M * d);
   w.dlin = take(M * f);
@@ -281,31 +268,44 @@ Work carve(float* base, int kind, int B, int T, int S, int d, int f,
   w.dattn = take(M * d);
   w.dqkv = take(M * 3 * d);
   w.attn = take(uic::attn_bwd_scratch_floats(B, H, T, S > T ? S : T));
-  w.partial = take((size_t)MAX_SPLITS * wmax);
   w.ln_partial = take((size_t)uic::LN_BWD_MAX_BLOCKS * 2 * d);
+  w.wqkv_t = take((size_t)3 * d * d);
+  w.wo_t = take((size_t)d * d);
+  w.w1_t = take((size_t)f * d);
+  w.w2_t = take((size_t)d * f);
+  w.wq_t = kind == 1 ? take((size_t)d * d) : nullptr;
+  w.wo2_t = kind == 1 ? take((size_t)d * d) : nullptr;
   w.floats = at;
   return w;
 }
 
-// dw [K, N] = A^T dY and db [N] = column sums of dY, both over M rows, in
-// row-range order; A [M, K] with row stride lda, dY [M, N] with ldy
-int wgrad(const float* a, int lda, int K, const float* dy, int ldy, int N,
-          int M, float* dw, float* db, float* partial, cudaStream_t st) {
-  const Split sp = split_rows(M);
-  const GemmArgs p{a, dy, nullptr, nullptr, lda, ldy, K, N, M, sp.chunk};
-  int err = uic::gemm<false, true, false>(p, EpiPartial{partial, K, N}, st,
-                                          sp.n);
-  if (err) return err;
-  const int n = K * N;
-  sum_splits_kernel<<<(n + ELT_THREADS - 1) / ELT_THREADS, ELT_THREADS, 0,
-                      st>>>(partial, sp.n, n, dw);
-  if ((err = (int)cudaGetLastError())) return err;
-  colsum_kernel<<<dim3((N + ELT_THREADS - 1) / ELT_THREADS, sp.n),
-                  ELT_THREADS, 0, st>>>(dy, ldy, M, N, sp.chunk, partial);
-  if ((err = (int)cudaGetLastError())) return err;
-  sum_splits_kernel<<<(N + ELT_THREADS - 1) / ELT_THREADS, ELT_THREADS, 0,
-                      st>>>(partial, sp.n, N, db);
+// dst [cols, rows] = src [rows, cols]^T for each (src, dst, rows, cols)
+// job, in one launch
+int transpose_weights(const float* const* src, float* const* dst,
+                      const int* rows, const int* cols, int n,
+                      cudaStream_t st) {
+  Transposes t{};
+  t.n = n;
+  int blocks = 0;
+  for (int j = 0; j < n; ++j) {
+    t.src[j] = src[j];
+    t.dst[j] = dst[j];
+    t.rows[j] = rows[j];
+    t.cols[j] = cols[j];
+    t.first[j] = blocks;
+    blocks += ((rows[j] + 31) / 32) * ((cols[j] + 31) / 32);
+  }
+  t.first[n] = blocks;
+  weight_transpose_kernel<<<blocks, 256, 0, st>>>(t);
   return (int)cudaGetLastError();
+}
+
+// dw [K, N] = A^T dY and db [N] = column sums of dY, both over M rows, in
+// one launch; A [M, K] with row stride lda, dY [M, N] with ldy
+int wgrad(const float* a, int lda, int K, const float* dy, int ldy, int N,
+          int M, float* dw, float* db, cudaStream_t st) {
+  return train_gemm<true, true>(
+      TrainGemm{a, dy, db, lda, ldy, K, N, M, 0, 0}, EpiStore{dw, N}, st);
 }
 
 // g itself at rate 0, else drop(g) in `out`
@@ -336,16 +336,16 @@ int self_fwd(const float* x, const float* mask, int mask_rows,
   const int M = m.B * m.T, d = m.d;
   int err = uic::ln_fwd(x, ls, lb, y1, M, d, EPS, st);
   if (err) return err;
-  if ((err = uic::gemm<false, false, false>(fwd_args(y1, wqkv, M, 3 * d, d),
-                                            EpiBias{bqkv, qkv, 3 * d}, st)))
+  if ((err = train_gemm<false, false>(nn(y1, wqkv, M, 3 * d, d),
+                                      EpiBias{bqkv, qkv, 3 * d}, st)))
     return err;
   if ((err = uic::attn_fwd(attn_args(qkv, 3 * d, qkv + d, 3 * d, qkv + 2 * d,
                                      3 * d, mask, mask_rows, seed, m.T, m),
                            ao, stats, st)))
     return err;
-  return uic::gemm<false, false, false>(
-      fwd_args(ao, wo, M, d, d),
-      EpiResDrop{bo, x, x2, d, drop_at(seed, m, 1, d)}, st);
+  return train_gemm<false, false>(
+      nn(ao, wo, M, d, d), EpiResDrop{bo, x, x2, d, drop_at(seed, m, 1, d)},
+      st);
 }
 
 // The cross-attention sublayer: x3 = x2 + drop(attn(LN2(x2) Wq + bq, mk, mv)
@@ -360,15 +360,15 @@ int cross_fwd(const float* x2, const float* mk, const float* mv,
   const int M = m.B * m.T, d = m.d;
   int err = uic::ln_fwd(x2, ls, lb, y2, M, d, EPS, st);
   if (err) return err;
-  if ((err = uic::gemm<false, false, false>(fwd_args(y2, wq, M, d, d),
-                                            EpiBias{bq, qc, d}, st)))
+  if ((err = train_gemm<false, false>(nn(y2, wq, M, d, d),
+                                      EpiBias{bq, qc, d}, st)))
     return err;
   if ((err = uic::attn_fwd(attn_args(qc, d, mk, d, mv, d, sm, 1, seed2, m.S,
                                      m),
                            co, stats, st)))
     return err;
-  return uic::gemm<false, false, false>(
-      fwd_args(co, wo2, M, d, d),
+  return train_gemm<false, false>(
+      nn(co, wo2, M, d, d),
       EpiResDrop{bo2, x2, x3, d, drop_at(seed2, m, 1, d)}, st);
 }
 
@@ -381,36 +381,33 @@ int ffn_fwd(const float* xa, const int* seed, const float* w1,
   const int M = m.B * m.T, d = m.d, f = m.f;
   int err = uic::ln_fwd(xa, ls, lb, y, M, d, EPS, st);
   if (err) return err;
-  if ((err = uic::gemm<false, false, false>(
-           fwd_args(y, w1, M, f, d),
+  if ((err = train_gemm<false, false>(
+           nn(y, w1, M, f, d),
            EpiReluDrop{b1, hd, f, drop_at(seed, m, 2, f)}, st)))
     return err;
-  return uic::gemm<false, false, false>(
-      fwd_args(hd, w2, M, d, f),
+  return train_gemm<false, false>(
+      nn(hd, w2, M, d, f),
       EpiResDrop{b2, xa, out, d, drop_at(seed, m, 3, d)}, st);
 }
 
 // The FFN half of the backward (the Pallas `_bwd_ffn_kernel`): from
 // g = d(out) to dxa = g + d(LN) and the FFN / LN weight gradients
 int ffn_bwd(const float* xa, const float* y, const float* hd, const float* g,
-            const int* seed, const float* w1, const float* w2,
-            const float* ls, float* dxa, float* dw1, float* db1, float* dw2,
-            float* db2, float* dls, float* dlb, const Work& w, const Dims& m,
-            cudaStream_t st) {
+            const int* seed, const float* ls, float* dxa, float* dw1,
+            float* db1, float* dw2, float* db2, float* dls, float* dlb,
+            const Work& w, const Dims& m, cudaStream_t st) {
   const int M = m.B * m.T, d = m.d, f = m.f;
   int err = 0;
   const float* df = dropped(g, w.df, drop_at(seed, m, 3, d), M, st, &err);
   if (err) return err;
-  if ((err = wgrad(hd, f, f, df, d, d, M, dw2, db2, w.partial, st)))
-    return err;
-  if ((err = uic::gemm<false, false, true>(
-           dx_args(df, w2, M, f, d),
+  if ((err = wgrad(hd, f, f, df, d, d, M, dw2, db2, st))) return err;
+  if ((err = train_gemm<false, false>(
+           nn(df, w.w2_t, M, f, d),
            EpiDrelu{hd, w.dlin, f, drop_at(seed, m, 2, f)}, st)))
     return err;
-  if ((err = wgrad(y, d, d, w.dlin, f, f, M, dw1, db1, w.partial, st)))
-    return err;
-  if ((err = uic::gemm<false, false, true>(dx_args(w.dlin, w1, M, d, f),
-                                           EpiStore{w.dy, d}, st)))
+  if ((err = wgrad(y, d, d, w.dlin, f, f, M, dw1, db1, st))) return err;
+  if ((err = train_gemm<false, false>(nn(w.dlin, w.w1_t, M, d, f),
+                                      EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(xa, ls, w.dy, g, dxa, dls, dlb, w.ln_partial, M, d,
                      uic::ln_bwd_blocks(M), EPS, st);
@@ -421,8 +418,7 @@ int ffn_bwd(const float* xa, const float* y, const float* hd, const float* g,
 int self_bwd(const float* x, const float* mask, int mask_rows,
              const int* seed, const float* y1, const float* qkv,
              const float* ao, const float* stats, const float* g2,
-             const float* wqkv, const float* wo, const float* ls, float* dx,
-             float* dwqkv,
+             const float* ls, float* dx, float* dwqkv,
              float* dbqkv, float* dwo, float* dbo, float* dls, float* dlb,
              const Work& w, const Dims& m, cudaStream_t st) {
   const int M = m.B * m.T, d = m.d;
@@ -430,10 +426,9 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
   const float* dout = dropped(g2, w.dout, drop_at(seed, m, 1, d), M, st,
                               &err);
   if (err) return err;
-  if ((err = wgrad(ao, d, d, dout, d, d, M, dwo, dbo, w.partial, st)))
-    return err;
-  if ((err = uic::gemm<false, false, true>(dx_args(dout, wo, M, d, d),
-                                           EpiStore{w.dattn, d}, st)))
+  if ((err = wgrad(ao, d, d, dout, d, d, M, dwo, dbo, st))) return err;
+  if ((err = train_gemm<false, false>(nn(dout, w.wo_t, M, d, d),
+                                      EpiStore{w.dattn, d}, st)))
     return err;
   if ((err = uic::attn_bwd(
            attn_args(qkv, 3 * d, qkv + d, 3 * d, qkv + 2 * d, 3 * d, mask,
@@ -441,11 +436,10 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
            w.dattn, ao, stats, w.dqkv, w.dqkv + d, w.dqkv + 2 * d, w.attn,
            st)))
     return err;
-  if ((err = wgrad(y1, d, d, w.dqkv, 3 * d, 3 * d, M, dwqkv, dbqkv, w.partial,
-                   st)))
+  if ((err = wgrad(y1, d, d, w.dqkv, 3 * d, 3 * d, M, dwqkv, dbqkv, st)))
     return err;
-  if ((err = uic::gemm<false, false, true>(dx_args(w.dqkv, wqkv, M, d, 3 * d),
-                                           EpiStore{w.dy, d}, st)))
+  if ((err = train_gemm<false, false>(nn(w.dqkv, w.wqkv_t, M, d, 3 * d),
+                                      EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(x, ls, w.dy, g2, dx, dls, dlb, w.ln_partial, M, d,
                      uic::ln_bwd_blocks(M), EPS, st);
@@ -457,8 +451,7 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
 int cross_bwd(const float* x2, const float* mk, const float* mv,
               const float* sm, const int* seed2, const float* y2,
               const float* qc, const float* co, const float* stats,
-              const float* g3,
-              const float* wq, const float* wo2, const float* ls, float* dx2,
+              const float* g3, const float* ls, float* dx2,
               float* dmk, float* dmv, float* dwq, float* dbq, float* dwo2,
               float* dbo2, float* dls, float* dlb, const Work& w,
               const Dims& m, cudaStream_t st) {
@@ -467,20 +460,18 @@ int cross_bwd(const float* x2, const float* mk, const float* mv,
   const float* dout = dropped(g3, w.dout, drop_at(seed2, m, 1, d), M, st,
                               &err);
   if (err) return err;
-  if ((err = wgrad(co, d, d, dout, d, d, M, dwo2, dbo2, w.partial, st)))
-    return err;
-  if ((err = uic::gemm<false, false, true>(dx_args(dout, wo2, M, d, d),
-                                           EpiStore{w.dattn, d}, st)))
+  if ((err = wgrad(co, d, d, dout, d, d, M, dwo2, dbo2, st))) return err;
+  if ((err = train_gemm<false, false>(nn(dout, w.wo2_t, M, d, d),
+                                      EpiStore{w.dattn, d}, st)))
     return err;
   float* dqc = w.dqkv;   // [M, d]
   if ((err = uic::attn_bwd(attn_args(qc, d, mk, d, mv, d, sm, 1, seed2, m.S,
                                      m),
                            w.dattn, co, stats, dqc, dmk, dmv, w.attn, st)))
     return err;
-  if ((err = wgrad(y2, d, d, dqc, d, d, M, dwq, dbq, w.partial, st)))
-    return err;
-  if ((err = uic::gemm<false, false, true>(dx_args(dqc, wq, M, d, d),
-                                           EpiStore{w.dy, d}, st)))
+  if ((err = wgrad(y2, d, d, dqc, d, d, M, dwq, dbq, st))) return err;
+  if ((err = train_gemm<false, false>(nn(dqc, w.wq_t, M, d, d),
+                                      EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(x2, ls, w.dy, g3, dx2, dls, dlb, w.ln_partial, M, d,
                      uic::ln_bwd_blocks(M), EPS, st);
@@ -504,6 +495,21 @@ extern "C" {
 int layer_train_ws_f32(int kind, int B, int T, int S, int d, int f, int H,
                       long long* n) {
   *n = (long long)carve(nullptr, kind, B, T, S, d, f, H).floats;
+  return 0;
+}
+
+// The plan of train_gemm.cuh for an M x N x K product into out[4], on the
+// forward's kernel instance (EpiBias): the row tiles run in whole rounds,
+// the row tiles in all, the cluster size of the rest and the clusters of
+// that size the card holds at once. Returns 0, or a CUDA error.
+int layer_train_gemm_plan(int M, int N, int K, int* out) {
+  const int* clusters = uic_train::tg_clusters<false, false, EpiBias>();
+  if (!clusters[0]) return (int)cudaErrorInvalidConfiguration;
+  const uic_train::TgPlan plan = uic_train::tg_plan(M, N, K, clusters);
+  out[0] = plan.full_rows;
+  out[1] = plan.rows;
+  out[2] = plan.cs;
+  out[3] = clusters[plan.cs];
   return 0;
 }
 
@@ -532,13 +538,18 @@ int enc_layer_bwd_f32(const void* const* p, int B, int T, int d, int f, int H,
   cudaStream_t st = (cudaStream_t)stream;
   const Dims m = dims(B, T, T, d, f, H, thresh, keep_div, dropout);
   const Work w = carve(ws, 0, B, T, T, d, f, H);
-  int err = ffn_bwd(F(15), F(20), F(21), F(22), I(2), F(7), F(9), F(13),
-                    w.dx2, O(28), O(29), O(30), O(31), O(34), O(35), w, m,
-                    st);
+  // wqkv, wo, w1, w2
+  const float* src[] = {F(3), F(5), F(7), F(9)};
+  float* const dst[] = {w.wqkv_t, w.wo_t, w.w1_t, w.w2_t};
+  const int rows[] = {d, d, d, f}, cols[] = {3 * d, d, f, d};
+  int err = transpose_weights(src, dst, rows, cols, 4, st);
   if (err) return err;
+  if ((err = ffn_bwd(F(15), F(20), F(21), F(22), I(2), F(13), w.dx2, O(28),
+                     O(29), O(30), O(31), O(34), O(35), w, m, st)))
+    return err;
   return self_bwd(F(0), F(1), mask_rows, I(2), F(16), F(17), F(18), F(19),
-                  w.dx2, F(3), F(5), F(11), O(23), O(24), O(25), O(26),
-                  O(27), O(32), O(33), w, m, st);
+                  w.dx2, F(11), O(23), O(24), O(25), O(26), O(27), O(32),
+                  O(33), w, m, st);
 }
 
 // p: x, mk [B, S, d], mv, tgt mask [B, tmask_rows, T], src mask [B, 1, S],
@@ -573,18 +584,22 @@ int dec_layer_bwd_f32(const void* const* p, int B, int T, int S, int d,
   const Dims m = dims(B, T, S, d, f, H, thresh, keep_div, dropout);
   const Work w = carve(ws, 1, B, T, S, d, f, H);
   const int* seed = I(5);
-  int err = ffn_bwd(F(25), F(32), F(35), F(36), seed, F(14), F(16), F(22),
-                    w.dx3, O(48), O(49), O(50), O(51), O(56), O(57), w, m,
-                    st);
+  // wqkv, wo, wq, wo2, w1, w2
+  const float* src[] = {F(6), F(8), F(10), F(12), F(14), F(16)};
+  float* const dst[] = {w.wqkv_t, w.wo_t, w.wq_t, w.wo2_t, w.w1_t, w.w2_t};
+  const int rows[] = {d, d, d, d, d, f}, cols[] = {3 * d, d, d, d, f, d};
+  int err = transpose_weights(src, dst, rows, cols, 6, st);
   if (err) return err;
+  if ((err = ffn_bwd(F(25), F(32), F(35), F(36), seed, F(22), w.dx3, O(48),
+                     O(49), O(50), O(51), O(56), O(57), w, m, st)))
+    return err;
   if ((err = cross_bwd(F(24), F(1), F(2), F(4), seed + 1, F(29), F(30),
-                       F(31), F(34), w.dx3, F(10), F(12), F(20), w.dx2, O(38),
-                       O(39), O(44), O(45), O(46), O(47), O(54), O(55), w, m,
-                       st)))
+                       F(31), F(34), w.dx3, F(20), w.dx2, O(38), O(39), O(44),
+                       O(45), O(46), O(47), O(54), O(55), w, m, st)))
     return err;
   return self_bwd(F(0), F(3), tmask_rows, seed, F(26), F(27), F(28), F(33),
-                  w.dx2, F(6), F(8), F(18), O(37), O(40), O(41), O(42), O(43),
-                  O(52), O(53), w, m, st);
+                  w.dx2, F(18), O(37), O(40), O(41), O(42), O(43), O(52),
+                  O(53), w, m, st);
 }
 
 }  // extern "C"

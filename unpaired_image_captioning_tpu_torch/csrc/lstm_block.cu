@@ -21,33 +21,49 @@
 // run in parallel, so the chain is ONE cooperative persistent launch in each
 // direction (cudaLaunchCooperativeKernel, a grid-wide barrier between
 // steps). Block k owns U hidden units j in [k*U, k*U + U) and all G gate
-// columns of those units, so its slice of W stays in shared memory for all T
-// steps, laid out [k][g][u] in both directions: W[k, g*H + j] in the forward
-// and W[j, g*H + k] (rows of W) in the backward (H * G * U floats, 40 KB at
-// H = 512, G = 5, U = 4). U is the fewest of 4, 8, 16 that puts at most one
-// block on each SM (128 blocks at H = 512 on 132 SMs). Each step the blocks
-// exchange h_t through the output hs itself (the forward) or dgates_t
-// through the output dgates (the backward): a block writes its units, the
-// grid synchronises, and every block reads the whole [B, H] (or [B*G, H])
-// through L2 (ld.global.cg, not L1, which is not coherent across SMs) into
-// shared memory, in chunks as wide as the shared memory left allows (all of
-// H in the forward at B = 50; 160 columns in the backward), with 16 float4
-// loads in flight per thread. Threads own (row b, gate g) pairs and
-// accumulate U columns each with float4 shared loads; the per-(b, unit)
-// cell epilogue then runs on the block's own gate sums. A shape whose grid
-// cannot be co-resident (H > 16 x the SM count, or no chunk fitting in
-// shared memory) is refused with cudaErrorCooperativeLaunchTooLarge, and
-// the wrapper raises; nothing falls back.
+// columns of those units (G*U columns of W), which stay in shared memory
+// for all T steps (H * G * U floats, 40 KB at H = 512, G = 5, U = 4). U is
+// the fewest of 4, 8, 16 that puts at most one block on each SM (128
+// blocks at H = 512 on 132 SMs).
+//
+// Forward step: every block copies h_{t-1} [B, H] from the output hs
+// through L2 (not L1, which is not coherent across SMs) into shared memory,
+// in column chunks as wide as the shared memory left allows (all of H at
+// B = 50), then multiplies it by its slice with register tiles: the K
+// reduction is split across the block's 8 warps, and a warp's lanes are
+// (gate, four units) column groups x row groups, a lane holding R rows x 4
+// columns (R = 7 at G = 4, 9 at G = 5: a batch of 50 in one pass; larger
+// batches take more passes). Per four k a lane loads R + 4 float4 from
+// shared memory for 16 R FMAs, where one (row, gate) pair a thread loads
+// 5 for 16 and is bound by those loads. The warps' partial sums meet in
+// shared memory and are added in warp order;
+// the cell then runs on the block's own units.
+//
+// Backward step: the block computes the cell's derivatives of its own
+// units, dgates_t for its G*U columns, and multiplies them by its slice
+// transposed: a partial dh_k [B, H] = dgates_t[:, own] @ W[:, own]^T (a
+// thread holds 28 rows x 4 columns of it, 20 K terms at G = 5, U = 4) that
+// it writes to a workspace [2][blocks][B, H] (alternating between steps).
+// After the grid barrier each block sums, for its own units only, the
+// blocks' partials in block order (four runs of a quarter of the blocks,
+// then the four in order): 4 B U floats of each of the 128 partials,
+// about 100 KB a block a step, where reading all of dgates_t into every
+// block would take B * G * H floats (500 KB). So the exchange is G times
+// narrower, each step writes 100 KB a block to L2 instead, and nothing is
+// summed in a varying order: a rerun gives the same bits in both
+// directions.
+//
+// A shape whose grid cannot be co-resident (H > 16 x the SM count, or
+// shared memory past the budget at large B) is refused with
+// cudaErrorCooperativeLaunchTooLarge, and the wrapper raises; nothing falls
+// back.
 //
 // What bounds it. The bound is small: at B 50, T 17, H 512, G 5 each
 // direction is 2 * T * B * H * G*H = 2.2 GFLOP (0.033 ms at 67 TFLOP/s) and
 // moves its inputs and outputs once (13–26 MB, under 0.008 ms). The chain's
-// time is set instead by its T dependent steps: each is a grid barrier, the
-// exchange read from L2 by every block (128 x 100 KB a step in the forward,
-// 128 x 500 KB in the backward, whose exchange is G times wider) and
-// B * G * U * H FMAs a block on one SM. Exchanging per-block partial dh
-// sums instead of dgates would cut the backward's L2 traffic G-fold: later
-// work.
+// time is set instead by its T dependent steps, each a grid barrier, a
+// 100 KB exchange a block through L2 and B * G * U * H FMAs a block on one
+// SM (about 2,300 FMAs a lane at G = 5 with the padding rows).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,8 +73,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 constexpr int LB = 16;           // staging loads in flight per thread
 constexpr int SMEM_BUDGET = 220 * 1024;   // of a block's 227 KB
+constexpr int BWD_ROWS = 28;     // rows of a backward thread's tile
+constexpr int EX_RUNS = 4;       // runs of blocks the exchange sums apart
 
 __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.0f / (1.0f + expf(-v));
@@ -67,6 +86,17 @@ __device__ __forceinline__ float sigmoid_f32(float v) {
 __host__ __device__ constexpr int round_up(int a, int b) {
   return (a + b - 1) / b * b;
 }
+
+// The forward's lane tile: column groups of four units of one gate, row
+// groups across the rest of the warp, rows a lane takes in one pass (at
+// U = 4 enough for a batch of 50 in one pass).
+template <int G, int U>
+struct FwdTile {
+  static constexpr int CG = G * U / 4;              // column groups
+  static constexpr int RG = 32 / CG;                // row groups
+  static constexpr int R = U == 4 ? (G == 4 ? 7 : 9) : 4;
+  static_assert(CG <= 32, "a warp covers the block's columns");
+};
 
 // Copy columns [k0, k0 + kc) of `rows` rows of length H (row stride H) from
 // global memory, through L2 (the rows were written by other blocks), into
@@ -111,63 +141,52 @@ __device__ __forceinline__ void stage(float* __restrict__ dst,
   }
 }
 
-// acc[u] += sum_kk a[kk] * w[kk * stride + u] over kc staged columns; a is a
-// staged row, w the resident slice at the chunk's first column
-template <int U>
-__device__ __forceinline__ void chunk_fma(float (&acc)[U],
-                                          const float* __restrict__ a,
-                                          const float* __restrict__ w,
-                                          int stride, int kc) {
-#pragma unroll 2
-  for (int kk = 0; kk < kc; kk += 4) {
-    const float4 av = *reinterpret_cast<const float4*>(a + kk);
-    const float ak[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float* wq = w + (kk + q) * stride;
-#pragma unroll
-      for (int u = 0; u < U; u += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(wq + u);
-        acc[u] = fmaf(ak[q], wv.x, acc[u]);
-        acc[u + 1] = fmaf(ak[q], wv.y, acc[u + 1]);
-        acc[u + 2] = fmaf(ak[q], wv.z, acc[u + 2]);
-        acc[u + 3] = fmaf(ak[q], wv.w, acc[u + 3]);
-      }
-    }
-  }
-}
-
-// shared floats: the resident slice [HP][G][U], the staged chunk [rows][kc +
-// 4], the sums [B][G][U] and `carries` [B][U] arrays
-size_t smem_bytes(int B, int H, int G, int U, int rows, int kc, int carries) {
+// forward shared floats: the resident slice [HP][G][U], the staged chunk
+// [B][kc + 4], the warps' partial sums [WARPS][B][G][U] and the c carry
+// [B][U]
+size_t fwd_smem(int B, int H, int G, int U, int kc) {
   return sizeof(float) * ((size_t)round_up(H, 32) * G * U +
-                          (size_t)rows * (kc + 4) + (size_t)B * G * U +
-                          (size_t)carries * B * U);
+                          (size_t)B * (kc + 4) + (size_t)WARPS * B * G * U +
+                          (size_t)B * U);
 }
 
 // the widest chunk (a multiple of 32 columns, at most the padded H) whose
 // staging fits the budget; 0 if none does
-int chunk_cols(int B, int H, int G, int U, int rows, int carries) {
+int fwd_chunk(int B, int H, int G, int U) {
   for (int kc = round_up(H, 32); kc >= 32; kc -= 32)
-    if (smem_bytes(B, H, G, U, rows, kc, carries) <= (size_t)SMEM_BUDGET)
-      return kc;
+    if (fwd_smem(B, H, G, U, kc) <= (size_t)SMEM_BUDGET) return kc;
   return 0;
 }
 
-template <int U, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+// backward shared floats: the resident slice transposed [G][U][HP], the
+// block's dgates_t [G][U][BP] (BP: B padded to the row tile), the exchange's
+// runs [EX_RUNS][B][U] and the dh, dc carries [B][U]
+size_t bwd_smem(int B, int H, int G, int U) {
+  return sizeof(float) * ((size_t)G * U * round_up(H, 32) +
+                          (size_t)G * U * round_up(B, BWD_ROWS) +
+                          (size_t)(EX_RUNS + 2) * B * U);
+}
+
+template <int G, int U>
+__global__ void __launch_bounds__(THREADS, 1)
 chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
                  const float* __restrict__ c0, const float* __restrict__ w,
                  float* hs, float* __restrict__ cs,
-                 float* __restrict__ gates, int T, int B, int H, int G,
-                 int kc) {
+                 float* __restrict__ gates, int T, int B, int H, int kc,
+                 int vec) {
+  using Tile = FwdTile<G, U>;
+  constexpr int GU = G * U, R = Tile::R, RG = Tile::RG, CG = Tile::CG;
   extern __shared__ __align__(16) float smem[];
-  const int GU = G * U, GH = G * H, HP = round_up(H, 32);
+  const int GH = G * H, HP = round_up(H, 32);
   float* w_s = smem;                          // [HP][G][U]: W[k, g*H + j]
   float* h_s = w_s + (size_t)HP * GU;         // [B][kc + 4] staged h_{t-1}
-  float* a_s = h_s + (size_t)B * (kc + 4);    // [B][G][U] h @ W sums
-  float* c_s = a_s + (size_t)B * GU;          // [B][U] c carry
+  float* red = h_s + (size_t)B * (kc + 4);    // [WARPS][B][G][U]
+  float* c_s = red + (size_t)WARPS * B * GU;  // [B][U] c carry
   const int j0 = blockIdx.x * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int cgp = lane % CG, rg = lane / CG;  // column group, row group
+  const bool works = lane < CG * RG;
+  const int ks = kc / WARPS;                  // this warp's K slice of a chunk
 
   for (int e = threadIdx.x; e < HP * GU; e += THREADS) {
     const int k = e / GU, r = e - k * GU, g = r / U, j = j0 + r - g * U;
@@ -181,39 +200,83 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
 
   for (int t = 0; t < T; ++t) {
     const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * B * H;
-    for (int e = threadIdx.x; e < B * GU; e += THREADS) a_s[e] = 0.0f;
     for (int k0 = 0; k0 < H; k0 += kc) {
       __syncthreads();   // the previous chunk's readers are done
-      stage<VEC>(h_s, hp, B, H, k0, kc);
+      if (vec)
+        stage<true>(h_s, hp, B, H, k0, kc);
+      else
+        stage<false>(h_s, hp, B, H, k0, kc);
       __syncthreads();
-      const int n = min(kc, HP - k0);
-      for (int p = threadIdx.x; p < B * G; p += THREADS) {
-        const int b = p / G, g = p - b * G;
-        float acc[U];
+      const int kb = warp * ks;
+      // the slice's columns inside the padded H (a last chunk may end past it)
+      const int kn = max(0, min(ks, HP - k0 - kb));
+      for (int b0 = 0; b0 < B; b0 += RG * R) {
+        if (!works) continue;
+        float acc[R][4];
+        const float* hr[R];
 #pragma unroll
-        for (int u = 0; u < U; ++u) acc[u] = a_s[p * U + u];
-        chunk_fma<U>(acc, h_s + b * (kc + 4), w_s + (size_t)k0 * GU + g * U,
-                     GU, n);
+        for (int r = 0; r < R; ++r) {
+          acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+          // rows past B repeat row B-1; their sums are dropped
+          hr[r] = h_s + min(b0 + rg + RG * r, B - 1) * (kc + 4) + kb;
+        }
+        const float* wr = w_s + (size_t)(k0 + kb) * GU + cgp * 4;
+#pragma unroll 2
+        for (int kk = 0; kk < kn; kk += 4) {
+          float4 hv[R];
 #pragma unroll
-        for (int u = 0; u < U; ++u) a_s[p * U + u] = acc[u];
+          for (int r = 0; r < R; ++r)
+            hv[r] = *reinterpret_cast<const float4*>(hr[r] + kk);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 wv =
+                *reinterpret_cast<const float4*>(wr + (kk + q) * GU);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float a = q == 0 ? hv[r].x
+                              : q == 1 ? hv[r].y
+                              : q == 2 ? hv[r].z
+                                       : hv[r].w;
+              acc[r][0] = fmaf(a, wv.x, acc[r][0]);
+              acc[r][1] = fmaf(a, wv.y, acc[r][1]);
+              acc[r][2] = fmaf(a, wv.z, acc[r][2]);
+              acc[r][3] = fmaf(a, wv.w, acc[r][3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int b = b0 + rg + RG * r;
+          if (b >= B) continue;
+          float4* dst = reinterpret_cast<float4*>(
+              red + ((size_t)warp * B + b) * GU + cgp * 4);
+          float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+          if (k0 > 0) {   // later chunks add to this warp's earlier sums
+            const float4 o = *dst;
+            v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+          }
+          *dst = v;
+        }
       }
     }
     __syncthreads();
-    // gates = x_contrib + h @ W, then the cell on this block's units
+    // gates = x_contrib + h @ W (the warps' sums in warp order), then the
+    // cell on this block's units
     for (int q = threadIdx.x; q < B * U; q += THREADS) {
       const int b = q / U, u = q - b * U, j = j0 + u;
       if (j >= H) continue;
       const size_t row = (size_t)t * B + b;
       const float* xr = x + row * GH + j;
       float* gr = gates + row * GH + j;
-      const float* ar = a_s + (size_t)b * GU + u;
       float gv[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int g = 0; g < 5; ++g) {
-        if (g < G) {
-          gv[g] = xr[g * H] + ar[g * U];
-          gr[g * H] = gv[g];
-        }
+      for (int g = 0; g < G; ++g) {
+        float s = 0.0f;
+#pragma unroll
+        for (int wp = 0; wp < WARPS; ++wp)
+          s += red[((size_t)wp * B + b) * GU + g * U + u];
+        gv[g] = xr[g * H] + s;
+        gr[g * H] = gv[g];
       }
       const float i_g = sigmoid_f32(gv[0]);
       const float f_g = sigmoid_f32(gv[1]);
@@ -228,40 +291,41 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
   }
 }
 
-template <int U, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+template <int G, int U>
+__global__ void __launch_bounds__(THREADS, 1)
 chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                  const float* __restrict__ c0, const float* __restrict__ dhs,
                  const float* __restrict__ dcs, const float* __restrict__ w,
-                 float* dgates, float* __restrict__ dh0,
-                 float* __restrict__ dc0, int T, int B, int H, int G,
-                 int kc) {
+                 float* __restrict__ dgates, float* __restrict__ dh0,
+                 float* __restrict__ dc0, float* part, int T, int B, int H) {
+  constexpr int GU = G * U, RB = BWD_ROWS;
   extern __shared__ __align__(16) float smem[];
-  const int GU = G * U, GH = G * H, HP = round_up(H, 32);
-  float* wt_s = smem;                         // [HP][G][U]: W[j, g*H + k]
-  float* d_s = wt_s + (size_t)HP * GU;        // [B*G][kc + 4] staged dgates_t
-  float* a_s = d_s + (size_t)B * G * (kc + 4);  // [B][G][U] dgates @ W^T
-  float* dh_s = a_s + (size_t)B * GU;         // [B][U] dh carry
+  const int GH = G * H, HP = round_up(H, 32), BP = round_up(B, RB);
+  const int nblk = gridDim.x, blk = blockIdx.x;
+  float* wt_s = smem;                         // [G][U][HP]: W[k, g*H + j]
+  float* dg_s = wt_s + (size_t)GU * HP;       // [G][U][BP] own dgates_t
+  float* ex_s = dg_s + (size_t)GU * BP;       // [EX_RUNS][B][U]
+  float* dh_s = ex_s + (size_t)EX_RUNS * B * U;   // [B][U] dh carry
   float* dc_s = dh_s + (size_t)B * U;         // [B][U] dc carry
-  const int j0 = blockIdx.x * U;
+  const int j0 = blk * U;
+  const size_t part_step = (size_t)nblk * B * HP;   // one buffer's floats
 
-  // W's rows j0 .. j0 + U - 1, read along the row
-  for (int e = threadIdx.x; e < U * G * HP; e += THREADS) {
-    const int u = e / (G * HP), r = e - u * G * HP, g = r / HP,
-              k = r - g * HP, j = j0 + u;
-    wt_s[((size_t)k * G + g) * U + u] =
-        (k < H && j < H) ? w[(size_t)j * GH + g * H + k] : 0.0f;
+  for (int e = threadIdx.x; e < GU * HP; e += THREADS) {
+    const int r = e / HP, k = e - r * HP, g = r / U, j = j0 + r - g * U;
+    wt_s[e] = (k < H && j < H) ? w[(size_t)k * GH + g * H + j] : 0.0f;
   }
+  for (int e = threadIdx.x; e < GU * BP; e += THREADS) dg_s[e] = 0.0f;
   for (int q = threadIdx.x; q < B * U; q += THREADS) {
     dh_s[q] = 0.0f;
     dc_s[q] = 0.0f;
   }
+  __syncthreads();
   cg::grid_group grid = cg::this_grid();
 
   for (int t = T - 1; t >= 0; --t) {
     // the cell's local derivatives on this block's units
     for (int q = threadIdx.x; q < B * U; q += THREADS) {
-      const int b = q / U, j = j0 + q - b * U;
+      const int b = q / U, u = q - b * U, j = j0 + u;
       if (j >= H) continue;
       const size_t row = (size_t)t * B + b;
       const float* gr = gates + row * GH + j;
@@ -279,46 +343,96 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
       const float d_o = dh * th;
       const float dct =
           dh * o_g * (1.0f - th * th) + dc_s[q] + dcs[row * H + j];
-      float* dg = dgates + row * GH + j;
-      dg[0] = dct * in_t * i_g * (1.0f - i_g);
-      dg[H] = dct * c_prev * f_g * (1.0f - f_g);
-      dg[2 * H] = d_o * o_g * (1.0f - o_g);
+      float dgv[5];
+      dgv[0] = dct * in_t * i_g * (1.0f - i_g);
+      dgv[1] = dct * c_prev * f_g * (1.0f - f_g);
+      dgv[2] = d_o * o_g * (1.0f - o_g);
       const float dm = dct * i_g;
       if (G == 5) {
         const bool pick = m1 >= m2;           // a tie goes wholly to m1
-        dg[3 * H] = pick ? dm : 0.0f;
-        dg[4 * H] = pick ? 0.0f : dm;
+        dgv[3] = pick ? dm : 0.0f;
+        dgv[4] = pick ? 0.0f : dm;
       } else {
-        dg[3 * H] = dm * (1.0f - in_t * in_t);
+        dgv[3] = dm * (1.0f - in_t * in_t);
+      }
+      float* dg = dgates + row * GH + j;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        dg[g * H] = dgv[g];
+        dg_s[(g * U + u) * BP + b] = dgv[g];
       }
       dc_s[q] = dct * f_g;
     }
-    grid.sync();   // dgates_t is written by every block
-    // dh = dgates_t @ W^T on this block's units: per (b, g) over gate g's H
-    // columns (dgates_t read as B*G rows of H), then summed over g
-    for (int e = threadIdx.x; e < B * GU; e += THREADS) a_s[e] = 0.0f;
-    const float* dt = dgates + (size_t)t * B * GH;
-    for (int k0 = 0; k0 < H; k0 += kc) {
-      __syncthreads();
-      stage<VEC>(d_s, dt, B * G, H, k0, kc);
-      __syncthreads();
-      const int n = min(kc, HP - k0);
-      for (int p = threadIdx.x; p < B * G; p += THREADS) {
-        const int g = p % G;
-        float acc[U];
+    __syncthreads();
+    // this block's partial dh [B, H] = dgates_t[:, own] @ W[:, own]^T: a
+    // thread's tile is RB rows x 4 columns, its K the block's G*U columns
+    float* pb = part + (size_t)(t & 1) * part_step + (size_t)blk * B * HP;
+    const int nq = HP / 4, nrg = BP / RB;
+    for (int item = threadIdx.x; item < nq * nrg; item += THREADS) {
+      const int kq = item % nq, b0 = (item / nq) * RB;
+      float acc[RB][4];
 #pragma unroll
-        for (int u = 0; u < U; ++u) acc[u] = a_s[p * U + u];
-        chunk_fma<U>(acc, d_s + p * (kc + 4), wt_s + (size_t)k0 * GU + g * U,
-                     GU, n);
+      for (int r = 0; r < RB; ++r)
+        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < GU; ++c) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(wt_s + (size_t)c * HP + kq * 4);
+        const float* dr = dg_s + (size_t)c * BP + b0;
 #pragma unroll
-        for (int u = 0; u < U; ++u) a_s[p * U + u] = acc[u];
+        for (int r4 = 0; r4 < RB; r4 += 4) {
+          const float4 dv = *reinterpret_cast<const float4*>(dr + r4);
+          const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[r4 + i][0] = fmaf(dd[i], wv.x, acc[r4 + i][0]);
+            acc[r4 + i][1] = fmaf(dd[i], wv.y, acc[r4 + i][1]);
+            acc[r4 + i][2] = fmaf(dd[i], wv.z, acc[r4 + i][2]);
+            acc[r4 + i][3] = fmaf(dd[i], wv.w, acc[r4 + i][3]);
+          }
+        }
       }
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        if (b0 + r < B)
+          __stcg(reinterpret_cast<float4*>(pb + (size_t)(b0 + r) * HP +
+                                           kq * 4),
+                 make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    }
+    grid.sync();   // every block's partial is written
+    // dh on this block's units: the blocks' partials in block order, as
+    // EX_RUNS runs of consecutive blocks, then the runs in order
+    const float* pt = part + (size_t)(t & 1) * part_step;
+    const int per_run = (nblk + EX_RUNS - 1) / EX_RUNS;
+    for (int item = threadIdx.x; item < EX_RUNS * B * (U / 4);
+         item += THREADS) {
+      const int run = item / (B * (U / 4)), rest = item % (B * (U / 4));
+      const int b = rest / (U / 4), uq = (rest % (U / 4)) * 4;
+      const int i0 = run * per_run, i1 = min(nblk, i0 + per_run);
+      const float* src = pt + (size_t)b * HP + j0 + uq;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int i = i0; i < i1; i += LB) {
+        float4 v[LB];
+#pragma unroll
+        for (int n = 0; n < LB; ++n)   // all loads in flight
+          v[n] = i + n < i1 ? __ldcg(reinterpret_cast<const float4*>(
+                                  src + (size_t)(i + n) * B * HP))
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int n = 0; n < LB; ++n) {
+          s.x += v[n].x;
+          s.y += v[n].y;
+          s.z += v[n].z;
+          s.w += v[n].w;
+        }
+      }
+      *reinterpret_cast<float4*>(ex_s + ((size_t)run * B + b) * U + uq) = s;
     }
     __syncthreads();
     for (int q = threadIdx.x; q < B * U; q += THREADS) {
-      const int b = q / U, u = q - b * U;
-      float s = 0.0f;
-      for (int g = 0; g < G; ++g) s += a_s[((size_t)b * G + g) * U + u];
+      float s = ex_s[q];
+#pragma unroll
+      for (int run = 1; run < EX_RUNS; ++run) s += ex_s[(size_t)run * B * U + q];
       dh_s[q] = s;
     }
     __syncthreads();
@@ -336,6 +450,7 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 // bytes, refused when the grid cannot be co-resident.
 cudaError_t launch_coop(const void* kernel, int H, int U, size_t smem,
                         void** args, cudaStream_t stream) {
+  if (smem > (size_t)SMEM_BUDGET) return cudaErrorCooperativeLaunchTooLarge;
   int dev = 0, nsm = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -369,34 +484,58 @@ int units_per_block(int H) {
 
 bool aligned(const void* p) { return ((size_t)p & 15) == 0; }
 
-template <int U>
+template <int G, int U>
 cudaError_t fwd(const float* x, const float* h0, const float* c0,
                 const float* w, float* hs, float* cs, float* gates, int T,
-                int B, int H, int G, cudaStream_t stream) {
-  int kc = chunk_cols(B, H, G, U, B, 1);
+                int B, int H, cudaStream_t stream) {
+  int kc = fwd_chunk(B, H, G, U);
   if (kc == 0) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&x, &h0, &c0, &w, &hs, &cs, &gates, &T, &B, &H, &G, &kc};
-  const size_t smem = smem_bytes(B, H, G, U, B, kc, 1);
-  const bool vec = H % 4 == 0 && aligned(h0) && aligned(hs);
-  return launch_coop(vec ? (const void*)chain_fwd_kernel<U, true>
-                         : (const void*)chain_fwd_kernel<U, false>,
-                     H, U, smem, args, stream);
+  int vec = H % 4 == 0 && aligned(h0) && aligned(hs);
+  void* args[] = {&x, &h0, &c0, &w, &hs, &cs, &gates, &T, &B, &H, &kc, &vec};
+  return launch_coop((const void*)chain_fwd_kernel<G, U>, H, U,
+                     fwd_smem(B, H, G, U, kc), args, stream);
 }
 
-template <int U>
+template <int G, int U>
 cudaError_t bwd(const float* gates, const float* cs, const float* c0,
                 const float* dhs, const float* dcs, const float* w,
-                float* dgates, float* dh0, float* dc0, int T, int B, int H,
-                int G, cudaStream_t stream) {
-  int kc = chunk_cols(B, H, G, U, B * G, 2);
-  if (kc == 0) return cudaErrorCooperativeLaunchTooLarge;
+                float* dgates, float* dh0, float* dc0, float* part, int T,
+                int B, int H, cudaStream_t stream) {
   void* args[] = {&gates, &cs, &c0, &dhs, &dcs, &w, &dgates, &dh0, &dc0,
-                  &T, &B, &H, &G, &kc};
-  const size_t smem = smem_bytes(B, H, G, U, B * G, kc, 2);
-  const bool vec = H % 4 == 0 && aligned(dgates);
-  return launch_coop(vec ? (const void*)chain_bwd_kernel<U, true>
-                         : (const void*)chain_bwd_kernel<U, false>,
-                     H, U, smem, args, stream);
+                  &part, &T, &B, &H};
+  return launch_coop((const void*)chain_bwd_kernel<G, U>, H, U,
+                     bwd_smem(B, H, G, U), args, stream);
+}
+
+template <int G>
+cudaError_t fwd_g(const float* x, const float* h0, const float* c0,
+                  const float* w, float* hs, float* cs, float* gates, int T,
+                  int B, int H, cudaStream_t s) {
+  switch (units_per_block(H)) {
+    case 4: return fwd<G, 4>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+    case 8: return fwd<G, 8>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+    case 16: return fwd<G, 16>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+    default: return cudaErrorCooperativeLaunchTooLarge;
+  }
+}
+
+template <int G>
+cudaError_t bwd_g(const float* gates, const float* cs, const float* c0,
+                  const float* dhs, const float* dcs, const float* w,
+                  float* dgates, float* dh0, float* dc0, float* part, int T,
+                  int B, int H, cudaStream_t s) {
+  switch (units_per_block(H)) {
+    case 4:
+      return bwd<G, 4>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part, T,
+                       B, H, s);
+    case 8:
+      return bwd<G, 8>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part, T,
+                       B, H, s);
+    case 16:
+      return bwd<G, 16>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part,
+                        T, B, H, s);
+    default: return cudaErrorCooperativeLaunchTooLarge;
+  }
 }
 
 bool valid(int T, int B, int H, int G) {
@@ -414,34 +553,30 @@ int lstm_chain_fwd_f32(const float* x, const float* h0, const float* c0,
                        int T, int B, int H, int G, void* stream) {
   if (!valid(T, B, H, G)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (units_per_block(H)) {
-    case 4: return (int)fwd<4>(x, h0, c0, w, hs, cs, gates, T, B, H, G, s);
-    case 8: return (int)fwd<8>(x, h0, c0, w, hs, cs, gates, T, B, H, G, s);
-    case 16: return (int)fwd<16>(x, h0, c0, w, hs, cs, gates, T, B, H, G, s);
-    default: return (int)cudaErrorCooperativeLaunchTooLarge;
-  }
+  return (int)(G == 4 ? fwd_g<4>(x, h0, c0, w, hs, cs, gates, T, B, H, s)
+                      : fwd_g<5>(x, h0, c0, w, hs, cs, gates, T, B, H, s));
 }
 
-// gates [T, B, G*H], cs / dhs / dcs [T, B, H], c0 [B, H], w [H, G*H] ->
-// dgates [T, B, G*H], dh0 / dc0 [B, H]
+// Floats of the backward's workspace (two buffers of every block's partial
+// dh [B, H padded to 32]) into *n; 0 when H is too wide for a launch.
+int lstm_chain_bwd_ws_f32(int B, int H, long long* n) {
+  const int u = units_per_block(H);
+  *n = u ? 2LL * ((H + u - 1) / u) * B * round_up(H, 32) : 0;
+  return 0;
+}
+
+// gates [T, B, G*H], cs / dhs / dcs [T, B, H], c0 [B, H], w [H, G*H], ws
+// (lstm_chain_bwd_ws_f32 floats) -> dgates [T, B, G*H], dh0 / dc0 [B, H]
 int lstm_chain_bwd_f32(const float* gates, const float* cs, const float* c0,
                        const float* dhs, const float* dcs, const float* w,
-                       float* dgates, float* dh0, float* dc0, int T, int B,
-                       int H, int G, void* stream) {
+                       float* dgates, float* dh0, float* dc0, float* ws,
+                       int T, int B, int H, int G, void* stream) {
   if (!valid(T, B, H, G)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (units_per_block(H)) {
-    case 4:
-      return (int)bwd<4>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, T, B,
-                         H, G, s);
-    case 8:
-      return (int)bwd<8>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, T, B,
-                         H, G, s);
-    case 16:
-      return (int)bwd<16>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, T, B,
-                          H, G, s);
-    default: return (int)cudaErrorCooperativeLaunchTooLarge;
-  }
+  return (int)(G == 4 ? bwd_g<4>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
+                                 dc0, ws, T, B, H, s)
+                      : bwd_g<5>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
+                                 dc0, ws, T, B, H, s));
 }
 
 // the blocks of a chain launch over H units (0: H is too wide)

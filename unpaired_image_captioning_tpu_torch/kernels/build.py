@@ -74,6 +74,9 @@ SIGNATURES = {
     # kind, B, T, S, d, f, H, out int64 [1] -> floats of a layer
     # backward's scratch
     "layer_train_ws_f32": (_I,) * 7 + (_P,),
+    # M, N, K, out int[4] (row tiles in whole rounds, row tiles, cluster
+    # size of the rest, its clusters at once) of a training-layer product
+    "layer_train_gemm_plan": (_I, _I, _I, _P),
     # p (host array of the layer's tensors), B, T, d, f, H, mask_rows,
     # thresh, keep_div, dropout[, ws], stream
     "enc_layer_fwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P),
@@ -91,8 +94,10 @@ SIGNATURES = {
     "image_front_end_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
     # x, h0, c0, w, hs, cs, gates, T, B, H, G, stream
     "lstm_chain_fwd_f32": (_P,) * 7 + (_I,) * 4 + (_P,),
-    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, T, B, H, G, stream
-    "lstm_chain_bwd_f32": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H, G, stream
+    "lstm_chain_bwd_f32": (_P,) * 10 + (_I,) * 4 + (_P,),
+    # B, H, out int64 [1] -> floats of the chain backward's workspace
+    "lstm_chain_bwd_ws_f32": (_I, _I, _P),
     # H -> blocks of a chain launch (0: too wide)
     "lstm_chain_blocks": (_I,),
 }

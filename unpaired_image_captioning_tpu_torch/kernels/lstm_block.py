@@ -13,10 +13,13 @@ versions for CPU tensors and launch the kernels for CUDA tensors (f32,
 contiguous), raising on anything else, including a shape whose grid cannot
 be co-resident on the card; they never route a CUDA tensor to the plain
 version. Each kernel is one cooperative launch a chain: `fwd_launches` and
-`bwd_launches` count them.
+`bwd_launches` count them. The backward's workspace (two buffers of every
+block's partial dh, sized by the CUDA source) is allocated here.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -104,11 +107,15 @@ def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
     dh0 = torch.empty_like(c0)
     dc0 = torch.empty_like(c0)
     lib = build.load()
+    n = ctypes.c_int64()
+    lib.lstm_chain_bwd_ws_f32(b, hidden, ctypes.byref(n))
+    ws = torch.empty((max(n.value, 1),), dtype=torch.float32,
+                     device=gates.device)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
     err = lib.lstm_chain_bwd_f32(
         gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
         dcs.data_ptr(), w_h2h.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), t, b, hidden, g, stream)
+        dc0.data_ptr(), ws.data_ptr(), t, b, hidden, g, stream)
     _raise_on(err, "lstm_chain_bwd_f32", (t, b, gh))
     bwd_launches += 1
     return dgates, dh0, dc0
