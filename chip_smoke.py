@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times topk,mha
 
 Builds the port's CUDA kernels from `unpaired_image_captioning_tpu_torch/
 csrc/`, holds each kernel against its plain PyTorch version at the serving
@@ -84,6 +85,17 @@ with autograd; the
 fragment then runs once through `blocked_lstm_chain` with its launch
 counts read.
 
+Head widths other than 32, 64 and 128: the training attention (forward
+and backward), the whole encoder and decoder layers and the decoder step
+are held against their plain versions at head widths 96 (d 768 over 8
+heads) and 256 (d 512 over 2), the attention also over 1,500 keys and the
+step at 32 beams of width 256 (two query groups in its cross-attention); a
+2-layer transformer captioner at each of the two widths takes one XE step
+on each training route (kernel launches counted) and decodes four images
+at beam 5, card vs CPU. The beam top-k (B2 and B3, one radix select in
+`csrc/topk_select.cu`) is also held exact on rows with NaN, which ranks
+above +inf.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
 operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
@@ -93,6 +105,14 @@ call computes the same function, that call's time. The last line is
 Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`).
+
+`--times GROUPS` only builds the kernels and times those of the named
+groups (`topk`: both top-k entries at the shapes above, on the same rows;
+`mha`: the training attention's forward and backward at the step's three
+shapes, at head widths 32, 64 and 128), with no check, and prints the
+readings as its last line. It serves to compare two checkouts on one
+card: copy this script into each and run them in turns (A, B, B, A) in
+one call.
 
 Any failure raises, and the script exits non-zero. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero before printing
@@ -178,11 +198,17 @@ TRAIN_ROUTES = [
 ]
 TRAIN_RATE = 0.1  # the attention dropout of the kernel checks
 TRAIN_TOL = 1e-4  # max|diff| <= TRAIN_TOL * max(1, max|plain|)
-# (label, B, T, S, mask kind): the training attentions of one step
+# (label, B, T, S, mask kind[, d, heads]): the training attentions of one
+# step (d 512 over 8 heads), then the encoder's at head widths 96 and 256,
+# which run padded in bucket 128 and in bucket 256's 32-row tiles, and a
+# cross-attention over 1,500 keys
 MHA_SHAPES = [
     ("encoder self, T = S = 196, padded [B,1,S]", 50, 196, 196, "pad"),
     ("decoder cross, T = 17, S = 196", 50, 17, 196, "pad"),
     ("decoder self, T = S = 17, causal + pad [B,T,T]", 50, 17, 17, "causal"),
+    ("encoder self, dh 96", 50, 196, 196, "pad", 768, 8),
+    ("encoder self, dh 256", 50, 196, 196, "pad", 512, 2),
+    ("cross over 1,500 keys", 8, 17, 1500, "pad"),
 ]
 LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
 # every CUDA kernel of csrc/ a training step launches, by name (the
@@ -228,18 +254,24 @@ LSTM_SHAPES = [
     ("ragged maxout", 3, 100, 60, True),
     ("ragged, 4-byte copies", 5, 37, 50, True),
 ]
-# (label, B, kb, L, T, S, d, d_ff, lazy anc + want_attn): the decoder step at
-# the transformer pivot's two beams
+# (label, B, kb, L, T, S, d, d_ff, heads, lazy anc + want_attn): the decoder
+# step at the transformer pivot's two beams; then 2-layer stacks at head
+# widths 96 and 256, and at 32 beams of dh 256, whose cross-attention splits
+# the beams into two query groups
 TFD_SHAPES = [
-    ("caption beam 5 x 50", 50, 5, 6, 16, 196, 512, 512, False),
-    ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, True),
+    ("caption beam 5 x 50", 50, 5, 6, 16, 196, 512, 512, 8, False),
+    ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, 8, True),
+    ("caption beam 5 x 50, dh 96", 50, 5, 2, 16, 196, 768, 768, 8, False),
+    ("caption beam 5 x 50, dh 256", 50, 5, 2, 16, 196, 512, 512, 2, False),
+    ("nmt beam 15 x 50, dh 256", 50, 15, 2, 20, 16, 512, 2048, 2, True),
+    ("beam 32 x 8 over 196 slots, dh 256", 8, 32, 2, 16, 196, 512, 512, 2,
+     True),
 ]
 # the CUDA kernels the decoder-step wrappers launch, by name
 TFD_KERNELS = ("decode_gemm_kernel", "ln_rows_kernel", "self_attn_kernel",
                "cross_attn_kernel", "head_mean_kernel")
 # every CUDA kernel of csrc/, by name
-HAND_KERNELS = LSTM_KERNELS + ("row_topk_kernel",
-                                "chunked_topk_kernel") + TFD_KERNELS
+HAND_KERNELS = LSTM_KERNELS + ("topk_select_kernel",) + TFD_KERNELS
 # beams wider than 16 (PERF.md §4 row 1 at wider beams): caption beam 20 ->
 # NMT beam 32 through the chunked top-k; NMT beam 40 through the sort route
 WIDE_CAP_BEAM, WIDE_NMT_BEAM, SORT_NMT_BEAM = 20, 32, 40
@@ -286,6 +318,20 @@ JOINT_ROUTES = [("joint denseatt + BiLSTM NMT", (False,), TRAIN_STEPS,
 ENC_LAYER_SHAPES = [
     ("captioner encoder", 50, 196, 512, 512, 8),
     ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8),
+    ("captioner encoder, dh 96", 50, 196, 768, 768, 8),
+    ("captioner encoder, dh 256", 50, 196, 512, 512, 2),
+]
+# transformers at head widths the kernels took only since their widening
+# (label, d, heads): a training step on each route and a decode, card vs
+# CPU, at HW_LAYERS layers
+HEAD_WIDTHS = [("dh 96", 768, 8), ("dh 256", 512, 2)]
+HW_LAYERS = 2
+# (label, d, d_ff, heads): the whole decoder layer (B7) at the captioner's
+# training shape (T 17 over S 196), at head widths 64, 96 and 256
+DEC_LAYER_SHAPES = [
+    ("captioner decoder", 512, 512, 8),
+    ("captioner decoder, dh 96", 768, 768, 8),
+    ("captioner decoder, dh 256", 512, 512, 2),
 ]
 TNMT_ROUTES = [("transformer NMT, default (whole encoder layers)",
                 (True, False), ROUTE_STEPS,
@@ -300,6 +346,13 @@ TOPK_SHAPES = [
     ("k=2", 250, 9488, 2),
     ("k=16", 250, 9488, 16),
 ]
+
+# `--times`: the groups of kernels it times, the calls each reading
+# averages, and the training attention's head counts at d 512 (head widths
+# 32, 64 and 128)
+TIMES_GROUPS = ("topk", "mha")
+TIMES_ITERS = 50
+TIMES_HEADS = (16, 8, 4)
 
 # the raw-image path: 16 images of two sizes -> 448 x 448 -> ResNet-101 ->
 # fc [2048] and att [14 x 14, 2048] (the JAX config's image_size and
@@ -409,8 +462,9 @@ def device_ms(fn):
 
 
 def library_ms(fn, iters: int = 20):
-    """Device time per call of a PyTorch yardstick call (summed CUDA kernel
-    time under torch.profiler over `iters` calls, after one warm-up), and
+    """Device time per call of `fn`, a PyTorch yardstick call or a kernel
+    timed alone (summed CUDA kernel time under torch.profiler over `iters`
+    calls, after one warm-up), and
     how it was read; CUDA-event time if the profiler records none."""
     fn()
     per_name = _profile_device_us(lambda: [fn() for _ in range(iters)])
@@ -622,24 +676,14 @@ def phase_kernels(dev) -> dict:
         "timing": main["timing"], "shapes": lstm_rows}
 
     topk_rows = []
-    for label, r, v, k in TOPK_SHAPES:
-        x = torch.randn((r, v), generator=gen, device=dev)
-        x[:20] = torch.round(x[:20] * 2) / 2              # many exact ties
-        x[20:25] = float("-inf")                          # all -inf rows
-        x[25:30] = float("-inf")                          # -inf tails
-        x[25:30, 7] = 1.0
-        x[25:30, v - 1] = 1.0
-        x[30:35] = -1e10                                  # dead beam rows
+    for label, r, v, k, x in _topk_cases(dev, TOPK_SHAPES, _beam_rows):
         vk, ik = tk.row_topk(x, k)
         vp, ip = tk.row_topk_plain(x, k)
         torch.cuda.synchronize()
-        if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
-            bad = (ik != ip).any(dim=1).nonzero()[:5, 0].tolist()
-            raise AssertionError(f"row_topk {label}: differs from the stable "
-                                 f"sort in rows {bad}")
+        _same_topk(f"row_topk {label}", (vk, ik), (vp, ip))
         k_ms, p_ms, k_wall, p_wall, how = time_pair(
             lambda: tk.row_topk(x, k), lambda: tk.row_topk_plain(x, k),
-            "row_topk_kernel")
+            "topk_select_kernel")
         # one f32 comparison an element; the row is read once
         b_ms, b_by = bound(nbytes(x, vk, ik), float(r * v))
         # torch.topk: the same values, with no promise on the order of ties
@@ -649,7 +693,8 @@ def phase_kernels(dev) -> dict:
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                               timing=how, shape=f"[{r}, {v}] k={k}"))
         log(f"kernel row_topk [{r}, {v}] k={k} ({label}): exact "
-            f"(values and indices equal); {how}: kernel {k_ms:.4f} ms, "
+            f"(values and indices equal, NaN rows too); {how}: kernel "
+            f"{k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, "
             f"plain {p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library "
             f"torch.topk {lib_ms:.4f} ms ({lib_how}; values equal: "
@@ -657,7 +702,7 @@ def phase_kernels(dev) -> dict:
     main = topk_rows[0]
     rec["row_topk"] = {
         "name": "row_topk", "route": "cuda",
-        "source": "unpaired_image_captioning_tpu_torch/csrc/row_topk.cu",
+        "source": "unpaired_image_captioning_tpu_torch/csrc/topk_select.cu",
         "replaces": "unpaired_image_captioning_tpu/ops/topk.py:145",
         "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -667,11 +712,77 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
+def _beam_rows(x, k: int) -> None:
+    """Overwrite the first rows of x [R, V] with the rows a beam search
+    meets: exact ties, all -inf rows, -inf tails, dead beam rows; then the
+    NaN rows of `_nan_rows`."""
+    import torch
+
+    v = x.shape[1]
+    x[:20] = torch.round(x[:20] * 2) / 2              # many exact ties
+    x[20:25] = float("-inf")                          # all -inf rows
+    x[25:30] = float("-inf")                          # -inf tails
+    x[25:30, 7] = 1.0
+    x[25:30, v - 1] = 1.0
+    x[30:35] = -1e10                                  # dead beam rows
+    _nan_rows(x, 35, k)                               # NaN (C2)
+
+
+def _topk_cases(dev, shapes, special):
+    """(label, R, V, k, x) for each (label, R, V, k) of `shapes`: randn rows
+    from a seed of their own (the shape's place in the list), the first
+    rows overwritten by `special(x, k)`."""
+    import torch
+
+    for i, (label, r, v, k) in enumerate(shapes):
+        gen = torch.Generator(device=dev).manual_seed(1000 + i)
+        x = torch.randn((r, v), generator=gen, device=dev)
+        special(x, k)
+        yield label, r, v, k, x
+
+
+def _nan_rows(x, r0: int, k: int) -> None:
+    """Rows r0 .. r0 + 4 of x [R, V] with NaN, which ranks above +inf (NaN
+    among NaN by index): scattered NaN, NaN beside +-inf, an all-NaN row,
+    fewer than k values that are not NaN, fewer than k finite values (the
+    rest -inf)."""
+    import torch
+
+    v = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(r0 + k)
+    nan = float("nan")
+    x[r0, torch.rand(v, generator=g, device=x.device) < 0.02] = nan
+    x[r0 + 1, 3 * k:6 * k] = float("inf")
+    x[r0 + 1, 10 * k:12 * k] = float("-inf")
+    x[r0 + 1, 7:7 + k // 2 + 1] = nan
+    x[r0 + 2] = nan
+    x[r0 + 3] = nan
+    x[r0 + 3, 11:11 + k // 2] = 1.0
+    x[r0 + 4] = float("-inf")
+    x[r0 + 4, 5:5 + k - 1] = 2.0
+
+
+def _same_topk(name: str, got, want) -> None:
+    """Raise unless the indices are equal and the values are, NaN where
+    NaN."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want
+    nan = torch.isnan(wv)
+    if (torch.equal(gi, wi) and torch.equal(torch.isnan(gv), nan)
+            and torch.equal(torch.where(nan, 0.0, gv),
+                            torch.where(nan, 0.0, wv))):
+        return
+    bad = ((gi != wi) | (torch.isnan(gv) != nan)).any(dim=1)
+    raise AssertionError(f"{name}: differs from the plain version in rows "
+                         f"{bad.nonzero()[:5, 0].tolist()}")
+
+
 def _breaking_rows(x, k: int) -> None:
     """Overwrite the first rows of x [R, V] with rows built to break a
     naive chunked top-k: ties, one chunk holding most of the top k, equal
     values straddling chunk boundaries, -inf / +inf entries, an all -inf
-    row."""
+    row; then the NaN rows of `_nan_rows`."""
     import torch
 
     v = x.shape[1]
@@ -687,6 +798,7 @@ def _breaking_rows(x, k: int) -> None:
     x[6, 7:7 + k // 2] = 1.0
     x[6, 3] = float("inf")
     x[7] = float("-inf")
+    _nan_rows(x, 8, k)
 
 
 def phase_chunked_topk(dev) -> dict:
@@ -698,21 +810,15 @@ def phase_chunked_topk(dev) -> dict:
 
     from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
 
-    gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for label, r, v, k in CHUNKED_SHAPES:
-        x = torch.randn((r, v), generator=gen, device=dev)
-        _breaking_rows(x, k)
+    for label, r, v, k, x in _topk_cases(dev, CHUNKED_SHAPES, _breaking_rows):
         vk, ik = ck.chunked_topk(x, k)
         vp, ip = ck.chunked_topk_plain(x, k)
         torch.cuda.synchronize()
-        if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
-            bad = ((ik != ip) | (vk != vp)).any(dim=1).nonzero()[:5, 0].tolist()
-            raise AssertionError(f"chunked_topk {label}: differs from the "
-                                 f"clamped stable sort in rows {bad}")
+        _same_topk(f"chunked_topk {label}", (vk, ik), (vp, ip))
         k_ms, p_ms, k_wall, p_wall, how = time_pair(
             lambda: ck.chunked_topk(x, k), lambda: ck.chunked_topk_plain(x, k),
-            "chunked_topk_kernel")
+            "topk_select_kernel")
         # the row is read once and the outputs written once; one f32
         # comparison an element
         b_ms, b_by = bound(nbytes(x, vk, ik), float(r * v))
@@ -721,20 +827,64 @@ def phase_chunked_topk(dev) -> dict:
                          bound_by=b_by, library_ms=lib_ms, timing=how,
                          shape=f"[{r}, {v}] k={k}"))
         log(f"kernel chunked_topk [{r}, {v}] k={k} ({label}): exact (values "
-            f"and indices equal, -inf / +inf clamped); {how}: kernel "
+            f"and indices equal, -inf / +inf clamped, NaN kept); {how}: "
+            "kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; per call kernel "
             f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by}); library torch.topk {lib_ms:.4f} ms ({lib_how})")
     main = rows[0]
     return {"chunked_topk": {
         "name": "chunked_topk", "route": "cuda",
-        "source": "unpaired_image_captioning_tpu_torch/csrc/chunked_topk.cu",
+        "source": "unpaired_image_captioning_tpu_torch/csrc/topk_select.cu",
         "replaces": "unpaired_image_captioning_tpu/ops/topk.py:278",
         "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": f"{main['label']}: {main['shape']}",
         "timing": main["timing"], "shapes": rows}}
+
+
+def phase_times(dev, groups) -> list:
+    """`--times`: the device time per call of the kernels of `groups`
+    (`TIMES_GROUPS`), averaged over TIMES_ITERS calls, on inputs made as
+    their checks make them; no check, no plain version. Returns the
+    readings."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+
+    readings = []
+
+    def rec(kernel, shape, fn):
+        ms, how = library_ms(fn, TIMES_ITERS)
+        readings.append(dict(kernel=kernel, shape=shape, ms=ms, timing=how))
+        log(f"time {kernel} [{shape}]: {ms:.4f} ms ({how})")
+
+    if "topk" in groups:
+        for label, r, v, k, x in _topk_cases(dev, TOPK_SHAPES, _beam_rows):
+            rec("row_topk", f"[{r}, {v}] k={k} ({label})",
+                lambda: tk.row_topk(x, k))
+        for label, r, v, k, x in _topk_cases(dev, CHUNKED_SHAPES,
+                                            _breaking_rows):
+            rec("chunked_topk", f"[{r}, {v}] k={k} ({label})",
+                lambda: ck.chunked_topk(x, k))
+    if "mha" in groups:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+        d = TCAP["input_encoding_size"]
+        for label, b, t, s, kind in MHA_SHAPES[:3]:   # the step's shapes
+            q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind, d)
+            for heads in TIMES_HEADS:
+                kw = dict(n_heads=heads, rate=TRAIN_RATE)
+                out, stats = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+                shape = f"{label}, dh {d // heads}"
+                rec("mha_train_fwd", shape, lambda: mhk.mha_train_fwd(
+                    q, k, v, maskadd, seed, **kw))
+                rec("mha_train_bwd", shape, lambda: mhk.mha_train_bwd(
+                    q, k, v, maskadd, seed, g, out, stats, **kw))
+    return readings
 
 
 def build_models(dev):
@@ -906,11 +1056,20 @@ def phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt, counters: dict,
                   if any(k in n for k in HAND_KERNELS))
     if busy is not None:
         log(f"{label}: of the device busy time, {hand_us / 1e3:.1f} ms in the "
-            f"kernels of csrc/ ({hand_us / 1e3 / busy:.2f})")
+            f"kernels of csrc/ ({hand_us / 1e3 / busy:.2f}); "
+            + _kernel_share(per_name, "topk_select_kernel"))
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])
     for name, (us, n) in top[:TOP_OPS]:
         log(f"{label}: device op {us / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
     return counts
+
+
+def _kernel_share(per_name: dict, kernel: str) -> str:
+    """`kernel`'s device time and launches in a profiled run."""
+    hits = [(us, n) for name, (us, n) in (per_name or {}).items()
+            if kernel in name]
+    return (f"{kernel} {sum(us for us, _ in hits) / 1e3:.3f} ms in "
+            f"{sum(n for _, n in hits)} launches")
 
 
 def _nmt_teacher_forced(nmt, src, lengths, tgt):
@@ -1083,10 +1242,11 @@ def phase_wide_beams(dev, cap, nmt, cap2nmt) -> int:
             and int(en.min()) >= 0 and int(en.max()) < v_nmt
             and int(aux.min()) >= 0 and int(aux.max()) < CAP["seq_length"]):
         raise AssertionError("wide-beam pivot output out of shape or range")
-    busy, _ = device_ms(pivot)
+    busy, per_name = device_ms(pivot)
     busy_msg = ("device busy not measured" if busy is None else
                 f"device busy {busy:.1f} ms, idle share "
-                f"{1 - busy / (secs * 1e3):.2f}")
+                f"{1 - busy / (secs * 1e3):.2f}, "
+                + _kernel_share(per_name, "topk_select_kernel"))
     log(f"wide beams: batch-{BENCH_BATCH} pivot_translate at caption beam "
         f"{WIDE_CAP_BEAM} -> NMT beam {WIDE_NMT_BEAM}: {secs * 1e3:.1f} ms, "
         f"{BENCH_BATCH / secs:.1f} images/s; {busy_msg}; {steps['cap']} "
@@ -1368,13 +1528,13 @@ def phase_tfd_kernels(dev) -> dict:
         transformer_decode as td)
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    heads = TCAP["num_heads"]
     src = "unpaired_image_captioning_tpu_torch/csrc/transformer_decode.cu"
     recs = {"transformer_decode_stack": [], "transformer_decode_layer": []}
-    for label, b, kb, n_l, n_t, slots, d, dff, lazy in TFD_SHAPES:
+    for label, b, kb, n_l, n_t, slots, d, dff, heads, lazy in TFD_SHAPES:
         a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
         rows = b * kb
-        shape = f"R={rows} kb={kb} L={n_l} T={n_t} S={slots} d={d} ff={dff}"
+        shape = (f"R={rows} kb={kb} L={n_l} T={n_t} S={slots} d={d} "
+                 f"ff={dff} H={heads}")
         kk, vk, kp, vp = (c.clone() for c in (a["kc"], a["vc"], a["kc"],
                                               a["vc"]))
 
@@ -1460,7 +1620,9 @@ def phase_tfd_kernels(dev) -> dict:
                 "unpaired_image_captioning_tpu/ops/transformer_decode.py:229"}
     out = {}
     for name, rs in recs.items():
-        main = rs[-1] if name.endswith("stack") else rs[0]
+        # the record's numbers: the stack at the NMT's beam, the layer at
+        # the caption's; every shape is in "shapes"
+        main = rs[1] if name.endswith("stack") else rs[0]
         out[name] = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name],
@@ -1605,6 +1767,77 @@ def phase_agreement_transformer(dev, cap, nmt, cap2nmt) -> None:
     _token_agreement(res, "transformer agreement")
 
 
+def phase_head_widths(dev) -> None:
+    """A transformer captioner at each of HEAD_WIDTHS (head widths the
+    kernels take since their widening; HW_LAYERS layers, d_ff = d, the
+    other widths full): one XE step on two images on each of the three
+    training routes, card vs CPU, with the route's kernels launched
+    (`phase_train_agreement`); then a beam-5 decode of four images on the
+    card through the decoder-step kernel, whose teacher-forced incremental
+    logprobs must agree with the CPU's within AGREE_TOL."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.models.transformer import (
+        TransformerModel)
+
+    n = 4
+    fc, att = make_features(np.random.RandomState(3), n)
+    cpu = torch.device("cpu")
+    for label, d, heads in HEAD_WIDTHS:
+        widths = dict(input_encoding_size=d, rnn_size=d, num_heads=heads,
+                      num_layers=HW_LAYERS)
+        for enc_layer, dec_layer in ((True, False), (False, False),
+                                     (True, True)):
+            phase_train_agreement(dev, enc_layer, dec_layer, widths,
+                                  f"{label}: d {d} over {heads} heads, "
+                                  f"{HW_LAYERS} layers")
+        cap = TransformerModel(**dict(TCAP, **widths), device=dev).init_params(
+            torch.Generator().manual_seed(0))
+        cap.eval()
+        cap_c = copy.deepcopy(cap).to(cpu)
+        runs = (("gpu", dev, cap), ("cpu", cpu, cap_c))
+        feats, seqs, lps = {}, {}, {}
+        with torch.inference_mode():
+            for name, where, cm in runs:
+                masks = torch.ones((n, N_SLOTS), device=where)
+                masks[1, 150:] = 0.0
+                feats[name] = Features(
+                    fc_feats=torch.as_tensor(fc, device=where),
+                    att_feats=torch.as_tensor(att, device=where),
+                    att_masks=masks)
+                before = tdk.stack_launches
+                seqs[name] = cm.sample_beam(feats[name],
+                                            beam_size=CAP_BEAM).seq[:, 0]
+                if name == "gpu":
+                    torch.cuda.synchronize()
+                    launched = tdk.stack_launches - before
+            # both models teacher-forced on the CPU's top beams
+            for name, where, cm in runs:
+                ctx, st = cm.make_decoder(feats[name])
+                bos = torch.zeros((n,), dtype=torch.long, device=where)
+                lps[name] = _incremental_logprobs(
+                    cm.step, ctx, st, bos, seqs["cpu"].to(where)).cpu()
+        if launched <= 0:
+            raise AssertionError(f"{label} decode never launched "
+                                 "transformer_decode_stack")
+        err = (lps["gpu"] - lps["cpu"]).abs().max().item()
+        same = int((seqs["gpu"].cpu() == seqs["cpu"]).all(1).sum())
+        log(f"head width {label} (d {d} over {heads} heads, {HW_LAYERS} "
+            f"layers): beam {CAP_BEAM} on {n} images, {launched} stack "
+            f"launches; card vs cpu teacher-forced logprobs max|diff| "
+            f"{err:.3g} (tol {AGREE_TOL}); top beams token-identical "
+            f"{same} of {n}")
+        if not err <= AGREE_TOL:
+            raise AssertionError(f"head width {label}: card and cpu "
+                                 "decodes disagree")
+        del cap, cap_c
+
+
 # ---------------------------------------------------------------------------
 # transformer captioner XE training
 # ---------------------------------------------------------------------------
@@ -1619,13 +1852,12 @@ def _check_close(name: str, got, want) -> float:
     return err
 
 
-def _mha_inputs(dev, gen, b, t, s, kind):
+def _mha_inputs(dev, gen, b, t, s, kind, d):
     """q, g [B,T,d], k, v [B,S,d] at unit scale; the additive mask of the
     path: [B,1,S] with some images' slots padded, or the decoder's causal
     + pad [B,T,T] (position 0 always kept)."""
     import torch
 
-    d = TCAP["input_encoding_size"]
     q, g = (torch.randn((b, t, d), generator=gen, device=dev) for _ in "qg")
     k, v = (torch.randn((b, s, d), generator=gen, device=dev) for _ in "kv")
     lengths = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
@@ -1651,7 +1883,6 @@ def phase_train_kernels(dev) -> dict:
     from unpaired_image_captioning_tpu_torch.ops import mha_train as mho
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    heads = TCAP["num_heads"]
     seed = torch.tensor([4321], dtype=torch.int32, device=dev)
     rows = {n: [] for n in ("mha_train_fwd", "mha_train_bwd", "ln_train_fwd",
                             "ln_train_bwd")}
@@ -1673,9 +1904,9 @@ def phase_train_kernels(dev) -> dict:
             f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: "
             f"{lib_msg}")
 
-    for label, b, t, s, kind in MHA_SHAPES:
-        q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind)
-        d = q.shape[-1]
+    for label, b, t, s, kind, *width in MHA_SHAPES:
+        d, heads = width or (TCAP["input_encoding_size"], TCAP["num_heads"])
+        q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind, d)
         dh = d // heads
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
         out, stats = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
@@ -1985,15 +2216,15 @@ def _gemm_plans(pairs) -> str:
 def phase_layer_kernels(dev) -> dict:
     """The whole-layer kernels against their plain versions, dropout 0.1,
     forward and backward, each backward twice bit for bit: the encoder layer
-    (B6) at each of ENC_LAYER_SHAPES, the decoder layer (B7) at the
-    captioner's (T 17 causal + pad over S 196). Yardsticks beside each: the
-    port's per-sublayer route over the same layer (the mha_train / ln_train
-    kernels and cuBLAS, dropout from a generator), PyTorch's own pre-norm
-    layer at the same widths (the same work in another formula: biased
-    variance, eps inside the sqrt; the decoder layer also projects the
-    memory's K/V), and cuBLAS (TF32 off) over the layer's products alone on
-    the same weights and activations, beside the kernel's own GEMMs (its
-    `train_gemm_kernel` launches). Returns the JSON records."""
+    (B6) at each of ENC_LAYER_SHAPES, the decoder layer (B7) at each of
+    DEC_LAYER_SHAPES (T 17 causal + pad over S 196). Yardsticks beside
+    each: the port's per-sublayer route over the same layer (the mha_train
+    / ln_train kernels and cuBLAS, dropout from a generator), PyTorch's own
+    pre-norm layer at the same widths (the same work in another formula:
+    biased variance, eps inside the sqrt; the decoder layer also projects
+    the memory's K/V), and cuBLAS (TF32 off) over the layer's products
+    alone on the same weights and activations, beside the kernel's own
+    GEMMs (its `train_gemm_kernel` launches). Returns the JSON records."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
@@ -2150,92 +2381,100 @@ def phase_layer_kernels(dev) -> dict:
         del out, saved, grads, again, ref, x2, refs, lp, ref_layer, xr
         del params, tparams
 
-    # ---- decoder layer
-    d, f = TCAP["input_encoding_size"], TCAP["rnn_size"]
-    heads = TCAP["num_heads"]
-    dh = d // heads
-    kw = dict(n_heads=heads, **kw_rate)
-    b, s = TRAIN["batch_size"], N_SLOTS
-    t_dec = TRAIN["seq_length"] + 1
-    x, g = (torch.randn((b, t_dec, d), generator=gen, device=dev)
-            for _ in range(2))
-    mk, mv = (torch.randn((b, s, d), generator=gen, device=dev)
-              for _ in range(2))
-    keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
-    keep[1, :, 150:] = False
-    pos = torch.arange(t_dec, device=dev)
-    lengths = torch.randint(5, t_dec + 1, (b,), generator=gen, device=dev)
-    pad_ok = (pos[None, :] < lengths[:, None]) | (pos[None, :] == 0)
-    tkeep = pad_ok[:, None, :] & (pos[None, :] <= pos[:, None])[None]
-    tmask = torch.where(tkeep, 0.0, -1e9).contiguous()
-    smask = torch.where(keep, 0.0, -1e9).contiguous()     # [B, 1, S]
-    seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
-                         device=dev)
-    w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
-    ws = [w[k] for k in lto.DEC_WEIGHTS]
-    args = (x, mk, mv, tmask, smask, seeds)
-    out, saved = ltk.dec_layer_fwd(*args, w, **kw)
-    grads = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
-    again = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
-    ref, x2, x3 = lto.dec_fwd_plain(*args, *ws, **kw)
-    refs = lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw,
-                             relu_active=saved[-1] > 0)
-    torch.cuda.synchronize()
-    _relu_flips("dec_layer_train", x3, w, saved[-1], seeds[0:1], heads,
-                "l3")
-    e_f = _check_each("dec_layer_train_fwd", ("out", "x2", "x3"),
-                      (out, saved[0], saved[1]), (ref, x2, x3))
-    e_b = _check_each("dec_layer_train_bwd",
-                      ("dx", "dmk", "dmv") + lto.DEC_WEIGHTS, grads, refs)
-    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
-        raise AssertionError("dec_layer_train_bwd: two runs differ")
-    shape = (f"B={b} T={t_dec} S={s} d={d} d_ff={f} H={heads} "
-             f"rate={TRAIN_RATE}, causal + pad, image 1 padded past 150")
-    log(f"kernel dec_layer_train [{shape}]: max|diff| / max(1, max|plain|) "
-        f"out/x2/x3 {e_f:.3g}, dx/dmk/dmv and 18 weight gradients {e_b:.3g} "
-        f"(tol {TRAIN_TOL}, each tensor); backward twice: identical bits")
-    m = b * t_dec
-    # saved: x2, x3, y1, qkv, ao, y2, qc, co, y3, the two stats, hd
-    acts = {k: saved[i].reshape(m, -1) for k, i in
-            (("y1", 2), ("ao", 4), ("y2", 5), ("co", 7), ("y3", 8),
-             ("hd", 11))}
-    g_fwd, g_bwd = _layer_gemms(acts, w, decoder=True)
-    log("kernel dec_layer_train GEMM plans: " + _gemm_plans(g_fwd + g_bwd))
-    cub_f, cub_b = _cublas_gemms(g_fwd), _cublas_gemms(g_bwd)
-    del acts, g_fwd, g_bwd
-    pairs = (float(tkeep.sum()) + float((smask >= 0).expand(b, t_dec, s).sum())
-             ) * heads
-    proj = float(m) * (6 * d * d + 2 * d * f)
-    lp = _layer_module(dev, w, d, f, decoder=True)
-    xr, mkr, mvr = (a.detach().requires_grad_() for a in (x, mk, mv))
-    params = [xr, mkr, mvr] + list(lp.parameters())
-    sub_f, sub_b = _yardsticks(
-        "dec layer, per-sublayer route (mha_train, ln_train, cuBLAS)",
-        lambda: sublayer(tm.dec_layer_apply,
-                         (lp, xr, mkr, mvr, tkeep, keep, heads)),
-        params, g)
-    ref_layer = torch.nn.TransformerDecoderLayer(
-        d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
-        device=dev)
-    tparams = [xr, mkr] + list(ref_layer.parameters())
-    causal = ~(pos[None, :] <= pos[:, None])
-    tor_f, tor_b = _yardsticks(
-        "dec layer, torch.nn.TransformerDecoderLayer(norm_first, dropout 0; "
-        "memory [B, S, d], its K/V projected inside)",
-        lambda: ref_layer(xr, mkr, tgt_mask=causal,
-                          memory_key_padding_mask=~keep[:, 0]), tparams, g)
-    what = ("torch.nn.TransformerDecoderLayer (same work plus the memory's "
-            "K/V projections, other formula)")
-    record("dec_layer_train_fwd", ["444"], e_f, shape,
-           timed(lambda: ltk.dec_layer_fwd(*args, w, **kw),
-                 lambda: lto.dec_fwd_plain(*args, *ws, **kw)),
-           nbytes(*args, *ws, out, x2, x3),
-           2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what, cub_f)
-    record("dec_layer_train_bwd", ["476", "163", "202"], e_b, shape,
-           timed(lambda: ltk.dec_layer_bwd(*args, w, saved, g, **kw),
-                 lambda: lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw)),
-           nbytes(*args, *ws, *saved, g, *grads),
-           4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what, cub_b)
+    # ---- decoder layer, at each shape
+    for label, d, f, heads in DEC_LAYER_SHAPES:
+        dh = d // heads
+        kw = dict(n_heads=heads, **kw_rate)
+        b, s = TRAIN["batch_size"], N_SLOTS
+        t_dec = TRAIN["seq_length"] + 1
+        x, g = (torch.randn((b, t_dec, d), generator=gen, device=dev)
+                for _ in range(2))
+        mk, mv = (torch.randn((b, s, d), generator=gen, device=dev)
+                  for _ in range(2))
+        keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+        keep[1, :, 150:] = False
+        pos = torch.arange(t_dec, device=dev)
+        lengths = torch.randint(5, t_dec + 1, (b,), generator=gen,
+                                device=dev)
+        pad_ok = (pos[None, :] < lengths[:, None]) | (pos[None, :] == 0)
+        tkeep = pad_ok[:, None, :] & (pos[None, :] <= pos[:, None])[None]
+        tmask = torch.where(tkeep, 0.0, -1e9).contiguous()
+        smask = torch.where(keep, 0.0, -1e9).contiguous()     # [B, 1, S]
+        seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                             device=dev)
+        w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
+        ws = [w[k] for k in lto.DEC_WEIGHTS]
+        args = (x, mk, mv, tmask, smask, seeds)
+        out, saved = ltk.dec_layer_fwd(*args, w, **kw)
+        grads = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
+        again = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
+        ref, x2, x3 = lto.dec_fwd_plain(*args, *ws, **kw)
+        refs = lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw,
+                                 relu_active=saved[-1] > 0)
+        torch.cuda.synchronize()
+        name = f"dec_layer_train ({label})"
+        _relu_flips(name, x3, w, saved[-1], seeds[0:1], heads, "l3")
+        e_f = _check_each(f"{name} fwd", ("out", "x2", "x3"),
+                          (out, saved[0], saved[1]), (ref, x2, x3))
+        e_b = _check_each(f"{name} bwd",
+                          ("dx", "dmk", "dmv") + lto.DEC_WEIGHTS, grads, refs)
+        if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+            raise AssertionError(f"{name} bwd: two runs differ")
+        shape = (f"{label}: B={b} T={t_dec} S={s} d={d} d_ff={f} "
+                 f"H={heads} rate={TRAIN_RATE}, causal + pad, image 1 padded "
+                 "past 150")
+        log(f"kernel dec_layer_train [{shape}]: max|diff| / max(1, "
+            f"max|plain|) out/x2/x3 {e_f:.3g}, dx/dmk/dmv and 18 weight "
+            f"gradients {e_b:.3g} (tol {TRAIN_TOL}, each tensor); backward "
+            "twice: identical bits")
+        m = b * t_dec
+        # saved: x2, x3, y1, qkv, ao, y2, qc, co, y3, the two stats, hd
+        acts = {k: saved[i].reshape(m, -1) for k, i in
+                (("y1", 2), ("ao", 4), ("y2", 5), ("co", 7), ("y3", 8),
+                 ("hd", 11))}
+        g_fwd, g_bwd = _layer_gemms(acts, w, decoder=True)
+        log(f"kernel dec_layer_train [{label}] GEMM plans: "
+            + _gemm_plans(g_fwd + g_bwd))
+        cub_f, cub_b = _cublas_gemms(g_fwd), _cublas_gemms(g_bwd)
+        del acts, g_fwd, g_bwd
+        pairs = (float(tkeep.sum())
+                 + float((smask >= 0).expand(b, t_dec, s).sum())) * heads
+        proj = float(m) * (6 * d * d + 2 * d * f)
+        lp = _layer_module(dev, w, d, f, decoder=True)
+        xr, mkr, mvr = (a.detach().requires_grad_() for a in (x, mk, mv))
+        params = [xr, mkr, mvr] + list(lp.parameters())
+        sub_f, sub_b = _yardsticks(
+            f"dec layer [{label}], per-sublayer route (mha_train, ln_train, "
+            "cuBLAS)",
+            lambda: sublayer(tm.dec_layer_apply,
+                             (lp, xr, mkr, mvr, tkeep, keep, heads)),
+            params, g)
+        ref_layer = torch.nn.TransformerDecoderLayer(
+            d, heads, f, dropout=0.0, batch_first=True, norm_first=True,
+            device=dev)
+        tparams = [xr, mkr] + list(ref_layer.parameters())
+        causal = ~(pos[None, :] <= pos[:, None])
+        tor_f, tor_b = _yardsticks(
+            f"dec layer [{label}], torch.nn.TransformerDecoderLayer("
+            "norm_first, dropout 0; memory [B, S, d], its K/V projected "
+            "inside)",
+            lambda: ref_layer(xr, mkr, tgt_mask=causal,
+                              memory_key_padding_mask=~keep[:, 0]),
+            tparams, g)
+        what = ("torch.nn.TransformerDecoderLayer (same work plus the "
+                "memory's K/V projections, other formula)")
+        record("dec_layer_train_fwd", ["444"], e_f, shape,
+               timed(lambda: ltk.dec_layer_fwd(*args, w, **kw),
+                     lambda: lto.dec_fwd_plain(*args, *ws, **kw)),
+               nbytes(*args, *ws, out, x2, x3),
+               2.0 * proj + 4.0 * pairs * dh, sub_f, tor_f, what, cub_f)
+        record("dec_layer_train_bwd", ["476", "163", "202"], e_b, shape,
+               timed(lambda: ltk.dec_layer_bwd(*args, w, saved, g, **kw),
+                     lambda: lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw)),
+               nbytes(*args, *ws, *saved, g, *grads),
+               4.0 * proj + 10.0 * pairs * dh, sub_b, tor_b, what, cub_b)
+        del out, saved, grads, again, ref, x2, x3, refs, lp, ref_layer, xr
+        del params, tparams
     return rec
 
 
@@ -2391,7 +2630,8 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
         set_flags(*old)
 
 
-def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
+def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool,
+                          widths: dict = None, label: str = "") -> None:
     """One training step on two images at full width, every dropout off,
     through `Trainer.train` on the card (kernels) and on the CPU (plain
     versions), from the same initial weights, on the route the flags name.
@@ -2401,29 +2641,46 @@ def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
     the clipped gradient itself: Adam's first step would move each weight
     by about lr * sign(g) and turn the rounding noise of gradients that are
     zero in exact arithmetic (the attention key biases) into differences of
-    2 * lr."""
+    2 * lr. `widths` overrides the captioner's widths (HEAD_WIDTHS); the
+    card step must then launch the kernels of its route."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
     from unpaired_image_captioning_tpu_torch.models import transformer as tm
     from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
     cfg = dict(TRAIN, batch_size=2, drop_prob_lm=0.0, i2t_optim="sgd",
-               i2t_learning_rate=1.0)
+               i2t_learning_rate=1.0, **(widths or {}))
     batch = make_train_batch(np.random.RandomState(4), 2)
     rate = tm.DROPOUT
     tm.DROPOUT = 0.0
     old = _route_flags(enc_layer, dec_layer)
+    counts = (mhk, "fwd_launches"), (mhk, "bwd_launches"), (
+        ltk, "enc_fwd_launches"), (ltk, "enc_bwd_launches"), (
+        ltk, "dec_fwd_launches"), (ltk, "dec_bwd_launches")
     try:
         got = {}
         for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
             trainer = Trainer(Config(**cfg), device=device)
+            before = [getattr(m, a) for m, a in counts]
             loss = trainer.train(batch)["total_loss"]
+            if name == "gpu":
+                launched = [getattr(m, a) - b
+                            for (m, a), b in zip(counts, before)]
             got[name] = (loss, {k: v.detach().cpu() for k, v in
                                 trainer.i2t_model.state_dict().items()})
     finally:
         tm.DROPOUT = rate
         _route_flags(*old)
+    # the kernels the route must launch: the attentions per sublayer unless
+    # every layer is whole; the layer kernels the flags name
+    want = [not (enc_layer and dec_layer)] * 2 + [enc_layer] * 2 + [
+        dec_layer] * 2
+    if any(w and n <= 0 for w, n in zip(want, launched)):
+        raise AssertionError(f"training step {label}: launches {launched} "
+                             "miss a kernel of the route")
     (lg, pg), (lc, pc) = got["gpu"], got["cpu"]
     loss_err = abs(lg - lc) / abs(lc)
     worst, worst_key = 0.0, None
@@ -2434,6 +2691,10 @@ def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool) -> None:
             worst, worst_key = e, k
     route = ("whole encoder and decoder layers" if dec_layer and enc_layer
              else "whole encoder layers" if enc_layer else "per sublayer")
+    if label:
+        route += f", {label}"
+    log(f"launches of the card step [{route}] (mha_train fwd / bwd, "
+        f"enc_layer fwd / bwd, dec_layer fwd / bwd): {launched}")
     log(f"training agreement [{route}]: card vs cpu, one step on 2 images, "
         f"dropout 0: loss {lg:.6f} vs {lc:.6f} (relative {loss_err:.3g}); "
         f"updated parameters max|diff| / max(1, max|p|) {worst:.3g} at "
@@ -3561,9 +3822,21 @@ def phase_resnet_agreement(dev, resnet_state) -> None:
         "max|diff| / max(1, max|cpu|): " + ", ".join(errs))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port "
+                                 "on one CUDA card (see the module's doc).")
+    ap.add_argument("--times", default=None, metavar="GROUP[,GROUP]",
+                    help="only build and time the kernels of these groups "
+                    f"({', '.join(TIMES_GROUPS)}), with no check, and print "
+                    "the readings as the last line")
+    args = ap.parse_args(argv)
+    groups = args.times.split(",") if args.times else []
+    if set(groups) - set(TIMES_GROUPS):
+        ap.error(f"--times takes groups of {TIMES_GROUPS}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is False)")
@@ -3595,6 +3868,10 @@ def main() -> int:
     phase_device()
     phase_build()
     mark("build")
+    if groups:
+        readings = phase_times(dev, groups)
+        print(json.dumps({"times": readings}), flush=True)
+        return 0
     kernels = phase_kernels(dev)
     kernels.update(phase_chunked_topk(dev))
     kernels.update(phase_att_kernels(dev, kernels["lstm_cell"]))
@@ -3651,6 +3928,8 @@ def main() -> int:
     phase_train_agreement(dev, True, False)
     phase_train_agreement(dev, True, True)
     mark("transformer training")
+    phase_head_widths(dev)
+    mark("head widths 96 and 256")
     dense_counters = {"lstm_cell": (lk, "launches"),
                       "additive_attention": (aak, "launches")}
     dense_runs = [phase_train(route, dense_counters, detail=i == 0,

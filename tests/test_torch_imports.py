@@ -83,3 +83,21 @@ def test_prepro_feats_defaults_to_the_card(monkeypatch, tmp_path):
         prepro_feats.main(["--input_json", str(listing), "--output_dir",
                            str(tmp_path / "f"), "--model", "resnet_tiny"])
 
+
+
+@pytest.mark.parametrize("args,code", [([], 1), (["--times", "topk,mha"], 1),
+                                       (["--times", "lstm"], 2)])
+def test_chip_smoke_prints_no_result_without_a_card(args, code):
+    """`chip_smoke.py` exits non-zero with nothing on stdout where CUDA is
+    not available (and on a `--times` group it does not know), before it
+    builds or runs anything."""
+    import os
+    import subprocess
+    import sys
+
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert run.returncode == code, run.stderr
+    assert run.stdout == ""

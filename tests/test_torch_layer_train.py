@@ -215,7 +215,9 @@ def _card_close(got, want):
 @pytest.mark.parametrize("b,t,d,f,heads", [(50, 196, 512, 512, 8),
                                            (3, 37, 256, 384, 4),
                                            (50, 16, 512, 2048, 8),
-                                           (5, 29, 96, 100, 3)])
+                                           (5, 29, 96, 100, 3),
+                                           (4, 37, 768, 512, 8),
+                                           (3, 70, 512, 384, 2)])
 def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)
@@ -242,7 +244,9 @@ def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,s,d,f,heads", [(50, 17, 196, 512, 512, 8),
-                                             (3, 9, 70, 256, 384, 4)])
+                                             (3, 9, 70, 256, 384, 4),
+                                             (4, 17, 196, 768, 512, 8),
+                                             (3, 17, 196, 512, 512, 2)])
 def test_cuda_dec_layer_matches_plain(cuda_dev, b, t, s, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(s)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)

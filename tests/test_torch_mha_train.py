@@ -151,11 +151,17 @@ def cuda_dev():
                                                 (50, 17, 17, 17, 64),
                                                 (3, 40, 70, 40, 64),
                                                 (4, 70, 131, 1, 32),
-                                                (3, 129, 67, 129, 128)])
+                                                (3, 129, 67, 129, 128),
+                                                (4, 70, 131, 70, 96),
+                                                (3, 40, 70, 1, 256),
+                                                (2, 37, 99, 37, 256),
+                                                (2, 5, 20, 5, 12),
+                                                (2, 100, 1500, 1, 64)])
 def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows, dh):
     """Outputs, row statistics and gradients against the plain versions;
-    T and S off the 64-row tiles; forward and backward bit-identical on a
-    rerun."""
+    T and S off the 64-row tiles; head widths padded in their bucket (96 in
+    128's, 12 in 32's) and the 32-row tiles of bucket 256; 1,500 keys;
+    forward and backward bit-identical on a rerun."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n_heads, rate = 8, 0.1
     d = n_heads * dh

@@ -257,12 +257,14 @@ def cuda_dev():
     ((10, 3, 512, 512, 8, 196, 16), "whole number"),
     ((10, 5, 512, 512, 3, 196, 16), "heads"),
     ((10, 5, 24, 48, 4, 196, 16), "heads"),          # dh = 6
-    ((10, 5, 512, 512, 2, 196, 16), "heads"),        # dh = 256
+    ((10, 5, 512, 512, 2, 196, 16), None),           # dh = 256
+    ((10, 5, 520, 512, 2, 196, 16), "heads"),        # dh = 260
+    ((64, 2, 512, 512, 2, 196, 16), None),           # 32 beams, dh 256
     ((10, 5, 512, 510, 8, 196, 16), "multiple of 4"),
     ((10, 5, 512, 512, 8, 196, 4000), "cache slots"),
     ((640, 5, 512, 512, 4, 100000, 16), "cross-attention"),
-], ids=["caption", "nmt", "rows", "heads", "dh6", "dh256", "dff", "T",
-        "S"])
+], ids=["caption", "nmt", "rows", "heads", "dh6", "dh256", "dh260",
+        "beam32_dh256", "dff", "T", "S"])
 def test_check_dims_names_what_the_kernels_do_not_take(cuda_dev, dims,
                                                        match):
     """The wrapper's shape checks, run before a launch: the limits are the
@@ -318,7 +320,8 @@ def _edit(a, edit, n_t):
 # shapes, a tiny ragged one, and the edges of the kernels' tiling: rows not
 # a multiple of the GEMM's 64-row tile, S not a multiple of the
 # cross-attention's slot split, rows with t = -1 and t >= T, a fully masked
-# image, head widths 32 and 128, one beam
+# image, head widths 32, 96, 128 and 256 (at 32 beams the cross-attention
+# splits the beams into two query groups), one beam
 CUDA_CASES = {
     "caption": (50, 5, 16, 196, 512, 512, 8, False, None),
     "nmt": (50, 15, 20, 16, 512, 2048, 8, True, None),
@@ -330,6 +333,10 @@ CUDA_CASES = {
     "masked_image": (4, 5, 16, 196, 512, 512, 8, False, "masked"),
     "dh32": (4, 5, 16, 196, 512, 512, 16, False, None),
     "dh128": (4, 5, 16, 196, 512, 512, 4, False, None),
+    "dh96": (4, 5, 16, 196, 768, 512, 8, False, None),
+    "dh256": (4, 5, 16, 196, 512, 512, 2, False, None),
+    "dh256_nmt": (4, 15, 20, 16, 512, 2048, 2, True, None),
+    "dh256_beam32": (2, 32, 16, 196, 512, 512, 2, False, "t_out"),
     "kb1": (9, 1, 16, 196, 512, 512, 8, False, None),
 }
 

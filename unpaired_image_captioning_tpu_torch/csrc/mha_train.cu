@@ -37,6 +37,21 @@
 //     tiles for dq += ds k. Each output element has one owner and a fixed
 //     order of sums: no float atomics, the same bits on every run.
 //
+// Head widths. Four compiled buckets, DH = 32, 64, 128 and 256, take every
+// head width dh that is a multiple of 4 up to 256: dh runs in the least
+// bucket that holds it. The tiles are DH wide; columns past dh are loaded as
+// zeros and never stored, so they add exact zeros to q.k and change no
+// written element of P.V, and the first dh columns keep their order of
+// sums. Each bucket also has an instance for dh = DH alone, with those
+// bounds compiled out (mha_train_impl.cuh: FULL), so the widths 32, 64 and
+// 128 pay nothing for the padding: the run-time bounds cost the decoder's
+// self-attention forward (T = S = 17) 3-4% on an H100 (PERF.md). At DH 256
+// the tiles hold 32 rows, not 64: the forward's Q, K and V tiles (two
+// stages of K and V) at 64 rows would need 340 KB of shared memory; at 32
+// rows they take 167 KB. There is no limit on the keys S: the forward
+// streams key tiles with an online softmax, and the backward's ds scratch
+// (B*H*T*S floats) is memory only.
+//
 // What bounds it on the card: at the encoder shape (B 50, T = S = 196,
 // d 512, 8 heads) the forward is 3.9 GFLOP against 80 MB of q/k/v/mask/o,
 // so the f32 FMA rate bounds it (59 us at 67 TFLOP/s; the bytes take
@@ -53,13 +68,17 @@
 
 namespace uic {
 namespace mha {
-// compiled in mha_train_dh32.cu and mha_train_dh128.cu
+// compiled in mha_train_dh32.cu, mha_train_dh128.cu and mha_train_dh256.cu
 extern template int fwd<32>(const Attn&, float*, float*, cudaStream_t);
 extern template int fwd<128>(const Attn&, float*, float*, cudaStream_t);
+extern template int fwd<256>(const Attn&, float*, float*, cudaStream_t);
 extern template int bwd<32>(const Attn&, const float*, const float*,
                             const float*, float*, float*, float*, float*,
                             cudaStream_t);
 extern template int bwd<128>(const Attn&, const float*, const float*,
+                             const float*, float*, float*, float*, float*,
+                             cudaStream_t);
+extern template int bwd<256>(const Attn&, const float*, const float*,
                              const float*, float*, float*, float*, float*,
                              cudaStream_t);
 }  // namespace mha
@@ -84,11 +103,18 @@ Attn plain_attn(const float* q, const float* k, const float* v,
 
 namespace uic {
 
+// the bucket that runs head width dh, 0 for a width the kernels refuse
+int attn_bucket(int dh) {
+  if (dh < 4 || dh % 4 || dh > 256) return 0;
+  return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+
 int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st) {
-  switch (a.dh) {
+  switch (attn_bucket(a.dh)) {
     case 32: return mha::fwd<32>(a, out, stats, st);
     case 64: return mha::fwd<64>(a, out, stats, st);
     case 128: return mha::fwd<128>(a, out, stats, st);
+    case 256: return mha::fwd<256>(a, out, stats, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -96,10 +122,11 @@ int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st) {
 int attn_bwd(const Attn& a, const float* g, const float* o,
              const float* stats, float* dq, float* dk, float* dv,
              float* scratch, cudaStream_t st) {
-  switch (a.dh) {
+  switch (attn_bucket(a.dh)) {
     case 32: return mha::bwd<32>(a, g, o, stats, dq, dk, dv, scratch, st);
     case 64: return mha::bwd<64>(a, g, o, stats, dq, dk, dv, scratch, st);
     case 128: return mha::bwd<128>(a, g, o, stats, dq, dk, dv, scratch, st);
+    case 256: return mha::bwd<256>(a, g, o, stats, dq, dk, dv, scratch, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -110,7 +137,7 @@ extern "C" {
 
 // q [B,T,H*dh], k/v [B,S,H*dh], mask [B,mask_rows,S] f32 (< 0: masked),
 // seed int32 [1] on the card, out [B,T,H*dh], stats [2,B,H,T] (row max,
-// row sum); dh in {32, 64, 128}, S <= 1024; 16-byte aligned
+// row sum); dh a multiple of 4 up to 256; 16-byte aligned
 int mha_train_fwd_f32(const float* q, const float* k, const float* v,
                       const float* mask, const int* seed, float* out,
                       float* stats, int B, int T, int S, int H, int dh,

@@ -43,6 +43,10 @@ struct Attn {
   int dropout;
 };
 
+// The compiled head-width bucket that runs dh (32, 64, 128 or 256), 0 if
+// the kernels refuse dh (not a multiple of 4, or above 256).
+int attn_bucket(int dh);
+
 // Floats of a backward's scratch: the rows' g . o [B*H*T] (rounded up to
 // 4), then ds / sqrt(dh) [B, H, T, S rounded up to 4].
 inline size_t attn_dsum_floats(int B, int H, int T) {
@@ -53,7 +57,7 @@ inline size_t attn_bwd_scratch_floats(int B, int H, int T, int S) {
 }
 
 // out = attention(q, k, v) and the rows' softmax statistics;
-// dh in {32, 64, 128}, S <= 1024
+// dh a multiple of 4 up to 256 (attn_bucket), any S
 int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st);
 // dq, dk, dv for the upstream gradient g, from the forward's output o and
 // statistics; scratch of attn_bwd_scratch_floats(B, H, T, S) floats

@@ -1,5 +1,6 @@
-// The training attention's kernels at head width 32 (mha_train_impl.cuh;
-// the design and the entry points are in mha_train.cu).
+// The training attention's kernels of bucket 32, head widths 4..32
+// (mha_train_impl.cuh; the design and the entry points are in
+// mha_train.cu).
 #include "mha_train_impl.cuh"
 
 namespace uic {

@@ -1,8 +1,11 @@
 // The kernels of the training attention and their host launchers, as
-// templates over the head width. mha_train.cu instantiates dh 64 and holds
-// the entry points; mha_train_dh32.cu and mha_train_dh128.cu instantiate the
-// other widths, so the three compile in parallel (see mha_train.cu for the
-// design).
+// templates over a head-width bucket DH: an instance runs any head width
+// dh <= DH that is a multiple of 4, its tiles DH wide with the columns past
+// dh zero (loaded as zeros, never stored), and an instance for dh = DH
+// alone (FULL), with those bounds compiled out. mha_train.cu instantiates
+// DH 64 and holds the entry points; mha_train_dh32.cu, _dh128.cu and
+// _dh256.cu instantiate the other buckets, so the four compile in parallel
+// (see mha_train.cu for the design).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,9 +18,7 @@ namespace uic {
 namespace mha {
 
 constexpr int NT = 256;           // threads a block: tx = tid % 16, ty = tid / 16
-constexpr int TILE = 64;          // queries and keys per tile
 constexpr int PAD = 4;            // floats after each shared row
-constexpr int LDP = TILE + PAD;   // row of a [64][64] probability tile
 constexpr float NEG = -1e9f;
 
 template <int N>
@@ -27,7 +28,12 @@ struct IC {
 
 template <int DH>
 struct Lay {
-  static constexpr int LD = DH + PAD;           // row of a [64][DH] tile
+  // queries and keys a tile: 64, or 32 at DH 256, whose [64][DH] tiles
+  // would not fit the forward's five in 227 KB of shared memory
+  static constexpr int TILE = DH <= 128 ? 64 : 32;
+  static constexpr int G = TILE / 16;           // 16-row groups a tile
+  static constexpr int LDP = TILE + PAD;        // row of a probability tile
+  static constexpr int LD = DH + PAD;           // row of a [TILE][DH] tile
   static constexpr int TILE_F = TILE * LD;
   static constexpr int VEC = DH >= 64 ? 4 : 2;  // adjacent output columns
   static constexpr int NV = DH / (16 * VEC);    // vectors of them a thread
@@ -74,31 +80,37 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// f(IC<n>) for n in 1..4: the 16-row groups of a tile that hold valid rows
+// f(IC<n>) for n in 1..G: the 16-row groups of a tile that hold valid rows
 // or keys, as a compile-time extent
-template <typename F>
+template <int G, typename F>
 __device__ __forceinline__ void with_extent(int n, F&& f) {
-  switch (n) {
-    case 1: f(IC<1>{}); break;
-    case 2: f(IC<2>{}); break;
-    case 3: f(IC<3>{}); break;
-    default: f(IC<4>{}); break;
+  if constexpr (G == 2) {
+    if (n <= 1) f(IC<1>{}); else f(IC<2>{});
+  } else {
+    switch (n) {
+      case 1: f(IC<1>{}); break;
+      case 2: f(IC<2>{}); break;
+      case 3: f(IC<3>{}); break;
+      default: f(IC<4>{}); break;
+    }
   }
 }
 
 static __device__ __forceinline__ int groups(int n) { return (n + 15) / 16; }
 
-// rows [r0, r0 + 64) of head h of one batch element's [L, ld] matrix into
-// dst [64][DH + PAD]; rows past L are zero
+// rows [r0, r0 + TILE) of the dh columns from col0 of one batch element's
+// [L, ld] matrix into dst [TILE][DH + PAD]; rows past L and columns past dh
+// are zero
 template <int DH>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int L, int ld, int h) {
+                                          int r0, int L, int ld, int col0,
+                                          int dh) {
   constexpr int C4 = DH / 4;
-  for (int e = threadIdx.x; e < TILE * C4; e += NT) {
+  for (int e = threadIdx.x; e < Lay<DH>::TILE * C4; e += NT) {
     const int r = e / C4, c = (e % C4) * 4, row = r0 + r;
-    const bool ok = row < L;
+    const bool ok = row < L && c < dh;
     cp16(dst + r * Lay<DH>::LD + c,
-         ok ? src + (size_t)row * ld + h * DH + c : src, ok);
+         ok ? src + (size_t)row * ld + col0 + c : src, ok);
   }
 }
 
@@ -132,8 +144,8 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* B,
 }
 
 // acc[r][n*VEC + v] += sum over k < kn of P[ty + 16r][k] * M[k][col] for
-// r < R, col = n*16*VEC + tx*VEC + v; P [64][LDP], M [64][DH + PAD]; kn a
-// multiple of 4
+// r < R, col = n*16*VEC + tx*VEC + v; P [TILE][LDP], M [TILE][DH + PAD]; kn
+// a multiple of 4
 template <int DH, int R>
 __device__ __forceinline__ void acc_rows(const float* P, const float* M,
                                          int kn, float (&acc)[4][DH / 16],
@@ -144,7 +156,7 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* M,
     float4 pv[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      pv[r] = *reinterpret_cast<const float4*>(P + (ty + 16 * r) * LDP + k);
+      pv[r] = *reinterpret_cast<const float4*>(P + (ty + 16 * r) * L::LDP + k);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const float* mrow = M + (k + q) * L::LD + tx * L::VEC;
@@ -174,14 +186,17 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* M,
   }
 }
 
-// dst[col] = vals[cc] over the thread's columns of one head row
+// dst[col] = vals[cc] over the thread's columns of one head row, the
+// columns below dh (a multiple of 4, so a vector is in or out whole)
 template <int DH>
 __device__ __forceinline__ void store_row(float* dst, const float* vals,
-                                          int tx) {
+                                          int tx, int dh) {
   using L = Lay<DH>;
 #pragma unroll
   for (int n = 0; n < L::NV; ++n) {
-    float* p = dst + n * 16 * L::VEC + tx * L::VEC;
+    const int col = n * 16 * L::VEC + tx * L::VEC;
+    if (col >= dh) continue;
+    float* p = dst + col;
     const float* v = vals + n * L::VEC;
     if constexpr (L::VEC == 4)
       *reinterpret_cast<float4*>(p) =
@@ -198,7 +213,7 @@ static __device__ __forceinline__ const float* mask_row(const Attn& a, int b,
 }
 
 // One block's forward over query rows [q0, q0 + 16 QG).
-template <int DH, int QG>
+template <int DH, int QG, bool FULL>
 __device__ __forceinline__ void fwd_block(const Attn& a,
                                           float* __restrict__ out,
                                           float* __restrict__ stats,
@@ -206,9 +221,9 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
                                           int q0) {
   using L = Lay<DH>;
   constexpr int CPT = L::CPT;
-  float* qs = smem;                    // [64][LD]
-  float* kvs = qs + L::TILE_F;         // 2 stages x (K, V), [64][LD] each
-  float* ps = kvs + 4 * L::TILE_F;     // [64][LDP] probabilities
+  float* qs = smem;                    // [TILE][LD]
+  float* kvs = qs + L::TILE_F;         // 2 stages x (K, V), [TILE][LD] each
+  float* ps = kvs + 4 * L::TILE_F;     // [TILE][LDP] probabilities
   const int T = a.T, S = a.S;
   const int b = blockIdx.z, h = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -216,20 +231,22 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
   const float* vb = a.v + (size_t)b * S * a.lv;
   const int q_end = min(T, q0 + 16 * QG);
   const int in = groups(q_end - q0);
-  const int n_kt = (S + TILE - 1) / TILE;
+  const int n_kt = (S + L::TILE - 1) / L::TILE;
+  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
+  const int col0 = h * dh;
   const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
-  const float* mrow[4];
+  const float* mrow[L::G];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) mrow[i] = mask_row(a, b, q0 + ty + 16 * i);
+  for (int i = 0; i < L::G; ++i) mrow[i] = mask_row(a, b, q0 + ty + 16 * i);
 
-  load_tile<DH>(qs, a.q + (size_t)b * T * a.lq, q0, q_end, a.lq, h);
-  load_tile<DH>(kvs, kb, 0, S, a.lk, h);
-  load_tile<DH>(kvs + L::TILE_F, vb, 0, S, a.lv, h);
+  load_tile<DH>(qs, a.q + (size_t)b * T * a.lq, q0, q_end, a.lq, col0, dh);
+  load_tile<DH>(kvs, kb, 0, S, a.lk, col0, dh);
+  load_tile<DH>(kvs + L::TILE_F, vb, 0, S, a.lv, col0, dh);
   cp_commit();
 
   float o[4][CPT], m[4], l[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < QG; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -237,11 +254,11 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
   }
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TILE;
+    const int k0 = kt * L::TILE;
     if (kt + 1 < n_kt) {
       float* nxt = kvs + ((kt + 1) & 1) * 2 * L::TILE_F;
-      load_tile<DH>(nxt, kb, k0 + TILE, S, a.lk, h);
-      load_tile<DH>(nxt + L::TILE_F, vb, k0 + TILE, S, a.lv, h);
+      load_tile<DH>(nxt, kb, k0 + L::TILE, S, a.lk, col0, dh);
+      load_tile<DH>(nxt + L::TILE_F, vb, k0 + L::TILE, S, a.lv, col0, dh);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -250,8 +267,8 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
     __syncthreads();
     const float* ks = kvs + (kt & 1) * 2 * L::TILE_F;
     const float* vs = ks + L::TILE_F;
-    const int nk = min(TILE, S - k0);
-    with_extent(groups(nk), [&](auto J) {
+    const int nk = min(L::TILE, S - k0);
+    with_extent<L::G>(groups(nk), [&](auto J) {
       constexpr int IN = QG, JN = decltype(J)::value;
       float s[4][4];
       dot_tile<DH, IN, JN>(qs, ks, s, ty, tx);
@@ -284,9 +301,9 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
           l[i] += e;
           float p = e;
           if (a.dropout && key < S &&
-              keep_hash(base, (uint32_t)(row * S + key)) < a.thresh)
+              keep_hash(base, (uint32_t)row * (uint32_t)S + key) < a.thresh)
             p = 0.f;
-          ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
+          ps[(ty + 16 * i) * L::LDP + tx + 16 * j] = p;
         }
       }
       __syncthreads();
@@ -309,7 +326,8 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
     float vals[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) vals[c] = o[i][c] * inv;
-    store_row<DH>(out + ((size_t)b * T + row) * a.lo + h * DH, vals, tx);
+    store_row<DH>(out + ((size_t)b * T + row) * a.lo + col0, vals, tx,
+                  dh);
     if (tx == 0) {
       st_m[row] = m[i];
       st_l[row] = lt;
@@ -317,21 +335,22 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
   }
 }
 
-// A block per (b, h, tile_rows queries) (32 where T <= 32, else 64), which
-// runs as 16, 32 or 64 rows after the rows its tile holds: the ragged last
-// tile of T = 196 (4 rows) costs a quarter of a full one.
-template <int DH>
+// A block per (b, h, tile_rows queries) (32 where T <= 32 or the tile is
+// 32 rows, else 64), which runs as 16, 32 or 64 rows after the rows its
+// tile holds: the ragged last tile of T = 196 (4 rows) costs a quarter of a
+// full one.
+template <int DH, bool FULL>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
     mha_fwd_kernel(const __grid_constant__ Attn a, float* __restrict__ out,
                    float* __restrict__ stats, float inv_sqrt, int tile_rows) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
   if (rows <= 16)
-    fwd_block<DH, 1>(a, out, stats, inv_sqrt, smem, q0);
-  else if (rows <= 32)
-    fwd_block<DH, 2>(a, out, stats, inv_sqrt, smem, q0);
-  else
-    fwd_block<DH, 4>(a, out, stats, inv_sqrt, smem, q0);
+    fwd_block<DH, 1, FULL>(a, out, stats, inv_sqrt, smem, q0);
+  else if (Lay<DH>::G == 2 || rows <= 32)
+    fwd_block<DH, 2, FULL>(a, out, stats, inv_sqrt, smem, q0);
+  else if constexpr (Lay<DH>::G == 4)
+    fwd_block<DH, 4, FULL>(a, out, stats, inv_sqrt, smem, q0);
 }
 
 // D_i = g_i . o_i over head h's columns: a warp per (b, t, h)
@@ -366,7 +385,8 @@ static __device__ __forceinline__ Grad grad_at(const Attn& a, uint32_t base,
   const float p = __expf((masked ? NEG : s * inv_sqrt) - m) * inv_l;
   float attn = p;
   if (a.dropout) {
-    const bool keep = keep_hash(base, (uint32_t)(row * a.S + key)) >= a.thresh;
+    const bool keep =
+        keep_hash(base, (uint32_t)row * (uint32_t)a.S + key) >= a.thresh;
     attn = keep ? p * inv_keep : 0.f;
     dp = keep ? dp * inv_keep : 0.f;
   }
@@ -374,7 +394,7 @@ static __device__ __forceinline__ Grad grad_at(const Attn& a, uint32_t base,
 }
 
 // One block of the dk / dv kernel over keys [k0, k0 + 16 JN).
-template <int DH, int JN>
+template <int DH, int JN, bool FULL>
 __device__ __forceinline__ void dkdv_block(
     const Attn& a, const float* __restrict__ g,
     const float* __restrict__ stats, const float* __restrict__ dsum,
@@ -386,9 +406,9 @@ __device__ __forceinline__ void dkdv_block(
   float* vs = ks + L::TILE_F;
   float* qs = vs + L::TILE_F;
   float* gs = qs + L::TILE_F;
-  float* pt = gs + L::TILE_F;          // [key][query] attn, [64][LDP]
-  float* dt = pt + TILE * LDP;         // [key][query] ds
-  __shared__ float rm[TILE], rl[TILE], rd[TILE];
+  float* pt = gs + L::TILE_F;          // [key][query] attn, [TILE][LDP]
+  float* dt = pt + L::TILE * L::LDP;   // [key][query] ds
+  __shared__ float rm[L::TILE], rl[L::TILE], rd[L::TILE];
   const int T = a.T, S = a.S;
   const int b = blockIdx.z, h = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -402,22 +422,24 @@ __device__ __forceinline__ void dkdv_block(
   float* dsg = ds_out + bh * T * lds;
   const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
   const float inv_keep = 1.f / a.keep_div;
+  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
+  const int col0 = h * dh;
 
-  load_tile<DH>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, h);
-  load_tile<DH>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, h);
+  load_tile<DH>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, col0, dh);
+  load_tile<DH>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, col0, dh);
   cp_commit();
   float adk[4][CPT], adv[4][CPT];   // keys ty + 16j, the thread's columns
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < JN; ++j)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) adk[j][c] = adv[j][c] = 0.f;
 
-  for (int q0 = 0; q0 < T; q0 += TILE) {
+  for (int q0 = 0; q0 < T; q0 += L::TILE) {
     __syncthreads();   // the previous tile's qs, gs, pt, dt are read
-    load_tile<DH>(qs, qb, q0, T, a.lq, h);
-    load_tile<DH>(gs, gb, q0, T, a.lo, h);
+    load_tile<DH>(qs, qb, q0, T, a.lq, col0, dh);
+    load_tile<DH>(gs, gb, q0, T, a.lo, col0, dh);
     cp_commit();
-    if (threadIdx.x < TILE) {
+    if (threadIdx.x < L::TILE) {
       const int row = q0 + threadIdx.x;
       const bool ok = row < T;
       rm[threadIdx.x] = ok ? st_m[row] : 0.f;
@@ -426,8 +448,8 @@ __device__ __forceinline__ void dkdv_block(
     }
     cp_wait<0>();
     __syncthreads();
-    const int nq = min(TILE, T - q0);
-    with_extent(groups(nq), [&](auto I) {
+    const int nq = min(L::TILE, T - q0);
+    with_extent<L::G>(groups(nq), [&](auto I) {
       constexpr int IN = decltype(I)::value;
       float s[4][4], dp[4][4];
       dot_tile<DH, IN, JN>(qs, ks, s, ty, tx);
@@ -443,8 +465,8 @@ __device__ __forceinline__ void dkdv_block(
           if (row < T && key < S)
             gr = grad_at(a, base, mrow, row, key, s[i][j], dp[i][j], rm[qi],
                          rl[qi], rd[qi], inv_keep, inv_sqrt);
-          pt[kj * LDP + qi] = gr.attn;
-          dt[kj * LDP + qi] = gr.ds;
+          pt[kj * L::LDP + qi] = gr.attn;
+          dt[kj * L::LDP + qi] = gr.ds;
           if (row < T && key < lds) dsg[(size_t)row * lds + key] = gr.ds;
         }
       }
@@ -458,16 +480,18 @@ __device__ __forceinline__ void dkdv_block(
   for (int j = 0; j < JN; ++j) {
     const int key = k0 + ty + 16 * j;
     if (key >= S) continue;
-    store_row<DH>(dk + ((size_t)b * S + key) * a.lk + h * DH, adk[j], tx);
-    store_row<DH>(dv + ((size_t)b * S + key) * a.lv + h * DH, adv[j], tx);
+    store_row<DH>(dk + ((size_t)b * S + key) * a.lk + col0, adk[j], tx,
+                  dh);
+    store_row<DH>(dv + ((size_t)b * S + key) * a.lv + col0, adv[j], tx,
+                  dh);
   }
 }
 
-// backward: a block per (b, h, 64 keys) walks the query tiles in order,
+// backward: a block per (b, h, TILE keys) walks the query tiles in order,
 // owns its keys' dk and dv, and writes its columns of ds / sqrt(dh) to
 // ds_out [B, H, T, lds] (lds = S rounded up to 4; zero past S). A last
 // tile of at most 16 keys runs as a 16-key block.
-template <int DH>
+template <int DH, bool FULL>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
     mha_bwd_dkdv_kernel(const __grid_constant__ Attn a,
                         const float* __restrict__ g,
@@ -476,24 +500,27 @@ __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
                         float* __restrict__ dk, float* __restrict__ dv,
                         float* __restrict__ ds_out, float inv_sqrt) {
   extern __shared__ __align__(16) float smem[];
-  const int k0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.x * Lay<DH>::TILE;
   if (a.S - k0 <= 16)
-    dkdv_block<DH, 1>(a, g, stats, dsum, dk, dv, ds_out, inv_sqrt, smem, k0);
+    dkdv_block<DH, 1, FULL>(a, g, stats, dsum, dk, dv, ds_out, inv_sqrt,
+                            smem, k0);
   else
-    dkdv_block<DH, 4>(a, g, stats, dsum, dk, dv, ds_out, inv_sqrt, smem, k0);
+    dkdv_block<DH, Lay<DH>::G, FULL>(a, g, stats, dsum, dk, dv, ds_out,
+                                     inv_sqrt, smem, k0);
 }
 
 // One block of the dq kernel over query rows [q0, q0 + 16 QG): it walks the
 // key tiles in order and owns its rows' dq = sum over keys of ds k, from
 // the ds tiles the dk / dv kernel wrote (ds [B, H, T, lds]),
 // double-buffered with K.
-template <int DH, int QG>
+template <int DH, int QG, bool FULL>
 __device__ __forceinline__ void dq_block(const Attn& a,
                                          const float* __restrict__ ds,
                                          float* __restrict__ dq, float* smem,
                                          int q0) {
   using L = Lay<DH>;
   constexpr int CPT = L::CPT;
+  constexpr int TILE = L::TILE, LDP = L::LDP;
   constexpr int STAGE = TILE * LDP + L::TILE_F;   // ds tile, then K tile
   const int T = a.T, S = a.S, lds = (S + 3) & ~3;
   const int b = blockIdx.z, h = blockIdx.y;
@@ -502,6 +529,8 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   const float* dsb = ds + ((size_t)b * a.H + h) * T * lds;
   const float* kb = a.k + (size_t)b * S * a.lk;
   const int n_kt = (S + TILE - 1) / TILE;
+  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
+  const int col0 = h * dh;
 
   auto load = [&](int stage, int k0) {
     float* d_s = smem + stage * STAGE;
@@ -511,13 +540,13 @@ __device__ __forceinline__ void dq_block(const Attn& a,
       const bool ok = row < q_end && col < lds;
       cp16(d_s + r * LDP + c, ok ? dsb + (size_t)row * lds + col : dsb, ok);
     }
-    load_tile<DH>(d_s + TILE * LDP, kb, k0, S, a.lk, h);
+    load_tile<DH>(d_s + TILE * LDP, kb, k0, S, a.lk, col0, dh);
     cp_commit();
   };
 
   float adq[4][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < QG; ++i)
 #pragma unroll
     for (int c = 0; c < CPT; ++c) adq[i][c] = 0.f;
   load(0, 0);
@@ -540,13 +569,14 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   for (int i = 0; i < QG; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= T) continue;
-    store_row<DH>(dq + ((size_t)b * T + row) * a.lq + h * DH, adq[i], tx);
+    store_row<DH>(dq + ((size_t)b * T + row) * a.lq + col0, adq[i], tx,
+                  dh);
   }
 }
 
 // A block per (b, h, tile_rows queries), run as 16, 32 or 64 rows (as the
 // forward's).
-template <int DH>
+template <int DH, bool FULL>
 __global__ void __launch_bounds__(NT)
     mha_bwd_dq_kernel(const __grid_constant__ Attn a,
                       const float* __restrict__ ds, float* __restrict__ dq,
@@ -554,24 +584,27 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
   if (rows <= 16)
-    dq_block<DH, 1>(a, ds, dq, smem, q0);
-  else if (rows <= 32)
-    dq_block<DH, 2>(a, ds, dq, smem, q0);
-  else
-    dq_block<DH, 4>(a, ds, dq, smem, q0);
+    dq_block<DH, 1, FULL>(a, ds, dq, smem, q0);
+  else if (Lay<DH>::G == 2 || rows <= 32)
+    dq_block<DH, 2, FULL>(a, ds, dq, smem, q0);
+  else if constexpr (Lay<DH>::G == 4)
+    dq_block<DH, 4, FULL>(a, ds, dq, smem, q0);
 }
 
 template <int DH>
 size_t fwd_smem() {
-  return sizeof(float) * (5 * Lay<DH>::TILE_F + TILE * LDP);
+  using L = Lay<DH>;
+  return sizeof(float) * (5 * L::TILE_F + L::TILE * L::LDP);
 }
 template <int DH>
 size_t dkdv_smem() {
-  return sizeof(float) * (4 * Lay<DH>::TILE_F + 2 * TILE * LDP);
+  using L = Lay<DH>;
+  return sizeof(float) * (4 * L::TILE_F + 2 * L::TILE * L::LDP);
 }
 template <int DH>
 size_t dq_smem() {
-  return sizeof(float) * 2 * (TILE * LDP + Lay<DH>::TILE_F);
+  using L = Lay<DH>;
+  return sizeof(float) * 2 * (L::TILE * L::LDP + L::TILE_F);
 }
 
 // opt the kernel in to `smem` bytes of dynamic shared memory (above 48 KB)
@@ -585,49 +618,68 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // 1 / sqrt(dh), as the kernels scale the scores
-template <int DH>
-float inv_sqrt() {
-  return 1.0f / sqrtf((float)DH);
-}
+inline float inv_sqrt(int dh) { return 1.0f / sqrtf((float)dh); }
 
 // the query rows of a block's tile: 32 for short sequences (the decoder's
-// 17 tokens), else 64
-inline int tile_rows(int T) { return T <= 32 ? 32 : 64; }
-
+// 17 tokens) and for 32-row tiles, else 64
 template <int DH>
-int fwd(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+int tile_rows(int T) {
+  return T <= 32 ? 32 : Lay<DH>::TILE;
+}
+
+template <int DH, bool FULL>
+int fwd_as(const Attn& a, float* out, float* stats, cudaStream_t stream) {
   const size_t smem = fwd_smem<DH>();
-  const cudaError_t err = allow_smem(mha_fwd_kernel<DH>, smem);
+  const cudaError_t err = allow_smem(mha_fwd_kernel<DH, FULL>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = tile_rows(a.T);
-  mha_fwd_kernel<DH><<<dim3(cdiv(a.T, rows), a.H, a.B), NT, smem, stream>>>(
-      a, out, stats, inv_sqrt<DH>(), rows);
+  const int rows = tile_rows<DH>(a.T);
+  mha_fwd_kernel<DH, FULL>
+      <<<dim3(cdiv(a.T, rows), a.H, a.B), NT, smem, stream>>>(
+          a, out, stats, inv_sqrt(a.dh), rows);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
-int bwd(const Attn& a, const float* g, const float* o, const float* stats,
-        float* dq, float* dk, float* dv, float* scratch, cudaStream_t stream) {
+template <int DH, bool FULL>
+int bwd_as(const Attn& a, const float* g, const float* o, const float* stats,
+           float* dq, float* dk, float* dv, float* scratch,
+           cudaStream_t stream) {
   float* dsum = scratch;
   float* ds = scratch + attn_dsum_floats(a.B, a.H, a.T);
-  const float is = inv_sqrt<DH>();
+  const float is = inv_sqrt(a.dh);
   const size_t s1 = dkdv_smem<DH>(), s2 = dq_smem<DH>();
   cudaError_t err;
-  if ((err = allow_smem(mha_bwd_dkdv_kernel<DH>, s1)) != cudaSuccess)
+  if ((err = allow_smem(mha_bwd_dkdv_kernel<DH, FULL>, s1)) != cudaSuccess)
     return (int)err;
-  if ((err = allow_smem(mha_bwd_dq_kernel<DH>, s2)) != cudaSuccess)
+  if ((err = allow_smem(mha_bwd_dq_kernel<DH, FULL>, s2)) != cudaSuccess)
     return (int)err;
   const long long n_rows = (long long)a.B * a.T * a.H;
   mha_dsum_kernel<<<(unsigned)((n_rows * 32 + 255) / 256), 256, 0, stream>>>(
       a, g, o, dsum);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mha_bwd_dkdv_kernel<DH><<<dim3(cdiv(a.S, TILE), a.H, a.B), NT, s1,
-                            stream>>>(a, g, stats, dsum, dk, dv, ds, is);
+  mha_bwd_dkdv_kernel<DH, FULL>
+      <<<dim3(cdiv(a.S, Lay<DH>::TILE), a.H, a.B), NT, s1, stream>>>(
+          a, g, stats, dsum, dk, dv, ds, is);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int rows = tile_rows(a.T);
-  mha_bwd_dq_kernel<DH><<<dim3(cdiv(a.T, rows), a.H, a.B), NT, s2, stream>>>(
-      a, ds, dq, rows);
+  const int rows = tile_rows<DH>(a.T);
+  mha_bwd_dq_kernel<DH, FULL>
+      <<<dim3(cdiv(a.T, rows), a.H, a.B), NT, s2, stream>>>(a, ds, dq, rows);
   return (int)cudaGetLastError();
+}
+
+// a head width of the bucket's own runs the instance with nothing padded
+// (the columns' bounds compiled out), any narrower one the padded instance
+template <int DH>
+int fwd(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+  return a.dh == DH ? fwd_as<DH, true>(a, out, stats, stream)
+                    : fwd_as<DH, false>(a, out, stats, stream);
+}
+
+template <int DH>
+int bwd(const Attn& a, const float* g, const float* o, const float* stats,
+        float* dq, float* dk, float* dv, float* scratch, cudaStream_t stream) {
+  return a.dh == DH
+             ? bwd_as<DH, true>(a, g, o, stats, dq, dk, dv, scratch, stream)
+             : bwd_as<DH, false>(a, g, o, stats, dq, dk, dv, scratch, stream);
 }
 
 }  // namespace mha

@@ -43,12 +43,15 @@
 //   4. decode_gemm<RES>: x += att @ Wo_s + bo_s, in place;
 //   5. ln_rows: y = LN2(x);  6. decode_gemm<BIAS>: q2 = y @ Wq_c + bq_c;
 //   7. cross_attn: flash-decoding over the image's unexpanded K/V. A
-//      cluster of CS <= 8 blocks per (image, head), each over a slice of
-//      about 64 of the S slots: the slice's K, then its V, land in shared
-//      memory through 16-byte cp.async copies (V while the scores and the
-//      softmax run), once for all kb beams, whose queries sit in shared
-//      memory beside them. Each block takes a softmax over its slice and
-//      writes (max, sum, unnormalised P.V) into rank 0's shared memory
+//      cluster of CS <= 8 blocks per (image, head, query group), each over
+//      a slice of about 64 of the S slots (the query group is all kb beams
+//      unless their shared memory would not fit a block: then the fewest
+//      groups that fit, as at dh 256 and beam 32): the slice's K, then its
+//      V, land in shared memory through 16-byte cp.async copies (V while
+//      the scores and the softmax run), once for the group's beams, whose
+//      queries sit in shared memory beside them. Each block takes a
+//      softmax over its slice and writes (max, sum, unnormalised P.V)
+//      into rank 0's shared memory
 //      (after a split barrier that shows rank 0 has started: arrive as
 //      the copies go out, wait after the scores); after one more cluster
 //      barrier rank 0 combines the slices in rank order (max, rescaled
@@ -242,7 +245,7 @@ __host__ __device__ inline long long self_warp_floats(int dh, int T) {
 // Self-attention of one decode step: warp (r, h) attends with row r's query
 // over the positions tau <= t[r] of its cache (or, lazily, of the rows anc
 // names). q and out are [R, d]; the caches hold row r's slot tau of this
-// layer at cache + r * cache_row + tau * d. dh % 4 == 0, dh <= 128.
+// layer at cache + r * cache_row + tau * d. dh % 4 == 0, dh <= 256.
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 self_attn_kernel(const float* __restrict__ q, const float* cache_k,
                  const float* cache_v, const int* __restrict__ t,
@@ -294,6 +297,21 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
   for (int tau = lane; tau < n; tau += 32) sc[tau] = sc[tau] / z;
   __syncwarp();
 
+  // P.V past 128 columns: each lane owns the float4 columns lane,
+  // lane + 32, ..., each summed over the positions in order
+  if (dh4 > 32) {
+    for (int c4 = lane; c4 < dh4; c4 += 32) {
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int tau = 0; tau < n; ++tau)
+        acc = fma4(sc[tau],
+                   reinterpret_cast<const float4*>(
+                       cache_v + (size_t)krow[tau] * cache_row +
+                       (size_t)tau * d + hoff)[c4],
+                   acc);
+      reinterpret_cast<float4*>(out + (size_t)r * d + hoff)[c4] = acc;
+    }
+    return;
+  }
   // P.V: lp lanes over the dh4 float4 of a row, 32 / lp position groups
   int lp = 1;
   while (lp < dh4) lp <<= 1;
@@ -316,17 +334,12 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
     reinterpret_cast<float4*>(out + (size_t)r * d + hoff)[c4] = acc;
 }
 
-// The cross-attention's split of S slots: a cluster of cs blocks (a power
-// of two, at most 8) of `chunk` slots each, about CROSS_SLICE a block.
+// The cross-attention's split: of the S slots, a cluster of cs blocks (a
+// power of two, at most 8) of `chunk` slots each, about CROSS_SLICE a
+// block; of an image's kb beams, qg groups of kq queries, a cluster each.
 struct CrossSplit {
-  int cs, chunk;
+  int cs, chunk, qg, kq;
 };
-
-inline CrossSplit cross_split(int S) {
-  int cs = 1;
-  while (cs < CROSS_MAX_CLUSTER && cs * CROSS_SLICE < S) cs *= 2;
-  return CrossSplit{cs, (S + cs - 1) / cs};
-}
 
 // A slice's partial result as rank 0 receives it: m and l [kb] each (the
 // slice's max and sum, m then overwritten by the slice's weight in the
@@ -345,44 +358,66 @@ inline long long cross_floats(long long kb, int dh, long long chunk, int cs) {
          cs * cross_part_floats(kb, dh, chunk);
 }
 
-// Cross-attention of one decode step. Block (rank, h, b) of a cluster of cs
-// blocks along x serves image b's kb query rows for head h over slots
-// [rank*chunk, rank*chunk + chunk) of S. Each block writes its partial
-// (max, sum, unnormalised P.V) into rank 0's shared memory, once a split
-// barrier shows that rank 0 has started, and leaves after a second cluster
-// barrier; rank 0 combines the slices in rank order. q2 and out
-// are [R, d]; ck/cv [B, S, d]; mask [B, S]. With attn_h != null the softmax
-// weights go to attn_h [R, H, S].
+// The slots split as above; the beams in one group where that fits a
+// block's shared memory, else in the fewest groups (halving kq) that fit.
+// Fewer slots a block would not help: the cs partials rank 0 receives grow
+// with cs as the slice shrinks, while Q, P and the partials shrink with kq.
+// At dh 256, S 196 and kb 32 one group needs 300 KB, two 195 KB.
+inline CrossSplit cross_split(int S, int kb, int dh) {
+  int cs = 1;
+  while (cs < CROSS_MAX_CLUSTER && cs * CROSS_SLICE < S) cs *= 2;
+  const int chunk = (S + cs - 1) / cs;
+  int qg = 1, kq = kb;
+  while (kq > 1 && cross_floats(kq, dh, chunk, cs) * 4 > MAX_SMEM) {
+    qg *= 2;
+    kq = (kb + qg - 1) / qg;
+  }
+  return CrossSplit{cs, chunk, (kb + kq - 1) / kq, kq};
+}
+
+// Cross-attention of one decode step. Block (rank, h, b * qg + g) of a
+// cluster of cs blocks along x serves query rows [g*kq, g*kq + kq) of image
+// b's kb for head h over slots [rank*chunk, rank*chunk + chunk) of S.
+// Each block writes its partial (max, sum, unnormalised P.V) into rank 0's
+// shared memory, once a split barrier shows that rank 0 has started, and
+// leaves after a second cluster barrier; rank 0 combines the slices in rank
+// order. q2 and out are [R, d]; ck/cv [B, S, d]; mask [B, S]. With
+// attn_h != null the softmax weights go to attn_h [R, H, S].
 __global__ void __launch_bounds__(CROSS_THREADS)
 cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
                   const float* __restrict__ cv, const float* __restrict__ mask,
                   float* __restrict__ out, float* __restrict__ attn_h, int kb,
-                  int H, int dh, int d, int S, int chunk, float scale_div) {
+                  int H, int dh, int d, int S, int chunk, int qg, int kq,
+                  float scale_div) {
   extern __shared__ __align__(16) float ca_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z / qg;
+  // this group's kn queries, rows row0 .. row0 + kn - 1 of q2 and out; the
+  // shared layout is for kq of them (the last group may hold fewer)
+  const int q0 = (blockIdx.z - b * qg) * kq, kn = min(kb - q0, kq);
+  const size_t row0 = (size_t)b * kb + q0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s0 = rank * chunk;
   const int ns = max(0, min(S, s0 + chunk) - s0);
   const int LD = dh + 4, dh4 = dh / 4;
-  const int part = (int)cross_part_floats(kb, dh, chunk);
-  float* Qs = ca_smem;                        // [kb][LD]
-  float* Ks = Qs + kb * LD;                   // [chunk][LD]
+  const int part = (int)cross_part_floats(kq, dh, chunk);
+  float* Qs = ca_smem;                        // [kq][LD]
+  float* Ks = Qs + kq * LD;                   // [chunk][LD]
   float* Vs = Ks + chunk * LD;                // [chunk][dh]
-  float* Ps = Vs + chunk * dh;                // [kb][chunk]
-  float* rcv = Ps + round4(kb * chunk);       // [cs] partials (rank 0's)
+  float* Ps = Vs + chunk * dh;                // [kq][chunk]
+  float* rcv = Ps + round4(kq * chunk);       // [cs] partials (rank 0's)
   // this block's partial, in rank 0's shared memory
   float* mine = cluster.map_shared_rank(rcv, 0) + rank * part;
-  float *m_out = mine, *l_out = mine + kb, *acc_out = mine + round4(2 * kb),
-        *p_out = acc_out + kb * dh;
+  float *m_out = mine, *l_out = mine + kq, *acc_out = mine + round4(2 * kq),
+        *p_out = acc_out + kq * dh;
   const size_t hoff = (size_t)h * dh;
 
-  for (int e = tid; e < kb * dh4; e += CROSS_THREADS) {
+  for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
     const int k = e / dh4, c = (e - k * dh4) * 4;
-    uic_decode::dg_cp16(Qs + k * LD + c,
-                        q2 + ((size_t)b * kb + k) * d + hoff + c, true);
+    uic_decode::dg_cp16(Qs + k * LD + c, q2 + (row0 + k) * d + hoff + c,
+                        true);
   }
   for (int e = tid; e < ns * dh4; e += CROSS_THREADS) {
     const int s = e / dh4, c = (e - s * dh4) * 4;
@@ -404,7 +439,7 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
   __syncthreads();
 
   // scores of the slice
-  for (int e = tid; e < kb * ns; e += CROSS_THREADS) {
+  for (int e = tid; e < kn * ns; e += CROSS_THREADS) {
     const int k = e / ns, s = e - k * ns;
     const float dot = dot4(reinterpret_cast<const float4*>(Qs + k * LD),
                            reinterpret_cast<const float4*>(Ks + s * LD), dh4);
@@ -414,7 +449,7 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
   __syncthreads();
   if (cs > 1) cluster_wait();
   // the slice's softmax statistics, a warp per query
-  for (int k = warp; k < kb; k += CROSS_THREADS / 32) {
+  for (int k = warp; k < kn; k += CROSS_THREADS / 32) {
     float* p = Ps + k * chunk;
     float m = -INFINITY;
     for (int s = lane; s < ns; s += 32) m = fmaxf(m, p[s]);
@@ -435,7 +470,7 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
   uic_decode::dg_wait<0>();
   __syncthreads();
   // the slice's unnormalised P.V
-  for (int e = tid; e < kb * dh4; e += CROSS_THREADS) {
+  for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
     const int k = e / dh4, c = (e - k * dh4) * 4;
     const float* p = Ps + k * chunk;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -453,32 +488,31 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
 
   // per query M = max m_r, L = sum exp(m_r - M) l_r over the slices in
   // rank order; slice r's weight exp(m_r - M) / L replaces m_r
-  for (int k = tid; k < kb; k += CROSS_THREADS) {
+  for (int k = tid; k < kn; k += CROSS_THREADS) {
     float M = -INFINITY;
     for (int src = 0; src < cs; ++src) M = fmaxf(M, rcv[src * part + k]);
     float L = 0.0f;
     for (int src = 0; src < cs; ++src)
-      L += expf(rcv[src * part + k] - M) * rcv[src * part + kb + k];
+      L += expf(rcv[src * part + k] - M) * rcv[src * part + kq + k];
     for (int src = 0; src < cs; ++src)
       rcv[src * part + k] = expf(rcv[src * part + k] - M) / L;
   }
   __syncthreads();
-  for (int e = tid; e < kb * dh4; e += CROSS_THREADS) {
+  for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
     const int k = e / dh4, c = (e - k * dh4) * 4;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int src = 0; src < cs; ++src)          // fixed order: same bits
       acc = fma4(rcv[src * part + k],
                  *reinterpret_cast<const float4*>(
-                     rcv + src * part + round4(2 * kb) + k * dh + c),
+                     rcv + src * part + round4(2 * kq) + k * dh + c),
                  acc);
-    *reinterpret_cast<float4*>(out + ((size_t)b * kb + k) * d + hoff + c) =
-        acc;
+    *reinterpret_cast<float4*>(out + (row0 + k) * d + hoff + c) = acc;
   }
   if (attn_h)
-    for (int e = tid; e < kb * S; e += CROSS_THREADS) {
+    for (int e = tid; e < kn * S; e += CROSS_THREADS) {
       const int k = e / S, s = e - k * S, src = s / chunk;
-      const float* pr = rcv + src * part + round4(2 * kb) + kb * dh;
-      attn_h[(((size_t)b * kb + k) * H + h) * S + s] =
+      const float* pr = rcv + src * part + round4(2 * kq) + kq * dh;
+      attn_h[((row0 + k) * H + h) * S + s] =
           pr[k * chunk + s - src * chunk] * rcv[src * part + k];
     }
 }
@@ -537,20 +571,21 @@ Layer layer_of(const float* const* w, int l, int d, int dff) {
 
 // 0 if the kernels take a step of kb beams an image, width d in H heads,
 // d_ff, S source slots and T cache slots; else the first limit it breaks:
-// 1 the head width d / H (a multiple of 4 for 16-byte rows, at most 128),
+// 1 the head width d / H (a multiple of 4 for 16-byte rows, at most 256),
 // 2 d_ff (a multiple of 4), 3 the self-attention's shared memory, 4 the
-// cross-attention's. smem (or null) receives the two attentions' bytes.
+// cross-attention's (a block of one query over its slice). smem (or null)
+// receives the two attentions' bytes.
 int refuses(int kb, int d, int dff, int H, int S, int T, long long* smem) {
   if (H <= 0 || d % H) return 1;
   const int dh = d / H;
-  const CrossSplit sp = cross_split(S);
+  const CrossSplit sp = cross_split(S, kb, dh);
   const long long self_b = ROW_WARPS * self_warp_floats(dh, T) * 4;
-  const long long cross_b = cross_floats(kb, dh, sp.chunk, sp.cs) * 4;
+  const long long cross_b = cross_floats(sp.kq, dh, sp.chunk, sp.cs) * 4;
   if (smem) {
     smem[0] = self_b;
     smem[1] = cross_b;
   }
-  if (dh % 4 || dh > 128) return 1;
+  if (dh % 4 || dh > 256) return 1;
   if (dff % 4) return 2;
   if (self_b > MAX_SMEM) return 3;
   if (cross_b > MAX_SMEM) return 4;
@@ -621,13 +656,13 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
 
   // 7. cross-attention over the image's unexpanded K/V
   {
-    const CrossSplit sp = cross_split(s.S);
+    const CrossSplit sp = cross_split(s.S, kb, dh);
     const size_t smem =
-        (size_t)cross_floats(kb, dh, sp.chunk, sp.cs) * sizeof(float);
+        (size_t)cross_floats(sp.kq, dh, sp.chunk, sp.cs) * sizeof(float);
     if ((err = smem_opt_in(cross_attn_kernel, smem))) return err;
     float* attn_h = last ? s.attn_h : nullptr;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(sp.cs, s.H, s.B);
+    cfg.gridDim = dim3(sp.cs, s.H, s.B * sp.qg);
     cfg.blockDim = dim3(CROSS_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
@@ -641,7 +676,7 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
     if ((err = (int)cudaLaunchKernelEx(&cfg, cross_attn_kernel,
                                        (const float*)s.q, ck, cv, s.mask,
                                        s.att, attn_h, kb, s.H, dh, d, s.S,
-                                       sp.chunk, scale_div)))
+                                       sp.chunk, sp.qg, sp.kq, scale_div)))
       return err;
     if ((err = (int)cudaGetLastError())) return err;
     if (attn_h) {

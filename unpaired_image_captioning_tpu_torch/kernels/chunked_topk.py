@@ -1,14 +1,17 @@
-"""Chunked exact row top-k for 16 < k <= 64: the wrapper of
-`csrc/chunked_topk.cu` and its plain version.
+"""Exact row top-k for 16 < k <= 64 over the clamped row: the wrapper of
+`csrc/topk_select.cu`'s `chunked_topk_f32` and its plain version.
 
 Replaces the TPU kernel route `unpaired_image_captioning_tpu/ops/topk.py
 ::_chunked_topk` (the top k chunks by their maxima, then the iterative
 `_row_topk_kernel` over the k * 128 candidates). That route first clamps
 the row to the finite float range, so a selected -inf comes back as
 -3.4028235e38 and a +inf as 3.4028235e38; both versions here return what it
-returns. Order is `jax.lax.top_k`'s over the clamped row: values
-descending, ties to the lowest index. The domain is the route's:
-16 < k <= 64 and 2 * k * 128 <= V (`topk.py:330`).
+returns. The clamp is `torch.clamp`'s: NaN stays NaN and ranks above every
+number. Order is `jax.lax.top_k`'s over the clamped row: values
+descending, ties to the lowest index (see `row_topk` for NaN and -0). The
+domain is the route's: 16 < k <= 64 and 2 * k * 128 <= V (`topk.py:330`).
+The kernel is B2's radix select with the clamp applied to each value as it
+is keyed; it takes rows of any length.
 
 `chunked_topk` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors, raising outside the domain; it never routes a CUDA
@@ -23,7 +26,6 @@ from . import build
 
 CHUNK = 128
 MIN_K, MAX_K = 17, 64
-MAX_CHUNKS = 4096   # the kernel's shared memory holds 8 bytes a chunk
 
 launches = 0
 
@@ -37,9 +39,9 @@ def in_domain(k: int, v: int) -> bool:
 
 
 def chunked_topk_plain(x: torch.Tensor, k: int):
-    """Plain version: clamp to the finite range, a stable descending sort
-    (equal values stay in index order), the first k. Returns (values
-    [..., k], int64 indices [..., k])."""
+    """Plain version: clamp to the finite range (NaN stays NaN), a stable
+    descending sort (equal values stay in index order, NaN first), the
+    first k. Returns (values [..., k], int64 indices [..., k])."""
     xc = torch.clamp(x, _F32.min, _F32.max)
     vals, idx = torch.sort(xc, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
@@ -61,9 +63,6 @@ def chunked_topk(x: torch.Tensor, k: int):
         raise ValueError(f"chunked_topk: k={k} over rows of {v} is outside "
                          f"the route's domain ({MIN_K} <= k <= {MAX_K} and "
                          f"2 * k * {CHUNK} <= V)")
-    if -(-v // CHUNK) > MAX_CHUNKS:
-        raise ValueError(f"chunked_topk: rows of {v} exceed the kernel's "
-                         f"{MAX_CHUNKS} chunks of {CHUNK}")
     vals = torch.empty((rows, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int64, device=x.device)
     lib = build.load()

@@ -34,7 +34,7 @@ from ..ops.layer_train import (DEC_WEIGHTS, ENC_WEIGHTS, dec_bwd_plain,
                                dec_fwd_plain, enc_bwd_plain, enc_fwd_plain)
 from ..ops.mha_train import keep_threshold
 from . import build
-from .mha_train import HEAD_DIMS, MAX_KEYS
+from .mha_train import check_head_width
 
 enc_fwd_launches = 0
 enc_bwd_launches = 0
@@ -60,10 +60,7 @@ def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
     kernel reads; the widths the kernel takes."""
     b, t, d = x.shape
     f = w["w1"].shape[1]
-    if d % n_heads or d // n_heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: d={d} over {n_heads} heads gives a head "
-                         f"width the kernel does not take (one of "
-                         f"{HEAD_DIMS})")
+    check_head_width(name, d, n_heads)
     if f % 4 or f < 4:
         raise ValueError(f"{name}: d_ff={f} must be a multiple of 4")
     shapes = _weight_shapes(d, f)
@@ -86,9 +83,9 @@ def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
 
 
 def _mask_arrays(name: str, key: str, maskadd, b: int, t: int, s: int):
-    if s < 1 or s > MAX_KEYS or t < 1:
-        raise ValueError(f"{name}: {s} keys; the kernel takes 1 to "
-                         f"{MAX_KEYS}")
+    if s < 1 or t < 1:
+        raise ValueError(f"{name}: {t} queries over {s} keys; the kernel "
+                         "takes at least one of each")
     rows = maskadd.shape[1] if maskadd.dim() == 3 else -1
     if rows not in (1, t):
         raise ValueError(f"{name}: {key} has shape {tuple(maskadd.shape)}, "

@@ -27,20 +27,30 @@ from . import build
 fwd_launches = 0
 bwd_launches = 0
 
-HEAD_DIMS = (32, 64, 128)   # the head widths the CUDA kernels are built for
-MAX_KEYS = 1024             # the keys the kernels are held to
+MAX_HEAD_DIM = 256   # the widest of the kernels' head-width buckets
+
+
+def check_head_width(name: str, d: int, n_heads: int) -> None:
+    """Raise unless d splits into n_heads heads of a width the kernels take:
+    a multiple of 4 (16-byte rows) up to MAX_HEAD_DIM. Every such width runs
+    in one of the compiled buckets 32, 64, 128 and 256 (`csrc/mha_train.cu`);
+    any number of keys is taken."""
+    if n_heads < 1 or d % n_heads:
+        raise ValueError(f"{name}: d={d} does not split into {n_heads} heads")
+    dh = d // n_heads
+    if dh % 4 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
+                         "heads) is not a multiple of 4 up to "
+                         f"{MAX_HEAD_DIM}, which the kernel takes")
 
 
 def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
     b, t, d = q.shape
     s = k.shape[1]
-    if d % n_heads or d // n_heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: d={d} over {n_heads} heads gives a head "
-                         f"width the kernel does not take (one of "
-                         f"{HEAD_DIMS})")
-    if s > MAX_KEYS or s < 1 or t < 1:
-        raise ValueError(f"{name}: {s} keys; the kernel takes 1 to "
-                         f"{MAX_KEYS}")
+    check_head_width(name, d, n_heads)
+    if s < 1 or t < 1:
+        raise ValueError(f"{name}: {t} queries over {s} keys; the kernel "
+                         "takes at least one of each")
     shapes = {"q": (q, (b, t, d)), "k": (k, (b, s, d)), "v": (v, (b, s, d))}
     for key, x in (extra or {}).items():
         shapes[key] = (x, (b, t, d))

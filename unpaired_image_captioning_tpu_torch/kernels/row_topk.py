@@ -1,9 +1,13 @@
-"""Exact row top-k: the wrapper of `csrc/row_topk.cu` and its plain version.
+"""Exact row top-k: the wrapper of `csrc/topk_select.cu`'s `row_topk_f32`
+and its plain version.
 
 Replaces the TPU kernels `unpaired_image_captioning_tpu/ops/topk.py
 ::_lane_topk_kernel` and `::_row_topk_kernel` (the lane kernel's exact
 fallback). Order is `jax.lax.top_k`'s: values descending, ties to the
 lowest index, so beam selection stays token-identical with the reference.
+NaN ranks above +inf (NaN among NaN by index) and -0 ties with +0, as in
+the plain version's stable sort; the kernel returns what it returns on
+every row, NaN rows and rows with fewer than k finite values included.
 
 `row_topk` runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; it never routes a CUDA tensor to the plain version.
@@ -23,8 +27,9 @@ launches = 0
 
 def row_topk_plain(x: torch.Tensor, k: int):
     """Plain version: a stable descending sort keeps equal values in index
-    order, which is lax.top_k's tie rule. (torch.topk makes no tie promise.)
-    Returns (values [..., k], int64 indices [..., k])."""
+    order, which is lax.top_k's tie rule, and puts NaN first, above +inf.
+    (torch.topk makes no tie promise.) Returns (values [..., k], int64
+    indices [..., k])."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

@@ -58,7 +58,7 @@ def _check_dims(name: str, rows: int, bsz: int, d: int, dff: int,
     if why == 1:
         raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
                          "heads) must be a multiple of 4 (16-byte rows) and "
-                         "at most 128")
+                         "at most 256")
     if why == 2:
         raise ValueError(f"{name}: d_ff={dff} must be a multiple of 4 "
                          "(16-byte rows)")

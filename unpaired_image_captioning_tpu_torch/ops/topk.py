@@ -3,8 +3,12 @@
 
 Tie semantics match `jax.lax.top_k` exactly: values descending, ties broken
 by the LOWEST index first. Beam-search token identity with the reference
-depends on it. `row_topk` routes a CUDA tensor by `topk_route`, as the JAX
-package's `row_topk` routes a TPU array (`topk.py:321-332`):
+depends on it. NaN ranks above +inf, NaN among NaN by index, as both
+`lax.top_k` and the stable sort rank a positive NaN; -0 ties with +0 and a
+negative NaN ranks as NaN (there `lax.top_k`'s total order differs, off
+the beam path). Both kernels return exactly what the stable sort returns.
+`row_topk` routes a CUDA tensor by `topk_route`, as the JAX package's
+`row_topk` routes a TPU array (`topk.py:321-332`):
 
 - k <= 16: the exact row kernel (`kernels/row_topk.py`);
 - 16 < k <= 64 and 2 * k * 128 <= V: the chunked kernel
