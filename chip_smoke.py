@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --times topk,mha
+    python3 chip_smoke.py --times att,tfd
 
 Builds the port's CUDA kernels from `unpaired_image_captioning_tpu_torch/
 csrc/`, holds each kernel against its plain PyTorch version at the serving
@@ -41,7 +41,9 @@ route and on the whole-decoder-layer route.
 The denseatt captioner (the LSTM pivot's) is driven on the card too: the
 three additive-attention kernels (single query, K beams, the fused att1 ->
 lstm1 -> att2 decode step) against their plain versions at B 50, N 196,
-A = D = H = 512, and the LSTM cell's backward against plain autograd; greedy
+A = D = H = 512 (each image's slots split across a cluster; the step's
+CUDA launches counted), and the LSTM cell's backward against plain
+autograd; greedy
 `sample` at batch 50 on the default route, with SINGLE_KERNEL and with
 STEP_FUSION, and beam 5 with BEAMS_KERNEL through a batch-50
 `pivot_translate` (launches checked against the steps each decode ran);
@@ -88,18 +90,24 @@ counts read.
 Head widths other than 32, 64 and 128: the training attention (forward
 and backward), the whole encoder and decoder layers and the decoder step
 are held against their plain versions at head widths 96 (d 768 over 8
-heads) and 256 (d 512 over 2), the attention also over 1,500 keys and the
-step at 32 beams of width 256 (two query groups in its cross-attention); a
-2-layer transformer captioner at each of the two widths takes one XE step
-on each training route (kernel launches counted) and decodes four images
-at beam 5, card vs CPU. The beam top-k (B2 and B3, one radix select in
-`csrc/topk_select.cu`) is also held exact on rows with NaN, which ranks
-above +inf.
+heads), 256 (d 512 over 2), 50 (d 100 over 2: 4-byte copies), 384 and
+512 (one head: column chunks) and, for the layers and the step, a d_ff of
+510; the attention also over 1,500 keys and the step at 32 beams of width
+256 and at dh 6; a 2-layer transformer captioner at head widths 96, 256,
+6, 50, 384 and 512, at a d_ff of 510 and at d 30 (5 heads of 6, d_ff
+45) takes one XE step on each
+training route (kernel launches counted) and decodes four images at beam
+5, card vs CPU (top beams identical). The beam top-k (B2 and B3, one
+radix select in `csrc/topk_select.cu`) is also held exact on rows with
+NaN, which ranks above +inf.
 
 Every kernel's line in the `kernels` JSON carries its device time, its
-plain version's, its bound (the larger of bytes over 3.35 TB/s and f32
-operations over 67 TFLOP/s, from this run's shapes) and, where one PyTorch
-call computes the same function, that call's time. The last line is
+plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
+operations over 67 TFLOP/s and, for the additive attentions, their tanh,
+exp and gate evaluations over the special-function units' 16 a clock an
+SM at the card's maximum SM clock, from this run's shapes; `bound_term`
+names the term that sets it) and, where one PyTorch call computes the same
+function, that call's time. The last line is
 `{"ok": true, "device": {...}}`.
 
 Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
@@ -109,7 +117,10 @@ Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
 `--times GROUPS` only builds the kernels and times those of the named
 groups (`topk`: both top-k entries at the shapes above, on the same rows;
 `mha`: the training attention's forward and backward at the step's three
-shapes, at head widths 32, 64 and 128), with no check, and prints the
+shapes, at head widths 32, 64 and 128; `att`: B9a, B9b at K = 3, 5 and 20
+and B9c on the inputs of their checks; `tfd`: the decoder step's stack at
+both pivot shapes, at head widths 32, 64 and 128), with no check, and
+prints the
 readings as its last line. It serves to compare two checkouts on one
 card: copy this script into each and run them in turns (A, B, B, A) in
 one call.
@@ -166,6 +177,11 @@ LEAD_IN_SEEN = []  # `_profile_device_us`): (recorded, first event) a session
 # the tensor cores, and device memory
 F32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# transcendental evaluations (tanh, exp, sigmoid) a clock on each SM: the
+# special-function units; times the SM count and the maximum SM clock
+# (`nvidia-smi --query-gpu=clocks.max.sm`, read by `phase_device`)
+SFU_PER_SM_CLOCK = 16
+SFU_RATE = []     # [evaluations per second] once phase_device has read it
 
 # transformer captioner XE training at full width (bench.py:268-274)
 TRAIN = dict(TCAP, caption_model="transformer", batch_size=50, seq_per_img=1,
@@ -201,7 +217,8 @@ TRAIN_TOL = 1e-4  # max|diff| <= TRAIN_TOL * max(1, max|plain|)
 # (label, B, T, S, mask kind[, d, heads]): the training attentions of one
 # step (d 512 over 8 heads), then the encoder's at head widths 96 and 256,
 # which run padded in bucket 128 and in bucket 256's 32-row tiles, and a
-# cross-attention over 1,500 keys
+# cross-attention over 1,500 keys; then head widths 50 (4-byte copies) and
+# 512 (column chunks)
 MHA_SHAPES = [
     ("encoder self, T = S = 196, padded [B,1,S]", 50, 196, 196, "pad"),
     ("decoder cross, T = 17, S = 196", 50, 17, 196, "pad"),
@@ -209,6 +226,8 @@ MHA_SHAPES = [
     ("encoder self, dh 96", 50, 196, 196, "pad", 768, 8),
     ("encoder self, dh 256", 50, 196, 196, "pad", 512, 2),
     ("cross over 1,500 keys", 8, 17, 1500, "pad"),
+    ("encoder self, dh 50", 50, 196, 196, "pad", 100, 2),
+    ("encoder self, dh 512", 50, 196, 196, "pad", 512, 1),
 ]
 LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
 # every CUDA kernel of csrc/ a training step launches, by name (the
@@ -240,9 +259,10 @@ LSTM_KERNELS = ("lstm_cell_kernel",)
 DENSE_KERNELS = LSTM_KERNELS + ("additive_attention_kernel",)
 ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
 ATT_BEAMS = (3, 5, 20)  # the K-beam kernel's checks (20: two beam groups)
-# the CUDA kernels of att_lstm_att_f32, and its copy of h0d
-STEP_KERNELS = ("additive_attention_kernel", "uic::gemm_kernel",
-                "Memcpy DtoD") + LSTM_KERNELS
+# the CUDA kernels of att_lstm_att_f32 (five launches a step: the two
+# attentions, the cell and the two products)
+STEP_KERNELS = ("additive_attention_kernel",
+                "decode_gemm_kernel") + LSTM_KERNELS
 
 # (label, B, D, H, maxout): the cells of the path at their beam batches
 LSTM_SHAPES = [
@@ -256,8 +276,8 @@ LSTM_SHAPES = [
 ]
 # (label, B, kb, L, T, S, d, d_ff, heads, lazy anc + want_attn): the decoder
 # step at the transformer pivot's two beams; then 2-layer stacks at head
-# widths 96 and 256, and at 32 beams of dh 256, whose cross-attention splits
-# the beams into two query groups
+# widths 96 and 256, at 32 beams of dh 256, and at head widths 6, 50 (with
+# a d_ff of 510) and 512
 TFD_SHAPES = [
     ("caption beam 5 x 50", 50, 5, 6, 16, 196, 512, 512, 8, False),
     ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, 8, True),
@@ -266,6 +286,10 @@ TFD_SHAPES = [
     ("nmt beam 15 x 50, dh 256", 50, 15, 2, 20, 16, 512, 2048, 2, True),
     ("beam 32 x 8 over 196 slots, dh 256", 8, 32, 2, 16, 196, 512, 512, 2,
      True),
+    ("caption beam 5 x 50, dh 6", 50, 5, 2, 16, 196, 12, 12, 2, False),
+    ("nmt beam 15 x 50, dh 50, d_ff 510", 50, 15, 2, 20, 16, 100, 510, 2,
+     True),
+    ("caption beam 5 x 50, dh 512", 50, 5, 2, 16, 196, 512, 512, 1, False),
 ]
 # the CUDA kernels the decoder-step wrappers launch, by name
 TFD_KERNELS = ("decode_gemm_kernel", "ln_rows_kernel", "self_attn_kernel",
@@ -320,11 +344,16 @@ ENC_LAYER_SHAPES = [
     ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8),
     ("captioner encoder, dh 96", 50, 196, 768, 768, 8),
     ("captioner encoder, dh 256", 50, 196, 512, 512, 2),
+    ("captioner encoder, dh 50", 50, 196, 100, 100, 2),
+    ("captioner encoder, dh 384, d_ff 510", 50, 196, 384, 510, 1),
 ]
 # transformers at head widths the kernels took only since their widening
-# (label, d, heads): a training step on each route and a decode, card vs
-# CPU, at HW_LAYERS layers
-HEAD_WIDTHS = [("dh 96", 768, 8), ("dh 256", 512, 2)]
+# (label, d, heads, d_ff): a training step on each route and a decode, card
+# vs CPU, at HW_LAYERS layers
+HEAD_WIDTHS = [("dh 96", 768, 8, 768), ("dh 256", 512, 2, 512),
+               ("dh 6", 12, 2, 12), ("dh 50", 100, 2, 100),
+               ("dh 384", 384, 1, 384), ("dh 512", 512, 1, 512),
+               ("d_ff 510", 512, 8, 510), ("d 30", 30, 5, 45)]
 HW_LAYERS = 2
 # (label, d, d_ff, heads): the whole decoder layer (B7) at the captioner's
 # training shape (T 17 over S 196), at head widths 64, 96 and 256
@@ -332,6 +361,7 @@ DEC_LAYER_SHAPES = [
     ("captioner decoder", 512, 512, 8),
     ("captioner decoder, dh 96", 768, 768, 8),
     ("captioner decoder, dh 256", 512, 512, 2),
+    ("captioner decoder, dh 384, d_ff 510", 384, 510, 1),
 ]
 TNMT_ROUTES = [("transformer NMT, default (whole encoder layers)",
                 (True, False), ROUTE_STEPS,
@@ -347,10 +377,11 @@ TOPK_SHAPES = [
     ("k=16", 250, 9488, 16),
 ]
 
-# `--times`: the groups of kernels it times, the calls each reading
-# averages, and the training attention's head counts at d 512 (head widths
-# 32, 64 and 128)
-TIMES_GROUPS = ("topk", "mha")
+# `--times`: the groups of kernels it times (the top-k, the training
+# attention, the additive attentions B9a-c, the decoder step), the calls
+# each reading averages, and the head counts at d 512 (head widths 32, 64
+# and 128) of the training attention and the decoder step
+TIMES_GROUPS = ("topk", "mha", "att", "tfd")
 TIMES_ITERS = 50
 TIMES_HEADS = (16, 8, 4)
 
@@ -461,24 +492,33 @@ def device_ms(fn):
     return sum(us for us, _ in per_name.values()) / 1e3, per_name
 
 
-def library_ms(fn, iters: int = 20):
+def library_ms(fn, iters: int = 20, parts: dict = None):
     """Device time per call of `fn`, a PyTorch yardstick call or a kernel
     timed alone (summed CUDA kernel time under torch.profiler over `iters`
     calls, after one warm-up), and
-    how it was read; CUDA-event time if the profiler records none."""
+    how it was read; CUDA-event time if the profiler records none. A
+    `parts` dict receives the device ms per call by CUDA kernel name."""
     fn()
     per_name = _profile_device_us(lambda: [fn() for _ in range(iters)])
     if per_name is None:
         return time_ms(fn, iters), "CUDA events, no profiler data"
+    if parts is not None:
+        for name, (us, _) in per_name.items():
+            key = short_name(name)
+            parts[key] = parts.get(key, 0.0) + us / iters / 1e3
     return sum(us for us, _ in per_name.values()) / iters / 1e3, "device"
 
 
-def bound(nbytes: float, flops: float):
-    """(least time in ms, what bounds it): the larger of the bytes over the
-    card's memory rate and the f32 operations over its f32 peak."""
-    b_ms = nbytes / HBM_BYTES_S * 1e3
-    o_ms = flops / F32_FLOPS * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+def bound(nbytes: float, flops: float, transcendentals: float = 0.0):
+    """(least time in ms, what bounds it): the largest of the bytes over the
+    card's memory rate, the f32 operations over its f32 peak and the
+    transcendental evaluations over its special-function rate (SFU_RATE)."""
+    terms = [(nbytes / HBM_BYTES_S * 1e3, "bytes"),
+             (flops / F32_FLOPS * 1e3, "operations")]
+    if transcendentals:
+        terms.append((transcendentals / SFU_RATE[0] * 1e3,
+                      "transcendentals"))
+    return max(terms, key=lambda t: t[0])
 
 
 def nbytes(*tensors) -> int:
@@ -541,6 +581,14 @@ def phase_device() -> None:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0].strip()
     log(card)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_RATE[:] = [SFU_PER_SM_CLOCK * sms * float(clock) * 1e6]
+    log(f"special-function rate: {SFU_PER_SM_CLOCK} a clock x {sms} SMs x "
+        f"{clock} MHz (max SM clock) = {SFU_RATE[0] / 1e12:.3f} T/s")
     log(f"device: {torch.cuda.get_device_name(0)} | count "
         f"{torch.cuda.device_count()} | torch {torch.__version__} | "
         f"cuda {torch.version.cuda} | python {sys.version.split()[0]}")
@@ -851,16 +899,24 @@ def phase_times(dev, groups) -> list:
     readings."""
     import torch
 
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
     from unpaired_image_captioning_tpu_torch.kernels import chunked_topk as ck
     from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
     from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
 
     readings = []
 
     def rec(kernel, shape, fn):
-        ms, how = library_ms(fn, TIMES_ITERS)
-        readings.append(dict(kernel=kernel, shape=shape, ms=ms, timing=how))
-        log(f"time {kernel} [{shape}]: {ms:.4f} ms ({how})")
+        parts = {}
+        ms, how = library_ms(fn, TIMES_ITERS, parts)
+        readings.append(dict(kernel=kernel, shape=shape, ms=ms, timing=how,
+                             parts=parts))
+        log(f"time {kernel} [{shape}]: {ms:.4f} ms ({how}); by CUDA kernel: "
+            + ", ".join(f"{n} {v:.4f}" for n, v in sorted(
+                parts.items(), key=lambda kv: -kv[1])))
 
     if "topk" in groups:
         for label, r, v, k, x in _topk_cases(dev, TOPK_SHAPES, _beam_rows):
@@ -884,6 +940,28 @@ def phase_times(dev, groups) -> list:
                     q, k, v, maskadd, seed, **kw))
                 rec("mha_train_bwd", shape, lambda: mhk.mha_train_bwd(
                     q, k, v, maskadd, seed, g, out, stats, **kw))
+    if "att" in groups:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        args = _att_inputs(dev, gen)
+        rec("additive_attention", "B9a, K=1",
+            lambda: aak.additive_attention(*args))
+        for k in ATT_BEAMS:
+            args_k = _att_inputs(dev, gen, k)
+            rec("additive_attention_beams", f"B9b, K={k}",
+                lambda: aak.additive_attention_beams(*args_k))
+        step = _step_args(dev, gen)
+        with torch.no_grad():
+            rec("att_lstm_att", "B9c", lambda: aak.fused_att_lstm_att(*step))
+    if "tfd" in groups:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for label, b, kb, n_l, n_t, slots, d, dff, _, lazy in TFD_SHAPES[:2]:
+            a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
+            for heads in TIMES_HEADS:
+                rec("transformer_decode_stack", f"{label}, dh {d // heads}",
+                    lambda: tdk.decoder_stack_step(
+                        a["x"], a["t"], a["ck"], a["cv"], a["mask"], a["kc"],
+                        a["vc"], a["w"], a["anc"], n_heads=heads,
+                        want_attn=lazy))
     return readings
 
 
@@ -1788,14 +1866,14 @@ def phase_head_widths(dev) -> None:
     n = 4
     fc, att = make_features(np.random.RandomState(3), n)
     cpu = torch.device("cpu")
-    for label, d, heads in HEAD_WIDTHS:
-        widths = dict(input_encoding_size=d, rnn_size=d, num_heads=heads,
+    for label, d, heads, dff in HEAD_WIDTHS:
+        widths = dict(input_encoding_size=d, rnn_size=dff, num_heads=heads,
                       num_layers=HW_LAYERS)
         for enc_layer, dec_layer in ((True, False), (False, False),
                                      (True, True)):
             phase_train_agreement(dev, enc_layer, dec_layer, widths,
                                   f"{label}: d {d} over {heads} heads, "
-                                  f"{HW_LAYERS} layers")
+                                  f"d_ff {dff}, {HW_LAYERS} layers")
         cap = TransformerModel(**dict(TCAP, **widths), device=dev).init_params(
             torch.Generator().manual_seed(0))
         cap.eval()
@@ -1827,12 +1905,12 @@ def phase_head_widths(dev) -> None:
                                  "transformer_decode_stack")
         err = (lps["gpu"] - lps["cpu"]).abs().max().item()
         same = int((seqs["gpu"].cpu() == seqs["cpu"]).all(1).sum())
-        log(f"head width {label} (d {d} over {heads} heads, {HW_LAYERS} "
-            f"layers): beam {CAP_BEAM} on {n} images, {launched} stack "
-            f"launches; card vs cpu teacher-forced logprobs max|diff| "
+        log(f"head width {label} (d {d} over {heads} heads, d_ff {dff}, "
+            f"{HW_LAYERS} layers): beam {CAP_BEAM} on {n} images, {launched} "
+            f"stack launches; card vs cpu teacher-forced logprobs max|diff| "
             f"{err:.3g} (tol {AGREE_TOL}); top beams token-identical "
             f"{same} of {n}")
-        if not err <= AGREE_TOL:
+        if not err <= AGREE_TOL or same != n:
             raise AssertionError(f"head width {label}: card and cpu "
                                  "decodes disagree")
         del cap, cap_c
@@ -2725,6 +2803,29 @@ def _att_inputs(dev, gen, k=None):
     return p_att, q, alpha, mask, emb
 
 
+def _step_args(dev, gen):
+    """The fused decode step's 15 inputs (att -> maxout lstm1 -> att) at
+    the serving widths, the memory padded and masked as `_att_inputs`'s."""
+    import torch
+
+    b, a, d = BENCH_BATCH, CAP["att_hid_size"], CAP["rnn_size"]
+    h = CAP["rnn_size"]
+    p_att, _, alpha1, mask, emb = _att_inputs(dev, gen)
+
+    def uni(*shape, fan):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                / fan ** 0.5)
+
+    return [p_att, emb, mask,
+            torch.randn((b, a), generator=gen, device=dev),      # q1
+            *(torch.randn((b, h), generator=gen, device=dev)     # h0d, h1, c1
+              for _ in range(3)),
+            uni(2 * h + d, 5 * h, fan=h), uni(5 * h, fan=h),     # lstm1
+            uni(d, h, fan=d), uni(h, fan=d),                     # emb2
+            uni(h, a, fan=h), uni(a, fan=h),                     # h2att2
+            alpha1, uni(a, 1, fan=a)]
+
+
 def _att_check(name: str, got, want) -> float:
     """Each output: max|diff| / max(1, max|plain|) <= ATT_TOL; returns the
     largest."""
@@ -2757,18 +2858,25 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
     d = h = CAP["rnn_size"]
     rec = {}
 
-    def record(name, line, err, shape, kfn, pfn, names, by, flops,
+    def record(name, line, err, shape, kfn, pfn, names, by, flops, trans,
                rows=None):
         k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names)
-        b_ms, b_by = bound(by, flops)
+        b_ms, term = bound(by, flops, trans)
+        old_ms, old_by = bound(by, flops)
+        # the JSON's bound_by names bytes or operations; a transcendental
+        # bound is one of operations, and bound_term says which
+        b_by = "bytes" if term == "bytes" else "operations"
         row = dict(label=shape, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None, wall_ms=k_wall,
-                   plain_wall_ms=p_wall, timing=how, err=err)
+                   bound_by=b_by, bound_term=term, library_ms=None,
+                   wall_ms=k_wall, plain_wall_ms=p_wall, timing=how, err=err,
+                   bound_without_transcendentals_ms=old_ms)
         log(f"kernel {name} [{shape}]: max|diff| / max(1, max|plain|) "
             f"{err:.3g} (tol {ATT_TOL}); {how}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms; per call kernel {k_wall:.4f} ms, plain "
-            f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: no "
-            "PyTorch call computes this function")
+            f"{p_wall:.4f} ms; bound {b_ms:.4f} ms (set by {term}; "
+            f"{trans / 1e6:.1f} M transcendentals; bytes and f32 operations "
+            f"alone {old_ms:.4f} ms, {old_by}); library: no PyTorch call "
+            "computes this function")
         if rows is not None:
             rows.append(row)
             return
@@ -2776,10 +2884,16 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
                      "replaces": tpu + line, "max_abs_err": err,
                      "err_is": "max|diff| / max(1, max|plain|)", "ms": k_ms,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None, "shape": shape, "timing": how,
-                     "shapes": [row]}
+                     "bound_term": term, "library_ms": None, "shape": shape,
+                     "timing": how, "shapes": [row]}
+
+    def log_plan(k):
+        log(f"additive_attention plan at B={b} N={n} A={a} D={d} K={k}: "
+            + ", ".join(f"{key} {v}" for key, v in
+                        aak.plan(b, n, a, d, k).items()))
 
     # B9a: one query per image
+    log_plan(1)
     args = _att_inputs(dev, gen)
     out = aak.additive_attention(*args)
     want = ao.reference_attention(*args)
@@ -2792,11 +2906,12 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
            f"B={b} N={n} A={a} D={d}, image 1 padded past 150, image 2 "
            "fully masked", lambda: aak.additive_attention(*args),
            lambda: ao.reference_attention(*args), "additive_attention_kernel",
-           nbytes(*args, out), 2.0 * b * n * (a + d))
+           nbytes(*args, out), 2.0 * b * n * (a + d), b * n * (a + 1.0))
 
     # B9b: K beam queries over unexpanded memory
     rows = []
     for k in ATT_BEAMS:
+        log_plan(k)
         args = _att_inputs(dev, gen, k)
         out = aak.additive_attention_beams(*args)
         want = ao.reference_attention_beams(*args)
@@ -2807,31 +2922,19 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
                lambda: aak.additive_attention_beams(*args),
                lambda: ao.reference_attention_beams(*args),
                "additive_attention_kernel", nbytes(*args, out),
-               2.0 * b * k * n * (a + d), rows)
+               2.0 * b * k * n * (a + d), b * k * n * (a + 1.0), rows)
     main = rows[ATT_BEAMS.index(CAP_BEAM)]              # the pivot's beam
     rec["additive_attention_beams"] = {
         "name": "additive_attention_beams", "route": "cuda", "source": src,
         "replaces": tpu + "66", "max_abs_err": max(r["err"] for r in rows),
         "err_is": "max|diff| / max(1, max|plain|)", "ms": main["ms"],
         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": None,
-        "shape": main["label"], "timing": main["timing"], "shapes": rows}
+        "bound_by": main["bound_by"], "bound_term": main["bound_term"],
+        "library_ms": None, "shape": main["label"], "timing": main["timing"],
+        "shapes": rows}
 
     # B9c: att1 -> maxout lstm1 -> att2 of one decode step
-    p_att, _, alpha1, mask, emb = _att_inputs(dev, gen)
-
-    def uni(*shape, fan):
-        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
-                / fan ** 0.5)
-
-    step = [p_att, emb, mask,
-            torch.randn((b, a), generator=gen, device=dev),      # q1
-            *(torch.randn((b, h), generator=gen, device=dev)     # h0d, h1, c1
-              for _ in range(3)),
-            uni(2 * h + d, 5 * h, fan=h), uni(5 * h, fan=h),     # lstm1
-            uni(d, h, fan=d), uni(h, fan=d),                     # emb2
-            uni(h, a, fan=h), uni(a, fan=h),                     # h2att2
-            alpha1, uni(a, 1, fan=a)]
+    step = _step_args(dev, gen)
     with torch.no_grad():
         outs = aak.fused_att_lstm_att(*step)
         want = ao.att_lstm_att_plain(*step)
@@ -2842,10 +2945,19 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
                lambda: aak.fused_att_lstm_att(*step),
                lambda: ao.att_lstm_att_plain(*step), STEP_KERNELS,
                nbytes(*step, *outs),
-               2.0 * b * (2 * n * (a + d) + 3 * h * 5 * h + d * h + h * a))
+               2.0 * b * (2 * n * (a + d) + 3 * h * 5 * h + d * h + h * a),
+               b * (2 * n * (a + 1.0) + 5 * h))
+        before = aak.step_launches
+        kernels_before = _launches_of(lambda: aak.fused_att_lstm_att(*step))
+        log(f"att_lstm_att: {kernels_before} CUDA kernel launches a step "
+            f"({aak.step_launches - before} step)")
 
     # the LSTM cell's backward (recompute + autodiff of the plain version)
     # at the denseatt training shape
+    def uni(*shape, fan):
+        return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                / fan ** 0.5)
+
     x_w = 2 * h
     w = uni(x_w + h, 5 * h, fan=h)
     bias = uni(5 * h, fan=h)
@@ -2888,6 +3000,13 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
         f"{p_wall:.4f} ms; bound {b_ms:.4f} ms ({b_by}); library: none "
         "(maxout cell)")
     return rec
+
+
+def _launches_of(fn) -> int:
+    """The CUDA kernel launches (and copies) one call of `fn` makes, as
+    torch.profiler records them."""
+    per_name = _profile_device_us(fn) or {}
+    return sum(n for _, n in per_name.values())
 
 
 def phase_dense_train_agreement(dev, train_kernel: bool) -> None:
@@ -3146,6 +3265,21 @@ def phase_nmt_train_agreement(dev, joint: bool) -> None:
         raise AssertionError(f"card and cpu {label} training steps disagree")
 
 
+def _b9_share(busy, parts) -> str:
+    """The device time of a profiled call, and the share in B9's CUDA
+    kernels (the attention core; the fused step's products and cells)."""
+    if busy is None:
+        return "not measured (the profiler recorded no device time)"
+    out = [f"{busy:.3f} ms busy"]
+    for name in ("additive_attention_kernel", "decode_gemm_kernel",
+                 "lstm_cell_kernel"):
+        us = sum(v for n, (v, _) in parts.items() if name in n)
+        k = sum(c for n, (_, c) in parts.items() if name in n)
+        if k:
+            out.append(f"{name} {us / 1e3:.4f} ms in {k} launches")
+    return "; ".join(out)
+
+
 def _greedy_steps(seq) -> int:
     """Decode steps a greedy batch ran: the loop stops after the step in
     which the last row emitted EOS (0)."""
@@ -3199,6 +3333,10 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
                 walls[label] = time.perf_counter() - t0
                 got = {"additive_attention": aak.launches,
                        "att_lstm_att": aak.step_launches}
+                if flags:    # the kernels' device time on the path
+                    busy, parts = device_ms(lambda: cap.sample(f))
+                    log(f"denseatt greedy [{label}]: one decode's device "
+                        f"time {_b9_share(busy, parts)}")
         finally:
             _att_flags(**old)
         steps = _greedy_steps(seq)
@@ -3244,6 +3382,11 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
                 finally:
                     del cap.step
                 n_beams = aak.beams_launches
+                if flags:    # the kernels' device time on the path
+                    busy, parts = device_ms(pivot)
+                    log(f"denseatt beam {CAP_BEAM} [{label}]: one "
+                        f"pivot_translate's device time "
+                        f"{_b9_share(busy, parts)}")
         finally:
             _att_flags(**old)
         want = 2 * calls["cap"] if flags else 0
@@ -3929,7 +4072,7 @@ def main(argv=None) -> int:
     phase_train_agreement(dev, True, True)
     mark("transformer training")
     phase_head_widths(dev)
-    mark("head widths 96 and 256")
+    mark("head widths")
     dense_counters = {"lstm_cell": (lk, "launches"),
                       "additive_attention": (aak, "launches")}
     dense_runs = [phase_train(route, dense_counters, detail=i == 0,

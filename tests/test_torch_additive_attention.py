@@ -173,6 +173,48 @@ def test_beams_gradient_is_the_plain_versions():
         torch.testing.assert_close(a, e, atol=TOL, rtol=TOL)
 
 
+ODD = dict(a=6, d=10, h=6)    # widths that are not multiples of 4
+
+
+@pytest.mark.parametrize("k", [None, 20], ids=["single", "K20"])
+def test_odd_widths_and_wide_beams_plain_match_pallas(k):
+    """The plain versions against the Pallas kernels in interpret mode at
+    A 6, D 10 (the kernels' scalar instances on the card) and at K = 20
+    (two beam groups on the card)."""
+    import jax.numpy as jnp
+
+    from unpaired_image_captioning_tpu.ops.attention import (
+        _fused_attention_beams_pallas, _fused_attention_pallas)
+
+    args = _attn_inputs(12, n=9, a=ODD["a"], d=ODD["d"], k=k)
+    if k is None:
+        want = _fused_attention_pallas(*(jnp.asarray(x) for x in args),
+                                       block_b=BLOCK_B, interpret=True)
+        got = tatt.reference_attention(*_t(args))
+    else:
+        want = _fused_attention_beams_pallas(
+            *(jnp.asarray(x) for x in args), block_b=BLOCK_B, interpret=True)
+        got = tatt.reference_attention_beams(*_t(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    assert not got[3].any()
+
+
+def test_att_lstm_att_odd_widths_plain_match_pallas():
+    import jax.numpy as jnp
+
+    from unpaired_image_captioning_tpu.ops.attention import (
+        fused_att_lstm_att)
+
+    args = _step_inputs(13, n=9, **ODD)
+    want = fused_att_lstm_att(*(jnp.asarray(x) for x in args),
+                              block_b=BLOCK_B, interpret=True)
+    got = tatt.att_lstm_att_plain(*_t(args))
+    for name, a, e in zip(("h1", "c1", "att2"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), atol=TOL,
+                                   rtol=TOL, err_msg=name)
+
+
 def test_att_lstm_att_raises_when_a_gradient_is_required():
     args = _t(_step_inputs(7))
     args[7].requires_grad_()                     # w1
@@ -236,6 +278,76 @@ def test_cuda_attention_backward_and_step_fusion(cuda_dev):
     assert aak.step_launches == before + 1
     for a, e in zip(got, want):
         assert _rel(a, e) <= 1e-4
+    # widths that are not multiples of 4 run the scalar instances
     odd = [x.to(cuda_dev) for x in _t(_attn_inputs(11, 5, 7, 6, 12))]
-    with pytest.raises(ValueError, match="multiple of 4"):
-        aak.additive_attention(*odd)
+    assert _rel(aak.additive_attention(*odd),
+                tatt.reference_attention(*odd)) <= 1e-4
+
+
+def _one_slot(args, b):
+    """Image b's mask keeps one slot (the last), image 3 stays fully
+    masked."""
+    mask = args[3]
+    mask[b] = 0.0
+    mask[b, -1] = 1.0
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 196])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 17, 20, 40])
+def test_cuda_cluster_core_matches_plain(cuda_dev, n, k):
+    """The cluster-split core (each image's slots across up to 8 blocks)
+    at slot counts below, at and past the cluster and beam groups of one,
+    two and three, at the path's widths and at odd ones; a fully masked
+    image gives zeros, an image of one slot that slot's row."""
+    for a, d in ((512, 512), (ODD["a"], ODD["d"])):
+        args = _t(_attn_inputs(20 + n + k, 6, n, a, d, k))
+        args = [x.to(cuda_dev) for x in _one_slot(args, 0)]
+        before = aak.beams_launches
+        got = aak.additive_attention_beams(*args)
+        want = tatt.reference_attention_beams(*args)
+        assert aak.beams_launches == before + 1
+        assert _rel(got, want) <= 1e-4, (a, d)
+        assert not got[3].any()
+        torch.testing.assert_close(
+            got[0], args[4][0, -1].expand(k, d), atol=1e-5, rtol=1e-5)
+        if k == 1:
+            single = [args[0], args[1][:, 0].contiguous(), *args[2:]]
+            got1 = aak.additive_attention(*single)
+            assert _rel(got1, tatt.reference_attention(*single)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(512, 512, 512), (6, 10, 6),
+                                    (7, 13, 5)], ids=["path", "odd", "odd2"])
+def test_cuda_step_fusion_widths(cuda_dev, widths):
+    a, d, h = widths
+    step = [x.to(cuda_dev) for x in _t(_step_inputs(30 + a, 50, 196, a, d,
+                                                     h))]
+    with torch.no_grad():
+        got = aak.fused_att_lstm_att(*step)
+    want = tatt.att_lstm_att_plain(*step)
+    for x, e in zip(got, want):
+        assert _rel(x, e) <= 1e-4
+    assert not got[2][3].any()
+
+
+@pytest.mark.cuda
+def test_cuda_reruns_are_bit_identical(cuda_dev):
+    """100 launches of the K-beam core (K 5 and 20) and of the fused step
+    give the first launch's bits: no atomics, the cluster's partials summed
+    in rank order."""
+    for k in (5, 20):
+        args = [x.to(cuda_dev) for x in _t(_attn_inputs(40 + k, 50, 196, 512,
+                                                        512, k))]
+        first = aak.additive_attention_beams(*args)
+        for _ in range(100):
+            assert torch.equal(aak.additive_attention_beams(*args), first)
+    step = [x.to(cuda_dev) for x in _t(_step_inputs(41, 50, 196, 512, 512,
+                                                     512))]
+    with torch.no_grad():
+        first = aak.fused_att_lstm_att(*step)
+        for _ in range(100):
+            for x, e in zip(aak.fused_att_lstm_att(*step), first):
+                assert torch.equal(x, e)

@@ -1,6 +1,11 @@
 """PyTorch port at the head widths the card took only from the kernels'
 widening: dh 96 (d 192 over 2 heads) and dh 256 (d 256 over 1 head), both
-outside the 32 / 64 / 128 that the kernels were once built for.
+outside the 32 / 64 / 128 that the kernels were once built for; dh 6 (d 12
+over 2) and dh 50 (d 100 over 2), whose rows are not whole float4 (the
+kernels' 4-byte-copy instances); dh 384 (d 384 over 1 head), past the
+widest bucket (the training attention's column chunks); and a d_ff of 510
+and d 30 over 5 heads with a d_ff of 45 (no width a multiple of 4: the
+products' 4-byte-copy instances).
 
 On the CPU, against the JAX package on the same parameters (carried over by
 bridge.params_from_jax) and the same numpy inputs, for the transformer
@@ -43,14 +48,17 @@ from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
-# (d, heads): head widths 96 and 256
-WIDTHS = {"dh96": (192, 2), "dh256": (256, 1)}
+# (d, heads, d_ff): head widths 96, 256, 6, 50 and 384, a d_ff of 510, and
+# d 30 (no width a multiple of 4)
+WIDTHS = {"dh96": (192, 2, 48), "dh256": (256, 1, 48), "dh6": (12, 2, 48),
+          "dh50": (100, 2, 48), "dh384": (384, 1, 48),
+          "dff510": (32, 4, 510), "d30": (30, 5, 45)}
 V, T, B, N = 21, 6, 3, 5
 TOL = 1e-5
 
 
-def _cap_cfg(d, heads, **kw):
-    return dict(caption_model="transformer", vocab_size=V, rnn_size=48,
+def _cap_cfg(d, heads, dff, **kw):
+    return dict(caption_model="transformer", vocab_size=V, rnn_size=dff,
                 num_layers=2, input_encoding_size=d, att_hid_size=16,
                 fc_feat_size=10, att_feat_size=12, seq_length=T,
                 drop_prob_lm=0.0, num_heads=heads, **kw)
@@ -71,8 +79,7 @@ def _feats(seed=0):
 
 @pytest.fixture(scope="module", params=list(WIDTHS))
 def captioner(request):
-    d, heads = WIDTHS[request.param]
-    cfg = Config(**_cap_cfg(d, heads))
+    cfg = Config(**_cap_cfg(*WIDTHS[request.param]))
     jm = jmodels.setup(cfg)
     jp = jm.init_params(jax.random.PRNGKey(0))
     tm = tmodels.setup(cfg, device="cpu")
@@ -142,12 +149,11 @@ def _params_close(tree_j, model, what):
 def test_captioner_xe_steps_match_jax_trainer(tmp_path, monkeypatch, width):
     from unpaired_image_captioning_tpu.train.trainer import Trainer as JT
 
-    d, heads = WIDTHS[width]
     monkeypatch.setattr(jtr, "DROPOUT", 0.0)
     monkeypatch.setattr(ttr, "DROPOUT", 0.0)
     monkeypatch.setattr(ttr, "TRAIN_LAYER_KERNEL", True)
     monkeypatch.setattr(ttr, "TRAIN_DEC_LAYER_KERNEL", True)
-    kw = dict(_cap_cfg(d, heads), batch_size=B, seq_per_img=1,
+    kw = dict(_cap_cfg(*WIDTHS[width]), batch_size=B, seq_per_img=1,
               i2t_train_flag=True, i2t_max_grad_norm=5.0,
               i2t_learning_rate=5e-4, seed=7, i2t_optim_epsilon=1e-6)
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
@@ -169,9 +175,9 @@ def test_captioner_xe_steps_match_jax_trainer(tmp_path, monkeypatch, width):
 SRC_V, TGT_V, S, TT = 31, 29, 7, 6
 
 
-def _nmt_kw(d, heads):
+def _nmt_kw(d, heads, dff):
     return dict(src_vocab_size=SRC_V, tgt_vocab_size=TGT_V, d_model=d,
-                d_ff=48, num_layers=1, num_heads=heads, max_decode_len=7)
+                d_ff=dff, num_layers=1, num_heads=heads, max_decode_len=7)
 
 
 def _nmt_batch(seed=2):
@@ -232,12 +238,12 @@ def test_nmt_greedy_and_beam_match_jax(nmt, beam):
 def test_nmt_xe_steps_match_jax_trainer(tmp_path, monkeypatch, width):
     from unpaired_image_captioning_tpu.train.trainer import Trainer as JT
 
-    d, heads = WIDTHS[width]
+    d, heads, dff = WIDTHS[width]
     monkeypatch.setattr(jtr, "DROPOUT", 0.0)
     monkeypatch.setattr(ttr, "DROPOUT", 0.0)
     kw = dict(vocab_size=0, nmt_src_vocab_size=SRC_V,
               nmt_tgt_vocab_size=TGT_V, nmt_model_type="transformer",
-              word_vec_size=d, rnn_size=48, layers=1, num_heads=heads,
+              word_vec_size=d, rnn_size=dff, layers=1, num_heads=heads,
               dropout=0.0, batch_size=3, i2t_train_flag=False,
               nmt_train_flag=True, nmt_optim="adam", nmt_learning_rate=5e-4,
               nmt_optim_epsilon=1e-6, seed=3)

@@ -217,7 +217,12 @@ def _card_close(got, want):
                                            (50, 16, 512, 2048, 8),
                                            (5, 29, 96, 100, 3),
                                            (4, 37, 768, 512, 8),
-                                           (3, 70, 512, 384, 2)])
+                                           (3, 70, 512, 384, 2),
+                                           (3, 37, 12, 40, 2),
+                                           (3, 29, 100, 200, 2),
+                                           (2, 21, 384, 510, 1),
+                                           (2, 19, 512, 384, 1),
+                                           (3, 29, 30, 45, 5)])
 def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)
@@ -246,7 +251,12 @@ def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
 @pytest.mark.parametrize("b,t,s,d,f,heads", [(50, 17, 196, 512, 512, 8),
                                              (3, 9, 70, 256, 384, 4),
                                              (4, 17, 196, 768, 512, 8),
-                                             (3, 17, 196, 512, 512, 2)])
+                                             (3, 17, 196, 512, 512, 2),
+                                             (3, 9, 70, 12, 40, 2),
+                                             (3, 9, 70, 100, 510, 2),
+                                             (2, 9, 50, 384, 256, 1),
+                                             (2, 9, 50, 512, 384, 1),
+                                             (3, 9, 70, 30, 45, 5)])
 def test_cuda_dec_layer_matches_plain(cuda_dev, b, t, s, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(s)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)

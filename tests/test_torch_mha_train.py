@@ -156,12 +156,19 @@ def cuda_dev():
                                                 (3, 40, 70, 1, 256),
                                                 (2, 37, 99, 37, 256),
                                                 (2, 5, 20, 5, 12),
-                                                (2, 100, 1500, 1, 64)])
+                                                (2, 100, 1500, 1, 64),
+                                                (2, 37, 70, 37, 6),
+                                                (3, 40, 70, 1, 50),
+                                                (2, 33, 45, 33, 384),
+                                                (2, 20, 40, 1, 512),
+                                                (1, 9, 20, 9, 1024)])
 def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows, dh):
     """Outputs, row statistics and gradients against the plain versions;
     T and S off the 64-row tiles; head widths padded in their bucket (96 in
     128's, 12 in 32's) and the 32-row tiles of bucket 256; 1,500 keys;
-    forward and backward bit-identical on a rerun."""
+    widths off 16 bytes (6, 50: 4-byte copies) and past 256 (384, 512,
+    1024: column chunks); forward and backward bit-identical on a
+    rerun."""
     torch.backends.cuda.matmul.allow_tf32 = False
     n_heads, rate = 8, 0.1
     d = n_heads * dh

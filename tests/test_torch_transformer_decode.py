@@ -256,19 +256,22 @@ def cuda_dev():
     ((750, 50, 512, 2048, 8, 16, 20), None),
     ((10, 3, 512, 512, 8, 196, 16), "whole number"),
     ((10, 5, 512, 512, 3, 196, 16), "heads"),
-    ((10, 5, 24, 48, 4, 196, 16), "heads"),          # dh = 6
+    ((10, 5, 24, 48, 4, 196, 16), None),             # dh = 6
     ((10, 5, 512, 512, 2, 196, 16), None),           # dh = 256
-    ((10, 5, 520, 512, 2, 196, 16), "heads"),        # dh = 260
+    ((10, 5, 520, 512, 2, 196, 16), None),           # dh = 260
     ((64, 2, 512, 512, 2, 196, 16), None),           # 32 beams, dh 256
-    ((10, 5, 512, 510, 8, 196, 16), "multiple of 4"),
-    ((10, 5, 512, 512, 8, 196, 4000), "cache slots"),
-    ((640, 5, 512, 512, 4, 100000, 16), "cross-attention"),
+    ((10, 5, 512, 510, 8, 196, 16), None),           # d_ff 510
+    ((10, 5, 512, 512, 8, 196, 4000), None),         # a chunked cache
+    ((640, 5, 512, 512, 4, 100000, 16), None),       # slots in pieces
+    ((10, 5, 8192, 512, 1, 196, 16), "shared memory"),
 ], ids=["caption", "nmt", "rows", "heads", "dh6", "dh256", "dh260",
-        "beam32_dh256", "dff", "T", "S"])
+        "beam32_dh256", "dff", "T", "S", "dh8192"])
 def test_check_dims_names_what_the_kernels_do_not_take(cuda_dev, dims,
                                                        match):
     """The wrapper's shape checks, run before a launch: the limits are the
-    CUDA source's (`tfd_refuses`), which the C entries also apply."""
+    CUDA source's (`tfd_refuses`), which the C entries also apply. Every
+    shape the JAX package computes is taken but a head too wide for one
+    query and one slot to fit a block's shared memory."""
     if match is None:
         tdk._check_dims("step", *dims)
     else:
@@ -338,6 +341,17 @@ CUDA_CASES = {
     "dh256_nmt": (4, 15, 20, 16, 512, 2048, 2, True, None),
     "dh256_beam32": (2, 32, 16, 196, 512, 512, 2, False, "t_out"),
     "kb1": (9, 1, 16, 196, 512, 512, 8, False, None),
+    # widths off 16 bytes (scalar instances), heads past 256, a d_ff of
+    # 510, a cache chunked in the self-attention, slots walked in pieces
+    "dh6": (4, 5, 16, 196, 12, 40, 2, False, None),
+    "dh50_lazy": (4, 15, 20, 16, 100, 200, 2, True, "t_out"),
+    "d30": (3, 2, 7, 5, 30, 45, 5, False, "t_out"),
+    "dh384": (4, 5, 16, 196, 384, 384, 1, False, None),
+    "dh512": (4, 5, 16, 196, 512, 512, 1, False, "masked"),
+    "dh512_nmt": (4, 15, 20, 16, 512, 2048, 1, True, None),
+    "dff510": (4, 5, 16, 196, 512, 510, 8, False, None),
+    "T4000": (2, 2, 4000, 16, 512, 512, 1, False, None),
+    "S100000": (2, 5, 16, 100000, 64, 64, 2, True, None),
 }
 
 

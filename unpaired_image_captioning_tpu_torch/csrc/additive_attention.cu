@@ -12,60 +12,90 @@
 //   out[b, k, :] = sum_n w[n] * emb[b, n, :]
 //
 // The mask multiplies after the softmax and the row is renormalised, as the
-// reference does (a row whose mask is all zeros gives zeros); the plain
-// versions are in ops/attention.py.
+// reference does (a row whose mask is all zeros gives zeros); tanh is the
+// precise tanhf. The plain versions are in ops/attention.py.
 //
-// Design. On the TPU the point of each kernel is that one block of images
-// reads the attention memory (p_att [N, A] and emb [N, D] of an image) into
-// VMEM once. Here one block of 512 threads takes one image and reads each of
-// its memory rows from device memory once, for all K queries:
+// What bounds it. At B 50, N 196, A = D = 512 the attention memory p_att and
+// emb is 40.1 MB (12 us at 3.35 TB/s), and the B K N A tanh evaluations
+// take the card's special-function units (16 a clock on each of 132 SMs) at
+// least 25 M / 4.2 T/s = 6 us at K = 5 and 24 us at K = 20.
 //
-//   1. the K queries and alpha go to shared memory; each warp takes slots n
-//      and reduces over a with float4 loads of the p_att row, accumulating
-//      all K scores from the one row it read (K is a template bucket 1, 2,
-//      4, 8 or 16, so the K accumulators stay in registers; a beam wider
-//      than 16 is split into groups of 16 queries, one block each along the
-//      grid's y, so each group reads the image's memory once);
-//   2. one warp per query: max, exp, mask and renormalisation over N, the
-//      weights left in shared memory (K * N floats);
-//   3. threads run over float4 columns of D (coalesced reads of each emb
-//      row), each accumulating all K outputs; when D / 4 < 512 the N slots
-//      are split over `parts` groups of threads whose partial sums are added
-//      in a fixed order through shared memory.
+// Design. On the TPU each kernel's point is that the memory of a block of
+// images is read into VMEM once for all its queries. Here one image's N
+// slots are split across a thread-block cluster of C blocks (C <= 16,
+// Hopper's non-portable size), so that B x groups x C blocks fill the
+// card's block slots, where one block an image left 82 of 132 SMs idle at
+// B 50. Each block of 256 threads takes a slice of about N / C slots for a
+// group of up to 8 queries (wider beams are split into equal groups along
+// the grid's y, each reading the memory once, the later ones mostly from
+// L2):
 //
-// What bounds it. The memory read: at B 50, N 196, A = D = 512 p_att and emb
-// are 40.1 MB, 12 us at 3.35 TB/s; the 2 B K N (A + D) operations are
-// negligible beside it. Known weakness: one block per image puts 50 blocks
-// on 132 SMs, so the read runs at the rate 50 SMs can pull, and the warps
-// in flight on each SM set that rate (16 warps a block read it about 1.4x
-// faster than 8 at these shapes; the register tile of the 16-beam bucket
-// keeps the block from 32). Splitting N over several blocks per image (with
-// a second pass for the softmax) is later work.
+//   1. the group's queries and alpha land in shared memory; the slice's
+//      rows are read from device memory where they are used, so that the
+//      block stays small (its shared memory holds no rows: three blocks an
+//      SM, the grid of the path's shapes in one wave);
+//   2. scores: a warp per (slot, query) pair, lanes over A (float4 loads
+//      where A is a multiple of 4): 165 pairs over 8 warps at 33 slots and
+//      5 queries, where a warp per slot gave some warps a fifth more;
+//   3. the slice's softmax terms, a warp a query: its max m, e = exp(s - m)
+//      * mask, and their sum l;
+//   4. the slice's unnormalised P.V: a thread per column and four queries,
+//      each emb element read once for the four;
+//   5. after a cluster barrier each block gathers every rank's (m, l)
+//      through distributed shared memory (a remote load a thread), forms
+//      each query's weights exp(m_r - M) / max(sum_r exp(m_r - M) l_r,
+//      1e-9) in rank order, and writes its share of the output columns as
+//      the rank-ordered sum of the weighted partials (every remote load in
+//      flight at once); a second barrier keeps every block's shared memory
+//      alive until the others have read it.
+//
+// Why so (from timestamps of each block's phases while it was designed). A
+// precise tanhf is an exp2, a reciprocal and a polynomial on the FMA pipe,
+// not one special-function operation, so past K = 1 the scores are the
+// bulk of the time and want every warp of the card busy. Rows staged in
+// shared memory made the blocks too large for one wave; a combination read
+// by one thread a query waited on 3 C remote loads in a row; an L2 prefetch
+// of the slice, a prefetch of the next pair's row into registers and
+// float4 P.V loads changed nothing or cost occupancy, and are not here.
+//
+// No atomics: a rerun gives the same bits. C comes from a model of the
+// launch (`plan_of`): rounds of the clusters the card holds at once times
+// a block's slots plus a fixed cost (a cluster of 6 at the path's shapes:
+// clusters that need a second round of the card cost more than slices
+// larger by a third); N < C leaves the last ranks without slots.
 //
 // att_lstm_att_f32 (decode only, no gradient). A block cannot hold an
 // image's memory (803 KB at the widths above) or lstm1's weights (7.9 MB at
-// H 512), so the TPU kernel's single program becomes a fixed sequence from
-// one C call:
+// H 512), so the TPU kernel's single program becomes five launches from one
+// C call:
 //
-//   1. xcat[:, :H] = h0d                                 (cudaMemcpy2DAsync)
-//   2. xcat[:, H:] = att1 = attention(q1)                (kernel above, K = 1)
-//   3. h1, c1 = maxout LSTM(xcat, h1_prev, c1_prev)      (lstm_cell.cu's kernel)
-//   4. q2in = h1 + att1 @ emb2_w + emb2_b                (gemm.cuh, EpiAddBias)
-//   5. q2 = q2in @ h2att2_w + h2att2_b                   (gemm.cuh, EpiBias)
-//   6. att2 = attention(q2)                              (kernel above, K = 1)
+//   1. xcat[:, H:] = att1 = attention(q1), and xcat[:, :H] = h0d copied by
+//      the same launch (each rank a share of the row)
+//   2. h1, c1 = maxout LSTM(xcat, h1_prev, c1_prev)   (lstm_cell.cu's cell)
+//   3. q2in = h1 + att1 @ emb2_w + emb2_b             (decode_gemm.cuh)
+//   4. q2 = q2in @ h2att2_w + h2att2_b                (decode_gemm.cuh)
+//   5. att2 = attention(q2)
 //
-// The memory is therefore read twice a step, not once as on the TPU; at
-// 40 MB most of the second read can come from the 50 MB L2. The LSTM step is
-// the port's fused cell (its gates never reach device memory).
+// The 50-row products split their K reduction across a cluster of 8 (64
+// blocks for an N of 512). The memory is read twice a step, not once as on
+// the TPU; at 40 MB most of the second read can come from the 50 MB L2.
 //
-// Requirements (the wrappers check them): A, D and H multiples of 4, every
-// pointer 16-byte aligned.
+// Widths: any A, D and H >= 1. The float4 score loads need A and D
+// multiples of 4 and the inputs 16-byte aligned; other shapes run the
+// scalar instance. The products take any width
+// (decode_gemm.cuh), and so does the cell (lstm_cell.cu).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
-#include "gemm.cuh"
+#include <mutex>
+
+#include "decode_gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 // the fused LSTM step of lstm_cell.cu (linked into the same library)
 extern "C" int lstm_cell_f32(const float* x, const float* h, const float* c,
@@ -75,10 +105,11 @@ extern "C" int lstm_cell_f32(const float* x, const float* h, const float* c,
 
 namespace {
 
-constexpr int ATT_THREADS = 512;
+constexpr int ATT_THREADS = 256;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int BEAM_GROUP = 16;    // queries a block takes
-constexpr size_t SMEM_SOFT_CAP = 96 * 1024;    // partial sums give way above
+constexpr int BEAM_GROUP = 8;      // queries a block takes at most
+constexpr int MAX_CLUSTER = 16;    // Hopper's non-portable cluster size
+constexpr int BLOCK_FIXED = 8;     // a block's fixed cost, in slots (model)
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 struct AttArgs {
@@ -88,7 +119,12 @@ struct AttArgs {
   const float* mask;   // [B, N]
   const float* emb;    // [B, N, D]
   float* out;          // out[b * ldo + k * D + d]
-  int N, A, D, K, ldo, parts;
+  const float* copy_src;  // [B, copy_w] or null: copied to copy_dst rows
+  float* copy_dst;        // copy_dst[b * copy_ld + j]
+  int copy_ld, copy_w;
+  int N, A, D, K, ldo;
+  int kg;     // queries a group (the last may hold fewer)
+  int chunk;  // slots a block: ceil(N / C)
 };
 
 __device__ __forceinline__ float att_warp_sum(float v) {
@@ -104,11 +140,27 @@ __device__ __forceinline__ float att_warp_max(float v) {
   return v;
 }
 
-// shared memory of one block, in floats: queries, alpha, the weights
-// (rounded up to a float4) and, with parts > 1, the partial sums
-size_t att_smem_floats(int N, int A, int D, int K, int parts) {
-  const size_t w = ((size_t)K * N + 3) / 4 * 4;
-  return (size_t)K * A + A + w + (parts > 1 ? (size_t)parts * K * D : 0);
+__host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// The regions of a block's shared memory, in floats: the group's queries
+// [kg][A], alpha [A], the scores then weights [kg][chunk], the partial P.V
+// [kg][D], every rank's (m, l) [2][kg][MAX_CLUSTER] gathered for the
+// combination, then its weights [kg][MAX_CLUSTER]. Every region starts on
+// 16 bytes.
+struct Smem {
+  size_t q, alpha, w, acc, ml, wt, total;
+};
+
+__host__ __device__ inline Smem smem_of(int A, int D, int kg, int chunk) {
+  Smem m;
+  m.q = 0;
+  m.alpha = m.q + round4((size_t)kg * A);
+  m.w = m.alpha + round4(A);
+  m.acc = m.w + round4((size_t)kg * chunk);
+  m.ml = m.acc + round4((size_t)kg * D);
+  m.wt = m.ml + 2 * (size_t)kg * MAX_CLUSTER;
+  m.total = m.wt + (size_t)kg * MAX_CLUSTER;
+  return m;
 }
 
 __device__ __forceinline__ float tanh_dot4(float4 al, float4 p, float4 q) {
@@ -116,154 +168,304 @@ __device__ __forceinline__ float tanh_dot4(float4 al, float4 p, float4 q) {
          al.z * tanhf(p.z + q.z) + al.w * tanhf(p.w + q.w);
 }
 
-template <int KB>
+template <bool V4>
 __global__ void __launch_bounds__(ATT_THREADS)
-additive_attention_kernel(AttArgs p) {
+additive_attention_kernel(const __grid_constant__ AttArgs p) {
   extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x;
-  const int k0 = blockIdx.y * BEAM_GROUP;  // this block's group of queries
-  const int N = p.N, A = p.A, D = p.D, K = min(p.K - k0, BEAM_GROUP);
-  const int A4 = A / 4, D4 = D / 4;
-  float* q_s = smem;
-  float* alpha_s = q_s + (size_t)K * A;
-  float* w_s = alpha_s + A;
-  float* part_s = w_s + ((size_t)K * N + 3) / 4 * 4;
+  const int b = blockIdx.x / cs;
+  const int k0 = blockIdx.y * p.kg;            // this block's queries
+  const int N = p.N, A = p.A, D = p.D, kg = p.kg, chunk = p.chunk;
+  const int K = min(p.K - k0, kg);
+  const int s0 = rank * chunk, ns = max(0, min(N - s0, chunk));
+  const Smem m = smem_of(A, D, kg, chunk);
+  float* q_s = smem + m.q;
+  float* alpha_s = smem + m.alpha;
+  float* w_s = smem + m.w;           // [kg][chunk]
+  float* acc_s = smem + m.acc;       // [kg][D]
+  float* ml_s = smem + m.ml;         // m, l [2][kg][MAX_CLUSTER]
+  float* wt_s = smem + m.wt;         // [kg][MAX_CLUSTER]
+  const float* pb = p.p_att + ((size_t)b * N + s0) * A;
+  const float* eb = p.emb + ((size_t)b * N + s0) * D;
 
+  // 1. the queries and alpha; (B9c) this rank's share of the copied row
   const float* qb = p.q + ((size_t)b * p.K + k0) * A;
   for (int i = tid; i < K * A; i += ATT_THREADS) q_s[i] = qb[i];
   for (int i = tid; i < A; i += ATT_THREADS) alpha_s[i] = p.alpha[i];
-  __syncthreads();
-
-  // 1. scores: a warp per slot; the p_att row is read once for all queries
-  const float* pb = p.p_att + (size_t)b * N * A;
-  const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
-  for (int n = warp; n < N; n += ATT_WARPS) {
-    const float4* row = reinterpret_cast<const float4*>(pb + (size_t)n * A);
-    float acc[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-    for (int a4 = lane; a4 < A4; a4 += 32) {
-      const float4 pv = row[a4];
-      const float4 al = al4[a4];
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        if (k < K)
-          acc[k] += tanh_dot4(
-              al, pv, reinterpret_cast<const float4*>(q_s + k * A)[a4]);
-    }
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      if (k < K) {
-        const float s = att_warp_sum(acc[k]);
-        if (lane == 0) w_s[k * N + n] = s;
-      }
-    }
+  if (p.copy_src && blockIdx.y == 0) {
+    const int w = p.copy_w, per = (w + cs - 1) / cs;
+    const int c1 = min(w, (rank + 1) * per);
+    for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
+      p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
   }
   __syncthreads();
 
-  // 2. softmax over N, then the mask and the renormalisation; a warp a query
-  const float* mb = p.mask + (size_t)b * N;
+  // 2. scores: a warp per (slot, query) pair, lanes over A
+  for (int u = warp; u < ns * K; u += ATT_WARPS) {
+    const int n = u / K, k = u - n * K;
+    float acc = 0.0f;
+    if (V4) {
+      const int A4 = A / 4;
+      const float4* row = reinterpret_cast<const float4*>(pb + (size_t)n * A);
+      const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
+      const float4* q4 = reinterpret_cast<const float4*>(q_s + (size_t)k * A);
+#pragma unroll 4
+      for (int a4 = lane; a4 < A4; a4 += 32)
+        acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
+    } else {
+      const float* row = pb + (size_t)n * A;
+      const float* qk = q_s + (size_t)k * A;
+#pragma unroll 4
+      for (int a = lane; a < A; a += 32)
+        acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+    }
+    acc = att_warp_sum(acc);
+    if (lane == 0) w_s[k * chunk + n] = acc;
+  }
+  __syncthreads();
+
+  // 3. the slice's softmax terms, a warp a query: m, e = exp(s - m) * mask
+  // in place of the scores, l = sum e (m = -inf, l = 0 for an empty slice)
+  const float* mb = p.mask + (size_t)b * N + s0;
+  float* st_m = ml_s + rank;                    // [k * MAX_CLUSTER + r]
+  float* st_l = ml_s + kg * MAX_CLUSTER + rank;
   for (int k = warp; k < K; k += ATT_WARPS) {
-    float* wr = w_s + k * N;
-    float m = -INFINITY;
-    for (int n = lane; n < N; n += 32) m = fmaxf(m, wr[n]);
-    m = att_warp_max(m);
-    float s = 0.0f;
-    for (int n = lane; n < N; n += 32) {
-      const float e = expf(wr[n] - m) * mb[n];
+    float* wr = w_s + k * chunk;
+    float mx = -INFINITY;
+    for (int n = lane; n < ns; n += 32) mx = fmaxf(mx, wr[n]);
+    mx = att_warp_max(mx);
+    float l = 0.0f;
+    for (int n = lane; n < ns; n += 32) {
+      const float e = expf(wr[n] - mx) * mb[n];
       wr[n] = e;
-      s += e;
+      l += e;
     }
-    const float den = fmaxf(att_warp_sum(s), 1e-9f);
-    for (int n = lane; n < N; n += 32) wr[n] = wr[n] / den;
+    l = att_warp_sum(l);
+    if (lane == 0) {
+      st_m[k * MAX_CLUSTER] = mx;
+      st_l[k * MAX_CLUSTER] = l;
+    }
   }
   __syncthreads();
 
-  // 3. the weighted sums: float4 columns over threads, slots over `parts`
-  const float* eb = p.emb + (size_t)b * N * D;
-  const int parts = p.parts;
+  // 4. the slice's unnormalised P.V: a thread per column and four queries,
+  // each emb element read once for the four
+  for (int i = tid; i < ((K + 3) / 4) * D; i += ATT_THREADS) {
+    const int kq = (i / D) * 4, c = i % D;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    const float* w0 = w_s + kq * chunk;
+#pragma unroll 8
+    for (int n = 0; n < ns; ++n) {
+      const float e = eb[(size_t)n * D + c];
+      a0 = fmaf(w0[n], e, a0);
+      if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
+      if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
+      if (kq + 3 < K) a3 = fmaf(w0[3 * chunk + n], e, a3);
+    }
+    float* o = acc_s + (size_t)kq * D + c;
+    o[0] = a0;
+    if (kq + 1 < K) o[D] = a1;
+    if (kq + 2 < K) o[2 * D] = a2;
+    if (kq + 3 < K) o[3 * D] = a3;
+  }
+
+  // 5. every rank's partials are in its shared memory: gather each query's
+  // (m, l) of every rank (one remote load a thread), the query's weights
+  // over the ranks, then this rank's share of the columns
+  cluster.sync();
+  for (int i = tid; i < K * cs; i += ATT_THREADS) {
+    const int k = i / cs, r = i - k * cs;
+    if (r == rank) continue;
+    const float* src = cluster.map_shared_rank(ml_s, r);
+    ml_s[k * MAX_CLUSTER + r] = src[k * MAX_CLUSTER + r];
+    ml_s[(kg + k) * MAX_CLUSTER + r] = src[(kg + k) * MAX_CLUSTER + r];
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += ATT_THREADS) {
+    const float* mk = ml_s + k * MAX_CLUSTER;
+    const float* lk = ml_s + (kg + k) * MAX_CLUSTER;
+    float M = -INFINITY;
+    for (int r = 0; r < cs; ++r) M = fmaxf(M, mk[r]);
+    float L = 0.0f;
+    for (int r = 0; r < cs; ++r) L += expf(mk[r] - M) * lk[r];  // rank order
+    const float den = fmaxf(L, 1e-9f);
+    for (int r = 0; r < cs; ++r) wt_s[k * MAX_CLUSTER + r] = expf(mk[r] - M) / den;
+  }
+  __syncthreads();
+  const int per = (D + cs - 1) / cs, c0 = rank * per;
+  const int cw = max(0, min(D - c0, per));
   float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D;
-  for (int slot = tid; slot < D4 * parts; slot += ATT_THREADS) {
-    const int c4 = slot % D4, part = slot / D4;
-    float4 acc[KB];
+  for (int e = tid; e < K * cw; e += ATT_THREADS) {
+    const int k = e / cw, c = c0 + e % cw;
+    const size_t i = (size_t)k * D + c;
+    float v[MAX_CLUSTER];
 #pragma unroll
-    for (int k = 0; k < KB; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 4
-    for (int n = part; n < N; n += parts) {
-      const float4 e = reinterpret_cast<const float4*>(eb + (size_t)n * D)[c4];
+    for (int r = 0; r < MAX_CLUSTER; ++r)      // every remote load in flight
+      if (r < cs) v[r] = cluster.map_shared_rank(acc_s, r)[i];
+    float s = 0.0f;
 #pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (k < K) {
-          const float wk = w_s[k * N + n];
-          acc[k].x = fmaf(wk, e.x, acc[k].x);
-          acc[k].y = fmaf(wk, e.y, acc[k].y);
-          acc[k].z = fmaf(wk, e.z, acc[k].z);
-          acc[k].w = fmaf(wk, e.w, acc[k].w);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      if (k < K) {
-        float* dst = parts == 1 ? ob + (size_t)k * D
-                                : part_s + ((size_t)part * K + k) * D;
-        reinterpret_cast<float4*>(dst)[c4] = acc[k];
-      }
-    }
+    for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
+      if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
+    ob[i] = s;
   }
-  if (parts > 1) {
-    __syncthreads();
-    for (int i = tid; i < K * D4; i += ATT_THREADS) {
-      const int k = i / D4, c4 = i % D4;
-      float4 s = reinterpret_cast<const float4*>(part_s + (size_t)k * D)[c4];
-      for (int part = 1; part < parts; ++part) {
-        const float4 v = reinterpret_cast<const float4*>(
-            part_s + ((size_t)part * K + k) * D)[c4];
-        s.x += v.x;
-        s.y += v.y;
-        s.z += v.z;
-        s.w += v.w;
-      }
-      reinterpret_cast<float4*>(ob + (size_t)k * D)[c4] = s;
-    }
-  }
+  // no block leaves while another still reads its shared memory
+  cluster.sync();
 }
 
-template <int KB>
-int launch_bucket(const AttArgs& p, dim3 grid, size_t smem, cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        additive_attention_kernel<KB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A launch's cluster size C and its shared memory: C in 1..MAX_CLUSTER
+// with the least modelled time, rounds of the clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters at C's shared memory) times a
+// block's slots plus its fixed cost, the smaller C on a tie. Read once per
+// shape and device.
+struct Plan {
+  int cs;
+  size_t smem;
+};
+
+template <typename Kern>
+Plan plan_of(Kern kernel, const AttArgs& p, int clusters) {
+  struct Entry {
+    const void* kernel;
+    int A, D, kg, N, clusters, dev;
+    Plan plan;
+  };
+  static Entry cache[64];
+  static int n_cached = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_cached; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == (const void*)kernel && e.A == p.A && e.D == p.D &&
+        e.kg == p.kg && e.N == p.N && e.clusters == clusters && e.dev == dev)
+      return e.plan;
   }
-  additive_attention_kernel<KB><<<grid, ATT_THREADS, smem, st>>>(p);
+  Plan best{0, 0};
+  double best_cost = 0.0;
+  for (int cs = 1; cs <= MAX_CLUSTER; ++cs) {
+    const size_t smem =
+        smem_of(p.A, p.D, p.kg, cdiv(p.N, cs)).total * sizeof(float);
+    if (smem > SMEM_MAX ||
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess ||
+        cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1) != cudaSuccess) {
+      (void)cudaGetLastError();   // a size the card refuses is no error
+      continue;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs * clusters);
+    cfg.blockDim = dim3(ATT_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int fit = 0;
+    if (cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg) != cudaSuccess ||
+        fit < 1) {
+      (void)cudaGetLastError();
+      continue;
+    }
+    const double cost =
+        (double)cdiv(clusters, fit) * (cdiv(p.N, cs) + BLOCK_FIXED);
+    if (!best.cs || cost < best_cost) {
+      best = Plan{cs, smem};
+      best_cost = cost;
+    }
+  }
+  if (best.cs && n_cached < 64)
+    cache[n_cached++] = Entry{(const void*)kernel, p.A, p.D, p.kg, p.N,
+                              clusters, dev, best};
+  return best;
+}
+
+template <bool V4>
+int launch_group(const AttArgs& p, int B, int G, cudaStream_t st) {
+  auto kernel = additive_attention_kernel<V4>;
+  const Plan plan = plan_of(kernel, p, B * G);
+  if (!plan.cs) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+  if (e != cudaSuccess) return (int)e;
+  AttArgs a = p;
+  a.chunk = cdiv(p.N, plan.cs);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.cs * B, G);
+  cfg.blockDim = dim3(ATT_THREADS);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// One launch over B images and the groups of at most BEAM_GROUP queries;
-// picks the thread groups over N and the K bucket of the widest group.
+// The groups of K queries: the fewest equal groups of at most BEAM_GROUP
+// whose shared memory fits a block at the largest cluster. Sets p.kg and
+// returns their number.
+int group_queries(AttArgs& p) {
+  const int least_chunk = cdiv(p.N, MAX_CLUSTER);
+  int G = cdiv(p.K, BEAM_GROUP);
+  p.kg = cdiv(p.K, G);
+  while (p.kg > 1 &&
+         smem_of(p.A, p.D, p.kg, least_chunk).total * 4 > SMEM_MAX) {
+    ++G;
+    p.kg = cdiv(p.K, G);
+  }
+  return cdiv(p.K, p.kg);
+}
+
+bool rows16(const AttArgs& p) {
+  return p.A % 4 == 0 && p.D % 4 == 0 &&
+         ((size_t)p.p_att | (size_t)p.emb | (size_t)p.q | (size_t)p.alpha) %
+                 16 ==
+             0;
+}
+
+// One launch over B images and the groups of their K queries.
 int launch_attention(AttArgs p, int B, cudaStream_t st) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (p.K < 1 || p.N < 1 || p.A % 4 || p.D % 4 || p.ldo % 4)
+  if (p.K < 1 || p.N < 1 || p.A < 1 || p.D < 1)
     return (int)cudaErrorInvalidValue;
-  const int kg = p.K < BEAM_GROUP ? p.K : BEAM_GROUP;
-  const dim3 grid(B, (p.K + BEAM_GROUP - 1) / BEAM_GROUP);
-  const int d4 = p.D / 4;
-  int parts = d4 >= ATT_THREADS ? 1 : ATT_THREADS / d4;
-  while (parts > 1 &&
-         att_smem_floats(p.N, p.A, p.D, kg, parts) * 4 > SMEM_SOFT_CAP)
-    --parts;
-  p.parts = parts;
-  const size_t smem = att_smem_floats(p.N, p.A, p.D, kg, parts) * 4;
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  if (kg == 1) return launch_bucket<1>(p, grid, smem, st);
-  if (kg <= 2) return launch_bucket<2>(p, grid, smem, st);
-  if (kg <= 4) return launch_bucket<4>(p, grid, smem, st);
-  if (kg <= 8) return launch_bucket<8>(p, grid, smem, st);
-  return launch_bucket<16>(p, grid, smem, st);
+  const int G = group_queries(p);
+  return rows16(p) ? launch_group<true>(p, B, G, st)
+                   : launch_group<false>(p, B, G, st);
+}
+
+AttArgs att_args(const float* p_att, const float* q, const float* alpha,
+                 const float* mask, const float* emb, float* out, int N,
+                 int A, int D, int K, int ldo) {
+  AttArgs p{};
+  p.p_att = p_att;
+  p.q = q;
+  p.alpha = alpha;
+  p.mask = mask;
+  p.emb = emb;
+  p.out = out;
+  p.N = N;
+  p.A = A;
+  p.D = D;
+  p.K = K;
+  p.ldo = ldo;
+  return p;
 }
 
 // C = (add + acc) + bias: the att2 query's h1 + emb2(att1)
@@ -280,21 +482,11 @@ struct EpiAddBias {
         make_float4((a4.x + acc.x) + b4.x, (a4.y + acc.y) + b4.y,
                     (a4.z + acc.z) + b4.z, (a4.w + acc.w) + b4.w);
   }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const size_t i = (size_t)r * ld + c;
+    out[i] = (add[i] + acc) + bias[c];
+  }
 };
-
-uic::GemmArgs gemm_args(const float* a, int lda, const float* w, int M,
-                        int N, int K) {
-  uic::GemmArgs g{};
-  g.a = a;
-  g.w = w;
-  g.lda = lda;
-  g.ldw = N;
-  g.M = M;
-  g.N = N;
-  g.K = K;
-  g.k_chunk = K;
-  return g;
-}
 
 }  // namespace
 
@@ -305,20 +497,40 @@ extern "C" int additive_attention_f32(const float* p_att, const float* q,
                                       const float* emb, float* out, int B,
                                       int N, int A, int D, int K, int ldo,
                                       cudaStream_t stream) {
-  AttArgs p{p_att, q, alpha, mask, emb, out, N, A, D, K, ldo, 1};
-  return launch_attention(p, B, stream);
+  return launch_attention(att_args(p_att, q, alpha, mask, emb, out, N, A, D,
+                                   K, ldo),
+                          B, stream);
+}
+
+// The launch plan of additive_attention_f32 for a shape, with 16-byte rows:
+// out = {cluster size, queries a group, groups, shared memory bytes a
+// block}. Returns 0, or a CUDA error.
+extern "C" int additive_attention_plan(int B, int N, int A, int D, int K,
+                                       int* out) {
+  AttArgs p = att_args(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       N, A, D, K, K * D);
+  if (B <= 0 || K < 1 || N < 1 || A < 1 || D < 1)
+    return (int)cudaErrorInvalidValue;
+  const int G = group_queries(p);
+  const Plan plan = plan_of(additive_attention_kernel<true>, p, B * G);
+  out[0] = plan.cs;
+  out[1] = p.kg;
+  out[2] = G;
+  out[3] = (int)plan.smem;
+  return plan.cs ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The decode step att1 -> maxout lstm1 -> att2. `in` is a host array of the
 // 15 inputs in the order of fused_att_lstm_att (p_att, emb, mask, q1, h0d,
 // h1_prev, c1_prev, w1, b1, emb2_w, emb2_b, h2att2_w, h2att2_b, alpha1,
 // alpha2); h1, c1 [B, H] and att2 [B, D] are written; `ws` holds
-// B * (2 H + D + A) floats of scratch. Returns the first launch error.
+// B * (2 H + D + A) floats of scratch. Five launches; returns the first
+// launch error.
 extern "C" int att_lstm_att_f32(const float* const* in, float* h1, float* c1,
                                 float* att2, float* ws, int B, int N, int A,
                                 int D, int H, cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (H % 4) return (int)cudaErrorInvalidValue;
+  if (H < 1) return (int)cudaErrorInvalidValue;
   const float *p_att = in[0], *emb = in[1], *mask = in[2], *q1 = in[3],
               *h0d = in[4], *h1p = in[5], *c1p = in[6], *w1 = in[7],
               *b1 = in[8], *emb2_w = in[9], *emb2_b = in[10],
@@ -329,27 +541,24 @@ extern "C" int att_lstm_att_f32(const float* const* in, float* h1, float* c1,
   float* q2in = xcat + (size_t)B * xw;  // [B, H]
   float* q2 = q2in + (size_t)B * H;     // [B, A]
   int err;
-  if ((err = (int)cudaMemcpy2DAsync(xcat, xw * sizeof(float), h0d,
-                                    H * sizeof(float), H * sizeof(float), B,
-                                    cudaMemcpyDeviceToDevice, stream)))
-    return err;
-  if ((err = launch_attention(
-           AttArgs{p_att, q1, alpha1, mask, emb, xcat + H, N, A, D, 1, xw, 1},
-           B, stream)))
-    return err;
+  AttArgs att1 = att_args(p_att, q1, alpha1, mask, emb, xcat + H, N, A, D, 1,
+                          xw);
+  att1.copy_src = h0d;
+  att1.copy_dst = xcat;
+  att1.copy_ld = xw;
+  att1.copy_w = H;
+  if ((err = launch_attention(att1, B, stream))) return err;
   if ((err = lstm_cell_f32(xcat, h1p, c1p, w1, b1, h1, c1, B, xw, H, 5,
                            stream)))
     return err;
-  if ((err = uic::gemm<false, false, false>(
-           gemm_args(xcat + H, xw, emb2_w, B, H, D),
-           EpiAddBias{h1, emb2_b, q2in, H}, stream)))
+  if ((err = uic_decode::decode_gemm(xcat + H, xw, emb2_w, B, H, D,
+                                     EpiAddBias{h1, emb2_b, q2in, H}, stream,
+                                     1)))
     return err;
-  if ((err = uic::gemm<false, false, false>(gemm_args(q2in, H, h2att2_w, B, A,
-                                                      H),
-                                            uic::EpiBias{h2att2_b, q2, A},
-                                            stream)))
+  if ((err = uic_decode::decode_gemm(q2in, H, h2att2_w, B, A, H,
+                                     uic::EpiBias{h2att2_b, q2, A}, stream,
+                                     1)))
     return err;
   return launch_attention(
-      AttArgs{p_att, q2, alpha2, mask, emb, att2, N, A, D, 1, D, 1}, B,
-      stream);
+      att_args(p_att, q2, alpha2, mask, emb, att2, N, A, D, 1, D), B, stream);
 }

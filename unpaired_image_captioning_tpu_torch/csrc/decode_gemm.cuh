@@ -1,7 +1,8 @@
 // The decoder step's f32 GEMM on the CUDA cores (no TF32, no tensor cores,
 // no library call), shaped for decoding: few rows (M = 250 or 750 at the
-// pivot's beams), K = 512 or 2048, N = 512, 1536 or 2048. Only
-// transformer_decode.cu uses it.
+// pivot's beams), K = 512 or 2048, N = 512, 1536 or 2048. The transformer
+// decoder step (transformer_decode.cu) and the fused att -> LSTM -> att
+// decode step (additive_attention.cu, 50 rows) use it.
 //
 //   C = epilogue(A . W)      A [M, K] row-major (lda), W [K, N] row-major
 //
@@ -28,8 +29,11 @@
 // 0..CS-1, and runs the epilogue on them (as lstm_cell.cu does). No
 // scratch, no atomics: a rerun gives the same bits.
 //
-// Requirements (the wrapper checks them): K and N multiples of 4, lda
-// a multiple of 4, A and W 16-byte aligned.
+// Widths. Where K, N and lda are multiples of 4 and A and W 16-byte
+// aligned, the tiles land by 16-byte copies and the epilogue takes float4
+// (V4); any other shape (a d_ff of 510, an odd hidden width) runs the
+// instance that copies 4 bytes at a time and calls the epilogue's `one`
+// per element, the same tiles and sums otherwise.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -63,6 +67,13 @@ __device__ __forceinline__ void dg_cp16(float* dst, const float* src,
                "l"(src), "r"(ok ? 16 : 0));
 }
 
+__device__ __forceinline__ void dg_cp4(float* dst, const float* src,
+                                       bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
 __device__ __forceinline__ void dg_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -80,13 +91,30 @@ struct DecodeGemm {
 };
 
 // A and W rows [k0, k0 + BK) of the tile into one stage, both row-major
-// (As[m][k], Ws[k][n]) by 16-byte copies; zero past M, N and the slice's
-// K.
+// (As[m][k], Ws[k][n]) by 16-byte copies (V4) or 4-byte ones; zero past M,
+// N and the slice's K.
+template <bool V4>
 __device__ __forceinline__ void dg_load_stage(float* As, const DecodeGemm& p,
                                               int m0, int n0, int k0,
                                               int k_end) {
   float* Ws = As + DG_A_FLOATS;
   const int tid = threadIdx.x;
+  if (!V4) {
+    for (int e = tid; e < DG_BM * DG_BK; e += DG_THREADS) {
+      const int row = e / DG_BK, kk = e % DG_BK;
+      const int r = m0 + row, k = k0 + kk;
+      const bool ok = r < p.M && k < k_end;
+      dg_cp4(As + row * DG_A_LD + kk, ok ? p.a + (size_t)r * p.lda + k : p.a,
+             ok);
+    }
+    for (int e = tid; e < DG_BK * DG_BN; e += DG_THREADS) {
+      const int kk = e / DG_BN, c = e % DG_BN;
+      const int k = k0 + kk, n = n0 + c;
+      const bool ok = k < k_end && n < p.N;
+      dg_cp4(Ws + kk * DG_BN + c, ok ? p.w + (size_t)k * p.N + n : p.w, ok);
+    }
+    return;
+  }
 #pragma unroll
   for (int e = tid; e < DG_BM * DG_BK / 4; e += DG_THREADS) {
     const int row = e / (DG_BK / 4), kq = (e % (DG_BK / 4)) * 4;
@@ -104,7 +132,22 @@ __device__ __forceinline__ void dg_load_stage(float* As, const DecodeGemm& p,
   }
 }
 
-template <class Epi>
+// the epilogue over the four columns c .. c + 3 of row r: one float4 (V4),
+// else each column below N
+template <bool V4, class Epi>
+__device__ __forceinline__ void dg_epilogue(const Epi& epi, int r, int c,
+                                            int N, float4 v) {
+  if (V4) {
+    epi(r, c, v, 0);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < N) epi.one(r, c + j, e[j]);
+}
+
+template <class Epi, bool V4>
 __global__ void __launch_bounds__(DG_THREADS)
 decode_gemm_kernel(DecodeGemm p, Epi epi) {
   extern __shared__ __align__(16) float dg_smem[];
@@ -129,8 +172,8 @@ decode_gemm_kernel(DecodeGemm p, Epi epi) {
 #pragma unroll
   for (int s = 0; s < DG_STAGES - 1; ++s) {
     if (s < n_tiles)
-      dg_load_stage(dg_smem + s * DG_STAGE_FLOATS, p, m0, n0,
-                    k_begin + s * DG_BK, k_end);
+      dg_load_stage<V4>(dg_smem + s * DG_STAGE_FLOATS, p, m0, n0,
+                        k_begin + s * DG_BK, k_end);
     dg_commit();
   }
   for (int t = 0; t < n_tiles; ++t) {
@@ -140,8 +183,8 @@ decode_gemm_kernel(DecodeGemm p, Epi epi) {
     __syncthreads();
     const int nt = t + DG_STAGES - 1;
     if (nt < n_tiles)
-      dg_load_stage(dg_smem + (nt % DG_STAGES) * DG_STAGE_FLOATS, p, m0, n0,
-                    k_begin + nt * DG_BK, k_end);
+      dg_load_stage<V4>(dg_smem + (nt % DG_STAGES) * DG_STAGE_FLOATS, p, m0,
+                        n0, k_begin + nt * DG_BK, k_end);
     dg_commit();
     const float* As = dg_smem + (t % DG_STAGES) * DG_STAGE_FLOATS;
     const float* Ws = As + DG_A_FLOATS;
@@ -180,7 +223,9 @@ decode_gemm_kernel(DecodeGemm p, Epi epi) {
     for (int i = 0; i < DG_TM; ++i) {
       const int r = m0 + (i < 4 ? ty * 4 + i : HM + ty * 4 + i - 4);
       if (r < p.M && c < p.N)
-        epi(r, c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]), 0);
+        dg_epilogue<V4>(epi, r, c, p.N,
+                        make_float4(acc[i][0], acc[i][1], acc[i][2],
+                                    acc[i][3]));
     }
     return;
   }
@@ -212,7 +257,7 @@ decode_gemm_kernel(DecodeGemm p, Epi epi) {
         s.w += v[src].w;
       }
     const int r = m0 + row, cc = n0 + cq;
-    if (r < p.M && cc < p.N) epi(r, cc, s, 0);
+    if (r < p.M && cc < p.N) dg_epilogue<V4>(epi, r, cc, p.N, s);
   }
   // no block leaves while another still reads its shared memory
   cluster.sync();
@@ -221,34 +266,30 @@ decode_gemm_kernel(DecodeGemm p, Epi epi) {
 inline int dg_cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // The cluster size for an M x N x K product: doubled while the grid has
-// fewer than DG_FILL blocks per SM and each block keeps at least two K
-// tiles.
-inline int dg_cluster(int M, int N, int K) {
+// fewer than DG_FILL blocks per SM and each block keeps at least
+// `rank_tiles` K tiles (2 for the decoder step; the 50-row products of the
+// fused decode step take 1, so that their 8 tiles fill 64 blocks).
+inline int dg_cluster(int M, int N, int K, int rank_tiles) {
   const int tiles = dg_cdiv(M, DG_BM) * dg_cdiv(N, DG_BN);
   const int k_tiles = dg_cdiv(K, DG_BK);
   int cs = 1;
   while (cs < DG_MAX_CLUSTER &&
          tiles * cs < DG_FILL * uic::gemm_sm_count() &&
-         k_tiles >= 2 * (2 * cs))
+         k_tiles >= rank_tiles * (2 * cs))
     cs *= 2;
   return cs;
 }
 
-// C = epi(a [M, K] . w [K, N]) on `st`; returns the launch error.
-template <class Epi>
-int decode_gemm(const float* a, int lda, const float* w, int M, int N, int K,
-                const Epi& epi, cudaStream_t st) {
-  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+template <class Epi, bool V4>
+int decode_gemm_as(const DecodeGemm& p, int cs, const Epi& epi,
+                   cudaStream_t st) {
   // the opt-in above 48 KB, on the current device
   cudaError_t e = cudaFuncSetAttribute(
-      decode_gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DG_SMEM);
+      decode_gemm_kernel<Epi, V4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, DG_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int cs = dg_cluster(M, N, K);
-  DecodeGemm p{a, w, lda, M, N, K,
-               dg_cdiv(dg_cdiv(K, DG_BK), cs) * DG_BK};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(dg_cdiv(N, DG_BN) * cs, dg_cdiv(M, DG_BM));
+  cfg.gridDim = dim3(dg_cdiv(p.N, DG_BN) * cs, dg_cdiv(p.M, DG_BM));
   cfg.blockDim = dim3(DG_THREADS);
   cfg.dynamicSmemBytes = DG_SMEM;
   cfg.stream = st;
@@ -259,9 +300,23 @@ int decode_gemm(const float* a, int lda, const float* w, int M, int N, int K,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, decode_gemm_kernel<Epi>, p, epi);
+  e = cudaLaunchKernelEx(&cfg, decode_gemm_kernel<Epi, V4>, p, epi);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// C = epi(a [M, K] . w [K, N]) on `st`; returns the launch error.
+template <class Epi>
+int decode_gemm(const float* a, int lda, const float* w, int M, int N, int K,
+                const Epi& epi, cudaStream_t st, int rank_tiles = 2) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const int cs = dg_cluster(M, N, K, rank_tiles);
+  DecodeGemm p{a, w, lda, M, N, K,
+               dg_cdiv(dg_cdiv(K, DG_BK), cs) * DG_BK};
+  const bool v4 = K % 4 == 0 && N % 4 == 0 && lda % 4 == 0 &&
+                  ((size_t)a | (size_t)w) % 16 == 0;
+  return v4 ? decode_gemm_as<Epi, true>(p, cs, epi, st)
+            : decode_gemm_as<Epi, false>(p, cs, epi, st);
 }
 
 }  // namespace uic_decode

@@ -103,6 +103,12 @@ struct Drop {
     *t = r - b * T;
     return uic::hash_base(*seed, (b * N_SITES + site) * H);
   }
+  __device__ __forceinline__ float one_at(int r, int c, float v) const {
+    if (!on) return v;
+    int t;
+    const uint32_t base = base_of(r, &t);
+    return one(base, t, c, v);
+  }
   __device__ __forceinline__ float4 apply(int r, int c, float4 v) const {
     if (!on) return v;
     int t;
@@ -134,6 +140,10 @@ struct EpiResDrop {
     *reinterpret_cast<float4*>(out + o) =
         make_float4(x4.x + v.x, x4.y + v.y, x4.z + v.z, x4.w + v.w);
   }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const size_t o = (size_t)r * ld + c;
+    out[o] = res[o] + drop.one_at(r, c, acc + bias[c]);
+  }
 };
 
 // out = drop(relu(acc + bias))
@@ -149,6 +159,9 @@ struct EpiReluDrop {
         r, c,
         make_float4(fmaxf(acc.x + b4.x, 0.0f), fmaxf(acc.y + b4.y, 0.0f),
                     fmaxf(acc.z + b4.z, 0.0f), fmaxf(acc.w + b4.w, 0.0f)));
+  }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    out[(size_t)r * ld + c] = drop.one_at(r, c, fmaxf(acc + bias[c], 0.0f));
   }
 };
 
@@ -171,6 +184,10 @@ struct EpiDrelu {
         make_float4(one(h4.x, acc.x), one(h4.y, acc.y), one(h4.z, acc.z),
                     one(h4.w, acc.w));
   }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const size_t o = (size_t)r * ld + c;
+    out[o] = one(hd[o], acc);
+  }
 };
 
 struct EpiStore {
@@ -179,6 +196,9 @@ struct EpiStore {
   __device__ __forceinline__ void operator()(int r, int c, float4 acc,
                                              int) const {
     *reinterpret_cast<float4*>(out + (size_t)r * ld + c) = acc;
+  }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    out[(size_t)r * ld + c] = acc;
   }
 };
 

@@ -38,8 +38,8 @@
 //     order of sums: no float atomics, the same bits on every run.
 //
 // Head widths. Four compiled buckets, DH = 32, 64, 128 and 256, take every
-// head width dh that is a multiple of 4 up to 256: dh runs in the least
-// bucket that holds it. The tiles are DH wide; columns past dh are loaded as
+// head width dh >= 1: dh up to 256 runs in the least bucket that holds
+// it. The tiles are DH wide; columns past dh are loaded as
 // zeros and never stored, so they add exact zeros to q.k and change no
 // written element of P.V, and the first dh columns keep their order of
 // sums. Each bucket also has an instance for dh = DH alone, with those
@@ -48,9 +48,20 @@
 // self-attention forward (T = S = 17) 3-4% on an H100 (PERF.md). At DH 256
 // the tiles hold 32 rows, not 64: the forward's Q, K and V tiles (two
 // stages of K and V) at 64 rows would need 340 KB of shared memory; at 32
-// rows they take 167 KB. There is no limit on the keys S: the forward
-// streams key tiles with an online softmax, and the backward's ds scratch
-// (B*H*T*S floats) is memory only.
+// rows they take 167 KB. Two more cases, neither on the paths' shapes:
+//   - a head width, a row stride or a pointer not on 16 bytes (dh 6 or 50,
+//     d = 12 or 100) runs the bucket's ODD instance: the same tiles, filled
+//     by 4-byte copies, and scalar stores;
+//   - a head wider than 256 (dh 384, 512, 1024) runs in bucket 256 as
+//     column chunks of 256: the scores and g.v are summed over the chunks'
+//     tiles in chunk order, and each block writes one chunk of the output
+//     columns (the grid holds the chunks), so each output chunk recomputes
+//     the scores. A bucket 512 would need 16-row tiles (five [16][516]
+//     tiles, 165 KB) and still stop at 512; the chunks take any width for
+//     the cost of dh / 256 score passes.
+// There is no limit on the keys S: the forward streams key tiles with an
+// online softmax, and the backward's ds scratch (B*H*T*S floats) is memory
+// only.
 //
 // What bounds it on the card: at the encoder shape (B 50, T = S = 196,
 // d 512, 8 heads) the forward is 3.9 GFLOP against 80 MB of q/k/v/mask/o,
@@ -103,9 +114,10 @@ Attn plain_attn(const float* q, const float* k, const float* v,
 
 namespace uic {
 
-// the bucket that runs head width dh, 0 for a width the kernels refuse
+// the bucket that runs head width dh (256 for every dh above it, in column
+// chunks), 0 for dh < 1
 int attn_bucket(int dh) {
-  if (dh < 4 || dh % 4 || dh > 256) return 0;
+  if (dh < 1) return 0;
   return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
 }
 
@@ -137,7 +149,7 @@ extern "C" {
 
 // q [B,T,H*dh], k/v [B,S,H*dh], mask [B,mask_rows,S] f32 (< 0: masked),
 // seed int32 [1] on the card, out [B,T,H*dh], stats [2,B,H,T] (row max,
-// row sum); dh a multiple of 4 up to 256; 16-byte aligned
+// row sum); any dh >= 1
 int mha_train_fwd_f32(const float* q, const float* k, const float* v,
                       const float* mask, const int* seed, float* out,
                       float* stats, int B, int T, int S, int H, int dh,

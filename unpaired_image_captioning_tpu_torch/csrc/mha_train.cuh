@@ -28,8 +28,8 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t base, uint32_t idx) {
 // have row stride lo; dq / dk / dv the strides of q / k / v. mask is
 // [B, mask_rows, S] (< 0: masked). The dropout of head h of element b draws
 // block id b * pid_b + h (pid_b = H for the attention kernel alone, 4H at
-// site 0 of the whole-layer kernels). Every pointer and row stride is a
-// multiple of 16 bytes (the tiles are copied with 16-byte cp.async).
+// site 0 of the whole-layer kernels). Rows on 16 bytes (pointers, strides
+// and dh) are copied by 16-byte cp.async, any others by 4-byte ones.
 struct Attn {
   const float* q;
   const float* k;
@@ -43,8 +43,8 @@ struct Attn {
   int dropout;
 };
 
-// The compiled head-width bucket that runs dh (32, 64, 128 or 256), 0 if
-// the kernels refuse dh (not a multiple of 4, or above 256).
+// The compiled head-width bucket that runs dh (32, 64, 128 or 256; 256 for
+// any dh above it, in column chunks), 0 for dh < 1.
 int attn_bucket(int dh);
 
 // Floats of a backward's scratch: the rows' g . o [B*H*T] (rounded up to
@@ -56,8 +56,8 @@ inline size_t attn_bwd_scratch_floats(int B, int H, int T, int S) {
   return attn_dsum_floats(B, H, T) + (size_t)B * H * T * ((S + 3) / 4 * 4);
 }
 
-// out = attention(q, k, v) and the rows' softmax statistics;
-// dh a multiple of 4 up to 256 (attn_bucket), any S
+// out = attention(q, k, v) and the rows' softmax statistics; any dh >= 1,
+// any S
 int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st);
 // dq, dk, dv for the upstream gradient g, from the forward's output o and
 // statistics; scratch of attn_bwd_scratch_floats(B, H, T, S) floats

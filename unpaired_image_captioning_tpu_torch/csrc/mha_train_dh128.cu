@@ -1,4 +1,4 @@
-// The training attention's kernels of bucket 128, head widths 68..128
+// The training attention's kernels of bucket 128, head widths 65..128
 // (mha_train_impl.cuh; the design and the entry points are in
 // mha_train.cu).
 #include "mha_train_impl.cuh"

@@ -1,4 +1,5 @@
-// The training attention's kernels of bucket 256, head widths 132..256
+// The training attention's kernels of bucket 256, head widths 129..256
+// and, in column chunks of 256, every wider one
 // (mha_train_impl.cuh; the design and the entry points are in
 // mha_train.cu).
 #include "mha_train_impl.cuh"

@@ -1,4 +1,4 @@
-// The training attention's kernels of bucket 32, head widths 4..32
+// The training attention's kernels of bucket 32, head widths 1..32
 // (mha_train_impl.cuh; the design and the entry points are in
 // mha_train.cu).
 #include "mha_train_impl.cuh"

@@ -1,11 +1,14 @@
 // The kernels of the training attention and their host launchers, as
-// templates over a head-width bucket DH: an instance runs any head width
-// dh <= DH that is a multiple of 4, its tiles DH wide with the columns past
-// dh zero (loaded as zeros, never stored), and an instance for dh = DH
-// alone (FULL), with those bounds compiled out. mha_train.cu instantiates
-// DH 64 and holds the entry points; mha_train_dh32.cu, _dh128.cu and
-// _dh256.cu instantiate the other buckets, so the four compile in parallel
-// (see mha_train.cu for the design).
+// templates over a head-width bucket DH and a mode: PADDED runs any head
+// width dh <= DH that is a multiple of 4, its tiles DH wide with the columns
+// past dh zero (loaded as zeros, never stored); FULL runs dh = DH alone, with
+// those bounds compiled out; ODD runs any dh <= DH with 4-byte copies and
+// scalar stores, for a width or a row stride that is not a multiple of 4
+// (16-byte rows) or a tensor not 16-byte aligned. Bucket 256 also runs
+// every dh above 256 (the *_wide kernels: column chunks of 256). mha_train.cu
+// instantiates DH 64 and holds the entry points; mha_train_dh32.cu,
+// _dh128.cu and _dh256.cu instantiate the other buckets, so the four
+// compile in parallel (see mha_train.cu for the design).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +23,10 @@ namespace mha {
 constexpr int NT = 256;           // threads a block: tx = tid % 16, ty = tid / 16
 constexpr int PAD = 4;            // floats after each shared row
 constexpr float NEG = -1e9f;
+constexpr int WIDE = 256;         // the column chunk of a head wider than 256
+
+// the modes of an instance (see above)
+constexpr int FULL = 0, PADDED = 1, ODD = 2;
 
 template <int N>
 struct IC {
@@ -45,6 +52,12 @@ static __device__ __forceinline__ void cp16(float* dst, const float* src, bool o
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+static __device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
 static __device__ __forceinline__ void cp_commit() {
@@ -100,11 +113,21 @@ static __device__ __forceinline__ int groups(int n) { return (n + 15) / 16; }
 
 // rows [r0, r0 + TILE) of the dh columns from col0 of one batch element's
 // [L, ld] matrix into dst [TILE][DH + PAD]; rows past L and columns past dh
-// are zero
-template <int DH>
+// are zero. V4: 16-byte copies (dh, ld and col0 multiples of 4, src 16-byte
+// aligned), else 4-byte ones.
+template <int DH, bool V4 = true>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int L, int ld, int col0,
                                           int dh) {
+  if constexpr (!V4) {
+    for (int e = threadIdx.x; e < Lay<DH>::TILE * DH; e += NT) {
+      const int r = e / DH, c = e % DH, row = r0 + r;
+      const bool ok = row < L && c < dh;
+      cp4(dst + r * Lay<DH>::LD + c,
+          ok ? src + (size_t)row * ld + col0 + c : src, ok);
+    }
+    return;
+  }
   constexpr int C4 = DH / 4;
   for (int e = threadIdx.x; e < Lay<DH>::TILE * C4; e += NT) {
     const int r = e / C4, c = (e % C4) * 4, row = r0 + r;
@@ -114,15 +137,18 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-// acc[i][j] = A[ty + 16i] . B[tx + 16j] over DH, i < IN, j < JN
-template <int DH, int IN, int JN>
+// acc[i][j] = A[ty + 16i] . B[tx + 16j] over DH, i < IN, j < JN (ZERO
+// false: added to acc, the wide kernels' sum over column chunks)
+template <int DH, int IN, int JN, bool ZERO = true>
 __device__ __forceinline__ void dot_tile(const float* A, const float* B,
                                          float (&acc)[4][4], int ty, int tx) {
   constexpr int LD = Lay<DH>::LD;
+  if constexpr (ZERO) {
 #pragma unroll
-  for (int i = 0; i < IN; ++i)
+    for (int i = 0; i < IN; ++i)
 #pragma unroll
-    for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < JN; ++j) acc[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int c = 0; c < DH; c += 4) {
     float4 av[IN], bv[JN];
@@ -187,8 +213,9 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* M,
 }
 
 // dst[col] = vals[cc] over the thread's columns of one head row, the
-// columns below dh (a multiple of 4, so a vector is in or out whole)
-template <int DH>
+// columns below dh (V4: a multiple of 4, so a vector is in or out whole;
+// else element by element)
+template <int DH, bool V4 = true>
 __device__ __forceinline__ void store_row(float* dst, const float* vals,
                                           int tx, int dh) {
   using L = Lay<DH>;
@@ -196,6 +223,12 @@ __device__ __forceinline__ void store_row(float* dst, const float* vals,
   for (int n = 0; n < L::NV; ++n) {
     const int col = n * 16 * L::VEC + tx * L::VEC;
     if (col >= dh) continue;
+    if constexpr (!V4) {
+#pragma unroll
+      for (int v = 0; v < L::VEC; ++v)
+        if (col + v < dh) dst[col + v] = vals[n * L::VEC + v];
+      continue;
+    }
     float* p = dst + col;
     const float* v = vals + n * L::VEC;
     if constexpr (L::VEC == 4)
@@ -213,7 +246,7 @@ static __device__ __forceinline__ const float* mask_row(const Attn& a, int b,
 }
 
 // One block's forward over query rows [q0, q0 + 16 QG).
-template <int DH, int QG, bool FULL>
+template <int DH, int QG, int MODE>
 __device__ __forceinline__ void fwd_block(const Attn& a,
                                           float* __restrict__ out,
                                           float* __restrict__ stats,
@@ -232,16 +265,16 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
   const int q_end = min(T, q0 + 16 * QG);
   const int in = groups(q_end - q0);
   const int n_kt = (S + L::TILE - 1) / L::TILE;
-  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
+  const int dh = MODE == FULL ? DH : a.dh;   // FULL: nothing padded
   const int col0 = h * dh;
   const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
   const float* mrow[L::G];
 #pragma unroll
   for (int i = 0; i < L::G; ++i) mrow[i] = mask_row(a, b, q0 + ty + 16 * i);
 
-  load_tile<DH>(qs, a.q + (size_t)b * T * a.lq, q0, q_end, a.lq, col0, dh);
-  load_tile<DH>(kvs, kb, 0, S, a.lk, col0, dh);
-  load_tile<DH>(kvs + L::TILE_F, vb, 0, S, a.lv, col0, dh);
+  load_tile<DH, MODE != ODD>(qs, a.q + (size_t)b * T * a.lq, q0, q_end, a.lq, col0, dh);
+  load_tile<DH, MODE != ODD>(kvs, kb, 0, S, a.lk, col0, dh);
+  load_tile<DH, MODE != ODD>(kvs + L::TILE_F, vb, 0, S, a.lv, col0, dh);
   cp_commit();
 
   float o[4][CPT], m[4], l[4];
@@ -257,8 +290,8 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
     const int k0 = kt * L::TILE;
     if (kt + 1 < n_kt) {
       float* nxt = kvs + ((kt + 1) & 1) * 2 * L::TILE_F;
-      load_tile<DH>(nxt, kb, k0 + L::TILE, S, a.lk, col0, dh);
-      load_tile<DH>(nxt + L::TILE_F, vb, k0 + L::TILE, S, a.lv, col0, dh);
+      load_tile<DH, MODE != ODD>(nxt, kb, k0 + L::TILE, S, a.lk, col0, dh);
+      load_tile<DH, MODE != ODD>(nxt + L::TILE_F, vb, k0 + L::TILE, S, a.lv, col0, dh);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -326,7 +359,7 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
     float vals[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) vals[c] = o[i][c] * inv;
-    store_row<DH>(out + ((size_t)b * T + row) * a.lo + col0, vals, tx,
+    store_row<DH, MODE != ODD>(out + ((size_t)b * T + row) * a.lo + col0, vals, tx,
                   dh);
     if (tx == 0) {
       st_m[row] = m[i];
@@ -339,18 +372,18 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
 // 32 rows, else 64), which runs as 16, 32 or 64 rows after the rows its
 // tile holds: the ragged last tile of T = 196 (4 rows) costs a quarter of a
 // full one.
-template <int DH, bool FULL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
     mha_fwd_kernel(const __grid_constant__ Attn a, float* __restrict__ out,
                    float* __restrict__ stats, float inv_sqrt, int tile_rows) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
   if (rows <= 16)
-    fwd_block<DH, 1, FULL>(a, out, stats, inv_sqrt, smem, q0);
+    fwd_block<DH, 1, MODE>(a, out, stats, inv_sqrt, smem, q0);
   else if (Lay<DH>::G == 2 || rows <= 32)
-    fwd_block<DH, 2, FULL>(a, out, stats, inv_sqrt, smem, q0);
+    fwd_block<DH, 2, MODE>(a, out, stats, inv_sqrt, smem, q0);
   else if constexpr (Lay<DH>::G == 4)
-    fwd_block<DH, 4, FULL>(a, out, stats, inv_sqrt, smem, q0);
+    fwd_block<DH, 4, MODE>(a, out, stats, inv_sqrt, smem, q0);
 }
 
 // D_i = g_i . o_i over head h's columns: a warp per (b, t, h)
@@ -394,7 +427,7 @@ static __device__ __forceinline__ Grad grad_at(const Attn& a, uint32_t base,
 }
 
 // One block of the dk / dv kernel over keys [k0, k0 + 16 JN).
-template <int DH, int JN, bool FULL>
+template <int DH, int JN, int MODE>
 __device__ __forceinline__ void dkdv_block(
     const Attn& a, const float* __restrict__ g,
     const float* __restrict__ stats, const float* __restrict__ dsum,
@@ -422,11 +455,11 @@ __device__ __forceinline__ void dkdv_block(
   float* dsg = ds_out + bh * T * lds;
   const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
   const float inv_keep = 1.f / a.keep_div;
-  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
+  const int dh = MODE == FULL ? DH : a.dh;   // FULL: nothing padded
   const int col0 = h * dh;
 
-  load_tile<DH>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, col0, dh);
-  load_tile<DH>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, col0, dh);
+  load_tile<DH, MODE != ODD>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, col0, dh);
+  load_tile<DH, MODE != ODD>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, col0, dh);
   cp_commit();
   float adk[4][CPT], adv[4][CPT];   // keys ty + 16j, the thread's columns
 #pragma unroll
@@ -436,8 +469,8 @@ __device__ __forceinline__ void dkdv_block(
 
   for (int q0 = 0; q0 < T; q0 += L::TILE) {
     __syncthreads();   // the previous tile's qs, gs, pt, dt are read
-    load_tile<DH>(qs, qb, q0, T, a.lq, col0, dh);
-    load_tile<DH>(gs, gb, q0, T, a.lo, col0, dh);
+    load_tile<DH, MODE != ODD>(qs, qb, q0, T, a.lq, col0, dh);
+    load_tile<DH, MODE != ODD>(gs, gb, q0, T, a.lo, col0, dh);
     cp_commit();
     if (threadIdx.x < L::TILE) {
       const int row = q0 + threadIdx.x;
@@ -480,9 +513,9 @@ __device__ __forceinline__ void dkdv_block(
   for (int j = 0; j < JN; ++j) {
     const int key = k0 + ty + 16 * j;
     if (key >= S) continue;
-    store_row<DH>(dk + ((size_t)b * S + key) * a.lk + col0, adk[j], tx,
+    store_row<DH, MODE != ODD>(dk + ((size_t)b * S + key) * a.lk + col0, adk[j], tx,
                   dh);
-    store_row<DH>(dv + ((size_t)b * S + key) * a.lv + col0, adv[j], tx,
+    store_row<DH, MODE != ODD>(dv + ((size_t)b * S + key) * a.lv + col0, adv[j], tx,
                   dh);
   }
 }
@@ -491,7 +524,7 @@ __device__ __forceinline__ void dkdv_block(
 // owns its keys' dk and dv, and writes its columns of ds / sqrt(dh) to
 // ds_out [B, H, T, lds] (lds = S rounded up to 4; zero past S). A last
 // tile of at most 16 keys runs as a 16-key block.
-template <int DH, bool FULL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
     mha_bwd_dkdv_kernel(const __grid_constant__ Attn a,
                         const float* __restrict__ g,
@@ -502,22 +535,24 @@ __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
   extern __shared__ __align__(16) float smem[];
   const int k0 = blockIdx.x * Lay<DH>::TILE;
   if (a.S - k0 <= 16)
-    dkdv_block<DH, 1, FULL>(a, g, stats, dsum, dk, dv, ds_out, inv_sqrt,
+    dkdv_block<DH, 1, MODE>(a, g, stats, dsum, dk, dv, ds_out, inv_sqrt,
                             smem, k0);
   else
-    dkdv_block<DH, Lay<DH>::G, FULL>(a, g, stats, dsum, dk, dv, ds_out,
+    dkdv_block<DH, Lay<DH>::G, MODE>(a, g, stats, dsum, dk, dv, ds_out,
                                      inv_sqrt, smem, k0);
 }
 
 // One block of the dq kernel over query rows [q0, q0 + 16 QG): it walks the
 // key tiles in order and owns its rows' dq = sum over keys of ds k, from
 // the ds tiles the dk / dv kernel wrote (ds [B, H, T, lds]),
-// double-buffered with K.
-template <int DH, int QG, bool FULL>
+// double-buffered with K. CHUNK (a head wider than 256): the block's dq
+// columns are the chunk of width `chunk_w` at column chunk_off of the head.
+template <int DH, int QG, int MODE, bool CHUNK = false>
 __device__ __forceinline__ void dq_block(const Attn& a,
                                          const float* __restrict__ ds,
                                          float* __restrict__ dq, float* smem,
-                                         int q0) {
+                                         int q0, int chunk_off = 0,
+                                         int chunk_w = 0) {
   using L = Lay<DH>;
   constexpr int CPT = L::CPT;
   constexpr int TILE = L::TILE, LDP = L::LDP;
@@ -529,8 +564,8 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   const float* dsb = ds + ((size_t)b * a.H + h) * T * lds;
   const float* kb = a.k + (size_t)b * S * a.lk;
   const int n_kt = (S + TILE - 1) / TILE;
-  const int dh = FULL ? DH : a.dh;   // FULL: nothing padded
-  const int col0 = h * dh;
+  const int dh = CHUNK ? chunk_w : MODE == FULL ? DH : a.dh;
+  const int col0 = CHUNK ? h * a.dh + chunk_off : h * dh;
 
   auto load = [&](int stage, int k0) {
     float* d_s = smem + stage * STAGE;
@@ -540,7 +575,7 @@ __device__ __forceinline__ void dq_block(const Attn& a,
       const bool ok = row < q_end && col < lds;
       cp16(d_s + r * LDP + c, ok ? dsb + (size_t)row * lds + col : dsb, ok);
     }
-    load_tile<DH>(d_s + TILE * LDP, kb, k0, S, a.lk, col0, dh);
+    load_tile<DH, MODE != ODD>(d_s + TILE * LDP, kb, k0, S, a.lk, col0, dh);
     cp_commit();
   };
 
@@ -569,14 +604,14 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   for (int i = 0; i < QG; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= T) continue;
-    store_row<DH>(dq + ((size_t)b * T + row) * a.lq + col0, adq[i], tx,
+    store_row<DH, MODE != ODD>(dq + ((size_t)b * T + row) * a.lq + col0, adq[i], tx,
                   dh);
   }
 }
 
 // A block per (b, h, tile_rows queries), run as 16, 32 or 64 rows (as the
 // forward's).
-template <int DH, bool FULL>
+template <int DH, int MODE>
 __global__ void __launch_bounds__(NT)
     mha_bwd_dq_kernel(const __grid_constant__ Attn a,
                       const float* __restrict__ ds, float* __restrict__ dq,
@@ -584,11 +619,248 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
   if (rows <= 16)
-    dq_block<DH, 1, FULL>(a, ds, dq, smem, q0);
+    dq_block<DH, 1, MODE>(a, ds, dq, smem, q0);
   else if (Lay<DH>::G == 2 || rows <= 32)
-    dq_block<DH, 2, FULL>(a, ds, dq, smem, q0);
+    dq_block<DH, 2, MODE>(a, ds, dq, smem, q0);
   else if constexpr (Lay<DH>::G == 4)
-    dq_block<DH, 4, FULL>(a, ds, dq, smem, q0);
+    dq_block<DH, 4, MODE>(a, ds, dq, smem, q0);
+}
+
+// Heads wider than 256 run in bucket 256 over column chunks of WIDE: q.k
+// and g.v are summed over the chunks (each chunk's tiles loaded in turn,
+// the sums in chunk order), and a block writes one chunk of its output
+// columns, so every output chunk recomputes the scores: simple, not fast.
+// The grid's x holds (tile, output chunk) pairs; the row statistics and ds
+// are written by the chunk-0 blocks. A block per 32 queries or keys, as in
+// bucket 256.
+template <bool V4>
+__global__ void __launch_bounds__(NT)
+    mha_fwd_wide_kernel(const __grid_constant__ Attn a,
+                        float* __restrict__ out, float* __restrict__ stats,
+                        float inv_sqrt) {
+  using L = Lay<WIDE>;
+  constexpr int CPT = L::CPT, QG = L::G;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // [TILE][LD] each
+  float* ks = qs + L::TILE_F;
+  float* vs = ks + L::TILE_F;
+  float* ps = vs + L::TILE_F;          // [TILE][LDP] probabilities
+  const int T = a.T, S = a.S, dh = a.dh, nc = (dh + WIDE - 1) / WIDE;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (blockIdx.x / nc) * L::TILE, oc = blockIdx.x % nc;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* qb = a.q + (size_t)b * T * a.lq;
+  const float* kb = a.k + (size_t)b * S * a.lk;
+  const float* vb = a.v + (size_t)b * S * a.lv;
+  const int col0 = h * dh, ow = min(WIDE, dh - oc * WIDE);
+  const int q_end = min(T, q0 + L::TILE);
+  const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
+  const float* mrow[QG];
+#pragma unroll
+  for (int i = 0; i < QG; ++i) mrow[i] = mask_row(a, b, q0 + ty + 16 * i);
+  float o[4][CPT], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < QG; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) o[i][c] = 0.f;
+  }
+  for (int k0 = 0; k0 < S; k0 += L::TILE) {
+    float s[4][4];
+    for (int c = 0; c < nc; ++c) {
+      const int cw = min(WIDE, dh - c * WIDE);
+      load_tile<WIDE, V4>(qs, qb, q0, q_end, a.lq, col0 + c * WIDE, cw);
+      load_tile<WIDE, V4>(ks, kb, k0, S, a.lk, col0 + c * WIDE, cw);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (c == 0)
+        dot_tile<WIDE, QG, QG, true>(qs, ks, s, ty, tx);
+      else
+        dot_tile<WIDE, QG, QG, false>(qs, ks, s, ty, tx);
+      __syncthreads();
+    }
+    load_tile<WIDE, V4>(vs, vb, k0, S, a.lv, col0 + oc * WIDE, ow);
+    cp_commit();
+    const int nk = min(L::TILE, S - k0);
+    float mk[QG];
+#pragma unroll
+    for (int i = 0; i < QG; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < QG; ++j) {
+        const int key = k0 + tx + 16 * j;
+        float v = -INFINITY;
+        if (key < S) {
+          if (i == 0 || a.mask_rows != 1) mk[j] = mrow[i][key];
+          v = mk[j] < 0.f ? NEG : s[i][j] * inv_sqrt;
+        }
+        s[i][j] = v;
+        tmax = fmaxf(tmax, v);
+      }
+      const float mn = fmaxf(m[i], group_max(tmax));
+      const float alpha = __expf(m[i] - mn);
+      m[i] = mn;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) o[i][c] *= alpha;
+#pragma unroll
+      for (int j = 0; j < QG; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const float e = __expf(s[i][j] - mn);
+        l[i] += e;
+        float p = e;
+        if (a.dropout && key < S &&
+            keep_hash(base, (uint32_t)row * (uint32_t)S + key) < a.thresh)
+          p = 0.f;
+        ps[(ty + 16 * i) * L::LDP + tx + 16 * j] = p;
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();
+    acc_rows<WIDE, QG>(ps, vs, (nk + 3) & ~3, o, ty, tx);
+    __syncthreads();
+  }
+  const size_t bh = (size_t)b * a.H + h;
+  float* st_m = stats + bh * T;
+  float* st_l = stats + (size_t)a.B * a.H * T + bh * T;
+#pragma unroll
+  for (int i = 0; i < QG; ++i) {
+    const float lt = group_sum(l[i]);
+    const int row = q0 + ty + 16 * i;
+    if (row >= T) continue;
+    const float inv = a.dropout ? 1.f / (lt * a.keep_div) : 1.f / lt;
+    float vals[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) vals[c] = o[i][c] * inv;
+    store_row<WIDE, V4>(out + ((size_t)b * T + row) * a.lo + col0 + oc * WIDE,
+                        vals, tx, ow);
+    if (tx == 0 && oc == 0) {
+      st_m[row] = m[i];
+      st_l[row] = lt;
+    }
+  }
+}
+
+template <bool V4>
+__global__ void __launch_bounds__(NT)
+    mha_bwd_dkdv_wide_kernel(const __grid_constant__ Attn a,
+                             const float* __restrict__ g,
+                             const float* __restrict__ stats,
+                             const float* __restrict__ dsum,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float* __restrict__ ds_out, float inv_sqrt) {
+  using L = Lay<WIDE>;
+  constexpr int CPT = L::CPT, G = L::G;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // [TILE][LD] each
+  float* vs = ks + L::TILE_F;
+  float* qs = vs + L::TILE_F;
+  float* gs = qs + L::TILE_F;
+  float* pt = gs + L::TILE_F;          // [key][query] attn, [TILE][LDP]
+  float* dt = pt + L::TILE * L::LDP;   // [key][query] ds
+  __shared__ float rm[L::TILE], rl[L::TILE], rd[L::TILE];
+  const int T = a.T, S = a.S, dh = a.dh, nc = (dh + WIDE - 1) / WIDE;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int k0 = (blockIdx.x / nc) * L::TILE, oc = blockIdx.x % nc;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* qb = a.q + (size_t)b * T * a.lq;
+  const float* gb = g + (size_t)b * T * a.lo;
+  const float* kb = a.k + (size_t)b * S * a.lk;
+  const float* vb = a.v + (size_t)b * S * a.lv;
+  const size_t bh = (size_t)b * a.H + h;
+  const float* st_m = stats + bh * T;
+  const float* st_l = stats + (size_t)a.B * a.H * T + bh * T;
+  const float* dd = dsum + bh * T;
+  const int lds = (S + 3) & ~3;
+  float* dsg = ds_out + bh * T * lds;
+  const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
+  const float inv_keep = 1.f / a.keep_div;
+  const int col0 = h * dh, ocol = col0 + oc * WIDE;
+  const int ow = min(WIDE, dh - oc * WIDE);
+  float adk[4][CPT], adv[4][CPT];   // keys ty + 16j, the thread's columns
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) adk[j][c] = adv[j][c] = 0.f;
+
+  for (int q0 = 0; q0 < T; q0 += L::TILE) {
+    float s[4][4], dp[4][4];
+    for (int c = 0; c < nc; ++c) {
+      const int cw = min(WIDE, dh - c * WIDE), cc = col0 + c * WIDE;
+      __syncthreads();   // the tiles and rm / rl / rd are free
+      load_tile<WIDE, V4>(qs, qb, q0, T, a.lq, cc, cw);
+      load_tile<WIDE, V4>(gs, gb, q0, T, a.lo, cc, cw);
+      load_tile<WIDE, V4>(ks, kb, k0, S, a.lk, cc, cw);
+      load_tile<WIDE, V4>(vs, vb, k0, S, a.lv, cc, cw);
+      cp_commit();
+      if (c == 0 && threadIdx.x < L::TILE) {
+        const int row = q0 + threadIdx.x;
+        const bool ok = row < T;
+        rm[threadIdx.x] = ok ? st_m[row] : 0.f;
+        rl[threadIdx.x] = ok ? 1.f / st_l[row] : 1.f;
+        rd[threadIdx.x] = ok ? dd[row] : 0.f;
+      }
+      cp_wait<0>();
+      __syncthreads();
+      if (c == 0) {
+        dot_tile<WIDE, G, G, true>(qs, ks, s, ty, tx);
+        dot_tile<WIDE, G, G, true>(gs, vs, dp, ty, tx);
+      } else {
+        dot_tile<WIDE, G, G, false>(qs, ks, s, ty, tx);
+        dot_tile<WIDE, G, G, false>(gs, vs, dp, ty, tx);
+      }
+    }
+    __syncthreads();   // the last chunk's tiles are read
+    load_tile<WIDE, V4>(qs, qb, q0, T, a.lq, ocol, ow);
+    load_tile<WIDE, V4>(gs, gb, q0, T, a.lo, ocol, ow);
+    cp_commit();
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int qi = ty + 16 * i, row = q0 + qi;
+      const float* mrow = mask_row(a, b, row);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int kj = tx + 16 * j, key = k0 + kj;
+        Grad gr{0.f, 0.f};
+        if (row < T && key < S)
+          gr = grad_at(a, base, mrow, row, key, s[i][j], dp[i][j], rm[qi],
+                       rl[qi], rd[qi], inv_keep, inv_sqrt);
+        pt[kj * L::LDP + qi] = gr.attn;
+        dt[kj * L::LDP + qi] = gr.ds;
+        if (oc == 0 && row < T && key < lds)
+          dsg[(size_t)row * lds + key] = gr.ds;
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();
+    const int kn = (min(L::TILE, T - q0) + 3) & ~3;
+    acc_rows<WIDE, G>(pt, gs, kn, adv, ty, tx);
+    acc_rows<WIDE, G>(dt, qs, kn, adk, ty, tx);
+  }
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const int key = k0 + ty + 16 * j;
+    if (key >= S) continue;
+    store_row<WIDE, V4>(dk + ((size_t)b * S + key) * a.lk + ocol, adk[j], tx,
+                        ow);
+    store_row<WIDE, V4>(dv + ((size_t)b * S + key) * a.lv + ocol, adv[j], tx,
+                        ow);
+  }
+}
+
+template <bool V4>
+__global__ void __launch_bounds__(NT)
+    mha_bwd_dq_wide_kernel(const __grid_constant__ Attn a,
+                           const float* __restrict__ ds,
+                           float* __restrict__ dq) {
+  extern __shared__ __align__(16) float smem[];
+  const int nc = (a.dh + WIDE - 1) / WIDE, oc = blockIdx.x % nc;
+  dq_block<WIDE, Lay<WIDE>::G, V4 ? PADDED : ODD, true>(
+      a, ds, dq, smem, (blockIdx.x / nc) * Lay<WIDE>::TILE, oc * WIDE,
+      min(WIDE, a.dh - oc * WIDE));
 }
 
 template <int DH>
@@ -627,19 +899,19 @@ int tile_rows(int T) {
   return T <= 32 ? 32 : Lay<DH>::TILE;
 }
 
-template <int DH, bool FULL>
+template <int DH, int MODE>
 int fwd_as(const Attn& a, float* out, float* stats, cudaStream_t stream) {
   const size_t smem = fwd_smem<DH>();
-  const cudaError_t err = allow_smem(mha_fwd_kernel<DH, FULL>, smem);
+  const cudaError_t err = allow_smem(mha_fwd_kernel<DH, MODE>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = tile_rows<DH>(a.T);
-  mha_fwd_kernel<DH, FULL>
+  mha_fwd_kernel<DH, MODE>
       <<<dim3(cdiv(a.T, rows), a.H, a.B), NT, smem, stream>>>(
           a, out, stats, inv_sqrt(a.dh), rows);
   return (int)cudaGetLastError();
 }
 
-template <int DH, bool FULL>
+template <int DH, int MODE>
 int bwd_as(const Attn& a, const float* g, const float* o, const float* stats,
            float* dq, float* dk, float* dv, float* scratch,
            cudaStream_t stream) {
@@ -648,38 +920,110 @@ int bwd_as(const Attn& a, const float* g, const float* o, const float* stats,
   const float is = inv_sqrt(a.dh);
   const size_t s1 = dkdv_smem<DH>(), s2 = dq_smem<DH>();
   cudaError_t err;
-  if ((err = allow_smem(mha_bwd_dkdv_kernel<DH, FULL>, s1)) != cudaSuccess)
+  if ((err = allow_smem(mha_bwd_dkdv_kernel<DH, MODE>, s1)) != cudaSuccess)
     return (int)err;
-  if ((err = allow_smem(mha_bwd_dq_kernel<DH, FULL>, s2)) != cudaSuccess)
+  if ((err = allow_smem(mha_bwd_dq_kernel<DH, MODE>, s2)) != cudaSuccess)
     return (int)err;
   const long long n_rows = (long long)a.B * a.T * a.H;
   mha_dsum_kernel<<<(unsigned)((n_rows * 32 + 255) / 256), 256, 0, stream>>>(
       a, g, o, dsum);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mha_bwd_dkdv_kernel<DH, FULL>
+  mha_bwd_dkdv_kernel<DH, MODE>
       <<<dim3(cdiv(a.S, Lay<DH>::TILE), a.H, a.B), NT, s1, stream>>>(
           a, g, stats, dsum, dk, dv, ds, is);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int rows = tile_rows<DH>(a.T);
-  mha_bwd_dq_kernel<DH, FULL>
+  mha_bwd_dq_kernel<DH, MODE>
       <<<dim3(cdiv(a.T, rows), a.H, a.B), NT, s2, stream>>>(a, ds, dq, rows);
   return (int)cudaGetLastError();
 }
 
-// a head width of the bucket's own runs the instance with nothing padded
-// (the columns' bounds compiled out), any narrower one the padded instance
+template <bool V4>
+int fwd_wide(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+  using L = Lay<WIDE>;
+  const size_t smem = sizeof(float) * (3 * L::TILE_F + L::TILE * L::LDP);
+  const cudaError_t err = allow_smem(mha_fwd_wide_kernel<V4>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = cdiv(a.dh, WIDE);
+  mha_fwd_wide_kernel<V4>
+      <<<dim3(cdiv(a.T, L::TILE) * nc, a.H, a.B), NT, smem, stream>>>(
+          a, out, stats, inv_sqrt(a.dh));
+  return (int)cudaGetLastError();
+}
+
+template <bool V4>
+int bwd_wide(const Attn& a, const float* g, const float* o,
+             const float* stats, float* dq, float* dk, float* dv,
+             float* scratch, cudaStream_t stream) {
+  using L = Lay<WIDE>;
+  float* dsum = scratch;
+  float* ds = scratch + attn_dsum_floats(a.B, a.H, a.T);
+  const size_t s1 = sizeof(float) * (4 * L::TILE_F + 2 * L::TILE * L::LDP);
+  const size_t s2 = dq_smem<WIDE>();
+  const int nc = cdiv(a.dh, WIDE);
+  cudaError_t err;
+  if ((err = allow_smem(mha_bwd_dkdv_wide_kernel<V4>, s1)) != cudaSuccess)
+    return (int)err;
+  if ((err = allow_smem(mha_bwd_dq_wide_kernel<V4>, s2)) != cudaSuccess)
+    return (int)err;
+  const long long n_rows = (long long)a.B * a.T * a.H;
+  mha_dsum_kernel<<<(unsigned)((n_rows * 32 + 255) / 256), 256, 0, stream>>>(
+      a, g, o, dsum);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mha_bwd_dkdv_wide_kernel<V4>
+      <<<dim3(cdiv(a.S, L::TILE) * nc, a.H, a.B), NT, s1, stream>>>(
+          a, g, stats, dsum, dk, dv, ds, inv_sqrt(a.dh));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mha_bwd_dq_wide_kernel<V4>
+      <<<dim3(cdiv(a.T, L::TILE) * nc, a.H, a.B), NT, s2, stream>>>(a, ds, dq);
+  return (int)cudaGetLastError();
+}
+
+// Whether every row a call reads or writes starts on 16 bytes (the head
+// width, the row strides and the pointers), so that its tiles move by
+// 16-byte copies.
+inline bool rows16(const Attn& a, const void* const* ptrs, int n) {
+  size_t bits = (size_t)a.q | (size_t)a.k | (size_t)a.v;
+  for (int i = 0; i < n; ++i) bits |= (size_t)ptrs[i];
+  return a.dh % 4 == 0 && a.lq % 4 == 0 && a.lk % 4 == 0 && a.lv % 4 == 0 &&
+         a.lo % 4 == 0 && bits % 16 == 0;
+}
+
+// A head width of the bucket's own runs the instance with nothing padded
+// (the columns' bounds compiled out), a narrower one the padded instance,
+// rows not on 16 bytes the ODD instance, and (bucket 256) a head wider than
+// 256 the column-chunked kernels.
 template <int DH>
 int fwd(const Attn& a, float* out, float* stats, cudaStream_t stream) {
-  return a.dh == DH ? fwd_as<DH, true>(a, out, stats, stream)
-                    : fwd_as<DH, false>(a, out, stats, stream);
+  const void* ptrs[] = {out};
+  const bool v4 = rows16(a, ptrs, 1);
+  if constexpr (DH == WIDE) {
+    if (a.dh > WIDE)
+      return v4 ? fwd_wide<true>(a, out, stats, stream)
+                : fwd_wide<false>(a, out, stats, stream);
+  }
+  if (!v4) return fwd_as<DH, ODD>(a, out, stats, stream);
+  return a.dh == DH ? fwd_as<DH, FULL>(a, out, stats, stream)
+                    : fwd_as<DH, PADDED>(a, out, stats, stream);
 }
 
 template <int DH>
 int bwd(const Attn& a, const float* g, const float* o, const float* stats,
         float* dq, float* dk, float* dv, float* scratch, cudaStream_t stream) {
+  const void* ptrs[] = {g, o, dq, dk, dv};
+  const bool v4 = rows16(a, ptrs, 5);
+  if constexpr (DH == WIDE) {
+    if (a.dh > WIDE)
+      return v4 ? bwd_wide<true>(a, g, o, stats, dq, dk, dv, scratch, stream)
+                : bwd_wide<false>(a, g, o, stats, dq, dk, dv, scratch,
+                                  stream);
+  }
+  if (!v4)
+    return bwd_as<DH, ODD>(a, g, o, stats, dq, dk, dv, scratch, stream);
   return a.dh == DH
-             ? bwd_as<DH, true>(a, g, o, stats, dq, dk, dv, scratch, stream)
-             : bwd_as<DH, false>(a, g, o, stats, dq, dk, dv, scratch, stream);
+             ? bwd_as<DH, FULL>(a, g, o, stats, dq, dk, dv, scratch, stream)
+             : bwd_as<DH, PADDED>(a, g, o, stats, dq, dk, dv, scratch,
+                                  stream);
 }
 
 }  // namespace mha

@@ -56,9 +56,11 @@
 // does); the column sums go the same way. No scratch, no atomics: a rerun
 // gives the same bits.
 //
-// Requirements (layer_train.cu's shapes and its wrapper's checks): K and N
-// multiples of 4 (M too with AK), lda and ldb multiples of 4, A and B
-// 16-byte aligned.
+// Widths. Where K and N (M too with AK), lda and ldb are multiples of 4
+// and A and B 16-byte aligned, the tiles land by 16-byte copies and the
+// epilogue takes float4 (V4); any other shape (a d_ff of 510, a width d
+// of 6) runs the instance that copies 4 bytes at a time and calls the
+// epilogue's `one` per element, the same tiles and sums otherwise.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -94,6 +96,13 @@ __device__ __forceinline__ void tg_cp16(float* dst, const float* src,
                "l"(src), "r"(ok ? 16 : 0));
 }
 
+__device__ __forceinline__ void tg_cp4(float* dst, const float* src,
+                                       bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
 __device__ __forceinline__ void tg_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -118,14 +127,38 @@ __device__ __forceinline__ int tg_row(int ty, int i) {
   return AK ? (i / 4) * 64 + ty * 4 + (i % 4) : ty + 16 * i;
 }
 
-// A and B rows [k0, k0 + BK) of the tile into one stage by 16-byte copies;
-// zero past M, N and the slice's K.
-template <bool AK>
+// A and B rows [k0, k0 + BK) of the tile into one stage by 16-byte copies
+// (V4) or 4-byte ones; zero past M, N and the slice's K.
+template <bool AK, bool V4>
 __device__ __forceinline__ void tg_load_stage(float* As, const TrainGemm& p,
                                               int m0, int n0, int k0,
                                               int k_end) {
   float* Bs = As + TgShape<AK>::A_FLOATS;
   const int tid = threadIdx.x;
+  if (!V4) {
+    for (int e = tid; e < TG_BM * TG_BK; e += TG_THREADS) {
+      if (AK) {
+        const int kk = e / TG_BM, mm = e % TG_BM;
+        const int k = k0 + kk, m = m0 + mm;
+        const bool ok = k < k_end && m < p.M;
+        tg_cp4(As + kk * TG_BM + mm, ok ? p.a + (size_t)k * p.lda + m : p.a,
+               ok);
+      } else {
+        const int row = e / TG_BK, kk = e % TG_BK;
+        const int m = m0 + row, k = k0 + kk;
+        const bool ok = m < p.M && k < k_end;
+        tg_cp4(As + row * TG_A_LD + kk,
+               ok ? p.a + (size_t)m * p.lda + k : p.a, ok);
+      }
+    }
+    for (int e = tid; e < TG_BK * TG_BN; e += TG_THREADS) {
+      const int kk = e / TG_BN, c = e % TG_BN;
+      const int k = k0 + kk, n = n0 + c;
+      const bool ok = k < k_end && n < p.N;
+      tg_cp4(Bs + kk * TG_BN + c, ok ? p.b + (size_t)k * p.ldb + n : p.b, ok);
+    }
+    return;
+  }
 #pragma unroll
   for (int e = tid; e < TG_BM * TG_BK / 4; e += TG_THREADS) {
     if (AK) {
@@ -151,7 +184,22 @@ __device__ __forceinline__ void tg_load_stage(float* As, const TrainGemm& p,
   }
 }
 
-template <bool AK, bool COLSUM, class Epi>
+// the epilogue over the four columns c .. c + 3 of row r: one float4 (V4),
+// else each column below N
+template <bool V4, class Epi>
+__device__ __forceinline__ void tg_epilogue(const Epi& epi, int r, int c,
+                                            int N, float4 v) {
+  if (V4) {
+    epi(r, c, v, 0);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (c + j < N) epi.one(r, c + j, e[j]);
+}
+
+template <bool AK, bool COLSUM, class Epi, bool V4>
 __global__ void __launch_bounds__(TG_THREADS, 2)
 train_gemm_kernel(TrainGemm p, Epi epi) {
   using S = TgShape<AK>;
@@ -182,8 +230,8 @@ train_gemm_kernel(TrainGemm p, Epi epi) {
 #pragma unroll
   for (int s = 0; s < TG_STAGES - 1; ++s) {
     if (s < n_tiles)
-      tg_load_stage<AK>(tg_smem + s * S::STAGE, p, m0, n0, k_begin + s * BK,
-                        k_end);
+      tg_load_stage<AK, V4>(tg_smem + s * S::STAGE, p, m0, n0,
+                            k_begin + s * BK, k_end);
     tg_commit();
   }
   for (int t = 0; t < n_tiles; ++t) {
@@ -193,8 +241,8 @@ train_gemm_kernel(TrainGemm p, Epi epi) {
     __syncthreads();
     const int nt = t + TG_STAGES - 1;
     if (nt < n_tiles)
-      tg_load_stage<AK>(tg_smem + (nt % TG_STAGES) * S::STAGE, p, m0, n0,
-                        k_begin + nt * BK, k_end);
+      tg_load_stage<AK, V4>(tg_smem + (nt % TG_STAGES) * S::STAGE, p, m0,
+                            n0, k_begin + nt * BK, k_end);
     tg_commit();
     const float* As = tg_smem + (t % TG_STAGES) * S::STAGE;
     const float* Bs = As + S::A_FLOATS;
@@ -260,10 +308,9 @@ train_gemm_kernel(TrainGemm p, Epi epi) {
       for (int h = 0; h < 2; ++h) {
         const int c = n0 + h * 64 + tx * 4;
         if (r < p.M && c < p.N)
-          epi(r, c,
-              make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
-                          acc[i][h * 4 + 3]),
-              0);
+          tg_epilogue<V4>(epi, r, c, p.N,
+                          make_float4(acc[i][h * 4], acc[i][h * 4 + 1],
+                                      acc[i][h * 4 + 2], acc[i][h * 4 + 3]));
       }
     }
     if (sums && n0 + tid < p.N) p.colsum[n0 + tid] = csum;
@@ -295,7 +342,7 @@ train_gemm_kernel(TrainGemm p, Epi epi) {
       s.w += v.w;
     }
     const int r = m0 + row, c = n0 + cq;
-    if (r < p.M && c < p.N) epi(r, c, s, 0);
+    if (r < p.M && c < p.N) tg_epilogue<V4>(epi, r, c, p.N, s);
   }
   if (sums && rank == 0 && n0 + tid < p.N) {
     float s = 0.0f;
@@ -347,11 +394,11 @@ inline TgPlan tg_plan(int M, int N, int K, const int* clusters) {
 // calculator reads its registers and shared memory, after the opt-ins
 // every launch needs: above 48 KB of shared memory and clusters of 16.
 // Sizes the card refuses count 0.
-template <bool AK, bool COLSUM, class Epi>
+template <bool AK, bool COLSUM, class Epi, bool V4 = true>
 const int* tg_clusters() {
   static int table[TG_MAX_CLUSTER + 1] = {0};
   if (table[0]) return table;
-  auto kernel = train_gemm_kernel<AK, COLSUM, Epi>;
+  auto kernel = train_gemm_kernel<AK, COLSUM, Epi, V4>;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            TgShape<AK>::SMEM) != cudaSuccess ||
@@ -384,7 +431,7 @@ const int* tg_clusters() {
 
 // One launch over `row_tiles` row tiles from p.m_begin, K split across
 // clusters of cs.
-template <bool AK, bool COLSUM, class Epi>
+template <bool AK, bool COLSUM, bool V4, class Epi>
 int tg_launch(TrainGemm p, int row_tiles, int cs, const Epi& epi,
               cudaStream_t st) {
   p.k_slice = tg_cdiv(tg_cdiv(p.K, TG_BK), cs) * TG_BK;
@@ -401,29 +448,39 @@ int tg_launch(TrainGemm p, int row_tiles, int cs, const Epi& epi,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e =
-      cudaLaunchKernelEx(&cfg, train_gemm_kernel<AK, COLSUM, Epi>, p, epi);
+      cudaLaunchKernelEx(&cfg, train_gemm_kernel<AK, COLSUM, Epi, V4>, p,
+                         epi);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // C = epi(A . B) on `st` in the plan's one or two launches; `colsum`
 // (COLSUM) receives B's column sums over K. Returns the launch error.
-template <bool AK, bool COLSUM, class Epi>
-int train_gemm(const TrainGemm& p, const Epi& epi, cudaStream_t st) {
-  if (p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
-  const int* clusters = tg_clusters<AK, COLSUM, Epi>();
+template <bool AK, bool COLSUM, bool V4, class Epi>
+int train_gemm_as(const TrainGemm& p, const Epi& epi, cudaStream_t st) {
+  const int* clusters = tg_clusters<AK, COLSUM, Epi, V4>();
   if (!clusters[0]) return (int)cudaErrorInvalidConfiguration;
   const TgPlan plan = tg_plan(p.M, p.N, p.K, clusters);
   TrainGemm q = p;
   q.m_begin = 0;
   if (plan.full_rows > 0) {
-    const int err = tg_launch<AK, COLSUM>(q, plan.full_rows, 1, epi, st);
+    const int err = tg_launch<AK, COLSUM, V4>(q, plan.full_rows, 1, epi, st);
     if (err) return err;
   }
   if (plan.full_rows == plan.rows) return 0;
   q.m_begin = plan.full_rows * TG_BM;
-  return tg_launch<AK, COLSUM>(q, plan.rows - plan.full_rows, plan.cs, epi,
-                               st);
+  return tg_launch<AK, COLSUM, V4>(q, plan.rows - plan.full_rows, plan.cs,
+                                   epi, st);
+}
+
+template <bool AK, bool COLSUM, class Epi>
+int train_gemm(const TrainGemm& p, const Epi& epi, cudaStream_t st) {
+  if (p.M <= 0 || p.N <= 0) return (int)cudaGetLastError();
+  const bool v4 = p.K % 4 == 0 && p.N % 4 == 0 && (!AK || p.M % 4 == 0) &&
+                  p.lda % 4 == 0 && p.ldb % 4 == 0 &&
+                  ((size_t)p.a | (size_t)p.b) % 16 == 0;
+  return v4 ? train_gemm_as<AK, COLSUM, true>(p, epi, st)
+            : train_gemm_as<AK, COLSUM, false>(p, epi, st);
 }
 
 }  // namespace uic_train

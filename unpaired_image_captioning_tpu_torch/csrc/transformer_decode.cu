@@ -70,6 +70,16 @@
 // call launches 11 kernels a layer (12 on the last with want_attn), each
 // short: launch latency, the GEMMs' f32 FMA rate and, at the caption, the
 // cross-attention's K/V stream are what is left.
+//
+// Widths. Any d, d_ff and head width: where d or the head width is not a
+// multiple of 4 the LN and the products (decode_gemm.cuh) run instances
+// with scalar loads, the same sums otherwise. The two attentions keep the
+// kernels above for every shape they take and hand the rest to a second
+// kernel each: self_attn_kernel_chunked (a cache longer than a warp's
+// shared memory holds, in chunks with an online softmax, or rows off 16
+// bytes) and cross_attn_kernel_pieces (a slice whose K / V or a head whose
+// queries would not fit a block's shared memory, walked in pieces, or rows
+// off 16 bytes).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -141,7 +151,8 @@ __device__ __forceinline__ float dot4(const float4* a, const float4* b,
 
 // The packed LN1 -> QKV projection's epilogue: q (columns [0, d)) to
 // q [M, d]; k_t / v_t into slot t[r] of row r's cache, in place. A float4
-// of columns never straddles q | k | v (d % 4 == 0).
+// of columns never straddles q | k | v (the float4 instance runs only where
+// d % 4 == 0; `one` takes an element at a time).
 struct EpiQkv {
   const float* bias;   // [3d]
   float* q;            // [M, d]
@@ -168,15 +179,29 @@ struct EpiQkv {
                                  (size_t)slot * d + cc) = v;
     }
   }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const float v = acc + bias[c];
+    const int part = c / d, cc = c - part * d;
+    if (part == 0) {
+      q[(size_t)r * d + cc] = v;
+      return;
+    }
+    const int slot = t[r];
+    if (slot >= 0 && slot < T)
+      (part == 1 ? cache_k : cache_v)[(size_t)r * cache_row +
+                                      (size_t)slot * d + cc] = v;
+  }
 };
 
 // y = LN(x) row by row, a warp per row, the row's mean and deviation taken
 // once (two passes, as the reference, over the row held in registers: at
 // most LN_REG float4 a lane, d <= 512; a longer row is read again from
 // memory); with x_copy != null the row is also copied there (layer 0's
-// x_in -> x_out).
+// x_in -> x_out). V4 false (d not a multiple of 4): the same passes over
+// scalar elements, read from memory.
 constexpr int LN_REG = 4;
 
+template <bool V4>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 ln_rows_kernel(const float* __restrict__ x, float* __restrict__ x_copy,
                const float* __restrict__ scale,
@@ -185,6 +210,24 @@ ln_rows_kernel(const float* __restrict__ x, float* __restrict__ x_copy,
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
   if (r >= R) return;
+  if constexpr (!V4) {
+    const float* xr = x + (size_t)r * d;
+    float s = 0.0f;
+    for (int j = lane; j < d; j += 32) s += xr[j];
+    const float mean = warp_sum(s) / (float)d;
+    float q = 0.0f;
+    for (int j = lane; j < d; j += 32) {
+      const float a = xr[j] - mean;
+      q = fmaf(a, a, q);
+    }
+    const float den = sqrtf(warp_sum(q) / (float)(d - 1)) + LN_EPS;
+    for (int j = lane; j < d; j += 32) {
+      const float u = xr[j];
+      y[(size_t)r * d + j] = (u - mean) / den * scale[j] + offset[j];
+      if (x_copy) x_copy[(size_t)r * d + j] = u;
+    }
+    return;
+  }
   const int d4 = d / 4;
   const bool in_reg = d4 <= 32 * LN_REG;
   const float4* xr = reinterpret_cast<const float4*>(x + (size_t)r * d);
@@ -236,16 +279,39 @@ __host__ __device__ inline long long round4(long long n) {
   return (n + 3) & ~3LL;
 }
 
-// floats of shared memory a self-attention warp keeps: q [dh], scores and
-// physical rows [T each, padded to 4]
-__host__ __device__ inline long long self_warp_floats(int dh, int T) {
-  return dh + 2 * round4(T);
+// floats of shared memory a self-attention warp keeps: q [dh, padded to 4],
+// then the scores and physical rows of a chunk of tc positions [tc each,
+// padded to 4]
+__host__ __device__ inline long long self_warp_floats(int dh, int tc) {
+  return round4(dh) + 2 * round4(tc);
+}
+
+// the positions a self-attention warp takes at once: all T where they fit
+// the block's shared memory, else the most that do (a multiple of 32)
+inline int self_chunk(int dh, int T) {
+  const long long per_warp = MAX_SMEM / 4 / ROW_WARPS;
+  if (self_warp_floats(dh, T) <= per_warp) return T;
+  return (int)(((per_warp - round4(dh)) / 2) & ~31LL);
+}
+
+// q . k over dh elements (V4: dh / 4 float4 of each, four partial sums)
+template <bool V4>
+__device__ __forceinline__ float dot_row(const float* a, const float* b,
+                                         int dh) {
+  if (V4)
+    return dot4(reinterpret_cast<const float4*>(a),
+                reinterpret_cast<const float4*>(b), dh / 4);
+  float s = 0.0f;
+  for (int j = 0; j < dh; ++j) s = fmaf(a[j], b[j], s);
+  return s;
 }
 
 // Self-attention of one decode step: warp (r, h) attends with row r's query
 // over the positions tau <= t[r] of its cache (or, lazily, of the rows anc
 // names). q and out are [R, d]; the caches hold row r's slot tau of this
-// layer at cache + r * cache_row + tau * d. dh % 4 == 0, dh <= 256.
+// layer at cache + r * cache_row + tau * d. dh and d multiples of 4, the
+// positions within a warp's shared memory (self_attn_kernel_chunked takes
+// every other shape).
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 self_attn_kernel(const float* __restrict__ q, const float* cache_k,
                  const float* cache_v, const int* __restrict__ t,
@@ -332,6 +398,138 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
   }
   if (g == 0 && c4 < dh4)
     reinterpret_cast<float4*>(out + (size_t)r * d + hoff)[c4] = acc;
+}
+
+// The self-attention of self_attn_kernel for the shapes it does not take:
+// a cache longer than a warp's shared memory holds (about 3,400 slots at
+// dh 512) or rows off 16 bytes (V4 false: scalar loads). The positions run
+// in chunks of tc with an online softmax (a running max and sum, the
+// output rescaled when the max grows); a single chunk normalises its
+// weights before P.V, as the reference does.
+template <bool V4>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
+                 const float* cache_v, const int* __restrict__ t,
+                 const int* __restrict__ anc, float* __restrict__ out, int R,
+                 int kb, int H, int dh, int d, int T, int tc,
+                 size_t cache_row, float scale_div) {
+  extern __shared__ __align__(16) float sa_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * ROW_WARPS + warp;
+  if (gw >= R * H) return;                 // no block barrier below
+  const int r = gw / H, h = gw - r * H;
+  const int dh4 = dh / 4;
+  float* qs = sa_smem + warp * self_warp_floats(dh, tc);
+  float* sc = qs + round4(dh);
+  int* krow = reinterpret_cast<int*>(sc + round4(tc));
+  const int tr = t[r];
+  const bool none = tr < 0;                // every position masked
+  const int n = (none || tr >= T) ? T : tr + 1;
+  const bool single = n <= tc;
+  const int base = r - r % kb;
+  const size_t hoff = (size_t)h * dh;
+  float* orow = out + (size_t)r * d + hoff;
+
+  if (V4) {
+    const float4* q4 =
+        reinterpret_cast<const float4*>(q + (size_t)r * d + hoff);
+    for (int j = lane; j < dh4; j += 32)
+      reinterpret_cast<float4*>(qs)[j] = q4[j];
+  } else {
+    for (int j = lane; j < dh; j += 32) qs[j] = q[(size_t)r * d + hoff + j];
+  }
+  __syncwarp();
+
+  float M = -INFINITY, Z = 0.0f;           // running max and sum
+  for (int c0 = 0; c0 < n; c0 += tc) {
+    const int cn = min(tc, n - c0);
+    // scores: lanes over positions
+    float m = -INFINITY;
+    for (int i = lane; i < cn; i += 32) {
+      const int tau = c0 + i;
+      const int kr = anc ? base + anc[(size_t)r * T + tau] : r;
+      krow[i] = kr;
+      float s = MASKED;
+      if (!none)
+        s = dot_row<V4>(qs,
+                        cache_k + (size_t)kr * cache_row + (size_t)tau * d +
+                            hoff,
+                        dh) /
+            scale_div;
+      sc[i] = s;
+      m = fmaxf(m, s);
+    }
+    const float mn = fmaxf(M, warp_max(m));
+    const float alpha = expf(M - mn);      // 0 on the first chunk
+    float z = 0.0f;
+    for (int i = lane; i < cn; i += 32) {
+      const float e = expf(sc[i] - mn);
+      sc[i] = e;
+      z += e;
+    }
+    Z = Z * alpha + warp_sum(z);
+    M = mn;
+    if (single)
+      for (int i = lane; i < cn; i += 32) sc[i] = sc[i] / Z;
+    __syncwarp();
+    // the chunk's P.V into the output row: written (one chunk), or added
+    // to the rescaled running sum, by the lane that owns the column
+    auto put = [&](float* o, float v) {
+      *o = c0 == 0 ? v : *o * alpha + v;
+    };
+    auto put4 = [&](float4* o, float4 v) {
+      if (c0 > 0) {
+        const float4 p = *o;
+        v = make_float4(fmaf(p.x, alpha, v.x), fmaf(p.y, alpha, v.y),
+                        fmaf(p.z, alpha, v.z), fmaf(p.w, alpha, v.w));
+      }
+      *o = v;
+    };
+    auto vrow = [&](int i) {
+      return cache_v + (size_t)krow[i] * cache_row + (size_t)(c0 + i) * d +
+             hoff;
+    };
+    if (!V4) {
+      // lanes over columns, each summed over the positions in order
+      for (int c = lane; c < dh; c += 32) {
+        float acc = 0.0f;
+        for (int i = 0; i < cn; ++i) acc = fmaf(sc[i], vrow(i)[c], acc);
+        put(orow + c, acc);
+      }
+    } else if (dh4 > 32) {
+      // past 128 columns: each lane owns the float4 columns lane,
+      // lane + 32, ..., each summed over the positions in order
+      for (int c4 = lane; c4 < dh4; c4 += 32) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int i = 0; i < cn; ++i)
+          acc = fma4(sc[i], reinterpret_cast<const float4*>(vrow(i))[c4],
+                     acc);
+        put4(reinterpret_cast<float4*>(orow) + c4, acc);
+      }
+    } else {
+      // lp lanes over the dh4 float4 of a row, 32 / lp position groups
+      int lp = 1;
+      while (lp < dh4) lp <<= 1;
+      const int c4 = lane & (lp - 1), g = lane / lp, groups = 32 / lp;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (c4 < dh4)
+        for (int i = g; i < cn; i += groups)
+          acc = fma4(sc[i], reinterpret_cast<const float4*>(vrow(i))[c4],
+                     acc);
+      for (int o = lp; o < 32; o <<= 1) {    // fixed order: same bits
+        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+        acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+        acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+      }
+      if (g == 0 && c4 < dh4) put4(reinterpret_cast<float4*>(orow) + c4, acc);
+    }
+    __syncwarp();    // sc and krow are read before the next chunk
+  }
+  if (!single) {
+    __syncwarp();
+    for (int c = lane; c < dh; c += 32) orow[c] = orow[c] / Z;
+  }
 }
 
 // The cross-attention's split: of the S slots, a cluster of cs blocks (a
@@ -529,6 +727,267 @@ __global__ void head_mean_kernel(const float* __restrict__ attn_h,
   attn[e] = acc / (float)H;
 }
 
+// The split of cross_attn_kernel_pieces, which takes the shapes
+// cross_attn_kernel does not (a slice whose K and V, or a head whose query
+// rows, would not fit a block's shared memory, or rows off 16 bytes): the
+// same clusters and query groups, each block walking its chunk in pieces of
+// `sub` slots.
+struct PieceSplit {
+  int cs, chunk, sub, qg, kq;
+};
+
+// A slice's partial result as rank 0 of cross_attn_kernel_pieces receives
+// it: m and l [kb] each and acc [kb][dh, padded to 4] (unnormalised P.V)
+__host__ __device__ inline long long piece_part_floats(long long kb, int dh) {
+  return round4(2 * kb) + kb * round4(dh);
+}
+
+// Shared memory of a cross_attn_kernel_pieces block, in floats: Q
+// [kb][LD], K [sub][LD], V [sub][dh padded], P [kb][sub], the running max,
+// sum and rescale factor [kb] each, and the cs partials rank 0 receives
+// (LD = dh padded to 4, plus 4).
+inline long long piece_floats(long long kb, int dh, long long sub, int cs) {
+  const long long ld = round4(dh) + 4;
+  return kb * ld + sub * ld + sub * round4(dh) + round4(kb * sub) +
+         3 * round4(kb) + cs * piece_part_floats(kb, dh);
+}
+
+// The slots split as cross_split splits them; the beams in the fewest
+// groups (halving kq) that fit, and past one query a group, the slice
+// walked in pieces (halving sub).
+inline PieceSplit piece_split(int S, int kb, int dh) {
+  int cs = 1;
+  while (cs < CROSS_MAX_CLUSTER && cs * CROSS_SLICE < S) cs *= 2;
+  const int chunk = (S + cs - 1) / cs;
+  int qg = 1, kq = kb, sub = chunk;
+  while (kq > 1 && piece_floats(kq, dh, sub, cs) * 4 > MAX_SMEM) {
+    qg *= 2;
+    kq = (kb + qg - 1) / qg;
+  }
+  while (sub > 1 && piece_floats(kq, dh, sub, cs) * 4 > MAX_SMEM)
+    sub = (sub + 1) / 2;
+  return PieceSplit{cs, chunk, sub, (kb + kq - 1) / kq, kq};
+}
+
+// cross_attn_kernel in pieces: block (rank, h, b * qg + g) walks its slots
+// in pieces of `sub` with an online softmax (a running max and sum, the
+// partial P.V rescaled when the max grows). With attn_h != null
+// ([R, H, S + 2]) each block writes its slots' scores there and rank 0
+// each row's max and sum (the last two floats), which
+// head_mean_kernel_scores turns into weights. V4: dh and d multiples of 4;
+// else scalar loads.
+template <bool V4>
+__global__ void __launch_bounds__(CROSS_THREADS)
+cross_attn_kernel_pieces(const float* __restrict__ q2, const float* __restrict__ ck,
+                  const float* __restrict__ cv, const float* __restrict__ mask,
+                  float* __restrict__ out, float* __restrict__ attn_h, int kb,
+                  int H, int dh, int d, int S, int chunk, int sub, int qg,
+                  int kq, float scale_div) {
+  extern __shared__ __align__(16) float ca_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y, b = blockIdx.z / qg;
+  // this group's kn queries, rows row0 .. row0 + kn - 1 of q2 and out; the
+  // shared layout is for kq of them (the last group may hold fewer)
+  const int q0 = (blockIdx.z - b * qg) * kq, kn = min(kb - q0, kq);
+  const size_t row0 = (size_t)b * kb + q0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = rank * chunk;
+  const int ns = max(0, min(S, s0 + chunk) - s0);
+  const int DV = (int)round4(dh), LD = DV + 4, dh4 = dh / 4;
+  const int part = (int)piece_part_floats(kq, dh);
+  float* Qs = ca_smem;                        // [kq][LD]
+  float* Ks = Qs + kq * LD;                   // [sub][LD]
+  float* Vs = Ks + sub * LD;                  // [sub][DV]
+  float* Ps = Vs + sub * DV;                  // [kq][sub]
+  float* run_m = Ps + round4(kq * sub);       // [kq] each
+  float* run_l = run_m + round4(kq);
+  float* scl = run_l + round4(kq);
+  float* rcv = scl + round4(kq);              // [cs] partials (rank 0's)
+  // this block's partial, in rank 0's shared memory
+  float* mine = cluster.map_shared_rank(rcv, 0) + rank * part;
+  float *m_out = mine, *l_out = mine + kq, *acc_out = mine + round4(2 * kq);
+  const size_t hoff = (size_t)h * dh;
+  const size_t a_row = (size_t)S + 2;         // an attn_h row
+
+  // rows [r0, r0 + n) of src ([., d], head h's columns) into dst [n][ld]
+  auto load_rows = [&](float* dst, int ld, const float* src, int n) {
+    if (V4) {
+      for (int e = tid; e < n * dh4; e += CROSS_THREADS) {
+        const int k = e / dh4, c = (e - k * dh4) * 4;
+        uic_decode::dg_cp16(dst + k * ld + c, src + (size_t)k * d + hoff + c,
+                            true);
+      }
+    } else {
+      for (int e = tid; e < n * dh; e += CROSS_THREADS) {
+        const int k = e / dh, c = e - k * dh;
+        uic_decode::dg_cp4(dst + k * ld + c, src + (size_t)k * d + hoff + c,
+                           true);
+      }
+    }
+  };
+
+  load_rows(Qs, LD, q2 + row0 * d, kn);
+  for (int k = tid; k < kq; k += CROSS_THREADS) {
+    run_m[k] = -INFINITY;
+    run_l[k] = 0.0f;
+  }
+  // rank 0 must have started before a partial lands in its shared memory:
+  // arrive now, wait after the first piece's scores, while its copies are
+  // in flight
+  if (cs > 1) cluster_arrive_relaxed();
+  bool waited = cs == 1;
+  for (int p0 = 0; p0 < ns; p0 += sub) {
+    const int np = min(sub, ns - p0);
+    const size_t slot0 = (size_t)b * S + s0 + p0;
+    if (p0 > 0) __syncthreads();      // the last piece's K, V, P are read
+    load_rows(Ks, LD, ck + slot0 * d, np);
+    uic_decode::dg_commit();
+    // V lands while the scores and the softmax run
+    load_rows(Vs, DV, cv + slot0 * d, np);
+    uic_decode::dg_commit();
+    uic_decode::dg_wait<1>();
+    __syncthreads();
+
+    // scores of the piece
+    for (int e = tid; e < kn * np; e += CROSS_THREADS) {
+      const int k = e / np, s = e - k * np;
+      const float dot = dot_row<V4>(Qs + k * LD, Ks + s * LD, dh);
+      const float v =
+          mask[slot0 + s] > 0.0f ? dot / scale_div : MASKED;
+      Ps[k * sub + s] = v;
+      if (attn_h) attn_h[((row0 + k) * H + h) * a_row + s0 + p0 + s] = v;
+    }
+    __syncthreads();
+    if (!waited) {
+      cluster_wait();
+      waited = true;
+    }
+    // the running softmax statistics, a warp per query
+    for (int k = warp; k < kn; k += CROSS_THREADS / 32) {
+      float* p = Ps + k * sub;
+      float m = -INFINITY;
+      for (int s = lane; s < np; s += 32) m = fmaxf(m, p[s]);
+      const float mo = run_m[k], mn = fmaxf(mo, warp_max(m));
+      float l = 0.0f;
+      for (int s = lane; s < np; s += 32) {
+        const float e = expf(p[s] - mn);
+        p[s] = e;
+        l += e;
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        const float a = expf(mo - mn);   // 0 on the first piece
+        scl[k] = a;
+        run_l[k] = run_l[k] * a + l;
+        run_m[k] = mn;
+      }
+    }
+    uic_decode::dg_wait<0>();
+    __syncthreads();
+    // the piece's unnormalised P.V, added to the rescaled running sum
+    if (V4) {
+      for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+        const int k = e / dh4, c = (e - k * dh4) * 4;
+        const float* p = Ps + k * sub;
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+        for (int s = 0; s < np; ++s)
+          acc = fma4(p[s], *reinterpret_cast<const float4*>(Vs + s * DV + c),
+                     acc);
+        float4* o = reinterpret_cast<float4*>(acc_out + k * DV + c);
+        if (p0 > 0) {
+          const float4 w = *o;
+          const float a = scl[k];
+          acc = make_float4(fmaf(w.x, a, acc.x), fmaf(w.y, a, acc.y),
+                            fmaf(w.z, a, acc.z), fmaf(w.w, a, acc.w));
+        }
+        *o = acc;
+      }
+    } else {
+      for (int e = tid; e < kn * dh; e += CROSS_THREADS) {
+        const int k = e / dh, c = e - k * dh;
+        const float* p = Ps + k * sub;
+        float acc = 0.0f;
+        for (int s = 0; s < np; ++s) acc = fmaf(p[s], Vs[s * DV + c], acc);
+        float* o = acc_out + k * DV + c;
+        *o = p0 > 0 ? fmaf(*o, scl[k], acc) : acc;
+      }
+    }
+  }
+  if (!waited) cluster_wait();
+  if (ns == 0)          // no slots: an empty partial
+    for (int e = tid; e < kn * DV; e += CROSS_THREADS) acc_out[e] = 0.0f;
+  __syncthreads();
+  for (int k = tid; k < kn; k += CROSS_THREADS) {
+    m_out[k] = run_m[k];
+    l_out[k] = run_l[k];
+  }
+  // every partial has reached rank 0; the other ranks are done
+  if (cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (rank != 0) return;
+
+  // per query M = max m_r, L = sum exp(m_r - M) l_r over the slices in
+  // rank order; slice r's weight exp(m_r - M) / L replaces m_r
+  for (int k = tid; k < kn; k += CROSS_THREADS) {
+    float M = -INFINITY;
+    for (int src = 0; src < cs; ++src) M = fmaxf(M, rcv[src * part + k]);
+    float L = 0.0f;
+    for (int src = 0; src < cs; ++src)
+      L += expf(rcv[src * part + k] - M) * rcv[src * part + kq + k];
+    for (int src = 0; src < cs; ++src)
+      rcv[src * part + k] = expf(rcv[src * part + k] - M) / L;
+    if (attn_h) {
+      float* st = attn_h + ((row0 + k) * H + h) * a_row + S;
+      st[0] = M;
+      st[1] = L;
+    }
+  }
+  __syncthreads();
+  if (V4) {
+    for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+      const int k = e / dh4, c = (e - k * dh4) * 4;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int src = 0; src < cs; ++src)          // fixed order: same bits
+        acc = fma4(rcv[src * part + k],
+                   *reinterpret_cast<const float4*>(
+                       rcv + src * part + round4(2 * kq) + k * DV + c),
+                   acc);
+      *reinterpret_cast<float4*>(out + (row0 + k) * d + hoff + c) = acc;
+    }
+  } else {
+    for (int e = tid; e < kn * dh; e += CROSS_THREADS) {
+      const int k = e / dh, c = e - k * dh;
+      float acc = 0.0f;
+      for (int src = 0; src < cs; ++src)          // fixed order: same bits
+        acc = fmaf(rcv[src * part + k],
+                   rcv[src * part + round4(2 * kq) + k * DV + c], acc);
+      out[(row0 + k) * d + hoff + c] = acc;
+    }
+  }
+}
+
+// attn[r, s] = (sum over h, in order, of exp(score - M) / L) / H, from the
+// scores and each (row, head)'s max M and sum L in attn_h [R, H, S + 2]
+// (cross_attn_kernel_pieces)
+__global__ void head_mean_kernel_scores(const float* __restrict__ attn_h,
+                                 float* __restrict__ attn, int R, int H,
+                                 int S) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= R * S) return;
+  const int r = e / S, s = e - r * S;
+  float acc = 0.0f;
+  for (int h = 0; h < H; ++h) {
+    const float* row = attn_h + ((size_t)r * H + h) * (S + 2);
+    acc += expf(row[s] - row[S]) / row[S + 1];
+  }
+  attn[e] = acc / (float)H;
+}
+
 // the dynamic shared memory a launch needs past 48 KB, opted into on the
 // current device before the launch
 template <typename K>
@@ -570,26 +1029,50 @@ Layer layer_of(const float* const* w, int l, int d, int dff) {
 }
 
 // 0 if the kernels take a step of kb beams an image, width d in H heads,
-// d_ff, S source slots and T cache slots; else the first limit it breaks:
-// 1 the head width d / H (a multiple of 4 for 16-byte rows, at most 256),
-// 2 d_ff (a multiple of 4), 3 the self-attention's shared memory, 4 the
-// cross-attention's (a block of one query over its slice). smem (or null)
-// receives the two attentions' bytes.
+// d_ff, S source slots and T cache slots; else the limit it breaks: 1, d
+// does not split into H heads, as the JAX package's head split requires
+// (unpaired_image_captioning_tpu/ops/transformer_decode.py:298, a reshape
+// of d into H heads); 2, a head so wide (past about 5,000) that one query
+// and one slot of it do not fit a block's shared memory. Every other shape
+// runs: widths that are not multiples of 4 take the scalar instances, a
+// long cache the self-attention in chunks, many source slots or wide heads
+// the cross-attention in pieces. smem (or null) receives the two
+// attentions' bytes.
 int refuses(int kb, int d, int dff, int H, int S, int T, long long* smem) {
+  (void)dff;
   if (H <= 0 || d % H) return 1;
   const int dh = d / H;
-  const CrossSplit sp = cross_split(S, kb, dh);
-  const long long self_b = ROW_WARPS * self_warp_floats(dh, T) * 4;
-  const long long cross_b = cross_floats(sp.kq, dh, sp.chunk, sp.cs) * 4;
+  const PieceSplit sp = piece_split(S, kb, dh);
+  const int tc = self_chunk(dh, T);
+  const long long self_b = ROW_WARPS * self_warp_floats(dh, tc) * 4;
+  const long long cross_b = piece_floats(sp.kq, dh, sp.sub, sp.cs) * 4;
   if (smem) {
     smem[0] = self_b;
     smem[1] = cross_b;
   }
-  if (dh % 4 || dh > 256) return 1;
-  if (dff % 4) return 2;
-  if (self_b > MAX_SMEM) return 3;
-  if (cross_b > MAX_SMEM) return 4;
+  if (tc < 1 || self_b > MAX_SMEM || cross_b > MAX_SMEM) return 2;
   return 0;
+}
+
+// the launch of a cluster kernel: grid, blocks of `threads`, `smem` bytes,
+// clusters of cs along x
+template <typename K, typename... Args>
+int launch_clusters(K kernel, dim3 grid, int threads, size_t smem, int cs,
+                    cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? err : (int)cudaGetLastError();
 }
 
 struct Step {
@@ -605,8 +1088,13 @@ struct Step {
 
 int ln_rows(const float* x, float* x_copy, const float* scale,
             const float* offset, float* y, int R, int d, cudaStream_t st) {
-  ln_rows_kernel<<<(R + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(
-      x, x_copy, scale, offset, y, R, d);
+  const unsigned blocks = (R + ROW_WARPS - 1) / ROW_WARPS;
+  if (d % 4 == 0)
+    ln_rows_kernel<true><<<blocks, ROW_WARPS * 32, 0, st>>>(
+        x, x_copy, scale, offset, y, R, d);
+  else
+    ln_rows_kernel<false><<<blocks, ROW_WARPS * 32, 0, st>>>(
+        x, x_copy, scale, offset, y, R, d);
   return (int)cudaGetLastError();
 }
 
@@ -616,6 +1104,10 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
               const float* x_in, cudaStream_t st) {
   const int R = s.R, d = s.d, kb = s.R / s.B, dh = s.d / s.H;
   const float scale_div = (float)sqrt((double)dh);
+  // 16-byte rows for the attentions (the products and LN choose their own)
+  const bool v4 = dh % 4 == 0 && d % 4 == 0 && cache_row % 4 == 0 &&
+                  ((size_t)s.q | (size_t)s.att | (size_t)ck | (size_t)cv |
+                   (size_t)cache_k | (size_t)cache_v) % 16 == 0;
   float* y = s.att;
   int err;
 
@@ -629,16 +1121,31 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
                          st)))
     return err;
 
-  // 3. self-attention
+  // 3. self-attention (every position at once where a warp's shared
+  // memory holds them, else in chunks)
   {
+    const int tc = self_chunk(dh, s.T);
     const size_t smem =
-        (size_t)ROW_WARPS * self_warp_floats(dh, s.T) * sizeof(float);
-    if ((err = smem_opt_in(self_attn_kernel, smem))) return err;
-    const int warps = R * s.H;
-    self_attn_kernel<<<(warps + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32,
-                       smem, st>>>(s.q, cache_k, cache_v, s.t, s.anc, s.att,
-                                   R, kb, s.H, dh, d, s.T, cache_row,
-                                   scale_div);
+        (size_t)ROW_WARPS * self_warp_floats(dh, tc) * sizeof(float);
+    const int blocks = (R * s.H + ROW_WARPS - 1) / ROW_WARPS;
+    if (v4 && tc == s.T) {
+      if ((err = smem_opt_in(self_attn_kernel, smem))) return err;
+      self_attn_kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
+          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
+          cache_row, scale_div);
+    } else if (v4) {
+      if ((err = smem_opt_in(self_attn_kernel_chunked<true>, smem)))
+        return err;
+      self_attn_kernel_chunked<true><<<blocks, ROW_WARPS * 32, smem, st>>>(
+          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
+          tc, cache_row, scale_div);
+    } else {
+      if ((err = smem_opt_in(self_attn_kernel_chunked<false>, smem)))
+        return err;
+      self_attn_kernel_chunked<false><<<blocks, ROW_WARPS * 32, smem, st>>>(
+          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
+          tc, cache_row, scale_div);
+    }
     if ((err = (int)cudaGetLastError())) return err;
   }
 
@@ -654,36 +1161,47 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
                          st)))
     return err;
 
-  // 7. cross-attention over the image's unexpanded K/V
+  // 7. cross-attention over the image's unexpanded K/V: each block's
+  // slice at once where its shared memory holds it, else in pieces
   {
-    const CrossSplit sp = cross_split(s.S, kb, dh);
-    const size_t smem =
-        (size_t)cross_floats(sp.kq, dh, sp.chunk, sp.cs) * sizeof(float);
-    if ((err = smem_opt_in(cross_attn_kernel, smem))) return err;
     float* attn_h = last ? s.attn_h : nullptr;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(sp.cs, s.H, s.B * sp.qg);
-    cfg.blockDim = dim3(CROSS_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = sp.cs;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if ((err = (int)cudaLaunchKernelEx(&cfg, cross_attn_kernel,
-                                       (const float*)s.q, ck, cv, s.mask,
-                                       s.att, attn_h, kb, s.H, dh, d, s.S,
-                                       sp.chunk, sp.qg, sp.kq, scale_div)))
-      return err;
-    if ((err = (int)cudaGetLastError())) return err;
-    if (attn_h) {
-      const int n = R * s.S;
-      head_mean_kernel<<<(n + 255) / 256, 256, 0, st>>>(attn_h, s.attn, R,
-                                                        s.H, s.S);
-      if ((err = (int)cudaGetLastError())) return err;
+    const CrossSplit sp = cross_split(s.S, kb, dh);
+    const size_t whole =
+        (size_t)cross_floats(sp.kq, dh, sp.chunk, sp.cs) * sizeof(float);
+    if (v4 && whole <= (size_t)MAX_SMEM) {
+      if ((err = smem_opt_in(cross_attn_kernel, whole))) return err;
+      if ((err = launch_clusters(cross_attn_kernel,
+                                 dim3(sp.cs, s.H, s.B * sp.qg),
+                                 CROSS_THREADS, whole, sp.cs, st,
+                                 (const float*)s.q, ck, cv, s.mask, s.att,
+                                 attn_h, kb, s.H, dh, d, s.S, sp.chunk,
+                                 sp.qg, sp.kq, scale_div)))
+        return err;
+      if (attn_h) {
+        const int n = R * s.S;
+        head_mean_kernel<<<(n + 255) / 256, 256, 0, st>>>(attn_h, s.attn, R,
+                                                          s.H, s.S);
+        if ((err = (int)cudaGetLastError())) return err;
+      }
+    } else {
+      const PieceSplit pp = piece_split(s.S, kb, dh);
+      const size_t smem =
+          (size_t)piece_floats(pp.kq, dh, pp.sub, pp.cs) * sizeof(float);
+      auto kernel = v4 ? cross_attn_kernel_pieces<true>
+                       : cross_attn_kernel_pieces<false>;
+      if ((err = smem_opt_in(kernel, smem))) return err;
+      if ((err = launch_clusters(kernel, dim3(pp.cs, s.H, s.B * pp.qg),
+                                 CROSS_THREADS, smem, pp.cs, st,
+                                 (const float*)s.q, ck, cv, s.mask, s.att,
+                                 attn_h, kb, s.H, dh, d, s.S, pp.chunk,
+                                 pp.sub, pp.qg, pp.kq, scale_div)))
+        return err;
+      if (attn_h) {
+        const int n = R * s.S;
+        head_mean_kernel_scores<<<(n + 255) / 256, 256, 0, st>>>(
+            attn_h, s.attn, R, s.H, s.S);
+        if ((err = (int)cudaGetLastError())) return err;
+      }
     }
   }
 
@@ -718,7 +1236,7 @@ extern "C" int tfd_refuses(int kb, int d, int dff, int H, int S, int T,
 // cache_k/v [R, L, T, d], slot t[r] of every layer written in place; anc
 // [R, T] int32 or null; w: host array of the 18 packed [L, ...] weights in
 // WKEYS order; scratch q, att [R, d], h1 [R, dff]; with attn != null,
-// attn_h [R, H, S] scratch and attn [R, S] receive the last layer's
+// attn_h [R, H, S + 2] scratch and attn [R, S] receive the last layer's
 // mean-head cross-attention weights. Returns the first CUDA error, or
 // cudaErrorInvalidValue for a shape the kernels do not take (tfd_refuses).
 extern "C" int tfd_stack_step_f32(const float* x_in, float* x_out,

@@ -5,7 +5,8 @@ Replace the TPU kernels of `unpaired_image_captioning_tpu/ops/attention.py`:
 - `additive_attention` (`_fused_attention_kernel`): one query per image;
 - `additive_attention_beams` (`_fused_attention_beams_kernel`): K beam
   queries per image over its unexpanded memory, read once for every group
-  of up to 16 of them (one launch for any K);
+  of up to 8 of them (one launch for any K; each image's slots split
+  across a thread-block cluster);
 - `fused_att_lstm_att` (`_att_lstm_att_kernel`): att1, the maxout lstm1
   and att2 of a StackAtt / DenseAtt decode step.
 
@@ -17,7 +18,8 @@ differentiable as the JAX custom VJPs are: the backward differentiates the
 plain version, recomputed from the saved inputs. `fused_att_lstm_att` has
 no gradient (the JAX function is jit only): it raises when an input
 requires one while grad mode is on. `launches`, `beams_launches` and
-`step_launches` count kernel launches.
+`step_launches` count kernel launches. Any widths A, D and H are taken
+(float4 loads where they are multiples of 4, scalar ones otherwise).
 """
 
 from __future__ import annotations
@@ -36,6 +38,16 @@ beams_launches = 0    # additive_attention_beams
 step_launches = 0     # fused_att_lstm_att
 
 
+def plan(b: int, n: int, a: int, d: int, k: int) -> dict:
+    """The kernel's launch plan for a shape (16-byte rows): the cluster
+    size, the queries a group, the groups and a block's shared memory in
+    bytes."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.load().additive_attention_plan(b, n, a, d, k, out),
+                "additive_attention_plan")
+    return dict(cluster=out[0], group=out[1], groups=out[2], smem=out[3])
+
+
 def _check(name: str, dev, tensors: dict) -> None:
     """Each tensor f32, on `dev`, of the given shape, contiguous."""
     for key, (t, shape) in tensors.items():
@@ -47,13 +59,6 @@ def _check(name: str, dev, tensors: dict) -> None:
                              f"expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _widths(name: str, **dims) -> None:
-    for key, n in dims.items():
-        if n % 4:
-            raise ValueError(f"{name}: {key}={n} must be a multiple of 4 "
-                             "(float4 loads)")
 
 
 def _attention_fwd(p_att, att_h, alpha, mask, att_emb, beams: bool):
@@ -72,7 +77,6 @@ def _attention_fwd(p_att, att_h, alpha, mask, att_emb, beams: bool):
         "att_h": (att_h, (b, k, a) if beams else (b, a)),
         "alpha": (alpha, (a, 1)), "mask": (mask, (b, n)),
         "att_emb": (att_emb, (b, n, d))})
-    _widths(name, A=a, D=d)
     out = torch.empty((b, k, d) if beams else (b, d), dtype=torch.float32,
                       device=p_att.device)
     lib = build.load()
@@ -155,7 +159,6 @@ def fused_att_lstm_att(p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1,
         "emb2_w": (emb2_w, (d, h)), "emb2_b": (emb2_b, (h,)),
         "h2att2_w": (h2att2_w, (h, a)), "h2att2_b": (h2att2_b, (a,)),
         "alpha1": (alpha1, (a, 1)), "alpha2": (alpha2, (a, 1))})
-    _widths("fused_att_lstm_att", A=a, D=d, H=h)
     dev = p_att.device
     h1 = torch.empty((b, h), dtype=torch.float32, device=dev)
     c1 = torch.empty_like(h1)

@@ -87,6 +87,9 @@ SIGNATURES = {
     "dec_layer_bwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P, _P),
     # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, stream
     "additive_attention_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # B, N, A, D, K, out int[4] (cluster size, queries a group, groups,
+    # shared memory bytes a block)
+    "additive_attention_plan": (_I,) * 5 + (_P,),
     # in (host array of 15 inputs), h1, c1, att2, ws, B, N, A, D, H, stream
     "att_lstm_att_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     # img, row_idx, row_w, col_idx, col_w, mean, std, out, B, H, W, C, Ho,

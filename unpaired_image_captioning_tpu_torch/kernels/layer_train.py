@@ -22,6 +22,9 @@ kernel keeps the LayerNorm outputs, the packed qkv (the cross query), the
 attention outputs, the attentions' row softmax statistics [2, B, H, T] and
 the dropped FFN hidden as well, so its backward runs no product of the
 forward again. The dropped FFN hidden is the last saved tensor.
+
+Any head width, d and d_ff: widths that are not multiples of 4 run the
+kernels' 4-byte-copy instances (`csrc/train_gemm.cuh`, `csrc/mha_train.cu`).
 """
 
 from __future__ import annotations
@@ -61,8 +64,6 @@ def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
     b, t, d = x.shape
     f = w["w1"].shape[1]
     check_head_width(name, d, n_heads)
-    if f % 4 or f < 4:
-        raise ValueError(f"{name}: d_ff={f} must be a multiple of 4")
     shapes = _weight_shapes(d, f)
     tensors = {"x": (x, (b, t, d), torch.float32)}
     tensors.update({k: (w[k], shapes.get(k, (d,)), torch.float32)
@@ -79,7 +80,8 @@ def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
         if a.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
-                             "boundary (the kernel loads float4)")
+                             "boundary (the kernel loads float4 rows where "
+                             "the widths allow)")
 
 
 def _mask_arrays(name: str, key: str, maskadd, b: int, t: int, s: int):

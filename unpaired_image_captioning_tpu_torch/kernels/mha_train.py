@@ -27,21 +27,16 @@ from . import build
 fwd_launches = 0
 bwd_launches = 0
 
-MAX_HEAD_DIM = 256   # the widest of the kernels' head-width buckets
-
-
 def check_head_width(name: str, d: int, n_heads: int) -> None:
-    """Raise unless d splits into n_heads heads of a width the kernels take:
-    a multiple of 4 (16-byte rows) up to MAX_HEAD_DIM. Every such width runs
-    in one of the compiled buckets 32, 64, 128 and 256 (`csrc/mha_train.cu`);
-    any number of keys is taken."""
+    """Raise unless d splits into n_heads heads, as the JAX package's head
+    split requires (`models/transformer.py:92`, a reshape of d into
+    n_heads heads).
+    Every head width runs: up to 256 in one of the compiled buckets 32, 64,
+    128 and 256, wider ones in bucket 256 as column chunks, widths and rows
+    off 16 bytes by 4-byte copies (`csrc/mha_train.cu`); any number of keys
+    is taken."""
     if n_heads < 1 or d % n_heads:
         raise ValueError(f"{name}: d={d} does not split into {n_heads} heads")
-    dh = d // n_heads
-    if dh % 4 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
-                         "heads) is not a multiple of 4 up to "
-                         f"{MAX_HEAD_DIM}, which the kernel takes")
 
 
 def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
@@ -68,9 +63,6 @@ def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
                              f"expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        if key != "maskadd" and x.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must start on a 16-byte "
-                             "boundary (the kernels copy 16-byte runs)")
     if seed.device != q.device or seed.dtype != torch.int32 \
             or seed.numel() != 1:
         raise ValueError(f"{name}: seed must be one int32 on {q.device}")

@@ -39,7 +39,8 @@ def _check(name: str, tensors: dict, device) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
-                             "boundary (the kernel loads float4)")
+                             "boundary (the kernel loads float4 rows where "
+                             "the widths allow)")
 
 
 def _check_dims(name: str, rows: int, bsz: int, d: int, dff: int,
@@ -55,21 +56,11 @@ def _check_dims(name: str, rows: int, bsz: int, d: int, dff: int,
     kb, dh = rows // bsz, d // n_heads
     smem = (ctypes.c_longlong * 2)()
     why = build.load().tfd_refuses(kb, d, dff, n_heads, slots, n_t, smem)
-    if why == 1:
-        raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
-                         "heads) must be a multiple of 4 (16-byte rows) and "
-                         "at most 256")
-    if why == 2:
-        raise ValueError(f"{name}: d_ff={dff} must be a multiple of 4 "
-                         "(16-byte rows)")
-    if why == 3:
-        raise ValueError(f"{name}: {n_t} cache slots need {smem[0]} B of "
-                         "self-attention shared memory, more than a block "
-                         "can hold")
     if why:
-        raise ValueError(f"{name}: cross-attention over {slots} slots at "
-                         f"{kb} beams needs {smem[1]} B of shared memory, "
-                         "more than a block can hold")
+        raise ValueError(f"{name}: head width {dh} (d={d} over {n_heads} "
+                         f"heads) needs {max(smem)} B of attention shared "
+                         "memory for one query and one slot, more than a "
+                         "block can hold")
 
 
 def _weights(name: str, w: dict, lead: tuple, d: int, dff: int, device):
@@ -119,7 +110,7 @@ def decoder_stack_step(x, t, ck_all, cv_all, src_mask, cache_k, cache_v,
     h1 = torch.empty((rows, dff), dtype=f32, device=x.device)
     attn_h = attn = None
     if want_attn:
-        attn_h = torch.empty((rows, n_heads, slots), dtype=f32,
+        attn_h = torch.empty((rows, n_heads, slots + 2), dtype=f32,
                              device=x.device)
         attn = torch.empty((rows, slots), dtype=f32, device=x.device)
     lib = build.load()
