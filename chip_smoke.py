@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --times att,tfd
+    python3 chip_smoke.py --times ln,img
 
 Builds the port's CUDA kernels from `unpaired_image_captioning_tpu_torch/
 csrc/`, holds each kernel against its plain PyTorch version at the serving
@@ -114,14 +115,24 @@ Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`).
 
+Widths past what a block once held whole: the training LayerNorm at d
+4,096 and 6,000 (LN_WIDE), the whole encoder layer at d 4,096 on two
+images, the decoder step at one head of 7,300 (the parent's refusal began
+at 7,249 for B 2, 2 beams, 8 slots) and of 6,000 over 500 slots, B9a-c at
+A + D = 64,000 over 8 slots, and B11 at rows that are not whole float4, at
+one and four channels, the identity at such a width (bit-equal to the
+host) and rows too long to stage; each against its plain version.
+
 `--times GROUPS` only builds the kernels and times those of the named
 groups (`topk`: both top-k entries at the shapes above, on the same rows;
 `mha`: the training attention's forward and backward at the step's three
 shapes, at head widths 32, 64 and 128; `att`: B9a, B9b at K = 3, 5 and 20
 and B9c on the inputs of their checks; `tfd`: the decoder step's stack at
-both pivot shapes, at head widths 32, 64 and 128), with no check, and
-prints the
-readings as its last line. It serves to compare two checkouts on one
+both pivot shapes, at head widths 32, 64 and 128, and the first head width
+the step refuses at TFD_REFUSAL_SHAPE; `ln`: the training LayerNorm's
+forward and backward at LN_SHAPES and the whole encoder layer's backward
+at the captioner's shape, split by kind of CUDA kernel; `img`: B11 at
+IMG_CASES), with no check, and prints the readings as its last line. It serves to compare two checkouts on one
 card: copy this script into each and run them in turns (A, B, B, A) in
 one call.
 
@@ -230,14 +241,17 @@ MHA_SHAPES = [
     ("encoder self, dh 512", 50, 196, 196, "pad", 512, 1),
 ]
 LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
+# the training LayerNorm past the width its backward once refused (3,632):
+# a d-4,096 model's rows and a width off the register kernels' float4
+LN_WIDE = [("d 4,096", 50, 17, 4096), ("d 6,000", 50, 17, 6000)]
 # every CUDA kernel of csrc/ a training step launches, by name (the
 # whole-layer wrappers launch all of them)
 MHA_BWD_KERNELS = ("mha_dsum_kernel", "mha_bwd_dkdv_kernel",
                    "mha_bwd_dq_kernel")
+LN_BWD_KERNELS = ("ln_bwd_rows_kernel", "ln_bwd_any_kernel")
 TRAIN_KERNELS = ("train_gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
-                 "ln_fwd_kernel", "ln_bwd_kernel",
-                 "ln_bwd_reduce_kernel", "drop_kernel",
-                 "weight_transpose_kernel")
+                 "ln_fwd_kernel",) + LN_BWD_KERNELS + (
+                 "drop_kernel", "weight_transpose_kernel")
 
 # denseatt captioner XE training at full width (bench.py:140-158): the
 # serving captioner's widths, batch 50, labels [50, 18], drop_prob_lm 0.5,
@@ -290,7 +304,18 @@ TFD_SHAPES = [
     ("nmt beam 15 x 50, dh 50, d_ff 510", 50, 15, 2, 20, 16, 100, 510, 2,
      True),
     ("caption beam 5 x 50, dh 512", 50, 5, 2, 16, 196, 512, 512, 1, False),
+    # one head past the widths a block held whole (TFD_REFUSAL_SHAPE's
+    # first refused width was 7,249 before: q in column chunks), and one
+    # too wide for the cross-attention's pieces over 500 slots (a row a
+    # block)
+    ("one head of 7,300, B 2, 2 beams, 8 slots", 2, 2, 2, 8, 8, 7300, 64,
+     1, False),
+    ("one head of 6,000 over 500 slots", 2, 2, 2, 8, 500, 6000, 64, 1,
+     True),
 ]
+# (B, beams, S, T, heads, d_ff) of the `--times tfd` reading of the first
+# head width the step refuses (none: every width runs)
+TFD_REFUSAL_SHAPE = (2, 2, 8, 8, 1, 64)
 # the CUDA kernels the decoder-step wrappers launch, by name
 TFD_KERNELS = ("decode_gemm_kernel", "ln_rows_kernel", "self_attn_kernel",
                "cross_attn_kernel", "head_mean_kernel")
@@ -346,6 +371,7 @@ ENC_LAYER_SHAPES = [
     ("captioner encoder, dh 256", 50, 196, 512, 512, 2),
     ("captioner encoder, dh 50", 50, 196, 100, 100, 2),
     ("captioner encoder, dh 384, d_ff 510", 50, 196, 384, 510, 1),
+    ("captioner encoder, d 4,096 on two images", 2, 196, 4096, 4096, 8),
 ]
 # transformers at head widths the kernels took only since their widening
 # (label, d, heads, d_ff): a training step on each route and a decode, card
@@ -378,10 +404,11 @@ TOPK_SHAPES = [
 ]
 
 # `--times`: the groups of kernels it times (the top-k, the training
-# attention, the additive attentions B9a-c, the decoder step), the calls
+# attention, the additive attentions B9a-c, the decoder step, the training
+# LayerNorm and B6's backward by kind, the image front end), the calls
 # each reading averages, and the head counts at d 512 (head widths 32, 64
 # and 128) of the training attention and the decoder step
-TIMES_GROUPS = ("topk", "mha", "att", "tfd")
+TIMES_GROUPS = ("topk", "mha", "att", "tfd", "ln", "img")
 TIMES_ITERS = 50
 TIMES_HEADS = (16, 8, 4)
 
@@ -395,8 +422,20 @@ IMG_CASES = [("downscale", 16, 480, 640, 448),
              ("loader identity", 16, 448, 448, 448)]
 IMG_TOL = 1e-4    # max|diff| <= IMG_TOL * max(1, max|plain|): two-tap sums
 # in another order than the dense products
+# B11 at widths off the path (checked, not timed): rows of Wo * C not whole
+# float4 (the general instance's head, body and tail), one and four
+# channels, the identity at such a width (bit-equal to the host), and rows
+# too long to stage in shared memory: (label, B, H, W, C, Ho, Wo)
+IMG_WIDTHS = [("Wo * C = 69", 2, 31, 45, 3, 17, 23),
+              ("one channel", 2, 19, 23, 1, 13, 17),
+              ("four channels", 3, 20, 30, 4, 15, 18),
+              ("identity, Wo * C = 51", 3, 21, 17, 3, 21, 17),
+              ("rows of 120,000 bytes", 1, 3, 40000, 3, 2, 39999)]
 CONV_KERNEL_WORDS = ("conv", "fprop", "xmma", "implicit", "winograd", "gemm",
                      "cudnn", "cutlass")
+# B9a-c where one query's A and D do not fit a block (A + D = 64,000 over
+# N 8; checked, not timed): (B, N, A, D, K beams, H of B9c)
+ATT_WIDE = [(5, 8, 32000, 32000, 5, 8), (5, 8, 31999, 32001, 5, 8)]
 # B10: the lstm0 fragment (tools/perf/ab_lstm_block.py): B, T, D, H
 CHAIN_SHAPE = (50, 17, 1024, 512)
 CHAIN_TOL = 1e-4  # each output: max|diff| <= CHAIN_TOL * max(1, max|plain|)
@@ -917,6 +956,7 @@ def phase_times(dev, groups) -> list:
         log(f"time {kernel} [{shape}]: {ms:.4f} ms ({how}); by CUDA kernel: "
             + ", ".join(f"{n} {v:.4f}" for n, v in sorted(
                 parts.items(), key=lambda kv: -kv[1])))
+        return readings[-1]
 
     if "topk" in groups:
         for label, r, v, k, x in _topk_cases(dev, TOPK_SHAPES, _beam_rows):
@@ -962,7 +1002,71 @@ def phase_times(dev, groups) -> list:
                         a["x"], a["t"], a["ck"], a["cv"], a["mask"], a["kc"],
                         a["vc"], a["w"], a["anc"], n_heads=heads,
                         want_attn=lazy))
+        b, kb, slots, n_t, heads, dff = TFD_REFUSAL_SHAPE
+        first = _first_refused_width(
+            lambda dh: tdk._check_dims("step", b * kb, b, dh * heads, dff,
+                                       heads, slots, n_t))
+        readings.append(dict(kernel="transformer_decode refusal", shape=(
+            f"B {b}, {kb} beams, S {slots}, T {n_t}, {heads} head(s)"),
+            first_refused_dh=first))
+        log(f"transformer_decode at {readings[-1]['shape']}: first head "
+            f"width the step refuses: {first}")
+    if "ln" in groups:
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            layer_train as ltk)
+        from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for label, b, t, d in LN_SHAPES:
+            x, scale, offset, g = _ln_inputs(dev, gen, b, t, d)
+            shape = f"[{b}, {t}, {d}] ({label})"
+            rec("ln_train_fwd", shape,
+                lambda: lnk.ln_train_fwd(x, scale, offset))
+            rec("ln_train_bwd", shape, lambda: lnk.ln_train_bwd(x, scale, g))
+        # B6's encoder layer backward at the captioner's shape, by kind
+        label, b, s, d, f, heads = ENC_LAYER_SHAPES[0]
+        x, g, _, maskadd, seed, w, _ = _enc_layer_inputs(dev, gen, b, s, d, f)
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        _, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
+        r = rec("enc_layer_train_bwd", label, lambda: ltk.enc_layer_bwd(
+            x, maskadd, seed, w, saved, g, **kw))
+        r["by_kind_ms"] = {
+            kind: sum(v for n, v in r["parts"].items()
+                      if any(k in n for k in keys))
+            for kind, keys in LAYER_KINDS.items()}
+        log(f"time enc_layer_train_bwd [{label}] by kind: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["by_kind_ms"].items()))
+    if "img" in groups:
+        from unpaired_image_captioning_tpu_torch.kernels import image as ik
+
+        for label, b, h, w, out in IMG_CASES:
+            _, x = _img_input(dev, b, h, w)
+            rec("image_front_end", f"[{b}, {h}, {w}, 3] -> {out}x{out} "
+                f"({label})", lambda: ik.resize_normalize(x, h_out=out,
+                                                          w_out=out))
     return readings
+
+
+def _first_refused_width(check, most: int = 1 << 16):
+    """The least head width w <= most for which check(w) raises ValueError
+    (refusal grows with the width), or None if it never does."""
+    def refused(w):
+        try:
+            check(w)
+        except ValueError:
+            return True
+        return False
+
+    if not refused(most):
+        return None
+    lo, hi = 0, most               # refused(hi), not refused(lo)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if refused(mid):
+            hi = mid
+        else:
+            lo = mid
+    return hi
 
 
 def build_models(dev):
@@ -1948,10 +2052,22 @@ def _mha_inputs(dev, gen, b, t, s, kind, d):
     return q, k, v, g, maskadd
 
 
+def _ln_inputs(dev, gen, b, t, d):
+    """x [B, T, d] around 1 at scale 3, scale 1 +- 0.1, offset and g."""
+    import torch
+
+    x = torch.randn((b, t, d), generator=gen, device=dev) * 3 + 1
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    offset = 0.1 * torch.randn((d,), generator=gen, device=dev)
+    g = torch.randn((b, t, d), generator=gen, device=dev)
+    return x, scale, offset, g
+
+
 def phase_train_kernels(dev) -> dict:
     """The training attention and LayerNorm kernels against their plain
     versions at the training step's shapes, forward and backward, dropout
-    on; each backward twice, bit for bit. Returns the JSON records."""
+    on; each backward twice, bit for bit; the LayerNorm also at LN_WIDE.
+    Returns the JSON records."""
     import torch
     import torch.nn.functional as F
 
@@ -2041,11 +2157,8 @@ def phase_train_kernels(dev) -> dict:
                                           retain_graph=True),
               "scaled_dot_product_attention backward, rate 0")
 
-    for label, b, t, d in LN_SHAPES:
-        x = torch.randn((b, t, d), generator=gen, device=dev) * 3 + 1
-        scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-        offset = 0.1 * torch.randn((d,), generator=gen, device=dev)
-        g = torch.randn((b, t, d), generator=gen, device=dev)
+    for label, b, t, d in LN_SHAPES + LN_WIDE:
+        x, scale, offset, g = _ln_inputs(dev, gen, b, t, d)
         y = lnk.ln_train_fwd(x, scale, offset)
         grads = lnk.ln_train_bwd(x, scale, g)
         again = lnk.ln_train_bwd(x, scale, g)
@@ -2081,7 +2194,7 @@ def phase_train_kernels(dev) -> dict:
         timed("ln_train_bwd", label, shape,
               lambda: lnk.ln_train_bwd(x, scale, g),
               lambda: lno.ln_train_plain_bwd(x, scale, g),
-              ("ln_bwd_kernel", "ln_bwd_reduce_kernel"),
+              LN_BWD_KERNELS,
               nbytes(x, scale, g, *grads), 14.0 * n, None,
               "none computes this formula (F.layer_norm backward, same "
               f"bytes, other formula: {same_bwd:.4f} ms)")
@@ -2210,7 +2323,8 @@ def _yardsticks(label, fwd, params, g):
 
 # a whole-layer wrapper's CUDA kernels by kind
 LAYER_KINDS = {"gemm": ("gemm_kernel",), "attention": ("mha_",),
-               "layernorm": ("ln_",), "dropout": ("drop_kernel",),
+               "layernorm": ("ln_fwd", "ln_bwd"),
+               "dropout": ("drop_kernel",),
                "weight transposes": ("weight_transpose",)}
 
 
@@ -2289,6 +2403,31 @@ def _gemm_plans(pairs) -> str:
                    f"unsplit, the rest in clusters of {cs} ({at_once} at "
                    "once)")
     return "; ".join(out)
+
+
+def _enc_layer_inputs(dev, gen, b, s, d, f):
+    """An encoder layer's x, g [B, S, d], key mask (image 1 padded past 150
+    over N_SLOTS slots, else sources of 6-16 tokens) as keep and additive
+    mask, the dropout seed and the weights; and what the padding is."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+
+    x, g = (torch.randn((b, s, d), generator=gen, device=dev)
+            for _ in range(2))
+    keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+    if s == N_SLOTS:
+        keep[1, :, 150:] = False
+        pad = "image 1 padded past 150"
+    else:
+        lengths = torch.randint(6, s + 1, (b,), generator=gen, device=dev)
+        keep = (torch.arange(s, device=dev)[None, None, :]
+                < lengths[:, None, None])
+        pad = "sources of 6-16 tokens"
+    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    w = _layer_weights(gen, dev, lto.ENC_WEIGHTS, d, f)
+    return x, g, keep, maskadd, seed, w, pad
 
 
 def phase_layer_kernels(dev) -> dict:
@@ -2376,21 +2515,8 @@ def phase_layer_kernels(dev) -> dict:
     for label, b, s, d, f, heads in ENC_LAYER_SHAPES:
         kw = dict(n_heads=heads, **kw_rate)
         dh = d // heads
-        x, g = (torch.randn((b, s, d), generator=gen, device=dev)
-                for _ in range(2))
-        keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
-        if s == N_SLOTS:
-            keep[1, :, 150:] = False
-            pad = "image 1 padded past 150"
-        else:
-            lengths = torch.randint(6, s + 1, (b,), generator=gen,
-                                    device=dev)
-            keep = (torch.arange(s, device=dev)[None, None, :]
-                    < lengths[:, None, None])
-            pad = "sources of 6-16 tokens"
-        maskadd = torch.where(keep, 0.0, -1e9).contiguous()
-        seed = torch.tensor([4321], dtype=torch.int32, device=dev)
-        w = _layer_weights(gen, dev, lto.ENC_WEIGHTS, d, f)
+        x, g, keep, maskadd, seed, w, pad = _enc_layer_inputs(dev, gen, b, s,
+                                                              d, f)
         ws = [w[k] for k in lto.ENC_WEIGHTS]
         out, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
         grads = ltk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
@@ -2785,13 +2911,14 @@ def phase_train_agreement(dev, enc_layer: bool, dec_layer: bool,
 # denseatt: the additive-attention kernels, XE training and decoding
 # ---------------------------------------------------------------------------
 
-def _att_inputs(dev, gen, k=None):
+def _att_inputs(dev, gen, k=None, widths=None):
     """Attention inputs at the serving and training widths (B 50, N 196,
-    A = D = 512): image 1's slots padded past 150, image 2 fully masked."""
+    A = D = 512; or widths = (B, N, A, D)): image 1's slots padded past
+    150, image 2 fully masked."""
     import torch
 
-    b, n = BENCH_BATCH, N_SLOTS
-    a, d = CAP["att_hid_size"], CAP["rnn_size"]
+    b, n, a, d = widths or (BENCH_BATCH, N_SLOTS, CAP["att_hid_size"],
+                            CAP["rnn_size"])
     p_att = torch.randn((b, n, a), generator=gen, device=dev)
     q = torch.randn((b, a) if k is None else (b, k, a), generator=gen,
                     device=dev)
@@ -2803,14 +2930,15 @@ def _att_inputs(dev, gen, k=None):
     return p_att, q, alpha, mask, emb
 
 
-def _step_args(dev, gen):
+def _step_args(dev, gen, widths=None):
     """The fused decode step's 15 inputs (att -> maxout lstm1 -> att) at
-    the serving widths, the memory padded and masked as `_att_inputs`'s."""
+    the serving widths (or widths = (B, N, A, D, H)), the memory padded and
+    masked as `_att_inputs`'s."""
     import torch
 
-    b, a, d = BENCH_BATCH, CAP["att_hid_size"], CAP["rnn_size"]
-    h = CAP["rnn_size"]
-    p_att, _, alpha1, mask, emb = _att_inputs(dev, gen)
+    b, n, a, d, h = widths or (BENCH_BATCH, N_SLOTS, CAP["att_hid_size"],
+                               CAP["rnn_size"], CAP["rnn_size"])
+    p_att, _, alpha1, mask, emb = _att_inputs(dev, gen, None, (b, n, a, d))
 
     def uni(*shape, fan):
         return ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
@@ -2951,6 +3079,33 @@ def phase_att_kernels(dev, lstm_rec: dict) -> dict:
         kernels_before = _launches_of(lambda: aak.fused_att_lstm_att(*step))
         log(f"att_lstm_att: {kernels_before} CUDA kernel launches a step "
             f"({aak.step_launches - before} step)")
+
+    # B9a-c where one query's A and D do not fit a block (checked only)
+    for wb, wn, wa, wd, wk, wh in ATT_WIDE:
+        args = _att_inputs(dev, gen, None, (wb, wn, wa, wd))
+        args_k = _att_inputs(dev, gen, wk, (wb, wn, wa, wd))
+        step_w = _step_args(dev, gen, (wb, wn, wa, wd, wh))
+        with torch.no_grad():
+            errs = [_att_check(f"{name} at A={wa} D={wd}", [kf()], [pf()])
+                    for name, kf, pf in (
+                        ("additive_attention",
+                         lambda: aak.additive_attention(*args),
+                         lambda: ao.reference_attention(*args)),
+                        ("additive_attention_beams",
+                         lambda: aak.additive_attention_beams(*args_k),
+                         lambda: ao.reference_attention_beams(*args_k)))]
+            errs.append(_att_check(f"att_lstm_att at A={wa} D={wd}",
+                                   aak.fused_att_lstm_att(*step_w),
+                                   ao.att_lstm_att_plain(*step_w)))
+        torch.cuda.synchronize()
+        for name, e in zip(("additive_attention", "additive_attention_beams",
+                            "att_lstm_att"), errs):
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], e)
+        log(f"kernels B9a / B9b K={wk} / B9c at B={wb} N={wn} A={wa} D={wd} "
+            f"H={wh} (one query's A and D past a block: chunks of A, passes "
+            f"over D; plan {aak.plan(wb, wn, wa, wd, wk)}): max|diff| / "
+            f"max(1, max|plain|) " + ", ".join(f"{e:.3g}" for e in errs)
+            + f" (tol {ATT_TOL})")
 
     # the LSTM cell's backward (recompute + autodiff of the plain version)
     # at the denseatt training shape
@@ -3483,10 +3638,20 @@ def phase_dense_decode(dev, cap, nmt, zh_vocab, cap2nmt) -> dict:
 # chain (B10)
 # ---------------------------------------------------------------------------
 
+def _img_input(dev, b, h, w, c=3):
+    """Seeded uint8 images [B, H, W, C] on the host and on the card."""
+    import torch
+
+    host = np.random.RandomState(h).randint(
+        0, 256, (b, h, w, c)).astype(np.uint8)
+    return host, torch.from_numpy(host).to(dev)
+
+
 def phase_image_kernel(dev) -> dict:
     """B11 against its plain version at a general downscale and at the
     loader's identity size (there bit-equal to the host's
-    `preprocess_images`); F.interpolate as the resize's yardstick."""
+    `preprocess_images`), then at IMG_WIDTHS (checked only); F.interpolate
+    as the resize's yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -3495,9 +3660,7 @@ def phase_image_kernel(dev) -> dict:
 
     rows, worst = [], 0.0
     for label, b, h, w, out in IMG_CASES:
-        host = np.random.RandomState(h).randint(
-            0, 256, (b, h, w, 3)).astype(np.uint8)
-        x = torch.from_numpy(host).to(dev)
+        host, x = _img_input(dev, b, h, w)
 
         def kern():
             return ik.resize_normalize(x, h_out=out, w_out=out)
@@ -3536,6 +3699,24 @@ def phase_image_kernel(dev) -> dict:
             f"{k_wall:.4f} ms, plain {p_wall:.4f} ms; bound {b_ms:.4f} ms "
             f"({b_by}); library: F.interpolate bilinear on f32 NCHW (the "
             f"resize alone) {lib_ms:.4f} ms ({lib_how})")
+    for label, b, h, w, c, ho, wo in IMG_WIDTHS:
+        host, x = _img_input(dev, b, h, w, c)
+        got = ik.resize_normalize(x, h_out=ho, w_out=wo)
+        want = io.resize_normalize_plain(x, h_out=ho, w_out=wo)
+        torch.cuda.synchronize()
+        err = _check_each(f"image_front_end {label}", ["out"], [got], [want],
+                          IMG_TOL)
+        worst = max(worst, err)
+        exact = ""
+        if (h, w) == (ho, wo):
+            if not np.array_equal(got.cpu().numpy(),
+                                  io.preprocess_images(host)):
+                raise AssertionError(f"image_front_end {label}: not "
+                                     "bit-equal to preprocess_images")
+            exact = "; bit-equal to preprocess_images"
+        log(f"kernel image_front_end [{b}, {h}, {w}, {c}] -> {ho}x{wo} "
+            f"({label}): max|diff| / max(1, max|plain|) {err:.3g} (tol "
+            f"{IMG_TOL}){exact}")
     main = rows[0]
     return {"image_front_end": {
         "name": "image_front_end", "route": "cuda",

@@ -351,3 +351,30 @@ def test_cuda_reruns_are_bit_identical(cuda_dev):
         for _ in range(100):
             for x, e in zip(aak.fused_att_lstm_att(*step), first):
                 assert torch.equal(x, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,d", [(32000, 32000), (31999, 32001)],
+                         ids=["float4", "odd"])
+def test_cuda_widths_past_a_block(cuda_dev, a, d):
+    """A + D = 64,000 over 8 slots: one query's A and D do not fit a block's
+    shared memory, so the query and alpha stream through it in chunks of A
+    and the P.V runs in passes over chunks of D. B9a, B9b at K 5 and B9c
+    against plain."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for k in (None, 5):
+        args = [x.to(cuda_dev) for x in _t(_attn_inputs(50, 5, 8, a, d, k))]
+        if k is None:
+            got = aak.additive_attention(*args)
+            want = tatt.reference_attention(*args)
+        else:
+            got = aak.additive_attention_beams(*args)
+            want = tatt.reference_attention_beams(*args)
+        assert _rel(got, want) <= 1e-4, k
+        assert not got[3].any()
+    step = [x.to(cuda_dev) for x in _t(_step_inputs(51, 5, 8, a, d, 8))]
+    with torch.no_grad():
+        got = aak.fused_att_lstm_att(*step)
+    want = tatt.att_lstm_att_plain(*step)
+    for x, e in zip(got, want):
+        assert _rel(x, e) <= 1e-4

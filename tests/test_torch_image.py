@@ -31,7 +31,9 @@ def _imgs(shape, seed):
     ((2, 12, 10, 3), 29, 31),      # upscale
     ((2, 16, 20, 3), 16, 20),      # identity (the loader's case)
     ((1, 14, 9, 1), 11, 13),       # one channel: the statistics' means
-], ids=["down", "up", "identity", "c1"])
+    ((2, 31, 45, 3), 17, 23),      # rows of Wo * C = 69: not whole float4
+    ((1, 9, 11, 4), 6, 7),         # four channels
+], ids=["down", "up", "identity", "c1", "tail", "c4"])
 def test_plain_matches_pallas_interpret(shape, h_out, w_out):
     import jax.numpy as jnp
 
@@ -97,7 +99,10 @@ def cuda_dev():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,h_out,w_out", [
     ((16, 480, 640, 3), 448, 448), ((4, 375, 500, 3), 448, 448),
-    ((2, 12, 10, 3), 29, 31), ((1, 14, 9, 1), 11, 13)])
+    ((2, 12, 10, 3), 29, 31), ((1, 14, 9, 1), 11, 13),
+    ((2, 31, 45, 3), 17, 23), ((3, 37, 50, 3), 9, 22),
+    ((3, 20, 30, 4), 15, 18), ((2, 19, 23, 1), 13, 17),
+    ((1, 3, 40000, 3), 2, 39999)])
 def test_cuda_kernel_matches_plain(cuda_dev, shape, h_out, w_out):
     imgs = torch.from_numpy(_imgs(shape, 3)).to(cuda_dev)
     n0 = ik.launches
@@ -114,5 +119,18 @@ def test_cuda_identity_is_preprocess_images_bit_for_bit(cuda_dev):
     imgs = _imgs((4, 448, 448, 3), 5)
     got = ik.resize_normalize(torch.from_numpy(imgs).to(cuda_dev),
                               h_out=448, w_out=448)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  io.preprocess_images(imgs))
+
+
+@pytest.mark.cuda
+def test_cuda_identity_with_a_tail_is_preprocess_images_bit_for_bit(
+        cuda_dev):
+    """The identity at a width whose rows are not whole float4 (Wo * C =
+    51) takes the general instance's head, body and tail: still the host's
+    bits."""
+    imgs = _imgs((3, 21, 17, 3), 6)
+    got = ik.resize_normalize(torch.from_numpy(imgs).to(cuda_dev),
+                              h_out=21, w_out=17)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   io.preprocess_images(imgs))

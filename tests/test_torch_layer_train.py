@@ -222,7 +222,8 @@ def _card_close(got, want):
                                            (3, 29, 100, 200, 2),
                                            (2, 21, 384, 510, 1),
                                            (2, 19, 512, 384, 1),
-                                           (3, 29, 30, 45, 5)])
+                                           (3, 29, 30, 45, 5),
+                                           (2, 19, 4096, 512, 8)])
 def test_cuda_enc_layer_matches_plain(cuda_dev, b, t, d, f, heads):
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev)

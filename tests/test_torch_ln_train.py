@@ -20,7 +20,8 @@ from unpaired_image_captioning_tpu_torch.ops import ln_train as lo
 TOL = 1e-5
 
 
-@pytest.mark.parametrize("b,t,d", [(3, 20, 128), (2, 17, 256)])
+@pytest.mark.parametrize("b,t,d", [(3, 20, 128), (2, 17, 256), (2, 3, 6),
+                                   (3, 2, 130), (2, 2, 4100)])
 def test_matches_pallas_interpret(b, t, d):
     import jax
     import jax.numpy as jnp
@@ -61,6 +62,18 @@ def test_plain_backward_matches_autograd():
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("d", [4096, 8192])
+def test_shape_check_takes_any_width(d):
+    """The wrappers' shape check takes rows of any width from 2 (the
+    backward kept a per-warp accumulator of the row in shared memory and
+    refused d past 3,632 before); d = 1 has no unbiased variance."""
+    x, scale = torch.zeros((3, d)), torch.zeros((d,))
+    arrays = {"x": (x, x.shape), "scale": (scale, (d,)), "g": (x, x.shape)}
+    lk._check("ln_train_bwd", arrays, d, x.device)
+    with pytest.raises(ValueError, match="width 1"):
+        lk._check("ln_train_bwd", {"x": (x[:, :1], (3, 1))}, 1, x.device)
+
+
 @pytest.fixture
 def cuda_dev():
     if not torch.cuda.is_available():
@@ -77,6 +90,32 @@ def test_cuda_ln_train_matches_plain(cuda_dev, b, t, d):
     scale = torch.randn((d,), generator=gen, device=cuda_dev)
     offset = torch.randn((d,), generator=gen, device=cuda_dev)
     g = torch.randn((b, t, d), generator=gen, device=cuda_dev)
+    y = lk.ln_train_fwd(x, scale, offset)
+    grads = lk.ln_train_bwd(x, scale, g)
+    again = lk.ln_train_bwd(x, scale, g)
+    refs = (lo.ln_train_plain(x, scale, offset),) + lo.ln_train_plain_bwd(
+        x, scale, g)
+    torch.cuda.synchronize()
+    for got, want in zip((y,) + grads, refs):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+    for a, c in zip(grads, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 9800])
+@pytest.mark.parametrize("d", [6, 100, 510, 768, 1024, 1030, 4096, 6000])
+def test_cuda_ln_train_any_width(cuda_dev, rows, d):
+    """Forward and backward against plain at widths of every instance: the
+    register kernels (d a multiple of 4 up to 1,024), the general one (off
+    16 bytes, past 1,024), one row to more than a block a SM; the backward
+    twice, bit for bit (the partial sums in a fixed order)."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device=cuda_dev) * 3 + 1
+    scale = torch.randn((d,), generator=gen, device=cuda_dev)
+    offset = torch.randn((d,), generator=gen, device=cuda_dev)
+    g = torch.randn((rows, d), generator=gen, device=cuda_dev)
     y = lk.ln_train_fwd(x, scale, offset)
     grads = lk.ln_train_bwd(x, scale, g)
     again = lk.ln_train_bwd(x, scale, g)

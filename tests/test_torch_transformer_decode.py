@@ -263,15 +263,14 @@ def cuda_dev():
     ((10, 5, 512, 510, 8, 196, 16), None),           # d_ff 510
     ((10, 5, 512, 512, 8, 196, 4000), None),         # a chunked cache
     ((640, 5, 512, 512, 4, 100000, 16), None),       # slots in pieces
-    ((10, 5, 8192, 512, 1, 196, 16), "shared memory"),
+    ((10, 5, 8192, 512, 1, 196, 16), None),          # one head of 8,192
 ], ids=["caption", "nmt", "rows", "heads", "dh6", "dh256", "dh260",
         "beam32_dh256", "dff", "T", "S", "dh8192"])
 def test_check_dims_names_what_the_kernels_do_not_take(cuda_dev, dims,
                                                        match):
-    """The wrapper's shape checks, run before a launch: the limits are the
-    CUDA source's (`tfd_refuses`), which the C entries also apply. Every
-    shape the JAX package computes is taken but a head too wide for one
-    query and one slot to fit a block's shared memory."""
+    """The wrapper's shape checks, run before a launch (the C entries
+    apply the same): every shape the JAX package computes is taken, heads
+    of any width too."""
     if match is None:
         tdk._check_dims("step", *dims)
     else:
@@ -352,6 +351,12 @@ CUDA_CASES = {
     "dff510": (4, 5, 16, 196, 512, 510, 8, False, None),
     "T4000": (2, 2, 4000, 16, 512, 512, 1, False, None),
     "S100000": (2, 5, 16, 100000, 64, 64, 2, True, None),
+    # heads past what a block held whole: q in column chunks in the
+    # self-attention (past 7,200 columns), one row a block in the
+    # cross-attention (past pieces' reach: 6,000 columns over 500 slots)
+    "dh7300": (2, 2, 8, 8, 7300, 64, 1, False, None),
+    "dh6000_S500": (2, 2, 8, 500, 6000, 64, 1, False, "t_out"),
+    "dh7302_odd": (2, 2, 8, 8, 7302, 64, 1, False, None),
 }
 
 

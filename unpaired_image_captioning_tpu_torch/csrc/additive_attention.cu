@@ -82,7 +82,12 @@
 //
 // Widths: any A, D and H >= 1. The float4 score loads need A and D
 // multiples of 4 and the inputs 16-byte aligned; other shapes run the
-// scalar instance. The products take any width
+// scalar instance. Where one query's A and D would not fit a block's
+// shared memory (2 A + D past about 56,000), the block streams the query
+// and alpha through shared memory in chunks of A (the score is a sum over
+// a, so the chunks' partial scores add up) and takes the P.V and the
+// combination in passes over chunks of D; every shape that fits keeps the
+// single chunk and pass, and the same sums. The products take any width
 // (decode_gemm.cuh), and so does the cell (lstm_cell.cu).
 
 #include <cooperative_groups.h>
@@ -125,6 +130,9 @@ struct AttArgs {
   int N, A, D, K, ldo;
   int kg;     // queries a group (the last may hold fewer)
   int chunk;  // slots a block: ceil(N / C)
+  int ac;     // columns of A staged at once (A, unless a query's would not
+              // fit a block: then a multiple of 4)
+  int dc;     // columns of D a pass of the P.V and the combination takes
 };
 
 __device__ __forceinline__ float att_warp_sum(float v) {
@@ -143,21 +151,21 @@ __device__ __forceinline__ float att_warp_max(float v) {
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
 
 // The regions of a block's shared memory, in floats: the group's queries
-// [kg][A], alpha [A], the scores then weights [kg][chunk], the partial P.V
-// [kg][D], every rank's (m, l) [2][kg][MAX_CLUSTER] gathered for the
-// combination, then its weights [kg][MAX_CLUSTER]. Every region starts on
-// 16 bytes.
+// [kg][ac] (ac columns of A at a time), alpha [ac], the scores then weights
+// [kg][chunk], the partial P.V [kg][dc] (dc columns of D at a time), every
+// rank's (m, l) [2][kg][MAX_CLUSTER] gathered for the combination, then
+// its weights [kg][MAX_CLUSTER]. Every region starts on 16 bytes.
 struct Smem {
   size_t q, alpha, w, acc, ml, wt, total;
 };
 
-__host__ __device__ inline Smem smem_of(int A, int D, int kg, int chunk) {
+__host__ __device__ inline Smem smem_of(int ac, int dc, int kg, int chunk) {
   Smem m;
   m.q = 0;
-  m.alpha = m.q + round4((size_t)kg * A);
-  m.w = m.alpha + round4(A);
+  m.alpha = m.q + round4((size_t)kg * ac);
+  m.w = m.alpha + round4(ac);
   m.acc = m.w + round4((size_t)kg * chunk);
-  m.ml = m.acc + round4((size_t)kg * D);
+  m.ml = m.acc + round4((size_t)kg * dc);
   m.wt = m.ml + 2 * (size_t)kg * MAX_CLUSTER;
   m.total = m.wt + (size_t)kg * MAX_CLUSTER;
   return m;
@@ -168,7 +176,9 @@ __device__ __forceinline__ float tanh_dot4(float4 al, float4 p, float4 q) {
          al.z * tanhf(p.z + q.z) + al.w * tanhf(p.w + q.w);
 }
 
-template <bool V4>
+// CHUNKED: A and D taken in chunks of p.ac and p.dc (one query's A and D
+// past a block's shared memory); otherwise each in one piece.
+template <bool V4, bool CHUNKED>
 __global__ void __launch_bounds__(ATT_THREADS)
 additive_attention_kernel(const __grid_constant__ AttArgs p) {
   extern __shared__ __align__(16) float smem[];
@@ -181,49 +191,99 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
   const int N = p.N, A = p.A, D = p.D, kg = p.kg, chunk = p.chunk;
   const int K = min(p.K - k0, kg);
   const int s0 = rank * chunk, ns = max(0, min(N - s0, chunk));
-  const Smem m = smem_of(A, D, kg, chunk);
-  float* q_s = smem + m.q;
-  float* alpha_s = smem + m.alpha;
+  const int ac = CHUNKED ? p.ac : A, dc = CHUNKED ? p.dc : D;
+  const Smem m = smem_of(ac, dc, kg, chunk);
+  float* q_s = smem + m.q;           // [kg][ac]
+  float* alpha_s = smem + m.alpha;   // [ac]
   float* w_s = smem + m.w;           // [kg][chunk]
-  float* acc_s = smem + m.acc;       // [kg][D]
+  float* acc_s = smem + m.acc;       // [kg][dc]
   float* ml_s = smem + m.ml;         // m, l [2][kg][MAX_CLUSTER]
   float* wt_s = smem + m.wt;         // [kg][MAX_CLUSTER]
   const float* pb = p.p_att + ((size_t)b * N + s0) * A;
   const float* eb = p.emb + ((size_t)b * N + s0) * D;
 
-  // 1. the queries and alpha; (B9c) this rank's share of the copied row
-  const float* qb = p.q + ((size_t)b * p.K + k0) * A;
-  for (int i = tid; i < K * A; i += ATT_THREADS) q_s[i] = qb[i];
-  for (int i = tid; i < A; i += ATT_THREADS) alpha_s[i] = p.alpha[i];
-  if (p.copy_src && blockIdx.y == 0) {
-    const int w = p.copy_w, per = (w + cs - 1) / cs;
-    const int c1 = min(w, (rank + 1) * per);
-    for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
-      p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
-  }
-  __syncthreads();
-
-  // 2. scores: a warp per (slot, query) pair, lanes over A
-  for (int u = warp; u < ns * K; u += ATT_WARPS) {
-    const int n = u / K, k = u - n * K;
-    float acc = 0.0f;
-    if (V4) {
-      const int A4 = A / 4;
-      const float4* row = reinterpret_cast<const float4*>(pb + (size_t)n * A);
-      const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
-      const float4* q4 = reinterpret_cast<const float4*>(q_s + (size_t)k * A);
-#pragma unroll 4
-      for (int a4 = lane; a4 < A4; a4 += 32)
-        acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
-    } else {
-      const float* row = pb + (size_t)n * A;
-      const float* qk = q_s + (size_t)k * A;
-#pragma unroll 4
-      for (int a = lane; a < A; a += 32)
-        acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+  if constexpr (!CHUNKED) {
+    // 1. the queries and alpha; (B9c) this rank's share of the copied row
+    const float* qb = p.q + ((size_t)b * p.K + k0) * A;
+    for (int i = tid; i < K * A; i += ATT_THREADS) q_s[i] = qb[i];
+    for (int i = tid; i < A; i += ATT_THREADS) alpha_s[i] = p.alpha[i];
+    if (p.copy_src && blockIdx.y == 0) {
+      const int w = p.copy_w, per = (w + cs - 1) / cs;
+      const int c1 = min(w, (rank + 1) * per);
+      for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
+        p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
     }
-    acc = att_warp_sum(acc);
-    if (lane == 0) w_s[k * chunk + n] = acc;
+    __syncthreads();
+
+    // 2. scores: a warp per (slot, query) pair, lanes over A
+    for (int u = warp; u < ns * K; u += ATT_WARPS) {
+      const int n = u / K, k = u - n * K;
+      float acc = 0.0f;
+      if (V4) {
+        const int A4 = A / 4;
+        const float4* row = reinterpret_cast<const float4*>(pb + (size_t)n * A);
+        const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
+        const float4* q4 = reinterpret_cast<const float4*>(q_s + (size_t)k * A);
+#pragma unroll 4
+        for (int a4 = lane; a4 < A4; a4 += 32)
+          acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
+      } else {
+        const float* row = pb + (size_t)n * A;
+        const float* qk = q_s + (size_t)k * A;
+#pragma unroll 4
+        for (int a = lane; a < A; a += 32)
+          acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+      }
+      acc = att_warp_sum(acc);
+      if (lane == 0) w_s[k * chunk + n] = acc;
+    }
+  } else {
+    // (B9c) this rank's share of the copied row
+    const float* qb = p.q + ((size_t)b * p.K + k0) * A;
+    if (p.copy_src && blockIdx.y == 0) {
+      const int w = p.copy_w, per = (w + cs - 1) / cs;
+      const int c1 = min(w, (rank + 1) * per);
+      for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
+        p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
+    }
+
+    // 1.-2. per chunk of ac columns of A: the queries and alpha, then the
+    // scores' partial sums, a warp per (slot, query) pair, lanes over the
+    // chunk (one chunk unless a query's columns would not fit)
+    for (int a0 = 0; a0 < A; a0 += ac) {
+      const int an = min(ac, A - a0);
+      if (a0 > 0) __syncthreads();   // the last chunk's q, alpha are read
+      for (int i = tid; i < K * an; i += ATT_THREADS) {
+        const int k = i / an, a = i - k * an;
+        q_s[k * ac + a] = qb[(size_t)k * A + a0 + a];
+      }
+      for (int i = tid; i < an; i += ATT_THREADS) alpha_s[i] = p.alpha[a0 + i];
+      __syncthreads();
+      for (int u = warp; u < ns * K; u += ATT_WARPS) {
+        const int n = u / K, k = u - n * K;
+        float acc = 0.0f;
+        if (V4) {
+          const int A4 = an / 4;
+          const float4* row =
+              reinterpret_cast<const float4*>(pb + (size_t)n * A + a0);
+          const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
+          const float4* q4 =
+              reinterpret_cast<const float4*>(q_s + (size_t)k * ac);
+#pragma unroll 4
+          for (int a4 = lane; a4 < A4; a4 += 32)
+            acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
+        } else {
+          const float* row = pb + (size_t)n * A + a0;
+          const float* qk = q_s + (size_t)k * ac;
+#pragma unroll 4
+          for (int a = lane; a < an; a += 32)
+            acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+        }
+        acc = att_warp_sum(acc);
+        if (lane == 0)
+          w_s[k * chunk + n] = a0 == 0 ? acc : w_s[k * chunk + n] + acc;
+      }
+    }
   }
   __syncthreads();
 
@@ -251,68 +311,143 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
   }
   __syncthreads();
 
-  // 4. the slice's unnormalised P.V: a thread per column and four queries,
-  // each emb element read once for the four
-  for (int i = tid; i < ((K + 3) / 4) * D; i += ATT_THREADS) {
-    const int kq = (i / D) * 4, c = i % D;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-    const float* w0 = w_s + kq * chunk;
+  if constexpr (!CHUNKED) {
+    // 4. the slice's unnormalised P.V: a thread per column and four queries,
+    // each emb element read once for the four
+    for (int i = tid; i < ((K + 3) / 4) * D; i += ATT_THREADS) {
+      const int kq = (i / D) * 4, c = i % D;
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+      const float* w0 = w_s + kq * chunk;
 #pragma unroll 8
-    for (int n = 0; n < ns; ++n) {
-      const float e = eb[(size_t)n * D + c];
-      a0 = fmaf(w0[n], e, a0);
-      if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
-      if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
-      if (kq + 3 < K) a3 = fmaf(w0[3 * chunk + n], e, a3);
+      for (int n = 0; n < ns; ++n) {
+        const float e = eb[(size_t)n * D + c];
+        a0 = fmaf(w0[n], e, a0);
+        if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
+        if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
+        if (kq + 3 < K) a3 = fmaf(w0[3 * chunk + n], e, a3);
+      }
+      float* o = acc_s + (size_t)kq * D + c;
+      o[0] = a0;
+      if (kq + 1 < K) o[D] = a1;
+      if (kq + 2 < K) o[2 * D] = a2;
+      if (kq + 3 < K) o[3 * D] = a3;
     }
-    float* o = acc_s + (size_t)kq * D + c;
-    o[0] = a0;
-    if (kq + 1 < K) o[D] = a1;
-    if (kq + 2 < K) o[2 * D] = a2;
-    if (kq + 3 < K) o[3 * D] = a3;
-  }
 
-  // 5. every rank's partials are in its shared memory: gather each query's
-  // (m, l) of every rank (one remote load a thread), the query's weights
-  // over the ranks, then this rank's share of the columns
-  cluster.sync();
-  for (int i = tid; i < K * cs; i += ATT_THREADS) {
-    const int k = i / cs, r = i - k * cs;
-    if (r == rank) continue;
-    const float* src = cluster.map_shared_rank(ml_s, r);
-    ml_s[k * MAX_CLUSTER + r] = src[k * MAX_CLUSTER + r];
-    ml_s[(kg + k) * MAX_CLUSTER + r] = src[(kg + k) * MAX_CLUSTER + r];
-  }
-  __syncthreads();
-  for (int k = tid; k < K; k += ATT_THREADS) {
-    const float* mk = ml_s + k * MAX_CLUSTER;
-    const float* lk = ml_s + (kg + k) * MAX_CLUSTER;
-    float M = -INFINITY;
-    for (int r = 0; r < cs; ++r) M = fmaxf(M, mk[r]);
-    float L = 0.0f;
-    for (int r = 0; r < cs; ++r) L += expf(mk[r] - M) * lk[r];  // rank order
-    const float den = fmaxf(L, 1e-9f);
-    for (int r = 0; r < cs; ++r) wt_s[k * MAX_CLUSTER + r] = expf(mk[r] - M) / den;
-  }
-  __syncthreads();
-  const int per = (D + cs - 1) / cs, c0 = rank * per;
-  const int cw = max(0, min(D - c0, per));
-  float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D;
-  for (int e = tid; e < K * cw; e += ATT_THREADS) {
-    const int k = e / cw, c = c0 + e % cw;
-    const size_t i = (size_t)k * D + c;
-    float v[MAX_CLUSTER];
+    // 5. every rank's partials are in its shared memory: gather each query's
+    // (m, l) of every rank (one remote load a thread), the query's weights
+    // over the ranks, then this rank's share of the columns
+    cluster.sync();
+    for (int i = tid; i < K * cs; i += ATT_THREADS) {
+      const int k = i / cs, r = i - k * cs;
+      if (r == rank) continue;
+      const float* src = cluster.map_shared_rank(ml_s, r);
+      ml_s[k * MAX_CLUSTER + r] = src[k * MAX_CLUSTER + r];
+      ml_s[(kg + k) * MAX_CLUSTER + r] = src[(kg + k) * MAX_CLUSTER + r];
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += ATT_THREADS) {
+      const float* mk = ml_s + k * MAX_CLUSTER;
+      const float* lk = ml_s + (kg + k) * MAX_CLUSTER;
+      float M = -INFINITY;
+      for (int r = 0; r < cs; ++r) M = fmaxf(M, mk[r]);
+      float L = 0.0f;
+      for (int r = 0; r < cs; ++r) L += expf(mk[r] - M) * lk[r];  // rank order
+      const float den = fmaxf(L, 1e-9f);
+      for (int r = 0; r < cs; ++r)
+        wt_s[k * MAX_CLUSTER + r] = expf(mk[r] - M) / den;
+    }
+    __syncthreads();
+    const int per = (D + cs - 1) / cs, c0 = rank * per;
+    const int cw = max(0, min(D - c0, per));
+    float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D;
+    for (int e = tid; e < K * cw; e += ATT_THREADS) {
+      const int k = e / cw, c = c0 + e % cw;
+      const size_t i = (size_t)k * D + c;
+      float v[MAX_CLUSTER];
 #pragma unroll
-    for (int r = 0; r < MAX_CLUSTER; ++r)      // every remote load in flight
-      if (r < cs) v[r] = cluster.map_shared_rank(acc_s, r)[i];
-    float s = 0.0f;
+      for (int r = 0; r < MAX_CLUSTER; ++r)      // every remote load in flight
+        if (r < cs) v[r] = cluster.map_shared_rank(acc_s, r)[i];
+      float s = 0.0f;
 #pragma unroll
-    for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
-      if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
-    ob[i] = s;
+      for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
+        if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
+      ob[i] = s;
+    }
+    // no block leaves while another still reads its shared memory
+    cluster.sync();
+  } else {
+    // 4.-5. per pass of dc columns of D (one pass unless a query's columns
+    // would not fit): the slice's unnormalised P.V, a thread per column and
+    // four queries, each emb element read once for the four; then every
+    // rank's partials are in its shared memory: on the first pass gather
+    // each query's (m, l) of every rank (one remote load a thread) and the
+    // query's weights over the ranks; then this rank's share of the pass's
+    // columns. The pass's last barrier keeps every block's partials alive
+    // until the others have read them.
+    for (int d0 = 0; d0 < D; d0 += dc) {
+      const int dn = min(dc, D - d0);
+      for (int i = tid; i < ((K + 3) / 4) * dn; i += ATT_THREADS) {
+        const int kq = (i / dn) * 4, c = i % dn;
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+        const float* w0 = w_s + kq * chunk;
+#pragma unroll 8
+        for (int n = 0; n < ns; ++n) {
+          const float e = eb[(size_t)n * D + d0 + c];
+          a0 = fmaf(w0[n], e, a0);
+          if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
+          if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
+          if (kq + 3 < K) a3 = fmaf(w0[3 * chunk + n], e, a3);
+        }
+        float* o = acc_s + (size_t)kq * dc + c;
+        o[0] = a0;
+        if (kq + 1 < K) o[dc] = a1;
+        if (kq + 2 < K) o[2 * dc] = a2;
+        if (kq + 3 < K) o[3 * dc] = a3;
+      }
+      cluster.sync();
+      if (d0 == 0) {
+        for (int i = tid; i < K * cs; i += ATT_THREADS) {
+          const int k = i / cs, r = i - k * cs;
+          if (r == rank) continue;
+          const float* src = cluster.map_shared_rank(ml_s, r);
+          ml_s[k * MAX_CLUSTER + r] = src[k * MAX_CLUSTER + r];
+          ml_s[(kg + k) * MAX_CLUSTER + r] = src[(kg + k) * MAX_CLUSTER + r];
+        }
+        __syncthreads();
+        for (int k = tid; k < K; k += ATT_THREADS) {
+          const float* mk = ml_s + k * MAX_CLUSTER;
+          const float* lk = ml_s + (kg + k) * MAX_CLUSTER;
+          float M = -INFINITY;
+          for (int r = 0; r < cs; ++r) M = fmaxf(M, mk[r]);
+          float L = 0.0f;
+          for (int r = 0; r < cs; ++r)           // rank order
+            L += expf(mk[r] - M) * lk[r];
+          const float den = fmaxf(L, 1e-9f);
+          for (int r = 0; r < cs; ++r)
+            wt_s[k * MAX_CLUSTER + r] = expf(mk[r] - M) / den;
+        }
+        __syncthreads();
+      }
+      const int per = (dn + cs - 1) / cs, c0 = rank * per;
+      const int cw = max(0, min(dn - c0, per));
+      float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D + d0;
+      for (int e = tid; e < K * cw; e += ATT_THREADS) {
+        const int k = e / cw, c = c0 + e % cw;
+        const size_t i = (size_t)k * dc + c;
+        float v[MAX_CLUSTER];
+#pragma unroll
+        for (int r = 0; r < MAX_CLUSTER; ++r)    // every remote load in flight
+          if (r < cs) v[r] = cluster.map_shared_rank(acc_s, r)[i];
+        float s = 0.0f;
+#pragma unroll
+        for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
+          if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
+        ob[(size_t)k * D + c] = s;
+      }
+      // no block overwrites its partials or leaves while another reads them
+      cluster.sync();
+    }
   }
-  // no block leaves while another still reads its shared memory
-  cluster.sync();
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -350,7 +485,7 @@ Plan plan_of(Kern kernel, const AttArgs& p, int clusters) {
   double best_cost = 0.0;
   for (int cs = 1; cs <= MAX_CLUSTER; ++cs) {
     const size_t smem =
-        smem_of(p.A, p.D, p.kg, cdiv(p.N, cs)).total * sizeof(float);
+        smem_of(p.ac, p.dc, p.kg, cdiv(p.N, cs)).total * sizeof(float);
     if (smem > SMEM_MAX ||
         cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -391,9 +526,9 @@ Plan plan_of(Kern kernel, const AttArgs& p, int clusters) {
   return best;
 }
 
-template <bool V4>
+template <bool V4, bool CHUNKED>
 int launch_group(const AttArgs& p, int B, int G, cudaStream_t st) {
-  auto kernel = additive_attention_kernel<V4>;
+  auto kernel = additive_attention_kernel<V4, CHUNKED>;
   const Plan plan = plan_of(kernel, p, B * G);
   if (!plan.cs) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -419,16 +554,28 @@ int launch_group(const AttArgs& p, int B, int G, cudaStream_t st) {
 }
 
 // The groups of K queries: the fewest equal groups of at most BEAM_GROUP
-// whose shared memory fits a block at the largest cluster. Sets p.kg and
-// returns their number.
+// whose shared memory fits a block at the largest cluster; where even one
+// query's does not (2 A + D past about 56,000), A and D are taken in
+// column chunks (halving the larger share, multiples of 4) until it fits.
+// Sets p.kg, p.ac and p.dc and returns the number of groups.
 int group_queries(AttArgs& p) {
   const int least_chunk = cdiv(p.N, MAX_CLUSTER);
+  auto fits = [&] {
+    return smem_of(p.ac, p.dc, p.kg, least_chunk).total * 4 <= SMEM_MAX;
+  };
+  p.ac = p.A;
+  p.dc = p.D;
   int G = cdiv(p.K, BEAM_GROUP);
   p.kg = cdiv(p.K, G);
-  while (p.kg > 1 &&
-         smem_of(p.A, p.D, p.kg, least_chunk).total * 4 > SMEM_MAX) {
+  while (p.kg > 1 && !fits()) {
     ++G;
     p.kg = cdiv(p.K, G);
+  }
+  while (!fits() && (p.ac > 4 || p.dc > 4)) {
+    if (2 * p.ac >= p.dc)
+      p.ac = (int)round4((size_t)cdiv(p.ac, 2));
+    else
+      p.dc = (int)round4((size_t)cdiv(p.dc, 2));
   }
   return cdiv(p.K, p.kg);
 }
@@ -446,8 +593,11 @@ int launch_attention(AttArgs p, int B, cudaStream_t st) {
   if (p.K < 1 || p.N < 1 || p.A < 1 || p.D < 1)
     return (int)cudaErrorInvalidValue;
   const int G = group_queries(p);
-  return rows16(p) ? launch_group<true>(p, B, G, st)
-                   : launch_group<false>(p, B, G, st);
+  if (p.ac < p.A || p.dc < p.D)
+    return rows16(p) ? launch_group<true, true>(p, B, G, st)
+                     : launch_group<false, true>(p, B, G, st);
+  return rows16(p) ? launch_group<true, false>(p, B, G, st)
+                   : launch_group<false, false>(p, B, G, st);
 }
 
 AttArgs att_args(const float* p_att, const float* q, const float* alpha,
@@ -512,7 +662,10 @@ extern "C" int additive_attention_plan(int B, int N, int A, int D, int K,
   if (B <= 0 || K < 1 || N < 1 || A < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   const int G = group_queries(p);
-  const Plan plan = plan_of(additive_attention_kernel<true>, p, B * G);
+  const Plan plan =
+      p.ac < p.A || p.dc < p.D
+          ? plan_of(additive_attention_kernel<true, true>, p, B * G)
+          : plan_of(additive_attention_kernel<true, false>, p, B * G);
   out[0] = plan.cs;
   out[1] = p.kg;
   out[2] = G;

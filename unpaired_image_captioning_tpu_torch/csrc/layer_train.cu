@@ -26,7 +26,8 @@
 // kernels launched from one C call per layer and direction:
 //
 //   - LayerNorm: ln_train.cu's kernels (ln_train.cuh); the backward adds the
-//     residual gradient into dx and sums d_scale / d_offset in block order;
+//     residual gradient into dx and sums d_scale / d_offset in a fixed
+//     order in the same launch;
 //   - products: train_gemm.cuh's f32 GEMM (no TF32, no tensor cores, no
 //     library call; 128 x 128 tiles, 8 x 8 register tiles, a 3-stage
 //     cp.async ring) with the dropout, relu and residual work in its
@@ -288,7 +289,7 @@ Work carve(float* base, int kind, int B, int T, int S, int d, int f,
   w.dattn = take(M * d);
   w.dqkv = take(M * 3 * d);
   w.attn = take(uic::attn_bwd_scratch_floats(B, H, T, S > T ? S : T));
-  w.ln_partial = take((size_t)uic::LN_BWD_MAX_BLOCKS * 2 * d);
+  w.ln_partial = take((size_t)uic::ln_bwd_ws_floats(d));
   w.wqkv_t = take((size_t)3 * d * d);
   w.wo_t = take((size_t)d * d);
   w.w1_t = take((size_t)f * d);
@@ -430,7 +431,7 @@ int ffn_bwd(const float* xa, const float* y, const float* hd, const float* g,
                                       EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(xa, ls, w.dy, g, dxa, dls, dlb, w.ln_partial, M, d,
-                     uic::ln_bwd_blocks(M), EPS, st);
+                     EPS, st);
 }
 
 // The self-attention half (the Pallas `_bwd_attn_kernel`): from g2 = d(x2)
@@ -462,7 +463,7 @@ int self_bwd(const float* x, const float* mask, int mask_rows,
                                       EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(x, ls, w.dy, g2, dx, dls, dlb, w.ln_partial, M, d,
-                     uic::ln_bwd_blocks(M), EPS, st);
+                     EPS, st);
 }
 
 // The cross-attention half (the Pallas `_bwd_cross_kernel`): from
@@ -494,7 +495,7 @@ int cross_bwd(const float* x2, const float* mk, const float* mv,
                                       EpiStore{w.dy, d}, st)))
     return err;
   return uic::ln_bwd(x2, ls, w.dy, g3, dx2, dls, dlb, w.ln_partial, M, d,
-                     uic::ln_bwd_blocks(M), EPS, st);
+                     EPS, st);
 }
 
 Dims dims(int B, int T, int S, int d, int f, int H, unsigned int thresh,

@@ -76,10 +76,15 @@
 // with scalar loads, the same sums otherwise. The two attentions keep the
 // kernels above for every shape they take and hand the rest to a second
 // kernel each: self_attn_kernel_chunked (a cache longer than a warp's
-// shared memory holds, in chunks with an online softmax, or rows off 16
-// bytes) and cross_attn_kernel_pieces (a slice whose K / V or a head whose
-// queries would not fit a block's shared memory, walked in pieces, or rows
-// off 16 bytes).
+// shared memory holds, in chunks with an online softmax, rows off 16
+// bytes, or a head past 7,200 columns, its q staged in column chunks whose
+// partial scores add up) and cross_attn_kernel_pieces (a slice whose K / V
+// or a head whose queries would not fit a block's shared memory, walked in
+// pieces, or rows off 16 bytes). A head so wide that one query and one
+// slot of it would not fit a block (past about 5,000 columns) runs
+// cross_attn_kernel_wide: a row a block, the scores summed over column
+// chunks of q, then the value pass column by column into the output row.
+// No width is refused.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -279,19 +284,28 @@ __host__ __device__ inline long long round4(long long n) {
   return (n + 3) & ~3LL;
 }
 
-// floats of shared memory a self-attention warp keeps: q [dh, padded to 4],
-// then the scores and physical rows of a chunk of tc positions [tc each,
-// padded to 4]
-__host__ __device__ inline long long self_warp_floats(int dh, int tc) {
-  return round4(dh) + 2 * round4(tc);
+// floats of shared memory a self-attention warp keeps: qc of q's columns
+// [padded to 4], then the scores and physical rows of a chunk of tc
+// positions [tc each, padded to 4]
+__host__ __device__ inline long long self_warp_floats(int qc, int tc) {
+  return round4(qc) + 2 * round4(tc);
 }
 
-// the positions a self-attention warp takes at once: all T where they fit
-// the block's shared memory, else the most that do (a multiple of 32)
+// the columns of q a warp of self_attn_kernel_chunked stages at once: the
+// whole head where that leaves room for 32 positions, else column chunks
+// of that many (a multiple of 4)
+constexpr long long SELF_WARP_FLOATS = MAX_SMEM / 4 / ROW_WARPS;
+__host__ __device__ inline int self_qcols(int dh) {
+  const long long most = SELF_WARP_FLOATS - 64;
+  return round4(dh) <= most ? (int)round4(dh) : (int)most;
+}
+
+// the positions a self-attention warp takes at once: all T where they and
+// the whole head fit the block's shared memory, else the most that fit
+// beside self_qcols(dh) columns of q (a multiple of 32)
 inline int self_chunk(int dh, int T) {
-  const long long per_warp = MAX_SMEM / 4 / ROW_WARPS;
-  if (self_warp_floats(dh, T) <= per_warp) return T;
-  return (int)(((per_warp - round4(dh)) / 2) & ~31LL);
+  if (self_warp_floats(dh, T) <= SELF_WARP_FLOATS) return T;
+  return (int)(((SELF_WARP_FLOATS - self_qcols(dh)) / 2) & ~31LL);
 }
 
 // q . k over dh elements (V4: dh / 4 float4 of each, four partial sums)
@@ -402,10 +416,14 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
 
 // The self-attention of self_attn_kernel for the shapes it does not take:
 // a cache longer than a warp's shared memory holds (about 3,400 slots at
-// dh 512) or rows off 16 bytes (V4 false: scalar loads). The positions run
-// in chunks of tc with an online softmax (a running max and sum, the
+// dh 512), rows off 16 bytes (V4 false: scalar loads) or a head too wide
+// to stage whole beside 32 positions (past 7,200 columns). The positions
+// run in chunks of tc with an online softmax (a running max and sum, the
 // output rescaled when the max grows); a single chunk normalises its
-// weights before P.V, as the reference does.
+// weights before P.V, as the reference does. A head past self_qcols(dh)
+// columns stages q in column chunks: each chunk's partial q . k is added
+// to the positions' scores before the softmax, and the value pass walks
+// the columns a lane at a time as it does for any width.
 template <bool V4>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
@@ -419,8 +437,10 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
   if (gw >= R * H) return;                 // no block barrier below
   const int r = gw / H, h = gw - r * H;
   const int dh4 = dh / 4;
-  float* qs = sa_smem + warp * self_warp_floats(dh, tc);
-  float* sc = qs + round4(dh);
+  const int qc = self_qcols(dh);
+  const bool whole_q = qc >= dh;           // q staged once
+  float* qs = sa_smem + warp * self_warp_floats(qc, tc);
+  float* sc = qs + round4(qc);
   int* krow = reinterpret_cast<int*>(sc + round4(tc));
   const int tr = t[r];
   const bool none = tr < 0;                // every position masked
@@ -430,32 +450,44 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
   const size_t hoff = (size_t)h * dh;
   float* orow = out + (size_t)r * d + hoff;
 
-  if (V4) {
-    const float4* q4 =
-        reinterpret_cast<const float4*>(q + (size_t)r * d + hoff);
-    for (int j = lane; j < dh4; j += 32)
-      reinterpret_cast<float4*>(qs)[j] = q4[j];
-  } else {
-    for (int j = lane; j < dh; j += 32) qs[j] = q[(size_t)r * d + hoff + j];
-  }
+  // q's columns [q0, q0 + qn) into qs
+  auto stage_q = [&](int q0, int qn) {
+    const float* qr = q + (size_t)r * d + hoff + q0;
+    if (V4) {
+      for (int j = lane; j < qn / 4; j += 32)
+        reinterpret_cast<float4*>(qs)[j] =
+            reinterpret_cast<const float4*>(qr)[j];
+    } else {
+      for (int j = lane; j < qn; j += 32) qs[j] = qr[j];
+    }
+  };
+  if (whole_q) stage_q(0, dh);
   __syncwarp();
 
   float M = -INFINITY, Z = 0.0f;           // running max and sum
   for (int c0 = 0; c0 < n; c0 += tc) {
     const int cn = min(tc, n - c0);
-    // scores: lanes over positions
+    // scores: lanes over positions, q . k summed over q's column chunks
+    for (int i = lane; i < cn; i += 32)
+      krow[i] = anc ? base + anc[(size_t)r * T + c0 + i] : r;
+    for (int q0 = 0; q0 < dh; q0 += qc) {
+      const int qn = min(qc, dh - q0);
+      if (!whole_q) {
+        __syncwarp();                      // the last chunk's q is read
+        stage_q(q0, qn);
+        __syncwarp();
+      }
+      for (int i = lane; i < cn; i += 32) {
+        if (none) break;
+        const float part = dot_row<V4>(
+            qs, cache_k + (size_t)krow[i] * cache_row +
+                    (size_t)(c0 + i) * d + hoff + q0, qn);
+        sc[i] = q0 == 0 ? part : sc[i] + part;
+      }
+    }
     float m = -INFINITY;
     for (int i = lane; i < cn; i += 32) {
-      const int tau = c0 + i;
-      const int kr = anc ? base + anc[(size_t)r * T + tau] : r;
-      krow[i] = kr;
-      float s = MASKED;
-      if (!none)
-        s = dot_row<V4>(qs,
-                        cache_k + (size_t)kr * cache_row + (size_t)tau * d +
-                            hoff,
-                        dh) /
-            scale_div;
+      const float s = none ? MASKED : sc[i] / scale_div;
       sc[i] = s;
       m = fmaxf(m, s);
     }
@@ -988,6 +1020,148 @@ __global__ void head_mean_kernel_scores(const float* __restrict__ attn_h,
   attn[e] = acc / (float)H;
 }
 
+// The cross-attention of a head too wide for cross_attn_kernel_pieces
+// (one query and one slot of it past a block's shared memory: dh past
+// about 5,000 at S > 448, 14,000 at S <= 64). Block (r, h) serves query row
+// r alone over its image's S slots, in pieces of WIDE_SUB, with no cluster,
+// so the running P.V lives in the output row itself:
+//   1. scores: q's columns staged WIDE_QCOLS at a time in shared memory, a
+//      warp a slot, lanes over the chunk's columns; each chunk's partial
+//      q . k is added to the slot's score before the softmax;
+//   2. the piece's max and sum (warps combined in order) update the
+//      running ones;
+//   3. the value pass, a thread a column (float4 where V4), chunk by
+//      chunk of the head's columns: the piece's P.V written, or added to
+//      the rescaled running sum; a single piece normalises its weights
+//      first, as the reference does, more pieces divide at the end.
+// With attn_h != null ([R, H, S + 2]) it writes the scores and the row's
+// max and sum, as cross_attn_kernel_pieces does.
+constexpr int WIDE_QCOLS = 4096;
+constexpr int WIDE_SUB = 4096;
+
+template <bool V4>
+__global__ void __launch_bounds__(CROSS_THREADS)
+cross_attn_kernel_wide(const float* __restrict__ q2,
+                       const float* __restrict__ ck,
+                       const float* __restrict__ cv,
+                       const float* __restrict__ mask, float* __restrict__ out,
+                       float* __restrict__ attn_h, int kb, int H, int dh,
+                       int d, int S, float scale_div) {
+  constexpr int NW = CROSS_THREADS / 32;
+  __shared__ __align__(16) float qs[WIDE_QCOLS];
+  __shared__ float ps[WIDE_SUB];
+  __shared__ float red[NW];
+  const int r = blockIdx.x, h = blockIdx.y, b = r / kb;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t hoff = (size_t)h * dh;
+  const float* qr = q2 + (size_t)r * d + hoff;
+  float* orow = out + (size_t)r * d + hoff;
+  float* arow = attn_h ? attn_h + ((size_t)r * H + h) * (S + 2) : nullptr;
+  const bool single = S <= WIDE_SUB;
+  float M = -INFINITY, Z = 0.0f;            // running max and sum
+
+  // the block's max (op: fmaxf) or sum of v, warps in order
+  auto block_reduce = [&](float v, bool is_max) {
+    v = is_max ? warp_max(v) : warp_sum(v);
+    __syncthreads();                        // red is free
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    float a = red[0];
+    for (int w = 1; w < NW; ++w) a = is_max ? fmaxf(a, red[w]) : a + red[w];
+    return a;
+  };
+
+  for (int p0 = 0; p0 < S; p0 += WIDE_SUB) {
+    const int np = min(WIDE_SUB, S - p0);
+    const size_t slot0 = (size_t)b * S + p0;
+    // 1. scores over q's column chunks
+    for (int q0 = 0; q0 < dh; q0 += WIDE_QCOLS) {
+      const int qn = min(WIDE_QCOLS, dh - q0);
+      __syncthreads();                      // qs and ps are free
+      for (int j = tid; j < qn; j += CROSS_THREADS) qs[j] = qr[q0 + j];
+      __syncthreads();
+      for (int s = warp; s < np; s += NW) {
+        const float* kr = ck + (slot0 + s) * d + hoff + q0;
+        float part = 0.0f;
+        if (V4) {
+          for (int j = lane; j < qn / 4; j += 32) {
+            const float4 a = reinterpret_cast<const float4*>(qs)[j];
+            const float4 k = reinterpret_cast<const float4*>(kr)[j];
+            part = fmaf(a.x, k.x, part);
+            part = fmaf(a.y, k.y, part);
+            part = fmaf(a.z, k.z, part);
+            part = fmaf(a.w, k.w, part);
+          }
+        } else {
+          for (int j = lane; j < qn; j += 32) part = fmaf(qs[j], kr[j], part);
+        }
+        part = warp_sum(part);
+        if (lane == 0) ps[s] = q0 == 0 ? part : ps[s] + part;
+      }
+    }
+    __syncthreads();
+    // 2. the piece's softmax terms and the running max and sum
+    float m = -INFINITY;
+    for (int s = tid; s < np; s += CROSS_THREADS) {
+      const float v = mask[slot0 + s] > 0.0f ? ps[s] / scale_div : MASKED;
+      ps[s] = v;
+      if (arow) arow[p0 + s] = v;
+      m = fmaxf(m, v);
+    }
+    const float mn = fmaxf(M, block_reduce(m, true));
+    const float alpha = expf(M - mn);       // 0 on the first piece
+    float l = 0.0f;
+    for (int s = tid; s < np; s += CROSS_THREADS) {
+      const float e = expf(ps[s] - mn);
+      ps[s] = e;
+      l += e;
+    }
+    Z = Z * alpha + block_reduce(l, false);
+    M = mn;
+    if (single)
+      for (int s = tid; s < np; s += CROSS_THREADS) ps[s] = ps[s] / Z;
+    __syncthreads();
+    // 3. the piece's P.V, a thread a column, into the output row
+    const float* vr = cv + slot0 * d + hoff;
+    if (V4) {
+      for (int c4 = tid; c4 < dh / 4; c4 += CROSS_THREADS) {
+        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int s = 0; s < np; ++s)
+          acc = fma4(ps[s],
+                     reinterpret_cast<const float4*>(vr + (size_t)s * d)[c4],
+                     acc);
+        float4* o = reinterpret_cast<float4*>(orow) + c4;
+        if (p0 > 0) {
+          const float4 w = *o;
+          acc = make_float4(fmaf(w.x, alpha, acc.x), fmaf(w.y, alpha, acc.y),
+                            fmaf(w.z, alpha, acc.z), fmaf(w.w, alpha, acc.w));
+        }
+        *o = acc;
+      }
+    } else {
+      for (int c = tid; c < dh; c += CROSS_THREADS) {
+        float acc = 0.0f;
+        for (int s = 0; s < np; ++s)
+          acc = fmaf(ps[s], vr[(size_t)s * d + c], acc);
+        orow[c] = p0 > 0 ? fmaf(orow[c], alpha, acc) : acc;
+      }
+    }
+  }
+  if (!single)
+    for (int c = tid; c < dh; c += CROSS_THREADS) orow[c] = orow[c] / Z;
+  if (arow && tid == 0) {
+    arow[S] = M;
+    arow[S + 1] = Z;
+  }
+}
+
+// whether a head of width dh is past cross_attn_kernel_pieces: one query
+// and one slot of it do not fit a block's shared memory
+inline bool cross_wide(int S, int kb, int dh) {
+  const PieceSplit sp = piece_split(S, kb, dh);
+  return piece_floats(sp.kq, dh, sp.sub, sp.cs) * 4 > MAX_SMEM;
+}
+
 // the dynamic shared memory a launch needs past 48 KB, opted into on the
 // current device before the launch
 template <typename K>
@@ -1028,31 +1202,15 @@ Layer layer_of(const float* const* w, int l, int d, int dff) {
   return y;
 }
 
-// 0 if the kernels take a step of kb beams an image, width d in H heads,
-// d_ff, S source slots and T cache slots; else the limit it breaks: 1, d
-// does not split into H heads, as the JAX package's head split requires
+// Whether the kernels refuse d in H heads: only where d does not split into
+// H heads, as the JAX package's head split requires
 // (unpaired_image_captioning_tpu/ops/transformer_decode.py:298, a reshape
-// of d into H heads); 2, a head so wide (past about 5,000) that one query
-// and one slot of it do not fit a block's shared memory. Every other shape
-// runs: widths that are not multiples of 4 take the scalar instances, a
-// long cache the self-attention in chunks, many source slots or wide heads
-// the cross-attention in pieces. smem (or null) receives the two
-// attentions' bytes.
-int refuses(int kb, int d, int dff, int H, int S, int T, long long* smem) {
-  (void)dff;
-  if (H <= 0 || d % H) return 1;
-  const int dh = d / H;
-  const PieceSplit sp = piece_split(S, kb, dh);
-  const int tc = self_chunk(dh, T);
-  const long long self_b = ROW_WARPS * self_warp_floats(dh, tc) * 4;
-  const long long cross_b = piece_floats(sp.kq, dh, sp.sub, sp.cs) * 4;
-  if (smem) {
-    smem[0] = self_b;
-    smem[1] = cross_b;
-  }
-  if (tc < 1 || self_b > MAX_SMEM || cross_b > MAX_SMEM) return 2;
-  return 0;
-}
+// of d into H heads). Every other shape runs: widths that are not
+// multiples of 4 take the scalar instances, a long cache or a head past
+// 7,200 columns the self-attention in chunks (of positions, of q's
+// columns), many source slots the cross-attention in pieces and a head
+// past what pieces take cross_attn_kernel_wide.
+bool refuses(int d, int H) { return H <= 0 || d % H; }
 
 // the launch of a cluster kernel: grid, blocks of `threads`, `smem` bytes,
 // clusters of cs along x
@@ -1125,10 +1283,13 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
   // memory holds them, else in chunks)
   {
     const int tc = self_chunk(dh, s.T);
+    const bool whole = v4 && tc == s.T;
     const size_t smem =
-        (size_t)ROW_WARPS * self_warp_floats(dh, tc) * sizeof(float);
+        (size_t)ROW_WARPS * sizeof(float) *
+        (whole ? self_warp_floats(dh, tc)
+               : self_warp_floats(self_qcols(dh), tc));
     const int blocks = (R * s.H + ROW_WARPS - 1) / ROW_WARPS;
-    if (v4 && tc == s.T) {
+    if (whole) {
       if ((err = smem_opt_in(self_attn_kernel, smem))) return err;
       self_attn_kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
           s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
@@ -1162,7 +1323,8 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
     return err;
 
   // 7. cross-attention over the image's unexpanded K/V: each block's
-  // slice at once where its shared memory holds it, else in pieces
+  // slice at once where its shared memory holds it, else in pieces, and a
+  // head too wide for pieces a row at a time
   {
     float* attn_h = last ? s.attn_h : nullptr;
     const CrossSplit sp = cross_split(s.S, kb, dh);
@@ -1184,18 +1346,27 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
         if ((err = (int)cudaGetLastError())) return err;
       }
     } else {
-      const PieceSplit pp = piece_split(s.S, kb, dh);
-      const size_t smem =
-          (size_t)piece_floats(pp.kq, dh, pp.sub, pp.cs) * sizeof(float);
-      auto kernel = v4 ? cross_attn_kernel_pieces<true>
-                       : cross_attn_kernel_pieces<false>;
-      if ((err = smem_opt_in(kernel, smem))) return err;
-      if ((err = launch_clusters(kernel, dim3(pp.cs, s.H, s.B * pp.qg),
-                                 CROSS_THREADS, smem, pp.cs, st,
-                                 (const float*)s.q, ck, cv, s.mask, s.att,
-                                 attn_h, kb, s.H, dh, d, s.S, pp.chunk,
-                                 pp.sub, pp.qg, pp.kq, scale_div)))
-        return err;
+      if (cross_wide(s.S, kb, dh)) {
+        auto kernel = v4 ? cross_attn_kernel_wide<true>
+                         : cross_attn_kernel_wide<false>;
+        kernel<<<dim3(R, s.H), CROSS_THREADS, 0, st>>>(
+            s.q, ck, cv, s.mask, s.att, attn_h, kb, s.H, dh, d, s.S,
+            scale_div);
+        if ((err = (int)cudaGetLastError())) return err;
+      } else {
+        const PieceSplit pp = piece_split(s.S, kb, dh);
+        const size_t smem =
+            (size_t)piece_floats(pp.kq, dh, pp.sub, pp.cs) * sizeof(float);
+        auto kernel = v4 ? cross_attn_kernel_pieces<true>
+                         : cross_attn_kernel_pieces<false>;
+        if ((err = smem_opt_in(kernel, smem))) return err;
+        if ((err = launch_clusters(kernel, dim3(pp.cs, s.H, s.B * pp.qg),
+                                   CROSS_THREADS, smem, pp.cs, st,
+                                   (const float*)s.q, ck, cv, s.mask, s.att,
+                                   attn_h, kb, s.H, dh, d, s.S, pp.chunk,
+                                   pp.sub, pp.qg, pp.kq, scale_div)))
+          return err;
+      }
       if (attn_h) {
         const int n = R * s.S;
         head_mean_kernel_scores<<<(n + 255) / 256, 256, 0, st>>>(
@@ -1224,13 +1395,6 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
 
 }  // namespace
 
-// The shape check of the two entries below, for the wrapper to name the
-// limit a shape breaks (see refuses); smem int64 [2] or null.
-extern "C" int tfd_refuses(int kb, int d, int dff, int H, int S, int T,
-                           long long* smem) {
-  return refuses(kb, d, dff, H, S, T, smem);
-}
-
 // One decode step through all L layers. x_in [R, d] is read, x_out [R, d]
 // receives the result; t [R] int32; ck/cv [L, B, S, d]; mask [B, S] f32;
 // cache_k/v [R, L, T, d], slot t[r] of every layer written in place; anc
@@ -1238,7 +1402,7 @@ extern "C" int tfd_refuses(int kb, int d, int dff, int H, int S, int T,
 // WKEYS order; scratch q, att [R, d], h1 [R, dff]; with attn != null,
 // attn_h [R, H, S + 2] scratch and attn [R, S] receive the last layer's
 // mean-head cross-attention weights. Returns the first CUDA error, or
-// cudaErrorInvalidValue for a shape the kernels do not take (tfd_refuses).
+// cudaErrorInvalidValue for a shape the kernels do not take (refuses).
 extern "C" int tfd_stack_step_f32(const float* x_in, float* x_out,
                                   const int* t, const float* ck,
                                   const float* cv, const float* mask,
@@ -1249,7 +1413,7 @@ extern "C" int tfd_stack_step_f32(const float* x_in, float* x_out,
                                   int S, int d, int T, int dff, int H, int L,
                                   cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  if (B <= 0 || R % B || refuses(R / B, d, dff, H, S, T, nullptr))
+  if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
   const Step s = {x_out, t, anc, mask, q, att, h1, attn_h, attn,
                   R, B, S, d, T, dff, H};
@@ -1277,7 +1441,7 @@ extern "C" int tfd_layer_step_f32(const float* x_in, float* x_out,
                                   int T, int dff, int H,
                                   cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
-  if (B <= 0 || R % B || refuses(R / B, d, dff, H, S, T, nullptr))
+  if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
   const Step s = {x_out, t, nullptr, mask, q, att, h1, nullptr, nullptr,
                   R, B, S, d, T, dff, H};

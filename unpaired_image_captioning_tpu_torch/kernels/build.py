@@ -56,9 +56,6 @@ SIGNATURES = {
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
     # q, att, h1, R, B, S, d, T, d_ff, H, stream
     "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
-    # kb, d, d_ff, H, S, T, out int64 [2] (the attentions' shared memory)
-    # -> 0, or the limit the shape breaks
-    "tfd_refuses": (_I,) * 6 + (_P,),
     # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
     # keep_div, dropout, stream
     "mha_train_fwd_f32": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _P),
@@ -69,8 +66,10 @@ SIGNATURES = {
     "mha_train_bwd_ws_f32": (_I,) * 4 + (_P,),
     # x, scale, offset, y, rows, d, eps, stream
     "ln_train_fwd_f32": (_P,) * 4 + (_I, _I, _F, _P),
-    # x, scale, g, dx, dscale, doffset, partial, rows, d, nblk, eps, stream
-    "ln_train_bwd_f32": (_P,) * 7 + (_I,) * 3 + (_F, _P),
+    # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, stream
+    "ln_train_bwd_f32": (_P,) * 7 + (_I, _I, _F, _P),
+    # d, out int64 [1] -> floats of the backward's scratch
+    "ln_train_bwd_ws_f32": (_I, _P),
     # kind, B, T, S, d, f, H, out int64 [1] -> floats of a layer
     # backward's scratch
     "layer_train_ws_f32": (_I,) * 7 + (_P,),

@@ -13,6 +13,8 @@ plain version. `fwd_launches` and `bwd_launches` count kernel launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops.ln_train import ln_train_plain, ln_train_plain_bwd
@@ -21,15 +23,11 @@ from . import build
 fwd_launches = 0
 bwd_launches = 0
 
-MAX_SMEM = 227 * 1024   # bytes of shared memory a Hopper block can opt into
-BWD_WARPS = 8           # WARPS of the CUDA source
-MAX_BWD_BLOCKS = 264    # two blocks per SM of the H100's 132
-
 
 def _check(name: str, tensors: dict, d: int, device) -> None:
-    if d < 2 or BWD_WARPS * 2 * d * 4 > MAX_SMEM:
+    if d < 2:
         raise ValueError(f"{name}: width {d} outside what the kernel takes "
-                         f"(2 to {MAX_SMEM // (BWD_WARPS * 8)})")
+                         "(at least 2: the variance divides by d - 1)")
     for key, (t, shape) in tensors.items():
         if t.device != device or t.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be f32 on {device}, got "
@@ -73,17 +71,19 @@ def ln_train_bwd(x, scale, g, eps: float = 1e-6):
     _check("ln_train_bwd", {"x": (x, x.shape), "scale": (scale, (d,)),
                             "g": (g, x.shape)}, d, x.device)
     rows = x.numel() // d
-    nblk = max(1, min(MAX_BWD_BLOCKS, -(-rows // BWD_WARPS)))
     dx = torch.empty_like(x)
     d_scale = torch.empty((d,), dtype=torch.float32, device=x.device)
     d_offset = torch.empty_like(d_scale)
-    partial = torch.empty((nblk, 2, d), dtype=torch.float32, device=x.device)
     lib = build.load()
+    n = ctypes.c_longlong()
+    build.check(lib.ln_train_bwd_ws_f32(d, ctypes.byref(n)),
+                "ln_train_bwd_ws_f32")
+    ws = torch.empty((n.value,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ln_train_bwd_f32(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
                                dx.data_ptr(), d_scale.data_ptr(),
-                               d_offset.data_ptr(), partial.data_ptr(), rows,
-                               d, nblk, eps, stream)
+                               d_offset.data_ptr(), ws.data_ptr(), rows, d,
+                               eps, stream)
     build.check(err, "ln_train_bwd_f32")
     bwd_launches += 1
     return dx, d_scale, d_offset
