@@ -73,6 +73,20 @@ against the CPU; one step of the BiLSTM NMT and one of the joint step are
 compared with the CPU, every parameter that moves on
 the CPU moving on the card too.
 
+SCST (self-critical training) at bench.py's point: the df table of a
+seeded corpus of 2,000 images x 5 captions from the port's
+`prepro_ngrams.compute_df`, on the card; CIDEr-D, BLEU-4 and the advantage
+on given sequences [50, 16] against gts [50, 5, 16], card vs CPU, and the
+reward's device time and operations; `Trainer._rl_loss` and its gradient
+on given sequences for two images of denseatt and of the transformer
+captioner, card vs CPU; `Trainer.train(sc_flag=True)` at batch 50, 2 + 5
+steps of each family (144 lstm_cell launches a denseatt step: sample,
+greedy baseline and recompute; 32 decoder-stack launches a transformer
+step) and 2 + 2 joint steps with the BiLSTM NMT, each with a reward above
+0 and its captioner's parameters moved; one denseatt step with
+STEP_FUSION, whose decodes launch the fused step and whose recompute
+(under grad) does not.
+
 The raw-image path: the image front end (B11) is held against its plain
 version at [16, 480, 640, 3] -> 448 x 448 and at the loader's identity
 size (there bit-equal to the host's `preprocess_images`); 16 seeded uint8
@@ -289,12 +303,15 @@ LSTM_SHAPES = [
     ("ragged, 4-byte copies", 5, 37, 50, True),
 ]
 # (label, B, kb, L, T, S, d, d_ff, heads, lazy anc + want_attn): the decoder
-# step at the transformer pivot's two beams; then 2-layer stacks at head
+# step at the transformer pivot's two beams and at one beam over the SCST
+# batch (its sample and greedy decodes); then 2-layer stacks at head
 # widths 96 and 256, at 32 beams of dh 256, and at head widths 6, 50 (with
 # a d_ff of 510) and 512
 TFD_SHAPES = [
     ("caption beam 5 x 50", 50, 5, 6, 16, 196, 512, 512, 8, False),
     ("nmt beam 15 x 50", 50, 15, 6, 20, 16, 512, 2048, 8, True),
+    ("caption greedy / sample, batch 50", 50, 1, 6, 16, 196, 512, 512, 8,
+     False),
     ("caption beam 5 x 50, dh 96", 50, 5, 2, 16, 196, 768, 768, 8, False),
     ("caption beam 5 x 50, dh 256", 50, 5, 2, 16, 196, 512, 512, 2, False),
     ("nmt beam 15 x 50, dh 256", 50, 15, 2, 20, 16, 512, 2048, 2, True),
@@ -361,6 +378,24 @@ NMT_ROUTES = [("BiLSTM NMT", (False,), TRAIN_STEPS,
 # denseatt 3 * 17 cells, the NMT's and the teacher's forward
 JOINT_ROUTES = [("joint denseatt + BiLSTM NMT", (False,), TRAIN_STEPS,
                  {"lstm_cell": 3 * _T1 + 2 * NMT_CELLS})]
+# SCST at bench.py's point (bench.py:137-158; the transformer's widths
+# bench.py:268-274): the df table of a seeded corpus of SCST_IMAGES images
+# x SCST_REFS captions of 8-16 words, word ranks drawn as in text (p ~
+# 1 / rank), the batch's gts [50, 5, 16] its first 50 images. Random
+# weights never end a decode early: 16 steps a decode.
+SCST_IMAGES, SCST_REFS = 2000, 5
+SCST_TOL = 1e-5   # rewards card vs CPU: |diff| <= SCST_TOL * max(1, |cpu|)
+SCST_AGREE_IMAGES = 4  # the greedy baseline decode card vs CPU
+_T = CAP["seq_length"]
+# (label, flags, timed steps, launches a step): the sample and the greedy
+# baseline (3 cells or one decoder-stack call a decode step) and the
+# recompute (3 cells an input; the transformer's runs no kernel of csrc/)
+SCST_ROUTES = [("denseatt SCST", (False,), ROUTE_STEPS,
+                {"lstm_cell": 3 * _T * 3}),
+               ("transformer SCST", (True, False), ROUTE_STEPS,
+                {"transformer_decode_stack": 2 * _T})]
+SCST_JOINT_ROUTE = ("joint denseatt SCST + BiLSTM NMT", (False,), 2,
+                    {"lstm_cell": 3 * _T * 3 + 2 * NMT_CELLS})
 # (label, B, T, d, d_ff, heads): the whole encoder layer (B6) at the
 # transformer captioner's training shape (196 slots, image 1 padded past
 # 150) and at the transformer NMT's (sources of 6-16 tokens padded to 16)
@@ -2729,18 +2764,20 @@ def _train_kernel_flag(train_kernel: bool):
 def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
                 set_flags=_route_flags, kernel_names=TRAIN_KERNELS,
                 model: str = "transformer", make_batch=None,
-                trainer_kw=None) -> tuple:
-    """XE training of full-width models (the transformer captioner by
-    default) through `Trainer.train` (built on the card, its default, with
-    `trainer_kw`) on one route (label, flags for `set_flags`, timed steps,
-    launches a step): 2 warm-up and the route's timed steps on one random
-    batch of 50 from `make_batch` (`make_train_batch` by default). Every
-    loss must be finite and the last below the first, and each step must
-    launch each kernel the route's number of times. Tokens a step: the
-    captioner's 50 x 17 when it trains, plus the NMT's non-PAD target
-    words. Returns (the launches of the timed steps, mean step wall in s,
-    one step's device busy in ms or None); with `detail`, logs the step's
-    largest device operations too."""
+                trainer_kw=None, sc_flag: bool = False) -> tuple:
+    """XE training (SCST with `sc_flag`) of full-width models (the
+    transformer captioner by default) through `Trainer.train` (built on the
+    card, its default, with `trainer_kw`) on one route (label, flags for
+    `set_flags`, timed steps, launches a step): 2 warm-up and the route's
+    timed steps on one random batch of 50 from `make_batch`
+    (`make_train_batch` by default). Every loss must be finite and each
+    step must launch each kernel the route's number of times; in XE the
+    last loss must be below the first, in SCST the reward must be above 0
+    in some step and the timed steps must change the captioner's
+    parameters. Tokens a step: the captioner's 50 x 17 when it trains, plus
+    the NMT's non-PAD target words. Returns (the launches of the timed
+    steps, mean step wall in s, one step's device busy in ms or None); with
+    `detail`, logs the step's largest device operations too."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.config import Config
@@ -2756,9 +2793,11 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
                        if m is not None for p in m.parameters())
         batch = (make_batch or make_train_batch)(np.random.RandomState(0),
                                                  cfg.batch_size)
-        losses = [trainer.train(batch)["total_loss"]
+        losses = [trainer.train(batch, sc_flag=sc_flag)["total_loss"]
                   for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
+        if sc_flag:
+            p0 = [p.detach().clone() for p in trainer.i2t_model.parameters()]
 
         def counts():
             return {k: getattr(mod, attr)
@@ -2766,14 +2805,15 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
 
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        walls, words = [], []
+        walls, words, rewards = [], [], []
         for step in range(steps):
             before = counts()
             t0 = time.perf_counter()
-            out = trainer.train(batch)                      # host floats
+            out = trainer.train(batch, sc_flag=sc_flag)     # host floats
             walls.append(time.perf_counter() - t0)
             losses.append(out["total_loss"])
             words.append(out.get("nmt_words", 0.0))
+            rewards.append(out.get("avg_reward", 0.0))
             grew = {k: n - before[k] for k, n in counts().items()}
             if grew != per_step:
                 raise AssertionError(f"training ({label}) step {step} "
@@ -2781,7 +2821,20 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
         launches = counts()
         if not all(np.isfinite(losses)):
             raise AssertionError(f"non-finite training loss: {losses}")
-        if not losses[-1] < losses[0]:
+        if sc_flag:
+            moved = sum(not torch.equal(p, q) for p, q in
+                        zip(trainer.i2t_model.parameters(), p0))
+            log(f"training [{label}]: avg_reward "
+                + ", ".join(f"{x:.4f}" for x in rewards)
+                + f"; {moved} of {len(p0)} captioner parameters changed "
+                "over the timed steps")
+            if not max(rewards) > 0:
+                raise AssertionError(f"SCST ({label}): every sample's reward "
+                                     "was 0 in every step")
+            if not moved:
+                raise AssertionError(f"SCST ({label}): the steps left the "
+                                     "captioner's parameters where they were")
+        elif not losses[-1] < losses[0]:
             raise AssertionError(f"the loss did not fall on one batch: "
                                  f"{losses}")
         wall = statistics.mean(walls)
@@ -2789,7 +2842,8 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
                       if cfg.i2t_train_flag else 0)
         nmt_words = statistics.mean(words)
         tokens = cap_tokens + nmt_words
-        log(f"training [{label}]: {model} XE, {n_params / 1e6:.2f} M "
+        log(f"training [{label}]: {model} {'SCST' if sc_flag else 'XE'}, "
+            f"{n_params / 1e6:.2f} M "
             f"parameters, batch {cfg.batch_size}, {steps} steps after "
             f"{TRAIN_WARMUP} warm-up: step wall mean {wall * 1e3:.1f} ms (min "
             f"{min(walls) * 1e3:.1f}, max {max(walls) * 1e3:.1f}), "
@@ -2811,7 +2865,8 @@ def phase_train(route, counters: dict, detail: bool, *, cfg_dict=TRAIN,
                 f"({nbytes(*host) / 1e6:.1f} "
                 f"MB) takes {(time.perf_counter() - t0) * 1e3:.1f} ms of "
                 "host wall")
-        busy, per_name = device_ms(lambda: trainer.train(batch))
+        busy, per_name = device_ms(lambda: trainer.train(batch,
+                                                         sc_flag=sc_flag))
         if busy is None:
             log(f"training [{label}]: device busy not measured (the profiler "
                 "recorded no device time)")
@@ -3418,6 +3473,297 @@ def phase_nmt_train_agreement(dev, joint: bool) -> None:
                              f"the card: {frozen}")
     if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
         raise AssertionError(f"card and cpu {label} training steps disagree")
+
+
+# ---------------------------------------------------------------------------
+# SCST: on-device rewards, the self-critical loss, Trainer.train(sc_flag)
+# ---------------------------------------------------------------------------
+
+def make_scst_corpus(rs):
+    """Caption rows [SCST_IMAGES * SCST_REFS, 16] of 8-16 words (0-padded)
+    whose ranks follow p ~ 1 / rank over the captioner's vocabulary, with
+    each image's 1-based inclusive row range (prepro_labels' layout)."""
+    v, t = CAP["vocab_size"], CAP["seq_length"]
+    p = 1.0 / np.arange(1, v + 1)
+    n = SCST_IMAGES * SCST_REFS
+    words = rs.choice(v, size=(n, t), p=p / p.sum()) + 1
+    lengths = rs.randint(8, t + 1, n)
+    labels = np.where(np.arange(t)[None, :] < lengths[:, None], words, 0)
+    start = np.arange(SCST_IMAGES) * SCST_REFS + 1
+    return labels.astype(np.int32), start, start + SCST_REFS - 1
+
+
+def scst_gts(labels, n: int) -> dict:
+    """The gts of the corpus's first n images and their masks."""
+    return {"gts": labels[:n * SCST_REFS].reshape(n, SCST_REFS, -1),
+            "gts_masks": np.ones((n, SCST_REFS), np.float32)}
+
+
+def _given_seqs(rs, gts):
+    """(gen, greedy) [B, 16] given sequences: gen row i is its reference
+    i % 5 with a quarter of its words replaced and cut at 4-16 words;
+    greedy rows are random words."""
+    b, _, t = gts.shape
+    v = CAP["vocab_size"]
+    gen = gts[np.arange(b), np.arange(b) % SCST_REFS].astype(np.int64)
+    swap = (rs.rand(b, t) < 0.25) & (gen > 0)
+    gen = np.where(swap, rs.randint(1, v + 1, (b, t)), gen)
+    gen[np.arange(t)[None, :] >= rs.randint(4, t + 1, b)[:, None]] = 0
+    return gen, rs.randint(1, v + 1, (b, t)).astype(np.int64)
+
+
+def phase_scst_rewards(dev, table, gts: dict) -> None:
+    """CIDEr-D, BLEU-4 and the advantage on given sequences at the step's
+    shapes ([50, 16] against gts [50, 5, 16]), card vs CPU within
+    SCST_TOL * max(1, |cpu|); then the device time and launches of the
+    reward as the trainer computes it (both CIDEr-D calls)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.losses.rewards import (
+        get_self_critical_reward)
+    from unpaired_image_captioning_tpu_torch.ops import cider as tc
+
+    gen, greedy = _given_seqs(np.random.RandomState(7), gts["gts"])
+    cpu_table = tc.DfTable(table.h1.cpu(), table.h2.cpu(), table.df.cpu(),
+                           table.log_ref_len)
+    host = [torch.from_numpy(np.asarray(x)) for x in (
+        gen, greedy, gts["gts"], gts["gts_masks"])]
+    on_dev = [x.to(dev) for x in host]
+    fns = {"cider_d": lambda a, tab: tc.cider_d(a[0], a[2], a[3], tab),
+           "bleu4": lambda a, tab: tc.bleu4(a[0], a[2], a[3]),
+           "advantage": lambda a, tab: get_self_critical_reward(
+               *a, tab)[0]}
+    errs = {}
+    for name, fn in fns.items():
+        want = fn(host, cpu_table)
+        got = fn(on_dev, table)
+        if got.device != dev:
+            raise AssertionError(f"SCST reward {name} left the card")
+        errs[name] = float(((got.cpu() - want).abs()
+                            / torch.clamp(want.abs(), min=1.0)).max())
+        if name == "cider_d":
+            scoring = int((want > 0).sum())
+    log(f"SCST rewards: card vs cpu on given sequences [50, 16] against gts "
+        f"[50, 5, 16] (df table of {SCST_IMAGES} x {SCST_REFS} captions, "
+        f"{table.size} slots): max|diff| / max(1, |cpu|) "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol {SCST_TOL}); CIDEr-D above 0 on {scoring} of 50 rows")
+    if max(errs.values()) > SCST_TOL or not scoring:
+        raise AssertionError("card and cpu SCST rewards disagree")
+    busy, per_name = device_ms(lambda: get_self_critical_reward(*on_dev,
+                                                                table))
+    ms = time_ms(lambda: get_self_critical_reward(*on_dev, table), iters=20)
+    log("SCST reward (sample and greedy, both CIDEr-D calls): "
+        + (f"device {busy:.4f} ms in "
+           f"{sum(n for _, n in per_name.values())} device operations"
+           if busy is not None else "device time not measured")
+        + f"; {ms:.4f} ms a call by CUDA events (host launches included)")
+
+
+def phase_scst_rl_agreement(dev, cfg_dict: dict, label: str, table,
+                            labels) -> None:
+    """Card (kernels) vs CPU (plain versions) from the same initial weights
+    at full width: the greedy `sample` of SCST_AGREE_IMAGES images (the
+    baseline decode; identical tokens, logprobs within AGREE_TOL), then
+    `Trainer._rl_loss` and its gradient on one given (gen, greedy) pair at
+    the step's batch of 50: the loss within TRAIN_TOL relative, the
+    samples' rewards within SCST_TOL and each parameter's gradient within
+    TRAIN_TOL * max(1, max|g|)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.ops import cider as tc
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    b = cfg_dict["batch_size"]
+    batch = dict(make_train_batch(np.random.RandomState(4), b),
+                 **scst_gts(labels, b))
+    seqs = _given_seqs(np.random.RandomState(5), batch["gts"])
+    cpu = torch.device("cpu")
+    tables = {dev.type: table, "cpu": tc.DfTable(
+        table.h1.cpu(), table.h2.cpu(), table.df.cpu(), table.log_ref_len)}
+    n = SCST_AGREE_IMAGES
+    got = {}
+    for device in (dev, cpu):
+        trainer = Trainer(Config(**cfg_dict), device=device,
+                          df_table=tables[device.type])
+        model = trainer.i2t_model
+        p0 = {k: v.detach().cpu().clone() for k, v in
+              model.state_dict().items()}
+        up = trainer._batch(batch)
+        feats = Features(fc_feats=up["fc_feats"], att_feats=up["att_feats"],
+                         att_masks=up["att_masks"])
+        few = Features(fc_feats=up["fc_feats"][:n],
+                       att_feats=up["att_feats"][:n],
+                       att_masks=up["att_masks"][:n])
+        g_seq, g_lp = model.sample(few, greedy=True)
+        loss, rewards = trainer._rl_loss(
+            feats, *(torch.from_numpy(x).to(device) for x in seqs),
+            up["gts"], up["gts_masks"])
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).detach().cpu()
+                 for k, p in model.named_parameters()}
+        got[device.type] = (loss.item(), rewards.cpu(), grads, p0,
+                            g_seq.cpu(), g_lp.cpu())
+        del trainer, model, feats, loss
+    (lg, rg, gg, p0g, sg, lpg), (lc, rc, gc, p0c, sc, lpc) = (
+        got[dev.type], got["cpu"])
+    if not all(torch.equal(p0g[k], p0c[k]) for k in p0c):
+        raise AssertionError("card and cpu trainers start from other weights")
+    same = torch.equal(sg, sc)
+    gap = float((lpg - lpc).abs().max())
+    log(f"SCST greedy agreement [{label}]: {n} images card vs cpu, tokens "
+        f"{'identical' if same else 'DIFFER'}, logprobs max|diff| "
+        f"{gap:.3g} (tol {AGREE_TOL}), {_greedy_steps(sc)} steps")
+    if not (same and gap <= AGREE_TOL):
+        raise AssertionError(f"card and cpu greedy samples disagree "
+                             f"({label})")
+    loss_err = abs(lg - lc) / max(abs(lc), 1e-30)
+    reward_err = float((rg - rc).abs().max())
+    worst, worst_key = 0.0, None
+    for k, want in gc.items():
+        e = float((gg[k] - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        if e > worst:
+            worst, worst_key = e, k
+    nonzero = sum(bool(g.abs().max() > 0) for g in gc.values())
+    log(f"SCST loss agreement [{label}]: card vs cpu, _rl_loss on given "
+        f"sequences, {b} images: loss {lg:.6f} vs {lc:.6f} (relative "
+        f"{loss_err:.3g}, tol {TRAIN_TOL}); rewards max|diff| "
+        f"{reward_err:.3g} (tol {SCST_TOL}), mean {float(rc.mean()):.4f}; "
+        f"gradients max|diff| / max(1, max|g|) {worst:.3g} at {worst_key} "
+        f"(tol {TRAIN_TOL}); {nonzero} of {len(gc)} gradients nonzero on "
+        "the cpu")
+    if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL
+            and reward_err <= SCST_TOL and lc != 0.0 and nonzero):
+        raise AssertionError(f"card and cpu SCST losses disagree ({label})")
+
+
+def phase_scst_step_fusion(dev, table, labels) -> int:
+    """The STEP_FUSION repair: one denseatt SCST step at batch 50 with the
+    flag set, then the same step from the same seed and table on the
+    default route. With the flag the decodes (no gradient) launch the
+    fused step once a decode step, and the recompute (under grad) takes
+    the unfused route, so both steps must sample the same tokens and give
+    the same loss within TRAIN_TOL relative. Returns the fused step's
+    launches in that step."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    batch = dict(make_train_batch(np.random.RandomState(0), 50),
+                 **scst_gts(labels, 50))
+
+    def step(flags):
+        trainer = Trainer(Config(**DTRAIN), df_table=table)
+        model, seqs = trainer.i2t_model, []
+
+        def recording(*a, **k):
+            out = type(model).sample(model, *a, **k)
+            seqs.append(out[0].cpu())
+            return out
+
+        model.sample = recording
+        old = _att_flags(**flags)
+        try:
+            aak.step_launches = 0
+            out = trainer.train(batch, sc_flag=True)
+            torch.cuda.synchronize()
+            n = aak.step_launches
+        finally:
+            _att_flags(**old)
+            del model.sample
+        return out, n, seqs
+
+    fused, n, seqs_f = step({"STEP_FUSION": True})
+    plain, n_plain, seqs_p = step({})
+    want = sum(_greedy_steps(s) for s in seqs_f)
+    same = len(seqs_f) == len(seqs_p) == 2 and all(
+        torch.equal(a, b) for a, b in zip(seqs_f, seqs_p))
+    lf, lp = fused["total_loss"], plain["total_loss"]
+    err = abs(lf - lp) / max(abs(lp), 1e-30)
+    log(f"SCST with STEP_FUSION: one denseatt step at batch 50, loss "
+        f"{lf:.6f}, avg_reward {fused['avg_reward']:.4f}; {n} fused "
+        f"decode-step launches (expected {want}: sample "
+        f"{_greedy_steps(seqs_f[0])} + greedy {_greedy_steps(seqs_f[1])} "
+        f"steps); the default route from the same seed: loss {lp:.6f} "
+        f"(relative {err:.3g}, tol {TRAIN_TOL}), avg_reward "
+        f"{plain['avg_reward']:.4f}, tokens of both decodes "
+        f"{'identical' if same else 'DIFFER'}, {n_plain} fused launches")
+    if not (n == want and n_plain == 0 and same and err <= TRAIN_TOL
+            and np.isfinite(lf)):
+        raise AssertionError("the STEP_FUSION SCST step disagrees with the "
+                             "default route or launched the fused step "
+                             "another number of times")
+    return n
+
+
+def phase_scst(dev) -> dict:
+    """SCST on the card: the df table from the port's prepro_ngrams over a
+    seeded corpus, the rewards and the loss card vs CPU, 2 + 5 steps of
+    `Trainer.train(sc_flag=True)` on denseatt and on the transformer
+    captioner at batch 50, 2 + 2 joint steps with the BiLSTM NMT, and the
+    STEP_FUSION step. Returns the launches of the timed steps of each
+    family by kernel."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops.cider import build_df_table
+    from unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams import (
+        compute_df)
+
+    t0 = time.perf_counter()
+    labels, start, end = make_scst_corpus(np.random.RandomState(0))
+    df, n_img = compute_df(labels, start, end)
+    t1 = time.perf_counter()
+    table = build_df_table(df, float(n_img), dev)
+    torch.cuda.synchronize()
+    log(f"SCST df table: {len(df)} n-grams over {n_img} images x "
+        f"{SCST_REFS} captions, {table.size} slots on the card; compute_df "
+        f"{t1 - t0:.2f} s, build_df_table {time.perf_counter() - t1:.2f} s "
+        "(host)")
+    marks = [("df table", time.perf_counter())]
+    phase_scst_rewards(dev, table, scst_gts(labels, 50))
+    marks.append(("rewards", time.perf_counter()))
+    for cfg_dict, label in ((DTRAIN, "denseatt"), (TRAIN, "transformer")):
+        phase_scst_rl_agreement(dev, cfg_dict, label, table, labels)
+        marks.append((f"{label} loss card vs cpu", time.perf_counter()))
+
+    def batch_of(make):
+        return lambda rs, n: dict(make(rs, n), **scst_gts(labels, n))
+
+    kw = dict(detail=False, sc_flag=True, trainer_kw={"df_table": table})
+    dense = phase_train(SCST_ROUTES[0], {"lstm_cell": (lk, "launches")},
+                        cfg_dict=DTRAIN, set_flags=_train_kernel_flag,
+                        kernel_names=DENSE_KERNELS, model="denseatt",
+                        make_batch=batch_of(make_train_batch), **kw)
+    marks.append(("denseatt steps", time.perf_counter()))
+    trans = phase_train(SCST_ROUTES[1], {"transformer_decode_stack": (
+                            tdk, "stack_launches")},
+                        kernel_names=TFD_KERNELS, model="transformer",
+                        make_batch=batch_of(make_train_batch), **kw)
+    marks.append(("transformer steps", time.perf_counter()))
+    joint_kw = dict(joint_trainer_kw(JOINT_TRAIN), df_table=table)
+    phase_train(SCST_JOINT_ROUTE, {"lstm_cell": (lk, "launches")},
+                cfg_dict=JOINT_TRAIN, set_flags=_train_kernel_flag,
+                kernel_names=DENSE_KERNELS, model="denseatt + BiLSTM NMT",
+                make_batch=batch_of(make_joint_batch), detail=False,
+                sc_flag=True, trainer_kw=joint_kw)
+    marks.append(("joint steps", time.perf_counter()))
+    phase_scst_step_fusion(dev, table, labels)
+    marks.append(("STEP_FUSION step", time.perf_counter()))
+    log("SCST phase seconds: " + ", ".join(
+        f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(
+            [("start", t0)] + marks, marks)))
+    return {"lstm_cell": dense[0]["lstm_cell"],
+            "transformer_decode_stack": trans[0]["transformer_decode_stack"]}
 
 
 def _b9_share(busy, parts) -> str:
@@ -4295,6 +4641,8 @@ def main(argv=None) -> int:
     phase_nmt_train_agreement(dev, joint=False)
     phase_nmt_train_agreement(dev, joint=True)
     mark("NMT and joint card vs cpu")
+    scst_counts = phase_scst(dev)
+    mark("SCST")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -4310,6 +4658,9 @@ def main(argv=None) -> int:
         kernels[name]["launches"] = n
     kernels["transformer_decode_stack"]["launches"] = (
         tcounts["transformer_decode_stack"])
+    # the LSTM cell's and the decoder stack's launches add the SCST steps'
+    for name, n in scst_counts.items():
+        kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -21,7 +21,10 @@ from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
 from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
     TransformerNMTModel, make_nmt_model)
 from unpaired_image_captioning_tpu_torch.models.resnet import ResNet
-from unpaired_image_captioning_tpu_torch.scripts import prepro_feats
+from unpaired_image_captioning_tpu_torch.ops import cider
+from unpaired_image_captioning_tpu_torch.scripts import (prepro_feats,
+                                                         prepro_ngrams)
+from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "unpaired_image_captioning_tpu_torch").rglob("*.py")) \
@@ -73,6 +76,27 @@ def test_raw_image_path_defaults_to_the_card(build, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build({})
     assert build({"device": "cpu"}).device.type == "cpu"
+
+
+def test_scst_modules_are_checked():
+    """The SCST modules are among the files the import check reads."""
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"unpaired_image_captioning_tpu_torch/{m}.py" for m in (
+        "ops/cider", "losses/rewards", "scripts/prepro_ngrams",
+        "train/trainer")} <= names
+
+
+@pytest.mark.parametrize("build", [
+    lambda dev: cider.build_df_table({(1, 2): 1.0}, 2.0, **dev),
+    lambda dev: cider.empty_df_table(**dev),
+    lambda dev: prepro_ngrams.load_df_table("absent", **dev),
+    lambda dev: Trainer(Config(**CFG), **dev),
+], ids=["build_df_table", "empty_df_table", "load_df_table", "trainer"])
+def test_scst_entry_points_default_to_the_card(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build({})
+    build({"device": "cpu"})
 
 
 def test_prepro_feats_defaults_to_the_card(monkeypatch, tmp_path):

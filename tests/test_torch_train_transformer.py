@@ -127,8 +127,12 @@ def test_dropout_steps_repeat_and_learn():
 
 def test_unported_branches_raise():
     tr = Trainer(TConfig(**CFG), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    # SCST is ported (tests/test_torch_scst.py); it needs the batch's gts
+    with pytest.raises(ValueError, match="gts"):
         tr.train(_batch(), sc_flag=True)
+    batch = dict(_batch(), gts=_batch(1)["labels"][:, None, 1:],
+                 gts_masks=np.ones((B, 1), np.float32))
+    assert np.isfinite(tr.train(batch, sc_flag=True)["total_loss"])
     for fn in (tr.save, tr.load, tr.eval):
         with pytest.raises(NotImplementedError, match="A9"):
             fn()

@@ -340,6 +340,7 @@ CUDA_CASES = {
     "dh256_nmt": (4, 15, 20, 16, 512, 2048, 2, True, None),
     "dh256_beam32": (2, 32, 16, 196, 512, 512, 2, False, "t_out"),
     "kb1": (9, 1, 16, 196, 512, 512, 8, False, None),
+    "scst_batch50_kb1": (50, 1, 16, 196, 512, 512, 8, False, None),
     # widths off 16 bytes (scalar instances), heads past 256, a d_ff of
     # 510, a cache chunked in the self-attention, slots walked in pieces
     "dh6": (4, 5, 16, 196, 12, 40, 2, False, None),
@@ -364,7 +365,8 @@ CUDA_CASES = {
 @pytest.mark.parametrize("case", list(CUDA_CASES))
 def test_cuda_decoder_step_matches_plain(cuda_dev, case):
     bsz, kb, n_t, slots, d, dff, heads, lazy, edit = CUDA_CASES[case]
-    n_layers = 6 if case in ("caption", "nmt", "ragged") else 2
+    n_layers = 6 if case in ("caption", "nmt", "ragged",
+                             "scst_batch50_kb1") else 2
     a = _edit(_card_inputs(cuda_dev, bsz, kb, n_layers, n_t, slots, d, dff,
                            lazy), edit, n_t)
     want_attn = lazy or edit is not None

@@ -22,6 +22,10 @@ class Config:
     nmt_train_flag: bool = False
     nmt_kld_train_flag: bool = False
 
+    # --- data: the prepro_ngrams df cache of the SCST rewards
+    # (`scripts/prepro_ngrams.py::load_df_table`) ---
+    cached_tokens: str = "data/aic-train-idxs"
+
     # --- caption model ---
     caption_model: str = "fc"             # fc|att2in|att2in2|att2all2|adaatt|adaattmo|topdown|stackatt|denseatt|transformer|stackcap|show_tell|show_attend_tell
     rnn_size: int = 512

@@ -3,6 +3,8 @@
 
 - `language_model_loss`: the reference LanguageModelCriterion
   (misc/criterion.py:138-159), including the sum over the stackcap heads;
+- `reward_loss`: the SCST RewardCriterion (:104-124), with the mask shift
+  that counts the first EOS;
 - `nmt_loss` with `NMTStats`: the NMT NLL with PAD weight 0 and its
   ppl / accuracy statistics (:126-205), optionally label-smoothed
   (`label_smoothing_loss`, misc/utils.py:289-320);
@@ -10,7 +12,7 @@
 - `weight_trans_loss`: the Weight_Trans / Weight_Trans_y embedding
   alignment MSE on joint-vocabulary rows (:294-434).
 
-`reward_loss` (SCST) is ROADMAP A8; the attention regularizers are A11.
+The attention regularizers are ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -38,6 +40,25 @@ def language_model_loss(logprobs, targets: torch.Tensor,
     mk = masks[:, :t].to(torch.float32)
     nll = -torch.gather(lp, -1, tg[..., None])[..., 0]
     return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+
+
+def reward_loss(sample_logprobs: torch.Tensor, gen_seq: torch.Tensor,
+                rewards: torch.Tensor) -> torch.Tensor:
+    """SCST policy-gradient loss: -logprob x advantage x mask, over the
+    mask's sum.
+
+    sample_logprobs: [B, T], the logprob of each sampled token; gen_seq:
+    [B, T] sampled ids (0 after EOS); rewards: the advantage, [B, T] or [B]
+    (broadcast over T). The mask is (token > 0) shifted right by one with a
+    leading 1, so the step that emits the first EOS counts
+    (criterion.py:113-116).
+    """
+    if rewards.dim() == 1:
+        rewards = rewards[:, None] * torch.ones_like(sample_logprobs)
+    nonzero = (gen_seq > 0).to(torch.float32)
+    mask = torch.cat([torch.ones_like(nonzero[:, :1]), nonzero[:, :-1]], 1)
+    out = -sample_logprobs * rewards * mask
+    return out.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 class NMTStats(NamedTuple):

@@ -52,10 +52,10 @@ def attention_init(rnn_size: int, att_hid_size: int, *,
 
 # The kernel routes (`models/att.py:226-246` of the JAX package), off by
 # default as there. STEP_FUSION: att1 -> lstm1 -> att2 of a Stack / Dense
-# decode step as one `fused_att_lstm_att` call (decode only, expanded
-# memory). BEAMS_KERNEL: the K-beam attention over unexpanded memory.
-# SINGLE_KERNEL / TRAIN_KERNEL: the single-query attention outside / inside
-# training.
+# decode step as one `fused_att_lstm_att` call (decode only without a
+# gradient, expanded memory). BEAMS_KERNEL: the K-beam attention over
+# unexpanded memory. SINGLE_KERNEL / TRAIN_KERNEL: the single-query
+# attention outside / inside training.
 STEP_FUSION = False
 BEAMS_KERNEL = False
 SINGLE_KERNEL = False
@@ -316,8 +316,11 @@ class StackAttModel(AttModel):
         return h0d, h1d, att2, (h0, h1), (c0, c1)
 
     def _can_fuse_stack(self, ctx, h0, training: bool) -> bool:
-        # decode only (dropout-free), expanded memory layout (K = 1)
-        return (STEP_FUSION and not training
+        # decode only (dropout-free), expanded memory layout (K = 1), and
+        # no gradient: the fused kernel has no backward, so the SCST
+        # recompute (forward(training=False) under grad) takes the unfused
+        # route, which JAX differentiates
+        return (STEP_FUSION and not training and not torch.is_grad_enabled()
                 and ctx["att"].shape[0] == h0.shape[0])
 
     def core_step(self, xt, ctx, state, *, training, generator):

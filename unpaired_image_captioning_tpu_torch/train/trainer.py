@@ -1,12 +1,18 @@
 """Trainer: the joint training step of the captioner and the NMT
 (counterpart of `unpaired_image_captioning_tpu/train/trainer.py`).
 
-One `train(batch)` step, as the JAX `Trainer.train` runs its XE branch,
-sums into one total and takes one backward over it:
+One `train(batch)` step, as the JAX `Trainer.train` runs it, sums into
+one total and takes one backward over it:
 
 - the captioner's XE loss: its teacher-forcing forward in training mode
   (dropout, and the scheduled-sampling coins and draws once the schedule
   leaves 0), `language_model_loss` over labels[:, 1:];
+- or, with `sc_flag`, its SCST loss (`_rl_loss`): a multinomial sample
+  drawn from the trainer's generator and a greedy baseline, both decoded
+  without gradients; rewards against `batch["gts"]` / `["gts_masks"]`
+  from `ops/cider.py` over the trainer's `df_table`, on the device; the
+  sampled tokens' logprobs recomputed by a teacher-forcing forward without
+  dropout (`training=False`), with gradients, and `reward_loss`;
 - with `nmt_train_flag`, the NMT loss on `batch["nmt"]` = {src, tgt,
   lengths}: the NMT's teacher-forcing forward in training mode and
   `nmt_loss` with `cfg.label_smoothing`, with ppl / accuracy / word
@@ -29,10 +35,10 @@ from the trainer's `torch.Generator` on the device; learning rates, the
 scheduled-sampling probability and the epoch counters live on the host. A
 run of `max_nan_steps` non-finite losses in a row raises.
 
-Not ported yet, each raising `NotImplementedError`: SCST (`sc_flag`,
-ROADMAP A8), pretrained NMT word vectors (`pre_word_vecs_*`, A9),
-checkpoints and eval (`save` / `load` / `eval`, A9) and `use_bn` (A10,
-raised by the model).
+Not ported yet, each raising `NotImplementedError`: pretrained NMT word
+vectors (`pre_word_vecs_*`, ROADMAP A9), checkpoints and eval (`save` /
+`load` / `eval`, A9) and `use_bn` (A10, raised by the model). SCST trains
+from the weights in memory (no `--start_from` resume before A9).
 """
 
 from __future__ import annotations
@@ -46,23 +52,29 @@ import torch
 
 from .. import models as model_zoo
 from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
-                                weight_trans_loss)
+                                reward_loss, weight_trans_loss)
+from ..losses.rewards import get_self_critical_reward
 from ..models.base import Features, resolve_device
 from ..models.nmt_transformer import make_nmt_model
 from ..models.transformer import TransformerModel
+from ..ops.cider import DfTable, empty_df_table
 from .optimizer import DualOptim
 
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
-               "masks")
+               "masks", "gts", "gts_masks")
 _NMT_KEYS = ("src", "tgt", "lengths")
 
 
 class Trainer:
     def __init__(self, cfg, *, device="cuda", joint_vocab=None,
                  joint_vocab_y=None,
-                 nmt_teacher: Optional[Dict[str, Any]] = None):
+                 nmt_teacher: Optional[Dict[str, Any]] = None,
+                 df_table: Optional[DfTable] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the SCST rewards' df table (scripts/prepro_ngrams.load_df_table)
+        self.df_table = (df_table if df_table is not None
+                         else empty_df_table(self.device))
         init = torch.Generator().manual_seed(cfg.seed)
         self.i2t_model = (model_zoo.setup(cfg, device=self.device)
                           .init_params(init) if cfg.vocab_size else None)
@@ -122,6 +134,8 @@ class Trainer:
             v = torch.as_tensor(np.asarray(data[k]))
             if v.is_floating_point():
                 v = v.to(torch.float32)
+            elif v.dtype != torch.bool:
+                v = v.to(torch.int64)       # ids: labels, gts, NMT batches
             out[k] = v.to(self.device, non_blocking=True)
         return out
 
@@ -173,16 +187,35 @@ class Trainer:
             total = total + wemb_y
         return total
 
+    def _rl_loss(self, feats: Features, gen: torch.Tensor,
+                 greedy: torch.Tensor, gts: torch.Tensor,
+                 gts_masks: torch.Tensor):
+        """The SCST loss of given sequences: gen [B, T] sampled and greedy
+        [B, T] baseline ids, gts [B, R, Tg] int64 with gts_masks [B, R].
+        The advantage reward(gen) - reward(greedy) carries no gradient; the
+        sampled tokens' logprobs come from a teacher-forcing forward of
+        [0, gen] without dropout, so the distribution differentiated is the
+        one sampled from. Returns (the loss, the samples' rewards [B])."""
+        cfg = self.cfg
+        with torch.no_grad():
+            adv, rs = get_self_critical_reward(
+                gen, greedy, gts, gts_masks, self.df_table,
+                cider_weight=cfg.cider_reward_weight,
+                bleu_weight=cfg.bleu_reward_weight)
+        seq_full = torch.cat([torch.zeros_like(gen[:, :1]), gen], 1)
+        out = self.i2t_model.forward(feats, seq_full, training=False)
+        logps = torch.gather(out, -1, gen[..., None])[..., 0]
+        return reward_loss(logps, gen, adv), rs
+
     def train(self, data: Dict[str, Any], *, sc_flag: bool = False
               ) -> Dict[str, float]:
         """One training step on a host batch dict: fc_feats, att_feats,
         att_masks, labels [B, L] with the leading BOS column and masks
-        [B, L] for the captioner; "nmt" = {src [B, S], tgt [B, T] (BOS ...
-        EOS, PAD-padded), lengths [B]} for the NMT. Returns host floats."""
+        [B, L] for the captioner (with `sc_flag`: gts [B, R, Tg] and
+        gts_masks [B, R] in place of labels and masks); "nmt" = {src [B,
+        S], tgt [B, T] (BOS ... EOS, PAD-padded), lengths [B]} for the NMT.
+        Returns host floats."""
         cfg = self.cfg
-        if sc_flag:
-            raise NotImplementedError("SCST training is not ported yet "
-                                      "(ROADMAP A8)")
         lr_i2t = float(self.optim.i2t_lr(self.epoch))
         lr_nmt = float(self.optim.nmt_lr(self.epoch_nmt))
         ss_prob = float(self.optim.ss_prob(self.epoch))
@@ -201,14 +234,27 @@ class Trainer:
                              att_feats=batch.get("att_feats"),
                              attri_feats=batch.get("attri_feats"),
                              att_masks=batch.get("att_masks"))
-            # the transformer takes no scheduled sampling, as in JAX
-            ss = ({} if isinstance(self.i2t_model, TransformerModel)
-                  else {"ss_prob": ss_prob})
-            out = self.i2t_model.forward(feats, batch["labels"],
-                                         training=True,
-                                         generator=self.generator, **ss)
-            i2t_l = language_model_loss(out, batch["labels"][:, 1:],
-                                        batch["masks"][:, 1:])
+            if sc_flag:
+                if "gts" not in batch or "gts_masks" not in batch:
+                    raise ValueError("SCST scores the samples against "
+                                     "batch['gts'] and batch['gts_masks']")
+                # both decodes run without gradients (`sample`)
+                gen, _ = self.i2t_model.sample(feats, greedy=False,
+                                               generator=self.generator)
+                greedy, _ = self.i2t_model.sample(feats, greedy=True)
+                i2t_l, rewards = self._rl_loss(feats, gen, greedy,
+                                               batch["gts"],
+                                               batch["gts_masks"])
+                metrics["avg_reward"] = rewards.mean()
+            else:
+                # the transformer takes no scheduled sampling, as in JAX
+                ss = ({} if isinstance(self.i2t_model, TransformerModel)
+                      else {"ss_prob": ss_prob})
+                out = self.i2t_model.forward(feats, batch["labels"],
+                                             training=True,
+                                             generator=self.generator, **ss)
+                i2t_l = language_model_loss(out, batch["labels"][:, 1:],
+                                            batch["masks"][:, 1:])
             metrics["i2t_loss"] = i2t_l
             terms.append(i2t_l)
         if train_nmt:
