@@ -116,6 +116,28 @@ training route (kernel launches counted) and decodes four images at beam
 radix select in `csrc/topk_select.cu`) is also held exact on rows with
 NaN, which ranks above +inf.
 
+The training CLI (`python -m unpaired_image_captioning_tpu_torch.cli.train`,
+driven through `cli.train.main`) at full width on artifacts that the
+port's `data/synthetic.py` writes to a temporary directory: 100 train, 50
+val and 10 test images of CAP's vocabulary with 5 captions each (fc 2,048,
+att 196 x 2,048 as `.npy` files), 2,000 + 100 NMT pairs at NMT's
+vocabularies (`.npz`), dicts that align all 9,487 caption words for
+Weight_Trans, and the df cache of the port's `prepro_ngrams`. Denseatt
+jointly with the BiLSTM NMT at batch 50 x 5 captions: 7 XE steps, then 2
+SCST steps from epoch 3 (`avg_reward` exactly there), eval with the
+caption metrics at beam 3 and a checkpoint (with the `-best` track) every
+4 steps; the same stopped at epoch 3 and resumed with `--start_from`,
+whose final parameters and optimizer state must equal the full run's bit
+for bit; the transformer captioner at TCAP's widths, 3 XE steps and an
+eval at beam 3. It reads the step walls, the eval walls, the
+checkpoint's size and its write and load times, and the launches of B1
+and B2 (and of B4, B5, B6 and B8 in the transformer run), which the
+kernels line adds. The shapes the recipe gives its kernels are among
+those held against the plain versions above: B1 at 150 maxout rows (the
+eval's beam 3 over 50 images) and at the NMT decoder's 50 teacher-forced
+rows, B4 at beam 3 x 50, and B5, B6 and B8 at the XE step's 250 rows
+(the loader's 50 images x 5 captions, features repeated).
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -253,8 +275,14 @@ MHA_SHAPES = [
     ("cross over 1,500 keys", 8, 17, 1500, "pad"),
     ("encoder self, dh 50", 50, 196, 196, "pad", 100, 2),
     ("encoder self, dh 512", 50, 196, 196, "pad", 512, 1),
+    # the recipe's transformer XE: the loader's 50 images x 5 captions
+    ("decoder cross, recipe batch 50 x 5", 250, 17, 196, "pad"),
+    ("decoder self, recipe batch 50 x 5", 250, 17, 17, "causal"),
 ]
-LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512)]
+# the step's encoder and decoder rows, then the recipe's (50 x 5 captions)
+LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512),
+             ("encoder, recipe batch 50 x 5", 250, 196, 512),
+             ("decoder, recipe batch 50 x 5", 250, 17, 512)]
 # the training LayerNorm past the width its backward once refused (3,632):
 # a d-4,096 model's rows and a width off the register kernels' float4
 LN_WIDE = [("d 4,096", 50, 17, 4096), ("d 6,000", 50, 17, 6000)]
@@ -301,6 +329,10 @@ LSTM_SHAPES = [
     ("ragged", 3, 100, 60, False),
     ("ragged maxout", 3, 100, 60, True),
     ("ragged, 4-byte copies", 5, 37, 50, True),
+    # the recipe's: the denseatt eval at beam 3 over 50 images, and the
+    # BiLSTM NMT's teacher-forced decoder at batch 50
+    ("denseatt lstm0/1/2, recipe eval beam 3 x 50", 150, 1024, 512, True),
+    ("nmt teacher-forced decoder, recipe batch 50", 50, 1024, 512, False),
 ]
 # (label, B, kb, L, T, S, d, d_ff, heads, lazy anc + want_attn): the decoder
 # step at the transformer pivot's two beams and at one beam over the SCST
@@ -321,6 +353,8 @@ TFD_SHAPES = [
     ("nmt beam 15 x 50, dh 50, d_ff 510", 50, 15, 2, 20, 16, 100, 510, 2,
      True),
     ("caption beam 5 x 50, dh 512", 50, 5, 2, 16, 196, 512, 512, 1, False),
+    ("caption beam 3 x 50 (the recipe's eval)", 50, 3, 6, 16, 196, 512,
+     512, 8, False),
     # one head past the widths a block held whole (TFD_REFUSAL_SHAPE's
     # first refused width was 7,249 before: q in column chunks), and one
     # too wide for the cross-attention's pieces over 500 slots (a row a
@@ -407,6 +441,8 @@ ENC_LAYER_SHAPES = [
     ("captioner encoder, dh 50", 50, 196, 100, 100, 2),
     ("captioner encoder, dh 384, d_ff 510", 50, 196, 384, 510, 1),
     ("captioner encoder, d 4,096 on two images", 2, 196, 4096, 4096, 8),
+    # the recipe's transformer XE: 50 images x 5 captions, features repeated
+    ("captioner encoder, recipe batch 50 x 5", 250, 196, 512, 512, 8),
 ]
 # transformers at head widths the kernels took only since their widening
 # (label, d, heads, d_ff): a training step on each route and a decode, card
@@ -4492,6 +4528,327 @@ def phase_resnet_agreement(dev, resnet_state) -> None:
         "max|diff| / max(1, max|cpu|): " + ", ".join(errs))
 
 
+# the training CLI's recipe at full width (train.sh:18-29: XE, then SCST
+# resumed with --start_from): denseatt at CAP's widths jointly with the
+# BiLSTM NMT at NMT's vocabularies under Weight_Trans, on synthetic
+# artifacts written by the port's data/synthetic.py
+RECIPE_SPLITS = (100, 50, 10)     # train, val, test images, 5 captions each
+RECIPE_PAIRS, RECIPE_VALID_PAIRS = 2000, 100
+RECIPE_ARGS = dict(
+    caption_model="denseatt", rnn_size=CAP["rnn_size"],
+    input_encoding_size=CAP["input_encoding_size"],
+    att_hid_size=CAP["att_hid_size"], num_layers=CAP["num_layers"],
+    fc_feat_size=CAP["fc_feat_size"], att_feat_size=CAP["att_feat_size"],
+    word_vec_size=NMT["word_vec_size"], layers=NMT["layers"],
+    i2t_train_flag="true", nmt_train_flag="true", batch_size=50,
+    seq_per_img=5, self_critical_after=3, max_epochs=4,
+    save_checkpoint_every=4, language_eval=1, beam_size=3,
+    losses_log_every=1, load_best_score=0, val_images_use=50, seed=0)
+# the transformer captioner through the same CLI: TCAP's widths, XE only,
+# one eval at beam 3 (steps 1-2 of epoch 0 and the step that wraps it)
+RECIPE_TRANSFORMER = dict(
+    RECIPE_ARGS, caption_model="transformer", num_layers=TCAP["num_layers"],
+    num_heads=TCAP["num_heads"], nmt_train_flag="false",
+    self_critical_after=-1, max_epochs=1, save_checkpoint_every=2)
+# the kernels the recipe runs, by counter: (module, attribute)
+RECIPE_KERNELS = ("lstm_cell", "row_topk")
+RECIPE_TRANSFORMER_KERNELS = (
+    "transformer_decode_stack", "mha_train_fwd", "mha_train_bwd",
+    "enc_layer_train_fwd", "enc_layer_train_bwd", "ln_train_fwd",
+    "ln_train_bwd")
+
+
+def make_recipe_artifacts(root: str) -> dict:
+    """The recipe's files under `root`: talk.json and label.npz (CAP's
+    vocabulary, 16-token captions), one fc and one att (196 x 2,048)
+    `.npy` per image, the NMT corpus (train and valid `.npz`) at NMT's
+    vocabularies, the NMT dicts (the source dict holds every caption word,
+    so Weight_Trans aligns all 9,487 rows) and the df cache of the port's
+    prepro_ngrams."""
+    import os
+
+    from unpaired_image_captioning_tpu_torch import constants as C
+    from unpaired_image_captioning_tpu_torch.data import synthetic
+    from unpaired_image_captioning_tpu_torch.scripts import prepro_ngrams
+    from unpaired_image_captioning_tpu_torch.vocab import Dict
+
+    n_train, n_val, n_test = RECIPE_SPLITS
+    jpath, label, mem = synthetic.make_caption_artifacts(
+        root, n_images=n_train + n_val + n_test,
+        vocab_size=CAP["vocab_size"], seq_length=CAP["seq_length"],
+        caps_per_img=5, fc_dim=CAP["fc_feat_size"],
+        att_dim=CAP["att_feat_size"], att_len=N_SLOTS, seed=0,
+        n_val=n_val, n_test=n_test)
+    fc_dir, att_dir = synthetic.write_feature_dirs(root, mem)
+    del mem
+    src, tgt = synthetic.make_nmt_corpus(
+        n_pairs=RECIPE_PAIRS + RECIPE_VALID_PAIRS,
+        src_vocab=NMT["src_vocab_size"], tgt_vocab=NMT["tgt_vocab_size"],
+        src_len=NMT_SRC_LEN, tgt_len=NMT_TGT_LEN, seed=1)
+    nmt = {}
+    for split, rows in (("train", slice(0, RECIPE_PAIRS)),
+                        ("valid", slice(RECIPE_PAIRS, None))):
+        nmt[split] = os.path.join(root, f"nmt.{split}.npz")
+        np.savez(nmt[split], src=src[rows], tgt=tgt[rows])
+    specials = [C.PAD_WORD, C.UNK_WORD, C.BOS_WORD, C.EOS_WORD]
+    dicts = {"src": Dict(specials + [f"w{i}" for i in range(
+                 NMT["src_vocab_size"] - 4)]).state_dict(),
+             "tgt": Dict(specials + [f"t{i}" for i in range(
+                 NMT["tgt_vocab_size"] - 4)]).state_dict()}
+    dict_path = os.path.join(root, "dicts.json")
+    with open(dict_path, "w") as f:
+        json.dump(dicts, f)
+    ngrams = os.path.join(root, "ngrams.npz")
+    with _quiet():
+        prepro_ngrams.main(["--input_label_h5", label, "--input_json", jpath,
+                            "--output", ngrams])
+    return dict(input_json=jpath, input_label_h5=label, input_fc_dir=fc_dir,
+                input_att_dir=att_dir, input_nmt_h5=nmt["train"],
+                input_nmt_dict=dict_path, cached_tokens=ngrams)
+
+
+class _quiet:
+    """Keeps what a CLI prints, for the log of a failure."""
+
+    def __enter__(self):
+        import contextlib
+        import io
+
+        self.out = io.StringIO()
+        self._cm = contextlib.redirect_stdout(self.out)
+        self._cm.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._cm.__exit__(*exc)
+        if exc[0] is not None:
+            sys.stderr.write(self.out.getvalue()[-8000:])
+        return False
+
+
+def _recipe_run(files: dict, run: str, **kw):
+    """One `cli.train.main` on the card; returns (trainer, wall s, its
+    events)."""
+    import os
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.cli import train as cli
+
+    args = dict(RECIPE_ARGS, **files, checkpoint_path=run,
+                id=os.path.basename(run))
+    args.update(kw)
+    argv = []
+    for k, v in args.items():
+        argv += ["--" + k, str(v)]
+    t0 = time.perf_counter()
+    with _quiet():
+        trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    return trainer, wall, events
+
+
+def _state_tensors(trainer) -> list:
+    """(name, tensor) of both models' parameters and the optimizer's
+    moments and counts, in a fixed order."""
+    out = []
+    for tag, model in (("i2t", trainer.i2t_model), ("nmt", trainer.nmt_model)):
+        if model is not None:
+            out += [(f"{tag}.{k}", v) for k, v in model.state_dict().items()]
+    st = trainer.optim.state_dict()
+    for side in ("i2t_state", "nmt_state"):
+        for i, part in enumerate(st[side] or []):
+            for field, v in part.items():
+                items = v.items() if isinstance(v, dict) else [("", v)]
+                out += [(f"optim.{side}.{i}.{field}.{k}", x)
+                        for k, x in items]
+    return out
+
+
+def _same_state(a, b, label: str) -> None:
+    import torch
+
+    sa, sb = _state_tensors(a), _state_tensors(b)
+    if [k for k, _ in sa] != [k for k, _ in sb]:
+        raise AssertionError(f"{label}: the two runs hold other states")
+    for (k, x), (_, y) in zip(sa, sb):
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                else x == y)
+        if not same:
+            raise AssertionError(f"{label}: {k} differs between the full "
+                                 "run and the resumed run")
+
+
+def _steps(events) -> list:
+    return [e for e in events if "total_loss" in e]
+
+
+def phase_recipe(dev) -> dict:
+    """`python -m unpaired_image_captioning_tpu_torch.cli.train` on the
+    card at full width: the joint denseatt + BiLSTM NMT recipe (7 XE steps,
+    then 2 SCST steps from epoch 3, eval with language_eval at beam 3 and a
+    checkpoint every 4 steps), the same stopped at epoch 3 and resumed with
+    --start_from (bit for bit the full run's parameters and optimizer
+    state), and the transformer captioner (3 XE steps, an eval at beam 3).
+    Returns the launches of each kernel in the phase."""
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    counters = {"lstm_cell": (lk, "launches"), "row_topk": (tk, "launches"),
+                "transformer_decode_stack": (tdk, "stack_launches"),
+                "mha_train_fwd": (mhk, "fwd_launches"),
+                "mha_train_bwd": (mhk, "bwd_launches"),
+                "enc_layer_train_fwd": (ltk, "enc_fwd_launches"),
+                "enc_layer_train_bwd": (ltk, "enc_bwd_launches"),
+                "ln_train_fwd": (lnk, "fwd_launches"),
+                "ln_train_bwd": (lnk, "bwd_launches")}
+    t_phase = time.perf_counter()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="recipe-") as root:
+        # language_eval writes its eval_results/ under the working directory
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            files = make_recipe_artifacts(root)
+            log(f"recipe artifacts: {sum(RECIPE_SPLITS)} images, "
+                f"{RECIPE_PAIRS} + {RECIPE_VALID_PAIRS} NMT pairs, df cache "
+                f"({time.perf_counter() - t0:.1f} s, host)")
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            full, wall_full, ev = _recipe_run(files, os.path.join(root,
+                                                                  "full"))
+            half_run = os.path.join(root, "half")
+            _, wall_half, _ = _recipe_run(files, half_run, max_epochs=3)
+            resumed, wall_res, ev_res = _recipe_run(
+                files, half_run, start_from=half_run)
+            counts = {k: getattr(*counters[k]) for k in RECIPE_KERNELS}
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            tcap, wall_t, ev_t = _recipe_run(
+                files, os.path.join(root, "transformer"),
+                **RECIPE_TRANSFORMER)
+            tcounts = {k: getattr(*counters[k])
+                       for k in RECIPE_TRANSFORMER_KERNELS + ("row_topk",)}
+            _check_recipe(ev, ev_res, full, resumed, os.path.join(root,
+                                                                  "full"))
+            _check_transformer_recipe(ev_t, tcap)
+            _log_recipe(ev, ev_res, ev_t, os.path.join(root, "full"), full,
+                        (wall_full, wall_half, wall_res, wall_t))
+            for name, n in list(counts.items()) + list(tcounts.items()):
+                if not n:
+                    raise AssertionError(f"recipe: {name} was not launched")
+        finally:
+            os.chdir(here)
+    counts["row_topk"] += tcounts.pop("row_topk")
+    counts.update(tcounts)
+    log(f"recipe launches: {json.dumps(counts)}")
+    log(f"recipe phase: {time.perf_counter() - t_phase:.1f} s")
+    del full, resumed, tcap
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_recipe(ev, ev_res, full, resumed, run) -> None:
+    import os
+
+    steps = _steps(ev)
+    if [e["step"] for e in steps] != list(range(1, 10)):
+        raise AssertionError(f"recipe: steps {[e['step'] for e in steps]}")
+    rl = [e["step"] for e in steps if "avg_reward" in e]
+    # SCST from the step that starts epoch self_critical_after (3) on
+    first = next(e["step"] for e in steps
+                 if e["epoch"] >= RECIPE_ARGS["self_critical_after"]) + 1
+    if rl != list(range(first, 10)) or first != 8:
+        raise AssertionError(f"recipe: avg_reward at steps {rl}, the switch "
+                             f"at step {first}")
+    if not all(np.isfinite(e["total_loss"]) and np.isfinite(
+            e.get("avg_reward", 0.0)) for e in steps):
+        raise AssertionError("recipe: a non-finite loss or reward")
+    with open(os.path.join(run, "histories.json")) as f:
+        vals = json.load(f)["val_result_history"]
+    if sorted(vals, key=int) != ["4", "8"]:
+        raise AssertionError(f"recipe: evals at {sorted(vals)}")
+    for it, val in vals.items():
+        stats = list(val["lang_stats"].values()) + [
+            val["loss"], *val["nmt_stats"].values()]
+        if not all(np.isfinite(stats)):
+            raise AssertionError(f"recipe: eval at {it} not finite: {val}")
+    for name in ("model_i2t", "model_nmt", "optimizer"):
+        for best in ("", "-best"):
+            if not os.path.exists(os.path.join(run, f"{name}{best}.pt")):
+                raise AssertionError(f"recipe: no {name}{best}.pt")
+    if resumed.iteration != full.iteration:
+        raise AssertionError("recipe: the resumed run ends at iter "
+                             f"{resumed.iteration}, the full run at "
+                             f"{full.iteration}")
+    # the stopped run and its resumption append to one events.jsonl
+    if [e["total_loss"] for e in _steps(ev_res)] != [
+            e["total_loss"] for e in steps]:
+        raise AssertionError("recipe: the resumed run's losses differ")
+    _same_state(full, resumed, "recipe resume")
+
+
+def _check_transformer_recipe(ev_t, tcap) -> None:
+    steps = _steps(ev_t)
+    if len(steps) != 3 or any("avg_reward" in e for e in steps):
+        raise AssertionError(f"transformer recipe: {len(steps)} steps")
+    vals = [e for e in ev_t if "val_loss" in e]
+    if len(vals) != 1 or not np.isfinite(vals[0]["val_loss"]):
+        raise AssertionError(f"transformer recipe: evals {vals}")
+    if tcap.best_cider is None or not np.isfinite(tcap.best_cider):
+        raise AssertionError("transformer recipe: no finite val CIDEr")
+
+
+def _log_recipe(ev, ev_res, ev_t, run, full, walls) -> None:
+    import os
+
+    import torch
+
+    steps = _steps(ev)
+    # step 1 builds the models' first graphs: the walls are of steps 2-7
+    xe = [e["step_time"] for e in steps[1:7]]
+    rl = [e["step_time"] for e in steps[7:]]
+    tx = [e["step_time"] for e in _steps(ev_t)[1:]]
+    log("recipe step wall through the CLI (joint denseatt + BiLSTM NMT, "
+        f"batch 50 x 5 captions): XE {statistics.mean(xe) * 1e3:.1f} ms "
+        f"(steps 2-7: {', '.join(f'{t * 1e3:.1f}' for t in xe)}), SCST "
+        f"{statistics.mean(rl) * 1e3:.1f} ms (steps 8-9: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in rl)}); transformer XE "
+        f"{statistics.mean(tx) * 1e3:.1f} ms (steps 2-3)")
+    evals = [e["eval_time"] for e in ev + ev_t if "eval_time" in e]
+    log("recipe eval wall over the 50 val images (XE loss of 250 captions, "
+        "beam 3, language_eval; denseatt also the NMT valid set): denseatt "
+        f"{', '.join(f'{t:.2f}' for t in evals[:-1])} s, transformer "
+        f"{evals[-1]:.2f} s")
+    sizes = {n: os.path.getsize(os.path.join(run, f"{n}.pt"))
+             for n in ("model_i2t", "model_nmt", "optimizer")}
+    saves = [e["save_time"] for e in ev + ev_res if "save_time" in e]
+    t0 = time.perf_counter()
+    full.load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"recipe checkpoint: {sum(sizes.values()) / 1e6:.1f} MB ("
+        + ", ".join(f"{n} {v / 1e6:.1f}" for n, v in sizes.items())
+        + f"); write (with -best where the eval was best) "
+        f"{', '.join(f'{t:.2f}' for t in saves)} s; load {load_s:.2f} s")
+    log(f"recipe CLI walls: full {walls[0]:.1f} s, stopped at epoch 3 "
+        f"{walls[1]:.1f} s, resumed {walls[2]:.1f} s, transformer "
+        f"{walls[3]:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4643,6 +5000,8 @@ def main(argv=None) -> int:
     mark("NMT and joint card vs cpu")
     scst_counts = phase_scst(dev)
     mark("SCST")
+    recipe_counts = phase_recipe(dev)
+    mark("training CLI recipe")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -4660,6 +5019,9 @@ def main(argv=None) -> int:
         tcounts["transformer_decode_stack"])
     # the LSTM cell's and the decoder stack's launches add the SCST steps'
     for name, n in scst_counts.items():
+        kernels[name]["launches"] += n
+    # and the training CLI's recipe's
+    for name, n in recipe_counts.items():
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

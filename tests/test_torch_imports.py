@@ -86,6 +86,27 @@ def test_scst_modules_are_checked():
         "train/trainer")} <= names
 
 
+def test_training_cli_modules_are_checked():
+    """The training CLI's modules are among the files the import check
+    reads, and each imports without a card."""
+    import importlib
+
+    mods = ("cli/train", "config", "data/arrays", "data/dataloader",
+            "data/nmt_dataset", "data/synthetic", "eval/eval_utils",
+            "eval/metrics/__init__", "eval/metrics/bleu",
+            "eval/metrics/cider", "eval/metrics/meteor",
+            "eval/metrics/meteor_data", "eval/metrics/porter",
+            "eval/metrics/rouge", "eval/metrics/spice", "eval/metrics/ter",
+            "native", "scripts/h5_to_npz", "scripts/prepro_split_tokenize",
+            "train/checkpoint", "train/logging", "train/optimizer")
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"unpaired_image_captioning_tpu_torch/{m}.py"
+            for m in mods} <= names
+    for m in mods:
+        importlib.import_module("unpaired_image_captioning_tpu_torch."
+                                + m.replace("/", ".").replace(".__init__", ""))
+
+
 @pytest.mark.parametrize("build", [
     lambda dev: cider.build_df_table({(1, 2): 1.0}, 2.0, **dev),
     lambda dev: cider.empty_df_table(**dev),

@@ -125,22 +125,38 @@ def test_dropout_steps_repeat_and_learn():
     assert runs[0][-1] < runs[0][0]
 
 
-def test_unported_branches_raise():
-    tr = Trainer(TConfig(**CFG), device="cpu")
+def test_unported_branches_raise(tmp_path):
+    cfg = TConfig(**CFG, checkpoint_path=str(tmp_path / "run"))
+    tr = Trainer(cfg, device="cpu")
     # SCST is ported (tests/test_torch_scst.py); it needs the batch's gts
     with pytest.raises(ValueError, match="gts"):
         tr.train(_batch(), sc_flag=True)
     batch = dict(_batch(), gts=_batch(1)["labels"][:, None, 1:],
                  gts_masks=np.ones((B, 1), np.float32))
     assert np.isfinite(tr.train(batch, sc_flag=True)["total_loss"])
-    for fn in (tr.save, tr.load, tr.eval):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
-    # NMT training is ported; its pretrained word vectors (read from
-    # files) are not
-    with pytest.raises(NotImplementedError, match="A9"):
-        Trainer(TConfig(**CFG, nmt_src_vocab_size=9, nmt_tgt_vocab_size=9,
-                        nmt_train_flag=True, pre_word_vecs_enc="emb.npy"),
+    # checkpoints are ported: a save / load round trip restores the step
+    # counter and the parameters (eval: tests/test_torch_eval.py)
+    tr.save()
+    back = Trainer(cfg, device="cpu")
+    assert back.iteration == 0
+    back.load()
+    assert back.iteration == tr.iteration == 1
+    for (k, p), (_, q) in zip(tr.i2t_model.state_dict().items(),
+                              back.i2t_model.state_dict().items()):
+        assert torch.equal(p, q), k
+    # NMT training is ported, and so are its pretrained word vectors: a
+    # table of the right shape loads, one of another shape is refused
+    nmt = dict(CFG, nmt_src_vocab_size=9, nmt_tgt_vocab_size=9,
+               nmt_train_flag=True, word_vec_size=8)
+    table = np.random.RandomState(0).randn(9, 8).astype(np.float32)
+    np.save(tmp_path / "emb.npy", table)
+    tr = Trainer(TConfig(**nmt, pre_word_vecs_enc=str(tmp_path / "emb.npy")),
+                 device="cpu")
+    np.testing.assert_array_equal(
+        tr.nmt_model.src_embedding().detach().numpy(), table)
+    np.save(tmp_path / "emb.npy", table[:, :7])
+    with pytest.raises(ValueError, match="pretrained embeddings"):
+        Trainer(TConfig(**nmt, pre_word_vecs_enc=str(tmp_path / "emb.npy")),
                 device="cpu")
 
 

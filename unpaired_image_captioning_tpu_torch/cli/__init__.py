@@ -1,0 +1,2 @@
+"""Command-line entry points of the PyTorch port (counterparts of the JAX
+package's `cli/`): `train` so far."""

@@ -1,29 +1,80 @@
-"""Configuration (the port's copy of the training and model fields of
-`unpaired_image_captioning_tpu/config.py`).
+"""Configuration (the port's copy of `unpaired_image_captioning_tpu/config.py`).
 
-Field names and defaults are the JAX package's (they match the reference
-CLI flags); `finalize()` validates and derives the run id as there. The
-port's entry points read a config by attribute, so a JAX `Config` works as
-well as this one.
+Mirrors the reference's three config idioms (SURVEY.md §5.6):
+
+1. a monolithic flag namespace with ``i2t_*`` / ``nmt_*`` prefixes and
+   validity asserts (reference ``opts.py:6-181``), here a typed dataclass
+   with an auto-generated argparse CLI (`build_parser`, `parse_opt`);
+2. checkpoint-opts override: eval entry points copy every option from a
+   saved run's config except an explicit ignore list and *assert equality*
+   for load-bearing model-shape options (reference ``eval_paired.py:81-91``,
+   `merge_checkpoint_config`);
+3. ``transfer_args``: deriving the NMT sub-config by stripping the ``nmt_``
+   prefix (reference ``misc/utils.py:35-40``).
+
+Field names and defaults are the JAX package's, so recipes port 1:1, with
+three differences: `device` (the port's own: where the CLIs build, "cuda"
+unless the caller names another), no `mesh_shape` (the port runs on one
+card until scale-out, ROADMAP A14: `num_devices` above 1 raises in the
+CLI), and no `dtype` / `param_dtype` (the port computes in f32, ROADMAP
+A15). The port's entry points read a config by attribute, so a JAX
+`Config` works as well as this one.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import time
-from dataclasses import dataclass, fields
-from typing import Optional
+from dataclasses import dataclass, field, fields
+from typing import List, Optional
 
 
 @dataclass
 class Config:
     # --- flags: which sub-tasks run (opts.py group 1) ---
     i2t_train_flag: bool = False
+    i2t_eval_flag: bool = False
     nmt_train_flag: bool = False
+    nmt_eval_flag: bool = False
+    coco_eval_flag: bool = False
     nmt_kld_train_flag: bool = False
+    use_blob_fetcher: bool = False
 
-    # --- data: the prepro_ngrams df cache of the SCST rewards
-    # (`scripts/prepro_ngrams.py::load_df_table`) ---
+    # --- data inputs ---
+    input_json: str = "data/chinese_talk.json"
+    input_coco_json: str = ""
+    # raw-image eval: decode captions for an arbitrary folder of images via
+    # the on-the-fly ResNet front-end (ref dataloaderraw.py:25-141, reached
+    # from eval_pivot.py:204-210)
+    image_folder: str = ""
+    image_size: int = 448
+    resnet_depth: str = "resnet101"  # raw-image front-end (ref --model)
+    # flickr30k route of the unpaired eval (ref eval_unpaired.py:289-325):
+    # score a caption text file vs flickr30k-style references
+    # re-estimate use_bn running statistics from N data batches before eval
+    # (for checkpoints without stats; ref AttModel.py:79-84 train-mode BN)
+    bn_calibrate: int = 0
+    eval_30k: str = ""          # path to the captions text file
+    eval_30k_mode: str = "offline"   # offline | online (in-house NMT)
+    flickr_refs: str = ""       # json: image_id -> [reference captions]
+    flickr_ids: str = ""        # json list of image ids (line-aligned)
+    input_fc_dir: str = "data/aic_fc"
+    input_att_dir: str = "data/aic_att"
+    input_box_dir: str = ""
+    input_box_cls_prob_dir: str = ""
+    input_fc_h5: str = ""
+    input_att_h5: str = ""
+    input_fc_coco_h5: str = ""
+    input_att_coco_h5: str = ""
+    input_label_h5: str = "data/chinese_talk_label.h5"
+    input_label_coco_h5: str = ""
+    input_nmt_choice: str = "h5"          # 'h5' | 'pt' (here: 'npz' container)
+    input_nmt_h5: str = ""
+    input_nmt_pt: str = ""
+    input_nmt_dict: str = ""
+    start_from: Optional[str] = None
     cached_tokens: str = "data/aic-train-idxs"
 
     # --- caption model ---
@@ -101,13 +152,20 @@ class Config:
     nmt_src_vocab_size: int = 0           # filled from data
     nmt_tgt_vocab_size: int = 0
 
-    # --- raw-image front end ---
-    # decode captions for an arbitrary folder of images through the
-    # on-the-fly ResNet (ref dataloaderraw.py:25-141, reached from
-    # eval_pivot.py:204-210)
-    image_folder: str = ""
-    image_size: int = 448
-    resnet_depth: str = "resnet101"       # raw-image front end (ref --model)
+    # --- features ---
+    norm_att_feat: int = 0
+    use_box: int = 0
+    use_box_cls_prob: int = 0
+    norm_box_feat: int = 0
+    # feature-assembly worker processes for the train input pipeline
+    # (reference: BlobFetcher hardcodes 4 torch workers, dataloader.py:376;
+    # 0 = synchronous get_batch)
+    input_workers: int = 0
+    # frozen pretrained en (COCO) captioner embedding table (.npz with
+    # 'embedding' [V+1, E]) for the target-side Weight_Trans_y coupling —
+    # the reference hardcodes a coco model-best.pth path
+    # (criterion.py:380-381); pair with input_coco_json for the coco vocab
+    input_coco_wemb: str = ""
 
     # --- optimization: general ---
     max_epochs: int = 40
@@ -153,20 +211,34 @@ class Config:
     nmt_max_grad_norm: float = 5.0
     nmt_grad_clip: float = 5.0
 
-    # --- checkpointing / misc ---
-    checkpoint_path: str = "save"
+    # --- eval / checkpointing ---
+    val_images_use: int = 3200
     save_checkpoint_every: int = 2500
-    losses_log_every: int = 25
+    checkpoint_path: str = "save"
     language_eval: int = 0
+    # adds the SPICE column to the coco scoring route (stand-in scorer, not
+    # jar parity — see eval/metrics/spice.py); ref pycocoevalcap/eval.py:9-40
+    spice: int = 0
+    losses_log_every: int = 25
     load_best_score: int = 1
-    train_only: int = 0
+
+    # --- SCST ---
     cider_reward_weight: float = 1.0
     bleu_reward_weight: float = 0.0
+
+    # --- misc ---
     seed: int = 123
     id: str = ""
+    train_only: int = 0
+    gpus: List[int] = field(default_factory=list)  # kept for CLI parity; ignored
+    # 0 or 1: the one card of `device`; more raises (scale-out, ROADMAP A14)
+    num_devices: int = 0
+    # where the CLIs build the models and run the steps (the port's own)
+    device: str = "cuda"
 
-    # --- derived (filled from the data) ---
+    # --- derived (filled by finalize) ---
     vocab_size: int = 0
+    coco_vocab_size: int = 0
 
     def validate(self) -> None:
         """Validity asserts (parity: opts.py:158-170)."""
@@ -192,6 +264,7 @@ class Config:
             self.checkpoint_path = "save/" + self.id
         return self
 
+    # --- serialization ----------------------------------------------------
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
@@ -199,3 +272,97 @@ class Config:
     def from_dict(cls, d: dict) -> "Config":
         known = {f.name for f in fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2, sort_keys=True)
+
+    @classmethod
+    def load_json(cls, path: str) -> "Config":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+# Options an eval script may override without touching the saved run config
+# (parity: eval_paired.py ignore list semantics).
+EVAL_OVERRIDE_KEYS = frozenset({
+    "id", "batch_size", "beam_size", "start_from", "language_eval",
+    "val_images_use", "input_fc_dir", "input_att_dir", "input_box_dir",
+    "input_box_cls_prob_dir", "input_json", "input_coco_json",
+    "input_label_h5", "input_label_coco_h5", "input_fc_h5", "input_att_h5",
+    "input_nmt_h5", "input_nmt_pt", "input_nmt_dict", "checkpoint_path",
+    "num_devices", "gpus", "seed", "device",
+    "image_folder", "image_size", "spice", "resnet_depth",
+    "eval_30k", "eval_30k_mode", "flickr_refs", "flickr_ids", "bn_calibrate",
+})
+
+# Model-shape options that MUST match the checkpoint (parity: train.py:30-35).
+CHECKPOINT_COMPAT_KEYS = ("caption_model", "rnn_type", "rnn_size", "num_layers",
+                          "input_encoding_size", "vocab_size")
+
+
+def merge_checkpoint_config(cli: Config, saved: Config) -> Config:
+    """Apply checkpoint-opts override semantics (eval_paired.py:81-91).
+
+    Every saved option is copied onto the CLI config except
+    EVAL_OVERRIDE_KEYS; for CHECKPOINT_COMPAT_KEYS a mismatching explicit CLI
+    value raises.
+    """
+    out = dataclasses.replace(cli)
+    for f in fields(Config):
+        k = f.name
+        if k in EVAL_OVERRIDE_KEYS:
+            continue
+        saved_v = getattr(saved, k)
+        cli_v = getattr(cli, k)
+        default_v = f.default if f.default is not dataclasses.MISSING else None
+        if k in CHECKPOINT_COMPAT_KEYS and cli_v != saved_v and cli_v != default_v and default_v is not None:
+            raise ValueError(
+                f"config mismatch vs checkpoint for {k!r}: cli={cli_v!r} saved={saved_v!r}")
+        setattr(out, k, saved_v)
+    return out
+
+
+def transfer_args(cfg: Config) -> argparse.Namespace:
+    """Build the NMT sub-config by stripping `nmt_` prefixes
+    (parity: misc/utils.py:35-40) and including the shared NMT fields."""
+    ns = argparse.Namespace()
+    for f in fields(Config):
+        k = f.name
+        if k.startswith("nmt_"):
+            setattr(ns, k[len("nmt_"):], getattr(cfg, k))
+        else:
+            setattr(ns, k, getattr(cfg, k))
+    return ns
+
+
+def build_parser(defaults: Optional[Config] = None) -> argparse.ArgumentParser:
+    """argparse CLI auto-generated from the Config dataclass; flag names match
+    the reference opts.py surface."""
+    defaults = defaults or Config()
+    p = argparse.ArgumentParser(description="unpaired_image_captioning_tpu_torch")
+    for f in fields(Config):
+        name = "--" + f.name
+        default = getattr(defaults, f.name)
+        if f.type in ("bool", bool):
+            p.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=default)
+        elif f.type in ("List[int]", List[int]) or f.name == "gpus":
+            p.add_argument(name, type=int, nargs="*", default=default)
+        elif f.type in ("Optional[str]", Optional[str]):
+            p.add_argument(name, type=str, default=default)
+        elif f.type in ("Optional[float]", Optional[float]):
+            p.add_argument(name, type=float, default=default)
+        elif f.type in ("int", int):
+            p.add_argument(name, type=int, default=default)
+        elif f.type in ("float", float):
+            p.add_argument(name, type=float, default=default)
+        else:
+            p.add_argument(name, type=str, default=default)
+    return p
+
+
+def parse_opt(argv: Optional[List[str]] = None) -> Config:
+    """CLI entry (parity: opts.py parse_opt)."""
+    ns = build_parser().parse_args(argv)
+    return Config.from_dict(vars(ns)).finalize()

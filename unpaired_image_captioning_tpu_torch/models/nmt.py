@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -252,6 +253,13 @@ class NMTDecoder(nn.Module):
 # Full model
 # ---------------------------------------------------------------------------
 
+def constructor_args(scope: dict) -> dict:
+    """A constructor's arguments from its `locals()` taken first thing, the
+    device aside: what a checkpoint's `nmt_config.json` holds."""
+    return {k: v for k, v in scope.items()
+            if k not in ("self", "device", "__class__")}
+
+
 class NMTModel(nn.Module):
     def __init__(self, src_vocab_size: int, tgt_vocab_size: int,
                  word_vec_size: int = 512, rnn_size: int = 512,
@@ -267,6 +275,8 @@ class NMTModel(nn.Module):
                  beam_size: int = 15, truncated_decoder: int = 0, *,
                  device=None):
         super().__init__()
+        # the arguments `NMTModel(**init_args)` rebuilds it from
+        self.init_args = constructor_args(locals())
         for flag, what in ((copy_attn, "copy attention"),
                            (coverage_attn, "coverage attention"),
                            (context_gate, "context gate"),
@@ -325,6 +335,26 @@ class NMTModel(nn.Module):
 
     def generator_logits(self, output: torch.Tensor) -> torch.Tensor:
         return linear(self.generator, output)
+
+    @torch.no_grad()
+    def load_pretrained_embeddings(self, *, enc_path: str = "",
+                                   dec_path: str = "") -> "NMTModel":
+        """Overwrite the word tables with pretrained ones (fork
+        train.py:442-443 load_pretrained_vectors; Models.py:136-139; JAX
+        `models/nmt.py:608-628`): `.npy`, or `.npz` with an `embedding`
+        array, of the table's shape [vocab, word_vec]."""
+        for path, side in ((enc_path, "encoder"), (dec_path, "decoder")):
+            if not path:
+                continue
+            blob = np.load(path)
+            table = np.asarray(blob["embedding"] if hasattr(blob, "files")
+                               else blob, np.float32)
+            lut = getattr(self, side).embeddings.word_lut
+            if table.shape != tuple(lut.shape):
+                raise ValueError(f"{side} pretrained embeddings "
+                                 f"{table.shape} vs {tuple(lut.shape)}")
+            lut.copy_(torch.from_numpy(table))
+        return self
 
     def src_embedding(self) -> torch.Tensor:
         """The source word table (the Weight_Trans coupling point)."""

@@ -36,7 +36,7 @@ from .. import constants as C
 from ..kernels.transformer_decode import decoder_stack_step
 from ..ops.transformer_decode import pack_stack_weights, src_mask_2d
 from .base import dropout, init_module, linear, linear_init, resolve_device
-from .nmt import NMTModel, _gold_scores
+from .nmt import NMTModel, _gold_scores, constructor_args
 from .transformer import (LayerNorm, dec_layer_apply, dec_layer_init,
                           enc_layer_apply, enc_layer_init, layer_norm,
                           positional_encoding)
@@ -63,6 +63,8 @@ class TransformerNMTModel(nn.Module):
                  max_decode_len: int = 100, beam_size: int = 15, *,
                  device=None):
         super().__init__()
+        # the arguments `TransformerNMTModel(**init_args)` rebuilds it from
+        self.init_args = constructor_args(locals())
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not divisible by "
                              f"{num_heads} heads")

@@ -9,7 +9,7 @@ keys are equivalent, id <-> token being a bijection), the same file the
 JAX package writes and reads:
 
     python -m unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams \\
-        --input_label_h5 data/chinese_talk_label.h5 \\
+        --input_label_h5 data/chinese_talk_label.npz \\
         --input_json data/chinese_talk.json --output data/aic-train-idxs.npz
 
 `load_df_table(cfg.cached_tokens, device)` turns it into the df table on
@@ -80,10 +80,11 @@ def load_df_table(path: str, device="cuda"):
 def main(argv=None):
     import json
 
-    import h5py
+    from ..data.arrays import read_arrays
 
     p = argparse.ArgumentParser("prepro_ngrams")
-    p.add_argument("--input_label_h5", required=True)
+    p.add_argument("--input_label_h5", required=True,
+                   help="the label file, .npz or HDF5")
     p.add_argument("--input_json", required=True)
     p.add_argument("--output", required=True, help="output .npz path")
     p.add_argument("--split", default="train")
@@ -91,10 +92,9 @@ def main(argv=None):
 
     with open(a.input_json, encoding="utf-8") as f:
         info = json.load(f)
-    with h5py.File(a.input_label_h5, "r") as f:
-        labels = f["labels"][...]
-        start = f["label_start_ix"][...]
-        end = f["label_end_ix"][...]
+    arrays = read_arrays(a.input_label_h5)
+    labels = arrays["labels"]
+    start, end = arrays["label_start_ix"], arrays["label_end_ix"]
     mask = [img.get("split", "train") == a.split for img in info["images"]]
     df, n_imgs = compute_df(labels, start, end, split_mask=mask)
     save_df(a.output, df, float(n_imgs))

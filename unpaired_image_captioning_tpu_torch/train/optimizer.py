@@ -236,6 +236,15 @@ class PlateauScheduler:
                 self.bad_epochs = 0
         return self.scale
 
+    def state_dict(self) -> dict:
+        return {"best": self.best, "bad_epochs": self.bad_epochs,
+                "scale": self.scale}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.best = d.get("best")
+        self.bad_epochs = d.get("bad_epochs", 0)
+        self.scale = d.get("scale", 1.0)
+
 
 class DualOptim:
     """Holds the i2t and NMT transforms, their states and the host-side
@@ -284,3 +293,32 @@ class DualOptim:
             self.cfg.scheduled_sampling_increase_every,
             self.cfg.scheduled_sampling_increase_prob,
             self.cfg.scheduled_sampling_max_prob)
+
+    def state_dict(self) -> dict:
+        """Both transform states (lists of dicts of tensors and ints), the
+        NMT step and both base learning rates (parity: JAX
+        `train/optimizer.py:151-162`): tensors and plain numbers only, so
+        `torch.load(..., weights_only=True)` reads it back."""
+        return {"i2t_state": self.i2t_state, "nmt_state": self.nmt_state,
+                "nmt_step": self.nmt_step,
+                "i2t_base_lr": self.i2t_base_lr,
+                "nmt_base_lr": self.nmt_base_lr}
+
+    def load_state_dict(self, d: dict, device=None) -> None:
+        """Restore `state_dict()`'s output, its tensors copied onto
+        `device` (where given)."""
+        def to(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device, copy=True) if device is not None \
+                    else x.clone()
+            if isinstance(x, dict):
+                return {k: to(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return [to(v) for v in x]
+            return x
+
+        self.i2t_state = to(d.get("i2t_state", self.i2t_state))
+        self.nmt_state = to(d.get("nmt_state", self.nmt_state))
+        self.nmt_step = d.get("nmt_step", 0)
+        self.i2t_base_lr = d.get("i2t_base_lr", self.i2t_base_lr)
+        self.nmt_base_lr = d.get("nmt_base_lr", self.nmt_base_lr)

@@ -35,16 +35,24 @@ from the trainer's `torch.Generator` on the device; learning rates, the
 scheduled-sampling probability and the epoch counters live on the host. A
 run of `max_nan_steps` non-finite losses in a row raises.
 
-Not ported yet, each raising `NotImplementedError`: pretrained NMT word
-vectors (`pre_word_vecs_*`, ROADMAP A9), checkpoints and eval (`save` /
-`load` / `eval`, A9) and `use_bn` (A10, raised by the model). SCST trains
-from the weights in memory (no `--start_from` resume before A9).
+`eval` runs `eval/eval_utils.py::eval_split` on the val split and keeps
+the best CIDEr (or -loss without language_eval) and the best NMT valid
+accuracy. `save` / `load` write and restore a checkpoint through
+`train/checkpoint.py` (the models' state dicts, `DualOptim.state_dict()`,
+and the infos sidecar with the counters, the best scores, the config, the
+loader state and the generator's state), so a resumed run draws the same
+dropout masks and SCST samples as an uninterrupted one. Pretrained NMT
+word vectors (`pre_word_vecs_enc` / `_dec`, `.npy` or `.npz` with
+`embedding`) overwrite the BiLSTM NMT's word tables at construction. Not
+ported yet: `use_bn` (ROADMAP A10, raised by the model) and `profile`
+(A9).
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -55,9 +63,10 @@ from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
                                 reward_loss, weight_trans_loss)
 from ..losses.rewards import get_self_critical_reward
 from ..models.base import Features, resolve_device
-from ..models.nmt_transformer import make_nmt_model
+from ..models.nmt_transformer import TransformerNMTModel, make_nmt_model
 from ..models.transformer import TransformerModel
 from ..ops.cider import DfTable, empty_df_table
+from .checkpoint import CheckpointManager, check_resume_compat, save_json
 from .optimizer import DualOptim
 
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
@@ -81,10 +90,16 @@ class Trainer:
         self.nmt_model = (make_nmt_model(cfg, device=self.device)
                           .init_params(init)
                           if getattr(cfg, "nmt_src_vocab_size", 0) else None)
-        if self.nmt_model is not None and (cfg.pre_word_vecs_enc
-                                           or cfg.pre_word_vecs_dec):
-            raise NotImplementedError("pretrained NMT word vectors are not "
-                                      "ported yet (ROADMAP A9)")
+        if self.nmt_model is not None and (
+                getattr(cfg, "pre_word_vecs_enc", "")
+                or getattr(cfg, "pre_word_vecs_dec", "")):
+            # fork train.py:442-443 load_pretrained_vectors (the fork only
+            # wires this for the RNN route's Embeddings)
+            if not hasattr(self.nmt_model, "load_pretrained_embeddings"):
+                raise ValueError("pre_word_vecs_* applies to the BiLSTM NMT "
+                                 "route")
+            self.nmt_model.load_pretrained_embeddings(
+                enc_path=cfg.pre_word_vecs_enc, dec_path=cfg.pre_word_vecs_dec)
         # the frozen KLD teacher: the NMT with the teacher's parameters
         self.nmt_teacher = None
         if nmt_teacher is not None:
@@ -112,6 +127,7 @@ class Trainer:
             cfg.seed)
         self.optim = DualOptim(
             cfg, self._params(self.i2t_model), self._params(self.nmt_model))
+        self.ckpt = CheckpointManager(cfg.checkpoint_path)
         self.iteration = 0
         self.epoch = 0
         self.epoch_nmt = 0
@@ -290,13 +306,80 @@ class Trainer:
             self.nan_steps = 0
         return out
 
-    def eval(self, *args, **kwargs):
-        raise NotImplementedError("eval is not ported yet (ROADMAP A9)")
+    def eval(self, loader, *, nmt_valid=None, num_images: int = -1,
+             beam_size: Optional[int] = None, language_eval_refs=None
+             ) -> dict:
+        """Validation pass with best-CIDEr / best-NMT-acc tracking
+        (parity: trainer.py:195-215). Returns the eval_split dict plus
+        {'is_best': bool}."""
+        from ..eval.eval_utils import eval_split
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet "
-                                  "(ROADMAP A9)")
+        out = eval_split(self.i2t_model, loader, split="val",
+                         num_images=num_images,
+                         beam_size=beam_size or self.cfg.beam_size,
+                         language_eval_refs=language_eval_refs,
+                         model_id=self.cfg.id, nmt_model=self.nmt_model,
+                         nmt_valid=nmt_valid)
+        score = (out.get("lang_stats") or {}).get("CIDEr", -out["loss"])
+        out["is_best"] = self.best_cider is None or score > self.best_cider
+        if out["is_best"]:
+            self.best_cider = score
+        if out.get("nmt_stats"):
+            acc = out["nmt_stats"]["valid_acc"]
+            if self.best_nmt_acc is None or acc > self.best_nmt_acc:
+                self.best_nmt_acc = acc
+        return out
 
-    def load(self, *args, **kwargs):
-        raise NotImplementedError("checkpoints are not ported yet "
-                                  "(ROADMAP A9)")
+    def infos(self, loader_state: Optional[dict] = None, **extra) -> dict:
+        """The infos sidecar of a checkpoint: the counters, the best
+        scores, the config, the loader state and the generator's state
+        (the JAX package's `rng`)."""
+        return {"iter": self.iteration, "epoch": self.epoch,
+                "epoch_nmt": self.epoch_nmt, "best_cider": self.best_cider,
+                "best_nmt_acc": self.best_nmt_acc,
+                "opt": self.cfg.to_dict(), "loader_state": loader_state,
+                "generator": self.generator.get_state().tolist(), **extra}
+
+    def save(self, loader_state: Optional[dict] = None,
+             histories: Optional[dict] = None, best: bool = False) -> None:
+        """Write a checkpoint (the `-best` track with `best`), and the NMT's
+        `nmt_config.json`: `model_type` ("rnn" or "transformer") and the
+        model's constructor arguments, so `NMTModel(**rest)` or
+        `TransformerNMTModel(**rest)` rebuilds it."""
+        self.ckpt.save(
+            i2t_state=(self.i2t_model.state_dict()
+                       if self.i2t_model is not None else None),
+            nmt_state=(self.nmt_model.state_dict()
+                       if self.nmt_model is not None else None),
+            optim_state=self.optim.state_dict(),
+            infos=self.infos(loader_state), histories=histories, best=best)
+        if self.nmt_model is not None:
+            kind = ("transformer" if isinstance(self.nmt_model,
+                                                TransformerNMTModel)
+                    else "rnn")
+            save_json(os.path.join(self.ckpt.dir, "nmt_config.json"),
+                      {"model_type": kind, **self.nmt_model.init_args})
+
+    def load(self, best: bool = False) -> dict:
+        """Restore a checkpoint of `cfg.checkpoint_path` onto the trainer's
+        device: parameters, optimizer state, counters, best scores and the
+        generator. Returns the infos (with the loader state)."""
+        infos = self.ckpt.load_infos(best=best)
+        check_resume_compat(infos.get("opt", {}), self.cfg)
+        for name, model in (("model_i2t", self.i2t_model),
+                            ("model_nmt", self.nmt_model)):
+            if model is not None:
+                model.load_state_dict(self.ckpt.load_params(
+                    name, best=best, device=self.device))
+        self.optim.load_state_dict(
+            self.ckpt.load_params("optimizer", best=best,
+                                  device=self.device), device=self.device)
+        self.iteration = infos["iter"]
+        self.epoch = infos["epoch"]
+        self.epoch_nmt = infos["epoch_nmt"]
+        self.best_cider = infos.get("best_cider")
+        self.best_nmt_acc = infos.get("best_nmt_acc")
+        if infos.get("generator") is not None:
+            self.generator.set_state(torch.tensor(infos["generator"],
+                                                  dtype=torch.uint8))
+        return infos
