@@ -138,6 +138,25 @@ eval's beam 3 over 50 images) and at the NMT decoder's 50 teacher-forced
 rows, B4 at beam 3 x 50, and B5, B6 and B8 at the XE step's 250 rows
 (the loader's 50 images x 5 captions, features repeated).
 
+Then the eval and migration surface on those run dirs (`phase_eval_clis`):
+`cli.eval_unpaired` on the joint run's last checkpoint at caption beam 5
+-> NMT beam 15 against English references made of the target dict's
+words, `cli.eval_pivot` (the staged route through `cli.translate`) with
+the same zh and en predictions (both read the 10 test images as one
+batch), both again on a twin of the run at the trainer's initial weights
+(where, unlike after the recipe's 9 steps on random captions, every
+caption has words),
+`cli.eval_paired` on the denseatt and the transformer run dirs,
+`cli.eval_pivot --image_folder` on four raw images (B11, ResNet-101 with
+random weights), `scripts.migrate_reference` on a reference-layout
+denseatt + BiLSTM NMT pair generated at the recipe's widths, then
+`cli.eval_unpaired` on the migrated dir and the migrated weights card vs
+CPU (`phase_agreement`'s check), and the recipe once more with
+`--input_workers 2`, whose parameters and Adam moments must equal the
+full run's bit for bit. Each CLI's wall and its launches of B1, B2, B4
+and B11 are logged (counts set to 0 just before it, read just after),
+and the kernels line adds them.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -333,6 +352,16 @@ LSTM_SHAPES = [
     # BiLSTM NMT's teacher-forced decoder at batch 50
     ("denseatt lstm0/1/2, recipe eval beam 3 x 50", 150, 1024, 512, True),
     ("nmt teacher-forced decoder, recipe batch 50", 50, 1024, 512, False),
+    # the eval CLIs' (phase_eval_clis): the BiLSTM NMT over the recipe's 10
+    # test images at beam 15, and the --image_folder route's 4 images
+    # (denseatt at beam 5, then the NMT)
+    ("nmt encoder, per direction, eval CLIs' 10 images", 10, 512, 256,
+     False),
+    ("nmt decoder, eval CLIs' beam 15 x 10", 150, 1024, 512, False),
+    ("denseatt lstm0/1/2, --image_folder beam 5 x 4", 20, 1024, 512, True),
+    ("nmt encoder, per direction, --image_folder 4 images", 4, 512, 256,
+     False),
+    ("nmt decoder, --image_folder beam 15 x 4", 60, 1024, 512, False),
 ]
 # (label, B, kb, L, T, S, d, d_ff, heads, lazy anc + want_attn): the decoder
 # step at the transformer pivot's two beams and at one beam over the SCST
@@ -355,6 +384,8 @@ TFD_SHAPES = [
     ("caption beam 5 x 50, dh 512", 50, 5, 2, 16, 196, 512, 512, 1, False),
     ("caption beam 3 x 50 (the recipe's eval)", 50, 3, 6, 16, 196, 512,
      512, 8, False),
+    ("caption beam 5 x 10 (eval_paired on the recipe's run)", 10, 5, 6, 16,
+     196, 512, 512, 8, False),
     # one head past the widths a block held whole (TFD_REFUSAL_SHAPE's
     # first refused width was 7,249 before: q in column chunks), and one
     # too wide for the cross-attention's pieces over 500 slots (a row a
@@ -472,6 +503,11 @@ TOPK_SHAPES = [
     ("k=1", 250, 9488, 1),
     ("k=2", 250, 9488, 2),
     ("k=16", 250, 9488, 16),
+    # the eval CLIs' (phase_eval_clis): 10 test images, and 4 raw images
+    ("caption beam 5 x 10", 50, 9488, 5),
+    ("nmt beam 15 x 10", 150, 8571, 15),
+    ("caption beam 5 x 4", 20, 9488, 5),
+    ("nmt beam 15 x 4", 60, 8571, 15),
 ]
 
 # `--times`: the groups of kernels it times (the top-k, the training
@@ -490,7 +526,8 @@ IMG_SIZE, ATT_SIZE, RAW_BATCH, RAW_TIMED = 448, 14, 16, 3
 RAW_SHAPES = [(375, 500), (480, 640)]
 # B11's checks: a general downscale and the loader's identity size
 IMG_CASES = [("downscale", 16, 480, 640, 448),
-             ("loader identity", 16, 448, 448, 448)]
+             ("loader identity", 16, 448, 448, 448),
+             ("loader identity, eval_pivot's 4 images", 4, 448, 448, 448)]
 IMG_TOL = 1e-4    # max|diff| <= IMG_TOL * max(1, max|plain|): two-tap sums
 # in another order than the dense products
 # B11 at widths off the path (checked, not timed): rows of Wo * C not whole
@@ -872,18 +909,23 @@ def phase_kernels(dev) -> dict:
 
 def _beam_rows(x, k: int) -> None:
     """Overwrite the first rows of x [R, V] with the rows a beam search
-    meets: exact ties, all -inf rows, -inf tails, dead beam rows; then the
-    NaN rows of `_nan_rows`."""
+    meets: exact ties, all -inf rows, -inf tails, dead beam rows, g rows
+    of each (4g of ties; g = 5, or 2 where R < 40); then the NaN rows of
+    `_nan_rows`."""
     import torch
 
-    v = x.shape[1]
-    x[:20] = torch.round(x[:20] * 2) / 2              # many exact ties
-    x[20:25] = float("-inf")                          # all -inf rows
-    x[25:30] = float("-inf")                          # -inf tails
-    x[25:30, 7] = 1.0
-    x[25:30, v - 1] = 1.0
-    x[30:35] = -1e10                                  # dead beam rows
-    _nan_rows(x, 35, k)                               # NaN (C2)
+    r, v = x.shape
+    g = 5 if r >= 40 else 2
+    if r < 7 * g + 5:
+        raise ValueError(f"_beam_rows: {r} rows hold no special rows")
+    t = 4 * g
+    x[:t] = torch.round(x[:t] * 2) / 2                # many exact ties
+    x[t:t + g] = float("-inf")                        # all -inf rows
+    x[t + g:t + 2 * g] = float("-inf")                # -inf tails
+    x[t + g:t + 2 * g, 7] = 1.0
+    x[t + g:t + 2 * g, v - 1] = 1.0
+    x[t + 2 * g:t + 3 * g] = -1e10                    # dead beam rows
+    _nan_rows(x, t + 3 * g, k)                        # NaN (C2)
 
 
 def _topk_cases(dev, shapes, special):
@@ -4693,7 +4735,9 @@ def phase_recipe(dev) -> dict:
     checkpoint every 4 steps), the same stopped at epoch 3 and resumed with
     --start_from (bit for bit the full run's parameters and optimizer
     state), and the transformer captioner (3 XE steps, an eval at beam 3).
-    Returns the launches of each kernel in the phase."""
+    Then `phase_eval_clis` in the same directory, on these run dirs.
+    Returns the launches of each kernel in the recipe, and in the eval
+    CLIs."""
     import os
     import tempfile
 
@@ -4750,15 +4794,18 @@ def phase_recipe(dev) -> dict:
             for name, n in list(counts.items()) + list(tcounts.items()):
                 if not n:
                     raise AssertionError(f"recipe: {name} was not launched")
+            log(f"recipe phase: {time.perf_counter() - t_phase:.1f} s")
+            del resumed, tcap
+            torch.cuda.empty_cache()
+            eval_counts = phase_eval_clis(dev, root, files, full, wall_full)
         finally:
             os.chdir(here)
     counts["row_topk"] += tcounts.pop("row_topk")
     counts.update(tcounts)
     log(f"recipe launches: {json.dumps(counts)}")
-    log(f"recipe phase: {time.perf_counter() - t_phase:.1f} s")
-    del full, resumed, tcap
+    del full
     torch.cuda.empty_cache()
-    return counts
+    return counts, eval_counts
 
 
 def _check_recipe(ev, ev_res, full, resumed, run) -> None:
@@ -4847,6 +4894,451 @@ def _log_recipe(ev, ev_res, ev_t, run, full, walls) -> None:
     log(f"recipe CLI walls: full {walls[0]:.1f} s, stopped at epoch 3 "
         f"{walls[1]:.1f} s, resumed {walls[2]:.1f} s, transformer "
         f"{walls[3]:.1f} s")
+
+
+# the eval CLIs on the recipe's run dirs: the kernels each one launches, by
+# counter (module, attribute), and the test split the evals read in one
+# batch (the recipe's 10 test images), so that the fused and the staged
+# pivot give their NMT the same batch
+EVAL_KERNELS = ("lstm_cell", "row_topk", "transformer_decode_stack",
+                "image_front_end")
+EVAL_BATCH = RECIPE_SPLITS[2]
+EVAL_RAW_IMAGES = 4
+MIGRATE_SCALE = 0.04   # the generated reference weights: normal * this
+
+
+def _eval_counters() -> dict:
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    return {"lstm_cell": (lk, "launches"), "row_topk": (tk, "launches"),
+            "transformer_decode_stack": (tdk, "stack_launches"),
+            "image_front_end": (imk, "launches")}
+
+
+def _eval_argv(files: dict, run: str, **kw) -> list:
+    args = dict(start_from=run, input_json=files["input_json"],
+                input_label_h5=files["input_label_h5"],
+                input_fc_dir=files["input_fc_dir"],
+                input_att_dir=files["input_att_dir"], batch_size=EVAL_BATCH,
+                beam_size=CAP_BEAM, id="eval")
+    args.update(kw)
+    return [x for k, v in args.items() for x in ("--" + k, str(v))]
+
+
+def _held_eval_shapes() -> dict:
+    """The shapes at which the kernel checks hold B1, B2, B4 and B11
+    against their plain versions, keyed as `_recording_shapes` keys a
+    call: B1 (B, D, H, maxout), B2 (R, V, k), B4 (B, beams, L, T, S, d,
+    d_ff, heads, lazy), B11 (B, H, W, out)."""
+    return {"lstm_cell": {s[1:] for s in LSTM_SHAPES},
+            "row_topk": {s[1:] for s in TOPK_SHAPES},
+            "transformer_decode_stack": {s[1:] for s in TFD_SHAPES},
+            "image_front_end": {s[1:] for s in IMG_CASES}}
+
+
+class _recording_shapes:
+    """While open, every call the eval path makes to B1, B2, B4 and B11
+    adds its shape to `shapes[name]`, keyed as `_held_eval_shapes`: the
+    wrappers are wrapped where the port's modules call them (the top-k at
+    the beam search's call, which routes every k <= 16 to B2)."""
+
+    def __init__(self, shapes: dict):
+        from unpaired_image_captioning_tpu_torch.data import raw_images
+        from unpaired_image_captioning_tpu_torch.models import (
+            nmt_transformer, transformer)
+        from unpaired_image_captioning_tpu_torch.ops import beam_search, rnn
+
+        def lstm(a, kw):
+            x, h = a[2], a[3]
+            return (x.shape[0], x.shape[1], h.shape[1], kw["maxout"])
+
+        def topk(a, kw):
+            return (a[0].shape[0], a[0].shape[1], a[1])
+
+        def tfd(a, kw):
+            x, ck_all, cache_k, wstack = a[0], a[2], a[5], a[7]
+            anc = a[8] if len(a) > 8 else kw.get("anc")
+            n_l, bsz, slots, d = ck_all.shape
+            # the checks run the lazy ancestry and the attention output
+            # together or neither
+            lazy = (anc is not None if (anc is not None)
+                    == kw.get("want_attn", False) else None)
+            return (bsz, x.shape[0] // bsz, n_l, cache_k.shape[2], slots, d,
+                    wstack["w1"].shape[2], kw["n_heads"], lazy)
+
+        def img(a, kw):
+            b, h, w, c = a[0].shape
+            out = kw.get("h_out", 448)
+            return (b, h, w, out if (c, kw.get("w_out", 448)) == (3, out)
+                    else None)
+
+        self._sites = [(rnn, "lstm_cell", "lstm_cell", lstm),
+                       (beam_search, "row_topk", "row_topk", topk),
+                       (transformer, "decoder_stack_step",
+                        "transformer_decode_stack", tfd),
+                       (nmt_transformer, "decoder_stack_step",
+                        "transformer_decode_stack", tfd),
+                       (raw_images, "resize_normalize", "image_front_end",
+                        img)]
+        self._shapes = shapes
+
+    def __enter__(self):
+        self._saved = []
+        for mod, attr, name, key in self._sites:
+            fn = getattr(mod, attr)
+
+            def call(*a, _fn=fn, _name=name, _key=key, **kw):
+                self._shapes.setdefault(_name, set()).add(_key(a, kw))
+                return _fn(*a, **kw)
+
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def _run_cli(label: str, main, argv, totals: dict, runs: list,
+             shapes: dict):
+    """One CLI on the card with the eval kernels' counts set to 0 just
+    before and read just after, and the shapes it gives them recorded;
+    logs its wall and launches."""
+    import torch
+
+    counters = _eval_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    with _quiet(), _recording_shapes(shapes):
+        out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: getattr(*counters[k]) for k in EVAL_KERNELS}
+    for k, n in counts.items():
+        totals[k] += n
+    runs.append((label, wall, counts))
+    log(f"eval CLI {label}: {wall:.2f} s, launches {json.dumps(counts)}")
+    return out
+
+
+def _refs_json(root: str, files: dict) -> str:
+    """English references for the recipe's test images, 5 each, made of
+    the NMT target dict's words."""
+    import os
+
+    with open(files["input_json"]) as f:
+        ids = [im["id"] for im in json.load(f)["images"]
+               if im["split"] == "test"]
+    rs = np.random.RandomState(2)
+    refs = {str(i): [" ".join(f"t{j}" for j in rs.randint(0, 500, 9))
+                     for _ in range(5)] for i in ids}
+    path = os.path.join(root, "coco_refs.json")
+    with open(path, "w") as f:
+        json.dump(refs, f)
+    return path
+
+
+def make_reference_pair(root: str, files: dict) -> dict:
+    """A reference run's artifacts at the recipe's widths, from random
+    tensors (seed 0): denseatt and BiLSTM NMT `.pth` state dicts in the
+    reference's layout (torch's Linear / LSTM shapes and (i, f, g, o) gate
+    order), a py2-style infos.pkl (protocol 2) with the widths, the wtoi
+    pickle and an `nmt.train.pt` with the recipe's dicts."""
+    import argparse
+    import os
+    import pickle
+
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    v1, e, h, a = (CAP["vocab_size"] + 1, CAP["input_encoding_size"],
+                   CAP["rnn_size"], CAP["att_hid_size"])
+    fc, att = CAP["fc_feat_size"], CAP["att_feat_size"]
+    sv, tv, we = (NMT["src_vocab_size"], NMT["tgt_vocab_size"],
+                  NMT["word_vec_size"])
+
+    def t(*shape):
+        return torch.randn(*shape, generator=gen) * MIGRATE_SCALE
+
+    def lin(d, p, i, o, bias=True):
+        d[p + ".weight"] = t(o, i)
+        if bias:
+            d[p + ".bias"] = t(o)
+
+    cap = {"embed.0.weight": t(v1, e)}
+    lin(cap, "fc_embed.0", fc, h)
+    lin(cap, "att_embed.0", att, h)
+    lin(cap, "ctx2att", h, a)
+    lin(cap, "logit", h, v1)
+    for i in range(3):
+        lin(cap, f"core.lstm{i}.i2h", 2 * h, 5 * h)
+        lin(cap, f"core.lstm{i}.h2h", h, 5 * h)
+    for k in ("att1", "att2"):
+        lin(cap, f"core.{k}.h2att", h, a)
+        lin(cap, f"core.{k}.alpha_net", a, 1)
+    lin(cap, "core.emb2", h, h)
+    lin(cap, "core.fusion1.0", 2 * h, h)
+    lin(cap, "core.fusion2.0", 3 * h, h)
+    nmt = {"encoder.embeddings.word_lut.weight": t(sv, we),
+           "decoder.embeddings.word_lut.weight": t(tv, we)}
+    for sfx in ("", "_reverse"):
+        hd = h // 2
+        nmt[f"encoder.rnn.weight_ih_l0{sfx}"] = t(4 * hd, we)
+        nmt[f"encoder.rnn.weight_hh_l0{sfx}"] = t(4 * hd, hd)
+        nmt[f"encoder.rnn.bias_ih_l0{sfx}"] = t(4 * hd)
+        nmt[f"encoder.rnn.bias_hh_l0{sfx}"] = t(4 * hd)
+    p = "decoder.rnn.layers.0"
+    nmt.update({p + ".weight_ih": t(4 * h, we + h),
+                p + ".weight_hh": t(4 * h, h), p + ".bias_ih": t(4 * h),
+                p + ".bias_hh": t(4 * h)})
+    lin(nmt, "decoder.attn.linear_in", h, h, bias=False)
+    lin(nmt, "decoder.attn.linear_out", 2 * h, h, bias=False)
+    lin(nmt, "generator.0", h, tv)
+
+    ref = os.path.join(root, "reference")
+    os.makedirs(ref, exist_ok=True)
+    out = {"i2t_pth": os.path.join(ref, "model_i2t-best.pth"),
+           "nmt_pth": os.path.join(ref, "model_nmt-best.pth"),
+           "infos_pkl": os.path.join(ref, "infos-best.pkl"),
+           "wtoi_zh": os.path.join(ref, "wtoi_zh.txt"),
+           "nmt_pt": os.path.join(ref, "nmt.train.pt")}
+    torch.save(cap, out["i2t_pth"])
+    torch.save(nmt, out["nmt_pth"])
+    opt = argparse.Namespace(
+        caption_model="denseatt", rnn_size=h, input_encoding_size=e,
+        att_hid_size=a, num_layers=CAP["num_layers"], fc_feat_size=fc,
+        att_feat_size=att, seq_length=CAP["seq_length"], seq_per_img=5)
+    with open(out["infos_pkl"], "wb") as f:
+        pickle.dump({"opt": opt, "iter": 1000, "epoch": 30}, f, protocol=2)
+    with open(files["input_json"]) as f:
+        itow = json.load(f)["ix_to_word"]
+    with open(out["wtoi_zh"], "wb") as f:
+        pickle.dump({w: int(ix) for ix, w in itow.items()}, f, protocol=2)
+    with open(files["input_nmt_dict"]) as f:
+        dicts = json.load(f)
+    rs = np.random.RandomState(3)
+    torch.save({"train": {
+        "src": [torch.from_numpy(rs.randint(4, sv, 12)) for _ in range(8)],
+        "tgt": [torch.from_numpy(rs.randint(4, tv, 14)) for _ in range(8)]},
+        "dicts": {side: {int(k): w for k, w in
+                         dicts[side]["idx_to_label"].items()}
+                  for side in ("src", "tgt")}}, out["nmt_pt"])
+    return out
+
+
+def _initial_weights_run(dev, root: str, files: dict, run: str) -> str:
+    """A copy of run dir `run` whose last checkpoint holds the models as
+    the trainer builds them (`init_params` from the config's seed, the
+    captioner first); its path."""
+    import os
+    import shutil
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.cli import eval_unpaired
+    from unpaired_image_captioning_tpu_torch.config import parse_opt
+    from unpaired_image_captioning_tpu_torch.models import setup
+    from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
+        make_nmt_model)
+    from unpaired_image_captioning_tpu_torch.train.checkpoint import (
+        CheckpointManager)
+
+    cfg, _, _ = eval_unpaired.load_run(parse_opt(
+        _eval_argv(files, run, load_best_score=0)))
+    init = torch.Generator().manual_seed(cfg.seed)
+    cap = setup(cfg, device=dev).init_params(init)
+    nmt = make_nmt_model(cfg, device=dev).init_params(init)
+    out = os.path.join(root, "initial")
+    os.makedirs(out, exist_ok=True)
+    for name in ("infos.json", "nmt_config.json", "src_dict.json",
+                 "tgt_dict.json"):
+        shutil.copy(os.path.join(run, name), out)
+    CheckpointManager(out).save(i2t_state=cap.state_dict(),
+                                nmt_state=nmt.state_dict())
+    return out
+
+
+def phase_eval_clis(dev, root: str, files: dict, full, wall_full) -> dict:
+    """The eval and migration surface on the recipe's full-width run dirs
+    (denseatt rnn 512 over 2,048-wide 196-slot features, the caption vocab
+    9,487, the BiLSTM NMT 11,986 -> 8,571), in the recipe's directory:
+
+    - `cli.eval_unpaired` on the joint run's last checkpoint at beam 5 ->
+      15 against English references (a prediction in both languages for
+      every test image, finite `en_lang_stats`) and `cli.eval_pivot`
+      (through `cli.translate`) with the same zh and en predictions; the
+      same on a twin of the run at the trainer's initial weights, where
+      every caption must have words in both languages; `cli.eval_paired`
+      on the denseatt and the transformer run dirs;
+    - `cli.eval_pivot --image_folder` on EVAL_RAW_IMAGES images through
+      RawImageLoader (B11) and ResNet-101 with random weights;
+    - `scripts.migrate_reference` on a generated reference pair at the
+      recipe's widths, `cli.eval_unpaired` on the result, and the migrated
+      weights through `phase_agreement`'s card-vs-CPU check;
+    - the recipe again with `--input_workers 2`, then with 0: every
+      parameter and Adam moment equal to the full run's, bit for bit, and
+      the walls and mean `read_time` of the two.
+
+    Each CLI's wall and launches of B1, B2, B4 and B11 are logged; returns
+    the launches over the phase."""
+    import os
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch import pivot
+    from unpaired_image_captioning_tpu_torch.cli import (eval_paired,
+                                                          eval_pivot,
+                                                          eval_unpaired)
+    from unpaired_image_captioning_tpu_torch.config import parse_opt
+    from unpaired_image_captioning_tpu_torch.models import setup
+    from unpaired_image_captioning_tpu_torch.models.nmt_transformer import (
+        make_nmt_model)
+    from unpaired_image_captioning_tpu_torch.scripts import migrate_reference
+    from unpaired_image_captioning_tpu_torch.vocab import CaptionVocab, Dict
+
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in EVAL_KERNELS}
+    runs, shapes = [], {}
+    run = os.path.join(root, "full")
+    refs = _refs_json(root, files)
+    # the last checkpoint (`--load_best_score 0`): cli.translate reads
+    # model_nmt.pt, so eval_unpaired takes the NMT of the same step
+    pivot_kw = dict(language_eval=1, input_coco_json=refs, load_best_score=0)
+    test_ids = sorted(int(i) for i in json.load(open(refs)))
+    # the recipe's run, and its twin at the trainer's initial weights
+    # (seed 0), where every caption has words in both languages: the
+    # recipe's 9 steps on random captions leave EOS the likeliest token
+    pivot_runs = [("recipe run", run, False),
+                  ("initial weights", _initial_weights_run(dev, root, files,
+                                                           run), True)]
+    for label, d, words in pivot_runs:
+        fused = _run_cli(f"eval_unpaired, {label} (beam 5 -> 15)",
+                         eval_unpaired.main,
+                         _eval_argv(files, d, **pivot_kw), totals, runs,
+                         shapes)
+        empty = {lang: sum(not p["caption"]
+                           for p in fused[f"{lang}_predictions"])
+                 for lang in ("zh", "en")}
+        for lang in ("zh", "en"):
+            preds = fused[f"{lang}_predictions"]
+            if sorted(p["image_id"] for p in preds) != test_ids or (
+                    words and empty[lang]):
+                raise AssertionError(f"eval_unpaired, {label}: {lang} "
+                                     f"predictions {preds}")
+        stats = fused["en_lang_stats"]
+        if not all(np.isfinite(list(stats.values()))):
+            raise AssertionError(f"eval_unpaired, {label}: en_lang_stats "
+                                 f"{stats}")
+        log(f"eval_unpaired, {label}: empty captions of {EVAL_BATCH} zh "
+            f"{empty['zh']}, en {empty['en']}; en CIDEr {stats['CIDEr']:.4g}"
+            f", self-BLEU {fused['self_bleu']:.4g}; first: "
+            f"{fused['zh_predictions'][0]['caption'][:60]!r} -> "
+            f"{fused['en_predictions'][0]['caption'][:60]!r}")
+        staged = _run_cli(f"eval_pivot, {label} (staged, cli.translate)",
+                          eval_pivot.main, _eval_argv(files, d, **pivot_kw),
+                          totals, runs, shapes)
+        for lang in ("zh", "en"):
+            if staged[f"{lang}_predictions"] != fused[f"{lang}_predictions"]:
+                raise AssertionError(f"eval_pivot's {lang} predictions differ"
+                                     f" from eval_unpaired's ({label})")
+    for label, d in (("denseatt", run),
+                     ("transformer", os.path.join(root, "transformer"))):
+        out = _run_cli(f"eval_paired ({label})", eval_paired.main,
+                       _eval_argv(files, d, language_eval=1), totals, runs,
+                       shapes)
+        if len(out["predictions"]) != EVAL_BATCH or not all(
+                np.isfinite([out["loss"], *out["lang_stats"].values()])):
+            raise AssertionError(f"eval_paired {label}: {out}")
+
+    # the raw-image route: RawImageLoader (B11) + ResNet-101
+    folder = os.path.join(root, "raw")
+    os.makedirs(folder, exist_ok=True)
+    make_image_folder(folder, EVAL_RAW_IMAGES)
+    raw = _run_cli(f"eval_pivot --image_folder ({EVAL_RAW_IMAGES} images)",
+                   eval_pivot.main,
+                   _eval_argv(files, run, image_folder=folder,
+                              batch_size=EVAL_RAW_IMAGES, id="raw"),
+                   totals, runs, shapes)
+    if runs[-1][2]["image_front_end"] < 1 or len(
+            raw["en_predictions"]) != EVAL_RAW_IMAGES:
+        raise AssertionError(f"eval_pivot --image_folder: {runs[-1]}, {raw}")
+
+    # reference checkpoints in
+    t0 = time.perf_counter()
+    ref = make_reference_pair(root, files)
+    migrated = os.path.join(root, "migrated")
+    with _quiet():
+        migrate_reference.main(["--out_dir", migrated,
+                                "--caption_model", "denseatt"]
+                               + [x for k, v in ref.items()
+                                  for x in ("--" + k, v)])
+    log(f"migrate_reference: {time.perf_counter() - t0:.2f} s (host; the "
+        "reference pair generated and converted)")
+    mig = _run_cli("eval_unpaired (migrated)", eval_unpaired.main,
+                   _eval_argv(files, migrated,
+                              **dict(pivot_kw, load_best_score=1)),
+                   totals, runs, shapes)
+    if not all(p["caption"] for p in mig["zh_predictions"]):
+        raise AssertionError("migrated eval_unpaired: an empty zh caption")
+    cfg, ckpt, best = eval_unpaired.load_run(
+        parse_opt(_eval_argv(files, migrated)))
+    with open(files["input_json"]) as f:
+        vocab = CaptionVocab(json.load(f)["ix_to_word"])
+    cfg.vocab_size = vocab.vocab_size
+    cap = eval_unpaired.load_model(lambda d: setup(cfg, device=d), ckpt,
+                                   "model_i2t", best, dev)
+    nmt = eval_unpaired.load_model(lambda d: make_nmt_model(cfg, device=d),
+                                   ckpt, "model_nmt", best, dev)
+    with open(os.path.join(migrated, "src_dict.json")) as f:
+        src_dict = Dict.from_state_dict(json.load(f))
+    phase_agreement(dev, cap, nmt,
+                    pivot.build_caption_to_nmt_map(vocab, src_dict))
+    del cap, nmt
+    torch.cuda.empty_cache()
+
+    # the feature workers: the recipe with --input_workers 2, then once
+    # more without, both warm (the full run was the process's first)
+    walls, reads = {}, {}
+    for n in (2, 0):
+        again, walls[n], ev = _recipe_run(
+            files, os.path.join(root, f"workers{n}"), input_workers=n)
+        _same_state(full, again, f"recipe --input_workers {n}")
+        # step 1's read waits for the workers' start; the mean of the rest
+        r = [e["read_time"] * 1e3 for e in _steps(ev)]
+        reads[n] = f"{r[0]:.1f} then {statistics.mean(r[1:]):.1f}"
+        # each step's, for the stall after an eval (steps 5 and 9 follow
+        # the evals after steps 4 and 8) against the workers' own cost
+        log(f"recipe --input_workers {n}: read_time of steps 1-{len(r)} "
+            + ", ".join(f"{x:.1f}" for x in r) + " ms")
+        del again
+    log(f"recipe wall: --input_workers 2 {walls[2]:.1f} s, 0 {walls[0]:.1f} s"
+        f" (the process's first, the full run above: {wall_full:.1f} s); "
+        f"read_time of step 1, then the mean of steps 2-9: workers "
+        f"{reads[2]} ms, none {reads[0]} ms; parameters and Adam moments "
+        "equal to the full run's bit for bit")
+    torch.cuda.empty_cache()
+    for name in ("lstm_cell", "row_topk", "transformer_decode_stack",
+                 "image_front_end"):
+        if not totals[name]:
+            raise AssertionError(f"eval CLIs: {name} was not launched")
+    # every shape the CLIs gave a kernel is one the kernel checks hold
+    held = _held_eval_shapes()
+    for name in EVAL_KERNELS:
+        seen = shapes.get(name, set())
+        log(f"eval CLIs {name} shapes: {sorted(seen, key=str)}")
+        if seen - held[name]:
+            raise AssertionError(
+                f"eval CLIs: {name} ran at {sorted(seen - held[name], key=str)}"
+                ", which no kernel check holds against the plain version")
+    log(f"eval CLIs launches: {json.dumps(totals)}")
+    log(f"eval CLIs phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
 
 
 def main(argv=None) -> int:
@@ -5000,8 +5492,8 @@ def main(argv=None) -> int:
     mark("NMT and joint card vs cpu")
     scst_counts = phase_scst(dev)
     mark("SCST")
-    recipe_counts = phase_recipe(dev)
-    mark("training CLI recipe")
+    recipe_counts, eval_counts = phase_recipe(dev)
+    mark("training CLI recipe and eval CLIs")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -5020,8 +5512,8 @@ def main(argv=None) -> int:
     # the LSTM cell's and the decoder stack's launches add the SCST steps'
     for name, n in scst_counts.items():
         kernels[name]["launches"] += n
-    # and the training CLI's recipe's
-    for name, n in recipe_counts.items():
+    # and the training CLI's recipe's, and the eval CLIs'
+    for name, n in list(recipe_counts.items()) + list(eval_counts.items()):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -107,6 +107,47 @@ def test_training_cli_modules_are_checked():
                                 + m.replace("/", ".").replace(".__init__", ""))
 
 
+def test_eval_and_migration_modules_are_checked():
+    """The eval CLIs, the feature workers and the migration's modules are
+    among the files the import check reads, and each imports without a
+    card."""
+    import importlib
+
+    mods = ("cli/eval_paired", "cli/eval_pivot", "cli/eval_unpaired",
+            "cli/translate", "data/prefetch", "models/convert", "pivot",
+            "scripts/migrate_reference", "utils/text")
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"unpaired_image_captioning_tpu_torch/{m}.py"
+            for m in mods} <= names
+    for m in mods:
+        importlib.import_module("unpaired_image_captioning_tpu_torch."
+                                + m.replace("/", "."))
+
+
+@pytest.mark.parametrize("cli", ["eval_unpaired", "eval_pivot",
+                                 "eval_paired", "translate", "eval_30k"])
+def test_eval_clis_default_to_the_card(cli, monkeypatch, tmp_path):
+    """Each eval CLI (and eval_30k's online route through translate) builds
+    on the card unless `--device` / `-device` names another, and raises
+    without one before it reads any model."""
+    import importlib
+    import json
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "infos-best.json").write_text(json.dumps({"opt": {}}))
+    (tmp_path / "caps.txt").write_text("w1 w2\n")
+    argv = {"translate": ["-model", str(tmp_path), "-src", "caps.txt"],
+            "eval_30k": ["--eval_30k", "caps.txt", "--eval_30k_mode",
+                         "online", "--start_from", str(tmp_path)]}.get(
+        cli, ["--start_from", str(tmp_path)])
+    mod = importlib.import_module("unpaired_image_captioning_tpu_torch.cli."
+                                  + ("eval_unpaired" if cli == "eval_30k"
+                                     else cli))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+
+
 @pytest.mark.parametrize("build", [
     lambda dev: cider.build_df_table({(1, 2): 1.0}, 2.0, **dev),
     lambda dev: cider.empty_df_table(**dev),

@@ -17,7 +17,8 @@
   `lang_stats`); stopping at the switch and resuming with `--start_from`
   lands on the single run's parameters and optimizer state bit for bit;
   a width mismatch on resume raises; a step that raises leaves an
-  emergency checkpoint; the options that are not ported raise.
+  emergency checkpoint; the options that are not ported raise, and so
+  does a corpus with source-feature streams (C4).
 - The config's parser, checkpoint merge and `transfer_args`, the
   optimizer's state dict, the checkpoint files, the metric log and
   pretrained NMT word vectors against the JAX package.
@@ -40,6 +41,7 @@ from unpaired_image_captioning_tpu_torch import config as tconfig
 from unpaired_image_captioning_tpu_torch.cli import train as tcli
 from unpaired_image_captioning_tpu_torch.data import synthetic as tsyn
 from unpaired_image_captioning_tpu_torch.data.arrays import read_arrays
+from unpaired_image_captioning_tpu_torch.data.nmt_dataset import NMTDataset
 from unpaired_image_captioning_tpu_torch.scripts import prepro_ngrams
 from unpaired_image_captioning_tpu_torch.train import checkpoint as tckpt
 from unpaired_image_captioning_tpu_torch.train import trainer as ttrainer
@@ -305,9 +307,37 @@ def test_emergency_checkpoint_when_a_step_raises(assets, monkeypatch):
 @pytest.mark.parametrize("flag,item", [("input_workers", "A9"),
                                        ("num_devices", "A14")])
 def test_unported_cli_options_raise(assets, flag, item):
+    """`--num_devices 2` raises naming scale-out (A14). The feature workers
+    of A9 have landed: `--input_workers 2` trains through to the end
+    (tests/test_torch_prefetch.py holds the run against one without)."""
+    argv = _port(assets["argv"](str(assets["tmp"] / f"x_{flag}"),
+                                **{flag: 2}, max_epochs=1))
+    if flag == "input_workers":
+        trainer = tcli.main(argv)
+        assert trainer.epoch == 1 and trainer.iteration == 3
+        return
     with pytest.raises(NotImplementedError, match=item):
-        tcli.main(_port(assets["argv"](str(assets["tmp"] / "x"),
-                                       **{flag: 2})))
+        tcli.main(argv)
+
+
+def test_featured_corpus_raises(assets, tmp_path):
+    """C4: a corpus with a source-feature stream (`src_feat_0`) sizes
+    `nmt_src_feature_sizes` as the JAX CLI does, and the NMT, which takes
+    no feature LUTs yet, refuses it instead of training without it; so
+    does the trainer, handed such a batch directly."""
+    blob = read_arrays(str(assets["tmp"] / "nmt.train.npz"))
+    featured = str(tmp_path / "nmt.train.npz")
+    np.savez(featured, src_feat_0=blob["src"] % 3, **blob)
+    with pytest.raises(NotImplementedError, match="A11"):
+        tcli.main(_port(assets["argv"](str(tmp_path / "run"),
+                                       input_nmt_h5=featured)))
+    tr = ttrainer.Trainer(tconfig.Config(
+        nmt_src_vocab_size=30, nmt_tgt_vocab_size=40, word_vec_size=8,
+        rnn_size=8, nmt_train_flag=True), device="cpu")
+    nb = NMTDataset(blob["src"], blob["tgt"], 4,
+                    src_feats=[blob["src"] % 3]).next_batch()[0]
+    with pytest.raises(NotImplementedError, match="A11"):
+        tr.train({"nmt": nb})
 
 
 def test_cli_defaults_to_the_card(assets, monkeypatch):

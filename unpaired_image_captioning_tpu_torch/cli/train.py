@@ -16,8 +16,11 @@ Runs on the card unless `--device` names another:
         ... [--device cpu]
 
 The label file and the NMT corpus are `.npz` or HDF5 (`data/arrays.py`).
-`--input_workers` above 0 (feature workers, `data/prefetch.py`, ROADMAP A9)
-and `--num_devices` above 1 (scale-out, A14) raise.
+`--input_workers N` assembles the features in N worker processes
+(`data/prefetch.py`); the batches, and so the run, are bit for bit those
+of `--input_workers 0`. `--num_devices` above 1 (scale-out, ROADMAP A14)
+raises. A corpus with source-feature streams raises until the NMT takes
+them (A11).
 """
 
 from __future__ import annotations
@@ -76,6 +79,13 @@ def _nmt_data(cfg):
     if not cfg.nmt_src_vocab_size:
         cfg.nmt_src_vocab_size = int(nmt_dataset.src.max()) + 1
         cfg.nmt_tgt_vocab_size = int(nmt_dataset.tgt.max()) + 1
+    if nmt_dataset.src_feats is not None and not cfg.nmt_src_feature_sizes:
+        # a featured corpus (`src_feat_{j}` streams): one feature LUT per
+        # stream, sized from the stream as the JAX CLI does; the NMT model
+        # then refuses them until source features land (ROADMAP A11)
+        cfg.nmt_src_feature_sizes = tuple(
+            int(nmt_dataset.src_feats[..., j].max()) + 1
+            for j in range(nmt_dataset.src_feats.shape[-1]))
     return nmt_dataset, nmt_valid, nmt_dicts
 
 
@@ -113,14 +123,9 @@ def main(argv=None):
     from ..config import parse_opt
     from ..models.base import resolve_device
     from ..scripts.prepro_ngrams import load_df_table
-    from ..train.logging import MetricLogger
     from ..train.trainer import Trainer
 
     cfg = parse_opt(argv)
-    if cfg.input_workers > 0:
-        raise NotImplementedError("--input_workers > 0: the feature workers "
-                                  "(data/prefetch.py) are not ported yet "
-                                  "(ROADMAP A9)")
     if cfg.num_devices > 1:
         raise NotImplementedError("--num_devices > 1: the port trains on one "
                                   "card until scale-out (ROADMAP A14)")
@@ -149,13 +154,42 @@ def main(argv=None):
         histories = trainer.ckpt.load_histories() or histories
         print(f"resumed from iter {trainer.iteration} epoch {trainer.epoch}")
 
+    # feature workers (the reference BlobFetcher's role): the plan stream
+    # stays in this process, so the loader state a checkpoint takes is
+    # that of the next unconsumed batch, workers ahead of the step or not
+    prefetcher = None
+    if cfg.input_workers > 0:
+        from ..data.prefetch import ProcessPrefetcher
+
+        prefetcher = ProcessPrefetcher(loader, "train",
+                                       num_workers=cfg.input_workers)
+
+    try:
+        return _train_loop(cfg, trainer, loader, nmt_valid, histories,
+                           prefetcher)
+    finally:
+        # on every exit (the end, a step that raised, an interrupt): the
+        # workers and the shared memory of planned batches go with them
+        if prefetcher is not None:
+            prefetcher.close()
+
+
+def _train_loop(cfg, trainer, loader, nmt_valid, histories, prefetcher):
+    from ..train.logging import MetricLogger
+
+    def next_train_batch():
+        return prefetcher.get() if prefetcher else loader.get_batch("train")
+
+    def loader_state():
+        return prefetcher.state_dict() if prefetcher else loader.state_dict()
+
     logger = MetricLogger(cfg.checkpoint_path)
     t_start = time.time()
     while True:
         sc_flag = (cfg.self_critical_after >= 0
                    and trainer.epoch >= cfg.self_critical_after)
         t0 = time.time()
-        data = loader.get_batch("train")
+        data = next_train_batch()
         read_t = time.time() - t0
         t0 = time.time()
         try:
@@ -164,7 +198,7 @@ def main(argv=None):
             # emergency checkpoint so the run is resumable after a crash
             # (SURVEY.md §5.3: the reference's only recovery is --start_from)
             trainer.ckpt.save(
-                infos=trainer.infos(loader.state_dict(), crash=repr(e)),
+                infos=trainer.infos(loader_state(), crash=repr(e)),
                 i2t_state=(trainer.i2t_model.state_dict()
                            if trainer.i2t_model is not None else None),
                 nmt_state=(trainer.nmt_model.state_dict()
@@ -197,6 +231,10 @@ def main(argv=None):
                   f"read={read_t:.3f}s step={step_t:.3f}s")
 
         if it % cfg.save_checkpoint_every == 0:
+            if prefetcher is not None:
+                # the eval draws captions and NMT batches from the loader's
+                # generators: hand them back from the batches planned ahead
+                prefetcher.rewind()
             t0 = time.time()
             val = evaluate(trainer, loader, cfg, nmt_valid=nmt_valid)
             eval_t = time.time() - t0
@@ -208,10 +246,9 @@ def main(argv=None):
             if val.get("nmt_stats"):
                 logger.add_scalars(it, val["nmt_stats"])
             t0 = time.time()
-            trainer.save(loader_state=loader.state_dict(),
-                         histories=histories)
+            trainer.save(loader_state=loader_state(), histories=histories)
             if best:
-                trainer.save(loader_state=loader.state_dict(),
+                trainer.save(loader_state=loader_state(),
                              histories=histories, best=True)
             logger.add_scalars(it, {"save_time": time.time() - t0})
             print(f"checkpoint @ iter {it}: val_loss={val['loss']:.4f} "
@@ -220,10 +257,9 @@ def main(argv=None):
 
         if trainer.epoch >= cfg.max_epochs >= 0:
             # final checkpoint so short runs are always resumable/evaluable
-            trainer.save(loader_state=loader.state_dict(),
-                         histories=histories)
+            trainer.save(loader_state=loader_state(), histories=histories)
             if trainer.best_cider is None:
-                trainer.save(loader_state=loader.state_dict(),
+                trainer.save(loader_state=loader_state(),
                              histories=histories, best=True)
             print(f"done: {trainer.epoch} epochs, {it} iters, "
                   f"{time.time() - t_start:.1f}s")

@@ -1,2 +1,3 @@
 """Data loaders of the PyTorch port (counterparts of the JAX package's
-`data/`): the raw-image loader so far."""
+`data/`): the caption and NMT loaders, their array files, the feature
+workers, the synthetic artifacts and the raw-image loader."""

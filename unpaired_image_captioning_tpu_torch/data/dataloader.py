@@ -24,7 +24,9 @@ Parity: reference `misc/dataloader/dataloader.py:24-299` (AIC) and
 As in the JAX package: the att grid is padded to a power-of-two bucket
 capped at `max_att_len`, gts are padded tensors instead of ragged lists,
 and `get_batch` is a plan phase (every draw of the loader's state) and a
-feature-assembly phase (file reads and padding, no state). The
+feature-assembly phase (file reads and padding, no state: a
+`FeatureReader`, which the feature workers of `data/prefetch.py` run from
+a pickled copy). The
 multi-host striping of the training split waits for scale-out (ROADMAP
 A14), and `feat_dtype="bfloat16"` for the compute dtype (A15).
 """
@@ -40,6 +42,164 @@ import numpy as np
 from ..vocab import CaptionVocab
 from .arrays import open_array, read_arrays
 from .nmt_dataset import NMTDataset
+
+
+class FeatureReader:
+    """The per-image feature reads of `CaptionDataLoader` (dirs, in-memory
+    arrays or one `fc` / `att` file), padded to the att bucket. It holds
+    no iterator or RNG state, so a pickled copy reads what the original
+    reads: the feature workers of `data/prefetch.py` receive one. HDF5
+    handles do not pickle; a copy holds none until `reopen`."""
+
+    def __init__(self, *, images: list, input_fc_dir: str = "",
+                 input_att_dir: str = "", input_box_dir: str = "",
+                 input_box_cls_prob_dir: str = "", use_box: int = 0,
+                 norm_att_feat: int = 0, norm_box_feat: int = 0,
+                 use_box_cls_prob: int = 0, att_feat_size: int = 2048,
+                 attri_feat_size: int = 1601, max_att_len: int = 196,
+                 input_fc_h5: str = "", input_att_h5: str = "",
+                 in_memory: Optional[dict] = None):
+        self.images = images
+        self.input_fc_dir = input_fc_dir
+        self.input_att_dir = input_att_dir
+        self.input_box_dir = input_box_dir
+        self.input_box_cls_prob_dir = input_box_cls_prob_dir
+        self.use_box = use_box
+        self.norm_att_feat = norm_att_feat
+        self.norm_box_feat = norm_box_feat
+        self.use_box_cls_prob = use_box_cls_prob
+        self.att_feat_size = att_feat_size
+        self.attri_feat_size = attri_feat_size
+        self.max_att_len = max_att_len
+        self._mem = in_memory  # {'fc': {id: arr}, 'att': {...}, ...} for tests
+        self._fc_h5_path = input_fc_h5
+        self._att_h5_path = input_att_h5
+        self._fc_h5 = open_array(input_fc_h5, "fc") if input_fc_h5 else None
+        self._att_h5 = (open_array(input_att_h5, "att") if input_att_h5
+                        else None)
+
+    def _hdf5_features(self):
+        """(attribute, path, dataset name) of each feature file read
+        through HDF5 (the `.npz` route holds plain arrays)."""
+        return [(attr, path, name) for attr, path, name in (
+            ("_fc_h5", self._fc_h5_path, "fc"),
+            ("_att_h5", self._att_h5_path, "att"))
+            if path and not path.endswith(".npz")]
+
+    def reopen(self) -> None:
+        """Re-create the HDF5 feature handles (in a feature worker: HDF5
+        handles cannot be pickled, and inherited ones share file state
+        with the parent). The `.npz` route has none and imports no
+        h5py."""
+        for attr, path, name in self._hdf5_features():
+            setattr(self, attr, open_array(path, name))
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__)
+        for attr, _, _ in self._hdf5_features():
+            state[attr] = None
+        return state
+
+    def _load(self, kind: str, img_id) -> Optional[np.ndarray]:
+        if self._mem is not None:
+            d = self._mem.get(kind)
+            return None if d is None else np.asarray(d[str(img_id)])
+        dirs = {"fc": self.input_fc_dir, "att": self.input_att_dir,
+                "box": self.input_box_dir, "cls": self.input_box_cls_prob_dir}
+        d = dirs[kind]
+        if not d:
+            return None
+        for ext, loader in ((".npz", lambda p: np.load(p)["feat"]),
+                            (".npy", np.load)):
+            p = os.path.join(d, str(img_id) + ext)
+            if os.path.exists(p):
+                return loader(p)
+        raise FileNotFoundError(
+            f"feature {kind} for image {img_id} not found in {d}")
+
+    def fetch_image(self, ix: int):
+        img = self.images[ix]
+        img_id = img.get("id", ix)
+        if self._fc_h5 is not None:
+            fc = np.asarray(self._fc_h5[ix], np.float32)
+        else:
+            fc = self._load("fc", img_id)
+        if self._att_h5 is not None:
+            att = np.asarray(self._att_h5[ix], np.float32)
+        else:
+            att = self._load("att", img_id)
+        attri = None
+        if att is not None:
+            att = att.reshape(-1, att.shape[-1]).astype(np.float32)
+            if self.norm_att_feat:
+                att = att / np.maximum(
+                    np.linalg.norm(att, axis=1, keepdims=True), 1e-8)
+            if self.use_box:
+                box = self._load("box", img_id)
+                if box is not None:
+                    w = float(img.get("width", 1.0)) or 1.0
+                    h = float(img.get("height", 1.0)) or 1.0
+                    x1, y1 = box[:, 0] / w, box[:, 1] / h
+                    x2, y2 = box[:, 2] / w, box[:, 3] / h
+                    area = (x2 - x1) * (y2 - y1)
+                    geo = np.stack([x1, y1, x2, y2, area],
+                                   axis=1).astype(np.float32)
+                    if self.norm_box_feat:
+                        att = att / np.maximum(
+                            np.linalg.norm(att, axis=1, keepdims=True), 1e-8)
+                    att = np.concatenate([att, geo], axis=1)
+                    # sort by box size, biggest first (dataloader.py:330-332)
+                    order = np.argsort(-area, kind="stable")
+                    att = att[order]
+        if self.use_box_cls_prob:
+            cls = self._load("cls", img_id)
+            if cls is not None:
+                attri = cls.reshape(-1, cls.shape[-1]).mean(
+                    axis=0).astype(np.float32)
+        if attri is None:
+            attri = np.zeros((self.attri_feat_size,), np.float32)
+        if fc is None:
+            fc = (att.mean(axis=0) if att is not None
+                  else np.zeros((self.att_feat_size,), np.float32))
+        return fc.astype(np.float32).reshape(-1), att, attri, img
+
+    def gather(self, ixs: List[int]) -> dict:
+        """Feature IO + padding for the image indices `ixs`, one row an
+        image."""
+        bs = len(ixs)
+        fc_list, att_list, attri_list, att_lens = [], [], [], []
+        for ix in ixs:
+            fc, att, attri, _ = self.fetch_image(ix)
+            fc_list.append(fc)
+            att_list.append(att)
+            attri_list.append(attri)
+            att_lens.append(0 if att is None
+                            else min(len(att), self.max_att_len))
+
+        # shape-stable padding: the batch max rounded up to a power-of-two
+        # bucket (capped at max_att_len), so variable grids give at most
+        # log2(max_att_len) distinct batch shapes
+        max_att = max(max(att_lens), 1)
+        bucket = 1
+        while bucket < max_att:
+            bucket *= 2
+        max_att = min(bucket, self.max_att_len)
+        att_dim = (self.att_feat_size + (5 if self.use_box else 0))
+        att_feats = np.zeros((bs, max_att, att_dim), np.float32)
+        att_masks = np.zeros((bs, max_att), np.float32)
+        for i, att in enumerate(att_list):
+            if att is None:
+                continue
+            L = att_lens[i]
+            att_feats[i, :L] = att[:L]
+            att_masks[i, :L] = 1.0
+
+        return {"fc_feats": np.stack(fc_list).astype(np.float32,
+                                                     copy=False),
+                "att_feats": att_feats,
+                "attri_feats": np.stack(attri_list).astype(np.float32,
+                                                           copy=False),
+                "att_masks": att_masks}
 
 
 class CaptionDataLoader:
@@ -76,15 +236,20 @@ class CaptionDataLoader:
         self.input_att_dir = input_att_dir
         self.input_box_dir = input_box_dir
         self.input_box_cls_prob_dir = input_box_cls_prob_dir
-        self._mem = in_memory  # {'fc': {id: arr}, 'att': {...}, ...} for tests
-        self._fc_h5 = open_array(input_fc_h5, "fc") if input_fc_h5 else None
-        self._att_h5 = (open_array(input_att_h5, "att") if input_att_h5
-                        else None)
 
         with open(input_json, "r", encoding="utf-8") as f:
             self.info = json.load(f)
         self.vocab = CaptionVocab(self.info["ix_to_word"])
         self.images = self.info["images"]
+        self.features = FeatureReader(
+            images=self.images, input_fc_dir=input_fc_dir,
+            input_att_dir=input_att_dir, input_box_dir=input_box_dir,
+            input_box_cls_prob_dir=input_box_cls_prob_dir, use_box=use_box,
+            norm_att_feat=norm_att_feat, norm_box_feat=norm_box_feat,
+            use_box_cls_prob=use_box_cls_prob, att_feat_size=att_feat_size,
+            attri_feat_size=attri_feat_size, max_att_len=max_att_len,
+            input_fc_h5=input_fc_h5, input_att_h5=input_att_h5,
+            in_memory=in_memory)
 
         arrays = read_arrays(input_label_h5)
         self.labels = arrays["labels"].astype(np.int32)
@@ -132,70 +297,6 @@ class CaptionDataLoader:
 
     def reset_iterator(self, split: str) -> None:
         self.iterators[split] = 0
-
-    # -- feature fetch --------------------------------------------------------
-    def _load(self, kind: str, img_id) -> Optional[np.ndarray]:
-        if self._mem is not None:
-            d = self._mem.get(kind)
-            return None if d is None else np.asarray(d[str(img_id)])
-        dirs = {"fc": self.input_fc_dir, "att": self.input_att_dir,
-                "box": self.input_box_dir, "cls": self.input_box_cls_prob_dir}
-        d = dirs[kind]
-        if not d:
-            return None
-        for ext, loader in ((".npz", lambda p: np.load(p)["feat"]),
-                            (".npy", np.load)):
-            p = os.path.join(d, str(img_id) + ext)
-            if os.path.exists(p):
-                return loader(p)
-        raise FileNotFoundError(
-            f"feature {kind} for image {img_id} not found in {d}")
-
-    def _fetch_image(self, ix: int):
-        img = self.images[ix]
-        img_id = img.get("id", ix)
-        if self._fc_h5 is not None:
-            fc = np.asarray(self._fc_h5[ix], np.float32)
-        else:
-            fc = self._load("fc", img_id)
-        if self._att_h5 is not None:
-            att = np.asarray(self._att_h5[ix], np.float32)
-        else:
-            att = self._load("att", img_id)
-        attri = None
-        if att is not None:
-            att = att.reshape(-1, att.shape[-1]).astype(np.float32)
-            if self.norm_att_feat:
-                att = att / np.maximum(
-                    np.linalg.norm(att, axis=1, keepdims=True), 1e-8)
-            if self.use_box:
-                box = self._load("box", img_id)
-                if box is not None:
-                    w = float(img.get("width", 1.0)) or 1.0
-                    h = float(img.get("height", 1.0)) or 1.0
-                    x1, y1 = box[:, 0] / w, box[:, 1] / h
-                    x2, y2 = box[:, 2] / w, box[:, 3] / h
-                    area = (x2 - x1) * (y2 - y1)
-                    geo = np.stack([x1, y1, x2, y2, area],
-                                   axis=1).astype(np.float32)
-                    if self.norm_box_feat:
-                        att = att / np.maximum(
-                            np.linalg.norm(att, axis=1, keepdims=True), 1e-8)
-                    att = np.concatenate([att, geo], axis=1)
-                    # sort by box size, biggest first (dataloader.py:330-332)
-                    order = np.argsort(-area, kind="stable")
-                    att = att[order]
-        if self.use_box_cls_prob:
-            cls = self._load("cls", img_id)
-            if cls is not None:
-                attri = cls.reshape(-1, cls.shape[-1]).mean(
-                    axis=0).astype(np.float32)
-        if attri is None:
-            attri = np.zeros((self.attri_feat_size,), np.float32)
-        if fc is None:
-            fc = (att.mean(axis=0) if att is not None
-                  else np.zeros((self.att_feat_size,), np.float32))
-        return fc.astype(np.float32).reshape(-1), att, attri, img
 
     def _fetch_captions(self, ix: int) -> np.ndarray:
         """seq_per_img captions [spi, L] (random block / sample-with-repeat
@@ -294,44 +395,23 @@ class CaptionDataLoader:
             plan["nmt_wrapped"] = nmt_wrapped
         return plan
 
+    def gather_features(self, ixs: List[int]) -> dict:
+        """The planned images' features, one row an image
+        (`FeatureReader.gather`)."""
+        return self.features.gather(ixs)
+
+    def replicate(self, feats: dict) -> dict:
+        """Each image's feature rows repeated for its seq_per_img captions
+        (new arrays)."""
+        return {k: self._rep(v) for k, v in feats.items()}
+
     def assemble_features(self, ixs: List[int]) -> dict:
-        """Feature IO + padding for the planned image indices; draws
-        nothing from the loader's state."""
-        bs = len(ixs)
-        fc_list, att_list, attri_list, att_lens = [], [], [], []
-        for ix in ixs:
-            fc, att, attri, _ = self._fetch_image(ix)
-            fc_list.append(fc)
-            att_list.append(att)
-            attri_list.append(attri)
-            att_lens.append(0 if att is None
-                            else min(len(att), self.max_att_len))
+        """The batch's features: `gather_features`, replicated."""
+        return self.replicate(self.gather_features(ixs))
 
-        # shape-stable padding: the batch max rounded up to a power-of-two
-        # bucket (capped at max_att_len), so variable grids give at most
-        # log2(max_att_len) distinct batch shapes
-        max_att = max(max(att_lens), 1)
-        bucket = 1
-        while bucket < max_att:
-            bucket *= 2
-        max_att = min(bucket, self.max_att_len)
-        att_dim = (self.att_feat_size + (5 if self.use_box else 0))
-        att_feats = np.zeros((bs, max_att, att_dim), np.float32)
-        att_masks = np.zeros((bs, max_att), np.float32)
-        for i, att in enumerate(att_list):
-            if att is None:
-                continue
-            L = att_lens[i]
-            att_feats[i, :L] = att[:L]
-            att_masks[i, :L] = 1.0
-
-        rep = self._rep
-        return {"fc_feats": rep(np.stack(fc_list).astype(np.float32,
-                                                         copy=False)),
-                "att_feats": rep(att_feats),
-                "attri_feats": rep(np.stack(attri_list).astype(
-                    np.float32, copy=False)),
-                "att_masks": rep(att_masks)}
+    def reopen_features(self) -> None:
+        """Re-create the HDF5 feature handles (`FeatureReader.reopen`)."""
+        self.features.reopen()
 
     def get_batch(self, split: str, batch_size: Optional[int] = None) -> dict:
         plan = self.plan_batch(split, batch_size)

@@ -10,7 +10,8 @@ under masking + batch-major layouts, so batches keep corpus order
 
 Storage: a file with arrays `src` [N, S] and `tgt` [N, T] int32
 (0-padded) and optional `src_feat_{j}`, as `.npz` or HDF5
-(`data/arrays.py`), or in-memory numpy arrays. Dicts ride in `vocab.Dict`
+(`data/arrays.py`), in-memory numpy arrays, or the reference's torch
+corpus (`from_reference_pt`). Dicts ride in `vocab.Dict`
 json. Batches are numpy; the trainer uploads them.
 """
 
@@ -80,6 +81,34 @@ class NMTDataset:
             feats.append(arrays[f"src_feat_{len(feats)}"])
         return cls(arrays["src"], arrays["tgt"], batch_size,
                    src_feats=feats or None, **kw)
+
+    @classmethod
+    def from_reference_pt(cls, path: str, batch_size: int, **kw
+                          ) -> "NMTDataset":
+        """Migrate a reference `nmt.train.pt` artifact (a torch-pickled dict
+        with ragged 'train'/'valid' src/tgt id lists, prepro_aic_nmt.py
+        output), padded to the longest row with PAD=0.
+
+        The corpus pickles lists, dicts and onmt `Dict` objects, which
+        `torch.load(weights_only=True)` (the default of recent torch)
+        refuses; it is read with `weights_only=False`, which runs the
+        pickle's code, because it is the user's own file. State dicts
+        (`.pth`) load with `weights_only=True`
+        (`scripts/migrate_reference.py`)."""
+        import torch
+
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+        split = blob.get("train", blob)
+        srcs = [np.asarray(s).reshape(-1) for s in split["src"]]
+        tgts = [np.asarray(t).reshape(-1) for t in split["tgt"]]
+        ms = max(len(s) for s in srcs)
+        mt = max(len(t) for t in tgts)
+        src = np.zeros((len(srcs), ms), np.int32)
+        tgt = np.zeros((len(tgts), mt), np.int32)
+        for i, (s, t) in enumerate(zip(srcs, tgts)):
+            src[i, :len(s)] = s
+            tgt[i, :len(t)] = t
+        return cls(src, tgt, batch_size, **kw)
 
     def __len__(self) -> int:
         return (len(self.src) + self.batch_size - 1) // self.batch_size

@@ -7,14 +7,17 @@ Parity: reference `eval_utils.py` —
   {overall, imgToEval};
 - `eval_split` (:208-327): val loop computing XE loss on labeled batches,
   greedy/beam sampling, `decode_sequence`, `num_images` budget with
-  pop-on-wrap, optional NMT valid ppl/acc loop (:313-317).
+  pop-on-wrap, optional NMT valid ppl/acc loop (:313-317);
+- `eval_split_coco_unpaired` (:329-473): the pivot eval — zh captions for
+  COCO images -> zh->en NMT -> post-edit -> score en vs COCO refs and zh vs
+  AIC refs, the decode and translation in one `pivot.pivot_translate`
+  call on the device;
+- `eval_split_coco_paired` (:476-567): plain single-model COCO eval.
 
-`eval_split` runs under `torch.no_grad()` on the model's device: the
-batches upload there, and the decoded ids and summed losses stay there
-until the sweep ends (at most `EVAL_WINDOW` batches of ids in flight), so
-the card decodes batch i while the host assembles batch i + 1. The pivot
-evals (`eval_split_coco_paired` / `_unpaired`) come with the eval CLIs
-(ROADMAP A9).
+Both sweeps run on the model's device: the batches upload there, and the
+decoded ids (and `eval_split`'s summed losses) stay there until the sweep
+ends (at most `EVAL_WINDOW` batches of ids in flight), so the card decodes
+batch i while the host assembles batch i + 1.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from ..losses.criterion import NMTStats, language_model_loss, nmt_loss
 from ..models.base import Features
+from ..pivot import pivot_translate, post_edit
 from ..utils.text import decode_sequence
 
 EVAL_WINDOW = 32   # batches of decoded ids kept on the device before a fetch
@@ -104,7 +108,9 @@ def language_eval(dataset_type: str, preds: List[dict], model_id: str,
 
 
 def _upload(x, device, dtype=None) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(x))
+    # numpy from the caption loader, tensors already on the device from
+    # the raw-image loader
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     if dtype is not None:
         t = t.to(dtype)
     elif t.is_floating_point():
@@ -214,3 +220,96 @@ def eval_split(model, loader, *, split: str = "val", num_images: int = -1,
 
     return {"loss": losses / max(n_loss, 1), "predictions": predictions,
             "lang_stats": lang_stats, "nmt_stats": nmt_stats}
+
+
+def eval_split_coco_paired(model, loader, **kw) -> dict:
+    """Plain single-model COCO eval (parity: eval_utils.py:476-567, the path
+    eval_ensemble uses): `eval_split` with dataset_type='coco'."""
+    kw.setdefault("dataset_type", "coco")
+    return eval_split(model, loader, **kw)
+
+
+@torch.no_grad()
+def eval_split_coco_unpaired(cap_model, nmt_model, coco_loader, cap2nmt,
+                             nmt_tgt_itos: Dict[int, str], *,
+                             split: str = "val", num_images: int = -1,
+                             cap_beam: int = 5, nmt_beam: int = 15,
+                             nmt_max_len: int = 100,
+                             en_refs: Optional[Dict] = None,
+                             zh_refs: Optional[Dict] = None,
+                             model_id: str = "pivot", src2tgt=None,
+                             replace_unk: bool = True, spice: bool = False,
+                             eval_results_dir: str = "eval_results") -> dict:
+    """Pivot eval (parity: eval_utils.py:329-473) on the captioner's
+    device: decode zh for COCO images and translate zh->en in one
+    `pivot_translate` call, then post-edit on the host (`pivot.post_edit`:
+    UNK -> the zh word at the attention argmax with `replace_unk`, stop at
+    PAD / EOS, skip BOS, expand contractions), keep each image id once, cut
+    to the budget, and score en vs `en_refs` (and zh vs `zh_refs`).
+
+    `src2tgt` (the copy attention's source -> target id map) raises: copy
+    attention is not ported yet (ROADMAP A11)."""
+    if src2tgt is not None:
+        raise NotImplementedError("eval_split_coco_unpaired with src2tgt: "
+                                  "copy attention is not ported yet "
+                                  "(ROADMAP A11)")
+    device = cap_model.device
+    cap2nmt_t = _upload(cap2nmt, device, torch.int64)
+    coco_loader.reset_iterator(split)
+    n_total = len(coco_loader.split_ix[split])
+    budget = n_total if num_images <= 0 else min(num_images, n_total)
+
+    pending = []
+    drain_ptr = 0
+    seen = set()
+    done = False
+    while not done:
+        data = coco_loader.get_batch(split)
+        first = np.arange(0, data["fc_feats"].shape[0],
+                          coco_loader.seq_per_img)
+        feats = Features(
+            fc_feats=_upload(data["fc_feats"][first], device),
+            att_feats=_upload(data["att_feats"][first], device),
+            attri_feats=_upload(data["attri_feats"][first], device),
+            att_masks=_upload(data["att_masks"][first], device))
+        out = pivot_translate(cap_model, nmt_model, feats, cap2nmt_t,
+                              cap_beam=cap_beam, nmt_beam=nmt_beam,
+                              nmt_max_len=nmt_max_len)
+        batch_infos = []
+        for info in data["infos"]:
+            fresh = info["id"] not in seen
+            if fresh:
+                seen.add(info["id"])
+            batch_infos.append(info if fresh else None)
+        pending.append((batch_infos, out))
+        while len(pending) - drain_ptr > EVAL_WINDOW:
+            infos_d, out_d = pending[drain_ptr]
+            pending[drain_ptr] = (infos_d, tuple(x.cpu() for x in out_d))
+            drain_ptr += 1
+        if data["bounds"]["wrapped"] or len(seen) >= budget:
+            done = True
+
+    zh_preds, en_preds = [], []
+    for batch_infos, out in pending:
+        zh, en, attn = (x.cpu().numpy() for x in out)
+        zh_caps, en_caps = post_edit(zh, en, attn,
+                                     coco_loader.vocab.ix_to_word,
+                                     nmt_tgt_itos, replace_unk=replace_unk)
+        for bi, info in enumerate(batch_infos):
+            if info is None:
+                continue
+            zh_preds.append({"image_id": info["id"], "caption": zh_caps[bi]})
+            en_preds.append({"image_id": info["id"], "caption": en_caps[bi]})
+
+    out = {"zh_predictions": zh_preds[:budget],
+           "en_predictions": en_preds[:budget]}
+    if en_refs is not None:
+        out["en_lang_stats"] = language_eval(
+            "coco", out["en_predictions"], model_id, split,
+            references=en_refs, spice=spice,
+            eval_results_dir=eval_results_dir)
+    if zh_refs is not None:
+        out["zh_lang_stats"] = language_eval(
+            "zh", out["zh_predictions"], model_id, split,
+            references=zh_refs, eval_results_dir=eval_results_dir)
+    return out

@@ -3,7 +3,8 @@
 
 The captioner's decoded zh ids map to NMT source ids with one gather
 through a dense id table and flow straight into the NMT encoder, with no
-host hop.
+host hop. `post_edit` turns the result into English text on the host, as
+`PivotService` and `eval_split_coco_unpaired` both serve it.
 """
 
 from __future__ import annotations
@@ -74,3 +75,34 @@ def pivot_translate(cap_model, nmt_model, feats, cap2nmt: torch.Tensor, *,
     tr = nmt_model.translate_batch(src, lengths, beam_size=nmt_beam,
                                    max_len=nmt_max_len)
     return zh, tr.seq[:, 0], tr.aux[:, 0]
+
+
+def post_edit(zh, en, attn, zh_vocab: dict, nmt_tgt_itos: dict, *,
+              replace_unk: bool = True):
+    """The pivot's host post-edit (JAX `eval/eval_utils.py:358-383`):
+    zh [B, Tc], en [B, Tn] and attn [B, Tn] ids (numpy) of
+    `pivot_translate` -> (zh captions, en captions). An en row stops at PAD
+    or EOS and skips BOS; with `replace_unk`, UNK becomes the zh word at the
+    attention argmax (source slot j is zh caption slot j); then contractions
+    are expanded."""
+    from .utils.text import decode_sequence, expand_contractions
+
+    zh_caps = decode_sequence(zh_vocab, zh)
+    en_caps = []
+    for bi in range(zh.shape[0]):
+        words = []
+        for t, tok in enumerate(en[bi]):
+            tok = int(tok)
+            if tok in (C.PAD, C.EOS):
+                break
+            if tok == C.BOS:
+                continue
+            if tok == C.UNK and replace_unk:
+                j = int(attn[bi, t])
+                src_tok = int(zh[bi, j]) if j < zh.shape[1] else 0
+                words.append(zh_vocab.get(str(src_tok),
+                                          zh_vocab.get(src_tok, C.UNK_WORD)))
+            else:
+                words.append(nmt_tgt_itos.get(tok, C.UNK_WORD))
+        en_caps.append(expand_contractions(" ".join(words)))
+    return zh_caps, en_caps

@@ -22,10 +22,9 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from . import constants as C
 from .models.base import Features
-from .pivot import pivot_translate
-from .utils.text import decode_sequence, expand_contractions
+from .pivot import pivot_translate, post_edit
+from .utils.text import decode_sequence
 
 __all__ = ["CaptionService", "MicroBatcher", "PivotService",
            "make_http_server"]
@@ -173,27 +172,10 @@ class PivotService:
                     nmt_max_len=nmt_max_len)
                 zh_np, en_np = zh.cpu().numpy(), en.cpu().numpy()
                 attn_np = attn.cpu().numpy()
-            zh_caps = decode_sequence(zh_vocab, zh_np)
-            outs = []
-            for bi in range(zh_np.shape[0]):
-                words = []
-                for t, tok in enumerate(en_np[bi]):
-                    tok = int(tok)
-                    if tok in (C.PAD, C.EOS):
-                        break
-                    if tok == C.BOS:
-                        continue
-                    if tok == C.UNK and replace_unk:
-                        j = int(attn_np[bi, t])
-                        src_tok = int(zh_np[bi, j]) if j < zh_np.shape[1] else 0
-                        words.append(zh_vocab.get(str(src_tok),
-                                                  zh_vocab.get(src_tok,
-                                                               C.UNK_WORD)))
-                    else:
-                        words.append(nmt_tgt_itos.get(tok, C.UNK_WORD))
-                outs.append({"zh": zh_caps[bi],
-                             "en": expand_contractions(" ".join(words))})
-            return outs
+            zh_caps, en_caps = post_edit(zh_np, en_np, attn_np, zh_vocab,
+                                         nmt_tgt_itos,
+                                         replace_unk=replace_unk)
+            return [{"zh": z, "en": e} for z, e in zip(zh_caps, en_caps)]
 
         self._decode_batch = decode_batch
         self.batcher = MicroBatcher(decode_batch, max_batch=max_batch,

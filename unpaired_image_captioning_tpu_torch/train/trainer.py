@@ -169,6 +169,12 @@ class Trainer:
     def _nmt_terms(self, data, metrics: Dict[str, torch.Tensor]):
         """The NMT loss and the losses coupled to it; returns their sum."""
         cfg = self.cfg
+        if data["nmt"].get("src_feats") is not None:
+            # the port's NMT models take no source-feature LUTs: training
+            # on without them would drop the features silently
+            raise NotImplementedError(
+                "an NMT batch with src_feats: source word features are not "
+                "ported yet (ROADMAP A11)")
         nb = self._batch(data["nmt"], _NMT_KEYS)
         src, lengths, tgt = nb["src"].long(), nb["lengths"].long(), \
             nb["tgt"].long()
