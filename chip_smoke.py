@@ -157,6 +157,25 @@ full run's bit for bit. Each CLI's wall and its launches of B1, B2, B4
 and B11 are logged (counts set to 0 just before it, read just after),
 and the kernels line adds them.
 
+Then raw files to a trained, profiled model on the port alone
+(`phase_raw_data`): seeded AIC-style annotations of the recipe's 160
+images (5 captions each, 一个 ... at their head), a zh-en text corpus of
+2,000 + 100 lines and a bottom-up TSV (36 boxes x 2,048 f32 an image) go
+through the port's `prepro_split_tokenize`, `prepro_labels` (.npz; CAP's
+9,487-word vocabulary with UNK, asserted), `prepro_ngrams`,
+`prepro_reference_json`, `cli.preprocess` (dicts pruned to NMT's 11,986 /
+8,571, asserted; once more learning 30 BPE merges), the dicts joined as a
+user joins them, and `make_bu_data`; then `cli.train` on the card (the
+joint denseatt + BiLSTM NMT at batch 50 x 5 captions, 5 XE steps, an
+eval at beam 3), `Trainer.profile` over 3 steps (its Chrome trace must
+name every kernel whose count those steps moved; the five device
+operations that took the most time are logged),
+`prepro_backtranslate --provider nmt` on the run dir at beam 5 (B1 and
+B2 must launch) and the reports (`html_report`,
+`word_cloud_from_captions`, `vis_words`) on the eval's predictions. The
+shapes the phase gives B1 and B2 must be ones the checks hold; its
+launches join the kernels line.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -508,6 +527,8 @@ TOPK_SHAPES = [
     ("nmt beam 15 x 10", 150, 8571, 15),
     ("caption beam 5 x 4", 20, 9488, 5),
     ("nmt beam 15 x 4", 60, 8571, 15),
+    # the back-translation of phase_raw_data: 10 lines at beam 5
+    ("nmt beam 5 x 10", 50, 8571, 5),
 ]
 
 # `--times`: the groups of kernels it times (the top-k, the training
@@ -5341,6 +5362,433 @@ def phase_eval_clis(dev, root: str, files: dict, full, wall_full) -> dict:
     return totals
 
 
+# raw files to a trained, profiled model on the port alone: AIC-style
+# annotations of the recipe's 160 images (5 captions of RAW_CAPTION_LEN
+# characters each), a zh-en text corpus of the recipe's pair counts and a
+# bottom-up TSV (RAW_BOXES boxes x 2,048 f32 an image), all from seed 0,
+# through the port's preprocessing into cli.train, Trainer.profile and
+# back-translation. A character of the CJK block is a caption word (the
+# per-character route of segment_zh, which the card's machine takes).
+# Captions and corpus lines carry the frequent words of their language at
+# fixed places (AIC captions open with 一个, "a"), the rest are drawn.
+RAW_CJK = 0x4E00
+RAW_CAPTION_LEN = 30
+RAW_ZH_FRAME = {0: "一", 1: "个", 3: "着", 5: "的", 7: "在", 10: "的"}
+RAW_EN_FRAME = {0: "a", 3: "in", 4: "a", 6: "the"}
+RAW_THRESHOLD = 1         # --word_count_threshold: words seen once -> UNK
+ZH_UNK_WORD = "卍"        # prepro_labels' UNK, the vocabulary's last word
+RAW_BOXES = 36
+RAW_EXTRA_WORDS = 1000    # corpus words past each dict's size (pruned)
+RAW_BPE_MERGES = 30
+RAW_PROFILE_STEPS = 3
+RAW_BT_BEAM = 5
+# cli.train: XE only, to the end of epoch 2 (the loader notes its first
+# wrap a step late: 3 + 2 steps), an eval and a checkpoint at step 4
+RAW_TRAIN = dict(self_critical_after=-1, max_epochs=2,
+                 save_checkpoint_every=4)
+RAW_STEPS = 5
+# the kernels of the path (default attention flags), by counter: the
+# name their launches bear in a trace
+RAW_KERNELS = {"lstm_cell": "lstm_cell_kernel",
+               "row_topk": "topk_select_kernel"}
+
+
+def _zh_words():
+    """CJK characters in code-point order, the frame's left out."""
+    frame = set(RAW_ZH_FRAME.values())
+    return (c for c in map(chr, range(RAW_CJK, 0xA000)) if c not in frame)
+
+
+def _en_word(i: int) -> str:
+    """The i-th pseudo-English word: i in base 26, three letters or more
+    (none of them a frame word)."""
+    i += 26 * 26
+    out = ""
+    while i:
+        i, r = divmod(i, 26)
+        out = chr(ord("a") + r) + out
+    return out
+
+
+def _framed(lengths, frame: dict, toks) -> list:
+    """Lines of the given lengths: `frame`'s words at their places, the
+    next of `toks` everywhere else."""
+    toks = iter(toks)
+    return [[frame[j] if j in frame else next(toks) for j in range(n)]
+            for n in lengths]
+
+
+def _corpus_lines(rs, n_lines, max_len, n_once, n_skew, words, frame):
+    """n_lines lines of 8..max_len words around `frame`: words[0..n_once)
+    once each, the rest drawn from words[0..n_skew) (so those survive the
+    prune)."""
+    lengths = rs.randint(8, max_len + 1, n_lines)
+    free = int(lengths.sum()) - len(frame) * n_lines
+    toks = list(range(n_once)) + list(rs.randint(0, n_skew, free - n_once))
+    rs.shuffle(toks)
+    return [" ".join(line) for line in
+            _framed(lengths, frame, (words[t] for t in toks))]
+
+
+def make_raw_inputs(root: str) -> dict:
+    """The raw inputs under `root`, from seed 0: AIC annotations in two
+    files (train and validation, as AIC ships them) whose frame words and
+    9,481 other words each appear twice or more, and some more characters
+    once (so prepro_labels at RAW_THRESHOLD keeps CAP's 9,487 entries with
+    UNK); train and valid text corpora (zh: the caption characters and
+    RAW_EXTRA_WORDS more than NMT's source dict keeps; en: likewise for the
+    target dict); and one bottom-up TSV (image ids 0..159, the ids
+    prepro_split_tokenize assigns)."""
+    import base64
+    import csv
+    import itertools
+    import os
+
+    rs = np.random.RandomState(0)
+    n_img = sum(RECIPE_SPLITS)
+    n_caps = 5 * n_img
+    n_frame = len(set(RAW_ZH_FRAME.values()))
+    n_words = CAP["vocab_size"] - 1 - n_frame
+    free = RAW_CAPTION_LEN - len(RAW_ZH_FRAME)
+    singles = n_caps * free - 2 * n_words
+    zh = list(itertools.islice(_zh_words(), n_words + singles + 10000))
+    toks = list(range(n_words)) * 2 + list(range(n_words, n_words + singles))
+    rs.shuffle(toks)
+    caps = ["".join(c) for c in _framed([RAW_CAPTION_LEN] * n_caps,
+                                        RAW_ZH_FRAME, (zh[t] for t in toks))]
+    anns = [{"image_id": f"{i:012d}.jpg", "caption": caps[5 * i: 5 * i + 5]}
+            for i in range(n_img)]
+    out = {"annotations": []}
+    for name, part in (("train", anns[:130]), ("validation", anns[130:])):
+        path = os.path.join(root, f"caption_{name}_annotations.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(part, f, ensure_ascii=False)
+        out["annotations"].append(path)
+
+    src_once = NMT["src_vocab_size"] + RAW_EXTRA_WORDS
+    tgt_once = NMT["tgt_vocab_size"] + RAW_EXTRA_WORDS
+    en = [_en_word(i) for i in range(tgt_once)]
+    zh_frame = {0: RAW_ZH_FRAME[0], 1: RAW_ZH_FRAME[1]}
+    lines = {"zh": _corpus_lines(rs, RECIPE_PAIRS, NMT_SRC_LEN, src_once,
+                                 n_words, zh, zh_frame),
+             "en": _corpus_lines(rs, RECIPE_PAIRS, NMT_TGT_LEN - 2,
+                                 tgt_once, NMT["tgt_vocab_size"], en,
+                                 RAW_EN_FRAME)}
+    valid = {}
+    for lang, words, once, n, frame in (
+            ("zh", zh, src_once, NMT_SRC_LEN, zh_frame),
+            ("en", en, tgt_once, NMT_TGT_LEN - 2, RAW_EN_FRAME)):
+        lengths = rs.randint(8, n + 1, RECIPE_VALID_PAIRS)
+        draws = rs.randint(0, once, int(lengths.sum()))
+        valid[lang] = [" ".join(line) for line in _framed(
+            lengths, frame, (words[t] for t in draws))]
+    for split, part in (("train", lines), ("valid", valid)):
+        for lang in ("zh", "en"):
+            path = os.path.join(root, f"{split}.{lang}")
+            with open(path, "w", encoding="utf-8") as f:
+                f.write("\n".join(part[lang]) + "\n")
+            out[f"{split}_{lang}"] = path
+
+    out["tsv"] = os.path.join(root, "bottom_up.tsv")
+    with open(out["tsv"], "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t")
+        for iid in range(n_img):
+            boxes = (rs.rand(RAW_BOXES, 4) * 500).astype(np.float32)
+            feats = np.abs(rs.randn(RAW_BOXES, CAP["att_feat_size"])
+                           ).astype(np.float32)
+            w.writerow([iid, 640, 480, RAW_BOXES,
+                        base64.b64encode(boxes.tobytes()).decode(),
+                        base64.b64encode(feats.tobytes()).decode()])
+    return out
+
+
+def preprocess_raw(root: str, raw: dict) -> dict:
+    """The port's preprocessing of the raw inputs, in the paper's order:
+    prepro_split_tokenize -> prepro_labels (.npz) -> prepro_ngrams ->
+    prepro_reference_json (val and test) -> cli.preprocess (the dicts
+    pruned to NMT's sizes; once more learning RAW_BPE_MERGES BPE merges on
+    the English side) -> the dicts joined as a user joins them ->
+    make_bu_data. Returns the cli.train files and the reference JSONs;
+    checks the sizes."""
+    import os
+
+    from unpaired_image_captioning_tpu_torch.cli import preprocess
+    from unpaired_image_captioning_tpu_torch.scripts import (
+        make_bu_data, prepro_labels, prepro_ngrams, prepro_reference_json,
+        prepro_split_tokenize)
+
+    n_train, n_val, n_test = RECIPE_SPLITS
+    j = lambda name: os.path.join(root, name)  # noqa: E731
+    with _quiet():
+        prepro_split_tokenize.main(
+            ["--inputs", *raw["annotations"], "--output", j("raw.json"),
+             "--num_val", str(n_val), "--num_test", str(n_test)])
+        prepro_labels.main(
+            ["--input_json", j("raw.json"), "--output_json", j("talk.json"),
+             "--output_h5", j("label.npz"),
+             "--max_length", str(CAP["seq_length"]),
+             "--word_count_threshold", str(RAW_THRESHOLD)])
+        prepro_ngrams.main(["--input_label_h5", j("label.npz"),
+                            "--input_json", j("talk.json"),
+                            "--output", j("ngrams.npz")])
+        for split in ("val", "test"):
+            prepro_reference_json.main(
+                ["--input_json", j("talk.json"), "--input_label_h5",
+                 j("label.npz"), "--output", j(f"{split}_refs.json"),
+                 "--split", split])
+        common = ["-train_src", raw["train_zh"], "-train_tgt",
+                  raw["train_en"], "-valid_src", raw["valid_zh"],
+                  "-valid_tgt", raw["valid_en"],
+                  "-src_vocab_size", str(NMT["src_vocab_size"]),
+                  "-tgt_vocab_size", str(NMT["tgt_vocab_size"])]
+        preprocess.main(common + ["-save_data", j("nmt")])
+        os.makedirs(j("bpe"), exist_ok=True)
+        preprocess.main(common + ["-save_data", j("bpe/nmt"),
+                                  "-tgt_bpe_merges", str(RAW_BPE_MERGES)])
+        make_bu_data.main(["--input_tsvs", raw["tsv"], "--output_dir",
+                           j("bu"), "--feat_dim",
+                           str(CAP["att_feat_size"])])
+    with open(j("talk.json"), encoding="utf-8") as f:
+        itow = json.load(f)["ix_to_word"]
+    dicts = {}
+    for side in ("src", "tgt"):
+        with open(j(f"nmt.{side}_dict.json")) as f:
+            dicts[side] = json.load(f)
+    with open(j("dicts.json"), "w") as f:
+        json.dump(dicts, f)
+    sizes = {side: len(d["idx_to_label"]) for side, d in dicts.items()}
+    with open(j("bpe/nmt.tgt_bpe.codes"), encoding="utf-8") as f:
+        merges = sum(1 for line in f if not line.startswith("#"))
+    with open(j("raw.json"), encoding="utf-8") as f:
+        splits = [im["split"] for im in json.load(f)]
+    log(f"raw data: prepro_labels vocabulary {len(itow)} (threshold "
+        f"{RAW_THRESHOLD}, the last {itow[str(len(itow))]!r}); "
+        f"splits train {splits.count('train')} / val {splits.count('val')}"
+        f" / test {splits.count('test')}; cli.preprocess dicts src "
+        f"{sizes['src']} / tgt {sizes['tgt']}; {merges} BPE merges learned "
+        "on the English side")
+    if (len(itow), itow[str(len(itow))]) != (CAP["vocab_size"],
+                                             ZH_UNK_WORD) or (
+            sizes["src"], sizes["tgt"]) != (NMT["src_vocab_size"],
+                                            NMT["tgt_vocab_size"]):
+        raise AssertionError(f"raw data: vocabulary {len(itow)}, "
+                             f"dicts {sizes}")
+    if splits.count("val") != n_val or splits.count("test") != n_test or (
+            merges != RAW_BPE_MERGES):
+        raise AssertionError(f"raw data: splits or BPE merges ({merges})")
+    corpus = np.load(j("nmt.train.npz"))
+    if corpus["src"].shape[0] != RECIPE_PAIRS or corpus["src"].dtype != \
+            np.int32:
+        raise AssertionError(f"raw data: corpus {corpus['src'].shape}")
+    att = np.load(j(f"bu_att/{n_train}.npz"))["feat"]
+    if att.shape != (RAW_BOXES, CAP["att_feat_size"]):
+        raise AssertionError(f"raw data: att features {att.shape}")
+    return {"files": dict(input_json=j("talk.json"),
+                          input_label_h5=j("label.npz"),
+                          input_fc_dir=j("bu_fc"), input_att_dir=j("bu_att"),
+                          input_nmt_h5=j("nmt.train.npz"),
+                          input_nmt_dict=j("dicts.json"),
+                          cached_tokens=j("ngrams.npz")),
+            "val_refs": j("val_refs.json"), "test_refs": j("test_refs.json")}
+
+
+def _trace_device_ops(trace_dir: str) -> dict:
+    """{device operation name: (summed us, count)} of the Chrome trace
+    `trace.json` that Trainer.profile wrote: kernels, copies and sets."""
+    import os
+
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    per: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            us, n = per.get(e["name"], (0.0, 0))
+            per[e["name"]] = (us + float(e.get("dur", 0.0)), n + 1)
+    return per
+
+
+def phase_raw_data(dev) -> dict:
+    """Raw annotations to a trained, profiled model on the port alone, at
+    the recipe's full widths (CAP, NMT): `make_raw_inputs` and
+    `preprocess_raw` on the host, then on the card `cli.train` (the joint
+    denseatt + BiLSTM NMT, RAW_TRAIN: 5 XE steps at batch 50 x 5 captions,
+    an in-loop eval at beam 3 over the 50 val images), `Trainer.profile`
+    over RAW_PROFILE_STEPS steps (its trace must name every kernel whose
+    count those steps moved; the five device operations that took the most
+    time are logged), `prepro_backtranslate --provider nmt` on the run dir
+    (the test images' first reference captions, beam RAW_BT_BEAM: B1 and B2
+    must launch), and the reports (`html_report`, `word_cloud_from_captions`,
+    `vis_words`) on the eval's predictions. Every shape the path gives B1
+    and B2 must be one a kernel check holds. Returns the launches."""
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.cli import train as cli
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.scripts import (
+        prepro_backtranslate)
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+    from unpaired_image_captioning_tpu_torch.utils.report import html_report
+    from unpaired_image_captioning_tpu_torch.utils.vis_words import vis_words
+    from unpaired_image_captioning_tpu_torch.utils.word_cloud import (
+        word_cloud_from_captions)
+
+    counters = {"lstm_cell": (lk, "launches"), "row_topk": (tk, "launches")}
+
+    def read():
+        return {k: getattr(*c) for k, c in counters.items()}
+
+    t_phase = time.perf_counter()
+    here = os.getcwd()
+    shapes: dict = {}
+    with tempfile.TemporaryDirectory(prefix="raw-") as root:
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            raw = make_raw_inputs(root)
+            t_gen = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prep = preprocess_raw(root, raw)
+            t_prep = time.perf_counter() - t0
+            run = os.path.join(root, "run")
+            evals = []
+            eval_fn = Trainer.eval
+
+            def keep_eval(self, *a, **kw):
+                out = eval_fn(self, *a, **kw)
+                evals.append(out)
+                return out
+
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            Trainer.eval = keep_eval
+            try:
+                with _recording_shapes(shapes):
+                    trainer, wall_train, ev = _recipe_run(
+                        prep["files"], run, **RAW_TRAIN)
+            finally:
+                Trainer.eval = eval_fn
+            after_train = read()
+            steps = _steps(ev)
+            if len(steps) != RAW_STEPS or len(evals) != 1 or not all(
+                    np.isfinite(e["total_loss"]) for e in steps):
+                raise AssertionError(f"raw data: {len(steps)} steps, "
+                                     f"{len(evals)} evals")
+            # the profile: batches from a loader built as the CLI builds it
+            nmt_dataset, _, _ = cli._nmt_data(trainer.cfg)
+            loader = cli.build_loader(trainer.cfg, nmt_dataset)
+            before = read()
+            with _recording_shapes(shapes):
+                prof = trainer.profile(
+                    iter(lambda: loader.get_batch("train"), None),
+                    n_steps=RAW_PROFILE_STEPS)
+            moved = {k: n - before[k] for k, n in read().items()
+                     if n > before[k]}
+            ops = _trace_device_ops(prof["trace_dir"])
+            top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+            busy = sum(us for us, _ in ops.values()) / 1e3
+            trace_mb = os.path.getsize(os.path.join(
+                prof["trace_dir"], "trace.json")) / 1e6
+            log(f"Trainer.profile: {prof['steps']} steps, mean "
+                f"{prof['mean_step_s'] * 1e3:.1f} ms, least "
+                f"{prof['min_step_s'] * 1e3:.1f} ms a step; trace "
+                f"{trace_mb:.1f} MB, {sum(n for _, n in ops.values())} "
+                f"device operations, {busy:.1f} ms on the card over the "
+                f"{prof['steps']} steps")
+            log("Trainer.profile top device operations: " + "; ".join(
+                f"{short_name(name)[:48]} {us / 1e3:.2f} ms x {n}"
+                for name, (us, n) in top))
+            named = {k: sum(n for name, (_, n) in ops.items()
+                            if RAW_KERNELS[k] in name) for k in moved}
+            log(f"Trainer.profile kernels: counters moved {json.dumps(moved)}"
+                f", trace names {json.dumps(named)}")
+            if set(prof) != {"trace_dir", "steps", "mean_step_s",
+                             "min_step_s"} or "lstm_cell" not in moved or \
+                    not all(named.values()):
+                raise AssertionError(f"raw data: profile {prof}, counters "
+                                     f"{moved}, trace {named}")
+            # back-translation of the test images' first references
+            with open(prep["test_refs"], encoding="utf-8") as f:
+                refs = json.load(f)
+            first = {}
+            for a in refs["annotations"]:
+                first.setdefault(a["image_id"], a["caption"])
+            zh = os.path.join(root, "test.zh")
+            with open(zh, "w", encoding="utf-8") as f:
+                f.write("\n".join(first.values()) + "\n")
+            before = read()
+            t0 = time.perf_counter()
+            with _quiet(), _recording_shapes(shapes):
+                prepro_backtranslate.main(
+                    ["--input", zh, "--output", os.path.join(root, "bt.en"),
+                     "--nmt_run", run, "--beam_size", str(RAW_BT_BEAM)])
+            torch.cuda.synchronize()
+            wall_bt = time.perf_counter() - t0
+            bt = {k: n - before[k] for k, n in read().items()}
+            with open(os.path.join(root, "bt.en"), encoding="utf-8") as f:
+                en = f.read().splitlines()
+            if len(en) != len(first) or not (bt["lstm_cell"]
+                                              and bt["row_topk"]):
+                raise AssertionError(f"raw data: back-translation {len(en)} "
+                                     f"lines of {len(first)}, launches {bt}")
+            counts = read()
+            # the reports on the eval's predictions
+            preds = evals[0]["predictions"]
+            with open(prep["val_refs"], encoding="utf-8") as f:
+                val_refs = json.load(f)
+            by_image: dict = {}
+            for a in val_refs["annotations"]:
+                by_image.setdefault(a["image_id"], []).append(a["caption"])
+            report = html_report(preds, os.path.join(root, "report.html"),
+                                 references=by_image)
+            cloud = word_cloud_from_captions(
+                [p["caption"] for p in preds], os.path.join(root, "wc.svg"))
+            scatter = vis_words([p["caption"] for p in preds],
+                                [c for cs in by_image.values() for c in cs],
+                                os.path.join(root, "vis.html"),
+                                label_a="predictions", label_b="references")
+            with open(report, encoding="utf-8") as f:
+                items = f.read().count("<div class=item>")
+            with open(scatter, encoding="utf-8") as f:
+                points = f.read().count("<circle")
+            if len(preds) != RECIPE_SPLITS[1] or items != len(preds) or \
+                    "<svg" not in cloud or not points:
+                raise AssertionError(f"raw data: {len(preds)} predictions, "
+                                     f"{items} report items, {points} points")
+            log(f"raw data reports: {items} report items, "
+                f"{cloud.count('<text')} cloud words, {points} scatter points"
+                f"; empty predictions {sum(not p['caption'] for p in preds)}"
+                f" of {len(preds)}; back-translation {len(en)} lines, first "
+                f"{first[next(iter(first))][:40]!r} -> {en[0][:40]!r}")
+            xe = ", ".join(f"{e['step_time'] * 1e3:.1f}" for e in steps[1:])
+            t_eval = next(e["eval_time"] for e in ev if "eval_time" in e)
+            log(f"raw data walls: inputs {t_gen:.1f} s, preprocessing "
+                f"{t_prep:.1f} s (host); cli.train {wall_train:.1f} s (XE "
+                f"steps 2-{RAW_STEPS} {xe} ms, eval {t_eval:.2f} s); "
+                f"back-translation {wall_bt:.2f} s; launches: cli.train "
+                f"{json.dumps(after_train)}, profile {json.dumps(moved)}, "
+                f"back-translation {json.dumps(bt)}")
+        finally:
+            os.chdir(here)
+    held = _held_eval_shapes()
+    for name in ("lstm_cell", "row_topk"):
+        seen = shapes.get(name, set())
+        log(f"raw data {name} shapes: {sorted(seen, key=str)}")
+        if seen - held[name]:
+            raise AssertionError(
+                f"raw data: {name} ran at "
+                f"{sorted(seen - held[name], key=str)}, which no kernel "
+                "check holds against the plain version")
+    log(f"raw data launches: {json.dumps(counts)}")
+    log(f"raw data phase: {time.perf_counter() - t_phase:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5494,6 +5942,8 @@ def main(argv=None) -> int:
     mark("SCST")
     recipe_counts, eval_counts = phase_recipe(dev)
     mark("training CLI recipe and eval CLIs")
+    raw_counts = phase_raw_data(dev)
+    mark("raw data to a trained, profiled model")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -5512,8 +5962,10 @@ def main(argv=None) -> int:
     # the LSTM cell's and the decoder stack's launches add the SCST steps'
     for name, n in scst_counts.items():
         kernels[name]["launches"] += n
-    # and the training CLI's recipe's, and the eval CLIs'
-    for name, n in list(recipe_counts.items()) + list(eval_counts.items()):
+    # and the training CLI's recipe's, the eval CLIs' and the raw-data
+    # pipeline's
+    for name, n in (list(recipe_counts.items()) + list(eval_counts.items())
+                    + list(raw_counts.items())):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

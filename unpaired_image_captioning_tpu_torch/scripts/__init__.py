@@ -1,2 +1,4 @@
 """Command-line scripts of the PyTorch port (counterparts of the JAX
-package's `scripts/`): `prepro_feats` so far."""
+package's `scripts/`): the caption and NMT preprocessing, the bottom-up
+features, back-translation, image features, n-gram caches, file
+conversion and reference-checkpoint migration."""

@@ -43,9 +43,10 @@ and the infos sidecar with the counters, the best scores, the config, the
 loader state and the generator's state), so a resumed run draws the same
 dropout masks and SCST samples as an uninterrupted one. Pretrained NMT
 word vectors (`pre_word_vecs_enc` / `_dec`, `.npy` or `.npz` with
-`embedding`) overwrite the BiLSTM NMT's word tables at construction. Not
-ported yet: `use_bn` (ROADMAP A10, raised by the model) and `profile`
-(A9).
+`embedding`) overwrite the BiLSTM NMT's word tables at construction.
+`profile` runs training steps under `torch.profiler` and writes a Chrome
+trace (JAX writes a TensorBoard trace). Not ported yet: `use_bn`
+(ROADMAP A10, raised by the model).
 """
 
 from __future__ import annotations
@@ -345,6 +346,43 @@ class Trainer:
                 "best_nmt_acc": self.best_nmt_acc,
                 "opt": self.cfg.to_dict(), "loader_state": loader_state,
                 "generator": self.generator.get_state().tolist(), **extra}
+
+    def profile(self, data_iter, n_steps: int = 5, log_dir: str = None,
+                sc_flag: bool = False) -> dict:
+        """`n_steps` training steps (`train`, batches from `data_iter`)
+        under `torch.profiler`, recording host activity, and the card's
+        when the trainer is on one; writes the Chrome trace `trace.json`
+        (viewable in Perfetto) under `log_dir`, by default
+        `checkpoint_path/trace`. Each step is timed from a synchronized
+        card to a synchronized card, so its device work is in its time.
+        Returns the trace dir, the step count and the mean and least step
+        wall in seconds."""
+        import time
+
+        from torch.profiler import ProfilerActivity, profile
+
+        log_dir = log_dir or os.path.join(self.cfg.checkpoint_path, "trace")
+        os.makedirs(log_dir, exist_ok=True)
+        on_card = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(self.device)
+
+        times = []
+        with profile(activities=activities) as prof:
+            for _ in range(n_steps):
+                sync()
+                t0 = time.perf_counter()
+                self.train(next(data_iter), sc_flag=sc_flag)
+                sync()
+                times.append(time.perf_counter() - t0)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        return {"trace_dir": log_dir, "steps": n_steps,
+                "mean_step_s": sum(times) / len(times),
+                "min_step_s": min(times)}
 
     def save(self, loader_state: Optional[dict] = None,
              histories: Optional[dict] = None, best: bool = False) -> None:

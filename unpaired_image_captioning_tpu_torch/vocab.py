@@ -170,6 +170,35 @@ def make_nmt_dict(lower: bool = False) -> Dict:
     return Dict([C.PAD_WORD, C.UNK_WORD, C.BOS_WORD, C.EOS_WORD], lower=lower)
 
 
+def extract_features(tokens: Sequence[str]):
+    """Split `word￨feat1￨feat2...` tokens into words + feature columns.
+
+    Parity: onmt fork `onmt/IO.py:67-91 extractFeatures` — empty words are
+    skipped entirely (their features too), every kept word must carry the
+    same number of features, and the feature count is locked by the first
+    word. Returns (words, features, num_features) where features is a list
+    of per-column lists aligned with words."""
+    words: List[str] = []
+    features: List[List[str]] = []
+    num_features = None
+    for tok in tokens:
+        field = tok.split("￨")  # ￨ U+FFE8, the onmt feature separator
+        word = field[0]
+        if len(word) > 0:
+            words.append(word)
+            if num_features is None:
+                num_features = len(field) - 1
+            else:
+                assert len(field) - 1 == num_features, \
+                    "all words must have the same number of features"
+            for i in range(1, len(field)):
+                if len(features) <= i - 1:
+                    features.append([])
+                features[i - 1].append(field[i])
+                assert len(features[i - 1]) == len(words)
+    return words, features, num_features if num_features else 0
+
+
 class CaptionVocab:
     """Caption-side vocabulary: ids 1..V; 0 = pad/eos; UNK at the last slot.
 
