@@ -176,6 +176,25 @@ B2 must launch) and the reports (`html_report`,
 shapes the phase gives B1 and B2 must be ones the checks hold; its
 launches join the kernels line.
 
+Then the other caption families (`phase_families`, ROADMAP A10): B1 at
+each cell shape they give it (fc's G=5 512 -> 512, TopDown's G=4 1,536 and
+1,024 -> 512, ShowTell's G=4 512 -> 512, AllImg's and ShowAttendTell's G=4
+2,560 -> 512, StackCap's G=5 1,024 and 1,536 -> 512, at 4 to 250 rows)
+against the plain cell, forward and backward, and B2 at the beam-3 rows
+of 4 and 10 images; each of fc, TopDown, Att2in, Att2in2, Att2all2,
+AdaAtt, AdaAttMO, ShowTell, AllImg, ShowAttendTell and StackCap at CAP's
+widths (StackCap's 1,601 attributes): teacher-forced logprobs of 4 images
+card vs CPU within 1e-3, 2 XE steps (the dropout-free loss falling) and 1
+SCST step of `Trainer.train` at batch 10 x 5, a beam-3 decode of 50
+images; train.sh's XE -> SCST recipe for fc and stackcap through
+`cli.train` (4 + 1 XE steps with evals and checkpoints, then 4 SCST steps
+with `--start_from`; fc's SCST stage once more stopped and resumed, bit
+for bit), `cli.eval_ensemble` over those two run dirs, a use_bn 2 TopDown
+run dir through `cli.eval_paired --bn_calibrate 2`, one transformer use_bn
+1 XE step, and TopDown's beam-3 decode with the four B9 flags on against
+off. Its B1 and B2 launches join the kernels line, and every shape it
+gives them must be one the checks hold.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -5789,6 +5808,631 @@ def phase_raw_data(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the other caption families (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+# the eleven families of A10 at CAP's widths (StackCap's 1,601 attributes)
+FAMILIES = ("fc", "topdown", "att2in", "att2in2", "att2all2", "adaatt",
+            "adaattmo", "show_tell", "all_img", "show_attend_tell",
+            "stackcap")
+FAM = dict(CAP, attri_feat_size=1601)
+# Trainer steps at the loader's batch 10 x 5 (features repeated); SCST
+# rewards from BLEU-4 (no df table needed)
+FAM_TRAIN = dict(FAM, batch_size=10, seq_per_img=5, i2t_train_flag=True,
+                 i2t_learning_rate=5e-4, seed=0, cider_reward_weight=0.0,
+                 bleu_reward_weight=1.0)
+FAM_BEAM, FAM_IMAGES, FAM_AGREE = 3, 50, 4
+# (label, D, H, maxout): the cells the families give B1 at CAP's widths
+FAMILY_CELLS = [
+    ("fc core", 512, 512, True),
+    ("topdown att_lstm", 1536, 512, False),
+    ("topdown lang_lstm", 1024, 512, False),
+    ("show_tell core", 512, 512, False),
+    ("all_img / show_attend_tell core", 2560, 512, False),
+    ("stackcap lstm0", 1024, 512, True),
+    ("stackcap lstm1 / lstm2", 1536, 512, True),
+]
+# the rows of those cells: 4 images teacher-forced and at beam 3 (12), an
+# eval batch of 10 images (fc's image step before the beams) and at beam 3
+# (30), the batch of 10 x 5 captions (50), a beam-3 decode of 50 images
+# (150) and the XE rows of 50 images x 5 captions (250)
+FAMILY_ROWS = (4, 10, 12, 30, 50, 150, 250)
+FAMILY_TIMED_ROWS = (250, 150)
+# (label, R, V, k): the beam-3 selections of 4 and 10 images (50 images:
+# TOPK_SHAPES' "caption beam 3 x 50")
+FAMILY_TOPK = [("caption beam 3 x 4", 12, 9488, 3),
+               ("caption beam 3 x 10", 30, 9488, 3)]
+# train.sh's func_i2t_xe_rl for fc and stackcap through cli.train on
+# FAM_SPLITS images (train, val, test; 5 captions each) at batch 10 x 5:
+# XE for 2 epochs (4 steps, an eval at beam 3 and a checkpoint every 2),
+# then SCST from epoch 2 with --start_from for 2 epochs (4 steps)
+FAM_SPLITS = (20, 10, 10)
+FAM_RECIPE = dict(
+    nmt_train_flag="false", batch_size=10, seq_per_img=5, beam_size=3,
+    val_images_use=10, save_checkpoint_every=2, language_eval=1,
+    load_best_score=0, i2t_learning_rate=5e-4, scheduled_sampling_start=0,
+    self_critical_after=-1, max_epochs=2, rnn_size=CAP["rnn_size"],
+    input_encoding_size=CAP["input_encoding_size"],
+    att_hid_size=CAP["att_hid_size"], num_layers=CAP["num_layers"],
+    fc_feat_size=CAP["fc_feat_size"], att_feat_size=CAP["att_feat_size"])
+FAM_SCST = dict(self_critical_after=2, max_epochs=4, i2t_learning_rate=5e-5,
+                scheduled_sampling_start=-1)
+# the B9 route flags of models/att.py, all on for TopDown's decode
+B9_FLAGS = dict(STEP_FUSION=True, BEAMS_KERNEL=True, SINGLE_KERNEL=True,
+                TRAIN_KERNEL=True)
+
+
+def _family_cells(dev) -> tuple:
+    """B1 at each FAMILY_CELLS shape and FAMILY_ROWS row count against the
+    plain cell, forward and backward (the Function's backward: the gates
+    recomputed by the plain version, then autodiff), and B2 at
+    FAMILY_TOPK, exact; the cells timed at FAMILY_TIMED_ROWS. Returns (the
+    cells' records, the top-k records)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cells, worst = [], 0.0
+    for label, d, h, maxout in FAMILY_CELLS:
+        g = 5 if maxout else 4
+        for b in FAMILY_ROWS:
+            scale = 1.0 / h ** 0.5
+            w = (torch.rand((d + h, g * h), generator=gen, device=dev) * 2
+                 - 1) * scale
+            bias = (torch.rand((g * h,), generator=gen, device=dev) * 2
+                    - 1) * scale
+            x, h0, c0, gh, gc = (torch.randn((b, m), generator=gen,
+                                             device=dev)
+                                 for m in (d, h, h, h, h))
+            ins = [t.clone().requires_grad_() for t in (w, bias, x, h0, c0)]
+            ref = [t.clone().requires_grad_() for t in (w, bias, x, h0, c0)]
+            hk, ck = lk.lstm_cell(*ins, maxout=maxout)
+            hp, cp = lk.lstm_cell_plain(*ref, maxout=maxout)
+            fwd = max((hk - hp).abs().max().item(),
+                      (ck - cp).abs().max().item())
+            if not fwd <= LSTM_TOL or hk.grad_fn is None:
+                raise AssertionError(f"lstm_cell {label} [{b}, {d}->{h}]: "
+                                     f"max|diff| {fwd} > {LSTM_TOL} or no "
+                                     "grad_fn")
+            got = torch.autograd.grad((hk, ck), ins, (gh, gc))
+            want = torch.autograd.grad((hp, cp), ref, (gh, gc))
+            bwd = _att_check(f"lstm_cell backward {label} [{b}, {d}->{h}]",
+                             got, want)
+            worst = max(worst, fwd)
+            row = dict(label=f"{label}, {b} rows", shape=f"G={g} [{b}, "
+                       f"{d}->{h}]", err=fwd, backward_err=bwd)
+            if b in FAMILY_TIMED_ROWS:
+                with torch.no_grad():
+                    k_ms, p_ms, k_wall, p_wall, how = time_pair(
+                        lambda: lk.lstm_cell(w, bias, x, h0, c0,
+                                             maxout=maxout),
+                        lambda: lk.lstm_cell_plain(w, bias, x, h0, c0,
+                                                   maxout=maxout),
+                        LSTM_KERNELS)
+                b_ms, b_by = bound(nbytes(w, bias, x, h0, c0, hk, ck),
+                                   2.0 * b * (d + h) * g * h)
+                lib_ms = None
+                if g == 4:
+                    # torch.lstm_cell on the weights permuted once to its
+                    # (i, f, g, o) blocks in [4H, in], as phase_kernels does
+                    cols = torch.cat([torch.arange(j * h, (j + 1) * h,
+                                                   device=dev)
+                                      for j in (0, 1, 3, 2)])
+                    w_ih = w[:d, cols].t().contiguous()
+                    w_hh = w[d:, cols].t().contiguous()
+                    b_ih = bias[cols].contiguous()
+                    b_hh = torch.zeros_like(bias)
+                    with torch.no_grad():
+                        lib_ms = library_ms(lambda: torch.lstm_cell(
+                            x, (h0, c0), w_ih, w_hh, b_ih, b_hh))[0]
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, timing=how,
+                           wall_ms=k_wall, plain_wall_ms=p_wall)
+                log(f"kernel lstm_cell G={g} [{b}, {d}->{h}] ({label}): "
+                    f"{how}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; per "
+                    f"call kernel {k_wall:.4f} ms, plain {p_wall:.4f} ms; "
+                    f"bound {b_ms:.4f} ms ({b_by}); library: "
+                    + (f"torch.lstm_cell on permuted weights {lib_ms:.4f} ms"
+                       if lib_ms is not None else "none (maxout cell)")
+                    + f"; plan {lk.plan(b, d, h)}")
+            cells.append(row)
+    log(f"kernel lstm_cell at the families' {len(cells)} shapes "
+        f"({len(FAMILY_CELLS)} cells x rows {FAMILY_ROWS}): forward max|diff| "
+        f"{worst:.3g} (tol {LSTM_TOL}), backward max|diff| / max(1, "
+        f"max|plain|) {max(r['backward_err'] for r in cells):.3g} (tol "
+        f"{ATT_TOL})")
+    topk = []
+    for label, r, v, k, x in _topk_cases(dev, FAMILY_TOPK, _few_beam_rows):
+        got, want = tk.row_topk(x, k), tk.row_topk_plain(x, k)
+        _same_topk(f"row_topk {label}", got, want)
+        k_ms, p_ms, _, _, how = time_pair(lambda: tk.row_topk(x, k),
+                                          lambda: tk.row_topk_plain(x, k),
+                                          "topk_select_kernel")
+        b_ms, b_by = bound(nbytes(x, *got), float(r * v))
+        topk.append(dict(label=label, shape=f"[{r}, {v}] k={k}", ms=k_ms,
+                         plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms(
+                             lambda: torch.topk(x, k, dim=1))[0],
+                         timing=how))
+        log(f"kernel row_topk [{r}, {v}] k={k} ({label}): exact; {how}: "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {b_ms:.4f} ms"
+            f" ({b_by})")
+    return cells, topk
+
+
+def _few_beam_rows(x, k: int) -> None:
+    """`_beam_rows` where x has the rows for it, else (12 rows) the NaN rows
+    of `_nan_rows`, four rows of exact ties, an all -inf row and a dead
+    beam row."""
+    if x.shape[0] >= 19:
+        _beam_rows(x, k)
+        return
+    _nan_rows(x, 0, k)
+    x[5:9] = (x[5:9] * 2).round() / 2
+    x[9] = float("-inf")
+    x[10] = -1e10
+
+
+def _fam_features(rs, n: int, dev):
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+
+    fc, att = make_features(rs, n)
+    masks = np.ones((n, N_SLOTS), np.float32)
+    masks[0, 150:] = 0.0
+    attri = rs.rand(n, FAM["attri_feat_size"]).astype(np.float32)
+    return Features(*(torch.as_tensor(a, device=dev)
+                      for a in (fc, att, attri, masks)))
+
+
+def _fam_batch(rs) -> dict:
+    """A host batch of FAM_TRAIN's 10 images x 5 captions (features
+    repeated, as the loader repeats them) with SCST's gts."""
+    b, spi = FAM_TRAIN["batch_size"], FAM_TRAIN["seq_per_img"]
+    t, v = CAP["seq_length"], CAP["vocab_size"]
+    img = make_train_batch(rs, b)
+    batch = {k: np.repeat(img[k], spi, axis=0)
+             for k in ("fc_feats", "att_feats", "att_masks")}
+    batch["attri_feats"] = np.repeat(
+        rs.rand(b, FAM["attri_feat_size"]).astype(np.float32), spi, axis=0)
+    lengths = rs.randint(5, t + 1, b * spi)
+    words = rs.randint(1, v + 1, (b * spi, t + 2))
+    pos = np.arange(t + 2)[None, :]
+    batch["labels"] = np.where((pos >= 1) & (pos <= lengths[:, None]),
+                               words, 0).astype(np.int64)
+    batch["masks"] = (pos <= lengths[:, None] + 1).astype(np.float32)
+    gts = batch["labels"][:, 1:].reshape(b, spi, -1)
+    batch["gts"] = np.repeat(gts, spi, axis=0)
+    batch["gts_masks"] = np.ones((b * spi, spi), np.float32)
+    return batch
+
+
+def _fam_xe_loss(trainer, batch) -> float:
+    """The captioner's XE loss on `batch` without dropout or gradient."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.losses.criterion import (
+        language_model_loss)
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+
+    up = trainer._batch(batch)
+    feats = Features(fc_feats=up["fc_feats"], att_feats=up["att_feats"],
+                     attri_feats=up["attri_feats"],
+                     att_masks=up["att_masks"])
+    with torch.no_grad():
+        out = trainer.i2t_model.forward(feats, up["labels"], training=False)
+        return float(language_model_loss(out, up["labels"][:, 1:],
+                                         up["masks"][:, 1:]))
+
+
+def _one_family(dev, name: str, shapes: dict) -> dict:
+    """One family at FAM's widths: teacher-forced logprobs of FAM_AGREE
+    images card vs CPU on the CPU's beam-3 tokens (within AGREE_TOL; the
+    top beams' token agreement is logged), 2 XE steps and 1 SCST step of
+    `Trainer.train` at batch 10 x 5 (finite, the XE loss falling, a
+    reward), and a beam-3 decode of FAM_IMAGES images. Returns its
+    walls."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    walls = {}
+    t0 = time.perf_counter()
+    with _recording_shapes(shapes):
+        trainer = Trainer(Config(**dict(FAM_TRAIN, caption_model=name))
+                          .finalize(), device=dev)
+        model = trainer.i2t_model
+        n_params = sum(p.numel() for p in model.parameters())
+        # card vs CPU from the same weights
+        cpu = torch.device("cpu")
+        model_c = copy.deepcopy(model).to(cpu)
+        model.eval()
+        model_c.eval()
+        f_g = _fam_features(np.random.RandomState(1), FAM_AGREE, dev)
+        f_c = type(f_g)(*(t.cpu() for t in f_g))
+        with torch.inference_mode():
+            res = {"gpu": {"cap": model.sample_beam(f_g, beam_size=FAM_BEAM)},
+                   "cpu": {"cap": model_c.sample_beam(f_c,
+                                                      beam_size=FAM_BEAM)}}
+            zh = res["cpu"]["cap"].seq[:, 0]
+            seq = torch.cat([torch.zeros((FAM_AGREE, 1), dtype=torch.long),
+                             zh], 1)
+            lp_g = model.forward(f_g, seq.to(dev))
+            lp_c = model_c.forward(f_c, seq)
+            if isinstance(lp_g, list):
+                lp_g, lp_c = lp_g[-1], lp_c[-1]
+            err = (lp_g.cpu() - lp_c).abs().max().item()
+        del model_c
+        log(f"families [{name}]: {n_params / 1e6:.2f} M parameters; card vs "
+            f"cpu teacher-forced logprobs of {FAM_AGREE} images max|diff| "
+            f"{err:.3g} (tol {AGREE_TOL})")
+        if not err <= AGREE_TOL:
+            raise AssertionError(f"families [{name}]: card and cpu disagree")
+        zh_same = (res["gpu"]["cap"].seq[:, 0].cpu() == zh).float().mean()
+        log(f"families [{name}]: zh top-beam tokens "
+            f"{zh_same.item() * 100:.1f}% equal card vs cpu")
+        walls["agreement"] = time.perf_counter() - t0
+
+        # training: 2 XE steps and 1 SCST step on one batch; the XE loss
+        # read without dropout before and after the two steps must fall
+        model.train()
+        batch = _fam_batch(np.random.RandomState(2))
+        before = _fam_xe_loss(trainer, batch)
+        t1 = time.perf_counter()
+        xe = [trainer.train(batch) for _ in range(2)]
+        torch.cuda.synchronize()
+        walls["xe"] = (time.perf_counter() - t1) / 2
+        after = _fam_xe_loss(trainer, batch)
+        t1 = time.perf_counter()
+        sc = trainer.train(batch, sc_flag=True)
+        torch.cuda.synchronize()
+        walls["scst"] = time.perf_counter() - t1
+        losses = [o["total_loss"] for o in xe] + [sc["total_loss"]]
+        log(f"families [{name}]: XE step losses {xe[0]['i2t_loss']:.4f}, "
+            f"{xe[1]['i2t_loss']:.4f} (dropout on); XE loss without dropout "
+            f"{before:.4f} before the steps, {after:.4f} after; SCST loss "
+            f"{sc['i2t_loss']:.4f}, avg_reward {sc['avg_reward']:.4f}")
+        # random weights sample words that rarely meet the references, so
+        # the reward may be 0: the step must run and stay finite
+        if not (all(np.isfinite(losses)) and after < before
+                and np.isfinite(sc["avg_reward"])):
+            raise AssertionError(f"families [{name}]: training {xe}, {sc}")
+
+        # the beam-3 decode of FAM_IMAGES images
+        model.eval()
+        f50 = _fam_features(np.random.RandomState(3), FAM_IMAGES, dev)
+        with torch.inference_mode():
+            model.sample_beam(f50, beam_size=FAM_BEAM)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = model.sample_beam(f50, beam_size=FAM_BEAM)
+            torch.cuda.synchronize()
+        walls["beam"] = time.perf_counter() - t1
+        if not (out.seq.shape == (FAM_IMAGES, FAM_BEAM, CAP["seq_length"])
+                and torch.isfinite(out.scores).all()):
+            raise AssertionError(f"families [{name}]: beam {out.seq.shape}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    walls["all"] = time.perf_counter() - t0
+    log(f"families [{name}]: walls agreement {walls['agreement']:.2f} s, XE "
+        f"step {walls['xe'] * 1e3:.1f} ms, SCST step "
+        f"{walls['scst'] * 1e3:.1f} ms, beam {FAM_BEAM} over {FAM_IMAGES} "
+        f"images {walls['beam'] * 1e3:.1f} ms; {walls['all']:.1f} s in all")
+    return walls
+
+
+def _fam_artifacts(root: str) -> dict:
+    """FAM_SPLITS images of CAP's vocabulary (5 captions each, fc 2,048,
+    att 196 x 2,048 `.npy` files) and the df cache of `prepro_ngrams`."""
+    import os
+
+    from unpaired_image_captioning_tpu_torch.data import synthetic
+    from unpaired_image_captioning_tpu_torch.scripts import prepro_ngrams
+
+    n_train, n_val, n_test = FAM_SPLITS
+    jpath, label, mem = synthetic.make_caption_artifacts(
+        root, n_images=n_train + n_val + n_test,
+        vocab_size=CAP["vocab_size"], seq_length=CAP["seq_length"],
+        caps_per_img=5, fc_dim=CAP["fc_feat_size"],
+        att_dim=CAP["att_feat_size"], att_len=N_SLOTS, seed=1, n_val=n_val,
+        n_test=n_test)
+    fc_dir, att_dir = synthetic.write_feature_dirs(root, mem)
+    ngrams = os.path.join(root, "ngrams.npz")
+    with _quiet():
+        prepro_ngrams.main(["--input_label_h5", label, "--input_json", jpath,
+                            "--output", ngrams])
+    return dict(input_json=jpath, input_label_h5=label, input_fc_dir=fc_dir,
+                input_att_dir=att_dir, cached_tokens=ngrams)
+
+
+def _fam_recipe(files: dict, root: str, name: str, shapes: dict,
+                totals: dict, resume: bool):
+    """train.sh's XE -> SCST recipe for `name` through cli.train (FAM_RECIPE,
+    then FAM_SCST with --start_from), each run's launches of B1 and B2 added
+    to `totals`; with `resume`, the SCST stage once more stopped at its
+    first epoch and resumed, whose state must equal the one-go stage's bit
+    for bit. Returns the run dir and the walls."""
+    import os
+    import shutil
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+
+    run = os.path.join(root, name)
+    base = dict(FAM_RECIPE, caption_model=name,
+                attri_feat_size=FAM["attri_feat_size"])
+    walls = {}
+
+    def cli(label, run_dir, **kw):
+        lk.launches = tk.launches = 0
+        with _recording_shapes(shapes):
+            trainer, wall, ev = _recipe_run(files, run_dir,
+                                            **dict(base, **kw))
+        totals["lstm_cell"] += lk.launches
+        totals["row_topk"] += tk.launches
+        walls[label] = wall
+        return trainer, ev
+
+    _, ev_xe = cli("xe", run)
+    if resume:
+        # the XE stage's checkpoint, for the stopped-and-resumed twin
+        twin = run + "_twin"
+        shutil.copytree(run, twin)
+    full, ev = cli("scst", run, start_from=run, **FAM_SCST)
+    # the two stages append to one events.jsonl: XE steps, then SCST
+    # exactly from the first step of epoch self_critical_after on
+    steps = _steps(ev)
+    xe_steps = [e for e in steps if "avg_reward" not in e]
+    rl_steps = [e for e in steps if "avg_reward" in e]
+    first = FAM_SCST["self_critical_after"]
+    if not (xe_steps and rl_steps and steps[-len(rl_steps):] == rl_steps
+            and xe_steps[-1]["step"] == len(_steps(ev_xe))
+            and all(e["epoch"] >= first for e in rl_steps)
+            and all(np.isfinite(e["total_loss"]) for e in steps)):
+        raise AssertionError(f"{name} recipe: steps {steps}")
+    with open(os.path.join(run, "histories.json")) as f:
+        vals = json.load(f)["val_result_history"]
+    evals = sorted(int(k) for k in vals)
+    if not (any(k <= len(xe_steps) for k in evals)
+            and any(k > len(xe_steps) for k in evals)
+            and all(np.isfinite(list(v["lang_stats"].values())
+                                + [v["loss"]]).all() for v in vals.values())):
+        raise AssertionError(f"{name} recipe: evals {vals}")
+    for n in ("model_i2t", "optimizer"):
+        for best in ("", "-best"):
+            if not os.path.exists(os.path.join(run, f"{n}{best}.pt")):
+                raise AssertionError(f"{name} recipe: no {n}{best}.pt")
+    log(f"families recipe [{name}]: evals after steps {evals}; XE losses "
+        + ", ".join(f"{e['total_loss']:.4f}" for e in xe_steps)
+        + "; SCST avg_reward "
+        + ", ".join(f"{e['avg_reward']:.4f}" for e in rl_steps)
+        + f"; step walls (ms) XE "
+        + ", ".join(f"{e['step_time'] * 1e3:.1f}" for e in xe_steps)
+        + ", SCST "
+        + ", ".join(f"{e['step_time'] * 1e3:.1f}" for e in rl_steps)
+        + f"; CLI walls XE {walls['xe']:.1f} s, SCST {walls['scst']:.1f} s")
+    if resume:
+        cli("scst stopped", twin, start_from=twin,
+            **dict(FAM_SCST, max_epochs=FAM_SCST["max_epochs"] - 1))
+        resumed, _ = cli("scst resumed", twin, start_from=twin, **FAM_SCST)
+        _same_state(full, resumed, f"{name} recipe resume")
+        log(f"families recipe [{name}]: the SCST stage stopped after its "
+            "first epoch and resumed with --start_from equals the one-go "
+            "stage bit for bit (parameters, Adam moments and counts); CLI "
+            f"walls {walls['scst stopped']:.1f} s + "
+            f"{walls['scst resumed']:.1f} s")
+    return run, walls
+
+
+def phase_families(dev) -> tuple:
+    """The caption families of ROADMAP A10 on the card at CAP's widths
+    (vocab 9,487, E = H = A = 512, fc and att 2,048, StackCap's attributes
+    1,601):
+
+    - B1 at every cell shape the families give it (FAMILY_CELLS x
+      FAMILY_ROWS) against the plain cell, forward and backward, and B2
+      at the beam-3 selections of 4 and 10 images, exact;
+    - each of the 11 families (`_one_family`): card vs CPU teacher-forced
+      logprobs, 2 XE steps and 1 SCST step of `Trainer.train`, a beam-3
+      decode of 50 images;
+    - train.sh's XE -> SCST recipe for fc (the SCST stage also stopped and
+      resumed, bit for bit) and stackcap through cli.train, then
+      `cli.eval_ensemble` over the two run dirs;
+    - a use_bn 2 TopDown run dir through cli.train and `cli.eval_paired
+      --bn_calibrate 2`, and one transformer use_bn 1 XE step at TCAP's
+      widths (its running statistics move);
+    - TopDown's beam-3 decode of 50 images with the four B9 flags on, held
+      against the flags off.
+
+    B1 and B2 are counted from 0 over the path and every shape the path
+    gives them must be one the checks hold. Returns (their launches, the
+    cells' records, the top-k records)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.cli import (eval_ensemble,
+                                                          eval_paired)
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.models import att as am
+    from unpaired_image_captioning_tpu_torch.models import setup
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    marks = []
+    cells, topk = _family_cells(dev)
+    marks.append(("kernel checks", time.perf_counter()))
+    totals = {k: 0 for k in EVAL_KERNELS}
+    shapes = {}
+
+    # the families, each driven with B1 and B2 counted from 0
+    walls = {}
+    for name in FAMILIES:
+        lk.launches = tk.launches = 0
+        walls[name] = _one_family(dev, name, shapes)
+        totals["lstm_cell"] += lk.launches
+        totals["row_topk"] += tk.launches
+        if not tk.launches or (name in ("fc", "topdown", "show_tell",
+                                        "all_img", "show_attend_tell",
+                                        "stackcap") and not lk.launches):
+            raise AssertionError(f"families [{name}]: launches lstm_cell "
+                                 f"{lk.launches}, row_topk {tk.launches}")
+    marks.append(("11 families", time.perf_counter()))
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="families-") as root:
+        # language_eval writes its eval_results/ under the working directory
+        os.chdir(root)
+        try:
+            files = _fam_artifacts(root)
+            marks.append(("artifacts", time.perf_counter()))
+            runs = {}
+            for name in ("fc", "stackcap"):
+                runs[name], _ = _fam_recipe(files, root, name, shapes,
+                                            totals, resume=name == "fc")
+            marks.append(("fc and stackcap recipes", time.perf_counter()))
+            cli_runs = []
+            ens = _run_cli("eval_ensemble (fc + stackcap, beam 3)",
+                           eval_ensemble.main,
+                           ["--ids", runs["fc"], runs["stackcap"],
+                            "--batch_size", "10", "--beam_size", "3",
+                            "--language_eval", "1"], totals, cli_runs, shapes)
+            if len(ens["predictions"]) != FAM_SPLITS[2] or not np.isfinite(
+                    ens["overall"]["CIDEr"]):
+                raise AssertionError(f"eval_ensemble: {ens}")
+            marks.append(("eval_ensemble", time.perf_counter()))
+
+            # use_bn: a TopDown run dir, then eval_paired --bn_calibrate 2
+            bn_run = os.path.join(root, "topdown_bn")
+            lk.launches = tk.launches = 0
+            with _recording_shapes(shapes):
+                _, bn_wall, _ = _recipe_run(files, bn_run, **dict(
+                    FAM_RECIPE, caption_model="topdown", use_bn=2,
+                    max_epochs=1))
+            totals["lstm_cell"] += lk.launches
+            totals["row_topk"] += tk.launches
+            seen = {}
+            cal = am.calibrate_batch_norm
+
+            def spy(model, loader, **kw):
+                before = model.bn0.var.detach().clone()
+                out = cal(model, loader, **kw)
+                seen["moved"] = not torch.equal(before, model.bn0.var)
+                seen["kw"] = kw
+                return out
+
+            am.calibrate_batch_norm = spy
+            try:
+                paired = _run_cli(
+                    "eval_paired --bn_calibrate 2 (topdown use_bn 2)",
+                    eval_paired.main,
+                    _eval_argv(files, bn_run, beam_size=FAM_BEAM,
+                               bn_calibrate=2, load_best_score=0,
+                               language_eval=1),
+                    totals, cli_runs, shapes)
+            finally:
+                am.calibrate_batch_norm = cal
+            if not (seen.get("moved") and seen["kw"] == {"n_batches": 2}
+                    and len(paired["predictions"]) == FAM_SPLITS[2]
+                    and np.isfinite(paired["loss"])):
+                raise AssertionError(f"eval_paired --bn_calibrate: {seen}, "
+                                     f"{paired}")
+            log(f"families: topdown use_bn 2 run dir (2 XE steps, an eval) "
+                f"{bn_wall:.1f} s; eval_paired --bn_calibrate 2 recalibrated "
+                f"bn0 / bn1 and decoded {len(paired['predictions'])} images,"
+                f" loss {paired['loss']:.4f}, CIDEr "
+                f"{paired['lang_stats']['CIDEr']:.4g}")
+            marks.append(("use_bn run and eval_paired", time.perf_counter()))
+        finally:
+            os.chdir(here)
+
+    # one transformer use_bn 1 XE step at TCAP's widths
+    tr = Trainer(Config(**dict(TCAP, caption_model="transformer", use_bn=1,
+                               batch_size=10, seq_per_img=5,
+                               i2t_train_flag=True, seed=0)).finalize(),
+                 device=dev)
+    var0 = tr.i2t_model.bn0.var.detach().clone()
+    out = tr.train(_fam_batch(np.random.RandomState(4)))
+    moved = not torch.equal(var0, tr.i2t_model.bn0.var.detach())
+    log(f"families: transformer use_bn 1 XE step, loss "
+        f"{out['total_loss']:.4f}, running statistics moved: {moved}")
+    if not (np.isfinite(out["total_loss"]) and moved):
+        raise AssertionError("transformer use_bn step")
+    del tr
+    torch.cuda.empty_cache()
+    marks.append(("transformer use_bn step", time.perf_counter()))
+
+    # TopDown's beam-3 decode with the B9 flags on against off
+    td = setup(Config(**dict(FAM, caption_model="topdown")),
+               device=dev).init_params(torch.Generator().manual_seed(0))
+    td.eval()
+    f50 = _fam_features(np.random.RandomState(5), FAM_IMAGES, dev)
+    res = {}
+    for label, flags in (("off", {}), ("on", B9_FLAGS)):
+        old = _att_flags(**flags)
+        try:
+            aak.beams_launches = 0
+            lk.launches = tk.launches = 0
+            with torch.inference_mode(), _recording_shapes(shapes):
+                res[label] = td.sample_beam(f50, beam_size=FAM_BEAM)
+                torch.cuda.synchronize()
+            totals["lstm_cell"] += lk.launches
+            totals["row_topk"] += tk.launches
+            res[label + " beams"] = aak.beams_launches
+        finally:
+            _att_flags(**old)
+    same = (res["on"].seq == res["off"].seq).all(-1).all(-1)
+    gap = (res["on"].scores - res["off"].scores)[same].abs().max().item()
+    steps = lk.launches // 2
+    log(f"families: topdown beam {FAM_BEAM} over {FAM_IMAGES} images with "
+        f"the B9 flags on ({res['on beams']} additive_attention_beams "
+        f"launches in {steps} steps) against off: "
+        f"{int(same.sum())} of {FAM_IMAGES} images' beams identical, their "
+        f"scores max|diff| {gap:.3g} (tol {AGREE_TOL})")
+    if not (res["on beams"] == steps and res["off beams"] == 0
+            and int(same.sum()) >= FAM_IMAGES - 2 and gap <= AGREE_TOL):
+        raise AssertionError("topdown with the B9 flags differs")
+    del td
+    torch.cuda.empty_cache()
+    marks.append(("topdown B9 flags", time.perf_counter()))
+
+    for name in ("lstm_cell", "row_topk"):
+        if not totals[name]:
+            raise AssertionError(f"families: {name} was not launched")
+    held = _held_eval_shapes()
+    held["lstm_cell"] |= {(b, d, h, m) for _, d, h, m in FAMILY_CELLS
+                          for b in FAMILY_ROWS}
+    held["row_topk"] |= {s[1:] for s in FAMILY_TOPK}
+    for name in ("lstm_cell", "row_topk"):
+        seen_shapes = shapes.get(name, set())
+        log(f"families {name} shapes: {sorted(seen_shapes, key=str)}")
+        if seen_shapes - held[name]:
+            raise AssertionError(
+                f"families: {name} ran at "
+                f"{sorted(seen_shapes - held[name], key=str)}, which no "
+                "kernel check holds against the plain version")
+    log("families walls (s): " + ", ".join(
+        f"{n} {w['all']:.1f}" for n, w in walls.items()))
+    log("families phase seconds: " + ", ".join(
+        f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t) in zip(
+            [("start", t_phase)] + marks, marks)))
+    log(f"families launches: lstm_cell {totals['lstm_cell']}, row_topk "
+        f"{totals['row_topk']}; phase {time.perf_counter() - t_phase:.1f} s")
+    return ({k: totals[k] for k in ("lstm_cell", "row_topk")}, cells, topk)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5944,6 +6588,10 @@ def main(argv=None) -> int:
     mark("training CLI recipe and eval CLIs")
     raw_counts = phase_raw_data(dev)
     mark("raw data to a trained, profiled model")
+    family_counts, family_cells, family_topk = phase_families(dev)
+    kernels["lstm_cell"]["shapes"] += family_cells
+    kernels["row_topk"]["shapes"] += family_topk
+    mark("caption families (A10)")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -5962,10 +6610,11 @@ def main(argv=None) -> int:
     # the LSTM cell's and the decoder stack's launches add the SCST steps'
     for name, n in scst_counts.items():
         kernels[name]["launches"] += n
-    # and the training CLI's recipe's, the eval CLIs' and the raw-data
-    # pipeline's
+    # and the training CLI's recipe's, the eval CLIs', the raw-data
+    # pipeline's and the caption families'
     for name, n in (list(recipe_counts.items()) + list(eval_counts.items())
-                    + list(raw_counts.items())):
+                    + list(raw_counts.items())
+                    + list(family_counts.items())):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -111,18 +111,22 @@ def test_sample_beam_matches_jax(pair, beam, opts):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmodels.setup(Config(caption_model="topdown", vocab_size=5,
-                             rnn_size=8, input_encoding_size=8,
-                             fc_feat_size=8, att_feat_size=8),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmodels.setup(Config(caption_model="denseatt", vocab_size=5,
-                             rnn_size=8, input_encoding_size=8,
-                             fc_feat_size=8, att_feat_size=8, use_bn=1),
+    # the other families and use_bn build since A10
+    # (tests/test_torch_families.py, tests/test_torch_batchnorm.py)
+    assert type(tmodels.setup(Config(caption_model="topdown", vocab_size=5,
+                                     rnn_size=8, input_encoding_size=8,
+                                     fc_feat_size=8, att_feat_size=8),
+                              device="cpu")).__name__ == "TopDownModel"
+    assert hasattr(tmodels.setup(Config(caption_model="denseatt",
+                                        vocab_size=5, rnn_size=8,
+                                        input_encoding_size=8,
+                                        fc_feat_size=8, att_feat_size=8,
+                                        use_bn=1), device="cpu"), "bn0")
+    with pytest.raises(ValueError, match="not supported"):
+        tmodels.setup(Config(caption_model="nosuch", vocab_size=5),
                       device="cpu")
     m = tmodels.setup(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A10"):
         m.sample_beam(Features(fc_feats=torch.zeros(1, 32),
                                att_feats=torch.zeros(1, 2, 24)),
                       beam_size=4, group_size=2)

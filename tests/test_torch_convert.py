@@ -124,15 +124,15 @@ def ref_att2(seed, kind):
     return r.d
 
 
-def ref_adaatt(seed, layers):
+def ref_adaatt(seed, layers, gates=5):
     r = _Ref(seed)
     r.att_base()
-    r.lin("core.lstm.w2h", E, 5 * H)
-    r.lin("core.lstm.v2h", H, 5 * H)
+    r.lin("core.lstm.w2h", E, gates * H)
+    r.lin("core.lstm.v2h", H, gates * H)
     for i in range(layers):
-        r.lin(f"core.lstm.h2h.{i}", H, 5 * H)
+        r.lin(f"core.lstm.h2h.{i}", H, gates * H)
     for i in range(layers - 1):
-        r.lin(f"core.lstm.i2h.{i}", H, 5 * H)
+        r.lin(f"core.lstm.i2h.{i}", H, gates * H)
     r.lin("core.lstm.r_h2h", H, H)
     if layers == 1:
         r.lin("core.lstm.r_w2h", E, H)
@@ -176,7 +176,9 @@ def ref_stack(seed, kind):
     r = _Ref(seed)
     r.att_base()
     for i in range(3):
-        r.maxout(f"core.lstm{i}", 2 * H, H)
+        # stackcap's lstm1 / lstm2 also take the word + attribute input
+        r.maxout(f"core.lstm{i}", E + 2 * H if kind == "stackcap" and i
+                 else 2 * H, H)
     r.attention("core.att1")
     r.attention("core.att2")
     if kind != "stackcap":
@@ -278,7 +280,7 @@ REFS = {
     "att2in2": (lambda s: ref_att2(s, "att2in2"), {}),
     "att2in": (lambda s: ref_att2(s, "att2in"), {}),
     "att2all2": (lambda s: ref_att2(s, "att2all2"), {}),
-    "adaatt": (lambda s: ref_adaatt(s, 1), {}),
+    "adaatt": (lambda s: ref_adaatt(s, 1, gates=4), {}),
     "adaattmo": (lambda s: ref_adaatt(s, 1), {}),
     "show_tell": (ref_show_tell, {}),
     "show_attend_tell": (ref_show_attend_tell, {}),
@@ -359,10 +361,20 @@ def _sharpen(state, name):
     key = "model.generator.proj.weight" if name == "transformer" else \
         "logit.weight"
     state[key] = state[key] * 12.0
+    if name == "fc":
+        # fc sees the image once, at t = 0: a louder image embedding keeps
+        # its captions apart
+        state["img_embed.weight"] = state["img_embed.weight"] * 8.0
     return state
 
 
-@pytest.mark.parametrize("name", ["denseatt", "stackatt", "transformer"])
+# the widths a family's generated reference fixes apart from CAP_CFG's
+FAMILY_CFG = {"transformer": {"rnn_size": 2 * H}, "adaatt": {"num_layers": 1},
+              "stackcap": {"attri_feat_size": 16}}
+
+
+@pytest.mark.parametrize("name", ["denseatt", "stackatt", "transformer", "fc",
+                                  "topdown", "adaatt", "stackcap"])
 def test_converted_captioner_decodes_as_jax(name):
     import jax
     import jax.numpy as jnp
@@ -376,8 +388,7 @@ def test_converted_captioner_decodes_as_jax(name):
     state = _sharpen(make(4), name)
     jtree = jconv.CONVERTERS[name](state, **kw)
     # the transformer's d_ff is rnn_size (2H in the reference layout)
-    cfg = dict(CAP_CFG, caption_model=name,
-               **({"rnn_size": 2 * H} if name == "transformer" else {}))
+    cfg = dict(CAP_CFG, caption_model=name, **FAMILY_CFG.get(name, {}))
     tm = tmodels.setup(TConfig(**cfg), device="cpu")
     tm.load_state_dict(bridge.params_from_jax(
         tconv.CONVERTERS[name](state, **kw)))
@@ -528,3 +539,60 @@ def test_migrate_reference_matches_jax(reference_run, tmp_path):
         template = bridge.params_to_numpy(make)
         want = load_pytree(str(jax_dir / f"{name}-best.msgpack"), template)
         _same_tree(bridge.params_to_numpy(make), want)
+
+
+@pytest.mark.parametrize("name", ["fc", "topdown", "adaatt", "stackcap"])
+def test_migrated_family_evaluates_as_jax(name, tmp_path, monkeypatch):
+    """A generated reference checkpoint of the family through the port's
+    `migrate_reference` and `cli.eval_paired --device cpu`: the predictions
+    of JAX's `eval_split` on JAX's conversion of the same `.pth`, at beam
+    2, and the same XE loss within 1e-5."""
+    from unpaired_image_captioning_tpu import models as jmodels
+    from unpaired_image_captioning_tpu.config import Config
+    from unpaired_image_captioning_tpu.data.dataloader import (
+        CaptionDataLoader as JLoader)
+    from unpaired_image_captioning_tpu.eval import eval_utils as jeval
+    from unpaired_image_captioning_tpu.models import convert as jconv
+    import h5py
+
+    from unpaired_image_captioning_tpu_torch.cli import eval_paired
+    from unpaired_image_captioning_tpu_torch.data import synthetic as tsyn
+    from unpaired_image_captioning_tpu_torch.data.arrays import read_arrays
+
+    monkeypatch.chdir(tmp_path)
+    make, kw = REFS[name]
+    state = _sharpen(make(6), name)
+    pth = tmp_path / "model_i2t-best.pth"
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, pth)
+    cfg = dict(CAP_CFG, caption_model=name, **FAMILY_CFG.get(name, {}))
+    opt = argparse.Namespace(seq_per_img=2, **{
+        k: v for k, v in cfg.items() if k != "drop_prob_lm"})
+    with open(tmp_path / "infos-best.pkl", "wb") as f:
+        pickle.dump({"opt": opt, "iter": 9, "epoch": 1}, f, protocol=2)
+    jpath, label, mem = tsyn.make_caption_artifacts(
+        str(tmp_path), vocab_size=V1 - 1, seq_length=7, caps_per_img=2,
+        fc_dim=FC, att_dim=ATT, seed=4, n_test=3)
+    fc_dir, att_dir = tsyn.write_feature_dirs(str(tmp_path), mem)
+    h5 = str(tmp_path / "label.h5")      # the JAX loader reads HDF5
+    with h5py.File(h5, "w") as f:
+        for k, v in read_arrays(label).items():
+            f[k] = v
+    run = tmp_path / "migrated"
+    migrate_reference.main(["--out_dir", str(run), "--caption_model", name,
+                            "--i2t_pth", str(pth), "--infos_pkl",
+                            str(tmp_path / "infos-best.pkl")])
+    data = dict(input_json=jpath, input_label_h5=label, input_fc_dir=fc_dir,
+                input_att_dir=att_dir, batch_size=3, seq_per_img=2)
+    argv = dict(data, start_from=str(run), beam_size=2, id="mig",
+                device="cpu")
+    got = eval_paired.main([x for k, v in argv.items()
+                            for x in ("--" + k, str(v))])
+    jm = jmodels.setup(Config(**cfg))
+    loader = JLoader(**dict(data, input_label_h5=h5), att_feat_size=ATT,
+                     attri_feat_size=16)
+    want = jeval.eval_split(jm, jconv.CONVERTERS[name](state, **kw), loader,
+                            split="test", beam_size=2, model_id="mig_jax")
+    assert got["predictions"] == want["predictions"]
+    assert len(got["predictions"]) == 3
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5,
+                               atol=1e-5)

@@ -210,12 +210,9 @@ def test_preprocessing_modules_are_checked():
 
 def test_port_has_a_file_for_each_jax_module_but_the_queued_ones():
     """Every module of the JAX package has the port's counterpart, except
-    those of the queue items still open (A10-A14)."""
-    queued = {"cli/eval_ensemble.py", "models/ensemble.py", "models/fc.py",
-              "models/fork_transformer.py", "models/show_tell.py",
-              "models/stackcap.py", "models/weight_init.py",
-              "parallel/__init__.py", "parallel/mesh.py",
-              "utils/fertility.py"}
+    those of the queue items still open (A11-A14)."""
+    queued = {"models/fork_transformer.py", "parallel/__init__.py",
+              "parallel/mesh.py", "utils/fertility.py"}
 
     def listing(pkg):
         base = ROOT / pkg
@@ -236,3 +233,11 @@ def test_backtranslate_defaults_to_the_card(monkeypatch, tmp_path):
         prepro_backtranslate.main(["--input", str(tmp_path / "zh.txt"),
                                    "--output", str(tmp_path / "en.txt"),
                                    "--nmt_run", str(tmp_path)])
+
+
+def test_eval_ensemble_defaults_to_the_card(monkeypatch, tmp_path):
+    from unpaired_image_captioning_tpu_torch.cli import eval_ensemble
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_ensemble.main(["--ids", str(tmp_path)])

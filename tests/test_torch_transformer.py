@@ -188,9 +188,11 @@ def test_beam_keeps_cross_memory_unexpanded(pair):
 
 def test_unported_options_raise(pair, monkeypatch):
     _, _, tm, _, tf = pair
-    with pytest.raises(NotImplementedError, match="A10"):
-        tmodels.setup(Config(**{**vars(CFG), "use_bn": 1}),
-                      device="cpu")
+    # use_bn builds since A10 (its parity is tests/test_torch_batchnorm.py)
+    for use_bn in (1, 2):
+        bn = tmodels.setup(Config(**{**vars(CFG), "use_bn": use_bn}),
+                           device="cpu")
+        assert hasattr(bn, "bn0") and hasattr(bn, "bn1") == (use_bn == 2)
     # the whole-layer training route: one encoder-layer call per layer
     monkeypatch.setattr(ttr, "TRAIN_LAYER_KERNEL", True)
     calls = []

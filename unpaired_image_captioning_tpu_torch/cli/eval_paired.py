@@ -12,8 +12,10 @@ sidecar, apply checkpoint-opts override with consistency asserts
         --input_fc_dir fc --input_att_dir att --language_eval 1 \\
         [--image_folder imgs] [--device cpu]
 
-`--bn_calibrate` above 0 raises until `use_bn` lands (ROADMAP A10), and
-`--num_devices` above 1 until scale-out (A14).
+`--bn_calibrate N` re-estimates the `use_bn` running statistics from N
+train batches before the eval (`models/att.py::calibrate_batch_norm`; for
+converted checkpoints that lack tracked statistics). `--num_devices` above
+1 raises until scale-out (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -31,9 +33,6 @@ def main(argv=None):
     from .train import build_loader
 
     cfg, ckpt, best = load_run(parse_opt(argv))
-    if cfg.bn_calibrate > 0:
-        raise NotImplementedError("--bn_calibrate > 0: calibrate_batch_norm "
-                                  "comes with use_bn (ROADMAP A10)")
     if cfg.num_devices > 1:
         raise NotImplementedError("--num_devices > 1: the port evaluates on "
                                   "one card until scale-out (ROADMAP A14)")
@@ -59,6 +58,11 @@ def main(argv=None):
 
     model = load_model(lambda d: models.setup(cfg, device=d), ckpt,
                        "model_i2t", best, device)
+    if cfg.bn_calibrate > 0 and not cfg.image_folder:
+        from ..models.att import calibrate_batch_norm
+
+        calibrate_batch_norm(model, loader, n_batches=cfg.bn_calibrate)
+        print(f"BN running stats calibrated on {cfg.bn_calibrate} batches")
 
     refs = None
     if cfg.language_eval and not cfg.image_folder:

@@ -1,18 +1,27 @@
-"""Attention-LSTM caption decoders: the `AttModel` base with the StackAtt
-and DenseAtt cores (counterpart of
-`unpaired_image_captioning_tpu/models/att.py`).
+"""Attention-LSTM caption decoders: the `AttModel` base and its cores
+(counterpart of `unpaired_image_captioning_tpu/models/att.py`).
 
-- word embedding with ReLU+dropout, `fc_embed` / `att_embed` MLPs, the
-  attention memory pre-projected once per sequence (`ctx2att`);
+- word embedding with ReLU+dropout, `fc_embed` / `att_embed` MLPs with
+  optional BatchNorm (`use_bn`), the attention memory pre-projected once
+  per sequence (`ctx2att`);
 - additive attention with softmax -> mask -> renormalize;
-- StackAtt: three maxout LSTMs and two attentions per step; DenseAtt adds
-  the two fusion layers.
+- cores: TopDown (two plain LSTMs), Att2in2 / Att2in / Att2all2 (one
+  maxout cell whose gates take an attention term), AdaAtt / AdaAttMO (the
+  visual-sentinel attention), StackAtt (three maxout LSTMs and two
+  attentions), DenseAtt (StackAtt with two fusion layers) and
+  ShowAttendTell (a stacked LSTM over [word; attention]);
+- the wrappers' quirks: Att2in2 / Att2all2 use the raw fc feats
+  (`fc_identity`), Att2in and ShowAttendTell attend over the raw att feats
+  (`att_identity`) with a bare embedding (`embed_plain`).
 
 States are batch-major `(h[B,L,H], c[B,L,H])` so beam search reorders them
-along dim 0. Every LSTM step goes through `ops.rnn.lstm_step` (the fused
-kernel on CUDA). The attentions are plain torch unless one of the four
-module flags below, read at call time with the JAX package's defaults
-(all off), routes them to the additive-attention kernels
+along dim 0. The LSTM steps of TopDown, StackAtt, DenseAtt and
+ShowAttendTell go through `ops.rnn.lstm_step` (the fused kernel on CUDA);
+the Att2in family's and AdaAtt's cells add an attention term to their
+gates, which the fused cell has no input for, so they are plain torch, as
+they are XLA in the JAX package. The attentions are plain torch unless one
+of the four module flags below, read at call time with the JAX package's
+defaults (all off), routes them to the additive-attention kernels
 (`kernels/additive_attention.py`): the device of the tensors then picks
 the kernel (CUDA) or its plain version (CPU). The JAX package's TPU gates
 (`jax.default_backend() == "tpu"`, widths % 128) have no counterpart. When
@@ -20,8 +29,15 @@ a gradient is taken, the plain single-query attention is an autograd
 Function that keeps its inputs and its [B, N] softmax terms, and whose
 backward, written out by hand, recomputes the [B, N, A] tanh once: as
 under the JAX package's `jax.checkpoint`, that tensor is not kept for the
-backward. The other caption families and `use_bn` BatchNorm are ROADMAP
-A10.
+backward.
+
+`use_bn` BatchNorm has torch's semantics: batch moments over the real
+slots in training (the forward stashes them in `aux_out` for
+`apply_bn_updates`), the running statistics at inference, and
+`calibrate_batch_norm` to fill them from data. Its four tensors are
+parameters, as they are leaves of the JAX parameter tree: the optimizer
+holds state for them, an XE step gives `mean` / `var` a zero gradient, and
+the SCST recompute (inference BatchNorm) a real one.
 """
 
 from __future__ import annotations
@@ -170,6 +186,108 @@ def _mlp_embed(p, x, rate, training, generator):
 
 
 # ---------------------------------------------------------------------------
+# use_bn BatchNorm
+# ---------------------------------------------------------------------------
+
+BN_MOMENTUM = 0.1  # torch nn.BatchNorm1d's default
+BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """`scale`, `offset` and the running `mean` / `var` of one BatchNorm,
+    all parameters (see the module's doc): fresh ones hold 1, 0, 0, 1."""
+
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty((dim,), device=device))
+        self.offset = nn.Parameter(torch.empty((dim,), device=device))
+        self.mean = nn.Parameter(torch.empty((dim,), device=device))
+        self.var = nn.Parameter(torch.empty((dim,), device=device))
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        for p, v in ((self.scale, 1.0), (self.offset, 0.0), (self.mean, 0.0),
+                     (self.var, 1.0)):
+            p.fill_(v)
+
+
+def _masked_mean_var(x, mask):
+    """Per-feature mean and biased variance over the real rows only (the
+    reference feeds BN through pack_wrapper, so padded att slots never
+    count). Returns (mean, var, n)."""
+    flat = x.reshape(-1, x.shape[-1])
+    if mask is None:
+        n = torch.tensor(float(flat.shape[0]), device=x.device)
+        mean = flat.mean(0)
+        var = torch.square(flat - mean).mean(0)
+    else:
+        m = (mask.reshape(-1, 1) > 0).to(flat.dtype)
+        n = torch.clamp(m.sum(), min=1.0)
+        mean = (flat * m).sum(0) / n
+        var = (torch.square(flat - mean) * m).sum(0) / n
+    return mean, var, n
+
+
+def batch_norm(p: BatchNorm, x, training: bool = True, *, mask=None,
+               aux_out: Optional[dict] = None, key: Optional[str] = None):
+    """BatchNorm: batch moments in training, the running statistics
+    otherwise. In training, with `aux_out`, the detached batch moments go
+    to `aux_out[key]` as (mean, unbiased var) for `apply_bn_updates` (the
+    running variance takes the unbiased one, the normalisation the biased
+    one)."""
+    if training:
+        mean, var, n = _masked_mean_var(x, mask)
+        if aux_out is not None and key is not None:
+            unbiased = var * (n / torch.clamp(n - 1.0, min=1.0))
+            aux_out[key] = (mean.detach(), unbiased.detach())
+    else:
+        mean, var = p.mean, p.var
+    norm = (x - mean) * torch.rsqrt(var + BN_EPS)
+    return norm * p.scale + p.offset
+
+
+@torch.no_grad()
+def apply_bn_updates(model: nn.Module, bn_aux: dict,
+                     momentum: float = BN_MOMENTUM) -> None:
+    """Blend the batch moments a forward collected into the running
+    statistics, in place: running = (1 - m) * running + m * batch.
+    `bn_aux` maps "bn0" / "bn1" to (mean, unbiased var)."""
+    for k, (mean, var) in bn_aux.items():
+        p = getattr(model, k)
+        p.mean.copy_((1.0 - momentum) * p.mean + momentum * mean)
+        p.var.copy_((1.0 - momentum) * p.var + momentum * var)
+
+
+@torch.no_grad()
+def calibrate_batch_norm(model: nn.Module, loader, *, split: str = "train",
+                         n_batches: int = 16) -> nn.Module:
+    """Fill the `use_bn` running statistics from `n_batches` batches of
+    `loader` (for converted checkpoints that lack tracked statistics), in
+    place: bn0 from the real att slots, bn1 from the same rows through bn0
+    and att_embed. A model without BatchNorm is left alone."""
+    import numpy as np
+
+    if not hasattr(model, "bn0"):
+        return model
+    rows = []
+    for _ in range(n_batches):
+        data = loader.get_batch(split)
+        att = np.asarray(data["att_feats"], np.float32)
+        rows.append(att[np.asarray(data["att_masks"]) > 0])
+    flat = np.concatenate(rows, axis=0)
+    dev = model.bn0.mean.device
+    model.bn0.mean.copy_(torch.as_tensor(flat.mean(0), device=dev))
+    model.bn0.var.copy_(torch.as_tensor(flat.var(0), device=dev))
+    if hasattr(model, "bn1"):
+        x = batch_norm(model.bn0, torch.as_tensor(flat, device=dev),
+                       training=False)
+        h = torch.relu(linear(model.att_embed, x))
+        model.bn1.mean.copy_(h.mean(0))
+        model.bn1.var.copy_(h.var(0, unbiased=False))
+    return model
+
+
+# ---------------------------------------------------------------------------
 # base
 # ---------------------------------------------------------------------------
 
@@ -184,23 +302,43 @@ class AttModel(CaptionDecoder):
                          rnn_size=rnn_size, num_layers=num_layers,
                          drop_prob_lm=drop_prob_lm, seq_length=seq_length,
                          fc_feat_size=fc_feat_size)
-        if use_bn:
-            raise NotImplementedError(
-                "use_bn BatchNorm is not ported yet (ROADMAP A10)")
         self.att_feat_size = att_feat_size
         self.att_hid_size = att_hid_size
+        self.use_bn = use_bn
         self.logit_layers = logit_layers
         self.embed = embedding_init(vocab_size + 1, input_encoding_size,
                                     device=device)
         self.logit = self._logit_init(device)
         self.core = self.core_init(device)
-        self.fc_embed = linear_init(fc_feat_size, rnn_size, device=device)
-        self.att_embed = linear_init(att_feat_size, rnn_size, device=device)
-        self.ctx2att = linear_init(rnn_size, att_hid_size, device=device)
+        if not self.fc_identity:
+            self.fc_embed = linear_init(fc_feat_size, rnn_size, device=device)
+        if not self.att_identity:
+            self.att_embed = linear_init(att_feat_size, rnn_size,
+                                         device=device)
+            if use_bn:
+                self.bn0 = BatchNorm(att_feat_size, device=device)
+            if use_bn == 2:
+                self.bn1 = BatchNorm(rnn_size, device=device)
+        ctx_in = att_feat_size if self.att_identity else rnn_size
+        self.ctx2att = linear_init(ctx_in, att_hid_size, device=device)
+        self.extra_init(device)
 
+    # ---- overridable structure knobs ----
     @property
     def eff_num_layers(self) -> int:
         return self.num_layers
+
+    @property
+    def fc_identity(self) -> bool:
+        return False  # Att2in2 / Att2all2: the fc feats are used raw
+
+    @property
+    def att_identity(self) -> bool:
+        return False  # Att2in / ShowAttendTell: attend over raw att feats
+
+    @property
+    def embed_plain(self) -> bool:
+        return False  # Att2in / ShowAttendTell: bare embedding
 
     # ---- params ----
     def init_params(self, generator: torch.Generator) -> "AttModel":
@@ -228,12 +366,28 @@ class AttModel(CaptionDecoder):
 
     # ---- decode interface ----
     def make_decoder(self, feats: Features, *, training: bool = False,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     aux_out: Optional[dict] = None):
         batch = feats.fc_feats.shape[0]
-        fc_emb = _mlp_embed(self.fc_embed, feats.fc_feats, self.drop_prob_lm,
-                            training, generator)
-        att_emb = _mlp_embed(self.att_embed, feats.att_feats,
-                             self.drop_prob_lm, training, generator)
+        if self.fc_identity:
+            fc_emb = feats.fc_feats
+        else:
+            fc_emb = _mlp_embed(self.fc_embed, feats.fc_feats,
+                                self.drop_prob_lm, training, generator)
+        att = feats.att_feats
+        if self.att_identity:
+            att_emb = att
+        else:
+            if self.use_bn:
+                att = batch_norm(self.bn0, att, training,
+                                 mask=feats.att_masks, aux_out=aux_out,
+                                 key="bn0")
+            att_emb = _mlp_embed(self.att_embed, att, self.drop_prob_lm,
+                                 training, generator)
+            if self.use_bn == 2:
+                att_emb = batch_norm(self.bn1, att_emb, training,
+                                     mask=feats.att_masks, aux_out=aux_out,
+                                     key="bn1")
         p_att = linear(self.ctx2att, att_emb)
         ctx = {"fc": fc_emb, "att": att_emb, "p_att": p_att,
                "masks": feats.att_masks}
@@ -242,16 +396,12 @@ class AttModel(CaptionDecoder):
                          device=feats.fc_feats.device)
         return ctx, (h0, h0)
 
-    def step(self, ctx, state, it, *, training: bool = False,
-             generator: Optional[torch.Generator] = None):
-        h, state = self.step_core(ctx, state, it, training=training,
-                                  generator=generator)
-        return self.head(h, training=training, generator=generator), state
-
     def step_core(self, ctx, state, it, *, training: bool = False,
                   generator: Optional[torch.Generator] = None):
-        xt = dropout(torch.relu(self.embed[it]), self.drop_prob_lm, training,
-                     generator)
+        xt = self.embed[it]
+        if not self.embed_plain:
+            xt = dropout(torch.relu(xt), self.drop_prob_lm, training,
+                         generator)
         return self.core_step(xt, ctx, state, training=training,
                               generator=generator)
 
@@ -261,11 +411,261 @@ class AttModel(CaptionDecoder):
         return torch.log_softmax(logits, dim=-1)
 
     # ---- to implement per family ----
+    def extra_init(self, device) -> None:
+        """Registers a family's parameters outside the base's tree."""
+
     def core_init(self, device) -> nn.ModuleDict:
         raise NotImplementedError
 
     def core_step(self, xt, ctx, state, *, training, generator):
         raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# TopDown (bottom-up / top-down, Anderson et al.)
+# ---------------------------------------------------------------------------
+
+class TopDownModel(AttModel):
+    @property
+    def eff_num_layers(self) -> int:
+        return 2
+
+    def core_init(self, device) -> nn.ModuleDict:
+        h = self.rnn_size
+        return nn.ModuleDict({
+            "att_lstm": rnn.init_lstm_params(self.input_encoding_size + 2 * h,
+                                             h, device=device),
+            "lang_lstm": rnn.init_lstm_params(2 * h, h, device=device),
+            "attention": attention_init(h, self.att_hid_size, device=device),
+        })
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        h, c = state
+        att_in = torch.cat([h[:, 1], ctx["fc"], xt], -1)
+        h_att, c_att = rnn.lstm_step(p["att_lstm"], att_in, h[:, 0], c[:, 0])
+        att_res = attention_apply(p["attention"], h_att, ctx["att"],
+                                  ctx["p_att"], ctx["masks"],
+                                  training=training)
+        h_lang, c_lang = rnn.lstm_step(p["lang_lstm"],
+                                       torch.cat([att_res, h_att], -1),
+                                       h[:, 1], c[:, 1])
+        out = dropout(h_lang, self.drop_prob_lm, training, generator)
+        return out, (torch.stack([h_att, h_lang], 1),
+                     torch.stack([c_att, c_lang], 1))
+
+
+# ---------------------------------------------------------------------------
+# Att2in family (SCST paper)
+# ---------------------------------------------------------------------------
+
+def _maxout_gates_step(gates, prev_c, hsz: int):
+    """The maxout cell's update from its 5H gates (i, f, o, m1, m2)."""
+    sig = torch.sigmoid(gates[..., :3 * hsz])
+    in_t = torch.maximum(gates[..., 3 * hsz:4 * hsz],
+                         gates[..., 4 * hsz:5 * hsz])
+    c_new = sig[..., hsz:2 * hsz] * prev_c + sig[..., :hsz] * in_t
+    h_new = sig[..., 2 * hsz:3 * hsz] * torch.tanh(c_new)
+    return h_new, c_new
+
+
+class Att2in2Model(AttModel):
+    """The attention enters the cell's maxout gates; raw fc feats (unused by
+    the core)."""
+
+    @property
+    def eff_num_layers(self) -> int:
+        return 1
+
+    @property
+    def fc_identity(self) -> bool:
+        return True
+
+    @property
+    def _a2c_in(self) -> int:
+        return self.rnn_size
+
+    def core_init(self, device) -> nn.ModuleDict:
+        h = self.rnn_size
+        return nn.ModuleDict({
+            # fused i2h + h2h 5H gates, maxout
+            "cell": rnn.init_lstm_params(self.input_encoding_size, h,
+                                         maxout=True, device=device),
+            "a2c": linear_init(self._a2c_in, 2 * h, device=device),
+            "attention": attention_init(h, self.att_hid_size, device=device),
+        })
+
+    def _gates(self, p, xt, prev_h, att_res):
+        gates = torch.cat([xt, prev_h], -1) @ p["cell"].w + p["cell"].b
+        # the attention term is added to the maxout (in_transform) chunks
+        return torch.cat([gates[..., :3 * self.rnn_size],
+                          gates[..., 3 * self.rnn_size:]
+                          + linear(p["a2c"], att_res)], -1)
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        h, c = state
+        prev_h, prev_c = h[:, 0], c[:, 0]
+        att_res = attention_apply(p["attention"], prev_h, ctx["att"],
+                                  ctx["p_att"], ctx["masks"],
+                                  training=training)
+        h_new, c_new = _maxout_gates_step(self._gates(p, xt, prev_h, att_res),
+                                          prev_c, self.rnn_size)
+        out = dropout(h_new, self.drop_prob_lm, training, generator)
+        return out, (h_new[:, None], c_new[:, None])
+
+
+class Att2inModel(Att2in2Model):
+    """The original att2in: bare embedding, raw att feats, `a2c` from
+    att_feat_size."""
+
+    @property
+    def att_identity(self) -> bool:
+        return True
+
+    @property
+    def embed_plain(self) -> bool:
+        return True
+
+    @property
+    def _a2c_in(self) -> int:
+        return self.att_feat_size
+
+
+class Att2all2Model(Att2in2Model):
+    """The attention is added to all five gates."""
+
+    def core_init(self, device) -> nn.ModuleDict:
+        h = self.rnn_size
+        return nn.ModuleDict({
+            "cell": rnn.init_lstm_params(self.input_encoding_size, h,
+                                         maxout=True, device=device),
+            "a2h": linear_init(h, 5 * h, device=device),
+            "attention": attention_init(h, self.att_hid_size, device=device),
+        })
+
+    def _gates(self, p, xt, prev_h, att_res):
+        gates = torch.cat([xt, prev_h], -1) @ p["cell"].w + p["cell"].b
+        return gates + linear(p["a2h"], att_res)
+
+
+# ---------------------------------------------------------------------------
+# AdaAtt (adaptive attention with a visual sentinel)
+# ---------------------------------------------------------------------------
+
+class AdaAttModel(AttModel):
+    use_maxout = False
+
+    # (the unexpanded beam memory of AttModel: the sentinel attention is
+    # k-aware, see core_step)
+
+    def core_init(self, device) -> nn.ModuleDict:
+        # the sentinel (input_encoding_size wide) is concatenated with the
+        # rnn_size-wide att memory: the reference design needs them equal
+        assert self.input_encoding_size == self.rnn_size, (
+            "adaatt requires input_encoding_size == rnn_size")
+        n_l = self.num_layers
+        h = self.rnn_size
+        e = self.input_encoding_size
+        a = self.att_hid_size
+        g = 5 if self.use_maxout else 4
+
+        def lin(i, o):
+            return linear_init(i, o, device=device)
+
+        p = nn.ModuleDict({
+            "w2h": lin(e, g * h), "v2h": lin(h, g * h),
+            "h2h": nn.ModuleList([lin(h, g * h) for _ in range(n_l)]),
+            "i2h": nn.ModuleList([lin(h, g * h) for _ in range(n_l - 1)]),
+            "r_h2h": lin(h, h),
+        })
+        if n_l == 1:
+            p["r_w2h"] = lin(e, h)
+            p["r_v2h"] = lin(h, h)
+        else:
+            p["r_i2h"] = lin(h, h)
+        p.update({"fr_linear": lin(h, e), "fr_embed": lin(e, a),
+                  "ho_linear": lin(h, e), "ho_embed": lin(e, a),
+                  "alpha_net": lin(a, 1), "att2h": lin(h, h)})
+        return p
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        n_l = self.num_layers
+        hsz = self.rnn_size
+        rate = self.drop_prob_lm
+        h, c = state
+        hs, cs = [], []
+        fake_region = None
+        x = xt
+        for layer in range(n_l):
+            prev_h, prev_c = h[:, layer], c[:, layer]
+            if layer == 0:
+                i2h = linear(p["w2h"], x) + linear(p["v2h"], ctx["fc"])
+            else:
+                x = dropout(hs[-1], rate, training, generator)
+                i2h = linear(p["i2h"][layer - 1], x)
+            gates = i2h + linear(p["h2h"][layer], prev_h)
+            sig = torch.sigmoid(gates[..., :3 * hsz])
+            if self.use_maxout:
+                in_t = torch.maximum(gates[..., 3 * hsz:4 * hsz],
+                                     gates[..., 4 * hsz:5 * hsz])
+            else:
+                in_t = torch.tanh(gates[..., 3 * hsz:4 * hsz])
+            c_new = sig[..., hsz:2 * hsz] * prev_c + sig[..., :hsz] * in_t
+            tanh_c = torch.tanh(c_new)
+            h_new = sig[..., 2 * hsz:3 * hsz] * tanh_c
+            if layer == n_l - 1:
+                if layer == 0:
+                    ri = linear(p["r_w2h"], x) + linear(p["r_v2h"], ctx["fc"])
+                else:
+                    ri = linear(p["r_i2h"], x)
+                n5 = ri + linear(p["r_h2h"], prev_h)
+                fake_region = torch.sigmoid(n5) * tanh_c
+            hs.append(h_new)
+            cs.append(c_new)
+        # the JAX package's order of draws: top_h, the sentinel, then the
+        # two attention heads, then the output
+        top_h = dropout(hs[-1], rate, training, generator)
+        fake_region = dropout(fake_region, rate, training, generator)
+
+        # sentinel attention over [fake_region; att slots]
+        fr = dropout(torch.relu(linear(p["fr_linear"], fake_region)), rate,
+                     training, generator)
+        fr_embed = linear(p["fr_embed"], fr)
+        ho = dropout(torch.tanh(linear(p["ho_linear"], top_h)), rate,
+                     training, generator)
+        ho_embed = linear(p["ho_embed"], ho)
+        # k-aware layout: the att memory, p_att and masks stay per image
+        # [B, ...] under beam search while the sentinel and the query are
+        # per beam [B*K, ...]; slot scores read the shared memory once per
+        # image, the sentinel score is computed apart and put in front (the
+        # reference's slot order). k == 1 is the expanded math.
+        bm = ctx["att"].shape[0]
+        k = ho.shape[0] // bm
+        fr_k = fr.reshape(bm, k, -1)
+        fr_ek = fr_embed.reshape(bm, k, -1)
+        ho_ek = ho_embed.reshape(bm, k, -1)
+        h_a = torch.tanh(ctx["p_att"][:, None] + ho_ek[:, :, None])
+        slot_scores = linear(p["alpha_net"], h_a)[..., 0]          # [B,K,N]
+        sent_score = linear(p["alpha_net"],
+                            torch.tanh(fr_ek + ho_ek))[..., 0]      # [B,K]
+        scores = torch.cat([sent_score[..., None], slot_scores], -1)
+        masks = ctx["masks"]
+        if masks is not None:
+            masks = torch.cat([torch.ones_like(masks[:, :1]), masks],
+                              1)[:, None, :]                       # [B,1,1+N]
+        pi = masked_softmax(scores, masks)
+        vis = (pi[..., :1] * fr_k
+               + torch.einsum("bkn,bnd->bkd", pi[..., 1:], ctx["att"]))
+        atten_out = vis.reshape(ho.shape[0], -1) + ho
+        out = torch.tanh(linear(p["att2h"], atten_out))
+        out = dropout(out, rate, training, generator)
+        return out, (torch.stack(hs, 1), torch.stack(cs, 1))
+
+
+class AdaAttMOModel(AdaAttModel):
+    use_maxout = True
 
 
 # ---------------------------------------------------------------------------
@@ -359,3 +759,57 @@ class DenseAttModel(StackAttModel):
             linear(p["fusion2"], torch.cat([h0d, h1d, h2d], -1))),
             self.drop_prob_lm, training, generator)
         return out, (torch.stack([*hs, h2], 1), torch.stack([*cs, c2], 1))
+
+
+# ---------------------------------------------------------------------------
+# ShowAttendTell (the reference's legacy OldModel family)
+# ---------------------------------------------------------------------------
+
+class ShowAttendTellModel(AttModel):
+    """Legacy show-attend-tell: the fc feats give the initial hidden state
+    (h = c = img_linear(fc)); attention over the raw att feats; a stacked
+    LSTM over [word; att_res]."""
+
+    def extra_init(self, device) -> None:
+        self.img_linear = linear_init(self.fc_feat_size,
+                                      self.num_layers * self.rnn_size,
+                                      device=device)
+
+    @property
+    def att_identity(self) -> bool:
+        return True
+
+    @property
+    def embed_plain(self) -> bool:
+        return True
+
+    def make_decoder(self, feats: Features, *, training: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     aux_out: Optional[dict] = None):
+        ctx, _ = super().make_decoder(feats, training=training,
+                                      generator=generator)
+        img = linear(self.img_linear, feats.fc_feats).reshape(
+            feats.fc_feats.shape[0], self.num_layers, self.rnn_size)
+        return ctx, (img, img)
+
+    def core_init(self, device) -> nn.ModuleDict:
+        return nn.ModuleDict({
+            "lstm": rnn.init_stacked_lstm(
+                self.num_layers, self.input_encoding_size + self.att_feat_size,
+                self.rnn_size, device=device),
+            "attention": attention_init(self.rnn_size, self.att_hid_size,
+                                        device=device),
+        })
+
+    def core_step(self, xt, ctx, state, *, training, generator):
+        p = self.core
+        h, c = state
+        att_res = attention_apply(p["attention"], h[:, -1], ctx["att"],
+                                  ctx["p_att"], ctx["masks"],
+                                  training=training)
+        top, hs, cs = rnn.stacked_lstm_step(
+            p["lstm"], torch.cat([xt, att_res], -1), h.transpose(0, 1),
+            c.transpose(0, 1), generator=generator if training else None,
+            dropout=self.drop_prob_lm)
+        out = dropout(top, self.drop_prob_lm, training, generator)
+        return out, (hs.transpose(0, 1), cs.transpose(0, 1))

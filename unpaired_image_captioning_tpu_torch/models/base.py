@@ -62,18 +62,21 @@ class Linear(nn.Module):
     """`x @ w + b` with the JAX layout: w [in, out], b [out] (or no b)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
-                 device=None):
+                 scale: Optional[float] = None, device=None):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
+        self.scale = scale
         self.w = nn.Parameter(torch.empty((in_dim, out_dim), device=device))
         self.b = (nn.Parameter(torch.empty((out_dim,), device=device))
                   if bias else None)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
-        """w ~ uniform(-1/sqrt(in), 1/sqrt(in)), b = 0, as linear_init."""
-        self.w.copy_(uniform(self.w.shape, 1.0 / math.sqrt(self.in_dim),
-                             generator))
+        """w ~ uniform(-s, s) with s = `scale`, by default 1/sqrt(in), and
+        b = 0, as linear_init."""
+        scale = (self.scale if self.scale is not None
+                 else 1.0 / math.sqrt(self.in_dim))
+        self.w.copy_(uniform(self.w.shape, scale, generator))
         if self.b is not None:
             self.b.zero_()
 
@@ -82,8 +85,8 @@ class Linear(nn.Module):
 
 
 def linear_init(in_dim: int, out_dim: int, *, bias: bool = True,
-                device=None) -> Linear:
-    return Linear(in_dim, out_dim, bias=bias, device=device)
+                scale: Optional[float] = None, device=None) -> Linear:
+    return Linear(in_dim, out_dim, bias=bias, scale=scale, device=device)
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
@@ -167,7 +170,11 @@ class CaptionDecoder(nn.Module):
 
     def step(self, ctx, state, it, *, training: bool = False,
              generator: Optional[torch.Generator] = None):
-        raise NotImplementedError
+        """One decode step: (logprobs [B, V+1], new state), the head over
+        `step_core`'s hidden."""
+        h, state = self.step_core(ctx, state, it, training=training,
+                                  generator=generator)
+        return self.head(h, training=training, generator=generator), state
 
     def step_core(self, ctx, state, it, *, training: bool = False,
                   generator: Optional[torch.Generator] = None):
@@ -196,7 +203,8 @@ class CaptionDecoder(nn.Module):
                 training: bool = False,
                 generator: Optional[torch.Generator] = None,
                 ss_prob: float = 0.0,
-                ss_enabled: Optional[bool] = None) -> torch.Tensor:
+                ss_enabled: Optional[bool] = None,
+                aux_out: Optional[dict] = None) -> torch.Tensor:
         """Teacher-forcing forward.
 
         seq: [B, L] caption labels incl. the leading BOS(0) column. Returns
@@ -209,14 +217,19 @@ class CaptionDecoder(nn.Module):
         `generator`, and no coin is thrown at t = 0 (the BOS input stays).
         This is the JAX package's non-hoisted body; without it the head is
         hoisted out of the time loop (the split-head path).
+
+        aux_out: a dict the forward fills with detached side statistics
+        (the `use_bn` batch moments, for `att.apply_bn_updates`); passed to
+        `make_decoder` only when given.
         """
         if ss_enabled is None:
             ss_enabled = ss_prob > 0
         use_ss = training and ss_enabled
         if use_ss and generator is None:
             raise ValueError("scheduled sampling draws from a generator")
+        mk = {} if aux_out is None else {"aux_out": aux_out}
         ctx, state = self.make_decoder(feats, training=training,
-                                       generator=generator)
+                                       generator=generator, **mk)
         if not use_ss:
             hs = []
             for t in range(seq.shape[1] - 1):

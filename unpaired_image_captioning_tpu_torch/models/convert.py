@@ -22,9 +22,8 @@ All inputs are numpy-valued state dicts (load with
 `torch.load(..., map_location='cpu')` then `.numpy()` per tensor). The
 output is the JAX package's parameter tree, with float32 numpy leaves:
 `bridge.params_from_jax(tree)` is the state dict of the port's module.
-The families the port cannot build yet (fc, topdown, att2in*, adaatt,
-show_tell, show_attend_tell, all_img, stackcap: ROADMAP A10; the fork
-transformer: A12) convert all the same.
+The fork transformer, which the port cannot build yet (ROADMAP A12),
+converts all the same.
 """
 
 from __future__ import annotations

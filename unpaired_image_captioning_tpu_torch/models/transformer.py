@@ -5,7 +5,10 @@ A pre-norm "Attention is All You Need" stack: N = `num_layers` layers,
 d_model = `input_encoding_size`, d_ff = `rnn_size`, `num_heads` heads; the
 att features are embedded by `att_embed` + ReLU and pass through the
 encoder; the word embedding is scaled by sqrt(d_model) and a sinusoid
-positional encoding is added. `use_bn` is not ported (ROADMAP A10).
+positional encoding is added. `use_bn` puts BatchNorm around `att_embed`
+as in the LSTM family (`att.batch_norm`: batch moments over the real
+slots in training, collected in `aux_out`; the running statistics
+otherwise).
 
 Training (`forward(..., training=True, generator=...)`) has three routes,
 chosen by two module flags read at call time, as in the JAX module:
@@ -55,6 +58,7 @@ from ..kernels.transformer_decode import (decoder_layer_step,
 from ..ops.transformer_decode import (NEG, cross_attend, layer_norm_plain,
                                       pack_layer_weights, pack_stack_weights,
                                       src_mask_2d)
+from .att import BatchNorm, batch_norm
 from .base import (CaptionDecoder, Features, dropout, init_module, linear,
                    linear_init)
 
@@ -284,9 +288,6 @@ class TransformerModel(CaptionDecoder):
                          rnn_size=rnn_size, num_layers=num_layers,
                          drop_prob_lm=drop_prob_lm, seq_length=seq_length,
                          fc_feat_size=fc_feat_size)
-        if use_bn:
-            raise NotImplementedError(
-                "use_bn BatchNorm is not ported yet (ROADMAP A10)")
         d = input_encoding_size
         if d % num_heads:
             raise ValueError(f"d_model {d} is not divisible by {num_heads} "
@@ -295,7 +296,13 @@ class TransformerModel(CaptionDecoder):
         self.att_hid_size = att_hid_size
         self.logit_layers = logit_layers
         self.num_heads = num_heads
+        self.use_bn = use_bn
         self.att_embed = linear_init(att_feat_size, d, device=device)
+        # use_bn: BatchNorm around att_embed as in the LSTM family
+        if use_bn:
+            self.bn0 = BatchNorm(att_feat_size, device=device)
+        if use_bn == 2:
+            self.bn1 = BatchNorm(d, device=device)
         self.tgt_embed = nn.Parameter(torch.empty((vocab_size + 1, d),
                                                   device=device))
         self.generator = linear_init(d, vocab_size + 1, device=device)
@@ -329,9 +336,17 @@ class TransformerModel(CaptionDecoder):
 
     # ---- encoder ----
     def encode(self, feats: Features, *, training: bool = False,
-               generator: Optional[torch.Generator] = None):
-        x = dropout(torch.relu(linear(self.att_embed, feats.att_feats)),
+               generator: Optional[torch.Generator] = None,
+               aux_out: Optional[dict] = None):
+        att = feats.att_feats
+        if self.use_bn:
+            att = batch_norm(self.bn0, att, training, mask=feats.att_masks,
+                             aux_out=aux_out, key="bn0")
+        x = dropout(torch.relu(linear(self.att_embed, att)),
                     self.drop_prob_lm, training, generator)
+        if self.use_bn == 2:
+            x = batch_norm(self.bn1, x, training, mask=feats.att_masks,
+                           aux_out=aux_out, key="bn1")
         src_mask = (feats.att_masks[:, None, :] > 0
                     if feats.att_masks is not None else None)   # [B, 1, N]
         for lp in self.enc:
@@ -342,12 +357,14 @@ class TransformerModel(CaptionDecoder):
     # ---- parallel teacher forcing ----
     def forward(self, feats: Features, seq: torch.Tensor, *,
                 training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                aux_out: Optional[dict] = None) -> torch.Tensor:
         """Full parallel decode with causal + pad mask. seq [B, L] with the
         leading BOS column; returns logprobs [B, L-1, V+1]. In training,
-        dropout draws from `generator` (none without one)."""
+        dropout draws from `generator` (none without one), and `aux_out`
+        takes the `use_bn` batch moments."""
         memory, src_mask = self.encode(feats, training=training,
-                                       generator=generator)
+                                       generator=generator, aux_out=aux_out)
         seq_in = seq[:, :-1]
         t = seq_in.shape[1]
         d = self.d_model

@@ -10,7 +10,7 @@ Two beams with different semantics, both selecting on the step's natural
   and its live score becomes exactly -1000 (a selectable "dead slot"),
   every live beam is recorded at the last step, and the loop exits early
   once every live beam is dead. Only one group (`group_size == 1`); diverse
-  groups are ROADMAP A4.
+  groups are ROADMAP A10.
 - `onmt_beam_search`, the NMT beam: rows that emit EOS keep extending, a
   sentence finishes when EOS is at the top of its beam and then freezes,
   and the result rows are the final beam rows by score, optionally
@@ -64,10 +64,17 @@ def _first_leaf(tree) -> torch.Tensor:
 
 def _expand_to_beams(tree, beam_size: int, no_expand=()):
     """[B, ...] -> [B*K, ...] with row b*K+k = row b. Top-level dict keys in
-    `no_expand` stay at [B, ...] (memories shared by the K beams)."""
+    `no_expand` stay at [B, ...] (memories shared by the K beams). An
+    ensemble's ctx is a tuple of member ctxs with a tuple of member
+    `no_expand`s; a member ctx of None stays None."""
     def expand(x):
         return x.repeat_interleave(beam_size, dim=0) if x.dim() >= 1 else x
 
+    if (isinstance(tree, tuple) and no_expand
+            and all(isinstance(ne, (tuple, list)) for ne in no_expand)):
+        # an ensemble: a tuple of member ctxs, each with its own no_expand
+        return tuple(_expand_to_beams(t, beam_size, no_expand=ne)
+                     for t, ne in zip(tree, no_expand))
     if isinstance(tree, dict) and no_expand:
         return {k: (v if k in no_expand else tree_map(expand, v))
                 for k, v in tree.items()}
@@ -126,7 +133,7 @@ def beam_search(
     if group_size != 1:
         raise NotImplementedError(
             "diverse beam groups (group_size > 1) are not ported yet "
-            "(ROADMAP A4)")
+            "(ROADMAP A10)")
     K = beam_size
     T = seq_length
 

@@ -45,8 +45,14 @@ dropout masks and SCST samples as an uninterrupted one. Pretrained NMT
 word vectors (`pre_word_vecs_enc` / `_dec`, `.npy` or `.npz` with
 `embedding`) overwrite the BiLSTM NMT's word tables at construction.
 `profile` runs training steps under `torch.profiler` and writes a Chrome
-trace (JAX writes a TensorBoard trace). Not ported yet: `use_bn`
-(ROADMAP A10, raised by the model).
+trace (JAX writes a TensorBoard trace).
+
+With `use_bn`, the XE forward collects the batch moments of its BatchNorms
+and the step blends them into the running statistics after the
+captioner's update (`models/att.py::apply_bn_updates`), as the JAX step
+does; the running `mean` / `var` are parameters there too (see the
+model's doc). StackCap's forward returns three heads: the XE loss sums
+them, and the SCST recompute reads the last.
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ from .. import models as model_zoo
 from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
                                 reward_loss, weight_trans_loss)
 from ..losses.rewards import get_self_critical_reward
+from ..models.att import apply_bn_updates
 from ..models.base import Features, resolve_device
 from ..models.nmt_transformer import TransformerNMTModel, make_nmt_model
 from ..models.transformer import TransformerModel
@@ -227,6 +234,8 @@ class Trainer:
                 bleu_weight=cfg.bleu_reward_weight)
         seq_full = torch.cat([torch.zeros_like(gen[:, :1]), gen], 1)
         out = self.i2t_model.forward(feats, seq_full, training=False)
+        if isinstance(out, list):
+            out = out[-1]   # stackcap: the final head drives decoding
         logps = torch.gather(out, -1, gen[..., None])[..., 0]
         return reward_loss(logps, gen, adv), rs
 
@@ -251,6 +260,9 @@ class Trainer:
             for p in (params or {}).values():
                 p.grad = None
         terms = []
+        # use_bn: the XE forward collects the batch moments here, and they
+        # are blended into the running statistics after the update
+        bn_aux = None
         if train_i2t:
             batch = self._batch(data)
             feats = Features(fc_feats=batch["fc_feats"],
@@ -273,6 +285,8 @@ class Trainer:
                 # the transformer takes no scheduled sampling, as in JAX
                 ss = ({} if isinstance(self.i2t_model, TransformerModel)
                       else {"ss_prob": ss_prob})
+                if hasattr(self.i2t_model, "bn0"):
+                    bn_aux = ss["aux_out"] = {}
                 out = self.i2t_model.forward(feats, batch["labels"],
                                              training=True,
                                              generator=self.generator, **ss)
@@ -290,6 +304,8 @@ class Trainer:
                     self.optim.i2t_state = self._update(
                         i2t_params, self.optim.i2t_tx, self.optim.i2t_state,
                         lr_i2t)
+                    if bn_aux:
+                        apply_bn_updates(self.i2t_model, bn_aux)
                 if train_nmt:
                     self.optim.nmt_state = self._update(
                         nmt_params, self.optim.nmt_tx, self.optim.nmt_state,
