@@ -195,6 +195,26 @@ run dir through `cli.eval_paired --bn_calibrate 2`, one transformer use_bn
 off. Its B1 and B2 launches join the kernels line, and every shape it
 gives them must be one the checks hold.
 
+Then diverse beam groups and the NMT extras (`phase_nmt_extras`, ROADMAP
+A10 and A11): B1 at the NMT's cells without input feed (G=4 512 -> 512 at
+2 to 750 rows), NMTImageEncoder's (2,048 -> 256 at 16 rows) and the
+denseatt's at beam 6, and B2 at the grouped rows ([50, 18,976] k=2) and the
+extended copy vocab ([750, 8,587] k=15), against their plain versions (B4
+at the transformer's diverse beams among the decoder step's shapes); diverse
+groups on denseatt (beam 6 in 3 groups) and the transformer captioner
+(beam 4 in 2), batch 50 timed and 4 images card vs CPU; the LSTM pivot's
+NMT in four variants (copy + context gate + coverage + positional encoding
++ shared embeddings; constrained softmax with predicted fertility and two
+source features; constrained sparsemax with guided fertility, mlp
+attention, no input feed and coverage feedback; sparsemax), each with
+teacher-forced logprobs and a beam-15 translation of 4 sentences card vs
+CPU, a batch-50 translation, one `Trainer.train` step card vs CPU and one
+at batch 50; NMTImageEncoder on a [16, 14, 14, 2,048] grid card vs CPU;
+the copy model behind `pivot_translate` (images/s beside the plain NMT's),
+`eval_split_coco_unpaired(src2tgt=...)` and `cli.translate -copy_mode
+extended` / `fold`. Its B1, B2 and B4 launches join the kernels line, and
+every shape it gives them must be one the checks hold.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -432,6 +452,12 @@ TFD_SHAPES = [
      1, False),
     ("one head of 6,000 over 500 slots", 2, 2, 2, 8, 500, 6000, 64, 1,
      True),
+    # diverse beam groups on the transformer captioner (beam 4 in 2 groups,
+    # time-staggered rows) over 50 and 4 images (phase_nmt_extras)
+    ("caption beam 4 x 50, diverse groups", 50, 4, 6, 16, 196, 512, 512, 8,
+     False),
+    ("caption beam 4 x 4, diverse groups", 4, 4, 6, 16, 196, 512, 512, 8,
+     False),
 ]
 # (B, beams, S, T, heads, d_ff) of the `--times tfd` reading of the first
 # head width the step refuses (none: every width runs)
@@ -1236,14 +1262,20 @@ def build_models(dev):
         torch.Generator().manual_seed(0))
     cap.eval()
     nmt.eval()
-    v, src_v = CAP["vocab_size"], NMT["src_vocab_size"]
+    v = CAP["vocab_size"]
     zh_vocab = {str(i): f"zh{i}" for i in range(1, v + 1)}
     tgt_itos = {i: f"en{i}" for i in range(NMT["tgt_vocab_size"])}
-    # caption id -> NMT source id: PAD for 0, UNK (1) for every 50th word
+    return cap, nmt, zh_vocab, tgt_itos, _cap2nmt()
+
+
+def _cap2nmt() -> np.ndarray:
+    """The caption id -> NMT source id map: PAD for 0, UNK (1) for every
+    50th word."""
+    v, src_v = CAP["vocab_size"], NMT["src_vocab_size"]
     cap2nmt = np.zeros((v + 1,), np.int64)
     ids = np.arange(1, v + 1)
     cap2nmt[1:] = np.where(ids % 50 == 0, 1, 4 + (ids - 1) % (src_v - 4))
-    return cap, nmt, zh_vocab, tgt_itos, cap2nmt
+    return cap2nmt
 
 
 def make_features(rs, n: int):
@@ -3537,11 +3569,6 @@ def phase_nmt_train_agreement(dev, joint: bool) -> None:
     within TRAIN_TOL * max(1, max|p|), and every parameter that the step
     changes on the CPU must change on the card (the first such check of the
     G=4 LSTM cell's gradient)."""
-    import torch
-
-    from unpaired_image_captioning_tpu_torch.config import Config
-    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
-
     base = JOINT_TRAIN if joint else NMT_TRAIN
     cfg = dict(base, batch_size=2, dropout=0.0, drop_prob_lm=0.0,
                i2t_optim="sgd", i2t_learning_rate=1.0, nmt_optim="sgd",
@@ -3549,6 +3576,19 @@ def phase_nmt_train_agreement(dev, joint: bool) -> None:
     rs = np.random.RandomState(4)
     batch = make_joint_batch(rs, 2) if joint else make_nmt_batch(rs, 2)
     kw = joint_trainer_kw(cfg) if joint else {}
+    _step_agreement(dev, cfg, batch, kw, "joint denseatt + BiLSTM NMT"
+                    if joint else "BiLSTM NMT")
+
+
+def _step_agreement(dev, cfg: dict, batch: dict, kw: dict,
+                    label: str) -> None:
+    """One `Trainer.train` step of `cfg` on `batch` on the card and on the
+    CPU from the same initial weights, held as
+    `phase_nmt_train_agreement` says."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
     def state(trainer):
         return {f"{name}.{k}": v.detach().cpu().clone()
@@ -3575,11 +3615,11 @@ def phase_nmt_train_agreement(dev, joint: bool) -> None:
     cpu_moved = [k for k in pc if not torch.equal(pc[k], p0c[k])]
     frozen = [k for k in cpu_moved if torch.equal(pg[k], p0g[k])]
     still = sorted(set(pc) - set(cpu_moved))
-    label = "joint denseatt + BiLSTM NMT" if joint else "BiLSTM NMT"
     terms = ", ".join(f"{k} {og[k]:.6f} vs {oc[k]:.6f}" for k in (
         "i2t_loss", "nmt_loss", "wemb_loss", "wemb_y_loss", "nmt_kld")
         if k in oc)
-    log(f"training agreement [{label}]: card vs cpu, one step on 2, dropout "
+    log(f"training agreement [{label}]: card vs cpu, one step on "
+        f"{cfg['batch_size']}, dropout "
         f"0: loss {og['total_loss']:.6f} vs {oc['total_loss']:.6f} (relative "
         f"{loss_err:.3g}; {terms}); updated parameters max|diff| / max(1, "
         f"max|p|) {worst:.3g} at {worst_key} (tol {TRAIN_TOL}); the step "
@@ -5863,22 +5903,31 @@ B9_FLAGS = dict(STEP_FUSION=True, BEAMS_KERNEL=True, SINGLE_KERNEL=True,
                 TRAIN_KERNEL=True)
 
 
-def _family_cells(dev) -> tuple:
+def _family_cells(dev, cell_rows=None, topk_shapes=FAMILY_TOPK,
+                  timed=None, topk_timed=None, special=None,
+                  seed: int = 18) -> tuple:
     """B1 at each FAMILY_CELLS shape and FAMILY_ROWS row count against the
     plain cell, forward and backward (the Function's backward: the gates
     recomputed by the plain version, then autodiff), and B2 at
-    FAMILY_TOPK, exact; the cells timed at FAMILY_TIMED_ROWS. Returns (the
+    FAMILY_TOPK, exact; the cells timed at FAMILY_TIMED_ROWS. Another
+    phase passes its own `cell_rows` [(label, D, H, maxout, rows)],
+    `topk_shapes`, the (B, D, H) it times (`timed`) and the (R, V, k) of
+    the top-k rows it times (`topk_timed`, all when None). Returns (the
     cells' records, the top-k records)."""
     import torch
 
     from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
     from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
 
-    gen = torch.Generator(device=dev).manual_seed(18)
+    if cell_rows is None:
+        cell_rows = [c + (FAMILY_ROWS,) for c in FAMILY_CELLS]
+        timed = {(b, d, h) for _, d, h, _ in FAMILY_CELLS
+                 for b in FAMILY_TIMED_ROWS}
+    gen = torch.Generator(device=dev).manual_seed(seed)
     cells, worst = [], 0.0
-    for label, d, h, maxout in FAMILY_CELLS:
+    for label, d, h, maxout, rows in cell_rows:
         g = 5 if maxout else 4
-        for b in FAMILY_ROWS:
+        for b in rows:
             scale = 1.0 / h ** 0.5
             w = (torch.rand((d + h, g * h), generator=gen, device=dev) * 2
                  - 1) * scale
@@ -5904,7 +5953,7 @@ def _family_cells(dev) -> tuple:
             worst = max(worst, fwd)
             row = dict(label=f"{label}, {b} rows", shape=f"G={g} [{b}, "
                        f"{d}->{h}]", err=fwd, backward_err=bwd)
-            if b in FAMILY_TIMED_ROWS:
+            if (b, d, h) in timed:
                 with torch.no_grad():
                     k_ms, p_ms, k_wall, p_wall, how = time_pair(
                         lambda: lk.lstm_cell(w, bias, x, h0, c0,
@@ -5939,15 +5988,21 @@ def _family_cells(dev) -> tuple:
                        if lib_ms is not None else "none (maxout cell)")
                     + f"; plan {lk.plan(b, d, h)}")
             cells.append(row)
-    log(f"kernel lstm_cell at the families' {len(cells)} shapes "
-        f"({len(FAMILY_CELLS)} cells x rows {FAMILY_ROWS}): forward max|diff| "
+    log(f"kernel lstm_cell at {len(cells)} shapes ("
+        + "; ".join(f"{c[0]} x rows {c[4]}" for c in cell_rows)
+        + f"): forward max|diff| "
         f"{worst:.3g} (tol {LSTM_TOL}), backward max|diff| / max(1, "
         f"max|plain|) {max(r['backward_err'] for r in cells):.3g} (tol "
         f"{ATT_TOL})")
     topk = []
-    for label, r, v, k, x in _topk_cases(dev, FAMILY_TOPK, _few_beam_rows):
+    for label, r, v, k, x in _topk_cases(dev, topk_shapes,
+                                         special or _few_beam_rows):
         got, want = tk.row_topk(x, k), tk.row_topk_plain(x, k)
         _same_topk(f"row_topk {label}", got, want)
+        if topk_timed is not None and (r, v, k) not in topk_timed:
+            topk.append(dict(label=label, shape=f"[{r}, {v}] k={k}"))
+            log(f"kernel row_topk [{r}, {v}] k={k} ({label}): exact")
+            continue
         k_ms, p_ms, _, _, how = time_pair(lambda: tk.row_topk(x, k),
                                           lambda: tk.row_topk_plain(x, k),
                                           "topk_select_kernel")
@@ -6433,6 +6488,568 @@ def phase_families(dev) -> tuple:
     return ({k: totals[k] for k in ("lstm_cell", "row_topk")}, cells, topk)
 
 
+# ---------------------------------------------------------------------------
+# diverse beam groups and the NMT extras (ROADMAP A10, A11)
+# ---------------------------------------------------------------------------
+
+# the NMT extras on the LSTM pivot's NMT (NMT: src 11,986, tgt 8,571, 512
+# wide, BiLSTM, beam 15, 20 steps), each variant a fresh model from seed 0
+NMTX_VARIANTS = [
+    ("a: copy attention, context gate both, coverage, positional encoding, "
+     "shared decoder embeddings",
+     dict(copy_attn=True, context_gate="both", coverage_attn=True,
+          position_encoding=True, share_decoder_embeddings=True)),
+    ("b: constrained_softmax, c_attn 0.2, predicted fertility, source "
+     "features of 50 and 8 values",
+     dict(attn_transform="constrained_softmax", c_attn=0.2,
+          predict_fertility=True, src_feature_sizes=(50, 8),
+          feature_vec_size=100)),
+    ("c: constrained_sparsemax with guided fertility, mlp attention, no "
+     "input feed, coverage feedback",
+     dict(attn_transform="constrained_sparsemax", attention_type="mlp",
+          input_feed=0, coverage_attn=True, coverage_feed=True)),
+    ("d: sparsemax", dict(attn_transform="sparsemax")),
+]
+NMTX_AGREE = 4          # sentences decoded card vs CPU
+NMTX_LINES = 100        # seeded lines through cli.translate
+NMTX_EVAL_IMAGES = 10   # images through eval_split_coco_unpaired
+NMTX_SHARED = 2000      # source words whose label the target dict shares
+# diverse beam groups: (family, beam, groups) at lambda 0.5
+DIVERSE = [("denseatt", 6, 3), ("transformer", 4, 2)]
+DIVERSE_LAMBDA = 0.5
+# the extended copy vocab: the target's plus one slot a source position
+# (16: the pivot's caption length, and the longest seeded line)
+EXT_V = NMT["tgt_vocab_size"] + NMT_SRC_LEN
+# (label, D, H, maxout, rows): the cells the phase gives B1 (the NMT's at
+# its agreement batches 2 and 4, batch 50, beam 15 over 4 and 50
+# sentences; NMTImageEncoder's; denseatt's diverse beams over 4 and 50
+# images)
+NMTX_CELLS = [
+    ("nmt encoder, per direction", 512, 256, False, (2, 4, 50)),
+    ("nmt decoder, input feed", 1024, 512, False, (2, 4, 50, 60, 750)),
+    ("nmt decoder, no input feed", 512, 512, False, (2, 4, 50, 60, 750)),
+    ("NMTImageEncoder, per direction", 2048, 256, False, (16,)),
+    ("denseatt lstm0/1/2, diverse beam 6", 1024, 512, True, (24, 300)),
+]
+NMTX_TIMED_CELLS = {(50, 512, 512), (750, 512, 512), (16, 2048, 256),
+                    (300, 1024, 512)}
+# (label, R, V, k): the grouped selections (bd = 2 beams x 9,488 a row of
+# an image) and the extended vocab's rows
+NMTX_TOPK = [
+    ("diverse groups, 2 x 9,488 over 50 images", 50, 2 * 9488, 2),
+    ("diverse groups, 2 x 9,488 over 4 images", 4, 2 * 9488, 2),
+    ("extended copy vocab, beam 15 x 50", 750, EXT_V, 15),
+    ("extended copy vocab, beam 15 x 10", 150, EXT_V, 15),
+    ("extended copy vocab, beam 15 x 4", 60, EXT_V, 15),
+]
+NMTX_TIMED_TOPK = {(50, 2 * 9488, 2), (750, EXT_V, 15)}
+NMTX_IMAGE_GRID = (16, 14, 14, 2048)
+# the output layer's scale in the beams held token for token card vs CPU:
+# random full-width weights leave the best candidates of a step within f32
+# noise of each other (run 1 of PR 19: denseatt's diverse beams on 4 images
+# parted there), so the held decodes use the model with its output weights
+# times AGREE_SHARPEN, whose choices stand far above that noise; the model
+# as drawn is compared too, for information
+AGREE_SHARPEN = 30.0
+
+
+def _group_rows(x, k: int) -> None:
+    """The beam rows of `_few_beam_rows` where x has 12 rows or more; else
+    exact ties, a row whose second half is a masked beam (-1e10, a group's
+    local step 0), an all -inf row."""
+    if x.shape[0] >= 12:
+        _few_beam_rows(x, k)
+        return
+    x[0] = (x[0] * 2).round() / 2
+    x[1, x.shape[1] // 2:] = -1e10
+    x[2] = float("-inf")
+
+
+def _nmtx_dicts():
+    """Seeded source and target dicts at NMT's sizes: source words zh1 ..,
+    target words en.., the first NMTX_SHARED source labels shared by the
+    target dict (Dict.align maps them; the others copy through the
+    extended vocab)."""
+    from unpaired_image_captioning_tpu_torch import constants as C
+    from unpaired_image_captioning_tpu_torch.vocab import Dict
+
+    specials = [C.PAD_WORD, C.UNK_WORD, C.BOS_WORD, C.EOS_WORD]
+    src = Dict(specials + [f"zh{i}" for i in range(
+        1, NMT["src_vocab_size"] - 3)])
+    tgt = Dict(specials + [f"zh{i}" if i <= NMTX_SHARED else f"en{i}"
+                           for i in range(1, NMT["tgt_vocab_size"] - 3)])
+    return src, tgt
+
+
+def _sharpen(model) -> None:
+    """Scale `model`'s output weights by AGREE_SHARPEN in place (the
+    captioners' logit layer, the NMT's generator or, shared, its target
+    table)."""
+    import torch
+
+    with torch.no_grad():
+        if hasattr(model, "logit"):
+            model.logit[-1].w.mul_(AGREE_SHARPEN)
+        elif getattr(model, "share_decoder_embeddings", False):
+            model.tgt_embedding().mul_(AGREE_SHARPEN)
+        else:
+            model.generator.w.mul_(AGREE_SHARPEN)
+
+
+def _beams_agree(got, want) -> tuple:
+    """(tokens identical, scores max|diff| / max(1, max|score|)) of a card
+    and a CPU BeamResult, and a note on the first differing token."""
+    import torch
+
+    gs, ws = got.seq.cpu(), want.seq
+    same = torch.equal(gs, ws)
+    gsc = got.scores.cpu()
+    err = ((gsc - want.scores).abs().max().item()
+           / max(1.0, want.scores.abs().max().item()))
+    note = ""
+    if not same:
+        b, k, t = (int(v) for v in (gs != ws).nonzero()[0])
+        note = (f"; first difference image {b} beam {k} step {t}: "
+                f"{int(gs[b, k, t])} vs {int(ws[b, k, t])}, per-token "
+                f"logprob {got.logps[b, k, t].item():.6g} vs "
+                f"{want.logps[b, k, t].item():.6g}")
+    return same, err, note
+
+
+def _nmtx_diverse(dev, cap_dense) -> dict:
+    """Diverse beam groups on the denseatt (CAP, beam 6 in 3 groups) and
+    the transformer captioner (TCAP, beam 4 in 2 groups) at lambda 0.5: one
+    batch-50 call each on the card (timed), and 4 images card vs CPU with
+    the output layer sharpened (AGREE_SHARPEN): tokens identical and
+    scores within TRAIN_TOL * max(1, max|score|). Returns the walls
+    (ms)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.models.transformer import (
+        TransformerModel)
+
+    walls = {}
+    for name, beam, groups in DIVERSE:
+        if name == "denseatt":
+            card = cap_dense
+            cpu = type(card)(**CAP, device="cpu")
+            cpu.load_state_dict(card.state_dict())
+        else:
+            cpu = TransformerModel(**TCAP, device="cpu").init_params(
+                torch.Generator().manual_seed(0))
+            card = TransformerModel(**TCAP, device=dev)
+            card.load_state_dict(cpu.state_dict())
+        cpu.eval()
+        card.eval()
+        fc, att = make_features(np.random.RandomState(19), BENCH_BATCH)
+
+        def feats(n, device):
+            return Features(fc_feats=torch.from_numpy(fc[:n]).to(device),
+                            att_feats=torch.from_numpy(att[:n]).to(device))
+
+        kw = dict(beam_size=beam, group_size=groups,
+                  diversity_lambda=DIVERSE_LAMBDA)
+        with torch.inference_mode():
+            f50 = feats(BENCH_BATCH, dev)
+            card.sample_beam(f50, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = card.sample_beam(f50, **kw)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+            drawn = _beams_agree(
+                card.sample_beam(feats(NMTX_AGREE, dev), **kw),
+                cpu.sample_beam(feats(NMTX_AGREE, "cpu"), **kw))
+            drawn_w = card.state_dict()
+            for m in (card, cpu):
+                _sharpen(m)
+            same, err, note = _beams_agree(
+                card.sample_beam(feats(NMTX_AGREE, dev), **kw),
+                cpu.sample_beam(feats(NMTX_AGREE, "cpu"), **kw))
+            card.load_state_dict({k: v.clone() for k, v in drawn_w.items()})
+        bd = beam // groups
+        first = res.seq[:, ::bd, 0]                   # each group's best
+        split = int((first != first[:, :1]).any(1).sum())
+        log(f"diverse beams [{name}, beam {beam} in {groups} groups, lambda "
+            f"{DIVERSE_LAMBDA}]: batch {BENCH_BATCH} host wall "
+            f"{walls[name]:.1f} ms ({len(res.seq[0, 0])} steps + "
+            f"{groups - 1} stagger); {split} of {BENCH_BATCH} images' groups "
+            f"start on different words; {NMTX_AGREE} images card vs cpu, "
+            f"output x{AGREE_SHARPEN:g}: tokens identical {same}, scores "
+            f"max|diff| / max(1, max|score|) {err:.3g} (tol {TRAIN_TOL})"
+            f"{note}; as drawn (information): tokens identical {drawn[0]}, "
+            f"scores {drawn[1]:.3g}{drawn[2]}")
+        if not (same and err <= TRAIN_TOL and split
+                and torch.isfinite(res.scores).all()):
+            raise AssertionError(f"diverse beams [{name}] on the card")
+        if name != "denseatt":
+            del card
+        del cpu
+    torch.cuda.empty_cache()
+    return walls
+
+
+def _nmtx_inputs(rs, opts: dict, n: int) -> dict:
+    """An NMT batch of `n` sentences (`make_nmt_batch`), with the source
+    features the variant takes (random values, PAD at PAD) and, for the
+    guided variant, the fertility of each source position from a table that
+    `utils/fertility` folds from seeded alignment lines."""
+    from unpaired_image_captioning_tpu_torch.utils import fertility
+
+    nb = make_nmt_batch(rs, n)["nmt"]
+    src = nb["src"]
+    extra = {}
+    if opts.get("src_feature_sizes"):
+        feats = np.stack([rs.randint(1, m, src.shape) for m in
+                          opts["src_feature_sizes"]], -1)
+        feats[src == 0] = 0
+        extra["src_feats"] = feats
+    if opts.get("attn_transform") == "constrained_sparsemax":
+        lines = [" ".join(f"{rs.randint(0, l)}-{j}" for j in range(
+            rs.randint(1, l + 1))) for l in nb["lengths"]]
+        table = fertility.alignment_fertilities(
+            lines, [list(r[:l]) for r, l in zip(src, nb["lengths"])],
+            NMT["src_vocab_size"])
+        extra["src_fertilities"] = fertility.batch_fertilities(table, src)
+    return dict(nb, **extra)
+
+
+def _nmtx_variant(dev, label: str, opts: dict, s2t) -> float:
+    """One NMT variant on the card: teacher-forced logprobs of NMTX_AGREE
+    sentences and their beam-15 translation card vs CPU (within AGREE_TOL;
+    tokens identical), a timed batch-50 translation at beam 15, one
+    `Trainer.train` step card vs CPU on 2 sentences (`_step_agreement`;
+    variant b's batch carries its features) and one on the card at batch
+    50. Returns the batch-50 translation's host wall (ms)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    cpu = NMTModel(**NMT, **opts, device="cpu").init_params(
+        torch.Generator().manual_seed(0)).eval()
+    card = NMTModel(**NMT, **opts, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    batch = _nmtx_inputs(np.random.RandomState(21), opts, BENCH_BATCH)
+    copy = {"src2tgt": s2t} if opts.get("copy_attn") else {}
+
+    def up(n, device):
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.asarray(v[:n]))
+            out[k] = (t.float() if t.is_floating_point() else t.long()).to(
+                device)
+        return out
+
+    def extra(b):
+        return {k: b[k] for k in ("src_feats", "src_fertilities") if k in b}
+
+    res = {}
+    with torch.inference_mode():
+        for name, model, device in (("gpu", card, dev), ("cpu", cpu, "cpu")):
+            b = up(NMTX_AGREE, device)
+            outs = model.forward(b["src"], b["lengths"], b["tgt"],
+                                 **extra(b))[0]
+            lp = torch.log_softmax(model.generator_logits(outs), -1)
+            res[name] = [lp.cpu(), model.translate_batch(
+                b["src"], b["lengths"], **copy, **extra(b))]
+        drawn = _beams_agree(res["gpu"][1], res["cpu"][1])
+        b = up(BENCH_BATCH, dev)
+        card.translate_batch(b["src"], b["lengths"], **copy, **extra(b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = card.translate_batch(b["src"], b["lengths"], **copy, **extra(b))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        for name, model, device in (("gpu", card, dev), ("cpu", cpu, "cpu")):
+            b = up(NMTX_AGREE, device)
+            _sharpen(model)
+            res[name][1] = model.translate_batch(b["src"], b["lengths"],
+                                                 **copy, **extra(b))
+    lp_err = (res["gpu"][0] - res["cpu"][0]).abs().max().item()
+    same, err, note = _beams_agree(res["gpu"][1], res["cpu"][1])
+    copies = int((tr.seq >= NMT["tgt_vocab_size"]).sum())
+    log(f"nmt extras [{label}]: {NMTX_AGREE} sentences card vs cpu: "
+        f"teacher-forced logprobs max|diff| {lp_err:.3g} (tol {AGREE_TOL}); "
+        f"beam {NMT_BEAM}, output x{AGREE_SHARPEN:g}: tokens identical "
+        f"{same}, scores max|diff| / max(1, max|score|) {err:.3g} (tol "
+        f"{TRAIN_TOL}){note}; as drawn (information): tokens identical "
+        f"{drawn[0]}, scores {drawn[1]:.3g}{drawn[2]}; batch {BENCH_BATCH} "
+        f"beam {NMT_BEAM} host wall {wall:.1f} ms"
+        + (f", {copies} exact-copy tokens" if copy else ""))
+    if not (lp_err <= AGREE_TOL and same and err <= TRAIN_TOL
+            and torch.isfinite(tr.scores).all()):
+        raise AssertionError(f"nmt extras [{label}] card vs cpu")
+    del card, cpu
+    cfg_opts = {("nmt_src_feature_sizes" if k == "src_feature_sizes"
+                 else k): v for k, v in opts.items()}
+    cfg = dict(NMT_TRAIN, **cfg_opts, batch_size=2, dropout=0.0,
+               nmt_optim="sgd", nmt_learning_rate=1.0)
+    host = {k: np.asarray(v) for k, v in batch.items()
+            if k != "src_fertilities"}
+    _step_agreement(dev, cfg, {"nmt": {k: v[:2] for k, v in host.items()}},
+                    {}, f"nmt extras {label[:1]}")
+    tr = Trainer(Config(**dict(cfg, batch_size=BENCH_BATCH)), device=dev)
+    out = tr.train({"nmt": host})
+    if not np.isfinite(out["total_loss"]):
+        raise AssertionError(f"nmt extras [{label}]: batch-50 step {out}")
+    del tr
+    torch.cuda.empty_cache()
+    return wall
+
+
+def _nmtx_image_encoder(dev) -> None:
+    """NMTImageEncoder (feat 2,048 -> rnn 512) on a [16, 14, 14, 2,048]
+    grid, card vs CPU within TRAIN_TOL * max(1, max|ctx|)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.nmt import (
+        NMTImageEncoder)
+
+    cpu = NMTImageEncoder(feat_size=2048, rnn_size=512,
+                          device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    card = NMTImageEncoder(feat_size=2048, rnn_size=512, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    grid = torch.from_numpy(np.random.RandomState(23).randn(
+        *NMTX_IMAGE_GRID).astype(np.float32))
+    with torch.inference_mode():
+        want, (wh, _) = cpu.apply(grid)
+        got, (gh, _) = card.apply(grid.to(dev))
+    err = max((got.cpu() - want).abs().max().item(),
+              (gh.cpu() - wh).abs().max().item()) / max(
+        1.0, want.abs().max().item())
+    log(f"NMTImageEncoder {list(NMTX_IMAGE_GRID)} -> context "
+        f"{list(got.shape)}: card vs cpu max|diff| / max(1, max|ctx|) "
+        f"{err:.3g} (tol {TRAIN_TOL})")
+    if not err <= TRAIN_TOL:
+        raise AssertionError("NMTImageEncoder card vs cpu")
+
+
+class _NmtxLoader:
+    """The caption loader's interface for `eval_split_coco_unpaired`: the
+    test split of NMTX_EVAL_IMAGES seeded images in one batch."""
+
+    seq_per_img = 1
+
+    def __init__(self, zh_vocab: dict):
+        fc, att = make_features(np.random.RandomState(29),
+                                NMTX_EVAL_IMAGES)
+        self.vocab = types.SimpleNamespace(ix_to_word=zh_vocab)
+        self.split_ix = {"test": list(range(NMTX_EVAL_IMAGES))}
+        self.batch = {"fc_feats": fc, "att_feats": att,
+                      "attri_feats": np.zeros((NMTX_EVAL_IMAGES, 1),
+                                              np.float32),
+                      "att_masks": np.ones((NMTX_EVAL_IMAGES, N_SLOTS),
+                                           np.float32),
+                      "infos": [{"id": i} for i in range(NMTX_EVAL_IMAGES)],
+                      "bounds": {"wrapped": True}}
+
+    def reset_iterator(self, split):
+        pass
+
+    def get_batch(self, split):
+        return self.batch
+
+
+def _nmtx_copy_paths(dev, cap_dense, s2t, src_dict, tgt_dict) -> dict:
+    """The copy model (variant a) behind the pivot and the CLIs:
+    `pivot_translate` with `src2tgt` at batch 50 beside the plain LSTM
+    pivot's NMT (images/s of each), `eval_split_coco_unpaired(src2tgt=)` on
+    NMTX_EVAL_IMAGES images (every en caption non-empty, exact copies
+    resolved to zh words), and `cli.translate -copy_mode extended` and
+    `fold` on NMTX_LINES seeded lines of a run dir written for it. Returns
+    the pivots' images/s."""
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.cli import translate
+    from unpaired_image_captioning_tpu_torch.eval.eval_utils import (
+        eval_split_coco_unpaired)
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
+    from unpaired_image_captioning_tpu_torch.pivot import (
+        captions_to_nmt_batch, pivot_translate)
+    from unpaired_image_captioning_tpu_torch.train.checkpoint import (
+        save_json, save_state)
+
+    copy_nmt = NMTModel(**NMT, **NMTX_VARIANTS[0][1], device=dev)
+    copy_nmt.init_params(torch.Generator().manual_seed(0)).eval()
+    plain_nmt = NMTModel(**NMT, device=dev).init_params(
+        torch.Generator().manual_seed(0)).eval()
+    cap2nmt = torch.from_numpy(_cap2nmt()).to(dev)
+    fc, att = make_features(np.random.RandomState(31), BENCH_BATCH)
+    feats = Features(fc_feats=torch.from_numpy(fc).to(dev),
+                     att_feats=torch.from_numpy(att).to(dev))
+    s2t_dev = torch.from_numpy(s2t).long().to(dev)
+    ips = {}
+    for name, nmt, kw in (("copy", copy_nmt, {"src2tgt": s2t_dev}),
+                          ("plain", plain_nmt, {})):
+        with torch.inference_mode():
+            pivot_translate(cap_dense, nmt, feats, cap2nmt, **kw,
+                            nmt_max_len=NMT_MAX_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            zh, en, aux = pivot_translate(cap_dense, nmt, feats, cap2nmt,
+                                          **kw, nmt_max_len=NMT_MAX_LEN)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ips[name] = BENCH_BATCH / wall
+        n_copy = 0
+        if kw:
+            # the exact copies the extended beam chose, before the pivot
+            # folded them into UNK + source position
+            with torch.inference_mode():
+                src, lengths = captions_to_nmt_batch(zh, cap2nmt)
+                raw = nmt.translate_batch(src, lengths, src2tgt=s2t_dev,
+                                          max_len=NMT_MAX_LEN).seq[:, 0]
+            ext = raw >= NMT["tgt_vocab_size"]
+            n_copy = int(ext.sum())
+            if not (n_copy and torch.equal(en[ext], torch.ones_like(
+                    en[ext])) and torch.equal(
+                    aux[ext], raw[ext] - NMT["tgt_vocab_size"])):
+                raise AssertionError("pivot_translate: exact copies not "
+                                     "resolved to UNK + source position")
+        log(f"pivot_translate [{name} NMT, caption beam {CAP_BEAM} -> NMT "
+            f"beam {NMT_BEAM}, batch {BENCH_BATCH}]: {wall * 1e3:.1f} ms, "
+            f"{ips[name]:.1f} images/s"
+            + (f"; {n_copy} exact copies resolved to their source positions"
+               if kw else ""))
+        if not bool((en < NMT["tgt_vocab_size"]).all()):
+            raise AssertionError(f"pivot_translate [{name}]: ids past the "
+                                 "vocab after resolve_extended")
+    del plain_nmt
+    zh_vocab = {str(i): f"zh{i}" for i in range(1, CAP["vocab_size"] + 1)}
+    tgt_itos = {int(k): v for k, v in tgt_dict.idx_to_label.items()}
+    out = eval_split_coco_unpaired(cap_dense, copy_nmt,
+                                   _NmtxLoader(zh_vocab), _cap2nmt(),
+                                   tgt_itos, split="test", src2tgt=s2t,
+                                   nmt_max_len=NMT_MAX_LEN)
+    caps = [p["caption"] for p in out["en_predictions"]]
+    # zh caption words in the en captions: UNK replaced by the exact copy's
+    # source word (or the attention's, where the beam chose UNK itself)
+    copied = sum(w.startswith("zh") for c in caps for w in c.split())
+    log(f"eval_split_coco_unpaired(src2tgt=...) on {len(caps)} images: "
+        f"{sum(bool(c) for c in caps)} non-empty en captions, {copied} zh "
+        f"words copied into them; first: {caps[0][:80]!r}")
+    if not (len(caps) == NMTX_EVAL_IMAGES and all(caps) and copied):
+        raise AssertionError("eval_split_coco_unpaired with src2tgt")
+    with tempfile.TemporaryDirectory(prefix="nmtx-") as run:
+        args = dict(copy_nmt.init_args, model_type="rnn")
+        save_json(os.path.join(run, "nmt_config.json"), args)
+        save_state(os.path.join(run, "model_nmt.pt"), copy_nmt.state_dict())
+        for side, d in (("src", src_dict), ("tgt", tgt_dict)):
+            save_json(os.path.join(run, f"{side}_dict.json"), d.state_dict())
+        rs = np.random.RandomState(37)
+        lens = rs.randint(4, NMT_SRC_LEN + 1, NMTX_LINES)
+        lens[0] = NMT_SRC_LEN
+        lines = [" ".join(f"zh{w}" for w in rs.randint(
+            1, NMT["src_vocab_size"] - 4, n)) for n in lens]
+        with open(os.path.join(run, "zh.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        for mode in ("extended", "fold"):
+            path = os.path.join(run, f"en_{mode}.txt")
+            t0 = time.perf_counter()
+            with _quiet():
+                translate.main(["-model", run, "-src",
+                                os.path.join(run, "zh.txt"), "-output", path,
+                                "-batch_size", str(BENCH_BATCH),
+                                "-max_sent_length", str(NMT_MAX_LEN),
+                                "-copy_mode", mode])
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                got = f.read().splitlines()
+            n_zh = sum(w.startswith("zh") for l in got for w in l.split())
+            log(f"cli.translate -copy_mode {mode} on {NMTX_LINES} lines: "
+                f"{wall:.2f} s, {sum(bool(l) for l in got)} non-empty, "
+                f"{n_zh} zh words copied")
+            if len(got) != NMTX_LINES or not n_zh:
+                raise AssertionError(f"cli.translate -copy_mode {mode}")
+    del copy_nmt
+    torch.cuda.empty_cache()
+    return ips
+
+
+def phase_nmt_extras(dev) -> tuple:
+    """Diverse beam groups and the NMT extras of ROADMAP A10 / A11 on the
+    card at full width:
+
+    - B1 at every cell shape the phase gives it (NMTX_CELLS) against the
+      plain cell, forward and backward, and B2 at the grouped and the
+      extended-vocab rows (NMTX_TOPK), exact (B4 at the transformer's
+      diverse beams is among TFD_SHAPES);
+    - diverse groups on both captioners (`_nmtx_diverse`);
+    - the four NMT variants (`_nmtx_variant`), NMTImageEncoder, and the
+      copy model behind `pivot_translate`, `eval_split_coco_unpaired` and
+      `cli.translate` (`_nmtx_copy_paths`).
+
+    B1, B2 and B4 are counted from 0 over the path, and every shape the
+    path gives them must be one the checks hold. Returns (their launches,
+    the cells' records, the top-k records)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models.att import DenseAttModel
+
+    t_phase = time.perf_counter()
+    cells, topk = _family_cells(dev, NMTX_CELLS, NMTX_TOPK,
+                                timed=NMTX_TIMED_CELLS,
+                                topk_timed=NMTX_TIMED_TOPK,
+                                special=_group_rows, seed=19)
+    t_checks = time.perf_counter()
+    src_dict, tgt_dict = _nmtx_dicts()
+    s2t = src_dict.align(tgt_dict)
+    cap = DenseAttModel(**CAP, device=dev).init_params(
+        torch.Generator().manual_seed(0)).eval()
+    shapes = {}
+    lk.launches = tk.launches = tdk.stack_launches = 0
+    with _recording_shapes(shapes):
+        walls = _nmtx_diverse(dev, cap)
+        t_div = time.perf_counter()
+        for label, opts in NMTX_VARIANTS:
+            walls[label[:1]] = _nmtx_variant(dev, label, opts, s2t)
+        t_var = time.perf_counter()
+        _nmtx_image_encoder(dev)
+        ips = _nmtx_copy_paths(dev, cap, s2t, src_dict, tgt_dict)
+        torch.cuda.synchronize()
+    counts = {"lstm_cell": lk.launches, "row_topk": tk.launches,
+              "transformer_decode_stack": tdk.stack_launches}
+    del cap
+    torch.cuda.empty_cache()
+    if not all(counts.values()):
+        raise AssertionError(f"nmt extras: a kernel of the path was not "
+                             f"launched: {counts}")
+    held = _held_eval_shapes()
+    held["lstm_cell"] |= {(b, d, h, m) for _, d, h, m, rows in NMTX_CELLS
+                          for b in rows}
+    held["row_topk"] |= {s[1:] for s in NMTX_TOPK}
+    for name in ("lstm_cell", "row_topk", "transformer_decode_stack"):
+        seen = shapes.get(name, set())
+        log(f"nmt extras {name} shapes: {sorted(seen, key=str)}")
+        if seen - held[name]:
+            raise AssertionError(
+                f"nmt extras: {name} ran at "
+                f"{sorted(seen - held[name], key=str)}, which no kernel "
+                "check holds against the plain version")
+    end = time.perf_counter()
+    log(f"nmt extras: host walls (ms) " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; pivot images/s copy {ips['copy']:.1f}, plain "
+        f"{ips['plain']:.1f}; launches {counts}; phase seconds: checks "
+        f"{t_checks - t_phase:.1f}, diverse {t_div - t_checks:.1f}, "
+        f"variants {t_var - t_div:.1f}, image encoder and copy paths "
+        f"{end - t_var:.1f}; all {end - t_phase:.1f}")
+    return counts, cells, topk
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6592,6 +7209,10 @@ def main(argv=None) -> int:
     kernels["lstm_cell"]["shapes"] += family_cells
     kernels["row_topk"]["shapes"] += family_topk
     mark("caption families (A10)")
+    nmtx_counts, nmtx_cells, nmtx_topk = phase_nmt_extras(dev)
+    kernels["lstm_cell"]["shapes"] += nmtx_cells
+    kernels["row_topk"]["shapes"] += nmtx_topk
+    mark("diverse beams and NMT extras (A10, A11)")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -6614,7 +7235,8 @@ def main(argv=None) -> int:
     # pipeline's and the caption families'
     for name, n in (list(recipe_counts.items()) + list(eval_counts.items())
                     + list(raw_counts.items())
-                    + list(family_counts.items())):
+                    + list(family_counts.items())
+                    + list(nmtx_counts.items())):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -110,9 +110,10 @@ def test_sample_beam_matches_jax(pair, beam, opts):
                                atol=1e-4)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(pair):
     # the other families and use_bn build since A10
-    # (tests/test_torch_families.py, tests/test_torch_batchnorm.py)
+    # (tests/test_torch_families.py, tests/test_torch_batchnorm.py), and
+    # diverse beam groups decode as JAX's (tests/test_torch_diverse_beam.py)
     assert type(tmodels.setup(Config(caption_model="topdown", vocab_size=5,
                                      rnn_size=8, input_encoding_size=8,
                                      fc_feat_size=8, att_feat_size=8),
@@ -125,11 +126,16 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="not supported"):
         tmodels.setup(Config(caption_model="nosuch", vocab_size=5),
                       device="cpu")
-    m = tmodels.setup(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        m.sample_beam(Features(fc_feats=torch.zeros(1, 32),
-                               att_feats=torch.zeros(1, 2, 24)),
-                      beam_size=4, group_size=2)
+    jm, jp, tm, jf, tf = pair
+    jr = jax.jit(lambda p, f: jm.sample_beam(p, f, beam_size=4,
+                                             group_size=2))(jp, jf)
+    with torch.no_grad():
+        tr = tm.sample_beam(tf, beam_size=4, group_size=2)
+    np.testing.assert_array_equal(tr.seq.numpy(), np.asarray(jr.seq))
+    np.testing.assert_allclose(tr.scores.numpy(), np.asarray(jr.scores),
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        tm.sample_beam(tf, beam_size=4, group_size=3)
 
 
 def test_stackatt_forward_matches_jax(pair):

@@ -596,3 +596,87 @@ def test_migrated_family_evaluates_as_jax(name, tmp_path, monkeypatch):
     assert len(got["predictions"]) == 3
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5,
                                atol=1e-5)
+
+
+def _ref_nmt_extras(seed, kind):
+    """Reference NMT states whose extra modules have the shapes the NMT
+    options build: "copy" (dotprod attention, coverage projection, context
+    gate over the input-fed embedding, a dotprod copy attention and the
+    CopyGenerator) and "features" (two feature LUTs of width 5 with the
+    embeddings MLP, the fertility head, mlp attention)."""
+    r = _Ref(seed)
+    r.t("encoder.embeddings.word_lut.weight", SV, E)
+    r.t("decoder.embeddings.word_lut.weight", TV, E)
+    for sfx in ("", "_reverse"):
+        r.lstmcell("encoder.rnn", E, H // 2, suffix=f"_l0{sfx}")
+    r.lstmcell("decoder.rnn.layers.0", E + H, H)
+    if kind == "copy":
+        r.lin("decoder.attn.linear_in", H, H, bias=False)
+        r.lin("decoder.attn.linear_out", 2 * H, H, bias=False)
+        r.lin("decoder.copy_attn.linear_in", H, H, bias=False)
+        r.lin("decoder.copy_attn.linear_out", 2 * H, H, bias=False)
+        r.lin("decoder.attn.linear_cover", 1, H, bias=False)
+        gp = "decoder.context_gate.context_gate"
+        r.lin(gp + ".gate", E + 3 * H, H)
+        r.lin(gp + ".source_proj", H, H)
+        r.lin(gp + ".target_proj", E + 2 * H, H)
+        r.lin("generator.linear", H, TV)
+        r.lin("generator.linear_copy", H, 1)
+    else:
+        r.t("encoder.embeddings.feature_luts.0.weight", 3, 5)
+        r.t("encoder.embeddings.feature_luts.1.weight", 4, 5)
+        r.lin("encoder.embeddings.linear", E + 10, E)
+        r.lin("encoder.fertility_linear", H + E, 2 * H)
+        r.lin("encoder.fertility_linear_2", 2 * H, 2 * H)
+        r.lin("encoder.fertility_out", 2 * H, 1, bias=False)
+        r.lin("decoder.attn.linear_context", H, H, bias=False)
+        r.lin("decoder.attn.linear_query", H, H, bias=False)
+        r.lin("decoder.attn.v", H, 1, bias=False)
+        r.lin("generator.0", H, TV)
+    return r.d
+
+
+@pytest.mark.parametrize("kind", ["copy", "features"])
+def test_converted_nmt_extras_match_jax(kind):
+    """The featured / fertility / copy / gate / coverage trees of
+    `convert_nmt_model` load into the port's NMT built with those options,
+    which then gives the JAX model's teacher-forced outputs on the same
+    tree (within 1e-5)."""
+    import jax
+    import jax.numpy as jnp
+
+    from unpaired_image_captioning_tpu.models import convert as jconv
+    from unpaired_image_captioning_tpu.models.nmt import NMTModel as JNMT
+
+    state = _ref_nmt_extras(11, kind)
+    opts = (dict(copy_attn=True, coverage_attn=True, context_gate="both")
+            if kind == "copy" else
+            dict(src_feature_sizes=(3, 4), feature_vec_size=5,
+                 src_emb_mlp=True, predict_fertility=True,
+                 attention_type="mlp", attn_transform="constrained_softmax"))
+    kw = dict(src_vocab_size=SV, tgt_vocab_size=TV, word_vec_size=E,
+              rnn_size=H, layers=1, dropout=0.0, **opts)
+    tn = NMTModel(**kw, device="cpu")
+    tn.load_state_dict(bridge.params_from_jax(tconv.convert_nmt_model(state)))
+    jn, jp = JNMT(**kw), jconv.convert_nmt_model(state)
+    rs = np.random.RandomState(2)
+    src = np.array([[4, 5, 6, 4], [8, 9, 0, 0], [10, 4, 5, 0]], np.int32)
+    lengths = (src != 0).sum(1).astype(np.int32)
+    tgt = rs.randint(4, TV, (3, 5)).astype(np.int32)
+    tgt[:, 0] = 2
+    fk = {}
+    if kind == "features":
+        feats = np.stack([src % 3, src % 4], -1).astype(np.int32)
+        fk = {"src_feats": feats}
+    want = jax.jit(lambda p: jn.forward(
+        p, jnp.asarray(src), jnp.asarray(lengths), jnp.asarray(tgt),
+        **{k: jnp.asarray(v) for k, v in fk.items()}))(jp)
+    with torch.no_grad():
+        got = tn.forward(torch.from_numpy(src).long(),
+                         torch.from_numpy(lengths).long(),
+                         torch.from_numpy(tgt).long(),
+                         **{k: torch.from_numpy(v).long()
+                            for k, v in fk.items()})
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=1e-5)

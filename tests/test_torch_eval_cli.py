@@ -20,8 +20,13 @@ rounds features to bf16).
   scores.
 - The port's `eval_pivot` (the staged route through `translate`) gives
   its own `eval_unpaired`'s zh and en predictions.
-- `src2tgt`, `--bn_calibrate` and `--num_devices 2` raise naming their
-  queue items; `utils/text.py`'s converters and `self_bleu` equal JAX's.
+- A second pair of run dirs holds a copy-attention NMT: `translate
+  -copy_mode extended` and `fold`, and `eval_unpaired` (the align map,
+  `pivot_translate` and `eval_split_coco_unpaired` with `src2tgt`) give
+  the JAX CLIs' outputs.
+- `src2tgt` on an NMT without copy attention changes nothing;
+  `--num_devices 2` raises naming its queue item; `utils/text.py`'s
+  converters and `self_bleu` equal JAX's.
 
 On the card (`cuda`, skipped here): `cli.translate` on the card gives the
 lines of its CPU run on the same run dir (near-ties aside).
@@ -63,16 +68,29 @@ def _no_tensorboard(monkeypatch):
     monkeypatch.setitem(sys.modules, "tensorflow", None)
 
 
-def _dicts():
+def _dicts(copy=False):
     specials = [C.PAD_WORD, C.UNK_WORD, C.BOS_WORD, C.EOS_WORD]
     # the last two caption words are missing from the source dict (UNK)
     src = Dict(specials + [f"w{i}" for i in range(ZH_V - 2)])
-    tgt = Dict(specials + [f"t{i}" for i in range(TGT_V - 4)])
+    # for the copy runs the target dict shares w0..w4 (Dict.align maps
+    # them); the other source words copy through the extended vocab
+    tgt = Dict(specials + [f"w{i}" if copy and i < 5 else f"t{i}"
+                           for i in range(TGT_V - 4)])
     return src, tgt
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    return _make_runs(tmp_path_factory.mktemp("evalcli"))
+
+
+@pytest.fixture(scope="module")
+def copy_runs(tmp_path_factory):
+    """The same, with a copy-attention NMT whose copy gate leans to copy."""
+    return _make_runs(tmp_path_factory.mktemp("evalcli_copy"), copy=True)
+
+
+def _make_runs(tmp, copy=False):
     import h5py
     import jax
 
@@ -82,7 +100,7 @@ def runs(tmp_path_factory):
     from unpaired_image_captioning_tpu.train.checkpoint import (
         CheckpointManager as JCkpt)
 
-    tmp = tmp_path_factory.mktemp("evalcli")
+    cfg_kw = {**CFG, "copy_attn": copy}
     jpath, npz, mem = tsyn.make_caption_artifacts(
         str(tmp), n_images=10, vocab_size=ZH_V, seq_length=6,
         caps_per_img=2, n_val=2, n_test=N_TEST, seed=8)
@@ -97,7 +115,7 @@ def runs(tmp_path_factory):
         json.dump({str(i): [" ".join(f"t{j}" for j in rs.randint(0, 12, 5))
                             for _ in range(3)] for i in range(10)}, f)
 
-    cfg = Config(**CFG, dtype="float32")
+    cfg = Config(**cfg_kw, dtype="float32")
     jm = jmodels.setup(cfg)
     jp = jm.init_params(jax.random.PRNGKey(0))
     logit = dict(jp["logit"][0])
@@ -113,7 +131,9 @@ def runs(tmp_path_factory):
         jn.init_params(jax.random.PRNGKey(1)))
     jnp_["generator"]["b"][C.EOS] += 2.0
     jnp_["generator"]["b"][C.UNK] += 2.0
-    src_dict, tgt_dict = _dicts()
+    if copy:
+        jnp_["copy_gate"]["b"][:] = 2.0
+    src_dict, tgt_dict = _dicts(copy)
 
     jrun, trun = str(tmp / "jax_run"), str(tmp / "port_run")
     jck = JCkpt(jrun)
@@ -125,11 +145,11 @@ def runs(tmp_path_factory):
     for best in (False, True):
         tck.save(i2t_state=bridge.params_from_jax(jp),
                  nmt_state=bridge.params_from_jax(jnp_),
-                 infos={"opt": TConfig(**CFG).to_dict(), "iter": 1,
+                 infos={"opt": TConfig(**cfg_kw).to_dict(), "iter": 1,
                         "epoch": 0}, best=best)
     from unpaired_image_captioning_tpu_torch.models.nmt import NMTModel
 
-    tn = NMTModel.from_config(TConfig(**CFG), device="cpu")
+    tn = NMTModel.from_config(TConfig(**cfg_kw), device="cpu")
     for run, nmt_cfg in ((jrun, {"model_type": "rnn",
                                  **dataclasses.asdict(jn)}),
                          (trun, {"model_type": "rnn", **tn.init_args})):
@@ -269,6 +289,60 @@ def test_translate_matches_jax(runs, capsys):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("mode", ["extended", "fold"])
+def test_translate_copy_modes_match_jax(copy_runs, mode):
+    """`-copy_mode` on a copy-attention run: the same output file as the
+    JAX CLI's; the extended mode decodes exact copies of source words the
+    target dict lacks (w5 and up), the fold mode copies only through
+    aligned words and UNK replacement. The decode stops at 20 tokens, the
+    pivot's NMT length: on these standard normal weights the two
+    frameworks' per-step logprobs differ by up to about 1e-5 (summation
+    order, with or without the copy scatter), and over 100 steps such noise
+    flips a near tie late in one of the 8 lines (step 81)."""
+    from unpaired_image_captioning_tpu.cli import translate as jcli
+
+    from unpaired_image_captioning_tpu_torch.cli import translate
+
+    tmp = copy_runs["tmp"]
+    rs = np.random.RandomState(5)
+    src = [" ".join(f"w{j}" for j in rs.randint(0, ZH_V, rs.randint(2, 7)))
+           for _ in range(8)]
+    (tmp / "zh.txt").write_text("\n".join(src) + "\n")
+    out = {}
+    for pkg, main, run, extra in (
+            ("jax", jcli.main, copy_runs["jrun"], []),
+            ("port", translate.main, copy_runs["trun"], ["-device", "cpu"])):
+        path = str(tmp / f"en_{mode}_{pkg}.txt")
+        main(["-model", run, "-src", str(tmp / "zh.txt"), "-output", path,
+              "-batch_size", "4", "-beam_size", "3", "-copy_mode", mode,
+              "-max_sent_length", "20"]
+             + extra)
+        out[pkg] = open(path).read()
+    assert out["port"] == out["jax"]
+    assert re.search(r"\bw\d+", out["port"])
+
+
+def test_eval_unpaired_copy_matches_jax(copy_runs):
+    """`eval_unpaired` on a copy-attention run builds src_dict.align(tgt_dict)
+    and decodes the pivot over the extended vocab (`pivot_translate` and
+    `eval_split_coco_unpaired` with `src2tgt`): the same result file as the
+    JAX CLI's, with source words in the en captions."""
+    from unpaired_image_captioning_tpu.cli import eval_unpaired as jcli
+
+    from unpaired_image_captioning_tpu_torch.cli import eval_unpaired
+
+    out = {}
+    for pkg, main in (("jax", jcli.main), ("port", eval_unpaired.main)):
+        d = copy_runs["tmp"] / f"unpaired_{pkg}"
+        _in(d, lambda: main(copy_runs["argv"](pkg)))
+        with open(d / "eval_results" / "unpaired_e_test.json") as f:
+            out[pkg] = json.load(f)
+    assert out["port"] == out["jax"]
+    assert all(p["caption"] for p in out["port"]["en_predictions"])
+    assert any(re.search(r"\bw\d+", p["caption"])
+               for p in out["port"]["en_predictions"])
+
+
 def jcli_model(run):
     """The JAX NMT of run dir `run` as its translate CLI builds it."""
     import jax
@@ -335,9 +409,25 @@ def test_unported_options_raise(runs, tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         _in(tmp_path, lambda: eval_paired.main(runs["argv"](
             "port", num_devices=2)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        eval_utils.eval_split_coco_unpaired(None, None, None, None, {},
-                                            src2tgt=np.zeros(3))
+    # src2tgt runs: handed to an NMT without copy attention (the CLI
+    # passes it only to a copy model) it changes no prediction
+    from unpaired_image_captioning_tpu_torch.cli import eval_unpaired
+
+    plain = eval_utils.eval_split_coco_unpaired
+
+    def with_map(*a, **kw):
+        assert kw.pop("src2tgt") is None
+        return plain(*a, src2tgt=np.arange(ZH_V + 4), **kw)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(eval_utils, "eval_split_coco_unpaired", with_map)
+    try:
+        got = _in(tmp_path, lambda: eval_unpaired.main(runs["argv"]("port")))
+    finally:
+        mp.undo()
+    want = _in(tmp_path / "plain",
+               lambda: eval_unpaired.main(runs["argv"]("port")))
+    assert got["en_predictions"] == want["en_predictions"]
 
 
 def test_text_utils_match_jax(tmp_path):

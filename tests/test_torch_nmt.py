@@ -112,6 +112,25 @@ def test_init_params_shapes_match_jax(pair):
                                   dict(context_gate="both"),
                                   dict(attention_type="mlp"),
                                   dict(attn_transform="sparsemax")])
-def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError, match="A11"):
-        NMTModel(**{**KW, **flag})
+def test_unported_options_raise(pair, flag):
+    """The five options that raised before they were ported now build and
+    match JAX: teacher-forced outputs and attentions within 1e-5."""
+    _, _, _, src, lengths = pair
+    jm = JNMTModel(**{**KW, **flag, "dropout": 0.0})
+    jp = jm.init_params(jax.random.PRNGKey(3))
+    tm = NMTModel(**{**KW, **flag, "dropout": 0.0}, device="cpu")
+    tm.load_state_dict(bridge.params_from_jax(jp))
+    tgt = np.random.RandomState(4).randint(4, TGT_V, (B, 5)).astype(np.int32)
+    tgt[:, 0] = C.BOS
+    jouts, jatt = jax.jit(lambda p: jm.forward(
+        p, jnp.asarray(src), jnp.asarray(lengths), jnp.asarray(tgt)))(jp)
+    with torch.no_grad():
+        outs, att = tm.forward(torch.from_numpy(src).long(),
+                               torch.from_numpy(lengths).long(),
+                               torch.from_numpy(tgt).long())
+    if flag.get("copy_attn"):
+        (att, copy), (jatt, jcopy) = att, jatt
+        np.testing.assert_allclose(copy.numpy(), np.asarray(jcopy),
+                                   atol=1e-5)
+    np.testing.assert_allclose(outs.numpy(), np.asarray(jouts), atol=1e-5)
+    np.testing.assert_allclose(att.numpy(), np.asarray(jatt), atol=1e-5)

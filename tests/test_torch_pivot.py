@@ -162,6 +162,55 @@ def test_pivot_service_and_http_match_jax(setup):
     assert not st.is_alive()
 
 
+def test_copy_pivot_and_service_match_jax(setup):
+    """`pivot_translate(..., src2tgt=)` with a copy-attention NMT (its copy
+    gate raised so that exact copies are decoded): zh, the collapsed en and
+    the aux with the copies' source positions identical to JAX's; the
+    port's `PivotService(src2tgt=)` answers as the JAX one."""
+    s = setup
+    cfg = CFG.__class__(**{**vars(CFG), "copy_attn": True})
+    jnmt = JNMTModel.from_config(cfg)
+    jnp_ = jnmt.init_params(jax.random.PRNGKey(4))
+    jnp_["copy_gate"] = {**jnp_["copy_gate"],
+                         "b": jnp_["copy_gate"]["b"] + 2.0}
+    tnmt = NMTModel.from_config(cfg, device="cpu")
+    tnmt.load_state_dict(bridge.params_from_jax(jnp_))
+    s2t = np.full((cfg.nmt_src_vocab_size,), C.PAD, np.int32)
+    s2t[4:12] = np.arange(4, 12)                   # the rest copy exactly
+    jf = JFeatures(fc_feats=jnp.asarray(s["fc"]),
+                   att_feats=jnp.asarray(s["att"]))
+    jzh, jen, jaux = jax.jit(lambda cp, np_, f: jpivot.pivot_translate(
+        s["jcap"], cp, jnmt, np_, f, jnp.asarray(s["cap2nmt"]),
+        cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN,
+        src2tgt=jnp.asarray(s2t)))(s["jcp"], jnp_, jf)
+    tf = Features(fc_feats=torch.from_numpy(s["fc"]),
+                  att_feats=torch.from_numpy(s["att"]))
+    with torch.no_grad():
+        tzh, ten, taux = tpivot.pivot_translate(
+            s["tcap"], tnmt, tf, torch.from_numpy(s["cap2nmt"]),
+            cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN,
+            src2tgt=s2t)
+    np.testing.assert_array_equal(tzh.numpy(), np.asarray(jzh))
+    np.testing.assert_array_equal(ten.numpy(), np.asarray(jen))
+    np.testing.assert_array_equal(taux.numpy(), np.asarray(jaux))
+    assert (ten == C.UNK).any()                    # copies came back as UNK
+    zh_vocab = dict(s["cap_vocab"].ix_to_word)
+    tgt_itos = {i: f"en{i}" for i in range(cfg.nmt_tgt_vocab_size)}
+    kw = dict(cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN,
+              max_batch=4, max_wait_ms=10, src2tgt=s2t)
+    jsvc = JPivotService(s["jcap"], s["jcp"], jnmt, jnp_, zh_vocab,
+                         tgt_itos, s["cap2nmt"], **kw)
+    tsvc = PivotService(s["tcap"], tnmt, zh_vocab, tgt_itos, s["cap2nmt"],
+                        **kw)
+    try:
+        for i in range(2):
+            assert tsvc.pivot(s["fc"][i], s["att"][i]) == jsvc.pivot(
+                s["fc"][i], s["att"][i])
+    finally:
+        jsvc.close()
+        tsvc.close()
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -17,8 +17,8 @@
   `lang_stats`); stopping at the switch and resuming with `--start_from`
   lands on the single run's parameters and optimizer state bit for bit;
   a width mismatch on resume raises; a step that raises leaves an
-  emergency checkpoint; the options that are not ported raise, and so
-  does a corpus with source-feature streams (C4).
+  emergency checkpoint; the options that are not ported raise. A corpus
+  with source-feature streams trains as it does through the JAX CLI.
 - The config's parser, checkpoint merge and `transfer_args`, the
   optimizer's state dict, the checkpoint files, the metric log and
   pretrained NMT word vectors against the JAX package.
@@ -320,24 +320,76 @@ def test_unported_cli_options_raise(assets, flag, item):
         tcli.main(argv)
 
 
-def test_featured_corpus_raises(assets, tmp_path):
-    """C4: a corpus with a source-feature stream (`src_feat_0`) sizes
-    `nmt_src_feature_sizes` as the JAX CLI does, and the NMT, which takes
-    no feature LUTs yet, refuses it instead of training without it; so
-    does the trainer, handed such a batch directly."""
+def test_featured_corpus_raises(assets, tmp_path, monkeypatch):
+    """C4, closed by the source features: a corpus with two source-feature
+    streams (`src_feat_0`, `src_feat_1`) sizes `nmt_src_feature_sizes` as
+    the JAX CLI does and trains the BiLSTM NMT with one feature LUT a
+    stream. From the JAX trainer's initial parameters, the NMT losses in
+    `events.jsonl` and the final NMT parameters equal the JAX CLI's on the
+    same argv (NMT training only) within TOL; the feature LUTs move. The
+    trainer, handed such a batch directly, takes it too."""
+    import h5py
+    import jax
+
+    from unpaired_image_captioning_tpu.cli import train as jcli
+    from unpaired_image_captioning_tpu.train import trainer as jtrainer
+
     blob = read_arrays(str(assets["tmp"] / "nmt.train.npz"))
-    featured = str(tmp_path / "nmt.train.npz")
-    np.savez(featured, src_feat_0=blob["src"] % 3, **blob)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcli.main(_port(assets["argv"](str(tmp_path / "run"),
-                                       input_nmt_h5=featured)))
+    feats = {"src_feat_0": blob["src"] % 3, "src_feat_1": blob["src"] % 5}
+    featured = str(tmp_path / "nmt.train.h5")
+    with h5py.File(featured, "w") as f:
+        for k, v in {**blob, **feats}.items():
+            f[k] = v
+    made = {}
+
+    class JTrainer(jtrainer.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["jax"] = self
+            made["init"] = jax.tree.map(np.asarray, self.nmt_params)
+
+    class TTrainer(ttrainer.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["port"] = self
+            self.nmt_model.load_state_dict(
+                bridge.params_from_jax(made["init"]))
+
+    monkeypatch.setattr(jtrainer, "Trainer", JTrainer)
+    monkeypatch.setattr(ttrainer, "Trainer", TTrainer)
+    monkeypatch.chdir(tmp_path)
+    kw = dict(fmt="h5", input_nmt_h5=featured, i2t_train_flag="false",
+              max_epochs=1)
+    jrun, trun = str(tmp_path / "jax_run"), str(tmp_path / "port_run")
+    jcli.main(assets["argv"](jrun, **kw) + ["--dtype", "float32"])
+    got = tcli.main(_port(assets["argv"](trun, **kw)))
+    assert got.cfg.nmt_src_feature_sizes == made["jax"].cfg \
+        .nmt_src_feature_sizes == (3, 5)
+    want = bridge.params_from_jax(jax.tree.map(np.asarray,
+                                               made["jax"].nmt_params))
+    have = got.nmt_model.state_dict()
+    assert set(have) == set(want)
+    for k in want:
+        np.testing.assert_allclose(have[k].numpy(), want[k].numpy(),
+                                   rtol=TOL, atol=TOL, err_msg=k)
+    lut0 = "encoder.embeddings.feature_luts.0"
+    assert not np.array_equal(have[lut0].numpy(),
+                              made["init"]["encoder"]["embeddings"]
+                              ["feature_luts"][0])
+    ev_t = [e for e in _events(trun) if "nmt_loss" in e]
+    ev_j = [e for e in _events(jrun) if "nmt_loss" in e]
+    assert len(ev_t) == len(ev_j) > 0
+    for et, ej in zip(ev_t, ev_j):
+        np.testing.assert_allclose(et["nmt_loss"], ej["nmt_loss"],
+                                   rtol=TOL, atol=TOL)
+    monkeypatch.undo()
     tr = ttrainer.Trainer(tconfig.Config(
         nmt_src_vocab_size=30, nmt_tgt_vocab_size=40, word_vec_size=8,
-        rnn_size=8, nmt_train_flag=True), device="cpu")
+        rnn_size=8, nmt_train_flag=True, nmt_src_feature_sizes=(3,)),
+        device="cpu")
     nb = NMTDataset(blob["src"], blob["tgt"], 4,
                     src_feats=[blob["src"] % 3]).next_batch()[0]
-    with pytest.raises(NotImplementedError, match="A11"):
-        tr.train({"nmt": nb})
+    assert np.isfinite(float(tr.train({"nmt": nb})["nmt_loss"]))
 
 
 def test_cli_defaults_to_the_card(assets, monkeypatch):
@@ -534,7 +586,10 @@ def test_nmt_config_rebuilds_the_model(tmp_path, kind):
     for (k, p), (k2, q) in zip(tr.nmt_model.state_dict().items(),
                                model.state_dict().items()):
         assert k == k2 and torch.equal(p, q), k
-    jax_fields = dataclasses.asdict(jcls.from_config(cfg))
+    # as a JSON file holds them (a tuple field, src_feature_sizes, is a
+    # list there)
+    jax_fields = json.loads(json.dumps(dataclasses.asdict(
+        jcls.from_config(cfg))))
     shared = set(saved) & set(jax_fields)
     assert {"src_vocab_size", "tgt_vocab_size", "dropout"} <= shared
     assert {k: saved[k] for k in shared} == {k: jax_fields[k]

@@ -144,10 +144,14 @@ def main(argv=None):
         with open(cfg.input_coco_json) as f:
             en_refs = {int(k): v for k, v in json.load(f).items()}
 
+    # copy-attention checkpoints decode over the extended dynamic vocab
+    src2tgt = (src_dict.align(tgt_dict)
+               if getattr(nmt_model, "copy_attn", False) else None)
     out = eval_split_coco_unpaired(
         cap_model, nmt_model, coco_loader, cap2nmt, tgt_itos, split="test",
         num_images=cfg.val_images_use, cap_beam=cfg.beam_size,
-        en_refs=en_refs, model_id=cfg.id, spice=bool(cfg.spice))
+        en_refs=en_refs, model_id=cfg.id, src2tgt=src2tgt,
+        spice=bool(cfg.spice))
     out["self_bleu"] = self_bleu([p["caption"] for p in out["en_predictions"]],
                                  sample=200)
     os.makedirs("eval_results", exist_ok=True)

@@ -19,8 +19,8 @@ The label file and the NMT corpus are `.npz` or HDF5 (`data/arrays.py`).
 `--input_workers N` assembles the features in N worker processes
 (`data/prefetch.py`); the batches, and so the run, are bit for bit those
 of `--input_workers 0`. `--num_devices` above 1 (scale-out, ROADMAP A14)
-raises. A corpus with source-feature streams raises until the NMT takes
-them (A11).
+raises. A corpus with source-feature streams (`src_feat_{j}`) trains the
+BiLSTM NMT with one feature LUT a stream.
 """
 
 from __future__ import annotations
@@ -81,8 +81,7 @@ def _nmt_data(cfg):
         cfg.nmt_tgt_vocab_size = int(nmt_dataset.tgt.max()) + 1
     if nmt_dataset.src_feats is not None and not cfg.nmt_src_feature_sizes:
         # a featured corpus (`src_feat_{j}` streams): one feature LUT per
-        # stream, sized from the stream as the JAX CLI does; the NMT model
-        # then refuses them until source features land (ROADMAP A11)
+        # stream, sized from the stream as the JAX CLI does
         cfg.nmt_src_feature_sizes = tuple(
             int(nmt_dataset.src_feats[..., j].max()) + 1
             for j in range(nmt_dataset.src_feats.shape[-1]))

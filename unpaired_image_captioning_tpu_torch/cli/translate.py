@@ -12,9 +12,11 @@ Reads a run directory of the port's training CLI: `nmt_config.json`
     python -m unpaired_image_captioning_tpu_torch.cli.translate \\
         -model run -src zh.txt -output en.txt [-tgt gold.txt] [-device cpu]
 
-`-tgt` adds GOLD AVG SCORE / GOLD PPL. `-copy_mode` is accepted; it
-matters only for copy attention, which the port cannot build yet (ROADMAP
-A11).
+`-tgt` adds GOLD AVG SCORE / GOLD PPL. A copy-attention NMT decodes with
+`src_dict.align(tgt_dict)`: `-copy_mode extended` (the default) over the
+extended vocab, whose ids past the target vocab are exact copies of a
+source word; `-copy_mode fold` with the reference Translator's own
+scoring, its copies resolved through the attention argmax.
 """
 
 from __future__ import annotations
@@ -70,8 +72,11 @@ def main(argv=None):
     p.add_argument("-replace_unk", action="store_true", default=True)
     p.add_argument("-copy_mode", choices=("extended", "fold"),
                    default="extended",
-                   help="copy-attention beam scoring; copy attention is not "
-                   "ported yet (ROADMAP A11), so it changes nothing")
+                   help="copy-attention beam scoring: 'extended' decodes "
+                   "over the extended dynamic vocab (exact source copies); "
+                   "'fold' reproduces the reference Translator's own "
+                   "decode-time scoring (copy mass folded onto align-mapped "
+                   "ids, onmt/Translator.py:207-226)")
     p.add_argument("-device", default="cuda",
                    help="torch device of the model (default: the card)")
     args = p.parse_args(argv)
@@ -90,6 +95,10 @@ def main(argv=None):
             tgt_lines = [l.split() for l in f]
         assert len(tgt_lines) == len(lines), "-src/-tgt line count mismatch"
     max_len = max(max((len(l) for l in lines), default=1), 1)
+    src2tgt = (src_dict.align(tgt_dict)
+               if getattr(model, "copy_attn", False) else None)
+    copy_kw = ({} if src2tgt is None
+               else {"src2tgt": src2tgt, "copy_mode": args.copy_mode})
     out_lines = []
     pred_score_total = pred_words_total = 0.0
     gold_score_total = gold_words_total = 0.0
@@ -105,8 +114,14 @@ def main(argv=None):
         with torch.inference_mode():
             res = model.translate_batch(up(src), up(lengths),
                                         beam_size=args.beam_size,
-                                        max_len=args.max_sent_length)
-            seqs = res.seq.cpu().numpy()
+                                        max_len=args.max_sent_length,
+                                        **copy_kw)
+            seq, copy_pos = res.seq, None
+            if src2tgt is not None and args.copy_mode == "extended":
+                # extended dynamic vocab: ids >= V are exact source copies
+                seq, copy_pos = model.resolve_extended(seq)
+                copy_pos = copy_pos.cpu().numpy()
+            seqs = seq.cpu().numpy()
             attn = res.aux.cpu().numpy()
             scores = res.scores.cpu().numpy()
             if tgt_lines is not None:
@@ -132,9 +147,14 @@ def main(argv=None):
                     if tok == C.BOS:
                         continue
                     if tok == C.UNK and args.replace_unk and toks:
-                        # the source token with the most attention
-                        # (parity: NMT_Models.buildTargetTokens :312-320)
-                        j = min(int(attn[bi, k, t]), len(toks) - 1)
+                        # the exact copy's position where the extended
+                        # vocab gives one, else the source token with the
+                        # most attention (NMT_Models.buildTargetTokens
+                        # :312-320)
+                        if copy_pos is not None and copy_pos[bi, k, t] >= 0:
+                            j = min(int(copy_pos[bi, k, t]), len(toks) - 1)
+                        else:
+                            j = min(int(attn[bi, k, t]), len(toks) - 1)
                         words.append(toks[j])
                     else:
                         words.append(tgt_dict.get_label(tok, C.UNK_WORD))

@@ -247,14 +247,12 @@ def eval_split_coco_unpaired(cap_model, nmt_model, coco_loader, cap2nmt,
     PAD / EOS, skip BOS, expand contractions), keep each image id once, cut
     to the budget, and score en vs `en_refs` (and zh vs `zh_refs`).
 
-    `src2tgt` (the copy attention's source -> target id map) raises: copy
-    attention is not ported yet (ROADMAP A11)."""
-    if src2tgt is not None:
-        raise NotImplementedError("eval_split_coco_unpaired with src2tgt: "
-                                  "copy attention is not ported yet "
-                                  "(ROADMAP A11)")
+    `src2tgt` (Dict.align, the source -> target id map): a copy-attention
+    NMT decodes over the extended vocab, and `replace_unk` takes the exact
+    copy's source position where there is one."""
     device = cap_model.device
     cap2nmt_t = _upload(cap2nmt, device, torch.int64)
+    s2t = None if src2tgt is None else _upload(src2tgt, device, torch.int64)
     coco_loader.reset_iterator(split)
     n_total = len(coco_loader.split_ix[split])
     budget = n_total if num_images <= 0 else min(num_images, n_total)
@@ -274,7 +272,7 @@ def eval_split_coco_unpaired(cap_model, nmt_model, coco_loader, cap2nmt,
             att_masks=_upload(data["att_masks"][first], device))
         out = pivot_translate(cap_model, nmt_model, feats, cap2nmt_t,
                               cap_beam=cap_beam, nmt_beam=nmt_beam,
-                              nmt_max_len=nmt_max_len)
+                              nmt_max_len=nmt_max_len, src2tgt=s2t)
         batch_infos = []
         for info in data["infos"]:
             fresh = info["id"] not in seen

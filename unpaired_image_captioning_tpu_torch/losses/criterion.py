@@ -10,9 +10,10 @@
   (`label_smoothing_loss`, misc/utils.py:289-320);
 - `kld_loss`: KL(teacher || student) (:285-292);
 - `weight_trans_loss`: the Weight_Trans / Weight_Trans_y embedding
-  alignment MSE on joint-vocabulary rows (:294-434).
-
-The attention regularizers are ROADMAP A11.
+  alignment MSE on joint-vocabulary rows (:294-434);
+- `ref_exhaustion_loss`, `ref_coverage_loss` (onmt/Loss.py:186-205) and
+  `attention_regularizers`: the attention-budget terms. As in the JAX
+  package, the trainer calls none of them.
 """
 
 from __future__ import annotations
@@ -133,6 +134,50 @@ def kld_loss(logprobs_student: torch.Tensor,
     kl = probs_teacher * (torch.log(torch.clamp(probs_teacher, min=1e-20))
                           - logprobs_student)
     return torch.mean(torch.sum(kl, dim=-1))
+
+
+def ref_exhaustion_loss(upper_bounds_seq: torch.Tensor, *, shard_size: int,
+                        lambda_exhaust: float) -> torch.Tensor:
+    """The reference's exhaustion term (onmt/Loss.py:190-205, inside its
+    shard loop): for each `shard_size` time shard, the upper bounds at the
+    shard's last step without the <SINK> column, summed, so the value
+    depends on the shard size. upper_bounds_seq: [B, T, S], each step's
+    bounds after its attention was subtracted."""
+    t = upper_bounds_seq.shape[1]
+    last = [min(k + shard_size, t) - 1 for k in range(0, t, shard_size)]
+    u = upper_bounds_seq[:, last, :-1]
+    return lambda_exhaust * torch.sum(u)
+
+
+def ref_coverage_loss(coverage_seq: torch.Tensor, attn_seq: torch.Tensor, *,
+                      lambda_coverage: float) -> torch.Tensor:
+    """The reference's coverage term (onmt/Loss.py:186-188): lambda x the
+    sum of min(coverage_t, attn_t) over every step; upstream `attn_seq` is
+    the copy attention (the term runs only with the copy loss).
+    coverage_seq / attn_seq: [B, T, S]."""
+    return lambda_coverage * torch.sum(
+        torch.minimum(coverage_seq.float(), attn_seq.float()))
+
+
+def attention_regularizers(attns: torch.Tensor, *, upper_bounds=None,
+                           coverage=None, lambda_exhaust: float = 0.001,
+                           lambda_coverage: float = 1.0) -> torch.Tensor:
+    """Smoothed attention-budget penalties (the JAX package's own variants
+    of the two terms above): the leftover fertility budget on the real
+    source slots (all but <SINK>), and the attention mass past 1 a source
+    slot, each averaged over the batch. attns: [B, T, S] (unused, as in
+    JAX); upper_bounds / coverage: the final state's [B, S]."""
+    del attns
+    loss = torch.zeros((), dtype=torch.float32)
+    if upper_bounds is not None and lambda_exhaust:
+        leftover = torch.clamp_min(upper_bounds[:, :-1], 0.0)
+        loss = loss.to(leftover.device) + lambda_exhaust * torch.mean(
+            leftover.sum(-1))
+    if coverage is not None and lambda_coverage:
+        over = torch.clamp_min(coverage - 1.0, 0.0)
+        loss = loss.to(over.device) + lambda_coverage * torch.mean(
+            over.sum(-1))
+    return loss
 
 
 def weight_trans_loss(emb_a: torch.Tensor, emb_b: torch.Tensor,

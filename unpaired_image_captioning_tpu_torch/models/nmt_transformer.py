@@ -218,12 +218,15 @@ class TransformerNMTModel(nn.Module):
 
     def translate_batch(self, src_ids, src_lengths, *,
                         beam_size: Optional[int] = None,
-                        max_len: Optional[int] = None):
+                        max_len: Optional[int] = None, src2tgt=None):
         """Beam-translate a batch. Returns BeamResult with seq [B, beam, T]
         (BOS excluded, EOS included) and aux = the per-step argmax of the
-        last layer's mean-head source attention, for UNK replacement."""
+        last layer's mean-head source attention, for UNK replacement.
+        `src2tgt` is accepted for the BiLSTM NMT's interface and ignored:
+        the transformer NMT has no copy attention."""
         from ..ops.beam_search import onmt_beam_search
 
+        del src2tgt
         beam_size = beam_size or self.beam_size
         max_len = max_len or self.max_decode_len
         ctx, state0 = self.make_decoder(src_ids, src_lengths, max_len)

@@ -422,7 +422,11 @@ class TransformerModel(CaptionDecoder):
         the JAX module, a decode step has no dropout (`training` is
         accepted and ignored)."""
         t = state["t"]
-        x = self.tgt_embed[it] * math.sqrt(self.d_model) + ctx["pe"][t.long()]
+        # a row past the last position (a finished diverse-beam group, whose
+        # output is discarded) reads the last encoding, as JAX's clamped
+        # gather does; the caches take no write at t >= T
+        pe = ctx["pe"][t.long().clamp(max=ctx["pe"].shape[0] - 1)]
+        x = self.tgt_embed[it] * math.sqrt(self.d_model) + pe
         if "wstack" in ctx:
             x, k_all, v_all = decoder_stack_step(
                 x, t, ctx["cross_k"], ctx["cross_v"], ctx["src_mask"],

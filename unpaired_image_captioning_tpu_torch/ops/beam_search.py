@@ -9,8 +9,11 @@ Two beams with different semantics, both selecting on the step's natural
   length-normalized ranking, a beam that emits EOS is recorded as finished
   and its live score becomes exactly -1000 (a selectable "dead slot"),
   every live beam is recorded at the last step, and the loop exits early
-  once every live beam is dead. Only one group (`group_size == 1`); diverse
-  groups are ROADMAP A10.
+  once every live beam is dead. With `group_size` G > 1, diverse beam
+  groups: G groups of K / G beams staggered in time, group g penalised by
+  `diversity_lambda` for each token the earlier groups chose at the same
+  local step; each group selects over its own [K / G * V] candidates an
+  image through `row_topk`.
 - `onmt_beam_search`, the NMT beam: rows that emit EOS keep extending, a
   sentence finishes when EOS is at the top of its beam and then freezes,
   and the result rows are the final beam rows by score, optionally
@@ -118,6 +121,7 @@ def beam_search(
     bos_token: int = 0,
     eos_token: int = 0,
     group_size: int = 1,
+    diversity_lambda: float = 0.5,
     decoding_constraint: bool = False,
     suppress_unk: bool = True,
     max_ppl: bool = False,
@@ -130,10 +134,17 @@ def beam_search(
     are per-example [B, ...] trees; they are expanded to beams here. ctx is
     never reordered; state is reordered by backpointers every step.
     """
-    if group_size != 1:
-        raise NotImplementedError(
-            "diverse beam groups (group_size > 1) are not ported yet "
-            "(ROADMAP A10)")
+    if beam_size % group_size:
+        raise ValueError("beam_size must be divisible by group_size")
+    if group_size > 1:
+        return _diverse_beam_search(
+            step_fn, ctx, state0, beam_size=beam_size, seq_length=seq_length,
+            bos_token=bos_token, eos_token=eos_token, group_size=group_size,
+            diversity_lambda=diversity_lambda,
+            decoding_constraint=decoding_constraint,
+            suppress_unk=suppress_unk, max_ppl=max_ppl,
+            record_aux_from_state=record_aux_from_state,
+            ctx_no_expand=ctx_no_expand)
     K = beam_size
     T = seq_length
 
@@ -228,6 +239,147 @@ def beam_search(
 
     return BeamResult(seq=fin_seq, logps=fin_logp, scores=fin_score,
                       aux=fin_aux)
+
+
+def _diverse_beam_search(step_fn, ctx, state0, *, beam_size: int,
+                         seq_length: int, bos_token: int, eos_token: int,
+                         group_size: int, diversity_lambda: float,
+                         decoding_constraint: bool, suppress_unk: bool,
+                         max_ppl: bool, record_aux_from_state,
+                         ctx_no_expand: tuple) -> BeamResult:
+    """`beam_search` with G = `group_size` > 1 groups of bd = K / G beams.
+
+    Group g is active for global steps [g, T + g), T + G - 1 steps in all;
+    at its local step 0 only its beam 0 takes part. Within one global step
+    the groups advance in order, and group g's logprobs are lowered by
+    lambda x (the number of beams of each earlier group p < g whose token
+    at the same local step, just written, is the candidate). The
+    accumulated score and the selection use those augmented logprobs, the
+    `logps` record the unaugmented ones. Inactive groups keep their state
+    rows. The finished sets are concatenated group-major."""
+    G, K, T = group_size, beam_size, seq_length
+    bd = K // G
+    batch = _first_leaf(state0).shape[0]
+    dev = _first_leaf(state0).device
+    ctx = (_expand_to_beams(ctx, K, no_expand=ctx_no_expand)
+           if ctx is not None else None)
+    state = _expand_to_beams(state0, K)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    cum = torch.zeros((batch, G, bd), **f32)
+    it = torch.full((batch, G, bd), bos_token, **i64)
+    seq_buf = torch.zeros((batch, G, bd, T), **i64)
+    logp_buf = torch.zeros((batch, G, bd, T), **f32)
+    aux_buf = (torch.zeros((batch, G, bd, T), **i64)
+               if record_aux_from_state else None)
+    fin_rank = torch.full((batch, G, bd), NEG_INF, **f32)
+    fin_score = torch.full((batch, G, bd), NEG_INF, **f32)
+    fin_seq = torch.zeros((batch, G, bd, T), **i64)
+    fin_logp = torch.zeros((batch, G, bd, T), **f32)
+    fin_aux = (torch.zeros((batch, G, bd, T), **i64)
+               if record_aux_from_state else None)
+
+    beam_ix = torch.arange(bd, device=dev)
+    first_mask = torch.where(beam_ix == 0, 0.0, NEG_INF).to(torch.float32)
+    b_ix = torch.arange(batch, device=dev)[:, None]
+    base = (torch.arange(batch, device=dev) * K)[:, None, None]
+    group_off = (torch.arange(G, device=dev) * bd)[None, :, None]
+
+    def gather3(m, idx):
+        return m.gather(1, idx[..., None].expand(-1, -1, m.shape[-1]))
+
+    for t in range(T + G - 1):
+        # early exit once every live beam is a dead slot (one device read)
+        if not bool((cum > DEAD + 1e-3).any()):
+            break
+        logprobs, new_state = step_fn(ctx, state, it.reshape(batch * K))
+        V = logprobs.shape[-1]
+        lp = logprobs.float().reshape(batch, G, bd, V).clone()
+        aux_now = (record_aux_from_state(new_state).reshape(batch, G, bd)
+                   if record_aux_from_state else None)
+        if suppress_unk:
+            lp[..., V - 1] -= 1000.0
+
+        parents = beam_ix.expand(batch, G, bd).clone()
+        toks = it.clone()
+        active_g = []
+        for g in range(G):
+            lt = t - g
+            active = 0 <= lt < T
+            active_g.append(active)
+            if not active:
+                continue
+            unaug = lp[:, g]                                  # [B, bd, V]
+            aug = unaug
+            if g > 0 and diversity_lambda > 0.0:
+                # earlier groups' tokens at this local step, as just
+                # written by this global step
+                penalty = torch.zeros((batch, V), **f32)
+                for p in range(g):
+                    penalty.scatter_add_(1, seq_buf[:, p, :, lt],
+                                         torch.ones((batch, bd), **f32))
+                aug = aug - diversity_lambda * penalty[:, None, :]
+            if decoding_constraint and lt > 0:
+                aug = aug.clone()
+                aug[b_ix, beam_ix[None, :], it[:, g]] += NEG_INF
+            total = cum[:, g][..., None] + aug
+            if lt == 0:
+                total = total + first_mask[None, :, None]
+            _, sel_idx = row_topk(total.reshape(batch, bd * V), bd)
+            parent = sel_idx // V
+            tok = sel_idx % V
+            tok_unaug = unaug.reshape(batch, bd * V).gather(1, sel_idx)
+            tok_aug = aug.reshape(batch, bd * V).gather(1, sel_idx)
+            cum_g = cum[:, g].gather(1, parent) + tok_aug
+
+            seq_g = _reorder_write(seq_buf[:, g], parent, tok, lt)
+            logp_g = _reorder_write(logp_buf[:, g], parent, tok_unaug, lt)
+            is_eos = tok == eos_token
+            finishing = is_eos | (lt == T - 1)
+            cand_score = torch.where(finishing, cum_g,
+                                     torch.full_like(cum_g, NEG_INF))
+            cand_rank = cand_score / float(lt + 1) if max_ppl else cand_score
+            top_rank, top_idx = sorted_topk(
+                torch.cat([fin_rank[:, g], cand_rank], 1), bd)
+            fin_rank[:, g] = top_rank
+            fin_score[:, g] = torch.cat([fin_score[:, g], cand_score],
+                                        1).gather(1, top_idx)
+            fin_seq[:, g] = gather3(torch.cat([fin_seq[:, g], seq_g], 1),
+                                    top_idx)
+            fin_logp[:, g] = gather3(torch.cat([fin_logp[:, g], logp_g], 1),
+                                     top_idx)
+            if record_aux_from_state:
+                aux_g = _reorder_write(aux_buf[:, g], parent, aux_now[:, g],
+                                       lt)
+                fin_aux[:, g] = gather3(torch.cat([fin_aux[:, g], aux_g], 1),
+                                        top_idx)
+                aux_buf[:, g] = aux_g
+            cum[:, g] = torch.where(is_eos, torch.full_like(cum_g, DEAD),
+                                    cum_g)
+            parents[:, g] = parent
+            toks[:, g] = tok
+            seq_buf[:, g] = seq_g
+            logp_buf[:, g] = logp_g
+
+        # one state reorder: flat row = b * K + g * bd + parent; the rows of
+        # inactive groups keep their state
+        gather_idx = (base + group_off + parents).reshape(batch * K)
+        active_row = torch.tensor(active_g, device=dev).repeat_interleave(
+            bd).repeat(batch)
+
+        def reorder_leaf(new_leaf, old_leaf):
+            re = new_leaf.index_select(0, gather_idx)
+            mask = active_row.reshape((batch * K,) + (1,) * (re.dim() - 1))
+            return torch.where(mask, re, old_leaf)
+
+        state = tree_map(reorder_leaf, new_state, state)
+        it = toks
+
+    return BeamResult(
+        seq=fin_seq.reshape(batch, K, T), logps=fin_logp.reshape(batch, K, T),
+        scores=fin_score.reshape(batch, K),
+        aux=fin_aux.reshape(batch, K, T) if fin_aux is not None else None)
 
 
 def onmt_beam_search(

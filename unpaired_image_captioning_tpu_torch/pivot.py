@@ -66,15 +66,24 @@ def captions_to_nmt_batch(cap_seqs: torch.Tensor, cap2nmt: torch.Tensor, *,
 @torch.inference_mode()
 def pivot_translate(cap_model, nmt_model, feats, cap2nmt: torch.Tensor, *,
                     cap_beam: int = 5, nmt_beam: int = 15,
-                    nmt_max_len: int = 100):
+                    nmt_max_len: int = 100, src2tgt=None):
     """Image features -> zh caption (beam) -> en translation (beam).
-    Returns (zh_seq [B, Tc], en_seq [B, Tn], en_attn_argmax [B, Tn])."""
+    Returns (zh_seq [B, Tc], en_seq [B, Tn], en_attn_argmax [B, Tn]).
+
+    src2tgt: an optional Dict.align map; with a copy-attention NMT the
+    translation beam then runs over the extended vocab, and en_seq comes
+    back collapsed (exact copies as UNK), with each copy's source position
+    in place of the attention argmax: exact copies win."""
     res = cap_model.sample_beam(feats, beam_size=cap_beam)
     zh = res.seq[:, 0]                                     # top beam [B, Tc]
     src, lengths = captions_to_nmt_batch(zh, cap2nmt)      # cap2nmt[0] = PAD
     tr = nmt_model.translate_batch(src, lengths, beam_size=nmt_beam,
-                                   max_len=nmt_max_len)
-    return zh, tr.seq[:, 0], tr.aux[:, 0]
+                                   max_len=nmt_max_len, src2tgt=src2tgt)
+    en, aux = tr.seq[:, 0], tr.aux[:, 0]
+    if src2tgt is not None and getattr(nmt_model, "copy_attn", False):
+        en, copy_pos = nmt_model.resolve_extended(en)
+        aux = torch.where(copy_pos >= 0, copy_pos, aux)
+    return zh, en, aux
 
 
 def post_edit(zh, en, attn, zh_vocab: dict, nmt_tgt_itos: dict, *,

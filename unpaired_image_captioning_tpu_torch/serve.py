@@ -152,16 +152,19 @@ class PivotService:
     """Feature-in, (zh caption, en caption)-out service: the headline
     unpaired task (caption beam -> id remap -> NMT beam) per micro-batch,
     with UNK -> attention-argmax surface replacement and contraction
-    expansion on the way out."""
+    expansion on the way out. With `src2tgt` (Dict.align) a copy-attention
+    NMT decodes over the extended vocab and its exact copies replace UNK."""
 
     def __init__(self, cap_model, nmt_model, zh_vocab: dict,
                  nmt_tgt_itos: dict, cap2nmt, *, cap_beam: int = 5,
                  nmt_beam: int = 15, nmt_max_len: int = 20,
                  max_batch: int = 32, max_wait_ms: float = 5.0,
-                 replace_unk: bool = True):
+                 replace_unk: bool = True, src2tgt=None):
         device = cap_model.device
         cap2nmt_t = torch.as_tensor(np.asarray(cap2nmt), dtype=torch.int64,
                                     device=device)
+        s2t = (None if src2tgt is None else torch.as_tensor(
+            np.asarray(src2tgt), dtype=torch.int64, device=device))
 
         def decode_batch(stacked: dict) -> List[dict]:
             with torch.inference_mode():
@@ -169,7 +172,7 @@ class PivotService:
                 zh, en, attn = pivot_translate(
                     cap_model, nmt_model, feats, cap2nmt_t,
                     cap_beam=cap_beam, nmt_beam=nmt_beam,
-                    nmt_max_len=nmt_max_len)
+                    nmt_max_len=nmt_max_len, src2tgt=s2t)
                 zh_np, en_np = zh.cpu().numpy(), en.cpu().numpy()
                 attn_np = attn.cpu().numpy()
             zh_caps, en_caps = post_edit(zh_np, en_np, attn_np, zh_vocab,

@@ -79,7 +79,7 @@ from .optimizer import DualOptim
 
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
                "masks", "gts", "gts_masks")
-_NMT_KEYS = ("src", "tgt", "lengths")
+_NMT_KEYS = ("src", "tgt", "lengths", "src_feats")
 
 
 class Trainer:
@@ -177,18 +177,17 @@ class Trainer:
     def _nmt_terms(self, data, metrics: Dict[str, torch.Tensor]):
         """The NMT loss and the losses coupled to it; returns their sum."""
         cfg = self.cfg
-        if data["nmt"].get("src_feats") is not None:
-            # the port's NMT models take no source-feature LUTs: training
-            # on without them would drop the features silently
-            raise NotImplementedError(
-                "an NMT batch with src_feats: source word features are not "
-                "ported yet (ROADMAP A11)")
         nb = self._batch(data["nmt"], _NMT_KEYS)
         src, lengths, tgt = nb["src"].long(), nb["lengths"].long(), \
             nb["tgt"].long()
+        # `word￨feat` streams ride only when the corpus has them (only the
+        # BiLSTM NMT takes them, as in JAX)
+        fk = {"src_feats": nb["src_feats"]} if "src_feats" in nb else {}
         nmt = self.nmt_model
+        # the plain generator's NLL also for a copy-attention NMT, as the
+        # JAX trainer: its copy gate and copy attention get no gradient
         outs, _ = nmt.forward(src, lengths, tgt, training=True,
-                              generator=self.generator)
+                              generator=self.generator, **fk)
         logits = nmt.generator_logits(outs)
         nmt_l, stats = nmt_loss(logits, tgt[:, 1:],
                                 label_smoothing=cfg.label_smoothing)
@@ -203,7 +202,8 @@ class Trainer:
             total = total + wemb
         if cfg.nmt_kld_train_flag and self.nmt_teacher is not None:
             with torch.no_grad():
-                t_outs, _ = self.nmt_teacher.forward(src, lengths, tgt)
+                t_outs, _ = self.nmt_teacher.forward(src, lengths, tgt,
+                                                     **fk)
                 t_probs = torch.softmax(
                     self.nmt_teacher.generator_logits(t_outs), dim=-1)
             kld = kld_loss(torch.log_softmax(logits, dim=-1), t_probs)
