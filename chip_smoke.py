@@ -215,6 +215,27 @@ the copy model behind `pivot_translate` (images/s beside the plain NMT's),
 extended` / `fold`. Its B1, B2 and B4 launches join the kernels line, and
 every shape it gives them must be one the checks hold.
 
+Then the fork's post-norm transformer (`phase_fork_transformer`, ROADMAP
+A12) at d 512, d_inner 2,048, 6 + 6 layers, 8 heads on NMT's
+vocabularies, loaded through `convert_fork_transformer` from a seeded
+fork state dict: teacher-forced logprobs and attention of 50 sentences
+of 20 words card vs CPU, `translate_greedy` to 50 token-identical on 4
+sentences (generator sharpened), and its greedy sentences/s on 50; no
+kernel serves it (plain torch, as XLA in JAX). Then scale-out
+(`phase_scale_out`, A14): the joint denseatt + BiLSTM NMT step with
+Weight_Trans at the recipe's global batch (50 images x 5 captions, 50
+pairs; SGD with momentum, dropout off), twice, then a joint SCST step on
+given samples and a beam-3 decode, on one device as the reference and
+then on the routes chosen from the card count: 2 gloo ranks sharing the
+card ("2", and "1x2" with the captioner's tensor-parallel placements),
+one NCCL rank, and 2 NCCL ranks across cards where two are visible. Each
+route's losses and parameters equal the reference's within 1e-5, each
+rank launches B1, B2 and B9, each "1x2" rank holds half of every
+model-sharded leaf, and the "2" route's checkpoint loads into a
+one-device Trainer bit for bit; every shape the ranks give B1, B2 and B9
+is held against its plain version, and rank 0's launches on "2" join the
+kernels line.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -793,6 +814,7 @@ def phase_device() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0].strip()
+    CARD[:] = [card]
     log(card)
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -7050,6 +7072,450 @@ def phase_nmt_extras(dev) -> tuple:
     return counts, cells, topk
 
 
+# ---------------------------------------------------------------------------
+# the fork's post-norm transformer (ROADMAP A12)
+# ---------------------------------------------------------------------------
+
+# the fork's transformer at full width on the NMT's vocabularies
+FORK = dict(d_model=512, d_inner=2048, num_layers=6, num_heads=8)
+FORK_SENTS, FORK_SRC_LEN, FORK_TGT_LEN = 50, 20, 20
+FORK_MAX_LEN = 50     # translate_greedy's max_len
+FORK_AGREE = 4        # sentences greedy-decoded card vs CPU
+CARD = []             # nvidia-smi's "name, power.limit" (phase_device)
+
+
+def make_fork_state_dict(seed: int = 0) -> dict:
+    """A fork checkpoint's state dict (the `-encoder_layer transformer
+    -decoder_layer transformer` layout `convert_fork_transformer` reads) at
+    FORK's widths and NMT's vocabularies, seeded: weights normal / sqrt(in),
+    embeddings normal x 0.1, LayerNorm gains 1 and biases 0."""
+    rs = np.random.RandomState(seed)
+    d, f = FORK["d_model"], FORK["d_inner"]
+
+    def w(out, inp):
+        return (rs.randn(out, inp) / inp ** 0.5).astype(np.float32)
+
+    def zeros(n):
+        return np.zeros((n,), np.float32)
+
+    state = {
+        "encoder.embeddings.word_lut.weight": (rs.randn(
+            NMT["src_vocab_size"], d) * 0.1).astype(np.float32),
+        "decoder.embeddings.word_lut.weight": (rs.randn(
+            NMT["tgt_vocab_size"], d) * 0.1).astype(np.float32),
+        "generator.0.weight": w(NMT["tgt_vocab_size"], d),
+        "generator.0.bias": zeros(NMT["tgt_vocab_size"])}
+    for side, atts in (("encoder", ("self_attn",)),
+                       ("decoder", ("self_attn", "context_attn"))):
+        for i in range(FORK["num_layers"]):
+            p = f"{side}.transformer.{i}"
+            for a in atts:
+                for n in ("query", "keys", "values"):
+                    state[f"{p}.{a}.linear_{n}.weight"] = w(d, d)
+                state[f"{p}.{a}.layer_norm.a_2"] = np.ones((d,), np.float32)
+                state[f"{p}.{a}.layer_norm.b_2"] = zeros(d)
+            ff = f"{p}.feed_forward"
+            state[f"{ff}.w_1.weight"], state[f"{ff}.w_1.bias"] = w(f, d), \
+                zeros(f)
+            state[f"{ff}.w_2.weight"], state[f"{ff}.w_2.bias"] = w(d, f), \
+                zeros(d)
+            state[f"{ff}.layer_norm.a_2"] = np.ones((d,), np.float32)
+            state[f"{ff}.layer_norm.b_2"] = zeros(d)
+    return state
+
+
+def phase_fork_transformer(dev) -> None:
+    """The fork's post-norm transformer (`models/fork_transformer.py`) at
+    FORK's widths, loaded through `convert_fork_transformer` from a seeded
+    fork state dict, on the card and on the CPU: teacher-forced logprobs
+    of FORK_SENTS sentences of FORK_SRC_LEN words (some PAD-padded) within
+    AGREE_TOL, then `translate_greedy` to FORK_MAX_LEN with the generator
+    sharpened (AGREE_SHARPEN) token-identical on FORK_AGREE sentences, and
+    the card's greedy sentences/s on all FORK_SENTS. The model is plain
+    torch, as XLA computes it in JAX: no kernel of the port serves it."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.models.fork_transformer import (
+        ForkTransformerNMT)
+
+    t0 = time.perf_counter()
+    state = make_fork_state_dict(0)
+    models = {d: ForkTransformerNMT.from_fork_state_dict(
+        state, num_heads=FORK["num_heads"], device=d).eval()
+        for d in (dev, "cpu")}
+    del state
+    card, cpu = models[dev], models["cpu"]
+    if (card.num_layers, card.d_model, card.d_inner) != (
+            FORK["num_layers"], FORK["d_model"], FORK["d_inner"]):
+        raise AssertionError("fork transformer: the widths read from the "
+                             "state dict are not FORK's")
+    rs = np.random.RandomState(21)
+    src = rs.randint(4, NMT["src_vocab_size"], (FORK_SENTS, FORK_SRC_LEN))
+    lengths = rs.randint(8, FORK_SRC_LEN + 1, FORK_SENTS)
+    lengths[0] = FORK_SRC_LEN
+    src[np.arange(FORK_SRC_LEN)[None, :] >= lengths[:, None]] = 0
+    tgt = rs.randint(4, NMT["tgt_vocab_size"], (FORK_SENTS, FORK_TGT_LEN))
+    tgt[:, 0] = NMT_BOS
+    src_t, tgt_t = torch.from_numpy(src), torch.from_numpy(tgt)
+    with torch.no_grad():
+        lp_card, attn_card = card(src_t.to(dev), tgt_t.to(dev))
+        lp_cpu, attn_cpu = cpu(src_t, tgt_t)
+    err = max((lp_card.cpu() - lp_cpu).abs().max().item(),
+              (attn_card.cpu() - attn_cpu).abs().max().item())
+    if not (err <= AGREE_TOL and torch.isfinite(lp_card).all()):
+        raise AssertionError(f"fork transformer: teacher-forced logprobs or "
+                             f"attention card vs CPU max|diff| {err} > "
+                             f"{AGREE_TOL}")
+    with torch.no_grad():
+        for m in (card, cpu):
+            m.generator.w.mul_(AGREE_SHARPEN)
+    few = src_t[:FORK_AGREE]
+    got = card.translate_greedy(few.to(dev), max_len=FORK_MAX_LEN).cpu()
+    want = cpu.translate_greedy(few, max_len=FORK_MAX_LEN)
+    if not torch.equal(got, want):
+        raise AssertionError(f"fork transformer: greedy tokens card vs CPU "
+                             f"differ: {got.tolist()} vs {want.tolist()}")
+    card.translate_greedy(few.to(dev), max_len=FORK_MAX_LEN)   # warm
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = card.translate_greedy(src_t.to(dev), max_len=FORK_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    if out.shape != (FORK_SENTS, FORK_MAX_LEN - 1):
+        raise AssertionError(f"fork transformer: greedy output {out.shape}")
+    ended = int((out == NMT_EOS).any(1).sum())
+    del models, card, cpu
+    torch.cuda.empty_cache()
+    log(f"fork transformer (d {FORK['d_model']}, d_inner {FORK['d_inner']}, "
+        f"{FORK['num_layers']} + {FORK['num_layers']} layers, "
+        f"{FORK['num_heads']} heads, vocabularies {NMT['src_vocab_size']} / "
+        f"{NMT['tgt_vocab_size']}): teacher-forced logprobs and attention of "
+        f"{FORK_SENTS} x {FORK_SRC_LEN} card vs CPU max|diff| {err:.3g} (tol "
+        f"{AGREE_TOL}); greedy to {FORK_MAX_LEN} of {FORK_AGREE} sentences "
+        f"token-identical (generator x {AGREE_SHARPEN:g}); "
+        f"{FORK_SENTS} sentences greedy in {wall * 1e3:.1f} ms = "
+        f"{FORK_SENTS / wall:.1f} sentences/s ({ended} ended in EOS) on "
+        f"{CARD[0] if CARD else 'the card'}; plain torch, no kernel; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# scale-out on torch.distributed (ROADMAP A14)
+# ---------------------------------------------------------------------------
+
+# the joint recipe's step at its global batch (50 images x 5 captions, the
+# NMT's 50 pairs), dropout off and SGD with momentum (linear in the
+# gradient, so sums in another order stay far below the tolerance; Adam
+# would divide near-zero gradients by their own noise)
+SCALE_TRAIN = dict(JOINT_TRAIN, drop_prob_lm=0.0, dropout=0.0, seq_per_img=5,
+                   i2t_optim="sgdm", i2t_learning_rate=1e-2,
+                   nmt_optim="sgdm", nmt_learning_rate=1e-2,
+                   nmt_max_grad_norm=5.0, nmt_kld_train_flag=False)
+SCALE_IMAGES, SCALE_CAPS = 50, 5
+SCALE_DF_IMAGES = 300   # the df table's corpus (the first 50 are the gts)
+SCALE_TOL = 1e-5        # losses and parameters, N ranks vs the card's one
+SCALE_KERNELS = ("lstm_cell", "row_topk", "additive_attention")
+
+
+def _scale_batch() -> tuple:
+    """(the joint step's host batch with the SCST gts, the given (gen,
+    greedy) samples [250, 16], the df corpus), seeded: each image's
+    features repeated over its 5 caption rows, as the loader gives them."""
+    rs = np.random.RandomState(31)
+    fc, att = make_features(rs, SCALE_IMAGES)
+    rows = SCALE_IMAGES * SCALE_CAPS
+    v, t = CAP["vocab_size"], CAP["seq_length"]
+    att_masks = np.ones((SCALE_IMAGES, N_SLOTS), np.float32)
+    att_masks[1, 150:] = 0.0
+    labels = np.zeros((rows, t + 2), np.int64)
+    masks = np.zeros((rows, t + 2), np.float32)
+    for i, length in enumerate(rs.randint(5, t + 1, rows)):
+        labels[i, 1:1 + length] = rs.randint(1, v + 1, length)
+        masks[i, :length + 2] = 1.0
+    batch = {"fc_feats": np.repeat(fc, SCALE_CAPS, 0),
+             "att_feats": np.repeat(att, SCALE_CAPS, 0),
+             "att_masks": np.repeat(att_masks, SCALE_CAPS, 0),
+             "labels": labels, "masks": masks}
+    batch.update(make_nmt_batch(rs, SCALE_IMAGES))
+    p = 1.0 / np.arange(1, v + 1)
+    n = SCALE_DF_IMAGES * SCST_REFS
+    words = rs.choice(v, size=(n, t), p=p / p.sum()) + 1
+    lengths = rs.randint(8, t + 1, n)
+    labels = np.where(np.arange(t)[None, :] < lengths[:, None], words, 0)
+    start = np.arange(SCALE_DF_IMAGES) * SCST_REFS + 1
+    gts = labels[:SCALE_IMAGES * SCST_REFS].reshape(SCALE_IMAGES, SCST_REFS,
+                                                    t)
+    batch["gts"] = np.repeat(gts, SCALE_CAPS, 0)
+    batch["gts_masks"] = np.ones((rows, SCST_REFS), np.float32)
+    gen, greedy = _given_seqs(rs, batch["gts"])
+    return batch, (gen, greedy), (labels.astype(np.int32), start,
+                                  start + SCST_REFS - 1)
+
+
+def _scale_steps(device, mesh, tp: bool, run_dir: str, ref_path: str):
+    """The joint XE step twice (the second timed) and a joint SCST step on
+    given samples, with TRAIN_KERNEL on, then a beam-3 decode of this data
+    rank's images: on one device (`mesh` None) or as one rank of `mesh`.
+    The launch counts of B1, B2 and B9 are set to 0 just before and read
+    just after, and the shapes given to them recorded. With `ref_path`
+    the parameters are held against the reference's there; else they are
+    saved there. Returns a picklable report."""
+    import hashlib
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.ops.cider import build_df_table
+    from unpaired_image_captioning_tpu_torch.parallel.mesh import (
+        axis, block_bounds)
+    from unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams import (
+        compute_df)
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    batch, (gen, greedy), corpus = _scale_batch()
+    df, n_img = compute_df(*corpus)
+    rs = np.random.RandomState(12)
+    cap_rows = 1 + rs.permutation(CAP["vocab_size"])[:JOINT_ROWS]
+    src_rows = 4 + rs.permutation(NMT["src_vocab_size"] - 4)[:JOINT_ROWS]
+    tr = Trainer(Config(**dict(SCALE_TRAIN, checkpoint_path=run_dir)),
+                 device=device, mesh=mesh, tensor_parallel=tp,
+                 joint_vocab=(cap_rows, src_rows),
+                 df_table=build_df_table(df, n_img, device=device))
+    _, d_rank, d_size = axis(mesh, "data")
+    rows = SCALE_IMAGES * SCALE_CAPS
+    lo, hi = block_bounds(rows, d_size, d_rank)
+    given = {True: torch.from_numpy(greedy[lo:hi]).to(device),
+             False: torch.from_numpy(gen[lo:hi]).to(device)}
+    tr.i2t_model.sample = lambda feats, *, greedy=True, **_: (given[greedy],
+                                                              None)
+    old = _train_kernel_flag(True)
+    shapes = {}
+    att = aak.additive_attention
+
+    def att_spy(p_att, att_h, alpha, mask, emb):
+        shapes.setdefault("additive_attention", set()).add(
+            (p_att.shape[0], p_att.shape[1], p_att.shape[2], emb.shape[2]))
+        return att(p_att, att_h, alpha, mask, emb)
+
+    aak.additive_attention = att_spy
+    lk.launches = tk.launches = aak.launches = 0
+    try:
+        with _recording_shapes(shapes):
+            m1 = tr.train(batch)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            m2 = tr.train(batch)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            m3 = tr.train(batch, sc_flag=True)
+            first = np.arange(0, rows, SCALE_CAPS)
+            ilo, ihi = block_bounds(SCALE_IMAGES, d_size, d_rank)
+            feats = Features(*(torch.from_numpy(batch[k][first][ilo:ihi]).to(
+                device) for k in ("fc_feats", "att_feats")), None,
+                torch.from_numpy(batch["att_masks"][first][ilo:ihi]).to(
+                    device))
+            with tr.whole_params(), torch.no_grad():
+                seq = tr.i2t_model.sample_beam(feats, beam_size=3).seq
+            torch.cuda.synchronize(device)
+        counts = {"lstm_cell": lk.launches, "row_topk": tk.launches,
+                  "additive_attention": aak.launches}
+    finally:
+        aak.additive_attention = att
+        _train_kernel_flag(*old)
+    shard_shapes = {f"{key}.{k}": (tuple(s.params[k].shape), s.dims[k])
+                    for key, s in tr.shards.items() for k in s.dims}
+    report = {"metrics": [m1, m2, m3], "wall": wall, "counts": counts,
+              "shapes": {k: sorted(v, key=str) for k, v in shapes.items()},
+              "shards": shard_shapes, "beam": tuple(seq.shape)}
+    with tr.whole_params():
+        whole = {f"{key}.{k}": v.detach()
+                 for key, model in tr._models() if model is not None
+                 for k, v in model.state_dict().items()}
+        if mesh is None:
+            torch.save({k: v.cpu() for k, v in whole.items()}, ref_path)
+        else:
+            ref = torch.load(ref_path, map_location=device, weights_only=True)
+            worst, name = 0.0, ""
+            for k, v in whole.items():
+                torch.testing.assert_close(v, ref[k], rtol=SCALE_TOL,
+                                           atol=SCALE_TOL, msg=lambda m: (
+                                               f"{k}: {m}"))
+                e = (v - ref[k]).abs().max().item()
+                if e > worst:
+                    worst, name = e, k
+            report["param_err"] = (worst, name)
+            report["whole_shapes"] = {k: tuple(v.shape)
+                                      for k, v in whole.items()}
+        report["digest"] = {k: hashlib.sha256(v.cpu().numpy().tobytes())
+                            .hexdigest() for k, v in whole.items()}
+    if mesh is not None and run_dir:
+        tr.save()
+    return report
+
+
+def _scale_rank(rank, world, mesh_shape, tp, run_dir, ref_path):
+    """One rank of a scale-out route (started by `launch.run_ranks`)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(world, mesh_shape)
+    return _scale_steps(torch.device("cuda", torch.cuda.current_device()),
+                        mesh, tp, run_dir, ref_path)
+
+
+def phase_scale_out(dev, root: str) -> tuple:
+    """Scale-out (`parallel/`, the trainer's `mesh=`) at the joint recipe's
+    width and global batch (SCALE_TRAIN: denseatt + BiLSTM NMT with
+    Weight_Trans, 50 images x 5 captions): the card's one-device steps
+    (`_scale_steps`) are the reference; then, on routes chosen from the
+    card count before any runs, the same steps on ranks that share the
+    card over gloo ("2", and "1x2" with the tensor-parallel placements),
+    on one NCCL rank, and across cards over NCCL where two are visible.
+    Each route's losses and parameters must equal the reference's within
+    SCALE_TOL, each rank must launch B1, B2 and B9, each "1x2" rank must
+    hold half of every model-sharded leaf, and the "2" route's checkpoint
+    must load into a one-device Trainer bit for bit. Every shape the ranks
+    give B1, B2 and B9 is then held against its plain version. Returns
+    (rank 0's launches on the "2" route, the cells' and the top-k
+    records)."""
+    import os
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.ops import attention as ao
+    from unpaired_image_captioning_tpu_torch.parallel import launch
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    routes = [("gloo 2 ranks on one card", 2, "data", "gloo", False,
+               ["cuda:0"] * 2),
+              ("gloo 1x2 ranks on one card (tensor parallel)", 2, "1x2",
+               "gloo", True, ["cuda:0"] * 2),
+              ("nccl 1 rank", 1, "data", "nccl", False, ["cuda:0"])]
+    if n_cards >= 2:
+        routes.append(("nccl 2 ranks on two cards", 2, "data", "nccl", False,
+                       ["cuda:0", "cuda:1"]))
+    log(f"scale-out: {n_cards} card(s) visible, so the routes are: "
+        + "; ".join(r[0] for r in routes)
+        + ("" if n_cards >= 2 else " (no NCCL route across cards: one card)")
+        + ". gloo carries the ranks' CUDA tensors through host copies "
+        "(parallel/mesh.py stages every collective), so the 1x2 route runs "
+        "on the card.")
+    ref_path = os.path.join(root, "scale_ref.pt")
+    ref = _scale_steps(dev, None, False, "", ref_path)
+    t_ref = time.perf_counter()
+    reports = {}
+    for label, world, shape, backend, tp, devices in routes:
+        # the first route writes the checkpoint that is loaded below
+        run_dir = os.path.join(root, "scale_ckpt") if not reports else ""
+        t1 = time.perf_counter()
+        ranks = launch.run_ranks(_scale_rank, world,
+                                 (shape, tp, run_dir, ref_path),
+                                 backend=backend, timeout=300.0,
+                                 devices=devices)
+        for r, rep in enumerate(ranks):
+            for i, (got, want) in enumerate(zip(rep["metrics"],
+                                                ref["metrics"])):
+                for k, w in want.items():
+                    if not abs(got[k] - w) <= SCALE_TOL * max(1.0, abs(w)):
+                        raise AssertionError(
+                            f"scale-out {label}: rank {r} step {i + 1} {k} "
+                            f"{got[k]} vs one device's {w}")
+            if not all(rep["counts"][k] for k in SCALE_KERNELS):
+                raise AssertionError(f"scale-out {label}: rank {r} did not "
+                                     f"launch every kernel: {rep['counts']}")
+            if tp:
+                if not rep["shards"]:
+                    raise AssertionError(f"scale-out {label}: rank {r} "
+                                         "holds no model-sharded leaf")
+                for leaf, (shp, dim) in rep["shards"].items():
+                    whole = rep["whole_shapes"][leaf]
+                    half = tuple(w // 2 if i == dim else w
+                                 for i, w in enumerate(whole))
+                    if shp != half:
+                        raise AssertionError(
+                            f"scale-out {label}: rank {r} holds {leaf} "
+                            f"{shp}, not half of {whole}")
+        reports[label] = (ranks, time.perf_counter() - t1, run_dir)
+    t_routes = time.perf_counter()
+
+    # the checkpoint of the "2" route into a one-device Trainer
+    ranks, _, run_dir = reports[routes[0][0]]
+    tr = Trainer(Config(**dict(SCALE_TRAIN, checkpoint_path=run_dir)),
+                 device=dev)
+    infos = tr.load()
+    import hashlib
+
+    for key, model in tr._models():
+        for k, v in model.state_dict().items():
+            h = hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+            if h != ranks[0]["digest"][f"{key}.{k}"]:
+                raise AssertionError(f"scale-out: the 2-rank checkpoint's "
+                                     f"{key}.{k} differs from the ranks'")
+    if infos["iter"] != 3 or len(infos["data_generators"]) != 2:
+        raise AssertionError(f"scale-out: checkpoint infos {infos['iter']}")
+    del tr
+
+    # every shape the ranks gave B1, B2 and B9, against the plain versions
+    seen = {}
+    for rep in [ref] + [x for v in reports.values() for x in v[0]]:
+        for k, v in rep["shapes"].items():
+            seen.setdefault(k, set()).update(tuple(s) for s in v)
+    cell_rows = {}
+    for b, d, h, maxout in seen.get("lstm_cell", ()):
+        cell_rows.setdefault((d, h, maxout), set()).add(b)
+    cells, topk = _family_cells(
+        dev, [(f"scale-out G={5 if m else 4} {d}->{h}", d, h, m,
+               tuple(sorted(rows)))
+              for (d, h, m), rows in sorted(cell_rows.items())],
+        [(f"scale-out beam rows {r}", r, v, k)
+         for r, v, k in sorted(seen.get("row_topk", ()))],
+        timed=set(), topk_timed=set(), seed=23)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    worst = 0.0
+    for widths in sorted(seen.get("additive_attention", ())):
+        args = _att_inputs(dev, gen, None, widths)
+        worst = max(worst, _att_check(f"additive_attention {widths}",
+                                      [aak.additive_attention(*args)],
+                                      [ao.reference_attention(*args)]))
+    log(f"scale-out additive_attention at {sorted(seen['additive_attention'])}"
+        f": max|diff| / max(1, max|plain|) {worst:.3g} (tol {ATT_TOL})")
+    end = time.perf_counter()
+    ref_wall = ref["wall"]
+    lines = [f"one device: joint XE step {ref_wall * 1e3:.1f} ms, losses "
+             + ", ".join(f"{k} {v:.6f}" for k, v in ref["metrics"][1].items()
+                         if k.endswith("loss"))]
+    for label, (ranks, secs, _) in reports.items():
+        errs = [r.get("param_err", (0.0, ""))[0] for r in ranks]
+        lines.append(
+            f"{label}: joint XE step " + " / ".join(
+                f"{r['wall'] * 1e3:.1f}" for r in ranks)
+            + f" ms (rank walls; {ranks[0]['wall'] / ref_wall:.2f}x one "
+            f"device), parameters max|diff| {max(errs):.3g}, losses within "
+            f"{SCALE_TOL}, launches " + " / ".join(
+                str(r["counts"]) for r in ranks)
+            + (f", {len(ranks[0]['shards'])} leaves in halves"
+               if ranks[0]["shards"] else "") + f"; route {secs:.1f} s")
+    log("scale-out on " + (CARD[0] if CARD else "the card") + ": "
+        + "; ".join(lines) + f"; the 2-rank checkpoint loads into a "
+        f"one-device Trainer bit for bit; phase seconds: reference "
+        f"{t_ref - t0:.1f}, routes {t_routes - t_ref:.1f}, checks "
+        f"{end - t_routes:.1f}; all {end - t0:.1f}")
+    return reports[routes[0][0]][0][0]["counts"], cells, topk
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7213,6 +7679,15 @@ def main(argv=None) -> int:
     kernels["lstm_cell"]["shapes"] += nmtx_cells
     kernels["row_topk"]["shapes"] += nmtx_topk
     mark("diverse beams and NMT extras (A10, A11)")
+    phase_fork_transformer(dev)
+    mark("fork transformer (A12)")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="scale-out-") as root:
+        scale_counts, scale_cells, scale_topk = phase_scale_out(dev, root)
+    kernels["lstm_cell"]["shapes"] += scale_cells
+    kernels["row_topk"]["shapes"] += scale_topk
+    mark("scale-out (A14)")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -7236,7 +7711,8 @@ def main(argv=None) -> int:
     for name, n in (list(recipe_counts.items()) + list(eval_counts.items())
                     + list(raw_counts.items())
                     + list(family_counts.items())
-                    + list(nmtx_counts.items())):
+                    + list(nmtx_counts.items())
+                    + list(scale_counts.items())):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -25,7 +25,8 @@ rounds features to bf16).
   `pivot_translate` and `eval_split_coco_unpaired` with `src2tgt`) give
   the JAX CLIs' outputs.
 - `src2tgt` on an NMT without copy attention changes nothing;
-  `--num_devices 2` raises naming its queue item; `utils/text.py`'s
+  `eval_paired --num_devices 2` on two CPU ranks writes what one device
+  writes; `utils/text.py`'s
   converters and `self_bleu` equal JAX's.
 
 On the card (`cuda`, skipped here): `cli.translate` on the card gives the
@@ -405,10 +406,17 @@ def test_unported_options_raise(runs, tmp_path):
     from unpaired_image_captioning_tpu_torch.cli import eval_paired
     from unpaired_image_captioning_tpu_torch.eval import eval_utils
 
-    # --bn_calibrate runs since A10 (tests/test_torch_batchnorm.py)
-    with pytest.raises(NotImplementedError, match="A14"):
-        _in(tmp_path, lambda: eval_paired.main(runs["argv"](
-            "port", num_devices=2)))
+    # --bn_calibrate runs since A10 (tests/test_torch_batchnorm.py);
+    # --num_devices 2 since A14: two CPU ranks decode a block each, and
+    # rank 0 writes what one device writes
+    outs = {n: _in(tmp_path / f"ranks{n}", lambda n=n: eval_paired.main(
+        runs["argv"]("port", num_devices=n))) for n in (1, 2)}
+    assert outs[2]["predictions"] == outs[1]["predictions"]
+    assert outs[2]["lang_stats"] == outs[1]["lang_stats"]
+    np.testing.assert_allclose(outs[2]["loss"], outs[1]["loss"], rtol=1e-6)
+    written = [(tmp_path / f"ranks{n}" / "eval_results" / "paired_e_test.json"
+                ).read_text() for n in (1, 2)]
+    assert written[0] == written[1]
     # src2tgt runs: handed to an NMT without copy attention (the CLI
     # passes it only to a copy model) it changes no prediction
     from unpaired_image_captioning_tpu_torch.cli import eval_unpaired

@@ -209,10 +209,9 @@ def test_preprocessing_modules_are_checked():
 
 
 def test_port_has_a_file_for_each_jax_module_but_the_queued_ones():
-    """Every module of the JAX package has the port's counterpart, except
-    those of the queue items still open (A12, A14)."""
-    queued = {"models/fork_transformer.py", "parallel/__init__.py",
-              "parallel/mesh.py"}
+    """Every module of the JAX package has the port's counterpart: no queue
+    item of modules is open since A12 and A14 landed."""
+    queued = set()
 
     def listing(pkg):
         base = ROOT / pkg
@@ -241,3 +240,58 @@ def test_eval_ensemble_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval_ensemble.main(["--ids", str(tmp_path)])
+
+
+def test_scale_out_and_fork_modules_are_checked():
+    """The fork transformer and the scale-out modules are among the files
+    the import check reads, and each imports without a card."""
+    import importlib
+
+    mods = ("models/fork_transformer", "parallel/__init__", "parallel/mesh",
+            "parallel/launch", "parallel/dryrun")
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {f"unpaired_image_captioning_tpu_torch/{m}.py"
+            for m in mods} <= names
+    for m in mods:
+        importlib.import_module("unpaired_image_captioning_tpu_torch."
+                                + m.replace("/", ".").replace(".__init__", ""))
+
+
+@pytest.mark.parametrize("build", [
+    lambda dev: __import__(
+        "unpaired_image_captioning_tpu_torch.models.fork_transformer",
+        fromlist=["x"]).ForkTransformerNMT(11, 13, d_model=8, d_inner=8,
+                                           num_layers=1, num_heads=2, **dev),
+    lambda dev: __import__(
+        "unpaired_image_captioning_tpu_torch.parallel.launch",
+        fromlist=["x"]).num_ranks(2, **{"device": "cuda", **dev}),
+], ids=["fork_transformer", "num_ranks"])
+def test_fork_and_scale_out_default_to_the_card(build, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build({})
+    build({"device": "cpu"})
+
+
+@pytest.mark.parametrize("cli", ["train", "eval_paired", "dryrun"])
+def test_scale_out_entry_points_default_to_the_card(cli, monkeypatch,
+                                                    tmp_path):
+    """`cli.train --num_devices 2`, `cli.eval_paired --num_devices 2` and
+    `dryrun_multichip(2)` start their ranks on the cards unless the caller
+    names the CPU, and raise without a card before any rank starts."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    if cli == "dryrun":
+        from unpaired_image_captioning_tpu_torch.parallel.dryrun import (
+            dryrun_multichip)
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dryrun_multichip(2)
+        return
+    mod = importlib.import_module("unpaired_image_captioning_tpu_torch.cli."
+                                  + cli)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--num_devices", "2", "--start_from", str(tmp_path),
+                  "--checkpoint_path", str(tmp_path)])

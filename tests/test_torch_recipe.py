@@ -307,17 +307,30 @@ def test_emergency_checkpoint_when_a_step_raises(assets, monkeypatch):
 @pytest.mark.parametrize("flag,item", [("input_workers", "A9"),
                                        ("num_devices", "A14")])
 def test_unported_cli_options_raise(assets, flag, item):
-    """`--num_devices 2` raises naming scale-out (A14). The feature workers
-    of A9 have landed: `--input_workers 2` trains through to the end
-    (tests/test_torch_prefetch.py holds the run against one without)."""
+    """Both options have landed, so neither raises. The feature workers of
+    A9: `--input_workers 2` trains through to the end
+    (tests/test_torch_prefetch.py holds the run against one without).
+    Scale-out (A14): `--num_devices 2` trains on two CPU ranks over gloo,
+    and its final checkpoint equals the one-device run's within 1e-5."""
     argv = _port(assets["argv"](str(assets["tmp"] / f"x_{flag}"),
                                 **{flag: 2}, max_epochs=1))
     if flag == "input_workers":
         trainer = tcli.main(argv)
         assert trainer.epoch == 1 and trainer.iteration == 3
         return
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv)
+    summary = tcli.main(argv)
+    assert summary["epoch"] == 1 and summary["iter"] == 3
+    one = str(assets["tmp"] / "x_one_device")
+    tcli.main(_port(assets["argv"](one, num_devices=1, max_epochs=1)))
+    for name in ("model_i2t", "model_nmt"):
+        got = torch.load(os.path.join(assets["tmp"], f"x_{flag}",
+                                      f"{name}.pt"), weights_only=True)
+        want = torch.load(os.path.join(one, f"{name}.pt"),
+                          weights_only=True)
+        assert set(got) == set(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                       atol=1e-5)
 
 
 def test_featured_corpus_raises(assets, tmp_path, monkeypatch):
@@ -413,8 +426,9 @@ def test_parse_opt_matches_jax():
     got = tconfig.parse_opt(ARGV + ["--device", "cpu"]).to_dict()
     want = jconfig.parse_opt(ARGV).to_dict()
     assert got.pop("device") == "cpu"
-    for k in ("mesh_shape", "dtype", "param_dtype"):
+    for k in ("dtype", "param_dtype"):
         want.pop(k)
+    assert got["mesh_shape"] == "data"
     assert got == want
     assert got["checkpoint_path"] == "save/x" and got["gpus"] == [0, 1]
     ns_t = vars(tconfig.transfer_args(tconfig.parse_opt(ARGV)))

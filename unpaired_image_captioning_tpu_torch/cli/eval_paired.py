@@ -14,29 +14,55 @@ sidecar, apply checkpoint-opts override with consistency asserts
 
 `--bn_calibrate N` re-estimates the `use_bn` running statistics from N
 train batches before the eval (`models/att.py::calibrate_batch_norm`; for
-converted checkpoints that lack tracked statistics). `--num_devices` above
-1 raises until scale-out (ROADMAP A14).
+converted checkpoints that lack tracked statistics). `--num_devices N`
+(0, the default, is every visible card) decodes on N ranks, one card each,
+each data rank its block of every batch, as `eval_split(mesh=...)` runs
+it; under `torchrun` the CLI joins the group that is there. Rank 0
+prints and writes the results.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 
 def main(argv=None):
+    from ..config import parse_opt
+    from ..models.base import resolve_device
+    from ..parallel import launch
+
+    # the ranks parse the same arguments (a rank's own sys.argv is not
+    # this process's)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = parse_opt(argv)
+    out = launch.scale_out(_rank_main, cfg, argv)
+    if out is not launch.NO_SCALE_OUT:
+        return out
+    return _run(argv, resolve_device(cfg.device))
+
+
+def _rank_main(local_rank, world_size, argv):
+    from ..config import parse_opt
+    from ..parallel import launch
+    from ..parallel.mesh import make_mesh
+
+    cfg = parse_opt(argv)
+    mesh = make_mesh(world_size, "data")
+    return _run(argv, launch.rank_device(cfg.device, local_rank), mesh)
+
+
+def _run(argv, device, mesh=None):
+    import torch.distributed as dist
+
     from .. import models
     from ..config import parse_opt
     from ..eval.eval_utils import eval_split
-    from ..models.base import resolve_device
     from .eval_unpaired import load_model, load_run
     from .train import build_loader
 
     cfg, ckpt, best = load_run(parse_opt(argv))
-    if cfg.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1: the port evaluates on "
-                                  "one card until scale-out (ROADMAP A14)")
-    device = resolve_device(cfg.device)
 
     if cfg.image_folder:
         # raw-image route: folder of images -> on-the-fly ResNet features
@@ -73,7 +99,9 @@ def main(argv=None):
     out = eval_split(model, loader, split="test",
                      num_images=cfg.val_images_use, beam_size=cfg.beam_size,
                      language_eval_refs=refs, model_id=cfg.id,
-                     verbose=True, spice=bool(cfg.spice))
+                     verbose=True, spice=bool(cfg.spice), mesh=mesh)
+    if mesh is not None and dist.get_rank() != 0:
+        return out
     os.makedirs("eval_results", exist_ok=True)
     path = os.path.join("eval_results", f"paired_{cfg.id}_test.json")
     with open(path, "w") as f:

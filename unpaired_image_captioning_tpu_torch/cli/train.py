@@ -18,15 +18,25 @@ Runs on the card unless `--device` names another:
 The label file and the NMT corpus are `.npz` or HDF5 (`data/arrays.py`).
 `--input_workers N` assembles the features in N worker processes
 (`data/prefetch.py`); the batches, and so the run, are bit for bit those
-of `--input_workers 0`. `--num_devices` above 1 (scale-out, ROADMAP A14)
-raises. A corpus with source-feature streams (`src_feat_{j}`) trains the
-BiLSTM NMT with one feature LUT a stream.
+of `--input_workers 0`. A corpus with source-feature streams
+(`src_feat_{j}`) trains the BiLSTM NMT with one feature LUT a stream.
+
+Scale-out: `--num_devices N` (0, the default, is every visible card)
+starts N ranks, one card each over NCCL (`parallel/launch.py`), on the
+mesh `--mesh_shape` names ("data", or "DxM" for data x model); under
+`torchrun` the CLI joins the group that is there instead. Every rank
+reads the same global batch and the trainer's step is the one-device step
+on it; rank 0 prints, logs and writes the checkpoints. With `--device
+cpu` the ranks are CPU processes over gloo.
+
+    torchrun --nproc_per_node 2 -m unpaired_image_captioning_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -53,9 +63,12 @@ def _nmt_data(cfg):
     """The NMT train and valid corpora and dicts; copies the dicts into the
     run directory (eval_unpaired and translate read them there) and sizes
     the NMT vocabularies in `cfg`."""
+    import torch.distributed as dist
+
     from ..data.nmt_dataset import NMTDataset
     from ..vocab import Dict as UDict
 
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     nmt_dataset = NMTDataset.from_h5(
         cfg.input_nmt_h5, cfg.batch_size, shuffle=True, seed=cfg.seed,
         curriculum=cfg.curriculum, batch_shuffle=cfg.extra_shuffle)
@@ -73,9 +86,10 @@ def _nmt_data(cfg):
         cfg.nmt_tgt_vocab_size = nmt_dicts["tgt"].size()
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
         for side in ("src", "tgt"):
-            with open(os.path.join(cfg.checkpoint_path,
-                                   f"{side}_dict.json"), "w") as f:
-                json.dump(dicts[side], f)
+            if writer:
+                with open(os.path.join(cfg.checkpoint_path,
+                                       f"{side}_dict.json"), "w") as f:
+                    json.dump(dicts[side], f)
     if not cfg.nmt_src_vocab_size:
         cfg.nmt_src_vocab_size = int(nmt_dataset.src.max()) + 1
         cfg.nmt_tgt_vocab_size = int(nmt_dataset.tgt.max()) + 1
@@ -119,16 +133,43 @@ def _joint_vocabs(cfg, loader, nmt_dicts):
 
 
 def main(argv=None):
+    """Train on one device and return the trainer; under scale-out return
+    rank 0's summary (`_summary`)."""
     from ..config import parse_opt
     from ..models.base import resolve_device
+    from ..parallel import launch
+
+    # the ranks parse the same arguments (a rank's own sys.argv is not
+    # this process's)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = parse_opt(argv)
+    out = launch.scale_out(_rank_main, cfg, argv)
+    if out is not launch.NO_SCALE_OUT:
+        return out
+    return _run(cfg, resolve_device(cfg.device))
+
+
+def _rank_main(local_rank, world_size, argv):
+    from ..config import parse_opt
+    from ..parallel import launch
+    from ..parallel.mesh import make_mesh
+
+    cfg = parse_opt(argv)
+    mesh = make_mesh(world_size, cfg.mesh_shape)
+    return _summary(_run(cfg, launch.rank_device(cfg.device, local_rank),
+                         mesh))
+
+
+def _summary(trainer) -> dict:
+    return {"iter": trainer.iteration, "epoch": trainer.epoch,
+            "best_cider": trainer.best_cider,
+            "best_nmt_acc": trainer.best_nmt_acc}
+
+
+def _run(cfg, device, mesh=None):
     from ..scripts.prepro_ngrams import load_df_table
     from ..train.trainer import Trainer
 
-    cfg = parse_opt(argv)
-    if cfg.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1: the port trains on one "
-                                  "card until scale-out (ROADMAP A14)")
-    device = resolve_device(cfg.device)
     np.random.seed(cfg.seed)
 
     nmt_dataset = nmt_valid = None
@@ -140,7 +181,7 @@ def main(argv=None):
     cfg.seq_length = loader.seq_length
     joint_vocab, joint_vocab_y = _joint_vocabs(cfg, loader, nmt_dicts)
 
-    trainer = Trainer(cfg, device=device,
+    trainer = Trainer(cfg, device=device, mesh=mesh,
                       df_table=load_df_table(cfg.cached_tokens, device),
                       joint_vocab=joint_vocab, joint_vocab_y=joint_vocab_y)
     histories: dict = {"loss_history": {}, "lr_history": {},
@@ -182,7 +223,8 @@ def _train_loop(cfg, trainer, loader, nmt_valid, histories, prefetcher):
     def loader_state():
         return prefetcher.state_dict() if prefetcher else loader.state_dict()
 
-    logger = MetricLogger(cfg.checkpoint_path)
+    logger = (MetricLogger(cfg.checkpoint_path) if trainer.is_writer
+              else _NoLogger())
     t_start = time.time()
     while True:
         sc_flag = (cfg.self_critical_after >= 0
@@ -195,13 +237,19 @@ def _train_loop(cfg, trainer, loader, nmt_valid, histories, prefetcher):
             metrics = trainer.train(data, sc_flag=sc_flag)
         except Exception as e:
             # emergency checkpoint so the run is resumable after a crash
-            # (SURVEY.md §5.3: the reference's only recovery is --start_from)
-            trainer.ckpt.save(
-                infos=trainer.infos(loader_state(), crash=repr(e)),
-                i2t_state=(trainer.i2t_model.state_dict()
-                           if trainer.i2t_model is not None else None),
-                nmt_state=(trainer.nmt_model.state_dict()
-                           if trainer.nmt_model is not None else None))
+            # (SURVEY.md §5.3: the reference's only recovery is --start_from);
+            # under a mesh rank 0 writes it without a collective, its
+            # parameters only where none is held in shards
+            whole = not trainer.shards
+            if trainer.is_writer:
+                trainer.ckpt.save(
+                    infos=trainer.infos(loader_state(), crash=repr(e)),
+                    i2t_state=(trainer.i2t_model.state_dict()
+                               if trainer.i2t_model is not None and whole
+                               else None),
+                    nmt_state=(trainer.nmt_model.state_dict()
+                               if trainer.nmt_model is not None and whole
+                               else None))
             print(f"FATAL at iter {trainer.iteration}: {e!r} — emergency "
                   f"checkpoint written to {cfg.checkpoint_path}")
             raise
@@ -263,6 +311,13 @@ def _train_loop(cfg, trainer, loader, nmt_valid, histories, prefetcher):
             print(f"done: {trainer.epoch} epochs, {it} iters, "
                   f"{time.time() - t_start:.1f}s")
             return trainer
+
+
+class _NoLogger:
+    """The metric logger of the ranks that do not write."""
+
+    def add_scalars(self, step, scalars) -> None:
+        pass
 
 
 def evaluate(trainer, loader, cfg, nmt_valid=None) -> dict:

@@ -13,11 +13,10 @@ Mirrors the reference's three config idioms (SURVEY.md §5.6):
    prefix (reference ``misc/utils.py:35-40``).
 
 Field names and defaults are the JAX package's, so recipes port 1:1, with
-three differences: `device` (the port's own: where the CLIs build, "cuda"
-unless the caller names another), no `mesh_shape` (the port runs on one
-card until scale-out, ROADMAP A14: `num_devices` above 1 raises in the
-CLI), and no `dtype` / `param_dtype` (the port computes in f32, ROADMAP
-A15). The port's entry points read a config by attribute, so a JAX
+two differences: `device` (the port's own: where the CLIs build, "cuda"
+unless the caller names another; `num_devices` counts ranks on its kind
+of device, 0 being every visible card: `parallel.launch.num_ranks`), and no `dtype` /
+`param_dtype` (the port computes in f32, ROADMAP A15). The port's entry points read a config by attribute, so a JAX
 `Config` works as well as this one.
 """
 
@@ -231,8 +230,8 @@ class Config:
     id: str = ""
     train_only: int = 0
     gpus: List[int] = field(default_factory=list)  # kept for CLI parity; ignored
-    # 0 or 1: the one card of `device`; more raises (scale-out, ROADMAP A14)
-    num_devices: int = 0
+    num_devices: int = 0                  # 0 = all visible devices
+    mesh_shape: str = "data"              # parallel axis spec, see parallel/mesh.py
     # where the CLIs build the models and run the steps (the port's own)
     device: str = "cuda"
 
@@ -291,7 +290,7 @@ EVAL_OVERRIDE_KEYS = frozenset({
     "input_box_cls_prob_dir", "input_json", "input_coco_json",
     "input_label_h5", "input_label_coco_h5", "input_fc_h5", "input_att_h5",
     "input_nmt_h5", "input_nmt_pt", "input_nmt_dict", "checkpoint_path",
-    "num_devices", "gpus", "seed", "device",
+    "num_devices", "mesh_shape", "gpus", "seed", "device",
     "image_folder", "image_size", "spice", "resnet_depth",
     "eval_30k", "eval_30k_mode", "flickr_refs", "flickr_ids", "bn_calibrate",
 })

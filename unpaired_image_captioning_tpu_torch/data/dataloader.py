@@ -26,9 +26,11 @@ capped at `max_att_len`, gts are padded tensors instead of ragged lists,
 and `get_batch` is a plan phase (every draw of the loader's state) and a
 feature-assembly phase (file reads and padding, no state: a
 `FeatureReader`, which the feature workers of `data/prefetch.py` run from
-a pickled copy). The
-multi-host striping of the training split waits for scale-out (ROADMAP
-A14), and `feat_dtype="bfloat16"` for the compute dtype (A15).
+a pickled copy). With
+`num_hosts` > 1 each host owns the stripe of the training split whose
+image indices are `host_id` modulo `num_hosts` (the eval splits stay
+global, so every host can score). `feat_dtype="bfloat16"` waits for the
+compute dtype (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -214,6 +216,7 @@ class CaptionDataLoader:
                  input_fc_h5: str = "", input_att_h5: str = "",
                  nmt_dataset: Optional[NMTDataset] = None,
                  in_memory: Optional[dict] = None, seed: int = 123,
+                 host_id: int = 0, num_hosts: int = 1,
                  feat_dtype: str = "float32"):
         if feat_dtype != "float32":
             raise NotImplementedError(
@@ -257,6 +260,10 @@ class CaptionDataLoader:
         self.label_end_ix = arrays["label_end_ix"].astype(np.int64)
         self.seq_length = self.labels.shape[1]
 
+        # multi-host input sharding: each host owns a disjoint stripe of
+        # the training split; eval splits stay global so every host scores
+        self.host_id = host_id
+        self.num_hosts = num_hosts
         self.split_ix: Dict[str, List[int]] = {"train": [], "val": [],
                                                "test": []}
         for ix, img in enumerate(self.images):
@@ -264,6 +271,9 @@ class CaptionDataLoader:
             if split == "restval":
                 split = "train"
             if split in self.split_ix:
+                if (split == "train" and num_hosts > 1
+                        and ix % num_hosts != host_id):
+                    continue
                 self.split_ix[split].append(ix)
         self.iterators = {k: 0 for k in self.split_ix}
         self._perm = {k: np.asarray(v, np.int64)

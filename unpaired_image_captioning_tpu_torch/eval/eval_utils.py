@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..losses.criterion import NMTStats, language_model_loss, nmt_loss
 from ..models.base import Features
@@ -125,12 +126,23 @@ def eval_split(model, loader, *, split: str = "val", num_images: int = -1,
                dataset_type: str = "zh", model_id: str = "model",
                nmt_model=None, nmt_valid=None, verbose: bool = False,
                spice: bool = False,
-               eval_results_dir: str = "eval_results") -> dict:
+               eval_results_dir: str = "eval_results", mesh=None) -> dict:
     """Main val loop (parity: eval_utils.eval_split :208-327) on the
     model's device. Greedy decoding at beam_size 1, else the beam's best.
 
+    `mesh`: a `parallel.make_mesh` mesh, every rank calling with the same
+    loader state. Each data rank decodes its contiguous block of each
+    batch's images, and the blocks are gathered in rank order, so the
+    predictions are in image order and equal one device's; the XE loss and
+    the NMT valid pass run whole on every rank. Rank 0 scores and writes
+    the eval cache and passes the scores on, so every rank returns the
+    same dict.
+
     Returns {'loss', 'predictions', 'lang_stats', 'nmt_stats'}.
     """
+    from ..parallel.mesh import axis, block_bounds, gather_objects
+
+    group, d_rank, d_size = axis(mesh, "data")
     device = model.device
     loader.reset_iterator(split)
     n_total = len(loader.split_ix[split])
@@ -165,10 +177,19 @@ def eval_split(model, loader, *, split: str = "val", num_images: int = -1,
         first = torch.arange(0, feats.fc_feats.shape[0], spi, device=device)
         feats1 = Features(*(x[first] if x is not None else None
                             for x in feats))
-        if beam_size > 1:
+        if d_size > 1:
+            lo, hi = block_bounds(len(first), d_size, d_rank)
+            feats1 = Features(*(x[lo:hi] if x is not None else None
+                                for x in feats1))
+        if feats1.fc_feats.shape[0] == 0:
+            seq = torch.zeros((0, model.seq_length), dtype=torch.long)
+        elif beam_size > 1:
             seq = model.sample_beam(feats1, beam_size=beam_size).seq[:, 0]
         else:
             seq = model.sample(feats1, greedy=True)[0]
+        if d_size > 1:
+            seq = torch.from_numpy(np.concatenate(gather_objects(
+                seq.cpu().numpy(), group)))
         batch_infos = []
         for info in data["infos"]:
             fresh = info["id"] not in seen
@@ -197,11 +218,17 @@ def eval_split(model, loader, *, split: str = "val", num_images: int = -1,
     predictions = predictions[:budget]
 
     lang_stats = None
-    if language_eval_refs is not None:
+    if language_eval_refs is not None and (mesh is None
+                                           or torch.distributed.get_rank()
+                                           == 0):
         lang_stats = language_eval(dataset_type, predictions, model_id, split,
                                    references=language_eval_refs,
                                    spice=spice,
                                    eval_results_dir=eval_results_dir)
+    if mesh is not None:
+        box = [lang_stats]
+        torch.distributed.broadcast_object_list(box, src=0)
+        lang_stats = box[0]
 
     nmt_stats = None
     if nmt_model is not None and nmt_valid is not None:

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as C
+from ..parallel.mesh import mean_share, global_sum
 
 
 def language_model_loss(logprobs, targets: torch.Tensor,
@@ -40,7 +41,7 @@ def language_model_loss(logprobs, targets: torch.Tensor,
     tg = targets[:, :t].long()
     mk = masks[:, :t].to(torch.float32)
     nll = -torch.gather(lp, -1, tg[..., None])[..., 0]
-    return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+    return (nll * mk).sum() / torch.clamp(global_sum(mk.sum()), min=1.0)
 
 
 def reward_loss(sample_logprobs: torch.Tensor, gen_seq: torch.Tensor,
@@ -59,7 +60,7 @@ def reward_loss(sample_logprobs: torch.Tensor, gen_seq: torch.Tensor,
     nonzero = (gen_seq > 0).to(torch.float32)
     mask = torch.cat([torch.ones_like(nonzero[:, :1]), nonzero[:, :-1]], 1)
     out = -sample_logprobs * rewards * mask
-    return out.sum() / torch.clamp(mask.sum(), min=1.0)
+    return out.sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 class NMTStats(NamedTuple):
@@ -101,8 +102,9 @@ def nmt_loss(logits: torch.Tensor, targets: torch.Tensor, *,
     loss_sum = torch.sum(loss_tok * non_pad)
     pred = torch.argmax(lp, dim=-1)
     n_correct = torch.sum((pred == tg).to(torch.float32) * non_pad)
-    n_words = torch.sum(non_pad)
-    stats = NMTStats(loss_sum.detach(), n_words, n_correct)
+    n_words = global_sum(torch.sum(non_pad))
+    stats = NMTStats(global_sum(loss_sum.detach()), n_words,
+                     global_sum(n_correct))
     return loss_sum / torch.clamp(n_words, min=1.0), stats
 
 
@@ -133,7 +135,7 @@ def kld_loss(logprobs_student: torch.Tensor,
     axis; the teacher is clamped at 1e-20 inside the log."""
     kl = probs_teacher * (torch.log(torch.clamp(probs_teacher, min=1e-20))
                           - logprobs_student)
-    return torch.mean(torch.sum(kl, dim=-1))
+    return mean_share(torch.sum(kl, dim=-1))
 
 
 def ref_exhaustion_loss(upper_bounds_seq: torch.Tensor, *, shard_size: int,
@@ -171,11 +173,11 @@ def attention_regularizers(attns: torch.Tensor, *, upper_bounds=None,
     loss = torch.zeros((), dtype=torch.float32)
     if upper_bounds is not None and lambda_exhaust:
         leftover = torch.clamp_min(upper_bounds[:, :-1], 0.0)
-        loss = loss.to(leftover.device) + lambda_exhaust * torch.mean(
+        loss = loss.to(leftover.device) + lambda_exhaust * mean_share(
             leftover.sum(-1))
     if coverage is not None and lambda_coverage:
         over = torch.clamp_min(coverage - 1.0, 0.0)
-        loss = loss.to(over.device) + lambda_coverage * torch.mean(
+        loss = loss.to(over.device) + lambda_coverage * mean_share(
             over.sum(-1))
     return loss
 

@@ -50,6 +50,7 @@ from torch import nn
 from ..kernels import additive_attention as aak
 from ..ops import rnn
 from ..ops.masking import masked_softmax
+from ..parallel.mesh import data_parallel_active, global_sum
 from .base import (CaptionDecoder, Features, dropout, embedding_init,
                    init_embedding, init_module, linear, linear_init)
 
@@ -214,8 +215,19 @@ class BatchNorm(nn.Module):
 def _masked_mean_var(x, mask):
     """Per-feature mean and biased variance over the real rows only (the
     reference feeds BN through pack_wrapper, so padded att slots never
-    count). Returns (mean, var, n)."""
+    count). Returns (mean, var, n). Inside the trainer's N-rank step the
+    moments are the global batch's (`parallel.mesh.global_sum`, two
+    passes as on one device)."""
     flat = x.reshape(-1, x.shape[-1])
+    if data_parallel_active():
+        m = (torch.ones_like(flat[:, :1]) if mask is None
+             else (mask.reshape(-1, 1) > 0).to(flat.dtype))
+        n = global_sum(m.sum())
+        if mask is not None:
+            n = torch.clamp(n, min=1.0)
+        mean = global_sum((flat * m).sum(0)) / n
+        var = global_sum((torch.square(flat - mean) * m).sum(0)) / n
+        return mean, var, n
     if mask is None:
         n = torch.tensor(float(flat.shape[0]), device=x.device)
         mean = flat.mean(0)

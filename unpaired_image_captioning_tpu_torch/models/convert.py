@@ -22,8 +22,8 @@ All inputs are numpy-valued state dicts (load with
 `torch.load(..., map_location='cpu')` then `.numpy()` per tensor). The
 output is the JAX package's parameter tree, with float32 numpy leaves:
 `bridge.params_from_jax(tree)` is the state dict of the port's module.
-The fork transformer, which the port cannot build yet (ROADMAP A12),
-converts all the same.
+The fork transformer's tree loads into `models/fork_transformer.py`
+(`ForkTransformerNMT.from_fork_state_dict`).
 """
 
 from __future__ import annotations

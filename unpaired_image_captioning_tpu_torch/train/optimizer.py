@@ -31,8 +31,12 @@ Params = Dict[str, torch.Tensor]
 
 
 class Transform(NamedTuple):
-    """init(params) -> state; update(grads, state, params) -> (updates,
-    state). Like an optax GradientTransformation, without the lr scale."""
+    """init(params) -> state; update(grads, state, params,
+    global_sq_norm=None) -> (updates, state). Like an optax
+    GradientTransformation, without the lr scale. `global_sq_norm`, where
+    given, is the squared norm of the whole gradient that the clip reads
+    in place of the norm of `grads`: with tensor-parallel leaves `grads`
+    holds this rank's shards, and the clip must see the other ranks'."""
 
     init: Callable[[Params], list]
     update: Callable[[Params, list, Params], Tuple[Params, list]]
@@ -50,14 +54,18 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - power)
 
 
+def global_sq_norm(g: Params) -> torch.Tensor:
+    """The squared global norm of a gradient dict, summed in key order."""
+    return torch.stack([torch.sum(t * t) for t in g.values()]).sum()
+
+
 def _clip_by_global_norm(max_norm: float):
     def init(params):
         return {}
 
-    def update(g, state, params):
+    def update(g, state, params, sq_norm=None):
         keys = list(g)
-        norm = torch.sqrt(torch.stack([torch.sum(g[k] * g[k])
-                                       for k in keys]).sum())
+        norm = torch.sqrt(global_sq_norm(g) if sq_norm is None else sq_norm)
         below = norm < max_norm
         return {k: torch.where(below, g[k], g[k] / norm * max_norm)
                 for k in keys}, state
@@ -166,7 +174,8 @@ def make_transform(method: str, *, alpha: float = 0.9, beta: float = 0.999,
     else:
         raise ValueError(f"unknown optim method {method!r}")
     parts = []
-    if max_grad_norm and max_grad_norm > 0:
+    clip = bool(max_grad_norm and max_grad_norm > 0)
+    if clip:
         parts.append(_clip_by_global_norm(max_grad_norm))
     parts.append(core)
     if weight_decay and weight_decay > 0:
@@ -175,10 +184,14 @@ def make_transform(method: str, *, alpha: float = 0.9, beta: float = 0.999,
     def init(params: Params) -> list:
         return [p_init(params) for p_init, _ in parts]
 
-    def update(grads: Params, state: list, params: Params):
+    def update(grads: Params, state: list, params: Params,
+               global_sq_norm: Optional[torch.Tensor] = None):
         new_state: List[dict] = []
-        for (_, p_update), s in zip(parts, state):
-            grads, s = p_update(grads, s, params)
+        for i, ((_, p_update), s) in enumerate(zip(parts, state)):
+            if clip and i == 0:
+                grads, s = p_update(grads, s, params, global_sq_norm)
+            else:
+                grads, s = p_update(grads, s, params)
             new_state.append(s)
         return grads, new_state
 

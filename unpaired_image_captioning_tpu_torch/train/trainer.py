@@ -47,6 +47,29 @@ word vectors (`pre_word_vecs_enc` / `_dec`, `.npy` or `.npz` with
 `profile` runs training steps under `torch.profiler` and writes a Chrome
 trace (JAX writes a TensorBoard trace).
 
+With `mesh` (a `parallel.make_mesh` mesh; one trainer a rank), the step
+computes the one-device step on the global batch, as GSPMD does for the
+JAX trainer. Every rank is handed the same global batch and takes its
+data rank's contiguous block (`parallel.mesh.local_block`: uneven blocks
+where the batch does not divide). Every masked mean divides its local sum
+by the global count (`parallel.mesh.data_parallel`: the criteria, the
+`use_bn` batch moments, `avg_reward`), so the ranks' losses add up to the
+global loss; the losses on parameters alone (Weight_Trans / _y) count on
+data rank 0 only. The gradients are summed over the data axis before the
+transform, so the global-norm clip reads the whole gradient. SCST
+decodes and scores each rank's rows, with the df table on every rank.
+With `tensor_parallel` on a mesh with a "model" axis, the captioner's
+leaves that `parallel.param_sharding` splits live as this rank's 1/M
+shard between steps (`parallel.mesh.ModelShards`), with their optimizer
+moments; they are gathered whole for the step's kernels, and the reduced
+gradient is cut back to the shard (the clip reads the norm of the whole
+gradient).
+Dropout and sampling draw from a generator seeded with `seed` + the data
+rank. Only global rank 0 writes checkpoints, with whole tensors in the
+one-device format; `load` places a checkpoint from any mesh (or one
+device) with this trainer's placements. `eval` decodes each data rank's
+rows (`eval_split(mesh=...)`).
+
 With `use_bn`, the XE forward collects the batch moments of its BatchNorms
 and the step blends them into the running statistics after the
 captioner's update (`models/att.py::apply_bn_updates`), as the JAX step
@@ -57,6 +80,7 @@ them, and the SCST recompute reads the last.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
@@ -64,6 +88,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import models as model_zoo
 from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
@@ -74,8 +99,11 @@ from ..models.base import Features, resolve_device
 from ..models.nmt_transformer import TransformerNMTModel, make_nmt_model
 from ..models.transformer import TransformerModel
 from ..ops.cider import DfTable, empty_df_table
+from ..parallel.mesh import (ModelShards, all_reduce_, axis, broadcast_,
+                             data_parallel, gather_objects, mean_share,
+                             global_sum, local_block, param_sharding)
 from .checkpoint import CheckpointManager, check_resume_compat, save_json
-from .optimizer import DualOptim
+from .optimizer import DualOptim, global_sq_norm
 
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
                "masks", "gts", "gts_masks")
@@ -83,12 +111,17 @@ _NMT_KEYS = ("src", "tgt", "lengths", "src_feats")
 
 
 class Trainer:
-    def __init__(self, cfg, *, device="cuda", joint_vocab=None,
+    def __init__(self, cfg, *, device="cuda", mesh=None,
+                 tensor_parallel: bool = False, joint_vocab=None,
                  joint_vocab_y=None,
                  nmt_teacher: Optional[Dict[str, Any]] = None,
                  df_table: Optional[DfTable] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_group, self.data_rank, self.data_size = axis(mesh, "data")
+        # the rank that writes checkpoints and JSON sidecars
+        self.is_writer = mesh is None or dist.get_rank() == 0
         # the SCST rewards' df table (scripts/prepro_ngrams.load_df_table)
         self.df_table = (df_table if df_table is not None
                          else empty_df_table(self.device))
@@ -130,9 +163,14 @@ class Trainer:
                 torch.as_tensor(np.asarray(table), dtype=torch.float32,
                                 device=self.device),
                 rows(table_rows), rows(tgt_rows))
-        # the dropout stream of the training steps, on the device
+        # the dropout stream of the training steps, on the device; one a
+        # data rank (the model ranks of one data block draw alike)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
+            cfg.seed + self.data_rank)
+        # the captioner's tensor-parallel leaves held in shards: {"i2t": ..}
+        self.shards: Dict[str, ModelShards] = {}
+        if mesh is not None:
+            self._place(tensor_parallel)
         self.optim = DualOptim(
             cfg, self._params(self.i2t_model), self._params(self.nmt_model))
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
@@ -149,6 +187,37 @@ class Trainer:
     def _params(model):
         return dict(model.named_parameters()) if model is not None else None
 
+    def _models(self):
+        return (("i2t", self.i2t_model), ("nmt", self.nmt_model))
+
+    @torch.no_grad()
+    def _place(self, tensor_parallel: bool) -> None:
+        """Every rank takes global rank 0's parameters; with
+        `tensor_parallel` the captioner's model-sharded leaves are cut to
+        shards (the JAX dry run places the captioner's tree so; the NMT
+        stays replicated, as there: its target vocabulary, 8,571 at the
+        recipe's width, does not divide a model axis of 2)."""
+        for _, model in self._models():
+            for p in (model.parameters() if model is not None else ()):
+                broadcast_(p.data, src=0)
+        if not (tensor_parallel and axis(self.mesh, "model")[2] > 1
+                and self.i2t_model is not None):
+            return
+        placements = param_sharding(self._params(self.i2t_model), self.mesh,
+                                    tensor_parallel=True)
+        shards = ModelShards(self.i2t_model, self.mesh, placements)
+        if shards.dims:
+            shards.shard()
+            self.shards["i2t"] = shards
+
+    def _unshard(self) -> None:
+        for shards in self.shards.values():
+            shards.unshard()
+
+    def _reshard(self) -> None:
+        for shards in self.shards.values():
+            shards.shard()
+
     def _batch(self, data: Dict[str, Any], keys=_BATCH_KEYS
                ) -> Dict[str, torch.Tensor]:
         out = {}
@@ -163,12 +232,27 @@ class Trainer:
             out[k] = v.to(self.device, non_blocking=True)
         return out
 
-    def _update(self, params, tx, state, lr: float):
+    def _update(self, params, tx, state, lr: float, shards=None):
         """One transform step of `params` from their .grad (zeros where
-        there is none); returns the new transform state."""
+        there is none); returns the new transform state. Under a mesh the
+        gradients are first summed over the data axis; with `shards` the
+        clip reads the whole gradient's norm, then the model-sharded
+        parameters and their gradients go back to this rank's shards."""
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
-        upd, state = tx.update(grads, state, params)
+        if self.data_group is not None and self.data_size > 1:
+            flat = torch.cat([g.reshape(-1) for g in grads.values()])
+            all_reduce_(flat, self.data_group)
+            grads = dict(zip(grads, (f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads.values()]),
+                grads.values()))))
+        sq_norm = None
+        if shards is not None:
+            sq_norm = global_sq_norm(grads)
+            shards.shard()
+            grads = {k: (shards.slice(k, g) if k in shards.dims else g)
+                     for k, g in grads.items()}
+        upd, state = tx.update(grads, state, params, global_sq_norm=sq_norm)
         keys = list(params)
         torch._foreach_add_([params[k] for k in keys],
                             [upd[k] for k in keys], alpha=-lr)
@@ -194,12 +278,15 @@ class Trainer:
         metrics.update(nmt_loss=nmt_l, nmt_ppl=stats.ppl(),
                        nmt_acc=stats.accuracy(), nmt_words=stats.n_words)
         total = nmt_l
+        # the losses on parameters alone count once: on data rank 0
+        once = self.data_rank == 0
         if self.joint_vocab is not None and self.i2t_model is not None:
             cap_rows, src_rows = self.joint_vocab
             wemb = weight_trans_loss(self.i2t_model.embed,
                                      nmt.src_embedding(), cap_rows, src_rows)
             metrics["wemb_loss"] = wemb
-            total = total + wemb
+            if once:
+                total = total + wemb
         if cfg.nmt_kld_train_flag and self.nmt_teacher is not None:
             with torch.no_grad():
                 t_outs, _ = self.nmt_teacher.forward(src, lengths, tgt,
@@ -214,7 +301,8 @@ class Trainer:
             wemb_y = weight_trans_loss(nmt.tgt_embedding(), table, tgt_rows,
                                        table_rows)
             metrics["wemb_y_loss"] = wemb_y
-            total = total + wemb_y
+            if once:
+                total = total + wemb_y
         return total
 
     def _rl_loss(self, feats: Features, gen: torch.Tensor,
@@ -246,14 +334,45 @@ class Trainer:
         [B, L] for the captioner (with `sc_flag`: gts [B, R, Tg] and
         gts_masks [B, R] in place of labels and masks); "nmt" = {src [B,
         S], tgt [B, T] (BOS ... EOS, PAD-padded), lengths [B]} for the NMT.
-        Returns host floats."""
+        Under a mesh every rank passes the same global batch. Returns host
+        floats (the global batch's)."""
         cfg = self.cfg
         lr_i2t = float(self.optim.i2t_lr(self.epoch))
         lr_nmt = float(self.optim.nmt_lr(self.epoch_nmt))
         ss_prob = float(self.optim.ss_prob(self.epoch))
-        metrics: Dict[str, torch.Tensor] = {}
         train_i2t = self.i2t_model is not None and cfg.i2t_train_flag
         train_nmt = self.nmt_model is not None and cfg.nmt_train_flag
+        if self.mesh is not None:
+            data = local_block({k: v for k, v in data.items()
+                                if k in _BATCH_KEYS or k == "nmt"},
+                               self.mesh)
+        self._unshard()
+        try:
+            with data_parallel(self.data_group):
+                metrics = self._step(data, sc_flag, train_i2t, train_nmt,
+                                     lr_i2t, lr_nmt, ss_prob)
+        finally:
+            self._reshard()
+        self.optim.nmt_step += 1
+        self.iteration += 1
+        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out.setdefault("total_loss", 0.0)
+        out.update(lr_i2t=lr_i2t, lr_nmt=lr_nmt, ss_prob=ss_prob)
+        if not math.isfinite(out["total_loss"]):
+            self.nan_steps += 1
+            if self.nan_steps >= self.max_nan_steps:
+                raise FloatingPointError(
+                    f"non-finite loss for {self.nan_steps} consecutive steps "
+                    f"at iter {self.iteration}: {out}")
+        else:
+            self.nan_steps = 0
+        return out
+
+    def _step(self, data, sc_flag, train_i2t, train_nmt, lr_i2t, lr_nmt,
+              ss_prob) -> Dict[str, torch.Tensor]:
+        """The losses, the backward and both updates of one step (inside
+        the data axis' `data_parallel` block, parameters whole)."""
+        metrics: Dict[str, torch.Tensor] = {}
         i2t_params = self._params(self.i2t_model)
         nmt_params = self._params(self.nmt_model)
         for params in (i2t_params, nmt_params):
@@ -280,7 +399,7 @@ class Trainer:
                 i2t_l, rewards = self._rl_loss(feats, gen, greedy,
                                                batch["gts"],
                                                batch["gts_masks"])
-                metrics["avg_reward"] = rewards.mean()
+                metrics["avg_reward"] = mean_share(rewards)
             else:
                 # the transformer takes no scheduled sampling, as in JAX
                 ss = ({} if isinstance(self.i2t_model, TransformerModel)
@@ -303,7 +422,7 @@ class Trainer:
                 if train_i2t:
                     self.optim.i2t_state = self._update(
                         i2t_params, self.optim.i2t_tx, self.optim.i2t_state,
-                        lr_i2t)
+                        lr_i2t, self.shards.get("i2t"))
                     if bn_aux:
                         apply_bn_updates(self.i2t_model, bn_aux)
                 if train_nmt:
@@ -314,20 +433,12 @@ class Trainer:
                 for p in (params or {}).values():
                     p.grad = None
             metrics["total_loss"] = total
-        self.optim.nmt_step += 1
-        self.iteration += 1
-        out = {k: float(v.detach()) for k, v in metrics.items()}
-        out.setdefault("total_loss", 0.0)
-        out.update(lr_i2t=lr_i2t, lr_nmt=lr_nmt, ss_prob=ss_prob)
-        if not math.isfinite(out["total_loss"]):
-            self.nan_steps += 1
-            if self.nan_steps >= self.max_nan_steps:
-                raise FloatingPointError(
-                    f"non-finite loss for {self.nan_steps} consecutive steps "
-                    f"at iter {self.iteration}: {out}")
-        else:
-            self.nan_steps = 0
-        return out
+        # each rank's share of the additive losses -> the global batch's
+        for k in ("i2t_loss", "nmt_loss", "nmt_kld", "total_loss",
+                  "avg_reward"):
+            if k in metrics:
+                metrics[k] = global_sum(metrics[k].detach())
+        return metrics
 
     def eval(self, loader, *, nmt_valid=None, num_images: int = -1,
              beam_size: Optional[int] = None, language_eval_refs=None
@@ -337,12 +448,13 @@ class Trainer:
         {'is_best': bool}."""
         from ..eval.eval_utils import eval_split
 
-        out = eval_split(self.i2t_model, loader, split="val",
-                         num_images=num_images,
-                         beam_size=beam_size or self.cfg.beam_size,
-                         language_eval_refs=language_eval_refs,
-                         model_id=self.cfg.id, nmt_model=self.nmt_model,
-                         nmt_valid=nmt_valid)
+        with self.whole_params():
+            out = eval_split(self.i2t_model, loader, split="val",
+                             num_images=num_images,
+                             beam_size=beam_size or self.cfg.beam_size,
+                             language_eval_refs=language_eval_refs,
+                             model_id=self.cfg.id, nmt_model=self.nmt_model,
+                             nmt_valid=nmt_valid, mesh=self.mesh)
         score = (out.get("lang_stats") or {}).get("CIDEr", -out["loss"])
         out["is_best"] = self.best_cider is None or score > self.best_cider
         if out["is_best"]:
@@ -353,15 +465,37 @@ class Trainer:
                 self.best_nmt_acc = acc
         return out
 
+    @contextlib.contextmanager
+    def whole_params(self):
+        """Within the block the tensor-parallel leaves are whole on every
+        rank (a collective: every rank enters it), so the models decode,
+        evaluate or save as on one device."""
+        self._unshard()
+        try:
+            yield
+        finally:
+            self._reshard()
+
     def infos(self, loader_state: Optional[dict] = None, **extra) -> dict:
         """The infos sidecar of a checkpoint: the counters, the best
         scores, the config, the loader state and the generator's state
-        (the JAX package's `rng`)."""
+        (the JAX package's `rng`; this rank's)."""
         return {"iter": self.iteration, "epoch": self.epoch,
                 "epoch_nmt": self.epoch_nmt, "best_cider": self.best_cider,
                 "best_nmt_acc": self.best_nmt_acc,
                 "opt": self.cfg.to_dict(), "loader_state": loader_state,
                 "generator": self.generator.get_state().tolist(), **extra}
+
+    def _optim_state(self) -> dict:
+        """`DualOptim.state_dict()` with the sharded moments whole."""
+        state = self.optim.state_dict()
+        for key, shards in self.shards.items():
+            state[f"{key}_state"] = [
+                {f: ({k: (shards.gather(k, t) if k in shards.dims else t)
+                      for k, t in v.items()} if isinstance(v, dict) else v)
+                 for f, v in part.items()}
+                for part in state[f"{key}_state"]]
+        return state
 
     def profile(self, data_iter, n_steps: int = 5, log_dir: str = None,
                 sc_flag: bool = False) -> dict:
@@ -405,20 +539,32 @@ class Trainer:
         """Write a checkpoint (the `-best` track with `best`), and the NMT's
         `nmt_config.json`: `model_type` ("rnn" or "transformer") and the
         model's constructor arguments, so `NMTModel(**rest)` or
-        `TransformerNMTModel(**rest)` rebuilds it."""
-        self.ckpt.save(
-            i2t_state=(self.i2t_model.state_dict()
-                       if self.i2t_model is not None else None),
-            nmt_state=(self.nmt_model.state_dict()
-                       if self.nmt_model is not None else None),
-            optim_state=self.optim.state_dict(),
-            infos=self.infos(loader_state), histories=histories, best=best)
-        if self.nmt_model is not None:
+        `TransformerNMTModel(**rest)` rebuilds it. Under a mesh every rank
+        calls it (the shards are gathered) and global rank 0 writes whole
+        tensors; the infos hold data rank 0's generator and every data
+        rank's in `data_generators`."""
+        infos = self.infos(loader_state)
+        if self.data_size > 1:
+            infos["data_generators"] = gather_objects(infos["generator"],
+                                                      self.data_group)
+        optim_state = self._optim_state()
+        with self.whole_params():
+            if self.is_writer:
+                self.ckpt.save(
+                    i2t_state=(self.i2t_model.state_dict()
+                               if self.i2t_model is not None else None),
+                    nmt_state=(self.nmt_model.state_dict()
+                               if self.nmt_model is not None else None),
+                    optim_state=optim_state, infos=infos,
+                    histories=histories, best=best)
+        if self.nmt_model is not None and self.is_writer:
             kind = ("transformer" if isinstance(self.nmt_model,
                                                 TransformerNMTModel)
                     else "rnn")
             save_json(os.path.join(self.ckpt.dir, "nmt_config.json"),
                       {"model_type": kind, **self.nmt_model.init_args})
+        if self.mesh is not None:
+            dist.barrier()   # the files are there before any rank reads
 
     def load(self, best: bool = False) -> dict:
         """Restore a checkpoint of `cfg.checkpoint_path` onto the trainer's
@@ -426,20 +572,30 @@ class Trainer:
         generator. Returns the infos (with the loader state)."""
         infos = self.ckpt.load_infos(best=best)
         check_resume_compat(infos.get("opt", {}), self.cfg)
-        for name, model in (("model_i2t", self.i2t_model),
-                            ("model_nmt", self.nmt_model)):
-            if model is not None:
-                model.load_state_dict(self.ckpt.load_params(
-                    name, best=best, device=self.device))
-        self.optim.load_state_dict(
-            self.ckpt.load_params("optimizer", best=best,
-                                  device=self.device), device=self.device)
+        with self.whole_params():
+            for name, model in (("model_i2t", self.i2t_model),
+                                ("model_nmt", self.nmt_model)):
+                if model is not None:
+                    model.load_state_dict(self.ckpt.load_params(
+                        name, best=best, device=self.device))
+        optim_state = self.ckpt.load_params("optimizer", best=best,
+                                            device=self.device)
+        for key, shards in self.shards.items():
+            optim_state[f"{key}_state"] = [
+                {f: ({k: (shards.slice(k, t) if k in shards.dims else t)
+                      for k, t in v.items()} if isinstance(v, dict) else v)
+                 for f, v in part.items()}
+                for part in optim_state[f"{key}_state"]]
+        self.optim.load_state_dict(optim_state, device=self.device)
         self.iteration = infos["iter"]
         self.epoch = infos["epoch"]
         self.epoch_nmt = infos["epoch_nmt"]
         self.best_cider = infos.get("best_cider")
         self.best_nmt_acc = infos.get("best_nmt_acc")
-        if infos.get("generator") is not None:
-            self.generator.set_state(torch.tensor(infos["generator"],
-                                                  dtype=torch.uint8))
+        state = infos.get("generator")
+        per_rank = infos.get("data_generators")
+        if per_rank is not None and len(per_rank) == self.data_size:
+            state = per_rank[self.data_rank]
+        if state is not None:
+            self.generator.set_state(torch.tensor(state, dtype=torch.uint8))
         return infos
