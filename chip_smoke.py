@@ -7215,6 +7215,27 @@ SCALE_IMAGES, SCALE_CAPS = 50, 5
 SCALE_DF_IMAGES = 300   # the df table's corpus (the first 50 are the gts)
 SCALE_TOL = 1e-5        # losses and parameters, N ranks vs the card's one
 SCALE_KERNELS = ("lstm_cell", "row_topk", "additive_attention")
+# the transformer NMT's step at bench width (TNMT_TRAIN) on the NMT's
+# global batch of 50 pairs, every dropout off and SGD with momentum as
+# above: a beam-3 translate of this data rank's sentences to
+# SCALE_TNMT_LEN (B4, B2), then steps on the whole-encoder-layer route
+# (B5, B6, B8) and on the whole-decoder-layer route (B7)
+SCALE_TNMT = dict(TNMT_TRAIN, dropout=0.0, nmt_optim="sgdm",
+                  nmt_learning_rate=1e-2, nmt_max_grad_norm=5.0)
+SCALE_TNMT_BEAM, SCALE_TNMT_LEN = 3, 20
+# the counters of the kernels the transformer NMT's part launches, by the
+# name of their record
+SCALE_TNMT_COUNTERS = {
+    "transformer_decode_stack": ("tdk", "stack_launches"),
+    "row_topk": ("tk", "launches"),
+    "mha_train_fwd": ("mhk", "fwd_launches"),
+    "mha_train_bwd": ("mhk", "bwd_launches"),
+    "enc_layer_train_fwd": ("ltk", "enc_fwd_launches"),
+    "enc_layer_train_bwd": ("ltk", "enc_bwd_launches"),
+    "dec_layer_train_fwd": ("ltk", "dec_fwd_launches"),
+    "dec_layer_train_bwd": ("ltk", "dec_bwd_launches"),
+    "ln_train_fwd": ("lnk", "fwd_launches"),
+    "ln_train_bwd": ("lnk", "bwd_launches")}
 
 
 def _scale_batch() -> tuple:
@@ -7252,14 +7273,17 @@ def _scale_batch() -> tuple:
                                   start + SCST_REFS - 1)
 
 
-def _scale_steps(device, mesh, tp: bool, run_dir: str, ref_path: str):
+def _scale_steps(device, mesh, run_dir: str, ref_path: str,
+                 tnmt: bool = False):
     """The joint XE step twice (the second timed) and a joint SCST step on
     given samples, with TRAIN_KERNEL on, then a beam-3 decode of this data
-    rank's images: on one device (`mesh` None) or as one rank of `mesh`.
-    The launch counts of B1, B2 and B9 are set to 0 just before and read
-    just after, and the shapes given to them recorded. With `ref_path`
-    the parameters are held against the reference's there; else they are
-    saved there. Returns a picklable report."""
+    rank's images: on one device (`mesh` None) or as one rank of `mesh`,
+    which trains on its data rank's block of the global batch. The launch
+    counts of B1, B2 and B9 are set to 0 just before and read just after,
+    and the shapes given to them recorded. Under a mesh the parameters are
+    held against the one-device reference's saved at `ref_path`; without
+    one they are saved there. With `tnmt`, then the transformer NMT's part
+    (`_scale_tnmt`). Returns a picklable report."""
     import hashlib
 
     import torch
@@ -7272,19 +7296,19 @@ def _scale_steps(device, mesh, tp: bool, run_dir: str, ref_path: str):
     from unpaired_image_captioning_tpu_torch.models.base import Features
     from unpaired_image_captioning_tpu_torch.ops.cider import build_df_table
     from unpaired_image_captioning_tpu_torch.parallel.mesh import (
-        axis, block_bounds)
+        axis, block_bounds, shard_batch)
     from unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams import (
         compute_df)
     from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
     batch, (gen, greedy), corpus = _scale_batch()
+    mine = shard_batch(batch, mesh)     # this data rank's block
     df, n_img = compute_df(*corpus)
     rs = np.random.RandomState(12)
     cap_rows = 1 + rs.permutation(CAP["vocab_size"])[:JOINT_ROWS]
     src_rows = 4 + rs.permutation(NMT["src_vocab_size"] - 4)[:JOINT_ROWS]
     tr = Trainer(Config(**dict(SCALE_TRAIN, checkpoint_path=run_dir)),
-                 device=device, mesh=mesh, tensor_parallel=tp,
-                 joint_vocab=(cap_rows, src_rows),
+                 device=device, mesh=mesh, joint_vocab=(cap_rows, src_rows),
                  df_table=build_df_table(df, n_img, device=device))
     _, d_rank, d_size = axis(mesh, "data")
     rows = SCALE_IMAGES * SCALE_CAPS
@@ -7306,13 +7330,13 @@ def _scale_steps(device, mesh, tp: bool, run_dir: str, ref_path: str):
     lk.launches = tk.launches = aak.launches = 0
     try:
         with _recording_shapes(shapes):
-            m1 = tr.train(batch)
+            m1 = tr.train(mine)
             torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            m2 = tr.train(batch)
+            m2 = tr.train(mine)
             torch.cuda.synchronize(device)
             wall = time.perf_counter() - t0
-            m3 = tr.train(batch, sc_flag=True)
+            m3 = tr.train(mine, sc_flag=True)
             first = np.arange(0, rows, SCALE_CAPS)
             ilo, ihi = block_bounds(SCALE_IMAGES, d_size, d_rank)
             feats = Features(*(torch.from_numpy(batch[k][first][ilo:ihi]).to(
@@ -7333,32 +7357,153 @@ def _scale_steps(device, mesh, tp: bool, run_dir: str, ref_path: str):
               "shapes": {k: sorted(v, key=str) for k, v in shapes.items()},
               "shards": shard_shapes, "beam": tuple(seq.shape)}
     with tr.whole_params():
-        whole = {f"{key}.{k}": v.detach()
-                 for key, model in tr._models() if model is not None
-                 for k, v in model.state_dict().items()}
-        if mesh is None:
-            torch.save({k: v.cpu() for k, v in whole.items()}, ref_path)
-        else:
-            ref = torch.load(ref_path, map_location=device, weights_only=True)
-            worst, name = 0.0, ""
-            for k, v in whole.items():
-                torch.testing.assert_close(v, ref[k], rtol=SCALE_TOL,
-                                           atol=SCALE_TOL, msg=lambda m: (
-                                               f"{k}: {m}"))
-                e = (v - ref[k]).abs().max().item()
-                if e > worst:
-                    worst, name = e, k
-            report["param_err"] = (worst, name)
-            report["whole_shapes"] = {k: tuple(v.shape)
-                                      for k, v in whole.items()}
+        whole = _scale_params(tr, mesh, ref_path, report)
         report["digest"] = {k: hashlib.sha256(v.cpu().numpy().tobytes())
                             .hexdigest() for k, v in whole.items()}
     if mesh is not None and run_dir:
         tr.save()
+    if tnmt:
+        del tr
+        report["tnmt"] = _scale_tnmt(device, mesh, ref_path + ".tnmt")
     return report
 
 
-def _scale_rank(rank, world, mesh_shape, tp, run_dir, ref_path):
+def _scale_params(tr, mesh, ref_path: str, report: dict) -> dict:
+    """The trainer's whole parameters ({model.leaf: tensor}, inside
+    `whole_params`): saved at `ref_path` without a mesh, else held
+    against the ones there within SCALE_TOL (the worst into `report`)."""
+    import torch
+
+    whole = {f"{key}.{k}": v.detach()
+             for key, model in tr._models() if model is not None
+             for k, v in model.state_dict().items()}
+    if mesh is None:
+        torch.save({k: v.cpu() for k, v in whole.items()}, ref_path)
+        return whole
+    ref = torch.load(ref_path, map_location=tr.device, weights_only=True)
+    worst, name = 0.0, ""
+    for k, v in whole.items():
+        torch.testing.assert_close(v, ref[k], rtol=SCALE_TOL, atol=SCALE_TOL,
+                                   msg=lambda m: f"{k}: {m}")
+        e = (v - ref[k]).abs().max().item()
+        if e > worst:
+            worst, name = e, k
+    report["param_err"] = (worst, name)
+    report["whole_shapes"] = {k: tuple(v.shape) for k, v in whole.items()}
+    return whole
+
+
+class _recording_train_shapes:
+    """While open, every call the training step makes to the forward
+    wrappers of B5-B8 adds its shape to `shapes[name]`: mha_train (B, T,
+    S, d, heads, mask kind, rate), ln_train (x's shape, eps), the
+    encoder layer (B, S, d, d_ff, heads, rate, mask rows) and the decoder
+    layer (B, T, S, d, d_ff, heads, rate, both masks' rows). The
+    wrappers are wrapped in their modules, where the autograd functions
+    call them."""
+
+    def __init__(self, shapes: dict):
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            layer_train as ltk)
+        from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            mha_train as mhk)
+
+        def mha(a, kw):
+            q, k, maskadd = a[0], a[1], a[3]
+            kind = ("pad" if maskadd.shape[1] == 1 else
+                    "causal" if q.shape[1] == k.shape[1] else "full")
+            return (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                    kw["n_heads"], kind, kw["rate"])
+
+        def ln(a, kw):
+            return (tuple(a[0].shape), a[3] if len(a) > 3
+                    else kw.get("eps", 1e-6))
+
+        def enc(a, kw):
+            x, maskadd, w = a[0], a[1], a[3]
+            return (x.shape[0], x.shape[1], x.shape[2], w["w1"].shape[1],
+                    kw["n_heads"], kw["rate"], maskadd.shape[1])
+
+        def dec(a, kw):
+            x, mk, tmask, smask, w = a[0], a[1], a[3], a[4], a[6]
+            return (x.shape[0], x.shape[1], mk.shape[1], x.shape[2],
+                    w["w1"].shape[1], kw["n_heads"], kw["rate"],
+                    tmask.shape[1], smask.shape[1])
+
+        self._sites = [(mhk, "mha_train_fwd", "mha_train", mha),
+                       (lnk, "ln_train_fwd", "ln_train", ln),
+                       (ltk, "enc_layer_fwd", "enc_layer_train", enc),
+                       (ltk, "dec_layer_fwd", "dec_layer_train", dec)]
+        self._shapes = shapes
+
+    __enter__ = _recording_shapes.__enter__
+    __exit__ = _recording_shapes.__exit__
+
+
+def _scale_tnmt(device, mesh, ref_path: str) -> dict:
+    """The transformer NMT's part of a scale-out route (SCALE_TNMT): a
+    beam-3 translate of this data rank's block of the global batch of 50
+    pairs, then two steps on it on the whole-encoder-layer route (the
+    second timed) and one on the whole-decoder-layer route.
+    The counters of SCALE_TNMT_COUNTERS are set to 0 just before and read
+    just after, the shapes given to B2, B4 and B5-B8 recorded; the
+    parameters held against the one-device reference's as
+    `_scale_params` does. Returns a picklable report."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import row_topk as tk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+    from unpaired_image_captioning_tpu_torch.parallel.mesh import shard_batch
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    mods = {"tdk": tdk, "tk": tk, "mhk": mhk, "ltk": ltk, "lnk": lnk}
+    tr = Trainer(Config(**SCALE_TNMT), device=device, mesh=mesh)
+    mine = shard_batch(make_nmt_batch(np.random.RandomState(37),
+                                      SCALE_IMAGES), mesh)
+    src, lengths = (torch.from_numpy(mine["nmt"][k]).to(device)
+                    for k in ("src", "lengths"))
+    shapes = {}
+    rate, flags = tm.DROPOUT, _route_flags(True, False)
+    tm.DROPOUT = 0.0
+    for mod, attr in SCALE_TNMT_COUNTERS.values():
+        setattr(mods[mod], attr, 0)
+    try:
+        with _recording_shapes(shapes), _recording_train_shapes(shapes):
+            # at the initial weights: three steps on these targets make
+            # EOS every beam's first word
+            with torch.no_grad():
+                res = tr.nmt_model.translate_batch(
+                    src, lengths, beam_size=SCALE_TNMT_BEAM,
+                    max_len=SCALE_TNMT_LEN)
+            m1 = tr.train(mine)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            m2 = tr.train(mine)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            _route_flags(True, True)
+            m3 = tr.train(mine)
+            torch.cuda.synchronize(device)
+        counts = {name: getattr(mods[mod], attr)
+                  for name, (mod, attr) in SCALE_TNMT_COUNTERS.items()}
+    finally:
+        tm.DROPOUT = rate
+        _route_flags(*flags)
+    report = {"metrics": [m1, m2, m3], "wall": wall, "counts": counts,
+              "shapes": {k: sorted(v, key=str) for k, v in shapes.items()},
+              "translate": tuple(res.seq.shape)}
+    _scale_params(tr, mesh, ref_path, report)
+    return report
+
+
+def _scale_rank(rank, world, mesh_shape, run_dir, ref_path, tnmt):
     """One rank of a scale-out route (started by `launch.run_ranks`)."""
     import torch
 
@@ -7368,7 +7513,147 @@ def _scale_rank(rank, world, mesh_shape, tp, run_dir, ref_path):
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(world, mesh_shape)
     return _scale_steps(torch.device("cuda", torch.cuda.current_device()),
-                        mesh, tp, run_dir, ref_path)
+                        mesh, run_dir, ref_path, tnmt)
+
+
+def _hold_train_shapes(dev, seen: dict) -> dict:
+    """B5-B8 against their plain versions, forward and backward, at every
+    shape `_recording_train_shapes` recorded (at its dropout rate and at
+    TRAIN_RATE), as `phase_train_kernels` and `phase_layer_kernels` hold
+    them; B4 at every shape `_recording_shapes` recorded, as
+    `phase_tfd_kernels` does. Returns {kernel: the largest max|diff| /
+    max(1, max|plain|)}; raises above the tolerance."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+    from unpaired_image_captioning_tpu_torch.ops import ln_train as lno
+    from unpaired_image_captioning_tpu_torch.ops import mha_train as mho
+    from unpaired_image_captioning_tpu_torch.ops import (
+        transformer_decode as td)
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    errs = {}
+
+    def note(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for b, t, s, d, heads, kind, rate in seen.get("mha_train", ()):
+        if kind == "full":
+            raise AssertionError(f"mha_train at {(b, t, s, d)}: a [B, T, S] "
+                                 "mask over T != S, which no check builds")
+        q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind, d)
+        for r in sorted({rate, TRAIN_RATE}):
+            kw = dict(n_heads=heads, rate=r)
+            out, stats = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+            grads = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
+                                      **kw)
+            ref_stats = mho.softmax_stats(q, k, maskadd, n_heads=heads)
+            label = f"mha_train B={b} T={t} S={s} d={d} H={heads} rate={r}"
+            note("mha_train_fwd", _check_close(
+                label, [out, stats[0], stats[1]],
+                [mho.mha_train_plain(q, k, v, maskadd, seed, **kw),
+                 ref_stats[0], ref_stats[1]]))
+            note("mha_train_bwd", _check_close(
+                label + " bwd", grads,
+                mho.mha_train_plain_bwd(q, k, v, maskadd, seed, g, **kw)))
+    for shape, eps in seen.get("ln_train", ()):
+        x = torch.randn(shape, generator=gen, device=dev) * 3 + 1
+        g = torch.randn(shape, generator=gen, device=dev)
+        scale = 1 + 0.1 * torch.randn((shape[-1],), generator=gen,
+                                      device=dev)
+        offset = 0.1 * torch.randn((shape[-1],), generator=gen, device=dev)
+        label = f"ln_train {list(shape)}"
+        note("ln_train_fwd", _check_close(
+            label, [lnk.ln_train_fwd(x, scale, offset, eps)],
+            [lno.ln_train_plain(x, scale, offset, eps)]))
+        note("ln_train_bwd", _check_close(
+            label + " bwd", lnk.ln_train_bwd(x, scale, g, eps),
+            lno.ln_train_plain_bwd(x, scale, g, eps)))
+    for b, s, d, f, heads, rate, rows in seen.get("enc_layer_train", ()):
+        if rows != 1:
+            raise AssertionError(f"enc_layer_train at {(b, s, d)}: a mask "
+                                 f"of {rows} rows, which no check builds")
+        x, g, _, maskadd, lseed, w, _ = _enc_layer_inputs(dev, gen, b, s, d,
+                                                          f)
+        ws = [w[k] for k in lto.ENC_WEIGHTS]
+        for r in sorted({rate, TRAIN_RATE}):
+            kw = dict(n_heads=heads, rate=r)
+            label = (f"enc_layer_train B={b} S={s} d={d} d_ff={f} H={heads} "
+                     f"rate={r}")
+            out, saved = ltk.enc_layer_fwd(x, maskadd, lseed, w, **kw)
+            grads = ltk.enc_layer_bwd(x, maskadd, lseed, w, saved, g, **kw)
+            ref, x2 = lto.enc_fwd_plain(x, maskadd, lseed, *ws, **kw)
+            refs = lto.enc_bwd_plain(x, maskadd, lseed, x2, g, *ws, **kw,
+                                     relu_active=saved[-1] > 0)
+            note("enc_layer_train_fwd", _check_each(
+                label, ("out", "x2"), (out, saved[0]), (ref, x2)))
+            note("enc_layer_train_bwd", _check_each(
+                label + " bwd", ("dx",) + lto.ENC_WEIGHTS, grads, refs))
+    for b, t, s, d, f, heads, rate, trows, srows in seen.get(
+            "dec_layer_train", ()):
+        if (trows, srows) != (t, 1):
+            raise AssertionError(f"dec_layer_train at {(b, t, s, d)}: masks "
+                                 f"of {trows} and {srows} rows, which no "
+                                 "check builds")
+        x, g = (torch.randn((b, t, d), generator=gen, device=dev)
+                for _ in range(2))
+        mk, mv = (torch.randn((b, s, d), generator=gen, device=dev)
+                  for _ in range(2))
+        pos_s, pos_t = torch.arange(s, device=dev), torch.arange(t, device=dev)
+        src_len = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+        src_len[0] = s
+        keep = (pos_s[None, :] < src_len[:, None])[:, None, :]
+        tgt_len = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        pad_ok = (pos_t[None, :] < tgt_len[:, None]) | (pos_t[None, :] == 0)
+        tkeep = pad_ok[:, None, :] & (pos_t[None, :] <= pos_t[:, None])[None]
+        tmask = torch.where(tkeep, 0.0, -1e9).contiguous()
+        smask = torch.where(keep, 0.0, -1e9).contiguous()
+        seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                             device=dev)
+        w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
+        ws = [w[k] for k in lto.DEC_WEIGHTS]
+        args = (x, mk, mv, tmask, smask, seeds)
+        for r in sorted({rate, TRAIN_RATE}):
+            kw = dict(n_heads=heads, rate=r)
+            label = (f"dec_layer_train B={b} T={t} S={s} d={d} d_ff={f} "
+                     f"H={heads} rate={r}")
+            out, saved = ltk.dec_layer_fwd(*args, w, **kw)
+            grads = ltk.dec_layer_bwd(*args, w, saved, g, **kw)
+            ref, x2, x3 = lto.dec_fwd_plain(*args, *ws, **kw)
+            refs = lto.dec_bwd_plain(*args, x2, x3, g, *ws, **kw,
+                                     relu_active=saved[-1] > 0)
+            note("dec_layer_train_fwd", _check_each(
+                label, ("out", "x2", "x3"), (out, saved[0], saved[1]),
+                (ref, x2, x3)))
+            note("dec_layer_train_bwd", _check_each(
+                label + " bwd", ("dx", "dmk", "dmv") + lto.DEC_WEIGHTS,
+                grads, refs))
+    for key in seen.get("transformer_decode_stack", ()):
+        b, kb, n_l, n_t, slots, d, dff, heads, lazy = key
+        if lazy is None:
+            raise AssertionError(f"transformer_decode_stack at {key}: the "
+                                 "lazy ancestry without want_attn, which "
+                                 "no check builds")
+        a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
+        outs = [fn(a["x"], a["t"], a["ck"], a["cv"], a["mask"],
+                   a["kc"].clone(), a["vc"].clone(), a["w"], a["anc"],
+                   n_heads=heads, want_attn=lazy)
+                for fn in (tdk.decoder_stack_step,
+                           td.decoder_stack_step_plain)]
+        e = _rel_err(*outs)
+        if not e <= TFD_TOL:
+            raise AssertionError(f"transformer_decode_stack at {key}: max|"
+                                 f"diff| / max(1, max|plain|) = {e} > "
+                                 f"{TFD_TOL}")
+        note("transformer_decode_stack", e)
+    torch.cuda.synchronize()
+    return errs
 
 
 def phase_scale_out(dev, root: str) -> tuple:
@@ -7379,13 +7664,16 @@ def phase_scale_out(dev, root: str) -> tuple:
     card count before any runs, the same steps on ranks that share the
     card over gloo ("2", and "1x2" with the tensor-parallel placements),
     on one NCCL rank, and across cards over NCCL where two are visible.
-    Each route's losses and parameters must equal the reference's within
-    SCALE_TOL, each rank must launch B1, B2 and B9, each "1x2" rank must
-    hold half of every model-sharded leaf, and the "2" route's checkpoint
-    must load into a one-device Trainer bit for bit. Every shape the ranks
-    give B1, B2 and B9 is then held against its plain version. Returns
-    (rank 0's launches on the "2" route, the cells' and the top-k
-    records)."""
+    The "2" route and the reference also take the transformer NMT's steps
+    and translate (`_scale_tnmt`). Each route's losses and parameters must
+    equal the reference's within SCALE_TOL, each rank must launch B1, B2
+    and B9 (and on the "2" route B4-B8), each "1x2" rank must hold half of
+    every model-sharded leaf, and the "2" route's checkpoint must load
+    into a one-device Trainer bit for bit. Every shape the ranks give B1,
+    B2 and B4-B9 is then held against its plain version. Last, the
+    loader's read of one global batch against a rank's block of it
+    (`_scale_reads`). Returns (rank 0's launches on the "2" route, the
+    cells' and the top-k records)."""
     import os
 
     import torch
@@ -7414,28 +7702,37 @@ def phase_scale_out(dev, root: str) -> tuple:
         "(parallel/mesh.py stages every collective), so the 1x2 route runs "
         "on the card.")
     ref_path = os.path.join(root, "scale_ref.pt")
-    ref = _scale_steps(dev, None, False, "", ref_path)
+    ref = _scale_steps(dev, None, "", ref_path, tnmt=True)
     t_ref = time.perf_counter()
     reports = {}
     for label, world, shape, backend, tp, devices in routes:
         # the first route writes the checkpoint that is loaded below
         run_dir = os.path.join(root, "scale_ckpt") if not reports else ""
         t1 = time.perf_counter()
+        # the transformer NMT's steps ride on the first route
+        tnmt = not reports
         ranks = launch.run_ranks(_scale_rank, world,
-                                 (shape, tp, run_dir, ref_path),
+                                 (shape, run_dir, ref_path, tnmt),
                                  backend=backend, timeout=300.0,
                                  devices=devices)
         for r, rep in enumerate(ranks):
-            for i, (got, want) in enumerate(zip(rep["metrics"],
-                                                ref["metrics"])):
-                for k, w in want.items():
-                    if not abs(got[k] - w) <= SCALE_TOL * max(1.0, abs(w)):
-                        raise AssertionError(
-                            f"scale-out {label}: rank {r} step {i + 1} {k} "
-                            f"{got[k]} vs one device's {w}")
-            if not all(rep["counts"][k] for k in SCALE_KERNELS):
-                raise AssertionError(f"scale-out {label}: rank {r} did not "
-                                     f"launch every kernel: {rep['counts']}")
+            parts = [("", rep, ref, SCALE_KERNELS)]
+            if tnmt:
+                parts.append(("transformer NMT ", rep["tnmt"], ref["tnmt"],
+                              tuple(SCALE_TNMT_COUNTERS)))
+            for what, got_rep, ref_rep, names in parts:
+                for i, (got, want) in enumerate(zip(got_rep["metrics"],
+                                                    ref_rep["metrics"])):
+                    for k, w in want.items():
+                        if not abs(got[k] - w) <= SCALE_TOL * max(1.0,
+                                                                  abs(w)):
+                            raise AssertionError(
+                                f"scale-out {label}: rank {r} {what}step "
+                                f"{i + 1} {k} {got[k]} vs one device's {w}")
+                if not all(got_rep["counts"][k] for k in names):
+                    raise AssertionError(
+                        f"scale-out {label}: rank {r} did not launch every "
+                        f"{what}kernel: {got_rep['counts']}")
             if tp:
                 if not rep["shards"]:
                     raise AssertionError(f"scale-out {label}: rank {r} "
@@ -7468,11 +7765,14 @@ def phase_scale_out(dev, root: str) -> tuple:
         raise AssertionError(f"scale-out: checkpoint infos {infos['iter']}")
     del tr
 
-    # every shape the ranks gave B1, B2 and B9, against the plain versions
+    # every shape the ranks gave B1, B2, B4-B9, against the plain versions
     seen = {}
     for rep in [ref] + [x for v in reports.values() for x in v[0]]:
-        for k, v in rep["shapes"].items():
-            seen.setdefault(k, set()).update(tuple(s) for s in v)
+        for part in (rep, rep.get("tnmt", {"shapes": {}})):
+            for k, v in part["shapes"].items():
+                seen.setdefault(k, set()).update(
+                    tuple(tuple(e) if isinstance(e, list) else e for e in s)
+                    for s in v)
     cell_rows = {}
     for b, d, h, maxout in seen.get("lstm_cell", ()):
         cell_rows.setdefault((d, h, maxout), set()).add(b)
@@ -7492,6 +7792,17 @@ def phase_scale_out(dev, root: str) -> tuple:
                                       [ao.reference_attention(*args)]))
     log(f"scale-out additive_attention at {sorted(seen['additive_attention'])}"
         f": max|diff| / max(1, max|plain|) {worst:.3g} (tol {ATT_TOL})")
+    held = _hold_train_shapes(dev, seen)
+    for name in ("mha_train", "ln_train", "enc_layer_train",
+                 "dec_layer_train", "transformer_decode_stack"):
+        log(f"scale-out {name} shapes: {sorted(seen.get(name, ()), key=str)}")
+    log("scale-out B4-B8 at those shapes: max|diff| / max(1, max|plain|) "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(held.items()))
+        + f" (tol {TRAIN_TOL}; the decoder step {TFD_TOL})")
+    if set(held) != {k for k in SCALE_TNMT_COUNTERS if k != "row_topk"}:
+        raise AssertionError(f"scale-out: no shape held for "
+                             f"{set(SCALE_TNMT_COUNTERS) - set(held)}")
+    reads = _scale_reads(os.path.join(root, "reads"))
     end = time.perf_counter()
     ref_wall = ref["wall"]
     lines = [f"one device: joint XE step {ref_wall * 1e3:.1f} ms, losses "
@@ -7508,12 +7819,74 @@ def phase_scale_out(dev, root: str) -> tuple:
                 str(r["counts"]) for r in ranks)
             + (f", {len(ranks[0]['shards'])} leaves in halves"
                if ranks[0]["shards"] else "") + f"; route {secs:.1f} s")
+    ranks = reports[routes[0][0]][0]
+    tn_ref = ref["tnmt"]
+    lines.append(
+        f"transformer NMT (d 512, 6 + 6 layers, 50 pairs): one device's "
+        f"step {tn_ref['wall'] * 1e3:.1f} ms, losses " + ", ".join(
+            f"{k} {v:.6f}" for k, v in tn_ref["metrics"][1].items()
+            if k.endswith("loss"))
+        + f"; {routes[0][0]}: step " + " / ".join(
+            f"{r['tnmt']['wall'] * 1e3:.1f}" for r in ranks)
+        + f" ms (rank walls; {ranks[0]['tnmt']['wall'] / tn_ref['wall']:.2f}x"
+        " one device), parameters max|diff| "
+        + f"{max(r['tnmt']['param_err'][0] for r in ranks):.3g}, losses "
+        f"within {SCALE_TOL}, beam-{SCALE_TNMT_BEAM} translate "
+        + " / ".join(str(r["tnmt"]["translate"]) for r in ranks)
+        + ", launches " + " / ".join(str(r["tnmt"]["counts"]) for r in ranks))
+    lines.append(
+        f"the loader's read of one training batch ({SCALE_IMAGES} images x "
+        f"{SCALE_CAPS} captions from .npy files, warm page cache, host "
+        "clock, mean of 3 after one): " + ", ".join(
+            f"{label} {ms:.1f} ms ({n} rows)" for label, ms, n in reads))
     log("scale-out on " + (CARD[0] if CARD else "the card") + ": "
         + "; ".join(lines) + f"; the 2-rank checkpoint loads into a "
         f"one-device Trainer bit for bit; phase seconds: reference "
         f"{t_ref - t0:.1f}, routes {t_routes - t_ref:.1f}, checks "
         f"{end - t_routes:.1f}; all {end - t0:.1f}")
-    return reports[routes[0][0]][0][0]["counts"], cells, topk
+    counts = dict(ranks[0]["counts"])
+    for k, n in ranks[0]["tnmt"]["counts"].items():
+        counts[k] = counts.get(k, 0) + n
+    return counts, cells, topk
+
+
+def _scale_reads(root: str) -> list:
+    """The loader's host time for one training batch of the recipe's
+    shape (SCALE_IMAGES images x SCALE_CAPS captions, CAP's fc and 196 x
+    2,048 att features as one .npy file each) read whole and as each
+    rank's block of 2 data ranks (`data_rank`). Returns [(label, mean ms,
+    rows)]."""
+    import os
+
+    from unpaired_image_captioning_tpu_torch.data import synthetic
+    from unpaired_image_captioning_tpu_torch.data.dataloader import (
+        CaptionDataLoader)
+
+    os.makedirs(root, exist_ok=True)
+    jpath, label, mem = synthetic.make_caption_artifacts(
+        root, n_images=SCALE_IMAGES + 2, vocab_size=CAP["vocab_size"],
+        seq_length=CAP["seq_length"], caps_per_img=SCALE_CAPS,
+        fc_dim=CAP["fc_feat_size"], att_dim=CAP["att_feat_size"],
+        att_len=N_SLOTS, seed=0, n_val=1, n_test=1)
+    fc_dir, att_dir = synthetic.write_feature_dirs(root, mem)
+    del mem
+    out = []
+    for name, rank, parts in (("1 rank", 0, 1), ("rank 0 of 2", 0, 2),
+                              ("rank 1 of 2", 1, 2)):
+        loader = CaptionDataLoader(
+            input_json=jpath, input_label_h5=label, input_fc_dir=fc_dir,
+            input_att_dir=att_dir, batch_size=SCALE_IMAGES,
+            seq_per_img=SCALE_CAPS, att_feat_size=CAP["att_feat_size"],
+            data_rank=rank, num_data_ranks=parts)
+        loader.get_batch("train")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch = loader.get_batch("train")
+            walls.append(time.perf_counter() - t0)
+        out.append((name, statistics.mean(walls) * 1e3,
+                    len(batch["att_feats"])))
+    return out
 
 
 def main(argv=None) -> int:

@@ -108,3 +108,30 @@ def test_optimizer_matches_optax(method, clip, weight_decay):
         _check_dual_optim()
     else:
         _check_transform(method, clip, weight_decay)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_clip_alone_reads_the_given_whole_gradient_norm(method):
+    """`global_sq_norm` (the squared norm of the whole gradient, of which
+    `grads` holds one rank's shards) reaches the clip and no other part of
+    the chain: the update equals the unclipped chain's on the gradient
+    scaled by max_norm / that norm, with weight decay after the method."""
+    rs = np.random.RandomState(5)
+    params = {k: torch.from_numpy(rs.randn(*s).astype(np.float32))
+              for k, s in SHAPES.items()}
+    # the shard's own norm is below the bound, the whole one far above
+    grads = {k: 0.01 * torch.ones_like(p) for k, p in params.items()}
+    whole = torch.tensor(16.0)
+    kw = dict(momentum=0.9, weight_decay=0.01)
+    tx = topt.make_transform(method, max_grad_norm=0.5, **kw)
+    plain = topt.make_transform(method, **kw)
+    got, _ = tx.update(grads, tx.init(params), params, global_sq_norm=whole)
+    want, _ = plain.update({k: g / 4.0 * 0.5 for k, g in grads.items()},
+                           plain.init(params), params)
+    for k in params:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7)
+    # without it, the clip reads the shard's own norm and stays idle
+    idle, _ = tx.update(grads, tx.init(params), params)
+    same, _ = plain.update(grads, plain.init(params), params)
+    for k in params:
+        torch.testing.assert_close(idle[k], same[k], rtol=0, atol=0)

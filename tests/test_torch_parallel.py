@@ -6,8 +6,8 @@ vectors 16, one layer), every dropout at 0 and Adam's eps at 1e-6.
 
 - `param_sharding`'s placements against JAX `_tp_spec`'s PartitionSpecs
   leaf by leaf, on the captioner's and the NMT's trees, on a 2x2 mesh and
-  a 1-D one; `shard_batch`'s blocks, with a leading dim that does not
-  divide; `make_mesh`'s count checks; the loader's striped `split_ix`
+  a 1-D one; `shard_batch`'s blocks, with leading dims that do and do
+  not divide; `make_mesh`'s count checks; the loader's striped `split_ix`
   against JAX's for `num_hosts` 1-3.
 - Two steps on 2 gloo ranks ("2") and on 4 ("2x2", tensor parallel) of
   each scenario: XE on an even and an uneven global batch, the joint step
@@ -138,7 +138,7 @@ def _port_extras(extra, cfg, teacher):
     return out
 
 
-def _mesh_worker(rank, world, mesh_shape, tp, specs, ckpt_dir):
+def _mesh_worker(rank, world, mesh_shape, specs, ckpt_dir):
     """One rank: every scenario's two steps under the mesh. Rank 0 returns
     the metrics and the whole parameters; every rank returns the shapes of
     its sharded leaves. With `ckpt_dir`, the joint trainer saves there."""
@@ -157,7 +157,7 @@ def _mesh_worker(rank, world, mesh_shape, tp, specs, ckpt_dir):
             df, n_img, gen, greedy = scst
             kw["df_table"] = tc.build_df_table(df, n_img, device="cpu")
         tr = Trainer(TConfig(**dict(cfg, checkpoint_path=ckpt_dir)),
-                     device="cpu", mesh=mesh, tensor_parallel=tp, **kw)
+                     device="cpu", mesh=mesh, **kw)
         with tr.whole_params():
             for key, model in tr._models():
                 if model is not None:
@@ -171,7 +171,8 @@ def _mesh_worker(rank, world, mesh_shape, tp, specs, ckpt_dir):
                 return torch.from_numpy(_g if greedy else _s), None
 
             tr.i2t_model.sample = sample
-        metrics = [tr.train(batch, sc_flag=scst is not None)
+        mine = pmesh.shard_batch(batch, mesh)
+        metrics = [tr.train(mine, sc_flag=scst is not None)
                    for _ in range(2)]
         shapes = {f"{key}.{k}": tuple(s.params[k].shape)
                   for key, s in tr.shards.items() for k in s.dims}
@@ -280,7 +281,7 @@ def _specs(scenarios):
 @pytest.fixture(scope="module")
 def two_rank(scenarios):
     return launch.run_ranks(_mesh_worker, 2,
-                            ("2", False, _specs(scenarios), ""),
+                            ("2", _specs(scenarios), ""),
                             timeout=JOB_TIMEOUT)
 
 
@@ -288,7 +289,7 @@ def two_rank(scenarios):
 def four_rank(scenarios, tmp_path_factory):
     ckpt = str(tmp_path_factory.mktemp("ckpt2x2"))
     return launch.run_ranks(_mesh_worker, 4,
-                            ("2x2", True, _specs(scenarios), ckpt),
+                            ("2x2", _specs(scenarios), ckpt),
                             timeout=JOB_TIMEOUT), ckpt
 
 
@@ -380,46 +381,74 @@ def test_param_sharding_matches_jax_tp_spec(tree, shape):
     assert all(pmesh.model_dim(p) is None for p in replicated.values())
 
 
-def test_shard_batch_blocks():
-    """Each data rank takes its contiguous block; a leaf whose leading dim
-    does not divide stays whole, as JAX replicates it; the model axis
-    does not split the batch."""
+class _DataMesh(_FakeMesh):
+    """A 3 x 2 ("data", "model") mesh seen from data rank `rank`."""
+
+    def __init__(self, rank):
+        super().__init__((3, 2), ("data", "model"))
+        self.rank = rank
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return self.rank
+
+
+def _blocks_divide():
+    """Leading dims that divide the data axis: contiguous blocks; dicts,
+    lists and tuples walked, scalars kept, the model axis no split."""
     x = np.arange(12).reshape(6, 2)
-    odd = np.arange(5)
-    batch = {"x": x, "odd": odd, "nested": {"y": np.arange(6)},
-             "scalar": 3, "pair": (np.arange(4), np.arange(3))}
-
-    class M(_FakeMesh):
-        def __init__(self, rank):
-            super().__init__((3, 2), ("data", "model"))
-            self.rank = rank
-
-        def get_group(self, name):
-            return None
-
-        def get_local_rank(self, name):
-            return self.rank
-
-    got = [pmesh.shard_batch(batch, M(r)) for r in range(3)]
-    for r, g in enumerate(got):
+    batch = {"x": x, "nested": {"y": np.arange(6)}, "scalar": 3,
+             "pair": (np.arange(6), np.arange(3))}
+    for r in range(3):
+        g = pmesh.shard_batch(batch, _DataMesh(r))
         np.testing.assert_array_equal(g["x"], x[2 * r:2 * r + 2])
         np.testing.assert_array_equal(g["nested"]["y"], [2 * r, 2 * r + 1])
-        np.testing.assert_array_equal(g["odd"], odd)
         assert g["scalar"] == 3
-        np.testing.assert_array_equal(g["pair"][0], np.arange(4))
-        np.testing.assert_array_equal(g["pair"][1], [r])
         assert isinstance(g["pair"], tuple)
-    assert pmesh.shard_batch(batch, None) is batch
-    # the trainer's uneven blocks: array_split's
+        np.testing.assert_array_equal(g["pair"][0], [2 * r, 2 * r + 1])
+        np.testing.assert_array_equal(g["pair"][1], [r])
+
+
+def _blocks_uneven():
+    """A leading dim that does not divide: numpy's array_split blocks
+    (JAX would replicate the leaf), which cover the batch once."""
+    for n in (5, 7, 4):
+        x = np.arange(n)
+        got = [pmesh.shard_batch({"o": x}, _DataMesh(r))["o"]
+               for r in range(3)]
+        for g, w in zip(got, np.array_split(x, 3)):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(np.concatenate(got), x)
+
+
+def _blocks_bounds():
+    """`block_bounds` is array_split's block, the first n % parts one row
+    longer."""
     for n, parts in ((7, 2), (5, 3), (8, 4), (3, 3)):
         want = np.array_split(np.arange(n), parts)
         for i in range(parts):
             lo, hi = pmesh.block_bounds(n, parts, i)
             np.testing.assert_array_equal(np.arange(n)[lo:hi], want[i])
-    blocks = [pmesh.local_block({"o": odd}, M(r))["o"] for r in range(3)]
-    np.testing.assert_array_equal(np.concatenate(blocks), odd)
+
+
+def _blocks_too_few_rows():
     with pytest.raises(ValueError, match="cannot be split over 3"):
-        pmesh.local_block({"x": np.arange(2)}, M(0))
+        pmesh.shard_batch({"x": np.arange(2)}, _DataMesh(0))
+
+
+def _blocks_no_mesh():
+    batch = {"x": np.arange(5)}
+    assert pmesh.shard_batch(batch, None) is batch
+
+
+@pytest.mark.parametrize("case", [_blocks_divide, _blocks_uneven,
+                                  _blocks_bounds, _blocks_too_few_rows,
+                                  _blocks_no_mesh],
+                         ids=lambda f: f.__name__[len("_blocks_"):])
+def test_shard_batch_blocks(case):
+    case()
 
 
 @pytest.mark.parametrize("num_hosts", [1, 2, 3])

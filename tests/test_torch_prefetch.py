@@ -6,6 +6,9 @@ CPU.
   synchronous `get_batch`, bit for bit, across epoch wraps and with an
   attached NMT corpus, with features read from directories and from one
   `.npz` / HDF5 file each (the workers reopen the HDF5 handles).
+- A loader of one data rank (`data_rank` of `num_data_ranks`) yields its
+  block of the global training stream and reads only that block's
+  images, with and without the workers; its eval splits stay global.
 - `ProcessPrefetcher.state_dict()` after k `get()`s, loaded into a fresh
   loader, reproduces the rest of the stream; after `rewind()`, a reader of
   the loader in between draws what it draws without workers, and the
@@ -80,7 +83,7 @@ FEATURES = {"dirs": ("fc_dir", "att_dir"), "npz": ("fc.npz", "att.npz"),
             "h5": ("fc.h5", "att.h5")}
 
 
-def _loader(f, features="dirs"):
+def _loader(f, features="dirs", **block):
     fc, att = FEATURES[features]
     if features == "h5" and not (f["tmp"] / fc).exists():
         import h5py
@@ -97,7 +100,7 @@ def _loader(f, features="dirs"):
         input_json=f["json"], input_label_h5=f["label"], batch_size=3,
         seq_per_img=2, att_feat_size=24, seed=7,
         nmt_dataset=NMTDataset(f["src"], f["tgt"], 4, shuffle=True, seed=2),
-        **kw)
+        **kw, **block)
 
 
 def _same_batch(got, want):
@@ -156,6 +159,66 @@ def test_state_dict_resumes_the_stream(files, k):
     fresh.load_state_dict(state)
     for w in want[k:]:
         _same_batch(fresh.get_batch("train"), w)
+
+
+def _block_of(batch, parts, r, spi=2):
+    """Data rank r's block of a global batch, as `parallel.shard_batch`
+    cuts it (every array's rows, the NMT batch's too), with the infos of
+    the images those rows come from."""
+    from unpaired_image_captioning_tpu_torch.parallel.mesh import (
+        block_bounds)
+
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, np.ndarray):
+            lo, hi = block_bounds(len(v), parts, r)
+            out[k] = v[lo:hi]
+        elif k == "nmt":
+            out[k] = _block_of(v, parts, r, spi)
+        else:
+            out[k] = v
+    if "infos" in batch:
+        lo, hi = block_bounds(len(batch["labels"]), parts, r)
+        out["infos"] = batch["infos"][lo // spi:(hi + spi - 1) // spi]
+    return out
+
+
+@pytest.mark.parametrize("parts", [2, 3, 4])
+def test_data_rank_reads_its_block_of_the_global_stream(files, parts):
+    """A loader built with `data_rank` r of `num_data_ranks` yields, batch
+    by batch, rank r's block of the global training stream (3 images x 2
+    captions: blocks that split an image's rows, and uneven ones), and
+    reads only the images of that block."""
+    glob = _loader(files)
+    want = _stream(glob)
+    want_val = glob.get_batch("val")
+    for r in range(parts):
+        loader = _loader(files, data_rank=r, num_data_ranks=parts)
+        read = []
+        gather = loader.features.gather
+        loader.features.gather = lambda ixs: (read.append(list(ixs))
+                                              or gather(ixs))
+        for w in want:
+            g = loader.get_batch("train")
+            _same_batch(g, _block_of(w, parts, r))
+            assert read[-1] == [i["ix"] for i in g["infos"]]
+            assert len(read[-1]) < 3
+        # the eval splits stay global
+        _same_batch(loader.get_batch("val"), want_val)
+
+
+def test_process_prefetcher_reads_a_data_rank_block(files):
+    """The feature workers give a data rank's loader the same block
+    stream as its synchronous reads."""
+    want = _stream(_loader(files, data_rank=1, num_data_ranks=2))
+    pf = ProcessPrefetcher(_loader(files, data_rank=1, num_data_ranks=2),
+                           "train", num_workers=2, depth=3)
+    try:
+        got = [pf.get() for _ in want]
+    finally:
+        pf.close()
+    for g, w in zip(got, want):
+        _same_batch(g, w)
 
 
 def test_pickled_reader_leaves_out_handles(files):

@@ -25,8 +25,9 @@ Scale-out: `--num_devices N` (0, the default, is every visible card)
 starts N ranks, one card each over NCCL (`parallel/launch.py`), on the
 mesh `--mesh_shape` names ("data", or "DxM" for data x model); under
 `torchrun` the CLI joins the group that is there instead. Every rank
-reads the same global batch and the trainer's step is the one-device step
-on it; rank 0 prints, logs and writes the checkpoints. With `--device
+plans the same global batch and reads only its data rank's block of it
+(the loader's `data_rank`), and the trainer's step is the one-device step
+on the global batch; rank 0 prints, logs and writes the checkpoints. With `--device
 cpu` the ranks are CPU processes over gloo.
 
     torchrun --nproc_per_node 2 -m unpaired_image_captioning_tpu_torch.cli.train ...
@@ -42,9 +43,13 @@ import time
 import numpy as np
 
 
-def build_loader(cfg, nmt_dataset=None):
+def build_loader(cfg, nmt_dataset=None, mesh=None):
+    """The caption loader of `cfg`; under a scale-out `mesh` its training
+    batches are this data rank's block."""
     from ..data.dataloader import CaptionDataLoader
+    from ..parallel.mesh import axis
 
+    _, data_rank, num_data_ranks = axis(mesh, "data")
     return CaptionDataLoader(
         input_json=cfg.input_json, input_label_h5=cfg.input_label_h5,
         input_fc_dir=cfg.input_fc_dir, input_att_dir=cfg.input_att_dir,
@@ -56,7 +61,8 @@ def build_loader(cfg, nmt_dataset=None):
         norm_box_feat=cfg.norm_box_feat,
         use_box_cls_prob=cfg.use_box_cls_prob,
         att_feat_size=cfg.att_feat_size, attri_feat_size=cfg.attri_feat_size,
-        nmt_dataset=nmt_dataset, seed=cfg.seed)
+        nmt_dataset=nmt_dataset, seed=cfg.seed, data_rank=data_rank,
+        num_data_ranks=num_data_ranks)
 
 
 def _nmt_data(cfg):
@@ -176,7 +182,7 @@ def _run(cfg, device, mesh=None):
     nmt_dicts = {}
     if cfg.nmt_train_flag and cfg.input_nmt_h5:
         nmt_dataset, nmt_valid, nmt_dicts = _nmt_data(cfg)
-    loader = build_loader(cfg, nmt_dataset)
+    loader = build_loader(cfg, nmt_dataset, mesh)
     cfg.vocab_size = loader.vocab.vocab_size
     cfg.seq_length = loader.seq_length
     joint_vocab, joint_vocab_y = _joint_vocabs(cfg, loader, nmt_dicts)

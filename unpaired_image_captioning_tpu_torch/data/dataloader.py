@@ -29,8 +29,12 @@ feature-assembly phase (file reads and padding, no state: a
 a pickled copy). With
 `num_hosts` > 1 each host owns the stripe of the training split whose
 image indices are `host_id` modulo `num_hosts` (the eval splits stay
-global, so every host can score). `feat_dtype="bfloat16"` waits for the
-compute dtype (ROADMAP A15).
+global, so every host can score). With `num_data_ranks` > 1 (one loader a
+data rank of a scale-out mesh) every loader plans the same global training
+batch, and its training batches are the contiguous block of rows
+`parallel.shard_batch` gives data rank `data_rank`, the NMT batch's too:
+only that block's images are read and replicated. `feat_dtype="bfloat16"`
+waits for the compute dtype (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -217,6 +221,7 @@ class CaptionDataLoader:
                  nmt_dataset: Optional[NMTDataset] = None,
                  in_memory: Optional[dict] = None, seed: int = 123,
                  host_id: int = 0, num_hosts: int = 1,
+                 data_rank: int = 0, num_data_ranks: int = 1,
                  feat_dtype: str = "float32"):
         if feat_dtype != "float32":
             raise NotImplementedError(
@@ -264,6 +269,9 @@ class CaptionDataLoader:
         # the training split; eval splits stay global so every host scores
         self.host_id = host_id
         self.num_hosts = num_hosts
+        # a data rank's block of each training batch (the module's doc)
+        self.data_rank = data_rank
+        self.num_data_ranks = num_data_ranks
         self.split_ix: Dict[str, List[int]] = {"train": [], "val": [],
                                                "test": []}
         for ix, img in enumerate(self.images):
@@ -346,14 +354,15 @@ class CaptionDataLoader:
 
     # -- batching --------------------------------------------------------------
     def _rep(self, x):
-        # seq_per_img replication, one definition for plan_batch
-        # (labels/gts) and assemble_features (features)
+        # seq_per_img replication of the gts and of a whole batch's
+        # features
         return np.repeat(x, self.seq_per_img, axis=0)
 
     def plan_batch(self, split: str, batch_size: Optional[int] = None) -> dict:
         """Everything but the feature IO: draws the image indices (shuffling
         on wrap), captions, gts, and the piggybacked NMT batch. Consumes
-        loader RNG/iterator state exactly like get_batch."""
+        loader RNG/iterator state exactly like get_batch. A data rank's
+        training plan is cut to its block (`_cut`)."""
         bs = batch_size or self.batch_size
         spi = self.seq_per_img
         ixs = []
@@ -403,21 +412,47 @@ class CaptionDataLoader:
             nmt_batch, nmt_wrapped = self.nmt.next_batch()
             plan["nmt"] = nmt_batch
             plan["nmt_wrapped"] = nmt_wrapped
+        if split == "train" and self.num_data_ranks > 1:
+            self._cut(plan)
         return plan
+
+    def _cut(self, plan: dict) -> None:
+        """Cut a global training plan to this data rank's block, in place:
+        the caption rows [lo, hi) of `block_bounds`, the images those rows
+        come from (`ixs`, `infos`) with the block's rows among their
+        replicated ones (`rows`), and the NMT batch's block."""
+        from ..parallel.mesh import block_bounds, take_block
+
+        spi, parts, r = self.seq_per_img, self.num_data_ranks, self.data_rank
+        lo, hi = block_bounds(plan["labels"].shape[0], parts, r)
+        first, last = lo // spi, (hi + spi - 1) // spi
+        for k in ("labels", "masks", "gts", "gts_masks"):
+            plan[k] = take_block(plan[k], parts, r)
+        plan["ixs"] = plan["ixs"][first:last]
+        plan["infos"] = plan["infos"][first:last]
+        plan["rows"] = (lo - first * spi, hi - first * spi)
+        if "nmt" in plan:
+            plan["nmt"] = {k: take_block(v, parts, r)
+                           for k, v in plan["nmt"].items()}
 
     def gather_features(self, ixs: List[int]) -> dict:
         """The planned images' features, one row an image
         (`FeatureReader.gather`)."""
         return self.features.gather(ixs)
 
-    def replicate(self, feats: dict) -> dict:
+    def replicate(self, feats: dict, rows=None) -> dict:
         """Each image's feature rows repeated for its seq_per_img captions
-        (new arrays)."""
-        return {k: self._rep(v) for k, v in feats.items()}
+        (new arrays); with `rows` = (lo, hi), only those replicated rows
+        (a data rank's block, `_cut`)."""
+        if rows is None:
+            return {k: self._rep(v) for k, v in feats.items()}
+        idx = np.arange(*rows) // self.seq_per_img
+        return {k: np.take(v, idx, axis=0) for k, v in feats.items()}
 
-    def assemble_features(self, ixs: List[int]) -> dict:
-        """The batch's features: `gather_features`, replicated."""
-        return self.replicate(self.gather_features(ixs))
+    def assemble_features(self, ixs: List[int], rows=None) -> dict:
+        """The batch's features: `gather_features`, replicated (the rows
+        `rows` of them, where given)."""
+        return self.replicate(self.gather_features(ixs), rows)
 
     def reopen_features(self) -> None:
         """Re-create the HDF5 feature handles (`FeatureReader.reopen`)."""
@@ -425,6 +460,7 @@ class CaptionDataLoader:
 
     def get_batch(self, split: str, batch_size: Optional[int] = None) -> dict:
         plan = self.plan_batch(split, batch_size)
-        feats = self.assemble_features(plan.pop("ixs"))
+        feats = self.assemble_features(plan.pop("ixs"),
+                                       plan.pop("rows", None))
         plan.update(feats)
         return plan

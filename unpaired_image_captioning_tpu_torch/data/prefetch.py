@@ -170,9 +170,10 @@ class ProcessPrefetcher:
         self.skipped = 0                 # of those, tasks no worker read
         self._fill()
 
-    def _materialize(self, out: dict) -> dict:
-        """The worker's arrays, replicated for the captions (copies), with
-        their shared memory unlinked."""
+    def _materialize(self, out: dict, rows=None) -> dict:
+        """The worker's arrays, replicated for the captions (copies; the
+        plan's `rows` of them, where given), with their shared memory
+        unlinked."""
         from multiprocessing import shared_memory
 
         feats, shms = {}, []
@@ -184,7 +185,7 @@ class ProcessPrefetcher:
                 shms.append(shm)
             else:
                 feats[k] = v[1]
-        feats = self.loader.replicate(feats)
+        feats = self.loader.replicate(feats, rows)
         for shm in shms:
             shm.close()
             shm.unlink()
@@ -241,10 +242,10 @@ class ProcessPrefetcher:
         seq = next(iter(self._plans))
         while seq not in self._done:
             self._recv()
-        feats = self._materialize(self._done.pop(seq))
         _, plan = self._plans.pop(seq)
         plan = dict(plan)
         plan.pop("ixs")
+        feats = self._materialize(self._done.pop(seq), plan.pop("rows", None))
         plan.update(feats)
         self._fill()
         return plan

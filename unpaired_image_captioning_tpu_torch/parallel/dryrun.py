@@ -74,14 +74,13 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
     from ..ops.cider import build_df_table
     from ..pivot import pivot_translate
     from ..train.trainer import Trainer
-    from .mesh import axis, block_bounds, gather_objects, make_mesh
+    from .mesh import axis, gather_objects, make_mesh, shard_batch
 
     torch.set_num_threads(1)
     device = torch.device(f"cuda:{rank}" if device_type == "cuda" else "cpu")
     shape = f"{world // 2}x2" if world >= 4 and world % 2 == 0 else "data"
     mesh = make_mesh(world, shape)
-    group, d_rank, d_size = axis(mesh, "data")
-    tp = "model" in mesh.mesh_dim_names
+    group, _, d_size = axis(mesh, "data")
     cfg = _tiny_cfg(ckpt_dir)
 
     # Weight_Trans rows and a real (tiny) df table
@@ -93,8 +92,7 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
     df_ids = {tuple(int(x) for x in ng): v for ng, v in df_words.items()}
 
     def trainer(c=cfg, **kw):
-        return Trainer(c, device=device, mesh=mesh, tensor_parallel=tp,
-                       **kw)
+        return Trainer(c, device=device, mesh=mesh, **kw)
 
     tr = trainer(joint_vocab=joint_vocab,
                  df_table=build_df_table(df_ids, 16.0, device=device))
@@ -119,24 +117,23 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
             "lengths": np.full((b,), 7, np.int64),
         },
     }
-    metrics = tr.train(batch)
+    mine = shard_batch(batch, mesh)    # this data rank's block
+    metrics = tr.train(mine)
     if "wemb_loss" not in metrics:
         raise AssertionError("the Weight_Trans branch did not run")
     _finite(metrics, "joint XE")
-    metrics_rl = tr.train(batch, sc_flag=True)
+    metrics_rl = tr.train(mine, sc_flag=True)
     if "avg_reward" not in metrics_rl:
         raise AssertionError("the SCST branch did not run")
     _finite(metrics_rl, "SCST")
 
     # this data rank's rows: a beam-3 decode and the fused pivot, gathered
-    lo, hi = block_bounds(b, d_size, d_rank)
-
     def rows(x):
-        return torch.as_tensor(x[lo:hi], device=device)
+        return torch.as_tensor(x, device=device)
 
-    feats = Features(fc_feats=rows(batch["fc_feats"]),
-                     att_feats=rows(batch["att_feats"]), attri_feats=None,
-                     att_masks=rows(batch["att_masks"]))
+    feats = Features(fc_feats=rows(mine["fc_feats"]),
+                     att_feats=rows(mine["att_feats"]), attri_feats=None,
+                     att_masks=rows(mine["att_masks"]))
     cap2nmt = np.minimum(np.arange(cfg.vocab_size + 1),
                          cfg.nmt_src_vocab_size - 1)
     cap2nmt[0] = 0
@@ -152,7 +149,7 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
     zh_all = np.concatenate(gather_objects(zh.cpu().numpy(), group))
     en_rows = sum(gather_objects(int(en.shape[0]), group))
     if zh_all.shape != (b, cfg.seq_length) or en_rows != b or \
-            attn_argmax.shape[0] != hi - lo:
+            attn_argmax.shape[0] != len(mine["fc_feats"]):
         raise AssertionError(f"pivot zh {zh_all.shape}, en rows {en_rows}")
 
     # the transformer NMT under the same mesh: a step and a beam translate
@@ -161,11 +158,11 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
         word_vec_size=16, rnn_size=32, layers=2, num_heads=2,
         checkpoint_path=ckpt_dir + "/tfnmt")
     tr_tf = trainer(tf_cfg)
-    m_tf = tr_tf.train({"nmt": batch["nmt"]})
+    m_tf = tr_tf.train({"nmt": mine["nmt"]})
     _finite(m_tf, "transformer NMT")
     with tr_tf.whole_params(), torch.no_grad():
         res_tf = tr_tf.nmt_model.translate_batch(
-            rows(batch["nmt"]["src"]), rows(batch["nmt"]["lengths"]),
+            rows(mine["nmt"]["src"]), rows(mine["nmt"]["lengths"]),
             beam_size=3, max_len=10)
     tf_rows = sum(gather_objects(int(res_tf.seq.shape[0]), group))
     if tf_rows != b:
@@ -185,7 +182,7 @@ def _rank(rank: int, world: int, device_type: str, ckpt_dir: str) -> dict:
     for k, v in want.items():
         if not torch.equal(v, got[k]):
             raise AssertionError(f"{k} differs after the round trip")
-    resumed = tr2.train(batch)
+    resumed = tr2.train(mine)
     _finite(resumed, "resumed")
     if dist.get_rank() != 0:
         return {}

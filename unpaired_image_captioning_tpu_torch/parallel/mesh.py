@@ -8,18 +8,18 @@ insert the collectives. Here each rank is a process and the mesh is a
 - `make_mesh` builds the 1-D mesh ("data") or the 2-D ("data", "model")
   mesh of "DxM";
 - `shard_batch` gives each data rank its contiguous block of the global
-  batch (the same block on every model rank), and keeps whole a leaf whose
-  leading dim does not divide the data axis, as JAX replicates it;
+  batch (the same block on every model rank), in uneven blocks where the
+  leading dim does not divide the data axis (JAX replicates such a leaf);
 - `param_sharding` gives each parameter its placements, one a mesh dim:
   `_tp_spec`'s rules, with JAX's `P(None, "model")` as `Shard(1)` and
   `P("model", None)` as `Shard(0)` on the model dim (the port keeps JAX's
   [in, out] layouts, so the dims are the same).
 
 The rest is what the trainer needs that XLA does for JAX:
-`block_bounds` (the uneven blocks the trainer weighs by their counts),
-`data_parallel` / `global_sum` / `mean_share` (the global counts of the
-masked means, and the global sums that must be whole on every rank, such
-as the BatchNorm moments, differentiable), `ModelShards` (the
+`block_bounds` (the uneven blocks, which the trainer weighs by their
+counts), `data_parallel` / `global_sum` / `mean_share` (the global counts
+of the masked means, and the global sums that must be whole on every
+rank, such as the BatchNorm moments, differentiable), `ModelShards` (the
 tensor-parallel leaves held in shards and gathered whole for the step),
 and `gather_objects`. A tensor on the card under gloo goes through a
 host copy.
@@ -97,41 +97,26 @@ def _map(fn, tree):
 
 def shard_batch(batch: Any, mesh: Optional[DeviceMesh]) -> Any:
     """This data rank's contiguous block of every array leaf of `batch`
-    (dicts, lists and tuples are walked). A leaf whose leading dim does not
-    divide the data axis stays whole (JAX replicates it; size batches to a
-    multiple of the data axis)."""
+    (dicts, lists and tuples are walked; the model axis does not split
+    it), in `block_bounds`' uneven blocks where the leading dim does not
+    divide the data axis: the trainer weighs each block by its counts, so
+    the step is the global batch's. (JAX replicates such a leaf instead.)
+    Raises when a leaf has fewer rows than the data axis has ranks."""
     if mesh is None:
         return batch
     _, r, n = axis(mesh, "data")
-
-    def put(x):
-        if getattr(x, "ndim", 0) >= 1 and x.shape[0] % n == 0:
-            b = x.shape[0] // n
-            return x[r * b:(r + 1) * b]
-        return x
-
-    return _map(put, batch)
+    return _map(lambda x: (take_block(x, n, r) if getattr(x, "ndim", 0)
+                           else x), batch)
 
 
-def local_block(batch: Any, mesh: Optional[DeviceMesh]) -> Any:
-    """This data rank's block of every array leaf, in `block_bounds`'
-    uneven blocks when the leading dim does not divide (the trainer weighs
-    each block by its counts, so the step is the global batch's). Raises
-    when a leaf has fewer rows than the data axis has ranks."""
-    if mesh is None:
-        return batch
-    _, r, n = axis(mesh, "data")
-
-    def put(x):
-        if getattr(x, "ndim", 0) < 1:
-            return x
-        if x.shape[0] < n:
-            raise ValueError(f"a batch leaf of {x.shape[0]} rows cannot be "
-                             f"split over {n} data ranks")
-        lo, hi = block_bounds(x.shape[0], n, r)
-        return x[lo:hi]
-
-    return _map(put, batch)
+def take_block(x, parts: int, index: int):
+    """Rows `block_bounds(len(x), parts, index)` of `x`; raises when `x`
+    has fewer rows than `parts`."""
+    if x.shape[0] < parts:
+        raise ValueError(f"a batch leaf of {x.shape[0]} rows cannot be "
+                         f"split over {parts} data ranks")
+    lo, hi = block_bounds(x.shape[0], parts, index)
+    return x[lo:hi]
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ class Transform(NamedTuple):
     holds this rank's shards, and the clip must see the other ranks'."""
 
     init: Callable[[Params], list]
-    update: Callable[[Params, list, Params], Tuple[Params, list]]
+    update: Callable[..., Tuple[Params, list]]
 
 
 def _zeros(params: Params, value: float = 0.0) -> Params:
@@ -63,7 +63,7 @@ def _clip_by_global_norm(max_norm: float):
     def init(params):
         return {}
 
-    def update(g, state, params, sq_norm=None):
+    def update(g, state, params, *, sq_norm=None):
         keys = list(g)
         norm = torch.sqrt(global_sq_norm(g) if sq_norm is None else sq_norm)
         below = norm < max_norm
@@ -173,11 +173,9 @@ def make_transform(method: str, *, alpha: float = 0.9, beta: float = 0.999,
         core = _trace(momentum, True)
     else:
         raise ValueError(f"unknown optim method {method!r}")
-    parts = []
-    clip = bool(max_grad_norm and max_grad_norm > 0)
-    if clip:
-        parts.append(_clip_by_global_norm(max_grad_norm))
-    parts.append(core)
+    clip = (_clip_by_global_norm(max_grad_norm)
+            if max_grad_norm and max_grad_norm > 0 else None)
+    parts = [core] if clip is None else [clip, core]
     if weight_decay and weight_decay > 0:
         parts.append(_decayed_weights(weight_decay))
 
@@ -187,11 +185,11 @@ def make_transform(method: str, *, alpha: float = 0.9, beta: float = 0.999,
     def update(grads: Params, state: list, params: Params,
                global_sq_norm: Optional[torch.Tensor] = None):
         new_state: List[dict] = []
-        for i, ((_, p_update), s) in enumerate(zip(parts, state)):
-            if clip and i == 0:
-                grads, s = p_update(grads, s, params, global_sq_norm)
-            else:
-                grads, s = p_update(grads, s, params)
+        for part, s in zip(parts, state):
+            # the whole gradient's norm goes to the clip alone, wherever
+            # it stands in the chain
+            kw = {"sq_norm": global_sq_norm} if part is clip else {}
+            grads, s = part[1](grads, s, params, **kw)
             new_state.append(s)
         return grads, new_state
 

@@ -49,16 +49,18 @@ trace (JAX writes a TensorBoard trace).
 
 With `mesh` (a `parallel.make_mesh` mesh; one trainer a rank), the step
 computes the one-device step on the global batch, as GSPMD does for the
-JAX trainer. Every rank is handed the same global batch and takes its
-data rank's contiguous block (`parallel.mesh.local_block`: uneven blocks
-where the batch does not divide). Every masked mean divides its local sum
-by the global count (`parallel.mesh.data_parallel`: the criteria, the
-`use_bn` batch moments, `avg_reward`), so the ranks' losses add up to the
-global loss; the losses on parameters alone (Weight_Trans / _y) count on
-data rank 0 only. The gradients are summed over the data axis before the
-transform, so the global-norm clip reads the whole gradient. SCST
+JAX trainer. Each rank is handed its data rank's contiguous block of the
+global batch (`parallel.shard_batch`: uneven blocks where the batch does
+not divide; the loader gives its block so when built with the rank's
+`data_rank`, and reads only that block's features). Every masked mean
+divides its local sum by the global count (`parallel.mesh.data_parallel`:
+the criteria, the `use_bn` batch moments, `avg_reward`), so the ranks'
+losses add up to the global loss; the losses on parameters alone
+(Weight_Trans / _y) count on data rank 0 only. The gradients are summed
+over the data axis before the transform, so the global-norm clip reads
+the whole gradient. SCST
 decodes and scores each rank's rows, with the df table on every rank.
-With `tensor_parallel` on a mesh with a "model" axis, the captioner's
+On a mesh whose "model" axis has more than one rank, the captioner's
 leaves that `parallel.param_sharding` splits live as this rank's 1/M
 shard between steps (`parallel.mesh.ModelShards`), with their optimizer
 moments; they are gathered whole for the step's kernels, and the reduced
@@ -101,7 +103,7 @@ from ..models.transformer import TransformerModel
 from ..ops.cider import DfTable, empty_df_table
 from ..parallel.mesh import (ModelShards, all_reduce_, axis, broadcast_,
                              data_parallel, gather_objects, mean_share,
-                             global_sum, local_block, param_sharding)
+                             global_sum, param_sharding)
 from .checkpoint import CheckpointManager, check_resume_compat, save_json
 from .optimizer import DualOptim, global_sq_norm
 
@@ -111,8 +113,7 @@ _NMT_KEYS = ("src", "tgt", "lengths", "src_feats")
 
 
 class Trainer:
-    def __init__(self, cfg, *, device="cuda", mesh=None,
-                 tensor_parallel: bool = False, joint_vocab=None,
+    def __init__(self, cfg, *, device="cuda", mesh=None, joint_vocab=None,
                  joint_vocab_y=None,
                  nmt_teacher: Optional[Dict[str, Any]] = None,
                  df_table: Optional[DfTable] = None):
@@ -170,7 +171,7 @@ class Trainer:
         # the captioner's tensor-parallel leaves held in shards: {"i2t": ..}
         self.shards: Dict[str, ModelShards] = {}
         if mesh is not None:
-            self._place(tensor_parallel)
+            self._place()
         self.optim = DualOptim(
             cfg, self._params(self.i2t_model), self._params(self.nmt_model))
         self.ckpt = CheckpointManager(cfg.checkpoint_path)
@@ -191,17 +192,16 @@ class Trainer:
         return (("i2t", self.i2t_model), ("nmt", self.nmt_model))
 
     @torch.no_grad()
-    def _place(self, tensor_parallel: bool) -> None:
-        """Every rank takes global rank 0's parameters; with
-        `tensor_parallel` the captioner's model-sharded leaves are cut to
+    def _place(self) -> None:
+        """Every rank takes global rank 0's parameters; on a model axis of
+        more than one rank the captioner's model-sharded leaves are cut to
         shards (the JAX dry run places the captioner's tree so; the NMT
         stays replicated, as there: its target vocabulary, 8,571 at the
         recipe's width, does not divide a model axis of 2)."""
         for _, model in self._models():
             for p in (model.parameters() if model is not None else ()):
                 broadcast_(p.data, src=0)
-        if not (tensor_parallel and axis(self.mesh, "model")[2] > 1
-                and self.i2t_model is not None):
+        if axis(self.mesh, "model")[2] == 1 or self.i2t_model is None:
             return
         placements = param_sharding(self._params(self.i2t_model), self.mesh,
                                     tensor_parallel=True)
@@ -334,18 +334,15 @@ class Trainer:
         [B, L] for the captioner (with `sc_flag`: gts [B, R, Tg] and
         gts_masks [B, R] in place of labels and masks); "nmt" = {src [B,
         S], tgt [B, T] (BOS ... EOS, PAD-padded), lengths [B]} for the NMT.
-        Under a mesh every rank passes the same global batch. Returns host
-        floats (the global batch's)."""
+        Under a mesh each rank passes its data rank's block of the global
+        batch (`parallel.shard_batch`). Returns host floats (the global
+        batch's)."""
         cfg = self.cfg
         lr_i2t = float(self.optim.i2t_lr(self.epoch))
         lr_nmt = float(self.optim.nmt_lr(self.epoch_nmt))
         ss_prob = float(self.optim.ss_prob(self.epoch))
         train_i2t = self.i2t_model is not None and cfg.i2t_train_flag
         train_nmt = self.nmt_model is not None and cfg.nmt_train_flag
-        if self.mesh is not None:
-            data = local_block({k: v for k, v in data.items()
-                                if k in _BATCH_KEYS or k == "nmt"},
-                               self.mesh)
         self._unshard()
         try:
             with data_parallel(self.data_group):
