@@ -236,6 +236,31 @@ one-device Trainer bit for bit; every shape the ranks give B1, B2 and B9
 is held against its plain version, and rank 0's launches on "2" join the
 kernels line.
 
+The compute dtype (ROADMAP A15): after the f32 kernel checks, the bf16
+entries of B1, B9a-c and B10 (`phase_bf16_kernels`) are held against their
+plain versions at rtol = atol = 1e-2 in every dtype mixture the routes
+give them (B1 at G=5 [50] and [150] x 1024->512, G=4 [50] x 512->256 and
+1024->512; B9a and B9b at K = 3, 5 over [50, 196, 512]; B9c at B 50, H
+512; B10 at the lstm0 fragment's shape), each timed beside its f32 entry,
+its bound counting a bf16 element as 2 bytes and the products of two bf16
+operands at the bf16 tensor-core rate; `torch.lstm_cell` on bf16 tensors
+(and cuDNN's bf16 LSTM for B10 at G = 4) where one computes the function.
+Last, the bf16 path (`phase_bf16_path`): the joint denseatt + BiLSTM NMT
+XE step with `dtype="bfloat16"` (bf16 copies of the f32 masters) at batch
+50, its loss falling over 4 steps, one more with TRAIN_KERNEL; one SCST
+step; the LSTM pivot through `PivotService`, which rounds the features
+to bf16 on the card; bf16-feature decodes with SINGLE_KERNEL, STEP_FUSION
+and BEAMS_KERNEL; the lstm0 fragment with a bf16 carry; the joint step's
+loss and gradients on two images and the pivot's teacher-forced logprobs
+on four, card vs CPU on the same rounded features and bf16 copies, at
+1e-2; a transformer `Trainer` with "bfloat16" raising, naming B5-B8.
+Every (shape, dtype mixture) a bf16 phase gives a kernel is held against
+the plain version; so is every bf16 mixture the eval CLIs, the recipe
+and the families phases give B1 (the card's eval rounds the features),
+and `eval_unpaired`, whose route does not round, reads the features of
+its comparison with `eval_pivot` through a bf16 loader. The kernels line
+gains the bf16 entries (`*_bf16`) with the bf16 path's launches.
+
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
 operations over 67 TFLOP/s and, for the additive attentions, their tanh,
@@ -245,9 +270,11 @@ names the term that sets it) and, where one PyTorch call computes the same
 function, that call's time. The last line is
 `{"ok": true, "device": {...}}`.
 
-Numerics: f32 throughout, with TF32 off for matmuls and cuDNN
+Numerics: f32, with TF32 off for matmuls and cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
-`torch.backends.cudnn.allow_tf32 = False`).
+`torch.backends.cudnn.allow_tf32 = False`), but where a phase says bf16:
+the bf16 phases above, and the features the card's serving and
+`eval_split` round to bf16, as JAX's do on a TPU.
 
 Widths past what a block once held whole: the training LayerNorm at d
 4,096 and 6,000 (LN_WIDE), the whole encoder layer at d 4,096 on two
@@ -413,7 +440,7 @@ LSTM_KERNELS = ("lstm_cell_kernel",)
 DENSE_KERNELS = LSTM_KERNELS + ("additive_attention_kernel",)
 ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
 ATT_BEAMS = (3, 5, 20)  # the K-beam kernel's checks (20: two beam groups)
-# the CUDA kernels of att_lstm_att_f32 (five launches a step: the two
+# the CUDA kernels of att_lstm_att_mixed (five launches a step: the two
 # attentions, the cell and the two products)
 STEP_KERNELS = ("additive_attention_kernel",
                 "decode_gemm_kernel") + LSTM_KERNELS
@@ -5042,6 +5069,21 @@ def _held_eval_shapes() -> dict:
             "image_front_end": {s[1:] for s in IMG_CASES}}
 
 
+def _unheld(dev, name: str, seen: set, held: set) -> set:
+    """The keys of `seen` that no kernel check holds: f32 ones must be in
+    `held`; a B1 key with a bf16 mixture (B, D, H, maxout, types) is held
+    here, against the plain cell at its shape and types at BF16_TOL
+    (`_hold_bf16`)."""
+    if name != "lstm_cell":
+        return seen - held
+    bf = {k for k in seen if len(k) == 5}
+    if bf:
+        _hold_bf16(dev, {"lstm_cell": bf}, {"lstm_cell": set()})
+        log(f"lstm_cell bf16 mixtures held against the plain cell: "
+            f"{sorted(bf, key=str)}")
+    return (seen - bf) - held
+
+
 class _recording_shapes:
     """While open, every call the eval path makes to B1, B2, B4 and B11
     adds its shape to `shapes[name]`, keyed as `_held_eval_shapes`: the
@@ -5055,8 +5097,12 @@ class _recording_shapes:
         from unpaired_image_captioning_tpu_torch.ops import beam_search, rnn
 
         def lstm(a, kw):
-            x, h = a[2], a[3]
-            return (x.shape[0], x.shape[1], h.shape[1], kw["maxout"])
+            w, x, h = a[0], a[2], a[3]
+            key = (x.shape[0], x.shape[1], h.shape[1], kw["maxout"])
+            # the card's serving and eval round the features to bf16: such
+            # a call's key carries its (x, w, h) types (`_unheld`)
+            mix = tuple(_mix_name([t.dtype]) for t in (x, w, h))
+            return key if mix == ("f32",) * 3 else key + (mix,)
 
         def topk(a, kw):
             return (a[0].shape[0], a[0].shape[1], a[1])
@@ -5104,6 +5150,26 @@ class _recording_shapes:
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved:
             setattr(mod, attr, fn)
+
+
+class _bf16_features:
+    """While open, every `CaptionDataLoader` is built with
+    `feat_dtype="bfloat16"`: its features come out rounded to bf16."""
+
+    def __enter__(self):
+        from unpaired_image_captioning_tpu_torch.data import dataloader as dl
+
+        self._cls, self._init = dl.CaptionDataLoader, (
+            dl.CaptionDataLoader.__init__)
+
+        def init(obj, *a, **kw):
+            self._init(obj, *a, **dict(kw, feat_dtype="bfloat16"))
+
+        self._cls.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._init
 
 
 def _run_cli(label: str, main, argv, totals: dict, runs: list,
@@ -5320,10 +5386,15 @@ def phase_eval_clis(dev, root: str, files: dict, full, wall_full) -> dict:
                   ("initial weights", _initial_weights_run(dev, root, files,
                                                            run), True)]
     for label, d, words in pivot_runs:
-        fused = _run_cli(f"eval_unpaired, {label} (beam 5 -> 15)",
-                         eval_unpaired.main,
-                         _eval_argv(files, d, **pivot_kw), totals, runs,
-                         shapes)
+        # eval_pivot's captions come from eval_split, which rounds the
+        # features to bf16 on the card (as JAX's does on a TPU);
+        # eval_unpaired's route does not round, so it reads them through a
+        # bf16 loader here: both CLIs then decode the same features
+        with _bf16_features():
+            fused = _run_cli(f"eval_unpaired, {label} (beam 5 -> 15, "
+                             "bf16 loader)", eval_unpaired.main,
+                             _eval_argv(files, d, **pivot_kw), totals, runs,
+                             shapes)
         empty = {lang: sum(not p["caption"]
                            for p in fused[f"{lang}_predictions"])
                  for lang in ("zh", "en")}
@@ -5434,9 +5505,10 @@ def phase_eval_clis(dev, root: str, files: dict, full, wall_full) -> dict:
     for name in EVAL_KERNELS:
         seen = shapes.get(name, set())
         log(f"eval CLIs {name} shapes: {sorted(seen, key=str)}")
-        if seen - held[name]:
+        unheld = _unheld(dev, name, seen, held[name])
+        if unheld:
             raise AssertionError(
-                f"eval CLIs: {name} ran at {sorted(seen - held[name], key=str)}"
+                f"eval CLIs: {name} ran at {sorted(unheld, key=str)}"
                 ", which no kernel check holds against the plain version")
     log(f"eval CLIs launches: {json.dumps(totals)}")
     log(f"eval CLIs phase: {time.perf_counter() - t_phase:.1f} s")
@@ -5858,11 +5930,11 @@ def phase_raw_data(dev) -> dict:
     for name in ("lstm_cell", "row_topk"):
         seen = shapes.get(name, set())
         log(f"raw data {name} shapes: {sorted(seen, key=str)}")
-        if seen - held[name]:
+        unheld = _unheld(dev, name, seen, held[name])
+        if unheld:
             raise AssertionError(
-                f"raw data: {name} ran at "
-                f"{sorted(seen - held[name], key=str)}, which no kernel "
-                "check holds against the plain version")
+                f"raw data: {name} ran at {sorted(unheld, key=str)}, which "
+                "no kernel check holds against the plain version")
     log(f"raw data launches: {json.dumps(counts)}")
     log(f"raw data phase: {time.perf_counter() - t_phase:.1f} s")
     del trainer
@@ -6495,11 +6567,11 @@ def phase_families(dev) -> tuple:
     for name in ("lstm_cell", "row_topk"):
         seen_shapes = shapes.get(name, set())
         log(f"families {name} shapes: {sorted(seen_shapes, key=str)}")
-        if seen_shapes - held[name]:
+        unheld = _unheld(dev, name, seen_shapes, held[name])
+        if unheld:
             raise AssertionError(
-                f"families: {name} ran at "
-                f"{sorted(seen_shapes - held[name], key=str)}, which no "
-                "kernel check holds against the plain version")
+                f"families: {name} ran at {sorted(unheld, key=str)}, which "
+                "no kernel check holds against the plain version")
     log("families walls (s): " + ", ".join(
         f"{n} {w['all']:.1f}" for n, w in walls.items()))
     log("families phase seconds: " + ", ".join(
@@ -7056,11 +7128,11 @@ def phase_nmt_extras(dev) -> tuple:
     for name in ("lstm_cell", "row_topk", "transformer_decode_stack"):
         seen = shapes.get(name, set())
         log(f"nmt extras {name} shapes: {sorted(seen, key=str)}")
-        if seen - held[name]:
+        unheld = _unheld(dev, name, seen, held[name])
+        if unheld:
             raise AssertionError(
-                f"nmt extras: {name} ran at "
-                f"{sorted(seen - held[name], key=str)}, which no kernel "
-                "check holds against the plain version")
+                f"nmt extras: {name} ran at {sorted(unheld, key=str)}, which "
+                "no kernel check holds against the plain version")
     end = time.perf_counter()
     log(f"nmt extras: host walls (ms) " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
@@ -7774,8 +7846,13 @@ def phase_scale_out(dev, root: str) -> tuple:
                     tuple(tuple(e) if isinstance(e, list) else e for e in s)
                     for s in v)
     cell_rows = {}
-    for b, d, h, maxout in seen.get("lstm_cell", ()):
-        cell_rows.setdefault((d, h, maxout), set()).add(b)
+    # keys of bf16 mixtures (the card's eval rounds the features) are held
+    # apart, at their types
+    _unheld(dev, "lstm_cell", seen.get("lstm_cell", set()), set())
+    for key in seen.get("lstm_cell", ()):
+        if len(key) == 4:
+            b, d, h, maxout = key
+            cell_rows.setdefault((d, h, maxout), set()).add(b)
     cells, topk = _family_cells(
         dev, [(f"scale-out G={5 if m else 4} {d}->{h}", d, h, m,
                tuple(sorted(rows)))
@@ -7889,6 +7966,795 @@ def _scale_reads(root: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the compute dtype (A15): the bf16 entries of B1, B9a-c and B10, then the
+# bf16 path on the card
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 1e-2      # rtol = atol, JAX's bf16 tolerance (tests/test_ln_train.py:61-71)
+BF16_FLOPS = 989e12  # an H100 SXM's dense bf16 tensor-core rate
+# B1's mixtures (x, (w, b), (h, c)) on the bf16 routes: bf16 features with
+# f32 weights (serving, eval: lstm0's x is f32, lstm1/2's bf16), the cast
+# training route, and the decode step's cell under a bf16 copy of the
+# weights (its x, [h0d | att1], stays f32)
+BF16_CELL_MIXES = (("f32", "f32", "bf16"), ("bf16", "f32", "bf16"),
+                   ("bf16", "bf16", "bf16"), ("f32", "bf16", "bf16"))
+# (label, B, D, H, maxout)
+BF16_CELL_SHAPES = [
+    ("denseatt lstm0/1/2 and B9c, batch 50", 50, 1024, 512, True),
+    ("denseatt lstm0/1/2, recipe eval beam 3 x 50", 150, 1024, 512, True),
+    ("nmt encoder, per direction", 50, 512, 256, False),
+    ("nmt teacher-forced decoder, batch 50", 50, 1024, 512, False)]
+# B9a / B9b (p_att, q, alpha, mask, emb): decoding bf16 features with f32
+# weights (decode_ctx widens p_att), the cast training forward, the cast
+# route's SCST decodes, and the teacher-forced forward of bf16 features
+# with f32 weights
+BF16_ATT_MIXES = (("f32", "bf16", "f32", "f32", "bf16"),
+                  ("bf16", "bf16", "bf16", "f32", "bf16"),
+                  ("f32", "bf16", "bf16", "f32", "bf16"),
+                  ("bf16", "bf16", "f32", "f32", "bf16"))
+BF16_ATT_BEAMS = (3, 5)
+# B9c (p_att, emb, mask, q1, h0d, carry, w1 / b1, the products, alphas):
+# decoding bf16 features with f32 weights, and the cast route's decodes
+BF16_STEP_MIXES = (("f32", "bf16", "f32", "bf16", "bf16", "bf16", "f32",
+                    "f32", "f32"),
+                   ("f32", "bf16", "f32", "bf16", "bf16", "bf16", "bf16",
+                    "bf16", "bf16"))
+# B10 (the carry, w_h2h) with an f32 x_contrib, G = 5 and G = 4
+BF16_CHAIN_MIXES = ((5, "bf16", "bf16"), (5, "bf16", "f32"),
+                    (5, "f32", "bf16"), (4, "bf16", "bf16"))
+
+
+def _dt(name: str):
+    import torch
+
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
+def _mix_name(dtypes) -> str:
+    return "/".join("bf16" if "bfloat16" in str(t) or t == "bf16" else "f32"
+                    for t in dtypes)
+
+
+def _bf16_close(name: str, got, want) -> float:
+    """Each output: |kernel - plain| <= BF16_TOL + BF16_TOL * |plain|,
+    elementwise in f32, types equal; returns the largest |diff| / (1 +
+    |plain|)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}: kernel {a.dtype} {tuple(a.shape)}"
+                                 f" against plain {b.dtype} {tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        if not bool(((a - b).abs() <= BF16_TOL + BF16_TOL * b.abs()).all()):
+            raise AssertionError(f"{name}: max|diff| {(a - b).abs().max()}"
+                                 f" past rtol = atol = {BF16_TOL}")
+        worst = max(worst, ((a - b).abs() / (1 + b.abs())).max().item())
+    return worst
+
+
+def bound_mixed(nbytes_: float, f32_flops: float, bf16_flops: float,
+                transcendentals: float = 0.0):
+    """`bound` where the products of two bf16 operands may run at the bf16
+    tensor-core rate and the rest at the f32 FMA rate."""
+    ops_ms = (f32_flops / F32_FLOPS + bf16_flops / BF16_FLOPS) * 1e3
+    terms = [(nbytes_ / HBM_BYTES_S * 1e3, "bytes"), (ops_ms, "operations")]
+    if transcendentals:
+        terms.append((transcendentals / SFU_RATE[0] * 1e3, "transcendentals"))
+    return max(terms, key=lambda t: t[0])
+
+
+def _bf16_record(name, src, line, rows):
+    main = rows[0]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": "unpaired_image_captioning_tpu/ops/" + line,
+            "max_abs_err": max(r["err"] for r in rows),
+            "err_is": "max |diff| / (1 + |plain|), held at rtol = atol = "
+                      f"{BF16_TOL}",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "shape": main["label"],
+            "timing": main["timing"], "shapes": rows, "launches": 0}
+
+
+def phase_bf16_kernels(dev, kernels: dict) -> tuple:
+    """The bf16 entries (A15) against their plain versions on the card, in
+    every dtype mixture the routes give them, at the path shapes, each
+    timed beside the f32 entry at the same shape. Returns (the JSON
+    records, the held keys {kernel: {(shape..., types)}})."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.ops import attention as ao
+    from unpaired_image_captioning_tpu_torch.ops import lstm_block as lo
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rec, held = {}, {"lstm_cell": set(), "additive_attention": set(),
+                     "additive_attention_beams": set(), "att_lstm_att": set(),
+                     "lstm_chain": set()}
+    f32_cells = {r["shape"]: r["ms"] for r in kernels["lstm_cell"]["shapes"]}
+
+    def row(label, kfn, pfn, names, by, f32_flops, bf16_flops, err,
+            trans=0.0, lib=None, f32_ms=None):
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names)
+        b_ms, term = bound_mixed(by, f32_flops, bf16_flops, trans)
+        lib_ms = library_ms(lib)[0] if lib is not None else None
+        fmt = (lambda v: "none" if v is None else f"{v:.4f} ms")
+        log(f"kernel {label}: |diff| / (1 + |plain|) {err:.3g} (held at rtol "
+            f"= atol = {BF16_TOL}); {how}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms; per call {k_wall:.4f} / {p_wall:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({term}; bf16 elements 2 bytes); f32 entry "
+            f"{fmt(f32_ms)}; library {fmt(lib_ms)}")
+        return dict(label=label, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by="bytes" if term == "bytes" else "operations",
+                    bound_term=term, library_ms=lib_ms, wall_ms=k_wall,
+                    plain_wall_ms=p_wall, timing=how, err=err,
+                    f32_entry_ms=f32_ms)
+
+    # B1
+    rows = []
+    for label, b, d, h, maxout in BF16_CELL_SHAPES:
+        g = 5 if maxout else 4
+        scale = 1.0 / h ** 0.5
+        w = (torch.rand((d + h, g * h), generator=gen, device=dev) * 2 - 1) * scale
+        bias = (torch.rand((g * h,), generator=gen, device=dev) * 2 - 1) * scale
+        x = torch.randn((b, d), generator=gen, device=dev)
+        h0 = torch.randn((b, h), generator=gen, device=dev)
+        c0 = torch.randn((b, h), generator=gen, device=dev)
+        for mix in BF16_CELL_MIXES:
+            tx, tw, th = (_dt(m) for m in mix)
+            args = (w.to(tw), bias.to(tw), x.to(tx), h0.to(th), c0.to(th))
+            before = lk.bf16_launches
+            got = lk.lstm_cell(*args, maxout=maxout)
+            if lk.bf16_launches != before + 1:
+                raise AssertionError(f"lstm_cell {mix}: no bf16 launch")
+            want = lk.lstm_cell_plain(*args, maxout=maxout)
+            torch.cuda.synchronize()
+            shape = f"G={g} [{b}, {d}->{h}] x/w/h {'/'.join(mix)}"
+            err = _bf16_close(f"lstm_cell {shape}", got, want)
+            held["lstm_cell"].add((b, d, h, maxout, mix))
+            prods = [(2.0 * b * d * g * h, mix[0] == mix[1] == "bf16"),
+                     (2.0 * b * h * g * h, mix[1] == mix[2] == "bf16")]
+            lib = None
+            if g == 4 and mix == ("bf16", "bf16", "bf16"):
+                cols = torch.cat([torch.arange(j * h, (j + 1) * h, device=dev)
+                                  for j in (0, 1, 3, 2)])
+                wa, ba = args[0], args[1]
+                w_ih = wa[:d, cols].t().contiguous()
+                w_hh = wa[d:, cols].t().contiguous()
+                b_ih, b_hh = ba[cols].contiguous(), torch.zeros_like(ba)
+
+                def lib(a=args, w_ih=w_ih, w_hh=w_hh, b_ih=b_ih, b_hh=b_hh):
+                    return torch.lstm_cell(a[2], (a[3], a[4]), w_ih, w_hh,
+                                           b_ih, b_hh)
+            f32_ms = next((ms for s, ms in f32_cells.items()
+                           if s == f"G={g} [{b}, {d}->{h}]"), None)
+            rows.append(row(
+                f"lstm_cell {shape} ({label})",
+                lambda a=args: lk.lstm_cell(*a, maxout=maxout),
+                lambda a=args: lk.lstm_cell_plain(*a, maxout=maxout),
+                LSTM_KERNELS, nbytes(*args, *got),
+                sum(f for f, bf in prods if not bf),
+                sum(f for f, bf in prods if bf), err, lib=lib,
+                f32_ms=f32_ms))
+    rec["lstm_cell_bf16"] = _bf16_record(
+        "lstm_cell_bf16",
+        "unpaired_image_captioning_tpu_torch/csrc/lstm_cell.cu",
+        "rnn.py:72", rows)
+
+    # B9a and B9b
+    b, n, a = BENCH_BATCH, N_SLOTS, CAP["att_hid_size"]
+    d = h = CAP["rnn_size"]
+    f32_att = kernels["additive_attention"]["ms"]
+    f32_beams = {r["label"].split(" ")[1]: r["ms"]
+                 for r in kernels["additive_attention_beams"]["shapes"]}
+    for name, ks in (("additive_attention", (None,)),
+                     ("additive_attention_beams", BF16_ATT_BEAMS)):
+        rows = []
+        for k in ks:
+            base = _att_inputs(dev, gen, k)
+            for mix in BF16_ATT_MIXES:
+                args = tuple(t.to(_dt(m)) for t, m in zip(base, mix))
+                fn = (aak.additive_attention if k is None
+                      else aak.additive_attention_beams)
+                pfn = (ao.reference_attention if k is None
+                       else ao.reference_attention_beams)
+                out = fn(*args)
+                want = pfn(*args)
+                torch.cuda.synchronize()
+                kk = 1 if k is None else k
+                shape = (f"B={b}" + ("" if k is None else f" K={k}")
+                         + f" N={n} A={a} D={d} p_att/q/alpha/mask/emb "
+                         + "/".join(mix))
+                err = _bf16_close(f"{name} {shape}", [out], [want])
+                held[name].add((b, kk, n, a, d, mix))
+                rows.append(row(
+                    f"{name} {shape}", lambda a_=args, f=fn: f(*a_),
+                    lambda a_=args, f=pfn: f(*a_),
+                    "additive_attention_kernel", nbytes(*args, out),
+                    2.0 * b * kk * n * (a + d), 0.0, err,
+                    trans=b * kk * n * (a + 1.0),
+                    f32_ms=(f32_att if k is None
+                            else f32_beams.get(f"K={k}"))))
+        rec[f"{name}_bf16"] = _bf16_record(
+            f"{name}_bf16",
+            "unpaired_image_captioning_tpu_torch/csrc/additive_attention.cu",
+            "attention.py:" + ("46" if k is None else "66"), rows)
+
+    # B9c
+    rows = []
+    base = _step_args(dev, gen)
+    groups = ((0,), (1,), (2,), (3,), (4,), (5, 6), (7, 8), (9, 10, 11, 12),
+              (13, 14))
+    for mix in BF16_STEP_MIXES:
+        step = list(base)
+        for idx, m in zip(groups, mix):
+            for i in idx:
+                step[i] = step[i].to(_dt(m))
+        with torch.no_grad():
+            outs = aak.fused_att_lstm_att(*step)
+            want = ao.att_lstm_att_plain(*step)
+            torch.cuda.synchronize()
+            shape = (f"B={b} N={n} A={a} D={d} H={h} "
+                     + "/".join(mix))
+            err = _bf16_close(f"att_lstm_att {shape}", outs, want)
+            held["att_lstm_att"].add((b, n, a, d, h, mix))
+            cell_bf = mix[5] == mix[6] == "bf16"
+            rows.append(row(
+                f"att_lstm_att {shape}",
+                lambda s=step: aak.fused_att_lstm_att(*s),
+                lambda s=step: ao.att_lstm_att_plain(*s),
+                STEP_KERNELS + ("rows_gemm_bf16w", "round_pair_kernel"),
+                nbytes(*step, *outs),
+                2.0 * b * (2 * n * (a + d) + (2 * h + d) * 5 * h * (not cell_bf)
+                           + d * h + h * a),
+                2.0 * b * h * 5 * h * cell_bf, err,
+                trans=b * (2 * n * (a + 1.0) + 5 * h),
+                f32_ms=kernels["att_lstm_att"]["ms"]))
+    rec["att_lstm_att_bf16"] = _bf16_record(
+        "att_lstm_att_bf16",
+        "unpaired_image_captioning_tpu_torch/csrc/additive_attention.cu",
+        "attention.py:227", rows)
+
+    # B10
+    bt, t, d, h = CHAIN_SHAPE
+    rows = {"fwd": [], "bwd": []}
+    f32_chain = {key: {r["shape"]: r["ms"]
+                       for r in kernels[f"lstm_chain_{key}"]["shapes"]}
+                 for key in ("fwd", "bwd")}
+    for g, tc, tw in BF16_CHAIN_MIXES:
+        w, bias, x, h0, c0, ch, cc = _chain_inputs(dev, gen, g)
+        xc = (x.reshape(t * bt, d) @ w[:d] + bias).reshape(t, bt, g * h)
+        w_hh = w[d:].contiguous().to(_dt(tw))
+        h0c, c0c = h0.to(_dt(tc)), c0.to(_dt(tc))
+        chc, ccc = ch.to(_dt(tc)), cc.to(_dt(tc))
+        maxout = g == 5
+        hs, cs, gates = lb.chain_fwd(xc, h0c, c0c, w_hh, maxout=maxout)
+        dg, dh0, dc0 = lb.chain_bwd(gates, cs, c0c, chc, ccc, w_hh,
+                                    maxout=maxout)
+        phs, pcs, pgates = lo.chain_fwd_plain(xc, h0c, c0c, w_hh,
+                                              maxout=maxout)
+        pdg, pdh0, pdc0 = lo.chain_bwd_plain(gates, cs, c0c, chc, ccc, w_hh,
+                                             maxout=maxout)
+        torch.cuda.synchronize()
+        mix = (tc, tw)
+        shape = f"G={g} [T {t}, B {bt}, H {h}] carry/w_h2h {tc}/{tw}"
+        e_f = _bf16_close(f"lstm_chain forward {shape}", [hs, cs, gates],
+                          [phs, pcs, pgates])
+        e_b = _bf16_close(f"lstm_chain backward {shape}", [dg, dh0, dc0],
+                          [pdg, pdh0, pdc0])
+        held["lstm_chain"].add((t, bt, h, g, mix))
+        bf = tc == tw == "bf16"
+        mm = 2.0 * t * bt * h * g * h
+        f32_shape = f"G={g} [T {t}, B {bt}, H {h}]"
+        lib = None
+        if g == 4 and bf:
+            cols = torch.cat([torch.arange(j * h, (j + 1) * h, device=dev)
+                              for j in (0, 1, 3, 2)])
+            lstm = torch.nn.LSTM(d, h).to(dev, torch.bfloat16)
+            with torch.no_grad():
+                lstm.weight_ih_l0.copy_(w[:d, cols].t())
+                lstm.weight_hh_l0.copy_(w[d:, cols].t())
+                lstm.bias_ih_l0.copy_(bias[cols])
+                lstm.bias_hh_l0.zero_()
+            xb = x.to(torch.bfloat16)
+
+            def lib(lstm=lstm, xb=xb, h0c=h0c, c0c=c0c):
+                with torch.no_grad():
+                    return lstm(xb, (h0c[None], c0c[None]))
+        rows["fwd"].append(row(
+            f"lstm_chain_fwd {shape}",
+            lambda: lb.chain_fwd(xc, h0c, c0c, w_hh, maxout=maxout),
+            lambda: lo.chain_fwd_plain(xc, h0c, c0c, w_hh, maxout=maxout),
+            "chain_fwd_kernel", nbytes(xc, h0c, c0c, w_hh, hs, cs, gates),
+            0.0 if bf else mm, mm if bf else 0.0, e_f, lib=lib,
+            f32_ms=f32_chain["fwd"].get(f32_shape)))
+        rows["bwd"].append(row(
+            f"lstm_chain_bwd {shape}",
+            lambda: lb.chain_bwd(gates, cs, c0c, chc, ccc, w_hh,
+                                 maxout=maxout),
+            lambda: lo.chain_bwd_plain(gates, cs, c0c, chc, ccc, w_hh,
+                                       maxout=maxout),
+            "chain_bwd_kernel",
+            nbytes(gates, cs, c0c, chc, ccc, w_hh, dg, dh0, dc0),
+            0.0 if tw == "bf16" else mm, mm if tw == "bf16" else 0.0, e_b,
+            f32_ms=f32_chain["bwd"].get(f32_shape)))
+    for key, line in (("fwd", "52"), ("bwd", "120")):
+        rec[f"lstm_chain_{key}_bf16"] = _bf16_record(
+            f"lstm_chain_{key}_bf16",
+            "unpaired_image_captioning_tpu_torch/csrc/lstm_block.cu",
+            f"lstm_block.py:{line}", rows[key])
+    return rec, held
+
+
+BF16_STEPS = 4        # joint XE steps on one batch: the loss must fall
+BF16_AGREE = 2        # images of the card-vs-cpu step; 4 of the pivot
+
+
+class _recording_bf16:
+    """While open, every call to the wrappers of B1, B9a-c and B10 adds
+    its (shape, dtype mixture) to `seen[name]`, keyed as
+    `phase_bf16_kernels` holds them (all-f32 calls too: each is held)."""
+
+    def __init__(self, seen: dict):
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            additive_attention as aak)
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            lstm_block as lb)
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            lstm_cell as lk)
+
+        def mix(*ts):
+            return tuple(_mix_name([t.dtype]) for t in ts)
+
+        def cell(a, kw):
+            w, _, x, h = a[:4]
+            return (x.shape[0], x.shape[1], h.shape[1], a[5], mix(x, w, h))
+
+        def att(a, kw):
+            p_att, q, alpha, mask, emb, beams = a
+            k = q.shape[1] if beams else 1
+            return ("additive_attention_beams" if beams
+                    else "additive_attention",
+                    (p_att.shape[0], k, p_att.shape[1], p_att.shape[2],
+                     emb.shape[2], mix(p_att, q, alpha, mask, emb)))
+
+        def step(a, kw):
+            b, n, a_ = a[0].shape
+            return (b, n, a_, a[1].shape[2], a[5].shape[1],
+                    mix(a[0], a[1], a[2], a[3], a[4], a[5], a[7], a[9],
+                        a[13]))
+
+        def chain(a, kw):
+            t, b, gh = a[0].shape
+            h = a[1].shape[-1] if len(a) == 4 else a[2].shape[-1]
+            carry, w = (a[1], a[3]) if len(a) == 4 else (a[2], a[5])
+            return (t, b, h, gh // h, mix(carry, w))
+
+        self._sites = [(lk, "_forward", lambda a, kw: ("lstm_cell",
+                                                       cell(a, kw))),
+                       (aak, "_attention_fwd", att),
+                       (aak, "fused_att_lstm_att",
+                        lambda a, kw: ("att_lstm_att", step(a, kw))),
+                       (lb, "chain_fwd",
+                        lambda a, kw: ("lstm_chain", chain(a, kw))),
+                       (lb, "chain_bwd",
+                        lambda a, kw: ("lstm_chain", chain(a, kw)))]
+        self._seen = seen
+
+    def __enter__(self):
+        self._saved = []
+        for mod, attr, key in self._sites:
+            fn = getattr(mod, attr)
+
+            def call(*a, _fn=fn, _key=key, **kw):
+                name, k = _key(a, kw)
+                self._seen.setdefault(name, set()).add(k)
+                return _fn(*a, **kw)
+
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def _hold_bf16(dev, seen: dict, held: dict) -> dict:
+    """Every (shape, mixture) `_recording_bf16` recorded and no check of
+    `phase_bf16_kernels` (or, all f32, of the f32 phases) holds: the kernel
+    against its plain version there, on seeded inputs, at BF16_TOL (an
+    f32 one at its f32 tolerance). Returns {kernel: keys held here}."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.ops import attention as ao
+    from unpaired_image_captioning_tpu_torch.ops import lstm_block as lo
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    done = {}
+
+    def close(label, got, want, f32):
+        if f32:
+            _check_each(label, ["out"] * len(got), got, want, LSTM_TOL)
+        else:
+            _bf16_close(label, got, want)
+
+    for key in sorted(seen.get("lstm_cell", ()), key=str):
+        if key in held["lstm_cell"]:
+            continue
+        b, d, h, maxout, mix = key
+        g = 5 if maxout else 4
+        tx, tw, th = (_dt(m) for m in mix)
+        w = ((torch.rand((d + h, g * h), generator=gen, device=dev) * 2 - 1)
+             / h ** 0.5).to(tw)
+        bias = ((torch.rand((g * h,), generator=gen, device=dev) * 2 - 1)
+                / h ** 0.5).to(tw)
+        x = torch.randn((b, d), generator=gen, device=dev).to(tx)
+        h0, c0 = (torch.randn((b, h), generator=gen, device=dev).to(th)
+                  for _ in range(2))
+        with torch.no_grad():
+            close(f"lstm_cell {key}", lk.lstm_cell(w, bias, x, h0, c0,
+                                                    maxout=maxout),
+                  lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=maxout),
+                  mix == ("f32",) * 3)
+        done.setdefault("lstm_cell", []).append(key)
+    for name in ("additive_attention", "additive_attention_beams"):
+        for key in sorted(seen.get(name, ()), key=str):
+            if key in held[name]:
+                continue
+            b, k, n, a, d, mix = key
+            base = _att_inputs(dev, gen, None if name == "additive_attention"
+                               else k, (b, n, a, d))
+            args = [t.to(_dt(m)) for t, m in zip(base, mix)]
+            fn = (aak.additive_attention if name == "additive_attention"
+                  else aak.additive_attention_beams)
+            plain = (ao.reference_attention if name == "additive_attention"
+                     else ao.reference_attention_beams)
+            with torch.no_grad():
+                close(f"{name} {key}", [fn(*args)], [plain(*args)],
+                      mix == ("f32",) * 5)
+            done.setdefault(name, []).append(key)
+    for key in sorted(seen.get("att_lstm_att", ()), key=str):
+        if key in held["att_lstm_att"]:
+            continue
+        b, n, a, d, h, mix = key
+        step = _step_args(dev, gen, (b, n, a, d, h))
+        groups = ((0,), (1,), (2,), (3,), (4,), (5, 6), (7, 8),
+                  (9, 10, 11, 12), (13, 14))
+        for idx, m in zip(groups, mix):
+            for i in idx:
+                step[i] = step[i].to(_dt(m))
+        with torch.no_grad():
+            close(f"att_lstm_att {key}", aak.fused_att_lstm_att(*step),
+                  ao.att_lstm_att_plain(*step), mix == ("f32",) * 9)
+        done.setdefault("att_lstm_att", []).append(key)
+    for key in sorted(seen.get("lstm_chain", ()), key=str):
+        if key in held["lstm_chain"]:
+            continue
+        t, b, h, g, (tc, tw) = key
+        maxout = g == 5
+        xc = torch.randn((t, b, g * h), generator=gen, device=dev)
+        w = (torch.randn((h, g * h), generator=gen, device=dev)
+             / h ** 0.5).to(_dt(tw))
+        h0, c0 = (torch.randn((b, h), generator=gen, device=dev).to(_dt(tc))
+                  for _ in range(2))
+        dhs, dcs = (torch.randn((t, b, h), generator=gen, device=dev).to(
+            _dt(tc)) for _ in range(2))
+        f32 = (tc, tw) == ("f32", "f32")
+        hs, cs, gates = lb.chain_fwd(xc, h0, c0, w, maxout=maxout)
+        close(f"lstm_chain forward {key}", [hs, cs, gates],
+              list(lo.chain_fwd_plain(xc, h0, c0, w, maxout=maxout)), f32)
+        close(f"lstm_chain backward {key}",
+              list(lb.chain_bwd(gates, cs, c0, dhs, dcs, w, maxout=maxout)),
+              list(lo.chain_bwd_plain(gates, cs, c0, dhs, dcs, w,
+                                      maxout=maxout)), f32)
+        done.setdefault("lstm_chain", []).append(key)
+    torch.cuda.synchronize()
+    return done
+
+
+def _grads_agree(label: str, got: dict, want: dict) -> float:
+    """Each gradient card vs cpu: max|diff| / max(1, max|cpu|) <=
+    BF16_TOL; returns the largest."""
+    worst = 0.0
+    for k, w in want.items():
+        e = ((got[k].cpu() - w).abs().max().item()
+             / max(1.0, w.abs().max().item()))
+        if not e <= BF16_TOL:
+            raise AssertionError(f"{label}: gradient {k} card vs cpu "
+                                 f"{e:.3g} > {BF16_TOL}")
+        worst = max(worst, e)
+    return worst
+
+
+def _cast_step_grads(trainer, batch, sc_flag=False):
+    """The cast route's loss and gradients of one step (the trainer's
+    forward and backward under its bf16 copies, no update)."""
+    metrics = {}
+    with trainer._compute_params():
+        total, _ = trainer._losses(batch, sc_flag, True,
+                                   trainer.nmt_model is not None, 0.0,
+                                   metrics)
+        total.backward()
+    grads = {f"{key}.{n}": p.grad.detach().clone()
+             for key, m in trainer._models() if m is not None
+             for n, p in m.named_parameters() if p.grad is not None}
+    for _, m in trainer._models():
+        if m is not None:
+            m.zero_grad(set_to_none=True)
+    return float(total.detach()), metrics, grads
+
+
+def phase_bf16_path(dev, held: dict) -> dict:
+    """The bf16 compute dtype on the card (ROADMAP A15), through the entry
+    points a user calls, with the launch counts of the bf16 entries set to
+    0 just before and read just after:
+
+    - `Trainer.train` of the joint denseatt + BiLSTM NMT step with
+      `dtype="bfloat16"` at batch 50 (bf16 copies of the f32 masters),
+      BF16_STEPS steps on one batch, the loss falling; one more with
+      TRAIN_KERNEL (B9a);
+    - one SCST step (`sc_flag=True`) of the denseatt captioner;
+    - the LSTM pivot through `PivotService` (the card rounds the features
+      to bf16), 40 requests; decodes of bf16 features with SINGLE_KERNEL,
+      STEP_FUSION and BEAMS_KERNEL (B9a, B9c, B9b);
+    - the lstm0 fragment through `blocked_lstm_chain` with a bf16 carry
+      and weights (B10);
+    - card vs cpu at BF16_TOL: the joint step's loss and gradients on
+      BF16_AGREE images (the cpu runs the same cast route's plain
+      versions on the same rounded features and bf16 copies), and the
+      pivot's teacher-forced logprobs on 4 images of rounded features;
+    - a transformer `Trainer` with "bfloat16" raises, naming B5-B8.
+
+    Every (shape, mixture) given a kernel is held against the plain
+    version (`_hold_bf16`). Returns the bf16 launches by kernel record."""
+    import copy
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.data.dataloader import (
+        to_bfloat16)
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        additive_attention as aak)
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.ops.cider import build_df_table
+    from unpaired_image_captioning_tpu_torch.pivot import (
+        captions_to_nmt_batch, pivot_translate)
+    from unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams import (
+        compute_df)
+    from unpaired_image_captioning_tpu_torch.serve import PivotService
+    from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    counters = {"lstm_cell_bf16": (lk, "bf16_launches"),
+                "additive_attention_bf16": (aak, "bf16_launches"),
+                "additive_attention_beams_bf16": (aak,
+                                                  "beams_bf16_launches"),
+                "att_lstm_att_bf16": (aak, "step_bf16_launches"),
+                "lstm_chain_fwd_bf16": (lb, "fwd_bf16_launches"),
+                "lstm_chain_bwd_bf16": (lb, "bwd_bf16_launches")}
+    seen, walls = {}, {}
+    cfg = dict(JOINT_TRAIN, dtype="bfloat16")
+    rs = np.random.RandomState(40)
+    batch = make_joint_batch(rs, BENCH_BATCH)
+    trainer = Trainer(Config(**cfg), device=dev, **joint_trainer_kw(cfg))
+    if not trainer.cast:
+        raise AssertionError("dtype='bfloat16' on the card: no cast route")
+    labels, start, end = make_scst_corpus(np.random.RandomState(0))
+    df, n_img = compute_df(labels, start, end)
+    table = build_df_table(df, float(n_img), dev)
+    scst = Trainer(Config(**dict(DTRAIN, dtype="bfloat16")), device=dev,
+                   df_table=table)
+    cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
+    fc, att = make_features(np.random.RandomState(41),
+                            max(N_REQUESTS, BENCH_BATCH))
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    with _recording_bf16(seen):
+        # the joint XE step
+        losses, step_ms = [], []
+        for _ in range(BF16_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trainer.train(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(out["total_loss"])
+        old = _train_kernel_flag(True)
+        try:
+            out_k = trainer.train(batch)
+        finally:
+            _train_kernel_flag(*old)
+        walls["joint XE steps 2-"] = statistics.mean(step_ms[1:])
+        if not (all(np.isfinite(losses + [out_k["total_loss"]]))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"bf16 joint XE: losses {losses} not "
+                                 "finite and falling")
+        log(f"bf16 joint XE (denseatt + BiLSTM NMT, batch {BENCH_BATCH}, "
+            f"bf16 copies of the f32 masters): losses " + ", ".join(
+                f"{v:.5f}" for v in losses) + f", then with TRAIN_KERNEL "
+            f"{out_k['total_loss']:.5f}; step walls (ms) " + ", ".join(
+                f"{v:.1f}" for v in step_ms) + "; parameters "
+            + ", ".join(sorted({str(p.dtype) for p in
+                                trainer.i2t_model.parameters()})))
+        # one SCST step
+        sc_batch = dict(make_train_batch(rs, BENCH_BATCH),
+                        **scst_gts(labels, BENCH_BATCH))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_rl = scst.train(sc_batch, sc_flag=True)
+        torch.cuda.synchronize()
+        walls["SCST step"] = (time.perf_counter() - t0) * 1e3
+        if not (np.isfinite(out_rl["total_loss"])
+                and np.isfinite(out_rl["avg_reward"])):
+            raise AssertionError(f"bf16 SCST step: {out_rl}")
+        log(f"bf16 SCST step (denseatt, batch {BENCH_BATCH}): loss "
+            f"{out_rl['i2t_loss']:.6f}, avg_reward "
+            f"{out_rl['avg_reward']:.5f}, wall {walls['SCST step']:.1f} ms")
+        # the LSTM pivot through PivotService: the card rounds the features
+        svc = PivotService(cap, nmt, zh_vocab, tgt_itos, cap2nmt,
+                           cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
+                           nmt_max_len=NMT_MAX_LEN, max_batch=MAX_BATCH)
+        try:
+            answers = [None] * N_REQUESTS
+
+            def one(i):
+                answers[i] = svc.pivot(fc[i], att[i], timeout=600)
+
+            workers = [threading.Thread(target=one, args=(i,))
+                       for i in range(N_REQUESTS)]
+            t0 = time.perf_counter()
+            for w_ in workers:
+                w_.start()
+            for w_ in workers:
+                w_.join(600)
+            walls[f"pivot, {N_REQUESTS} requests"] = (
+                time.perf_counter() - t0) * 1e3
+        finally:
+            svc.close()
+        if None in answers or not all(a["zh"] and a["en"] for a in answers):
+            raise AssertionError("bf16 PivotService: a request unanswered "
+                                 "or an empty caption")
+        # decodes of bf16 features on the kernel routes of the attention
+        bfe = Features(fc_feats=to_bfloat16(fc[:BENCH_BATCH]).to(dev),
+                       att_feats=to_bfloat16(att[:BENCH_BATCH]).to(dev),
+                       att_masks=torch.ones((BENCH_BATCH, N_SLOTS),
+                                            device=dev))
+        c2n = torch.as_tensor(cap2nmt, device=dev)
+        with torch.inference_mode():
+            for flags in ({"SINGLE_KERNEL": True}, {"STEP_FUSION": True}):
+                old = _att_flags(**flags)
+                try:
+                    cap.sample(bfe, greedy=True)
+                finally:
+                    _att_flags(**old)
+            old = _att_flags(BEAMS_KERNEL=True)
+            try:
+                pivot_translate(cap, nmt, bfe, c2n, cap_beam=CAP_BEAM,
+                                nmt_beam=NMT_BEAM, nmt_max_len=NMT_MAX_LEN)
+            finally:
+                _att_flags(**old)
+        # the lstm0 fragment with a bf16 carry and weights
+        w, bias, x, h0, c0, ch, cc = _chain_inputs(
+            dev, torch.Generator(device=dev).manual_seed(2), 5)
+        b_, t_, d_, h_ = CHAIN_SHAPE
+        lw = w.to(torch.bfloat16).requires_grad_()
+        lh0, lc0 = (v.to(torch.bfloat16).requires_grad_() for v in (h0, c0))
+        xc = (x.reshape(t_ * b_, d_) @ lw[:d_].float()
+              + bias).reshape(t_, b_, -1)
+        hs, cs = lb.blocked_lstm_chain(xc, lh0, lc0, lw[d_:], maxout=True)
+        ((hs.float() * ch).sum() + (cs.float() * cc).sum()).backward()
+        if not all(torch.isfinite(v.grad.float()).all()
+                   for v in (lw, lh0, lc0)):
+            raise AssertionError("bf16 lstm0 fragment: a non-finite gradient")
+        torch.cuda.synchronize()
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters.items()}
+    log("bf16 path launches: " + ", ".join(f"{k} {v}"
+                                          for k, v in counts.items()))
+    for name, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"the bf16 path never launched {name}")
+
+    # card vs cpu: the joint step's loss and gradients on two images
+    cfg_a = dict(cfg, batch_size=BF16_AGREE, dropout=0.0, drop_prob_lm=0.0)
+    batch_a = make_joint_batch(np.random.RandomState(42), BF16_AGREE)
+    kw = joint_trainer_kw(cfg_a)
+    res = {}
+    with _recording_bf16(seen):
+        for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            tr = Trainer(Config(**cfg_a), device=d, **kw)
+            tr.cast = True      # the cpu runs the cast route's plain versions
+            res[name] = _cast_step_grads(tr, batch_a)
+            del tr
+    (lg, mg, gg), (lc, mc, gc) = res["gpu"], res["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    g_err = _grads_agree("bf16 joint step", gg, gc)
+    if not loss_err <= BF16_TOL:
+        raise AssertionError(f"bf16 joint step: loss card {lg} vs cpu {lc}")
+    log(f"bf16 agreement, joint step on {BF16_AGREE} images, card vs cpu "
+        f"(bf16 copies, rounded features, dropout 0): loss {lg:.6f} vs "
+        f"{lc:.6f} (relative {loss_err:.3g}); {len(gc)} gradients, max|diff|"
+        f" / max(1, max|cpu|) {g_err:.3g} (tol {BF16_TOL})")
+
+    # card vs cpu: the pivot on 4 images of rounded features
+    n = 4
+    cpu = torch.device("cpu")
+    cap_c, nmt_c = copy.deepcopy(cap).to(cpu), copy.deepcopy(nmt).to(cpu)
+    out = {}
+    with torch.inference_mode(), _recording_bf16(seen):
+        for name, d, cm, nm in (("gpu", dev, cap, nmt),
+                                ("cpu", cpu, cap_c, nmt_c)):
+            f = Features(fc_feats=to_bfloat16(fc[:n]).to(d),
+                         att_feats=to_bfloat16(att[:n]).to(d),
+                         att_masks=torch.ones((n, N_SLOTS), device=d))
+            zh, en, _ = pivot_translate(cm, nm, f,
+                                        torch.as_tensor(cap2nmt, device=d),
+                                        cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
+                                        nmt_max_len=NMT_MAX_LEN)
+            out[name] = (f, zh.cpu(), en.cpu())
+        zh, en = out["cpu"][1], out["cpu"][2]
+        seq = torch.cat([torch.zeros((n, 1), dtype=torch.long), zh], 1)
+        tgt = torch.cat([torch.full((n, 1), NMT_BOS, dtype=torch.long), en],
+                        1)
+        lps = {}
+        for name, d, cm, nm in (("gpu", dev, cap, nmt),
+                                ("cpu", cpu, cap_c, nmt_c)):
+            src, lengths = captions_to_nmt_batch(
+                zh.to(d), torch.as_tensor(cap2nmt, device=d))
+            _, nlp = _nmt_teacher_forced(nm, src, lengths, tgt.to(d))
+            lps[name] = (cm.forward(out[name][0], seq.to(d)).cpu(),
+                         nlp.cpu())
+    errs = [((lps["gpu"][i] - lps["cpu"][i]).abs()
+             / (1 + lps["cpu"][i].abs())).max().item() for i in (0, 1)]
+    same = [(out["gpu"][i] == out["cpu"][i]).all(1).float().mean().item()
+            for i in (1, 2)]
+    log(f"bf16 agreement, LSTM pivot on {n} images of rounded features, "
+        f"card vs cpu: teacher-forced |diff| / (1 + |cpu|) captioner "
+        f"{errs[0]:.3g}, NMT {errs[1]:.3g} (tol {BF16_TOL}); identical "
+        f"beams: zh {same[0] * 100:.0f}%, en {same[1] * 100:.0f}%")
+    if not max(errs) <= BF16_TOL:
+        raise AssertionError(f"bf16 pivot card vs cpu: {errs}")
+    del cap_c, nmt_c
+
+    # a transformer Trainer with bf16 on the card raises, naming B5-B8
+    try:
+        Trainer(Config(**dict(TRAIN, dtype="bfloat16")), device=dev)
+    except NotImplementedError as e:
+        names = ("B5", "B6", "B7", "B8")
+        if not all(k in str(e) for k in names):
+            raise AssertionError(f"the bf16 transformer's raise names "
+                                 f"no {names}: {e}")
+        log(f"bf16 transformer Trainer on the card raises: {e}")
+    else:
+        raise AssertionError("a transformer Trainer with dtype='bfloat16' "
+                             "on the card did not raise")
+
+    done = _hold_bf16(dev, seen, held)
+    for name, keys in sorted(seen.items()):
+        log(f"bf16 path {name} (shape, mixture): {sorted(keys, key=str)}")
+    log("bf16 path: held here against the plain versions: " + ", ".join(
+        f"{k} {len(v)}" for k, v in done.items()))
+    log("bf16 path walls (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    del trainer, scst, cap, nmt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7947,6 +8813,8 @@ def main(argv=None) -> int:
     kernels.update(phase_layer_kernels(dev))
     kernels.update(phase_image_kernel(dev))
     kernels.update(phase_chain_kernels(dev))
+    bf16_rec, bf16_held = phase_bf16_kernels(dev, kernels)
+    kernels.update(bf16_rec)
     mark("kernels vs plain")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
@@ -8061,6 +8929,8 @@ def main(argv=None) -> int:
     kernels["lstm_cell"]["shapes"] += scale_cells
     kernels["row_topk"]["shapes"] += scale_topk
     mark("scale-out (A14)")
+    bf16_counts = phase_bf16_path(dev, bf16_held)
+    mark("bf16 compute dtype (A15)")
     log_lead_in()
     log("phase seconds: " + ", ".join(
         f"{name} {t - t0:.1f}"
@@ -8088,6 +8958,9 @@ def main(argv=None) -> int:
                     + list(scale_counts.items())):
         kernels[name]["launches"] += n
     kernels["transformer_decode_layer"]["launches"] = layer_launches
+    # the bf16 entries' launches: the bf16 path's
+    for name, n in bf16_counts.items():
+        kernels[name]["launches"] = n
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -378,3 +378,46 @@ def test_cuda_widths_past_a_block(cuda_dev, a, d):
     want = tatt.att_lstm_att_plain(*step)
     for x, e in zip(got, want):
         assert _rel(x, e) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", [("f32", "bf16", "f32", "f32", "bf16"),
+                                 ("bf16", "bf16", "bf16", "f32", "bf16"),
+                                 ("f32", "bf16", "bf16", "f32", "bf16"),
+                                 ("bf16", "bf16", "f32", "f32", "bf16")],
+                         ids="/".join)
+@pytest.mark.parametrize("k", [None, 3, 5, 20])
+def test_cuda_attention_bf16_matches_plain(cuda_dev, mix, k):
+    """The bf16 entries of B9a / B9b (ROADMAP A15): p_att / q / alpha /
+    mask / emb each f32 or bf16, the output in emb's type; rtol = atol =
+    1e-2."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    args = [x.to(cuda_dev).to(dt[m]) for x, m in zip(
+        _t(_attn_inputs(12, 50, 196, 512, 512, k)), mix)]
+    fn = aak.additive_attention if k is None else aak.additive_attention_beams
+    plain = (tatt.reference_attention if k is None
+             else tatt.reference_attention_beams)
+    got, want = fn(*args), plain(*args)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cast", [False, True])
+def test_cuda_step_fusion_bf16_matches_plain(cuda_dev, cast):
+    """B9c with bf16 features (f32 p_att after decode_ctx, bf16 emb, query,
+    h0d and carry), with f32 or (the cast route) bf16 weights: h1 and c1
+    in the carry's type, att2 in emb's; rtol = atol = 1e-2."""
+    step = [x.to(cuda_dev) for x in _t(_step_inputs(13, 50, 196, 512, 512,
+                                                     512))]
+    bf = torch.bfloat16
+    for i in (1, 3, 4, 5, 6) + ((7, 8, 9, 10, 11, 12, 13, 14) if cast
+                                else ()):
+        step[i] = step[i].to(bf)
+    with torch.no_grad():
+        got = aak.fused_att_lstm_att(*step)
+    want = tatt.att_lstm_att_plain(*step)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype == bf
+        torch.testing.assert_close(a.float(), e.float(), atol=1e-2, rtol=1e-2)

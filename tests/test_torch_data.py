@@ -194,10 +194,25 @@ def test_h5_without_h5py_names_the_npz_route(artifacts, monkeypatch):
 
 
 def test_bfloat16_features_name_the_compute_dtype(artifacts):
-    with pytest.raises(NotImplementedError, match="A15"):
-        CaptionDataLoader(input_json=artifacts["json"],
-                          input_label_h5=artifacts["npz"],
-                          feat_dtype="bfloat16")
+    """feat_dtype="bfloat16" (the compute dtype's loader option) gives the
+    f32 loader's features rounded to bf16 as CPU bf16 tensors, the other
+    keys unchanged; any other feat_dtype raises, naming the two it takes."""
+    import torch
+
+    a = artifacts
+    f32 = CaptionDataLoader(input_json=a["json"], input_label_h5=a["npz"],
+                            in_memory=a["mem"], **KW).get_batch("train")
+    bf = CaptionDataLoader(input_json=a["json"], input_label_h5=a["npz"],
+                           in_memory=a["mem"], feat_dtype="bfloat16",
+                           **KW).get_batch("train")
+    for k in ("fc_feats", "att_feats", "attri_feats"):
+        assert bf[k].dtype == torch.bfloat16
+        assert torch.equal(bf[k], torch.from_numpy(f32[k]).to(torch.bfloat16))
+    for k in ("att_masks", "labels", "masks", "gts"):
+        np.testing.assert_array_equal(bf[k], f32[k])
+    with pytest.raises(ValueError, match="bfloat16"):
+        CaptionDataLoader(input_json=a["json"], input_label_h5=a["npz"],
+                          feat_dtype="float16")
 
 
 def test_references_are_the_decoded_captions(artifacts):

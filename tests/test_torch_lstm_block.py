@@ -182,3 +182,34 @@ def test_cuda_shape_that_cannot_be_co_resident_raises(cuda_dev):
                      torch.zeros((2, h), device=cuda_dev),
                      torch.zeros((h, 4 * h), device=cuda_dev), maxout=False)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry,wdt", [("bf16", "bf16"), ("bf16", "f32"),
+                                       ("f32", "bf16")])
+@pytest.mark.parametrize("maxout", [True, False])
+def test_cuda_kernels_bf16_match_plain(cuda_dev, carry, wdt, maxout):
+    """The bf16 entries of B10 (ROADMAP A15): f32 x_contrib with the carry
+    and w_h2h each f32 or bf16, forward and backward; rtol = atol = 1e-2."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    b, t, h = 50, 17, 512
+    g = 5 if maxout else 4
+    gen = torch.Generator(device=cuda_dev).manual_seed(h + 1)
+    xc = torch.randn((t, b, g * h), generator=gen, device=cuda_dev)
+    w = (torch.randn((h, g * h), generator=gen, device=cuda_dev)
+         / h ** 0.5).to(dt[wdt])
+    h0, c0, dhs, dcs = (
+        (torch.randn(s, generator=gen, device=cuda_dev) * 0.5).to(dt[carry])
+        for s in ((b, h), (b, h), (t, b, h), (t, b, h)))
+    hs, cs, gates = lb.chain_fwd(xc, h0, c0, w, maxout=maxout)
+    phs, pcs, pgates = lo.chain_fwd_plain(xc, h0, c0, w, maxout=maxout)
+    for a, e in ((hs, phs), (cs, pcs), (gates, pgates)):
+        assert a.dtype == e.dtype
+        torch.testing.assert_close(a.float(), e.float(), atol=1e-2,
+                                   rtol=1e-2)
+    got = lb.chain_bwd(gates, cs, c0, dhs, dcs, w, maxout=maxout)
+    want = lo.chain_bwd_plain(gates, cs, c0, dhs, dcs, w, maxout=maxout)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype
+        torch.testing.assert_close(a.float(), e.float(), atol=1e-2,
+                                   rtol=1e-2)

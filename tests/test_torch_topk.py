@@ -147,6 +147,44 @@ def test_cuda_lstm_cell_matches_plain(cuda_dev, b, d, h, maxout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mix", [("f32", "f32", "bf16"),
+                                 ("bf16", "f32", "bf16"),
+                                 ("bf16", "bf16", "bf16"),
+                                 ("f32", "bf16", "bf16")], ids="/".join)
+@pytest.mark.parametrize("b,d,h,maxout", [(50, 1024, 512, True),
+                                          (150, 1024, 512, True),
+                                          (50, 512, 256, False),
+                                          (50, 1024, 512, False),
+                                          (3, 100, 60, True),
+                                          (5, 37, 50, True)])
+def test_cuda_lstm_cell_bf16_matches_plain(cuda_dev, b, d, h, maxout, mix):
+    """The bf16 entries (ROADMAP A15): x / (w, b) / (h, c) each f32 or
+    bf16, converted as loaded, the f32 core, h' and c' rounded to h's
+    type; rtol = atol = 1e-2 (a sum in another order may round to the
+    neighbouring bf16)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = torch.Generator(device=cuda_dev).manual_seed(b + d + 1)
+    n = 5 if maxout else 4
+    w = ((torch.rand((d + h, n * h), generator=g, device=cuda_dev) - 0.5)
+         / 8).to(dt[mix[1]])
+    bias = ((torch.rand((n * h,), generator=g, device=cuda_dev) - 0.5)
+            / 8).to(dt[mix[1]])
+    x = torch.randn((b, d), generator=g, device=cuda_dev).to(dt[mix[0]])
+    h0, c0 = (torch.randn((b, h), generator=g, device=cuda_dev).to(
+        dt[mix[2]]) for _ in range(2))
+    before, before_bf = lk.launches, lk.bf16_launches
+    hk, ck = lk.lstm_cell(w, bias, x, h0, c0, maxout=maxout)
+    hp, cp = lk.lstm_cell_plain(w, bias, x, h0, c0, maxout=maxout)
+    assert (lk.launches, lk.bf16_launches) == (before + 1, before_bf + 1)
+    assert hk.dtype == hp.dtype == dt[mix[2]]
+    torch.testing.assert_close(hk.float(), hp.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(ck.float(), cp.float(), atol=1e-2, rtol=1e-2)
+    with pytest.raises(ValueError, match="mixture"):
+        lk.lstm_cell(w, bias.double(), x, h0, c0, maxout=maxout)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,d,h,tile", [(50, 100, 76, dict(bn=16, cluster=4)),
                                         (600, 100, 300,
                                          dict(bn=32, cluster=2))])

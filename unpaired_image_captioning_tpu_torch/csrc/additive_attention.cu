@@ -1,9 +1,9 @@
-// Additive attention, f32: the Hopper counterpart of the three TPU kernels
-// of unpaired_image_captioning_tpu/ops/attention.py:
+// Additive attention: the Hopper counterpart of the three TPU kernels of
+// unpaired_image_captioning_tpu/ops/attention.py:
 //
-//   _fused_attention_kernel        one query per image   (additive_attention_f32, K = 1)
-//   _fused_attention_beams_kernel  K beam queries        (additive_attention_f32, any K)
-//   _att_lstm_att_kernel           att1 -> lstm1 -> att2 (att_lstm_att_f32)
+//   _fused_attention_kernel        one query per image   (additive_attention_mixed, K = 1)
+//   _fused_attention_beams_kernel  K beam queries        (additive_attention_mixed, any K)
+//   _att_lstm_att_kernel           att1 -> lstm1 -> att2 (att_lstm_att_mixed)
 //
 // For image b and query k (q [B, K, A], alpha [A], mask [B, N]):
 //
@@ -14,6 +14,15 @@
 // The mask multiplies after the softmax and the row is renormalised, as the
 // reference does (a row whose mask is all zeros gives zeros); tanh is the
 // precise tanhf. The plain versions are in ops/attention.py.
+//
+// Types. As the TPU kernels read each operand in its own type and compute in
+// f32: the memories p_att and emb are each f32 or bf16 (template flags of
+// the kernel: they are read in its loops), and the queries, alpha and the
+// mask each f32 or bf16 (flags of the launch: they are converted as they
+// land in shared memory, or read once a slot). Every sum is the f32 core
+// below; the output is stored in its own type (emb's for the attentions,
+// f32 for att1 inside the decode step), rounded to nearest even where it is
+// bf16 (bf16.cuh).
 //
 // What bounds it. At B 50, N 196, A = D = 512 the attention memory p_att and
 // emb is 40.1 MB (12 us at 3.35 TB/s), and the B K N A tanh evaluations
@@ -64,7 +73,7 @@
 // clusters that need a second round of the card cost more than slices
 // larger by a third); N < C leaves the last ranks without slots.
 //
-// att_lstm_att_f32 (decode only, no gradient). A block cannot hold an
+// att_lstm_att_mixed (decode only, no gradient). A block cannot hold an
 // image's memory (803 KB at the widths above) or lstm1's weights (7.9 MB at
 // H 512), so the TPU kernel's single program becomes five launches from one
 // C call:
@@ -89,6 +98,13 @@
 // combination in passes over chunks of D; every shape that fits keeps the
 // single chunk and pass, and the same sums. The products take any width
 // (decode_gemm.cuh), and so does the cell (lstm_cell.cu).
+//
+// In the decode step h0d and the carry (h1_prev, c1_prev) may be bf16, and
+// w1, b1 and the products' weights too (a bf16 copy of the parameters): h1
+// and c1 come out in the carry's type, att2 in emb's; att1, h1 + emb2(att1)
+// and the att2 query stay f32 in the scratch, as the TPU kernel keeps them
+// (h1 in that sum unrounded). f32 weights take decode_gemm.cuh; bf16 ones
+// a plain kernel, a thread an output.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -98,15 +114,20 @@
 
 #include <mutex>
 
+#include "bf16.cuh"
 #include "decode_gemm.cuh"
 
 namespace cg = cooperative_groups;
+using uic_bf16::ld4t;
+using uic_bf16::ldf;
+using uic_bf16::ldt;
+using uic_bf16::stf;
 
 // the fused LSTM step of lstm_cell.cu (linked into the same library)
-extern "C" int lstm_cell_f32(const float* x, const float* h, const float* c,
-                             const float* w, const float* b, float* h_out,
-                             float* c_out, int B, int D, int H, int G,
-                             cudaStream_t stream);
+extern "C" int lstm_cell_mixed(const void* x, const void* h, const void* c,
+                               const void* w, const void* b, void* h_out,
+                               void* c_out, int B, int D, int H, int G,
+                               int types, cudaStream_t stream);
 
 namespace {
 
@@ -118,15 +139,18 @@ constexpr int BLOCK_FIXED = 8;     // a block's fixed cost, in slots (model)
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 struct AttArgs {
-  const float* p_att;  // [B, N, A]
-  const float* q;      // [B, K, A]
-  const float* alpha;  // [A]
-  const float* mask;   // [B, N]
-  const float* emb;    // [B, N, D]
-  float* out;          // out[b * ldo + k * D + d]
-  const float* copy_src;  // [B, copy_w] or null: copied to copy_dst rows
-  float* copy_dst;        // copy_dst[b * copy_ld + j]
+  const void* p_att;   // [B, N, A]
+  const void* q;       // [B, K, A]
+  const void* alpha;   // [A]
+  const void* mask;    // [B, N]
+  const void* emb;     // [B, N, D]
+  void* out;           // out[b * ldo + k * D + d]
+  const void* copy_src;   // [B, copy_w] or null: copied to copy_dst rows
+  float* copy_dst;        // copy_dst[b * copy_ld + j] (f32)
   int copy_ld, copy_w;
+  // bf16 flags of the operands read once: q, alpha, mask, the copied row,
+  // and of the output
+  int qb, ab, mb, cb, ob;
   int N, A, D, K, ldo;
   int kg;     // queries a group (the last may hold fewer)
   int chunk;  // slots a block: ceil(N / C)
@@ -176,9 +200,16 @@ __device__ __forceinline__ float tanh_dot4(float4 al, float4 p, float4 q) {
          al.z * tanhf(p.z + q.z) + al.w * tanhf(p.w + q.w);
 }
 
+template <bool BF>
+__device__ __forceinline__ float tanh_dot4(float4 al, const void* row,
+                                           size_t i, float4 q) {
+  return tanh_dot4(al, ld4t<BF>(row, i), q);
+}
+
 // CHUNKED: A and D taken in chunks of p.ac and p.dc (one query's A and D
-// past a block's shared memory); otherwise each in one piece.
-template <bool V4, bool CHUNKED>
+// past a block's shared memory); otherwise each in one piece. PB, EB: p_att,
+// emb stored as bf16.
+template <bool V4, bool CHUNKED, bool PB, bool EB>
 __global__ void __launch_bounds__(ATT_THREADS)
 additive_attention_kernel(const __grid_constant__ AttArgs p) {
   extern __shared__ __align__(16) float smem[];
@@ -199,19 +230,22 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
   float* acc_s = smem + m.acc;       // [kg][dc]
   float* ml_s = smem + m.ml;         // m, l [2][kg][MAX_CLUSTER]
   float* wt_s = smem + m.wt;         // [kg][MAX_CLUSTER]
-  const float* pb = p.p_att + ((size_t)b * N + s0) * A;
-  const float* eb = p.emb + ((size_t)b * N + s0) * D;
+  const size_t pb = ((size_t)b * N + s0) * A;   // element offsets of the
+  const size_t eb = ((size_t)b * N + s0) * D;   // slice's first rows
+  const size_t qb = ((size_t)b * p.K + k0) * A;
 
   if constexpr (!CHUNKED) {
     // 1. the queries and alpha; (B9c) this rank's share of the copied row
-    const float* qb = p.q + ((size_t)b * p.K + k0) * A;
-    for (int i = tid; i < K * A; i += ATT_THREADS) q_s[i] = qb[i];
-    for (int i = tid; i < A; i += ATT_THREADS) alpha_s[i] = p.alpha[i];
+    for (int i = tid; i < K * A; i += ATT_THREADS)
+      q_s[i] = ldf(p.q, qb + i, p.qb);
+    for (int i = tid; i < A; i += ATT_THREADS)
+      alpha_s[i] = ldf(p.alpha, i, p.ab);
     if (p.copy_src && blockIdx.y == 0) {
       const int w = p.copy_w, per = (w + cs - 1) / cs;
       const int c1 = min(w, (rank + 1) * per);
       for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
-        p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
+        p.copy_dst[(size_t)b * p.copy_ld + j] =
+            ldf(p.copy_src, (size_t)b * w + j, p.cb);
     }
     __syncthreads();
 
@@ -221,30 +255,31 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
       float acc = 0.0f;
       if (V4) {
         const int A4 = A / 4;
-        const float4* row = reinterpret_cast<const float4*>(pb + (size_t)n * A);
+        const size_t row = pb + (size_t)n * A;
         const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
         const float4* q4 = reinterpret_cast<const float4*>(q_s + (size_t)k * A);
 #pragma unroll 4
         for (int a4 = lane; a4 < A4; a4 += 32)
-          acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
+          acc += tanh_dot4<PB>(al4[a4], p.p_att, row + 4 * (size_t)a4,
+                               q4[a4]);
       } else {
-        const float* row = pb + (size_t)n * A;
+        const size_t row = pb + (size_t)n * A;
         const float* qk = q_s + (size_t)k * A;
 #pragma unroll 4
         for (int a = lane; a < A; a += 32)
-          acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+          acc += alpha_s[a] * tanhf(ldt<PB>(p.p_att, row + a) + qk[a]);
       }
       acc = att_warp_sum(acc);
       if (lane == 0) w_s[k * chunk + n] = acc;
     }
   } else {
     // (B9c) this rank's share of the copied row
-    const float* qb = p.q + ((size_t)b * p.K + k0) * A;
     if (p.copy_src && blockIdx.y == 0) {
       const int w = p.copy_w, per = (w + cs - 1) / cs;
       const int c1 = min(w, (rank + 1) * per);
       for (int j = rank * per + tid; j < c1; j += ATT_THREADS)
-        p.copy_dst[(size_t)b * p.copy_ld + j] = p.copy_src[(size_t)b * w + j];
+        p.copy_dst[(size_t)b * p.copy_ld + j] =
+            ldf(p.copy_src, (size_t)b * w + j, p.cb);
     }
 
     // 1.-2. per chunk of ac columns of A: the queries and alpha, then the
@@ -255,29 +290,30 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
       if (a0 > 0) __syncthreads();   // the last chunk's q, alpha are read
       for (int i = tid; i < K * an; i += ATT_THREADS) {
         const int k = i / an, a = i - k * an;
-        q_s[k * ac + a] = qb[(size_t)k * A + a0 + a];
+        q_s[k * ac + a] = ldf(p.q, qb + (size_t)k * A + a0 + a, p.qb);
       }
-      for (int i = tid; i < an; i += ATT_THREADS) alpha_s[i] = p.alpha[a0 + i];
+      for (int i = tid; i < an; i += ATT_THREADS)
+        alpha_s[i] = ldf(p.alpha, a0 + i, p.ab);
       __syncthreads();
       for (int u = warp; u < ns * K; u += ATT_WARPS) {
         const int n = u / K, k = u - n * K;
         float acc = 0.0f;
         if (V4) {
           const int A4 = an / 4;
-          const float4* row =
-              reinterpret_cast<const float4*>(pb + (size_t)n * A + a0);
+          const size_t row = pb + (size_t)n * A + a0;
           const float4* al4 = reinterpret_cast<const float4*>(alpha_s);
           const float4* q4 =
               reinterpret_cast<const float4*>(q_s + (size_t)k * ac);
 #pragma unroll 4
           for (int a4 = lane; a4 < A4; a4 += 32)
-            acc += tanh_dot4(al4[a4], row[a4], q4[a4]);
+            acc += tanh_dot4<PB>(al4[a4], p.p_att, row + 4 * (size_t)a4,
+                                 q4[a4]);
         } else {
-          const float* row = pb + (size_t)n * A + a0;
+          const size_t row = pb + (size_t)n * A + a0;
           const float* qk = q_s + (size_t)k * ac;
 #pragma unroll 4
           for (int a = lane; a < an; a += 32)
-            acc += alpha_s[a] * tanhf(row[a] + qk[a]);
+            acc += alpha_s[a] * tanhf(ldt<PB>(p.p_att, row + a) + qk[a]);
         }
         acc = att_warp_sum(acc);
         if (lane == 0)
@@ -289,7 +325,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
 
   // 3. the slice's softmax terms, a warp a query: m, e = exp(s - m) * mask
   // in place of the scores, l = sum e (m = -inf, l = 0 for an empty slice)
-  const float* mb = p.mask + (size_t)b * N + s0;
+  const size_t mb = (size_t)b * N + s0;
   float* st_m = ml_s + rank;                    // [k * MAX_CLUSTER + r]
   float* st_l = ml_s + kg * MAX_CLUSTER + rank;
   for (int k = warp; k < K; k += ATT_WARPS) {
@@ -299,7 +335,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
     mx = att_warp_max(mx);
     float l = 0.0f;
     for (int n = lane; n < ns; n += 32) {
-      const float e = expf(wr[n] - mx) * mb[n];
+      const float e = expf(wr[n] - mx) * ldf(p.mask, mb + n, p.mb);
       wr[n] = e;
       l += e;
     }
@@ -320,7 +356,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
       const float* w0 = w_s + kq * chunk;
 #pragma unroll 8
       for (int n = 0; n < ns; ++n) {
-        const float e = eb[(size_t)n * D + c];
+        const float e = ldt<EB>(p.emb, eb + (size_t)n * D + c);
         a0 = fmaf(w0[n], e, a0);
         if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
         if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
@@ -359,7 +395,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
     __syncthreads();
     const int per = (D + cs - 1) / cs, c0 = rank * per;
     const int cw = max(0, min(D - c0, per));
-    float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D;
+    const size_t ob = (size_t)b * p.ldo + (size_t)k0 * D;
     for (int e = tid; e < K * cw; e += ATT_THREADS) {
       const int k = e / cw, c = c0 + e % cw;
       const size_t i = (size_t)k * D + c;
@@ -371,7 +407,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
 #pragma unroll
       for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
         if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
-      ob[i] = s;
+      stf(p.out, ob + i, s, p.ob);
     }
     // no block leaves while another still reads its shared memory
     cluster.sync();
@@ -392,7 +428,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
         const float* w0 = w_s + kq * chunk;
 #pragma unroll 8
         for (int n = 0; n < ns; ++n) {
-          const float e = eb[(size_t)n * D + d0 + c];
+          const float e = ldt<EB>(p.emb, eb + (size_t)n * D + d0 + c);
           a0 = fmaf(w0[n], e, a0);
           if (kq + 1 < K) a1 = fmaf(w0[chunk + n], e, a1);
           if (kq + 2 < K) a2 = fmaf(w0[2 * chunk + n], e, a2);
@@ -430,7 +466,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
       }
       const int per = (dn + cs - 1) / cs, c0 = rank * per;
       const int cw = max(0, min(dn - c0, per));
-      float* ob = p.out + (size_t)b * p.ldo + (size_t)k0 * D + d0;
+      const size_t ob = (size_t)b * p.ldo + (size_t)k0 * D + d0;
       for (int e = tid; e < K * cw; e += ATT_THREADS) {
         const int k = e / cw, c = c0 + e % cw;
         const size_t i = (size_t)k * dc + c;
@@ -442,7 +478,7 @@ additive_attention_kernel(const __grid_constant__ AttArgs p) {
 #pragma unroll
         for (int r = 0; r < MAX_CLUSTER; ++r)      // rank order: same bits
           if (r < cs) s = fmaf(wt_s[k * MAX_CLUSTER + r], v[r], s);
-        ob[(size_t)k * D + c] = s;
+        stf(p.out, ob + (size_t)k * D + c, s, p.ob);
       }
       // no block overwrites its partials or leaves while another reads them
       cluster.sync();
@@ -526,9 +562,9 @@ Plan plan_of(Kern kernel, const AttArgs& p, int clusters) {
   return best;
 }
 
-template <bool V4, bool CHUNKED>
+template <bool V4, bool CHUNKED, bool PB, bool EB>
 int launch_group(const AttArgs& p, int B, int G, cudaStream_t st) {
-  auto kernel = additive_attention_kernel<V4, CHUNKED>;
+  auto kernel = additive_attention_kernel<V4, CHUNKED, PB, EB>;
   const Plan plan = plan_of(kernel, p, B * G);
   if (!plan.cs) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -587,22 +623,32 @@ bool rows16(const AttArgs& p) {
              0;
 }
 
-// One launch over B images and the groups of their K queries.
-int launch_attention(AttArgs p, int B, cudaStream_t st) {
+template <bool PB, bool EB>
+int launch_typed(const AttArgs& p, int B, int G, cudaStream_t st) {
+  if (p.ac < p.A || p.dc < p.D)
+    return rows16(p) ? launch_group<true, true, PB, EB>(p, B, G, st)
+                     : launch_group<false, true, PB, EB>(p, B, G, st);
+  return rows16(p) ? launch_group<true, false, PB, EB>(p, B, G, st)
+                   : launch_group<false, false, PB, EB>(p, B, G, st);
+}
+
+// One launch over B images and the groups of their K queries; pb, eb:
+// p_att, emb stored as bf16.
+int launch_attention(AttArgs p, int B, int pb, int eb, cudaStream_t st) {
   if (B <= 0) return (int)cudaGetLastError();
   if (p.K < 1 || p.N < 1 || p.A < 1 || p.D < 1)
     return (int)cudaErrorInvalidValue;
   const int G = group_queries(p);
-  if (p.ac < p.A || p.dc < p.D)
-    return rows16(p) ? launch_group<true, true>(p, B, G, st)
-                     : launch_group<false, true>(p, B, G, st);
-  return rows16(p) ? launch_group<true, false>(p, B, G, st)
-                   : launch_group<false, false>(p, B, G, st);
+  if (pb)
+    return eb ? launch_typed<true, true>(p, B, G, st)
+              : launch_typed<true, false>(p, B, G, st);
+  return eb ? launch_typed<false, true>(p, B, G, st)
+            : launch_typed<false, false>(p, B, G, st);
 }
 
-AttArgs att_args(const float* p_att, const float* q, const float* alpha,
-                 const float* mask, const float* emb, float* out, int N,
-                 int A, int D, int K, int ldo) {
+AttArgs att_args(const void* p_att, const void* q, const void* alpha,
+                 const void* mask, const void* emb, void* out, int N, int A,
+                 int D, int K, int ldo) {
   AttArgs p{};
   p.p_att = p_att;
   p.q = q;
@@ -638,21 +684,73 @@ struct EpiAddBias {
   }
 };
 
+// out[r, c] = (add[r, c] +) sum_k a[r, k] w[k, c] + bias[c] with a f32
+// (lda), w [K, N] and bias [N] bf16, out f32 [M, N] (row stride N; add
+// the same or null): the decode step's two products when its weights are a
+// bf16 copy. A thread an output, k in order.
+__global__ void __launch_bounds__(256)
+rows_gemm_bf16w(const float* __restrict__ a, int lda,
+                const void* __restrict__ w, const void* __restrict__ bias,
+                const float* __restrict__ add, float* __restrict__ out,
+                int M, int N, int K) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x, r = blockIdx.y;
+  if (c >= N || r >= M) return;
+  const float* ar = a + (size_t)r * lda;
+  float s = 0.0f;
+  for (int k = 0; k < K; ++k)
+    s = fmaf(ar[k], ldt<true>(w, (size_t)k * N + c), s);
+  const size_t o = (size_t)r * N + c;
+  out[o] = (add ? add[o] + s : s) + ldt<true>(bias, c);
+}
+
+// dst_h, dst_c [n] bf16 = h, c [n] f32 rounded to nearest even
+__global__ void round_pair_kernel(const float* __restrict__ h,
+                                  const float* __restrict__ c,
+                                  void* __restrict__ dst_h,
+                                  void* __restrict__ dst_c, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  stf(dst_h, i, h[i], true);
+  stf(dst_c, i, c[i], true);
+}
+
+int round_pair(const float* h, const float* c, void* dst_h, void* dst_c,
+               size_t n, cudaStream_t st) {
+  round_pair_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(h, c, dst_h,
+                                                                dst_c, n);
+  return (int)cudaGetLastError();
+}
+
+int rows_gemm(const float* a, int lda, const void* w, const void* bias,
+              const float* add, float* out, int M, int N, int K,
+              cudaStream_t st) {
+  rows_gemm_bf16w<<<dim3(cdiv(N, 256), M), 256, 0, st>>>(a, lda, w, bias,
+                                                         add, out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out[b * ldo + k * D + d] for q [B, K, A]; K = 1 is the single-query
-// kernel. Returns cudaGetLastError() after the launch.
-extern "C" int additive_attention_f32(const float* p_att, const float* q,
-                                      const float* alpha, const float* mask,
-                                      const float* emb, float* out, int B,
-                                      int N, int A, int D, int K, int ldo,
-                                      cudaStream_t stream) {
-  return launch_attention(att_args(p_att, q, alpha, mask, emb, out, N, A, D,
-                                   K, ldo),
-                          B, stream);
+// kernel. Each operand f32 or bf16: `types` bit 0 p_att, 1 q, 2 alpha, 3
+// mask, 4 emb, 5 out (0: all f32). Returns cudaGetLastError() after the
+// launch.
+extern "C" int additive_attention_mixed(const void* p_att, const void* q,
+                                        const void* alpha, const void* mask,
+                                        const void* emb, void* out, int B,
+                                        int N, int A, int D, int K, int ldo,
+                                        int types, cudaStream_t stream) {
+  if (types < 0 || types > 63) return (int)cudaErrorInvalidValue;
+  AttArgs p = att_args(p_att, q, alpha, mask, emb, out, N, A, D, K, ldo);
+  p.qb = (types >> 1) & 1;
+  p.ab = (types >> 2) & 1;
+  p.mb = (types >> 3) & 1;
+  p.ob = (types >> 5) & 1;
+  return launch_attention(p, B, types & 1, (types >> 4) & 1, stream);
 }
 
-// The launch plan of additive_attention_f32 for a shape, with 16-byte rows:
+// The launch plan of additive_attention_mixed for a shape, with f32 16-byte
+// rows:
 // out = {cluster size, queries a group, groups, shared memory bytes a
 // block}. Returns 0, or a CUDA error.
 extern "C" int additive_attention_plan(int B, int N, int A, int D, int K,
@@ -664,8 +762,10 @@ extern "C" int additive_attention_plan(int B, int N, int A, int D, int K,
   const int G = group_queries(p);
   const Plan plan =
       p.ac < p.A || p.dc < p.D
-          ? plan_of(additive_attention_kernel<true, true>, p, B * G)
-          : plan_of(additive_attention_kernel<true, false>, p, B * G);
+          ? plan_of(additive_attention_kernel<true, true, false, false>, p,
+                    B * G)
+          : plan_of(additive_attention_kernel<true, false, false, false>, p,
+                    B * G);
   out[0] = plan.cs;
   out[1] = p.kg;
   out[2] = G;
@@ -676,42 +776,76 @@ extern "C" int additive_attention_plan(int B, int N, int A, int D, int K,
 // The decode step att1 -> maxout lstm1 -> att2. `in` is a host array of the
 // 15 inputs in the order of fused_att_lstm_att (p_att, emb, mask, q1, h0d,
 // h1_prev, c1_prev, w1, b1, emb2_w, emb2_b, h2att2_w, h2att2_b, alpha1,
-// alpha2); h1, c1 [B, H] and att2 [B, D] are written; `ws` holds
-// B * (2 H + D + A) floats of scratch. Five launches; returns the first
-// launch error.
-extern "C" int att_lstm_att_f32(const float* const* in, float* h1, float* c1,
-                                float* att2, float* ws, int B, int N, int A,
-                                int D, int H, cudaStream_t stream) {
+// alpha2); h1, c1 [B, H] (the carry's type) and att2 [B, D] (emb's) are
+// written; `ws` holds B * (4 H + D + A) floats of scratch. `types`: bit 0
+// p_att, 1 emb, 2 mask, 3 q1, 4 h0d, 5 the carry (h1_prev, c1_prev, h1,
+// c1), 6 w1 and b1, 7 the products' weights and biases, 8 alpha1 and
+// alpha2 stored as bf16. Five launches (six with a bf16 carry: h1 and c1
+// are rounded from their f32 values, which the att2 query reads); returns
+// the first launch error.
+extern "C" int att_lstm_att_mixed(const void* const* in, void* h1, void* c1,
+                                  void* att2, float* ws, int B, int N, int A,
+                                  int D, int H, int types,
+                                  cudaStream_t stream) {
   if (B <= 0) return (int)cudaGetLastError();
-  if (H < 1) return (int)cudaErrorInvalidValue;
-  const float *p_att = in[0], *emb = in[1], *mask = in[2], *q1 = in[3],
-              *h0d = in[4], *h1p = in[5], *c1p = in[6], *w1 = in[7],
-              *b1 = in[8], *emb2_w = in[9], *emb2_b = in[10],
-              *h2att2_w = in[11], *h2att2_b = in[12], *alpha1 = in[13],
-              *alpha2 = in[14];
+  if (H < 1 || types < 0 || types > 511) return (int)cudaErrorInvalidValue;
+  const void *p_att = in[0], *emb = in[1], *mask = in[2], *q1 = in[3],
+             *h0d = in[4], *h1p = in[5], *c1p = in[6], *w1 = in[7],
+             *b1 = in[8], *emb2_w = in[9], *emb2_b = in[10],
+             *h2att2_w = in[11], *h2att2_b = in[12], *alpha1 = in[13],
+             *alpha2 = in[14];
+  const int pb = types & 1, eb = (types >> 1) & 1, mb = (types >> 2) & 1;
+  const int qb = (types >> 3) & 1, hb = (types >> 4) & 1;
+  const int cb = (types >> 5) & 1, wb = (types >> 6) & 1;
+  const int gb = (types >> 7) & 1, ab = (types >> 8) & 1;
   const int xw = H + D;                 // [h0d | att1]
   float* xcat = ws;                     // [B, H + D]
   float* q2in = xcat + (size_t)B * xw;  // [B, H]
   float* q2 = q2in + (size_t)B * H;     // [B, A]
+  // h1, c1 in f32: the outputs themselves with an f32 carry, else scratch
+  float* h1f = cb ? q2 + (size_t)B * A : static_cast<float*>(h1);
+  float* c1f = cb ? h1f + (size_t)B * H : static_cast<float*>(c1);
   int err;
   AttArgs att1 = att_args(p_att, q1, alpha1, mask, emb, xcat + H, N, A, D, 1,
                           xw);
+  att1.qb = qb;
+  att1.ab = ab;
+  att1.mb = mb;
   att1.copy_src = h0d;
+  att1.cb = hb;
   att1.copy_dst = xcat;
   att1.copy_ld = xw;
   att1.copy_w = H;
-  if ((err = launch_attention(att1, B, stream))) return err;
-  if ((err = lstm_cell_f32(xcat, h1p, c1p, w1, b1, h1, c1, B, xw, H, 5,
-                           stream)))
+  if ((err = launch_attention(att1, B, pb, eb, stream))) return err;
+  // x = xcat (f32), w1 / b1 in their type, the carry in its type; bit 3:
+  // h1 and c1 out in f32 whatever the carry's type
+  if ((err = lstm_cell_mixed(xcat, h1p, c1p, w1, b1, h1f, c1f, B, xw, H, 5,
+                             (wb << 1) | (cb << 2) | (cb << 3), stream)))
     return err;
-  if ((err = uic_decode::decode_gemm(xcat + H, xw, emb2_w, B, H, D,
-                                     EpiAddBias{h1, emb2_b, q2in, H}, stream,
-                                     1)))
+  if (cb && (err = round_pair(h1f, c1f, h1, c1, (size_t)B * H, stream)))
     return err;
-  if ((err = uic_decode::decode_gemm(q2in, H, h2att2_w, B, A, H,
-                                     uic::EpiBias{h2att2_b, q2, A}, stream,
-                                     1)))
-    return err;
-  return launch_attention(
-      att_args(p_att, q2, alpha2, mask, emb, att2, N, A, D, 1, D), B, stream);
+  if (gb) {
+    if ((err = rows_gemm(xcat + H, xw, emb2_w, emb2_b, h1f, q2in, B, H, D,
+                         stream)))
+      return err;
+    if ((err = rows_gemm(q2in, H, h2att2_w, h2att2_b, nullptr, q2, B, A, H,
+                         stream)))
+      return err;
+  } else {
+    if ((err = uic_decode::decode_gemm(
+             xcat + H, xw, static_cast<const float*>(emb2_w), B, H, D,
+             EpiAddBias{h1f, static_cast<const float*>(emb2_b), q2in, H},
+             stream, 1)))
+      return err;
+    if ((err = uic_decode::decode_gemm(
+             q2in, H, static_cast<const float*>(h2att2_w), B, A, H,
+             uic::EpiBias{static_cast<const float*>(h2att2_b), q2, A}, stream,
+             1)))
+      return err;
+  }
+  AttArgs att = att_args(p_att, q2, alpha2, mask, emb, att2, N, A, D, 1, D);
+  att.ab = ab;
+  att.mb = mb;
+  att.ob = eb;
+  return launch_attention(att, B, pb, eb, stream);
 }

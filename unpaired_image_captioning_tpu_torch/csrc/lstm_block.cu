@@ -1,4 +1,4 @@
-// Timestep-blocked LSTM chain, f32, forward and backward: the Hopper
+// Timestep-blocked LSTM chain, forward and backward: the Hopper
 // counterpart of the TPU kernels
 // unpaired_image_captioning_tpu/ops/lstm_block.py::_chain_fwd_kernel and
 // ::_chain_bwd_kernel.
@@ -15,6 +15,15 @@
 //   dh <- dgates_t @ W^T,   dc <- dct * f
 // emitting dgates (= dx_contrib), and dh0, dc0 after t = 0. dW = hs_prev^T
 // @ dgates is one matrix product outside the kernel, as in the JAX package.
+//
+// Types, as the TPU kernels keep them: x_contrib, the gates and dgates are
+// f32; the carry (h0, c0, hs, cs, their cotangents dhs, dcs and dh0, dc0)
+// and W are each f32 or bf16 (`hb`, `wb`). A bf16 operand is converted as
+// it is read; the sums and the cell are the f32 core below. A bf16 carry
+// holds each step's h and c rounded to nearest even (the next step reads
+// the rounded values, as the TPU kernel's scratch in the carry's type
+// does); with a bf16 W the backward rounds dgates_t to bf16 before its
+// product with W^T (`dgates.astype(wT.dtype)`), and stores dgates in f32.
 //
 // Design. The TPU kernel walks a sequential grid over T with all of W in
 // VMEM. A Hopper block cannot hold W (5.24 MB at H = 512, G = 5), and blocks
@@ -68,7 +77,12 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace cg = cooperative_groups;
+using uic_bf16::ldf;
+using uic_bf16::round_bf16;
+using uic_bf16::stf;
 
 namespace {
 
@@ -98,15 +112,16 @@ struct FwdTile {
   static_assert(CG <= 32, "a warp covers the block's columns");
 };
 
-// Copy columns [k0, k0 + kc) of `rows` rows of length H (row stride H) from
-// global memory, through L2 (the rows were written by other blocks), into
-// shared rows of stride kc + 4; columns past H read as 0. LB loads are in
-// flight per thread before the first is stored. VEC: float4 loads (H a
+// Copy columns [k0, k0 + kc) of `rows` rows of length H (row stride H,
+// starting at element `off` of src, bf16 where `bf`) from global memory,
+// through L2 (the rows were written by other blocks), into shared f32 rows
+// of stride kc + 4; columns past H read as 0. LB loads are in flight per
+// thread before the first is stored. VEC: four elements a load (H a
 // multiple of 4, src 16-byte aligned).
 template <bool VEC>
 __device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const float* src, int rows, int H,
-                                      int k0, int kc) {
+                                      const void* src, size_t off, bool bf,
+                                      int rows, int H, int k0, int kc) {
   const int ld = kc + 4;
   constexpr int W = VEC ? 4 : 1;
   const int per_row = kc / W;
@@ -119,11 +134,11 @@ __device__ __forceinline__ void stage(float* __restrict__ dst,
       v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (e < n) {
         const int r = e / per_row, k = k0 + (e - r * per_row) * W;
-        const float* a = src + (size_t)r * H + k;
+        const size_t a = off + (size_t)r * H + k;
         if (VEC) {
-          if (k < H) v[i] = __ldcg(reinterpret_cast<const float4*>(a));
+          if (k < H) v[i] = uic_bf16::ld4cg(src, a, bf);
         } else if (k < H) {
-          v[i].x = __ldcg(a);
+          v[i].x = uic_bf16::ldcg(src, a, bf);
         }
       }
     }
@@ -169,11 +184,11 @@ size_t bwd_smem(int B, int H, int G, int U) {
 
 template <int G, int U>
 __global__ void __launch_bounds__(THREADS, 1)
-chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
-                 const float* __restrict__ c0, const float* __restrict__ w,
-                 float* hs, float* __restrict__ cs,
+chain_fwd_kernel(const float* __restrict__ x, const void* __restrict__ h0,
+                 const void* __restrict__ c0, const void* __restrict__ w,
+                 void* hs, void* __restrict__ cs,
                  float* __restrict__ gates, int T, int B, int H, int kc,
-                 int vec) {
+                 int vec, int hb, int wb) {
   using Tile = FwdTile<G, U>;
   constexpr int GU = G * U, R = Tile::R, RG = Tile::RG, CG = Tile::CG;
   extern __shared__ __align__(16) float smem[];
@@ -190,22 +205,24 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
 
   for (int e = threadIdx.x; e < HP * GU; e += THREADS) {
     const int k = e / GU, r = e - k * GU, g = r / U, j = j0 + r - g * U;
-    w_s[e] = (k < H && j < H) ? w[(size_t)k * GH + g * H + j] : 0.0f;
+    w_s[e] = (k < H && j < H) ? ldf(w, (size_t)k * GH + g * H + j, wb)
+                              : 0.0f;
   }
   for (int q = threadIdx.x; q < B * U; q += THREADS) {
     const int b = q / U, j = j0 + q - b * U;
-    c_s[q] = j < H ? c0[(size_t)b * H + j] : 0.0f;
+    c_s[q] = j < H ? ldf(c0, (size_t)b * H + j, hb) : 0.0f;
   }
   cg::grid_group grid = cg::this_grid();
 
   for (int t = 0; t < T; ++t) {
-    const float* hp = t == 0 ? h0 : hs + (size_t)(t - 1) * B * H;
+    const void* hp = t == 0 ? h0 : hs;
+    const size_t hoff = t == 0 ? 0 : (size_t)(t - 1) * B * H;
     for (int k0 = 0; k0 < H; k0 += kc) {
       __syncthreads();   // the previous chunk's readers are done
       if (vec)
-        stage<true>(h_s, hp, B, H, k0, kc);
+        stage<true>(h_s, hp, hoff, hb, B, H, k0, kc);
       else
-        stage<false>(h_s, hp, B, H, k0, kc);
+        stage<false>(h_s, hp, hoff, hb, B, H, k0, kc);
       __syncthreads();
       const int kb = warp * ks;
       // the slice's columns inside the padded H (a last chunk may end past it)
@@ -283,9 +300,9 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
       const float o_g = sigmoid_f32(gv[2]);
       const float in_t = G == 5 ? fmaxf(gv[3], gv[4]) : tanhf(gv[3]);
       const float c = f_g * c_s[q] + i_g * in_t;
-      c_s[q] = c;
-      hs[row * H + j] = o_g * tanhf(c);
-      cs[row * H + j] = c;
+      c_s[q] = hb ? round_bf16(c) : c;   // the carry's value
+      stf(hs, row * H + j, o_g * tanhf(c), hb);
+      stf(cs, row * H + j, c, hb);
     }
     if (t + 1 < T) grid.sync();   // h_t is written by every block
   }
@@ -293,11 +310,12 @@ chain_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h0,
 
 template <int G, int U>
 __global__ void __launch_bounds__(THREADS, 1)
-chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
-                 const float* __restrict__ c0, const float* __restrict__ dhs,
-                 const float* __restrict__ dcs, const float* __restrict__ w,
-                 float* __restrict__ dgates, float* __restrict__ dh0,
-                 float* __restrict__ dc0, float* part, int T, int B, int H) {
+chain_bwd_kernel(const float* __restrict__ gates, const void* __restrict__ cs,
+                 const void* __restrict__ c0, const void* __restrict__ dhs,
+                 const void* __restrict__ dcs, const void* __restrict__ w,
+                 float* __restrict__ dgates, void* __restrict__ dh0,
+                 void* __restrict__ dc0, float* part, int T, int B, int H,
+                 int hb, int wb) {
   constexpr int GU = G * U, RB = BWD_ROWS;
   extern __shared__ __align__(16) float smem[];
   const int GH = G * H, HP = round_up(H, 32), BP = round_up(B, RB);
@@ -312,7 +330,8 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 
   for (int e = threadIdx.x; e < GU * HP; e += THREADS) {
     const int r = e / HP, k = e - r * HP, g = r / U, j = j0 + r - g * U;
-    wt_s[e] = (k < H && j < H) ? w[(size_t)k * GH + g * H + j] : 0.0f;
+    wt_s[e] = (k < H && j < H) ? ldf(w, (size_t)k * GH + g * H + j, wb)
+                               : 0.0f;
   }
   for (int e = threadIdx.x; e < GU * BP; e += THREADS) dg_s[e] = 0.0f;
   for (int q = threadIdx.x; q < B * U; q += THREADS) {
@@ -335,14 +354,14 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
       const float m1 = gr[3 * H];
       const float m2 = G == 5 ? gr[4 * H] : 0.0f;
       const float in_t = G == 5 ? fmaxf(m1, m2) : tanhf(m1);
-      const float c_t = cs[row * H + j];
-      const float c_prev =
-          t > 0 ? cs[(row - B) * H + j] : c0[(size_t)b * H + j];
+      const float c_t = ldf(cs, row * H + j, hb);
+      const float c_prev = t > 0 ? ldf(cs, (row - B) * H + j, hb)
+                                 : ldf(c0, (size_t)b * H + j, hb);
       const float th = tanhf(c_t);
-      const float dh = dhs[row * H + j] + dh_s[q];
+      const float dh = ldf(dhs, row * H + j, hb) + dh_s[q];
       const float d_o = dh * th;
-      const float dct =
-          dh * o_g * (1.0f - th * th) + dc_s[q] + dcs[row * H + j];
+      const float dct = dh * o_g * (1.0f - th * th) + dc_s[q] +
+                        ldf(dcs, row * H + j, hb);
       float dgv[5];
       dgv[0] = dct * in_t * i_g * (1.0f - i_g);
       dgv[1] = dct * c_prev * f_g * (1.0f - f_g);
@@ -359,7 +378,7 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         dg[g * H] = dgv[g];
-        dg_s[(g * U + u) * BP + b] = dgv[g];
+        dg_s[(g * U + u) * BP + b] = wb ? round_bf16(dgv[g]) : dgv[g];
       }
       dc_s[q] = dct * f_g;
     }
@@ -440,8 +459,8 @@ chain_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   for (int q = threadIdx.x; q < B * U; q += THREADS) {
     const int b = q / U, j = j0 + q - b * U;
     if (j < H) {
-      dh0[(size_t)b * H + j] = dh_s[q];
-      dc0[(size_t)b * H + j] = dc_s[q];
+      stf(dh0, (size_t)b * H + j, dh_s[q], hb);
+      stf(dc0, (size_t)b * H + j, dc_s[q], hb);
     }
   }
 }
@@ -485,55 +504,59 @@ int units_per_block(int H) {
 bool aligned(const void* p) { return ((size_t)p & 15) == 0; }
 
 template <int G, int U>
-cudaError_t fwd(const float* x, const float* h0, const float* c0,
-                const float* w, float* hs, float* cs, float* gates, int T,
-                int B, int H, cudaStream_t stream) {
+cudaError_t fwd(const float* x, const void* h0, const void* c0,
+                const void* w, void* hs, void* cs, float* gates, int T,
+                int B, int H, int hb, int wb, cudaStream_t stream) {
   int kc = fwd_chunk(B, H, G, U);
   if (kc == 0) return cudaErrorCooperativeLaunchTooLarge;
   int vec = H % 4 == 0 && aligned(h0) && aligned(hs);
-  void* args[] = {&x, &h0, &c0, &w, &hs, &cs, &gates, &T, &B, &H, &kc, &vec};
+  void* args[] = {&x,  &h0, &c0, &w,  &hs,  &cs, &gates,
+                  &T,  &B,  &H,  &kc, &vec, &hb, &wb};
   return launch_coop((const void*)chain_fwd_kernel<G, U>, H, U,
                      fwd_smem(B, H, G, U, kc), args, stream);
 }
 
 template <int G, int U>
-cudaError_t bwd(const float* gates, const float* cs, const float* c0,
-                const float* dhs, const float* dcs, const float* w,
-                float* dgates, float* dh0, float* dc0, float* part, int T,
-                int B, int H, cudaStream_t stream) {
-  void* args[] = {&gates, &cs, &c0, &dhs, &dcs, &w, &dgates, &dh0, &dc0,
-                  &part, &T, &B, &H};
+cudaError_t bwd(const float* gates, const void* cs, const void* c0,
+                const void* dhs, const void* dcs, const void* w,
+                float* dgates, void* dh0, void* dc0, float* part, int T,
+                int B, int H, int hb, int wb, cudaStream_t stream) {
+  void* args[] = {&gates, &cs, &c0, &dhs, &dcs, &w,  &dgates, &dh0,
+                  &dc0,   &part, &T, &B, &H, &hb, &wb};
   return launch_coop((const void*)chain_bwd_kernel<G, U>, H, U,
                      bwd_smem(B, H, G, U), args, stream);
 }
 
 template <int G>
-cudaError_t fwd_g(const float* x, const float* h0, const float* c0,
-                  const float* w, float* hs, float* cs, float* gates, int T,
-                  int B, int H, cudaStream_t s) {
+cudaError_t fwd_g(const float* x, const void* h0, const void* c0,
+                  const void* w, void* hs, void* cs, float* gates, int T,
+                  int B, int H, int hb, int wb, cudaStream_t s) {
   switch (units_per_block(H)) {
-    case 4: return fwd<G, 4>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
-    case 8: return fwd<G, 8>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
-    case 16: return fwd<G, 16>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+    case 4:
+      return fwd<G, 4>(x, h0, c0, w, hs, cs, gates, T, B, H, hb, wb, s);
+    case 8:
+      return fwd<G, 8>(x, h0, c0, w, hs, cs, gates, T, B, H, hb, wb, s);
+    case 16:
+      return fwd<G, 16>(x, h0, c0, w, hs, cs, gates, T, B, H, hb, wb, s);
     default: return cudaErrorCooperativeLaunchTooLarge;
   }
 }
 
 template <int G>
-cudaError_t bwd_g(const float* gates, const float* cs, const float* c0,
-                  const float* dhs, const float* dcs, const float* w,
-                  float* dgates, float* dh0, float* dc0, float* part, int T,
-                  int B, int H, cudaStream_t s) {
+cudaError_t bwd_g(const float* gates, const void* cs, const void* c0,
+                  const void* dhs, const void* dcs, const void* w,
+                  float* dgates, void* dh0, void* dc0, float* part, int T,
+                  int B, int H, int hb, int wb, cudaStream_t s) {
   switch (units_per_block(H)) {
     case 4:
       return bwd<G, 4>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part, T,
-                       B, H, s);
+                       B, H, hb, wb, s);
     case 8:
       return bwd<G, 8>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part, T,
-                       B, H, s);
+                       B, H, hb, wb, s);
     case 16:
       return bwd<G, 16>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, part,
-                        T, B, H, s);
+                        T, B, H, hb, wb, s);
     default: return cudaErrorCooperativeLaunchTooLarge;
   }
 }
@@ -547,14 +570,20 @@ bool valid(int T, int B, int H, int G) {
 extern "C" {
 
 // x [T, B, G*H], h0 / c0 [B, H], w [H, G*H] -> hs, cs [T, B, H], gates
-// [T, B, G*H]
-int lstm_chain_fwd_f32(const float* x, const float* h0, const float* c0,
-                       const float* w, float* hs, float* cs, float* gates,
-                       int T, int B, int H, int G, void* stream) {
-  if (!valid(T, B, H, G)) return (int)cudaErrorInvalidValue;
+// [T, B, G*H]; x and the gates f32, `types` bit 0: the carry (h0, c0, hs,
+// cs) bf16, bit 1: w bf16
+int lstm_chain_fwd_mixed(const float* x, const void* h0, const void* c0,
+                         const void* w, void* hs, void* cs, float* gates,
+                         int T, int B, int H, int G, int types,
+                         void* stream) {
+  if (!valid(T, B, H, G) || types < 0 || types > 3)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(G == 4 ? fwd_g<4>(x, h0, c0, w, hs, cs, gates, T, B, H, s)
-                      : fwd_g<5>(x, h0, c0, w, hs, cs, gates, T, B, H, s));
+  const int hb = types & 1, wb = (types >> 1) & 1;
+  return (int)(G == 4 ? fwd_g<4>(x, h0, c0, w, hs, cs, gates, T, B, H, hb,
+                                 wb, s)
+                      : fwd_g<5>(x, h0, c0, w, hs, cs, gates, T, B, H, hb,
+                                 wb, s));
 }
 
 // Floats of the backward's workspace (two buffers of every block's partial
@@ -567,16 +596,20 @@ int lstm_chain_bwd_ws_f32(int B, int H, long long* n) {
 
 // gates [T, B, G*H], cs / dhs / dcs [T, B, H], c0 [B, H], w [H, G*H], ws
 // (lstm_chain_bwd_ws_f32 floats) -> dgates [T, B, G*H], dh0 / dc0 [B, H]
-int lstm_chain_bwd_f32(const float* gates, const float* cs, const float* c0,
-                       const float* dhs, const float* dcs, const float* w,
-                       float* dgates, float* dh0, float* dc0, float* ws,
-                       int T, int B, int H, int G, void* stream) {
-  if (!valid(T, B, H, G)) return (int)cudaErrorInvalidValue;
+// (the carry: cs, c0, dhs, dcs, dh0, dc0; `types` as the forward's)
+int lstm_chain_bwd_mixed(const float* gates, const void* cs, const void* c0,
+                         const void* dhs, const void* dcs, const void* w,
+                         float* dgates, void* dh0, void* dc0, float* ws,
+                         int T, int B, int H, int G, int types,
+                         void* stream) {
+  if (!valid(T, B, H, G) || types < 0 || types > 3)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int hb = types & 1, wb = (types >> 1) & 1;
   return (int)(G == 4 ? bwd_g<4>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
-                                 dc0, ws, T, B, H, s)
+                                 dc0, ws, T, B, H, hb, wb, s)
                       : bwd_g<5>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
-                                 dc0, ws, T, B, H, s));
+                                 dc0, ws, T, B, H, hb, wb, s));
 }
 
 // the blocks of a chain launch over H units (0: H is too wide)

@@ -1,4 +1,4 @@
-// Fused LSTM cell, one step, f32: the Hopper counterpart of the TPU kernel
+// Fused LSTM cell, one step: the Hopper counterpart of the TPU kernel
 // unpaired_image_captioning_tpu/ops/rnn.py::_fused_cell_kernel.
 //
 //   gates = x @ W[:D] + h @ W[D:] + b            [B, G*H], f32 accumulation
@@ -10,6 +10,16 @@
 // Layouts are the JAX package's: x [B, D], h and c [B, H], W [D+H, G*H] with
 // the input rows first and gate order (i, f, o, g | m1, m2), b [G*H]. All
 // row-major and contiguous; any B, D, H >= 1.
+//
+// Types. x, (w, b) and (h, c) are each f32 or bf16 (`types`: bit 0 x, bit 1
+// w and b, bit 2 h and c), as the TPU kernel reads each operand in its own
+// type: a bf16 operand is converted to f32 as its tile lands in shared
+// memory, the products, the sums and the epilogue are the f32 FMA core
+// below, unchanged, and h' and c' are stored in h's type, rounded to nearest
+// even where it is bf16 (bf16.cuh); bit 3 keeps them f32 (the decode step of
+// additive_attention.cu reads h' unrounded). f32 tiles come in through cp.async; a
+// bf16 tile is read with plain 8-byte loads and stored converted, so it
+// does not overlap the tile in flight as the f32 copies do.
 //
 // Design. A tile is BM = 64 batch rows by BN hidden units j with all G gate
 // columns {g*H + j} of those units, so the gate pre-activations of a unit
@@ -51,7 +61,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace cg = cooperative_groups;
+using uic_bf16::ld4;
+using uic_bf16::ldf;
+using uic_bf16::stf;
 
 namespace {
 
@@ -123,13 +138,18 @@ __device__ __forceinline__ Place place(const cg::cluster_group& cluster,
 
 // Copies the [x|h] rows and the W rows [k0, k0 + BK) of the tile into a
 // stage, zero past the edges. `vec`: D and H are multiples of 4 and x, h, w
-// are 16-byte aligned, so the copies are 16 bytes; else 4.
+// are 16-byte aligned, so the copies are 16 bytes (8 from a bf16 operand);
+// else one element. f32 operands by cp.async, bf16 ones converted here.
 template <int G, int BN>
 __device__ __forceinline__ void load_stage(
-    float* As, const float* __restrict__ x, const float* __restrict__ h,
-    const float* __restrict__ w, int B, int D, int H, const Place& p,
-    int k0, int vec) {
+    float* As, const void* __restrict__ x, const void* __restrict__ h,
+    const void* __restrict__ w, int B, int D, int H, const Place& p,
+    int k0, int vec, int types) {
   using T = Tile<G, BN>;
+  const bool xb = types & 1, wb = types & 2, hb = types & 4;
+  const float* xf = static_cast<const float*>(x);
+  const float* hf = static_cast<const float*>(h);
+  const float* wf = static_cast<const float*>(w);
   float* Ws = As + T::A_FLOATS;
   const int tid = threadIdx.x;
   for (int e = tid; e < BM * BK / 4; e += NTHR) {
@@ -137,21 +157,37 @@ __device__ __forceinline__ void load_stage(
     const int r = p.r0 + row, k = k0 + kq;
     float* dst = As + row * A_LD + kq;
     if (vec) {
+      // a 4-group lies wholly in x or in h: D is a multiple of 4
       const bool ok = r < B && k < p.k_end;
-      cp16(dst,
-           !ok ? x
-               : (k < D ? x + (size_t)r * D + k
-                        : h + (size_t)r * H + (k - D)),
-           ok);
+      const bool in_x = k < D;
+      if (in_x ? xb : hb) {
+        *reinterpret_cast<float4*>(dst) =
+            !ok ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                : (in_x ? ld4(x, (size_t)r * D + k, true)
+                        : ld4(h, (size_t)r * H + (k - D), true));
+      } else {
+        cp16(dst,
+             !ok ? xf
+                 : (in_x ? xf + (size_t)r * D + k
+                         : hf + (size_t)r * H + (k - D)),
+             ok);
+      }
     } else {
       for (int q = 0; q < 4; ++q) {
         const int kk = k + q;
         const bool ok = r < B && kk < p.k_end;
-        cp4(dst + q,
-            !ok ? x
-                : (kk < D ? x + (size_t)r * D + kk
-                          : h + (size_t)r * H + (kk - D)),
-            ok);
+        const bool in_x = kk < D;
+        if (in_x ? xb : hb) {
+          dst[q] = !ok ? 0.0f
+                       : (in_x ? ldf(x, (size_t)r * D + kk, true)
+                               : ldf(h, (size_t)r * H + (kk - D), true));
+        } else {
+          cp4(dst + q,
+              !ok ? xf
+                  : (in_x ? xf + (size_t)r * D + kk
+                          : hf + (size_t)r * H + (kk - D)),
+              ok);
+        }
       }
     }
   }
@@ -164,33 +200,44 @@ __device__ __forceinline__ void load_stage(
     float* dst = Ws + kk * T::W_LD + col;
     if (vec) {
       const bool ok = k < p.k_end && j < H;
-      cp16(dst, ok ? w + (size_t)k * GH + g * H + j : w, ok);
+      if (wb)
+        *reinterpret_cast<float4*>(dst) =
+            ok ? ld4(w, (size_t)k * GH + g * H + j, true)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      else
+        cp16(dst, ok ? wf + (size_t)k * GH + g * H + j : wf, ok);
     } else {
       for (int q = 0; q < 4; ++q) {
         const bool ok = k < p.k_end && j + q < H;
-        cp4(dst + q, ok ? w + (size_t)k * GH + g * H + j + q : w, ok);
+        if (wb)
+          dst[q] = ok ? ldf(w, (size_t)k * GH + g * H + j + q, true) : 0.0f;
+        else
+          cp4(dst + q, ok ? wf + (size_t)k * GH + g * H + j + q : wf, ok);
       }
     }
   }
 }
 
-// the cell's epilogue for one (row, unit) from its G pre-activations
+// the cell's epilogue for one (row, unit) from its G pre-activations: b
+// read in w's type, c in h's, h' and c' stored in h's (rounded if bf16)
 template <int G>
-__device__ __forceinline__ void cell_out(const float* gate, const float* b,
-                                         const float* c, float* h_out,
-                                         float* c_out, int H, size_t o,
-                                         int j) {
-  const float ig = sigmoid_f32(gate[0] + b[j]);
-  const float fg = sigmoid_f32(gate[1] + b[H + j]);
-  const float og = sigmoid_f32(gate[2] + b[2 * H + j]);
+__device__ __forceinline__ void cell_out(const float* gate, const void* b,
+                                         const void* c, void* h_out,
+                                         void* c_out, int H, size_t o, int j,
+                                         int types) {
+  const bool wb = types & 2, hb = types & 4, ob = hb && !(types & 8);
+  const float ig = sigmoid_f32(gate[0] + ldf(b, j, wb));
+  const float fg = sigmoid_f32(gate[1] + ldf(b, H + j, wb));
+  const float og = sigmoid_f32(gate[2] + ldf(b, 2 * H + j, wb));
   float in_t;
   if (G == 5)
-    in_t = fmaxf(gate[3] + b[3 * H + j], gate[4] + b[4 * H + j]);
+    in_t = fmaxf(gate[3] + ldf(b, 3 * H + j, wb),
+                 gate[4] + ldf(b, 4 * H + j, wb));
   else
-    in_t = tanhf(gate[3] + b[3 * H + j]);
-  const float cn = fg * c[o] + ig * in_t;
-  c_out[o] = cn;
-  h_out[o] = og * tanhf(cn);
+    in_t = tanhf(gate[3] + ldf(b, 3 * H + j, wb));
+  const float cn = fg * ldf(c, o, hb) + ig * in_t;
+  stf(c_out, o, cn, ob);
+  stf(h_out, o, og * tanhf(cn), ob);
 }
 
 // After every block of the cluster wrote its partial tile [G][BM][BN] to
@@ -198,9 +245,9 @@ __device__ __forceinline__ void cell_out(const float* gate, const float* b,
 // partials in rank order (distributed shared memory) and runs the epilogue.
 template <int G, int BN>
 __device__ __forceinline__ void cluster_epilogue(
-    const cg::cluster_group& cluster, float* part, const float* b,
-    const float* c, float* h_out, float* c_out, int B, int H,
-    const Place& p) {
+    const cg::cluster_group& cluster, float* part, const void* b,
+    const void* c, void* h_out, void* c_out, int B, int H, const Place& p,
+    int types) {
   cluster.sync();
   const int rows = BM / p.cs;                 // cs in {2, 4, 8}
   for (int e = threadIdx.x; e < rows * BN; e += NTHR) {
@@ -215,7 +262,8 @@ __device__ __forceinline__ void cluster_epilogue(
     }
     const int r = p.r0 + row, j = p.j0 + u;
     if (r < B && j < H)
-      cell_out<G>(gate, b, c, h_out, c_out, H, (size_t)r * H + j, j);
+      cell_out<G>(gate, b, c, h_out, c_out, H, (size_t)r * H + j, j,
+                  types);
   }
   // no block leaves while another still reads its shared memory
   cluster.sync();
@@ -244,11 +292,11 @@ __device__ __forceinline__ void load_units(const float* src, float* dst) {
 // cluster, through cluster_epilogue.
 template <int G, int TN>
 __global__ void __launch_bounds__(NTHR)
-lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                 const float* __restrict__ c, const float* __restrict__ w,
-                 const float* __restrict__ b, float* __restrict__ h_out,
-                 float* __restrict__ c_out, int B, int D, int H, int k_slice,
-                 int vec) {
+lstm_cell_kernel(const void* __restrict__ x, const void* __restrict__ h,
+                 const void* __restrict__ c, const void* __restrict__ w,
+                 const void* __restrict__ b, void* __restrict__ h_out,
+                 void* __restrict__ c_out, int B, int D, int H, int k_slice,
+                 int vec, int types) {
   constexpr int BN = TX * TN;
   using T = Tile<G, BN>;
   static_assert(NTHR / TX * TM == BM, "the thread grid covers BM rows");
@@ -269,7 +317,7 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < p.n_tiles)
       load_stage<G, BN>(smem + s * T::STAGE_FLOATS, x, h, w, B, D, H, p,
-                        p.k_begin + s * BK, vec);
+                        p.k_begin + s * BK, vec, types);
     cp_commit();
   }
   for (int t = 0; t < p.n_tiles; ++t) {
@@ -280,7 +328,7 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
     const int nt = t + STAGES - 1;
     if (nt < p.n_tiles)
       load_stage<G, BN>(smem + (nt % STAGES) * T::STAGE_FLOATS, x, h, w, B,
-                        D, H, p, p.k_begin + nt * BK, vec);
+                        D, H, p, p.k_begin + nt * BK, vec, types);
     cp_commit();
     const float* As = smem + (t % STAGES) * T::STAGE_FLOATS;
     const float* Ws = As + T::A_FLOATS;
@@ -324,7 +372,8 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
       for (int i = 0; i < TM; ++i) {
         const int r = p.r0 + ty * TM + i;
         if (r >= B) continue;
-        cell_out<G>(acc[i][u], b, c, h_out, c_out, H, (size_t)r * H + j, j);
+        cell_out<G>(acc[i][u], b, c, h_out, c_out, H, (size_t)r * H + j, j,
+                    types);
       }
     }
     return;
@@ -337,7 +386,8 @@ lstm_cell_kernel(const float* __restrict__ x, const float* __restrict__ h,
 #pragma unroll
       for (int g = 0; g < G; ++g)
         part[(g * BM + ty * TM + i) * BN + tx * TN + u] = acc[i][u][g];
-  cluster_epilogue<G, BN>(cluster, part, b, c, h_out, c_out, B, H, p);
+  cluster_epilogue<G, BN>(cluster, part, b, c, h_out, c_out, B, H, p,
+                          types);
 }
 
 struct Plan {
@@ -363,10 +413,9 @@ Plan plan(int B, int D, int H, bool cluster = true) {
 }
 
 template <typename K>
-int launch(K kernel, int smem, const float* x, const float* h,
-           const float* c, const float* w, const float* b, float* h_out,
-           float* c_out, int B, int D, int H, const Plan& p,
-           cudaStream_t stream) {
+int launch(K kernel, int smem, const void* x, const void* h, const void* c,
+           const void* w, const void* b, void* h_out, void* c_out, int B,
+           int D, int H, int types, const Plan& p, cudaStream_t stream) {
   // the opt-in above 48 KB, on the current device
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -386,43 +435,47 @@ int launch(K kernel, int smem, const float* x, const float* h,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, x, h, c, w, b, h_out, c_out, B, D, H,
-                         p.k_slice, vec);
+                         p.k_slice, vec, types);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-int run(const float* x, const float* h, const float* c, const float* w,
-        const float* b, float* h_out, float* c_out, int B, int D, int H,
-        int G, const Plan& p, cudaStream_t stream) {
+int run(const void* x, const void* h, const void* c, const void* w,
+        const void* b, void* h_out, void* c_out, int B, int D, int H, int G,
+        int types, const Plan& p, cudaStream_t stream) {
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
   if (p.cluster < 1 || p.cluster > MAX_CLUSTER ||
       (p.cluster & (p.cluster - 1)))
     return (int)cudaErrorInvalidValue;
   if (G == 4 && p.bn == 16)
     return launch(lstm_cell_kernel<4, 2>, Tile<4, 16>::SMEM, x, h, c, w, b,
-                  h_out, c_out, B, D, H, p, stream);
+                  h_out, c_out, B, D, H, types, p, stream);
   if (G == 5 && p.bn == 16)
     return launch(lstm_cell_kernel<5, 2>, Tile<5, 16>::SMEM, x, h, c, w, b,
-                  h_out, c_out, B, D, H, p, stream);
+                  h_out, c_out, B, D, H, types, p, stream);
   if (G == 4 && p.bn == 32)
     return launch(lstm_cell_kernel<4, 4>, Tile<4, 32>::SMEM, x, h, c, w, b,
-                  h_out, c_out, B, D, H, p, stream);
+                  h_out, c_out, B, D, H, types, p, stream);
   if (G == 5 && p.bn == 32)
     return launch(lstm_cell_kernel<5, 4>, Tile<5, 32>::SMEM, x, h, c, w, b,
-                  h_out, c_out, B, D, H, p, stream);
+                  h_out, c_out, B, D, H, types, p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launches one step on `stream` with plan()'s tile and cluster. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// Launches one step on `stream` with plan()'s tile and cluster, each of x,
+// (w, b) and (h, c) f32 or bf16: `types` bit 0 x, bit 1 w and b, bit 2 h and
+// c (h_out and c_out in h's type, or in f32 with bit 3 too); 0 is all f32.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported G), so a refused launch is seen by the caller.
-extern "C" int lstm_cell_f32(const float* x, const float* h, const float* c,
-                             const float* w, const float* b, float* h_out,
-                             float* c_out, int B, int D, int H, int G,
-                             cudaStream_t stream) {
-  return run(x, h, c, w, b, h_out, c_out, B, D, H, G, plan(B, D, H), stream);
+extern "C" int lstm_cell_mixed(const void* x, const void* h, const void* c,
+                               const void* w, const void* b, void* h_out,
+                               void* c_out, int B, int D, int H, int G,
+                               int types, cudaStream_t stream) {
+  if (types < 0 || types > 15) return (int)cudaErrorInvalidValue;
+  return run(x, h, c, w, b, h_out, c_out, B, D, H, G, types, plan(B, D, H),
+             stream);
 }
 
 // The same step with plan()'s tile but no cluster (every block reduces the
@@ -432,8 +485,8 @@ extern "C" int lstm_cell_f32_unclustered(const float* x, const float* h,
                                          const float* b, float* h_out,
                                          float* c_out, int B, int D, int H,
                                          int G, cudaStream_t stream) {
-  return run(x, h, c, w, b, h_out, c_out, B, D, H, G, plan(B, D, H, false),
-             stream);
+  return run(x, h, c, w, b, h_out, c_out, B, D, H, G, 0,
+             plan(B, D, H, false), stream);
 }
 
 // plan()'s choice for a shape: out = {BN, cluster size, K rows a block,

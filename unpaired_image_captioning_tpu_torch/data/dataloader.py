@@ -33,8 +33,12 @@ global, so every host can score). With `num_data_ranks` > 1 (one loader a
 data rank of a scale-out mesh) every loader plans the same global training
 batch, and its training batches are the contiguous block of rows
 `parallel.shard_batch` gives data rank `data_rank`, the NMT batch's too:
-only that block's images are read and replicated. `feat_dtype="bfloat16"`
-waits for the compute dtype (ROADMAP A15).
+only that block's images are read and replicated. With
+`feat_dtype="bfloat16"` (JAX's option) the fc, att and attri features are
+rounded to bf16 as they are assembled and come out as CPU
+`torch.bfloat16` tensors: the card's machine has no `ml_dtypes`, and
+torch's f32 -> bf16 conversion rounds to nearest even as it does (the other
+keys stay numpy).
 """
 
 from __future__ import annotations
@@ -44,10 +48,39 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..vocab import CaptionVocab
 from .arrays import open_array, read_arrays
 from .nmt_dataset import NMTDataset
+
+FEAT_DTYPES = ("float32", "bfloat16")
+FEATURE_KEYS = ("fc_feats", "att_feats", "attri_feats")
+
+
+def to_bfloat16(a) -> torch.Tensor:
+    """An f32 array (or tensor) as bf16, bit for bit as
+    `a.astype(ml_dtypes.bfloat16)`: each value rounded to the nearest bf16,
+    ties to even, past the bf16 range to inf (torch's conversion), and a
+    NaN as the quiet NaN of its sign, 0x7fc0 / 0xffc0 (torch's CPU
+    conversion gives 0xffff)."""
+    t = (a if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(a, np.float32))).float()
+    out = t.to(torch.bfloat16)
+    nan = torch.isnan(t)
+    if bool(nan.any()):
+        sign = (t.view(torch.int32) >> 31) & 1
+        quiet = (sign * 0x8000 + 0x7FC0).to(torch.int16).view(torch.bfloat16)
+        out = torch.where(nan, quiet, out)
+    return out
+
+
+def as_f32_numpy(a) -> np.ndarray:
+    """A feature array of either kind (numpy, or a bf16 tensor) as f32
+    numpy (exact)."""
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
 
 
 class FeatureReader:
@@ -64,7 +97,12 @@ class FeatureReader:
                  use_box_cls_prob: int = 0, att_feat_size: int = 2048,
                  attri_feat_size: int = 1601, max_att_len: int = 196,
                  input_fc_h5: str = "", input_att_h5: str = "",
-                 in_memory: Optional[dict] = None):
+                 in_memory: Optional[dict] = None,
+                 feat_dtype: str = "float32"):
+        if feat_dtype not in FEAT_DTYPES:
+            raise ValueError(f"feat_dtype={feat_dtype!r}: one of "
+                             f"{FEAT_DTYPES}")
+        self.feat_dtype = feat_dtype
         self.images = images
         self.input_fc_dir = input_fc_dir
         self.input_att_dir = input_att_dir
@@ -200,12 +238,15 @@ class FeatureReader:
             att_feats[i, :L] = att[:L]
             att_masks[i, :L] = 1.0
 
-        return {"fc_feats": np.stack(fc_list).astype(np.float32,
-                                                     copy=False),
-                "att_feats": att_feats,
-                "attri_feats": np.stack(attri_list).astype(np.float32,
-                                                           copy=False),
-                "att_masks": att_masks}
+        out = {"fc_feats": np.stack(fc_list).astype(np.float32, copy=False),
+               "att_feats": att_feats,
+               "attri_feats": np.stack(attri_list).astype(np.float32,
+                                                          copy=False),
+               "att_masks": att_masks}
+        if self.feat_dtype == "bfloat16":
+            for k in FEATURE_KEYS:
+                out[k] = to_bfloat16(out[k])
+        return out
 
 
 class CaptionDataLoader:
@@ -223,10 +264,9 @@ class CaptionDataLoader:
                  host_id: int = 0, num_hosts: int = 1,
                  data_rank: int = 0, num_data_ranks: int = 1,
                  feat_dtype: str = "float32"):
-        if feat_dtype != "float32":
-            raise NotImplementedError(
-                f"feat_dtype={feat_dtype!r}: the port assembles features in "
-                "f32 until the compute dtype lands (ROADMAP A15)")
+        if feat_dtype not in FEAT_DTYPES:
+            raise ValueError(f"feat_dtype={feat_dtype!r}: one of "
+                             f"{FEAT_DTYPES}")
         self.batch_size = batch_size
         self.seq_per_img = seq_per_img
         self.use_box = use_box
@@ -257,7 +297,7 @@ class CaptionDataLoader:
             use_box_cls_prob=use_box_cls_prob, att_feat_size=att_feat_size,
             attri_feat_size=attri_feat_size, max_att_len=max_att_len,
             input_fc_h5=input_fc_h5, input_att_h5=input_att_h5,
-            in_memory=in_memory)
+            in_memory=in_memory, feat_dtype=feat_dtype)
 
         arrays = read_arrays(input_label_h5)
         self.labels = arrays["labels"].astype(np.int32)
@@ -355,7 +395,9 @@ class CaptionDataLoader:
     # -- batching --------------------------------------------------------------
     def _rep(self, x):
         # seq_per_img replication of the gts and of a whole batch's
-        # features
+        # features (bf16 ones are tensors)
+        if isinstance(x, torch.Tensor):
+            return x.repeat_interleave(self.seq_per_img, dim=0)
         return np.repeat(x, self.seq_per_img, axis=0)
 
     def plan_batch(self, split: str, batch_size: Optional[int] = None) -> dict:
@@ -447,7 +489,8 @@ class CaptionDataLoader:
         if rows is None:
             return {k: self._rep(v) for k, v in feats.items()}
         idx = np.arange(*rows) // self.seq_per_img
-        return {k: np.take(v, idx, axis=0) for k, v in feats.items()}
+        return {k: (v[torch.from_numpy(idx)] if isinstance(v, torch.Tensor)
+                    else np.take(v, idx, axis=0)) for k, v in feats.items()}
 
     def assemble_features(self, ixs: List[int], rows=None) -> dict:
         """The batch's features: `gather_features`, replicated (the rows

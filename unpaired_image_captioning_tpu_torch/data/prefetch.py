@@ -34,8 +34,10 @@ never imports torch; each worker forks from it and receives the loader's
 `FeatureReader` by pickle (its image list and feature settings, no HDF5
 handles: `reopen` opens them in the worker). Workers never touch
 `torch.cuda`, and
-what they send back is numpy only: arrays of at least `_SHM_MIN_BYTES`
-travel through POSIX shared memory, the rest through the result queue.
+what they send back is numpy only (bf16 features, `feat_dtype="bfloat16"`,
+as their 16-bit patterns, viewed as bf16 again by the parent): arrays of
+at least `_SHM_MIN_BYTES` travel through POSIX shared memory, the rest
+through the result queue.
 The parent's replication copies out of the shared memory, which it
 unlinks at once: the batches `get()` returns own their arrays.
 """
@@ -49,6 +51,7 @@ import threading
 from typing import Callable
 
 import numpy as np
+import torch
 
 
 class ThreadPrefetcher:
@@ -112,14 +115,19 @@ def _feature_worker(reader, task_q, result_q, stale_below):
             feats = reader.gather(ixs)
             out = {}
             for k, v in feats.items():
+                dtype = None
+                if isinstance(v, torch.Tensor):
+                    # bf16 features (feat_dtype="bfloat16") travel as their
+                    # 16-bit patterns: half the f32 bytes, as JAX's do
+                    dtype, v = "bfloat16", v.view(torch.int16).numpy()
                 if v is not None and v.nbytes >= _SHM_MIN_BYTES:
                     shm = shared_memory.SharedMemory(create=True,
                                                      size=v.nbytes)
                     np.ndarray(v.shape, v.dtype, buffer=shm.buf)[...] = v
-                    out[k] = ("shm", shm.name, v.shape, v.dtype)
+                    out[k] = ("shm", shm.name, v.shape, dtype or v.dtype)
                     shm.close()
                 else:
-                    out[k] = ("raw", v)
+                    out[k] = ("raw", v, dtype)
             result_q.put((seq, out))
         except Exception as e:
             result_q.put((seq, e))
@@ -181,10 +189,15 @@ class ProcessPrefetcher:
             if v[0] == "shm":
                 _, name, shape, dtype = v
                 shm = shared_memory.SharedMemory(name=name)
-                feats[k] = np.ndarray(shape, dtype, buffer=shm.buf)
+                bf16 = isinstance(dtype, str)
+                a = np.ndarray(shape, np.int16 if bf16 else dtype,
+                               buffer=shm.buf)
+                feats[k] = (torch.from_numpy(a).view(torch.bfloat16) if bf16
+                            else a)
                 shms.append(shm)
             else:
-                feats[k] = v[1]
+                feats[k] = (v[1] if v[2] is None
+                            else torch.from_numpy(v[1]).view(torch.bfloat16))
         feats = self.loader.replicate(feats, rows)
         for shm in shms:
             shm.close()

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 import torch.distributed
 
+from ..data.dataloader import to_bfloat16
 from ..losses.criterion import NMTStats, language_model_loss, nmt_loss
 from ..models.base import Features
 from ..pivot import pivot_translate, post_edit
@@ -109,13 +110,26 @@ def language_eval(dataset_type: str, preds: List[dict], model_id: str,
 
 
 def _upload(x, device, dtype=None) -> torch.Tensor:
-    # numpy from the caption loader, tensors already on the device from
-    # the raw-image loader
+    # numpy from the caption loader (bf16 tensors with its
+    # feat_dtype="bfloat16"), tensors already on the device from the
+    # raw-image loader; f64 becomes f32, bf16 stays
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     if dtype is not None:
         t = t.to(dtype)
-    elif t.is_floating_point():
+    elif t.dtype == torch.float64:
         t = t.to(torch.float32)
+    return t.to(device, non_blocking=True)
+
+
+def _upload_feature(x, device) -> torch.Tensor:
+    """A feature array on the device; on a card an f32 one is rounded to
+    bf16 on the host first, as JAX's eval_split does on a TPU (ROADMAP
+    A15)."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    if torch.device(device).type == "cuda" and t.dtype == torch.float32:
+        t = to_bfloat16(t)
     return t.to(device, non_blocking=True)
 
 
@@ -157,9 +171,9 @@ def eval_split(model, loader, *, split: str = "val", num_images: int = -1,
     while not done:
         data = loader.get_batch(split)
         feats = Features(
-            fc_feats=_upload(data["fc_feats"], device),
-            att_feats=_upload(data["att_feats"], device),
-            attri_feats=_upload(data["attri_feats"], device),
+            fc_feats=_upload_feature(data["fc_feats"], device),
+            att_feats=_upload_feature(data["att_feats"], device),
+            attri_feats=_upload_feature(data["attri_feats"], device),
             att_masks=_upload(data["att_masks"], device))
         # raw-image loaders carry no labels (all-zero masks): skip the XE
         # loss exactly like the reference (eval_utils.py:244-252 gates on

@@ -18,8 +18,18 @@ differentiable as the JAX custom VJPs are: the backward differentiates the
 plain version, recomputed from the saved inputs. `fused_att_lstm_att` has
 no gradient (the JAX function is jit only): it raises when an input
 requires one while grad mode is on. `launches`, `beams_launches` and
-`step_launches` count kernel launches. Any widths A, D and H are taken
-(float4 loads where they are multiples of 4, scalar ones otherwise).
+`step_launches` count kernel launches; `bf16_launches`,
+`beams_bf16_launches` and `step_bf16_launches` those of them with a bf16
+operand. Any widths A, D and H are taken (float4 loads where they are
+multiples of 4, scalar ones otherwise).
+
+Types (ROADMAP A15): every operand may be f32 or bf16, as the TPU kernels
+read each in its own type and compute in f32; the attentions' outputs take
+att_emb's type, the decode step's h1 / c1 the carry's and att2 att_emb's.
+The kernels convert as they read (`csrc/bf16.cuh`). Within the decode step
+h1_prev and c1_prev, w1 and b1, the four product tensors, and alpha1 and
+alpha2 are each of one type; any other mixture, or another type, raises
+naming it. A CUDA tensor is never converted to reach another entry.
 """
 
 from __future__ import annotations
@@ -36,6 +46,11 @@ from . import build
 launches = 0          # additive_attention
 beams_launches = 0    # additive_attention_beams
 step_launches = 0     # fused_att_lstm_att
+bf16_launches = 0          # of those, with a bf16 operand
+beams_bf16_launches = 0
+step_bf16_launches = 0
+
+_TYPES = (torch.float32, torch.bfloat16)
 
 
 def plan(b: int, n: int, a: int, d: int, k: int) -> dict:
@@ -48,12 +63,30 @@ def plan(b: int, n: int, a: int, d: int, k: int) -> dict:
     return dict(cluster=out[0], group=out[1], groups=out[2], smem=out[3])
 
 
+def _types(name: str, groups) -> int:
+    """The kernel's `types` bits: bit i set where group i is bf16. Each group
+    is a tuple of (key, tensor) of one type, f32 or bf16; raises, naming the
+    mixture, otherwise."""
+    bits = 0
+    for i, group in enumerate(groups):
+        kinds = {t.dtype for _, t in group}
+        if len(kinds) != 1 or not kinds <= set(_TYPES):
+            mix = ", ".join(f"{k} {t.dtype}" for g in groups for k, t in g)
+            raise ValueError(
+                f"{name}: no kernel entry for the mixture {mix}: "
+                + " / ".join("(" + ", ".join(k for k, _ in g) + ")"
+                             for g in groups if len(g) > 1)
+                + " each of one type, every operand float32 or bfloat16")
+        bits |= int(kinds == {torch.bfloat16}) << i
+    return bits
+
+
 def _check(name: str, dev, tensors: dict) -> None:
-    """Each tensor f32, on `dev`, of the given shape, contiguous."""
+    """Each tensor on `dev`, of the given shape, contiguous."""
     for key, (t, shape) in tensors.items():
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be f32 on {dev}, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} must be on {dev}, got "
+                             f"{t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -62,7 +95,7 @@ def _check(name: str, dev, tensors: dict) -> None:
 
 
 def _attention_fwd(p_att, att_h, alpha, mask, att_emb, beams: bool):
-    global launches, beams_launches
+    global launches, beams_launches, bf16_launches, beams_bf16_launches
     name = "additive_attention_beams" if beams else "additive_attention"
     if p_att.device.type == "cpu":
         plain = reference_attention_beams if beams else reference_attention
@@ -77,18 +110,25 @@ def _attention_fwd(p_att, att_h, alpha, mask, att_emb, beams: bool):
         "att_h": (att_h, (b, k, a) if beams else (b, a)),
         "alpha": (alpha, (a, 1)), "mask": (mask, (b, n)),
         "att_emb": (att_emb, (b, n, d))})
-    out = torch.empty((b, k, d) if beams else (b, d), dtype=torch.float32,
+    types = _types(name, [(("p_att", p_att),), (("att_h", att_h),),
+                          (("alpha", alpha),), (("mask", mask),),
+                          (("att_emb", att_emb),)])
+    types |= (types >> 4 & 1) << 5        # the output in att_emb's type
+    out = torch.empty((b, k, d) if beams else (b, d), dtype=att_emb.dtype,
                       device=p_att.device)
     lib = build.load()
     stream = torch.cuda.current_stream(p_att.device).cuda_stream
-    err = lib.additive_attention_f32(
+    err = lib.additive_attention_mixed(
         p_att.data_ptr(), att_h.data_ptr(), alpha.data_ptr(), mask.data_ptr(),
-        att_emb.data_ptr(), out.data_ptr(), b, n, a, d, k, k * d, stream)
-    build.check(err, "additive_attention_f32")
+        att_emb.data_ptr(), out.data_ptr(), b, n, a, d, k, k * d, types,
+        stream)
+    build.check(err, "additive_attention_mixed")
     if beams:
         beams_launches += 1
+        beams_bf16_launches += types != 0
     else:
         launches += 1
+        bf16_launches += types != 0
     return out
 
 
@@ -133,7 +173,7 @@ def fused_att_lstm_att(p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1,
     `ops.attention.att_lstm_att_plain`); returns (h1, c1, att2). Raises
     when an input requires a gradient while grad mode is on: it has no
     backward and must not return a tensor cut off from the graph."""
-    global step_launches
+    global step_launches, step_bf16_launches
     args = (p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1, b1, emb2_w,
             emb2_b, h2att2_w, h2att2_b, alpha1, alpha2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -159,17 +199,26 @@ def fused_att_lstm_att(p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1,
         "emb2_w": (emb2_w, (d, h)), "emb2_b": (emb2_b, (h,)),
         "h2att2_w": (h2att2_w, (h, a)), "h2att2_b": (h2att2_b, (a,)),
         "alpha1": (alpha1, (a, 1)), "alpha2": (alpha2, (a, 1))})
+    types = _types("fused_att_lstm_att", [
+        (("p_att", p_att),), (("att_emb", att_emb),), (("mask", mask),),
+        (("q1", q1),), (("h0d", h0d),),
+        (("h1_prev", h1_prev), ("c1_prev", c1_prev)),
+        (("w1", w1), ("b1", b1)),
+        (("emb2_w", emb2_w), ("emb2_b", emb2_b), ("h2att2_w", h2att2_w),
+         ("h2att2_b", h2att2_b)),
+        (("alpha1", alpha1), ("alpha2", alpha2))])
     dev = p_att.device
-    h1 = torch.empty((b, h), dtype=torch.float32, device=dev)
+    h1 = torch.empty((b, h), dtype=h1_prev.dtype, device=dev)
     c1 = torch.empty_like(h1)
-    att2 = torch.empty((b, d), dtype=torch.float32, device=dev)
-    ws = torch.empty((b * (2 * h + d + a),), dtype=torch.float32, device=dev)
+    att2 = torch.empty((b, d), dtype=att_emb.dtype, device=dev)
+    ws = torch.empty((b * (4 * h + d + a),), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * len(args))(*[t.data_ptr() for t in args])
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.att_lstm_att_f32(ptrs, h1.data_ptr(), c1.data_ptr(),
-                               att2.data_ptr(), ws.data_ptr(), b, n, a, d, h,
-                               stream)
-    build.check(err, "att_lstm_att_f32")
+    err = lib.att_lstm_att_mixed(ptrs, h1.data_ptr(), c1.data_ptr(),
+                                 att2.data_ptr(), ws.data_ptr(), b, n, a, d,
+                                 h, types, stream)
+    build.check(err, "att_lstm_att_mixed")
     step_launches += 1
+    step_bf16_launches += types != 0
     return h1, c1, att2

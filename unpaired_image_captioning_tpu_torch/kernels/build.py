@@ -40,8 +40,9 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
-    # x, h, c, w, b, h_out, c_out, B, D, H, G, stream
-    "lstm_cell_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, h, c, w, b, h_out, c_out, B, D, H, G, types (x, (w, b), (h, c)
+    # each f32 or bf16), stream
+    "lstm_cell_mixed": (_P,) * 7 + (_I,) * 5 + (_P,),
     # the same with plan()'s tile and no cluster (the cluster's yardstick)
     "lstm_cell_f32_unclustered": (_P,) * 7 + (_I,) * 4 + (_P,),
     # B, D, H, out int[4] (BN, cluster size, K rows a block, blocks)
@@ -84,20 +85,24 @@ SIGNATURES = {
     # stream
     "dec_layer_fwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P),
     "dec_layer_bwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P, _P),
-    # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, stream
-    "additive_attention_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, types (each
+    # operand f32 or bf16), stream
+    "additive_attention_mixed": (_P,) * 6 + (_I,) * 7 + (_P,),
     # B, N, A, D, K, out int[4] (cluster size, queries a group, groups,
     # shared memory bytes a block)
     "additive_attention_plan": (_I,) * 5 + (_P,),
-    # in (host array of 15 inputs), h1, c1, att2, ws, B, N, A, D, H, stream
-    "att_lstm_att_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # in (host array of 15 inputs), h1, c1, att2, ws, B, N, A, D, H, types
+    # (each input f32 or bf16), stream
+    "att_lstm_att_mixed": (_P,) * 5 + (_I,) * 6 + (_P,),
     # img, row_idx, row_w, col_idx, col_w, mean, std, out, B, H, W, C, Ho,
     # Wo, stream
     "image_front_end_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
-    # x, h0, c0, w, hs, cs, gates, T, B, H, G, stream
-    "lstm_chain_fwd_f32": (_P,) * 7 + (_I,) * 4 + (_P,),
-    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H, G, stream
-    "lstm_chain_bwd_f32": (_P,) * 10 + (_I,) * 4 + (_P,),
+    # x, h0, c0, w, hs, cs, gates, T, B, H, G, types (the carry, w each
+    # f32 or bf16), stream
+    "lstm_chain_fwd_mixed": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H, G, types,
+    # stream
+    "lstm_chain_bwd_mixed": (_P,) * 10 + (_I,) * 5 + (_P,),
     # B, H, out int64 [1] -> floats of the chain backward's workspace
     "lstm_chain_bwd_ws_f32": (_I, _I, _P),
     # H -> blocks of a chain launch (0: too wide)

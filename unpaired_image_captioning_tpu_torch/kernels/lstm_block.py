@@ -13,8 +13,15 @@ versions for CPU tensors and launch the kernels for CUDA tensors (f32,
 contiguous), raising on anything else, including a shape whose grid cannot
 be co-resident on the card; they never route a CUDA tensor to the plain
 version. Each kernel is one cooperative launch a chain: `fwd_launches` and
-`bwd_launches` count them. The backward's workspace (two buffers of every
+`bwd_launches` count them, `fwd_bf16_launches` and `bwd_bf16_launches`
+those with a bf16 operand. The backward's workspace (two buffers of every
 block's partial dh, sized by the CUDA source) is allocated here.
+
+Types (ROADMAP A15): x_contrib and the gates f32; the carry (h0, c0 and
+their cotangents) of one type and w_h2h, each f32 or bf16 (the cast points
+are `ops/lstm_block.py`'s). Any other mixture raises, naming it; a CUDA
+tensor is never converted to reach another entry. dW = hs_prev^T @ dgates
+is taken in f32 and returned in w_h2h's type, as JAX's is.
 """
 
 from __future__ import annotations
@@ -28,15 +35,38 @@ from . import build
 
 fwd_launches = 0
 bwd_launches = 0
+fwd_bf16_launches = 0
+bwd_bf16_launches = 0
+
+_TYPES = (torch.float32, torch.bfloat16)
 
 _TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge
 
 
+def _mixture(name: str, f32: dict, carry: dict, w) -> int:
+    """The kernel's `types` bits (0: the carry bf16, 1: w_h2h bf16); raises,
+    naming the mixture, where `f32` holds anything but f32, the carry
+    tensors differ in type, or a type is neither f32 nor bf16."""
+    kinds = {t.dtype for t in carry.values()}
+    if (any(t.dtype != torch.float32 for t in f32.values())
+            or len(kinds) != 1 or not kinds <= set(_TYPES)
+            or w.dtype not in _TYPES):
+        mix = ", ".join(f"{k} {t.dtype}" for k, t in
+                        list(f32.items()) + list(carry.items())
+                        + [("w_h2h", w)])
+        raise ValueError(
+            f"{name}: no kernel entry for the mixture {mix}: "
+            f"{', '.join(f32)} float32, the carry ({', '.join(carry)}) of "
+            "one type and w_h2h each float32 or bfloat16")
+    return (int(kinds == {torch.bfloat16})
+            | int(w.dtype == torch.bfloat16) << 1)
+
+
 def _check(name: str, tensors: dict, device) -> None:
     for key, (t, shape) in tensors.items():
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be f32 on {device}, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} must be on {device}, got "
+                             f"{t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -61,8 +91,8 @@ def _raise_on(err: int, name: str, shape) -> None:
 
 
 def chain_fwd(x_contrib, h0, c0, w_h2h, *, maxout: bool):
-    """(hs, cs [T, B, H], gates [T, B, G*H])."""
-    global fwd_launches
+    """(hs, cs [T, B, H] in the carry's type, gates [T, B, G*H] f32)."""
+    global fwd_launches, fwd_bf16_launches
     if x_contrib.device.type == "cpu":
         return chain_fwd_plain(x_contrib, h0, c0, w_h2h, maxout=maxout)
     if x_contrib.device.type != "cuda":
@@ -73,24 +103,26 @@ def chain_fwd(x_contrib, h0, c0, w_h2h, *, maxout: bool):
     _check("chain_fwd", {"x_contrib": (x_contrib, (t, b, gh)),
                          "h0": (h0, (b, hidden)), "c0": (c0, (b, hidden)),
                          "w_h2h": (w_h2h, (hidden, gh))}, x_contrib.device)
-    hs = torch.empty((t, b, hidden), dtype=torch.float32,
-                     device=x_contrib.device)
+    types = _mixture("chain_fwd", {"x_contrib": x_contrib},
+                     {"h0": h0, "c0": c0}, w_h2h)
+    hs = torch.empty((t, b, hidden), dtype=h0.dtype, device=x_contrib.device)
     cs = torch.empty_like(hs)
     gates = torch.empty_like(x_contrib)
     lib = build.load()
     stream = torch.cuda.current_stream(x_contrib.device).cuda_stream
-    err = lib.lstm_chain_fwd_f32(
+    err = lib.lstm_chain_fwd_mixed(
         x_contrib.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
         hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b, hidden, g,
-        stream)
-    _raise_on(err, "lstm_chain_fwd_f32", (t, b, gh))
+        types, stream)
+    _raise_on(err, "lstm_chain_fwd_mixed", (t, b, gh))
     fwd_launches += 1
+    fwd_bf16_launches += types != 0
     return hs, cs, gates
 
 
 def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
-    """(dgates [T, B, G*H], dh0, dc0 [B, H])."""
-    global bwd_launches
+    """(dgates [T, B, G*H] f32, dh0, dc0 [B, H] in the carry's type)."""
+    global bwd_launches, bwd_bf16_launches
     if gates.device.type == "cpu":
         return chain_bwd_plain(gates, cs, c0, dhs, dcs, w_h2h, maxout=maxout)
     if gates.device.type != "cuda":
@@ -103,6 +135,8 @@ def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
                          "c0": (c0, (b, hidden)), "dhs": (dhs, seq),
                          "dcs": (dcs, seq), "w_h2h": (w_h2h, (hidden, gh))},
            gates.device)
+    types = _mixture("chain_bwd", {"gates": gates},
+                     {"cs": cs, "c0": c0, "dhs": dhs, "dcs": dcs}, w_h2h)
     dgates = torch.empty_like(gates)
     dh0 = torch.empty_like(c0)
     dc0 = torch.empty_like(c0)
@@ -112,12 +146,13 @@ def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
     ws = torch.empty((max(n.value, 1),), dtype=torch.float32,
                      device=gates.device)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
-    err = lib.lstm_chain_bwd_f32(
+    err = lib.lstm_chain_bwd_mixed(
         gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
         dcs.data_ptr(), w_h2h.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), ws.data_ptr(), t, b, hidden, g, stream)
-    _raise_on(err, "lstm_chain_bwd_f32", (t, b, gh))
+        dc0.data_ptr(), ws.data_ptr(), t, b, hidden, g, types, stream)
+    _raise_on(err, "lstm_chain_bwd_mixed", (t, b, gh))
     bwd_launches += 1
+    bwd_bf16_launches += types != 0
     return dgates, dh0, dc0
 
 
@@ -138,9 +173,10 @@ class _Chain(torch.autograd.Function):
                                      maxout=ctx.maxout)
         dw = None
         if ctx.needs_input_grad[3]:
-            hs_prev = torch.cat([h0[None], hs[:-1]], dim=0)
+            hs_prev = torch.cat([h0[None], hs[:-1]], dim=0).float()
             dw = torch.matmul(hs_prev.reshape(-1, hs.shape[-1]).t(),
-                              dgates.reshape(-1, gates.shape[-1]))
+                              dgates.reshape(-1, gates.shape[-1])
+                              ).to(w_h2h.dtype)
         return dgates, dh0, dc0, dw, None
 
 

@@ -31,6 +31,18 @@ backward, written out by hand, recomputes the [B, N, A] tanh once: as
 under the JAX package's `jax.checkpoint`, that tensor is not kept for the
 backward.
 
+The compute dtype (ROADMAP A15) follows the JAX package's cast points:
+every `linear` returns its input's type, so bf16 features through f32
+weights give a bf16 memory and a bf16 state (`h0` takes the fc features'
+type); the attention computes its scores and softmax in f32 and casts the
+weights to att_emb's type before the weighted sum (the kernels keep them in
+f32: the two routes round at other places, as in JAX); the heads
+log-softmax in f32; the Att2in and AdaAtt cells run their gates in f32 and
+store h and c in the carry's (AdaAtt: the word embedding's) type. Where an
+operand of the plain single-query attention is not f32 its gradient is
+autograd's, under `torch.utils.checkpoint` (the recompute `jax.checkpoint`
+gives), not the f32 hand-written backward below.
+
 `use_bn` BatchNorm has torch's semantics: batch moments over the real
 slots in training (the forward stashes them in `aux_out` for
 `apply_bn_updates`), the running statistics at inference, and
@@ -45,6 +57,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import additive_attention as aak
@@ -52,7 +65,7 @@ from ..ops import rnn
 from ..ops.masking import masked_softmax
 from ..parallel.mesh import data_parallel_active, global_sum
 from .base import (CaptionDecoder, Features, dropout, embedding_init,
-                   init_embedding, init_module, linear, linear_init)
+                   init_embedding, init_module, linear, linear_init, mm)
 
 
 # ---------------------------------------------------------------------------
@@ -106,11 +119,12 @@ def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks,
                 p_att.contiguous(), att_hk.contiguous(), p["alpha_net"].w,
                 _mask_or_ones(att_masks, p_att), att_emb.contiguous())
             return out.reshape(bq, -1)
-        dot = torch.tanh(p_att[:, None, :, :] + att_hk[:, :, None, :])  # [B,K,N,A]
+        dot = torch.tanh(p_att[:, None, :, :].float()
+                         + att_hk[:, :, None, :].float())           # [B,K,N,A]
         scores = linear(p["alpha_net"], dot)[..., 0]                  # [B,K,N]
         mask = att_masks[:, None, :] if att_masks is not None else None
-        weight = masked_softmax(scores, mask)
-        out = torch.einsum("bkn,bnd->bkd", weight, att_emb)
+        weight = masked_softmax(scores.float(), mask)
+        out = torch.einsum("bkn,bnd->bkd", weight.to(att_emb.dtype), att_emb)
         return out.reshape(bq, -1)
     if TRAIN_KERNEL if training else SINGLE_KERNEL:
         return aak.additive_attention(
@@ -120,16 +134,19 @@ def attention_apply(p: nn.ModuleDict, h, att_emb, p_att, att_masks,
             att_emb)
     if not torch.is_grad_enabled():
         return _attend(*args)
+    if any(t.dtype != torch.float32 for t in args if t is not None):
+        return torch.utils.checkpoint.checkpoint(_attend, *args,
+                                                 use_reentrant=False)
     return _RecomputedAttend.apply(*args)
 
 
 def _attend(alpha_w, alpha_b, p_att, att_h, att_masks, att_emb):
     """The plain single-query attention: [B, N, A] tanh, scores, masked
-    softmax, weighted sum."""
-    dot = torch.tanh(p_att + att_h[:, None, :])                     # [B,N,A]
-    scores = (dot @ alpha_w + alpha_b)[..., 0]                      # [B,N]
+    softmax (all f32), weighted sum in att_emb's type."""
+    dot = torch.tanh(p_att.float() + att_h.float()[:, None, :])     # [B,N,A]
+    scores = (mm(dot, alpha_w) + alpha_b.float())[..., 0]           # [B,N]
     weight = masked_softmax(scores, att_masks)
-    return torch.einsum("bn,bnd->bd", weight, att_emb)
+    return torch.einsum("bn,bnd->bd", weight.to(att_emb.dtype), att_emb)
 
 
 class _RecomputedAttend(torch.autograd.Function):
@@ -215,10 +232,11 @@ class BatchNorm(nn.Module):
 def _masked_mean_var(x, mask):
     """Per-feature mean and biased variance over the real rows only (the
     reference feeds BN through pack_wrapper, so padded att slots never
-    count). Returns (mean, var, n). Inside the trainer's N-rank step the
-    moments are the global batch's (`parallel.mesh.global_sum`, two
-    passes as on one device)."""
-    flat = x.reshape(-1, x.shape[-1])
+    count). Returns (mean, var, n), in f32 whatever x's type, as JAX casts
+    (in torch the 0-d f32 count would not widen a bf16 sum).
+    Inside the trainer's N-rank step the moments are the global batch's
+    (`parallel.mesh.global_sum`, two passes as on one device)."""
+    flat = x.reshape(-1, x.shape[-1]).float()
     if data_parallel_active():
         m = (torch.ones_like(flat[:, :1]) if mask is None
              else (mask.reshape(-1, 1) > 0).to(flat.dtype))
@@ -254,8 +272,8 @@ def batch_norm(p: BatchNorm, x, training: bool = True, *, mask=None,
             aux_out[key] = (mean.detach(), unbiased.detach())
     else:
         mean, var = p.mean, p.var
-    norm = (x - mean) * torch.rsqrt(var + BN_EPS)
-    return norm * p.scale + p.offset
+    norm = (x.float() - mean) * torch.rsqrt(var + BN_EPS)
+    return (norm * p.scale + p.offset).to(x.dtype)
 
 
 @torch.no_grad()
@@ -279,12 +297,14 @@ def calibrate_batch_norm(model: nn.Module, loader, *, split: str = "train",
     and att_embed. A model without BatchNorm is left alone."""
     import numpy as np
 
+    from ..data.dataloader import as_f32_numpy
+
     if not hasattr(model, "bn0"):
         return model
     rows = []
     for _ in range(n_batches):
         data = loader.get_batch(split)
-        att = np.asarray(data["att_feats"], np.float32)
+        att = as_f32_numpy(data["att_feats"])      # bf16 loaders too
         rows.append(att[np.asarray(data["att_masks"]) > 0])
     flat = np.concatenate(rows, axis=0)
     dev = model.bn0.mean.device
@@ -376,6 +396,15 @@ class AttModel(CaptionDecoder):
         # image per step instead of once per beam
         return ("att", "p_att", "masks")
 
+    def decode_ctx(self, ctx):
+        """Before a decode loop (sample, sample_beam only): a bf16 attention
+        memory `p_att` is widened to f32 once (exact), as the JAX package
+        does (`models/att.py:320-336`): the attention computes its scores
+        in f32. The teacher-forced forward keeps it bf16."""
+        if ctx["p_att"].dtype == torch.bfloat16:
+            return {**ctx, "p_att": ctx["p_att"].float()}
+        return ctx
+
     # ---- decode interface ----
     def make_decoder(self, feats: Features, *, training: bool = False,
                      generator: Optional[torch.Generator] = None,
@@ -420,7 +449,7 @@ class AttModel(CaptionDecoder):
     def head(self, h, *, training: bool = False,
              generator: Optional[torch.Generator] = None):
         logits = self._logit(h, training, generator)
-        return torch.log_softmax(logits, dim=-1)
+        return torch.log_softmax(logits.float(), dim=-1)
 
     # ---- to implement per family ----
     def extra_init(self, device) -> None:
@@ -472,13 +501,21 @@ class TopDownModel(AttModel):
 # ---------------------------------------------------------------------------
 
 def _maxout_gates_step(gates, prev_c, hsz: int):
-    """The maxout cell's update from its 5H gates (i, f, o, m1, m2)."""
+    """The maxout cell's update from its 5H gates (i, f, o, m1, m2), in f32;
+    h' and c' in the carry's type."""
+    dtype = prev_c.dtype
+    gates, prev_c = gates.float(), prev_c.float()
     sig = torch.sigmoid(gates[..., :3 * hsz])
     in_t = torch.maximum(gates[..., 3 * hsz:4 * hsz],
                          gates[..., 4 * hsz:5 * hsz])
     c_new = sig[..., hsz:2 * hsz] * prev_c + sig[..., :hsz] * in_t
     h_new = sig[..., 2 * hsz:3 * hsz] * torch.tanh(c_new)
-    return h_new, c_new
+    return h_new.to(dtype), c_new.to(dtype)
+
+
+def _cell_gates(cell, xt, prev_h):
+    """[xt | prev_h] @ w + b in f32 (`preferred_element_type=f32`)."""
+    return torch.cat([xt, prev_h], -1).float() @ cell.w.float() + cell.b.float()
 
 
 class Att2in2Model(AttModel):
@@ -508,11 +545,11 @@ class Att2in2Model(AttModel):
         })
 
     def _gates(self, p, xt, prev_h, att_res):
-        gates = torch.cat([xt, prev_h], -1) @ p["cell"].w + p["cell"].b
+        gates = _cell_gates(p["cell"], xt, prev_h)
         # the attention term is added to the maxout (in_transform) chunks
         return torch.cat([gates[..., :3 * self.rnn_size],
                           gates[..., 3 * self.rnn_size:]
-                          + linear(p["a2c"], att_res)], -1)
+                          + linear(p["a2c"], att_res).float()], -1)
 
     def core_step(self, xt, ctx, state, *, training, generator):
         p = self.core
@@ -557,8 +594,8 @@ class Att2all2Model(Att2in2Model):
         })
 
     def _gates(self, p, xt, prev_h, att_res):
-        gates = torch.cat([xt, prev_h], -1) @ p["cell"].w + p["cell"].b
-        return gates + linear(p["a2h"], att_res)
+        return (_cell_gates(p["cell"], xt, prev_h)
+                + linear(p["a2h"], att_res).float())
 
 
 # ---------------------------------------------------------------------------
@@ -617,14 +654,15 @@ class AdaAttModel(AttModel):
             else:
                 x = dropout(hs[-1], rate, training, generator)
                 i2h = linear(p["i2h"][layer - 1], x)
-            gates = i2h + linear(p["h2h"][layer], prev_h)
+            gates = (i2h + linear(p["h2h"][layer], prev_h)).float()
             sig = torch.sigmoid(gates[..., :3 * hsz])
             if self.use_maxout:
                 in_t = torch.maximum(gates[..., 3 * hsz:4 * hsz],
                                      gates[..., 4 * hsz:5 * hsz])
             else:
                 in_t = torch.tanh(gates[..., 3 * hsz:4 * hsz])
-            c_new = sig[..., hsz:2 * hsz] * prev_c + sig[..., :hsz] * in_t
+            c_new = (sig[..., hsz:2 * hsz] * prev_c.float()
+                     + sig[..., :hsz] * in_t)
             tanh_c = torch.tanh(c_new)
             h_new = sig[..., 2 * hsz:3 * hsz] * tanh_c
             if layer == n_l - 1:
@@ -632,14 +670,16 @@ class AdaAttModel(AttModel):
                     ri = linear(p["r_w2h"], x) + linear(p["r_v2h"], ctx["fc"])
                 else:
                     ri = linear(p["r_i2h"], x)
-                n5 = ri + linear(p["r_h2h"], prev_h)
+                n5 = (ri + linear(p["r_h2h"], prev_h)).float()
                 fake_region = torch.sigmoid(n5) * tanh_c
-            hs.append(h_new)
-            cs.append(c_new)
+            # the state takes the word embedding's type, as in JAX
+            hs.append(h_new.to(xt.dtype))
+            cs.append(c_new.to(xt.dtype))
         # the JAX package's order of draws: top_h, the sentinel, then the
         # two attention heads, then the output
         top_h = dropout(hs[-1], rate, training, generator)
-        fake_region = dropout(fake_region, rate, training, generator)
+        fake_region = dropout(fake_region.to(xt.dtype), rate, training,
+                              generator)
 
         # sentinel attention over [fake_region; att slots]
         fr = dropout(torch.relu(linear(p["fr_linear"], fake_region)), rate,
@@ -667,7 +707,7 @@ class AdaAttModel(AttModel):
         if masks is not None:
             masks = torch.cat([torch.ones_like(masks[:, :1]), masks],
                               1)[:, None, :]                       # [B,1,1+N]
-        pi = masked_softmax(scores, masks)
+        pi = masked_softmax(scores.float(), masks).to(ctx["att"].dtype)
         vis = (pi[..., :1] * fr_k
                + torch.einsum("bkn,bnd->bkd", pi[..., 1:], ctx["att"]))
         atten_out = vis.reshape(ho.shape[0], -1) + ho

@@ -89,9 +89,27 @@ def linear_init(in_dim: int, out_dim: int, *, bias: bool = True,
     return Linear(in_dim, out_dim, bias=bias, scale=scale, device=device)
 
 
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as `jnp.dot(x, w, preferred_element_type=f32)` computes it:
+    operands of one type multiply in that type (bf16 products accumulate in
+    f32); of two types they are promoted to f32 first, where torch.matmul
+    would refuse the mixture."""
+    if x.dtype == w.dtype:
+        return x @ w
+    return x.float() @ w.float()
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`jnp.dot(x, w, preferred_element_type=f32)` left in f32: f32 products
+    of the operands' values (exact for bf16), summed in f32."""
+    return x.float() @ w.float()
+
+
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
-    return y if p.b is None else y + p.b
+    """The JAX package's `linear`: the product in x's type, then the bias in
+    x's type (bf16 features through f32 weights come out bf16)."""
+    y = mm(x, p.w).to(x.dtype)
+    return y if p.b is None else y + p.b.to(x.dtype)
 
 
 def embedding_init(vocab: int, dim: int, *, device=None) -> nn.Parameter:
@@ -187,9 +205,9 @@ class CaptionDecoder(nn.Module):
         raise NotImplementedError
 
     def decode_ctx(self, ctx):
-        """Hook for one-time ctx transforms before a decode loop. The TPU
-        package casts a bf16 attention memory to f32 here; the port keeps
-        f32 throughout, so it is the identity."""
+        """Hook for one-time ctx transforms before a decode loop (sample,
+        sample_beam only); the attention family's widens a bf16 memory
+        (`models/att.py`). The identity here."""
         return ctx
 
     @property

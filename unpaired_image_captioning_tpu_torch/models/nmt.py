@@ -44,8 +44,8 @@ from .. import constants as C
 from ..ops import rnn
 from ..ops.attention_transforms import TRANSFORMS
 from ..ops.masking import length_mask
-from .base import (dropout as _dropout, init_module, linear, linear_init,
-                   resolve_device)
+from .base import (dot_f32, dropout as _dropout, init_module, linear,
+                   linear_init, resolve_device)
 from .transformer import positional_encoding
 
 PE_ROWS = 5000
@@ -109,9 +109,9 @@ def embed_tokens(p: Embeddings, ids: torch.Tensor, *,
         pe = _pe_table(emb.shape[-1], str(emb.device))
         if pos_offset is None:
             t = ids.shape[-1] if ids.dim() > 1 else 1
-            emb = emb + pe[:t][None]
+            emb = emb + pe[:t][None].to(emb.dtype)
         else:
-            emb = emb + pe[pos_offset.long()]
+            emb = emb + pe[pos_offset.long()].to(emb.dtype)
         emb = _dropout(emb, dropout, training, generator)
     return emb
 
@@ -205,7 +205,7 @@ class NMTEncoder(nn.Module):
         h = torch.cat([context, emb_x], dim=-1)
         h = torch.relu(linear(self.fertility_linear, h))
         h = torch.relu(linear(self.fertility_linear_2, h))
-        return 1.0 + torch.exp(linear(self.fertility_out, h)[..., 0])
+        return 1.0 + torch.exp(dot_f32(h, self.fertility_out.w)[..., 0])
 
     def apply(self, src_ids, lengths, *, training: bool = False,
               generator: Optional[torch.Generator] = None, src_feats=None,
@@ -344,10 +344,11 @@ def global_attention_apply(p: nn.ModuleDict, query, context, *,
         q = linear(p["linear_in"], query)
         scores = torch.einsum("bsd,bkd->bks", context, q.reshape(bm, k, -1))
     else:
-        wq = linear(p["linear_query"], query).reshape(bm, k, -1)
-        uh = linear(p["linear_context"], context)
+        # f32 products, as JAX's preferred_element_type leaves them
+        wq = dot_f32(query, p["linear_query"].w).reshape(bm, k, -1)
+        uh = dot_f32(context, p["linear_context"].w)
         wquh = torch.tanh(uh[:, None, :, :] + wq[:, :, None, :])
-        scores = linear(p["v"], wquh)[..., 0]
+        scores = dot_f32(wquh, p["v"].w)[..., 0]
     scores = scores.reshape(bq, -1).float()
     if (c_attn != 0.0 and upper_bounds is not None
             and "constrained" in attn_transform):
@@ -358,11 +359,12 @@ def global_attention_apply(p: nn.ModuleDict, query, context, *,
         mask = mask.repeat_interleave(k, dim=0)
     attn = TRANSFORMS[attn_transform](scores, mask=mask,
                                       upper_bounds=upper_bounds)
-    weighted = torch.einsum("bks,bsd->bkd", attn.reshape(bm, k, -1),
+    weighted = torch.einsum("bks,bsd->bkd",
+                            attn.reshape(bm, k, -1).to(context.dtype),
                             context).reshape(bq, -1)
     if attn_type == "dotprod":
-        out = torch.tanh(linear(p["linear_out"],
-                                torch.cat([weighted, query], -1)))
+        out = torch.tanh(dot_f32(torch.cat([weighted, query], -1),
+                                 p["linear_out"].w)).to(query.dtype)
     else:
         out = weighted
     return out, attn
@@ -491,8 +493,9 @@ class NMTDecoder(nn.Module):
             state["c"].transpose(0, 1), generator=gen, dropout=self.dropout)
         ctx_in = context
         if self.coverage_attn and self.coverage_feed:
-            ctx_in = torch.tanh(context + linear(self.linear_cover,
-                                                 state["coverage"][..., None]))
+            ctx_in = torch.tanh(context + linear(
+                self.linear_cover, state["coverage"][..., None]).to(
+                    context.dtype))
         ub = state.get("upper_bounds")
         if ub is not None:
             # the reference re-pins the <SINK> bound to 100 every step
@@ -506,9 +509,8 @@ class NMTDecoder(nn.Module):
         if self.context_gate is not None:
             # the gate reads the input-fed embedding emb_in
             g = self.gate
-            z = torch.sigmoid(linear(g["gate"],
-                                     torch.cat([emb_in, rnn_out, attn_out],
-                                               -1)))
+            z = torch.sigmoid(linear(g["gate"], torch.cat(
+                [emb_in, rnn_out, attn_out], -1)).float()).to(emb.dtype)
             src_p = linear(g["source_proj"], attn_out)
             tgt_p = linear(g["target_proj"], torch.cat([emb_in, rnn_out], -1))
             if self.context_gate == "source":
@@ -656,9 +658,11 @@ class NMTModel(nn.Module):
         return self
 
     def generator_logits(self, output: torch.Tensor) -> torch.Tensor:
+        """f32 logits: the product in the output's type, then widened (the
+        shared table's product in f32), as JAX's generator_logits."""
         if self.share_decoder_embeddings:
-            return output @ self.tgt_embedding().t() + self.generator.b
-        return linear(self.generator, output)
+            return dot_f32(output, self.tgt_embedding().t()) + self.generator.b
+        return linear(self.generator, output).float()
 
     @torch.no_grad()
     def load_pretrained_embeddings(self, *, enc_path: str = "",

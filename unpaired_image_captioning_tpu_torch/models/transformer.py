@@ -338,7 +338,11 @@ class TransformerModel(CaptionDecoder):
     def encode(self, feats: Features, *, training: bool = False,
                generator: Optional[torch.Generator] = None,
                aux_out: Optional[dict] = None):
-        att = feats.att_feats
+        # bf16 features (the trainer's host rounding, the card's serving
+        # and eval) are widened to the weights' type before att_embed, so
+        # the transformer kernels, which have no bf16 entry yet, see f32
+        # (ROADMAP A15); JAX's `linear` keeps the features' type here
+        att = feats.att_feats.to(self.att_embed.w.dtype)
         if self.use_bn:
             att = batch_norm(self.bn0, att, training, mask=feats.att_masks,
                              aux_out=aux_out, key="bn0")

@@ -258,10 +258,12 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     """`x` summed over the data ranks of the enclosing `data_parallel`
     block (differentiably where `x` needs a gradient); `x` itself outside
     one. The criteria divide their local sums by such global counts, so
-    the ranks' losses add up to the global batch's."""
+    the ranks' losses add up to the global batch's. The sum is taken in
+    f32 whatever x's type (the compute dtype's bf16 steps too)."""
     group = _DATA_GROUP.get()
     if group is None:
         return x
+    x = x.float()
     if x.requires_grad:
         return _AllReduceSum.apply(x, group)
     return all_reduce_(x.detach().clone(), group)

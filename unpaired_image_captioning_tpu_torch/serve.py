@@ -5,8 +5,10 @@ models (counterpart of `unpaired_image_captioning_tpu/serve.py`).
 a power-of-two bucket (copies of the first row) and decodes them on one
 thread; `make_http_server` is the stdlib HTTP front end (`POST /caption`,
 `POST /pivot`, `GET /stats`, `GET /healthz`). Both are copies of the JAX
-module's. Each micro-batch is uploaded to the models' device as f32 and
-decoded under `torch.inference_mode()` on the batcher's thread.
+module's. Each micro-batch is uploaded to the models' device and decoded
+under `torch.inference_mode()` on the batcher's thread. On a card the fc
+and att features are rounded to bf16 on the host before the upload, as the
+JAX services do on a TPU (ROADMAP A15); on the CPU they stay f32.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from .data.dataloader import to_bfloat16
 from .models.base import Features
 from .pivot import pivot_translate, post_edit
 from .utils.text import decode_sequence
@@ -97,10 +100,14 @@ class MicroBatcher:
 
 
 def _features(stacked: dict, device: torch.device) -> Features:
-    def up(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    def up(a, feature=False):
+        t = torch.as_tensor(np.asarray(a, np.float32))
+        if feature and device.type == "cuda":
+            t = to_bfloat16(t)           # on the host, as ml_dtypes rounds
+        return t.to(device)
 
-    return Features(fc_feats=up(stacked["fc"]), att_feats=up(stacked["att"]),
+    return Features(fc_feats=up(stacked["fc"], True),
+                    att_feats=up(stacked["att"], True),
                     att_masks=up(stacked["masks"]))
 
 

@@ -78,6 +78,19 @@ captioner's update (`models/att.py::apply_bn_updates`), as the JAX step
 does; the running `mean` / `var` are parameters there too (see the
 model's doc). StackCap's forward returns three heads: the XE loss sums
 them, and the SCST recompute reads the last.
+
+The compute dtype (`cfg.dtype`, ROADMAP A15), as the JAX trainer applies
+it. With "bfloat16" the three feature keys of every batch are rounded to
+bf16 on the host before the upload, on any device (JAX
+`train/trainer.py:289-298`), so the models carry bf16 features and a bf16
+LSTM state. On a card the step also computes with bf16 copies of the f32
+master parameters (`_compute_params`, JAX's `_cast_compute` on a TPU): each
+f32 parameter of both models is replaced by one `p.to(bfloat16)` for the
+forward, the SCST sample and the backward, so the gradients reach the f32
+masters through the cast; the optimizer state, the clip and the update stay
+f32, and the `use_bn` moments (taken in f32) are blended into the f32
+leaves. The transformer kernels have no bf16 entry yet, so a transformer
+captioner or NMT with "bfloat16" on a card raises at construction.
 """
 
 from __future__ import annotations
@@ -95,6 +108,7 @@ import torch.distributed as dist
 from .. import models as model_zoo
 from ..losses.criterion import (kld_loss, language_model_loss, nmt_loss,
                                 reward_loss, weight_trans_loss)
+from ..data.dataloader import FEATURE_KEYS, to_bfloat16
 from ..losses.rewards import get_self_critical_reward
 from ..models.att import apply_bn_updates
 from ..models.base import Features, resolve_device
@@ -110,6 +124,32 @@ from .optimizer import DualOptim, global_sq_norm
 _BATCH_KEYS = ("fc_feats", "att_feats", "attri_feats", "att_masks", "labels",
                "masks", "gts", "gts_masks")
 _NMT_KEYS = ("src", "tgt", "lengths", "src_feats")
+_DTYPES = ("float32", "bfloat16")
+
+
+@contextlib.contextmanager
+def bf16_params(*models):
+    """Within the block every f32 parameter of `models` is one bf16 copy,
+    `p.to(torch.bfloat16)` (JAX's `_cast_compute` of the tree): a tied
+    parameter's copy serves every module that holds it, so its gradient
+    sums in bf16 and reaches the master once, as a cast leaf's does in
+    JAX. The copies are differentiable, so `.grad` lands on the f32
+    masters; they are put back on leaving."""
+    copies, swapped = {}, []
+    for model in models:
+        for mod in model.modules():
+            for name, p in list(mod._parameters.items()):
+                if p is None or p.dtype != torch.float32:
+                    continue
+                if id(p) not in copies:
+                    copies[id(p)] = p.to(torch.bfloat16)
+                swapped.append((mod, name, p))
+                mod._parameters[name] = copies[id(p)]
+    try:
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
 
 
 class Trainer:
@@ -119,6 +159,11 @@ class Trainer:
                  df_table: Optional[DfTable] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"dtype={cfg.dtype!r}: the compute dtype is one "
+                             f"of {_DTYPES}")
+        # JAX casts its compute on a TPU only; the port on the card only
+        self.cast = cfg.dtype == "bfloat16" and self.device.type == "cuda"
         self.mesh = mesh
         self.data_group, self.data_rank, self.data_size = axis(mesh, "data")
         # the rank that writes checkpoints and JSON sidecars
@@ -132,6 +177,13 @@ class Trainer:
         self.nmt_model = (make_nmt_model(cfg, device=self.device)
                           .init_params(init)
                           if getattr(cfg, "nmt_src_vocab_size", 0) else None)
+        if self.cast and (isinstance(self.i2t_model, TransformerModel)
+                          or isinstance(self.nmt_model, TransformerNMTModel)):
+            raise NotImplementedError(
+                "dtype='bfloat16' on the card: the transformer kernels have "
+                "no bf16 entry yet (B5 mha_train, B6 / B7 layer_train, B8 "
+                "ln_train, and B4 transformer_decode for the SCST sample; "
+                "ROADMAP A15): train the transformer with dtype='float32'")
         if self.nmt_model is not None and (
                 getattr(cfg, "pre_word_vecs_enc", "")
                 or getattr(cfg, "pre_word_vecs_dec", "")):
@@ -220,17 +272,32 @@ class Trainer:
 
     def _batch(self, data: Dict[str, Any], keys=_BATCH_KEYS
                ) -> Dict[str, torch.Tensor]:
+        """The batch on the device: f64 arrays as f32 (JAX's canonical
+        float), ids as int64, and with `cfg.dtype` "bfloat16" the f32
+        features rounded to bf16 on the host before the upload, bit for
+        bit as ml_dtypes rounds (`data.dataloader.to_bfloat16`)."""
         out = {}
         for k in keys:
             if data.get(k) is None:
                 continue
-            v = torch.as_tensor(np.asarray(data[k]))
-            if v.is_floating_point():
+            v = data[k]
+            v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+            if v.dtype == torch.float64:
                 v = v.to(torch.float32)
-            elif v.dtype != torch.bool:
+            elif not v.is_floating_point() and v.dtype != torch.bool:
                 v = v.to(torch.int64)       # ids: labels, gts, NMT batches
+            if (self.cfg.dtype == "bfloat16" and k in FEATURE_KEYS
+                    and v.dtype == torch.float32):
+                v = to_bfloat16(v)
             out[k] = v.to(self.device, non_blocking=True)
         return out
+
+    def _compute_params(self):
+        """`bf16_params` of both models on the cast route (`self.cast`);
+        nothing otherwise."""
+        if not self.cast:
+            return contextlib.nullcontext()
+        return bf16_params(*(m for _, m in self._models() if m is not None))
 
     def _update(self, params, tx, state, lr: float, shards=None):
         """One transform step of `params` from their .grad (zeros where
@@ -375,9 +442,41 @@ class Trainer:
         for params in (i2t_params, nmt_params):
             for p in (params or {}).values():
                 p.grad = None
+        # use_bn: the XE forward collects the batch moments, and they are
+        # blended into the running statistics after the update
+        with self._compute_params():
+            total, bn_aux = self._losses(data, sc_flag, train_i2t, train_nmt,
+                                         ss_prob, metrics)
+            if total is not None:
+                total.backward()
+        if total is not None:
+            with torch.no_grad():
+                if train_i2t:
+                    self.optim.i2t_state = self._update(
+                        i2t_params, self.optim.i2t_tx, self.optim.i2t_state,
+                        lr_i2t, self.shards.get("i2t"))
+                    if bn_aux:
+                        apply_bn_updates(self.i2t_model, bn_aux)
+                if train_nmt:
+                    self.optim.nmt_state = self._update(
+                        nmt_params, self.optim.nmt_tx, self.optim.nmt_state,
+                        lr_nmt)
+            for params in (i2t_params, nmt_params):
+                for p in (params or {}).values():
+                    p.grad = None
+            metrics["total_loss"] = total
+        # each rank's share of the additive losses -> the global batch's
+        for k in ("i2t_loss", "nmt_loss", "nmt_kld", "total_loss",
+                  "avg_reward"):
+            if k in metrics:
+                metrics[k] = global_sum(metrics[k].detach())
+        return metrics
+
+    def _losses(self, data, sc_flag, train_i2t, train_nmt, ss_prob,
+                metrics: Dict[str, torch.Tensor]):
+        """The step's forward: (the summed loss or None, the use_bn moments
+        or None), filling `metrics`."""
         terms = []
-        # use_bn: the XE forward collects the batch moments here, and they
-        # are blended into the running statistics after the update
         bn_aux = None
         if train_i2t:
             batch = self._batch(data)
@@ -412,30 +511,9 @@ class Trainer:
             terms.append(i2t_l)
         if train_nmt:
             terms.append(self._nmt_terms(data, metrics))
-        if terms:
-            total = sum(terms[1:], terms[0])
-            total.backward()
-            with torch.no_grad():
-                if train_i2t:
-                    self.optim.i2t_state = self._update(
-                        i2t_params, self.optim.i2t_tx, self.optim.i2t_state,
-                        lr_i2t, self.shards.get("i2t"))
-                    if bn_aux:
-                        apply_bn_updates(self.i2t_model, bn_aux)
-                if train_nmt:
-                    self.optim.nmt_state = self._update(
-                        nmt_params, self.optim.nmt_tx, self.optim.nmt_state,
-                        lr_nmt)
-            for params in (i2t_params, nmt_params):
-                for p in (params or {}).values():
-                    p.grad = None
-            metrics["total_loss"] = total
-        # each rank's share of the additive losses -> the global batch's
-        for k in ("i2t_loss", "nmt_loss", "nmt_kld", "total_loss",
-                  "avg_reward"):
-            if k in metrics:
-                metrics[k] = global_sum(metrics[k].detach())
-        return metrics
+        if not terms:
+            return None, bn_aux
+        return sum(terms[1:], terms[0]), bn_aux
 
     def eval(self, loader, *, nmt_valid=None, num_images: int = -1,
              beam_size: Optional[int] = None, language_eval_refs=None
