@@ -31,7 +31,7 @@ layer also at the transformer NMT's: 16 positions, d_ff 2048), each
 whole layer beside cuBLAS (TF32 off) over its products alone, and
 `Trainer.train` trains the full-width transformer captioner (bench.py's
 transformer XE configuration: 6 + 6 layers, d 512, batch 50, Adam) on
-random data from seed 0 on each of its three routes: 2 + 10 steps on the
+random data from seed 0 on each of its three routes: 2 + 5 steps on the
 default route (every encoder layer one whole-layer kernel call: 6 + 6 layer
 launches, 12 + 12 attention and 20 + 20 LayerNorm launches a step), 2 + 5
 per sublayer (18 + 18 and 32 + 32) and 2 + 5 with whole decoder layers too
@@ -51,7 +51,7 @@ STEP_FUSION, and beam 5 with BEAMS_KERNEL through a batch-50
 four images per route against the CPU; `CaptionService(greedy=True)`
 through the micro-batcher and HTTP. `Trainer.train` trains it at full
 width (bench.py's denseatt XE configuration: batch 50, Adam, clip 5) on
-its default route and with TRAIN_KERNEL, 2 + 10 steps each (51 lstm_cell
+its default route and with TRAIN_KERNEL, 2 + 5 steps each (51 lstm_cell
 launches a step; 34 additive_attention launches more with TRAIN_KERNEL),
 and one step on two images is compared with the CPU on both routes,
 including that every parameter that moves on the CPU moves on the card.
@@ -65,8 +65,7 @@ CPU), the NMT at beam 40 through the counted sort (`ops/topk.py
 ::sort_calls`), and the transformer NMT at beam 32. The NMT trains at
 bench width: the BiLSTM NMT alone (49 lstm_cell launches a step), jointly
 with denseatt under Weight_Trans, Weight_Trans_y and a KLD teacher (149),
-and the transformer NMT on its default route, 2 + 10 / 2 + 10 / 2 + 5
-steps; the memory and wall of a denseatt step are read with the plain
+and the transformer NMT on its default route, 2 + 5 steps each; the memory and wall of a denseatt step are read with the plain
 attention recomputed in its backward and called directly; the K-beam
 attention kernel (BEAMS_KERNEL) decodes four images at caption beam 20
 against the CPU; one step of the BiLSTM NMT and one of the joint step are
@@ -253,13 +252,31 @@ to bf16 on the card; bf16-feature decodes with SINGLE_KERNEL, STEP_FUSION
 and BEAMS_KERNEL; the lstm0 fragment with a bf16 carry; the joint step's
 loss and gradients on two images and the pivot's teacher-forced logprobs
 on four, card vs CPU on the same rounded features and bf16 copies, at
-1e-2; a transformer `Trainer` with "bfloat16" raising, naming B5-B8.
-Every (shape, dtype mixture) a bf16 phase gives a kernel is held against
-the plain version; so is every bf16 mixture the eval CLIs, the recipe
-and the families phases give B1 (the card's eval rounds the features),
-and `eval_unpaired`, whose route does not round, reads the features of
-its comparison with `eval_pivot` through a bf16 loader. The kernels line
-gains the bf16 entries (`*_bf16`) with the bf16 path's launches.
+1e-2. The second part of A15 (`phase_bf16_tf_kernels`): the bf16 entries
+of the transformer kernels held against their plain versions in every
+mixture the routes give them, at the path shapes (B8 at the captioner's
+and the NMT's rows, x with bf16 or f32 parameters; B5 at the encoder's,
+the decoder's and the NMT's attentions; B6 at the captioner's and the
+NMT's encoder layer, B7 at the captioner's decoder layer, forward and
+backward; B4's stack and layer at beam 5 x 50 and batch 50 with f32
+weights over bf16 caches and memory and with every operand bf16; B11's
+bf16 store, bit for bit the host's rounding at the identity size), each
+timed beside its f32 entry with the library call where one computes it
+(SDPA on bf16 tensors; the steps' GEMMs alone in bf16 cuBLAS;
+F.interpolate); and in the bf16 path the transformer captioner's bf16 XE
+(4 steps on the default route with the loss falling, one per sublayer and
+one with whole decoder layers), one transformer SCST step, 2 transformer
+NMT steps, the transformer pivot through `PivotService` (40 requests), a
+greedy decode one layer a call, B11's bf16 store, and the captioner's
+bf16 step card vs CPU on 2 images at 1e-2. Every (shape, dtype mixture) a
+bf16 phase gives a kernel is held against the plain version (the
+transformer kernels on the very inputs of the first call of each); so is
+every bf16 mixture the eval CLIs, the recipe and the families phases give
+B1 (the card's eval rounds the features), and `eval_unpaired`, whose
+route does not round, reads the features of its comparison with
+`eval_pivot` through a bf16 loader. Every f32 phase names
+`dtype="float32"` (the default is "bfloat16"). The kernels line gains the
+bf16 entries (`*_bf16`) with the bf16 path's launches.
 
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
@@ -356,10 +373,11 @@ SFU_PER_SM_CLOCK = 16
 SFU_RATE = []     # [evaluations per second] once phase_device has read it
 
 # transformer captioner XE training at full width (bench.py:268-274)
+# (every f32 phase names dtype "float32": the default is "bfloat16")
 TRAIN = dict(TCAP, caption_model="transformer", batch_size=50, seq_per_img=1,
              i2t_train_flag=True, nmt_train_flag=False, i2t_optim="adam",
-             i2t_max_grad_norm=5.0, seed=0)
-TRAIN_WARMUP, TRAIN_STEPS, ROUTE_STEPS = 2, 10, 5
+             i2t_max_grad_norm=5.0, seed=0, dtype="float32")
+TRAIN_WARMUP, TRAIN_STEPS, ROUTE_STEPS = 2, 5, 5
 
 
 def _per_step(enc=0, dec=0, mha=0, ln=0) -> dict:
@@ -425,7 +443,7 @@ TRAIN_KERNELS = ("train_gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
 # Adam, the global-norm clip 5
 DTRAIN = dict(CAP, caption_model="denseatt", batch_size=50, seq_per_img=1,
               i2t_train_flag=True, nmt_train_flag=False, i2t_optim="adam",
-              i2t_max_grad_norm=5.0, seed=0)
+              i2t_max_grad_norm=5.0, seed=0, dtype="float32")
 _T1 = CAP["seq_length"] + 1      # teacher-forced inputs a sequence
 # (label, (TRAIN_KERNEL,), timed steps, launches a step): 3 maxout cells a
 # step of the sequence on both; the kernel route adds att1 and att2
@@ -532,7 +550,8 @@ CHUNKED_SHAPES = [
 NMT_TRAIN = dict(vocab_size=0, nmt_src_vocab_size=11986,
                  nmt_tgt_vocab_size=8571, word_vec_size=512, rnn_size=512,
                  layers=1, brnn=True, dropout=0.3, batch_size=50,
-                 i2t_train_flag=False, nmt_train_flag=True, seed=0)
+                 i2t_train_flag=False, nmt_train_flag=True, seed=0,
+                 dtype="float32")
 NMT_SRC_LEN, NMT_TGT_LEN = 16, 18
 NMT_EOS = 3
 # lstm_cell launches a step: each encoder direction over 16 positions, the
@@ -4714,7 +4733,8 @@ RECIPE_ARGS = dict(
     i2t_train_flag="true", nmt_train_flag="true", batch_size=50,
     seq_per_img=5, self_critical_after=3, max_epochs=4,
     save_checkpoint_every=4, language_eval=1, beam_size=3,
-    losses_log_every=1, load_best_score=0, val_images_use=50, seed=0)
+    losses_log_every=1, load_best_score=0, val_images_use=50, seed=0,
+    dtype="float32")
 # the transformer captioner through the same CLI: TCAP's widths, XE only,
 # one eval at beam 3 (steps 1-2 of epoch 0 and the step that wraps it)
 RECIPE_TRANSFORMER = dict(
@@ -5074,6 +5094,14 @@ def _unheld(dev, name: str, seen: set, held: set) -> set:
     `held`; a B1 key with a bf16 mixture (B, D, H, maxout, types) is held
     here, against the plain cell at its shape and types at BF16_TOL
     (`_hold_bf16`)."""
+    if name == "transformer_decode_stack":
+        bf = {k for k in seen if len(k) == 10}
+        for key in sorted(bf, key=str):
+            _hold_tfd_key(dev, key)
+        if bf:
+            log(f"transformer_decode_stack bf16 mixtures held against the "
+                f"plain step: {sorted(bf, key=str)}")
+        return (seen - bf) - held
     if name != "lstm_cell":
         return seen - held
     bf = {k for k in seen if len(k) == 5}
@@ -5082,6 +5110,22 @@ def _unheld(dev, name: str, seen: set, held: set) -> set:
         log(f"lstm_cell bf16 mixtures held against the plain cell: "
             f"{sorted(bf, key=str)}")
     return (seen - bf) - held
+
+
+def _hold_tfd_key(dev, key) -> float:
+    """B4's stack against its plain version at a (shape, mixture) key of
+    `_recording_shapes`, on seeded inputs in that mixture, at BF16_TOL."""
+    import torch
+
+    bsz, kb, n_l, n_t, slots, d, dff, heads, lazy, mix = key
+    a = _tfd_inputs(dev, torch.Generator(device=dev).manual_seed(33), bsz,
+                    kb, n_l, n_t, slots, d, dff, lazy is True)
+    tx, tw, tc, tm = (_dt(m) for m in mix)
+    args = (a["x"].to(tx), a["t"], a["ck"].to(tm), a["cv"].to(tm),
+            a["mask"], a["kc"].to(tc), a["vc"].to(tc),
+            {k: v.to(tw) for k, v in a["w"].items()}, a["anc"])
+    return _tf_check("decoder_stack_step", args,
+                     dict(n_heads=heads, want_attn=lazy is True), True)
 
 
 class _recording_shapes:
@@ -5115,8 +5159,12 @@ class _recording_shapes:
             # together or neither
             lazy = (anc is not None if (anc is not None)
                     == kw.get("want_attn", False) else None)
-            return (bsz, x.shape[0] // bsz, n_l, cache_k.shape[2], slots, d,
-                    wstack["w1"].shape[2], kw["n_heads"], lazy)
+            key = (bsz, x.shape[0] // bsz, n_l, cache_k.shape[2], slots, d,
+                   wstack["w1"].shape[2], kw["n_heads"], lazy)
+            # the card's serving and eval round the features: the memory
+            # and the caches are bf16 (x, weights, caches, memory)
+            mix = _tf_mix(x, wstack["wqkv"], cache_k, ck_all)
+            return key if mix == ("f32",) * 4 else key + (mix,)
 
         def img(a, kw):
             b, h, w, c = a[0].shape
@@ -5955,7 +6003,7 @@ FAM = dict(CAP, attri_feat_size=1601)
 # rewards from BLEU-4 (no df table needed)
 FAM_TRAIN = dict(FAM, batch_size=10, seq_per_img=5, i2t_train_flag=True,
                  i2t_learning_rate=5e-4, seed=0, cider_reward_weight=0.0,
-                 bleu_reward_weight=1.0)
+                 bleu_reward_weight=1.0, dtype="float32")
 FAM_BEAM, FAM_IMAGES, FAM_AGREE = 3, 50, 4
 # (label, D, H, maxout): the cells the families give B1 at CAP's widths
 FAMILY_CELLS = [
@@ -5989,7 +6037,8 @@ FAM_RECIPE = dict(
     self_critical_after=-1, max_epochs=2, rnn_size=CAP["rnn_size"],
     input_encoding_size=CAP["input_encoding_size"],
     att_hid_size=CAP["att_hid_size"], num_layers=CAP["num_layers"],
-    fc_feat_size=CAP["fc_feat_size"], att_feat_size=CAP["att_feat_size"])
+    fc_feat_size=CAP["fc_feat_size"], att_feat_size=CAP["att_feat_size"],
+    dtype="float32")
 FAM_SCST = dict(self_critical_after=2, max_epochs=4, i2t_learning_rate=5e-5,
                 scheduled_sampling_start=-1)
 # the B9 route flags of models/att.py, all on for TopDown's decode
@@ -6510,7 +6559,8 @@ def phase_families(dev) -> tuple:
     # one transformer use_bn 1 XE step at TCAP's widths
     tr = Trainer(Config(**dict(TCAP, caption_model="transformer", use_bn=1,
                                batch_size=10, seq_per_img=5,
-                               i2t_train_flag=True, seed=0)).finalize(),
+                               i2t_train_flag=True, seed=0,
+                               dtype="float32")).finalize(),
                  device=dev)
     var0 = tr.i2t_model.bn0.var.detach().clone()
     out = tr.train(_fam_batch(np.random.RandomState(4)))
@@ -7972,6 +8022,7 @@ def _scale_reads(root: str) -> list:
 # ---------------------------------------------------------------------------
 
 BF16_TOL = 1e-2      # rtol = atol, JAX's bf16 tolerance (tests/test_ln_train.py:61-71)
+BF16_ITERS = 10      # timed calls of each bf16 entry and its plain version
 BF16_FLOPS = 989e12  # an H100 SXM's dense bf16 tensor-core rate
 # B1's mixtures (x, (w, b), (h, c)) on the bf16 routes: bf16 features with
 # f32 weights (serving, eval: lstm0's x is f32, lstm1/2's bf16), the cast
@@ -8079,9 +8130,11 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
 
     def row(label, kfn, pfn, names, by, f32_flops, bf16_flops, err,
             trans=0.0, lib=None, f32_ms=None):
-        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names)
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names,
+                                                    iters=BF16_ITERS)
         b_ms, term = bound_mixed(by, f32_flops, bf16_flops, trans)
-        lib_ms = library_ms(lib)[0] if lib is not None else None
+        lib_ms = (library_ms(lib, iters=BF16_ITERS)[0] if lib is not None
+                  else None)
         fmt = (lambda v: "none" if v is None else f"{v:.4f} ms")
         log(f"kernel {label}: |diff| / (1 + |plain|) {err:.3g} (held at rtol "
             f"= atol = {BF16_TOL}); {how}: kernel {k_ms:.4f} ms, plain "
@@ -8290,6 +8343,624 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
     return rec, held
 
 
+# ---------------------------------------------------------------------------
+# the compute dtype, second part (A15): the bf16 entries of the transformer
+# kernels B4-B8 and B11, and the bf16 transformer path on the card
+# ---------------------------------------------------------------------------
+
+# the CUDA kernels the typed (bf16) instances launch, by name
+TF_TRAIN_KERNELS = TRAIN_KERNELS + ("ln_fwd_typed_kernel", "convert_kernel")
+TF_TFD_KERNELS = TFD_KERNELS + ("ln_rows_typed_kernel",)
+# B8 (x, scale / offset): the cast route, and JAX's default config on the
+# CPU (bf16 features through f32 parameters; the kernel takes it too)
+BF16_LN_MIXES = (("bf16", "bf16"), ("bf16", "f32"))
+BF16_LN_SHAPES = [("captioner encoder", 50, 196, 512),
+                  ("captioner decoder", 50, 17, 512),
+                  ("transformer NMT", 50, NMT_SRC_LEN, 512)]
+# B5 at the training steps' shapes (label, B, T, S, mask kind, d, heads)
+BF16_MHA_SHAPES = [
+    ("encoder self, T = S = 196, padded [B,1,S]", 50, 196, 196, "pad"),
+    ("decoder cross, T = 17, S = 196", 50, 17, 196, "pad"),
+    ("decoder self, T = S = 17, causal + pad [B,T,T]", 50, 17, 17, "causal"),
+    ("NMT encoder self, T = S = 16", 50, NMT_SRC_LEN, NMT_SRC_LEN, "pad"),
+    ("NMT decoder cross, T = 17, S = 16", 50, 17, NMT_SRC_LEN, "pad")]
+# B6 (label, B, T, d, d_ff, heads) and B7 (label, B, T, S, d, d_ff, heads)
+BF16_ENC_SHAPES = [("captioner encoder", 50, 196, 512, 512, 8),
+                   ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8)]
+BF16_DEC_SHAPES = [("captioner decoder", 50, 17, 196, 512, 512, 8)]
+# B4 (x, weights, caches, memory) on the routes: the card's serving and
+# eval of rounded features (f32 weights, bf16 memory and caches), and the
+# SCST sample under the cast route's bf16 copies (every operand bf16)
+BF16_TFD_MIXES = (("f32", "f32", "bf16", "bf16"),
+                  ("bf16", "bf16", "bf16", "bf16"))
+BF16_TFD_SHAPES = [TFD_SHAPES[0], TFD_SHAPES[2]]   # beam 5 x 50, batch 50
+# B11 with a bf16 store: the loader's identity size (bit for bit) and the
+# downscale
+BF16_IMG_CASES = IMG_CASES[:2]
+
+
+def _bf16_scaled(name: str, got, want) -> float:
+    """Each output: max|kernel - plain| <= BF16_TOL * max(1, max|plain|),
+    types equal; returns the largest of those ratios. The bf16 check of
+    the attention, the whole layers and the decoder step: their residual
+    streams and sums hold bf16 values of magnitude 4-30, 2^-5 to 2^-3
+    apart, so one rounding that a sum in another order takes the other way
+    moves an element past an elementwise atol of 1e-2 wherever the output
+    cancels to near 0 (tests/test_torch_dtype_transformer.py)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}: kernel {a.dtype} {tuple(a.shape)}"
+                                 f" against plain {b.dtype} {tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        e = ((a - b).abs().max().item()
+             / max(1.0, b.abs().max().item())) if b.numel() else 0.0
+        if not e <= BF16_TOL:
+            raise AssertionError(f"{name}: max|diff| / max(1, max|plain|) "
+                                 f"{e:.4g} > {BF16_TOL}")
+        worst = max(worst, e)
+    return worst
+
+
+def _tf_mix(*ts) -> tuple:
+    return tuple(_mix_name([t.dtype]) for t in ts)
+
+
+def _tf_key(kind: str, a: tuple, kw: dict):
+    """The (shape, mixture) key of one call of a transformer kernel's
+    wrapper, as `phase_bf16_tf_kernels` holds them."""
+    if kind in ("ln_train_fwd", "ln_train_bwd"):
+        x, scale = a[0], a[1]
+        return (tuple(x.shape), _tf_mix(x, scale))
+    if kind in ("mha_train_fwd", "mha_train_bwd"):
+        q, k, _, maskadd = a[:4]
+        return (tuple(q.shape), k.shape[1], maskadd.shape[1],
+                kw["n_heads"], kw["rate"], _tf_mix(q))
+    if kind in ("enc_layer_fwd", "enc_layer_bwd"):
+        x, w = a[0], a[3]
+        return (tuple(x.shape), w["w1"].shape[1], kw["n_heads"], kw["rate"],
+                _tf_mix(x, w["wqkv"]))
+    if kind in ("dec_layer_fwd", "dec_layer_bwd"):
+        x, mk, w = a[0], a[1], a[6]
+        return (tuple(x.shape), mk.shape[1], w["w1"].shape[1],
+                kw["n_heads"], kw["rate"], _tf_mix(x, w["wqkv"]))
+    if kind in ("decoder_stack_step", "decoder_layer_step"):
+        x, ck, cache_k, w = a[0], a[2], a[5], a[7]
+        return (x.shape[0], tuple(ck.shape), tuple(cache_k.shape),
+                w["w1"].shape[-1], kw["n_heads"], a[8] is not None
+                if len(a) > 8 else False,
+                _tf_mix(x, w["wqkv"], cache_k, ck))
+    return (tuple(a[0].shape), kw.get("h_out", 448), kw.get("w_out", 448),
+            (_mix_name([kw.get("out_dtype", "f32")]),))
+
+
+def _tf_sites():
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    from unpaired_image_captioning_tpu_torch.models import (
+        nmt_transformer, transformer)
+
+    # the decoder step where the models call it (they import it by name)
+    return [(lnk, "ln_train_fwd"), (lnk, "ln_train_bwd"),
+            (mhk, "mha_train_fwd"), (mhk, "mha_train_bwd"),
+            (ltk, "enc_layer_fwd"), (ltk, "enc_layer_bwd"),
+            (ltk, "dec_layer_fwd"), (ltk, "dec_layer_bwd"),
+            (tdk, "decoder_stack_step"), (tdk, "decoder_layer_step"),
+            (transformer, "decoder_stack_step"),
+            (transformer, "decoder_layer_step"),
+            (nmt_transformer, "decoder_stack_step"),
+            (imk, "resize_normalize")]
+
+
+def _clone(v):
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone()
+    if isinstance(v, dict):
+        return {k: _clone(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_clone(x) for x in v)
+    return v
+
+
+class _recording_tf:
+    """While open, every CUDA call of a transformer kernel's wrapper (B4-B8,
+    B11) adds its (shape, mixture) key to `seen[kind]` and keeps a copy of
+    the arguments of the first call of each key that `held` does not hold,
+    so that `_hold_tf` can hold the kernel against its plain version on
+    those very inputs."""
+
+    def __init__(self, seen: dict, args: dict, held: dict):
+        self._seen, self._args, self._held = seen, args, held
+
+    def __enter__(self):
+        self._saved = []
+        for mod, attr in _tf_sites():
+            fn = getattr(mod, attr)
+
+            def call(*a, _fn=fn, _kind=attr, **kw):
+                if a[0].device.type == "cuda":
+                    key = _tf_key(_kind, a, kw)
+                    self._seen.setdefault(_kind, set()).add(key)
+                    if (key not in self._held.get(_kind, ())
+                            and (_kind, key) not in self._args):
+                        self._args[(_kind, key)] = (_clone(a), dict(kw))
+                return _fn(*a, **kw)
+
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def _tf_check(kind: str, a: tuple, kw: dict, bf: bool) -> float:
+    """One call of `kind` on the arguments a against its plain version:
+    bf16 at BF16_TOL (each output in its own type), all f32 at the f32
+    phases' tolerances. Returns the error."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops import image as imo
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+    from unpaired_image_captioning_tpu_torch.ops import ln_train as lno
+    from unpaired_image_captioning_tpu_torch.ops import mha_train as mho
+    from unpaired_image_captioning_tpu_torch.ops import (
+        transformer_decode as tdo)
+
+    def close(got, want, tol=TRAIN_TOL):
+        got, want = list(got), list(want)
+        name = f"{kind} {_tf_key(kind, a, kw)}"
+        if bf and kind in ("ln_train_fwd", "ln_train_bwd",
+                           "resize_normalize"):
+            return _bf16_close(name, got, want)
+        if bf:
+            return _bf16_scaled(name, got, want)
+        return _check_each(name, ["out"] * len(got), got, want, tol)
+
+    with torch.no_grad():
+        if kind == "ln_train_fwd":
+            return close([lnk.ln_train_fwd(*a, **kw)],
+                         [lno.ln_train_plain(*a, **kw)])
+        if kind == "ln_train_bwd":
+            return close(lnk.ln_train_bwd(*a, **kw),
+                         lno.ln_train_plain_bwd(*a, **kw))
+        if kind == "mha_train_fwd":
+            out, stats = mhk.mha_train_fwd(*a, **kw)
+            return close([out, stats],
+                         [mho.mha_train_plain(*a, **kw),
+                          mho.softmax_stats(a[0], a[1], a[3],
+                                            n_heads=kw["n_heads"])])
+        if kind == "mha_train_bwd":
+            return close(mhk.mha_train_bwd(*a, **kw),
+                         mho.mha_train_plain_bwd(*a[:6], **kw))
+        if kind == "enc_layer_fwd":
+            x, maskadd, seed, w = a
+            out, saved = ltk.enc_layer_fwd(*a, **kw)
+            ref, x2 = lto.enc_fwd_plain(x, maskadd, seed, *(
+                w[k] for k in lto.ENC_WEIGHTS), **kw)
+            return close([out, saved[0]], [ref, x2.float()])
+        if kind == "enc_layer_bwd":
+            x, maskadd, seed, w, saved, g = a
+            got = ltk.enc_layer_bwd(*a, **kw)
+            want = lto.enc_bwd_plain(
+                x, maskadd, seed, saved[0].to(x.dtype), g,
+                *(w[k] for k in lto.ENC_WEIGHTS), **kw,
+                relu_active=saved[-1] > 0)
+            return close(got, want)
+        if kind == "dec_layer_fwd":
+            x, mk, mv, tm, sm, seeds, w = a
+            out, saved = ltk.dec_layer_fwd(*a, **kw)
+            ref, x2, x3 = lto.dec_fwd_plain(x, mk, mv, tm, sm, seeds, *(
+                w[k] for k in lto.DEC_WEIGHTS), **kw)
+            return close([out, saved[0], saved[1]],
+                         [ref, x2.float(), x3.float()])
+        if kind == "dec_layer_bwd":
+            x, mk, mv, tm, sm, seeds, w, saved, g = a
+            got = ltk.dec_layer_bwd(*a, **kw)
+            want = lto.dec_bwd_plain(
+                x, mk, mv, tm, sm, seeds, saved[0].to(x.dtype),
+                saved[1].to(x.dtype), g, *(w[k] for k in lto.DEC_WEIGHTS),
+                **kw, relu_active=saved[-1] > 0)
+            return close(got, want)
+        if kind in ("decoder_stack_step", "decoder_layer_step"):
+            k_args, p_args = list(_clone(a)), list(_clone(a))
+            fn = (tdk.decoder_stack_step if kind == "decoder_stack_step"
+                  else tdk.decoder_layer_step)
+            pfn = (tdo.decoder_stack_step_plain
+                   if kind == "decoder_stack_step"
+                   else tdo.decoder_layer_step_plain)
+            got, want = fn(*k_args, **kw), pfn(*p_args, **kw)
+            if bf:
+                return close(got, want)
+            e = _rel_err(got, want)
+            if not e <= TFD_TOL:
+                raise AssertionError(f"{kind}: {e} > {TFD_TOL}")
+            return e
+        got = imk.resize_normalize(*a, **kw)
+        want = imo.resize_normalize_plain(a[0], **kw)
+        return close([got], [want], IMG_TOL)
+
+
+def _hold_tf(args: dict) -> dict:
+    """Each recorded call `_recording_tf` kept, held against the plain
+    version on its own inputs; returns {kind: keys held here}."""
+    import torch
+
+    done = {}
+    for (kind, key), (a, kw) in sorted(args.items(), key=str):
+        _tf_check(kind, a, kw, "bf16" in key[-1])
+        done.setdefault(kind, []).append(key)
+    torch.cuda.synchronize()
+    args.clear()
+    return done
+
+
+def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
+    """The bf16 entries of the transformer kernels (B4-B8) and of B11
+    against their plain versions on the card at the path shapes, in every
+    mixture the routes give them, each timed beside the f32 entry at the
+    same shape, its bound at 2 bytes a bf16 element and the products of
+    two bf16 operands at the bf16 tensor-core rate; the library call
+    beside it where one computes the function: SDPA on bf16 tensors (B5),
+    the step's GEMMs alone in bf16 cuBLAS (B4, B6, B7), F.interpolate
+    (B11, the resize alone). Returns (the JSON records, the held keys
+    {wrapper: {key}})."""
+    import torch
+    import torch.nn.functional as F
+
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops import image as imo
+    from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+    from unpaired_image_captioning_tpu_torch.ops import ln_train as lno
+    from unpaired_image_captioning_tpu_torch.ops import mha_train as mho
+    from unpaired_image_captioning_tpu_torch.ops import (
+        transformer_decode as tdo)
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bf = torch.bfloat16
+    rows = {}
+    held = {}
+
+    def f32_of(name, label):
+        for r in kernels.get(name, {}).get("shapes", []):
+            lab = r.get("label", "") + " " + str(r.get("shape", ""))
+            if label in lab:
+                return r["ms"]
+        return None
+
+    def row(name, label, kfn, pfn, names, by, f32_flops, bf16_flops, err,
+            lib=None, lib_what="none", f32_ms=None, iters=BF16_ITERS):
+        k_ms, p_ms, k_wall, p_wall, how = time_pair(kfn, pfn, names,
+                                                    iters=iters)
+        b_ms, term = bound_mixed(by, f32_flops, bf16_flops)
+        lib_ms = library_ms(lib, iters=iters)[0] if lib is not None else None
+        fmt = (lambda v: "none" if v is None else f"{v:.4f} ms")
+        log(f"kernel {name} [{label}]: |diff| / (1 + |plain|) {err:.3g} "
+            f"(held at rtol = atol = {BF16_TOL}); {how}: kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms; per call {k_wall:.4f} / {p_wall:.4f} "
+            f"ms; bound {b_ms:.4f} ms ({term}; bf16 elements 2 bytes); f32 "
+            f"entry {fmt(f32_ms)}; library {lib_what} {fmt(lib_ms)}")
+        rows.setdefault(name, []).append(dict(
+            label=label, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+            bound_by="bytes" if term == "bytes" else "operations",
+            bound_term=term, library_ms=lib_ms, library_is=lib_what,
+            wall_ms=k_wall, plain_wall_ms=p_wall, timing=how, err=err,
+            f32_entry_ms=f32_ms))
+
+    def hold(kind, a, kw):
+        held.setdefault(kind, set()).add(_tf_key(kind, a, kw))
+
+    # B8
+    for label, b, t, d in BF16_LN_SHAPES:
+        x, scale, offset, g = _ln_inputs(dev, gen, b, t, d)
+        for mx, mp in BF16_LN_MIXES:
+            args = (x.to(_dt(mx)), scale.to(_dt(mp)), offset.to(_dt(mp)))
+            bargs = (args[0], args[1], g.to(_dt(mx)))
+            e_f = _tf_check("ln_train_fwd", args, {}, True)
+            e_b = _tf_check("ln_train_bwd", bargs, {}, True)
+            hold("ln_train_fwd", args, {})
+            hold("ln_train_bwd", bargs, {})
+            y = lnk.ln_train_fwd(*args)
+            grads = lnk.ln_train_bwd(*bargs)
+            shape = f"[{b}, {t}, {d}] x/params {mx}/{mp} ({label})"
+            n = float(b * t * d)
+            row("ln_train_fwd_bf16", shape, lambda a_=args: lnk.ln_train_fwd(
+                *a_), lambda a_=args: lno.ln_train_plain(*a_),
+                ("ln_fwd_typed_kernel",), nbytes(*args, y), 8.0 * n, 0.0,
+                e_f, f32_ms=f32_of("ln_train_fwd", f"[{b}, {t}, {d}]"),
+                lib_what="none (F.layer_norm: other formula)")
+            row("ln_train_bwd_bf16", shape, lambda a_=bargs:
+                lnk.ln_train_bwd(*a_), lambda a_=bargs:
+                lno.ln_train_plain_bwd(*a_), LN_BWD_KERNELS,
+                nbytes(*bargs, *grads), 14.0 * n, 0.0, e_b,
+                f32_ms=f32_of("ln_train_bwd", f"[{b}, {t}, {d}]"),
+                lib_what="none (F.layer_norm: other formula)")
+
+    # B5
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    for label, b, t, s, kind in BF16_MHA_SHAPES:
+        d, heads = TCAP["input_encoding_size"], TCAP["num_heads"]
+        q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s, kind, d)
+        q, k, v, g = (z.to(bf) for z in (q, k, v, g))
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (q, k, v, maskadd, seed)
+        e_f = _tf_check("mha_train_fwd", fargs, kw, True)
+        out, stats = mhk.mha_train_fwd(*fargs, **kw)
+        bargs = fargs + (g, out, stats)
+        e_b = _tf_check("mha_train_bwd", bargs, kw, True)
+        hold("mha_train_fwd", fargs, kw)
+        hold("mha_train_bwd", bargs, kw)
+        grads = mhk.mha_train_bwd(*bargs, **kw)
+        dh = d // heads
+        pairs = float((maskadd >= 0).expand(b, t, s).sum()) * heads
+        q4, k4, v4, g4 = (z.view(b, z.shape[1], heads, dh).transpose(1, 2)
+                          for z in (q, k, v, g))
+        m4 = maskadd[:, None].to(bf)
+        lq, lk_, lv = (z.detach().requires_grad_() for z in (q4, k4, v4))
+        lout = F.scaled_dot_product_attention(lq, lk_, lv, attn_mask=m4)
+        shape = f"B={b} T={t} S={s} d={d} H={heads} bf16 ({label})"
+        row("mha_train_fwd_bf16", shape,
+            lambda: mhk.mha_train_fwd(*fargs, **kw),
+            lambda: mho.mha_train_plain(*fargs, **kw), "mha_fwd_kernel",
+            nbytes(*fargs, out, stats), 0.0, 4.0 * pairs * dh, e_f,
+            lib=lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       attn_mask=m4),
+            lib_what="scaled_dot_product_attention bf16, rate 0",
+            f32_ms=f32_of("mha_train_fwd", label.split(",")[0]))
+        row("mha_train_bwd_bf16", shape,
+            lambda: mhk.mha_train_bwd(*bargs, **kw),
+            lambda: mho.mha_train_plain_bwd(*bargs[:6], **kw),
+            MHA_BWD_KERNELS, nbytes(*bargs, *grads), 0.0, 10.0 * pairs * dh,
+            e_b, lib=lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
+                                                 retain_graph=True),
+            lib_what="scaled_dot_product_attention bf16 backward, rate 0",
+            f32_ms=f32_of("mha_train_bwd", label.split(",")[0]))
+        del lout, lq, lk_, lv
+
+    # B6
+    for label, b, t, d, f, heads in BF16_ENC_SHAPES:
+        x, g, _, maskadd, seed_l, w, pad = _enc_layer_inputs(dev, gen, b, t,
+                                                             d, f)
+        x, g = x.to(bf), g.to(bf)
+        w = {k_: v_.to(bf) for k_, v_ in w.items()}
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (x, maskadd, seed_l, w)
+        e_f = _tf_check("enc_layer_fwd", fargs, kw, True)
+        out, saved = ltk.enc_layer_fwd(*fargs, **kw)
+        bargs = fargs + (saved, g)
+        e_b = _tf_check("enc_layer_bwd", bargs, kw, True)
+        hold("enc_layer_fwd", fargs, kw)
+        hold("enc_layer_bwd", bargs, kw)
+        grads = ltk.enc_layer_bwd(*bargs, **kw)
+        ws = [w[k_] for k_ in lto.ENC_WEIGHTS]
+        m = b * t
+        acts = {"y1": saved[1].reshape(m, d).to(bf),
+                "ao": saved[3].reshape(m, d).to(bf),
+                "y2": saved[5].reshape(m, d).to(bf),
+                "hd": saved[6].reshape(m, f).to(bf)}
+        g_fwd, g_bwd = _layer_gemms(acts, w, decoder=False)
+        g_bwd = [(a_.to(bf), b_.to(bf)) for a_, b_ in g_bwd]
+        pairs = float((maskadd >= 0).expand(b, t, t).sum()) * heads
+        proj = float(m) * (4 * d * d + 2 * d * f)
+        dh = d // heads
+        shape = f"B={b} T={t} d={d} d_ff={f} H={heads} bf16 ({label})"
+        row("enc_layer_train_fwd_bf16", shape,
+            lambda: ltk.enc_layer_fwd(*fargs, **kw),
+            lambda: lto.enc_fwd_plain(x, maskadd, seed_l, *ws, **kw),
+            TF_TRAIN_KERNELS, nbytes(x, maskadd, seed_l, *ws, out),
+            0.0, 2.0 * proj + 4.0 * pairs * dh, e_f, iters=5,
+            lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_fwd],
+            lib_what="its products alone, bf16 cuBLAS",
+            f32_ms=f32_of("enc_layer_train_fwd", label))
+        row("enc_layer_train_bwd_bf16", shape,
+            lambda: ltk.enc_layer_bwd(*bargs, **kw),
+            lambda: lto.enc_bwd_plain(x, maskadd, seed_l,
+                                      saved[0].to(bf), g, *ws, **kw),
+            TF_TRAIN_KERNELS, nbytes(x, maskadd, seed_l, *ws, g, *grads),
+            0.0, 4.0 * proj + 10.0 * pairs * dh, e_b, iters=5,
+            lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_bwd],
+            lib_what="its products alone, bf16 cuBLAS",
+            f32_ms=f32_of("enc_layer_train_bwd", label))
+        del out, saved, grads, acts, g_fwd, g_bwd
+
+    # B7
+    for label, b, t, s, d, f, heads in BF16_DEC_SHAPES:
+        x, g = (torch.randn((b, t, d), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        mk, mv = (torch.randn((b, s, d), generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+        pos = torch.arange(t, device=dev)
+        tmask = torch.where((pos[None, :] <= pos[:, None])[None]
+                            .expand(b, t, t), 0.0, -1e9).contiguous()
+        keep = torch.ones((b, 1, s), dtype=torch.bool, device=dev)
+        keep[1, :, 150:] = False
+        smask = torch.where(keep, 0.0, -1e9).contiguous()
+        seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                             device=dev)
+        w = {k_: v_.to(bf) for k_, v_ in _layer_weights(
+            gen, dev, lto.DEC_WEIGHTS, d, f).items()}
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (x, mk, mv, tmask, smask, seeds, w)
+        e_f = _tf_check("dec_layer_fwd", fargs, kw, True)
+        out, saved = ltk.dec_layer_fwd(*fargs, **kw)
+        bargs = fargs + (saved, g)
+        e_b = _tf_check("dec_layer_bwd", bargs, kw, True)
+        hold("dec_layer_fwd", fargs, kw)
+        hold("dec_layer_bwd", bargs, kw)
+        grads = ltk.dec_layer_bwd(*bargs, **kw)
+        ws = [w[k_] for k_ in lto.DEC_WEIGHTS]
+        m = b * t
+        acts = {k_: saved[i].reshape(m, -1).to(bf) for k_, i in
+                (("y1", 2), ("ao", 4), ("y2", 5), ("co", 7), ("y3", 8),
+                 ("hd", 11))}
+        g_fwd, g_bwd = _layer_gemms(acts, w, decoder=True)
+        g_bwd = [(a_.to(bf), b_.to(bf)) for a_, b_ in g_bwd]
+        pairs = (float((tmask >= 0).sum()) + float(
+            (smask >= 0).expand(b, t, s).sum())) * heads
+        proj = float(m) * (6 * d * d + 2 * d * f)
+        dh = d // heads
+        shape = f"B={b} T={t} S={s} d={d} d_ff={f} H={heads} bf16 ({label})"
+        row("dec_layer_train_fwd_bf16", shape,
+            lambda: ltk.dec_layer_fwd(*fargs, **kw),
+            lambda: lto.dec_fwd_plain(*fargs[:6], *ws, **kw),
+            TF_TRAIN_KERNELS, nbytes(x, mk, mv, tmask, smask, *ws, out),
+            0.0, 2.0 * proj + 4.0 * pairs * dh, e_f, iters=5,
+            lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_fwd],
+            lib_what="its products alone, bf16 cuBLAS",
+            f32_ms=f32_of("dec_layer_train_fwd", label))
+        row("dec_layer_train_bwd_bf16", shape,
+            lambda: ltk.dec_layer_bwd(*bargs, **kw),
+            lambda: lto.dec_bwd_plain(*fargs[:6], saved[0].to(bf),
+                                      saved[1].to(bf), g, *ws, **kw),
+            TF_TRAIN_KERNELS,
+            nbytes(x, mk, mv, tmask, smask, *ws, g, *grads),
+            0.0, 4.0 * proj + 10.0 * pairs * dh, e_b, iters=5,
+            lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_bwd],
+            lib_what="its products alone, bf16 cuBLAS",
+            f32_ms=f32_of("dec_layer_train_bwd", label))
+        del out, saved, grads, acts, g_fwd, g_bwd
+
+    # B4: the stack and one layer, in each mixture
+    for label, b, kb, n_l, n_t, slots, d, dff, heads, lazy in BF16_TFD_SHAPES:
+        a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
+        r_ = b * kb
+        for mix in BF16_TFD_MIXES:
+            tx, tw, tc, tm = (_dt(z) for z in mix)
+            w = {k_: v_.to(tw) for k_, v_ in a["w"].items()}
+            w0 = {k_: v_[0].contiguous() for k_, v_ in w.items()}
+            x = a["x"].to(tx)
+            kc, vc = a["kc"].to(tc), a["vc"].to(tc)
+            ck, cv = a["ck"].to(tm), a["cv"].to(tm)
+            kw = dict(n_heads=heads)
+            sargs = (x, a["t"], ck, cv, a["mask"], kc, vc, w, a["anc"])
+            largs = (x, a["t"], ck[0].contiguous(), cv[0].contiguous(),
+                     a["mask"], kc[:, 0].contiguous(), vc[:, 0].contiguous(),
+                     w0)
+            e_s = _tf_check("decoder_stack_step", sargs, kw, True)
+            e_l = _tf_check("decoder_layer_step", largs, kw, True)
+            hold("decoder_stack_step", sargs, kw)
+            hold("decoder_layer_step", largs, kw)
+            mix_s = "x/w/caches/memory " + "/".join(mix)
+            all_bf = mix == ("bf16",) * 4
+            for name, kind, args_, layers, ws_ in (
+                    ("transformer_decode_stack_bf16", "decoder_stack_step",
+                     sargs, n_l, w), ("transformer_decode_layer_bf16",
+                                      "decoder_layer_step", largs, 1, w0)):
+                fn = getattr(tdk, kind)
+                pfn = getattr(tdo, kind + "_plain")
+                kk = list(_clone(args_))
+                pp = list(_clone(args_))
+                wl = list(ws_.values())
+                # bytes at the arrays' own element sizes: the weights, x in
+                # and out, the positions read and written, the memory
+                pos = int((a["t"].long() + 1).sum())
+                cross = int(a["mask"].sum(1).repeat_interleave(kb).sum())
+                nb = (nbytes(*wl) + 2 * nbytes(x) + nbytes(a["t"], a["mask"])
+                      + layers * (kc.element_size() * (2 * pos * d
+                                                       + 2 * r_ * d)
+                                  + ck.element_size() * 2 * b * slots * d))
+                fl = layers * (2.0 * r_ * (6 * d * d + 2 * d * dff)
+                               + 4.0 * d * pos + 4.0 * d * cross)
+                lib = None
+                if all_bf:
+                    wb = ({k_: v_ for k_, v_ in ws_.items()}
+                          if layers > 1 else {k_: v_[None] for k_, v_ in
+                                              ws_.items()})
+                    gen2 = torch.Generator(device=dev).manual_seed(2)
+                    act = torch.randn((r_, max(d, dff)), generator=gen2,
+                                      device=dev).to(bf)
+                    y_, h1_ = act[:, :d].contiguous(), act[:, :dff].contiguous()
+
+                    def lib(wb=wb, y_=y_, h1_=h1_):
+                        for l_ in range(wb["wqkv"].shape[0]):
+                            torch.matmul(y_, wb["wqkv"][l_])
+                            torch.matmul(y_, wb["wo_s"][l_])
+                            torch.matmul(y_, wb["wq_c"][l_])
+                            torch.matmul(y_, wb["wo_c"][l_])
+                            torch.matmul(y_, wb["w1"][l_])
+                            torch.matmul(h1_, wb["w2"][l_])
+                row(name, f"R={r_} kb={kb} L={layers} T={n_t} S={slots} "
+                    f"d={d} {mix_s} ({label})",
+                    lambda f_=fn, k_=kk: f_(*k_, **kw),
+                    lambda f_=pfn, p_=pp: f_(*p_, **kw), TF_TFD_KERNELS, nb,
+                    0.0 if all_bf else fl, fl if all_bf else 0.0,
+                    e_s if layers > 1 else e_l, lib=lib,
+                    lib_what=("its products alone, bf16 cuBLAS" if all_bf
+                              else "none"),
+                    f32_ms=f32_of(name[:-5], label))
+
+    # B11 with a bf16 store
+    for label, b, h, w_, ho in BF16_IMG_CASES:
+        host, imgs = _img_input(dev, b, h, w_)
+        kw = dict(h_out=ho, w_out=ho, out_dtype=bf)
+        e = _tf_check("resize_normalize", (imgs,), kw, True)
+        hold("resize_normalize", (imgs,), kw)
+        out = imk.resize_normalize(imgs, **kw)
+        if h == ho and w_ == ho:
+            from unpaired_image_captioning_tpu_torch.data.dataloader import (
+                to_bfloat16)
+
+            want = to_bfloat16(imo.preprocess_images(host))
+            if not torch.equal(out.cpu().view(torch.int16),
+                               want.view(torch.int16)):
+                raise AssertionError(f"resize_normalize bf16 {label}: not "
+                                     "bit for bit the host's rounding")
+            log(f"kernel resize_normalize bf16 [{label}]: bit for bit "
+                "to_bfloat16(preprocess_images) on the host")
+        xin = imgs.permute(0, 3, 1, 2).float()
+        row("image_front_end_bf16", f"[{b}, {h}, {w_}, 3] -> {ho}^2 bf16 "
+            f"({label})", lambda: imk.resize_normalize(imgs, **kw),
+            lambda: imo.resize_normalize_plain(imgs, **kw), "front_end_kernel",
+            nbytes(imgs, out), 6.0 * out.numel(), 0.0, e,
+            lib=lambda: F.interpolate(xin, size=(ho, ho), mode="bilinear",
+                                      align_corners=False),
+            lib_what="F.interpolate (f32 NCHW, the resize alone)",
+            f32_ms=f32_of("image_front_end", label))
+    torch.cuda.synchronize()
+
+    csrc = "unpaired_image_captioning_tpu_torch/csrc/"
+    src = {"ln_train": ("ln_train.cu", "ln_train.py:52", "ln_train.py:60"),
+           "mha_train": ("mha_train.cu", "mha_train.py:111",
+                         "mha_train.py:125"),
+           "enc_layer_train": ("layer_train.cu", "layer_train.py:131",
+                               "layer_train.py:163"),
+           "dec_layer_train": ("layer_train.cu", "layer_train.py:444",
+                               "layer_train.py:476")}
+    rec = {}
+    for base, (cu, fwd_line, bwd_line) in src.items():
+        for key, line in (("fwd", fwd_line), ("bwd", bwd_line)):
+            name = f"{base}_{key}_bf16"
+            rec[name] = _bf16_record(name, csrc + cu, line, rows[name])
+    for name, cu, line in (
+            ("transformer_decode_stack", "transformer_decode.cu",
+             "transformer_decode.py:275"),
+            ("transformer_decode_layer", "transformer_decode.cu",
+             "transformer_decode.py:229"),
+            ("image_front_end", "image_front_end.cu", "image.py:46")):
+        rec[name + "_bf16"] = _bf16_record(name + "_bf16", csrc + cu, line,
+                                           rows[name + "_bf16"])
+    return rec, held
+
+
 BF16_STEPS = 4        # joint XE steps on one batch: the loss must fall
 BF16_AGREE = 2        # images of the card-vs-cpu step; 4 of the pivot
 
@@ -8493,7 +9164,139 @@ def _cast_step_grads(trainer, batch, sc_flag=False):
     return float(total.detach()), metrics, grads
 
 
-def phase_bf16_path(dev, held: dict) -> dict:
+BF16_TNMT_STEPS = 2   # transformer-NMT XE steps of the bf16 path
+
+
+def _bf16_transformer_path(dev, ttr, tsc, tnt, tcap, tnmt, tbatch, nbatch,
+                           labels, zh_vocab, tgt_itos, cap2nmt, fc, att,
+                           host_imgs, walls: dict) -> None:
+    """The bf16 transformer path of `phase_bf16_path` (see its doc), run
+    while its counters and recorders are open."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.data.dataloader import (
+        to_bfloat16)
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+    from unpaired_image_captioning_tpu_torch.ops.image import (
+        preprocess_images)
+    from unpaired_image_captioning_tpu_torch.serve import PivotService
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # the captioner's XE: the default route, then per sublayer and with
+    # whole decoder layers
+    losses, step_ms = [], []
+    old = _route_flags(True, False)
+    try:
+        for _ in range(BF16_STEPS):
+            out, ms = timed(lambda: ttr.train(tbatch))
+            losses.append(out["total_loss"])
+            step_ms.append(ms)
+        _route_flags(False, False)
+        out_sub, ms_sub = timed(lambda: ttr.train(tbatch))
+        _route_flags(True, True)
+        out_dec, ms_dec = timed(lambda: ttr.train(tbatch))
+    finally:
+        _route_flags(*old)
+    walls["transformer XE steps 2- (B6)"] = statistics.mean(step_ms[1:])
+    walls["transformer XE per sublayer"] = ms_sub
+    walls["transformer XE B6 + B7"] = ms_dec
+    more = [out_sub["total_loss"], out_dec["total_loss"]]
+    if not (all(np.isfinite(losses + more)) and losses[-1] < losses[0]):
+        raise AssertionError(f"bf16 transformer XE: losses {losses} (then "
+                             f"{more}) not finite and falling")
+    log(f"bf16 transformer XE (batch {BENCH_BATCH}, bf16 copies of the f32 "
+        f"masters): default route losses " + ", ".join(
+            f"{v:.5f}" for v in losses) + f", walls (ms) " + ", ".join(
+            f"{v:.1f}" for v in step_ms) + f"; per sublayer {more[0]:.5f} "
+        f"({ms_sub:.1f} ms); B6 + B7 {more[1]:.5f} ({ms_dec:.1f} ms)")
+
+    # one SCST step: the sample and the greedy baseline through B4
+    sc_batch = dict(tbatch, **scst_gts(labels, BENCH_BATCH))
+    out_rl, ms_rl = timed(lambda: tsc.train(sc_batch, sc_flag=True))
+    walls["transformer SCST step"] = ms_rl
+    if not (np.isfinite(out_rl["total_loss"])
+            and np.isfinite(out_rl["avg_reward"])):
+        raise AssertionError(f"bf16 transformer SCST step: {out_rl}")
+    log(f"bf16 transformer SCST step (batch {BENCH_BATCH}): loss "
+        f"{out_rl['i2t_loss']:.6f}, avg_reward {out_rl['avg_reward']:.5f}, "
+        f"wall {ms_rl:.1f} ms")
+
+    # the transformer NMT's XE
+    n_losses, n_ms = [], []
+    for _ in range(BF16_TNMT_STEPS):
+        out, ms = timed(lambda: tnt.train(nbatch))
+        n_losses.append(out["total_loss"])
+        n_ms.append(ms)
+    walls["transformer NMT XE step"] = n_ms[-1]
+    if not all(np.isfinite(n_losses)):
+        raise AssertionError(f"bf16 transformer NMT XE: {n_losses}")
+    log(f"bf16 transformer NMT XE (batch {BENCH_BATCH}): losses " + ", ".join(
+        f"{v:.5f}" for v in n_losses) + ", walls (ms) " + ", ".join(
+        f"{v:.1f}" for v in n_ms))
+
+    # the transformer pivot through PivotService: the card rounds the
+    # features, so B4 runs f32 weights over bf16 memory and caches
+    svc = PivotService(tcap, tnmt, zh_vocab, tgt_itos, cap2nmt,
+                       cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
+                       nmt_max_len=NMT_MAX_LEN, max_batch=MAX_BATCH)
+    try:
+        answers = [None] * N_REQUESTS
+
+        def one(i):
+            answers[i] = svc.pivot(fc[i], att[i], timeout=600)
+
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(N_REQUESTS)]
+        t0 = time.perf_counter()
+        for w_ in workers:
+            w_.start()
+        for w_ in workers:
+            w_.join(600)
+        walls[f"transformer pivot, {N_REQUESTS} requests"] = (
+            time.perf_counter() - t0) * 1e3
+    finally:
+        svc.close()
+    if None in answers or not all(a["zh"] for a in answers):
+        raise AssertionError("bf16 transformer PivotService: a request "
+                             "unanswered or an empty caption")
+    # a bf16-feature greedy decode one layer a call (B4's layer kernel)
+    bfe = Features(fc_feats=to_bfloat16(fc[:BENCH_BATCH]).to(dev),
+                   att_feats=to_bfloat16(att[:BENCH_BATCH]).to(dev),
+                   att_masks=torch.ones((BENCH_BATCH, N_SLOTS), device=dev))
+    old_stack = tm.STACK_KERNEL
+    tm.STACK_KERNEL = False
+    try:
+        with torch.inference_mode():
+            seq, _ = tcap.sample(bfe, greedy=True)
+    finally:
+        tm.STACK_KERNEL = old_stack
+    log(f"bf16 transformer pivot: {N_REQUESTS} requests in "
+        f"{walls[f'transformer pivot, {N_REQUESTS} requests']:.1f} ms; a "
+        f"greedy decode of {BENCH_BATCH} rounded images one layer a call, "
+        f"{seq.shape[1]} steps")
+
+    # the raw-image loader's batch stored bf16 (B11)
+    imgs = torch.from_numpy(host_imgs).to(dev)
+    got = imk.resize_normalize(imgs, h_out=448, w_out=448,
+                               out_dtype=torch.bfloat16)
+    want = to_bfloat16(preprocess_images(host_imgs))
+    if not torch.equal(got.cpu().view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("B11 bf16 store: not bit for bit the host's "
+                             "rounding at the loader's identity size")
+    log(f"bf16 B11 store: {tuple(got.shape)} bf16 at the loader's identity "
+        "size, bit for bit to_bfloat16(preprocess_images)")
+    torch.cuda.synchronize()
+
+
+def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     """The bf16 compute dtype on the card (ROADMAP A15), through the entry
     points a user calls, with the launch counts of the bf16 entries set to
     0 just before and read just after:
@@ -8508,14 +9311,25 @@ def phase_bf16_path(dev, held: dict) -> dict:
       STEP_FUSION and BEAMS_KERNEL (B9a, B9c, B9b);
     - the lstm0 fragment through `blocked_lstm_chain` with a bf16 carry
       and weights (B10);
+    - the transformer captioner's XE with `dtype="bfloat16"` at batch 50:
+      BF16_STEPS steps on the default route (B6) with the loss falling,
+      one per sublayer (B5, B8) and one with whole decoder layers (B6 +
+      B7); one transformer SCST step (the sample and greedy decodes
+      through B4, every operand bf16); BF16_TNMT_STEPS transformer-NMT XE
+      steps; the transformer pivot through `PivotService` (the card
+      rounds the features: B4 over bf16 memory and caches), 40 requests,
+      and a bf16-feature greedy decode one layer a call (B4's layer
+      kernel); the raw-image loader's batch stored bf16 (B11);
     - card vs cpu at BF16_TOL: the joint step's loss and gradients on
       BF16_AGREE images (the cpu runs the same cast route's plain
-      versions on the same rounded features and bf16 copies), and the
-      pivot's teacher-forced logprobs on 4 images of rounded features;
-    - a transformer `Trainer` with "bfloat16" raises, naming B5-B8.
+      versions on the same rounded features and bf16 copies), the
+      transformer captioner's XE step the same way, and the pivot's
+      teacher-forced logprobs on 4 images of rounded features.
 
     Every (shape, mixture) given a kernel is held against the plain
-    version (`_hold_bf16`). Returns the bf16 launches by kernel record."""
+    version (`_hold_bf16`, `_hold_tf`: the transformer kernels on the
+    very inputs of the first call of each). Returns the bf16 launches by
+    kernel record."""
     import copy
 
     import torch
@@ -8536,6 +9350,14 @@ def phase_bf16_path(dev, held: dict) -> dict:
     from unpaired_image_captioning_tpu_torch.serve import PivotService
     from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
 
+    from unpaired_image_captioning_tpu_torch.kernels import image as imk
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.models import transformer as tm
+
     t_phase = time.perf_counter()
     counters = {"lstm_cell_bf16": (lk, "bf16_launches"),
                 "additive_attention_bf16": (aak, "bf16_launches"),
@@ -8543,8 +9365,22 @@ def phase_bf16_path(dev, held: dict) -> dict:
                                                   "beams_bf16_launches"),
                 "att_lstm_att_bf16": (aak, "step_bf16_launches"),
                 "lstm_chain_fwd_bf16": (lb, "fwd_bf16_launches"),
-                "lstm_chain_bwd_bf16": (lb, "bwd_bf16_launches")}
+                "lstm_chain_bwd_bf16": (lb, "bwd_bf16_launches"),
+                "ln_train_fwd_bf16": (lnk, "bf16_fwd_launches"),
+                "ln_train_bwd_bf16": (lnk, "bf16_bwd_launches"),
+                "mha_train_fwd_bf16": (mhk, "bf16_fwd_launches"),
+                "mha_train_bwd_bf16": (mhk, "bf16_bwd_launches"),
+                "enc_layer_train_fwd_bf16": (ltk, "bf16_enc_fwd_launches"),
+                "enc_layer_train_bwd_bf16": (ltk, "bf16_enc_bwd_launches"),
+                "dec_layer_train_fwd_bf16": (ltk, "bf16_dec_fwd_launches"),
+                "dec_layer_train_bwd_bf16": (ltk, "bf16_dec_bwd_launches"),
+                "transformer_decode_stack_bf16": (tdk,
+                                                  "bf16_stack_launches"),
+                "transformer_decode_layer_bf16": (tdk,
+                                                  "bf16_layer_launches"),
+                "image_front_end_bf16": (imk, "bf16_launches")}
     seen, walls = {}, {}
+    tf_seen, tf_args = {}, {}
     cfg = dict(JOINT_TRAIN, dtype="bfloat16")
     rs = np.random.RandomState(40)
     batch = make_joint_batch(rs, BENCH_BATCH)
@@ -8559,10 +9395,24 @@ def phase_bf16_path(dev, held: dict) -> dict:
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     fc, att = make_features(np.random.RandomState(41),
                             max(N_REQUESTS, BENCH_BATCH))
+    # the transformers: the captioner's XE and SCST trainers, the NMT's,
+    # and the full-width pivot
+    tcfg = dict(TRAIN, dtype="bfloat16")
+    ttr = Trainer(Config(**tcfg), device=dev)
+    tsc = Trainer(Config(**tcfg), device=dev, df_table=table)
+    tnt = Trainer(Config(**dict(TNMT_TRAIN, dtype="bfloat16")), device=dev)
+    tcap, tnmt = build_transformer_models(dev)
+    if not (ttr.cast and tsc.cast and tnt.cast):
+        raise AssertionError("dtype='bfloat16' on the card: a transformer "
+                             "Trainer without the cast route")
+    tbatch = make_train_batch(np.random.RandomState(43), BENCH_BATCH)
+    nbatch = make_nmt_batch(np.random.RandomState(44), BENCH_BATCH)
+    host_imgs = np.random.RandomState(45).randint(
+        0, 256, (16, 448, 448, 3)).astype(np.uint8)
     torch.cuda.synchronize()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
-    with _recording_bf16(seen):
+    with _recording_bf16(seen), _recording_tf(tf_seen, tf_args, tf_held):
         # the joint XE step
         losses, step_ms = [], []
         for _ in range(BF16_STEPS):
@@ -8660,6 +9510,9 @@ def phase_bf16_path(dev, held: dict) -> dict:
                    for v in (lw, lh0, lc0)):
             raise AssertionError("bf16 lstm0 fragment: a non-finite gradient")
         torch.cuda.synchronize()
+        _bf16_transformer_path(dev, ttr, tsc, tnt, tcap, tnmt, tbatch,
+                               nbatch, labels, zh_vocab, tgt_itos, cap2nmt,
+                               fc, att, host_imgs, walls)
     counts = {name: getattr(mod, attr)
               for name, (mod, attr) in counters.items()}
     log("bf16 path launches: " + ", ".join(f"{k} {v}"
@@ -8729,20 +9582,37 @@ def phase_bf16_path(dev, held: dict) -> dict:
         raise AssertionError(f"bf16 pivot card vs cpu: {errs}")
     del cap_c, nmt_c
 
-    # a transformer Trainer with bf16 on the card raises, naming B5-B8
+    # card vs cpu: the transformer captioner's bf16 XE step on two images
+    cfg_t = dict(tcfg, batch_size=BF16_AGREE, drop_prob_lm=0.0)
+    batch_t = make_train_batch(np.random.RandomState(46), BF16_AGREE)
+    old_drop = tm.DROPOUT
+    tm.DROPOUT = 0.0
+    res = {}
     try:
-        Trainer(Config(**dict(TRAIN, dtype="bfloat16")), device=dev)
-    except NotImplementedError as e:
-        names = ("B5", "B6", "B7", "B8")
-        if not all(k in str(e) for k in names):
-            raise AssertionError(f"the bf16 transformer's raise names "
-                                 f"no {names}: {e}")
-        log(f"bf16 transformer Trainer on the card raises: {e}")
-    else:
-        raise AssertionError("a transformer Trainer with dtype='bfloat16' "
-                             "on the card did not raise")
+        with _recording_tf(tf_seen, tf_args, tf_held):
+            for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+                tr = Trainer(Config(**cfg_t), device=d)
+                tr.cast = True   # the cpu runs the cast route's plain versions
+                res[name] = _cast_step_grads(tr, batch_t)
+                del tr
+    finally:
+        tm.DROPOUT = old_drop
+    (lg, _, gg), (lc, _, gc) = res["gpu"], res["cpu"]
+    loss_err = abs(lg - lc) / abs(lc)
+    g_err = _grads_agree("bf16 transformer XE step", gg, gc)
+    if not loss_err <= BF16_TOL:
+        raise AssertionError(f"bf16 transformer XE step: loss card {lg} vs "
+                             f"cpu {lc}")
+    log(f"bf16 agreement, transformer captioner XE step on {BF16_AGREE} "
+        f"images, card vs cpu (bf16 copies, rounded features, dropout 0, "
+        f"default route): loss {lg:.6f} vs {lc:.6f} (relative "
+        f"{loss_err:.3g}); {len(gc)} gradients, max|diff| / max(1, "
+        f"max|cpu|) {g_err:.3g} (tol {BF16_TOL})")
 
     done = _hold_bf16(dev, seen, held)
+    done.update(_hold_tf(tf_args))
+    for name, keys in sorted(tf_seen.items()):
+        log(f"bf16 path {name} (shape, mixture): {sorted(keys, key=str)}")
     for name, keys in sorted(seen.items()):
         log(f"bf16 path {name} (shape, mixture): {sorted(keys, key=str)}")
     log("bf16 path: held here against the plain versions: " + ", ".join(
@@ -8750,7 +9620,7 @@ def phase_bf16_path(dev, held: dict) -> dict:
     log("bf16 path walls (ms): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; phase {time.perf_counter() - t_phase:.1f} s")
-    del trainer, scst, cap, nmt
+    del trainer, scst, cap, nmt, ttr, tsc, tnt, tcap, tnmt
     torch.cuda.empty_cache()
     return counts
 
@@ -8815,6 +9685,8 @@ def main(argv=None) -> int:
     kernels.update(phase_chain_kernels(dev))
     bf16_rec, bf16_held = phase_bf16_kernels(dev, kernels)
     kernels.update(bf16_rec)
+    tf_rec, tf_held = phase_bf16_tf_kernels(dev, kernels)
+    kernels.update(tf_rec)
     mark("kernels vs plain")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
@@ -8929,7 +9801,7 @@ def main(argv=None) -> int:
     kernels["lstm_cell"]["shapes"] += scale_cells
     kernels["row_topk"]["shapes"] += scale_topk
     mark("scale-out (A14)")
-    bf16_counts = phase_bf16_path(dev, bf16_held)
+    bf16_counts = phase_bf16_path(dev, bf16_held, tf_held)
     mark("bf16 compute dtype (A15)")
     log_lead_in()
     log("phase seconds: " + ", ".join(

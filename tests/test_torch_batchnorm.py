@@ -69,9 +69,10 @@ def _trainers(tmp_path, monkeypatch, case, **extra):
     monkeypatch.setattr(jtr, "DROPOUT", 0.0)
     monkeypatch.setattr(ttr, "DROPOUT", 0.0)
     kw = dict(CASES[case], **extra)
-    # dtype f32: the JAX trainer otherwise rounds the features to bf16
+    # dtype f32 on both sides: the trainers otherwise round the features
+    # to bf16 (both defaults are "bfloat16")
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
-    pt = Trainer(TConfig(**kw), device="cpu")
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu")
     pt.i2t_model.load_state_dict(bridge.params_from_jax(jt.i2t_params))
     return jt, pt
 

@@ -13,9 +13,9 @@ off:
   `Trainer` with the same config does the same. The joint denseatt +
   BiLSTM NMT steps (the metrics of two SGD steps and the parameters after
   them) at the f32 tolerance TOL, as are the other trainer parity tests; one
-  transformer XE step at BF16_TOL: there the port widens the bf16
-  features to f32 before att_embed (the transformer kernels have no bf16
-  entry yet), where JAX's `linear` keeps them bf16 through the encoder;
+  transformer XE step at BF16_TOL: both keep the bf16 features bf16
+  through the encoder (`linear` returns its input's type), so its
+  activations are bf16 values;
 - (b) the cast route, what `Trainer._cast_compute` gives on a TPU: the
   JAX trees and features cast to bf16 by the test around
   `Trainer._loss_terms` (its `_cast_compute` is the identity on the CPU),
@@ -133,8 +133,7 @@ def _joint_extras():
 
 def test_config_fields_equal_jax():
     """Every field of the JAX Config, dtype and param_dtype included, plus
-    the port's own `device`; the dtype defaults differ until the
-    transformer kernels have bf16 entries (ROADMAP A15)."""
+    the port's own `device`; the dtype defaults are equal ("bfloat16")."""
     import dataclasses
 
     from unpaired_image_captioning_tpu.config import Config as JConfig
@@ -143,7 +142,7 @@ def test_config_fields_equal_jax():
     jf = {f.name for f in dataclasses.fields(JConfig)}
     tf = {f.name for f in dataclasses.fields(TConfig)}
     assert tf == jf | {"device"}
-    assert (TConfig().dtype, JConfig().dtype) == ("float32", "bfloat16")
+    assert TConfig().dtype == JConfig().dtype == "bfloat16"
     assert TConfig().param_dtype == JConfig().param_dtype == "float32"
     assert parse_opt(["--dtype", "bfloat16"]).dtype == "bfloat16"
     with pytest.raises(ValueError, match="bfloat16"):
@@ -289,8 +288,9 @@ def test_default_config_joint_steps_match_jax(tmp_path):
 
 def test_default_config_transformer_step_matches_jax(tmp_path,
                                                     monkeypatch):
-    """One transformer XE step from JAX's default config; BF16_TOL: the
-    port widens the bf16 features before att_embed (module doc)."""
+    """One transformer XE step from JAX's default config: bf16 features
+    through f32 weights, so a bf16 encoder on both sides; BF16_TOL, the
+    bf16 route's tolerance."""
     from unpaired_image_captioning_tpu.config import Config
     from unpaired_image_captioning_tpu.models import transformer as jtr
     from unpaired_image_captioning_tpu.train.trainer import Trainer as JT
@@ -611,10 +611,10 @@ def test_bf16_feature_lstm_pivot_matches_jax():
 
 
 def test_bf16_feature_transformer_beam_matches_jax():
-    """The transformer captioner's beam 3 on bf16 features: the port
-    widens them before att_embed, JAX's encoder keeps bf16 (module doc);
-    the tokens are identical all the same, and the logprobs that reach
-    the beam's top-k are f32 on both bf16-feature routes."""
+    """The transformer captioner's beam 3 on bf16 features: both encoders
+    keep them bf16 through f32 weights (`linear` keeps its input's type),
+    the tokens are identical, and the logprobs that reach the beam's top-k
+    are f32 on both bf16-feature routes."""
     import jax
 
     _, (jcap, jcp, _, _, jf), (tcap, _, tf) = _decode_setup("transformer")

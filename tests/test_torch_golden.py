@@ -195,7 +195,7 @@ def test_fc_golden_recipe_matches_jax(tmp_path, monkeypatch,
 
     jrun, trun = str(tmp_path / "jax_run"), str(tmp_path / "port_run")
     jcli.main(argv(jrun, dtype="float32"))
-    got = tcli.main(argv(trun, device="cpu"))
+    got = tcli.main(argv(trun, device="cpu", dtype="float32"))
     jt = made["jax"]
     assert got.iteration == jt.iteration == 121
     for model, params in ((got.i2t_model, jt.i2t_params),

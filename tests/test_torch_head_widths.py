@@ -157,7 +157,7 @@ def test_captioner_xe_steps_match_jax_trainer(tmp_path, monkeypatch, width):
               i2t_train_flag=True, i2t_max_grad_norm=5.0,
               i2t_learning_rate=5e-4, seed=7, i2t_optim_epsilon=1e-6)
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
-    pt = Trainer(TConfig(**kw), device="cpu")
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu")
     pt.i2t_model.load_state_dict(bridge.params_from_jax(jt.i2t_params))
     batch = _cap_batch()
     for _ in range(2):
@@ -248,7 +248,7 @@ def test_nmt_xe_steps_match_jax_trainer(tmp_path, monkeypatch, width):
               nmt_train_flag=True, nmt_optim="adam", nmt_learning_rate=5e-4,
               nmt_optim_epsilon=1e-6, seed=3)
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
-    pt = Trainer(TConfig(**kw), device="cpu")
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu")
     pt.nmt_model.load_state_dict(bridge.params_from_jax(jt.nmt_params))
     src, lengths, tgt = _nmt_batch(4)
     batch = {"nmt": {"src": src, "lengths": lengths, "tgt": tgt}}

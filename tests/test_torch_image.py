@@ -134,3 +134,32 @@ def test_cuda_identity_with_a_tail_is_preprocess_images_bit_for_bit(
                               h_out=21, w_out=17)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   io.preprocess_images(imgs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,h_out,w_out", [
+    ((16, 480, 640, 3), 448, 448), ((16, 448, 448, 3), 448, 448),
+    ((2, 12, 10, 3), 29, 31), ((2, 31, 45, 3), 17, 23)])
+def test_cuda_kernel_bf16_store_matches_plain(cuda_dev, shape, h_out, w_out):
+    """The bf16 store (`out_dtype=torch.bfloat16`): the f32 value rounded to
+    nearest even as it is stored, so at the identity size bit for bit the
+    host's `to_bfloat16(preprocess_images)`, elsewhere within 1e-2 of the
+    plain version; a bf16 launch."""
+    from unpaired_image_captioning_tpu_torch.data.dataloader import (
+        to_bfloat16)
+
+    host = _imgs(shape, 3)
+    imgs = torch.from_numpy(host).to(cuda_dev)
+    n0 = ik.bf16_launches
+    got = ik.resize_normalize(imgs, h_out=h_out, w_out=w_out,
+                              out_dtype=torch.bfloat16)
+    want = io.resize_normalize_plain(imgs, h_out=h_out, w_out=w_out,
+                                     out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ik.bf16_launches == n0 + 1 and got.dtype == torch.bfloat16
+    if shape[1:3] == (h_out, w_out):
+        assert torch.equal(got.cpu().view(torch.int16),
+                           to_bfloat16(io.preprocess_images(host))
+                           .view(torch.int16))
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)

@@ -296,3 +296,79 @@ def _card_weights(gen, dev, keys, d, f):
         w[k] = (1 + 0.1 * r if k.startswith("l") and k.endswith("s")
                 else r * (0.1 if k.startswith(("l", "b")) else d ** -0.5))
     return w
+
+
+def _bf16_scaled(got, want, tol=1e-2):
+    """bf16: each tensor max|diff| <= tol * max(1, max|plain|)."""
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        a, b = a.float(), b.float()
+        assert (a - b).abs().max().item() <= tol * max(1.0,
+                                                       b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d,f,heads", [(50, 196, 512, 512, 8),
+                                           (50, 16, 512, 2048, 8),
+                                           (3, 29, 30, 45, 5)])
+def test_cuda_enc_layer_bf16_matches_plain(cuda_dev, b, t, d, f, heads):
+    """The bf16 entry (x, the weights and g bf16) against the plain version
+    at rtol = atol = 1e-2 against each tensor's scale, the backward from
+    the kernel's residual x2 on its relu pattern; a bf16 launch each way."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(t)
+    bf = torch.bfloat16
+    x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev).to(bf)
+            for _ in range(2))
+    keep = torch.rand((b, 1, t), generator=gen, device=cuda_dev) > 0.2
+    keep[:, :, 0] = True
+    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+    seed = torch.tensor([4321], dtype=torch.int32, device=cuda_dev)
+    w = {k: v.to(bf) for k, v in _card_weights(gen, cuda_dev, lo.ENC_WEIGHTS,
+                                              d, f).items()}
+    kw = dict(n_heads=heads, rate=0.1)
+    before = (lk.bf16_enc_fwd_launches, lk.bf16_enc_bwd_launches)
+    out, saved = lk.enc_layer_fwd(x, maskadd, seed, w, **kw)
+    grads = lk.enc_layer_bwd(x, maskadd, seed, w, saved, g, **kw)
+    ws = [w[k] for k in lo.ENC_WEIGHTS]
+    ref, x2 = lo.enc_fwd_plain(x, maskadd, seed, *ws, **kw)
+    refs = lo.enc_bwd_plain(x, maskadd, seed, saved[0].to(bf), g, *ws, **kw,
+                            relu_active=saved[-1] > 0)
+    torch.cuda.synchronize()
+    assert (lk.bf16_enc_fwd_launches, lk.bf16_enc_bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert saved[0].dtype == torch.float32 and out.dtype == bf
+    _bf16_scaled((out, saved[0]) + grads, (ref, x2.float()) + refs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,d,f,heads", [(50, 17, 196, 512, 512, 8),
+                                             (3, 9, 70, 30, 45, 5)])
+def test_cuda_dec_layer_bf16_matches_plain(cuda_dev, b, t, s, d, f, heads):
+    """The decoder layer's bf16 entry, as the encoder's."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(s)
+    bf = torch.bfloat16
+    x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev).to(bf)
+            for _ in range(2))
+    mk, mv = (torch.randn((b, s, d), generator=gen, device=cuda_dev).to(bf)
+              for _ in range(2))
+    pos = torch.arange(t, device=cuda_dev)
+    tm = torch.where((pos[None, :] <= pos[:, None])[None].expand(b, t, t),
+                     0.0, -1e9).contiguous()
+    keep = torch.rand((b, 1, s), generator=gen, device=cuda_dev) > 0.2
+    keep[:, :, 0] = True
+    sm = torch.where(keep, 0.0, -1e9).contiguous()
+    seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                         device=cuda_dev)
+    w = {k: v.to(bf) for k, v in _card_weights(gen, cuda_dev, lo.DEC_WEIGHTS,
+                                              d, f).items()}
+    kw = dict(n_heads=heads, rate=0.1)
+    out, saved = lk.dec_layer_fwd(x, mk, mv, tm, sm, seeds, w, **kw)
+    grads = lk.dec_layer_bwd(x, mk, mv, tm, sm, seeds, w, saved, g, **kw)
+    ws = [w[k] for k in lo.DEC_WEIGHTS]
+    ref, x2, x3 = lo.dec_fwd_plain(x, mk, mv, tm, sm, seeds, *ws, **kw)
+    refs = lo.dec_bwd_plain(x, mk, mv, tm, sm, seeds, saved[0].to(bf),
+                            saved[1].to(bf), g, *ws, **kw,
+                            relu_active=saved[-1] > 0)
+    torch.cuda.synchronize()
+    _bf16_scaled((out, saved[0], saved[1]) + grads,
+                 (ref, x2.float(), x3.float()) + refs)

@@ -127,3 +127,34 @@ def test_cuda_ln_train_any_width(cuda_dev, rows, d):
         assert (got - want).abs().max().item() <= tol
     for a, c in zip(grads, again):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", [("bf16", "bf16"), ("bf16", "f32")],
+                         ids="/".join)
+@pytest.mark.parametrize("b,t,d", [(50, 196, 512), (50, 17, 512),
+                                   (3, 5, 100)])
+def test_cuda_ln_train_bf16_matches_plain(cuda_dev, b, t, d, mix):
+    """The bf16 entries (x and g bf16, scale / offset bf16 or f32) against
+    the plain version at rtol = atol = 1e-2: y and dx in x's type,
+    d_scale / d_offset in scale's; a bf16 launch each way."""
+    tx, tp = (torch.bfloat16 if m == "bf16" else torch.float32 for m in mix)
+    gen = torch.Generator(device=cuda_dev).manual_seed(t)
+    x = (torch.randn((b, t, d), generator=gen, device=cuda_dev) * 3 + 1
+         ).to(tx)
+    scale = torch.randn((d,), generator=gen, device=cuda_dev).to(tp)
+    offset = torch.randn((d,), generator=gen, device=cuda_dev).to(tp)
+    g = torch.randn((b, t, d), generator=gen, device=cuda_dev).to(tx)
+    before = (lk.bf16_fwd_launches, lk.bf16_bwd_launches)
+    y = lk.ln_train_fwd(x, scale, offset)
+    grads = lk.ln_train_bwd(x, scale, g)
+    refs = (lo.ln_train_plain(x, scale, offset),) + lo.ln_train_plain_bwd(
+        x, scale, g)
+    torch.cuda.synchronize()
+    assert (lk.bf16_fwd_launches, lk.bf16_bwd_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    for got, want in zip((y,) + grads, refs):
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2 * max(1.0, want.abs().max()
+                                                   .item()))

@@ -202,3 +202,47 @@ def test_cuda_mha_train_matches_plain(cuda_dev, b, t, s, mask_rows, dh):
     assert torch.equal(out, out2) and torch.equal(stats, stats2)
     for a, c in zip(grads, again):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,mask_rows,dh", [(50, 196, 196, 1, 64),
+                                                (50, 17, 196, 1, 64),
+                                                (50, 17, 17, 17, 64),
+                                                (50, 16, 16, 1, 64),
+                                                (3, 40, 70, 40, 128),
+                                                (2, 37, 99, 37, 256),
+                                                (2, 37, 70, 37, 6),
+                                                (2, 33, 45, 33, 384)])
+def test_cuda_mha_train_bf16_matches_plain(cuda_dev, b, t, s, mask_rows, dh):
+    """The bf16 entry (q, k, v and g bf16; the bf16 cast points) against the
+    plain version at rtol = atol = 1e-2 against each output's scale, every
+    bucket, the 4-byte-copy instance and column chunks; a bf16 launch each
+    way."""
+    n_heads, rate = 8, 0.1
+    d = n_heads * dh
+    bf = torch.bfloat16
+    gen = torch.Generator(device=cuda_dev).manual_seed(t + s)
+    q, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev).to(bf)
+            for _ in range(2))
+    k, v = (torch.randn((b, s, d), generator=gen, device=cuda_dev).to(bf)
+            for _ in range(2))
+    keep = torch.rand((b, mask_rows, s), generator=gen, device=cuda_dev) > 0.2
+    keep[:, :, 0] = True
+    maskadd = torch.where(keep, 0.0, -1e9).contiguous()
+    seed = torch.tensor([4321], dtype=torch.int32, device=cuda_dev)
+    kw = dict(n_heads=n_heads, rate=rate)
+    before = (mk.bf16_fwd_launches, mk.bf16_bwd_launches)
+    out, stats = mk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+    grads = mk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, **kw)
+    ref = mo.mha_train_plain(q, k, v, maskadd, seed, **kw)
+    ref_stats = mo.softmax_stats(q, k, maskadd, n_heads=n_heads)
+    refs = mo.mha_train_plain_bwd(q, k, v, maskadd, seed, g, **kw)
+    torch.cuda.synchronize()
+    assert (mk.bf16_fwd_launches, mk.bf16_bwd_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    for got, want in zip((out, stats[0], stats[1]) + grads,
+                         (ref, ref_stats[0], ref_stats[1]) + refs):
+        assert got.dtype == want.dtype
+        got, want = got.float(), want.float()
+        assert ((got - want).abs().max().item()
+                <= 1e-2 * max(1.0, want.abs().max().item()))

@@ -156,7 +156,9 @@ def _mesh_worker(rank, world, mesh_shape, specs, ckpt_dir):
         if scst is not None:
             df, n_img, gen, greedy = scst
             kw["df_table"] = tc.build_df_table(df, n_img, device="cpu")
-        tr = Trainer(TConfig(**dict(cfg, checkpoint_path=ckpt_dir)),
+        # dtype f32 as on the JAX side (both defaults are "bfloat16")
+        tr = Trainer(TConfig(**dict(cfg, checkpoint_path=ckpt_dir,
+                                    dtype="float32")),
                      device="cpu", mesh=mesh, **kw)
         with tr.whole_params():
             for key, model in tr._models():
@@ -544,8 +546,8 @@ def test_2x2_checkpoint_loads_into_one_device_trainer(four_rank, scenarios):
 
     result, ckpt = four_rank
     cfg, _, extra, _, teacher, _ = scenarios["joint"][0]
-    tr = Trainer(TConfig(**dict(cfg, checkpoint_path=ckpt)), device="cpu",
-                 **_port_extras(extra, cfg, teacher))
+    tr = Trainer(TConfig(**dict(cfg, checkpoint_path=ckpt, dtype="float32")),
+                 device="cpu", **_port_extras(extra, cfg, teacher))
     infos = tr.load()
     assert infos["iter"] == tr.iteration == 2
     assert len(infos["data_generators"]) == 2

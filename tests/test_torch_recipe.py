@@ -3,7 +3,7 @@
 `Trainer.save` / `load`) on synthetic artifacts at tiny widths.
 
 - Against the JAX CLI on the same argv (plus `--device cpu` for the
-  port, and `--dtype float32` for JAX, whose trainer otherwise rounds the
+  port, and `--dtype float32` for both, whose trainers otherwise round the
   features to bf16 on the host before upload, on the CPU too): denseatt
   jointly with the BiLSTM NMT under Weight_Trans and Weight_Trans_y, XE
   only, every dropout 0, no scheduled sampling, Adam on both models with
@@ -182,7 +182,7 @@ def test_cli_matches_jax_cli(assets, monkeypatch):
     kw = dict(fmt="h5")
     jrun, trun = str(tmp / "jax_run"), str(tmp / "port_run")
     jcli.main(assets["argv"](jrun, **kw) + ["--dtype", "float32"])
-    got = tcli.main(_port(assets["argv"](trun, **kw)))
+    got = tcli.main(_port(assets["argv"](trun, **kw)) + ["--dtype", "float32"])
     jt = made["jax"]
     assert got.iteration == jt.iteration == 7
     for model, params in ((got.i2t_model, jt.i2t_params),
@@ -312,8 +312,9 @@ def test_unported_cli_options_raise(assets, flag, item):
     (tests/test_torch_prefetch.py holds the run against one without).
     Scale-out (A14): `--num_devices 2` trains on two CPU ranks over gloo,
     and its final checkpoint equals the one-device run's within 1e-5."""
+    # dtype f32: the f32 tolerance below (the default is "bfloat16")
     argv = _port(assets["argv"](str(assets["tmp"] / f"x_{flag}"),
-                                **{flag: 2}, max_epochs=1))
+                                **{flag: 2}, max_epochs=1, dtype="float32"))
     if flag == "input_workers":
         trainer = tcli.main(argv)
         assert trainer.epoch == 1 and trainer.iteration == 3
@@ -321,7 +322,8 @@ def test_unported_cli_options_raise(assets, flag, item):
     summary = tcli.main(argv)
     assert summary["epoch"] == 1 and summary["iter"] == 3
     one = str(assets["tmp"] / "x_one_device")
-    tcli.main(_port(assets["argv"](one, num_devices=1, max_epochs=1)))
+    tcli.main(_port(assets["argv"](one, num_devices=1, max_epochs=1,
+                                   dtype="float32")))
     for name in ("model_i2t", "model_nmt"):
         got = torch.load(os.path.join(assets["tmp"], f"x_{flag}",
                                       f"{name}.pt"), weights_only=True)
@@ -375,7 +377,7 @@ def test_featured_corpus_raises(assets, tmp_path, monkeypatch):
               max_epochs=1)
     jrun, trun = str(tmp_path / "jax_run"), str(tmp_path / "port_run")
     jcli.main(assets["argv"](jrun, **kw) + ["--dtype", "float32"])
-    got = tcli.main(_port(assets["argv"](trun, **kw)))
+    got = tcli.main(_port(assets["argv"](trun, **kw)) + ["--dtype", "float32"])
     assert got.cfg.nmt_src_feature_sizes == made["jax"].cfg \
         .nmt_src_feature_sizes == (3, 5)
     want = bridge.params_from_jax(jax.tree.map(np.asarray,
@@ -426,9 +428,8 @@ def test_parse_opt_matches_jax():
     got = tconfig.parse_opt(ARGV + ["--device", "cpu"]).to_dict()
     want = jconfig.parse_opt(ARGV).to_dict()
     assert got.pop("device") == "cpu"
-    # the compute dtype's default: f32 in the port until the transformer
-    # kernels have bf16 entries, bf16 in JAX (ROADMAP A15)
-    assert (got.pop("dtype"), want.pop("dtype")) == ("float32", "bfloat16")
+    # the compute dtype's default: bf16 in both (ROADMAP A15)
+    assert got.pop("dtype") == want.pop("dtype") == "bfloat16"
     assert got["mesh_shape"] == "data"
     assert got == want
     assert got["checkpoint_path"] == "save/x" and got["gpus"] == [0, 1]

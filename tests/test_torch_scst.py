@@ -323,10 +323,11 @@ def test_scst_steps_match_jax_trainer(tmp_path, monkeypatch, family):
     batch, df, n_img = _scst_batch()
     gen, greedy = _seqs(batch["gts"])
     kw = FAMILIES[family]
-    # dtype f32: the JAX trainer otherwise rounds the features to bf16
+    # dtype f32 on both sides: the trainers otherwise round the features
+    # to bf16 (both defaults are "bfloat16")
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)),
             df_table=jc.build_df_table(df, n_img))
-    pt = Trainer(TConfig(**kw), device="cpu",
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu",
                  df_table=tc.build_df_table(df, n_img, device="cpu"))
     pt.i2t_model.load_state_dict(bridge.params_from_jax(jt.i2t_params))
 
@@ -366,7 +367,7 @@ def test_scst_trains_with_real_samples(family):
     batch, df, n_img = _scst_batch()
     kw = dict(FAMILIES[family], i2t_optim="sgd", i2t_learning_rate=1.0)
     for table in ("prepro", "empty"):
-        tr = Trainer(TConfig(**kw), device="cpu", df_table=(
+        tr = Trainer(TConfig(**kw, dtype="float32"), device="cpu", df_table=(
             tc.build_df_table(df, n_img, device="cpu")
             if table == "prepro" else None))
         before = [p.detach().clone() for p in tr.i2t_model.parameters()]

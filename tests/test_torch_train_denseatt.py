@@ -68,9 +68,10 @@ def test_xe_steps_match_jax_trainer(tmp_path, monkeypatch, train_kernel):
 
     monkeypatch.setattr(aak, "additive_attention", spy)
     kw = dict(CFG, drop_prob_lm=0.0, i2t_optim_epsilon=1e-6)
-    # dtype f32: the JAX trainer otherwise rounds the features to bf16
+    # dtype f32 on both sides: the trainers otherwise round the features
+    # to bf16 (both defaults are "bfloat16")
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)))
-    pt = Trainer(TConfig(**kw), device="cpu")
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu")
     pt.i2t_model.load_state_dict(bridge.params_from_jax(jt.i2t_params))
     batch = _batch()
     cells0, att0 = lk.launches, aak.launches

@@ -236,10 +236,11 @@ def test_nmt_steps_match_jax_trainer(tmp_path, monkeypatch, case):
         extra_t = dict(joint_vocab=(cap_rows, src_rows),
                        joint_vocab_y=(table, table_rows, tgt_rows),
                        nmt_teacher=bridge.params_from_jax(teacher))
-    # dtype f32: the JAX trainer otherwise rounds the features to bf16
+    # dtype f32 on both sides: the trainers otherwise round the features
+    # to bf16 (both defaults are "bfloat16")
     jt = JT(Config(**kw, dtype="float32", checkpoint_path=str(tmp_path)),
             **extra_j)
-    pt = Trainer(TConfig(**kw), device="cpu", **extra_t)
+    pt = Trainer(TConfig(**kw, dtype="float32"), device="cpu", **extra_t)
     pt.nmt_model.load_state_dict(bridge.params_from_jax(jt.nmt_params))
     if joint:
         pt.i2t_model.load_state_dict(bridge.params_from_jax(jt.i2t_params))
@@ -284,7 +285,7 @@ def test_every_nmt_parameter_gets_a_gradient(case):
     attention key biases of the transformer excepted: their gradient is
     zero in exact arithmetic)."""
     kw = dict(NMT, **CASES[case], nmt_optim="sgd", nmt_learning_rate=1.0)
-    tr = Trainer(TConfig(**kw), device="cpu")
+    tr = Trainer(TConfig(**kw, dtype="float32"), device="cpu")
     before = {k: v.detach().clone()
               for k, v in tr.nmt_model.state_dict().items()}
     out = tr.train({"nmt": _nmt_batch()})

@@ -426,3 +426,51 @@ def test_cuda_decoder_step_rejects_bad_input(cuda_dev):
     with pytest.raises(ValueError, match="heads"):
         tdk.decoder_stack_step(a["x"], a["t"], a["ck"], a["cv"], a["mask"],
                                a["kc"], a["vc"], a["w"], n_heads=3)
+
+
+def _scaled(got, want, tol=1e-2):
+    """bf16: max|diff| <= tol * max(1, max|plain|), types equal."""
+    assert got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert ((got - want).abs().max().item()
+            <= tol * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", tdk.MIXTURES[1:], ids="/".join)
+@pytest.mark.parametrize("case", ["caption", "scst_batch50_kb1", "nmt",
+                                  "t_outside", "d30"])
+def test_cuda_decoder_step_bf16_matches_plain(cuda_dev, case, mix):
+    """The bf16 entries (x, the weights, the caches, the memory each f32 or
+    bf16: `tdk.MIXTURES`) against the plain version at rtol = atol = 1e-2
+    against the output's scale, stack and layer, each counted as a bf16
+    launch."""
+    bsz, kb, n_t, slots, d, dff, heads, lazy, edit = CUDA_CASES[case]
+    a = _edit(_card_inputs(cuda_dev, bsz, kb, 2, n_t, slots, d, dff, lazy),
+              edit, n_t)
+    tx, tw, tc, tm = (torch.bfloat16 if m == "bf16" else torch.float32
+                      for m in mix)
+    w = {k: v.to(tw) for k, v in a["w"].items()}
+    x, ck, cv = a["x"].to(tx), a["ck"].to(tm), a["cv"].to(tm)
+    kc, vc = a["kc"].to(tc), a["vc"].to(tc)
+    before = tdk.bf16_stack_launches
+    got = tdk.decoder_stack_step(x, a["t"], ck, cv, a["mask"], kc.clone(),
+                                 vc.clone(), w, a["anc"], n_heads=heads,
+                                 want_attn=lazy)
+    want = td.decoder_stack_step_plain(x, a["t"], ck, cv, a["mask"],
+                                       kc.clone(), vc.clone(), w, a["anc"],
+                                       n_heads=heads, want_attn=lazy)
+    torch.cuda.synchronize()
+    assert tdk.bf16_stack_launches == before + 1
+    for g_, w_ in zip(got, want):
+        _scaled(g_, w_)
+    w0 = {k: v[0].contiguous() for k, v in w.items()}
+    args = (x, a["t"], ck[0].contiguous(), cv[0].contiguous(), a["mask"])
+    got = tdk.decoder_layer_step(*args, kc[:, 0].contiguous(),
+                                 vc[:, 0].contiguous(), w0, n_heads=heads)
+    want = td.decoder_layer_step_plain(*args, kc[:, 0].contiguous(),
+                                       vc[:, 0].contiguous(), w0,
+                                       n_heads=heads)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        _scaled(g_, w_)

@@ -13,16 +13,14 @@ Mirrors the reference's three config idioms (SURVEY.md §5.6):
    prefix (reference ``misc/utils.py:35-40``).
 
 Field names and defaults are the JAX package's, so recipes port 1:1, with
-two differences: `device` (the port's own: where the CLIs build, "cuda"
+one addition: `device` (the port's own: where the CLIs build, "cuda"
 unless the caller names another; `num_devices` counts ranks on its kind
-of device, 0 being every visible card: `parallel.launch.num_ranks`), and
-the default of `dtype`, "float32" where JAX's is "bfloat16". `dtype` is the
-compute dtype: with "bfloat16" the trainer rounds the features to bf16 on
-the host, and on a card it computes with bf16 copies of its f32 master
-parameters (`train/trainer.py`). The transformer kernels have no bf16
-entry yet, so a bf16 transformer `Trainer` on a card raises; the default
-stays f32 until they have one. `param_dtype` is kept and read by nothing,
-as in JAX. The port's entry points read a config by attribute, so a JAX
+of device, 0 being every visible card: `parallel.launch.num_ranks`).
+`dtype` is the compute dtype, "bfloat16" by default as in JAX: with
+"bfloat16" the trainer rounds the features to bf16 on the host, and on a
+card it computes with bf16 copies of its f32 master parameters
+(`train/trainer.py`); "float32" is the parity route. `param_dtype` is
+kept and read by nothing, as in JAX. The port's entry points read a config by attribute, so a JAX
 `Config` works as well as this one.
 """
 
@@ -238,7 +236,7 @@ class Config:
     gpus: List[int] = field(default_factory=list)  # kept for CLI parity; ignored
     num_devices: int = 0                  # 0 = all visible devices
     mesh_shape: str = "data"              # parallel axis spec, see parallel/mesh.py
-    dtype: str = "float32"                # compute dtype: float32 | bfloat16
+    dtype: str = "bfloat16"               # compute dtype: bfloat16 | float32
     param_dtype: str = "float32"          # the masters' dtype (read by nothing)
     # where the CLIs build the models and run the steps (the port's own)
     device: str = "cuda"

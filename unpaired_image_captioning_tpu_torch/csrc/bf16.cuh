@@ -14,6 +14,7 @@
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace uic_bf16 {
 
@@ -82,6 +83,43 @@ __device__ __forceinline__ void stf(void* p, size_t i, float v, bool bf) {
     reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
   else
     reinterpret_cast<float*>(p)[i] = v;
+}
+
+// the bf16 bits of v (round to nearest even), in the low 16 bits
+__device__ __forceinline__ unsigned bits(float v) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// elements i .. i + 3 (i a multiple of 4; a bf16 array 8-byte aligned, an
+// f32 one 16-byte aligned), rounded where the array is bf16
+__device__ __forceinline__ void st4(void* p, size_t i, float4 v, bool bf) {
+  if (bf) {
+    *reinterpret_cast<uint2*>(reinterpret_cast<unsigned short*>(p) + i) =
+        make_uint2(bits(v.x) | bits(v.y) << 16, bits(v.z) | bits(v.w) << 16);
+  } else {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(p) + i) = v;
+  }
+}
+
+// v rounded to bf16 and back where `rnd` (a cast point of a bf16
+// computation whose value stays in an f32 buffer), else v
+__device__ __forceinline__ float rnd_if(float v, bool rnd) {
+  return rnd ? round_bf16(v) : v;
+}
+
+__device__ __forceinline__ float4 rnd4_if(float4 v, bool rnd) {
+  return rnd ? make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                           round_bf16(v.w))
+             : v;
+}
+
+// a finite v rounded to bf16 (nearest even) on the host, as a value
+inline float host_round_bf16(float v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  u = (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+  memcpy(&v, &u, 4);
+  return v;
 }
 
 }  // namespace uic_bf16

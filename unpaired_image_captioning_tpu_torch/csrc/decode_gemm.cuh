@@ -29,6 +29,10 @@
 // 0..CS-1, and runs the epilogue on them (as lstm_cell.cu does). No
 // scratch, no atomics: a rerun gives the same bits.
 //
+// Types. W may be bf16 (the compute dtype): its tile is then converted as
+// it loads, by the threads (not cp.async), into the same f32 tile; the
+// products stay f32 FMA.
+//
 // Widths. Where K, N and lda are multiples of 4 and A and W 16-byte
 // aligned, the tiles land by 16-byte copies and the epilogue takes float4
 // (V4); any other shape (a d_ff of 510, an odd hidden width) runs the
@@ -40,6 +44,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "bf16.cuh"
 #include "gemm.cuh"   // the epilogues, gemm_sm_count()
 
 namespace uic_decode {
@@ -85,9 +90,10 @@ __device__ __forceinline__ void dg_wait() {
 
 struct DecodeGemm {
   const float* a;
-  const float* w;
+  const void* w;       // f32, or bf16 where wbf
   int lda, M, N, K;
   int k_slice;         // K rows a cluster rank reduces (a multiple of BK)
+  int wbf = 0;         // W stored as bf16: converting loads (bf16.cuh)
 };
 
 // A and W rows [k0, k0 + BK) of the tile into one stage, both row-major
@@ -99,6 +105,35 @@ __device__ __forceinline__ void dg_load_stage(float* As, const DecodeGemm& p,
                                               int k_end) {
   float* Ws = As + DG_A_FLOATS;
   const int tid = threadIdx.x;
+  if (p.wbf) {
+    // A by cp.async as below; a bf16 W tile by the threads themselves,
+    // converted as it loads (four at a time where V4: 8-byte rows)
+    constexpr int W = V4 ? 4 : 1;
+    for (int e = tid; e < DG_BM * DG_BK / W; e += DG_THREADS) {
+      const int row = e / (DG_BK / W), kk = (e % (DG_BK / W)) * W;
+      const int r = m0 + row, k = k0 + kk;
+      const bool ok = r < p.M && k < k_end;
+      const float* src = ok ? p.a + (size_t)r * p.lda + k : p.a;
+      if constexpr (V4)
+        dg_cp16(As + row * DG_A_LD + kk, src, ok);
+      else
+        dg_cp4(As + row * DG_A_LD + kk, src, ok);
+    }
+    for (int e = tid; e < DG_BK * DG_BN / W; e += DG_THREADS) {
+      const int kk = e / (DG_BN / W), c = (e % (DG_BN / W)) * W;
+      const int k = k0 + kk, n = n0 + c;
+      const bool ok = k < k_end && n < p.N;
+      const size_t i = (size_t)k * p.N + n;
+      if constexpr (V4)
+        *reinterpret_cast<float4*>(Ws + kk * DG_BN + c) =
+            ok ? uic_bf16::ld4t<true>(p.w, i)
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      else
+        Ws[kk * DG_BN + c] = ok ? uic_bf16::ldt<true>(p.w, i) : 0.0f;
+    }
+    return;
+  }
+  const float* pw = static_cast<const float*>(p.w);
   if (!V4) {
     for (int e = tid; e < DG_BM * DG_BK; e += DG_THREADS) {
       const int row = e / DG_BK, kk = e % DG_BK;
@@ -111,7 +146,7 @@ __device__ __forceinline__ void dg_load_stage(float* As, const DecodeGemm& p,
       const int kk = e / DG_BN, c = e % DG_BN;
       const int k = k0 + kk, n = n0 + c;
       const bool ok = k < k_end && n < p.N;
-      dg_cp4(Ws + kk * DG_BN + c, ok ? p.w + (size_t)k * p.N + n : p.w, ok);
+      dg_cp4(Ws + kk * DG_BN + c, ok ? pw + (size_t)k * p.N + n : pw, ok);
     }
     return;
   }
@@ -128,7 +163,7 @@ __device__ __forceinline__ void dg_load_stage(float* As, const DecodeGemm& p,
     const int kk = e / (DG_BN / 4), c = (e % (DG_BN / 4)) * 4;
     const int k = k0 + kk, n = n0 + c;
     const bool ok = k < k_end && n < p.N;
-    dg_cp16(Ws + kk * DG_BN + c, ok ? p.w + (size_t)k * p.N + n : p.w, ok);
+    dg_cp16(Ws + kk * DG_BN + c, ok ? pw + (size_t)k * p.N + n : pw, ok);
   }
 }
 
@@ -305,14 +340,16 @@ int decode_gemm_as(const DecodeGemm& p, int cs, const Epi& epi,
   return (int)cudaGetLastError();
 }
 
-// C = epi(a [M, K] . w [K, N]) on `st`; returns the launch error.
+// C = epi(a [M, K] . w [K, N]) on `st`; returns the launch error. wbf: w
+// is bf16 (the A operand is always f32).
 template <class Epi>
-int decode_gemm(const float* a, int lda, const float* w, int M, int N, int K,
-                const Epi& epi, cudaStream_t st, int rank_tiles = 2) {
+int decode_gemm(const float* a, int lda, const void* w, int M, int N, int K,
+                const Epi& epi, cudaStream_t st, int rank_tiles = 2,
+                int wbf = 0) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   const int cs = dg_cluster(M, N, K, rank_tiles);
   DecodeGemm p{a, w, lda, M, N, K,
-               dg_cdiv(dg_cdiv(K, DG_BK), cs) * DG_BK};
+               dg_cdiv(dg_cdiv(K, DG_BK), cs) * DG_BK, wbf};
   const bool v4 = K % 4 == 0 && N % 4 == 0 && lda % 4 == 0 &&
                   ((size_t)a | (size_t)w) % 16 == 0;
   return v4 ? decode_gemm_as<Epi, true>(p, cs, epi, st)

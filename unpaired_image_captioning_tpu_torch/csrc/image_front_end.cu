@@ -1,10 +1,13 @@
-// Image front end, f32 out: the Hopper counterpart of the TPU kernel
-// unpaired_image_captioning_tpu/ops/image.py::_front_end_kernel.
+// Image front end, f32 or bf16 out: the Hopper counterpart of the TPU
+// kernel unpaired_image_captioning_tpu/ops/image.py::_front_end_kernel.
 //
 //   out[b, oh, ow, c] = (sum_h sum_w Rh[oh, h] Rw[ow, w] img[b, h, w, c] / 255
 //                        - mean[c]) / std[c]
 //
-// img is uint8 [B, H, W, C], out f32 [B, Ho, Wo, C], both contiguous. Rh and
+// img is uint8 [B, H, W, C], out [B, Ho, Wo, C], both contiguous. out is
+// f32, or bf16 (`out_dtype` of the TPU kernel's wrapper): every value is
+// computed in f32 as below and rounded to nearest even as it is stored
+// (bf16.cuh), four to an 8-byte store. Rh and
 // Rw are the bilinear matrices of `_interp_matrix` (half-pixel centres,
 // clamped edges). Each of their rows has at most two non-zero weights, so
 // the wrapper hands the kernel each output row's and column's two taps (an
@@ -63,7 +66,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
+
 namespace {
+
+using uic_bf16::st4;
+using uic_bf16::stf;
 
 constexpr int FE_THREADS = 384;  // a multiple of 3 (the channel phase)
 constexpr int FE_ROWS = 8;       // output rows a block at most
@@ -78,7 +86,8 @@ struct FeArgs {
   const float* col_w;     // [Wo, 2]
   const float* mean;      // [C]
   const float* stdv;      // [C]
-  float* out;
+  void* out;              // f32, or bf16 where obf
+  int obf;
   int H, W, C, Ho, Wo;
   int rows;    // output rows a block
   int bpi;     // blocks an image: ceil(Ho / rows)
@@ -225,7 +234,7 @@ front_end_kernel(const __grid_constant__ FeArgs p) {
   // 2. the block's nr rows of Wo * C outputs, a contiguous stretch of out
   const int n_row = Wo * C;
   const size_t seg0 = ((size_t)b * p.Ho + oh0) * n_row;
-  float* o = p.out + seg0;
+  const bool obf = p.obf;
   const long long L = (long long)nr * n_row;
   if (CC == 3 && n_row % 4 == 0) {
     // float4 f holds elements 4f .. 4f + 3: pixel 4f / 3 of the stretch,
@@ -256,8 +265,8 @@ front_end_kernel(const __grid_constant__ FeArgs p) {
       for (int k = 0; k < 4; ++k)
         v[k] = fe_value(r0, r1, r.z, r.w, nx[k] ? tb : ta, ck[k], mu[k],
                         sd[k]);
-      *reinterpret_cast<float4*>(o + 4 * (size_t)f) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      st4(p.out, seg0 + 4 * (size_t)f, make_float4(v[0], v[1], v[2], v[3]),
+          obf);
       ow += 4 * FE_THREADS / 3;
       while (ow >= Wo) {
         ow -= Wo;
@@ -280,7 +289,8 @@ front_end_kernel(const __grid_constant__ FeArgs p) {
   };
   const long long head = min(L, (long long)((4 - seg0 % 4) % 4));
   const long long n4 = (L - head) / 4;
-  for (long long e = tid; e < head; e += FE_THREADS) o[e] = at(e);
+  for (long long e = tid; e < head; e += FE_THREADS)
+    stf(p.out, seg0 + e, at(e), obf);
   for (long long f = tid; f < n4; f += FE_THREADS) {
     const long long e = head + 4 * f;
     int i = (int)(e / n_row), w = (int)(e - (long long)i * n_row);
@@ -297,9 +307,10 @@ front_end_kernel(const __grid_constant__ FeArgs p) {
         }
       }
     }
-    *reinterpret_cast<float4*>(o + e) = make_float4(v[0], v[1], v[2], v[3]);
+    st4(p.out, seg0 + e, make_float4(v[0], v[1], v[2], v[3]), obf);
   }
-  for (long long e = head + 4 * n4 + tid; e < L; e += FE_THREADS) o[e] = at(e);
+  for (long long e = head + 4 * n4 + tid; e < L; e += FE_THREADS)
+    stf(p.out, seg0 + e, at(e), obf);
 }
 
 template <typename K>
@@ -318,16 +329,18 @@ int launch(K kernel, const FeArgs& a, size_t smem, int B,
 
 extern "C" {
 
-// img uint8 [B, H, W, C]; out f32 [B, Ho, Wo, C] (16-byte aligned); tap
-// tables as above
-int image_front_end_f32(const uint8_t* img, const int* row_idx,
-                        const float* row_w, const int* col_idx,
-                        const float* col_w, const float* mean,
-                        const float* stdv, float* out, int B, int H, int W,
-                        int C, int Ho, int Wo, void* stream) {
-  if (B <= 0 || Ho <= 0 || Wo <= 0 || C <= 0 || ((uintptr_t)out & 15))
+// img uint8 [B, H, W, C]; out [B, Ho, Wo, C], f32 (16-byte aligned) or,
+// with obf, bf16 (8-byte aligned; each value rounded to nearest even as
+// it is stored); tap tables as above
+int image_front_end_mixed(const uint8_t* img, const int* row_idx,
+                          const float* row_w, const int* col_idx,
+                          const float* col_w, const float* mean,
+                          const float* stdv, void* out, int B, int H, int W,
+                          int C, int Ho, int Wo, int obf, void* stream) {
+  if (B <= 0 || Ho <= 0 || Wo <= 0 || C <= 0 ||
+      ((uintptr_t)out & (obf ? 7 : 15)))
     return (int)cudaErrorInvalidValue;
-  FeArgs a{img, row_idx, row_w, col_idx, col_w, mean, stdv, out,
+  FeArgs a{img, row_idx, row_w, col_idx, col_w, mean, stdv, out, obf,
            H, W, C, Ho, Wo, FE_ROWS, 0, W * C, 0, 1};
   a.spitch = (int)fe_align16((size_t)a.pitch);
   a.copy = a.pitch % 16 == 0 && ((uintptr_t)img & 15) == 0  ? 16

@@ -12,6 +12,17 @@
 //   dx = dxhat / s + dvar (2 / (d - 1)) (x - mean) + dmean / d
 //   d_scale = sum over rows of g (x - mean) / s;  d_offset = sum of g
 //
+// Types (the compute dtype). As the TPU kernel, x, scale / offset and the
+// backward's g are each f32 or bf16: every operand is read in its own type
+// through a converting load (bf16.cuh), the statistics and the derivative
+// run in f32, y and dx are stored in x's type (rounded to nearest even),
+// and d_scale / d_offset are summed in f32 and stored in scale's type
+// (ops/ln_train.py:137-143 of the JAX package). Operands other than f32
+// run the typed instances (ln_fwd_typed_kernel, ln_bwd_any_kernel<true>:
+// scalar converting loads); all-f32 operands keep the f32 kernels below.
+// The whole-layer kernels (layer_train.cu) also use the flags to round y
+// and dx to bf16 values in their f32 scratch (LN_RND).
+//
 // What bounds it on the card: bytes. At [50, 196, 512] f32 the forward
 // reads x and writes y (40 MB, 12 us at 3.35 TB/s) and the backward reads
 // x and g and writes dx (60 MB, 18 us); the arithmetic is a few operations
@@ -57,12 +68,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "gemm.cuh"
 #include "ln_train.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using uic_bf16::ldf;
+using uic_bf16::rnd_if;
+using uic_bf16::stf;
 
 constexpr int WARPS = 8;         // rows in flight per forward block
 constexpr int ANY_WARPS = 32;    // rows a group of ln_bwd_any_kernel
@@ -117,6 +133,36 @@ __global__ void __launch_bounds__(WARPS * 32)
 
 // The row's backward coefficients from its sums: dx = dxhat / sd + c1 *
 // (x - mean) + c2
+// The forward over operands of any types (uic::LN_* flags): a warp a row,
+// converting loads and rounding stores, the f32 kernel's sums otherwise.
+__global__ void __launch_bounds__(WARPS * 32)
+    ln_fwd_typed_kernel(const void* __restrict__ x,
+                        const void* __restrict__ scale,
+                        const void* __restrict__ offset, void* __restrict__ y,
+                        int rows, int d, float eps, int fl) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + warp;
+  if (row >= rows) return;
+  const bool xb = fl & uic::LN_X_BF, pb = fl & uic::LN_P_BF;
+  const bool yb = fl & uic::LN_Y_BF, rnd = fl & uic::LN_RND;
+  const size_t o = (size_t)row * d;
+  float s = 0.f;
+  for (int j = lane; j < d; j += 32) s += ldf(x, o + j, xb);
+  const float mean = warp_sum(s) / (float)d;
+  float q = 0.f;
+  for (int j = lane; j < d; j += 32) {
+    const float t = ldf(x, o + j, xb) - mean;
+    q += t * t;
+  }
+  const float sd = sqrtf(warp_sum(q) / (float)(d - 1)) + eps;
+  for (int j = lane; j < d; j += 32)
+    stf(y, o + j,
+        rnd_if((ldf(x, o + j, xb) - mean) / sd * ldf(scale, j, pb) +
+                   ldf(offset, j, pb),
+               rnd),
+        yb);
+}
+
 struct RowCoef {
   float sd, c1, c2;
 };
@@ -131,16 +177,18 @@ __device__ __forceinline__ RowCoef row_coef(float q, float s1, float s2,
 }
 
 // d_scale / d_offset from the float4 c of a sum row ([2][dp])
+// d_scale / d_offset, f32 or (pb) bf16, rounded
 __device__ __forceinline__ void put_sums(float4 s, int c, int d, int dp,
-                                         float* dscale, float* doffset) {
+                                         void* dscale, void* doffset,
+                                         bool pb) {
   const float e[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int j = 4 * c + k;
     if (j < d)
-      dscale[j] = e[k];
+      stf(dscale, j, e[k], pb);
     else if (j >= dp && j - dp < d)
-      doffset[j - dp] = e[k];
+      stf(doffset, j - dp, e[k], pb);
   }
 }
 
@@ -151,8 +199,8 @@ __device__ __forceinline__ void put_sums(float4 s, int c, int d, int dp,
 // warp by a butterfly and then over the warps in order: one round of
 // loads, and the same order, so the same bits, on every run. Every thread
 // of the block calls it.
-__device__ void sum_partials(const float* ws, int d, float* dscale,
-                             float* doffset) {
+__device__ void sum_partials(const float* ws, int d, void* dscale,
+                             void* doffset, bool pb) {
   __shared__ float4 red[32];
   const int nblk = gridDim.x, dp = round4(d), n4 = dp / 2;
   const float4* w4 = reinterpret_cast<const float4*>(ws);
@@ -182,7 +230,7 @@ __device__ void sum_partials(const float* ws, int d, float* dscale,
         s.z += red[warp + q].z;
         s.w += red[warp + q].w;
       }
-      put_sums(s, col, d, dp, dscale, doffset);
+      put_sums(s, col, d, dp, dscale, doffset, pb);
     }
     __syncthreads();                   // red is the next pass's
   }
@@ -316,18 +364,30 @@ __global__ void __launch_bounds__(ROWS_WARPS * 32, 1)
     }
     part[c] = s;
   }
-  sum_partials(ws, d, dscale, doffset);
+  sum_partials(ws, d, dscale, doffset, false);
 }
 
+// TYPED: the operands of any types (uic::LN_* flags in fl), read through
+// converting loads, dx rounded where it is a bf16 value
+template <bool TYPED>
 __global__ void __launch_bounds__(ANY_WARPS * 32, 1)
-    ln_bwd_any_kernel(const float* __restrict__ x,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ g, const float* res,
-                      float* dx, float* __restrict__ ws,
-                      float* __restrict__ dscale,
-                      float* __restrict__ doffset, int rows, int d,
-                      float eps) {
+    ln_bwd_any_kernel(const void* __restrict__ xv,
+                      const void* __restrict__ scale_v,
+                      const void* __restrict__ gv, const void* res,
+                      void* dxv, float* __restrict__ ws,
+                      void* __restrict__ dscale,
+                      void* __restrict__ doffset, int rows, int d,
+                      float eps, int fl) {
   __shared__ float st[ANY_WARPS][4];   // the group's mean, sd, c1, c2
+  const bool xb = TYPED && (fl & uic::LN_X_BF);
+  const bool gb = TYPED && (fl & uic::LN_G_BF);
+  const bool rb = TYPED && (fl & uic::LN_R_BF);
+  const bool pb = TYPED && (fl & uic::LN_P_BF);
+  const bool yb = TYPED && (fl & uic::LN_Y_BF);
+  const bool rnd = TYPED && (fl & uic::LN_RND);
+  auto X = [&](size_t i) { return ldf(xv, i, xb); };
+  auto G = [&](size_t i) { return ldf(gv, i, gb); };
+  auto SC = [&](size_t i) { return ldf(scale_v, i, pb); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dp = round4(d);
   float* part = ws + (size_t)blockIdx.x * 2 * dp;
@@ -336,14 +396,13 @@ __global__ void __launch_bounds__(ANY_WARPS * 32, 1)
        r0 += gridDim.x * ANY_WARPS) {
     const int row = r0 + warp;
     if (row < rows) {
-      const float* xr = x + (size_t)row * d;
-      const float* gr = g + (size_t)row * d;
+      const size_t o = (size_t)row * d;
       float s = 0.f;
-      for (int j = lane; j < d; j += 32) s += xr[j];
+      for (int j = lane; j < d; j += 32) s += X(o + j);
       const float mean = warp_sum(s) / (float)d;
       float q = 0.f, s1 = 0.f, s2 = 0.f;
       for (int j = lane; j < d; j += 32) {
-        const float u = xr[j] - mean, h = gr[j] * scale[j];
+        const float u = X(o + j) - mean, h = G(o + j) * SC(j);
         q += u * u;
         s1 += h * u;
         s2 += h;
@@ -360,13 +419,13 @@ __global__ void __launch_bounds__(ANY_WARPS * 32, 1)
     __syncthreads();
     const int nr = min(ANY_WARPS, rows - r0);
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      const float sc = scale[j];
+      const float sc = SC(j);
       float as = 0.f, ab = 0.f;
       for (int r = 0; r < nr; ++r) {
         const size_t o = (size_t)(r0 + r) * d + j;
-        const float u = x[o] - st[r][0], gg = g[o], sd = st[r][1];
+        const float u = X(o) - st[r][0], gg = G(o), sd = st[r][1];
         const float v = gg * sc / sd + st[r][2] * u + st[r][3];
-        dx[o] = res ? res[o] + v : v;
+        stf(dxv, o, rnd_if(res ? ldf(res, o, rb) + v : v, rnd), yb);
         as += gg * (u / sd);
         ab += gg;
       }
@@ -383,18 +442,18 @@ __global__ void __launch_bounds__(ANY_WARPS * 32, 1)
       part[dp + j] = 0.f;
     }
   }
-  sum_partials(ws, d, dscale, doffset);
+  sum_partials(ws, d, dscale, doffset, TYPED && (fl & uic::LN_D_BF));
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // One cooperative launch (its blocks all resident: the partial sums pass a
 // grid barrier) of a block an SM at most and a row a warp at least.
-template <typename K>
-int launch_bwd(K kernel, int warps, size_t smem, const float* x,
-               const float* scale, const float* dy, const float* res,
-               float* dx, float* dscale, float* doffset, float* ws, int rows,
-               int d, float eps, cudaStream_t st) {
+template <typename K, typename... Extra>
+int launch_bwd(K kernel, int warps, size_t smem, const void* x,
+               const void* scale, const void* dy, const void* res,
+               void* dx, void* dscale, void* doffset, float* ws, int rows,
+               int d, float eps, cudaStream_t st, Extra... extra) {
   int nblk = cdiv(rows, warps);
   const int sms = uic::gemm_sm_count();
   nblk = nblk < 1 ? 1 : (nblk > sms ? sms : nblk);
@@ -403,7 +462,7 @@ int launch_bwd(K kernel, int warps, size_t smem, const float* x,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&x, &scale, &dy, &res, &dx, &ws, &dscale, &doffset,
-                  &rows, &d, &eps};
+                  &rows, &d, &eps, &extra...};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk),
                                     dim3(warps * 32), args, smem, st);
   if (err != cudaSuccess) (void)cudaGetLastError();   // not left behind
@@ -420,6 +479,16 @@ int launch_rows(const float* x, const float* scale, const float* dy,
                     dscale, doffset, ws, rows, d, eps, st);
 }
 
+// the launch of ln_bwd_any_kernel<TYPED>: args as the kernel takes them
+template <bool TYPED>
+int launch_any(const void* x, const void* scale, const void* dy,
+               const void* res, void* dx, void* dscale, void* doffset,
+               float* ws, int rows, int d, float eps, cudaStream_t st,
+               int fl) {
+  return launch_bwd(ln_bwd_any_kernel<TYPED>, ANY_WARPS, 0, x, scale, dy,
+                    res, dx, dscale, doffset, ws, rows, d, eps, st, fl);
+}
+
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
@@ -430,18 +499,36 @@ long long ln_bwd_ws_floats(int d) {
   return (long long)gemm_sm_count() * 2 * round4(d);
 }
 
-int ln_fwd(const float* x, const float* scale, const float* offset, float* y,
-           int rows, int d, float eps, cudaStream_t st) {
+int ln_fwd(const void* xv, const void* scale_v, const void* offset_v,
+           void* yv, int rows, int d, float eps, cudaStream_t st, int fl) {
   const int blocks = (rows + WARPS - 1) / WARPS;
-  ln_fwd_kernel<<<blocks, WARPS * 32, 0, st>>>(x, scale, offset, y, rows, d,
-                                               eps);
+  if (fl)
+    ln_fwd_typed_kernel<<<blocks, WARPS * 32, 0, st>>>(
+        xv, scale_v, offset_v, yv, rows, d, eps, fl);
+  else
+    ln_fwd_kernel<<<blocks, WARPS * 32, 0, st>>>(
+        static_cast<const float*>(xv), static_cast<const float*>(scale_v),
+        static_cast<const float*>(offset_v), static_cast<float*>(yv), rows,
+        d, eps);
   return (int)cudaGetLastError();
 }
 
-int ln_bwd(const float* x, const float* scale, const float* dy,
-           const float* res, float* dx, float* dscale, float* doffset,
-           float* ws, int rows, int d, float eps, cudaStream_t st) {
+int ln_bwd(const void* xv, const void* scale_v, const void* dyv,
+           const void* res_v, void* dxv, void* dscale_v, void* doffset_v,
+           float* ws, int rows, int d, float eps, cudaStream_t st, int fl) {
   if (d < 2 || rows < 0) return (int)cudaErrorInvalidValue;
+  // operands of other types than f32 take the typed instance of the
+  // general kernel (converting loads, rounding stores)
+  if (fl)
+    return launch_any<true>(xv, scale_v, dyv, res_v, dxv, dscale_v,
+                            doffset_v, ws, rows, d, eps, st, fl);
+  const float* x = static_cast<const float*>(xv);
+  const float* scale = static_cast<const float*>(scale_v);
+  const float* dy = static_cast<const float*>(dyv);
+  const float* res = static_cast<const float*>(res_v);
+  float* dx = static_cast<float*>(dxv);
+  float* dscale = static_cast<float*>(dscale_v);
+  float* doffset = static_cast<float*>(doffset_v);
   const int nv = (d / 4 + 31) / 32;
   const bool regs = d % 4 == 0 && nv <= MAX_NV && aligned16(x) &&
                     aligned16(scale) && aligned16(dy) && aligned16(dx) &&
@@ -466,18 +553,21 @@ int ln_bwd(const float* x, const float* scale, const float* dy,
                                      ws, rows, d, eps, st);
     }
   }
-  return launch_bwd(ln_bwd_any_kernel, ANY_WARPS, 0, x, scale, dy, res, dx,
-                    dscale, doffset, ws, rows, d, eps, st);
+  return launch_any<false>(x, scale, dy, res, dx, dscale, doffset, ws, rows,
+                          d, eps, st, 0);
 }
 
 }  // namespace uic
 
 extern "C" {
 
-// x, y [rows, d] f32, scale / offset [d]
-int ln_train_fwd_f32(const float* x, const float* scale, const float* offset,
-                     float* y, int rows, int d, float eps, void* stream) {
-  return uic::ln_fwd(x, scale, offset, y, rows, d, eps, (cudaStream_t)stream);
+// x, y [rows, d], scale / offset [d]; fl: the uic::LN_* types of the
+// operands (y in x's type)
+int ln_train_fwd_mixed(const void* x, const void* scale, const void* offset,
+                       void* y, int rows, int d, float eps, int fl,
+                       void* stream) {
+  return uic::ln_fwd(x, scale, offset, y, rows, d, eps, (cudaStream_t)stream,
+                     fl);
 }
 
 // Floats of the backward's scratch for width d into *n. Returns 0.
@@ -487,12 +577,13 @@ int ln_train_bwd_ws_f32(int d, long long* n) {
 }
 
 // g, dx [rows, d]; ws scratch of ln_train_bwd_ws_f32(d) floats; dscale /
-// doffset [d]. One launch.
-int ln_train_bwd_f32(const float* x, const float* scale, const float* g,
-                     float* dx, float* dscale, float* doffset, float* ws,
-                     int rows, int d, float eps, void* stream) {
+// doffset [d]. One launch. fl: the uic::LN_* types of the operands (x and
+// g of one type, dx in it; d_scale / d_offset in scale's type).
+int ln_train_bwd_mixed(const void* x, const void* scale, const void* g,
+                       void* dx, void* dscale, void* doffset, float* ws,
+                       int rows, int d, float eps, int fl, void* stream) {
   return uic::ln_bwd(x, scale, g, nullptr, dx, dscale, doffset, ws, rows, d,
-                     eps, (cudaStream_t)stream);
+                     eps, (cudaStream_t)stream, fl);
 }
 
 }  // extern "C"

@@ -9,14 +9,28 @@ namespace uic {
 // and d_offset for each block (a block an SM at most)
 long long ln_bwd_ws_floats(int d);
 
+// The operands' types (the compute dtype): each flag names an array stored
+// as bf16 (read through a converting load, written rounded to nearest
+// even); LN_RND rounds y / dx to bf16 values where they stay in an f32
+// array (a bf16 computation kept in f32 scratch). 0: every array f32, the
+// f32 kernels.
+constexpr int LN_X_BF = 1;    // x
+constexpr int LN_P_BF = 2;    // scale and offset
+constexpr int LN_Y_BF = 4;    // y (the backward's dx)
+constexpr int LN_G_BF = 8;    // the backward's dy
+constexpr int LN_R_BF = 16;   // the backward's res
+constexpr int LN_RND = 32;    // y / dx rounded to bf16 values
+constexpr int LN_D_BF = 64;   // d_scale and d_offset (summed in f32)
+
 // y = LN(x) over rows of d
-int ln_fwd(const float* x, const float* scale, const float* offset, float* y,
-           int rows, int d, float eps, cudaStream_t st);
+int ln_fwd(const void* x, const void* scale, const void* offset, void* y,
+           int rows, int d, float eps, cudaStream_t st, int fl = 0);
 // dx = res + d/dx LN(x) . dy (res may be null: no residual; it may be dx
 // itself), and d_scale / d_offset summed over the rows in a fixed order, in
 // one cooperative launch; ws holds ln_bwd_ws_floats(d) floats.
-int ln_bwd(const float* x, const float* scale, const float* dy,
-           const float* res, float* dx, float* dscale, float* doffset,
-           float* ws, int rows, int d, float eps, cudaStream_t st);
+int ln_bwd(const void* x, const void* scale, const void* dy,
+           const void* res, void* dx, void* dscale, void* doffset,
+           float* ws, int rows, int d, float eps, cudaStream_t st,
+           int fl = 0);
 
 }  // namespace uic

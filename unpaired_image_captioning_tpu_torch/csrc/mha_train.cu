@@ -59,6 +59,23 @@
 //     the scores. A bucket 512 would need 16-row tiles (five [16][516]
 //     tiles, 165 KB) and still stop at 512; the chunks take any width for
 //     the cost of dh / 256 score passes.
+// Types (the compute dtype). q, k / v and the output (with the backward's
+// g and o) are each f32 or bf16 (mha_train.cuh: ATT_* flags). A bf16 tile
+// is read by the threads through converting loads into the same f32
+// shared-memory tiles (not by cp.async), and every product stays the f32
+// FMA core above. On the bf16 route (ATT_RND) the kernels keep the TPU
+// kernel's cast points (ops/mha_train.py:64-70, :121, :136-148 of the JAX
+// package): the scores are rounded to bf16 and divided by sqrt(dh) in
+// bf16, the softmax is f32, the probabilities (with their dropout) are
+// rounded before P.V and before dV, ds / sqrt(dh) before dq and dk, and the
+// output, dq, dk and dv round to their types. To round the normalised
+// probabilities the bf16 forward runs two passes over the key tiles (the
+// rows' max and sum, then P.V) where the f32 one runs one online pass;
+// heads past 256 (the column-chunked kernels) round each exp(s - m) of the
+// online pass instead, the same relative rounding before the
+// normalisation.
+// The mask, the row statistics and the ds scratch stay f32.
+//
 // There is no limit on the keys S: the forward streams key tiles with an
 // online softmax, and the backward's ds scratch (B*H*T*S floats) is memory
 // only.
@@ -80,17 +97,17 @@
 namespace uic {
 namespace mha {
 // compiled in mha_train_dh32.cu, mha_train_dh128.cu and mha_train_dh256.cu
-extern template int fwd<32>(const Attn&, float*, float*, cudaStream_t);
-extern template int fwd<128>(const Attn&, float*, float*, cudaStream_t);
-extern template int fwd<256>(const Attn&, float*, float*, cudaStream_t);
-extern template int bwd<32>(const Attn&, const float*, const float*,
-                            const float*, float*, float*, float*, float*,
+extern template int fwd<32>(const Attn&, void*, float*, cudaStream_t);
+extern template int fwd<128>(const Attn&, void*, float*, cudaStream_t);
+extern template int fwd<256>(const Attn&, void*, float*, cudaStream_t);
+extern template int bwd<32>(const Attn&, const void*, const void*,
+                            const float*, void*, void*, void*, float*,
                             cudaStream_t);
-extern template int bwd<128>(const Attn&, const float*, const float*,
-                             const float*, float*, float*, float*, float*,
+extern template int bwd<128>(const Attn&, const void*, const void*,
+                             const float*, void*, void*, void*, float*,
                              cudaStream_t);
-extern template int bwd<256>(const Attn&, const float*, const float*,
-                             const float*, float*, float*, float*, float*,
+extern template int bwd<256>(const Attn&, const void*, const void*,
+                             const float*, void*, void*, void*, float*,
                              cudaStream_t);
 }  // namespace mha
 }  // namespace uic
@@ -100,14 +117,14 @@ namespace {
 using uic::Attn;
 
 // the attention kernel's own calls: q, k, v, out and g contiguous
-// [B, T|S, H*dh], dropout block ids b*H + h
-Attn plain_attn(const float* q, const float* k, const float* v,
+// [B, T|S, H*dh], dropout block ids b*H + h, fl the ATT_* types
+Attn plain_attn(const void* q, const void* k, const void* v,
                 const float* mask, const int* seed, int B, int T, int S,
                 int H, int dh, int mask_rows, unsigned int thresh,
-                float keep_div, int dropout) {
+                float keep_div, int dropout, int fl) {
   const int d = H * dh;
   return Attn{q, k, v, mask, seed, d, d, d, d, B, T, S, H, dh, mask_rows, H,
-              thresh, keep_div, dropout};
+              thresh, keep_div, dropout, fl};
 }
 
 }  // namespace
@@ -121,7 +138,7 @@ int attn_bucket(int dh) {
   return dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
 }
 
-int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st) {
+int attn_fwd(const Attn& a, void* out, float* stats, cudaStream_t st) {
   switch (attn_bucket(a.dh)) {
     case 32: return mha::fwd<32>(a, out, stats, st);
     case 64: return mha::fwd<64>(a, out, stats, st);
@@ -131,8 +148,8 @@ int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st) {
   }
 }
 
-int attn_bwd(const Attn& a, const float* g, const float* o,
-             const float* stats, float* dq, float* dk, float* dv,
+int attn_bwd(const Attn& a, const void* g, const void* o,
+             const float* stats, void* dq, void* dk, void* dv,
              float* scratch, cudaStream_t st) {
   switch (attn_bucket(a.dh)) {
     case 32: return mha::bwd<32>(a, g, o, stats, dq, dk, dv, scratch, st);
@@ -149,14 +166,15 @@ extern "C" {
 
 // q [B,T,H*dh], k/v [B,S,H*dh], mask [B,mask_rows,S] f32 (< 0: masked),
 // seed int32 [1] on the card, out [B,T,H*dh], stats [2,B,H,T] (row max,
-// row sum); any dh >= 1
-int mha_train_fwd_f32(const float* q, const float* k, const float* v,
-                      const float* mask, const int* seed, float* out,
-                      float* stats, int B, int T, int S, int H, int dh,
-                      int mask_rows, unsigned int thresh, float keep_div,
-                      int dropout, void* stream) {
+// row sum); any dh >= 1. fl: the ATT_* types (q, k / v and out each f32 or
+// bf16; ATT_RND the bf16 cast points)
+int mha_train_fwd_mixed(const void* q, const void* k, const void* v,
+                        const float* mask, const int* seed, void* out,
+                        float* stats, int B, int T, int S, int H, int dh,
+                        int mask_rows, unsigned int thresh, float keep_div,
+                        int dropout, int fl, void* stream) {
   return uic::attn_fwd(plain_attn(q, k, v, mask, seed, B, T, S, H, dh,
-                                  mask_rows, thresh, keep_div, dropout),
+                                  mask_rows, thresh, keep_div, dropout, fl),
                        out, stats, (cudaStream_t)stream);
 }
 
@@ -168,17 +186,17 @@ int mha_train_bwd_ws_f32(int B, int T, int S, int H, long long* n) {
 }
 
 // g, o [B,T,H*dh] (the upstream gradient and the forward output), stats
-// the forward's; dq [B,T,H*dh], dk/dv [B,S,H*dh]; scratch of
-// mha_train_bwd_ws_f32 floats
-int mha_train_bwd_f32(const float* q, const float* k, const float* v,
-                      const float* mask, const int* seed, const float* g,
-                      const float* o, const float* stats, float* dq,
-                      float* dk, float* dv, float* scratch, int B, int T,
-                      int S, int H, int dh, int mask_rows,
-                      unsigned int thresh, float keep_div, int dropout,
-                      void* stream) {
+// the forward's; dq [B,T,H*dh], dk/dv [B,S,H*dh] in q's and k's types;
+// scratch of mha_train_bwd_ws_f32 floats; fl as the forward's
+int mha_train_bwd_mixed(const void* q, const void* k, const void* v,
+                        const float* mask, const int* seed, const void* g,
+                        const void* o, const float* stats, void* dq,
+                        void* dk, void* dv, float* scratch, int B, int T,
+                        int S, int H, int dh, int mask_rows,
+                        unsigned int thresh, float keep_div, int dropout,
+                        int fl, void* stream) {
   return uic::attn_bwd(plain_attn(q, k, v, mask, seed, B, T, S, H, dh,
-                                  mask_rows, thresh, keep_div, dropout),
+                                  mask_rows, thresh, keep_div, dropout, fl),
                        g, o, stats, dq, dk, dv, scratch,
                        (cudaStream_t)stream);
 }

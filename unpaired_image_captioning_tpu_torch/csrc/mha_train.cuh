@@ -30,10 +30,23 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t base, uint32_t idx) {
 // block id b * pid_b + h (pid_b = H for the attention kernel alone, 4H at
 // site 0 of the whole-layer kernels). Rows on 16 bytes (pointers, strides
 // and dh) are copied by 16-byte cp.async, any others by 4-byte ones.
+//
+// Types (the compute dtype): `fl` names the arrays stored as bf16, read
+// through converting loads and written rounded to nearest even (bf16.cuh),
+// and ATT_RND the cast points of a bf16 computation (the TPU kernel's with
+// a bf16 q): the scores rounded to bf16 and divided by sqrt(dh) in bf16
+// before the f32 softmax, the probabilities rounded before P.V and dV, ds
+// / sqrt(dh) rounded before dq and dk, and every output rounded. The mask,
+// the row statistics and the scratch stay f32.
+constexpr int ATT_Q_BF = 1;    // q (and dq)
+constexpr int ATT_KV_BF = 2;   // k and v (and dk, dv)
+constexpr int ATT_O_BF = 4;    // the output, and the backward's g and o
+constexpr int ATT_RND = 8;     // the bf16 cast points
+
 struct Attn {
-  const float* q;
-  const float* k;
-  const float* v;
+  const void* q;
+  const void* k;
+  const void* v;
   const float* mask;
   const int* seed;   // one int32 on the card
   int lq, lk, lv, lo;
@@ -41,6 +54,7 @@ struct Attn {
   unsigned int thresh;
   float keep_div;
   int dropout;
+  int fl;            // ATT_* flags; 0: every array f32
 };
 
 // The compiled head-width bucket that runs dh (32, 64, 128 or 256; 256 for
@@ -58,11 +72,11 @@ inline size_t attn_bwd_scratch_floats(int B, int H, int T, int S) {
 
 // out = attention(q, k, v) and the rows' softmax statistics; any dh >= 1,
 // any S
-int attn_fwd(const Attn& a, float* out, float* stats, cudaStream_t st);
+int attn_fwd(const Attn& a, void* out, float* stats, cudaStream_t st);
 // dq, dk, dv for the upstream gradient g, from the forward's output o and
 // statistics; scratch of attn_bwd_scratch_floats(B, H, T, S) floats
-int attn_bwd(const Attn& a, const float* g, const float* o,
-             const float* stats, float* dq, float* dk, float* dv,
+int attn_bwd(const Attn& a, const void* g, const void* o,
+             const float* stats, void* dq, void* dk, void* dv,
              float* scratch, cudaStream_t st);
 
 }  // namespace uic

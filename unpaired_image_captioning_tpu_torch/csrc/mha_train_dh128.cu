@@ -5,8 +5,8 @@
 
 namespace uic {
 namespace mha {
-template int fwd<128>(const Attn&, float*, float*, cudaStream_t);
-template int bwd<128>(const Attn&, const float*, const float*, const float*,
-                      float*, float*, float*, float*, cudaStream_t);
+template int fwd<128>(const Attn&, void*, float*, cudaStream_t);
+template int bwd<128>(const Attn&, const void*, const void*, const float*,
+                      void*, void*, void*, float*, cudaStream_t);
 }  // namespace mha
 }  // namespace uic

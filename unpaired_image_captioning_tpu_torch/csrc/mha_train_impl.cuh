@@ -15,10 +15,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "mha_train.cuh"
 
 namespace uic {
 namespace mha {
+
+using uic_bf16::ld4t;
+using uic_bf16::ldf;
+using uic_bf16::ldt;
+using uic_bf16::rnd_if;
+using uic_bf16::round_bf16;
+using uic_bf16::stf;
 
 constexpr int NT = 256;           // threads a block: tx = tid % 16, ty = tid / 16
 constexpr int PAD = 4;            // floats after each shared row
@@ -112,13 +120,31 @@ __device__ __forceinline__ void with_extent(int n, F&& f) {
 static __device__ __forceinline__ int groups(int n) { return (n + 15) / 16; }
 
 // rows [r0, r0 + TILE) of the dh columns from col0 of one batch element's
-// [L, ld] matrix into dst [TILE][DH + PAD]; rows past L and columns past dh
-// are zero. V4: 16-byte copies (dh, ld and col0 multiples of 4, src 16-byte
-// aligned), else 4-byte ones.
+// [L, ld] matrix, which starts `off` elements into src, into dst
+// [TILE][DH + PAD]; rows past L and columns past dh are zero. V4: 16-byte
+// copies (dh, ld and col0 multiples of 4, src 16-byte aligned), else 4-byte
+// ones. bf: src is bf16, read through converting loads (four at a time
+// with V4) and stored to shared memory as f32 by the threads themselves.
 template <int DH, bool V4 = true>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int L, int ld, int col0,
-                                          int dh) {
+__device__ __forceinline__ void load_tile(float* dst, const void* src_v,
+                                          size_t off, int r0, int L, int ld,
+                                          int col0, int dh, bool bf) {
+  if (bf) {
+    constexpr int W = V4 ? 4 : 1;
+    for (int e = threadIdx.x; e < Lay<DH>::TILE * DH / W; e += NT) {
+      const int r = e / (DH / W), c = (e % (DH / W)) * W, row = r0 + r;
+      const bool ok = row < L && c < dh;
+      const size_t i = off + (size_t)row * ld + col0 + c;
+      float* d = dst + r * Lay<DH>::LD + c;
+      if constexpr (V4)
+        *reinterpret_cast<float4*>(d) =
+            ok ? ld4t<true>(src_v, i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      else
+        *d = ok ? ldt<true>(src_v, i) : 0.f;
+    }
+    return;
+  }
+  const float* src = static_cast<const float*>(src_v) + off;
   if constexpr (!V4) {
     for (int e = threadIdx.x; e < Lay<DH>::TILE * DH; e += NT) {
       const int r = e / DH, c = e % DH, row = r0 + r;
@@ -212,17 +238,28 @@ __device__ __forceinline__ void acc_rows(const float* P, const float* M,
   }
 }
 
-// dst[col] = vals[cc] over the thread's columns of one head row, the
-// columns below dh (V4: a multiple of 4, so a vector is in or out whole;
-// else element by element)
+// dst[col] = vals[cc] over the thread's columns of one head row, which
+// starts `off` elements into dst, the columns below dh (V4: a multiple of 4,
+// so a vector is in or out whole; else element by element); bf: dst is
+// bf16, each value rounded as it is stored; rnd: the values rounded to bf16
+// in an f32 dst
 template <int DH, bool V4 = true>
-__device__ __forceinline__ void store_row(float* dst, const float* vals,
-                                          int tx, int dh) {
+__device__ __forceinline__ void store_row(void* dst_v, size_t off,
+                                          const float* vals, int tx, int dh,
+                                          bool bf, bool rnd) {
   using L = Lay<DH>;
+  float* dst = static_cast<float*>(dst_v) + off;
 #pragma unroll
   for (int n = 0; n < L::NV; ++n) {
     const int col = n * 16 * L::VEC + tx * L::VEC;
     if (col >= dh) continue;
+    if (bf || rnd) {
+#pragma unroll
+      for (int v = 0; v < L::VEC; ++v)
+        if (col + v < dh)
+          stf(dst_v, off + col + v, rnd_if(vals[n * L::VEC + v], rnd), bf);
+      continue;
+    }
     if constexpr (!V4) {
 #pragma unroll
       for (int v = 0; v < L::VEC; ++v)
@@ -245,10 +282,24 @@ static __device__ __forceinline__ const float* mask_row(const Attn& a, int b,
   return a.mask + ((size_t)b * a.mask_rows + r) * a.S;
 }
 
+// An unmasked score q.k scaled: s / sqrt(dh) in f32 (as s * inv_sqrt), or
+// on the bf16 cast points (rnd) s rounded to bf16 and divided in bf16 by
+// sqrt(dh) rounded to bf16 (sqrt_bf), as the TPU kernel's bf16 route and
+// the plain einsum with a bf16 q compute it
+static __device__ __forceinline__ float scaled(float s, float inv_sqrt,
+                                               float sqrt_bf, bool rnd) {
+  return rnd ? round_bf16(round_bf16(s) / sqrt_bf) : s * inv_sqrt;
+}
+
+// sqrt(dh) rounded to bf16, the divisor of the bf16 route
+static __device__ __forceinline__ float sqrt_bf_of(int dh) {
+  return round_bf16(sqrtf((float)dh));
+}
+
 // One block's forward over query rows [q0, q0 + 16 QG).
 template <int DH, int QG, int MODE>
 __device__ __forceinline__ void fwd_block(const Attn& a,
-                                          float* __restrict__ out,
+                                          void* __restrict__ out,
                                           float* __restrict__ stats,
                                           float inv_sqrt, float* smem,
                                           int q0) {
@@ -260,8 +311,10 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
   const int T = a.T, S = a.S;
   const int b = blockIdx.z, h = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* kb = a.k + (size_t)b * S * a.lk;
-  const float* vb = a.v + (size_t)b * S * a.lv;
+  const size_t kb = (size_t)b * S * a.lk, vb = (size_t)b * S * a.lv;
+  const bool qbf = a.fl & ATT_Q_BF, kvbf = a.fl & ATT_KV_BF;
+  const bool obf = a.fl & ATT_O_BF, rnd = a.fl & ATT_RND;
+  const float sqrt_bf = sqrt_bf_of(a.dh);
   const int q_end = min(T, q0 + 16 * QG);
   const int in = groups(q_end - q0);
   const int n_kt = (S + L::TILE - 1) / L::TILE;
@@ -272,26 +325,47 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
 #pragma unroll
   for (int i = 0; i < L::G; ++i) mrow[i] = mask_row(a, b, q0 + ty + 16 * i);
 
-  load_tile<DH, MODE != ODD>(qs, a.q + (size_t)b * T * a.lq, q0, q_end, a.lq, col0, dh);
-  load_tile<DH, MODE != ODD>(kvs, kb, 0, S, a.lk, col0, dh);
-  load_tile<DH, MODE != ODD>(kvs + L::TILE_F, vb, 0, S, a.lv, col0, dh);
+  load_tile<DH, MODE != ODD>(qs, a.q, (size_t)b * T * a.lq, q0, q_end, a.lq,
+                             col0, dh, qbf);
+  load_tile<DH, MODE != ODD>(kvs, a.k, kb, 0, S, a.lk, col0, dh, kvbf);
+  load_tile<DH, MODE != ODD>(kvs + L::TILE_F, a.v, vb, 0, S, a.lv, col0, dh,
+                             kvbf);
   cp_commit();
 
-  float o[4][CPT], m[4], l[4];
+  float o[4][CPT], m[4], l[4], inv_l[4];
 #pragma unroll
   for (int i = 0; i < QG; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
+    inv_l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) o[i][c] = 0.f;
   }
+  const float inv_keep = 1.f / a.keep_div;
 
+  // f32: one pass with an online softmax. The bf16 cast points (rnd): a
+  // first pass takes each row's max and sum over every key tile, and a
+  // second rounds the normalised probabilities themselves (with their
+  // dropout) to bf16 before P.V, as the TPU kernel casts attn.
+  for (int pass = rnd ? 0 : 1; pass < 2; ++pass) {
+    const bool stats_only = pass == 0;
+    const bool exact = rnd && pass == 1;
+    if (exact) {
+#pragma unroll
+      for (int i = 0; i < QG; ++i) inv_l[i] = 1.f / group_sum(l[i]);
+      load_tile<DH, MODE != ODD>(kvs, a.k, kb, 0, S, a.lk, col0, dh, kvbf);
+      load_tile<DH, MODE != ODD>(kvs + L::TILE_F, a.v, vb, 0, S, a.lv, col0,
+                                 dh, kvbf);
+      cp_commit();
+    }
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * L::TILE;
     if (kt + 1 < n_kt) {
       float* nxt = kvs + ((kt + 1) & 1) * 2 * L::TILE_F;
-      load_tile<DH, MODE != ODD>(nxt, kb, k0 + L::TILE, S, a.lk, col0, dh);
-      load_tile<DH, MODE != ODD>(nxt + L::TILE_F, vb, k0 + L::TILE, S, a.lv, col0, dh);
+      load_tile<DH, MODE != ODD>(nxt, a.k, kb, k0 + L::TILE, S, a.lk, col0,
+                                 dh, kvbf);
+      load_tile<DH, MODE != ODD>(nxt + L::TILE_F, a.v, vb, k0 + L::TILE, S,
+                                 a.lv, col0, dh, kvbf);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -316,10 +390,24 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
           float v = -INFINITY;    // past S: not a key of the row
           if (key < S) {
             if (i == 0 || a.mask_rows != 1) mk[j] = mrow[i][key];
-            v = mk[j] < 0.f ? NEG : s[i][j] * inv_sqrt;
+            v = mk[j] < 0.f ? NEG : scaled(s[i][j], inv_sqrt, sqrt_bf, rnd);
           }
           s[i][j] = v;
           tmax = fmaxf(tmax, v);
+        }
+        if (exact) {
+#pragma unroll
+          for (int j = 0; j < JN; ++j) {
+            const int key = k0 + tx + 16 * j;
+            float p = __expf(s[i][j] - m[i]) * inv_l[i];
+            if (a.dropout)
+              p = key < S && keep_hash(base, (uint32_t)row * (uint32_t)S +
+                                                 key) >= a.thresh
+                      ? p * inv_keep
+                      : 0.f;
+            ps[(ty + 16 * i) * L::LDP + tx + 16 * j] = round_bf16(p);
+          }
+          continue;
         }
         const float mn = fmaxf(m[i], group_max(tmax));
         const float alpha = __expf(m[i] - mn);   // 0 on the first tile
@@ -339,12 +427,14 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
           ps[(ty + 16 * i) * L::LDP + tx + 16 * j] = p;
         }
       }
+      if (stats_only) return;
       __syncthreads();
       acc_rows<DH, IN>(ps, vs, (nk + 3) & ~3, o, ty, tx);
     });
     // every thread is done with this stage and with ps before the next
     // tile's prefetch and probabilities overwrite them
     __syncthreads();
+  }
   }
 
   const size_t bh = (size_t)b * a.H + h;
@@ -355,12 +445,14 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
     const float lt = group_sum(l[i]);
     const int row = q0 + ty + 16 * i;
     if (i >= in || row >= T) continue;
-    const float inv = a.dropout ? 1.f / (lt * a.keep_div) : 1.f / lt;
+    // the bf16 route's second pass summed normalised probabilities
+    const float inv = rnd ? 1.f
+                          : a.dropout ? 1.f / (lt * a.keep_div) : 1.f / lt;
     float vals[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) vals[c] = o[i][c] * inv;
-    store_row<DH, MODE != ODD>(out + ((size_t)b * T + row) * a.lo + col0, vals, tx,
-                  dh);
+    store_row<DH, MODE != ODD>(out, ((size_t)b * T + row) * a.lo + col0,
+                               vals, tx, dh, obf, rnd);
     if (tx == 0) {
       st_m[row] = m[i];
       st_l[row] = lt;
@@ -374,7 +466,7 @@ __device__ __forceinline__ void fwd_block(const Attn& a,
 // full one.
 template <int DH, int MODE>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
-    mha_fwd_kernel(const __grid_constant__ Attn a, float* __restrict__ out,
+    mha_fwd_kernel(const __grid_constant__ Attn a, void* __restrict__ out,
                    float* __restrict__ stats, float inv_sqrt, int tile_rows) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
@@ -388,17 +480,18 @@ __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
 
 // D_i = g_i . o_i over head h's columns: a warp per (b, t, h)
 static __global__ void __launch_bounds__(256)
-    mha_dsum_kernel(const __grid_constant__ Attn a, const float* __restrict__ g,
-                    const float* __restrict__ o, float* __restrict__ dsum) {
+    mha_dsum_kernel(const __grid_constant__ Attn a, const void* __restrict__ g,
+                    const void* __restrict__ o, float* __restrict__ dsum) {
   const int warp = (int)((blockIdx.x * 256u + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= a.B * a.T * a.H) return;
   const int h = warp % a.H, bt = warp / a.H;
   const int b = bt / a.T, t = bt % a.T;
-  const float* gr = g + (size_t)bt * a.lo + h * a.dh;
-  const float* orow = o + (size_t)bt * a.lo + h * a.dh;
+  const size_t row = (size_t)bt * a.lo + h * a.dh;
+  const bool obf = a.fl & ATT_O_BF;
   float acc = 0.f;
-  for (int c = lane; c < a.dh; c += 32) acc += gr[c] * orow[c];
+  for (int c = lane; c < a.dh; c += 32)
+    acc += ldf(g, row + c, obf) * ldf(o, row + c, obf);
   acc = warp_sum(acc);
   if (lane == 0) dsum[((size_t)b * a.H + h) * a.T + t] = acc;
 }
@@ -408,14 +501,17 @@ struct Grad {
   float attn, ds;
 };
 
-// (inv_l = 1 / l, inv_keep = 1 / (1 - rate), inv_sqrt = 1 / sqrt(dh))
+// (inv_l = 1 / l, inv_keep = 1 / (1 - rate), inv_sqrt = 1 / sqrt(dh),
+// sqrt_bf = sqrt(dh) in bf16); on the bf16 cast points attn and ds are
+// rounded to bf16, as the TPU kernel casts them before dV, dq and dk
 static __device__ __forceinline__ Grad grad_at(const Attn& a, uint32_t base,
                                         const float* mrow, int row, int key,
                                         float s, float dp, float m,
                                         float inv_l, float d, float inv_keep,
-                                        float inv_sqrt) {
-  const bool masked = mrow[key] < 0.f;
-  const float p = __expf((masked ? NEG : s * inv_sqrt) - m) * inv_l;
+                                        float inv_sqrt, float sqrt_bf) {
+  const bool masked = mrow[key] < 0.f, rnd = a.fl & ATT_RND;
+  const float p =
+      __expf((masked ? NEG : scaled(s, inv_sqrt, sqrt_bf, rnd)) - m) * inv_l;
   float attn = p;
   if (a.dropout) {
     const bool keep =
@@ -423,15 +519,16 @@ static __device__ __forceinline__ Grad grad_at(const Attn& a, uint32_t base,
     attn = keep ? p * inv_keep : 0.f;
     dp = keep ? dp * inv_keep : 0.f;
   }
-  return Grad{attn, masked ? 0.f : p * (dp - d) * inv_sqrt};
+  return Grad{rnd_if(attn, rnd),
+              masked ? 0.f : rnd_if(p * (dp - d) * inv_sqrt, rnd)};
 }
 
 // One block of the dk / dv kernel over keys [k0, k0 + 16 JN).
 template <int DH, int JN, int MODE>
 __device__ __forceinline__ void dkdv_block(
-    const Attn& a, const float* __restrict__ g,
+    const Attn& a, const void* __restrict__ g,
     const float* __restrict__ stats, const float* __restrict__ dsum,
-    float* __restrict__ dk, float* __restrict__ dv,
+    void* __restrict__ dk, void* __restrict__ dv,
     float* __restrict__ ds_out, float inv_sqrt, float* smem, int k0) {
   using L = Lay<DH>;
   constexpr int CPT = L::CPT;
@@ -445,8 +542,10 @@ __device__ __forceinline__ void dkdv_block(
   const int T = a.T, S = a.S;
   const int b = blockIdx.z, h = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = a.q + (size_t)b * T * a.lq;
-  const float* gb = g + (size_t)b * T * a.lo;
+  const size_t qb = (size_t)b * T * a.lq, gb = (size_t)b * T * a.lo;
+  const bool qbf = a.fl & ATT_Q_BF, kvbf = a.fl & ATT_KV_BF;
+  const bool obf = a.fl & ATT_O_BF, rnd = a.fl & ATT_RND;
+  const float sqrt_bf = sqrt_bf_of(a.dh);
   const size_t bh = (size_t)b * a.H + h;
   const float* st_m = stats + bh * T;
   const float* st_l = stats + (size_t)a.B * a.H * T + bh * T;
@@ -458,8 +557,10 @@ __device__ __forceinline__ void dkdv_block(
   const int dh = MODE == FULL ? DH : a.dh;   // FULL: nothing padded
   const int col0 = h * dh;
 
-  load_tile<DH, MODE != ODD>(ks, a.k + (size_t)b * S * a.lk, k0, S, a.lk, col0, dh);
-  load_tile<DH, MODE != ODD>(vs, a.v + (size_t)b * S * a.lv, k0, S, a.lv, col0, dh);
+  load_tile<DH, MODE != ODD>(ks, a.k, (size_t)b * S * a.lk, k0, S, a.lk,
+                             col0, dh, kvbf);
+  load_tile<DH, MODE != ODD>(vs, a.v, (size_t)b * S * a.lv, k0, S, a.lv,
+                             col0, dh, kvbf);
   cp_commit();
   float adk[4][CPT], adv[4][CPT];   // keys ty + 16j, the thread's columns
 #pragma unroll
@@ -469,8 +570,8 @@ __device__ __forceinline__ void dkdv_block(
 
   for (int q0 = 0; q0 < T; q0 += L::TILE) {
     __syncthreads();   // the previous tile's qs, gs, pt, dt are read
-    load_tile<DH, MODE != ODD>(qs, qb, q0, T, a.lq, col0, dh);
-    load_tile<DH, MODE != ODD>(gs, gb, q0, T, a.lo, col0, dh);
+    load_tile<DH, MODE != ODD>(qs, a.q, qb, q0, T, a.lq, col0, dh, qbf);
+    load_tile<DH, MODE != ODD>(gs, g, gb, q0, T, a.lo, col0, dh, obf);
     cp_commit();
     if (threadIdx.x < L::TILE) {
       const int row = q0 + threadIdx.x;
@@ -497,7 +598,7 @@ __device__ __forceinline__ void dkdv_block(
           Grad gr{0.f, 0.f};
           if (row < T && key < S)
             gr = grad_at(a, base, mrow, row, key, s[i][j], dp[i][j], rm[qi],
-                         rl[qi], rd[qi], inv_keep, inv_sqrt);
+                         rl[qi], rd[qi], inv_keep, inv_sqrt, sqrt_bf);
           pt[kj * L::LDP + qi] = gr.attn;
           dt[kj * L::LDP + qi] = gr.ds;
           if (row < T && key < lds) dsg[(size_t)row * lds + key] = gr.ds;
@@ -513,10 +614,10 @@ __device__ __forceinline__ void dkdv_block(
   for (int j = 0; j < JN; ++j) {
     const int key = k0 + ty + 16 * j;
     if (key >= S) continue;
-    store_row<DH, MODE != ODD>(dk + ((size_t)b * S + key) * a.lk + col0, adk[j], tx,
-                  dh);
-    store_row<DH, MODE != ODD>(dv + ((size_t)b * S + key) * a.lv + col0, adv[j], tx,
-                  dh);
+    store_row<DH, MODE != ODD>(dk, ((size_t)b * S + key) * a.lk + col0,
+                               adk[j], tx, dh, kvbf, rnd);
+    store_row<DH, MODE != ODD>(dv, ((size_t)b * S + key) * a.lv + col0,
+                               adv[j], tx, dh, kvbf, rnd);
   }
 }
 
@@ -527,10 +628,10 @@ __device__ __forceinline__ void dkdv_block(
 template <int DH, int MODE>
 __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
     mha_bwd_dkdv_kernel(const __grid_constant__ Attn a,
-                        const float* __restrict__ g,
+                        const void* __restrict__ g,
                         const float* __restrict__ stats,
                         const float* __restrict__ dsum,
-                        float* __restrict__ dk, float* __restrict__ dv,
+                        void* __restrict__ dk, void* __restrict__ dv,
                         float* __restrict__ ds_out, float inv_sqrt) {
   extern __shared__ __align__(16) float smem[];
   const int k0 = blockIdx.x * Lay<DH>::TILE;
@@ -550,7 +651,7 @@ __global__ void __launch_bounds__(NT, Lay<DH>::MIN_BLOCKS)
 template <int DH, int QG, int MODE, bool CHUNK = false>
 __device__ __forceinline__ void dq_block(const Attn& a,
                                          const float* __restrict__ ds,
-                                         float* __restrict__ dq, float* smem,
+                                         void* __restrict__ dq, float* smem,
                                          int q0, int chunk_off = 0,
                                          int chunk_w = 0) {
   using L = Lay<DH>;
@@ -562,7 +663,8 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q_end = min(T, q0 + 16 * QG);
   const float* dsb = ds + ((size_t)b * a.H + h) * T * lds;
-  const float* kb = a.k + (size_t)b * S * a.lk;
+  const size_t kb = (size_t)b * S * a.lk;
+  const bool kvbf = a.fl & ATT_KV_BF;
   const int n_kt = (S + TILE - 1) / TILE;
   const int dh = CHUNK ? chunk_w : MODE == FULL ? DH : a.dh;
   const int col0 = CHUNK ? h * a.dh + chunk_off : h * dh;
@@ -575,7 +677,8 @@ __device__ __forceinline__ void dq_block(const Attn& a,
       const bool ok = row < q_end && col < lds;
       cp16(d_s + r * LDP + c, ok ? dsb + (size_t)row * lds + col : dsb, ok);
     }
-    load_tile<DH, MODE != ODD>(d_s + TILE * LDP, kb, k0, S, a.lk, col0, dh);
+    load_tile<DH, MODE != ODD>(d_s + TILE * LDP, a.k, kb, k0, S, a.lk, col0,
+                               dh, kvbf);
     cp_commit();
   };
 
@@ -604,8 +707,9 @@ __device__ __forceinline__ void dq_block(const Attn& a,
   for (int i = 0; i < QG; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= T) continue;
-    store_row<DH, MODE != ODD>(dq + ((size_t)b * T + row) * a.lq + col0, adq[i], tx,
-                  dh);
+    store_row<DH, MODE != ODD>(dq, ((size_t)b * T + row) * a.lq + col0,
+                               adq[i], tx, dh, a.fl & ATT_Q_BF,
+                               a.fl & ATT_RND);
   }
 }
 
@@ -614,7 +718,7 @@ __device__ __forceinline__ void dq_block(const Attn& a,
 template <int DH, int MODE>
 __global__ void __launch_bounds__(NT)
     mha_bwd_dq_kernel(const __grid_constant__ Attn a,
-                      const float* __restrict__ ds, float* __restrict__ dq,
+                      const float* __restrict__ ds, void* __restrict__ dq,
                       int tile_rows) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * tile_rows, rows = min(tile_rows, a.T - q0);
@@ -636,7 +740,7 @@ __global__ void __launch_bounds__(NT)
 template <bool V4>
 __global__ void __launch_bounds__(NT)
     mha_fwd_wide_kernel(const __grid_constant__ Attn a,
-                        float* __restrict__ out, float* __restrict__ stats,
+                        void* __restrict__ out, float* __restrict__ stats,
                         float inv_sqrt) {
   using L = Lay<WIDE>;
   constexpr int CPT = L::CPT, QG = L::G;
@@ -649,9 +753,11 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (blockIdx.x / nc) * L::TILE, oc = blockIdx.x % nc;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = a.q + (size_t)b * T * a.lq;
-  const float* kb = a.k + (size_t)b * S * a.lk;
-  const float* vb = a.v + (size_t)b * S * a.lv;
+  const size_t qb = (size_t)b * T * a.lq, kb = (size_t)b * S * a.lk;
+  const size_t vb = (size_t)b * S * a.lv;
+  const bool qbf = a.fl & ATT_Q_BF, kvbf = a.fl & ATT_KV_BF;
+  const bool rnd = a.fl & ATT_RND;
+  const float sqrt_bf = sqrt_bf_of(dh);
   const int col0 = h * dh, ow = min(WIDE, dh - oc * WIDE);
   const int q_end = min(T, q0 + L::TILE);
   const uint32_t base = a.dropout ? hash_base(*a.seed, b * a.pid_b + h) : 0u;
@@ -670,8 +776,10 @@ __global__ void __launch_bounds__(NT)
     float s[4][4];
     for (int c = 0; c < nc; ++c) {
       const int cw = min(WIDE, dh - c * WIDE);
-      load_tile<WIDE, V4>(qs, qb, q0, q_end, a.lq, col0 + c * WIDE, cw);
-      load_tile<WIDE, V4>(ks, kb, k0, S, a.lk, col0 + c * WIDE, cw);
+      load_tile<WIDE, V4>(qs, a.q, qb, q0, q_end, a.lq, col0 + c * WIDE, cw,
+                          qbf);
+      load_tile<WIDE, V4>(ks, a.k, kb, k0, S, a.lk, col0 + c * WIDE, cw,
+                          kvbf);
       cp_commit();
       cp_wait<0>();
       __syncthreads();
@@ -681,7 +789,8 @@ __global__ void __launch_bounds__(NT)
         dot_tile<WIDE, QG, QG, false>(qs, ks, s, ty, tx);
       __syncthreads();
     }
-    load_tile<WIDE, V4>(vs, vb, k0, S, a.lv, col0 + oc * WIDE, ow);
+    load_tile<WIDE, V4>(vs, a.v, vb, k0, S, a.lv, col0 + oc * WIDE, ow,
+                        kvbf);
     cp_commit();
     const int nk = min(L::TILE, S - k0);
     float mk[QG];
@@ -695,7 +804,7 @@ __global__ void __launch_bounds__(NT)
         float v = -INFINITY;
         if (key < S) {
           if (i == 0 || a.mask_rows != 1) mk[j] = mrow[i][key];
-          v = mk[j] < 0.f ? NEG : s[i][j] * inv_sqrt;
+          v = mk[j] < 0.f ? NEG : scaled(s[i][j], inv_sqrt, sqrt_bf, rnd);
         }
         s[i][j] = v;
         tmax = fmaxf(tmax, v);
@@ -711,7 +820,7 @@ __global__ void __launch_bounds__(NT)
         const int key = k0 + tx + 16 * j;
         const float e = __expf(s[i][j] - mn);
         l[i] += e;
-        float p = e;
+        float p = rnd_if(e, rnd);
         if (a.dropout && key < S &&
             keep_hash(base, (uint32_t)row * (uint32_t)S + key) < a.thresh)
           p = 0.f;
@@ -735,8 +844,8 @@ __global__ void __launch_bounds__(NT)
     float vals[CPT];
 #pragma unroll
     for (int c = 0; c < CPT; ++c) vals[c] = o[i][c] * inv;
-    store_row<WIDE, V4>(out + ((size_t)b * T + row) * a.lo + col0 + oc * WIDE,
-                        vals, tx, ow);
+    store_row<WIDE, V4>(out, ((size_t)b * T + row) * a.lo + col0 + oc * WIDE,
+                        vals, tx, ow, a.fl & ATT_O_BF, rnd);
     if (tx == 0 && oc == 0) {
       st_m[row] = m[i];
       st_l[row] = lt;
@@ -747,10 +856,10 @@ __global__ void __launch_bounds__(NT)
 template <bool V4>
 __global__ void __launch_bounds__(NT)
     mha_bwd_dkdv_wide_kernel(const __grid_constant__ Attn a,
-                             const float* __restrict__ g,
+                             const void* __restrict__ g,
                              const float* __restrict__ stats,
                              const float* __restrict__ dsum,
-                             float* __restrict__ dk, float* __restrict__ dv,
+                             void* __restrict__ dk, void* __restrict__ dv,
                              float* __restrict__ ds_out, float inv_sqrt) {
   using L = Lay<WIDE>;
   constexpr int CPT = L::CPT, G = L::G;
@@ -766,10 +875,11 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.z, h = blockIdx.y;
   const int k0 = (blockIdx.x / nc) * L::TILE, oc = blockIdx.x % nc;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* qb = a.q + (size_t)b * T * a.lq;
-  const float* gb = g + (size_t)b * T * a.lo;
-  const float* kb = a.k + (size_t)b * S * a.lk;
-  const float* vb = a.v + (size_t)b * S * a.lv;
+  const size_t qb = (size_t)b * T * a.lq, gb = (size_t)b * T * a.lo;
+  const size_t kb = (size_t)b * S * a.lk, vb = (size_t)b * S * a.lv;
+  const bool qbf = a.fl & ATT_Q_BF, kvbf = a.fl & ATT_KV_BF;
+  const bool obf = a.fl & ATT_O_BF, rnd = a.fl & ATT_RND;
+  const float sqrt_bf = sqrt_bf_of(dh);
   const size_t bh = (size_t)b * a.H + h;
   const float* st_m = stats + bh * T;
   const float* st_l = stats + (size_t)a.B * a.H * T + bh * T;
@@ -791,10 +901,10 @@ __global__ void __launch_bounds__(NT)
     for (int c = 0; c < nc; ++c) {
       const int cw = min(WIDE, dh - c * WIDE), cc = col0 + c * WIDE;
       __syncthreads();   // the tiles and rm / rl / rd are free
-      load_tile<WIDE, V4>(qs, qb, q0, T, a.lq, cc, cw);
-      load_tile<WIDE, V4>(gs, gb, q0, T, a.lo, cc, cw);
-      load_tile<WIDE, V4>(ks, kb, k0, S, a.lk, cc, cw);
-      load_tile<WIDE, V4>(vs, vb, k0, S, a.lv, cc, cw);
+      load_tile<WIDE, V4>(qs, a.q, qb, q0, T, a.lq, cc, cw, qbf);
+      load_tile<WIDE, V4>(gs, g, gb, q0, T, a.lo, cc, cw, obf);
+      load_tile<WIDE, V4>(ks, a.k, kb, k0, S, a.lk, cc, cw, kvbf);
+      load_tile<WIDE, V4>(vs, a.v, vb, k0, S, a.lv, cc, cw, kvbf);
       cp_commit();
       if (c == 0 && threadIdx.x < L::TILE) {
         const int row = q0 + threadIdx.x;
@@ -814,8 +924,8 @@ __global__ void __launch_bounds__(NT)
       }
     }
     __syncthreads();   // the last chunk's tiles are read
-    load_tile<WIDE, V4>(qs, qb, q0, T, a.lq, ocol, ow);
-    load_tile<WIDE, V4>(gs, gb, q0, T, a.lo, ocol, ow);
+    load_tile<WIDE, V4>(qs, a.q, qb, q0, T, a.lq, ocol, ow, qbf);
+    load_tile<WIDE, V4>(gs, g, gb, q0, T, a.lo, ocol, ow, obf);
     cp_commit();
 #pragma unroll
     for (int i = 0; i < G; ++i) {
@@ -827,7 +937,7 @@ __global__ void __launch_bounds__(NT)
         Grad gr{0.f, 0.f};
         if (row < T && key < S)
           gr = grad_at(a, base, mrow, row, key, s[i][j], dp[i][j], rm[qi],
-                       rl[qi], rd[qi], inv_keep, inv_sqrt);
+                       rl[qi], rd[qi], inv_keep, inv_sqrt, sqrt_bf);
         pt[kj * L::LDP + qi] = gr.attn;
         dt[kj * L::LDP + qi] = gr.ds;
         if (oc == 0 && row < T && key < lds)
@@ -844,10 +954,10 @@ __global__ void __launch_bounds__(NT)
   for (int j = 0; j < G; ++j) {
     const int key = k0 + ty + 16 * j;
     if (key >= S) continue;
-    store_row<WIDE, V4>(dk + ((size_t)b * S + key) * a.lk + ocol, adk[j], tx,
-                        ow);
-    store_row<WIDE, V4>(dv + ((size_t)b * S + key) * a.lv + ocol, adv[j], tx,
-                        ow);
+    store_row<WIDE, V4>(dk, ((size_t)b * S + key) * a.lk + ocol, adk[j], tx,
+                        ow, kvbf, rnd);
+    store_row<WIDE, V4>(dv, ((size_t)b * S + key) * a.lv + ocol, adv[j], tx,
+                        ow, kvbf, rnd);
   }
 }
 
@@ -855,7 +965,7 @@ template <bool V4>
 __global__ void __launch_bounds__(NT)
     mha_bwd_dq_wide_kernel(const __grid_constant__ Attn a,
                            const float* __restrict__ ds,
-                           float* __restrict__ dq) {
+                           void* __restrict__ dq) {
   extern __shared__ __align__(16) float smem[];
   const int nc = (a.dh + WIDE - 1) / WIDE, oc = blockIdx.x % nc;
   dq_block<WIDE, Lay<WIDE>::G, V4 ? PADDED : ODD, true>(
@@ -900,7 +1010,7 @@ int tile_rows(int T) {
 }
 
 template <int DH, int MODE>
-int fwd_as(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+int fwd_as(const Attn& a, void* out, float* stats, cudaStream_t stream) {
   const size_t smem = fwd_smem<DH>();
   const cudaError_t err = allow_smem(mha_fwd_kernel<DH, MODE>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -912,8 +1022,8 @@ int fwd_as(const Attn& a, float* out, float* stats, cudaStream_t stream) {
 }
 
 template <int DH, int MODE>
-int bwd_as(const Attn& a, const float* g, const float* o, const float* stats,
-           float* dq, float* dk, float* dv, float* scratch,
+int bwd_as(const Attn& a, const void* g, const void* o, const float* stats,
+           void* dq, void* dk, void* dv, float* scratch,
            cudaStream_t stream) {
   float* dsum = scratch;
   float* ds = scratch + attn_dsum_floats(a.B, a.H, a.T);
@@ -939,7 +1049,7 @@ int bwd_as(const Attn& a, const float* g, const float* o, const float* stats,
 }
 
 template <bool V4>
-int fwd_wide(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+int fwd_wide(const Attn& a, void* out, float* stats, cudaStream_t stream) {
   using L = Lay<WIDE>;
   const size_t smem = sizeof(float) * (3 * L::TILE_F + L::TILE * L::LDP);
   const cudaError_t err = allow_smem(mha_fwd_wide_kernel<V4>, smem);
@@ -952,8 +1062,8 @@ int fwd_wide(const Attn& a, float* out, float* stats, cudaStream_t stream) {
 }
 
 template <bool V4>
-int bwd_wide(const Attn& a, const float* g, const float* o,
-             const float* stats, float* dq, float* dk, float* dv,
+int bwd_wide(const Attn& a, const void* g, const void* o,
+             const float* stats, void* dq, void* dk, void* dv,
              float* scratch, cudaStream_t stream) {
   using L = Lay<WIDE>;
   float* dsum = scratch;
@@ -994,7 +1104,7 @@ inline bool rows16(const Attn& a, const void* const* ptrs, int n) {
 // rows not on 16 bytes the ODD instance, and (bucket 256) a head wider than
 // 256 the column-chunked kernels.
 template <int DH>
-int fwd(const Attn& a, float* out, float* stats, cudaStream_t stream) {
+int fwd(const Attn& a, void* out, float* stats, cudaStream_t stream) {
   const void* ptrs[] = {out};
   const bool v4 = rows16(a, ptrs, 1);
   if constexpr (DH == WIDE) {
@@ -1008,8 +1118,8 @@ int fwd(const Attn& a, float* out, float* stats, cudaStream_t stream) {
 }
 
 template <int DH>
-int bwd(const Attn& a, const float* g, const float* o, const float* stats,
-        float* dq, float* dk, float* dv, float* scratch, cudaStream_t stream) {
+int bwd(const Attn& a, const void* g, const void* o, const float* stats,
+        void* dq, void* dk, void* dv, float* scratch, cudaStream_t stream) {
   const void* ptrs[] = {g, o, dq, dk, dv};
   const bool v4 = rows16(a, ptrs, 5);
   if constexpr (DH == WIDE) {

@@ -1,4 +1,4 @@
-// Transformer decoder step, f32: the Hopper counterpart of the TPU kernels
+// Transformer decoder step: the Hopper counterpart of the TPU kernels
 // unpaired_image_captioning_tpu/ops/transformer_decode.py::_stack_kernel
 // (all L layers of one decode step) and ::_layer_kernel (one layer).
 //
@@ -71,6 +71,19 @@
 // short: launch latency, the GEMMs' f32 FMA rate and, at the caption, the
 // cross-attention's K/V stream are what is left.
 //
+// Types (the compute dtype). x (the step's compute type dt), the weights,
+// the caches and the cross-attention memory are each f32 or bf16 (TFD_*
+// flags): f32 weights and x over bf16 caches and memory where the card's
+// serving and eval decode rounded features, all bf16 where the SCST
+// sample runs under a bf16 copy of the parameters. A step with any bf16
+// operand runs run_layer_typed: every operand read in its type through
+// converting loads into the f32 FMA core, and JAX's cast points
+// (ops/transformer_decode.py:88, :116-118, :523-580 of the JAX package):
+// LN to dt; each product plus its f32 bias cast to dt (qkv, q2, h1, each
+// sublayer's output before the residual add in dt); the caches written in
+// their type; the scores and softmax f32, the weights and the attention
+// outputs cast to dt. An all-f32 step runs the kernels above unchanged.
+//
 // Widths. Any d, d_ff and head width: where d or the head width is not a
 // multiple of 4 the LN and the products (decode_gemm.cuh) run instances
 // with scalar loads, the same sums otherwise. The two attentions keep the
@@ -91,11 +104,27 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "bf16.cuh"
 #include "decode_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using uic_bf16::ldf;
+using uic_bf16::rnd_if;
+using uic_bf16::stf;
+
+// The operands' types (the compute dtype), flags of a step call: each
+// names arrays stored as bf16, read through converting loads and written
+// rounded to nearest even. x's type is the step's compute type dt (JAX's
+// `_layer_math`: y, qkv, the attention weights and outputs, q2, h1 and
+// each sublayer's output cast to x.dtype); the caches and the memory keep
+// their own types.
+constexpr int TFD_X_BF = 1;   // x_in / x_out
+constexpr int TFD_W_BF = 2;   // the 18 packed weights
+constexpr int TFD_C_BF = 4;   // the self-attention caches
+constexpr int TFD_M_BF = 8;   // the cross-attention K / V (the memory)
 
 using uic::EpiBias;
 using uic::EpiRelu;
@@ -197,6 +226,108 @@ struct EpiQkv {
                                       (size_t)slot * d + cc] = v;
   }
 };
+
+// The typed step's epilogues (any TFD_* flags): the product plus the f32
+// bias, cast to dt (rnd: dt is bf16) as `(_mm(y, w) + b).astype(dt)`.
+// EpiQkv's: q to q [M, d] (f32 scratch holding dt values), k_t / v_t into
+// slot t[r] of row r's caches in the caches' type
+struct EpiQkvT {
+  const void* bias;
+  float* q;
+  void* cache_k;
+  void* cache_v;
+  const int* t;
+  size_t cache_row;
+  int d, T;
+  bool wbf, cbf, rnd;
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const float v = rnd_if(acc + ldf(bias, c, wbf), rnd);
+    const int part = c / d, cc = c - part * d;
+    if (part == 0) {
+      q[(size_t)r * d + cc] = v;
+      return;
+    }
+    const int slot = t[r];
+    if (slot >= 0 && slot < T)
+      stf(part == 1 ? cache_k : cache_v,
+          (size_t)r * cache_row + (size_t)slot * d + cc, v, cbf);
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
+                                             int) const {
+    one(r, c, acc.x);
+    one(r, c + 1, acc.y);
+    one(r, c + 2, acc.z);
+    one(r, c + 3, acc.w);
+  }
+};
+
+// x += (acc + bias) in dt, in place (x in dt)
+struct EpiResT {
+  const void* bias;
+  void* x;
+  int d;
+  bool wbf, xbf;
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    const size_t o = (size_t)r * d + c;
+    const float v = rnd_if(acc + ldf(bias, c, wbf), xbf);
+    stf(x, o, ldf(x, o, xbf) + v, xbf);
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
+                                             int) const {
+    one(r, c, acc.x);
+    one(r, c + 1, acc.y);
+    one(r, c + 2, acc.z);
+    one(r, c + 3, acc.w);
+  }
+};
+
+// out = (acc + bias) or relu of it, in dt, into f32 scratch [M, ld]
+struct EpiLinT {
+  const void* bias;
+  float* out;
+  int ld;
+  bool wbf, rnd, relu;
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    float v = acc + ldf(bias, c, wbf);
+    if (relu) v = fmaxf(v, 0.0f);
+    out[(size_t)r * ld + c] = rnd_if(v, rnd);
+  }
+  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
+                                             int) const {
+    one(r, c, acc.x);
+    one(r, c + 1, acc.y);
+    one(r, c + 2, acc.z);
+    one(r, c + 3, acc.w);
+  }
+};
+
+// ln_rows_kernel for operands of any types: x in dt (copied to x_copy in
+// dt), scale / offset in the weights' type, y (f32 scratch) rounded to dt
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+ln_rows_typed_kernel(const void* __restrict__ x, void* __restrict__ x_copy,
+                     const void* __restrict__ scale,
+                     const void* __restrict__ offset, float* __restrict__ y,
+                     int R, int d, bool xbf, bool wbf) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const size_t o = (size_t)r * d;
+  float s = 0.0f;
+  for (int j = lane; j < d; j += 32) s += ldf(x, o + j, xbf);
+  const float mean = warp_sum(s) / (float)d;
+  float q = 0.0f;
+  for (int j = lane; j < d; j += 32) {
+    const float a = ldf(x, o + j, xbf) - mean;
+    q = fmaf(a, a, q);
+  }
+  const float den = sqrtf(warp_sum(q) / (float)(d - 1)) + LN_EPS;
+  for (int j = lane; j < d; j += 32) {
+    const float u = ldf(x, o + j, xbf);
+    y[o + j] = rnd_if(
+        (u - mean) / den * ldf(scale, j, wbf) + ldf(offset, j, wbf), xbf);
+    if (x_copy) stf(x_copy, o + j, u, xbf);
+  }
+}
 
 // y = LN(x) row by row, a warp per row, the row's mean and deviation taken
 // once (two passes, as the reference, over the row held in registers: at
@@ -424,13 +555,20 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
 // columns stages q in column chunks: each chunk's partial q . k is added
 // to the positions' scores before the softmax, and the value pass walks
 // the columns a lane at a time as it does for any width.
-template <bool V4>
+//
+// TYPED (with V4 false): the caches in their type (cbf: bf16, converting
+// loads), the weights of a single chunk and the output rounded to dt
+// (rnd: dt bf16), as JAX's `softmax(...).astype(dt)` and `out.astype(dt)`.
+template <bool V4, bool TYPED = false>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
-                 const float* cache_v, const int* __restrict__ t,
+self_attn_kernel_chunked(const float* __restrict__ q, const void* cache_kv,
+                 const void* cache_vv, const int* __restrict__ t,
                  const int* __restrict__ anc, float* __restrict__ out, int R,
                  int kb, int H, int dh, int d, int T, int tc,
-                 size_t cache_row, float scale_div) {
+                 size_t cache_row, float scale_div, bool cbf = false,
+                 bool rnd = false) {
+  const float* cache_k = static_cast<const float*>(cache_kv);
+  const float* cache_v = static_cast<const float*>(cache_vv);
   extern __shared__ __align__(16) float sa_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = blockIdx.x * ROW_WARPS + warp;
@@ -479,9 +617,16 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
       }
       for (int i = lane; i < cn; i += 32) {
         if (none) break;
-        const float part = dot_row<V4>(
-            qs, cache_k + (size_t)krow[i] * cache_row +
-                    (size_t)(c0 + i) * d + hoff + q0, qn);
+        const size_t ko = (size_t)krow[i] * cache_row +
+                          (size_t)(c0 + i) * d + hoff + q0;
+        float part;
+        if constexpr (TYPED) {
+          part = 0.0f;
+          for (int j = 0; j < qn; ++j)
+            part = fmaf(qs[j], ldf(cache_kv, ko + j, cbf), part);
+        } else {
+          part = dot_row<V4>(qs, cache_k + ko, qn);
+        }
         sc[i] = q0 == 0 ? part : sc[i] + part;
       }
     }
@@ -502,12 +647,12 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
     Z = Z * alpha + warp_sum(z);
     M = mn;
     if (single)
-      for (int i = lane; i < cn; i += 32) sc[i] = sc[i] / Z;
+      for (int i = lane; i < cn; i += 32) sc[i] = rnd_if(sc[i] / Z, rnd);
     __syncwarp();
     // the chunk's P.V into the output row: written (one chunk), or added
     // to the rescaled running sum, by the lane that owns the column
     auto put = [&](float* o, float v) {
-      *o = c0 == 0 ? v : *o * alpha + v;
+      *o = c0 == 0 ? rnd_if(v, rnd && single) : *o * alpha + v;
     };
     auto put4 = [&](float4* o, float4 v) {
       if (c0 > 0) {
@@ -525,7 +670,17 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
       // lanes over columns, each summed over the positions in order
       for (int c = lane; c < dh; c += 32) {
         float acc = 0.0f;
-        for (int i = 0; i < cn; ++i) acc = fmaf(sc[i], vrow(i)[c], acc);
+        for (int i = 0; i < cn; ++i) {
+          if constexpr (TYPED)
+            acc = fmaf(sc[i],
+                       ldf(cache_vv,
+                           (size_t)krow[i] * cache_row +
+                               (size_t)(c0 + i) * d + hoff + c,
+                           cbf),
+                       acc);
+          else
+            acc = fmaf(sc[i], vrow(i)[c], acc);
+        }
         put(orow + c, acc);
       }
     } else if (dh4 > 32) {
@@ -560,7 +715,7 @@ self_attn_kernel_chunked(const float* __restrict__ q, const float* cache_k,
   }
   if (!single) {
     __syncwarp();
-    for (int c = lane; c < dh; c += 32) orow[c] = orow[c] / Z;
+    for (int c = lane; c < dh; c += 32) orow[c] = rnd_if(orow[c] / Z, rnd);
   }
 }
 
@@ -1039,14 +1194,22 @@ __global__ void head_mean_kernel_scores(const float* __restrict__ attn_h,
 constexpr int WIDE_QCOLS = 4096;
 constexpr int WIDE_SUB = 4096;
 
-template <bool V4>
+//
+// TYPED (with V4 false): the memory's K / V in their type (mbf: bf16,
+// converting loads), the weights of a single piece and the output rounded
+// to dt (rnd), as JAX's `wgt32.astype(dt)` and `out2.astype(dt)`; the
+// scores for the head mean stay f32.
+template <bool V4, bool TYPED = false>
 __global__ void __launch_bounds__(CROSS_THREADS)
 cross_attn_kernel_wide(const float* __restrict__ q2,
-                       const float* __restrict__ ck,
-                       const float* __restrict__ cv,
+                       const void* __restrict__ ckv,
+                       const void* __restrict__ cvv,
                        const float* __restrict__ mask, float* __restrict__ out,
                        float* __restrict__ attn_h, int kb, int H, int dh,
-                       int d, int S, float scale_div) {
+                       int d, int S, float scale_div, bool mbf = false,
+                       bool rnd = false) {
+  const float* ck = static_cast<const float*>(ckv);
+  const float* cv = static_cast<const float*>(cvv);
   constexpr int NW = CROSS_THREADS / 32;
   __shared__ __align__(16) float qs[WIDE_QCOLS];
   __shared__ float ps[WIDE_SUB];
@@ -1081,9 +1244,13 @@ cross_attn_kernel_wide(const float* __restrict__ q2,
       for (int j = tid; j < qn; j += CROSS_THREADS) qs[j] = qr[q0 + j];
       __syncthreads();
       for (int s = warp; s < np; s += NW) {
-        const float* kr = ck + (slot0 + s) * d + hoff + q0;
+        const size_t ko = (slot0 + s) * d + hoff + q0;
+        const float* kr = ck + ko;
         float part = 0.0f;
-        if (V4) {
+        if constexpr (TYPED) {
+          for (int j = lane; j < qn; j += 32)
+            part = fmaf(qs[j], ldf(ckv, ko + j, mbf), part);
+        } else if (V4) {
           for (int j = lane; j < qn / 4; j += 32) {
             const float4 a = reinterpret_cast<const float4*>(qs)[j];
             const float4 k = reinterpret_cast<const float4*>(kr)[j];
@@ -1119,7 +1286,8 @@ cross_attn_kernel_wide(const float* __restrict__ q2,
     Z = Z * alpha + block_reduce(l, false);
     M = mn;
     if (single)
-      for (int s = tid; s < np; s += CROSS_THREADS) ps[s] = ps[s] / Z;
+      for (int s = tid; s < np; s += CROSS_THREADS)
+        ps[s] = rnd_if(ps[s] / Z, rnd);
     __syncthreads();
     // 3. the piece's P.V, a thread a column, into the output row
     const float* vr = cv + slot0 * d + hoff;
@@ -1141,14 +1309,21 @@ cross_attn_kernel_wide(const float* __restrict__ q2,
     } else {
       for (int c = tid; c < dh; c += CROSS_THREADS) {
         float acc = 0.0f;
-        for (int s = 0; s < np; ++s)
-          acc = fmaf(ps[s], vr[(size_t)s * d + c], acc);
-        orow[c] = p0 > 0 ? fmaf(orow[c], alpha, acc) : acc;
+        for (int s = 0; s < np; ++s) {
+          if constexpr (TYPED)
+            acc = fmaf(ps[s], ldf(cvv, (slot0 + s) * d + hoff + c, mbf),
+                       acc);
+          else
+            acc = fmaf(ps[s], vr[(size_t)s * d + c], acc);
+        }
+        orow[c] = p0 > 0 ? fmaf(orow[c], alpha, acc)
+                         : rnd_if(acc, rnd && single);
       }
     }
   }
   if (!single)
-    for (int c = tid; c < dh; c += CROSS_THREADS) orow[c] = orow[c] / Z;
+    for (int c = tid; c < dh; c += CROSS_THREADS)
+      orow[c] = rnd_if(orow[c] / Z, rnd);
   if (arow && tid == 0) {
     arow[S] = M;
     arow[S + 1] = Z;
@@ -1177,28 +1352,37 @@ struct Layer {
       *wq_c, *bq_c, *wo_c, *bo_c, *ln3_s, *ln3_b, *w1, *b1, *w2, *b2;
 };
 
-// layer `l` of a stack packed as [L, ...] per key (l = 0 for one layer)
-Layer layer_of(const float* const* w, int l, int d, int dff) {
+// element i of an array of f32 (esize 4) or bf16 (esize 2) elements
+inline const float* elt(const void* p, size_t i, int esize) {
+  return reinterpret_cast<const float*>(static_cast<const char*>(p) +
+                                        i * esize);
+}
+
+// layer `l` of a stack packed as [L, ...] per key (l = 0 for one layer),
+// the weights' elements of esize bytes (a bf16 layer's pointers are only
+// handed on to the typed kernels, which read them as bf16)
+Layer layer_of(const void* const* w, int l, int d, int dff, int esize = 4) {
   const size_t dd = (size_t)d * d, ld = (size_t)l * d;
+  auto at = [&](int k, size_t i) { return elt(w[k], i, esize); };
   Layer y;
-  y.ln1_s = w[0] + ld;
-  y.ln1_b = w[1] + ld;
-  y.wqkv = w[2] + l * 3 * dd;
-  y.bqkv = w[3] + 3 * ld;
-  y.wo_s = w[4] + l * dd;
-  y.bo_s = w[5] + ld;
-  y.ln2_s = w[6] + ld;
-  y.ln2_b = w[7] + ld;
-  y.wq_c = w[8] + l * dd;
-  y.bq_c = w[9] + ld;
-  y.wo_c = w[10] + l * dd;
-  y.bo_c = w[11] + ld;
-  y.ln3_s = w[12] + ld;
-  y.ln3_b = w[13] + ld;
-  y.w1 = w[14] + (size_t)l * d * dff;
-  y.b1 = w[15] + (size_t)l * dff;
-  y.w2 = w[16] + (size_t)l * dff * d;
-  y.b2 = w[17] + ld;
+  y.ln1_s = at(0, ld);
+  y.ln1_b = at(1, ld);
+  y.wqkv = at(2, l * 3 * dd);
+  y.bqkv = at(3, 3 * ld);
+  y.wo_s = at(4, l * dd);
+  y.bo_s = at(5, ld);
+  y.ln2_s = at(6, ld);
+  y.ln2_b = at(7, ld);
+  y.wq_c = at(8, l * dd);
+  y.bq_c = at(9, ld);
+  y.wo_c = at(10, l * dd);
+  y.bo_c = at(11, ld);
+  y.ln3_s = at(12, ld);
+  y.ln3_b = at(13, ld);
+  y.w1 = at(14, (size_t)l * d * dff);
+  y.b1 = at(15, (size_t)l * dff);
+  y.w2 = at(16, (size_t)l * dff * d);
+  y.b2 = at(17, ld);
   return y;
 }
 
@@ -1235,6 +1419,7 @@ int launch_clusters(K kernel, dim3 grid, int threads, size_t smem, int cs,
 
 struct Step {
   float* x;                  // [R, d] residual stream, updated in place
+                             // (in dt: bf16 where fl has TFD_X_BF)
   const int* t;              // [R]
   const int* anc;            // [R, T] or null
   const float* mask;         // [B, S]
@@ -1242,6 +1427,7 @@ struct Step {
   float* attn_h;             // scratch [R, H, S] or null
   float* attn;               // [R, S] or null
   int R, B, S, d, T, dff, H;
+  int fl;                    // TFD_* types; 0: every array f32
 };
 
 int ln_rows(const float* x, float* x_copy, const float* scale,
@@ -1351,7 +1537,7 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
                          : cross_attn_kernel_wide<false>;
         kernel<<<dim3(R, s.H), CROSS_THREADS, 0, st>>>(
             s.q, ck, cv, s.mask, s.att, attn_h, kb, s.H, dh, d, s.S,
-            scale_div);
+            scale_div, false, false);
         if ((err = (int)cudaGetLastError())) return err;
       } else {
         const PieceSplit pp = piece_split(s.S, kb, dh);
@@ -1393,6 +1579,99 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
                      st);
 }
 
+// One layer of a step whose operands are not all f32 (s.fl): the same
+// eleven launches on the typed instances. The LN, the products' bf16 W
+// tiles, the epilogues and both attentions read each operand in its type
+// and keep JAX's cast points (TFD_* above); q, att (y) and h1 stay f32
+// scratch holding dt values. The attentions run their scalar instances
+// (self_attn_kernel_chunked and cross_attn_kernel_wide, a row and head a
+// block), which take every shape: simple, not fast.
+int run_layer_typed(const Step& s, const Layer& w, const void* ck,
+                    const void* cv, void* cache_k, void* cache_v,
+                    size_t cache_row, bool last, const void* x_in,
+                    cudaStream_t st) {
+  const int R = s.R, d = s.d, kb = s.R / s.B, dh = s.d / s.H;
+  const float scale_div = (float)sqrt((double)dh);
+  const bool xbf = s.fl & TFD_X_BF, wbf = s.fl & TFD_W_BF;
+  const bool cbf = s.fl & TFD_C_BF, mbf = s.fl & TFD_M_BF;
+  float* y = s.att;
+  const unsigned ln_blocks = (R + ROW_WARPS - 1) / ROW_WARPS;
+  int err;
+  auto ln = [&](const void* x, void* copy, const float* sc, const float* of) {
+    ln_rows_typed_kernel<<<ln_blocks, ROW_WARPS * 32, 0, st>>>(
+        x, copy, sc, of, y, R, d, xbf, wbf);
+    return (int)cudaGetLastError();
+  };
+
+  // 1-2. LN1 -> packed QKV; q out, k_t / v_t into cache slot t
+  if ((err = ln(x_in ? x_in : s.x, x_in ? s.x : nullptr, w.ln1_s, w.ln1_b)))
+    return err;
+  if ((err = decode_gemm(y, d, w.wqkv, R, 3 * d, d,
+                         EpiQkvT{w.bqkv, s.q, cache_k, cache_v, s.t,
+                                 cache_row, d, s.T, wbf, cbf, xbf},
+                         st, 2, wbf)))
+    return err;
+
+  // 3. self-attention, in chunks of positions
+  {
+    const int tc = self_chunk(dh, s.T);
+    const size_t smem = (size_t)ROW_WARPS * sizeof(float) *
+                        self_warp_floats(self_qcols(dh), tc);
+    const int blocks = (R * s.H + ROW_WARPS - 1) / ROW_WARPS;
+    auto kernel = self_attn_kernel_chunked<false, true>;
+    if ((err = smem_opt_in(kernel, smem))) return err;
+    kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
+        s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T, tc,
+        cache_row, scale_div, cbf, xbf);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+
+  // 4. x += att @ Wo_s + bo_s
+  if ((err = decode_gemm(s.att, d, w.wo_s, R, d, d,
+                         EpiResT{w.bo_s, s.x, d, wbf, xbf}, st, 2, wbf)))
+    return err;
+
+  // 5-6. q2 = LN2(x) @ Wq_c + bq_c
+  if ((err = ln(s.x, nullptr, w.ln2_s, w.ln2_b))) return err;
+  if ((err = decode_gemm(y, d, w.wq_c, R, d, d,
+                         EpiLinT{w.bq_c, s.q, d, wbf, xbf, false}, st, 2,
+                         wbf)))
+    return err;
+
+  // 7. cross-attention over the image's unexpanded K/V, a row and head a
+  // block
+  {
+    float* attn_h = last ? s.attn_h : nullptr;
+    cross_attn_kernel_wide<false, true><<<dim3(R, s.H), CROSS_THREADS, 0,
+                                          st>>>(
+        s.q, ck, cv, s.mask, s.att, attn_h, kb, s.H, dh, d, s.S, scale_div,
+        mbf, xbf);
+    if ((err = (int)cudaGetLastError())) return err;
+    if (attn_h) {
+      const int n = R * s.S;
+      head_mean_kernel_scores<<<(n + 255) / 256, 256, 0, st>>>(
+          attn_h, s.attn, R, s.H, s.S);
+      if ((err = (int)cudaGetLastError())) return err;
+    }
+  }
+
+  // 8. x += att @ Wo_c + bo_c
+  if ((err = decode_gemm(s.att, d, w.wo_c, R, d, d,
+                         EpiResT{w.bo_c, s.x, d, wbf, xbf}, st, 2, wbf)))
+    return err;
+
+  // 9-10. h1 = relu(LN3(x) @ W1 + b1)
+  if ((err = ln(s.x, nullptr, w.ln3_s, w.ln3_b))) return err;
+  if ((err = decode_gemm(y, d, w.w1, R, s.dff, d,
+                         EpiLinT{w.b1, s.h1, s.dff, wbf, xbf, true}, st, 2,
+                         wbf)))
+    return err;
+
+  // 11. x += h1 @ W2 + b2
+  return decode_gemm(s.h1, s.dff, w.w2, R, d, s.dff,
+                     EpiResT{w.b2, s.x, d, wbf, xbf}, st, 2, wbf);
+}
+
 }  // namespace
 
 // One decode step through all L layers. x_in [R, d] is read, x_out [R, d]
@@ -1401,29 +1680,43 @@ int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
 // [R, T] int32 or null; w: host array of the 18 packed [L, ...] weights in
 // WKEYS order; scratch q, att [R, d], h1 [R, dff]; with attn != null,
 // attn_h [R, H, S + 2] scratch and attn [R, S] receive the last layer's
-// mean-head cross-attention weights. Returns the first CUDA error, or
-// cudaErrorInvalidValue for a shape the kernels do not take (refuses).
-extern "C" int tfd_stack_step_f32(const float* x_in, float* x_out,
-                                  const int* t, const float* ck,
-                                  const float* cv, const float* mask,
-                                  float* cache_k, float* cache_v,
-                                  const int* anc, const float* const* w,
-                                  float* q, float* att, float* h1,
-                                  float* attn_h, float* attn, int R, int B,
-                                  int S, int d, int T, int dff, int H, int L,
-                                  cudaStream_t stream) {
+// mean-head cross-attention weights. fl: the TFD_* types of x (x_in and
+// x_out), the weights, the caches and ck / cv; 0 runs the f32 kernels
+// above. Returns the first CUDA error, or cudaErrorInvalidValue for a shape
+// the kernels do not take (refuses).
+extern "C" int tfd_stack_step_mixed(const void* x_in, void* x_out,
+                                    const int* t, const void* ck,
+                                    const void* cv, const float* mask,
+                                    void* cache_k, void* cache_v,
+                                    const int* anc, const void* const* w,
+                                    float* q, float* att, float* h1,
+                                    float* attn_h, float* attn, int R, int B,
+                                    int S, int d, int T, int dff, int H,
+                                    int L, int fl, cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
   if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
-  const Step s = {x_out, t, anc, mask, q, att, h1, attn_h, attn,
-                  R, B, S, d, T, dff, H};
+  const Step s = {static_cast<float*>(x_out), t, anc, mask, q, att, h1,
+                  attn_h, attn, R, B, S, d, T, dff, H, fl};
+  const int cs = fl & TFD_C_BF ? 2 : 4, ms = fl & TFD_M_BF ? 2 : 4;
   const size_t cache_row = (size_t)L * T * d;
   const size_t kv_layer = (size_t)B * S * d;
   for (int l = 0; l < L; ++l) {
-    const int err = run_layer(
-        s, layer_of(w, l, d, dff), ck + l * kv_layer, cv + l * kv_layer,
-        cache_k + (size_t)l * T * d, cache_v + (size_t)l * T * d, cache_row,
-        attn != nullptr && l == L - 1, l == 0 ? x_in : nullptr, stream);
+    const Layer lw = layer_of(w, l, d, dff, fl & TFD_W_BF ? 2 : 4);
+    const void* ckl = elt(ck, l * kv_layer, ms);
+    const void* cvl = elt(cv, l * kv_layer, ms);
+    void* kl = const_cast<float*>(elt(cache_k, (size_t)l * T * d, cs));
+    void* vl = const_cast<float*>(elt(cache_v, (size_t)l * T * d, cs));
+    const bool last = attn != nullptr && l == L - 1;
+    const void* xi = l == 0 ? x_in : nullptr;
+    const int err =
+        fl ? run_layer_typed(s, lw, ckl, cvl, kl, vl, cache_row, last, xi,
+                             stream)
+           : run_layer(s, lw, static_cast<const float*>(ckl),
+                       static_cast<const float*>(cvl),
+                       static_cast<float*>(kl), static_cast<float*>(vl),
+                       cache_row, last, static_cast<const float*>(xi),
+                       stream);
     if (err) return err;
   }
   return (int)cudaGetLastError();
@@ -1432,21 +1725,28 @@ extern "C" int tfd_stack_step_f32(const float* x_in, float* x_out,
 // One decode step through one layer: as above with L = 1, ck/cv [B, S, d],
 // cache_k/v [R, T, d], w the 18 packed weights of the layer, no lazy cache
 // and no attention output.
-extern "C" int tfd_layer_step_f32(const float* x_in, float* x_out,
-                                  const int* t, const float* ck,
-                                  const float* cv, const float* mask,
-                                  float* cache_k, float* cache_v,
-                                  const float* const* w, float* q, float* att,
-                                  float* h1, int R, int B, int S, int d,
-                                  int T, int dff, int H,
-                                  cudaStream_t stream) {
+extern "C" int tfd_layer_step_mixed(const void* x_in, void* x_out,
+                                    const int* t, const void* ck,
+                                    const void* cv, const float* mask,
+                                    void* cache_k, void* cache_v,
+                                    const void* const* w, float* q,
+                                    float* att, float* h1, int R, int B,
+                                    int S, int d, int T, int dff, int H,
+                                    int fl, cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
   if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
-  const Step s = {x_out, t, nullptr, mask, q, att, h1, nullptr, nullptr,
-                  R, B, S, d, T, dff, H};
-  const int err = run_layer(s, layer_of(w, 0, d, dff), ck, cv, cache_k,
-                            cache_v, (size_t)T * d, false, x_in, stream);
+  const Step s = {static_cast<float*>(x_out), t, nullptr, mask, q, att, h1,
+                  nullptr, nullptr, R, B, S, d, T, dff, H, fl};
+  const Layer lw = layer_of(w, 0, d, dff, fl & TFD_W_BF ? 2 : 4);
+  const int err =
+      fl ? run_layer_typed(s, lw, ck, cv, cache_k, cache_v, (size_t)T * d,
+                           false, x_in, stream)
+         : run_layer(s, lw, static_cast<const float*>(ck),
+                     static_cast<const float*>(cv),
+                     static_cast<float*>(cache_k),
+                     static_cast<float*>(cache_v), (size_t)T * d, false,
+                     static_cast<const float*>(x_in), stream);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -52,23 +52,25 @@ SIGNATURES = {
     # x, vals, idx, R, V, k, stream
     "chunked_topk_f32": (_P, _P, _P, _I, _I, _I, _P),
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, anc, w[18] (host
-    # array), q, att, h1, attn_h, attn, R, B, S, d, T, d_ff, H, L, stream
-    "tfd_stack_step_f32": (_P,) * 15 + (_I,) * 8 + (_P,),
+    # array), q, att, h1, attn_h, attn, R, B, S, d, T, d_ff, H, L, fl (the
+    # TFD_* types: x, the weights, the caches, the memory each f32 or
+    # bf16), stream
+    "tfd_stack_step_mixed": (_P,) * 15 + (_I,) * 9 + (_P,),
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
-    # q, att, h1, R, B, S, d, T, d_ff, H, stream
-    "tfd_layer_step_f32": (_P,) * 12 + (_I,) * 7 + (_P,),
+    # q, att, h1, R, B, S, d, T, d_ff, H, fl, stream
+    "tfd_layer_step_mixed": (_P,) * 12 + (_I,) * 8 + (_P,),
     # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
-    # keep_div, dropout, stream
-    "mha_train_fwd_f32": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _P),
+    # keep_div, dropout, fl (the ATT_* types), stream
+    "mha_train_fwd_mixed": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _I, _P),
     # q, k, v, mask, seed, g, o, stats, dq, dk, dv, scratch, B, T, S, H,
-    # dh, mask_rows, thresh, keep_div, dropout, stream
-    "mha_train_bwd_f32": (_P,) * 12 + (_I,) * 6 + (_U, _F, _I, _P),
+    # dh, mask_rows, thresh, keep_div, dropout, fl, stream
+    "mha_train_bwd_mixed": (_P,) * 12 + (_I,) * 6 + (_U, _F, _I, _I, _P),
     # B, T, S, H, out int64 [1] -> floats of the backward's scratch
     "mha_train_bwd_ws_f32": (_I,) * 4 + (_P,),
-    # x, scale, offset, y, rows, d, eps, stream
-    "ln_train_fwd_f32": (_P,) * 4 + (_I, _I, _F, _P),
-    # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, stream
-    "ln_train_bwd_f32": (_P,) * 7 + (_I, _I, _F, _P),
+    # x, scale, offset, y, rows, d, eps, fl (the LN_* types), stream
+    "ln_train_fwd_mixed": (_P,) * 4 + (_I, _I, _F, _I, _P),
+    # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, fl, stream
+    "ln_train_bwd_mixed": (_P,) * 7 + (_I, _I, _F, _I, _P),
     # d, out int64 [1] -> floats of the backward's scratch
     "ln_train_bwd_ws_f32": (_I, _P),
     # kind, B, T, S, d, f, H, out int64 [1] -> floats of a layer
@@ -77,14 +79,18 @@ SIGNATURES = {
     # M, N, K, out int[4] (row tiles in whole rounds, row tiles, cluster
     # size of the rest, its clusters at once) of a training-layer product
     "layer_train_gemm_plan": (_I, _I, _I, _P),
+    # call (0 / 1 encoder forward / backward, 2 / 3 decoder), B, T, S, d,
+    # f, out int64 [1] -> floats of a bf16 call's staging
+    "layer_train_stage_floats": (_I,) * 6 + (_P,),
     # p (host array of the layer's tensors), B, T, d, f, H, mask_rows,
-    # thresh, keep_div, dropout[, ws], stream
-    "enc_layer_fwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P),
-    "enc_layer_bwd_f32": (_P,) + (_I,) * 6 + (_U, _F, _I, _P, _P),
-    # p, B, T, S, d, f, H, tgt mask_rows, thresh, keep_div, dropout[, ws],
-    # stream
-    "dec_layer_fwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P),
-    "dec_layer_bwd_f32": (_P,) + (_I,) * 7 + (_U, _F, _I, _P, _P),
+    # thresh, keep_div, dropout, bf (every tensor bf16 but the saved
+    # activations)[, ws], stage, stream
+    "enc_layer_fwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P, _P),
+    "enc_layer_bwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P, _P, _P),
+    # p, B, T, S, d, f, H, tgt mask_rows, thresh, keep_div, dropout, bf[,
+    # ws], stage, stream
+    "dec_layer_fwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P, _P),
+    "dec_layer_bwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P, _P, _P),
     # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, types (each
     # operand f32 or bf16), stream
     "additive_attention_mixed": (_P,) * 6 + (_I,) * 7 + (_P,),
@@ -95,8 +101,8 @@ SIGNATURES = {
     # (each input f32 or bf16), stream
     "att_lstm_att_mixed": (_P,) * 5 + (_I,) * 6 + (_P,),
     # img, row_idx, row_w, col_idx, col_w, mean, std, out, B, H, W, C, Ho,
-    # Wo, stream
-    "image_front_end_f32": (_P,) * 8 + (_I,) * 6 + (_P,),
+    # Wo, obf (out bf16), stream
+    "image_front_end_mixed": (_P,) * 8 + (_I,) * 7 + (_P,),
     # x, h0, c0, w, hs, cs, gates, T, B, H, G, types (the carry, w each
     # f32 or bf16), stream
     "lstm_chain_fwd_mixed": (_P,) * 7 + (_I,) * 5 + (_P,),

@@ -25,6 +25,13 @@ forward again. The dropped FFN hidden is the last saved tensor.
 
 Any head width, d and d_ff: widths that are not multiples of 4 run the
 kernels' 4-byte-copy instances (`csrc/train_gemm.cuh`, `csrc/mha_train.cu`).
+
+Types (the compute dtype, ROADMAP A15): a call is all f32 or all bf16 (x,
+mk, mv, g and every weight; the masks f32), as the TPU kernel runs under a
+bf16 copy of the parameters; the outputs come in x's type and each weight's
+gradient in its weight's type. The kernel's saved activations stay f32
+(holding bf16 values on the bf16 route). Any other mixture raises, naming
+it; `bf16_*_launches` count the bf16 calls.
 """
 
 from __future__ import annotations
@@ -43,8 +50,15 @@ enc_fwd_launches = 0
 enc_bwd_launches = 0
 dec_fwd_launches = 0
 dec_bwd_launches = 0
+bf16_enc_fwd_launches = 0
+bf16_enc_bwd_launches = 0
+bf16_dec_fwd_launches = 0
+bf16_dec_bwd_launches = 0
 
 ENC, DEC = 0, 1   # `kind` of the C workspace query
+# `call` of the C staging query: each direction of each layer
+ENC_FWD, ENC_BWD, DEC_FWD, DEC_BWD = 0, 1, 2, 3
+ACT = None        # in `_check`'s dtype column: x's type
 
 
 def _rate_args(rate: float):
@@ -58,18 +72,30 @@ def _weight_shapes(d: int, f: int) -> dict:
             "wo2": (d, d), "w1": (d, f), "b1": (f,), "w2": (f, d)}
 
 
-def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
+def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> int:
     """Device, dtype, shape, contiguity and alignment of every tensor the
-    kernel reads; the widths the kernel takes."""
+    kernel reads; the widths the kernel takes. Returns the kernel's bf
+    flag (every tensor of x's type bf16); raises, naming the mixture, where
+    x, the weights and the activations (dtype ACT) are not all f32 or all
+    bf16."""
     b, t, d = x.shape
     f = w["w1"].shape[1]
     check_head_width(name, d, n_heads)
     shapes = _weight_shapes(d, f)
-    tensors = {"x": (x, (b, t, d), torch.float32)}
-    tensors.update({k: (w[k], shapes.get(k, (d,)), torch.float32)
-                    for k in keys})
+    tensors = {"x": (x, (b, t, d), ACT)}
+    tensors.update({k: (w[k], shapes.get(k, (d,)), ACT) for k in keys})
     tensors.update(arrays)
+    typed = {key: a.dtype for key, (a, _, dtype) in tensors.items()
+             if dtype is ACT}
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or any(dt != x.dtype for dt in typed.values())):
+        raise ValueError(
+            f"{name}: no kernel entry for the mixture "
+            + ", ".join(f"{key} {dt}" for key, dt in typed.items())
+            + ": x, the activations and every weight all float32 or all "
+            "bfloat16")
     for key, (a, shape, dtype) in tensors.items():
+        dtype = x.dtype if dtype is ACT else dtype
         if a.device != x.device or a.dtype != dtype:
             raise ValueError(f"{name}: {key} must be {dtype} on {x.device}, "
                              f"got {a.dtype} on {a.device}")
@@ -82,6 +108,7 @@ def _check(name: str, x, w: dict, keys, n_heads: int, arrays: dict) -> None:
             raise ValueError(f"{name}: {key} must start on a 16-byte "
                              "boundary (the kernel loads float4 rows where "
                              "the widths allow)")
+    return int(x.dtype == torch.bfloat16)
 
 
 def _mask_arrays(name: str, key: str, maskadd, b: int, t: int, s: int):
@@ -99,8 +126,10 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[a.data_ptr() for a in tensors])
 
 
-def _launch(fn_name: str, x, ptrs, ints, rate: float, ws_kind=None,
-            ws_dims=None) -> None:
+def _launch(fn_name: str, x, ptrs, ints, rate: float, bf: int, call: int,
+            ws_kind=None, ws_dims=None) -> None:
+    """One C call; ws_dims (B, T, S, d, f, H). A bf16 call (bf) takes the
+    staging of its inputs and outputs in f32 (`layer_train_stage_floats`)."""
     lib = build.load()
     thresh, keep_div, dropout = _rate_args(rate)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -110,15 +139,21 @@ def _launch(fn_name: str, x, ptrs, ints, rate: float, ws_kind=None,
         lib.layer_train_ws_f32(ws_kind, *ws_dims, ctypes.byref(n))
         ws = torch.empty((n.value,), dtype=torch.float32, device=x.device)
         extra = [ws.data_ptr()]
-    err = getattr(lib, fn_name)(_ptrs(ptrs), *ints, thresh, keep_div,
-                                dropout, *extra, stream)
+    stage = None
+    if bf:
+        n = ctypes.c_int64()
+        lib.layer_train_stage_floats(call, *ws_dims[:5], ctypes.byref(n))
+        stage = torch.empty((n.value,), dtype=torch.float32, device=x.device)
+    err = getattr(lib, fn_name)(
+        _ptrs(ptrs), *ints, thresh, keep_div, dropout, bf, *extra,
+        None if stage is None else stage.data_ptr(), stream)
     build.check(err, fn_name)
 
 
 def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     """(out [B, T, d], saved): one encoder layer; `saved` is what
     `enc_layer_bwd` takes. w holds the ENC_WEIGHTS."""
-    global enc_fwd_launches
+    global enc_fwd_launches, bf16_enc_fwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2 = enc_fwd_plain(x, maskadd, seed, *ws, n_heads=n_heads,
@@ -130,15 +165,16 @@ def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     f = w["w1"].shape[1]
     arrays = _mask_arrays("enc_layer_fwd", "maskadd", maskadd, b, t, t)
     arrays["seed"] = (seed, (1,), torch.int32)
-    _check("enc_layer_fwd", x, w, ENC_WEIGHTS, n_heads, arrays)
-    out, x2, y1, ao, y2 = (torch.empty_like(x) for _ in range(5))
-    qkv = x.new_empty((b, t, 3 * d))
-    stats = x.new_empty((2, b, n_heads, t))
-    hd = x.new_empty((b, t, f))
-    saved = (x2, y1, qkv, ao, stats, y2, hd)
-    _launch("enc_layer_fwd_f32", x, [x, maskadd, seed, *ws, out, *saved],
-            (b, t, d, f, n_heads, maskadd.shape[1]), rate)
+    bf = _check("enc_layer_fwd", x, w, ENC_WEIGHTS, n_heads, arrays)
+    out = torch.empty_like(x)
+    x2, y1, ao, y2 = (_f32(x, (b, t, d)) for _ in range(4))
+    saved = (x2, y1, _f32(x, (b, t, 3 * d)), ao,
+             _f32(x, (2, b, n_heads, t)), y2, _f32(x, (b, t, f)))
+    _launch("enc_layer_fwd_mixed", x, [x, maskadd, seed, *ws, out, *saved],
+            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf, ENC_FWD,
+            ws_dims=(b, t, t, d, f, n_heads))
     enc_fwd_launches += 1
+    bf16_enc_fwd_launches += bf
     return out, saved
 
 
@@ -146,7 +182,7 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
                   rate: float):
     """(dx, then the gradients of the ENC_WEIGHTS in order) for the
     upstream gradient g [B, T, d]."""
-    global enc_bwd_launches
+    global enc_bwd_launches, bf16_enc_bwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         return enc_bwd_plain(x, maskadd, seed, saved[0], g, *ws,
@@ -157,14 +193,15 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
     f = w["w1"].shape[1]
     arrays = _mask_arrays("enc_layer_bwd", "maskadd", maskadd, b, t, t)
     arrays["seed"] = (seed, (1,), torch.int32)
-    arrays["g"] = (g, (b, t, d), torch.float32)
-    _check("enc_layer_bwd", x, w, ENC_WEIGHTS, n_heads, arrays)
+    arrays["g"] = (g, (b, t, d), ACT)
+    bf = _check("enc_layer_bwd", x, w, ENC_WEIGHTS, n_heads, arrays)
     grads = [torch.empty_like(x)] + [torch.empty_like(a) for a in ws]
-    _launch("enc_layer_bwd_f32", x,
+    _launch("enc_layer_bwd_mixed", x,
             [x, maskadd, seed, *ws, *saved, g, *grads],
-            (b, t, d, f, n_heads, maskadd.shape[1]), rate,
+            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf, ENC_BWD,
             ENC, (b, t, t, d, f, n_heads))
     enc_bwd_launches += 1
+    bf16_enc_bwd_launches += bf
     return tuple(grads)
 
 
@@ -172,7 +209,7 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
                   n_heads: int, rate: float):
     """(out [B, T, d], saved): one decoder layer over the memory's K/V
     projections mk / mv [B, S, d]; w holds the DEC_WEIGHTS."""
-    global dec_fwd_launches
+    global dec_fwd_launches, bf16_dec_fwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2, x3 = dec_fwd_plain(x, mk, mv, tgt_maskadd, src_maskadd,
@@ -185,26 +222,27 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
     f = w["w1"].shape[1]
     arrays = _dec_arrays("dec_layer_fwd", mk, mv, tgt_maskadd, src_maskadd,
                          seeds, b, t, s, d)
-    _check("dec_layer_fwd", x, w, DEC_WEIGHTS, n_heads, arrays)
-    out, x2, x3, y1, ao, y2, qc, co, y3 = (torch.empty_like(x)
-                                           for _ in range(9))
-    qkv = x.new_empty((b, t, 3 * d))
-    stats_self, stats_cross = (x.new_empty((2, b, n_heads, t))
+    bf = _check("dec_layer_fwd", x, w, DEC_WEIGHTS, n_heads, arrays)
+    out = torch.empty_like(x)
+    x2, x3, y1, ao, y2, qc, co, y3 = (_f32(x, (b, t, d)) for _ in range(8))
+    qkv = _f32(x, (b, t, 3 * d))
+    stats_self, stats_cross = (_f32(x, (2, b, n_heads, t))
                                for _ in range(2))
-    hd = x.new_empty((b, t, f))
     saved = (x2, x3, y1, qkv, ao, y2, qc, co, y3, stats_self, stats_cross,
-             hd)
-    _launch("dec_layer_fwd_f32", x,
+             _f32(x, (b, t, f)))
+    _launch("dec_layer_fwd_mixed", x,
             [x, mk, mv, tgt_maskadd, src_maskadd, seeds, *ws, out, *saved],
-            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate)
+            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate, bf,
+            DEC_FWD, ws_dims=(b, t, s, d, f, n_heads))
     dec_fwd_launches += 1
+    bf16_dec_fwd_launches += bf
     return out, saved
 
 
 def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
                   saved, g, *, n_heads: int, rate: float):
     """(dx, dmk, dmv, then the gradients of the DEC_WEIGHTS in order)."""
-    global dec_bwd_launches
+    global dec_bwd_launches, bf16_dec_bwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         return dec_bwd_plain(x, mk, mv, tgt_maskadd, src_maskadd, seeds,
@@ -217,16 +255,17 @@ def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
     f = w["w1"].shape[1]
     arrays = _dec_arrays("dec_layer_bwd", mk, mv, tgt_maskadd, src_maskadd,
                          seeds, b, t, s, d)
-    arrays["g"] = (g, (b, t, d), torch.float32)
-    _check("dec_layer_bwd", x, w, DEC_WEIGHTS, n_heads, arrays)
+    arrays["g"] = (g, (b, t, d), ACT)
+    bf = _check("dec_layer_bwd", x, w, DEC_WEIGHTS, n_heads, arrays)
     grads = ([torch.empty_like(x), torch.empty_like(mk), torch.empty_like(mv)]
              + [torch.empty_like(a) for a in ws])
-    _launch("dec_layer_bwd_f32", x,
+    _launch("dec_layer_bwd_mixed", x,
             [x, mk, mv, tgt_maskadd, src_maskadd, seeds, *ws, *saved, g,
              *grads],
-            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate,
-            DEC, (b, t, s, d, f, n_heads))
+            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate, bf,
+            DEC_BWD, DEC, (b, t, s, d, f, n_heads))
     dec_bwd_launches += 1
+    bf16_dec_bwd_launches += bf
     return tuple(grads)
 
 
@@ -236,10 +275,14 @@ def _dec_arrays(name, mk, mv, tgt_maskadd, src_maskadd, seeds, b, t, s, d):
         raise ValueError(f"{name}: src_maskadd has shape "
                          f"{tuple(src_maskadd.shape)}, expected ({b}, 1, {s})")
     arrays.update(_mask_arrays(name, "src_maskadd", src_maskadd, b, t, s))
-    arrays.update(mk=(mk, (b, s, d), torch.float32),
-                  mv=(mv, (b, s, d), torch.float32),
+    arrays.update(mk=(mk, (b, s, d), ACT), mv=(mv, (b, s, d), ACT),
                   seeds=(seeds, (2,), torch.int32))
     return arrays
+
+
+def _f32(x, shape):
+    """An f32 array of the kernel's saved activations, on x's device."""
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
 
 
 class _EncLayer(torch.autograd.Function):

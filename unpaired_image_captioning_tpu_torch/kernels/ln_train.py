@@ -8,7 +8,17 @@ are in `ops/ln_train.py`.
 `torch.autograd.Function` whose backward is the backward kernel).
 `ln_train_fwd` and `ln_train_bwd` run the plain versions for CPU tensors and
 launch the kernels for CUDA tensors; they never route a CUDA tensor to the
-plain version. `fwd_launches` and `bwd_launches` count kernel launches.
+plain version. `fwd_launches` and `bwd_launches` count kernel launches,
+`bf16_fwd_launches` and `bf16_bwd_launches` those of them with a bf16
+operand.
+
+Types (the compute dtype, ROADMAP A15), as the TPU kernel: x and (scale,
+offset) are each f32 or bf16, g comes in x's type; y and dx are in x's
+type, d_scale / d_offset summed in f32 and cast to scale's type. The routes
+give all f32, and all bf16 on the card's cast route (bf16 copies of the
+parameters); the CPU route of JAX's default config gives a bf16 x with f32
+parameters, which the kernel takes too. Any other mixture raises, naming
+it; a CUDA tensor is never converted to reach another entry.
 """
 
 from __future__ import annotations
@@ -22,6 +32,33 @@ from . import build
 
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0
+bf16_bwd_launches = 0
+
+_TYPES = (torch.float32, torch.bfloat16)
+# the kernel's type flags (csrc/ln_train.cuh): x, scale / offset, y / dx,
+# g, the rounding of a bf16 computation, d_scale / d_offset
+LN_X_BF, LN_P_BF, LN_Y_BF, LN_G_BF, LN_RND, LN_D_BF = 1, 2, 4, 8, 32, 64
+
+
+def mixture(name: str, x, scale, offset, g=None) -> int:
+    """The kernel's flags for the operands' types; raises, naming the
+    mixture, on one the kernel does not take."""
+    if (x.dtype not in _TYPES or scale.dtype not in _TYPES
+            or offset.dtype != scale.dtype
+            or (g is not None and g.dtype != x.dtype)):
+        raise ValueError(
+            f"{name}: no kernel entry for the mixture x {x.dtype}, scale "
+            f"{scale.dtype}, offset {offset.dtype}"
+            + ("" if g is None else f", g {g.dtype}")
+            + ": x and (scale, offset) each float32 or bfloat16, offset "
+            "with scale and g with x")
+    fl = 0
+    if x.dtype == torch.bfloat16:
+        fl |= LN_X_BF | LN_Y_BF | LN_G_BF | LN_RND
+    if scale.dtype == torch.bfloat16:
+        fl |= LN_P_BF | LN_D_BF
+    return fl
 
 
 def _check(name: str, tensors: dict, d: int, device) -> None:
@@ -29,9 +66,9 @@ def _check(name: str, tensors: dict, d: int, device) -> None:
         raise ValueError(f"{name}: width {d} outside what the kernel takes "
                          "(at least 2: the variance divides by d - 1)")
     for key, (t, shape) in tensors.items():
-        if t.device != device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be f32 on {device}, got "
-                             f"{t.dtype} on {t.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} must be on {device}, got "
+                             f"{t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -41,38 +78,41 @@ def _check(name: str, tensors: dict, d: int, device) -> None:
 
 def ln_train_fwd(x, scale, offset, eps: float = 1e-6):
     """y = LayerNorm(x) over the last axis (see `ops.ln_train`)."""
-    global fwd_launches
+    global fwd_launches, bf16_fwd_launches
     if x.device.type == "cpu":
         return ln_train_plain(x, scale, offset, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_train_fwd: unsupported device {x.device}")
     d = x.shape[-1]
+    fl = mixture("ln_train_fwd", x, scale, offset)
     _check("ln_train_fwd", {"x": (x, x.shape), "scale": (scale, (d,)),
                             "offset": (offset, (d,))}, d, x.device)
     y = torch.empty_like(x)
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ln_train_fwd_f32(x.data_ptr(), scale.data_ptr(),
-                               offset.data_ptr(), y.data_ptr(),
-                               x.numel() // d, d, eps, stream)
-    build.check(err, "ln_train_fwd_f32")
+    err = lib.ln_train_fwd_mixed(x.data_ptr(), scale.data_ptr(),
+                                 offset.data_ptr(), y.data_ptr(),
+                                 x.numel() // d, d, eps, fl, stream)
+    build.check(err, "ln_train_fwd_mixed")
     fwd_launches += 1
+    bf16_fwd_launches += fl != 0
     return y
 
 
 def ln_train_bwd(x, scale, g, eps: float = 1e-6):
     """(dx, d_scale, d_offset); d_scale and d_offset sum over every row."""
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     if x.device.type == "cpu":
         return ln_train_plain_bwd(x, scale, g, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_train_bwd: unsupported device {x.device}")
     d = x.shape[-1]
+    fl = mixture("ln_train_bwd", x, scale, scale, g)
     _check("ln_train_bwd", {"x": (x, x.shape), "scale": (scale, (d,)),
                             "g": (g, x.shape)}, d, x.device)
     rows = x.numel() // d
     dx = torch.empty_like(x)
-    d_scale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    d_scale = torch.empty((d,), dtype=scale.dtype, device=x.device)
     d_offset = torch.empty_like(d_scale)
     lib = build.load()
     n = ctypes.c_longlong()
@@ -80,12 +120,13 @@ def ln_train_bwd(x, scale, g, eps: float = 1e-6):
                 "ln_train_bwd_ws_f32")
     ws = torch.empty((n.value,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ln_train_bwd_f32(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
-                               dx.data_ptr(), d_scale.data_ptr(),
-                               d_offset.data_ptr(), ws.data_ptr(), rows, d,
-                               eps, stream)
-    build.check(err, "ln_train_bwd_f32")
+    err = lib.ln_train_bwd_mixed(x.data_ptr(), scale.data_ptr(),
+                                 g.data_ptr(), dx.data_ptr(),
+                                 d_scale.data_ptr(), d_offset.data_ptr(),
+                                 ws.data_ptr(), rows, d, eps, fl, stream)
+    build.check(err, "ln_train_bwd_mixed")
     bwd_launches += 1
+    bf16_bwd_launches += fl != 0
     return dx, d_scale, d_offset
 
 
@@ -105,6 +146,6 @@ class _LayerNormTrain(torch.autograd.Function):
 
 
 def layer_norm_train(x, scale, offset, eps: float = 1e-6):
-    """Differentiable training LayerNorm over the last axis of x (f32,
-    contiguous on the card); gradients flow to x, scale and offset."""
+    """Differentiable training LayerNorm over the last axis of x (f32 or
+    bf16, contiguous on the card); gradients flow to x, scale and offset."""
     return _LayerNormTrain.apply(x, scale, offset, eps)

@@ -11,7 +11,16 @@ tensors; they never route a CUDA tensor to the plain version. The forward
 also returns the rows' softmax statistics [2, B, H, T] (`ops.mha_train.
 softmax_stats`), which the backward kernel reads instead of recomputing
 whole rows; the plain backward ignores them. `fwd_launches` and
-`bwd_launches` count kernel launches.
+`bwd_launches` count kernel launches, `bf16_fwd_launches` and
+`bf16_bwd_launches` those of them on bf16 operands.
+
+Types (the compute dtype, ROADMAP A15), as the TPU kernel: q, k and v are
+all f32 or all bf16 (the routes give no other mixture: the per-sublayer
+route attends over projections of one activation, and the cast route
+casts every parameter); maskadd and the statistics stay f32; the output
+and dq / dk / dv are in q's type, g and the forward output in it too. On
+bf16 the kernel keeps the TPU kernel's cast points (`ops/mha_train.py`).
+Any other mixture raises, naming it.
 """
 
 from __future__ import annotations
@@ -26,6 +35,11 @@ from . import build
 
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0
+bf16_bwd_launches = 0
+# the kernel's type flags (csrc/mha_train.cuh): q, k / v, out / g / o
+# stored as bf16, and the bf16 cast points
+ATT_BF16 = 1 | 2 | 4 | 8
 
 def check_head_width(name: str, d: int, n_heads: int) -> None:
     """Raise unless d splits into n_heads heads, as the JAX package's head
@@ -53,11 +67,19 @@ def _check(name, q, k, v, maskadd, seed, n_heads, extra=None):
             or maskadd.shape[1] not in (1, t):
         raise ValueError(f"{name}: maskadd has shape {tuple(maskadd.shape)}, "
                          f"expected ({b}, 1|{t}, {s})")
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or any(x.dtype != q.dtype for x, _ in shapes.values())
+            or maskadd.dtype != torch.float32):
+        raise ValueError(
+            f"{name}: no kernel entry for the mixture "
+            + ", ".join(f"{key} {x.dtype}" for key, (x, _) in shapes.items())
+            + f", maskadd {maskadd.dtype}: q, k, v (and g, out) all float32 "
+            "or all bfloat16, maskadd float32")
     shapes["maskadd"] = (maskadd, tuple(maskadd.shape))
     for key, (x, shape) in shapes.items():
-        if x.device != q.device or x.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be f32 on {q.device}, got "
-                             f"{x.dtype} on {x.device}")
+        if x.device != q.device:
+            raise ValueError(f"{name}: {key} must be on {q.device}, got "
+                             f"{x.device}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: {key} has shape {tuple(x.shape)}, "
                              f"expected {shape}")
@@ -77,7 +99,7 @@ def _rate_args(rate: float):
 def mha_train_fwd(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
     """(attention output [B, T, d] (see `ops.mha_train.mha_train_plain`),
     the rows' softmax statistics [2, B, H, T])."""
-    global fwd_launches
+    global fwd_launches, bf16_fwd_launches
     if q.device.type == "cpu":
         return (mha_train_plain(q, k, v, maskadd, seed, n_heads=n_heads,
                                 rate=rate),
@@ -87,17 +109,20 @@ def mha_train_fwd(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
     _check("mha_train_fwd", q, k, v, maskadd, seed, n_heads)
     b, t, d = q.shape
     thresh, keep_div, dropout = _rate_args(rate)
+    fl = ATT_BF16 if q.dtype == torch.bfloat16 else 0
     out = torch.empty_like(q)
-    stats = q.new_empty((2, b, n_heads, t))
+    stats = torch.empty((2, b, n_heads, t), dtype=torch.float32,
+                        device=q.device)
     lib = build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.mha_train_fwd_f32(
+    err = lib.mha_train_fwd_mixed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), maskadd.data_ptr(),
         seed.data_ptr(), out.data_ptr(), stats.data_ptr(), b, t, k.shape[1],
         n_heads, d // n_heads, maskadd.shape[1], thresh, keep_div, dropout,
-        stream)
-    build.check(err, "mha_train_fwd_f32")
+        fl, stream)
+    build.check(err, "mha_train_fwd_mixed")
     fwd_launches += 1
+    bf16_fwd_launches += fl != 0
     return out, stats
 
 
@@ -106,7 +131,7 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, *, n_heads: int,
     """(dq, dk, dv) for the upstream gradient g [B, T, d]; `out` and
     `stats` are the forward's output and row statistics, which the kernel
     reads for the softmax backward (the plain version recomputes both)."""
-    global bwd_launches
+    global bwd_launches, bf16_bwd_launches
     if q.device.type == "cpu":
         return mha_train_plain_bwd(q, k, v, maskadd, seed, g,
                                    n_heads=n_heads, rate=rate)
@@ -122,22 +147,24 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, *, n_heads: int,
         raise ValueError(f"mha_train_bwd: stats must be f32 [2, {b}, "
                          f"{n_heads}, {t}] on {q.device}, contiguous")
     thresh, keep_div, dropout = _rate_args(rate)
+    fl = ATT_BF16 if q.dtype == torch.bfloat16 else 0
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = build.load()
     n = ctypes.c_int64()
     lib.mha_train_bwd_ws_f32(b, t, s, n_heads, ctypes.byref(n))
-    scratch = q.new_empty((n.value,))
+    scratch = torch.empty((n.value,), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.mha_train_bwd_f32(
+    err = lib.mha_train_bwd_mixed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), maskadd.data_ptr(),
         seed.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, t,
         s, n_heads, d // n_heads, maskadd.shape[1], thresh, keep_div,
-        dropout, stream)
-    build.check(err, "mha_train_bwd_f32")
+        dropout, fl, stream)
+    build.check(err, "mha_train_bwd_mixed")
     bwd_launches += 1
+    bf16_bwd_launches += fl != 0
     return dq, dk, dv
 
 
@@ -160,8 +187,8 @@ class _MhaTrain(torch.autograd.Function):
 
 
 def mha_train(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
-    """Differentiable training attention: q [B, T, d], k / v [B, S, d],
-    maskadd [B, 1|T, S] f32, seed int32 [1]; returns [B, T, d]. Gradients
-    flow to q, k and v."""
+    """Differentiable training attention: q [B, T, d], k / v [B, S, d] (all
+    f32 or all bf16), maskadd [B, 1|T, S] f32, seed int32 [1]; returns
+    [B, T, d] in q's type. Gradients flow to q, k and v."""
     return _MhaTrain.apply(q, k, v, maskadd, seed, n_heads, rate)
 

@@ -105,6 +105,14 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def weak(c: float, x: torch.Tensor):
+    """The Python scalar c as JAX applies it to x (a weakly typed scalar):
+    in x's type, so against a bf16 x it is c rounded to bf16 (torch would
+    compute with c in f32). A 0-d CPU tensor, which torch applies to a
+    tensor on any device."""
+    return torch.tensor(c, dtype=x.dtype) if x.dtype == torch.bfloat16 else c
+
+
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     """The JAX package's `linear`: the product in x's type, then the bias in
     x's type (bf16 features through f32 weights come out bf16)."""
@@ -130,7 +138,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate <= 0.0 or generator is None:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(keep, x / weak(1.0 - rate, x), torch.zeros_like(x))
 
 
 def init_module(module: nn.Module, generator: torch.Generator) -> None:

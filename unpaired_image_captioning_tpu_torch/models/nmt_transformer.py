@@ -35,7 +35,8 @@ from torch import nn
 from .. import constants as C
 from ..kernels.transformer_decode import decoder_stack_step
 from ..ops.transformer_decode import pack_stack_weights, src_mask_2d
-from .base import dropout, init_module, linear, linear_init, resolve_device
+from .base import (dot_f32, dropout, init_module, linear, linear_init,
+                   resolve_device, weak)
 from .nmt import NMTModel, _gold_scores, constructor_args
 from .transformer import (LayerNorm, dec_layer_apply, dec_layer_init,
                           enc_layer_apply, enc_layer_init, layer_norm,
@@ -119,9 +120,11 @@ class TransformerNMTModel(nn.Module):
         """table[ids] * sqrt(d) with PAD rows zeroed, plus the positional
         encoding of each position."""
         d = self.d_model
-        x = table[ids] * math.sqrt(d)
+        x = table[ids]
+        x = x * weak(math.sqrt(d), x)
         x = x * (ids != C.PAD)[..., None].to(x.dtype)
-        return x + positional_encoding(ids.shape[-1], d, device=x.device)[None]
+        pe = positional_encoding(ids.shape[-1], d, device=x.device)
+        return x + pe[None].to(x.dtype)
 
     def encode(self, src_ids, lengths, *, training: bool = False,
                generator: Optional[torch.Generator] = None):
@@ -138,9 +141,11 @@ class TransformerNMTModel(nn.Module):
         return layer_norm(self.enc_norm, x, training=training), src_mask
 
     def generator_logits(self, output):
+        """f32 logits (JAX's generator_logits): the shared table's product
+        in f32, or the generator's in the output's type, widened."""
         if self.share_decoder_embeddings:
-            return output @ self.tgt_embed.T + self.generator.b
-        return linear(self.generator, output)
+            return dot_f32(output, self.tgt_embed.T) + self.generator.b
+        return linear(self.generator, output).float()
 
     def src_embedding(self) -> torch.Tensor:
         """The source word table (the Weight_Trans coupling point)."""
@@ -206,7 +211,9 @@ class TransformerNMTModel(nn.Module):
         written in place at slot t; `anc` (if any rows were reordered) names
         the row each position is read from."""
         t = state["t"]
-        x = self.tgt_embed[it] * math.sqrt(self.d_model) + ctx["pe"][t.long()]
+        x = self.tgt_embed[it]
+        x = x * weak(math.sqrt(self.d_model), x)
+        x = x + ctx["pe"][t.long()].to(ctx["cross_k"].dtype)
         x, k, v, attn = decoder_stack_step(
             x, t, ctx["cross_k"], ctx["cross_v"], ctx["src_mask"],
             state["k"], state["v"], ctx["wstack"], state["anc"],

@@ -55,12 +55,13 @@ from ..kernels.ln_train import layer_norm_train
 from ..kernels.mha_train import mha_train
 from ..kernels.transformer_decode import (decoder_layer_step,
                                           decoder_stack_step)
+from ..ops.mha_train import scale_scores, up
 from ..ops.transformer_decode import (NEG, cross_attend, layer_norm_plain,
                                       pack_layer_weights, pack_stack_weights,
                                       src_mask_2d)
 from .att import BatchNorm, batch_norm
 from .base import (CaptionDecoder, Features, dropout, init_module, linear,
-                   linear_init)
+                   linear_init, weak)
 
 DROPOUT = 0.1  # reference make_model default: attention, residual, FFN
 
@@ -179,14 +180,21 @@ def mha_apply(p, q_in, k, v, mask, n_heads: int, *, training: bool = False,
                         maskadd, _seed(generator, q_in.device),
                         n_heads=n_heads, rate=_rate(generator))
         return linear(p["o"], out)
-    q = _split_heads(linear(p["q"], q_in), n_heads)
-    scores = torch.einsum("bthd,bshd->bhts", q, _split_heads(k, n_heads))
-    scores = scores / math.sqrt(d // n_heads)
+    # JAX's cast points: the scores in the product's type (bf16 operands:
+    # rounded, then divided by sqrt(dh) in bf16), the softmax in f32, its
+    # weights cast to q_in's type before the sum
+    q = linear(p["q"], q_in)
+    st = torch.promote_types(q.dtype, k.dtype)
+    scores = torch.einsum("bthd,bshd->bhts", up(_split_heads(q, n_heads)),
+                          up(_split_heads(k, n_heads)))
+    scores = scale_scores(scores, d // n_heads, st)
     if mask is not None:
         scores = torch.where(mask[:, None, :, :], scores,
                              torch.full_like(scores, NEG))
-    attn = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhts,bshd->bthd", attn, _split_heads(v, n_heads))
+    attn = torch.softmax(scores, dim=-1).to(q_in.dtype)
+    out = torch.einsum("bhts,bshd->bthd", up(attn),
+                       up(_split_heads(v, n_heads)))
+    out = out.to(torch.promote_types(attn.dtype, v.dtype))
     return linear(p["o"], out.reshape(q_in.shape[0], q_in.shape[1], d))
 
 
@@ -339,10 +347,9 @@ class TransformerModel(CaptionDecoder):
                generator: Optional[torch.Generator] = None,
                aux_out: Optional[dict] = None):
         # bf16 features (the trainer's host rounding, the card's serving
-        # and eval) are widened to the weights' type before att_embed, so
-        # the transformer kernels, which have no bf16 entry yet, see f32
-        # (ROADMAP A15); JAX's `linear` keeps the features' type here
-        att = feats.att_feats.to(self.att_embed.w.dtype)
+        # and eval) stay bf16 through the encoder: `linear` keeps its
+        # input's type, as JAX's does
+        att = feats.att_feats
         if self.use_bn:
             att = batch_norm(self.bn0, att, training, mask=feats.att_masks,
                              aux_out=aux_out, key="bn0")
@@ -372,8 +379,9 @@ class TransformerModel(CaptionDecoder):
         seq_in = seq[:, :-1]
         t = seq_in.shape[1]
         d = self.d_model
-        x = self.tgt_embed[seq_in] * math.sqrt(d)
-        x = x + positional_encoding(t, d, device=x.device)[None]
+        x = self.tgt_embed[seq_in]
+        x = x * weak(math.sqrt(d), x)
+        x = x + positional_encoding(t, d, device=x.device)[None].to(x.dtype)
         x = dropout(x, DROPOUT, training, generator)
         # pad mask: position 0 (the BOS slot, id 0) is always allowed
         pos = torch.arange(t, device=seq.device)
@@ -388,7 +396,7 @@ class TransformerModel(CaptionDecoder):
                                 generator=generator)
         logits = linear(self.generator,
                         layer_norm(self.dec_norm, x, training=training))
-        return torch.log_softmax(logits, dim=-1)
+        return torch.log_softmax(logits.float(), dim=-1)
 
     # ---- incremental decode with a fixed K/V cache ----
     def make_decoder(self, feats: Features, *, training: bool = False,
@@ -430,7 +438,8 @@ class TransformerModel(CaptionDecoder):
         # output is discarded) reads the last encoding, as JAX's clamped
         # gather does; the caches take no write at t >= T
         pe = ctx["pe"][t.long().clamp(max=ctx["pe"].shape[0] - 1)]
-        x = self.tgt_embed[it] * math.sqrt(self.d_model) + pe
+        x = self.tgt_embed[it]
+        x = x * weak(math.sqrt(self.d_model), x) + pe.to(x.dtype)
         if "wstack" in ctx:
             x, k_all, v_all = decoder_stack_step(
                 x, t, ctx["cross_k"], ctx["cross_v"], ctx["src_mask"],
@@ -446,4 +455,4 @@ class TransformerModel(CaptionDecoder):
                         ctx["src_mask"], state[f"k{li}"], state[f"v{li}"],
                         ctx["wpack"][li], n_heads=self.num_heads))
         logits = linear(self.generator, layer_norm(self.dec_norm, x))
-        return torch.log_softmax(logits, dim=-1), new_state
+        return torch.log_softmax(logits.float(), dim=-1), new_state

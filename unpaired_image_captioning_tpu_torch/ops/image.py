@@ -2,7 +2,7 @@
 `unpaired_image_captioning_tpu/ops/image.py`).
 
 uint8 [B, H, W, C] -> bilinear resize (half-pixel centres) -> ImageNet
-normalisation, f32 [B, h_out, w_out, C]. The resize is separable: per
+normalisation, f32 [B, h_out, w_out, C] (or bf16, the f32 values rounded). The resize is separable: per
 channel `R_h @ plane @ R_w^T` with the matrices of `_interp_matrix`, then
 `(x / 255 - mean) / std`; for C != 3 every channel takes the mean of the
 three statistics. `resize_normalize_plain` is the JAX package's dense
@@ -78,9 +78,12 @@ def preprocess_images(imgs: np.ndarray) -> np.ndarray:
 
 
 def resize_normalize_plain(imgs: torch.Tensor, *, h_out: int = 448,
-                           w_out: int = 448) -> torch.Tensor:
-    """uint8 [B, H, W, C] -> normalized f32 [B, h_out, w_out, C], by the
-    dense einsum route."""
+                           w_out: int = 448,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """uint8 [B, H, W, C] -> normalized [B, h_out, w_out, C], by the dense
+    einsum route, in f32 and then cast to out_dtype (bf16: rounded to
+    nearest even, as JAX's `.astype(out_dtype)`)."""
     _, h_in, w_in, c = imgs.shape
     dev = imgs.device
     rh = torch.from_numpy(_interp_matrix(h_in, h_out).copy()).to(dev)
@@ -89,4 +92,4 @@ def resize_normalize_plain(imgs: torch.Tensor, *, h_out: int = 448,
     x = imgs.to(torch.float32)
     x = torch.einsum("oh,bhwc->bowc", rh, x)
     x = torch.einsum("bowc,wq->boqc", x, rw_t)
-    return (x / 255.0 - mean) / std
+    return ((x / 255.0 - mean) / std).to(out_dtype)

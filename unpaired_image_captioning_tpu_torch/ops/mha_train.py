@@ -9,6 +9,12 @@ head h, with q [B, T, d] already q-projected, k / v [B, S, d] projected,
     s = q_h k_h^T / sqrt(dh);  s = -1e9 where maskadd < 0
     p = softmax(s);  attn = keep ? p / (1 - rate) : 0;  o_h = attn v_h
 
+Types, the Pallas kernel's cast points (`dtype` = q's type, f32 or
+bf16; maskadd f32): the scores are f32 products of the operands' values;
+for bf16 they are rounded to bf16 and divided by sqrt(dh) in bf16 before
+the f32 softmax (`scale_scores`); attn is cast to q's type before A.V and
+dV, ds / sqrt(dh) before dq and dk; every output in q's type.
+
 `keep` is `_keep_mask` of the Pallas kernel, a splitmix32 hash of (seed,
 pid, row * S + col) against floor(rate * 2^32) with the block id
 pid = (b * n_sites + site) * n_heads + h: n_sites 1 here (pid = b * H + h);
@@ -64,16 +70,35 @@ def keep_mask(seed: torch.Tensor, b: int, n_heads: int, t: int, s: int,
     return x >= keep_threshold(rate)
 
 
+def up(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor's values in f32 (exact), any other tensor as it is:
+    the plain versions compute in f32 on bf16 operands and keep f32 and
+    f64 operands in their own type."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, t, d = x.shape
     return x.reshape(b, t, n_heads, d // n_heads)
 
 
+def scale_scores(s: torch.Tensor, dh: int, dtype) -> torch.Tensor:
+    """f32 scores q.k divided by sqrt(dh) as the Pallas kernel's
+    `_softmax_from_scores` does it for inputs of `dtype`: in f32, or for
+    bf16 the scores rounded to bf16 and divided in bf16 by sqrt(dh) in bf16
+    (the weakly typed Python scalar), back in f32."""
+    if dtype == torch.bfloat16:
+        root = torch.tensor(math.sqrt(dh), dtype=torch.bfloat16)
+        return (s.to(torch.bfloat16) / root).float()
+    return s / math.sqrt(dh)
+
+
 def _scores(q, k, maskadd, n_heads: int):
-    """The masked, scaled scores [B, H, T, S]."""
+    """The masked, scaled scores [B, H, T, S], f32."""
     dh = q.shape[-1] // n_heads
-    scores = torch.einsum("bthd,bshd->bhts", _heads(q, n_heads),
-                          _heads(k, n_heads)) / math.sqrt(dh)
+    scores = torch.einsum("bthd,bshd->bhts", _heads(up(q), n_heads),
+                          _heads(up(k), n_heads))
+    scores = scale_scores(scores, dh, q.dtype)
     return torch.where(maskadd[:, None] < 0, NEG, scores)
 
 
@@ -87,7 +112,8 @@ def softmax_stats(q, k, maskadd, *, n_heads: int):
 
 
 def _probs(q, k, maskadd, seed, n_heads: int, rate: float, n_sites: int):
-    """(p, attn, keep or None) [B, H, T, S]; attn includes the dropout."""
+    """(p, attn, keep or None) [B, H, T, S] f32; attn includes the
+    dropout."""
     b, t, _ = q.shape
     p = torch.softmax(_scores(q, k, maskadd, n_heads), dim=-1)
     if rate <= 0.0:
@@ -96,31 +122,43 @@ def _probs(q, k, maskadd, seed, n_heads: int, rate: float, n_sites: int):
     return p, torch.where(keep, p / (1.0 - rate), 0.0), keep
 
 
+def rounded(t: torch.Tensor, dtype) -> torch.Tensor:
+    """t's values in `dtype` (rounded where dtype is bf16: a cast point),
+    computed on in f32 there (`up`)."""
+    return up(t.to(dtype))
+
+
 def mha_train_plain(q, k, v, maskadd, seed, *, n_heads: int, rate: float,
                     n_sites: int = 1):
-    """Merged-head attention output [B, T, d]; the output projection stays
-    outside. `n_sites` is the block-id stride of the dropout hash (site 0)."""
+    """Merged-head attention output [B, T, d] in q's type; the output
+    projection stays outside. `n_sites` is the block-id stride of the
+    dropout hash (site 0)."""
     b, t, d = q.shape
     _, attn, _ = _probs(q, k, maskadd, seed, n_heads, rate, n_sites)
-    out = torch.einsum("bhts,bshd->bthd", attn, _heads(v, n_heads))
-    return out.reshape(b, t, d)
+    out = torch.einsum("bhts,bshd->bthd", rounded(attn, q.dtype),
+                       _heads(up(v), n_heads))
+    return out.reshape(b, t, d).to(q.dtype)
 
 
 def mha_train_plain_bwd(q, k, v, maskadd, seed, g, *, n_heads: int,
                         rate: float, n_sites: int = 1):
-    """(dq, dk, dv) for the upstream gradient g [B, T, d]."""
+    """(dq, dk, dv) for the upstream gradient g [B, T, d], each in q's type
+    (the Pallas `_bwd_kernel`: attn and ds / sqrt(dh) cast to q's type
+    before their products)."""
     b, t, d = q.shape
     s = k.shape[1]
     dh = d // n_heads
+    dt = q.dtype
     p, attn, keep = _probs(q, k, maskadd, seed, n_heads, rate, n_sites)
-    gh = _heads(g, n_heads)
-    dv = torch.einsum("bhts,bthd->bshd", attn, gh)
-    dattn = torch.einsum("bthd,bshd->bhts", gh, _heads(v, n_heads))
+    gh = _heads(up(g), n_heads)
+    dv = torch.einsum("bhts,bthd->bshd", rounded(attn, dt), gh)
+    dattn = torch.einsum("bthd,bshd->bhts", gh, _heads(up(v), n_heads))
     if keep is not None:
         dattn = torch.where(keep, dattn / (1.0 - rate), 0.0)
     ds = p * (dattn - (dattn * p).sum(-1, keepdim=True))
     ds = torch.where(maskadd[:, None] < 0, 0.0, ds)
-    dsd = ds / math.sqrt(dh)
-    dq = torch.einsum("bhts,bshd->bthd", dsd, _heads(k, n_heads))
-    dk = torch.einsum("bhts,bthd->bshd", dsd, _heads(q, n_heads))
-    return dq.reshape(b, t, d), dk.reshape(b, s, d), dv.reshape(b, s, d)
+    dsd = rounded(ds / math.sqrt(dh), dt)
+    dq = torch.einsum("bhts,bshd->bthd", dsd, _heads(up(k), n_heads))
+    dk = torch.einsum("bhts,bthd->bshd", dsd, _heads(up(q), n_heads))
+    return (dq.reshape(b, t, d).to(dt), dk.reshape(b, s, d).to(dt),
+            dv.reshape(b, s, d).to(dt))

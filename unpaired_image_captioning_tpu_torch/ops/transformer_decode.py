@@ -19,6 +19,13 @@ the kb beams of an image are consecutive rows (`_layer_math` there):
 LayerNorm is the reference's: unbiased (n-1) variance, eps 1e-6 outside
 the sqrt.
 
+Types (JAX's `_layer_math` with dt = x's type): x, the packed weights, the
+caches and the memory (ck / cv) are each f32 or bf16. LN runs in f32 and
+returns dt; each projection is the f32 product plus the f32 bias, cast to
+dt; k_t / v_t are written into the caches in the caches' type; the scores
+and softmax are f32, the weights and the attention outputs cast to dt;
+each sublayer's output is added to x in dt.
+
 In-place contract, shared with the CUDA kernel (`kernels/
 transformer_decode.py`): the caches are updated in place (slot t[r] of
 every row is overwritten) and returned. A caller that must keep the
@@ -35,6 +42,8 @@ import math
 from typing import Optional
 
 import torch
+
+from .mha_train import up
 
 NEG = -1e9      # the reference's masked score (not -inf)
 
@@ -84,22 +93,32 @@ def src_mask_2d(src_mask: Optional[torch.Tensor], batch: int, slots: int,
 
 def layer_norm_plain(x, scale, offset, eps: float = 1e-6):
     """The reference LayerNorm: unbiased (n-1) variance, eps outside the
-    sqrt."""
-    mean = x.mean(-1, keepdim=True)
-    var = torch.square(x - mean).sum(-1, keepdim=True) / (x.shape[-1] - 1)
-    return (x - mean) / (torch.sqrt(var) + eps) * scale + offset
+    sqrt; in f32 for a bf16 x, returned in x's type (JAX's `_ln` and
+    `layer_norm`)."""
+    x32 = up(x)
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.square(x32 - mean).sum(-1, keepdim=True) / (x.shape[-1] - 1)
+    out = (x32 - mean) / (torch.sqrt(var) + eps) * up(scale) + up(offset)
+    return out.to(x.dtype)
+
+
+def _proj(y, w, b, dt):
+    """(f32 product + f32 bias) cast to dt, as `_layer_math` casts it."""
+    return (up(y) @ up(w) + up(b)).to(dt)
 
 
 def _write_slot(cache, val, t):
-    """cache [R, T, d] (may be a view) <- val [R, d] at slot t[r], in place;
-    rows whose t is outside [0, T) write nothing."""
+    """cache [R, T, d] (may be a view) <- val [R, d] at slot t[r], in place,
+    in the cache's type; rows whose t is outside [0, T) write nothing."""
     ok = (t >= 0) & (t < cache.shape[1])
     rows = torch.arange(t.shape[0], device=t.device)[ok]
-    cache[rows, t[ok].long()] = val[ok]
+    cache[rows, t[ok].long()] = val[ok].to(cache.dtype)
 
 
 def _self_attend(q, cache_k, cache_v, t, n_heads: int, kb: int, anc):
+    """f32 scores and softmax; the weights and the output in q's type."""
     rows, n_t, d = cache_k.shape
+    dt = q.dtype
     dh = d // n_heads
     if anc is None:
         keys, vals = cache_k, cache_v
@@ -108,53 +127,56 @@ def _self_attend(q, cache_k, cache_v, t, n_heads: int, kb: int, anc):
         phys = (r - r % kb)[:, None] + anc.long()              # [R, T]
         pos = torch.arange(n_t, device=q.device)[None, :].expand(rows, n_t)
         keys, vals = cache_k[phys, pos], cache_v[phys, pos]    # [R, T, d]
-    sc = torch.einsum("rhd,rthd->rht", q.reshape(rows, n_heads, dh),
-                      keys.reshape(rows, n_t, n_heads, dh)) / math.sqrt(dh)
+    sc = torch.einsum("rhd,rthd->rht", up(q).reshape(rows, n_heads, dh),
+                      up(keys).reshape(rows, n_t, n_heads, dh)) / math.sqrt(dh)
     ok = torch.arange(n_t, device=q.device)[None, :] <= t[:, None]
     sc = torch.where(ok[:, None, :], sc, torch.full_like(sc, NEG))
-    a = torch.softmax(sc, dim=-1)
+    a = up(torch.softmax(sc, dim=-1).to(dt))
     out = torch.einsum("rht,rthd->rhd", a,
-                       vals.reshape(rows, n_t, n_heads, dh))
-    return out.reshape(rows, d)
+                       up(vals).reshape(rows, n_t, n_heads, dh))
+    return out.reshape(rows, d).to(dt)
 
 
 def cross_attend(q2, ck, cv, mask, n_heads: int):
     """The kb beam queries q2 [B*kb, d] of each image attend over that
     image's unexpanded ck/cv [B, S, d]; mask [B, S] (> 0 = attend). Returns
-    (out [B*kb, d], mean-head weights [B*kb, S])."""
+    (out [B*kb, d] in q2's type, mean-head weights [B*kb, S] f32): f32
+    scores and softmax, the weights cast to q2's type before the sum."""
     bsz, slots, d = ck.shape
     rows = q2.shape[0]
     kb = rows // bsz
     dh = d // n_heads
+    dt = q2.dtype
     sc = torch.einsum("bkhd,bshd->bhks",
-                      q2.reshape(bsz, kb, n_heads, dh),
-                      ck.reshape(bsz, slots, n_heads, dh)) / math.sqrt(dh)
+                      up(q2).reshape(bsz, kb, n_heads, dh),
+                      up(ck).reshape(bsz, slots, n_heads, dh)) / math.sqrt(dh)
     sc = torch.where(mask[:, None, None, :] > 0, sc, torch.full_like(sc, NEG))
     w = torch.softmax(sc, dim=-1)                              # [B, H, kb, S]
     attn = w.mean(dim=1).reshape(rows, slots)
-    out = torch.einsum("bhks,bshd->bkhd", w,
-                       cv.reshape(bsz, slots, n_heads, dh))
-    return out.reshape(rows, d), attn
+    out = torch.einsum("bhks,bshd->bkhd", up(w.to(dt)),
+                       up(cv).reshape(bsz, slots, n_heads, dh))
+    return out.reshape(rows, d).to(dt), attn
 
 
 def _layer_plain(x, t, ck, cv, mask, cache_k, cache_v, w, *, n_heads: int,
                  kb: int, anc=None):
-    """One layer; cache_k/v [R, T, d] (views allowed) are written in place.
-    Returns (x', mean-head cross-attention weights [R, S])."""
-    d = x.shape[-1]
+    """One layer; cache_k/v [R, T, d] (views allowed) are written in place,
+    in their own type. Returns (x', mean-head cross-attention weights
+    [R, S]). The cast points are `_layer_math`'s with dt = x's type."""
+    d, dt = x.shape[-1], x.dtype
     y = layer_norm_plain(x, w["ln1_s"], w["ln1_b"])
-    q, k_t, v_t = (y @ w["wqkv"] + w["bqkv"]).split(d, dim=-1)
+    q, k_t, v_t = _proj(y, w["wqkv"], w["bqkv"], dt).split(d, dim=-1)
     _write_slot(cache_k, k_t, t)
     _write_slot(cache_v, v_t, t)
     out = _self_attend(q, cache_k, cache_v, t, n_heads, kb, anc)
-    x = x + (out @ w["wo_s"] + w["bo_s"])
+    x = x + _proj(out, w["wo_s"], w["bo_s"], dt)
     y = layer_norm_plain(x, w["ln2_s"], w["ln2_b"])
-    out2, attn = cross_attend(y @ w["wq_c"] + w["bq_c"], ck, cv, mask,
-                              n_heads)
-    x = x + (out2 @ w["wo_c"] + w["bo_c"])
+    out2, attn = cross_attend(_proj(y, w["wq_c"], w["bq_c"], dt), ck, cv,
+                              mask, n_heads)
+    x = x + _proj(out2, w["wo_c"], w["bo_c"], dt)
     y = layer_norm_plain(x, w["ln3_s"], w["ln3_b"])
-    h1 = torch.relu(y @ w["w1"] + w["b1"])
-    return x + (h1 @ w["w2"] + w["b2"]), attn
+    h1 = torch.relu(up(y) @ up(w["w1"]) + up(w["b1"])).to(dt)
+    return x + _proj(h1, w["w2"], w["b2"], dt), attn
 
 
 def decoder_layer_step_plain(x, t, ck, cv, src_mask, cache_k, cache_v,

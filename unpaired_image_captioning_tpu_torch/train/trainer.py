@@ -89,8 +89,8 @@ f32 parameter of both models is replaced by one `p.to(bfloat16)` for the
 forward, the SCST sample and the backward, so the gradients reach the f32
 masters through the cast; the optimizer state, the clip and the update stay
 f32, and the `use_bn` moments (taken in f32) are blended into the f32
-leaves. The transformer kernels have no bf16 entry yet, so a transformer
-captioner or NMT with "bfloat16" on a card raises at construction.
+leaves. The transformer captioner and NMT take the same route: their
+kernels (B4-B8) have bf16 entries.
 """
 
 from __future__ import annotations
@@ -177,13 +177,6 @@ class Trainer:
         self.nmt_model = (make_nmt_model(cfg, device=self.device)
                           .init_params(init)
                           if getattr(cfg, "nmt_src_vocab_size", 0) else None)
-        if self.cast and (isinstance(self.i2t_model, TransformerModel)
-                          or isinstance(self.nmt_model, TransformerNMTModel)):
-            raise NotImplementedError(
-                "dtype='bfloat16' on the card: the transformer kernels have "
-                "no bf16 entry yet (B5 mha_train, B6 / B7 layer_train, B8 "
-                "ln_train, and B4 transformer_decode for the SCST sample; "
-                "ROADMAP A15): train the transformer with dtype='float32'")
         if self.nmt_model is not None and (
                 getattr(cfg, "pre_word_vecs_enc", "")
                 or getattr(cfg, "pre_word_vecs_dec", "")):
