@@ -454,7 +454,7 @@ DENSE_ROUTES = [
      {"lstm_cell": 3 * _T1, "additive_attention": 2 * _T1}),
 ]
 # the LSTM cell's kernel (both tile widths are instances of one template)
-LSTM_KERNELS = ("lstm_cell_kernel",)
+LSTM_KERNELS = ("lstm_cell_kernel", "lstm_cell_tc_kernel")
 DENSE_KERNELS = LSTM_KERNELS + ("additive_attention_kernel",)
 ATT_TOL = 1e-4     # max|diff| <= ATT_TOL * max(1, max|plain|), each output
 ATT_BEAMS = (3, 5, 20)  # the K-beam kernel's checks (20: two beam groups)
@@ -648,7 +648,7 @@ TOPK_SHAPES = [
 # LayerNorm and B6's backward by kind, the image front end), the calls
 # each reading averages, and the head counts at d 512 (head widths 32, 64
 # and 128) of the training attention and the decoder step
-TIMES_GROUPS = ("topk", "mha", "att", "tfd", "ln", "img")
+TIMES_GROUPS = ("topk", "mha", "att", "tfd", "ln", "img", "bf16", "steps")
 TIMES_ITERS = 50
 TIMES_HEADS = (16, 8, 4)
 
@@ -772,7 +772,7 @@ def device_ms(fn):
     return sum(us for us, _ in per_name.values()) / 1e3, per_name
 
 
-def library_ms(fn, iters: int = 20, parts: dict = None):
+def library_ms(fn, iters: int = 10, parts: dict = None):
     """Device time per call of `fn`, a PyTorch yardstick call or a kernel
     timed alone (summed CUDA kernel time under torch.profiler over `iters`
     calls, after one warm-up), and
@@ -811,7 +811,7 @@ def short_name(name: str) -> str:
     return name.split("(")[0]
 
 
-def time_pair(kernel_fn, plain_fn, kernel_name, iters: int = 20,
+def time_pair(kernel_fn, plain_fn, kernel_name, iters: int = 10,
               parts: dict = None):
     """Kernel and plain times, taken in turns: (kernel ms, plain ms, kernel
     wall ms per call, plain wall ms per call, how the first two were read).
@@ -1283,6 +1283,109 @@ def phase_times(dev, groups) -> list:
             for kind, keys in LAYER_KINDS.items()}
         log(f"time enc_layer_train_bwd [{label}] by kind: "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["by_kind_ms"].items()))
+    if "bf16" in groups:
+        # the default bf16 route's B1 (all bf16) and B6 / B7 at the path
+        # shapes, B6 / B7's f32 entries beside them; only the wrappers'
+        # calls, so that this script can time an older tree's kernels too
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            layer_train as ltk)
+        from unpaired_image_captioning_tpu_torch.kernels import lstm_cell as lk
+        from unpaired_image_captioning_tpu_torch.ops import layer_train as lto
+
+        bf = torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(21)
+        for label, b, d, h, maxout in BF16_CELL_SHAPES:
+            g = 5 if maxout else 4
+            scale = 1.0 / h ** 0.5
+            w, bias = ((torch.rand(shape, generator=gen, device=dev) * 2 - 1)
+                       .mul(scale).to(bf) for shape in ((d + h, g * h),
+                                                        (g * h,)))
+            x, h0, c0 = (torch.randn((b, m), generator=gen, device=dev)
+                         .to(bf) for m in (d, h, h))
+            shape = f"G={g} [{b}, {d}->{h}] all bf16 ({label})"
+            rec("lstm_cell_bf16", shape, lambda: lk.lstm_cell(
+                w, bias, x, h0, c0, maxout=maxout))
+            if g == 4:
+                cols = torch.cat([torch.arange(j * h, (j + 1) * h, device=dev)
+                                  for j in (0, 1, 3, 2)])
+                w_ih = w[:d, cols].t().contiguous()
+                w_hh = w[d:, cols].t().contiguous()
+                b_ih, b_hh = bias[cols].contiguous(), torch.zeros_like(bias)
+                rec("torch.lstm_cell bf16", shape, lambda: torch.lstm_cell(
+                    x, (h0, c0), w_ih, w_hh, b_ih, b_hh))
+        for label, b, t, d, f, heads in BF16_ENC_SHAPES:
+            x, g, _, maskadd, seed, w, _ = _enc_layer_inputs(dev, gen, b, t,
+                                                             d, f)
+            kw = dict(n_heads=heads, rate=TRAIN_RATE)
+            for dt in (torch.float32, bf):
+                xd, gd = x.to(dt), g.to(dt)
+                wd = {k: v.to(dt) for k, v in w.items()}
+                _, saved = ltk.enc_layer_fwd(xd, maskadd, seed, wd, **kw)
+                name = "bf16" if dt == bf else "f32"
+                rec(f"enc_layer_train_fwd {name}", label,
+                    lambda: ltk.enc_layer_fwd(xd, maskadd, seed, wd, **kw))
+                rec(f"enc_layer_train_bwd {name}", label,
+                    lambda: ltk.enc_layer_bwd(xd, maskadd, seed, wd, saved,
+                                              gd, **kw))
+                del saved
+        for label, b, t, s_, d, f, heads in BF16_DEC_SHAPES:
+            x, g = (torch.randn((b, t, d), generator=gen, device=dev)
+                    for _ in range(2))
+            mk, mv = (torch.randn((b, s_, d), generator=gen, device=dev)
+                      for _ in range(2))
+            pos = torch.arange(t, device=dev)
+            tmask = torch.where((pos[None, :] <= pos[:, None])[None]
+                                .expand(b, t, t), 0.0, -1e9).contiguous()
+            keep = torch.ones((b, 1, s_), dtype=torch.bool, device=dev)
+            keep[1, :, 150:] = False
+            smask = torch.where(keep, 0.0, -1e9).contiguous()
+            seeds = torch.tensor([4321, 4321 ^ 0x55555555],
+                                 dtype=torch.int32, device=dev)
+            w = _layer_weights(gen, dev, lto.DEC_WEIGHTS, d, f)
+            kw = dict(n_heads=heads, rate=TRAIN_RATE)
+            for dt in (torch.float32, bf):
+                a = [v.to(dt) for v in (x, mk, mv)] + [tmask, smask, seeds]
+                a.append({k: v.to(dt) for k, v in w.items()})
+                gd = g.to(dt)
+                _, saved = ltk.dec_layer_fwd(*a, **kw)
+                name = "bf16" if dt == bf else "f32"
+                rec(f"dec_layer_train_fwd {name}", label,
+                    lambda: ltk.dec_layer_fwd(*a, **kw))
+                rec(f"dec_layer_train_bwd {name}", label,
+                    lambda: ltk.dec_layer_bwd(*a, saved, gd, **kw))
+                del saved
+    if "steps" in groups:
+        # the transformer captioner's XE step on the default route in f32
+        # and in bf16: the host wall of 5 synchronised steps after 2, and one
+        # step's device time by CUDA kernel
+        from unpaired_image_captioning_tpu_torch.config import Config
+        from unpaired_image_captioning_tpu_torch.train.trainer import Trainer
+
+        batch = make_train_batch(np.random.RandomState(43), BENCH_BATCH)
+        for dt in ("float32", "bfloat16"):
+            tr = Trainer(Config(**dict(TRAIN, dtype=dt)), device=dev)
+            for _ in range(2):
+                tr.train(batch)
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train(batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            parts = {}
+            ms, how = library_ms(lambda: tr.train(batch), 1, parts)
+            readings.append(dict(kernel="transformer XE step", shape=dt,
+                                 walls_ms=walls, ms=ms, timing=how,
+                                 parts=parts))
+            log(f"time transformer XE step [{dt}, default route, batch "
+                f"{BENCH_BATCH}]: walls "
+                + ", ".join(f"{w:.1f}" for w in walls)
+                + f" ms; device busy {ms:.2f} ms ({how}); by CUDA kernel: "
+                + ", ".join(f"{n} {v:.2f}" for n, v in sorted(
+                    parts.items(), key=lambda kv: -kv[1])[:8]))
+            del tr
+            torch.cuda.empty_cache()
     if "img" in groups:
         from unpaired_image_captioning_tpu_torch.kernels import image as ik
 
@@ -2634,10 +2737,10 @@ def _cublas_gemms(pairs):
     return ms, how, flops
 
 
-def _gemm_plans(pairs) -> str:
-    """train_gemm.cuh's plan of each distinct product shape M x N x K: the
-    128-row tiles run in whole rounds, K unsplit, and the rest with K split
-    across clusters."""
+def _gemm_plans(pairs, bf: int = 0) -> str:
+    """train_gemm.cuh's plan of each distinct product shape M x N x K (bf:
+    on the bf16 tensor-core instance): the 128-row tiles run in whole
+    rounds, K unsplit, and the rest with K split across clusters."""
     import ctypes
 
     from unpaired_image_captioning_tpu_torch.kernels import build
@@ -2649,7 +2752,7 @@ def _gemm_plans(pairs) -> str:
         if key in seen:
             continue
         seen.add(key)
-        build.check(build.load().layer_train_gemm_plan(*key, plan),
+        build.check(build.load().layer_train_gemm_plan(*key, bf, plan),
                     "layer_train_gemm_plan")
         full, rows, cs, at_once = plan
         out.append(f"{key[0]}x{key[1]}x{key[2]}: {full} of {rows} row tiles "
@@ -8022,7 +8125,7 @@ def _scale_reads(root: str) -> list:
 # ---------------------------------------------------------------------------
 
 BF16_TOL = 1e-2      # rtol = atol, JAX's bf16 tolerance (tests/test_ln_train.py:61-71)
-BF16_ITERS = 10      # timed calls of each bf16 entry and its plain version
+BF16_ITERS = 5       # timed calls of each bf16 entry and its plain version
 BF16_FLOPS = 989e12  # an H100 SXM's dense bf16 tensor-core rate
 # B1's mixtures (x, (w, b), (h, c)) on the bf16 routes: bf16 features with
 # f32 weights (serving, eval: lstm0's x is f32, lstm1/2's bf16), the cast
@@ -8036,6 +8139,11 @@ BF16_CELL_SHAPES = [
     ("denseatt lstm0/1/2, recipe eval beam 3 x 50", 150, 1024, 512, True),
     ("nmt encoder, per direction", 50, 512, 256, False),
     ("nmt teacher-forced decoder, batch 50", 50, 1024, 512, False)]
+# B1's tensor-core instance (all bf16) also at ragged shapes: (B, D, H,
+# maxout) with D and H not multiples of 8 (element copies), and multiples
+# of 8 but not of 16 with B not a multiple of 16
+BF16_CELL_RAGGED = [(37, 100, 76, True), (5, 13, 29, False),
+                    (70, 24, 40, True)]
 # B9a / B9b (p_att, q, alpha, mask, emb): decoding bf16 features with f32
 # weights (decode_ctx widens p_att), the cast training forward, the cast
 # route's SCST decodes, and the teacher-forced forward of bf16 features
@@ -8160,10 +8268,23 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
         for mix in BF16_CELL_MIXES:
             tx, tw, th = (_dt(m) for m in mix)
             args = (w.to(tw), bias.to(tw), x.to(tx), h0.to(th), c0.to(th))
-            before = lk.bf16_launches
+            before, tc0 = lk.bf16_launches, lk.tc_launches
+            all_bf = mix == ("bf16", "bf16", "bf16")
             got = lk.lstm_cell(*args, maxout=maxout)
             if lk.bf16_launches != before + 1:
                 raise AssertionError(f"lstm_cell {mix}: no bf16 launch")
+            if lk.tc_launches != tc0 + all_bf:
+                raise AssertionError(f"lstm_cell {mix}: the tensor-core "
+                                     f"instance ran {lk.tc_launches - tc0} "
+                                     f"times, expected {int(all_bf)}")
+            if all_bf:
+                again = lk.lstm_cell(*args, maxout=maxout)
+                if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+                    raise AssertionError(f"lstm_cell {mix} [{b}, {d}->{h}]: "
+                                         "a rerun differs")
+                log(f"lstm_cell tensor-core plan G={g} [{b}, {d}->{h}]: "
+                    f"{lk.plan_tc(b, d, h)} (the FMA core's "
+                    f"{lk.plan(b, d, h)}); a rerun bit for bit")
             want = lk.lstm_cell_plain(*args, maxout=maxout)
             torch.cuda.synchronize()
             shape = f"G={g} [{b}, {d}->{h}] x/w/h {'/'.join(mix)}"
@@ -8193,6 +8314,29 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
                 sum(f for f, bf in prods if not bf),
                 sum(f for f, bf in prods if bf), err, lib=lib,
                 f32_ms=f32_ms))
+    # the tensor-core instance at ragged shapes (held, not timed)
+    for b, d, h, maxout in BF16_CELL_RAGGED:
+        g = 5 if maxout else 4
+        args = tuple(t.to(torch.bfloat16) for t in (
+            (torch.rand((d + h, g * h), generator=gen, device=dev) - 0.5) / 8,
+            (torch.rand((g * h,), generator=gen, device=dev) - 0.5) / 8,
+            torch.randn((b, d), generator=gen, device=dev),
+            torch.randn((b, h), generator=gen, device=dev),
+            torch.randn((b, h), generator=gen, device=dev)))
+        tc0 = lk.tc_launches
+        got = lk.lstm_cell(*args, maxout=maxout)
+        again = lk.lstm_cell(*args, maxout=maxout)
+        want = lk.lstm_cell_plain(*args, maxout=maxout)
+        torch.cuda.synchronize()
+        shape = f"G={g} [{b}, {d}->{h}] x/w/h bf16/bf16/bf16 (ragged)"
+        err = _bf16_close(f"lstm_cell {shape}", got, want)
+        if lk.tc_launches != tc0 + 2 or not all(
+                torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+            raise AssertionError(f"lstm_cell {shape}: not twice on the "
+                                 "tensor cores with the same bits")
+        log(f"kernel lstm_cell {shape}: |diff| / (1 + |plain|) {err:.3g} "
+            f"(held at rtol = atol = {BF16_TOL}), tensor-core plan "
+            f"{lk.plan_tc(b, d, h)}, a rerun bit for bit")
     rec["lstm_cell_bf16"] = _bf16_record(
         "lstm_cell_bf16",
         "unpaired_image_captioning_tpu_torch/csrc/lstm_cell.cu",
@@ -8349,7 +8493,9 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
 # ---------------------------------------------------------------------------
 
 # the CUDA kernels the typed (bf16) instances launch, by name
-TF_TRAIN_KERNELS = TRAIN_KERNELS + ("ln_fwd_typed_kernel", "convert_kernel")
+TF_TRAIN_KERNELS = TRAIN_KERNELS + ("ln_fwd_typed_kernel",
+                                    "train_gemm_bf16_kernel",
+                                    "drop4_bf16_kernel")
 TF_TFD_KERNELS = TFD_KERNELS + ("ln_rows_typed_kernel",)
 # B8 (x, scale / offset): the cast route, and JAX's default config on the
 # CPU (bf16 features through f32 parameters; the kernel takes it too)
@@ -8368,6 +8514,13 @@ BF16_MHA_SHAPES = [
 BF16_ENC_SHAPES = [("captioner encoder", 50, 196, 512, 512, 8),
                    ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8)]
 BF16_DEC_SHAPES = [("captioner decoder", 50, 17, 196, 512, 512, 8)]
+# B6 / B7's tensor-core GEMMs at ragged shapes, held and not timed: rows not
+# a multiple of 128, widths multiples of 8 but not 16, and widths not
+# multiples of 8 (element copies, `one` epilogues); (B, T, d, d_ff, heads)
+# and (B, T, S, d, d_ff, heads)
+BF16_ENC_RAGGED = [(3, 29, 40, 72, 5), (3, 29, 30, 45, 5),
+                   (2, 19, 100, 200, 2)]
+BF16_DEC_RAGGED = [(3, 9, 70, 40, 72, 5), (3, 9, 70, 30, 45, 5)]
 # B4 (x, weights, caches, memory) on the routes: the card's serving and
 # eval of rounded features (f32 weights, bf16 memory and caches), and the
 # SCST sample under the cast route's bf16 copies (every operand bf16)
@@ -8552,7 +8705,7 @@ def _tf_check(kind: str, a: tuple, kw: dict, bf: bool) -> float:
             out, saved = ltk.enc_layer_fwd(*a, **kw)
             ref, x2 = lto.enc_fwd_plain(x, maskadd, seed, *(
                 w[k] for k in lto.ENC_WEIGHTS), **kw)
-            return close([out, saved[0]], [ref, x2.float()])
+            return close([out, saved[0]], [ref, x2.to(saved[0].dtype)])
         if kind == "enc_layer_bwd":
             x, maskadd, seed, w, saved, g = a
             got = ltk.enc_layer_bwd(*a, **kw)
@@ -8567,7 +8720,7 @@ def _tf_check(kind: str, a: tuple, kw: dict, bf: bool) -> float:
             ref, x2, x3 = lto.dec_fwd_plain(x, mk, mv, tm, sm, seeds, *(
                 w[k] for k in lto.DEC_WEIGHTS), **kw)
             return close([out, saved[0], saved[1]],
-                         [ref, x2.float(), x3.float()])
+                         [ref, x2.to(saved[0].dtype), x3.to(saved[1].dtype)])
         if kind == "dec_layer_bwd":
             x, mk, mv, tm, sm, seeds, w, saved, g = a
             got = ltk.dec_layer_bwd(*a, **kw)
@@ -8607,6 +8760,38 @@ def _hold_tf(args: dict) -> dict:
     torch.cuda.synchronize()
     args.clear()
     return done
+
+
+def _tc_layer_check(kind: str, fargs: tuple, g, kw: dict) -> tuple:
+    """One bf16 whole-layer call each way on the tensor cores (`kind` "enc"
+    or "dec"): held against the plain version (`_tf_check`), the backward
+    run twice with the same bits, each call counted by the wrapper's
+    tensor-core counter. Returns (out, saved, grads, forward error,
+    backward error, the backward's arguments)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import layer_train as ltk
+
+    fwd, bwd = getattr(ltk, f"{kind}_layer_fwd"), getattr(ltk,
+                                                         f"{kind}_layer_bwd")
+    names = (f"tc_{kind}_fwd_launches", f"tc_{kind}_bwd_launches")
+    before = [getattr(ltk, n) for n in names]
+    e_f = _tf_check(f"{kind}_layer_fwd", fargs, kw, True)
+    out, saved = fwd(*fargs, **kw)
+    bargs = fargs + (saved, g)
+    e_b = _tf_check(f"{kind}_layer_bwd", bargs, kw, True)
+    grads = bwd(*bargs, **kw)
+    again = bwd(*bargs, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{kind}_layer_bwd bf16 "
+                             f"{_tf_key(kind + '_layer_bwd', bargs, kw)}: a "
+                             "rerun differs")
+    got = [getattr(ltk, n) - b for n, b in zip(names, before)]
+    if got != [2, 3]:
+        raise AssertionError(f"{kind} layer bf16: {got} tensor-core "
+                             "launches (forward, backward), expected [2, 3]")
+    return out, saved, grads, e_f, e_b, bargs
 
 
 def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
@@ -8744,13 +8929,10 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
         w = {k_: v_.to(bf) for k_, v_ in w.items()}
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
         fargs = (x, maskadd, seed_l, w)
-        e_f = _tf_check("enc_layer_fwd", fargs, kw, True)
-        out, saved = ltk.enc_layer_fwd(*fargs, **kw)
-        bargs = fargs + (saved, g)
-        e_b = _tf_check("enc_layer_bwd", bargs, kw, True)
+        out, saved, grads, e_f, e_b, bargs = _tc_layer_check("enc", fargs,
+                                                             g, kw)
         hold("enc_layer_fwd", fargs, kw)
         hold("enc_layer_bwd", bargs, kw)
-        grads = ltk.enc_layer_bwd(*bargs, **kw)
         ws = [w[k_] for k_ in lto.ENC_WEIGHTS]
         m = b * t
         acts = {"y1": saved[1].reshape(m, d).to(bf),
@@ -8759,6 +8941,8 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
                 "hd": saved[6].reshape(m, f).to(bf)}
         g_fwd, g_bwd = _layer_gemms(acts, w, decoder=False)
         g_bwd = [(a_.to(bf), b_.to(bf)) for a_, b_ in g_bwd]
+        log(f"enc_layer_train bf16 [{label}]: the tensor-core GEMM plans "
+            + _gemm_plans(g_fwd + g_bwd, 1))
         pairs = float((maskadd >= 0).expand(b, t, t).sum()) * heads
         proj = float(m) * (4 * d * d + 2 * d * f)
         dh = d // heads
@@ -8800,13 +8984,10 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             gen, dev, lto.DEC_WEIGHTS, d, f).items()}
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
         fargs = (x, mk, mv, tmask, smask, seeds, w)
-        e_f = _tf_check("dec_layer_fwd", fargs, kw, True)
-        out, saved = ltk.dec_layer_fwd(*fargs, **kw)
-        bargs = fargs + (saved, g)
-        e_b = _tf_check("dec_layer_bwd", bargs, kw, True)
+        out, saved, grads, e_f, e_b, bargs = _tc_layer_check("dec", fargs,
+                                                             g, kw)
         hold("dec_layer_fwd", fargs, kw)
         hold("dec_layer_bwd", bargs, kw)
-        grads = ltk.dec_layer_bwd(*bargs, **kw)
         ws = [w[k_] for k_ in lto.DEC_WEIGHTS]
         m = b * t
         acts = {k_: saved[i].reshape(m, -1).to(bf) for k_, i in
@@ -8838,6 +9019,44 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             lib_what="its products alone, bf16 cuBLAS",
             f32_ms=f32_of("dec_layer_train_bwd", label))
         del out, saved, grads, acts, g_fwd, g_bwd
+
+    # B6 / B7 at ragged shapes: held, a rerun of the backward bit for bit
+    for b, t, d, f, heads in BF16_ENC_RAGGED:
+        x, g, _, maskadd, seed_l, w, _ = _enc_layer_inputs(dev, gen, b, t, d,
+                                                           f)
+        w = {k_: v_.to(bf) for k_, v_ in w.items()}
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (x.to(bf), maskadd, seed_l, w)
+        *_, e_f, e_b, bargs = _tc_layer_check("enc", fargs, g.to(bf), kw)
+        hold("enc_layer_fwd", fargs, kw)
+        hold("enc_layer_bwd", bargs, kw)
+        log(f"kernel enc_layer_train bf16 [B={b} T={t} d={d} d_ff={f} "
+            f"H={heads}] (ragged): forward {e_f:.3g}, backward {e_b:.3g} of "
+            f"each tensor's scale (held at {BF16_TOL}); the backward twice "
+            "bit for bit; on the tensor cores")
+    for b, t, s_, d, f, heads in BF16_DEC_RAGGED:
+        x, g = (torch.randn((b, t, d), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        mk, mv = (torch.randn((b, s_, d), generator=gen, device=dev).to(bf)
+                  for _ in range(2))
+        pos = torch.arange(t, device=dev)
+        tmask = torch.where((pos[None, :] <= pos[:, None])[None]
+                            .expand(b, t, t), 0.0, -1e9).contiguous()
+        smask = torch.zeros((b, 1, s_), device=dev)
+        smask[0, :, s_ // 2:] = -1e9
+        seeds = torch.tensor([4321, 4321 ^ 0x55555555], dtype=torch.int32,
+                             device=dev)
+        w = {k_: v_.to(bf) for k_, v_ in _layer_weights(
+            gen, dev, lto.DEC_WEIGHTS, d, f).items()}
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (x, mk, mv, tmask, smask, seeds, w)
+        *_, e_f, e_b, bargs = _tc_layer_check("dec", fargs, g, kw)
+        hold("dec_layer_fwd", fargs, kw)
+        hold("dec_layer_bwd", bargs, kw)
+        log(f"kernel dec_layer_train bf16 [B={b} T={t} S={s_} d={d} "
+            f"d_ff={f} H={heads}] (ragged): forward {e_f:.3g}, backward "
+            f"{e_b:.3g} of each tensor's scale (held at {BF16_TOL}); the "
+            "backward twice bit for bit; on the tensor cores")
 
     # B4: the stack and one layer, in each mixture
     for label, b, kb, n_l, n_t, slots, d, dff, heads, lazy in BF16_TFD_SHAPES:
@@ -8968,7 +9187,8 @@ BF16_AGREE = 2        # images of the card-vs-cpu step; 4 of the pivot
 class _recording_bf16:
     """While open, every call to the wrappers of B1, B9a-c and B10 adds
     its (shape, dtype mixture) to `seen[name]`, keyed as
-    `phase_bf16_kernels` holds them (all-f32 calls too: each is held)."""
+    `phase_bf16_kernels` holds them (all-f32 calls too: each is held), and
+    `calls[(name, key)]` counts the calls on the card."""
 
     def __init__(self, seen: dict):
         from unpaired_image_captioning_tpu_torch.kernels import (
@@ -9015,6 +9235,7 @@ class _recording_bf16:
                        (lb, "chain_bwd",
                         lambda a, kw: ("lstm_chain", chain(a, kw)))]
         self._seen = seen
+        self.calls = {}
 
     def __enter__(self):
         self._saved = []
@@ -9024,6 +9245,8 @@ class _recording_bf16:
             def call(*a, _fn=fn, _key=key, **kw):
                 name, k = _key(a, kw)
                 self._seen.setdefault(name, set()).add(k)
+                if a[0].device.type == "cuda":
+                    self.calls[(name, k)] = self.calls.get((name, k), 0) + 1
                 return _fn(*a, **kw)
 
             self._saved.append((mod, attr, fn))
@@ -9410,9 +9633,17 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     host_imgs = np.random.RandomState(45).randint(
         0, 256, (16, 448, 448, 3)).astype(np.uint8)
     torch.cuda.synchronize()
-    for mod, attr in counters.values():
+    # the tensor-core counters: every all-bf16 B1 launch and every bf16 B6 /
+    # B7 launch of the path runs the tensor-core instance
+    tc_counters = {"lstm_cell_bf16": (lk, "tc_launches")}
+    for kind in ("enc", "dec"):
+        for x_ in ("fwd", "bwd"):
+            tc_counters[f"{kind}_layer_train_{x_}_bf16"] = (
+                ltk, f"tc_{kind}_{x_}_launches")
+    for mod, attr in list(counters.values()) + list(tc_counters.values()):
         setattr(mod, attr, 0)
-    with _recording_bf16(seen), _recording_tf(tf_seen, tf_args, tf_held):
+    cells = _recording_bf16(seen)
+    with cells, _recording_tf(tf_seen, tf_args, tf_held):
         # the joint XE step
         losses, step_ms = [], []
         for _ in range(BF16_STEPS):
@@ -9515,11 +9746,25 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                                fc, att, host_imgs, walls)
     counts = {name: getattr(mod, attr)
               for name, (mod, attr) in counters.items()}
+    tc_counts = {name: getattr(mod, attr)
+                 for name, (mod, attr) in tc_counters.items()}
     log("bf16 path launches: " + ", ".join(f"{k} {v}"
                                           for k, v in counts.items()))
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"the bf16 path never launched {name}")
+    all_bf = sum(n for (name, k), n in cells.calls.items()
+                 if name == "lstm_cell" and k[-1] == ("bf16",) * 3)
+    want = dict((k, counts[k]) for k in tc_counters)
+    want["lstm_cell_bf16"] = all_bf
+    log("bf16 path tensor-core launches: " + ", ".join(
+        f"{k} {tc_counts[k]} of {want[k]}" for k in tc_counters)
+        + f"; B1's mixed launches on the FMA core "
+        f"{counts['lstm_cell_bf16'] - tc_counts['lstm_cell_bf16']}")
+    if tc_counts != want or not all_bf:
+        raise AssertionError(f"bf16 path: tensor-core launches {tc_counts}, "
+                             f"expected {want} (all-bf16 cells, bf16 layer "
+                             "calls)")
 
     # card vs cpu: the joint step's loss and gradients on two images
     cfg_a = dict(cfg, batch_size=BF16_AGREE, dropout=0.0, drop_prob_lm=0.0)
@@ -9622,7 +9867,7 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
         + f"; phase {time.perf_counter() - t_phase:.1f} s")
     del trainer, scst, cap, nmt, ttr, tsc, tnt, tcap, tnmt
     torch.cuda.empty_cache()
-    return counts
+    return counts, tc_counts
 
 
 def main(argv=None) -> int:
@@ -9678,16 +9923,19 @@ def main(argv=None) -> int:
     kernels = phase_kernels(dev)
     kernels.update(phase_chunked_topk(dev))
     kernels.update(phase_att_kernels(dev, kernels["lstm_cell"]))
+    mark("kernels vs plain: B1-B3, B9")
     kernels.update(phase_tfd_kernels(dev))
     kernels.update(phase_train_kernels(dev))
     kernels.update(phase_layer_kernels(dev))
+    mark("B4-B8")
     kernels.update(phase_image_kernel(dev))
     kernels.update(phase_chain_kernels(dev))
+    mark("B10, B11")
     bf16_rec, bf16_held = phase_bf16_kernels(dev, kernels)
     kernels.update(bf16_rec)
     tf_rec, tf_held = phase_bf16_tf_kernels(dev, kernels)
     kernels.update(tf_rec)
-    mark("kernels vs plain")
+    mark("the bf16 entries")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                          {"lstm_cell": (lk, "launches"),
@@ -9801,7 +10049,7 @@ def main(argv=None) -> int:
     kernels["lstm_cell"]["shapes"] += scale_cells
     kernels["row_topk"]["shapes"] += scale_topk
     mark("scale-out (A14)")
-    bf16_counts = phase_bf16_path(dev, bf16_held, tf_held)
+    bf16_counts, tc_counts = phase_bf16_path(dev, bf16_held, tf_held)
     mark("bf16 compute dtype (A15)")
     log_lead_in()
     log("phase seconds: " + ", ".join(
@@ -9833,6 +10081,9 @@ def main(argv=None) -> int:
     # the bf16 entries' launches: the bf16 path's
     for name, n in bf16_counts.items():
         kernels[name]["launches"] = n
+    # and of them, those on the tensor-core instances
+    for name, n in tc_counts.items():
+        kernels[name]["tc_launches"] = n
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -312,9 +312,10 @@ def _bf16_scaled(got, want, tol=1e-2):
                                            (50, 16, 512, 2048, 8),
                                            (3, 29, 30, 45, 5)])
 def test_cuda_enc_layer_bf16_matches_plain(cuda_dev, b, t, d, f, heads):
-    """The bf16 entry (x, the weights and g bf16) against the plain version
-    at rtol = atol = 1e-2 against each tensor's scale, the backward from
-    the kernel's residual x2 on its relu pattern; a bf16 launch each way."""
+    """The bf16 entry (x, the weights and g bf16; the saved activations
+    bf16 as the TPU kernel holds them) against the plain version at rtol =
+    atol = 1e-2 against each tensor's scale, the backward from the kernel's
+    residual x2 on its relu pattern; a bf16 launch each way."""
     gen = torch.Generator(device=cuda_dev).manual_seed(t)
     bf = torch.bfloat16
     x, g = (torch.randn((b, t, d), generator=gen, device=cuda_dev).to(bf)
@@ -336,8 +337,8 @@ def test_cuda_enc_layer_bf16_matches_plain(cuda_dev, b, t, d, f, heads):
     torch.cuda.synchronize()
     assert (lk.bf16_enc_fwd_launches, lk.bf16_enc_bwd_launches) == (
         before[0] + 1, before[1] + 1)
-    assert saved[0].dtype == torch.float32 and out.dtype == bf
-    _bf16_scaled((out, saved[0]) + grads, (ref, x2.float()) + refs)
+    assert saved[0].dtype == bf and out.dtype == bf
+    _bf16_scaled((out, saved[0]) + grads, (ref, x2) + refs)
 
 
 @pytest.mark.cuda
@@ -370,5 +371,4 @@ def test_cuda_dec_layer_bf16_matches_plain(cuda_dev, b, t, s, d, f, heads):
                             saved[1].to(bf), g, *ws, **kw,
                             relu_active=saved[-1] > 0)
     torch.cuda.synchronize()
-    _bf16_scaled((out, saved[0], saved[1]) + grads,
-                 (ref, x2.float(), x3.float()) + refs)
+    _bf16_scaled((out, saved[0], saved[1]) + grads, (ref, x2, x3) + refs)

@@ -13,13 +13,19 @@
 //
 // Types. x, (w, b) and (h, c) are each f32 or bf16 (`types`: bit 0 x, bit 1
 // w and b, bit 2 h and c), as the TPU kernel reads each operand in its own
-// type: a bf16 operand is converted to f32 as its tile lands in shared
-// memory, the products, the sums and the epilogue are the f32 FMA core
-// below, unchanged, and h' and c' are stored in h's type, rounded to nearest
-// even where it is bf16 (bf16.cuh); bit 3 keeps them f32 (the decode step of
-// additive_attention.cu reads h' unrounded). f32 tiles come in through cp.async; a
-// bf16 tile is read with plain 8-byte loads and stored converted, so it
-// does not overlap the tile in flight as the f32 copies do.
+// type; the sums and the epilogue are f32, and h' and c' are stored in h's
+// type, rounded to nearest even where it is bf16 (bf16.cuh); bit 3 keeps
+// them f32 (the decode step of additive_attention.cu reads h' unrounded).
+//   - All bf16 (types 7, the cast training route) runs the tensor-core
+//     instance (lstm_cell_bf16_tc): the TPU kernel's `jnp.dot` of two bf16
+//     operands with f32 accumulation (ops/rnn.py:78-82) is exactly what
+//     mma.sync m16n8k16 bf16 -> f32 computes. Its design is below the FMA
+//     core's.
+//   - Any mixture with an f32 operand stays on the f32 FMA core: JAX
+//     promotes such a product to f32, and rounding x or W to bf16 (or
+//     TF32) for the tensor cores would be another function. A bf16 operand
+//     of such a mixture is converted to f32 as its tile lands in shared
+//     memory (plain 8-byte loads; the f32 tiles come in through cp.async).
 //
 // Design. A tile is BM = 64 batch rows by BN hidden units j with all G gate
 // columns {g*H + j} of those units, so the gate pre-activations of a unit
@@ -48,20 +54,44 @@
 // run. `plan()` picks the width and CS per shape; `lstm_cell_f32_plan`
 // reports the choice.
 //
-// What bounds it. W is the large operand: 15.7 MB at D+H = 1536, G*H = 2560
-// (the maxout cells), read once per row tile (from L2 after the first, since
-// it fits in the 50 MB L2). Per weight byte the kernel does B/2 FLOPs; the
-// card's f32 FMA rate over its HBM rate is about 20 FLOP/byte, so the weight
-// stream bounds B = 50 and the f32 FMA rate bounds B = 250 and 750. At
-// B = 50 the kernel is bound by latency instead (a few FMAs a k per thread
-// between the pipeline's waits); the cluster multiplies the blocks in
-// flight by up to 8.
+// What bounds it. W is the large operand: 15.7 MB in f32 (7.9 in bf16) at
+// D+H = 1536, G*H = 2560 (the maxout cells), read once per row tile (from
+// L2 after the first, since it fits in the 50 MB L2). Per weight element
+// the kernel does 2B FLOPs. The f32 FMA core: the card's f32 FMA rate over
+// its HBM rate is about 20 FLOP/byte, so the weight stream bounds B = 50
+// and the f32 FMA rate bounds B = 250 and 750; at B = 50 the kernel is
+// bound by latency instead (a few FMAs a k per thread between the
+// pipeline's waits), and the cluster multiplies the blocks in flight by up
+// to 8. The tensor-core instance: 989 TFLOP/s bf16 over 3.35 TB/s is about
+// 295 FLOP/byte, 2B / 2 bytes = B FLOPs a byte of W, so the bf16 weight
+// stream bounds every path shape up to B = 295 (the products of B = 750
+// beams at 989 TFLOP/s). At B = 50 the 16-deep mma steps leave it bound by
+// the latency of the K loop (a rank's 3 K tiles at [50, 1024->512]) and
+// the cluster's two barriers and sum.
+//
+// The tensor-core instance (lstm_cell_tc_kernel<G>). The same tile idea:
+// BM = 64 rows by 16 units of all G gates, W's G column slabs
+// {g*H + j0 .. g*H + j0 + 15} as the B operand. Each of the 4 warps holds
+// 16 rows as one m16 tile and, per gate, the two n8 tiles of the 16 units,
+// so a thread's accumulator fragments for the G gates hold the same (row,
+// unit) positions and the epilogue runs in that thread; the [B, G*H] gates
+// never reach memory. K = D+H runs in 16-deep steps of
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (mma_bf16.cuh):
+// 64-deep bf16 tiles of [x|h] (rows k < D from x, k >= D from h) and of W
+// stream through a 3-stage 16-byte cp.async ring (zero-filled past the
+// edges; element by element where D or H is not a multiple of 8) and reach
+// the registers through ldmatrix (.trans for W, [K, N] row-major). The
+// cluster split of K is the FMA core's (plan_tc, up to 8 ranks, the
+// partials summed through distributed shared memory in rank order), so a
+// rerun gives the same bits. The ring stays at 55-61 KB a block: an 86 KB
+// ring (8 stages of 32) ran 1.6 times slower at batch 50 (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16.cuh"
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 using uic_bf16::ld4;
@@ -390,6 +420,174 @@ lstm_cell_kernel(const void* __restrict__ x, const void* __restrict__ h,
                           types);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core instance: x, (w, b) and (h, c) all bf16 (types 7).
+// A tile is BM = 64 rows by TC_BN = 16 units of all G gates; warp w of the
+// four holds rows 16w .. 16w + 15 as one m16 tile, and for each gate the two
+// n8 tiles of the 16 units, so the G gates of a (row, unit) sit in the same
+// accumulator slot of one thread. K streams in 64-deep tiles through a
+// TC_STAGES-deep ring of bf16 tiles: the [x|h] tile [BM][TC_A_LD] row-major
+// (ldmatrix.x4), the W tile [TC_BK][G * 16 + 8] with gate g's units at
+// columns 16g .. 16g + 15 (ldmatrix.x4.trans). vec: D and H multiples of 8
+// and x, h, w 16-byte aligned, so the tiles land by 16-byte cp.async (8
+// elements); else element by element.
+
+constexpr int TC_BN = 16, TC_BK = 64;
+constexpr int TC_STAGES = 3;
+constexpr int TC_A_LD = TC_BK + 8;   // 144-byte rows: conflict-free ldmatrix
+
+template <int G>
+struct TcTile {
+  static constexpr int W_LD = G * TC_BN + 8;   // 144 / 176-byte rows
+  static constexpr int A_ELEMS = BM * TC_A_LD;
+  static constexpr int STAGE = A_ELEMS + TC_BK * W_LD;   // bf16 elements
+  static constexpr int RING = TC_STAGES * STAGE * 2;
+  static constexpr int PART = G * BM * TC_BN * 4;        // the partial tile
+  static constexpr int SMEM = RING > PART ? RING : PART;
+};
+
+template <int G>
+__device__ __forceinline__ void tc_load_stage(
+    unsigned short* As, const unsigned short* __restrict__ x,
+    const unsigned short* __restrict__ h,
+    const unsigned short* __restrict__ w, int B, int D, int H, int r0,
+    int j0, int k0, int k_end, int vec) {
+  using T = TcTile<G>;
+  unsigned short* Ws = As + T::A_ELEMS;
+  const int tid = threadIdx.x;
+  const int GH = G * H;
+  if (vec) {
+    // a chunk of 8 lies wholly in x or in h: D is a multiple of 8
+    for (int e = tid; e < BM * TC_BK / 8; e += NTHR) {
+      const int row = e / (TC_BK / 8), kc = (e % (TC_BK / 8)) * 8;
+      const int r = r0 + row, k = k0 + kc;
+      const bool ok = r < B && k < k_end;
+      const unsigned short* src =
+          !ok ? x : (k < D ? x + (size_t)r * D + k
+                           : h + (size_t)r * H + (k - D));
+      uic_mma::cp16(As + row * TC_A_LD + kc, src, ok);
+    }
+    for (int e = tid; e < TC_BK * 2 * G; e += NTHR) {
+      const int kk = e / (2 * G), rem = e % (2 * G);
+      const int g = rem / 2, u = (rem % 2) * 8;
+      const int k = k0 + kk, j = j0 + u;
+      const bool ok = k < k_end && j < H;
+      uic_mma::cp16(Ws + kk * T::W_LD + g * TC_BN + u,
+                    ok ? w + (size_t)k * GH + g * H + j : w, ok);
+    }
+    return;
+  }
+  for (int e = tid; e < BM * TC_BK; e += NTHR) {
+    const int row = e / TC_BK, kk = e % TC_BK;
+    const int r = r0 + row, k = k0 + kk;
+    As[row * TC_A_LD + kk] =
+        r < B && k < k_end
+            ? (k < D ? x[(size_t)r * D + k] : h[(size_t)r * H + (k - D)])
+            : (unsigned short)0;
+  }
+  for (int e = tid; e < TC_BK * G * TC_BN; e += NTHR) {
+    const int kk = e / (G * TC_BN), col = e % (G * TC_BN);
+    const int g = col / TC_BN, j = j0 + col % TC_BN, k = k0 + kk;
+    Ws[kk * T::W_LD + col] =
+        k < k_end && j < H ? w[(size_t)k * GH + g * H + j] : (unsigned short)0;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(NTHR)
+lstm_cell_tc_kernel(const void* __restrict__ x, const void* __restrict__ h,
+                    const void* __restrict__ c, const void* __restrict__ w,
+                    const void* __restrict__ b, void* __restrict__ h_out,
+                    void* __restrict__ c_out, int B, int D, int H,
+                    int k_slice, int vec, int types) {
+  using T = TcTile<G>;
+  extern __shared__ __align__(16) unsigned short tc_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Place p = place<TC_BN>(cluster, D + H, k_slice);
+  const int n_tiles =
+      p.k_end > p.k_begin ? (p.k_end - p.k_begin + TC_BK - 1) / TC_BK : 0;
+  const auto* xs = static_cast<const unsigned short*>(x);
+  const auto* hs = static_cast<const unsigned short*>(h);
+  const auto* ws = static_cast<const unsigned short*>(w);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  float acc[G][2][4];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][n][i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_tiles)
+      tc_load_stage<G>(tc_smem + s * T::STAGE, xs, hs, ws, B, D, H, p.r0,
+                       p.j0, p.k_begin + s * TC_BK, p.k_end, vec);
+    uic_mma::commit();
+  }
+  const int a_off = (warp * 16 + uic_mma::frag_row(lane)) * TC_A_LD +
+                    uic_mma::frag_col(lane);
+  const int w_off = uic_mma::frag_row(lane) * T::W_LD + uic_mma::frag_col(lane);
+  for (int t = 0; t < n_tiles; ++t) {
+    uic_mma::wait<TC_STAGES - 2>();
+    // tile t has landed for every thread, and every thread is done with
+    // tile t-1, whose stage the prefetch below overwrites
+    __syncthreads();
+    const int nt = t + TC_STAGES - 1;
+    if (nt < n_tiles)
+      tc_load_stage<G>(tc_smem + (nt % TC_STAGES) * T::STAGE, xs, hs, ws, B, D,
+                       H, p.r0, p.j0, p.k_begin + nt * TC_BK, p.k_end, vec);
+    uic_mma::commit();
+    const unsigned short* As = tc_smem + (t % TC_STAGES) * T::STAGE;
+    const unsigned short* Ws = As + T::A_ELEMS;
+#pragma unroll
+    for (int ks = 0; ks < TC_BK; ks += 16) {
+      unsigned a[4];
+      uic_mma::ldsm_x4(a, As + a_off + ks);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        unsigned bw[4];
+        uic_mma::ldsm_x4_t(bw, Ws + w_off + ks * T::W_LD + g * TC_BN);
+        uic_mma::mma(acc[g][0], a, bw[0], bw[1]);
+        uic_mma::mma(acc[g][1], a, bw[2], bw[3]);
+      }
+    }
+  }
+  uic_mma::wait<0>();
+  __syncthreads();   // the ring is free for the partial tile
+
+  // accumulator slot (n, i): row 16 warp + lane / 4 + 8 (i / 2), unit
+  // 8 n + 2 (lane % 4) + i % 2
+  if (p.cs == 1) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = p.r0 + warp * 16 + lane / 4 + (i / 2) * 8;
+        const int j = p.j0 + n * 8 + 2 * (lane % 4) + i % 2;
+        if (r >= B || j >= H) continue;
+        float gate[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) gate[g] = acc[g][n][i];
+        cell_out<G>(gate, b, c, h_out, c_out, H, (size_t)r * H + j, j,
+                    types);
+      }
+    return;
+  }
+  float* part = reinterpret_cast<float*>(tc_smem);   // [G][BM][TC_BN]
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[(g * BM + warp * 16 + lane / 4 + (i / 2) * 8) * TC_BN + n * 8 +
+             2 * (lane % 4) + i % 2] = acc[g][n][i];
+  cluster_epilogue<G, TC_BN>(cluster, part, b, c, h_out, c_out, B, H, p,
+                             types);
+}
+
 struct Plan {
   int bn, cluster, k_slice, blocks;
 };
@@ -412,15 +610,30 @@ Plan plan(int B, int D, int H, bool cluster = true) {
   return Plan{bn, cs, cdiv(k_tiles, cs) * BK, tiles * cs};
 }
 
+// The tensor-core instance's plan: one tile width (16 units), the cluster
+// doubled while each rank keeps 2 tiles of K and the grid stays within
+// two blocks per SM (at three, B = 150 ran 1.3 times slower on the card).
+Plan plan_tc(int B, int D, int H) {
+  const int K = D + H, k_tiles = cdiv(K, TC_BK);
+  const int tiles = cdiv(B, BM) * cdiv(H, TC_BN);
+  int cs = 1;
+  while (cs < MAX_CLUSTER && 2 * (2 * cs) <= k_tiles &&
+         tiles * 2 * cs <= 2 * SMS)
+    cs *= 2;
+  return Plan{TC_BN, cs, cdiv(k_tiles, cs) * TC_BK, tiles * cs};
+}
+
 template <typename K>
 int launch(K kernel, int smem, const void* x, const void* h, const void* c,
            const void* w, const void* b, void* h_out, void* c_out, int B,
-           int D, int H, int types, const Plan& p, cudaStream_t stream) {
+           int D, int H, int types, const Plan& p, cudaStream_t stream,
+           int vec_elems = 4) {
   // the opt-in above 48 KB, on the current device
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int vec = D % 4 == 0 && H % 4 == 0 &&
+  // 16-byte copies: vec_elems elements of every row start
+  const int vec = D % vec_elems == 0 && H % vec_elems == 0 &&
                   ((uintptr_t)x | (uintptr_t)h | (uintptr_t)w) % 16 == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cdiv(H, p.bn) * p.cluster, cdiv(B, BM));
@@ -462,6 +675,20 @@ int run(const void* x, const void* h, const void* c, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
+int run_tc(const void* x, const void* h, const void* c, const void* w,
+           const void* b, void* h_out, void* c_out, int B, int D, int H,
+           int G, cudaStream_t stream) {
+  if (B <= 0 || H <= 0) return (int)cudaGetLastError();
+  const Plan p = plan_tc(B, D, H);
+  if (G == 4)
+    return launch(lstm_cell_tc_kernel<4>, TcTile<4>::SMEM, x, h, c, w, b,
+                  h_out, c_out, B, D, H, 7, p, stream, 8);
+  if (G == 5)
+    return launch(lstm_cell_tc_kernel<5>, TcTile<5>::SMEM, x, h, c, w, b,
+                  h_out, c_out, B, D, H, 7, p, stream, 8);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Launches one step on `stream` with plan()'s tile and cluster, each of x,
@@ -469,13 +696,35 @@ int run(const void* x, const void* h, const void* c, const void* w,
 // c (h_out and c_out in h's type, or in f32 with bit 3 too); 0 is all f32.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
 // unsupported G), so a refused launch is seen by the caller.
+// The all-bf16 mixture (types 7) runs lstm_cell_bf16_tc and is refused
+// here.
 extern "C" int lstm_cell_mixed(const void* x, const void* h, const void* c,
                                const void* w, const void* b, void* h_out,
                                void* c_out, int B, int D, int H, int G,
                                int types, cudaStream_t stream) {
-  if (types < 0 || types > 15) return (int)cudaErrorInvalidValue;
+  if (types < 0 || types > 15 || types == 7) return (int)cudaErrorInvalidValue;
   return run(x, h, c, w, b, h_out, c_out, B, D, H, G, types, plan(B, D, H),
              stream);
+}
+
+// One step of the all-bf16 mixture (x, w, b, h, c, h_out and c_out bf16) on
+// the tensor-core instance, with plan_tc()'s cluster. Returns
+// cudaGetLastError() after the launch.
+extern "C" int lstm_cell_bf16_tc(const void* x, const void* h, const void* c,
+                                 const void* w, const void* b, void* h_out,
+                                 void* c_out, int B, int D, int H, int G,
+                                 cudaStream_t stream) {
+  return run_tc(x, h, c, w, b, h_out, c_out, B, D, H, G, stream);
+}
+
+// plan_tc()'s choice for a shape, as lstm_cell_f32_plan reports plan()'s.
+extern "C" int lstm_cell_tc_plan(int B, int D, int H, int* out) {
+  const Plan p = plan_tc(B, D, H);
+  out[0] = p.bn;
+  out[1] = p.cluster;
+  out[2] = p.k_slice;
+  out[3] = p.blocks;
+  return 0;
 }
 
 // The same step with plan()'s tile but no cluster (every block reduces the

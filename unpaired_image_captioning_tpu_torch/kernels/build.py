@@ -41,8 +41,13 @@ _F = ctypes.c_float
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
     # x, h, c, w, b, h_out, c_out, B, D, H, G, types (x, (w, b), (h, c)
-    # each f32 or bf16), stream
+    # each f32 or bf16, not all bf16), stream
     "lstm_cell_mixed": (_P,) * 7 + (_I,) * 5 + (_P,),
+    # x, h, c, w, b, h_out, c_out, B, D, H, G, stream: every tensor bf16,
+    # on the tensor-core instance
+    "lstm_cell_bf16_tc": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # B, D, H, out int[4]: the tensor-core instance's plan
+    "lstm_cell_tc_plan": (_I, _I, _I, _P),
     # the same with plan()'s tile and no cluster (the cluster's yardstick)
     "lstm_cell_f32_unclustered": (_P,) * 7 + (_I,) * 4 + (_P,),
     # B, D, H, out int[4] (BN, cluster size, K rows a block, blocks)
@@ -73,24 +78,22 @@ SIGNATURES = {
     "ln_train_bwd_mixed": (_P,) * 7 + (_I, _I, _F, _I, _P),
     # d, out int64 [1] -> floats of the backward's scratch
     "ln_train_bwd_ws_f32": (_I, _P),
-    # kind, B, T, S, d, f, H, out int64 [1] -> floats of a layer
+    # kind, B, T, S, d, f, H, bf, out int64 [1] -> floats of a layer
     # backward's scratch
-    "layer_train_ws_f32": (_I,) * 7 + (_P,),
-    # M, N, K, out int[4] (row tiles in whole rounds, row tiles, cluster
-    # size of the rest, its clusters at once) of a training-layer product
-    "layer_train_gemm_plan": (_I, _I, _I, _P),
-    # call (0 / 1 encoder forward / backward, 2 / 3 decoder), B, T, S, d,
-    # f, out int64 [1] -> floats of a bf16 call's staging
-    "layer_train_stage_floats": (_I,) * 6 + (_P,),
+    "layer_train_ws_f32": (_I,) * 8 + (_P,),
+    # M, N, K, bf (the bf16 tensor-core instance), out int[4] (row tiles in
+    # whole rounds, row tiles, cluster size of the rest, its clusters at
+    # once) of a training-layer product
+    "layer_train_gemm_plan": (_I,) * 4 + (_P,),
     # p (host array of the layer's tensors), B, T, d, f, H, mask_rows,
-    # thresh, keep_div, dropout, bf (every tensor bf16 but the saved
-    # activations)[, ws], stage, stream
-    "enc_layer_fwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P, _P),
-    "enc_layer_bwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P, _P, _P),
+    # thresh, keep_div, dropout, bf (every tensor bf16 but the masks and
+    # the softmax statistics)[, ws], stream
+    "enc_layer_fwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P),
+    "enc_layer_bwd_mixed": (_P,) + (_I,) * 6 + (_U, _F, _I, _I, _P, _P),
     # p, B, T, S, d, f, H, tgt mask_rows, thresh, keep_div, dropout, bf[,
-    # ws], stage, stream
-    "dec_layer_fwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P, _P),
-    "dec_layer_bwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P, _P, _P),
+    # ws], stream
+    "dec_layer_fwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P),
+    "dec_layer_bwd_mixed": (_P,) + (_I,) * 7 + (_U, _F, _I, _I, _P, _P),
     # p_att, q, alpha, mask, emb, out, B, N, A, D, K, ldo, types (each
     # operand f32 or bf16), stream
     "additive_attention_mixed": (_P,) * 6 + (_I,) * 7 + (_P,),

@@ -29,9 +29,13 @@ kernels' 4-byte-copy instances (`csrc/train_gemm.cuh`, `csrc/mha_train.cu`).
 Types (the compute dtype, ROADMAP A15): a call is all f32 or all bf16 (x,
 mk, mv, g and every weight; the masks f32), as the TPU kernel runs under a
 bf16 copy of the parameters; the outputs come in x's type and each weight's
-gradient in its weight's type. The kernel's saved activations stay f32
-(holding bf16 values on the bf16 route). Any other mixture raises, naming
-it; `bf16_*_launches` count the bf16 calls.
+gradient in its weight's type. The kernel's saved activations come in x's
+type too, as the TPU kernel holds them, but for the softmax statistics,
+which stay f32. Any other mixture raises, naming it. `tensor_core` is the
+routing rule: a bf16 call runs its products on the tensor-core instance of
+`csrc/train_gemm.cuh` (bf16 operands, f32 accumulators), an f32 call on
+the f32 FMA core. `bf16_*_launches` count the bf16 calls, `tc_*_launches`
+the calls whose products ran on the tensor cores.
 """
 
 from __future__ import annotations
@@ -54,11 +58,20 @@ bf16_enc_fwd_launches = 0
 bf16_enc_bwd_launches = 0
 bf16_dec_fwd_launches = 0
 bf16_dec_bwd_launches = 0
+tc_enc_fwd_launches = 0
+tc_enc_bwd_launches = 0
+tc_dec_fwd_launches = 0
+tc_dec_bwd_launches = 0
 
 ENC, DEC = 0, 1   # `kind` of the C workspace query
-# `call` of the C staging query: each direction of each layer
-ENC_FWD, ENC_BWD, DEC_FWD, DEC_BWD = 0, 1, 2, 3
 ACT = None        # in `_check`'s dtype column: x's type
+
+
+def tensor_core(dtype: torch.dtype) -> bool:
+    """The routing rule: whether a call whose tensors are all of `dtype`
+    runs its products on the tensor cores. Only bf16 does: the f32 route's
+    products are f32 products, as in JAX."""
+    return dtype == torch.bfloat16
 
 
 def _rate_args(rate: float):
@@ -126,34 +139,28 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[a.data_ptr() for a in tensors])
 
 
-def _launch(fn_name: str, x, ptrs, ints, rate: float, bf: int, call: int,
+def _launch(fn_name: str, x, ptrs, ints, rate: float, bf: int,
             ws_kind=None, ws_dims=None) -> None:
-    """One C call; ws_dims (B, T, S, d, f, H). A bf16 call (bf) takes the
-    staging of its inputs and outputs in f32 (`layer_train_stage_floats`)."""
+    """One C call; a backward (ws_kind) takes the scratch of its kind and
+    ws_dims (B, T, S, d, f, H), partly in x's type (bf)."""
     lib = build.load()
     thresh, keep_div, dropout = _rate_args(rate)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     extra = []
     if ws_kind is not None:
         n = ctypes.c_int64()
-        lib.layer_train_ws_f32(ws_kind, *ws_dims, ctypes.byref(n))
+        lib.layer_train_ws_f32(ws_kind, *ws_dims, bf, ctypes.byref(n))
         ws = torch.empty((n.value,), dtype=torch.float32, device=x.device)
         extra = [ws.data_ptr()]
-    stage = None
-    if bf:
-        n = ctypes.c_int64()
-        lib.layer_train_stage_floats(call, *ws_dims[:5], ctypes.byref(n))
-        stage = torch.empty((n.value,), dtype=torch.float32, device=x.device)
     err = getattr(lib, fn_name)(
-        _ptrs(ptrs), *ints, thresh, keep_div, dropout, bf, *extra,
-        None if stage is None else stage.data_ptr(), stream)
+        _ptrs(ptrs), *ints, thresh, keep_div, dropout, bf, *extra, stream)
     build.check(err, fn_name)
 
 
 def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     """(out [B, T, d], saved): one encoder layer; `saved` is what
     `enc_layer_bwd` takes. w holds the ENC_WEIGHTS."""
-    global enc_fwd_launches, bf16_enc_fwd_launches
+    global enc_fwd_launches, bf16_enc_fwd_launches, tc_enc_fwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2 = enc_fwd_plain(x, maskadd, seed, *ws, n_heads=n_heads,
@@ -167,14 +174,14 @@ def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     arrays["seed"] = (seed, (1,), torch.int32)
     bf = _check("enc_layer_fwd", x, w, ENC_WEIGHTS, n_heads, arrays)
     out = torch.empty_like(x)
-    x2, y1, ao, y2 = (_f32(x, (b, t, d)) for _ in range(4))
-    saved = (x2, y1, _f32(x, (b, t, 3 * d)), ao,
-             _f32(x, (2, b, n_heads, t)), y2, _f32(x, (b, t, f)))
+    x2, y1, ao, y2 = (_act(x, (b, t, d)) for _ in range(4))
+    saved = (x2, y1, _act(x, (b, t, 3 * d)), ao,
+             _f32(x, (2, b, n_heads, t)), y2, _act(x, (b, t, f)))
     _launch("enc_layer_fwd_mixed", x, [x, maskadd, seed, *ws, out, *saved],
-            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf, ENC_FWD,
-            ws_dims=(b, t, t, d, f, n_heads))
+            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf)
     enc_fwd_launches += 1
     bf16_enc_fwd_launches += bf
+    tc_enc_fwd_launches += tensor_core(x.dtype)
     return out, saved
 
 
@@ -182,7 +189,7 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
                   rate: float):
     """(dx, then the gradients of the ENC_WEIGHTS in order) for the
     upstream gradient g [B, T, d]."""
-    global enc_bwd_launches, bf16_enc_bwd_launches
+    global enc_bwd_launches, bf16_enc_bwd_launches, tc_enc_bwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         return enc_bwd_plain(x, maskadd, seed, saved[0], g, *ws,
@@ -198,10 +205,11 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
     grads = [torch.empty_like(x)] + [torch.empty_like(a) for a in ws]
     _launch("enc_layer_bwd_mixed", x,
             [x, maskadd, seed, *ws, *saved, g, *grads],
-            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf, ENC_BWD,
-            ENC, (b, t, t, d, f, n_heads))
+            (b, t, d, f, n_heads, maskadd.shape[1]), rate, bf, ENC,
+            (b, t, t, d, f, n_heads))
     enc_bwd_launches += 1
     bf16_enc_bwd_launches += bf
+    tc_enc_bwd_launches += tensor_core(x.dtype)
     return tuple(grads)
 
 
@@ -209,7 +217,7 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
                   n_heads: int, rate: float):
     """(out [B, T, d], saved): one decoder layer over the memory's K/V
     projections mk / mv [B, S, d]; w holds the DEC_WEIGHTS."""
-    global dec_fwd_launches, bf16_dec_fwd_launches
+    global dec_fwd_launches, bf16_dec_fwd_launches, tc_dec_fwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2, x3 = dec_fwd_plain(x, mk, mv, tgt_maskadd, src_maskadd,
@@ -224,25 +232,25 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
                          seeds, b, t, s, d)
     bf = _check("dec_layer_fwd", x, w, DEC_WEIGHTS, n_heads, arrays)
     out = torch.empty_like(x)
-    x2, x3, y1, ao, y2, qc, co, y3 = (_f32(x, (b, t, d)) for _ in range(8))
-    qkv = _f32(x, (b, t, 3 * d))
+    x2, x3, y1, ao, y2, qc, co, y3 = (_act(x, (b, t, d)) for _ in range(8))
+    qkv = _act(x, (b, t, 3 * d))
     stats_self, stats_cross = (_f32(x, (2, b, n_heads, t))
                                for _ in range(2))
     saved = (x2, x3, y1, qkv, ao, y2, qc, co, y3, stats_self, stats_cross,
-             _f32(x, (b, t, f)))
+             _act(x, (b, t, f)))
     _launch("dec_layer_fwd_mixed", x,
             [x, mk, mv, tgt_maskadd, src_maskadd, seeds, *ws, out, *saved],
-            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate, bf,
-            DEC_FWD, ws_dims=(b, t, s, d, f, n_heads))
+            (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate, bf)
     dec_fwd_launches += 1
     bf16_dec_fwd_launches += bf
+    tc_dec_fwd_launches += tensor_core(x.dtype)
     return out, saved
 
 
 def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
                   saved, g, *, n_heads: int, rate: float):
     """(dx, dmk, dmv, then the gradients of the DEC_WEIGHTS in order)."""
-    global dec_bwd_launches, bf16_dec_bwd_launches
+    global dec_bwd_launches, bf16_dec_bwd_launches, tc_dec_bwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         return dec_bwd_plain(x, mk, mv, tgt_maskadd, src_maskadd, seeds,
@@ -263,9 +271,10 @@ def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
             [x, mk, mv, tgt_maskadd, src_maskadd, seeds, *ws, *saved, g,
              *grads],
             (b, t, s, d, f, n_heads, tgt_maskadd.shape[1]), rate, bf,
-            DEC_BWD, DEC, (b, t, s, d, f, n_heads))
+            DEC, (b, t, s, d, f, n_heads))
     dec_bwd_launches += 1
     bf16_dec_bwd_launches += bf
+    tc_dec_bwd_launches += tensor_core(x.dtype)
     return tuple(grads)
 
 
@@ -281,8 +290,14 @@ def _dec_arrays(name, mk, mv, tgt_maskadd, src_maskadd, seeds, b, t, s, d):
 
 
 def _f32(x, shape):
-    """An f32 array of the kernel's saved activations, on x's device."""
+    """An f32 array of the kernel's saved softmax statistics, on x's
+    device."""
     return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+def _act(x, shape):
+    """A saved activation of the kernel, in x's type and on its device."""
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
 
 
 class _EncLayer(torch.autograd.Function):

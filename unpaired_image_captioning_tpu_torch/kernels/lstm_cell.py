@@ -15,15 +15,19 @@ gates. There is no backward kernel, on the TPU or here. Without a gradient
 to take (inference mode, or no input that requires one) the forward runs
 alone, with no autograd node. It never routes a CUDA tensor to the plain
 version. `launches` counts kernel launches, `bf16_launches` those of them
-with a bf16 operand.
+with a bf16 operand, `tc_launches` those that ran the tensor-core instance.
 
 Types (the compute dtype, ROADMAP A15). x, (w, b) and (h, c) are each f32
 or bf16, in any mixture: the TPU kernel reads each operand in its own type,
 accumulates the gates and runs the epilogue in f32, and stores h' and c' in
 h's and c's types. The plain version pins those cast points
 (`cat([x, h]).float() @ w.float() + b.float()`, `c.float()`, outputs
-`.to(h.dtype)` / `.to(c.dtype)`), so in bf16 the gates are never rounded;
-the kernel converts each bf16 operand as it loads it (`csrc/bf16.cuh`).
+`.to(h.dtype)` / `.to(c.dtype)`), so in bf16 the gates are never rounded.
+`tensor_core` is the routing rule: the all-bf16 mixture runs the kernel's
+tensor-core instance (bf16 products, f32 accumulators: the TPU kernel's
+`jnp.dot(..., preferred_element_type=jnp.float32)`), every mixture with an
+f32 operand the f32 FMA core, which converts each bf16 operand as it loads
+it (`csrc/bf16.cuh`), since JAX promotes those products to f32.
 The routes give (x, w, h) = (f32, f32, f32) in f32, (f32 or bf16, f32,
 bf16) with bf16 features and f32 weights (serving, eval, the JAX CPU
 route), and (bf16, bf16, bf16) on the cast training route. A w and b, or an
@@ -32,8 +36,8 @@ tensor is never converted to reach another entry. The backward is the plain
 recompute in the operands' types, as JAX's VJP of `lstm_step_ref` is.
 
 The kernel splits the reduction over D+H across a thread-block cluster at
-small batches; `plan` reports the tile width and cluster size it picks for
-a shape.
+small batches; `plan` reports the tile width and cluster size the FMA core
+picks for a shape, `plan_tc` the tensor-core instance's.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from . import build
 
 launches = 0
 bf16_launches = 0
+tc_launches = 0
 
 
 def lstm_elementwise(gates: torch.Tensor, c: torch.Tensor, hidden_size: int,
@@ -95,18 +100,32 @@ def mixture(x, w, b, h, c) -> int:
             | int(h.dtype == torch.bfloat16) << 2)
 
 
+def tensor_core(types: int) -> bool:
+    """The routing rule: whether a mixture (`mixture`'s bits) runs the
+    tensor-core instance. Only all bf16 does: a product with an f32 operand
+    is an f32 product in JAX, and stays on the f32 FMA core."""
+    return types & 7 == 7
+
+
 def plan(batch: int, d: int, hidden: int) -> dict:
-    """The kernel's launch for a shape: the tile width `bn` (hidden units a
-    block), the cluster size, the rows of K a block of the cluster reduces
-    and the blocks of the grid."""
+    """The FMA core's launch for a shape: the tile width `bn` (hidden units
+    a block), the cluster size, the rows of K a block of the cluster
+    reduces and the blocks of the grid."""
     out = (ctypes.c_int * 4)()
     build.load().lstm_cell_f32_plan(batch, d, hidden, out)
     return dict(zip(("bn", "cluster", "k_rows", "blocks"), out))
 
 
+def plan_tc(batch: int, d: int, hidden: int) -> dict:
+    """The tensor-core instance's launch for a shape, as `plan`'s."""
+    out = (ctypes.c_int * 4)()
+    build.load().lstm_cell_tc_plan(batch, d, hidden, out)
+    return dict(zip(("bn", "cluster", "k_rows", "blocks"), out))
+
+
 def _forward(w, b, x, h, c, maxout: bool):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    global launches, bf16_launches
+    global launches, bf16_launches, tc_launches
     if x.device.type == "cpu":
         return lstm_cell_plain(w, b, x, h, c, maxout=maxout)
     if x.device.type != "cuda":
@@ -130,13 +149,17 @@ def _forward(w, b, x, h, c, maxout: bool):
     c_out = torch.empty_like(c)
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.lstm_cell_mixed(x.data_ptr(), h.data_ptr(), c.data_ptr(),
-                              w.data_ptr(), b.data_ptr(), h_out.data_ptr(),
-                              c_out.data_ptr(), batch, d, hidden, g, types,
-                              stream)
-    build.check(err, "lstm_cell_mixed")
+    ptrs = (x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
+            b.data_ptr(), h_out.data_ptr(), c_out.data_ptr())
+    tc = tensor_core(types)
+    if tc:
+        err = lib.lstm_cell_bf16_tc(*ptrs, batch, d, hidden, g, stream)
+    else:
+        err = lib.lstm_cell_mixed(*ptrs, batch, d, hidden, g, types, stream)
+    build.check(err, "lstm_cell_bf16_tc" if tc else "lstm_cell_mixed")
     launches += 1
     bf16_launches += types != 0
+    tc_launches += tc
     return h_out, c_out
 
 
