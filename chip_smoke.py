@@ -276,7 +276,14 @@ B1 (the card's eval rounds the features), and `eval_unpaired`, whose
 route does not round, reads the features of its comparison with
 `eval_pivot` through a bf16 loader. Every f32 phase names
 `dtype="float32"` (the default is "bfloat16"). The kernels line gains the
-bf16 entries (`*_bf16`) with the bf16 path's launches.
+bf16 entries (`*_bf16`) with the bf16 path's launches. B5's all-bf16 calls
+run its tensor-core instance (`csrc/mha_train_tc.cuh`): each path shape
+and four ragged ones (head widths 32, 96, 128 and 256; T and S off the
+64-row tiles; one key) are held with the backward rerun bit for bit and
+the instance's CUDA kernels seen by the profiler, and the bf16 path
+asserts that every bf16 B5 call, alone and inside B6 / B7, went through
+the tensor cores (`tc_launches`, `tc_launches_in_layers` on the B5
+records).
 
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
@@ -433,6 +440,10 @@ LN_WIDE = [("d 4,096", 50, 17, 4096), ("d 6,000", 50, 17, 6000)]
 # whole-layer wrappers launch all of them)
 MHA_BWD_KERNELS = ("mha_dsum_kernel", "mha_bwd_dkdv_kernel",
                    "mha_bwd_dq_kernel")
+# B5's tensor-core instance (the all-bf16 calls, csrc/mha_train_tc.cuh)
+MHA_TC_FWD_KERNELS = ("mha_fwd_tc_kernel",)
+MHA_TC_BWD_KERNELS = ("mha_bwd_rows_tc_kernel", "mha_bwd_dkdv_tc_kernel",
+                      "mha_bwd_dq_tc_kernel")
 LN_BWD_KERNELS = ("ln_bwd_rows_kernel", "ln_bwd_any_kernel")
 TRAIN_KERNELS = ("train_gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
                  "ln_fwd_kernel",) + LN_BWD_KERNELS + (
@@ -650,6 +661,7 @@ TOPK_SHAPES = [
 # and 128) of the training attention and the decoder step
 TIMES_GROUPS = ("topk", "mha", "att", "tfd", "ln", "img", "bf16", "steps")
 TIMES_ITERS = 50
+WALL_ITERS = 10   # back-to-back calls of each per-call wall time (time_pair)
 TIMES_HEADS = (16, 8, 4)
 
 # the raw-image path: 16 images of two sizes -> 448 x 448 -> ResNet-101 ->
@@ -841,8 +853,8 @@ def time_pair(kernel_fn, plain_fn, kernel_name, iters: int = 10,
             ms0, c0 = parts.get(short_name(n), (0.0, 0.0))
             parts[short_name(n)] = (ms0 + us / iters / 1e3,
                                     c0 + count / iters)
-    p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn,
-                                            plain_fn))
+    p1, k1, k2, p2 = (time_ms(f, WALL_ITERS) for f in (
+        plain_fn, kernel_fn, kernel_fn, plain_fn))
     k_wall, p_wall = (k1 + k2) / 2, (p1 + p2) / 2
     if k_us > 0 and p_us > 0:
         return k_us / iters / 1e3, p_us / iters / 1e3, k_wall, p_wall, "device"
@@ -1313,6 +1325,48 @@ def phase_times(dev, groups) -> list:
                 b_ih, b_hh = bias[cols].contiguous(), torch.zeros_like(bias)
                 rec("torch.lstm_cell bf16", shape, lambda: torch.lstm_cell(
                     x, (h0, c0), w_ih, w_hh, b_ih, b_hh))
+        # B5's bf16 forward and backward alone at the path shapes, SDPA on
+        # the same bf16 tensors beside them (at rate 0; the port never calls
+        # it), and their bound
+        import torch.nn.functional as F
+
+        seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+        d, heads = TCAP["input_encoding_size"], TCAP["num_heads"]
+        dh = d // heads
+        for label, b, t, s_, kind in BF16_MHA_SHAPES:
+            q, k, v, g, maskadd = _mha_inputs(dev, gen, b, t, s_, kind, d)
+            q, k, v, g = (z.to(bf) for z in (q, k, v, g))
+            kw = dict(n_heads=heads, rate=TRAIN_RATE)
+            out, stats = mhk.mha_train_fwd(q, k, v, maskadd, seed, **kw)
+            grads = mhk.mha_train_bwd(q, k, v, maskadd, seed, g, out, stats,
+                                      **kw)
+            pairs = float((maskadd >= 0).expand(b, t, s_).sum()) * heads
+            q4, k4, v4, g4 = (z.view(b, z.shape[1], heads, dh).transpose(1, 2)
+                              for z in (q, k, v, g))
+            m4 = maskadd[:, None].to(bf)
+            lq, lk_, lv = (z.detach().requires_grad_() for z in (q4, k4, v4))
+            lout = F.scaled_dot_product_attention(lq, lk_, lv, attn_mask=m4)
+            for name, fn, lib, by, flops in (
+                    ("mha_train_fwd", lambda: mhk.mha_train_fwd(
+                        q, k, v, maskadd, seed, **kw),
+                     lambda: F.scaled_dot_product_attention(
+                         q4, k4, v4, attn_mask=m4),
+                     nbytes(q, k, v, maskadd, seed, out, stats),
+                     4.0 * pairs * dh),
+                    ("mha_train_bwd", lambda: mhk.mha_train_bwd(
+                        q, k, v, maskadd, seed, g, out, stats, **kw),
+                     lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
+                                                 retain_graph=True),
+                     nbytes(q, k, v, maskadd, seed, g, out, stats, *grads),
+                     10.0 * pairs * dh)):
+                r = rec(f"{name} bf16", label, fn)
+                r["bound_ms"], r["bound_by"] = bound_mixed(by, 0.0, flops)
+                r["library_ms"] = rec(f"{name} SDPA bf16, rate 0", label,
+                                      lib)["ms"]
+                log(f"time {name} bf16 [{label}]: kernel {r['ms']:.4f} ms, "
+                    f"SDPA bf16 {r['library_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            del lout, lq, lk_, lv, grads
         for label, b, t, d, f, heads in BF16_ENC_SHAPES:
             x, g, _, maskadd, seed, w, _ = _enc_layer_inputs(dev, gen, b, t,
                                                              d, f)
@@ -8495,7 +8549,8 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
 # the CUDA kernels the typed (bf16) instances launch, by name
 TF_TRAIN_KERNELS = TRAIN_KERNELS + ("ln_fwd_typed_kernel",
                                     "train_gemm_bf16_kernel",
-                                    "drop4_bf16_kernel")
+                                    "drop4_bf16_kernel") + (
+                                    MHA_TC_FWD_KERNELS + MHA_TC_BWD_KERNELS)
 TF_TFD_KERNELS = TFD_KERNELS + ("ln_rows_typed_kernel",)
 # B8 (x, scale / offset): the cast route, and JAX's default config on the
 # CPU (bf16 features through f32 parameters; the kernel takes it too)
@@ -8510,6 +8565,12 @@ BF16_MHA_SHAPES = [
     ("decoder self, T = S = 17, causal + pad [B,T,T]", 50, 17, 17, "causal"),
     ("NMT encoder self, T = S = 16", 50, NMT_SRC_LEN, NMT_SRC_LEN, "pad"),
     ("NMT decoder cross, T = 17, S = 16", 50, 17, NMT_SRC_LEN, "pad")]
+# B5's tensor-core instance at ragged shapes, held and not timed: (B, T, S,
+# mask kind, d, heads): heads of 32, 96 (padded in bucket 128), 128 and 256
+# columns, T and S off the 64-row tiles, one key
+BF16_MHA_RAGGED = [(3, 65, 196, "pad", 64, 2), (3, 17, 1, "pad", 192, 2),
+                   (2, 65, 65, "causal", 256, 2), (2, 33, 33, "causal", 256,
+                                                   1)]
 # B6 (label, B, T, d, d_ff, heads) and B7 (label, B, T, S, d, d_ff, heads)
 BF16_ENC_SHAPES = [("captioner encoder", 50, 196, 512, 512, 8),
                    ("transformer NMT encoder", 50, NMT_SRC_LEN, 512, 2048, 8)]
@@ -8794,6 +8855,48 @@ def _tc_layer_check(kind: str, fargs: tuple, g, kw: dict) -> tuple:
     return out, saved, grads, e_f, e_b, bargs
 
 
+def _tc_mha_check(fargs: tuple, g, kw: dict) -> tuple:
+    """One all-bf16 B5 call each way on the tensor-core instance: held
+    against the plain version (`_tf_check`), the backward run twice with the
+    same bits, each call counted by `tc_fwd_launches` / `tc_bwd_launches`
+    and the instance's CUDA kernels the ones the profiler saw. Returns
+    (out, stats, grads, forward error, backward error, the backward's
+    arguments)."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import mha_train as mhk
+
+    q, heads = fargs[0], kw["n_heads"]
+    name = f"mha_train bf16 {_tf_key('mha_train_fwd', fargs, kw)}"
+    if not mhk.tensor_core(q.dtype, q.shape[-1] // heads):
+        raise AssertionError(f"{name}: not a tensor-core shape")
+    before = (mhk.tc_fwd_launches, mhk.tc_bwd_launches)
+    e_f = _tf_check("mha_train_fwd", fargs, kw, True)
+    out, stats = mhk.mha_train_fwd(*fargs, **kw)
+    bargs = fargs + (g, out, stats)
+    e_b = _tf_check("mha_train_bwd", bargs, kw, True)
+    grads = mhk.mha_train_bwd(*bargs, **kw)
+    again = mhk.mha_train_bwd(*bargs, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name}: a rerun of the backward differs")
+    got = [mhk.tc_fwd_launches - before[0], mhk.tc_bwd_launches - before[1]]
+    if got != [2, 3]:
+        raise AssertionError(f"{name}: {got} tensor-core launches (forward, "
+                             "backward), expected [2, 3]")
+    # the kernels the profiler saw (a session may lose some of its first
+    # events, never invent one): tensor-core kernels, and none of the FMA
+    # core's
+    per_name = _profile_device_us(lambda: mhk.mha_train_bwd(*bargs, **kw))
+    seen = sorted(per_name or ())
+    fma = [n for n in seen if "mha_" in n and "_tc_kernel" not in n]
+    if seen and (fma or not any(
+            k in n for n in seen for k in MHA_TC_BWD_KERNELS)):
+        raise AssertionError(f"{name}: the backward ran {seen}, not "
+                             f"{MHA_TC_BWD_KERNELS}")
+    return out, stats, grads, e_f, e_b, bargs
+
+
 def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
     """The bf16 entries of the transformer kernels (B4-B8) and of B11
     against their plain versions on the card at the path shapes, in every
@@ -8880,7 +8983,7 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
                 f32_ms=f32_of("ln_train_bwd", f"[{b}, {t}, {d}]"),
                 lib_what="none (F.layer_norm: other formula)")
 
-    # B5
+    # B5: every path shape on the tensor-core instance, then ragged shapes
     seed = torch.tensor([4321], dtype=torch.int32, device=dev)
     for label, b, t, s, kind in BF16_MHA_SHAPES:
         d, heads = TCAP["input_encoding_size"], TCAP["num_heads"]
@@ -8888,13 +8991,9 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
         q, k, v, g = (z.to(bf) for z in (q, k, v, g))
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
         fargs = (q, k, v, maskadd, seed)
-        e_f = _tf_check("mha_train_fwd", fargs, kw, True)
-        out, stats = mhk.mha_train_fwd(*fargs, **kw)
-        bargs = fargs + (g, out, stats)
-        e_b = _tf_check("mha_train_bwd", bargs, kw, True)
+        out, stats, grads, e_f, e_b, bargs = _tc_mha_check(fargs, g, kw)
         hold("mha_train_fwd", fargs, kw)
         hold("mha_train_bwd", bargs, kw)
-        grads = mhk.mha_train_bwd(*bargs, **kw)
         dh = d // heads
         pairs = float((maskadd >= 0).expand(b, t, s).sum()) * heads
         q4, k4, v4, g4 = (z.view(b, z.shape[1], heads, dh).transpose(1, 2)
@@ -8905,7 +9004,7 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
         shape = f"B={b} T={t} S={s} d={d} H={heads} bf16 ({label})"
         row("mha_train_fwd_bf16", shape,
             lambda: mhk.mha_train_fwd(*fargs, **kw),
-            lambda: mho.mha_train_plain(*fargs, **kw), "mha_fwd_kernel",
+            lambda: mho.mha_train_plain(*fargs, **kw), MHA_TC_FWD_KERNELS,
             nbytes(*fargs, out, stats), 0.0, 4.0 * pairs * dh, e_f,
             lib=lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                        attn_mask=m4),
@@ -8914,12 +9013,28 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
         row("mha_train_bwd_bf16", shape,
             lambda: mhk.mha_train_bwd(*bargs, **kw),
             lambda: mho.mha_train_plain_bwd(*bargs[:6], **kw),
-            MHA_BWD_KERNELS, nbytes(*bargs, *grads), 0.0, 10.0 * pairs * dh,
-            e_b, lib=lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
-                                                 retain_graph=True),
+            MHA_TC_BWD_KERNELS, nbytes(*bargs, *grads), 0.0,
+            10.0 * pairs * dh, e_b,
+            lib=lambda: torch.autograd.grad(lout, (lq, lk_, lv), g4,
+                                            retain_graph=True),
             lib_what="scaled_dot_product_attention bf16 backward, rate 0",
             f32_ms=f32_of("mha_train_bwd", label.split(",")[0]))
         del lout, lq, lk_, lv
+    # their own generator: the checks after them draw what they drew
+    # before these were added
+    gen_r = torch.Generator(device=dev).manual_seed(24)
+    for b, t, s_, kind, d, heads in BF16_MHA_RAGGED:
+        q, k, v, g, maskadd = _mha_inputs(dev, gen_r, b, t, s_, kind, d)
+        q, k, v, g = (z.to(bf) for z in (q, k, v, g))
+        kw = dict(n_heads=heads, rate=TRAIN_RATE)
+        fargs = (q, k, v, maskadd, seed)
+        *_, e_f, e_b, bargs = _tc_mha_check(fargs, g, kw)
+        hold("mha_train_fwd", fargs, kw)
+        hold("mha_train_bwd", bargs, kw)
+        log(f"kernel mha_train bf16 [B={b} T={t} S={s_} {kind} dh "
+            f"{d // heads}] (ragged): forward {e_f:.3g}, backward {e_b:.3g} "
+            f"of each tensor's scale (held at {BF16_TOL}); the backward twice "
+            "bit for bit; on the tensor cores")
 
     # B6
     for label, b, t, d, f, heads in BF16_ENC_SHAPES:
@@ -9633,14 +9748,20 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     host_imgs = np.random.RandomState(45).randint(
         0, 256, (16, 448, 448, 3)).astype(np.uint8)
     torch.cuda.synchronize()
-    # the tensor-core counters: every all-bf16 B1 launch and every bf16 B6 /
-    # B7 launch of the path runs the tensor-core instance
-    tc_counters = {"lstm_cell_bf16": (lk, "tc_launches")}
+    # the tensor-core counters: every all-bf16 B1 launch, every bf16 B6 /
+    # B7 launch and every bf16 B5 call of the path's head width (alone and
+    # inside B6 / B7) runs a tensor-core instance
+    tc_counters = {"lstm_cell_bf16": (lk, "tc_launches"),
+                   "mha_train_fwd_bf16": (mhk, "tc_fwd_launches"),
+                   "mha_train_bwd_bf16": (mhk, "tc_bwd_launches")}
     for kind in ("enc", "dec"):
         for x_ in ("fwd", "bwd"):
             tc_counters[f"{kind}_layer_train_{x_}_bf16"] = (
                 ltk, f"tc_{kind}_{x_}_launches")
-    for mod, attr in list(counters.values()) + list(tc_counters.values()):
+    tc_in_layers = {"mha_train_fwd_bf16": (ltk, "tc_attn_fwd_launches"),
+                    "mha_train_bwd_bf16": (ltk, "tc_attn_bwd_launches")}
+    for mod, attr in (list(counters.values()) + list(tc_counters.values())
+                      + list(tc_in_layers.values())):
         setattr(mod, attr, 0)
     cells = _recording_bf16(seen)
     with cells, _recording_tf(tf_seen, tf_args, tf_held):
@@ -9757,14 +9878,41 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                  if name == "lstm_cell" and k[-1] == ("bf16",) * 3)
     want = dict((k, counts[k]) for k in tc_counters)
     want["lstm_cell_bf16"] = all_bf
+    # B5: every bf16 call the path made is of a tensor-core head width, so
+    # every one of them, and every attention inside the bf16 layer calls
+    # (one an encoder layer, two a decoder layer), is on the tensor cores
+    widths = {(kind, key[0][-1] // key[3]) for kind in ("mha_train_fwd",
+                                                        "mha_train_bwd")
+              for key in tf_seen.get(kind, ()) if key[-1] == ("bf16",)}
+    # the layers' keys (_tf_key): (x's shape, d_ff, heads, ...) and (x's
+    # shape, S, d_ff, heads, ...)
+    widths |= {(kind, key[0][-1] // key[2 if kind[0] == "e" else 3])
+               for kind in ("enc_layer_fwd", "enc_layer_bwd",
+                            "dec_layer_fwd", "dec_layer_bwd")
+               for key in tf_seen.get(kind, ()) if key[-1][0] == "bf16"}
+    off = sorted(w for w in widths
+                 if not mhk.tensor_core(torch.bfloat16, w[1]))
+    if off:
+        raise AssertionError(f"bf16 path: B5 calls off the tensor cores' "
+                             f"head widths {off}")
+    in_layers = {name: getattr(mod, attr)
+                 for name, (mod, attr) in tc_in_layers.items()}
+    want_in = {f"mha_train_{x_}_bf16": counts[f"enc_layer_train_{x_}_bf16"]
+               + 2 * counts[f"dec_layer_train_{x_}_bf16"]
+               for x_ in ("fwd", "bwd")}
     log("bf16 path tensor-core launches: " + ", ".join(
         f"{k} {tc_counts[k]} of {want[k]}" for k in tc_counters)
+        + "; B5 inside the bf16 layer calls: " + ", ".join(
+            f"{k} {in_layers[k]} of {want_in[k]}" for k in tc_in_layers)
         + f"; B1's mixed launches on the FMA core "
         f"{counts['lstm_cell_bf16'] - tc_counts['lstm_cell_bf16']}")
-    if tc_counts != want or not all_bf:
+    if tc_counts != want or not all_bf or in_layers != want_in:
         raise AssertionError(f"bf16 path: tensor-core launches {tc_counts}, "
                              f"expected {want} (all-bf16 cells, bf16 layer "
-                             "calls)")
+                             f"and attention calls); B5 inside the layers "
+                             f"{in_layers}, expected {want_in}")
+    for name, n in in_layers.items():
+        tc_counts[name + " in layers"] = n
 
     # card vs cpu: the joint step's loss and gradients on two images
     cfg_a = dict(cfg, batch_size=BF16_AGREE, dropout=0.0, drop_prob_lm=0.0)
@@ -10081,9 +10229,13 @@ def main(argv=None) -> int:
     # the bf16 entries' launches: the bf16 path's
     for name, n in bf16_counts.items():
         kernels[name]["launches"] = n
-    # and of them, those on the tensor-core instances
+    # and of them, those on the tensor-core instances (B5's also inside B6
+    # / B7's bf16 calls)
     for name, n in tc_counts.items():
-        kernels[name]["tc_launches"] = n
+        if name.endswith(" in layers"):
+            kernels[name[:-len(" in layers")]]["tc_launches_in_layers"] = n
+        else:
+            kernels[name]["tc_launches"] = n
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -412,15 +412,17 @@ int xwt(const T* a, const T* w, const T* w_t, int M, int N, int K,
 // the attention backward's scratch (the rows' g . o and ds), the weights'
 // transposes (f32 only: the bf16 instance reads W itself) and the LN
 // backward's partial sums, in the call's type but for dy (the LayerNorm's
-// f32 input gradient) and the f32 scratch of the attention and the
-// LayerNorm. carve() lays it out from `base` (null: only to size it),
+// f32 input gradient), the attention's scratch (f32, its ds bf16 on the
+// tensor-core instance) and the LayerNorm's f32 partial sums. carve() lays it out from `base` (null: only to size it),
 // 16-byte aligned regions.
 template <class T>
 struct Work {
   T *df, *dlin;
   float* dy;
   T *dx2, *dx3, *dout, *dattn, *dqkv;
-  float *attn, *ln_partial;
+  void* attn;           // the attention backward's, attn_bytes of it
+  size_t attn_bytes;
+  float* ln_partial;
   T *wqkv_t, *wo_t, *w1_t, *w2_t, *wq_t, *wo2_t;   // W^T [N, K]
   size_t bytes;
 };
@@ -446,7 +448,9 @@ Work<T> carve(void* base, int kind, int B, int T_, int S, int d, int f,
   w.dout = typed(M * d);
   w.dattn = typed(M * d);
   w.dqkv = typed(M * 3 * d);
-  w.attn = f32(uic::attn_bwd_scratch_floats(B, H, T_, S > T_ ? S : T_));
+  // either attention route's, for the self (T_ keys) and cross (S) calls
+  w.attn_bytes = uic::attn_bwd_scratch_bytes_any(B, H, T_, S > T_ ? S : T_);
+  w.attn = take(w.attn_bytes, 1);
   w.ln_partial = f32((size_t)uic::ln_bwd_ws_floats(d));
   const bool tr = !BF<T>;
   w.wqkv_t = tr ? typed((size_t)3 * d * d) : nullptr;
@@ -638,7 +642,7 @@ int self_bwd(const T* x, const float* mask, int mask_rows, const int* seed,
            attn_args(qkv, 3 * d, qkv + d, 3 * d, qkv + 2 * d, 3 * d, mask,
                      mask_rows, seed, m.T, m),
            w.dattn, ao, stats, w.dqkv, w.dqkv + d, w.dqkv + 2 * d, w.attn,
-           st)))
+           w.attn_bytes, st)))
     return err;
   if ((err = wgrad(y1, d, d, w.dqkv, 3 * d, 3 * d, M, dwqkv, dbqkv, st)))
     return err;
@@ -670,7 +674,8 @@ int cross_bwd(const T* x2, const T* mk, const T* mv, const float* sm,
   T* dqc = w.dqkv;   // [M, d]
   if ((err = uic::attn_bwd(attn_args(qc, d, mk, d, mv, d, sm, 1, seed2, m.S,
                                      m),
-                           w.dattn, co, stats, dqc, dmk, dmv, w.attn, st)))
+                           w.dattn, co, stats, dqc, dmk, dmv, w.attn,
+                           w.attn_bytes, st)))
     return err;
   if ((err = wgrad(y2, d, d, dqc, d, d, M, dwq, dbq, st))) return err;
   if ((err = xwt(dqc, wq, w.wq_t, M, d, d, EpiStore<float>{w.dy, d}, st)))

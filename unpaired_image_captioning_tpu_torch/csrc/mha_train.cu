@@ -14,7 +14,7 @@
 //   ds = p (dp - D) / sqrt(dh), 0 where masked
 //   dq = ds k;  dk = ds^T q
 //
-// Design. Everything is a product of 64 x 64 tiles held in shared memory
+// Design of the f32 FMA core. Everything is a product of 64 x 64 tiles held in shared memory
 // (rows padded by 4 floats, so each is 16-byte aligned and the 16 lanes that
 // read 16 different rows with one float4 load hit distinct banks), copied
 // in with 16-byte cp.async. 256 threads; thread (tx, ty) = (tid % 16,
@@ -60,32 +60,84 @@
 //     tiles, 165 KB) and still stop at 512; the chunks take any width for
 //     the cost of dh / 256 score passes.
 // Types (the compute dtype). q, k / v and the output (with the backward's
-// g and o) are each f32 or bf16 (mha_train.cuh: ATT_* flags). A bf16 tile
-// is read by the threads through converting loads into the same f32
-// shared-memory tiles (not by cp.async), and every product stays the f32
-// FMA core above. On the bf16 route (ATT_RND) the kernels keep the TPU
-// kernel's cast points (ops/mha_train.py:64-70, :121, :136-148 of the JAX
-// package): the scores are rounded to bf16 and divided by sqrt(dh) in
-// bf16, the softmax is f32, the probabilities (with their dropout) are
-// rounded before P.V and before dV, ds / sqrt(dh) before dq and dk, and the
-// output, dq, dk and dv round to their types. To round the normalised
-// probabilities the bf16 forward runs two passes over the key tiles (the
-// rows' max and sum, then P.V) where the f32 one runs one online pass;
-// heads past 256 (the column-chunked kernels) round each exp(s - m) of the
-// online pass instead, the same relative rounding before the
-// normalisation.
-// The mask, the row statistics and the ds scratch stay f32.
+// g and o) are each f32 or bf16 (mha_train.cuh: ATT_* flags). On the bf16
+// route (ATT_RND) the kernels keep the TPU kernel's cast points
+// (ops/mha_train.py:64-70, :121, :136-148 of the JAX package): the scores
+// are rounded to bf16 and divided by sqrt(dh) in bf16, the softmax is f32,
+// the probabilities (with their dropout) are rounded before P.V and before
+// dV, ds / sqrt(dh) before dq and dk, and the output, dq, dk and dv round
+// to their types. The mask and the row statistics stay f32.
 //
-// There is no limit on the keys S: the forward streams key tiles with an
-// online softmax, and the backward's ds scratch (B*H*T*S floats) is memory
-// only.
+// Routing (mha_train.cuh: attn_tc; kernels/mha_train.py::tensor_core is
+// the same rule). A call whose arrays are all bf16, whose head width dh is
+// a multiple of 8 up to 256 and whose rows start on 16 bytes runs the
+// tensor-core instance below, in the bucket's FULL (dh = DH) or PADDED
+// mode. Every other call runs the f32 FMA core above: f32 calls, as JAX's
+// f32 route multiplies in f32; and, as a stated rule, the bf16 calls with
+// heads past 256 (the column-chunked *_wide kernels, which round each
+// exp(s - m) of their online pass) and rows off 16 bytes (dh 6 or 50: the
+// ODD instance). There a bf16 tile is read through converting loads into
+// the f32 shared-memory tiles and the probabilities are normalised in two
+// passes, as below.
+//
+// The tensor-core instance (mha_train_tc.cuh). Every product is
+// mma.sync.m16n8k16 bf16 with f32 sums (mma_bf16.cuh); q, k, v and g stay
+// bf16 in shared memory (rows padded by 16 bytes), copied in by 16-byte
+// cp.async; 4 warps a block, each owning 16 rows of the block's 64.
+//   - Forward: a block per (b, h, 64 queries, 128 output columns at most).
+//     The normalised probabilities round to bf16 before P.V, so each row's
+//     whole sum is needed before any of them: two passes over the key
+//     tiles (64 keys), both streamed through one double-buffered pipeline
+//     (pass 2's first K / V tile loads while pass 1's last is computed).
+//     Pass 1 computes S = Q K^T alone (half the forward's products) and
+//     keeps each row's max m and sum l in registers, online. Pass 2
+//     recomputes S, forms round_bf16(exp(s - m) / l) with its dropout and
+//     feeds it to P.V from registers: the accumulator fragment of an m16n8
+//     tile is the A fragment of the next k16 product, two bf16 a register,
+//     so P never goes through shared memory. S is recomputed rather than
+//     kept resident, so any S runs. Operands through ldmatrix: Q and K (as
+//     the B operand stored [n][k]) without .trans, V with .trans. Rows of
+//     at most 32 (the decoders' 17) split each key tile across the
+//     block's warps as well (2 or 4 key slices), the slices' (m, l) and
+//     partial outputs combined through shared memory in slice order.
+//   - Backward: a row pass per (b, h, 64 queries; key slices as the
+//     forward's) that takes each row's D_i = sum over keys of dattn p as
+//     the plain backward and the TPU kernel do (S = Q K^T and dP = G V^T on
+//     mma; the FMA core's g . o over the rounded output differs from it by
+//     the output's and the probabilities' bf16 roundings, up to about 1% of
+//     dk's scale where a causal row holds one key); a dk / dv kernel per
+//     (b, h, 64 keys, 64 columns of dk and dv) that walks the query tiles,
+//     32 queries a step, and
+//     forms S^T = K Q^T and dP^T = V G^T, so that keys are the
+//     accumulators' rows: attn^T (bf16) feeds dV += attn^T G and ds^T
+//     (bf16) dK += ds^T Q from registers; and a dq kernel per (b, h, 64
+//     queries, 128 columns at most) that walks ds^T and K, its A fragments
+//     through ldmatrix.trans (ds^T is stored key-major). Since ds / sqrt(dh)
+//     is rounded to bf16 before dq anyway, the scratch holds it as bf16,
+//     [B, H, S, T rounded up to 8] (30.7 MB at the encoder shape against
+//     the FMA core's 61.5 MB of f32). No float atomics: the same bits on
+//     every run.
+//   - Heads narrower than the bucket pad to it with zero columns, which add
+//     exact zeros to q.k and are never stored. Blocks whose rows, keys or
+//     queries run past T or S run only the 16-row groups that hold any
+//     (compile-time extents), and a warp whose 16 rows are all past the end
+//     only copies.
+//
+// There is no limit on the keys S: the forward streams key tiles (with an
+// online softmax on the FMA core's f32 route), and the backward's ds
+// scratch is memory only.
 //
 // What bounds it on the card: at the encoder shape (B 50, T = S = 196,
-// d 512, 8 heads) the forward is 3.9 GFLOP against 80 MB of q/k/v/mask/o,
-// so the f32 FMA rate bounds it (59 us at 67 TFLOP/s; the bytes take
-// 24 us). Products are plain f32 FMA (no TF32). The backward runs the 5
-// products the function needs and moves ds through device memory once
-// (61 MB at the encoder shape, most of it from L2).
+// d 512, 8 heads) the f32 forward is 3.9 GFLOP against 80 MB of
+// q/k/v/mask/o, so the f32 FMA rate bounds it (59 us at 67 TFLOP/s; the
+// bytes take 24 us). The bf16 forward moves 41 MB (12 us at 3.35 TB/s)
+// against 4 us of tensor-core products: the bytes bound it, and what sets
+// its pace on the card is the per-score work between the products (two
+// roundings, the mask and an exp a score in each pass, the dropout hash in
+// pass 2) and the latency of the two passes' chains at 4 blocks of 4 warps
+// an SM. The FMA core's backward runs the 5 products the function needs,
+// the tensor-core instance 7 (its row pass recomputes S and dP for D), and
+// each moves ds through device memory once (most of it from L2).
 //
 // The kernels read q / k / v and write their gradients with row strides of
 // their own and draw the dropout of block b * pid_b + h (mha_train.cuh), so
@@ -101,14 +153,14 @@ extern template int fwd<32>(const Attn&, void*, float*, cudaStream_t);
 extern template int fwd<128>(const Attn&, void*, float*, cudaStream_t);
 extern template int fwd<256>(const Attn&, void*, float*, cudaStream_t);
 extern template int bwd<32>(const Attn&, const void*, const void*,
-                            const float*, void*, void*, void*, float*,
-                            cudaStream_t);
+                            const float*, void*, void*, void*, void*,
+                            size_t, cudaStream_t);
 extern template int bwd<128>(const Attn&, const void*, const void*,
-                             const float*, void*, void*, void*, float*,
-                             cudaStream_t);
+                             const float*, void*, void*, void*, void*,
+                             size_t, cudaStream_t);
 extern template int bwd<256>(const Attn&, const void*, const void*,
-                             const float*, void*, void*, void*, float*,
-                             cudaStream_t);
+                             const float*, void*, void*, void*, void*,
+                             size_t, cudaStream_t);
 }  // namespace mha
 }  // namespace uic
 
@@ -150,12 +202,14 @@ int attn_fwd(const Attn& a, void* out, float* stats, cudaStream_t st) {
 
 int attn_bwd(const Attn& a, const void* g, const void* o,
              const float* stats, void* dq, void* dk, void* dv,
-             float* scratch, cudaStream_t st) {
+             void* scratch, size_t n, cudaStream_t st) {
   switch (attn_bucket(a.dh)) {
-    case 32: return mha::bwd<32>(a, g, o, stats, dq, dk, dv, scratch, st);
-    case 64: return mha::bwd<64>(a, g, o, stats, dq, dk, dv, scratch, st);
-    case 128: return mha::bwd<128>(a, g, o, stats, dq, dk, dv, scratch, st);
-    case 256: return mha::bwd<256>(a, g, o, stats, dq, dk, dv, scratch, st);
+    case 32: return mha::bwd<32>(a, g, o, stats, dq, dk, dv, scratch, n, st);
+    case 64: return mha::bwd<64>(a, g, o, stats, dq, dk, dv, scratch, n, st);
+    case 128:
+      return mha::bwd<128>(a, g, o, stats, dq, dk, dv, scratch, n, st);
+    case 256:
+      return mha::bwd<256>(a, g, o, stats, dq, dk, dv, scratch, n, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -178,26 +232,29 @@ int mha_train_fwd_mixed(const void* q, const void* k, const void* v,
                        out, stats, (cudaStream_t)stream);
 }
 
-// Floats of mha_train_bwd_f32's scratch into *n (B*H*T*S and a little
-// more: ds of every score, and g . o of every row). Returns 0.
-int mha_train_bwd_ws_f32(int B, int T, int S, int H, long long* n) {
-  *n = (long long)uic::attn_bwd_scratch_floats(B, H, T, S);
+// Bytes of mha_train_bwd_mixed's scratch into *n: the rows' D terms, then
+// ds of every score (B*H*T*S f32 on the FMA core; bf16 on the tensor-core
+// instance, tc != 0). Returns 0.
+int mha_train_bwd_ws_bytes(int B, int T, int S, int H, int tc,
+                           long long* n) {
+  *n = (long long)uic::attn_bwd_scratch_bytes(B, H, T, S, tc != 0);
   return 0;
 }
 
 // g, o [B,T,H*dh] (the upstream gradient and the forward output), stats
 // the forward's; dq [B,T,H*dh], dk/dv [B,S,H*dh] in q's and k's types;
-// scratch of mha_train_bwd_ws_f32 floats; fl as the forward's
+// scratch of ws_bytes, at least mha_train_bwd_ws_bytes for the call's
+// route (cudaErrorInvalidValue otherwise); fl as the forward's
 int mha_train_bwd_mixed(const void* q, const void* k, const void* v,
                         const float* mask, const int* seed, const void* g,
                         const void* o, const float* stats, void* dq,
-                        void* dk, void* dv, float* scratch, int B, int T,
-                        int S, int H, int dh, int mask_rows,
-                        unsigned int thresh, float keep_div, int dropout,
-                        int fl, void* stream) {
+                        void* dk, void* dv, void* scratch,
+                        long long ws_bytes, int B, int T, int S, int H,
+                        int dh, int mask_rows, unsigned int thresh,
+                        float keep_div, int dropout, int fl, void* stream) {
   return uic::attn_bwd(plain_attn(q, k, v, mask, seed, B, T, S, H, dh,
                                   mask_rows, thresh, keep_div, dropout, fl),
-                       g, o, stats, dq, dk, dv, scratch,
+                       g, o, stats, dq, dk, dv, scratch, (size_t)ws_bytes,
                        (cudaStream_t)stream);
 }
 

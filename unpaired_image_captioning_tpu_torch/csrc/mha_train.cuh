@@ -36,8 +36,9 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t base, uint32_t idx) {
 // and ATT_RND the cast points of a bf16 computation (the TPU kernel's with
 // a bf16 q): the scores rounded to bf16 and divided by sqrt(dh) in bf16
 // before the f32 softmax, the probabilities rounded before P.V and dV, ds
-// / sqrt(dh) rounded before dq and dk, and every output rounded. The mask,
-// the row statistics and the scratch stay f32.
+// / sqrt(dh) rounded before dq and dk, and every output rounded. The mask
+// and the row statistics stay f32, and so does the ds scratch but on the
+// tensor-core instance (below), which keeps the rounded ds in bf16.
 constexpr int ATT_Q_BF = 1;    // q (and dq)
 constexpr int ATT_KV_BF = 2;   // k and v (and dk, dv)
 constexpr int ATT_O_BF = 4;    // the output, and the backward's g and o
@@ -61,22 +62,51 @@ struct Attn {
 // any dh above it, in column chunks), 0 for dh < 1.
 int attn_bucket(int dh);
 
-// Floats of a backward's scratch: the rows' g . o [B*H*T] (rounded up to
-// 4), then ds / sqrt(dh) [B, H, T, S rounded up to 4].
+// The tensor-core instance (mha_train_tc.cuh) runs a call whose arrays are
+// all bf16 on the bf16 cast points, whose head width is a multiple of 8 up
+// to 256, and whose rows (strides, pointers) start on 16 bytes
+// (kernels/mha_train.py::tensor_core states the same rule for the
+// wrappers). Every other call runs the f32 FMA core.
+constexpr int ATT_ALL_BF = ATT_Q_BF | ATT_KV_BF | ATT_O_BF | ATT_RND;
+
+inline bool attn_tc(const Attn& a, const void* const* ptrs, int n) {
+  size_t bits = (size_t)a.q | (size_t)a.k | (size_t)a.v;
+  for (int i = 0; i < n; ++i) bits |= (size_t)ptrs[i];
+  return a.fl == ATT_ALL_BF && a.dh >= 8 && a.dh <= 256 && a.dh % 8 == 0 &&
+         a.lq % 8 == 0 && a.lk % 8 == 0 && a.lv % 8 == 0 && a.lo % 8 == 0 &&
+         bits % 16 == 0;
+}
+
+// Floats of a backward's row terms D [B*H*T] (rounded up to 4): g . o on
+// the FMA core, the sum over keys of dattn p on the tensor-core instance.
 inline size_t attn_dsum_floats(int B, int H, int T) {
   return ((size_t)B * H * T + 3) / 4 * 4;
 }
-inline size_t attn_bwd_scratch_floats(int B, int H, int T, int S) {
-  return attn_dsum_floats(B, H, T) + (size_t)B * H * T * ((S + 3) / 4 * 4);
+// Bytes of a backward's scratch: the row terms D, then ds / sqrt(dh): f32
+// [B, H, T, S rounded up to 4] on the FMA core, bf16 [B, H, S, T rounded up
+// to 8] (keys major) on the tensor-core instance (tc).
+inline size_t attn_bwd_scratch_bytes(int B, int H, int T, int S, bool tc) {
+  const size_t ds = tc ? (size_t)B * H * S * ((T + 7) / 8 * 8) * 2
+                       : (size_t)B * H * T * ((S + 3) / 4 * 4) * 4;
+  return attn_dsum_floats(B, H, T) * 4 + ds;
+}
+// the larger of the two: a caller that sizes its scratch before the call's
+// route is known
+inline size_t attn_bwd_scratch_bytes_any(int B, int H, int T, int S) {
+  const size_t f = attn_bwd_scratch_bytes(B, H, T, S, false);
+  const size_t t = attn_bwd_scratch_bytes(B, H, T, S, true);
+  return f > t ? f : t;
 }
 
 // out = attention(q, k, v) and the rows' softmax statistics; any dh >= 1,
 // any S
 int attn_fwd(const Attn& a, void* out, float* stats, cudaStream_t st);
 // dq, dk, dv for the upstream gradient g, from the forward's output o and
-// statistics; scratch of attn_bwd_scratch_floats(B, H, T, S) floats
+// statistics; `scratch` of `scratch_bytes` (at least
+// attn_bwd_scratch_bytes for the call's route: cudaErrorInvalidValue
+// otherwise)
 int attn_bwd(const Attn& a, const void* g, const void* o,
              const float* stats, void* dq, void* dk, void* dv,
-             float* scratch, cudaStream_t st);
+             void* scratch, size_t scratch_bytes, cudaStream_t st);
 
 }  // namespace uic

@@ -7,6 +7,7 @@ namespace uic {
 namespace mha {
 template int fwd<128>(const Attn&, void*, float*, cudaStream_t);
 template int bwd<128>(const Attn&, const void*, const void*, const float*,
-                      void*, void*, void*, float*, cudaStream_t);
+                      void*, void*, void*, void*, size_t,
+                      cudaStream_t);
 }  // namespace mha
 }  // namespace uic

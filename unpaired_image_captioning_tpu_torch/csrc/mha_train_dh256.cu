@@ -8,6 +8,7 @@ namespace uic {
 namespace mha {
 template int fwd<256>(const Attn&, void*, float*, cudaStream_t);
 template int bwd<256>(const Attn&, const void*, const void*, const float*,
-                      void*, void*, void*, float*, cudaStream_t);
+                      void*, void*, void*, void*, size_t,
+                      cudaStream_t);
 }  // namespace mha
 }  // namespace uic

@@ -5,10 +5,12 @@
 // those bounds compiled out; ODD runs any dh <= DH with 4-byte copies and
 // scalar stores, for a width or a row stride that is not a multiple of 4
 // (16-byte rows) or a tensor not 16-byte aligned. Bucket 256 also runs
-// every dh above 256 (the *_wide kernels: column chunks of 256). mha_train.cu
-// instantiates DH 64 and holds the entry points; mha_train_dh32.cu,
-// _dh128.cu and _dh256.cu instantiate the other buckets, so the four
-// compile in parallel (see mha_train.cu for the design).
+// every dh above 256 (the *_wide kernels: column chunks of 256). Each bucket
+// also holds the tensor-core instance (mha_train_tc.cuh) of the all-bf16
+// calls, in FULL and PADDED mode. mha_train.cu instantiates DH 64 and holds
+// the entry points; mha_train_dh32.cu, _dh128.cu and _dh256.cu instantiate
+// the other buckets, so the four compile in parallel (see mha_train.cu for
+// the design).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -295,6 +297,14 @@ static __device__ __forceinline__ float scaled(float s, float inv_sqrt,
 static __device__ __forceinline__ float sqrt_bf_of(int dh) {
   return round_bf16(sqrtf((float)dh));
 }
+
+}  // namespace mha
+}  // namespace uic
+
+#include "mha_train_tc.cuh"
+
+namespace uic {
+namespace mha {
 
 // One block's forward over query rows [q0, q0 + 16 QG).
 template <int DH, int QG, int MODE>
@@ -1023,10 +1033,10 @@ int fwd_as(const Attn& a, void* out, float* stats, cudaStream_t stream) {
 
 template <int DH, int MODE>
 int bwd_as(const Attn& a, const void* g, const void* o, const float* stats,
-           void* dq, void* dk, void* dv, float* scratch,
+           void* dq, void* dk, void* dv, void* scratch,
            cudaStream_t stream) {
-  float* dsum = scratch;
-  float* ds = scratch + attn_dsum_floats(a.B, a.H, a.T);
+  float* dsum = static_cast<float*>(scratch);
+  float* ds = dsum + attn_dsum_floats(a.B, a.H, a.T);
   const float is = inv_sqrt(a.dh);
   const size_t s1 = dkdv_smem<DH>(), s2 = dq_smem<DH>();
   cudaError_t err;
@@ -1064,10 +1074,10 @@ int fwd_wide(const Attn& a, void* out, float* stats, cudaStream_t stream) {
 template <bool V4>
 int bwd_wide(const Attn& a, const void* g, const void* o,
              const float* stats, void* dq, void* dk, void* dv,
-             float* scratch, cudaStream_t stream) {
+             void* scratch, cudaStream_t stream) {
   using L = Lay<WIDE>;
-  float* dsum = scratch;
-  float* ds = scratch + attn_dsum_floats(a.B, a.H, a.T);
+  float* dsum = static_cast<float*>(scratch);
+  float* ds = dsum + attn_dsum_floats(a.B, a.H, a.T);
   const size_t s1 = sizeof(float) * (4 * L::TILE_F + 2 * L::TILE * L::LDP);
   const size_t s2 = dq_smem<WIDE>();
   const int nc = cdiv(a.dh, WIDE);
@@ -1089,6 +1099,59 @@ int bwd_wide(const Attn& a, const void* g, const void* o,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core instance's launches (mha_train_tc.cuh): the forward, and
+// the backward's row pass (D), dk / dv and dq kernels over the bf16 ds^T
+// scratch.
+
+template <int DH, int MODE>
+int fwd_tc(const Attn& a, void* out, float* stats, cudaStream_t stream) {
+  const size_t smem = tc::fwd_smem<DH>(a);
+  const cudaError_t err = allow_smem(tc::mha_fwd_tc_kernel<DH, MODE>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nc = DH / tc::TL<DH>::OW;
+  const int rows = tc::BM / tc::key_slices(a.T);
+  tc::mha_fwd_tc_kernel<DH, MODE>
+      <<<dim3(cdiv(a.T, rows) * nc, a.H, a.B), tc::NTC, smem, stream>>>(
+          a, static_cast<tc::bf*>(out), stats, nc);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int MODE>
+int bwd_tc(const Attn& a, const void* g, const float* stats, void* dq,
+           void* dk, void* dv, void* scratch, cudaStream_t stream) {
+  float* dsum = static_cast<float*>(scratch);
+  tc::bf* ds = reinterpret_cast<tc::bf*>(dsum +
+                                         attn_dsum_floats(a.B, a.H, a.T));
+  const size_t s0 = tc::rows_smem<DH>(a), s1 = tc::dkdv_smem<DH>();
+  const size_t s2 = tc::dq_smem<DH>();
+  cudaError_t err;
+  if ((err = allow_smem(tc::mha_bwd_rows_tc_kernel<DH, MODE>, s0)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = allow_smem(tc::mha_bwd_dkdv_tc_kernel<DH, MODE>, s1)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = allow_smem(tc::mha_bwd_dq_tc_kernel<DH, MODE>, s2)) !=
+      cudaSuccess)
+    return (int)err;
+  const int rows = tc::BM / tc::key_slices(a.T);
+  tc::mha_bwd_rows_tc_kernel<DH, MODE>
+      <<<dim3(cdiv(a.T, rows), a.H, a.B), tc::NTC, s0, stream>>>(
+          a, static_cast<const tc::bf*>(g), stats, dsum);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int ncw = DH / tc::TL<DH>::CW, nco = DH / tc::TL<DH>::OW;
+  tc::mha_bwd_dkdv_tc_kernel<DH, MODE>
+      <<<dim3(cdiv(a.S, tc::BM) * ncw, a.H, a.B), tc::NTC, s1, stream>>>(
+          a, static_cast<const tc::bf*>(g), stats, dsum,
+          static_cast<tc::bf*>(dk), static_cast<tc::bf*>(dv), ds, ncw,
+          inv_sqrt(a.dh));
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tc::mha_bwd_dq_tc_kernel<DH, MODE>
+      <<<dim3(cdiv(a.T, tc::BM) * nco, a.H, a.B), tc::NTC, s2, stream>>>(
+          a, ds, static_cast<tc::bf*>(dq), nco);
+  return (int)cudaGetLastError();
+}
+
 // Whether every row a call reads or writes starts on 16 bytes (the head
 // width, the row strides and the pointers), so that its tiles move by
 // 16-byte copies.
@@ -1099,13 +1162,17 @@ inline bool rows16(const Attn& a, const void* const* ptrs, int n) {
          a.lo % 4 == 0 && bits % 16 == 0;
 }
 
-// A head width of the bucket's own runs the instance with nothing padded
-// (the columns' bounds compiled out), a narrower one the padded instance,
-// rows not on 16 bytes the ODD instance, and (bucket 256) a head wider than
-// 256 the column-chunked kernels.
+// An all-bf16 call that attn_tc takes runs the tensor-core instance.
+// Otherwise, a head width of the bucket's own runs the instance with
+// nothing padded (the columns' bounds compiled out), a narrower one the
+// padded instance, rows not on 16 bytes the ODD instance, and (bucket 256)
+// a head wider than 256 the column-chunked kernels.
 template <int DH>
 int fwd(const Attn& a, void* out, float* stats, cudaStream_t stream) {
   const void* ptrs[] = {out};
+  if (attn_tc(a, ptrs, 1))
+    return a.dh == DH ? fwd_tc<DH, FULL>(a, out, stats, stream)
+                      : fwd_tc<DH, PADDED>(a, out, stats, stream);
   const bool v4 = rows16(a, ptrs, 1);
   if constexpr (DH == WIDE) {
     if (a.dh > WIDE)
@@ -1119,8 +1186,16 @@ int fwd(const Attn& a, void* out, float* stats, cudaStream_t stream) {
 
 template <int DH>
 int bwd(const Attn& a, const void* g, const void* o, const float* stats,
-        void* dq, void* dk, void* dv, float* scratch, cudaStream_t stream) {
+        void* dq, void* dk, void* dv, void* scratch, size_t scratch_bytes,
+        cudaStream_t stream) {
   const void* ptrs[] = {g, o, dq, dk, dv};
+  const bool tc = attn_tc(a, ptrs, 5);
+  if (scratch_bytes < attn_bwd_scratch_bytes(a.B, a.H, a.T, a.S, tc))
+    return (int)cudaErrorInvalidValue;
+  if (tc)
+    return a.dh == DH
+               ? bwd_tc<DH, FULL>(a, g, stats, dq, dk, dv, scratch, stream)
+               : bwd_tc<DH, PADDED>(a, g, stats, dq, dk, dv, scratch, stream);
   const bool v4 = rows16(a, ptrs, 5);
   if constexpr (DH == WIDE) {
     if (a.dh > WIDE)

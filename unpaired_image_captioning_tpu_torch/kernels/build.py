@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
     # x, h, c, w, b, h_out, c_out, B, D, H, G, types (x, (w, b), (h, c)
@@ -67,11 +68,13 @@ SIGNATURES = {
     # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
     # keep_div, dropout, fl (the ATT_* types), stream
     "mha_train_fwd_mixed": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _I, _P),
-    # q, k, v, mask, seed, g, o, stats, dq, dk, dv, scratch, B, T, S, H,
-    # dh, mask_rows, thresh, keep_div, dropout, fl, stream
-    "mha_train_bwd_mixed": (_P,) * 12 + (_I,) * 6 + (_U, _F, _I, _I, _P),
-    # B, T, S, H, out int64 [1] -> floats of the backward's scratch
-    "mha_train_bwd_ws_f32": (_I,) * 4 + (_P,),
+    # q, k, v, mask, seed, g, o, stats, dq, dk, dv, scratch, its bytes, B,
+    # T, S, H, dh, mask_rows, thresh, keep_div, dropout, fl, stream
+    "mha_train_bwd_mixed": (_P,) * 12 + (_L,) + (_I,) * 6
+    + (_U, _F, _I, _I, _P),
+    # B, T, S, H, tc (the tensor-core instance), out int64 [1] -> bytes of
+    # the backward's scratch
+    "mha_train_bwd_ws_bytes": (_I,) * 5 + (_P,),
     # x, scale, offset, y, rows, d, eps, fl (the LN_* types), stream
     "ln_train_fwd_mixed": (_P,) * 4 + (_I, _I, _F, _I, _P),
     # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, fl, stream

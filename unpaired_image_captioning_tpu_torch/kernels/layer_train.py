@@ -35,7 +35,12 @@ which stay f32. Any other mixture raises, naming it. `tensor_core` is the
 routing rule: a bf16 call runs its products on the tensor-core instance of
 `csrc/train_gemm.cuh` (bf16 operands, f32 accumulators), an f32 call on
 the f32 FMA core. `bf16_*_launches` count the bf16 calls, `tc_*_launches`
-the calls whose products ran on the tensor cores.
+the calls whose products ran on the tensor cores. The layers' attention
+runs B5's launchers (`kernels/mha_train.py`) under B5's rule
+(`mha_train.tensor_core`): `tc_attn_fwd_launches` and
+`tc_attn_bwd_launches` count the attention calls inside the layer calls
+(one an encoder layer, two a decoder layer) that took B5's tensor-core
+instance.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..ops.layer_train import (DEC_WEIGHTS, ENC_WEIGHTS, dec_bwd_plain,
 from ..ops.mha_train import keep_threshold
 from . import build
 from .mha_train import check_head_width
+from .mha_train import tensor_core as attn_tensor_core
 
 enc_fwd_launches = 0
 enc_bwd_launches = 0
@@ -62,6 +68,8 @@ tc_enc_fwd_launches = 0
 tc_enc_bwd_launches = 0
 tc_dec_fwd_launches = 0
 tc_dec_bwd_launches = 0
+tc_attn_fwd_launches = 0
+tc_attn_bwd_launches = 0
 
 ENC, DEC = 0, 1   # `kind` of the C workspace query
 ACT = None        # in `_check`'s dtype column: x's type
@@ -161,6 +169,7 @@ def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     """(out [B, T, d], saved): one encoder layer; `saved` is what
     `enc_layer_bwd` takes. w holds the ENC_WEIGHTS."""
     global enc_fwd_launches, bf16_enc_fwd_launches, tc_enc_fwd_launches
+    global tc_attn_fwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2 = enc_fwd_plain(x, maskadd, seed, *ws, n_heads=n_heads,
@@ -182,6 +191,7 @@ def enc_layer_fwd(x, maskadd, seed, w: dict, *, n_heads: int, rate: float):
     enc_fwd_launches += 1
     bf16_enc_fwd_launches += bf
     tc_enc_fwd_launches += tensor_core(x.dtype)
+    tc_attn_fwd_launches += attn_tensor_core(x.dtype, d // n_heads)
     return out, saved
 
 
@@ -190,6 +200,7 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
     """(dx, then the gradients of the ENC_WEIGHTS in order) for the
     upstream gradient g [B, T, d]."""
     global enc_bwd_launches, bf16_enc_bwd_launches, tc_enc_bwd_launches
+    global tc_attn_bwd_launches
     ws = [w[k] for k in ENC_WEIGHTS]
     if x.device.type == "cpu":
         return enc_bwd_plain(x, maskadd, seed, saved[0], g, *ws,
@@ -210,6 +221,7 @@ def enc_layer_bwd(x, maskadd, seed, w: dict, saved, g, *, n_heads: int,
     enc_bwd_launches += 1
     bf16_enc_bwd_launches += bf
     tc_enc_bwd_launches += tensor_core(x.dtype)
+    tc_attn_bwd_launches += attn_tensor_core(x.dtype, d // n_heads)
     return tuple(grads)
 
 
@@ -218,6 +230,7 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
     """(out [B, T, d], saved): one decoder layer over the memory's K/V
     projections mk / mv [B, S, d]; w holds the DEC_WEIGHTS."""
     global dec_fwd_launches, bf16_dec_fwd_launches, tc_dec_fwd_launches
+    global tc_attn_fwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         out, x2, x3 = dec_fwd_plain(x, mk, mv, tgt_maskadd, src_maskadd,
@@ -244,6 +257,7 @@ def dec_layer_fwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict, *,
     dec_fwd_launches += 1
     bf16_dec_fwd_launches += bf
     tc_dec_fwd_launches += tensor_core(x.dtype)
+    tc_attn_fwd_launches += 2 * attn_tensor_core(x.dtype, d // n_heads)
     return out, saved
 
 
@@ -251,6 +265,7 @@ def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
                   saved, g, *, n_heads: int, rate: float):
     """(dx, dmk, dmv, then the gradients of the DEC_WEIGHTS in order)."""
     global dec_bwd_launches, bf16_dec_bwd_launches, tc_dec_bwd_launches
+    global tc_attn_bwd_launches
     ws = [w[k] for k in DEC_WEIGHTS]
     if x.device.type == "cpu":
         return dec_bwd_plain(x, mk, mv, tgt_maskadd, src_maskadd, seeds,
@@ -275,6 +290,7 @@ def dec_layer_bwd(x, mk, mv, tgt_maskadd, src_maskadd, seeds, w: dict,
     dec_bwd_launches += 1
     bf16_dec_bwd_launches += bf
     tc_dec_bwd_launches += tensor_core(x.dtype)
+    tc_attn_bwd_launches += 2 * attn_tensor_core(x.dtype, d // n_heads)
     return tuple(grads)
 
 

@@ -12,7 +12,8 @@ also returns the rows' softmax statistics [2, B, H, T] (`ops.mha_train.
 softmax_stats`), which the backward kernel reads instead of recomputing
 whole rows; the plain backward ignores them. `fwd_launches` and
 `bwd_launches` count kernel launches, `bf16_fwd_launches` and
-`bf16_bwd_launches` those of them on bf16 operands.
+`bf16_bwd_launches` those of them on bf16 operands, `tc_fwd_launches` and
+`tc_bwd_launches` those on the tensor-core instance.
 
 Types (the compute dtype, ROADMAP A15), as the TPU kernel: q, k and v are
 all f32 or all bf16 (the routes give no other mixture: the per-sublayer
@@ -37,9 +38,24 @@ fwd_launches = 0
 bwd_launches = 0
 bf16_fwd_launches = 0
 bf16_bwd_launches = 0
+tc_fwd_launches = 0
+tc_bwd_launches = 0
 # the kernel's type flags (csrc/mha_train.cuh): q, k / v, out / g / o
 # stored as bf16, and the bf16 cast points
 ATT_BF16 = 1 | 2 | 4 | 8
+
+def tensor_core(dtype: torch.dtype, dh: int) -> bool:
+    """The routing rule: whether a call whose q, k, v (and g, out) are all
+    of `dtype` with head width `dh` runs on the tensor-core instance, given
+    rows on 16 bytes (the wrappers' contiguous tensors, whose pointers the
+    wrappers check; `_aligned`). Only bf16 does, at dh a multiple of 8 up
+    to 256: f32 calls multiply in f32, as in JAX."""
+    return dtype == torch.bfloat16 and 8 <= dh <= 256 and dh % 8 == 0
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
 
 def check_head_width(name: str, d: int, n_heads: int) -> None:
     """Raise unless d splits into n_heads heads, as the JAX package's head
@@ -99,7 +115,7 @@ def _rate_args(rate: float):
 def mha_train_fwd(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
     """(attention output [B, T, d] (see `ops.mha_train.mha_train_plain`),
     the rows' softmax statistics [2, B, H, T])."""
-    global fwd_launches, bf16_fwd_launches
+    global fwd_launches, bf16_fwd_launches, tc_fwd_launches
     if q.device.type == "cpu":
         return (mha_train_plain(q, k, v, maskadd, seed, n_heads=n_heads,
                                 rate=rate),
@@ -123,6 +139,8 @@ def mha_train_fwd(q, k, v, maskadd, seed, *, n_heads: int, rate: float):
     build.check(err, "mha_train_fwd_mixed")
     fwd_launches += 1
     bf16_fwd_launches += fl != 0
+    tc_fwd_launches += (tensor_core(q.dtype, d // n_heads)
+                        and _aligned(q, k, v, out))
     return out, stats
 
 
@@ -131,7 +149,7 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, *, n_heads: int,
     """(dq, dk, dv) for the upstream gradient g [B, T, d]; `out` and
     `stats` are the forward's output and row statistics, which the kernel
     reads for the softmax backward (the plain version recomputes both)."""
-    global bwd_launches, bf16_bwd_launches
+    global bwd_launches, bf16_bwd_launches, tc_bwd_launches
     if q.device.type == "cpu":
         return mha_train_plain_bwd(q, k, v, maskadd, seed, g,
                                    n_heads=n_heads, rate=rate)
@@ -151,20 +169,23 @@ def mha_train_bwd(q, k, v, maskadd, seed, g, out, stats, *, n_heads: int,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    tc = (tensor_core(q.dtype, d // n_heads)
+          and _aligned(q, k, v, g, out, dq, dk, dv))
     lib = build.load()
     n = ctypes.c_int64()
-    lib.mha_train_bwd_ws_f32(b, t, s, n_heads, ctypes.byref(n))
-    scratch = torch.empty((n.value,), dtype=torch.float32, device=q.device)
+    lib.mha_train_bwd_ws_bytes(b, t, s, n_heads, int(tc), ctypes.byref(n))
+    scratch = torch.empty((n.value,), dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.mha_train_bwd_mixed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), maskadd.data_ptr(),
         seed.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, t,
-        s, n_heads, d // n_heads, maskadd.shape[1], thresh, keep_div,
-        dropout, fl, stream)
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+        n.value, b, t, s, n_heads, d // n_heads, maskadd.shape[1], thresh,
+        keep_div, dropout, fl, stream)
     build.check(err, "mha_train_bwd_mixed")
     bwd_launches += 1
     bf16_bwd_launches += fl != 0
+    tc_bwd_launches += tc
     return dq, dk, dv
 
 
