@@ -283,7 +283,16 @@ and four ragged ones (head widths 32, 96, 128 and 256; T and S off the
 the instance's CUDA kernels seen by the profiler, and the bf16 path
 asserts that every bf16 B5 call, alone and inside B6 / B7, went through
 the tensor cores (`tc_launches`, `tc_launches_in_layers` on the B5
-records).
+records). B4's typed steps (`kernels/transformer_decode.py::route`): both
+bf16 mixtures of the path take the fast attentions over bf16 caches and
+memory, and the all-bf16 step's products the tensor cores; each path
+pair is held with its route and tensor-core count, and the bf16 path
+asserts every bf16 B4 call on the fast attentions and every all-bf16 one
+on the tensor cores (`tc_launches` on the B4 bf16 records). ROADMAP C5
+(`_c5_check`): the all-bf16 stack at the caption beam's shape at 8 draws
+of its own, each layer alone held at 1e-2 of each output's scale against
+its plain version fed the plain output of the layer before, the whole
+stack read and recorded (`c5` on the stack's bf16 record).
 
 Every kernel's line in the `kernels` JSON carries its device time, its
 plain version's, its bound (the largest of bytes over 3.35 TB/s, f32
@@ -313,8 +322,14 @@ groups (`topk`: both top-k entries at the shapes above, on the same rows;
 `mha`: the training attention's forward and backward at the step's three
 shapes, at head widths 32, 64 and 128; `att`: B9a, B9b at K = 3, 5 and 20
 and B9c on the inputs of their checks; `tfd`: the decoder step's stack at
-both pivot shapes, at head widths 32, 64 and 128, and the first head width
-the step refuses at TFD_REFUSAL_SHAPE; `ln`: the training LayerNorm's
+both pivot shapes, at head widths 32, 64 and 128, the first head width
+the step refuses at TFD_REFUSAL_SHAPE, and its bf16 path pairs (stack and
+layer at beam 5 x 50 and batch 50, f32, f32 weights over bf16 caches and
+memory, all bf16) with their bound, bf16 cuBLAS over the products and the
+tensor-core launches where the tree counts them; `steps`: the transformer
+XE step in f32 and bf16, the bf16 transformer SCST step and a batch-50
+transformer pivot over rounded features, host walls and one profiled
+call's device busy; `ln`: the training LayerNorm's
 forward and backward at LN_SHAPES and the whole encoder layer's backward
 at the captioner's shape, split by kind of CUDA kernel; `img`: B11 at
 IMG_CASES), with no check, and prints the readings as its last line. It serves to compare two checkouts on one
@@ -540,8 +555,9 @@ TFD_SHAPES = [
 # head width the step refuses (none: every width runs)
 TFD_REFUSAL_SHAPE = (2, 2, 8, 8, 1, 64)
 # the CUDA kernels the decoder-step wrappers launch, by name
-TFD_KERNELS = ("decode_gemm_kernel", "ln_rows_kernel", "self_attn_kernel",
-               "cross_attn_kernel", "head_mean_kernel")
+TFD_KERNELS = ("decode_gemm_kernel", "decode_gemm_bf16_kernel",
+               "ln_rows_kernel", "self_attn_kernel", "cross_attn_kernel",
+               "head_mean_kernel")
 # every CUDA kernel of csrc/, by name
 HAND_KERNELS = LSTM_KERNELS + ("topk_select_kernel",) + TFD_KERNELS
 # beams wider than 16 (PERF.md §4 row 1 at wider beams): caption beam 20 ->
@@ -1408,6 +1424,37 @@ def phase_times(dev, groups) -> list:
                 rec(f"dec_layer_train_bwd {name}", label,
                     lambda: ltk.dec_layer_bwd(*a, saved, gd, **kw))
                 del saved
+    if "tfd" in groups:
+        # B4 at the path pairs: the f32 entry, the serving mixture and the
+        # all-bf16 step, stack and layer, beside the bound and, all bf16,
+        # the step's products alone in bf16 cuBLAS; the tensor-core launches
+        # of the timed calls where the tree counts them
+        for c in _b4_bf16_cases(dev, torch.Generator(device=dev)
+                                .manual_seed(22),
+                                (("f32",) * 4,) + BF16_TFD_MIXES):
+            counter = ("tc_stack_launches" if c["kind"] ==
+                       "decoder_stack_step" else "tc_layer_launches")
+            before = getattr(tdk, counter, None)
+            fn = getattr(tdk, c["kind"])
+            r = rec(c["name"][:-5] + " " + "/".join(c["mix"]), c["label"],
+                    lambda f_=fn, c_=c: f_(*c_["args"], **c_["kw"]))
+            f32 = c["mix"] == ("f32",) * 4
+            r["bound_ms"], r["bound_by"] = bound_mixed(
+                c["bytes"], 0.0 if c["all_bf"] else c["flops"],
+                c["flops"] if c["all_bf"] else 0.0)
+            r["tc_launches"] = (None if before is None
+                                else getattr(tdk, counter) - before)
+            r["library_ms"] = (rec("its products alone, bf16 cuBLAS",
+                                   c["label"], c["lib"])["ms"]
+                               if c["lib"] is not None else None)
+            log(f"time {c['name'][:-5]} [{c['label']}]: kernel "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}"
+                + ("; f32 entry" if f32 else "; bf16 elements 2 bytes")
+                + "), bf16 cuBLAS over its products "
+                + ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+                + f", tensor-core launches {r['tc_launches']}")
     if "steps" in groups:
         # the transformer captioner's XE step on the default route in f32
         # and in bf16: the host wall of 5 synchronised steps after 2, and one
@@ -1440,6 +1487,65 @@ def phase_times(dev, groups) -> list:
                     parts.items(), key=lambda kv: -kv[1])[:8]))
             del tr
             torch.cuda.empty_cache()
+        # B4's two bf16 routes end to end: the bf16 transformer SCST step
+        # (its sample and greedy decodes through B4, every operand bf16)
+        # and one batch-50 transformer pivot over rounded features (B4's f32
+        # weights over bf16 memory and caches): host walls after a warm-up
+        # and one profiled call's device busy
+        from unpaired_image_captioning_tpu_torch.data.dataloader import (
+            to_bfloat16)
+        from unpaired_image_captioning_tpu_torch.models.base import Features
+        from unpaired_image_captioning_tpu_torch.ops.cider import (
+            build_df_table)
+        from unpaired_image_captioning_tpu_torch.pivot import pivot_translate
+        from unpaired_image_captioning_tpu_torch.scripts.prepro_ngrams import (
+            compute_df)
+
+        labels, start, end = make_scst_corpus(np.random.RandomState(0))
+        df, n_img = compute_df(labels, start, end)
+        tsc = Trainer(Config(**dict(TRAIN, dtype="bfloat16")), device=dev,
+                      df_table=build_df_table(df, float(n_img), dev))
+        sc_batch = dict(batch, **scst_gts(labels, BENCH_BATCH))
+        tcap, tnmt = build_transformer_models(dev)
+        fc, att = make_features(np.random.RandomState(41), BENCH_BATCH)
+        feats = Features(fc_feats=to_bfloat16(fc).to(dev),
+                         att_feats=to_bfloat16(att).to(dev),
+                         att_masks=torch.ones((BENCH_BATCH, N_SLOTS),
+                                              device=dev))
+        c2n = torch.as_tensor(_cap2nmt(), device=dev)
+
+        def pivot():
+            with torch.inference_mode():
+                return pivot_translate(tcap, tnmt, feats, c2n,
+                                       cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
+                                       nmt_max_len=NMT_MAX_LEN)
+
+        for name, fn in (("transformer SCST step, bf16",
+                          lambda: tsc.train(sc_batch, sc_flag=True)),
+                         ("transformer pivot, rounded features", pivot)):
+            fn()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            parts = {}
+            ms, how = library_ms(fn, 1, parts)
+            b4 = sum(v for n, v in parts.items()
+                     if any(k in n for k in TF_TFD_KERNELS))
+            readings.append(dict(kernel=name, shape=f"batch {BENCH_BATCH}",
+                                 walls_ms=walls, ms=ms, timing=how,
+                                 b4_ms=b4, parts=parts))
+            log(f"time {name} [batch {BENCH_BATCH}]: walls "
+                + ", ".join(f"{w:.1f}" for w in walls)
+                + f" ms; device busy {ms:.2f} ms ({how}), of it B4's "
+                f"kernels {b4:.2f} ms; by CUDA kernel: " + ", ".join(
+                    f"{n} {v:.2f}" for n, v in sorted(
+                        parts.items(), key=lambda kv: -kv[1])[:8]))
+        del tsc, tcap, tnmt
+        torch.cuda.empty_cache()
     if "img" in groups:
         from unpaired_image_captioning_tpu_torch.kernels import image as ik
 
@@ -8501,7 +8607,7 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
         bf = tc == tw == "bf16"
         mm = 2.0 * t * bt * h * g * h
         f32_shape = f"G={g} [T {t}, B {bt}, H {h}]"
-        lib = None
+        lib = lib_b = None
         if g == 4 and bf:
             cols = torch.cat([torch.arange(j * h, (j + 1) * h, device=dev)
                               for j in (0, 1, 3, 2)])
@@ -8516,6 +8622,18 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
             def lib(lstm=lstm, xb=xb, h0c=h0c, c0c=c0c):
                 with torch.no_grad():
                     return lstm(xb, (h0c[None], c0c[None]))
+
+            # its backward in bf16 over the same steps for the same upstream
+            # dhs (it also computes dx and dW_ih, which the chain leaves
+            # out), as the f32 backward's reading
+            lx = xb.detach().requires_grad_()
+            lh0, lc0 = (z[None].detach().requires_grad_() for z in (h0c, c0c))
+            lout, _ = lstm(lx, (lh0, lc0))
+
+            def lib_b(lstm=lstm, lout=lout, lx=lx, lh0=lh0, lc0=lc0, g_=chc):
+                return torch.autograd.grad(
+                    lout, (lx, lh0, lc0, *lstm.parameters()), g_,
+                    retain_graph=True)
         rows["fwd"].append(row(
             f"lstm_chain_fwd {shape}",
             lambda: lb.chain_fwd(xc, h0c, c0c, w_hh, maxout=maxout),
@@ -8532,7 +8650,7 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
             "chain_bwd_kernel",
             nbytes(gates, cs, c0c, chc, ccc, w_hh, dg, dh0, dc0),
             0.0 if tw == "bf16" else mm, mm if tw == "bf16" else 0.0, e_b,
-            f32_ms=f32_chain["bwd"].get(f32_shape)))
+            lib=lib_b, f32_ms=f32_chain["bwd"].get(f32_shape)))
     for key, line in (("fwd", "52"), ("bwd", "120")):
         rec[f"lstm_chain_{key}_bf16"] = _bf16_record(
             f"lstm_chain_{key}_bf16",
@@ -8593,6 +8711,20 @@ BF16_TFD_SHAPES = [TFD_SHAPES[0], TFD_SHAPES[2]]   # beam 5 x 50, batch 50
 BF16_IMG_CASES = IMG_CASES[:2]
 
 
+def _scaled_errs(name: str, got, want) -> list:
+    """max|kernel - plain| / max(1, max|plain|) of each output, types and
+    shapes equal, without a bound."""
+    errs = []
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}: kernel {a.dtype} {tuple(a.shape)}"
+                                 f" against plain {b.dtype} {tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        errs.append((a - b).abs().max().item()
+                    / max(1.0, b.abs().max().item()) if b.numel() else 0.0)
+    return errs
+
+
 def _bf16_scaled(name: str, got, want) -> float:
     """Each output: max|kernel - plain| <= BF16_TOL * max(1, max|plain|),
     types equal; returns the largest of those ratios. The bf16 check of
@@ -8601,19 +8733,84 @@ def _bf16_scaled(name: str, got, want) -> float:
     apart, so one rounding that a sum in another order takes the other way
     moves an element past an elementwise atol of 1e-2 wherever the output
     cancels to near 0 (tests/test_torch_dtype_transformer.py)."""
-    worst = 0.0
-    for a, b in zip(got, want):
-        if a.dtype != b.dtype or a.shape != b.shape:
-            raise AssertionError(f"{name}: kernel {a.dtype} {tuple(a.shape)}"
-                                 f" against plain {b.dtype} {tuple(b.shape)}")
-        a, b = a.float(), b.float()
-        e = ((a - b).abs().max().item()
-             / max(1.0, b.abs().max().item())) if b.numel() else 0.0
+    errs = _scaled_errs(name, got, want)
+    for e in errs:
         if not e <= BF16_TOL:
             raise AssertionError(f"{name}: max|diff| / max(1, max|plain|) "
                                  f"{e:.4g} > {BF16_TOL}")
-        worst = max(worst, e)
-    return worst
+    return max(errs, default=0.0)
+
+
+# ROADMAP C5: the all-bf16 stack step at BF16_TFD_SHAPES[0] at draws of its
+# own (each seed its own generator, so no other check's draw moves)
+C5_SEEDS = tuple(range(2500, 2508))
+
+
+def _c5_check(dev) -> dict:
+    """ROADMAP C5: B4's all-bf16 step at the caption beam's shape
+    (BF16_TFD_SHAPES[0]) at each of C5_SEEDS, held layer by layer and read
+    as a whole stack. Layer l of the kernel (`decoder_layer_step`, the same
+    typed layer code the stack runs) and `decoder_layer_step_plain` take
+    the same inputs, x being the plain output of layer l-1 in its type, so
+    each layer's difference is that layer's own: every output of every
+    layer must hold at BF16_TOL of its scale, else the kernel departs from
+    its plain version. The whole stack (kernel against plain, six layers of
+    compounding) is read and recorded, not bounded here: the script's own
+    draw holds it at BF16_TOL in `_tf_check`. Returns the maxima."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+    from unpaired_image_captioning_tpu_torch.ops import (
+        transformer_decode as tdo)
+
+    label, b, kb, n_l, n_t, slots, d, dff, heads, lazy = BF16_TFD_SHAPES[0]
+    bf = torch.bfloat16
+    kw = dict(n_heads=heads)
+    outs = ("x", "cache_k", "cache_v")
+    per_layer = [[0.0] * 3 for _ in range(n_l)]
+    stacks = []
+    with torch.no_grad():
+        for seed in C5_SEEDS:
+            a = _tfd_inputs(dev, torch.Generator(device=dev).manual_seed(seed),
+                            b, kb, n_l, n_t, slots, d, dff, lazy)
+            w = {k: v.to(bf) for k, v in a["w"].items()}
+            x, kc, vc = a["x"].to(bf), a["kc"].to(bf), a["vc"].to(bf)
+            ck, cv = a["ck"].to(bf), a["cv"].to(bf)
+            sargs = (x, a["t"], ck, cv, a["mask"], kc, vc, w, a["anc"])
+            got = tdk.decoder_stack_step(*_clone(sargs), **kw)
+            want = tdo.decoder_stack_step_plain(*_clone(sargs), **kw)
+            stacks.append(_scaled_errs("C5 stack", got, want))
+            xin = x
+            for l in range(n_l):
+                largs = (xin, a["t"], ck[l].contiguous(), cv[l].contiguous(),
+                         a["mask"], kc[:, l].contiguous(),
+                         vc[:, l].contiguous(),
+                         {k: v[l].contiguous() for k, v in w.items()})
+                got = tdk.decoder_layer_step(*_clone(largs), **kw)
+                want = tdo.decoder_layer_step_plain(*_clone(largs), **kw)
+                errs = _scaled_errs(f"C5 layer {l}", got, want)
+                per_layer[l] = [max(p, e) for p, e in zip(per_layer[l], errs)]
+                if max(errs) > BF16_TOL:
+                    raise AssertionError(
+                        f"C5: layer {l} alone at seed {seed} departs from its "
+                        f"plain version: {dict(zip(outs, errs))} > {BF16_TOL}"
+                        " of each output's scale")
+                xin = want[0]
+    torch.cuda.synchronize()
+    worst = [max(s[i] for s in stacks) for i in range(3)]
+    log(f"C5, B4 all bf16 [{label}] at seeds {C5_SEEDS[0]}..{C5_SEEDS[-1]}: "
+        "each layer alone, max over the seeds of max|kernel - plain| / "
+        "max(1, max|plain|) (x, cache_k, cache_v): " + "; ".join(
+            f"layer {l} " + "/".join(f"{e:.4g}" for e in p)
+            for l, p in enumerate(per_layer))
+        + f" (held at {BF16_TOL}); the whole stack by seed (x): "
+        + ", ".join(f"{s[0]:.4g}" for s in stacks)
+        + f"; max " + "/".join(f"{e:.4g}" for e in worst)
+        + f"; past {BF16_TOL}: {sum(max(s) > BF16_TOL for s in stacks)} of "
+        f"{len(stacks)} seeds")
+    return {"seeds": list(C5_SEEDS), "layer_max": per_layer,
+            "stack_by_seed": stacks, "stack_max": worst}
 
 
 def _tf_mix(*ts) -> tuple:
@@ -8692,6 +8889,7 @@ class _recording_tf:
 
     def __init__(self, seen: dict, args: dict, held: dict):
         self._seen, self._args, self._held = seen, args, held
+        self.calls = {}     # (kind, key) -> calls on the card
 
     def __enter__(self):
         self._saved = []
@@ -8702,6 +8900,8 @@ class _recording_tf:
                 if a[0].device.type == "cuda":
                     key = _tf_key(_kind, a, kw)
                     self._seen.setdefault(_kind, set()).add(key)
+                    self.calls[(_kind, key)] = self.calls.get(
+                        (_kind, key), 0) + 1
                     if (key not in self._held.get(_kind, ())
                             and (_kind, key) not in self._args):
                         self._args[(_kind, key)] = (_clone(a), dict(kw))
@@ -8895,6 +9095,104 @@ def _tc_mha_check(fargs: tuple, g, kw: dict) -> tuple:
         raise AssertionError(f"{name}: the backward ran {seen}, not "
                              f"{MHA_TC_BWD_KERNELS}")
     return out, stats, grads, e_f, e_b, bargs
+
+
+def _b4_bf16_cases(dev, gen, mixes):
+    """B4 at the path pairs (BF16_TFD_SHAPES) in each of `mixes`, the stack
+    and one layer of each, on `_tfd_inputs` drawn once a shape from `gen`:
+    dicts of the record's name, the wrapper (`kind`), its arguments and
+    keywords, the bytes at the arrays' own element sizes (the weights, x in
+    and out, the positions read and written, the memory) and the operations
+    this data needs, the route `tdk.route` names (None on a tree without
+    it) and, where every operand is bf16, the step's products alone in bf16
+    cuBLAS (`lib`). Only the wrappers are called, so that `--times bf16`
+    reads an older tree's kernels the same way."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    for label, b, kb, n_l, n_t, slots, d, dff, heads, lazy in BF16_TFD_SHAPES:
+        a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
+        r_ = b * kb
+        pos = int((a["t"].long() + 1).sum())
+        cross = int(a["mask"].sum(1).repeat_interleave(kb).sum())
+        for mix in mixes:
+            tx, tw, tc, tm = (_dt(z) for z in mix)
+            w = {k_: v_.to(tw) for k_, v_ in a["w"].items()}
+            w0 = {k_: v_[0].contiguous() for k_, v_ in w.items()}
+            x = a["x"].to(tx)
+            kc, vc = a["kc"].to(tc), a["vc"].to(tc)
+            ck, cv = a["ck"].to(tm), a["cv"].to(tm)
+            sargs = (x, a["t"], ck, cv, a["mask"], kc, vc, w, a["anc"])
+            largs = (x, a["t"], ck[0].contiguous(), cv[0].contiguous(),
+                     a["mask"], kc[:, 0].contiguous(), vc[:, 0].contiguous(),
+                     w0)
+            all_bf = mix == ("bf16",) * 4
+            fl = sum(f for f, m in zip((1, 2, 4, 8), mix) if m == "bf16")
+            rule = getattr(tdk, "route", None)
+            for name, kind, args_, layers, ws_ in (
+                    ("transformer_decode_stack_bf16", "decoder_stack_step",
+                     sargs, n_l, w), ("transformer_decode_layer_bf16",
+                                      "decoder_layer_step", largs, 1, w0)):
+                nb = (nbytes(*ws_.values()) + 2 * nbytes(x)
+                      + nbytes(a["t"], a["mask"])
+                      + layers * (kc.element_size() * (2 * pos * d
+                                                       + 2 * r_ * d)
+                                  + ck.element_size() * 2 * b * slots * d))
+                flops = layers * (2.0 * r_ * (6 * d * d + 2 * d * dff)
+                                  + 4.0 * d * pos + 4.0 * d * cross)
+                lib = None
+                if all_bf:
+                    wb = ws_ if layers > 1 else {k_: v_[None] for k_, v_ in
+                                                 ws_.items()}
+                    gen2 = torch.Generator(device=dev).manual_seed(2)
+                    act = torch.randn((r_, max(d, dff)), generator=gen2,
+                                      device=dev).to(torch.bfloat16)
+                    y_, h1_ = act[:, :d].contiguous(), act[:, :dff].contiguous()
+
+                    def lib(wb=wb, y_=y_, h1_=h1_):
+                        for l_ in range(wb["wqkv"].shape[0]):
+                            torch.matmul(y_, wb["wqkv"][l_])
+                            torch.matmul(y_, wb["wo_s"][l_])
+                            torch.matmul(y_, wb["wq_c"][l_])
+                            torch.matmul(y_, wb["wo_c"][l_])
+                            torch.matmul(y_, wb["w1"][l_])
+                            torch.matmul(h1_, wb["w2"][l_])
+                mix_s = "x/w/caches/memory " + "/".join(mix)
+                yield dict(
+                    name=name, kind=kind, args=args_, kw=dict(n_heads=heads),
+                    layers=layers, bytes=nb, flops=flops, all_bf=all_bf,
+                    lib=lib, mix=mix, shape_label=label,
+                    label=(f"R={r_} kb={kb} L={layers} T={n_t} S={slots} "
+                           f"d={d} {mix_s} ({label})"),
+                    route=None if rule is None else rule(
+                        fl, d, dff, heads, n_t, slots))
+
+
+def _tfd_tc_check(case) -> None:
+    """One call of a B4 bf16 case: the path's mixtures take the fast
+    attentions (every bf16 mixture at these shapes), an all-bf16 step the
+    tensor cores too, by the rule (`tdk.route`), and the call counts one
+    tensor-core launch exactly where the rule names them (the wrapper
+    raises where the route the C side ran differs from the rule)."""
+    from unpaired_image_captioning_tpu_torch.kernels import (
+        transformer_decode as tdk)
+
+    want = tdk.ROUTE_SELF | tdk.ROUTE_CROSS
+    if case["all_bf"]:
+        want |= tdk.ROUTE_TC
+    if case["route"] != want:
+        raise AssertionError(f"{case['name']} [{case['label']}]: the rule "
+                             f"names route {case['route']}, not {want}")
+    counter = ("tc_stack_launches" if case["kind"] == "decoder_stack_step"
+               else "tc_layer_launches")
+    before = getattr(tdk, counter)
+    getattr(tdk, case["kind"])(*_clone(case["args"]), **case["kw"])
+    got = getattr(tdk, counter) - before
+    if got != int(case["all_bf"]):
+        raise AssertionError(f"{case['name']} [{case['label']}]: {got} "
+                             "tensor-core launches for one call")
 
 
 def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
@@ -9173,74 +9471,25 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             f"{e_b:.3g} of each tensor's scale (held at {BF16_TOL}); the "
             "backward twice bit for bit; on the tensor cores")
 
-    # B4: the stack and one layer, in each mixture
-    for label, b, kb, n_l, n_t, slots, d, dff, heads, lazy in BF16_TFD_SHAPES:
-        a = _tfd_inputs(dev, gen, b, kb, n_l, n_t, slots, d, dff, lazy)
-        r_ = b * kb
-        for mix in BF16_TFD_MIXES:
-            tx, tw, tc, tm = (_dt(z) for z in mix)
-            w = {k_: v_.to(tw) for k_, v_ in a["w"].items()}
-            w0 = {k_: v_[0].contiguous() for k_, v_ in w.items()}
-            x = a["x"].to(tx)
-            kc, vc = a["kc"].to(tc), a["vc"].to(tc)
-            ck, cv = a["ck"].to(tm), a["cv"].to(tm)
-            kw = dict(n_heads=heads)
-            sargs = (x, a["t"], ck, cv, a["mask"], kc, vc, w, a["anc"])
-            largs = (x, a["t"], ck[0].contiguous(), cv[0].contiguous(),
-                     a["mask"], kc[:, 0].contiguous(), vc[:, 0].contiguous(),
-                     w0)
-            e_s = _tf_check("decoder_stack_step", sargs, kw, True)
-            e_l = _tf_check("decoder_layer_step", largs, kw, True)
-            hold("decoder_stack_step", sargs, kw)
-            hold("decoder_layer_step", largs, kw)
-            mix_s = "x/w/caches/memory " + "/".join(mix)
-            all_bf = mix == ("bf16",) * 4
-            for name, kind, args_, layers, ws_ in (
-                    ("transformer_decode_stack_bf16", "decoder_stack_step",
-                     sargs, n_l, w), ("transformer_decode_layer_bf16",
-                                      "decoder_layer_step", largs, 1, w0)):
-                fn = getattr(tdk, kind)
-                pfn = getattr(tdo, kind + "_plain")
-                kk = list(_clone(args_))
-                pp = list(_clone(args_))
-                wl = list(ws_.values())
-                # bytes at the arrays' own element sizes: the weights, x in
-                # and out, the positions read and written, the memory
-                pos = int((a["t"].long() + 1).sum())
-                cross = int(a["mask"].sum(1).repeat_interleave(kb).sum())
-                nb = (nbytes(*wl) + 2 * nbytes(x) + nbytes(a["t"], a["mask"])
-                      + layers * (kc.element_size() * (2 * pos * d
-                                                       + 2 * r_ * d)
-                                  + ck.element_size() * 2 * b * slots * d))
-                fl = layers * (2.0 * r_ * (6 * d * d + 2 * d * dff)
-                               + 4.0 * d * pos + 4.0 * d * cross)
-                lib = None
-                if all_bf:
-                    wb = ({k_: v_ for k_, v_ in ws_.items()}
-                          if layers > 1 else {k_: v_[None] for k_, v_ in
-                                              ws_.items()})
-                    gen2 = torch.Generator(device=dev).manual_seed(2)
-                    act = torch.randn((r_, max(d, dff)), generator=gen2,
-                                      device=dev).to(bf)
-                    y_, h1_ = act[:, :d].contiguous(), act[:, :dff].contiguous()
-
-                    def lib(wb=wb, y_=y_, h1_=h1_):
-                        for l_ in range(wb["wqkv"].shape[0]):
-                            torch.matmul(y_, wb["wqkv"][l_])
-                            torch.matmul(y_, wb["wo_s"][l_])
-                            torch.matmul(y_, wb["wq_c"][l_])
-                            torch.matmul(y_, wb["wo_c"][l_])
-                            torch.matmul(y_, wb["w1"][l_])
-                            torch.matmul(h1_, wb["w2"][l_])
-                row(name, f"R={r_} kb={kb} L={layers} T={n_t} S={slots} "
-                    f"d={d} {mix_s} ({label})",
-                    lambda f_=fn, k_=kk: f_(*k_, **kw),
-                    lambda f_=pfn, p_=pp: f_(*p_, **kw), TF_TFD_KERNELS, nb,
-                    0.0 if all_bf else fl, fl if all_bf else 0.0,
-                    e_s if layers > 1 else e_l, lib=lib,
-                    lib_what=("its products alone, bf16 cuBLAS" if all_bf
-                              else "none"),
-                    f32_ms=f32_of(name[:-5], label))
+    # B4: the stack and one layer, in each mixture; C5 at draws of its own
+    for c in _b4_bf16_cases(dev, gen, BF16_TFD_MIXES):
+        kw = c["kw"]
+        e = _tf_check(c["kind"], c["args"], kw, True)
+        hold(c["kind"], c["args"], kw)
+        _tfd_tc_check(c)
+        kk, pp = list(_clone(c["args"])), list(_clone(c["args"]))
+        fn = getattr(tdk, c["kind"])
+        pfn = getattr(tdo, c["kind"] + "_plain")
+        row(c["name"], c["label"], lambda f_=fn, k_=kk: f_(*k_, **kw),
+            lambda f_=pfn, p_=pp: f_(*p_, **kw), TF_TFD_KERNELS, c["bytes"],
+            0.0 if c["all_bf"] else c["flops"],
+            c["flops"] if c["all_bf"] else 0.0, e, lib=c["lib"],
+            lib_what=("its products alone, bf16 cuBLAS" if c["all_bf"]
+                      else "none"),
+            f32_ms=f32_of(c["name"][:-5], c["shape_label"]))
+        rows[c["name"]][-1].update(route=c["route"],
+                                   tensor_cores=c["all_bf"])
+    c5 = _c5_check(dev)
 
     # B11 with a bf16 store
     for label, b, h, w_, ho in BF16_IMG_CASES:
@@ -9292,6 +9541,7 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             ("image_front_end", "image_front_end.cu", "image.py:46")):
         rec[name + "_bf16"] = _bf16_record(name + "_bf16", csrc + cu, line,
                                            rows[name + "_bf16"])
+    rec["transformer_decode_stack_bf16"]["c5"] = c5
     return rec, held
 
 
@@ -9753,7 +10003,11 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     # inside B6 / B7) runs a tensor-core instance
     tc_counters = {"lstm_cell_bf16": (lk, "tc_launches"),
                    "mha_train_fwd_bf16": (mhk, "tc_fwd_launches"),
-                   "mha_train_bwd_bf16": (mhk, "tc_bwd_launches")}
+                   "mha_train_bwd_bf16": (mhk, "tc_bwd_launches"),
+                   "transformer_decode_stack_bf16": (tdk,
+                                                     "tc_stack_launches"),
+                   "transformer_decode_layer_bf16": (tdk,
+                                                     "tc_layer_launches")}
     for kind in ("enc", "dec"):
         for x_ in ("fwd", "bwd"):
             tc_counters[f"{kind}_layer_train_{x_}_bf16"] = (
@@ -9764,7 +10018,8 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                       + list(tc_in_layers.values())):
         setattr(mod, attr, 0)
     cells = _recording_bf16(seen)
-    with cells, _recording_tf(tf_seen, tf_args, tf_held):
+    tf_rec = _recording_tf(tf_seen, tf_args, tf_held)
+    with cells, tf_rec:
         # the joint XE step
         losses, step_ms = [], []
         for _ in range(BF16_STEPS):
@@ -9895,6 +10150,29 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     if off:
         raise AssertionError(f"bf16 path: B5 calls off the tensor cores' "
                              f"head widths {off}")
+    # B4: every call of a bf16 mixture on the fast attentions, and every
+    # all-bf16 call on the tensor cores, by the rule
+    for name, kind in (("transformer_decode_stack_bf16",
+                        "decoder_stack_step"),
+                       ("transformer_decode_layer_bf16",
+                        "decoder_layer_step")):
+        want[name] = 0
+        for (kind_, key), n in tf_rec.calls.items():
+            if kind_ != kind or key[-1] == ("f32",) * 4:
+                continue
+            rows_, (bsz, slots, d_), (n_t, _) = (key[0], key[1][-3:],
+                                                  key[2][-2:])
+            fl = sum(f for f, m in zip((1, 2, 4, 8), key[-1]) if m == "bf16")
+            rt = tdk.route(fl, d_, key[3], key[4], n_t, slots)
+            if rt & (tdk.ROUTE_SELF | tdk.ROUTE_CROSS) != (
+                    tdk.ROUTE_SELF | tdk.ROUTE_CROSS):
+                raise AssertionError(f"bf16 path: {kind} {key} off the fast "
+                                     f"attentions (route {rt})")
+            if key[-1] == ("bf16",) * 4:
+                if not rt & tdk.ROUTE_TC:
+                    raise AssertionError(f"bf16 path: {kind} {key} all bf16 "
+                                         "off the tensor cores")
+                want[name] += n
     in_layers = {name: getattr(mod, attr)
                  for name, (mod, attr) in tc_in_layers.items()}
     want_in = {f"mha_train_{x_}_bf16": counts[f"enc_layer_train_{x_}_bf16"]

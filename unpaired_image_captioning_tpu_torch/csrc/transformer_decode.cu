@@ -17,8 +17,9 @@
 // uniformly over all T slots, as the reference's softmax of equal scores
 // does; a row with t >= T writes no slot and attends over all T. In the
 // lazy-cache mode (anc != null) position tau of row r is read from
-// physical row image*kb + anc[r, tau]. Products are plain f32 FMA on the
-// CUDA cores: no TF32, no tensor cores, no library call.
+// physical row image*kb + anc[r, tau]. Products with an f32 operand are
+// plain f32 FMA on the CUDA cores (no TF32, no library call); those of
+// bf16 x and bf16 weights run mma.sync bf16 with f32 sums (Types below).
 //
 // What bounds it on an H100. Caption (R = 250, d = d_ff = 512, S = 196,
 // 6 layers): 6.3 GFLOP of projections (0.094 ms at the f32 FMA rate of 67
@@ -75,14 +76,33 @@
 // the caches and the cross-attention memory are each f32 or bf16 (TFD_*
 // flags): f32 weights and x over bf16 caches and memory where the card's
 // serving and eval decode rounded features, all bf16 where the SCST
-// sample runs under a bf16 copy of the parameters. A step with any bf16
-// operand runs run_layer_typed: every operand read in its type through
-// converting loads into the f32 FMA core, and JAX's cast points
-// (ops/transformer_decode.py:88, :116-118, :523-580 of the JAX package):
-// LN to dt; each product plus its f32 bias cast to dt (qkv, q2, h1, each
-// sublayer's output before the residual add in dt); the caches written in
-// their type; the scores and softmax f32, the weights and the attention
-// outputs cast to dt. An all-f32 step runs the kernels above unchanged.
+// sample runs under a bf16 copy of the parameters. run_layer keeps JAX's
+// cast points (ops/transformer_decode.py:88, :116-118, :523-580 of the JAX
+// package): LN to dt; each product plus its f32 bias cast to dt (qkv, q2,
+// h1, each sublayer's output before the residual add in dt); the caches
+// written in their type; the scores and softmax f32, the weights and the
+// attention outputs cast to dt. Every mixture runs the kernels above:
+//   - both attentions read the caches and the memory in their own type
+//     (self_attn_kernel<QBF, CBF, W>, cross_attn_kernel<QBF, MBF, RND>):
+//     bf16 rows by 16-byte loads (8 values) where the widths are
+//     multiples of 8, else 8-byte ones; the cross-attention stages bf16 K
+//     and V in shared memory as bf16, half the f32 bytes, which cross_split
+//     spends on larger query groups (at the path's kb <= 15 and dh 64 one
+//     group holds every beam either way). Where dt is bf16 the
+//     cross-attention's slices exchange their (max, sum) through DSMEM
+//     first, so each block rounds the normalised weights to bf16 before
+//     its P.V, as JAX does;
+//   - f32 x and weights (serving) keep the f32 LN and f32 FMA products;
+//     only the QKV epilogue differs, writing the caches in bf16;
+//   - x and the weights bf16 (the cast route) run the products on the
+//     tensor cores (decode_gemm_bf16: mma.sync bf16 with f32 sums, the
+//     K-split cluster plan of the f32 core) over a bf16 q / att / h1
+//     scratch, LN and epilogues typed;
+//   - any other mixture the typed LN and epilogues over the f32 FMA core,
+//     W converted as it loads (a product with an f32 operand is f32, as
+//     JAX promotes it).
+// route_of states which instance a step takes; the wrappers hold the
+// bits it reports against kernels/transformer_decode.py::route.
 //
 // Widths. Any d, d_ff and head width: where d or the head width is not a
 // multiple of 4 the LN and the products (decode_gemm.cuh) run instances
@@ -97,12 +117,16 @@
 // slot of it would not fit a block (past about 5,000 columns) runs
 // cross_attn_kernel_wide: a row a block, the scores summed over column
 // chunks of q, then the value pass column by column into the output row.
-// No width is refused.
+// No width is refused. A typed step takes, for those shapes, the scalar typed
+// instances self_attn_kernel_chunked<false, true> and
+// cross_attn_kernel_wide<false, true> (simple, not fast).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "bf16.cuh"
 #include "decode_gemm.cuh"
@@ -130,6 +154,7 @@ using uic::EpiBias;
 using uic::EpiRelu;
 using uic::EpiRes;
 using uic_decode::decode_gemm;
+using uic_decode::decode_gemm_bf16;
 
 constexpr float MASKED = -1e9f;  // the reference's masked score
 constexpr float LN_EPS = 1e-6f;
@@ -229,22 +254,23 @@ struct EpiQkv {
 
 // The typed step's epilogues (any TFD_* flags): the product plus the f32
 // bias, cast to dt (rnd: dt is bf16) as `(_mm(y, w) + b).astype(dt)`.
-// EpiQkv's: q to q [M, d] (f32 scratch holding dt values), k_t / v_t into
-// slot t[r] of row r's caches in the caches' type
+// EpiQkv's: q to q [M, d] (the scratch: bf16 where sbf, else f32 holding
+// dt values), k_t / v_t into slot t[r] of row r's caches in the caches'
+// type
 struct EpiQkvT {
   const void* bias;
-  float* q;
+  void* q;
   void* cache_k;
   void* cache_v;
   const int* t;
   size_t cache_row;
   int d, T;
-  bool wbf, cbf, rnd;
+  bool wbf, cbf, rnd, sbf;
   __device__ __forceinline__ void one(int r, int c, float acc) const {
     const float v = rnd_if(acc + ldf(bias, c, wbf), rnd);
     const int part = c / d, cc = c - part * d;
     if (part == 0) {
-      q[(size_t)r * d + cc] = v;
+      stf(q, (size_t)r * d + cc, v, sbf);
       return;
     }
     const int slot = t[r];
@@ -252,12 +278,22 @@ struct EpiQkvT {
       stf(part == 1 ? cache_k : cache_v,
           (size_t)r * cache_row + (size_t)slot * d + cc, v, cbf);
   }
+  // four columns of one part (d a multiple of 4), stored together
   __device__ __forceinline__ void operator()(int r, int c, float4 acc,
                                              int) const {
-    one(r, c, acc.x);
-    one(r, c + 1, acc.y);
-    one(r, c + 2, acc.z);
-    one(r, c + 3, acc.w);
+    const float4 b4 = uic_bf16::ld4(bias, c, wbf);
+    const float4 v = uic_bf16::rnd4_if(
+        make_float4(acc.x + b4.x, acc.y + b4.y, acc.z + b4.z, acc.w + b4.w),
+        rnd);
+    const int part = c / d, cc = c - part * d;
+    if (part == 0) {
+      uic_bf16::st4(q, (size_t)r * d + cc, v, sbf);
+      return;
+    }
+    const int slot = t[r];
+    if (slot >= 0 && slot < T)
+      uic_bf16::st4(part == 1 ? cache_k : cache_v,
+                    (size_t)r * cache_row + (size_t)slot * d + cc, v, cbf);
   }
 };
 
@@ -274,44 +310,105 @@ struct EpiResT {
   }
   __device__ __forceinline__ void operator()(int r, int c, float4 acc,
                                              int) const {
-    one(r, c, acc.x);
-    one(r, c + 1, acc.y);
-    one(r, c + 2, acc.z);
-    one(r, c + 3, acc.w);
+    const size_t o = (size_t)r * d + c;
+    const float4 b4 = uic_bf16::ld4(bias, c, wbf);
+    const float4 v = uic_bf16::rnd4_if(
+        make_float4(acc.x + b4.x, acc.y + b4.y, acc.z + b4.z, acc.w + b4.w),
+        xbf);
+    const float4 x4 = uic_bf16::ld4(x, o, xbf);
+    uic_bf16::st4(x, o,
+                  make_float4(x4.x + v.x, x4.y + v.y, x4.z + v.z, x4.w + v.w),
+                  xbf);
   }
 };
 
-// out = (acc + bias) or relu of it, in dt, into f32 scratch [M, ld]
+// out = (acc + bias) or relu of it, in dt, into the scratch [M, ld]
+// (bf16 where sbf)
 struct EpiLinT {
   const void* bias;
-  float* out;
+  void* out;
   int ld;
-  bool wbf, rnd, relu;
+  bool wbf, rnd, relu, sbf;
   __device__ __forceinline__ void one(int r, int c, float acc) const {
     float v = acc + ldf(bias, c, wbf);
     if (relu) v = fmaxf(v, 0.0f);
-    out[(size_t)r * ld + c] = rnd_if(v, rnd);
+    stf(out, (size_t)r * ld + c, rnd_if(v, rnd), sbf);
   }
   __device__ __forceinline__ void operator()(int r, int c, float4 acc,
                                              int) const {
-    one(r, c, acc.x);
-    one(r, c + 1, acc.y);
-    one(r, c + 2, acc.z);
-    one(r, c + 3, acc.w);
+    const float4 b4 = uic_bf16::ld4(bias, c, wbf);
+    float4 v =
+        make_float4(acc.x + b4.x, acc.y + b4.y, acc.z + b4.z, acc.w + b4.w);
+    if (relu)
+      v = make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f),
+                      fmaxf(v.w, 0.0f));
+    uic_bf16::st4(out, (size_t)r * ld + c, uic_bf16::rnd4_if(v, rnd), sbf);
   }
 };
 
+// the float4 a lane keeps of a row held in registers by the LN kernels
+// (d <= 512); a longer row is read again from memory
+constexpr int LN_REG = 4;
+
 // ln_rows_kernel for operands of any types: x in dt (copied to x_copy in
-// dt), scale / offset in the weights' type, y (f32 scratch) rounded to dt
+// dt), scale / offset in the weights' type, y (the scratch, bf16 where
+// ybf) rounded to dt. v4 (d a multiple of 4 up to 128 * LN_REG, every
+// array on 4 of its elements): each lane keeps its groups of 4 of the row
+// in registers, read by 8- or 16-byte loads, and sums them as
+// ln_rows_kernel<true> does; else scalar loads, each pass reading the row
+// again (a lane's elements strided by 32, so other sums in another order).
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 ln_rows_typed_kernel(const void* __restrict__ x, void* __restrict__ x_copy,
                      const void* __restrict__ scale,
-                     const void* __restrict__ offset, float* __restrict__ y,
-                     int R, int d, bool xbf, bool wbf) {
+                     const void* __restrict__ offset, void* __restrict__ y,
+                     int R, int d, bool xbf, bool wbf, bool ybf, bool v4) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
   if (r >= R) return;
   const size_t o = (size_t)r * d;
+  if (v4) {
+    const int d4 = d / 4;
+    float4 v[LN_REG];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_REG; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < d4 ? uic_bf16::ld4(x, o + 4 * j, xbf)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    }
+    const float mean = warp_sum(s) / (float)d;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < LN_REG; ++i)
+      if (lane + 32 * i < d4) {
+        const float a = v[i].x - mean, b = v[i].y - mean,
+                    c = v[i].z - mean, e = v[i].w - mean;
+        q = fmaf(a, a, q);
+        q = fmaf(b, b, q);
+        q = fmaf(c, c, q);
+        q = fmaf(e, e, q);
+      }
+    const float den = sqrtf(warp_sum(q) / (float)(d - 1)) + LN_EPS;
+#pragma unroll
+    for (int i = 0; i < LN_REG; ++i) {
+      const int j = lane + 32 * i;
+      if (j >= d4) continue;
+      const float4 u = v[i];
+      const float4 sc = uic_bf16::ld4(scale, 4 * j, wbf);
+      const float4 of = uic_bf16::ld4(offset, 4 * j, wbf);
+      uic_bf16::st4(y, o + 4 * j,
+                    uic_bf16::rnd4_if(
+                        make_float4((u.x - mean) / den * sc.x + of.x,
+                                    (u.y - mean) / den * sc.y + of.y,
+                                    (u.z - mean) / den * sc.z + of.z,
+                                    (u.w - mean) / den * sc.w + of.w),
+                        xbf),
+                    ybf);
+      if (x_copy) uic_bf16::st4(x_copy, o + 4 * j, u, xbf);
+    }
+    return;
+  }
   float s = 0.0f;
   for (int j = lane; j < d; j += 32) s += ldf(x, o + j, xbf);
   const float mean = warp_sum(s) / (float)d;
@@ -323,8 +420,10 @@ ln_rows_typed_kernel(const void* __restrict__ x, void* __restrict__ x_copy,
   const float den = sqrtf(warp_sum(q) / (float)(d - 1)) + LN_EPS;
   for (int j = lane; j < d; j += 32) {
     const float u = ldf(x, o + j, xbf);
-    y[o + j] = rnd_if(
-        (u - mean) / den * ldf(scale, j, wbf) + ldf(offset, j, wbf), xbf);
+    stf(y, o + j,
+        rnd_if((u - mean) / den * ldf(scale, j, wbf) + ldf(offset, j, wbf),
+               xbf),
+        ybf);
     if (x_copy) stf(x_copy, o + j, u, xbf);
   }
 }
@@ -335,7 +434,6 @@ ln_rows_typed_kernel(const void* __restrict__ x, void* __restrict__ x_copy,
 // memory); with x_copy != null the row is also copied there (layer 0's
 // x_in -> x_out). V4 false (d not a multiple of 4): the same passes over
 // scalar elements, read from memory.
-constexpr int LN_REG = 4;
 
 template <bool V4>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
@@ -451,18 +549,105 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b,
   return s;
 }
 
+// W consecutive elements of an array of f32 (BF false: W = 4, one float4)
+// or bf16 (W = 4: 8 bytes; W = 8: 16 bytes) from element i, as f32
+template <bool BF, int W>
+__device__ __forceinline__ void ld_group(float (&v)[W], const void* p,
+                                         size_t i) {
+  if constexpr (!BF) {
+    static_assert(W == 4, "f32 groups are one float4");
+    const float4 f = *reinterpret_cast<const float4*>(
+        static_cast<const float*>(p) + i);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else if constexpr (W == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        static_cast<const unsigned short*>(p) + i);
+    v[0] = uic_bf16::lo(u.x);
+    v[1] = uic_bf16::hi(u.x);
+    v[2] = uic_bf16::lo(u.y);
+    v[3] = uic_bf16::hi(u.y);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(
+        static_cast<const unsigned short*>(p) + i);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = uic_bf16::lo(w[j]);
+      v[2 * j + 1] = uic_bf16::hi(w[j]);
+    }
+  }
+}
+
+// v (W values) stored at element i of an f32 or bf16 (BF) array, rounded
+// to bf16 first where rnd (a bf16 store rounds once: the values are then
+// bf16 already)
+template <bool BF, int W>
+__device__ __forceinline__ void st_group(void* p, size_t i,
+                                         const float (&v)[W], bool rnd) {
+  if constexpr (BF) {
+    unsigned w[W / 2];
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j)
+      w[j] = uic_bf16::bits(v[2 * j]) | uic_bf16::bits(v[2 * j + 1]) << 16;
+    unsigned short* o = static_cast<unsigned short*>(p) + i;
+    if constexpr (W == 4)
+      *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    float* o = static_cast<float*>(p) + i;
+#pragma unroll
+    for (int j = 0; j < W; j += 4)
+      *reinterpret_cast<float4*>(o + j) =
+          make_float4(rnd_if(v[j], rnd), rnd_if(v[j + 1], rnd),
+                      rnd_if(v[j + 2], rnd), rnd_if(v[j + 3], rnd));
+  }
+}
+
+// q . k over dh elements: q f32 in shared memory, k a row of an f32 or
+// bf16 (CBF) array read W elements a load; four partial sums over the
+// element index mod 4, as dot4, whatever W
+template <bool CBF, int W>
+__device__ __forceinline__ float dot_typed(const float* qs, const void* k,
+                                           size_t ko, int dh) {
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < dh; j += W) {
+    float v[W];
+    ld_group<CBF, W>(v, k, ko + j);
+#pragma unroll
+    for (int u = 0; u < W; u += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(qs + j + u);
+      s0 = fmaf(a.x, v[u], s0);
+      s1 = fmaf(a.y, v[u + 1], s1);
+      s2 = fmaf(a.z, v[u + 2], s2);
+      s3 = fmaf(a.w, v[u + 3], s3);
+    }
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
 // Self-attention of one decode step: warp (r, h) attends with row r's query
 // over the positions tau <= t[r] of its cache (or, lazily, of the rows anc
-// names). q and out are [R, d]; the caches hold row r's slot tau of this
-// layer at cache + r * cache_row + tau * d. dh and d multiples of 4, the
-// positions within a warp's shared memory (self_attn_kernel_chunked takes
-// every other shape).
+// names). q and out are [R, d] in the scratch's type (QBF: bf16, else f32);
+// the caches (CBF: bf16, else f32) hold row r's slot tau of this layer at
+// cache + r * cache_row + tau * d, read W elements a load (bf16: W = 8, 16
+// bytes, where dh, d and cache_row are multiples of 8; else 4). Scores and
+// softmax f32; where rnd (dt bf16) the weights and the output are rounded
+// to bf16, as JAX's `softmax(...).astype(dt)` and `out.astype(dt)`. dh and
+// d multiples of 4, the positions within a warp's shared memory
+// (self_attn_kernel_chunked takes every other shape). The f32 step runs
+// <false, false, 4>.
+template <bool QBF, bool CBF, int W>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-self_attn_kernel(const float* __restrict__ q, const float* cache_k,
-                 const float* cache_v, const int* __restrict__ t,
-                 const int* __restrict__ anc, float* __restrict__ out, int R,
+self_attn_kernel(const void* __restrict__ q, const void* cache_k,
+                 const void* cache_v, const int* __restrict__ t,
+                 const int* __restrict__ anc, void* __restrict__ out, int R,
                  int kb, int H, int dh, int d, int T, size_t cache_row,
-                 float scale_div) {
+                 float scale_div, bool rnd) {
   extern __shared__ __align__(16) float sa_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = blockIdx.x * ROW_WARPS + warp;
@@ -478,8 +663,11 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
   const int base = r - r % kb;
   const size_t hoff = (size_t)h * dh;
 
-  const float4* q4 = reinterpret_cast<const float4*>(q + (size_t)r * d + hoff);
-  for (int j = lane; j < dh4; j += 32) reinterpret_cast<float4*>(qs)[j] = q4[j];
+  for (int j = lane; j < dh4; j += 32) {
+    float v[4];
+    ld_group<QBF, 4>(v, q, (size_t)r * d + hoff + 4 * j);
+    reinterpret_cast<float4*>(qs)[j] = make_float4(v[0], v[1], v[2], v[3]);
+  }
   __syncwarp();
 
   // scores: lanes over positions
@@ -489,10 +677,9 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
     krow[tau] = kr;
     float s = MASKED;
     if (!none)
-      s = dot4(reinterpret_cast<const float4*>(qs),
-               reinterpret_cast<const float4*>(
-                   cache_k + (size_t)kr * cache_row + (size_t)tau * d + hoff),
-               dh4) /
+      s = dot_typed<CBF, W>(qs, cache_k,
+                            (size_t)kr * cache_row + (size_t)tau * d + hoff,
+                            dh) /
           scale_div;
     sc[tau] = s;
     m = fmaxf(m, s);
@@ -505,44 +692,53 @@ self_attn_kernel(const float* __restrict__ q, const float* cache_k,
     z += e;
   }
   z = warp_sum(z);
-  for (int tau = lane; tau < n; tau += 32) sc[tau] = sc[tau] / z;
+  for (int tau = lane; tau < n; tau += 32) sc[tau] = rnd_if(sc[tau] / z, rnd);
   __syncwarp();
 
-  // P.V past 128 columns: each lane owns the float4 columns lane,
-  // lane + 32, ..., each summed over the positions in order
-  if (dh4 > 32) {
-    for (int c4 = lane; c4 < dh4; c4 += 32) {
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int tau = 0; tau < n; ++tau)
-        acc = fma4(sc[tau],
-                   reinterpret_cast<const float4*>(
-                       cache_v + (size_t)krow[tau] * cache_row +
-                       (size_t)tau * d + hoff)[c4],
-                   acc);
-      reinterpret_cast<float4*>(out + (size_t)r * d + hoff)[c4] = acc;
+  // P.V in groups of W columns
+  const int dhw = dh / W;
+  auto vgroup = [&](float (&v)[W], int tau, int c) {
+    ld_group<CBF, W>(v, cache_v,
+                     (size_t)krow[tau] * cache_row + (size_t)tau * d + hoff +
+                         (size_t)c * W);
+  };
+  // past 32 groups: each lane owns the groups lane, lane + 32, ..., each
+  // summed over the positions in order
+  if (dhw > 32) {
+    for (int c = lane; c < dhw; c += 32) {
+      float acc[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc[u] = 0.0f;
+      for (int tau = 0; tau < n; ++tau) {
+        float v[W];
+        vgroup(v, tau, c);
+#pragma unroll
+        for (int u = 0; u < W; ++u) acc[u] = fmaf(sc[tau], v[u], acc[u]);
+      }
+      st_group<QBF, W>(out, (size_t)r * d + hoff + (size_t)c * W, acc, rnd);
     }
     return;
   }
-  // P.V: lp lanes over the dh4 float4 of a row, 32 / lp position groups
+  // lp lanes over the dhw groups of a row, 32 / lp position groups
   int lp = 1;
-  while (lp < dh4) lp <<= 1;
-  const int c4 = lane & (lp - 1), g = lane / lp, groups = 32 / lp;
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (c4 < dh4)
-    for (int tau = g; tau < n; tau += groups)
-      acc = fma4(sc[tau],
-                 reinterpret_cast<const float4*>(
-                     cache_v + (size_t)krow[tau] * cache_row +
-                     (size_t)tau * d + hoff)[c4],
-                 acc);
-  for (int o = lp; o < 32; o <<= 1) {      // fixed order: same bits
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
-  }
-  if (g == 0 && c4 < dh4)
-    reinterpret_cast<float4*>(out + (size_t)r * d + hoff)[c4] = acc;
+  while (lp < dhw) lp <<= 1;
+  const int c = lane & (lp - 1), g = lane / lp, groups = 32 / lp;
+  float acc[W];
+#pragma unroll
+  for (int u = 0; u < W; ++u) acc[u] = 0.0f;
+  if (c < dhw)
+    for (int tau = g; tau < n; tau += groups) {
+      float v[W];
+      vgroup(v, tau, c);
+#pragma unroll
+      for (int u = 0; u < W; ++u) acc[u] = fmaf(sc[tau], v[u], acc[u]);
+    }
+  for (int o = lp; o < 32; o <<= 1)        // fixed order: same bits
+#pragma unroll
+    for (int u = 0; u < W; ++u)
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+  if (g == 0 && c < dhw)
+    st_group<QBF, W>(out, (size_t)r * d + hoff + (size_t)c * W, acc, rnd);
 }
 
 // The self-attention of self_attn_kernel for the shapes it does not take:
@@ -735,46 +931,92 @@ __host__ __device__ inline long long cross_part_floats(long long kb, int dh,
   return round4(2 * kb) + kb * dh + round4(kb * chunk);
 }
 
-// Shared memory of a cross-attention block, in floats: Q [kb][dh+4],
-// K [chunk][dh+4], V [chunk][dh], P [kb][chunk], and the cs partials rank 0
-// receives.
-inline long long cross_floats(long long kb, int dh, long long chunk, int cs) {
-  return kb * (dh + 4) + chunk * (dh + 4) + chunk * dh + round4(kb * chunk) +
-         cs * cross_part_floats(kb, dh, chunk);
+__host__ __device__ inline long long round16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// Shared memory of a cross-attention block, byte offsets of its regions
+// (Q at 0): Q f32 [kb][dh+4]; K [chunk][dh+4] f32, or [chunk][dh+8] bf16
+// where the memory is bf16 (mbf); V [chunk][dh] in the memory's type; P
+// f32 [kb][chunk]; and the cs partials rank 0 receives. bf16 K / V halve
+// their bytes, which lets cross_split keep larger query groups.
+struct CrossSmem {
+  long long k, v, p, rcv, total;
+};
+
+__host__ __device__ inline CrossSmem cross_smem(long long kb, int dh,
+                                                long long chunk, int cs,
+                                                bool mbf) {
+  const int es = mbf ? 2 : 4;
+  const long long ldk = mbf ? dh + 8 : dh + 4;
+  CrossSmem m;
+  m.k = round16(kb * (dh + 4) * 4);
+  m.v = m.k + round16(chunk * ldk * es);
+  m.p = m.v + round16(chunk * dh * es);
+  m.rcv = m.p + round4(kb * chunk) * 4;
+  m.total = m.rcv + cs * cross_part_floats(kb, dh, chunk) * 4;
+  return m;
 }
 
 // The slots split as above; the beams in one group where that fits a
 // block's shared memory, else in the fewest groups (halving kq) that fit.
 // Fewer slots a block would not help: the cs partials rank 0 receives grow
 // with cs as the slice shrinks, while Q, P and the partials shrink with kq.
-// At dh 256, S 196 and kb 32 one group needs 300 KB, two 195 KB.
-inline CrossSplit cross_split(int S, int kb, int dh) {
+// At dh 256, S 196 and kb 32 one group needs 300 KB, two 195 KB (f32).
+inline CrossSplit cross_split(int S, int kb, int dh, bool mbf) {
   int cs = 1;
   while (cs < CROSS_MAX_CLUSTER && cs * CROSS_SLICE < S) cs *= 2;
   const int chunk = (S + cs - 1) / cs;
   int qg = 1, kq = kb;
-  while (kq > 1 && cross_floats(kq, dh, chunk, cs) * 4 > MAX_SMEM) {
+  while (kq > 1 && cross_smem(kq, dh, chunk, cs, mbf).total > MAX_SMEM) {
     qg *= 2;
     kq = (kb + qg - 1) / qg;
   }
   return CrossSplit{cs, chunk, (kb + kq - 1) / kq, kq};
 }
 
+// `bytes` (16 or 8) global -> shared by cp.async
+__device__ __forceinline__ void cp_n(void* dst, const void* src, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+}
+
 // Cross-attention of one decode step. Block (rank, h, b * qg + g) of a
 // cluster of cs blocks along x serves query rows [g*kq, g*kq + kq) of image
-// b's kb for head h over slots [rank*chunk, rank*chunk + chunk) of S.
-// Each block writes its partial (max, sum, unnormalised P.V) into rank 0's
-// shared memory, once a split barrier shows that rank 0 has started, and
-// leaves after a second cluster barrier; rank 0 combines the slices in rank
-// order. q2 and out are [R, d]; ck/cv [B, S, d]; mask [B, S]. With
-// attn_h != null the softmax weights go to attn_h [R, H, S].
+// b's kb for head h over slots [rank*chunk, rank*chunk + chunk) of S. q2
+// and out are [R, d] in the scratch's type (QBF: bf16, else f32); ck / cv
+// [B, S, d] in the memory's (MBF: bf16, staged as bf16, 16 bytes a copy
+// where w8: dh and d multiples of 8; else 8 bytes); mask [B, S]. Scores
+// and softmax f32.
+//
+// RND false (dt f32): each block writes its partial (max, sum,
+// unnormalised P.V) into rank 0's shared memory, once a split barrier
+// shows that rank 0 has started, and leaves after a second cluster
+// barrier; rank 0 combines the slices in rank order. With attn_h != null
+// the softmax weights go to attn_h [R, H, S].
+//
+// RND true (dt bf16: JAX rounds the normalised weights to bf16 before
+// P.V, `wgt32.astype(dt)`): each block's (max, sum) goes to rank 0, and
+// after a cluster barrier every block reads all of them and takes the
+// row's max M and sum L in rank order, so its weights are
+// round_bf16(exp(s - M) / L) (attn_h gets the f32 exp(s - M) / L); its P.V
+// is then a normalised partial, and rank 0 sums the partials in rank order
+// and rounds the output to bf16.
+template <bool QBF, bool MBF, bool RND>
 __global__ void __launch_bounds__(CROSS_THREADS)
-cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
-                  const float* __restrict__ cv, const float* __restrict__ mask,
-                  float* __restrict__ out, float* __restrict__ attn_h, int kb,
+cross_attn_kernel(const void* __restrict__ q2, const void* __restrict__ ck,
+                  const void* __restrict__ cv, const float* __restrict__ mask,
+                  void* __restrict__ out, float* __restrict__ attn_h, int kb,
                   int H, int dh, int d, int S, int chunk, int qg, int kq,
-                  float scale_div) {
-  extern __shared__ __align__(16) float ca_smem[];
+                  float scale_div, bool w8) {
+  static_assert(RND || !QBF, "a bf16 scratch holds a bf16 step");
+  using MT = typename std::conditional<MBF, unsigned short, float>::type;
+  extern __shared__ __align__(16) unsigned char cx_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -786,36 +1028,52 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int s0 = rank * chunk;
   const int ns = max(0, min(S, s0 + chunk) - s0);
-  const int LD = dh + 4, dh4 = dh / 4;
+  const int LD = dh + 4, LDK = MBF ? dh + 8 : dh + 4, dh4 = dh / 4;
   const int part = (int)cross_part_floats(kq, dh, chunk);
-  float* Qs = ca_smem;                        // [kq][LD]
-  float* Ks = Qs + kq * LD;                   // [chunk][LD]
-  float* Vs = Ks + chunk * LD;                // [chunk][dh]
-  float* Ps = Vs + chunk * dh;                // [kq][chunk]
-  float* rcv = Ps + round4(kq * chunk);       // [cs] partials (rank 0's)
+  const CrossSmem lay = cross_smem(kq, dh, chunk, cs, MBF);
+  float* Qs = reinterpret_cast<float*>(cx_smem);             // [kq][LD]
+  MT* Ks = reinterpret_cast<MT*>(cx_smem + lay.k);           // [chunk][LDK]
+  MT* Vs = reinterpret_cast<MT*>(cx_smem + lay.v);           // [chunk][dh]
+  float* Ps = reinterpret_cast<float*>(cx_smem + lay.p);     // [kq][chunk]
+  float* rcv = reinterpret_cast<float*>(cx_smem + lay.rcv);  // [cs] partials
   // this block's partial, in rank 0's shared memory
   float* mine = cluster.map_shared_rank(rcv, 0) + rank * part;
   float *m_out = mine, *l_out = mine + kq, *acc_out = mine + round4(2 * kq),
         *p_out = acc_out + kq * dh;
   const size_t hoff = (size_t)h * dh;
 
-  for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
-    const int k = e / dh4, c = (e - k * dh4) * 4;
-    uic_decode::dg_cp16(Qs + k * LD + c, q2 + (row0 + k) * d + hoff + c,
-                        true);
+  if constexpr (QBF) {
+    for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+      const int k = e / dh4, c = (e - k * dh4) * 4;
+      float v[4];
+      ld_group<true, 4>(v, q2, (row0 + k) * d + hoff + c);
+      *reinterpret_cast<float4*>(Qs + k * LD + c) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+    for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+      const int k = e / dh4, c = (e - k * dh4) * 4;
+      uic_decode::dg_cp16(
+          Qs + k * LD + c,
+          static_cast<const float*>(q2) + (row0 + k) * d + hoff + c, true);
+    }
   }
-  for (int e = tid; e < ns * dh4; e += CROSS_THREADS) {
-    const int s = e / dh4, c = (e - s * dh4) * 4;
-    uic_decode::dg_cp16(Ks + s * LD + c,
-                        ck + ((size_t)b * S + s0 + s) * d + hoff + c, true);
-  }
+  // the slice's rows of src ([B, S, d], head h's columns) into dst [ns][ld]
+  const int ce = MBF && w8 ? 8 : 4;                // elements a copy
+  const int cb = ce * (int)sizeof(MT), dhc = dh / ce;
+  auto stage = [&](MT* dst, int ld, const void* src) {
+    for (int e = tid; e < ns * dhc; e += CROSS_THREADS) {
+      const int s = e / dhc, c = (e - s * dhc) * ce;
+      cp_n(dst + s * ld + c,
+           static_cast<const MT*>(src) + ((size_t)b * S + s0 + s) * d + hoff +
+               c,
+           cb);
+    }
+  };
+  stage(Ks, LDK, ck);
   uic_decode::dg_commit();
   // V lands while the scores and the softmax run
-  for (int e = tid; e < ns * dh4; e += CROSS_THREADS) {
-    const int s = e / dh4, c = (e - s * dh4) * 4;
-    uic_decode::dg_cp16(Vs + s * dh + c,
-                        cv + ((size_t)b * S + s0 + s) * d + hoff + c, true);
-  }
+  stage(Vs, dh, cv);
   uic_decode::dg_commit();
   // rank 0 must have started before a partial lands in its shared memory:
   // arrive now, wait after the scores, while the copies are in flight
@@ -823,17 +1081,17 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
   uic_decode::dg_wait<1>();
   __syncthreads();
 
-  // scores of the slice
+  // scores of the slice: q . k in four partial sums, as dot4
   for (int e = tid; e < kn * ns; e += CROSS_THREADS) {
     const int k = e / ns, s = e - k * ns;
-    const float dot = dot4(reinterpret_cast<const float4*>(Qs + k * LD),
-                           reinterpret_cast<const float4*>(Ks + s * LD), dh4);
+    const float dot = dot_typed<MBF, 4>(Qs + k * LD, Ks, (size_t)s * LDK, dh);
     Ps[k * chunk + s] =
         mask[(size_t)b * S + s0 + s] > 0.0f ? dot / scale_div : MASKED;
   }
   __syncthreads();
   if (cs > 1) cluster_wait();
-  // the slice's softmax statistics, a warp per query
+  // the slice's softmax statistics, a warp per query (RND keeps the scores:
+  // its weights take the row's max)
   for (int k = warp; k < kn; k += CROSS_THREADS / 32) {
     float* p = Ps + k * chunk;
     float m = -INFINITY;
@@ -842,8 +1100,10 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
     float l = 0.0f;
     for (int s = lane; s < ns; s += 32) {
       const float e = expf(p[s] - m);
-      p[s] = e;
-      if (attn_h) p_out[k * chunk + s] = e;
+      if (!RND) {
+        p[s] = e;
+        if (attn_h) p_out[k * chunk + s] = e;
+      }
       l += e;
     }
     l = warp_sum(l);
@@ -852,17 +1112,47 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
       l_out[k] = l;
     }
   }
+  if constexpr (RND) {
+    // every slice's (max, sum) has reached rank 0: the row's M and L, in
+    // rank order, into Qs (free after the scores)
+    if (cs > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    const float* all = cluster.map_shared_rank(rcv, 0);
+    for (int k = tid; k < kn; k += CROSS_THREADS) {
+      float M = -INFINITY;
+      for (int src = 0; src < cs; ++src) M = fmaxf(M, all[src * part + k]);
+      float L = 0.0f;
+      for (int src = 0; src < cs; ++src)
+        L += expf(all[src * part + k] - M) * all[src * part + kq + k];
+      Qs[k] = M;
+      Qs[kq + k] = L;
+    }
+    __syncthreads();
+    for (int e = tid; e < kn * ns; e += CROSS_THREADS) {
+      const int k = e / ns, s = e - k * ns;
+      const float w = expf(Ps[k * chunk + s] - Qs[k]) / Qs[kq + k];
+      if (attn_h) attn_h[((row0 + k) * H + h) * S + s0 + s] = w;
+      Ps[k * chunk + s] = uic_bf16::round_bf16(w);
+    }
+  }
   uic_decode::dg_wait<0>();
   __syncthreads();
-  // the slice's unnormalised P.V
+  // the slice's P.V (unnormalised, or RND's normalised partial)
   for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
     const int k = e / dh4, c = (e - k * dh4) * 4;
     const float* p = Ps + k * chunk;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
-    for (int s = 0; s < ns; ++s)
-      acc = fma4(p[s], *reinterpret_cast<const float4*>(Vs + s * dh + c), acc);
-    *reinterpret_cast<float4*>(acc_out + k * dh + c) = acc;
+    for (int s = 0; s < ns; ++s) {
+      float v[4];
+      ld_group<MBF, 4>(v, Vs, (size_t)s * dh + c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(p[s], v[u], acc[u]);
+    }
+    *reinterpret_cast<float4*>(acc_out + k * dh + c) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
   }
   // every partial has reached rank 0; the other ranks are done
   if (cs > 1)
@@ -871,35 +1161,53 @@ cross_attn_kernel(const float* __restrict__ q2, const float* __restrict__ ck,
     __syncthreads();
   if (rank != 0) return;
 
-  // per query M = max m_r, L = sum exp(m_r - M) l_r over the slices in
-  // rank order; slice r's weight exp(m_r - M) / L replaces m_r
-  for (int k = tid; k < kn; k += CROSS_THREADS) {
-    float M = -INFINITY;
-    for (int src = 0; src < cs; ++src) M = fmaxf(M, rcv[src * part + k]);
-    float L = 0.0f;
-    for (int src = 0; src < cs; ++src)
-      L += expf(rcv[src * part + k] - M) * rcv[src * part + kq + k];
-    for (int src = 0; src < cs; ++src)
-      rcv[src * part + k] = expf(rcv[src * part + k] - M) / L;
-  }
-  __syncthreads();
-  for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
-    const int k = e / dh4, c = (e - k * dh4) * 4;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int src = 0; src < cs; ++src)          // fixed order: same bits
-      acc = fma4(rcv[src * part + k],
-                 *reinterpret_cast<const float4*>(
-                     rcv + src * part + round4(2 * kq) + k * dh + c),
-                 acc);
-    *reinterpret_cast<float4*>(out + (row0 + k) * d + hoff + c) = acc;
-  }
-  if (attn_h)
-    for (int e = tid; e < kn * S; e += CROSS_THREADS) {
-      const int k = e / S, s = e - k * S, src = s / chunk;
-      const float* pr = rcv + src * part + round4(2 * kq) + kq * dh;
-      attn_h[((row0 + k) * H + h) * S + s] =
-          pr[k * chunk + s - src * chunk] * rcv[src * part + k];
+  if constexpr (RND) {
+    for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+      const int k = e / dh4, c = (e - k * dh4) * 4;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int src = 0; src < cs; ++src) {        // fixed order: same bits
+        const float4 v = *reinterpret_cast<const float4*>(
+            rcv + src * part + round4(2 * kq) + k * dh + c);
+        acc[0] += v.x;
+        acc[1] += v.y;
+        acc[2] += v.z;
+        acc[3] += v.w;
+      }
+      st_group<QBF, 4>(out, (row0 + k) * d + hoff + c, acc, true);
     }
+    return;
+  } else {
+    // per query M = max m_r, L = sum exp(m_r - M) l_r over the slices in
+    // rank order; slice r's weight exp(m_r - M) / L replaces m_r
+    for (int k = tid; k < kn; k += CROSS_THREADS) {
+      float M = -INFINITY;
+      for (int src = 0; src < cs; ++src) M = fmaxf(M, rcv[src * part + k]);
+      float L = 0.0f;
+      for (int src = 0; src < cs; ++src)
+        L += expf(rcv[src * part + k] - M) * rcv[src * part + kq + k];
+      for (int src = 0; src < cs; ++src)
+        rcv[src * part + k] = expf(rcv[src * part + k] - M) / L;
+    }
+    __syncthreads();
+    for (int e = tid; e < kn * dh4; e += CROSS_THREADS) {
+      const int k = e / dh4, c = (e - k * dh4) * 4;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int src = 0; src < cs; ++src)          // fixed order: same bits
+        acc = fma4(rcv[src * part + k],
+                   *reinterpret_cast<const float4*>(
+                       rcv + src * part + round4(2 * kq) + k * dh + c),
+                   acc);
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + (row0 + k) * d +
+                                 hoff + c) = acc;
+    }
+    if (attn_h)
+      for (int e = tid; e < kn * S; e += CROSS_THREADS) {
+        const int k = e / S, s = e - k * S, src = s / chunk;
+        const float* pr = rcv + src * part + round4(2 * kq) + kq * dh;
+        attn_h[((row0 + k) * H + h) * S + s] =
+            pr[k * chunk + s - src * chunk] * rcv[src * part + k];
+      }
+  }
 }
 
 // attn[r, s] = (sum over h, in order, of attn_h[r, h, s]) / H
@@ -1417,17 +1725,46 @@ int launch_clusters(K kernel, dim3 grid, int threads, size_t smem, int cs,
   return err ? err : (int)cudaGetLastError();
 }
 
+// The step's routes, the rule kernels/transformer_decode.py::route states
+// (bits of the `route` the entry points report): the self-attention and
+// the cross-attention on their fast kernels (a head width that is a
+// multiple of 4, and a warp's positions, or a query and a slice of K / V
+// in the memory's type, within a block's shared memory), and the products
+// on the tensor cores (x and the weights bf16, d and d_ff multiples of 8,
+// and both attentions fast: the q / att / h1 scratch is then bf16, which
+// only the fast attentions read). Every other shape and mixture takes the
+// f32 FMA products and the attentions' other kernels.
+constexpr int TFD_ROUTE_TC = 1, TFD_ROUTE_SELF = 2, TFD_ROUTE_CROSS = 4;
+
+int route_of(int fl, int S, int d, int T, int dff, int H) {
+  const int dh = d / H;
+  int r = 0;
+  if (dh % 4 == 0 && self_warp_floats(dh, T) <= SELF_WARP_FLOATS)
+    r |= TFD_ROUTE_SELF;
+  // one query a group fits, so cross_split finds the groups that fit
+  const CrossSplit sp = cross_split(S, 1, dh, fl & TFD_M_BF);
+  if (dh % 4 == 0 &&
+      cross_smem(1, dh, sp.chunk, sp.cs, fl & TFD_M_BF).total <= MAX_SMEM)
+    r |= TFD_ROUTE_CROSS;
+  if ((fl & TFD_X_BF) && (fl & TFD_W_BF) && d % 8 == 0 && dff % 8 == 0 &&
+      r == (TFD_ROUTE_SELF | TFD_ROUTE_CROSS))
+    r |= TFD_ROUTE_TC;
+  return r;
+}
+
 struct Step {
-  float* x;                  // [R, d] residual stream, updated in place
+  void* x;                   // [R, d] residual stream, updated in place
                              // (in dt: bf16 where fl has TFD_X_BF)
   const int* t;              // [R]
   const int* anc;            // [R, T] or null
   const float* mask;         // [B, S]
-  float *q, *att, *h1;       // scratch [R, d], [R, d] (also y), [R, dff]
-  float* attn_h;             // scratch [R, H, S] or null
+  void *q, *att, *h1;        // scratch [R, d], [R, d] (also y), [R, dff]:
+                             // bf16 on TFD_ROUTE_TC, else f32 (f32-sized)
+  float* attn_h;             // scratch [R, H, S + 2] or null
   float* attn;               // [R, S] or null
   int R, B, S, d, T, dff, H;
   int fl;                    // TFD_* types; 0: every array f32
+  int route;                 // TFD_ROUTE_* (route_of)
 };
 
 int ln_rows(const float* x, float* x_copy, const float* scale,
@@ -1442,211 +1779,229 @@ int ln_rows(const float* x, float* x_copy, const float* scale,
   return (int)cudaGetLastError();
 }
 
-// One layer; x_in != null: layer 0 reads x_in and copies it to s.x.
-int run_layer(const Step& s, const Layer& w, const float* ck, const float* cv,
-              float* cache_k, float* cache_v, size_t cache_row, bool last,
-              const float* x_in, cudaStream_t st) {
-  const int R = s.R, d = s.d, kb = s.R / s.B, dh = s.d / s.H;
-  const float scale_div = (float)sqrt((double)dh);
-  // 16-byte rows for the attentions (the products and LN choose their own)
-  const bool v4 = dh % 4 == 0 && d % 4 == 0 && cache_row % 4 == 0 &&
-                  ((size_t)s.q | (size_t)s.att | (size_t)ck | (size_t)cv |
-                   (size_t)cache_k | (size_t)cache_v) % 16 == 0;
-  float* y = s.att;
-  int err;
-
-  // 1-2. LN1 -> packed QKV; q out, k_t / v_t into cache slot t
-  if ((err = ln_rows(x_in ? x_in : s.x, x_in ? s.x : nullptr, w.ln1_s,
-                     w.ln1_b, y, R, d, st)))
-    return err;
-  if ((err = decode_gemm(y, d, w.wqkv, R, 3 * d, d,
-                         EpiQkv{w.bqkv, s.q, cache_k, cache_v, s.t,
-                                cache_row, d, s.T},
-                         st)))
-    return err;
-
-  // 3. self-attention (every position at once where a warp's shared
-  // memory holds them, else in chunks)
-  {
-    const int tc = self_chunk(dh, s.T);
-    const bool whole = v4 && tc == s.T;
-    const size_t smem =
-        (size_t)ROW_WARPS * sizeof(float) *
-        (whole ? self_warp_floats(dh, tc)
-               : self_warp_floats(self_qcols(dh), tc));
-    const int blocks = (R * s.H + ROW_WARPS - 1) / ROW_WARPS;
-    if (whole) {
-      if ((err = smem_opt_in(self_attn_kernel, smem))) return err;
-      self_attn_kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
-          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
-          cache_row, scale_div);
-    } else if (v4) {
-      if ((err = smem_opt_in(self_attn_kernel_chunked<true>, smem)))
-        return err;
-      self_attn_kernel_chunked<true><<<blocks, ROW_WARPS * 32, smem, st>>>(
-          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
-          tc, cache_row, scale_div);
-    } else {
-      if ((err = smem_opt_in(self_attn_kernel_chunked<false>, smem)))
-        return err;
-      self_attn_kernel_chunked<false><<<blocks, ROW_WARPS * 32, smem, st>>>(
-          s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T,
-          tc, cache_row, scale_div);
-    }
-    if ((err = (int)cudaGetLastError())) return err;
-  }
-
-  // 4. x += att @ Wo_s + bo_s
-  if ((err = decode_gemm(s.att, d, w.wo_s, R, d, d, EpiRes{w.bo_s, s.x, d},
-                         st)))
-    return err;
-
-  // 5-6. q2 = LN2(x) @ Wq_c + bq_c
-  if ((err = ln_rows(s.x, nullptr, w.ln2_s, w.ln2_b, y, R, d, st)))
-    return err;
-  if ((err = decode_gemm(y, d, w.wq_c, R, d, d, EpiBias{w.bq_c, s.q, d},
-                         st)))
-    return err;
-
-  // 7. cross-attention over the image's unexpanded K/V: each block's
-  // slice at once where its shared memory holds it, else in pieces, and a
-  // head too wide for pieces a row at a time
-  {
-    float* attn_h = last ? s.attn_h : nullptr;
-    const CrossSplit sp = cross_split(s.S, kb, dh);
-    const size_t whole =
-        (size_t)cross_floats(sp.kq, dh, sp.chunk, sp.cs) * sizeof(float);
-    if (v4 && whole <= (size_t)MAX_SMEM) {
-      if ((err = smem_opt_in(cross_attn_kernel, whole))) return err;
-      if ((err = launch_clusters(cross_attn_kernel,
-                                 dim3(sp.cs, s.H, s.B * sp.qg),
-                                 CROSS_THREADS, whole, sp.cs, st,
-                                 (const float*)s.q, ck, cv, s.mask, s.att,
-                                 attn_h, kb, s.H, dh, d, s.S, sp.chunk,
-                                 sp.qg, sp.kq, scale_div)))
-        return err;
-      if (attn_h) {
-        const int n = R * s.S;
-        head_mean_kernel<<<(n + 255) / 256, 256, 0, st>>>(attn_h, s.attn, R,
-                                                          s.H, s.S);
-        if ((err = (int)cudaGetLastError())) return err;
-      }
-    } else {
-      if (cross_wide(s.S, kb, dh)) {
-        auto kernel = v4 ? cross_attn_kernel_wide<true>
-                         : cross_attn_kernel_wide<false>;
-        kernel<<<dim3(R, s.H), CROSS_THREADS, 0, st>>>(
-            s.q, ck, cv, s.mask, s.att, attn_h, kb, s.H, dh, d, s.S,
-            scale_div, false, false);
-        if ((err = (int)cudaGetLastError())) return err;
-      } else {
-        const PieceSplit pp = piece_split(s.S, kb, dh);
-        const size_t smem =
-            (size_t)piece_floats(pp.kq, dh, pp.sub, pp.cs) * sizeof(float);
-        auto kernel = v4 ? cross_attn_kernel_pieces<true>
-                         : cross_attn_kernel_pieces<false>;
-        if ((err = smem_opt_in(kernel, smem))) return err;
-        if ((err = launch_clusters(kernel, dim3(pp.cs, s.H, s.B * pp.qg),
-                                   CROSS_THREADS, smem, pp.cs, st,
-                                   (const float*)s.q, ck, cv, s.mask, s.att,
-                                   attn_h, kb, s.H, dh, d, s.S, pp.chunk,
-                                   pp.sub, pp.qg, pp.kq, scale_div)))
-          return err;
-      }
-      if (attn_h) {
-        const int n = R * s.S;
-        head_mean_kernel_scores<<<(n + 255) / 256, 256, 0, st>>>(
-            attn_h, s.attn, R, s.H, s.S);
-        if ((err = (int)cudaGetLastError())) return err;
-      }
-    }
-  }
-
-  // 8. x += att @ Wo_c + bo_c
-  if ((err = decode_gemm(s.att, d, w.wo_c, R, d, d, EpiRes{w.bo_c, s.x, d},
-                         st)))
-    return err;
-
-  // 9-10. h1 = relu(LN3(x) @ W1 + b1)
-  if ((err = ln_rows(s.x, nullptr, w.ln3_s, w.ln3_b, y, R, d, st)))
-    return err;
-  if ((err = decode_gemm(y, d, w.w1, R, s.dff, d, EpiRelu{w.b1, s.h1, s.dff},
-                         st)))
-    return err;
-
-  // 11. x += h1 @ W2 + b2
-  return decode_gemm(s.h1, s.dff, w.w2, R, d, s.dff, EpiRes{w.b2, s.x, d},
-                     st);
+// whether every pointer sits on `bytes`
+template <typename... P>
+bool on(size_t bytes, P... p) {
+  return (((size_t)p % bytes == 0) && ...);
 }
 
-// One layer of a step whose operands are not all f32 (s.fl): the same
-// eleven launches on the typed instances. The LN, the products' bf16 W
-// tiles, the epilogues and both attentions read each operand in its type
-// and keep JAX's cast points (TFD_* above); q, att (y) and h1 stay f32
-// scratch holding dt values. The attentions run their scalar instances
-// (self_attn_kernel_chunked and cross_attn_kernel_wide, a row and head a
-// block), which take every shape: simple, not fast.
-int run_layer_typed(const Step& s, const Layer& w, const void* ck,
-                    const void* cv, void* cache_k, void* cache_v,
-                    size_t cache_row, bool last, const void* x_in,
-                    cudaStream_t st) {
+template <bool QBF, bool CBF, int W>
+int launch_self(const Step& s, const void* cache_k, const void* cache_v,
+                size_t cache_row, float scale_div, cudaStream_t st) {
+  const int dh = s.d / s.H;
+  const size_t smem =
+      (size_t)ROW_WARPS * sizeof(float) * self_warp_floats(dh, s.T);
+  const int blocks = (s.R * s.H + ROW_WARPS - 1) / ROW_WARPS;
+  auto kernel = self_attn_kernel<QBF, CBF, W>;
+  int err;
+  if ((err = smem_opt_in(kernel, smem))) return err;
+  kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
+      s.q, cache_k, cache_v, s.t, s.anc, s.att, s.R, s.R / s.B, s.H, dh, s.d,
+      s.T, cache_row, scale_div, (s.fl & TFD_X_BF) != 0);
+  return (int)cudaGetLastError();
+}
+
+template <bool QBF, bool MBF, bool RND>
+int launch_cross(const Step& s, const void* ck, const void* cv,
+                 float* attn_h, bool w8, float scale_div, cudaStream_t st) {
+  const int kb = s.R / s.B, dh = s.d / s.H;
+  const CrossSplit sp = cross_split(s.S, kb, dh, MBF);
+  const size_t smem = (size_t)cross_smem(sp.kq, dh, sp.chunk, sp.cs, MBF)
+                          .total;
+  auto kernel = cross_attn_kernel<QBF, MBF, RND>;
+  int err;
+  if ((err = smem_opt_in(kernel, smem))) return err;
+  return launch_clusters(kernel, dim3(sp.cs, s.H, s.B * sp.qg),
+                         CROSS_THREADS, smem, sp.cs, st,
+                         (const void*)s.q, ck, cv, s.mask, s.att, attn_h, kb,
+                         s.H, dh, s.d, s.S, sp.chunk, sp.qg, sp.kq,
+                         scale_div, w8);
+}
+
+// One layer of a step in any mixture (s.fl) on the route s.route; x_in !=
+// null: layer 0 reads x_in and copies it to s.x. An all-f32 step runs the
+// f32 kernels throughout; a step with f32 x and weights (the serving
+// mixture) the f32 LN and products too, its QKV epilogue writing the
+// caches in their type; any other the typed LN and epilogues (JAX's cast
+// points, TFD_* above) over the f32 FMA core with converting W loads or,
+// on TFD_ROUTE_TC, the tensor-core core over a bf16 scratch. The
+// attentions read the caches and the memory in their types.
+int run_layer(const Step& s, const Layer& w, const void* ck, const void* cv,
+              void* cache_k, void* cache_v, size_t cache_row, bool last,
+              const void* x_in, cudaStream_t st) {
   const int R = s.R, d = s.d, kb = s.R / s.B, dh = s.d / s.H;
   const float scale_div = (float)sqrt((double)dh);
   const bool xbf = s.fl & TFD_X_BF, wbf = s.fl & TFD_W_BF;
   const bool cbf = s.fl & TFD_C_BF, mbf = s.fl & TFD_M_BF;
-  float* y = s.att;
-  const unsigned ln_blocks = (R + ROW_WARPS - 1) / ROW_WARPS;
+  const bool f32_ops = !xbf && !wbf;        // the f32 LN and products
+  const bool tc = s.route & TFD_ROUTE_TC;   // the scratch is bf16
+  const int ce = cbf ? 2 : 4, me = mbf ? 2 : 4, se = tc ? 2 : 4;
+  const int xe = xbf ? 2 : 4, we = wbf ? 2 : 4;
+  void* y = s.att;
+  float* attn_h = last ? s.attn_h : nullptr;
   int err;
+
   auto ln = [&](const void* x, void* copy, const float* sc, const float* of) {
-    ln_rows_typed_kernel<<<ln_blocks, ROW_WARPS * 32, 0, st>>>(
-        x, copy, sc, of, y, R, d, xbf, wbf);
+    if (f32_ops)
+      return ln_rows(static_cast<const float*>(x), static_cast<float*>(copy),
+                     sc, of, static_cast<float*>(y), R, d, st);
+    const bool v4 = d % 4 == 0 && d <= 128 * LN_REG &&
+                    on(4 * xe, x, copy) && on(4 * we, sc, of) && on(4 * se, y);
+    ln_rows_typed_kernel<<<(R + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32,
+                           0, st>>>(x, copy, sc, of, y, R, d, xbf, wbf, tc,
+                                    v4);
     return (int)cudaGetLastError();
+  };
+  // a product of the f32 scratch a [R, K] and w [K, N] with an f32
+  // epilogue
+  auto mm32 = [&](const void* a, int K, const float* wm, int N,
+                  const auto& epi) {
+    return decode_gemm(static_cast<const float*>(a), K, wm, R, N, K, epi,
+                       st);
+  };
+  // the same with a typed epilogue: on the tensor cores (TFD_ROUTE_TC), or
+  // the f32 FMA core with W converted as it loads
+  auto mmT = [&](const void* a, int K, const float* wm, int N,
+                 const auto& epi) {
+    if (tc) return decode_gemm_bf16(a, K, wm, R, N, K, epi, st);
+    return decode_gemm(static_cast<const float*>(a), K, wm, R, N, K, epi,
+                       st, 2, wbf);
   };
 
   // 1-2. LN1 -> packed QKV; q out, k_t / v_t into cache slot t
   if ((err = ln(x_in ? x_in : s.x, x_in ? s.x : nullptr, w.ln1_s, w.ln1_b)))
     return err;
-  if ((err = decode_gemm(y, d, w.wqkv, R, 3 * d, d,
-                         EpiQkvT{w.bqkv, s.q, cache_k, cache_v, s.t,
-                                 cache_row, d, s.T, wbf, cbf, xbf},
-                         st, 2, wbf)))
-    return err;
+  const EpiQkvT qkv_t{w.bqkv, s.q,  cache_k, cache_v, s.t, cache_row,
+                      d,      s.T,  wbf,     cbf,     xbf, tc};
+  if (s.fl == 0)
+    err = mm32(y, d, w.wqkv, 3 * d,
+               EpiQkv{w.bqkv, static_cast<float*>(s.q),
+                      static_cast<float*>(cache_k),
+                      static_cast<float*>(cache_v), s.t, cache_row, d, s.T});
+  else if (f32_ops)
+    err = mm32(y, d, w.wqkv, 3 * d, qkv_t);
+  else
+    err = mmT(y, d, w.wqkv, 3 * d, qkv_t);
+  if (err) return err;
 
-  // 3. self-attention, in chunks of positions
-  {
-    const int tc = self_chunk(dh, s.T);
+  // 3. self-attention
+  if (s.route & TFD_ROUTE_SELF) {
+    if (!on(4 * ce, cache_k, cache_v) || !on(4 * se, s.q, s.att))
+      return (int)cudaErrorInvalidValue;
+    // bf16 caches by 16-byte loads where every row sits on 16 bytes
+    const bool w8 = cbf && dh % 8 == 0 && d % 8 == 0 &&
+                    cache_row % 8 == 0 && on(16, cache_k, cache_v) &&
+                    (!tc || on(16, s.q, s.att));
+    if (!cbf)
+      err = tc ? launch_self<true, false, 4>(s, cache_k, cache_v, cache_row,
+                                             scale_div, st)
+               : launch_self<false, false, 4>(s, cache_k, cache_v,
+                                              cache_row, scale_div, st);
+    else if (w8)
+      err = tc ? launch_self<true, true, 8>(s, cache_k, cache_v, cache_row,
+                                            scale_div, st)
+               : launch_self<false, true, 8>(s, cache_k, cache_v, cache_row,
+                                             scale_div, st);
+    else
+      err = tc ? launch_self<true, true, 4>(s, cache_k, cache_v, cache_row,
+                                            scale_div, st)
+               : launch_self<false, true, 4>(s, cache_k, cache_v, cache_row,
+                                             scale_div, st);
+  } else {
+    // a cache longer than a warp's shared memory holds, or a head width
+    // off 4: in chunks (the typed step: the scalar typed instance)
+    const int tc_ = self_chunk(dh, s.T);
+    const bool v4 = s.fl == 0 && dh % 4 == 0 && d % 4 == 0 &&
+                    cache_row % 4 == 0 &&
+                    on(16, s.q, s.att, cache_k, cache_v);
     const size_t smem = (size_t)ROW_WARPS * sizeof(float) *
-                        self_warp_floats(self_qcols(dh), tc);
+                        self_warp_floats(self_qcols(dh), tc_);
     const int blocks = (R * s.H + ROW_WARPS - 1) / ROW_WARPS;
-    auto kernel = self_attn_kernel_chunked<false, true>;
+    auto kernel = s.fl ? self_attn_kernel_chunked<false, true>
+                       : v4 ? self_attn_kernel_chunked<true>
+                            : self_attn_kernel_chunked<false>;
     if ((err = smem_opt_in(kernel, smem))) return err;
     kernel<<<blocks, ROW_WARPS * 32, smem, st>>>(
-        s.q, cache_k, cache_v, s.t, s.anc, s.att, R, kb, s.H, dh, d, s.T, tc,
-        cache_row, scale_div, cbf, xbf);
-    if ((err = (int)cudaGetLastError())) return err;
+        static_cast<const float*>(s.q), cache_k, cache_v, s.t, s.anc,
+        static_cast<float*>(s.att), R, kb, s.H, dh, d, s.T, tc_, cache_row,
+        scale_div, cbf, xbf);
+    err = (int)cudaGetLastError();
   }
+  if (err) return err;
 
   // 4. x += att @ Wo_s + bo_s
-  if ((err = decode_gemm(s.att, d, w.wo_s, R, d, d,
-                         EpiResT{w.bo_s, s.x, d, wbf, xbf}, st, 2, wbf)))
+  if ((err = f32_ops ? mm32(s.att, d, w.wo_s, d,
+                            EpiRes{w.bo_s, static_cast<float*>(s.x), d})
+                     : mmT(s.att, d, w.wo_s, d,
+                           EpiResT{w.bo_s, s.x, d, wbf, xbf})))
     return err;
 
   // 5-6. q2 = LN2(x) @ Wq_c + bq_c
   if ((err = ln(s.x, nullptr, w.ln2_s, w.ln2_b))) return err;
-  if ((err = decode_gemm(y, d, w.wq_c, R, d, d,
-                         EpiLinT{w.bq_c, s.q, d, wbf, xbf, false}, st, 2,
-                         wbf)))
+  if ((err = f32_ops ? mm32(y, d, w.wq_c, d,
+                            EpiBias{w.bq_c, static_cast<float*>(s.q), d})
+                     : mmT(y, d, w.wq_c, d,
+                           EpiLinT{w.bq_c, s.q, d, wbf, xbf, false, tc})))
     return err;
 
-  // 7. cross-attention over the image's unexpanded K/V, a row and head a
-  // block
-  {
-    float* attn_h = last ? s.attn_h : nullptr;
-    cross_attn_kernel_wide<false, true><<<dim3(R, s.H), CROSS_THREADS, 0,
-                                          st>>>(
-        s.q, ck, cv, s.mask, s.att, attn_h, kb, s.H, dh, d, s.S, scale_div,
-        mbf, xbf);
-    if ((err = (int)cudaGetLastError())) return err;
+  // 7. cross-attention over the image's unexpanded K/V: each block's
+  // slice at once where its shared memory holds it, else in pieces, and a
+  // head too wide for pieces a row at a time
+  if (s.route & TFD_ROUTE_CROSS) {
+    if (!on(4 * me, ck, cv) || !on(4 * se, s.q, s.att))
+      return (int)cudaErrorInvalidValue;
+    const bool w8 = mbf && dh % 8 == 0 && d % 8 == 0 && on(16, ck, cv);
+    if (!xbf)
+      err = mbf ? launch_cross<false, true, false>(s, ck, cv, attn_h, w8,
+                                                   scale_div, st)
+                : launch_cross<false, false, false>(s, ck, cv, attn_h, w8,
+                                                    scale_div, st);
+    else if (!tc)
+      err = mbf ? launch_cross<false, true, true>(s, ck, cv, attn_h, w8,
+                                                  scale_div, st)
+                : launch_cross<false, false, true>(s, ck, cv, attn_h, w8,
+                                                   scale_div, st);
+    else
+      err = mbf ? launch_cross<true, true, true>(s, ck, cv, attn_h, w8,
+                                                 scale_div, st)
+                : launch_cross<true, false, true>(s, ck, cv, attn_h, w8,
+                                                  scale_div, st);
+    if (err) return err;
+    if (attn_h) {
+      const int n = R * s.S;
+      head_mean_kernel<<<(n + 255) / 256, 256, 0, st>>>(attn_h, s.attn, R,
+                                                        s.H, s.S);
+      if ((err = (int)cudaGetLastError())) return err;
+    }
+  } else {
+    const float* q = static_cast<const float*>(s.q);
+    float* att = static_cast<float*>(s.att);
+    const bool v4 = s.fl == 0 && dh % 4 == 0 && d % 4 == 0 &&
+                    on(16, s.q, s.att, ck, cv);
+    if (s.fl || cross_wide(s.S, kb, dh)) {
+      // the typed step: its scalar instance, a row and head a block
+      auto kernel = s.fl ? cross_attn_kernel_wide<false, true>
+                         : v4 ? cross_attn_kernel_wide<true>
+                              : cross_attn_kernel_wide<false>;
+      kernel<<<dim3(R, s.H), CROSS_THREADS, 0, st>>>(
+          q, ck, cv, s.mask, att, attn_h, kb, s.H, dh, d, s.S, scale_div,
+          mbf, xbf);
+      if ((err = (int)cudaGetLastError())) return err;
+    } else {
+      const float* ckf = static_cast<const float*>(ck);
+      const float* cvf = static_cast<const float*>(cv);
+      const PieceSplit pp = piece_split(s.S, kb, dh);
+      const size_t smem =
+          (size_t)piece_floats(pp.kq, dh, pp.sub, pp.cs) * sizeof(float);
+      auto kernel = v4 ? cross_attn_kernel_pieces<true>
+                       : cross_attn_kernel_pieces<false>;
+      if ((err = smem_opt_in(kernel, smem))) return err;
+      if ((err = launch_clusters(kernel, dim3(pp.cs, s.H, s.B * pp.qg),
+                                 CROSS_THREADS, smem, pp.cs, st, q, ckf, cvf,
+                                 s.mask, att, attn_h, kb, s.H, dh, d, s.S,
+                                 pp.chunk, pp.sub, pp.qg, pp.kq, scale_div)))
+        return err;
+    }
     if (attn_h) {
       const int n = R * s.S;
       head_mean_kernel_scores<<<(n + 255) / 256, 256, 0, st>>>(
@@ -1656,20 +2011,25 @@ int run_layer_typed(const Step& s, const Layer& w, const void* ck,
   }
 
   // 8. x += att @ Wo_c + bo_c
-  if ((err = decode_gemm(s.att, d, w.wo_c, R, d, d,
-                         EpiResT{w.bo_c, s.x, d, wbf, xbf}, st, 2, wbf)))
+  if ((err = f32_ops ? mm32(s.att, d, w.wo_c, d,
+                            EpiRes{w.bo_c, static_cast<float*>(s.x), d})
+                     : mmT(s.att, d, w.wo_c, d,
+                           EpiResT{w.bo_c, s.x, d, wbf, xbf})))
     return err;
 
   // 9-10. h1 = relu(LN3(x) @ W1 + b1)
   if ((err = ln(s.x, nullptr, w.ln3_s, w.ln3_b))) return err;
-  if ((err = decode_gemm(y, d, w.w1, R, s.dff, d,
-                         EpiLinT{w.b1, s.h1, s.dff, wbf, xbf, true}, st, 2,
-                         wbf)))
+  if ((err = f32_ops ? mm32(y, d, w.w1, s.dff,
+                            EpiRelu{w.b1, static_cast<float*>(s.h1), s.dff})
+                     : mmT(y, d, w.w1, s.dff,
+                           EpiLinT{w.b1, s.h1, s.dff, wbf, xbf, true, tc})))
     return err;
 
   // 11. x += h1 @ W2 + b2
-  return decode_gemm(s.h1, s.dff, w.w2, R, d, s.dff,
-                     EpiResT{w.b2, s.x, d, wbf, xbf}, st, 2, wbf);
+  return f32_ops ? mm32(s.h1, s.dff, w.w2, d,
+                        EpiRes{w.b2, static_cast<float*>(s.x), d})
+                 : mmT(s.h1, s.dff, w.w2, d,
+                       EpiResT{w.b2, s.x, d, wbf, xbf});
 }
 
 }  // namespace
@@ -1678,26 +2038,30 @@ int run_layer_typed(const Step& s, const Layer& w, const void* ck,
 // receives the result; t [R] int32; ck/cv [L, B, S, d]; mask [B, S] f32;
 // cache_k/v [R, L, T, d], slot t[r] of every layer written in place; anc
 // [R, T] int32 or null; w: host array of the 18 packed [L, ...] weights in
-// WKEYS order; scratch q, att [R, d], h1 [R, dff]; with attn != null,
-// attn_h [R, H, S + 2] scratch and attn [R, S] receive the last layer's
-// mean-head cross-attention weights. fl: the TFD_* types of x (x_in and
-// x_out), the weights, the caches and ck / cv; 0 runs the f32 kernels
-// above. Returns the first CUDA error, or cudaErrorInvalidValue for a shape
-// the kernels do not take (refuses).
+// WKEYS order; scratch q, att [R, d], h1 [R, dff], each of f32 size (the
+// route may use them as bf16); with attn != null, attn_h [R, H, S + 2]
+// scratch and attn [R, S] receive the last layer's mean-head
+// cross-attention weights. fl: the TFD_* types of x (x_in and x_out), the
+// weights, the caches and ck / cv; 0 runs the f32 kernels throughout.
+// *route (host, may be null) receives the TFD_ROUTE_* bits the step ran.
+// Returns the first CUDA error, or cudaErrorInvalidValue for a shape the
+// kernels do not take (refuses).
 extern "C" int tfd_stack_step_mixed(const void* x_in, void* x_out,
                                     const int* t, const void* ck,
                                     const void* cv, const float* mask,
                                     void* cache_k, void* cache_v,
                                     const int* anc, const void* const* w,
-                                    float* q, float* att, float* h1,
+                                    void* q, void* att, void* h1,
                                     float* attn_h, float* attn, int R, int B,
                                     int S, int d, int T, int dff, int H,
-                                    int L, int fl, cudaStream_t stream) {
+                                    int L, int fl, int* route,
+                                    cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
   if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
-  const Step s = {static_cast<float*>(x_out), t, anc, mask, q, att, h1,
-                  attn_h, attn, R, B, S, d, T, dff, H, fl};
+  const Step s = {x_out, t, anc, mask, q, att, h1, attn_h, attn, R, B, S, d,
+                  T, dff, H, fl, route_of(fl, S, d, T, dff, H)};
+  if (route) *route = s.route;
   const int cs = fl & TFD_C_BF ? 2 : 4, ms = fl & TFD_M_BF ? 2 : 4;
   const size_t cache_row = (size_t)L * T * d;
   const size_t kv_layer = (size_t)B * S * d;
@@ -1708,15 +2072,8 @@ extern "C" int tfd_stack_step_mixed(const void* x_in, void* x_out,
     void* kl = const_cast<float*>(elt(cache_k, (size_t)l * T * d, cs));
     void* vl = const_cast<float*>(elt(cache_v, (size_t)l * T * d, cs));
     const bool last = attn != nullptr && l == L - 1;
-    const void* xi = l == 0 ? x_in : nullptr;
-    const int err =
-        fl ? run_layer_typed(s, lw, ckl, cvl, kl, vl, cache_row, last, xi,
-                             stream)
-           : run_layer(s, lw, static_cast<const float*>(ckl),
-                       static_cast<const float*>(cvl),
-                       static_cast<float*>(kl), static_cast<float*>(vl),
-                       cache_row, last, static_cast<const float*>(xi),
-                       stream);
+    const int err = run_layer(s, lw, ckl, cvl, kl, vl, cache_row, last,
+                              l == 0 ? x_in : nullptr, stream);
     if (err) return err;
   }
   return (int)cudaGetLastError();
@@ -1729,24 +2086,20 @@ extern "C" int tfd_layer_step_mixed(const void* x_in, void* x_out,
                                     const int* t, const void* ck,
                                     const void* cv, const float* mask,
                                     void* cache_k, void* cache_v,
-                                    const void* const* w, float* q,
-                                    float* att, float* h1, int R, int B,
-                                    int S, int d, int T, int dff, int H,
-                                    int fl, cudaStream_t stream) {
+                                    const void* const* w, void* q, void* att,
+                                    void* h1, int R, int B, int S, int d,
+                                    int T, int dff, int H, int fl,
+                                    int* route, cudaStream_t stream) {
   if (R <= 0) return (int)cudaGetLastError();
   if (B <= 0 || R % B || refuses(d, H))
     return (int)cudaErrorInvalidValue;
-  const Step s = {static_cast<float*>(x_out), t, nullptr, mask, q, att, h1,
-                  nullptr, nullptr, R, B, S, d, T, dff, H, fl};
+  const Step s = {x_out,   t,       nullptr, mask, q, att, h1,
+                  nullptr, nullptr, R,       B,    S, d,   T,
+                  dff,     H,       fl,      route_of(fl, S, d, T, dff, H)};
+  if (route) *route = s.route;
   const Layer lw = layer_of(w, 0, d, dff, fl & TFD_W_BF ? 2 : 4);
-  const int err =
-      fl ? run_layer_typed(s, lw, ck, cv, cache_k, cache_v, (size_t)T * d,
-                           false, x_in, stream)
-         : run_layer(s, lw, static_cast<const float*>(ck),
-                     static_cast<const float*>(cv),
-                     static_cast<float*>(cache_k),
-                     static_cast<float*>(cache_v), (size_t)T * d, false,
-                     static_cast<const float*>(x_in), stream);
+  const int err = run_layer(s, lw, ck, cv, cache_k, cache_v, (size_t)T * d,
+                            false, x_in, stream);
   if (err) return err;
   return (int)cudaGetLastError();
 }

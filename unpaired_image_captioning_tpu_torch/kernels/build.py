@@ -60,11 +60,11 @@ SIGNATURES = {
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, anc, w[18] (host
     # array), q, att, h1, attn_h, attn, R, B, S, d, T, d_ff, H, L, fl (the
     # TFD_* types: x, the weights, the caches, the memory each f32 or
-    # bf16), stream
-    "tfd_stack_step_mixed": (_P,) * 15 + (_I,) * 9 + (_P,),
+    # bf16), route (host int: the TFD_ROUTE_* bits the step ran), stream
+    "tfd_stack_step_mixed": (_P,) * 15 + (_I,) * 9 + (_P, _P),
     # x_in, x_out, t, ck, cv, mask, cache_k, cache_v, w[18] (host array),
-    # q, att, h1, R, B, S, d, T, d_ff, H, fl, stream
-    "tfd_layer_step_mixed": (_P,) * 12 + (_I,) * 8 + (_P,),
+    # q, att, h1, R, B, S, d, T, d_ff, H, fl, route, stream
+    "tfd_layer_step_mixed": (_P,) * 12 + (_I,) * 8 + (_P, _P),
     # q, k, v, mask, seed, out, stats, B, T, S, H, dh, mask_rows, thresh,
     # keep_div, dropout, fl (the ATT_* types), stream
     "mha_train_fwd_mixed": (_P,) * 7 + (_I,) * 6 + (_U, _F, _I, _I, _P),
