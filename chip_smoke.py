@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --times att,tfd
     python3 chip_smoke.py --times ln,img
+    python3 chip_smoke.py --times ln,bf16
 
 Builds the port's CUDA kernels from `unpaired_image_captioning_tpu_torch/
 csrc/`, holds each kernel against its plain PyTorch version at the serving
@@ -288,7 +289,15 @@ bf16 mixtures of the path take the fast attentions over bf16 caches and
 memory, and the all-bf16 step's products the tensor cores; each path
 pair is held with its route and tensor-core count, and the bf16 path
 asserts every bf16 B4 call on the fast attentions and every all-bf16 one
-on the tensor cores (`tc_launches` on the B4 bf16 records). ROADMAP C5
+on the tensor cores (`tc_launches` on the B4 bf16 records). B8's typed
+calls run its register-row instances where `kernels/ln_train.py::
+register_instance` takes them (its C entries report the route they ran,
+and the wrappers count a register launch from that report): each path
+shape is held with its register launch counted and profiled for the
+instances' CUDA kernels, as are B6 / B7's bf16 layers, and the bf16 path
+asserts every standalone bf16 call of such a width on them
+(`reg_bf16_fwd_launches`, `reg_bf16_bwd_launches` on the B8 bf16
+records). ROADMAP C5
 (`_c5_check`): the all-bf16 stack at the caption beam's shape at 8 draws
 of its own, each layer alone held at 1e-2 of each output's scale against
 its plain version fed the plain output of the layer before, the whole
@@ -327,12 +336,15 @@ the step refuses at TFD_REFUSAL_SHAPE, and its bf16 path pairs (stack and
 layer at beam 5 x 50 and batch 50, f32, f32 weights over bf16 caches and
 memory, all bf16) with their bound, bf16 cuBLAS over the products and the
 tensor-core launches where the tree counts them; `steps`: the transformer
-XE step in f32 and bf16, the bf16 transformer SCST step and a batch-50
-transformer pivot over rounded features, host walls and one profiled
-call's device busy; `ln`: the training LayerNorm's
-forward and backward at LN_SHAPES and the whole encoder layer's backward
-at the captioner's shape, split by kind of CUDA kernel; `img`: B11 at
-IMG_CASES), with no check, and prints the readings as its last line. It serves to compare two checkouts on one
+XE step in f32 and bf16 (with its LayerNorm kernels' device time by
+name), the bf16 transformer SCST step and a batch-50 transformer pivot
+over rounded features, host walls and one profiled call's device busy;
+`ln`: the training LayerNorm's forward and backward at LN_SHAPES, its bf16
+entries at BF16_LN_SHAPES in both BF16_LN_MIXES with their bound and
+whether the register-row instances ran, the register-row instances
+against the general typed ones at LN_REG_WIDTHS, and the whole encoder
+layer's backward at the captioner's shape in f32 and bf16, split by kind
+of CUDA kernel; `img`: B11 at IMG_CASES), with no check, and prints the readings as its last line. It serves to compare two checkouts on one
 card: copy this script into each and run them in turns (A, B, B, A) in
 one call.
 
@@ -344,6 +356,7 @@ any result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -451,6 +464,9 @@ LN_SHAPES = [("encoder", 50, 196, 512), ("decoder", 50, 17, 512),
 # the training LayerNorm past the width its backward once refused (3,632):
 # a d-4,096 model's rows and a width off the register kernels' float4
 LN_WIDE = [("d 4,096", 50, 17, 4096), ("d 6,000", 50, 17, 6000)]
+# `--times ln`: widths at which B8's register-row instances are read
+# against its general typed ones (chunks of 8 columns a lane: 2, 3, 4)
+LN_REG_WIDTHS = (512, 768, 1024)
 # every CUDA kernel of csrc/ a training step launches, by name (the
 # whole-layer wrappers launch all of them)
 MHA_BWD_KERNELS = ("mha_dsum_kernel", "mha_bwd_dkdv_kernel",
@@ -460,6 +476,10 @@ MHA_TC_FWD_KERNELS = ("mha_fwd_tc_kernel",)
 MHA_TC_BWD_KERNELS = ("mha_bwd_rows_tc_kernel", "mha_bwd_dkdv_tc_kernel",
                       "mha_bwd_dq_tc_kernel")
 LN_BWD_KERNELS = ("ln_bwd_rows_kernel", "ln_bwd_any_kernel")
+# B8's typed calls: the register-row instances (kernels.ln_train.
+# register_instance) and the general typed ones
+LN_TYPED_FWD_KERNELS = ("ln_fwd_rows_typed_kernel", "ln_fwd_typed_kernel")
+LN_TYPED_BWD_KERNELS = ("ln_bwd_rows_typed_kernel", "ln_bwd_any_kernel")
 TRAIN_KERNELS = ("train_gemm_kernel", "mha_fwd_kernel") + MHA_BWD_KERNELS + (
                  "ln_fwd_kernel",) + LN_BWD_KERNELS + (
                  "drop_kernel", "weight_transpose_kernel")
@@ -912,6 +932,14 @@ def phase_build() -> None:
     log(f"build: {build.build_seconds:.1f} s (nvcc, sm_90a)")
     for ln in ptxas:
         log(f"  ptxas {ln}")
+    # the instances that spill, by (mangled) name
+    fn = "?"
+    for ln in build.build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        elif re.search(r"[1-9]\d* bytes spill stores", ln):
+            log(f"  ptxas spills in {fn}: {ln.strip()}")
 
 
 def phase_kernels(dev) -> dict:
@@ -1298,19 +1326,73 @@ def phase_times(dev, groups) -> list:
             rec("ln_train_fwd", shape,
                 lambda: lnk.ln_train_fwd(x, scale, offset))
             rec("ln_train_bwd", shape, lambda: lnk.ln_train_bwd(x, scale, g))
-        # B6's encoder layer backward at the captioner's shape, by kind
+        # the bf16 entries at the default bf16 route's shapes, each beside
+        # its bound and whether it ran the register-row instances (None: a
+        # tree without them)
+        for label, b, t, d in BF16_LN_SHAPES:
+            x, scale, offset, g = _ln_inputs(dev, gen, b, t, d)
+            for mx, mp in BF16_LN_MIXES:
+                xb, sb, ob = (x.to(_dt(mx)), scale.to(_dt(mp)),
+                              offset.to(_dt(mp)))
+                gb = g.to(_dt(mx))
+                shape = f"[{b}, {t}, {d}] x/params {mx}/{mp} ({label})"
+                n = float(b * t * d)
+                for kind, attr, fn, outs, flops in (
+                        ("ln_train_fwd", "reg_bf16_fwd_launches",
+                         lambda: lnk.ln_train_fwd(xb, sb, ob), 1, 8.0 * n),
+                        ("ln_train_bwd", "reg_bf16_bwd_launches",
+                         lambda: lnk.ln_train_bwd(xb, sb, gb), 3, 14.0 * n)):
+                    before = getattr(lnk, attr, None)
+                    out = fn()
+                    out = (out,) if outs == 1 else out
+                    reg = (None if before is None
+                           else getattr(lnk, attr) - before == 1)
+                    ins = (xb, sb, ob) if outs == 1 else (xb, sb, gb)
+                    r = rec(kind + " bf16", shape, fn)
+                    r["bound_ms"], r["bound_by"] = bound_mixed(
+                        nbytes(*ins, *out), flops, 0.0)
+                    r["register_instance"] = reg
+                    log(f"time {kind} bf16 [{shape}]: bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                        f"register-row instance {reg}")
+        # the register-row instances against the general typed ones on the
+        # same all-bf16 rows, at the path's width and the wider ones the
+        # rule takes (rows 2 bytes into their storage take the general ones;
+        # the CUDA kernels' names say which ran)
+        gen_w = torch.Generator(device=dev).manual_seed(9)
+        for d in LN_REG_WIDTHS:
+            x, scale, offset, g = (v.to(torch.bfloat16) for v in _ln_inputs(
+                dev, gen_w, 50, 196, d))
+            n = x.numel()
+            xo, go = (torch.empty(n + 8, dtype=torch.bfloat16, device=dev)[
+                1:1 + n].view(x.shape).copy_(v) for v in (x, g))
+            for inst, xa, ga in (("register-row", x, g),
+                                 ("general", xo, go)):
+                shape = f"[50, 196, {d}] all bf16, {inst} instance"
+                rec("ln_train_fwd bf16", shape,
+                    lambda: lnk.ln_train_fwd(xa, scale, offset))
+                rec("ln_train_bwd bf16", shape,
+                    lambda: lnk.ln_train_bwd(xa, scale, ga))
+        # B6's encoder layer backward at the captioner's shape, by kind, in
+        # f32 and in bf16
         label, b, s, d, f, heads = ENC_LAYER_SHAPES[0]
         x, g, _, maskadd, seed, w, _ = _enc_layer_inputs(dev, gen, b, s, d, f)
         kw = dict(n_heads=heads, rate=TRAIN_RATE)
-        _, saved = ltk.enc_layer_fwd(x, maskadd, seed, w, **kw)
-        r = rec("enc_layer_train_bwd", label, lambda: ltk.enc_layer_bwd(
-            x, maskadd, seed, w, saved, g, **kw))
-        r["by_kind_ms"] = {
-            kind: sum(v for n, v in r["parts"].items()
-                      if any(k in n for k in keys))
-            for kind, keys in LAYER_KINDS.items()}
-        log(f"time enc_layer_train_bwd [{label}] by kind: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in r["by_kind_ms"].items()))
+        for dt in (torch.float32, torch.bfloat16):
+            xd, gd = x.to(dt), g.to(dt)
+            wd = {k: v.to(dt) for k, v in w.items()}
+            _, saved = ltk.enc_layer_fwd(xd, maskadd, seed, wd, **kw)
+            name = ("enc_layer_train_bwd" if dt == torch.float32
+                    else "enc_layer_train_bwd bf16, by kind")
+            r = rec(name, label, lambda: ltk.enc_layer_bwd(
+                xd, maskadd, seed, wd, saved, gd, **kw))
+            r["by_kind_ms"] = {
+                kind: sum(v for n, v in r["parts"].items()
+                          if any(k in n for k in keys))
+                for kind, keys in LAYER_KINDS.items()}
+            log(f"time {name} [{label}] by kind: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["by_kind_ms"].items()))
+            del saved
     if "bf16" in groups:
         # the default bf16 route's B1 (all bf16) and B6 / B7 at the path
         # shapes, B6 / B7's f32 entries beside them; only the wrappers'
@@ -1476,13 +1558,22 @@ def phase_times(dev, groups) -> list:
                 walls.append((time.perf_counter() - t0) * 1e3)
             parts = {}
             ms, how = library_ms(lambda: tr.train(batch), 1, parts)
+            # B8's kernels by name: standalone (the decoder's sublayers and
+            # the final norms) and inside B6
+            ln_parts = {n: v for n, v in parts.items()
+                        if n.startswith(("ln_fwd", "ln_bwd"))}
             readings.append(dict(kernel="transformer XE step", shape=dt,
                                  walls_ms=walls, ms=ms, timing=how,
-                                 parts=parts))
+                                 ln_ms=sum(ln_parts.values()),
+                                 ln_parts=ln_parts, parts=parts))
             log(f"time transformer XE step [{dt}, default route, batch "
                 f"{BENCH_BATCH}]: walls "
                 + ", ".join(f"{w:.1f}" for w in walls)
-                + f" ms; device busy {ms:.2f} ms ({how}); by CUDA kernel: "
+                + f" ms; device busy {ms:.2f} ms ({how}); LayerNorm "
+                f"{sum(ln_parts.values()):.3f} ms ("
+                + ", ".join(f"{n} {v:.3f}" for n, v in sorted(
+                    ln_parts.items(), key=lambda kv: -kv[1]))
+                + "); by CUDA kernel: "
                 + ", ".join(f"{n} {v:.2f}" for n, v in sorted(
                     parts.items(), key=lambda kv: -kv[1])[:8]))
             del tr
@@ -2838,9 +2929,9 @@ def _yardsticks(label, fwd, params, g):
 
 
 # a whole-layer wrapper's CUDA kernels by kind
-LAYER_KINDS = {"gemm": ("gemm_kernel",), "attention": ("mha_",),
-               "layernorm": ("ln_fwd", "ln_bwd"),
-               "dropout": ("drop_kernel",),
+LAYER_KINDS = {"gemm": ("gemm_kernel", "gemm_bf16_kernel"),
+               "attention": ("mha_",), "layernorm": ("ln_fwd", "ln_bwd"),
+               "dropout": ("drop_kernel", "drop4_bf16_kernel"),
                "weight transposes": ("weight_transpose",)}
 
 
@@ -8665,14 +8756,20 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
 # ---------------------------------------------------------------------------
 
 # the CUDA kernels the typed (bf16) instances launch, by name
-TF_TRAIN_KERNELS = TRAIN_KERNELS + ("ln_fwd_typed_kernel",
-                                    "train_gemm_bf16_kernel",
-                                    "drop4_bf16_kernel") + (
-                                    MHA_TC_FWD_KERNELS + MHA_TC_BWD_KERNELS)
+TF_TRAIN_KERNELS = (TRAIN_KERNELS + LN_TYPED_FWD_KERNELS
+                    + ("ln_bwd_rows_typed_kernel", "train_gemm_bf16_kernel",
+                       "drop4_bf16_kernel")
+                    + MHA_TC_FWD_KERNELS + MHA_TC_BWD_KERNELS)
 TF_TFD_KERNELS = TFD_KERNELS + ("ln_rows_typed_kernel",)
 # B8 (x, scale / offset): the cast route, and JAX's default config on the
 # CPU (bf16 features through f32 parameters; the kernel takes it too)
 BF16_LN_MIXES = (("bf16", "bf16"), ("bf16", "f32"))
+# B8's counters of the launches on its typed register-row instances
+LN_REG_COUNTERS = {"ln_train_fwd_bf16": "reg_bf16_fwd_launches",
+                   "ln_train_bwd_bf16": "reg_bf16_bwd_launches"}
+# no PyTorch call computes B8's function: F.layer_norm divides the variance
+# by d (not d - 1) and puts eps under the root (not outside it)
+LN_LIBRARY = "none (F.layer_norm: biased variance, eps under the root)"
 BF16_LN_SHAPES = [("captioner encoder", 50, 196, 512),
                   ("captioner decoder", 50, 17, 512),
                   ("transformer NMT", 50, NMT_SRC_LEN, 512)]
@@ -8811,6 +8908,57 @@ def _c5_check(dev) -> dict:
         f"{len(stacks)} seeds")
     return {"seeds": list(C5_SEEDS), "layer_max": per_layer,
             "stack_by_seed": stacks, "stack_max": worst}
+
+
+def _ln_flags(mix) -> int:
+    """B8's type flags for the wrappers' (x, scale) mixture names."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+
+    x, p = (torch.zeros(0, dtype=_dt(m)) for m in mix)
+    return lnk.mixture("ln_train", x, p, p, x)
+
+
+def _ln_kernels(regs) -> tuple:
+    """B8's typed CUDA kernels that calls whose rule answers are `regs`
+    (`register_instance`, one a call) launch."""
+    return ((LN_TYPED_FWD_KERNELS[:1] + LN_TYPED_BWD_KERNELS[:1]
+             if any(regs) else ())
+            + (LN_TYPED_FWD_KERNELS[1:] + LN_TYPED_BWD_KERNELS[1:]
+               if not all(regs) else ()))
+
+
+def _ln_route(label: str, regs, fn) -> None:
+    """B8's typed calls inside one profiled call of fn, each a forward and
+    a backward whose rule answer is in `regs`: on the typed register-row
+    instances where the rule takes one, on the general typed ones where it
+    does not, and on no other typed kernel; raises otherwise."""
+    want = _ln_kernels(regs)
+    for _ in range(3):     # a profile may lose events (PERF.md section 7)
+        _, per_name = device_ms(fn)
+        names = " ".join(per_name or ())
+        if all(k in names for k in want):
+            break
+    if not all(k in names for k in want) or any(
+            k in names for k in LN_TYPED_FWD_KERNELS + LN_TYPED_BWD_KERNELS
+            if k not in want):
+        raise AssertionError(
+            f"{label}: its LayerNorms ran "
+            + ", ".join(sorted({short_name(n) for n in per_name or ()
+                                if "ln_" in short_name(n)}))
+            + f"; expected {want} (register_instance)")
+    log(f"{label}: LayerNorms on {', '.join(want)}")
+
+
+def _ln_layer_route(label: str, d: int, fn) -> None:
+    """`_ln_route` for a bf16 layer's forward and backward (B6 / B7: dy
+    f32, the residual bf16, the pointers on 16 bytes)."""
+    from unpaired_image_captioning_tpu_torch.kernels import ln_train as lnk
+
+    flags = (lnk.LN_RND | lnk.LN_X_BF | lnk.LN_P_BF | lnk.LN_Y_BF
+             | lnk.LN_R_BF | lnk.LN_D_BF)
+    _ln_route(label, [lnk.register_instance(d, flags, True, res=True)], fn)
 
 
 def _tf_mix(*ts) -> tuple:
@@ -9255,14 +9403,32 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
     def hold(kind, a, kw):
         held.setdefault(kind, set()).add(_tf_key(kind, a, kw))
 
-    # B8
+    # B8: each path shape on the instances the rule names (the launches
+    # counted from the route the C entries report, the kernels' names from
+    # one profile of the shape's calls)
     for label, b, t, d in BF16_LN_SHAPES:
         x, scale, offset, g = _ln_inputs(dev, gen, b, t, d)
+        calls, regs = [], []
         for mx, mp in BF16_LN_MIXES:
             args = (x.to(_dt(mx)), scale.to(_dt(mp)), offset.to(_dt(mp)))
             bargs = (args[0], args[1], g.to(_dt(mx)))
+            want = lnk.register_instance(d, _ln_flags((mx, mp)),
+                                         lnk._aligned(*bargs, args[2]))
+            reg0 = (lnk.reg_bf16_fwd_launches, lnk.reg_bf16_bwd_launches)
             e_f = _tf_check("ln_train_fwd", args, {}, True)
             e_b = _tf_check("ln_train_bwd", bargs, {}, True)
+            reg = (lnk.reg_bf16_fwd_launches - reg0[0],
+                   lnk.reg_bf16_bwd_launches - reg0[1])
+            if reg != (int(want), int(want)):
+                raise AssertionError(
+                    f"ln_train bf16 [{b}, {t}, {d}] {mx}/{mp}: register-row "
+                    f"launches {reg}, expected {(int(want),) * 2} "
+                    "(register_instance)")
+            names_f, names_b = (
+                ks[:1] if want else ks[1:]
+                for ks in (LN_TYPED_FWD_KERNELS, LN_TYPED_BWD_KERNELS))
+            calls.append((args, bargs))
+            regs.append(want)
             hold("ln_train_fwd", args, {})
             hold("ln_train_bwd", bargs, {})
             y = lnk.ln_train_fwd(*args)
@@ -9271,15 +9437,18 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             n = float(b * t * d)
             row("ln_train_fwd_bf16", shape, lambda a_=args: lnk.ln_train_fwd(
                 *a_), lambda a_=args: lno.ln_train_plain(*a_),
-                ("ln_fwd_typed_kernel",), nbytes(*args, y), 8.0 * n, 0.0,
+                names_f, nbytes(*args, y), 8.0 * n, 0.0,
                 e_f, f32_ms=f32_of("ln_train_fwd", f"[{b}, {t}, {d}]"),
-                lib_what="none (F.layer_norm: other formula)")
+                lib_what=LN_LIBRARY)
             row("ln_train_bwd_bf16", shape, lambda a_=bargs:
                 lnk.ln_train_bwd(*a_), lambda a_=bargs:
-                lno.ln_train_plain_bwd(*a_), LN_BWD_KERNELS,
+                lno.ln_train_plain_bwd(*a_), names_b,
                 nbytes(*bargs, *grads), 14.0 * n, 0.0, e_b,
                 f32_ms=f32_of("ln_train_bwd", f"[{b}, {t}, {d}]"),
-                lib_what="none (F.layer_norm: other formula)")
+                lib_what=LN_LIBRARY)
+        _ln_route(f"ln_train bf16 [{b}, {t}, {d}] in both mixtures", regs,
+                  lambda c_=calls: [(lnk.ln_train_fwd(*a_),
+                                     lnk.ln_train_bwd(*b_)) for a_, b_ in c_])
 
     # B5: every path shape on the tensor-core instance, then ragged shapes
     seed = torch.tensor([4321], dtype=torch.int32, device=dev)
@@ -9377,6 +9546,8 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_bwd],
             lib_what="its products alone, bf16 cuBLAS",
             f32_ms=f32_of("enc_layer_train_bwd", label))
+        _ln_layer_route(f"enc_layer_train bf16 [{label}]", d, lambda: (
+            ltk.enc_layer_fwd(*fargs, **kw), ltk.enc_layer_bwd(*bargs, **kw)))
         del out, saved, grads, acts, g_fwd, g_bwd
 
     # B7
@@ -9431,6 +9602,8 @@ def phase_bf16_tf_kernels(dev, kernels: dict) -> tuple:
             lib=lambda: [torch.matmul(a_, b_) for a_, b_ in g_bwd],
             lib_what="its products alone, bf16 cuBLAS",
             f32_ms=f32_of("dec_layer_train_bwd", label))
+        _ln_layer_route(f"dec_layer_train bf16 [{label}]", d, lambda: (
+            ltk.dec_layer_fwd(*fargs, **kw), ltk.dec_layer_bwd(*bargs, **kw)))
         del out, saved, grads, acts, g_fwd, g_bwd
 
     # B6 / B7 at ragged shapes: held, a rerun of the backward bit for bit
@@ -10015,7 +10188,8 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     tc_in_layers = {"mha_train_fwd_bf16": (ltk, "tc_attn_fwd_launches"),
                     "mha_train_bwd_bf16": (ltk, "tc_attn_bwd_launches")}
     for mod, attr in (list(counters.values()) + list(tc_counters.values())
-                      + list(tc_in_layers.values())):
+                      + list(tc_in_layers.values())
+                      + [(lnk, a) for a in LN_REG_COUNTERS.values()]):
         setattr(mod, attr, 0)
     cells = _recording_bf16(seen)
     tf_rec = _recording_tf(tf_seen, tf_args, tf_held)
@@ -10191,6 +10365,22 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                              f"{in_layers}, expected {want_in}")
     for name, n in in_layers.items():
         tc_counts[name + " in layers"] = n
+    # B8: every standalone bf16 call of a width the register-row instances
+    # take ran them (the path's tensors sit on 16 bytes)
+    reg = {name: getattr(lnk, attr) for name, attr in LN_REG_COUNTERS.items()}
+    want_reg = {name: sum(
+        n for (kind, key), n in tf_rec.calls.items()
+        if kind == name[:-len("_bf16")] and lnk.register_instance(
+            key[0][-1], _ln_flags(key[-1]), True))
+        for name in LN_REG_COUNTERS}
+    log("bf16 path B8 register-row launches: " + ", ".join(
+        f"{k} {reg[k]} of {counts[k]} ({want_reg[k]} expected)"
+        for k in reg))
+    if reg != want_reg:
+        raise AssertionError(f"bf16 path: B8 register-row launches {reg}, "
+                             f"expected {want_reg} (register_instance)")
+    for name, n in reg.items():
+        tc_counts[name + " register"] = n
 
     # card vs cpu: the joint step's loss and gradients on two images
     cfg_a = dict(cfg, batch_size=BF16_AGREE, dropout=0.0, drop_prob_lm=0.0)
@@ -10512,6 +10702,9 @@ def main(argv=None) -> int:
     for name, n in tc_counts.items():
         if name.endswith(" in layers"):
             kernels[name[:-len(" in layers")]]["tc_launches_in_layers"] = n
+        elif name.endswith(" register"):
+            name = name[:-len(" register")]
+            kernels[name][LN_REG_COUNTERS[name]] = n
         else:
             kernels[name]["tc_launches"] = n
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -17,9 +17,11 @@
 // through a converting load (bf16.cuh), the statistics and the derivative
 // run in f32, y and dx are stored in x's type (rounded to nearest even),
 // and d_scale / d_offset are summed in f32 and stored in scale's type
-// (ops/ln_train.py:137-143 of the JAX package). Operands other than f32
-// run the typed instances (ln_fwd_typed_kernel, ln_bwd_any_kernel<true>:
-// scalar converting loads); all-f32 operands keep the f32 kernels below.
+// (ops/ln_train.py:137-143 of the JAX package). All-f32 operands keep the
+// f32 kernels below. A call with a bf16 x whose rows fit a warp's
+// registers runs the typed register-row instances (see "Typed rows"
+// below); every other typed call the general typed instances
+// (ln_fwd_typed_kernel, ln_bwd_any_kernel<true>: scalar converting loads).
 // The whole-layer kernels (layer_train.cu) also use the flags to round y
 // and dx to bf16 values in their f32 scratch (LN_RND).
 //
@@ -62,6 +64,28 @@
 // whole-layer kernels (layer_train.cu) call the forward and the backward
 // through ln_train.cuh; their backward adds the residual gradient into dx
 // (`res`).
+//
+// Typed rows (ln_fwd_rows_typed_kernel, ln_bwd_rows_typed_kernel): the
+// register design above with the operands' types compiled in. A lane owns
+// chunks of 8 columns (chunk lane + 32 i), the same in every row and in
+// every operand: a bf16 chunk is one 16-byte load, an f32 chunk (B6 / B7's
+// dy, f32 parameters) two, so bf16 x and f32 dy of one call meet in the
+// same lane. The row's x, g and res come in once as raw chunks and are
+// widened to f32 in registers; the next row's x and g are in flight while
+// a row is worked on at every width the instances take (held raw, so a
+// bf16 row costs half f32's registers); y and dx go out in 16-byte rounded
+// stores. The forward keeps scale and offset for its columns in registers
+// across a grid-stride walk of rows; the backward keeps d_scale / d_offset
+// for them in f32 registers and ends as ln_bwd_rows_kernel does. They take
+// a bf16 x, with y / dx and res bf16 and g or the parameters bf16 (the
+// routes' mixtures: all bf16, bf16 x over f32 parameters, B6 / B7's f32
+// dy), at d a multiple of 8 up to 1,024 on 16-byte pointers
+// (kernels/ln_train.py::register_instance states the rule; uic::ln_fwd /
+// ln_bwd report the route a call ran). A backward with two rows in flight
+// and d_scale / d_offset kept in the warp's shared slot took 0.0211 ms
+// against this design's 0.0182-0.0186 at [50, 196, 512] all bf16 on an
+// H100: each row's chain of reductions and divisions, not the bytes in
+// flight, sets the time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -76,7 +100,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using uic_bf16::bits;
+using uic_bf16::hi;
 using uic_bf16::ldf;
+using uic_bf16::lo;
 using uic_bf16::rnd_if;
 using uic_bf16::stf;
 
@@ -90,12 +117,92 @@ constexpr int MAX_NV = 8;        // float4 a lane of the register kernels
 constexpr int ROWS_WARPS = 16;
 __host__ __device__ constexpr bool rows_prefetch(int nv) { return nv <= 4; }
 
+// The typed register-row instances: NV8 chunks of 8 columns a lane (d <=
+// 1,024: NV8 <= 4). The backward's warps a block, at one block an SM, sized
+// to the registers a lane needs (d_scale / d_offset, x and g widened: 32
+// NV8; the next row's raw chunks and res: up to 16 NV8 more): 16 warps (128
+// registers a lane) up to NV8 = 2 (d <= 512), 8 (255) past it. The
+// forward's blocks have 8 warps, as many an SM as its registers allow.
+constexpr int MAX_NV8 = 4;
+constexpr int FWD_ROWS_WARPS = 8;
+__host__ __device__ constexpr int typed_rows_warps(int nv8) {
+  return nv8 <= 2 ? 16 : 8;
+}
+
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 8 consecutive values of an operand as stored: bf16 (BF), one 16-byte
+// load, or f32, two
+template <bool BF>
+struct Raw8;
+template <>
+struct Raw8<true> {
+  uint4 u;
+};
+template <>
+struct Raw8<false> {
+  float4 a, b;
+};
+
+// chunk c (values 8c .. 8c + 7) of p, 16-byte aligned
+template <bool BF>
+__device__ __forceinline__ Raw8<BF> ld8(const void* p, size_t c) {
+  if constexpr (BF) {
+    return Raw8<true>{reinterpret_cast<const uint4*>(p)[c]};
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(p) + 2 * c;
+    return Raw8<false>{q[0], q[1]};
+  }
+}
+
+template <bool BF>
+__device__ __forceinline__ Raw8<BF> zero8() {
+  if constexpr (BF)
+    return Raw8<true>{make_uint4(0u, 0u, 0u, 0u)};
+  else
+    return Raw8<false>{make_float4(0.f, 0.f, 0.f, 0.f),
+                       make_float4(0.f, 0.f, 0.f, 0.f)};
+}
+
+// the f32 values of a raw chunk (bf16 -> f32 is exact)
+template <bool BF>
+__device__ __forceinline__ void widen(const Raw8<BF>& r, float (&v)[8]) {
+  if constexpr (BF) {
+    const unsigned w[4] = {r.u.x, r.u.y, r.u.z, r.u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = lo(w[k]);
+      v[2 * k + 1] = hi(w[k]);
+    }
+  } else {
+    const float4 a = r.a, b = r.b;
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+// chunk c of p := v, rounded to nearest even where p is bf16 (BF)
+template <bool BF>
+__device__ __forceinline__ void st8(void* p, size_t c, const float (&v)[8]) {
+  if constexpr (BF) {
+    reinterpret_cast<uint4*>(p)[c] =
+        make_uint4(bits(v[0]) | bits(v[1]) << 16, bits(v[2]) | bits(v[3]) << 16,
+                   bits(v[4]) | bits(v[5]) << 16, bits(v[6]) | bits(v[7]) << 16);
+  } else {
+    float4* q = reinterpret_cast<float4*>(p) + 2 * c;
+    q[0] = make_float4(v[0], v[1], v[2], v[3]);
+    q[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
+
+__device__ __forceinline__ float sum8(const float (&v)[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
 }
 
 // mean and s = sqrt(var) + eps of one row, and sqrt(var)
@@ -161,6 +268,73 @@ __global__ void __launch_bounds__(WARPS * 32)
                    ldf(offset, j, pb),
                rnd),
         yb);
+}
+
+// The forward over typed rows: x and y bf16, scale / offset of type PB
+// (bf16 where true); a warp a row, walking rows by the grid's stride, the
+// row read once into registers for both statistics and the output; rnd:
+// y rounded to bf16 values (LN_RND)
+template <bool PB, int NV8>
+__global__ void __launch_bounds__(FWD_ROWS_WARPS * 32)
+    ln_fwd_rows_typed_kernel(const void* __restrict__ x,
+                             const void* __restrict__ scale,
+                             const void* __restrict__ offset,
+                             void* __restrict__ y, int rows, int d, float eps,
+                             bool rnd) {
+  constexpr int W = FWD_ROWS_WARPS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d8 = d >> 3;
+  float sc[NV8][8], of[NV8][8];
+#pragma unroll
+  for (int i = 0; i < NV8; ++i) {
+    const int c = lane + 32 * i;
+    widen(c < d8 ? ld8<PB>(scale, c) : zero8<PB>(), sc[i]);
+    widen(c < d8 ? ld8<PB>(offset, c) : zero8<PB>(), of[i]);
+  }
+  // row r's chunks (zeros past the row or the rows)
+  auto load = [&](int r, Raw8<true>* xo) {
+    const size_t o = (size_t)r * d8;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      const int c = lane + 32 * i;
+      xo[i] = r < rows && c < d8 ? ld8<true>(x, o + c) : zero8<true>();
+    }
+  };
+  const int stride = gridDim.x * W;
+  Raw8<true> xn[NV8];
+  load(blockIdx.x * W + warp, xn);
+  for (int row = blockIdx.x * W + warp; row < rows; row += stride) {
+    float u[NV8][8];
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) widen(xn[i], u[i]);
+    load(row + stride, xn);            // in flight while this row is worked
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) s += sum8(u[i]);
+    const float mean = warp_sum(s) / (float)d;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      if (lane + 32 * i >= d8) continue;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[i][k] -= mean;
+        q += u[i][k] * u[i][k];
+      }
+    }
+    const float sd = sqrtf(warp_sum(q) / (float)(d - 1)) + eps;
+    const size_t o = (size_t)row * d8;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= d8) continue;
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        v[k] = rnd_if(u[i][k] / sd * sc[i][k] + of[i][k], rnd);
+      st8<true>(y, o + c, v);
+    }
+  }
 }
 
 struct RowCoef {
@@ -367,6 +541,139 @@ __global__ void __launch_bounds__(ROWS_WARPS * 32, 1)
   sum_partials(ws, d, dscale, doffset, false);
 }
 
+// The backward over typed rows: x, res and dx bf16, g of type GB, scale of
+// type PB (bf16 where true); d_scale / d_offset bf16 where fl has
+// LN_D_BF, dx rounded to bf16 values where it has LN_RND. ln_bwd_rows_kernel's
+// design on raw chunks (see the file's head).
+template <bool GB, bool PB, int NV8>
+__global__ void __launch_bounds__(typed_rows_warps(NV8) * 32, 1)
+    ln_bwd_rows_typed_kernel(const void* __restrict__ x,
+                             const void* __restrict__ scale,
+                             const void* __restrict__ g, const void* res,
+                             void* dx, float* __restrict__ ws,
+                             void* __restrict__ dscale,
+                             void* __restrict__ doffset, int rows, int d,
+                             float eps, int fl) {
+  constexpr int W = typed_rows_warps(NV8);
+  extern __shared__ __align__(16) float acc[];   // [W][2][d]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int d8 = d >> 3, d4 = d >> 2;
+  const bool rnd = fl & uic::LN_RND;
+  float ds[NV8][8], db[NV8][8];
+#pragma unroll
+  for (int i = 0; i < NV8; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) ds[i][k] = db[i][k] = 0.f;
+
+  // row r's x and g chunks (zeros past the row or the rows)
+  auto load = [&](int r, Raw8<true>* xo, Raw8<GB>* go) {
+    const size_t o = (size_t)r * d8;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      const int c = lane + 32 * i;
+      const bool in = r < rows && c < d8;
+      xo[i] = in ? ld8<true>(x, o + c) : zero8<true>();
+      go[i] = in ? ld8<GB>(g, o + c) : zero8<GB>();
+    }
+  };
+  const int stride = gridDim.x * W;
+  Raw8<true> xn[NV8];
+  Raw8<GB> gn[NV8];
+  load(blockIdx.x * W + warp, xn, gn);
+  for (int row = blockIdx.x * W + warp; row < rows; row += stride) {
+    const size_t o = (size_t)row * d8;
+    float u[NV8][8], gg[NV8][8];
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      widen(xn[i], u[i]);
+      widen(gn[i], gg[i]);
+    }
+    // this row's res, then the next row's x and g, in flight while this row
+    // is worked on
+    Raw8<true> rv[NV8];
+#pragma unroll
+    for (int i = 0; i < NV8; ++i)
+      rv[i] = res && lane + 32 * i < d8 ? ld8<true>(res, o + lane + 32 * i)
+                                        : zero8<true>();
+    load(row + stride, xn, gn);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) s += sum8(u[i]);
+    const float mean = warp_sum(s) / (float)d;
+    // x - mean in place; the variance and both sums of the derivative
+    float q = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= d8) continue;
+      float sc[8];
+      widen(ld8<PB>(scale, c), sc);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[i][k] -= mean;
+        const float h = gg[i][k] * sc[k];
+        q += u[i][k] * u[i][k];
+        s1 += h * u[i][k];
+        s2 += h;
+      }
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {   // the three sums interleaved
+      q += __shfl_xor_sync(0xffffffffu, q, m);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+    }
+    const RowCoef k = row_coef(q, s1, s2, d, eps);
+#pragma unroll
+    for (int i = 0; i < NV8; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= d8) continue;
+      float sc[8], r[8], v[8];
+      widen(ld8<PB>(scale, c), sc);
+      widen(rv[i], r);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float uu = u[i][j], gj = gg[i][j];
+        const float w = gj * sc[j] / k.sd + k.c1 * uu + k.c2;
+        v[j] = rnd_if(res ? r[j] + w : w, rnd);
+        ds[i][j] += gj * (uu / k.sd);
+        db[i][j] += gj;
+      }
+      st8<true>(dx, o + c, v);
+    }
+  }
+
+  // the block's warps added in warp order into its partial row ([2][d]:
+  // d_scale's columns, then d_offset's)
+  float4* a4 = reinterpret_cast<float4*>(acc);
+#pragma unroll
+  for (int i = 0; i < NV8; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d8) {
+      float4* as = a4 + (size_t)(2 * warp) * d4 + 2 * c;
+      float4* ab = a4 + (size_t)(2 * warp + 1) * d4 + 2 * c;
+      as[0] = make_float4(ds[i][0], ds[i][1], ds[i][2], ds[i][3]);
+      as[1] = make_float4(ds[i][4], ds[i][5], ds[i][6], ds[i][7]);
+      ab[0] = make_float4(db[i][0], db[i][1], db[i][2], db[i][3]);
+      ab[1] = make_float4(db[i][4], db[i][5], db[i][6], db[i][7]);
+    }
+  }
+  __syncthreads();
+  float4* part = reinterpret_cast<float4*>(ws) + (size_t)blockIdx.x * 2 * d4;
+  for (int c = threadIdx.x; c < 2 * d4; c += W * 32) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < W; ++w) {
+      const float4 v = a4[(size_t)w * 2 * d4 + c];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    part[c] = s;
+  }
+  sum_partials(ws, d, dscale, doffset, fl & uic::LN_D_BF);
+}
+
 // TYPED: the operands of any types (uic::LN_* flags in fl), read through
 // converting loads, dx rounded where it is a bf16 value
 template <bool TYPED>
@@ -491,6 +798,85 @@ int launch_any(const void* x, const void* scale, const void* dy,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// The typed register-row instances' rule (kernels/ln_train.py::
+// register_instance): x bf16 with y / dx bf16, g or the parameters bf16
+// (the routes' mixtures), and res bf16 where the call has one; d a
+// multiple of 8 up to 1,024; every pointer on 16 bytes.
+bool typed_rows(int d, int fl, bool aligned, bool has_res) {
+  return (fl & uic::LN_X_BF) && (fl & uic::LN_Y_BF) &&
+         (fl & (uic::LN_G_BF | uic::LN_P_BF)) && d % 8 == 0 &&
+         d >= 8 && d <= 8 * 32 * MAX_NV8 && aligned &&
+         (!has_res || (fl & uic::LN_R_BF));
+}
+
+template <bool PB, int NV8>
+int launch_fwd_rows(const void* x, const void* scale, const void* offset,
+                    void* y, int rows, int d, float eps, bool rnd,
+                    cudaStream_t st) {
+  constexpr int W = FWD_ROWS_WARPS;
+  auto kernel = ln_fwd_rows_typed_kernel<PB, NV8>;
+  static int per_sm = 0;   // resident blocks an SM (the grid's stride)
+  if (per_sm < 1) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, W * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = per_sm < 1 ? 1 : per_sm;
+  }
+  const int most = uic::gemm_sm_count() * per_sm;
+  const int blocks = cdiv(rows, W) < most ? cdiv(rows, W) : most;
+  kernel<<<blocks, W * 32, 0, st>>>(x, scale, offset, y, rows, d, eps, rnd);
+  return (int)cudaGetLastError();
+}
+
+// the forward's typed register-row launch for the parameters' type and d
+template <bool PB>
+int fwd_rows(const void* x, const void* scale, const void* offset, void* y,
+             int rows, int d, float eps, bool rnd, cudaStream_t st) {
+  switch (cdiv(d / 8, 32)) {
+    case 1: return launch_fwd_rows<PB, 1>(x, scale, offset, y, rows, d, eps,
+                                          rnd, st);
+    case 2: return launch_fwd_rows<PB, 2>(x, scale, offset, y, rows, d, eps,
+                                          rnd, st);
+    case 3: return launch_fwd_rows<PB, 3>(x, scale, offset, y, rows, d, eps,
+                                          rnd, st);
+    default: return launch_fwd_rows<PB, 4>(x, scale, offset, y, rows, d, eps,
+                                           rnd, st);
+  }
+}
+
+template <bool GB, bool PB, int NV8>
+int launch_bwd_rows(const void* x, const void* scale, const void* dy,
+                    const void* res, void* dx, void* dscale, void* doffset,
+                    float* ws, int rows, int d, float eps, cudaStream_t st,
+                    int fl) {
+  constexpr int W = typed_rows_warps(NV8);
+  const size_t smem = sizeof(float) * W * 2 * (size_t)d;   // [W][2][d]
+  return launch_bwd(ln_bwd_rows_typed_kernel<GB, PB, NV8>, W, smem, x, scale,
+                    dy, res, dx, dscale, doffset, ws, rows, d, eps, st, fl);
+}
+
+// the backward's typed register-row launch for g's and the parameters'
+// types and d
+template <bool GB, bool PB>
+int bwd_rows(const void* x, const void* scale, const void* dy,
+             const void* res, void* dx, void* dscale, void* doffset,
+             float* ws, int rows, int d, float eps, cudaStream_t st, int fl) {
+  switch (cdiv(d / 8, 32)) {
+    case 1: return launch_bwd_rows<GB, PB, 1>(x, scale, dy, res, dx, dscale,
+                                              doffset, ws, rows, d, eps, st,
+                                              fl);
+    case 2: return launch_bwd_rows<GB, PB, 2>(x, scale, dy, res, dx, dscale,
+                                              doffset, ws, rows, d, eps, st,
+                                              fl);
+    case 3: return launch_bwd_rows<GB, PB, 3>(x, scale, dy, res, dx, dscale,
+                                              doffset, ws, rows, d, eps, st,
+                                              fl);
+    default: return launch_bwd_rows<GB, PB, 4>(x, scale, dy, res, dx, dscale,
+                                               doffset, ws, rows, d, eps, st,
+                                               fl);
+  }
+}
+
 }  // namespace
 
 namespace uic {
@@ -500,8 +886,21 @@ long long ln_bwd_ws_floats(int d) {
 }
 
 int ln_fwd(const void* xv, const void* scale_v, const void* offset_v,
-           void* yv, int rows, int d, float eps, cudaStream_t st, int fl) {
+           void* yv, int rows, int d, float eps, cudaStream_t st, int fl,
+           int* route) {
   const int blocks = (rows + WARPS - 1) / WARPS;
+  if (typed_rows(d, fl,
+                 aligned16(xv) && aligned16(scale_v) && aligned16(offset_v) &&
+                     aligned16(yv),
+                 false)) {
+    if (route) *route = LN_ROUTE_ROWS;
+    return fl & LN_P_BF
+               ? fwd_rows<true>(xv, scale_v, offset_v, yv, rows, d, eps,
+                                fl & LN_RND, st)
+               : fwd_rows<false>(xv, scale_v, offset_v, yv, rows, d, eps,
+                                 fl & LN_RND, st);
+  }
+  if (route) *route = fl ? LN_ROUTE_TYPED : LN_ROUTE_F32;
   if (fl)
     ln_fwd_typed_kernel<<<blocks, WARPS * 32, 0, st>>>(
         xv, scale_v, offset_v, yv, rows, d, eps, fl);
@@ -515,10 +914,31 @@ int ln_fwd(const void* xv, const void* scale_v, const void* offset_v,
 
 int ln_bwd(const void* xv, const void* scale_v, const void* dyv,
            const void* res_v, void* dxv, void* dscale_v, void* doffset_v,
-           float* ws, int rows, int d, float eps, cudaStream_t st, int fl) {
+           float* ws, int rows, int d, float eps, cudaStream_t st, int fl,
+           int* route) {
   if (d < 2 || rows < 0) return (int)cudaErrorInvalidValue;
-  // operands of other types than f32 take the typed instance of the
-  // general kernel (converting loads, rounding stores)
+  // operands of other types than f32: the typed register-row instances
+  // where their rule holds (g or the parameters bf16: typed_rows), else the
+  // typed instance of the general kernel (converting loads, rounding
+  // stores)
+  if (typed_rows(d, fl,
+                 aligned16(xv) && aligned16(scale_v) && aligned16(dyv) &&
+                     aligned16(dxv) && (!res_v || aligned16(res_v)),
+                 res_v != nullptr)) {
+    if (route) *route = LN_ROUTE_ROWS;
+    switch (fl & (LN_G_BF | LN_P_BF)) {
+      case LN_G_BF | LN_P_BF:
+        return bwd_rows<true, true>(xv, scale_v, dyv, res_v, dxv, dscale_v,
+                                    doffset_v, ws, rows, d, eps, st, fl);
+      case LN_G_BF:
+        return bwd_rows<true, false>(xv, scale_v, dyv, res_v, dxv, dscale_v,
+                                     doffset_v, ws, rows, d, eps, st, fl);
+      default:   // LN_P_BF
+        return bwd_rows<false, true>(xv, scale_v, dyv, res_v, dxv, dscale_v,
+                                     doffset_v, ws, rows, d, eps, st, fl);
+    }
+  }
+  if (route) *route = fl ? LN_ROUTE_TYPED : LN_ROUTE_F32;
   if (fl)
     return launch_any<true>(xv, scale_v, dyv, res_v, dxv, dscale_v,
                             doffset_v, ws, rows, d, eps, st, fl);
@@ -562,12 +982,13 @@ int ln_bwd(const void* xv, const void* scale_v, const void* dyv,
 extern "C" {
 
 // x, y [rows, d], scale / offset [d]; fl: the uic::LN_* types of the
-// operands (y in x's type)
+// operands (y in x's type); *route (host) receives the uic::LN_ROUTE_* the
+// call ran.
 int ln_train_fwd_mixed(const void* x, const void* scale, const void* offset,
                        void* y, int rows, int d, float eps, int fl,
-                       void* stream) {
+                       int* route, void* stream) {
   return uic::ln_fwd(x, scale, offset, y, rows, d, eps, (cudaStream_t)stream,
-                     fl);
+                     fl, route);
 }
 
 // Floats of the backward's scratch for width d into *n. Returns 0.
@@ -578,12 +999,14 @@ int ln_train_bwd_ws_f32(int d, long long* n) {
 
 // g, dx [rows, d]; ws scratch of ln_train_bwd_ws_f32(d) floats; dscale /
 // doffset [d]. One launch. fl: the uic::LN_* types of the operands (x and
-// g of one type, dx in it; d_scale / d_offset in scale's type).
+// g of one type, dx in it; d_scale / d_offset in scale's type); *route
+// (host) receives the uic::LN_ROUTE_* the call ran.
 int ln_train_bwd_mixed(const void* x, const void* scale, const void* g,
                        void* dx, void* dscale, void* doffset, float* ws,
-                       int rows, int d, float eps, int fl, void* stream) {
+                       int rows, int d, float eps, int fl, int* route,
+                       void* stream) {
   return uic::ln_bwd(x, scale, g, nullptr, dx, dscale, doffset, ws, rows, d,
-                     eps, (cudaStream_t)stream, fl);
+                     eps, (cudaStream_t)stream, fl, route);
 }
 
 }  // extern "C"

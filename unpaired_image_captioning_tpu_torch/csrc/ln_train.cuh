@@ -22,15 +22,23 @@ constexpr int LN_R_BF = 16;   // the backward's res
 constexpr int LN_RND = 32;    // y / dx rounded to bf16 values
 constexpr int LN_D_BF = 64;   // d_scale and d_offset (summed in f32)
 
+// The instances a call ran (*route where the caller asks): the f32
+// kernels, the general typed instances, or the typed register-row ones
+// (kernels/ln_train.py::register_instance states when).
+constexpr int LN_ROUTE_F32 = 0;
+constexpr int LN_ROUTE_TYPED = 1;
+constexpr int LN_ROUTE_ROWS = 2;
+
 // y = LN(x) over rows of d
 int ln_fwd(const void* x, const void* scale, const void* offset, void* y,
-           int rows, int d, float eps, cudaStream_t st, int fl = 0);
+           int rows, int d, float eps, cudaStream_t st, int fl = 0,
+           int* route = nullptr);
 // dx = res + d/dx LN(x) . dy (res may be null: no residual; it may be dx
 // itself), and d_scale / d_offset summed over the rows in a fixed order, in
 // one cooperative launch; ws holds ln_bwd_ws_floats(d) floats.
 int ln_bwd(const void* x, const void* scale, const void* dy,
            const void* res, void* dx, void* dscale, void* doffset,
            float* ws, int rows, int d, float eps, cudaStream_t st,
-           int fl = 0);
+           int fl = 0, int* route = nullptr);
 
 }  // namespace uic

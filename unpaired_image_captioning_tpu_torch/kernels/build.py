@@ -75,10 +75,12 @@ SIGNATURES = {
     # B, T, S, H, tc (the tensor-core instance), out int64 [1] -> bytes of
     # the backward's scratch
     "mha_train_bwd_ws_bytes": (_I,) * 5 + (_P,),
-    # x, scale, offset, y, rows, d, eps, fl (the LN_* types), stream
-    "ln_train_fwd_mixed": (_P,) * 4 + (_I, _I, _F, _I, _P),
-    # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, fl, stream
-    "ln_train_bwd_mixed": (_P,) * 7 + (_I, _I, _F, _I, _P),
+    # x, scale, offset, y, rows, d, eps, fl (the LN_* types), out int32 [1]
+    # -> the route it ran, stream
+    "ln_train_fwd_mixed": (_P,) * 4 + (_I, _I, _F, _I, _P, _P),
+    # x, scale, g, dx, dscale, doffset, ws, rows, d, eps, fl, out int32 [1]
+    # -> the route it ran, stream
+    "ln_train_bwd_mixed": (_P,) * 7 + (_I, _I, _F, _I, _P, _P),
     # d, out int64 [1] -> floats of the backward's scratch
     "ln_train_bwd_ws_f32": (_I, _P),
     # kind, B, T, S, d, f, H, bf, out int64 [1] -> floats of a layer
