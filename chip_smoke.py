@@ -1423,6 +1423,75 @@ def phase_times(dev, groups) -> list:
                 b_ih, b_hh = bias[cols].contiguous(), torch.zeros_like(bias)
                 rec("torch.lstm_cell bf16", shape, lambda: torch.lstm_cell(
                     x, (h0, c0), w_ih, w_hh, b_ih, b_hh))
+        # B10 at the lstm0 fragment's shape in each mixture (f32, all bf16,
+        # bf16 w_h2h under an f32 carry) beside cuDNN's LSTM in bf16 over
+        # the same steps, and its bound; the tensor-core launches of the
+        # timed calls where the tree counts them
+        from unpaired_image_captioning_tpu_torch.kernels import (
+            lstm_block as lb)
+
+        b_, t_, d_, h_ = CHAIN_SHAPE
+        for g in (4, 5):
+            w, bias, x, h0, c0, ch, cc = _chain_inputs(dev, gen, g)
+            xc = (x.reshape(t_ * b_, d_) @ w[:d_] + bias).reshape(t_, b_, -1)
+            for tc, tw in (("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")):
+                w_hh = w[d_:].contiguous().to(_dt(tw))
+                h0c, c0c, chc, ccc = (v.to(_dt(tc)) for v in (h0, c0, ch, cc))
+                hs, cs, gates = lb.chain_fwd(xc, h0c, c0c, w_hh,
+                                             maxout=g == 5)
+                shape = f"G={g} [T {t_}, B {b_}, H {h_}] carry/w_h2h {tc}/{tw}"
+                mm = 2.0 * t_ * b_ * h_ * g * h_
+                for key, fn, by, bf_mm in (
+                        ("fwd", lambda: lb.chain_fwd(xc, h0c, c0c, w_hh,
+                                                     maxout=g == 5),
+                         nbytes(xc, h0c, c0c, w_hh, hs, cs, gates),
+                         tc == tw == "bf16"),
+                        ("bwd", lambda: lb.chain_bwd(gates, cs, c0c, chc, ccc,
+                                                     w_hh, maxout=g == 5),
+                         nbytes(gates, cs, c0c, chc, ccc, w_hh, gates, c0c,
+                                c0c), tw == "bf16")):
+                    counter = getattr(lb, f"tc_{key}_launches", None)
+                    r = rec(f"lstm_chain_{key}", shape, fn)
+                    r["bound_ms"], r["bound_by"] = bound_mixed(
+                        by, 0.0 if bf_mm else mm, mm if bf_mm else 0.0)
+                    r["tc_launches"] = (
+                        None if counter is None
+                        else getattr(lb, f"tc_{key}_launches") - counter)
+            if g == 4:
+                cols = torch.cat([torch.arange(j * h_, (j + 1) * h_,
+                                               device=dev)
+                                  for j in (0, 1, 3, 2)])
+                lstm = torch.nn.LSTM(d_, h_).to(dev, bf)
+                with torch.no_grad():
+                    lstm.weight_ih_l0.copy_(w[:d_, cols].t())
+                    lstm.weight_hh_l0.copy_(w[d_:, cols].t())
+                    lstm.bias_ih_l0.copy_(bias[cols])
+                    lstm.bias_hh_l0.zero_()
+                lstm.flatten_parameters()
+                xb, h0b, c0b = x.to(bf), h0.to(bf)[None], c0.to(bf)[None]
+                with torch.no_grad():
+                    rec("cuDNN nn.LSTM bf16 forward (x @ W_ih too)", shape,
+                        lambda: lstm(xb, (h0b, c0b)))
+                lx = xb.detach().requires_grad_()
+                lh0, lc0 = (z.detach().requires_grad_() for z in (h0b, c0b))
+                lout, _ = lstm(lx, (lh0, lc0))
+                gb = ch.to(bf)
+                rec("cuDNN nn.LSTM bf16 backward (dx, dW_ih too)", shape,
+                    lambda: torch.autograd.grad(
+                        lout, (lx, lh0, lc0, *lstm.parameters()), gb,
+                        retain_graph=True))
+                del lout, lx, lh0, lc0
+        # B9c with bf16 features and f32 or (the cast route) bf16 weights
+        step = _step_args(dev, gen)
+        for cast in (False, True):
+            args = list(step)
+            for i in (1, 3, 4, 5, 6) + ((7, 8, 9, 10, 11, 12, 13, 14)
+                                        if cast else ()):
+                args[i] = args[i].to(bf)
+            with torch.no_grad():
+                rec("att_lstm_att bf16 features",
+                    f"B9c, {'bf16' if cast else 'f32'} weights",
+                    lambda a_=args: aak.fused_att_lstm_att(*a_))
         # B5's bf16 forward and backward alone at the path shapes, SDPA on
         # the same bf16 tensors beside them (at rate 0; the port never calls
         # it), and their bound
@@ -8410,9 +8479,16 @@ BF16_STEP_MIXES = (("f32", "bf16", "f32", "bf16", "bf16", "bf16", "f32",
                     "f32", "f32"),
                    ("f32", "bf16", "f32", "bf16", "bf16", "bf16", "bf16",
                     "bf16", "bf16"))
-# B10 (the carry, w_h2h) with an f32 x_contrib, G = 5 and G = 4
+# B10 (the carry, w_h2h) with an f32 x_contrib, G = 5 and G = 4; by the
+# rule (kernels.lstm_block.tensor_core) bf16 / bf16 runs the tensor-core
+# instances both ways, f32 / bf16 the backward's, bf16 / f32 neither
 BF16_CHAIN_MIXES = ((5, "bf16", "bf16"), (5, "bf16", "f32"),
-                    (5, "f32", "bf16"), (4, "bf16", "bf16"))
+                    (5, "f32", "bf16"), (4, "bf16", "bf16"),
+                    (4, "f32", "bf16"))
+# B10's tensor-core instances also at ragged shapes (checked, not timed):
+# (B, T, H, G) with H off 16 bytes (76), odd (29) and a multiple of 8 but
+# not of 16 (40), B not a multiple of 16 (70: two passes of rows)
+BF16_CHAIN_RAGGED = [(37, 5, 76, 5), (5, 3, 29, 4), (70, 2, 40, 5)]
 
 
 def _dt(name: str):
@@ -8465,6 +8541,46 @@ def _bf16_record(name, src, line, rows):
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["label"],
             "timing": main["timing"], "shapes": rows, "launches": 0}
+
+
+def _chain_bf16_check(shape: str, xc, h0, c0, w_hh, dhs, dcs,
+                      maxout: bool):
+    """B10 in one bf16 mixture: forward and backward against the plain
+    versions at BF16_TOL, a rerun bit for bit, and the tensor-core
+    launches by the rule (`lb.tensor_core`). Returns ((hs, cs, gates,
+    dgates, dh0, dc0), (forward error, backward error))."""
+    import torch
+
+    from unpaired_image_captioning_tpu_torch.kernels import lstm_block as lb
+    from unpaired_image_captioning_tpu_torch.ops import lstm_block as lo
+
+    types = lb._mixture("lstm_chain", {"x_contrib": xc}, {"h0": h0}, w_hh)
+    before = (lb.tc_fwd_launches, lb.tc_bwd_launches)
+    hs, cs, gates = lb.chain_fwd(xc, h0, c0, w_hh, maxout=maxout)
+    dg, dh0, dc0 = lb.chain_bwd(gates, cs, c0, dhs, dcs, w_hh, maxout=maxout)
+    ran = (lb.tc_fwd_launches - before[0], lb.tc_bwd_launches - before[1])
+    rule = (int(lb.tensor_core(types, False)), int(lb.tensor_core(types,
+                                                                  True)))
+    if ran != rule:
+        raise AssertionError(f"lstm_chain {shape}: tensor-core launches "
+                             f"{ran}, the rule gives {rule}")
+    phs, pcs, pgates = lo.chain_fwd_plain(xc, h0, c0, w_hh, maxout=maxout)
+    pdg, pdh0, pdc0 = lo.chain_bwd_plain(gates, cs, c0, dhs, dcs, w_hh,
+                                         maxout=maxout)
+    torch.cuda.synchronize()
+    e_f = _bf16_close(f"lstm_chain forward {shape}", [hs, cs, gates],
+                      [phs, pcs, pgates])
+    e_b = _bf16_close(f"lstm_chain backward {shape}", [dg, dh0, dc0],
+                      [pdg, pdh0, pdc0])
+    outs = (hs, cs, gates, dg, dh0, dc0)
+    again = (lb.chain_fwd(xc, h0, c0, w_hh, maxout=maxout)
+             + lb.chain_bwd(gates, cs, c0, dhs, dcs, w_hh, maxout=maxout))
+    if not all(torch.equal(a, b) for a, b in zip(again, outs)):
+        raise AssertionError(f"lstm_chain {shape}: a rerun differs")
+    log(f"lstm_chain {shape}: tensor-core launches (fwd, bwd) {ran} by the "
+        f"rule; |diff| / (1 + |plain|) forward {e_f:.3g}, backward "
+        f"{e_b:.3g} (rtol = atol = {BF16_TOL}); a rerun bit for bit")
+    return outs, (e_f, e_b)
 
 
 def phase_bf16_kernels(dev, kernels: dict) -> tuple:
@@ -8655,7 +8771,7 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
                 f"att_lstm_att {shape}",
                 lambda s=step: aak.fused_att_lstm_att(*s),
                 lambda s=step: ao.att_lstm_att_plain(*s),
-                STEP_KERNELS + ("rows_gemm_bf16w", "round_pair_kernel"),
+                STEP_KERNELS + ("round_pair_kernel",),
                 nbytes(*step, *outs),
                 2.0 * b * (2 * n * (a + d) + (2 * h + d) * 5 * h * (not cell_bf)
                            + d * h + h * a),
@@ -8680,20 +8796,10 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
         h0c, c0c = h0.to(_dt(tc)), c0.to(_dt(tc))
         chc, ccc = ch.to(_dt(tc)), cc.to(_dt(tc))
         maxout = g == 5
-        hs, cs, gates = lb.chain_fwd(xc, h0c, c0c, w_hh, maxout=maxout)
-        dg, dh0, dc0 = lb.chain_bwd(gates, cs, c0c, chc, ccc, w_hh,
-                                    maxout=maxout)
-        phs, pcs, pgates = lo.chain_fwd_plain(xc, h0c, c0c, w_hh,
-                                              maxout=maxout)
-        pdg, pdh0, pdc0 = lo.chain_bwd_plain(gates, cs, c0c, chc, ccc, w_hh,
-                                             maxout=maxout)
-        torch.cuda.synchronize()
         mix = (tc, tw)
         shape = f"G={g} [T {t}, B {bt}, H {h}] carry/w_h2h {tc}/{tw}"
-        e_f = _bf16_close(f"lstm_chain forward {shape}", [hs, cs, gates],
-                          [phs, pcs, pgates])
-        e_b = _bf16_close(f"lstm_chain backward {shape}", [dg, dh0, dc0],
-                          [pdg, pdh0, pdc0])
+        (hs, cs, gates, dg, dh0, dc0), (e_f, e_b) = _chain_bf16_check(
+            shape, xc, h0c, c0c, w_hh, chc, ccc, maxout)
         held["lstm_chain"].add((t, bt, h, g, mix))
         bf = tc == tw == "bf16"
         mm = 2.0 * t * bt * h * g * h
@@ -8729,7 +8835,8 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
             f"lstm_chain_fwd {shape}",
             lambda: lb.chain_fwd(xc, h0c, c0c, w_hh, maxout=maxout),
             lambda: lo.chain_fwd_plain(xc, h0c, c0c, w_hh, maxout=maxout),
-            "chain_fwd_kernel", nbytes(xc, h0c, c0c, w_hh, hs, cs, gates),
+            ("chain_fwd_kernel", "chain_fwd_tc_kernel"),
+            nbytes(xc, h0c, c0c, w_hh, hs, cs, gates),
             0.0 if bf else mm, mm if bf else 0.0, e_f, lib=lib,
             f32_ms=f32_chain["fwd"].get(f32_shape)))
         rows["bwd"].append(row(
@@ -8738,10 +8845,21 @@ def phase_bf16_kernels(dev, kernels: dict) -> tuple:
                                  maxout=maxout),
             lambda: lo.chain_bwd_plain(gates, cs, c0c, chc, ccc, w_hh,
                                        maxout=maxout),
-            "chain_bwd_kernel",
+            ("chain_bwd_kernel", "chain_bwd_tc_kernel"),
             nbytes(gates, cs, c0c, chc, ccc, w_hh, dg, dh0, dc0),
             0.0 if tw == "bf16" else mm, mm if tw == "bf16" else 0.0, e_b,
             lib=lib_b, f32_ms=f32_chain["bwd"].get(f32_shape)))
+    for b_, t_, h_, g in BF16_CHAIN_RAGGED:
+        for tc, tw in (("bf16", "bf16"), ("f32", "bf16")):
+            xc = torch.randn((t_, b_, g * h_), generator=gen, device=dev)
+            w_hh = (torch.randn((h_, g * h_), generator=gen, device=dev)
+                    / h_ ** 0.5).to(_dt(tw))
+            h0c, c0c, chc, ccc = (
+                (torch.randn(z, generator=gen, device=dev) * 0.5).to(_dt(tc))
+                for z in ((b_, h_), (b_, h_), (t_, b_, h_), (t_, b_, h_)))
+            _chain_bf16_check(f"G={g} [T {t_}, B {b_}, H {h_}] carry/w_h2h "
+                              f"{tc}/{tw}", xc, h0c, c0c, w_hh, chc, ccc,
+                              g == 5)
     for key, line in (("fwd", "52"), ("bwd", "120")):
         rec[f"lstm_chain_{key}_bf16"] = _bf16_record(
             f"lstm_chain_{key}_bf16",
@@ -8908,6 +9026,168 @@ def _c5_check(dev) -> dict:
         f"{len(stacks)} seeds")
     return {"seeds": list(C5_SEEDS), "layer_max": per_layer,
             "stack_by_seed": stacks, "stack_max": worst}
+
+
+# ROADMAP C6: the small denseatt captioner and data of
+# tests/test_torch_eval.py::test_cuda_eval_split_matches_cpu (its CFG, its
+# artifacts, its x40 output weights)
+C6_CFG = dict(caption_model="denseatt", vocab_size=30, rnn_size=24,
+              num_layers=1, input_encoding_size=16, att_hid_size=16,
+              fc_feat_size=32, att_feat_size=24, seq_length=8,
+              drop_prob_lm=0.0, nmt_src_vocab_size=30, nmt_tgt_vocab_size=28,
+              word_vec_size=16, layers=1, dropout=0.0, batch_size=3,
+              seq_per_img=2)
+
+
+def _greedy_with_logprobs(model, feats):
+    """`model.sample(feats, greedy=True)`'s loop, keeping each step's whole
+    log-softmax: (seq [B, T], logprobs [B, T, V]) on the host."""
+    import torch
+
+    with torch.no_grad():
+        ctx, state = model.make_decoder(feats, training=False)
+        ctx = model.decode_ctx(ctx)
+        it = torch.zeros((feats.fc_feats.shape[0],), dtype=torch.int64,
+                         device=feats.fc_feats.device)
+        seq, lps = [], []
+        for _ in range(model.seq_length):
+            lp, state = model.step(ctx, state, it, training=False)
+            lp = lp.float()
+            it = torch.argmax(lp, dim=-1)
+            seq.append(it.cpu())
+            lps.append(lp.cpu())
+    return torch.stack(seq, 1), torch.stack(lps, 1)
+
+
+def _c6_check(dev) -> dict:
+    """ROADMAP C6, settled: the card's `eval_split` rounds f32 features to
+    bf16 (`eval_utils._upload_feature`, as JAX's eval does on a TPU), the
+    CPU's does not, so the eval test's card and CPU runs decoded two
+    functions. On the test's model and data, greedy and beam 3: the card
+    equals the CPU on the same rounded features (the loader's
+    feat_dtype="bfloat16"), predictions token for token and the loss within
+    1e-4 relative; the card's own rounding equals `to_bfloat16`'s (the card
+    with f32 features equals the card with the loader's bf16 ones, bit for
+    bit); and the card against the CPU on f32 features, where they part,
+    with the top-2 log-probability margin of each run at the step where the
+    greedy tokens part. Raises where the card and the CPU differ on the
+    same features."""
+    import os
+    import tempfile
+
+    import torch
+
+    from unpaired_image_captioning_tpu_torch import models as tmodels
+    from unpaired_image_captioning_tpu_torch.config import Config
+    from unpaired_image_captioning_tpu_torch.data import synthetic as tsyn
+    from unpaired_image_captioning_tpu_torch.data.dataloader import (
+        CaptionDataLoader)
+    from unpaired_image_captioning_tpu_torch.eval import eval_utils as teval
+    from unpaired_image_captioning_tpu_torch.models.base import Features
+
+    here = os.getcwd()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="c6-") as root:
+        os.chdir(root)
+        try:
+            jpath, npz, mem = tsyn.make_caption_artifacts(
+                root, n_images=14, vocab_size=30, seq_length=8, n_val=6,
+                seed=1)
+
+            def loader(fd):
+                return CaptionDataLoader(
+                    input_json=jpath, input_label_h5=npz, in_memory=mem,
+                    batch_size=3, seq_per_img=2, att_feat_size=24,
+                    attri_feat_size=16, feat_dtype=fd)
+
+            cpu = tmodels.setup(Config(**C6_CFG), device="cpu").init_params(
+                torch.Generator().manual_seed(0))
+            with torch.no_grad():
+                cpu.logit[0].w.mul_(40.0)
+            card = tmodels.setup(Config(**C6_CFG), device=dev)
+            card.load_state_dict(cpu.state_dict())
+            models = {"card": card, "cpu": cpu}
+            for beam in (1, 3):
+                runs = {(name, fd): teval.eval_split(
+                    m, loader(fd), beam_size=beam,
+                    eval_results_dir=os.path.join(root, f"{name}-{fd}"))
+                    for name, m in models.items()
+                    for fd in ("float32", "bfloat16")}
+                words = {k: [p["caption"].split() for p in r["predictions"]]
+                         for k, r in runs.items()}
+                same = words["card", "bfloat16"] == words["cpu", "bfloat16"]
+                loss_err = abs(runs["card", "bfloat16"]["loss"]
+                               - runs["cpu", "bfloat16"]["loss"]) / abs(
+                    runs["cpu", "bfloat16"]["loss"])
+                own = (runs["card", "float32"]["predictions"]
+                       == runs["card", "bfloat16"]["predictions"]
+                       and runs["card", "float32"]["loss"]
+                       == runs["card", "bfloat16"]["loss"])
+                parted = [(i, next(k for k, (a, b) in enumerate(
+                    zip(wc + [None], wf + [None])) if a != b))
+                    for i, (wc, wf) in enumerate(zip(
+                        words["card", "float32"], words["cpu", "float32"]))
+                    if wc != wf]
+                out[f"beam {beam}"] = dict(
+                    card_vs_cpu_rounded_tokens_equal=same,
+                    card_vs_cpu_rounded_loss_rel=loss_err,
+                    card_rounding_is_to_bfloat16=own,
+                    card_vs_cpu_f32_parted=parted,
+                    loss_card=runs["card", "float32"]["loss"],
+                    loss_cpu_f32=runs["cpu", "float32"]["loss"])
+                log(f"C6 beam {beam}: card vs CPU on the same rounded "
+                    f"features: tokens equal {same}, loss rel diff "
+                    f"{loss_err:.3g}; card with f32 features equals card "
+                    f"with the loader's bf16 ones: {own}; card vs CPU on "
+                    f"f32 features: (image, word) where they part "
+                    f"{parted}")
+                if not (same and loss_err <= 1e-4 and own):
+                    raise AssertionError(f"C6 beam {beam}: {out}")
+            # the greedy step where the card and the CPU on f32 features
+            # part: each run's top-2 margin there, batch by batch as
+            # eval_split decodes
+            margins = []
+            lds = {fd: loader(fd) for fd in ("float32", "bfloat16")}
+            for ld in lds.values():
+                ld.reset_iterator("val")
+            while True:
+                data = {fd: ld.get_batch("val") for fd, ld in lds.items()}
+                dec = {}
+                for name, m, fd in (("card", card, "float32"),
+                                    ("cpu f32", cpu, "float32"),
+                                    ("cpu rounded", cpu, "bfloat16")):
+                    d = data[fd]
+                    f = Features(*(teval._upload_feature(d[k], m.device)
+                                   for k in ("fc_feats", "att_feats",
+                                             "attri_feats")),
+                                 att_masks=teval._upload(d["att_masks"],
+                                                         m.device))
+                    first = torch.arange(0, f.fc_feats.shape[0], 2,
+                                         device=m.device)
+                    dec[name] = _greedy_with_logprobs(
+                        m, Features(*(x[first] if x is not None else None
+                                      for x in f)))
+                for r in range(dec["card"][0].shape[0]):
+                    diff = (dec["card"][0][r] != dec["cpu f32"][0][r])
+                    if not bool(diff.any()):
+                        continue
+                    k = int(diff.nonzero()[0])
+                    row = {"image": data["float32"]["infos"][r]["id"],
+                           "step": k}
+                    for name, (sq, lp) in dec.items():
+                        top = torch.topk(lp[r, k], 2)
+                        row[name] = dict(
+                            tokens=top.indices.tolist(),
+                            margin=float(top.values[0] - top.values[1]))
+                    margins.append(row)
+                if data["float32"]["bounds"]["wrapped"]:
+                    break
+            out["greedy margins where card and cpu f32 part"] = margins
+            log(f"C6 greedy: where the card and the CPU on f32 features "
+                f"part, each run's top-2 tokens and margin: {margins}")
+        finally:
+            os.chdir(here)
+    return out
 
 
 def _ln_flags(mix) -> int:
@@ -10175,6 +10455,8 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
     # B7 launch and every bf16 B5 call of the path's head width (alone and
     # inside B6 / B7) runs a tensor-core instance
     tc_counters = {"lstm_cell_bf16": (lk, "tc_launches"),
+                   "lstm_chain_fwd_bf16": (lb, "tc_fwd_launches"),
+                   "lstm_chain_bwd_bf16": (lb, "tc_bwd_launches"),
                    "mha_train_fwd_bf16": (mhk, "tc_fwd_launches"),
                    "mha_train_bwd_bf16": (mhk, "tc_bwd_launches"),
                    "transformer_decode_stack_bf16": (tdk,
@@ -10189,7 +10471,8 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                     "mha_train_bwd_bf16": (ltk, "tc_attn_bwd_launches")}
     for mod, attr in (list(counters.values()) + list(tc_counters.values())
                       + list(tc_in_layers.values())
-                      + [(lnk, a) for a in LN_REG_COUNTERS.values()]):
+                      + [(lnk, a) for a in LN_REG_COUNTERS.values()]
+                      + [(aak, "step_bf16w_launches")]):
         setattr(mod, attr, 0)
     cells = _recording_bf16(seen)
     tf_rec = _recording_tf(tf_seen, tf_args, tf_held)
@@ -10234,6 +10517,23 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
         log(f"bf16 SCST step (denseatt, batch {BENCH_BATCH}): loss "
             f"{out_rl['i2t_loss']:.6f}, avg_reward "
             f"{out_rl['avg_reward']:.5f}, wall {walls['SCST step']:.1f} ms")
+        # the same step with STEP_FUSION: its sample and greedy decodes run
+        # B9c on the cast route's bf16 copy of the weights
+        old = _att_flags(STEP_FUSION=True)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_sf = scst.train(sc_batch, sc_flag=True)
+            torch.cuda.synchronize()
+            walls["SCST step, STEP_FUSION"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            _att_flags(**old)
+        if not np.isfinite(out_sf["total_loss"]):
+            raise AssertionError(f"bf16 SCST step, STEP_FUSION: {out_sf}")
+        log(f"bf16 SCST step with STEP_FUSION (batch {BENCH_BATCH}): loss "
+            f"{out_sf['i2t_loss']:.6f}, wall "
+            f"{walls['SCST step, STEP_FUSION']:.1f} ms; B9c steps on bf16 "
+            f"product weights so far {aak.step_bf16w_launches}")
         # the LSTM pivot through PivotService: the card rounds the features
         svc = PivotService(cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                            cap_beam=CAP_BEAM, nmt_beam=NMT_BEAM,
@@ -10298,6 +10598,12 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
               for name, (mod, attr) in counters.items()}
     tc_counts = {name: getattr(mod, attr)
                  for name, (mod, attr) in tc_counters.items()}
+    # B9c by route: the steps whose products read a bf16 copy of the
+    # weights (decode_gemm's converting loads), and the rest
+    bf16w = aak.step_bf16w_launches
+    if bf16w <= 0:
+        raise AssertionError("the bf16 path never ran B9c on bf16 product "
+                             "weights")
     log("bf16 path launches: " + ", ".join(f"{k} {v}"
                                           for k, v in counts.items()))
     for name, n in counts.items():
@@ -10381,6 +10687,7 @@ def phase_bf16_path(dev, held: dict, tf_held: dict) -> dict:
                              f"expected {want_reg} (register_instance)")
     for name, n in reg.items():
         tc_counts[name + " register"] = n
+    tc_counts["att_lstm_att_bf16 bf16w"] = bf16w
 
     # card vs cpu: the joint step's loss and gradients on two images
     cfg_a = dict(cfg, batch_size=BF16_AGREE, dropout=0.0, drop_prob_lm=0.0)
@@ -10551,7 +10858,8 @@ def main(argv=None) -> int:
     kernels.update(bf16_rec)
     tf_rec, tf_held = phase_bf16_tf_kernels(dev, kernels)
     kernels.update(tf_rec)
-    mark("the bf16 entries")
+    _c6_check(dev)
+    mark("the bf16 entries, C6")
     cap, nmt, zh_vocab, tgt_itos, cap2nmt = build_models(dev)
     counts = phase_slice(dev, cap, nmt, zh_vocab, tgt_itos, cap2nmt,
                          {"lstm_cell": (lk, "launches"),
@@ -10705,8 +11013,16 @@ def main(argv=None) -> int:
         elif name.endswith(" register"):
             name = name[:-len(" register")]
             kernels[name][LN_REG_COUNTERS[name]] = n
+        elif name.endswith(" bf16w"):
+            name = name[:-len(" bf16w")]
+            kernels[name]["bf16w_launches"] = n
+            kernels[name]["f32w_launches"] = kernels[name]["launches"] - n
         else:
             kernels[name]["tc_launches"] = n
+    # B10's tensor-core launches by direction, under their own names
+    for key in ("fwd", "bwd"):
+        kernels[f"lstm_chain_{key}_bf16"][f"tc_{key}_launches"] = (
+            tc_counts[f"lstm_chain_{key}_bf16"])
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {

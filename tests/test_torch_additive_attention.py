@@ -415,9 +415,46 @@ def test_cuda_step_fusion_bf16_matches_plain(cuda_dev, cast):
     for i in (1, 3, 4, 5, 6) + ((7, 8, 9, 10, 11, 12, 13, 14) if cast
                                 else ()):
         step[i] = step[i].to(bf)
+    before = aak.step_bf16w_launches
     with torch.no_grad():
         got = aak.fused_att_lstm_att(*step)
     want = tatt.att_lstm_att_plain(*step)
     for a, e in zip(got, want):
         assert a.dtype == e.dtype == bf
         torch.testing.assert_close(a.float(), e.float(), atol=1e-2, rtol=1e-2)
+    assert aak.step_bf16w_launches - before == int(cast)
+
+
+def _step_kernel_names():
+    """The CUDA kernels torch.profiler records for one B9c step of the cast
+    route (every weight a bf16 copy) at the decode's shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    step = [x.to(dev) for x in _t(_step_inputs(13, 50, 196, 512, 512, 512))]
+    for i in range(1, 15):
+        if i != 2:
+            step[i] = step[i].to(torch.bfloat16)
+    with torch.no_grad():
+        aak.fused_att_lstm_att(*step)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            aak.fused_att_lstm_att(*step)
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_cuda_step_bf16_weights_run_decode_gemm(cuda_dev):
+    """With a bf16 copy of the weights B9c's two products run decode_gemm's
+    kernel (its converting loads), as the f32 weights' do: the profile
+    shows it and no other product kernel. The profile runs in a process of
+    its own (a process that has profiled many times loses device events)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        names = pool.apply(_step_kernel_names)
+    # the profiler may lose a session's first events, never invent one
+    assert any("decode_gemm_kernel" in n for n in names), names
+    assert not any("rows_gemm" in n for n in names), names

@@ -210,10 +210,11 @@ def _port_models(a, device="cpu"):
     return tm, tn
 
 
-def _port_loader(a):
+def _port_loader(a, feat_dtype="float32"):
     return CaptionDataLoader(input_json=a["json"], input_label_h5=a["npz"],
                              in_memory=a["mem"], batch_size=3, seq_per_img=2,
-                             att_feat_size=24, attri_feat_size=16)
+                             att_feat_size=24, attri_feat_size=16,
+                             feat_dtype=feat_dtype)
 
 
 @pytest.mark.parametrize("beam", [1, 2])
@@ -250,6 +251,30 @@ def test_eval_split_matches_jax(eval_assets, beam, tmp_path, monkeypatch):
     for k in ("valid_ppl", "valid_acc"):
         assert abs(got["nmt_stats"][k] - want["nmt_stats"][k]) <= (
             TOL * max(1.0, abs(want["nmt_stats"][k])))
+
+
+def test_eval_split_rounded_features_matches_jax(eval_assets, tmp_path,
+                                                 monkeypatch):
+    """Both loaders with feat_dtype="bfloat16" (the features the card's
+    eval decodes): greedy predictions token-identical, the loss within
+    1e-5."""
+    from unpaired_image_captioning_tpu.data.dataloader import (
+        CaptionDataLoader as JLoader)
+    from unpaired_image_captioning_tpu.eval import eval_utils as jeval
+
+    a = eval_assets
+    monkeypatch.chdir(tmp_path)
+    jl = JLoader(input_json=a["json"], input_label_h5=a["h5"],
+                 in_memory=a["mem"], batch_size=3, seq_per_img=2,
+                 att_feat_size=24, attri_feat_size=16, feat_dtype="bfloat16")
+    want = jeval.eval_split(a["jm"], a["jp"], jl, split="val", beam_size=1,
+                            model_id="bf")
+    tm, _ = _port_models(a)
+    got = teval.eval_split(tm, _port_loader(a, "bfloat16"), split="val",
+                           beam_size=1, model_id="bf",
+                           eval_results_dir="eval_results_port")
+    assert got["predictions"] == want["predictions"]
+    assert abs(got["loss"] - want["loss"]) <= TOL * max(1.0, abs(want["loss"]))
 
 
 def test_trainer_eval_tracks_the_best(eval_assets, tmp_path, monkeypatch):
@@ -289,8 +314,13 @@ def cuda_dev():
 @pytest.mark.parametrize("beam", [1, 3])
 def test_cuda_eval_split_matches_cpu(cuda_dev, beam, tmp_path, monkeypatch):
     """`eval_split` through the kernels on the card and the plain versions
-    on the CPU, on the same parameters: token-identical predictions, the
-    XE val loss within 1e-4 relative."""
+    on the CPU, on the same parameters and the same bf16-rounded features
+    (the loader's feat_dtype="bfloat16"): token-identical predictions, the
+    XE val loss within 1e-4 relative. On the card `eval_split` rounds f32
+    features to bf16 itself (as JAX's does on a TPU) and the CPU does not,
+    so both sides get the rounded features; the card's own rounding is
+    held against the loader's `to_bfloat16`: the card on the f32 loader's
+    features gives the same predictions and loss as on the bf16 loader's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.chdir(tmp_path)
     jpath, npz, mem = tsyn.make_caption_artifacts(
@@ -303,9 +333,13 @@ def test_cuda_eval_split_matches_cpu(cuda_dev, beam, tmp_path, monkeypatch):
         cpu.logit[0].w.mul_(40.0)
     card = tmodels.setup(TConfig(**CFG), device=cuda_dev)
     card.load_state_dict(cpu.state_dict())
-    outs = [teval.eval_split(m, _port_loader(a), beam_size=beam,
+    outs = [teval.eval_split(m, _port_loader(a, "bfloat16"), beam_size=beam,
                              eval_results_dir=str(tmp_path / m.device.type))
             for m in (card, cpu)]
     assert outs[0]["predictions"] == outs[1]["predictions"]
     assert abs(outs[0]["loss"] - outs[1]["loss"]) <= 1e-4 * abs(
         outs[1]["loss"])
+    own = teval.eval_split(card, _port_loader(a), beam_size=beam,
+                           eval_results_dir=str(tmp_path / "f32"))
+    assert own["predictions"] == outs[0]["predictions"]
+    assert own["loss"] == outs[0]["loss"]

@@ -5,8 +5,15 @@ B 8, T 6, D 24, H 16, for G = 5 (maxout) and G = 4: hs and cs at 1e-5, and
 the gradients of w, b, x (through the hoisted `x @ w_i2h + b`), h0 and c0
 at 1e-4 * max(1, max|jax|) (f32 sums in another order). A maxout tie
 (m1 == m2 at every step) sends the whole gradient to m1, as JAX does.
+The bf16 plain versions (the carry and w_h2h bf16, x_contrib f32) against
+the same Pallas route at B 5, T 4, H 24, both G: hs, cs and the four
+gradients at rtol = atol = 1e-2. The routing rule `tensor_core` in each
+mixture and direction.
 
-Card tests carry the `cuda` marker and skip without a card. On a card
+Card tests carry the `cuda` marker and skip without a card: the kernels
+against the plain versions in f32 and in each bf16 mixture, the
+tensor-core instances also at ragged shapes (H 76 and 29, B 37 and 5),
+each rerun bit for bit and its counters by the rule. On a card
 machine without jax, run them with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -128,6 +135,69 @@ def test_non_cpu_tensors_never_take_the_plain_version(monkeypatch):
                      maxout=True)
 
 
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("carry,w", [("f32", "f32"), ("bf16", "f32"),
+                                     ("f32", "bf16"), ("bf16", "bf16")])
+def test_tensor_core_rule(carry, w, backward):
+    """JAX's cast points: the forward's h @ w is all bf16 only with a bf16
+    carry and w_h2h; the backward's dgates.astype(w.dtype) @ w.T whenever
+    w_h2h is bf16."""
+    types = lb._mixture(
+        "rule", {"x": torch.zeros(1)},
+        {"h": torch.zeros(1, dtype=BF if carry == "bf16" else torch.float32)},
+        torch.zeros(1, dtype=BF if w == "bf16" else torch.float32))
+    want = w == "bf16" and (backward or carry == "bf16")
+    assert lb.tensor_core(types, backward) is want
+
+
+BF = torch.bfloat16
+B_BF, T_BF, H_BF = 5, 4, 24
+
+
+@pytest.mark.parametrize("maxout", [True, False], ids=["maxout", "G4"])
+def test_chain_bf16_matches_pallas_interpret(maxout):
+    """The carry and w_h2h bf16, x_contrib f32 (the mixture the tensor-core
+    instances take both ways): the plain versions through the autograd
+    Function against JAX's chain on its Pallas route in interpret mode, the
+    same bf16 cotangents; rtol = atol = 1e-2."""
+    import jax
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from unpaired_image_captioning_tpu.ops.lstm_block import (
+        blocked_lstm_chain)
+
+    g = 5 if maxout else 4
+    r = np.random.RandomState(7 + g)
+    xc = r.randn(T_BF, B_BF, g * H_BF).astype(np.float32)
+    h0, c0 = ((r.randn(B_BF, H_BF) * 0.5).astype(ml_dtypes.bfloat16)
+              for _ in range(2))
+    w = (r.randn(H_BF, g * H_BF) / np.sqrt(H_BF)).astype(ml_dtypes.bfloat16)
+    dhs, dcs = (r.randn(T_BF, B_BF, H_BF).astype(ml_dtypes.bfloat16)
+                for _ in range(2))
+    (jhs, jcs), vjp = jax.vjp(
+        lambda *a: blocked_lstm_chain(*a, maxout=maxout, interpret=True),
+        *(jnp.asarray(v) for v in (xc, h0, c0, w)))
+    jgrads = vjp((jnp.asarray(dhs), jnp.asarray(dcs)))
+
+    def tt(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(
+            BF if v.dtype == ml_dtypes.bfloat16 else torch.float32)
+
+    leaves = [tt(v).requires_grad_() for v in (xc, h0, c0, w)]
+    hs, cs = lb.blocked_lstm_chain(*leaves, maxout=maxout)
+    torch.autograd.backward([hs, cs], [tt(dhs), tt(dcs)])
+    for name, got, want in [("hs", hs, jhs), ("cs", cs, jcs)] + [
+            (k, v.grad, j) for k, v, j in zip(
+                ["dx_contrib", "dh0", "dc0", "dw_h2h"], leaves, jgrads)]:
+        want = np.asarray(want)
+        assert got.dtype == (BF if want.dtype == ml_dtypes.bfloat16
+                             else torch.float32), name
+        np.testing.assert_allclose(got.detach().float().numpy(),
+                                   want.astype(np.float32), rtol=1e-2,
+                                   atol=1e-2, err_msg=name)
+
+
 @pytest.fixture
 def cuda_dev():
     if not torch.cuda.is_available():
@@ -201,6 +271,15 @@ def test_cuda_kernels_bf16_match_plain(cuda_dev, carry, wdt, maxout):
     h0, c0, dhs, dcs = (
         (torch.randn(s, generator=gen, device=cuda_dev) * 0.5).to(dt[carry])
         for s in ((b, h), (b, h), (t, b, h), (t, b, h)))
+    _bf16_chain_check(xc, h0, c0, w, dhs, dcs, maxout)
+
+
+def _bf16_chain_check(xc, h0, c0, w, dhs, dcs, maxout):
+    """Forward and backward against the plain versions at rtol = atol =
+    1e-2, types equal; a rerun gives the same bits; the tensor-core
+    counters move by the rule."""
+    types = lb._mixture("check", {"x": xc}, {"h": h0}, w)
+    before = (lb.tc_fwd_launches, lb.tc_bwd_launches)
     hs, cs, gates = lb.chain_fwd(xc, h0, c0, w, maxout=maxout)
     phs, pcs, pgates = lo.chain_fwd_plain(xc, h0, c0, w, maxout=maxout)
     for a, e in ((hs, phs), (cs, pcs), (gates, pgates)):
@@ -213,3 +292,32 @@ def test_cuda_kernels_bf16_match_plain(cuda_dev, carry, wdt, maxout):
         assert a.dtype == e.dtype
         torch.testing.assert_close(a.float(), e.float(), atol=1e-2,
                                    rtol=1e-2)
+    assert (lb.tc_fwd_launches - before[0], lb.tc_bwd_launches - before[1]
+            ) == (int(lb.tensor_core(types, False)),
+                  int(lb.tensor_core(types, True)))
+    again = (lb.chain_fwd(xc, h0, c0, w, maxout=maxout)
+             + lb.chain_bwd(gates, cs, c0, dhs, dcs, w, maxout=maxout))
+    assert all(torch.equal(a, e) for a, e in
+               zip(again, (hs, cs, gates) + tuple(got)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h", [(37, 5, 76), (5, 3, 29), (70, 2, 40),
+                                   (50, 17, 512)])
+@pytest.mark.parametrize("carry", ["bf16", "f32"])
+@pytest.mark.parametrize("maxout", [True, False])
+def test_cuda_tensor_core_matches_plain(cuda_dev, b, t, h, carry, maxout):
+    """The tensor-core instances (w_h2h bf16: the backward with either
+    carry, the forward with a bf16 one) at the path's shape and at ragged
+    ones: H 76 (rows off 16 bytes), 29 (odd) and 40, B 37, 5 and 70 (not
+    multiples of 16; 70 takes two passes of rows)."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    g = 5 if maxout else 4
+    gen = torch.Generator(device=cuda_dev).manual_seed(b * h + t)
+    xc = torch.randn((t, b, g * h), generator=gen, device=cuda_dev)
+    w = (torch.randn((h, g * h), generator=gen, device=cuda_dev)
+         / h ** 0.5).to(torch.bfloat16)
+    h0, c0, dhs, dcs = (
+        (torch.randn(s, generator=gen, device=cuda_dev) * 0.5).to(dt[carry])
+        for s in ((b, h), (b, h), (t, b, h), (t, b, h)))
+    _bf16_chain_check(xc, h0, c0, w, dhs, dcs, maxout)

@@ -103,8 +103,10 @@
 // w1, b1 and the products' weights too (a bf16 copy of the parameters): h1
 // and c1 come out in the carry's type, att2 in emb's; att1, h1 + emb2(att1)
 // and the att2 query stay f32 in the scratch, as the TPU kernel keeps them
-// (h1 in that sum unrounded). f32 weights take decode_gemm.cuh; bf16 ones
-// a plain kernel, a thread an output.
+// (h1 in that sum unrounded). Both products run decode_gemm.cuh's f32 FMA
+// core either way: bf16 weights are converted as their tiles load (its
+// `wbf`), and the epilogues read the biases in the weights' type (JAX
+// casts the weights to f32 for these products, so no tensor cores).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -664,44 +666,44 @@ AttArgs att_args(const void* p_att, const void* q, const void* alpha,
   return p;
 }
 
-// C = (add + acc) + bias: the att2 query's h1 + emb2(att1)
+// C = (add + acc) + bias: the att2 query's h1 + emb2(att1); the bias f32
+// or bf16 (bb: a bf16 copy of the weights)
 struct EpiAddBias {
   const float* add;
-  const float* bias;
+  const void* bias;
   float* out;
   int ld;
+  bool bb;
   __device__ __forceinline__ void operator()(int r, int c, float4 acc,
                                              int) const {
     const float4 a4 = *reinterpret_cast<const float4*>(add + (size_t)r * ld + c);
-    const float4 b4 = *reinterpret_cast<const float4*>(bias + c);
+    const float4 b4 = uic_bf16::ld4(bias, c, bb);
     *reinterpret_cast<float4*>(out + (size_t)r * ld + c) =
         make_float4((a4.x + acc.x) + b4.x, (a4.y + acc.y) + b4.y,
                     (a4.z + acc.z) + b4.z, (a4.w + acc.w) + b4.w);
   }
   __device__ __forceinline__ void one(int r, int c, float acc) const {
     const size_t i = (size_t)r * ld + c;
-    out[i] = (add[i] + acc) + bias[c];
+    out[i] = (add[i] + acc) + ldf(bias, c, bb);
   }
 };
 
-// out[r, c] = (add[r, c] +) sum_k a[r, k] w[k, c] + bias[c] with a f32
-// (lda), w [K, N] and bias [N] bf16, out f32 [M, N] (row stride N; add
-// the same or null): the decode step's two products when its weights are a
-// bf16 copy. A thread an output, k in order.
-__global__ void __launch_bounds__(256)
-rows_gemm_bf16w(const float* __restrict__ a, int lda,
-                const void* __restrict__ w, const void* __restrict__ bias,
-                const float* __restrict__ add, float* __restrict__ out,
-                int M, int N, int K) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x, r = blockIdx.y;
-  if (c >= N || r >= M) return;
-  const float* ar = a + (size_t)r * lda;
-  float s = 0.0f;
-  for (int k = 0; k < K; ++k)
-    s = fmaf(ar[k], ldt<true>(w, (size_t)k * N + c), s);
-  const size_t o = (size_t)r * N + c;
-  out[o] = (add ? add[o] + s : s) + ldt<true>(bias, c);
-}
+// C = acc + bias (uic::EpiBias with the bias f32 or bf16): the att2 query
+struct EpiBiasT {
+  const void* bias;
+  float* out;
+  int ldo;
+  bool bb;
+  __device__ __forceinline__ void operator()(int r, int c, float4 acc,
+                                             int) const {
+    const float4 b4 = uic_bf16::ld4(bias, c, bb);
+    *reinterpret_cast<float4*>(out + (size_t)r * ldo + c) =
+        make_float4(acc.x + b4.x, acc.y + b4.y, acc.z + b4.z, acc.w + b4.w);
+  }
+  __device__ __forceinline__ void one(int r, int c, float acc) const {
+    out[(size_t)r * ldo + c] = acc + ldf(bias, c, bb);
+  }
+};
 
 // dst_h, dst_c [n] bf16 = h, c [n] f32 rounded to nearest even
 __global__ void round_pair_kernel(const float* __restrict__ h,
@@ -718,14 +720,6 @@ int round_pair(const float* h, const float* c, void* dst_h, void* dst_c,
                size_t n, cudaStream_t st) {
   round_pair_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(h, c, dst_h,
                                                                 dst_c, n);
-  return (int)cudaGetLastError();
-}
-
-int rows_gemm(const float* a, int lda, const void* w, const void* bias,
-              const float* add, float* out, int M, int N, int K,
-              cudaStream_t st) {
-  rows_gemm_bf16w<<<dim3(cdiv(N, 256), M), 256, 0, st>>>(a, lda, w, bias,
-                                                         add, out, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -824,25 +818,16 @@ extern "C" int att_lstm_att_mixed(const void* const* in, void* h1, void* c1,
     return err;
   if (cb && (err = round_pair(h1f, c1f, h1, c1, (size_t)B * H, stream)))
     return err;
-  if (gb) {
-    if ((err = rows_gemm(xcat + H, xw, emb2_w, emb2_b, h1f, q2in, B, H, D,
-                         stream)))
-      return err;
-    if ((err = rows_gemm(q2in, H, h2att2_w, h2att2_b, nullptr, q2, B, A, H,
-                         stream)))
-      return err;
-  } else {
-    if ((err = uic_decode::decode_gemm(
-             xcat + H, xw, static_cast<const float*>(emb2_w), B, H, D,
-             EpiAddBias{h1f, static_cast<const float*>(emb2_b), q2in, H},
-             stream, 1)))
-      return err;
-    if ((err = uic_decode::decode_gemm(
-             q2in, H, static_cast<const float*>(h2att2_w), B, A, H,
-             uic::EpiBias{static_cast<const float*>(h2att2_b), q2, A}, stream,
-             1)))
-      return err;
-  }
+  // the two products on decode_gemm's f32 FMA core, the weights converted
+  // as they load where they are a bf16 copy (JAX computes both in f32)
+  if ((err = uic_decode::decode_gemm(xcat + H, xw, emb2_w, B, H, D,
+                                     EpiAddBias{h1f, emb2_b, q2in, H, gb != 0},
+                                     stream, 1, gb)))
+    return err;
+  if ((err = uic_decode::decode_gemm(q2in, H, h2att2_w, B, A, H,
+                                     EpiBiasT{h2att2_b, q2, A, gb != 0},
+                                     stream, 1, gb)))
+    return err;
   AttArgs att = att_args(p_att, q2, alpha2, mask, emb, att2, N, A, D, 1, D);
   att.ab = ab;
   att.mb = mb;

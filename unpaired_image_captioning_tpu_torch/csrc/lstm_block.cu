@@ -62,6 +62,29 @@
 // summed in a varying order: a rerun gives the same bits in both
 // directions.
 //
+// Tensor-core instances (chain_fwd_tc_kernel, chain_bwd_tc_kernel). Where
+// a product multiplies two bf16 operands in JAX (the rule chain_tc: the
+// forward with the carry and W bf16, the backward whenever W is bf16) it
+// runs on mma.sync m16n8k16 (bf16 in, f32 sums; mma_bf16.cuh), one
+// cooperative launch each way, no atomics. The forward keeps the FMA core's
+// blocks, barrier and cell: the block's columns of W stay in shared memory
+// as bf16, each warp stages its own sixteenth-multiple of K of the bf16
+// h_{t-1} by 16-byte cp.async through L2 (no block barrier before its
+// products), and x_contrib of the next step lands while the grid waits.
+// The backward changes what crosses the grid: instead of every block's
+// f32 partial dh [B, H] (100 KB a block a step, whose stores and reads
+// took more than half of a step), each block publishes its columns of
+// dgates_t rounded to bf16, as JAX's dgates.astype(wT.dtype) rounds them,
+// and a thread-block cluster of 2 blocks computes dh of its 8 units (16 at
+// wider H) from all of dgates_t: rank r takes half of the G*H columns, and
+// the two partials are summed in rank order through distributed shared
+// memory. The next step's cell inputs are loaded into registers before the
+// barrier. (The FMA core's exchange with its products on the tensor cores,
+// at 4 or 8 units a block, and with the partials summed across a cluster
+// through DSMEM first, each read slower on an H100 at B 50, T 17, H 512.)
+// Neither instance falls back to the FMA core: a shape it cannot take
+// raises.
+//
 // A shape whose grid cannot be co-resident (H > 16 x the SM count, or
 // shared memory past the budget at large B) is refused with
 // cudaErrorCooperativeLaunchTooLarge, and the wrapper raises; nothing falls
@@ -78,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 using uic_bf16::ldf;
@@ -465,6 +489,537 @@ chain_bwd_kernel(const float* __restrict__ gates, const void* __restrict__ cs,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core instances (bf16 products, f32 sums; mma_bf16.cuh)
+// ---------------------------------------------------------------------------
+
+// Columns of a block: n = g * U + u (gate g of unit j0 + u), padded to
+// 8-column tiles (an even number of them, for ldmatrix.x4 pairs) with zero
+// weights.
+template <int G, int U>
+struct TcDims {
+  static constexpr int GU = G * U;
+  static constexpr int NT = (GU + 7) / 8;        // 8-column tiles
+  static constexpr int NTE = NT + (NT & 1);      // rounded up to pairs
+  static constexpr int NPR = NT * 8 + 4;         // f32 row of a warp's sums
+};
+
+// the forward's shared bytes: the resident slice w_s [NTE * 8][ldk] and
+// the staged rows h_s [rp][ldk] (bf16, ldk = H padded to 16, plus 8), the
+// warps' partial sums [WARPS][rp][NPR], x_contrib of the pass [rp][G][U]
+// and the c carry [B][U]
+template <int G, int U>
+size_t tc_fwd_smem(int B, int H, int rp) {
+  using D = TcDims<G, U>;
+  const size_t ldk = round_up(H, 16) + 8;
+  return 2 * ((size_t)D::NTE * 8 + rp) * ldk +
+         4 * ((size_t)WARPS * rp * D::NPR + (size_t)rp * D::GU +
+              (size_t)B * U);
+}
+
+// rows a pass of a tensor-core instance: a multiple of 16 up to 64 (and to
+// B rounded up to 16), the most whose shared memory smem(rows) fits; 0 if
+// none does
+template <class Smem>
+int tc_rows(int B, Smem smem) {
+  const int most = round_up(B, 16);
+  for (int rp = most < 64 ? most : 64; rp >= 16; rp -= 16)
+    if (smem(rp) <= (size_t)SMEM_BUDGET) return rp;
+  return 0;
+}
+
+// The backward's plan: a cluster of C blocks owns U units (C x H / U
+// blocks); rank r runs the cells of U / C of them and multiplies the r-th
+// C-th of the G*H columns. Its shared bytes: its K slice of the rows of W
+// of the cluster's units wt_s [UP][ldw] and of dgates_t ch_s [rp][ldw]
+// (bf16, UP = U padded to 8, ldw = the slice plus 8), the warps' sums
+// [WARPS][rp][UP + 4], the block's partial dh [B][U] and the dh, dc
+// carries [B][U / C].
+template <int G, int U, int C>
+size_t tc_bwd_smem(int B, int H, int rp) {
+  constexpr int UP = (U + 7) / 8 * 8;
+  const size_t ldw = round_up(G * H, 16 * C) / C + 8;
+  return 2 * ((size_t)UP + rp) * ldw +
+         4 * ((size_t)WARPS * rp * (UP + 4) + (size_t)B * U +
+              2 * (size_t)B * (U / C));
+}
+
+struct TcFwdArgs {
+  const float* x;
+  const void *h0, *c0, *w;
+  void *hs, *cs;
+  float* gates;
+  int T, B, H, rp, vec_h, vec_x;
+};
+
+struct TcBwdArgs {
+  const float* gates;
+  const void *cs, *c0, *dhs, *dcs, *w;
+  float* dgates;
+  void *dh0, *dc0;
+  float* ws;
+  int T, B, H, hb, rp;
+};
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// x_contrib of rows [r0, r0 + rows) of step t, units [j0, j0 + U), into
+// xs [rows][G][U] by cp.async (16 bytes where vec: H a multiple of 4, x
+// 16-byte aligned); columns past H read as 0. The caller waits.
+template <int G, int U>
+__device__ __forceinline__ void tc_stage_x(float* xs, const float* x, int t,
+                                           int r0, int rows, int B, int H,
+                                           int j0, bool vec) {
+  const size_t base = ((size_t)t * B + r0) * G * H + j0;
+  if (vec) {
+    constexpr int Q = U / 4;
+    for (int e = threadIdx.x; e < rows * G * Q; e += THREADS) {
+      const int rr = e / (G * Q), r = e - rr * G * Q, g = r / Q;
+      const int u = (r - g * Q) * 4;
+      const bool ok = j0 + u < H;
+      uic_mma::cp16(xs + (rr * G + g) * U + u,
+                    ok ? x + base + ((size_t)rr * G + g) * H + u : x, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * G * U; e += THREADS) {
+      const int rr = e / (G * U), r = e - rr * G * U, g = r / U;
+      const int u = r - g * U;
+      const bool ok = j0 + u < H;
+      cp4(xs + (rr * G + g) * U + u,
+          ok ? x + base + ((size_t)rr * G + g) * H + u : x, ok);
+    }
+  }
+  uic_mma::commit();
+}
+
+// the warp's columns [kc0, kc1) of rows [r0, r0 + rows) of h_{t-1} (bf16
+// [B, H] at hp, written by other blocks: through L2) into h_s at columns
+// [kc0 - kb, kc1 - kb); 16-byte cp.async where vec (H a multiple of 8, hp
+// 16-byte aligned), else 2-byte loads. The caller waits.
+__device__ __forceinline__ void tc_stage_h(unsigned short* h_s, int ldk,
+                                           const unsigned short* hp, int r0,
+                                           int rows, int H, int kb, int kc0,
+                                           int kc1, bool vec, int lane) {
+  if (kc1 <= kc0) return;
+  if (vec) {
+    const int per = (kc1 - kc0) / 8;
+    for (int e = lane; e < rows * per; e += 32) {
+      const int rr = e / per, k = kc0 + (e - rr * per) * 8;
+      uic_mma::cp16(h_s + (size_t)rr * ldk + k - kb,
+                    hp + (size_t)(r0 + rr) * H + k, true);
+    }
+    uic_mma::commit();
+  } else {
+    const int wd = kc1 - kc0;
+    for (int e = lane; e < rows * wd; e += 32) {
+      const int rr = e / wd, k = kc0 + e - rr * wd;
+      h_s[(size_t)rr * ldk + k - kb] =
+          __ldcg(hp + (size_t)(r0 + rr) * H + k);
+    }
+  }
+}
+
+// The forward on the tensor cores (the carry and W bf16). Block k owns the
+// units [k U, k U + U) as the FMA core's does; its G*U columns of W stay in
+// shared memory, transposed (w_s[n][k]), for all T steps. A step takes the
+// batch in passes of rp rows (one at B <= 64): each warp stages its own
+// slice of K of h_{t-1} (a sixteenth-multiple of H over the 8 warps) by
+// 16-byte cp.async through L2, with no block barrier, and multiplies it by
+// the slice with mma.sync m16n8k16 (A by ldmatrix from h_s, B by ldmatrix
+// from w_s); the warps' f32 sums meet in shared memory and are added in
+// warp order, then x_contrib (staged by cp.async before the grid barrier
+// that precedes the step) and the cell on the block's units. (A cluster's
+// K split with a DSMEM sum of the partial gates, as the backward's, read
+// slower on an H100 at B 50, T 17, H 512: its cluster barrier and DSMEM
+// reads cost more than the halved staging saves.)
+template <int G, int U>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_fwd_tc_kernel(TcFwdArgs a) {
+  using D = TcDims<G, U>;
+  constexpr int GU = D::GU, NT = D::NT, NTE = D::NTE, NPR = D::NPR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = a.H, B = a.B, GH = G * H, rp = a.rp, mtp = rp / 16;
+  const int ks_all = (H + 15) / 16, ldk = ks_all * 16 + 8;
+  unsigned short* w_s = reinterpret_cast<unsigned short*>(smem_raw);
+  unsigned short* h_s = w_s + (size_t)NTE * 8 * ldk;
+  float* red = reinterpret_cast<float*>(h_s + (size_t)rp * ldk);
+  float* xs = red + (size_t)WARPS * rp * NPR;
+  float* c_s = xs + (size_t)rp * GU;
+  const int j0 = blockIdx.x * U;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kw = (ks_all + WARPS - 1) / WARPS;   // K steps a warp
+  const int ks0 = min(ks_all, warp * kw), ks1 = min(ks_all, ks0 + kw);
+  const int kc0 = ks0 * 16, kc1 = min(H, ks1 * 16);
+  const unsigned short* wsrc = static_cast<const unsigned short*>(a.w);
+
+  for (int e = threadIdx.x; e < NTE * 8 * ks_all * 16; e += THREADS) {
+    const int k = e / (NTE * 8), n = e - k * (NTE * 8);
+    unsigned short v = 0;
+    if (n < GU && k < H) {
+      const int g = n / U, j = j0 + n - g * U;
+      if (j < H) v = wsrc[(size_t)k * GH + g * H + j];
+    }
+    w_s[(size_t)n * ldk + k] = v;
+  }
+  for (int e = threadIdx.x; e < rp * ldk; e += THREADS) h_s[e] = 0;
+  for (int q = threadIdx.x; q < B * U; q += THREADS) {
+    const int b = q / U, j = j0 + q - b * U;
+    c_s[q] = j < H ? ldf(a.c0, (size_t)b * H + j, true) : 0.0f;
+  }
+  tc_stage_x<G, U>(xs, a.x, 0, 0, min(rp, B), B, H, j0, a.vec_x);
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+  const int npass = (B + rp - 1) / rp;
+  const int gq = lane / 4, q2 = (lane % 4) * 2;
+
+  for (int t = 0; t < a.T; ++t) {
+    const unsigned short* hp =
+        static_cast<const unsigned short*>(t == 0 ? a.h0 : a.hs) +
+        (t == 0 ? 0 : (size_t)(t - 1) * B * H);
+    for (int p = 0; p < npass; ++p) {
+      const int r0 = p * rp, rows = min(rp, B - r0);
+      if (p > 0) tc_stage_x<G, U>(xs, a.x, t, r0, rows, B, H, j0, a.vec_x);
+      tc_stage_h(h_s, ldk, hp, r0, rows, H, 0, kc0, kc1, a.vec_h, lane);
+      uic_mma::wait<0>();
+      __syncwarp();
+      float acc[4][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
+              acc[mt][nt][3] = 0.0f;
+      for (int ks = ks0; ks < ks1; ++ks) {
+        unsigned bf[NTE][2];
+#pragma unroll
+        for (int np = 0; np < NTE; np += 2) {
+          unsigned r[4];
+          uic_mma::ldsm_x4(r, w_s + (size_t)(np * 8 + uic_mma::kmaj_row(lane)) *
+                                        ldk +
+                                  ks * 16 + uic_mma::kmaj_col(lane));
+          bf[np][0] = r[0];
+          bf[np][1] = r[1];
+          bf[np + 1][0] = r[2];
+          bf[np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < mtp) {
+            unsigned af[4];
+            uic_mma::ldsm_x4(
+                af, h_s + (size_t)(mt * 16 + uic_mma::frag_row(lane)) * ldk +
+                        ks * 16 + uic_mma::frag_col(lane));
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              uic_mma::mma(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
+          }
+        }
+      }
+      float* rw = red + (size_t)warp * rp * NPR;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mtp) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float* o = rw + (size_t)(mt * 16 + gq) * NPR + nt * 8 + q2;
+          *reinterpret_cast<float2*>(o) =
+              make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+          *reinterpret_cast<float2*>(o + 8 * NPR) =
+              make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        }
+      }
+      __syncthreads();
+      // gates = x_contrib + h @ W (the warps' sums in warp order), then the
+      // cell on this block's units; h and c rounded to bf16
+      for (int q = threadIdx.x; q < rows * U; q += THREADS) {
+        const int rr = q / U, u = q - rr * U, j = j0 + u, b = r0 + rr;
+        if (j >= H) continue;
+        const size_t row = (size_t)t * B + b;
+        float gv[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float s = 0.0f;
+#pragma unroll
+          for (int wp = 0; wp < WARPS; ++wp)
+            s += red[((size_t)wp * rp + rr) * NPR + g * U + u];
+          gv[g] = xs[(rr * G + g) * U + u] + s;
+          a.gates[row * GH + g * H + j] = gv[g];
+        }
+        const float i_g = sigmoid_f32(gv[0]);
+        const float f_g = sigmoid_f32(gv[1]);
+        const float o_g = sigmoid_f32(gv[2]);
+        const float in_t = G == 5 ? fmaxf(gv[3], gv[4]) : tanhf(gv[3]);
+        const float c = f_g * c_s[b * U + u] + i_g * in_t;
+        c_s[b * U + u] = round_bf16(c);
+        stf(a.hs, row * H + j, o_g * tanhf(c), true);
+        stf(a.cs, row * H + j, c, true);
+      }
+      __syncthreads();
+    }
+    if (t + 1 < a.T) {
+      // the next step's x_contrib lands while the grid waits
+      tc_stage_x<G, U>(xs, a.x, t + 1, 0, min(rp, B), B, H, j0, a.vec_x);
+      grid.sync();   // h_t is written by every block
+    }
+  }
+}
+
+// a backward cell's inputs at (t, b, unit j)
+struct CellIn {
+  float g[5], c, cp, dh, dc;
+};
+
+template <int G>
+__device__ __forceinline__ CellIn tc_cell_in(const TcBwdArgs& a, int t, int b,
+                                             int j) {
+  CellIn v;
+  const size_t row = (size_t)t * a.B + b;
+  const float* gr = a.gates + row * G * a.H + j;
+#pragma unroll
+  for (int g = 0; g < G; ++g) v.g[g] = gr[g * a.H];
+  if (G == 4) v.g[4] = 0.0f;
+  v.c = ldf(a.cs, row * a.H + j, a.hb);
+  v.cp = t > 0 ? ldf(a.cs, (row - a.B) * a.H + j, a.hb)
+               : ldf(a.c0, (size_t)b * a.H + j, a.hb);
+  v.dh = ldf(a.dhs, row * a.H + j, a.hb);
+  v.dc = ldf(a.dcs, row * a.H + j, a.hb);
+  return v;
+}
+
+// two 8 x 8 b16 matrices (lanes 0-15 give the rows)
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// The backward on the tensor cores (W bf16, the carry f32 or bf16). A
+// thread-block cluster of C blocks owns U units; its rank r runs the cell
+// derivatives of U / C of them (as the FMA core's blocks do theirs) and
+// publishes their columns of dgates_t rounded to bf16 (what JAX's
+// dgates.astype(wT.dtype) feeds the product) to a workspace [2][B][G*H
+// padded] in global memory. After the grid barrier rank r stages its C-th
+// of the G*H columns of dgates_t by 16-byte cp.async through L2 (each warp
+// its own part of the slice, no block barrier) and multiplies it by the
+// same columns of the rows of W of the cluster's units (wt_s[u][k] =
+// W[units + u, slice + k], resident), mma.sync m16n8k16 with the slice's K
+// split across the 8 warps, whose f32 sums are added in warp order into the
+// block's partial dh [B][U]. After a cluster barrier each rank sums, for
+// its own units, the C ranks' partials in rank order through distributed
+// shared memory. No float atomics: a rerun gives the same bits. The next
+// step's cell inputs are loaded into registers before the grid barrier.
+template <int G, int U, int C>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_bwd_tc_kernel(TcBwdArgs a) {
+  constexpr int UP = (U + 7) / 8 * 8, NT = UP / 8, NPR = UP + 4;
+  constexpr int UC = U / C;   // units of a rank's cells
+  constexpr int PF = 2;       // cell items a thread loads early
+  static_assert(NT == 1 || NT == 2, "one or two 8-unit tiles");
+  static_assert(U % C == 0, "whole units a rank");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = a.H, B = a.B, GH = G * H, rp = a.rp;
+  const int ghp = round_up(GH, 16 * C), kslice = ghp / C, ldw = kslice + 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int jc = (int)(blockIdx.x / C) * U;   // the cluster's units
+  const int j0 = jc + rank * UC;               // this rank's cells
+  const int kb = rank * kslice;                // this rank's K slice
+  unsigned short* wt_s = reinterpret_cast<unsigned short*>(smem_raw);
+  unsigned short* ch_s = wt_s + (size_t)UP * ldw;
+  float* red = reinterpret_cast<float*>(ch_s + (size_t)rp * ldw);
+  float* pd_s = red + (size_t)WARPS * rp * NPR;   // [B][U]
+  float* dh_s = pd_s + (size_t)B * U;             // [B][UC]
+  float* dc_s = dh_s + (size_t)B * UC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned short* dgx = reinterpret_cast<unsigned short*>(a.ws);
+  const size_t dgx_step = (size_t)B * ghp;   // one buffer's elements
+  const unsigned short* wsrc = static_cast<const unsigned short*>(a.w);
+  const int ks_all = kslice / 16, kw = (ks_all + WARPS - 1) / WARPS;
+  const int k0w = min(ks_all, warp * kw) * 16;
+  const int k1w = min(ks_all, warp * kw + kw) * 16;
+
+  for (int e = threadIdx.x; e < UP * kslice; e += THREADS) {
+    const int n = e / kslice, k = e - n * kslice;
+    wt_s[(size_t)n * ldw + k] = n < U && jc + n < H && kb + k < GH
+                                    ? wsrc[(size_t)(jc + n) * GH + kb + k]
+                                    : 0;
+  }
+  for (int e = threadIdx.x; e < rp * ldw; e += THREADS) ch_s[e] = 0;
+  for (int q = threadIdx.x; q < B * UC; q += THREADS) {
+    dh_s[q] = 0.0f;
+    dc_s[q] = 0.0f;
+  }
+  if (blockIdx.x == 0 && ghp > GH) {   // the padding columns read as 0
+    const int pad = ghp - GH;
+    for (int e = threadIdx.x; e < 2 * B * pad; e += THREADS) {
+      const int rb = e / pad;
+      dgx[(size_t)rb * ghp + GH + (e - rb * pad)] = 0;
+    }
+  }
+  CellIn pf[PF];
+#pragma unroll
+  for (int i = 0; i < PF; ++i) {
+    const int q = threadIdx.x + i * THREADS, b = q / UC, j = j0 + q - b * UC;
+    if (q < B * UC && j < H) pf[i] = tc_cell_in<G>(a, a.T - 1, b, j);
+  }
+  __syncthreads();
+  cg::grid_group grid = cg::this_grid();
+
+  for (int t = a.T - 1; t >= 0; --t) {
+    unsigned short* dgt = dgx + (size_t)(t & 1) * dgx_step;
+    // the cell's local derivatives on this rank's units
+    auto cell = [&](int q, const CellIn& v) {
+      const int b = q / UC, j = j0 + q - b * UC;
+      const float i_g = sigmoid_f32(v.g[0]);
+      const float f_g = sigmoid_f32(v.g[1]);
+      const float o_g = sigmoid_f32(v.g[2]);
+      const float m1 = v.g[3], m2 = v.g[4];
+      const float in_t = G == 5 ? fmaxf(m1, m2) : tanhf(m1);
+      const float th = tanhf(v.c);
+      const float dh = v.dh + dh_s[q];
+      const float d_o = dh * th;
+      const float dct = dh * o_g * (1.0f - th * th) + dc_s[q] + v.dc;
+      float dgv[5];
+      dgv[0] = dct * in_t * i_g * (1.0f - i_g);
+      dgv[1] = dct * v.cp * f_g * (1.0f - f_g);
+      dgv[2] = d_o * o_g * (1.0f - o_g);
+      const float dm = dct * i_g;
+      if (G == 5) {
+        const bool pick = m1 >= m2;           // a tie goes wholly to m1
+        dgv[3] = pick ? dm : 0.0f;
+        dgv[4] = pick ? 0.0f : dm;
+      } else {
+        dgv[3] = dm * (1.0f - in_t * in_t);
+      }
+      float* dg = a.dgates + ((size_t)t * B + b) * GH + j;
+      unsigned short* dx = dgt + (size_t)b * ghp + j;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        dg[g * H] = dgv[g];
+        dx[g * H] = (unsigned short)uic_bf16::bits(dgv[g]);
+      }
+      dc_s[q] = dct * f_g;
+    };
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int q = threadIdx.x + i * THREADS, b = q / UC, j = j0 + q - b * UC;
+      if (q < B * UC && j < H) cell(q, pf[i]);
+    }
+    for (int q = threadIdx.x + PF * THREADS; q < B * UC; q += THREADS) {
+      const int b = q / UC, j = j0 + q - b * UC;
+      if (j < H) cell(q, tc_cell_in<G>(a, t, b, j));
+    }
+    if (t > 0) {
+      // the next step's cell inputs arrive while the grid waits
+#pragma unroll
+      for (int i = 0; i < PF; ++i) {
+        const int q = threadIdx.x + i * THREADS, b = q / UC,
+                  j = j0 + q - b * UC;
+        if (q < B * UC && j < H) pf[i] = tc_cell_in<G>(a, t - 1, b, j);
+      }
+    }
+    grid.sync();   // every rank's columns of dgates_t are written
+    // the block's partial dh [B][U] over its K slice, rows in passes
+    for (int r0 = 0; r0 < B; r0 += rp) {
+      const int rows = min(rp, B - r0), mtp = (rows + 15) / 16;
+      if (k1w > k0w) {
+        const int per = (k1w - k0w) / 8;
+        for (int e = lane; e < rows * per; e += 32) {
+          const int rr = e / per, k = k0w + (e - rr * per) * 8;
+          uic_mma::cp16(ch_s + (size_t)rr * ldw + k,
+                        dgt + (size_t)(r0 + rr) * ghp + kb + k, true);
+        }
+        uic_mma::commit();
+        uic_mma::wait<0>();
+      }
+      __syncwarp();
+      float acc[4][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
+              acc[mt][nt][3] = 0.0f;
+      for (int k = k0w; k < k1w; k += 16) {
+        unsigned bw[NT][2];
+        if constexpr (NT == 1) {
+          ldsm_x2(bw[0], wt_s + (size_t)(lane & 7) * ldw + k +
+                             ((lane >> 3) & 1) * 8);
+        } else {
+          unsigned r[4];
+          uic_mma::ldsm_x4(r, wt_s + (size_t)uic_mma::kmaj_row(lane) * ldw +
+                                  k + uic_mma::kmaj_col(lane));
+          bw[0][0] = r[0];
+          bw[0][1] = r[1];
+          bw[1][0] = r[2];
+          bw[1][1] = r[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < mtp) {
+            unsigned af[4];
+            uic_mma::ldsm_x4(
+                af, ch_s + (size_t)(mt * 16 + uic_mma::frag_row(lane)) * ldw +
+                        k + uic_mma::frag_col(lane));
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              uic_mma::mma(acc[mt][nt], af, bw[nt][0], bw[nt][1]);
+          }
+        }
+      }
+      __syncwarp();   // ch_s is read before the next pass restages it
+      float* rw = red + (size_t)warp * rp * NPR;
+      const int gq = lane / 4, q2 = (lane % 4) * 2;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= mtp) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          float* o = rw + (size_t)(mt * 16 + gq) * NPR + nt * 8 + q2;
+          *reinterpret_cast<float2*>(o) =
+              make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+          *reinterpret_cast<float2*>(o + 8 * NPR) =
+              make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+        }
+      }
+      __syncthreads();
+      for (int q = threadIdx.x; q < rows * U; q += THREADS) {
+        const int rr = q / U, u = q - rr * U;
+        float s = 0.0f;
+#pragma unroll
+        for (int wp = 0; wp < WARPS; ++wp)
+          s += red[((size_t)wp * rp + rr) * NPR + u];
+        pd_s[(size_t)(r0 + rr) * U + u] = s;
+      }
+      __syncthreads();
+    }
+    // dh of this rank's units: the cluster's partials in rank order
+    cluster.sync();
+    for (int q = threadIdx.x; q < B * UC; q += THREADS) {
+      const int b = q / UC, n = rank * UC + q - b * UC;
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < C; ++r)
+        s += cluster.map_shared_rank(pd_s, r)[(size_t)b * U + n];
+      dh_s[q] = s;
+    }
+    __syncthreads();
+  }
+  cluster.sync();   // no rank leaves while another reads its partial
+  for (int q = threadIdx.x; q < B * UC; q += THREADS) {
+    const int b = q / UC, j = j0 + q - b * UC;
+    if (j < H) {
+      stf(a.dh0, (size_t)b * H + j, dh_s[q], a.hb);
+      stf(a.dc0, (size_t)b * H + j, dc_s[q], a.hb);
+    }
+  }
+}
+
 // One cooperative launch of `kernel` over ceil(H / U) blocks with `smem`
 // bytes, refused when the grid cannot be co-resident.
 cudaError_t launch_coop(const void* kernel, int H, int U, size_t smem,
@@ -561,6 +1116,105 @@ cudaError_t bwd_g(const float* gates, const void* cs, const void* c0,
   }
 }
 
+// One cooperative launch of the backward: clusters of C blocks, C x
+// ceil(H / U) blocks, refused when they cannot be co-resident.
+cudaError_t launch_coop_cluster(const void* kernel, int H, int U, int C,
+                                size_t smem, void** args,
+                                cudaStream_t stream) {
+  if (smem > (size_t)SMEM_BUDGET) return cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int clusters = (H + U - 1) / U;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  int fit = 0;
+  e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (fit < clusters) return cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int G, int U>
+cudaError_t fwd_tc(const float* x, const void* h0, const void* c0,
+                   const void* w, void* hs, void* cs, float* gates, int T,
+                   int B, int H, cudaStream_t s) {
+  const int rp =
+      tc_rows(B, [&](int r) { return tc_fwd_smem<G, U>(B, H, r); });
+  if (rp == 0) return cudaErrorCooperativeLaunchTooLarge;
+  TcFwdArgs a{x, h0, c0, w, hs, cs, gates, T, B, H, rp,
+              H % 8 == 0 && aligned(h0) && aligned(hs),
+              H % 4 == 0 && aligned(x)};
+  void* args[] = {&a};
+  return launch_coop((const void*)chain_fwd_tc_kernel<G, U>, H, U,
+                     tc_fwd_smem<G, U>(B, H, rp), args, s);
+}
+
+template <int G, int U, int C>
+cudaError_t bwd_tc(const float* gates, const void* cs, const void* c0,
+                   const void* dhs, const void* dcs, const void* w,
+                   float* dgates, void* dh0, void* dc0, float* ws, int T,
+                   int B, int H, int hb, cudaStream_t s) {
+  const int rp =
+      tc_rows(B, [&](int r) { return tc_bwd_smem<G, U, C>(B, H, r); });
+  if (rp == 0) return cudaErrorCooperativeLaunchTooLarge;
+  TcBwdArgs a{gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H,
+              hb, rp};
+  void* args[] = {&a};
+  return launch_coop_cluster((const void*)chain_bwd_tc_kernel<G, U, C>, H, U,
+                             C, tc_bwd_smem<G, U, C>(B, H, rp), args, s);
+}
+
+// The tensor-core instances' plans, each the first that fits (shared
+// memory, and a grid that can be co-resident); a launch refused for room
+// runs nothing, so the next plan is tried. The forward: 4 units a block,
+// else 8 (the FMA core's plan). The backward: clusters of 2 blocks over 8
+// units (H up to about 4 x the SM count), else over 16 (about 8 x).
+template <int G>
+cudaError_t fwd_tc_g(const float* x, const void* h0, const void* c0,
+                     const void* w, void* hs, void* cs, float* gates, int T,
+                     int B, int H, cudaStream_t s) {
+  cudaError_t e = fwd_tc<G, 4>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+  if (e == cudaErrorCooperativeLaunchTooLarge)
+    e = fwd_tc<G, 8>(x, h0, c0, w, hs, cs, gates, T, B, H, s);
+  return e;
+}
+
+template <int G>
+cudaError_t bwd_tc_g(const float* gates, const void* cs, const void* c0,
+                     const void* dhs, const void* dcs, const void* w,
+                     float* dgates, void* dh0, void* dc0, float* ws, int T,
+                     int B, int H, int hb, cudaStream_t s) {
+  cudaError_t e = bwd_tc<G, 8, 2>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
+                                  dc0, ws, T, B, H, hb, s);
+  if (e == cudaErrorCooperativeLaunchTooLarge)
+    e = bwd_tc<G, 16, 2>(gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T,
+                         B, H, hb, s);
+  return e;
+}
+
+// The routing rule (kernels/lstm_block.py::tensor_core), JAX's cast points:
+// the forward's h @ W is a product of two bf16 operands exactly when the
+// carry and W are bf16 (types 3); the backward's dgates.astype(W's type)
+// @ W^T whenever W is bf16 (types & 2).
+bool chain_tc(int types, bool backward) {
+  return backward ? (types & 2) != 0 : types == 3;
+}
+
 bool valid(int T, int B, int H, int G) {
   return T >= 1 && B >= 1 && H >= 1 && (G == 4 || G == 5);
 }
@@ -571,41 +1225,59 @@ extern "C" {
 
 // x [T, B, G*H], h0 / c0 [B, H], w [H, G*H] -> hs, cs [T, B, H], gates
 // [T, B, G*H]; x and the gates f32, `types` bit 0: the carry (h0, c0, hs,
-// cs) bf16, bit 1: w bf16
+// cs) bf16, bit 1: w bf16. *route: 1 where the tensor-core instance ran
+// (chain_tc), else 0.
 int lstm_chain_fwd_mixed(const float* x, const void* h0, const void* c0,
                          const void* w, void* hs, void* cs, float* gates,
-                         int T, int B, int H, int G, int types,
+                         int T, int B, int H, int G, int types, int* route,
                          void* stream) {
   if (!valid(T, B, H, G) || types < 0 || types > 3)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int hb = types & 1, wb = (types >> 1) & 1;
+  *route = chain_tc(types, false);
+  if (*route)
+    return (int)(G == 4 ? fwd_tc_g<4>(x, h0, c0, w, hs, cs, gates, T, B, H,
+                                      s)
+                        : fwd_tc_g<5>(x, h0, c0, w, hs, cs, gates, T, B, H,
+                                      s));
   return (int)(G == 4 ? fwd_g<4>(x, h0, c0, w, hs, cs, gates, T, B, H, hb,
                                  wb, s)
                       : fwd_g<5>(x, h0, c0, w, hs, cs, gates, T, B, H, hb,
                                  wb, s));
 }
 
-// Floats of the backward's workspace (two buffers of every block's partial
-// dh [B, H padded to 32]) into *n; 0 when H is too wide for a launch.
+// Floats of the backward's workspace into *n, for either instance: the FMA
+// core's two buffers of every block's partial dh [B, H padded to 32], the
+// tensor-core instance's two buffers of dgates_t in bf16 [B, G*H padded to
+// 32]; 0 when H is too wide for a launch.
 int lstm_chain_bwd_ws_f32(int B, int H, long long* n) {
   const int u = units_per_block(H);
-  *n = u ? 2LL * ((H + u - 1) / u) * B * round_up(H, 32) : 0;
+  const long long fma = 2LL * ((H + u - 1) / u) * B * round_up(H, 32);
+  const long long tc = (long long)B * round_up(5 * H, 32);   // bf16 [2][B][.]
+  *n = u ? (fma > tc ? fma : tc) : 0;
   return 0;
 }
 
 // gates [T, B, G*H], cs / dhs / dcs [T, B, H], c0 [B, H], w [H, G*H], ws
 // (lstm_chain_bwd_ws_f32 floats) -> dgates [T, B, G*H], dh0 / dc0 [B, H]
-// (the carry: cs, c0, dhs, dcs, dh0, dc0; `types` as the forward's)
+// (the carry: cs, c0, dhs, dcs, dh0, dc0; `types` and *route as the
+// forward's)
 int lstm_chain_bwd_mixed(const float* gates, const void* cs, const void* c0,
                          const void* dhs, const void* dcs, const void* w,
                          float* dgates, void* dh0, void* dc0, float* ws,
-                         int T, int B, int H, int G, int types,
+                         int T, int B, int H, int G, int types, int* route,
                          void* stream) {
   if (!valid(T, B, H, G) || types < 0 || types > 3)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int hb = types & 1, wb = (types >> 1) & 1;
+  *route = chain_tc(types, true);
+  if (*route)
+    return (int)(G == 4 ? bwd_tc_g<4>(gates, cs, c0, dhs, dcs, w, dgates,
+                                      dh0, dc0, ws, T, B, H, hb, s)
+                        : bwd_tc_g<5>(gates, cs, c0, dhs, dcs, w, dgates,
+                                      dh0, dc0, ws, T, B, H, hb, s));
   return (int)(G == 4 ? bwd_g<4>(gates, cs, c0, dhs, dcs, w, dgates, dh0,
                                  dc0, ws, T, B, H, hb, wb, s)
                       : bwd_g<5>(gates, cs, c0, dhs, dcs, w, dgates, dh0,

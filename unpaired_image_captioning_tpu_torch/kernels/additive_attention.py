@@ -20,8 +20,10 @@ no gradient (the JAX function is jit only): it raises when an input
 requires one while grad mode is on. `launches`, `beams_launches` and
 `step_launches` count kernel launches; `bf16_launches`,
 `beams_bf16_launches` and `step_bf16_launches` those of them with a bf16
-operand. Any widths A, D and H are taken (float4 loads where they are
-multiples of 4, scalar ones otherwise).
+operand, `step_bf16w_launches` the decode steps whose two products read a
+bf16 copy of their weights (decode_gemm's converting loads). Any widths A,
+D and H are taken (float4 loads where they are multiples of 4, scalar ones
+otherwise).
 
 Types (ROADMAP A15): every operand may be f32 or bf16, as the TPU kernels
 read each in its own type and compute in f32; the attentions' outputs take
@@ -49,6 +51,7 @@ step_launches = 0     # fused_att_lstm_att
 bf16_launches = 0          # of those, with a bf16 operand
 beams_bf16_launches = 0
 step_bf16_launches = 0
+step_bf16w_launches = 0    # decode steps with bf16 product weights
 
 _TYPES = (torch.float32, torch.bfloat16)
 
@@ -173,7 +176,7 @@ def fused_att_lstm_att(p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1,
     `ops.attention.att_lstm_att_plain`); returns (h1, c1, att2). Raises
     when an input requires a gradient while grad mode is on: it has no
     backward and must not return a tensor cut off from the graph."""
-    global step_launches, step_bf16_launches
+    global step_launches, step_bf16_launches, step_bf16w_launches
     args = (p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1, b1, emb2_w,
             emb2_b, h2att2_w, h2att2_b, alpha1, alpha2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -221,4 +224,5 @@ def fused_att_lstm_att(p_att, att_emb, mask, q1, h0d, h1_prev, c1_prev, w1,
     build.check(err, "att_lstm_att_mixed")
     step_launches += 1
     step_bf16_launches += types != 0
+    step_bf16w_launches += (types >> 7) & 1
     return h1, c1, att2

@@ -112,11 +112,12 @@ SIGNATURES = {
     # Wo, obf (out bf16), stream
     "image_front_end_mixed": (_P,) * 8 + (_I,) * 7 + (_P,),
     # x, h0, c0, w, hs, cs, gates, T, B, H, G, types (the carry, w each
-    # f32 or bf16), stream
-    "lstm_chain_fwd_mixed": (_P,) * 7 + (_I,) * 5 + (_P,),
-    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H, G, types,
+    # f32 or bf16), route (host int: 1 where the tensor-core instance ran),
     # stream
-    "lstm_chain_bwd_mixed": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "lstm_chain_fwd_mixed": (_P,) * 7 + (_I,) * 5 + (_P, _P),
+    # gates, cs, c0, dhs, dcs, w, dgates, dh0, dc0, ws, T, B, H, G, types,
+    # route, stream
+    "lstm_chain_bwd_mixed": (_P,) * 10 + (_I,) * 5 + (_P, _P),
     # B, H, out int64 [1] -> floats of the chain backward's workspace
     "lstm_chain_bwd_ws_f32": (_I, _I, _P),
     # H -> blocks of a chain launch (0: too wide)

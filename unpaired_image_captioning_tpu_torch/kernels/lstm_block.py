@@ -14,14 +14,27 @@ contiguous), raising on anything else, including a shape whose grid cannot
 be co-resident on the card; they never route a CUDA tensor to the plain
 version. Each kernel is one cooperative launch a chain: `fwd_launches` and
 `bwd_launches` count them, `fwd_bf16_launches` and `bwd_bf16_launches`
-those with a bf16 operand. The backward's workspace (two buffers of every
-block's partial dh, sized by the CUDA source) is allocated here.
+those with a bf16 operand, `tc_fwd_launches` and `tc_bwd_launches` those
+that ran the tensor-core instance. The backward's workspace (the FMA
+core's partial dh sums or the tensor-core instance's bf16 dgates, sized by
+the CUDA source) is allocated here.
 
 Types (ROADMAP A15): x_contrib and the gates f32; the carry (h0, c0 and
 their cotangents) of one type and w_h2h, each f32 or bf16 (the cast points
 are `ops/lstm_block.py`'s). Any other mixture raises, naming it; a CUDA
 tensor is never converted to reach another entry. dW = hs_prev^T @ dgates
 is taken in f32 and returned in w_h2h's type, as JAX's is.
+
+`tensor_core(types, backward)` is the routing rule, JAX's cast points: the
+forward's `jnp.dot(h_scr, w)` multiplies two bf16 operands exactly when the
+carry and w_h2h are bf16 (an f32 operand promotes the product to f32), and
+the backward's `jnp.dot(dgates.astype(wT.dtype), wT)` whenever w_h2h is
+bf16, whatever the carry's type. Those calls run the tensor-core instances
+(bf16 products with f32 sums, `mma.sync`); the rest the f32 FMA core, which
+converts each bf16 operand as it loads it. The C entries report the route
+they ran and the wrappers raise where it differs from the rule. A shape
+either instance cannot take raises, naming the instance; nothing falls
+back to the other.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ fwd_launches = 0
 bwd_launches = 0
 fwd_bf16_launches = 0
 bwd_bf16_launches = 0
+tc_fwd_launches = 0
+tc_bwd_launches = 0
 
 _TYPES = (torch.float32, torch.bfloat16)
 
@@ -62,6 +77,12 @@ def _mixture(name: str, f32: dict, carry: dict, w) -> int:
             | int(w.dtype == torch.bfloat16) << 1)
 
 
+def tensor_core(types: int, backward: bool) -> bool:
+    """The routing rule: whether a mixture (`_mixture`'s bits: 1 the carry,
+    2 w_h2h bf16) runs the tensor-core instance in that direction."""
+    return bool(types & 2) if backward else types == 3
+
+
 def _check(name: str, tensors: dict, device) -> None:
     for key, (t, shape) in tensors.items():
         if t.device != device:
@@ -82,17 +103,21 @@ def _gates(gh: int, hidden: int, maxout: bool) -> int:
     return g
 
 
-def _raise_on(err: int, name: str, shape) -> None:
+def _raise_on(err: int, name: str, shape, tc: bool, route: int) -> None:
+    instance = "tensor-core instance" if tc else "f32 FMA core"
     if err == _TOO_LARGE:
-        raise RuntimeError(f"{name}: the grid for {shape} cannot be "
-                           f"co-resident on this card (cooperative launch "
-                           f"refused)")
+        raise RuntimeError(f"{name} ({instance}): the grid for {shape} "
+                           f"cannot be co-resident on this card (cooperative "
+                           f"launch refused)")
     build.check(err, name)
+    if route != tc:
+        raise RuntimeError(f"{name}: ran the route {route}, the rule gives "
+                           f"the {instance}")
 
 
 def chain_fwd(x_contrib, h0, c0, w_h2h, *, maxout: bool):
     """(hs, cs [T, B, H] in the carry's type, gates [T, B, G*H] f32)."""
-    global fwd_launches, fwd_bf16_launches
+    global fwd_launches, fwd_bf16_launches, tc_fwd_launches
     if x_contrib.device.type == "cpu":
         return chain_fwd_plain(x_contrib, h0, c0, w_h2h, maxout=maxout)
     if x_contrib.device.type != "cuda":
@@ -110,19 +135,22 @@ def chain_fwd(x_contrib, h0, c0, w_h2h, *, maxout: bool):
     gates = torch.empty_like(x_contrib)
     lib = build.load()
     stream = torch.cuda.current_stream(x_contrib.device).cuda_stream
+    route = ctypes.c_int(-1)
     err = lib.lstm_chain_fwd_mixed(
         x_contrib.data_ptr(), h0.data_ptr(), c0.data_ptr(), w_h2h.data_ptr(),
         hs.data_ptr(), cs.data_ptr(), gates.data_ptr(), t, b, hidden, g,
-        types, stream)
-    _raise_on(err, "lstm_chain_fwd_mixed", (t, b, gh))
+        types, ctypes.byref(route), stream)
+    tc = tensor_core(types, False)
+    _raise_on(err, "lstm_chain_fwd_mixed", (t, b, gh), tc, route.value)
     fwd_launches += 1
     fwd_bf16_launches += types != 0
+    tc_fwd_launches += tc
     return hs, cs, gates
 
 
 def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
     """(dgates [T, B, G*H] f32, dh0, dc0 [B, H] in the carry's type)."""
-    global bwd_launches, bwd_bf16_launches
+    global bwd_launches, bwd_bf16_launches, tc_bwd_launches
     if gates.device.type == "cpu":
         return chain_bwd_plain(gates, cs, c0, dhs, dcs, w_h2h, maxout=maxout)
     if gates.device.type != "cuda":
@@ -146,13 +174,17 @@ def chain_bwd(gates, cs, c0, dhs, dcs, w_h2h, *, maxout: bool):
     ws = torch.empty((max(n.value, 1),), dtype=torch.float32,
                      device=gates.device)
     stream = torch.cuda.current_stream(gates.device).cuda_stream
+    route = ctypes.c_int(-1)
     err = lib.lstm_chain_bwd_mixed(
         gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), dhs.data_ptr(),
         dcs.data_ptr(), w_h2h.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-        dc0.data_ptr(), ws.data_ptr(), t, b, hidden, g, types, stream)
-    _raise_on(err, "lstm_chain_bwd_mixed", (t, b, gh))
+        dc0.data_ptr(), ws.data_ptr(), t, b, hidden, g, types,
+        ctypes.byref(route), stream)
+    tc = tensor_core(types, True)
+    _raise_on(err, "lstm_chain_bwd_mixed", (t, b, gh), tc, route.value)
     bwd_launches += 1
     bwd_bf16_launches += types != 0
+    tc_bwd_launches += tc
     return dgates, dh0, dc0
 
 
